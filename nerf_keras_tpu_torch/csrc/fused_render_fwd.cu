@@ -3,7 +3,7 @@
 // Replaces the TPU kernel `_fwd_encode_kernel`
 // (nerf_keras_tpu/ops/pallas/fused_render.py:709, launched by the
 // pl.pallas_call at :810, entry `render_rays_fused` at :1004), in its
-// forward form (no encoding residual).
+// forward form and in its training form (`emit_enc=True`, :724-735).
 //
 // What it computes, per ray, without leaving on-chip memory between steps:
 //   points o + t*d (f32) -> Fourier encode of points (63 wide) and of the
@@ -17,25 +17,36 @@
 // post-ReLU hidden, and the feature before the concat.  sigma and rgb
 // logits stay f32.
 //
+// Training mode (two optional outputs, null = not written):
+//   * x_enc_out (B*S, 3+6L) bf16: the position encodings, the TPU kernel's
+//     residual.  They are the values the first product already rounds, so
+//     they change no numerics;
+//   * preds_out (B*S, 4) f32: rgb logits and sigma per sample (16 B per
+//     sample).  The TPU kernel holds whole rays in VMEM and its backward
+//     recomputes the MLP once and composites in place; this kernel streams
+//     64-sample tiles of a ray and composites at the end, so a backward
+//     without the stored predictions would have to run the forward twice
+//     (once for the ray's alpha/transmittance, once for the activations).
+//     With them K2 runs the per-ray compositing VJP first and then one
+//     recompute per tile.
+//
 // What bounds it on this card: about 1.19 MFLOP of matmul per sample at
 // full width (8x256 trunk with the skip, heads and branch), against a few
 // bytes of input per sample (o, d per ray; one t per sample) and two
-// small outputs.  So the tensor cores bound it, not device memory.
+// small outputs (plus 142 B per sample in training mode).  So the tensor
+// cores bound it, not device memory.
 //
 // What the design does about that:
 //   * A block of 8 warps owns R whole rays (R = max(1, 64 / S)) and
 //     streams 64-sample tiles through the whole MLP.  Activations stay in
 //     shared memory as bf16 (two ping-pong buffers of 64 x (hidden+72)),
 //     so no per-layer activation ever touches device memory.
-//   * Products use mma.sync m16n8k16 (bf16 in, f32 accumulate).  Each
-//     warp owns a set of 8-column output tiles and all 64 rows of the
-//     tile.  Row stride of the activation buffers is padded by 8 bf16 so
-//     the A-fragment loads hit 32 distinct banks.
+//   * Products use mma.sync m16n8k16 (bf16 in, f32 accumulate), as the
+//     tile product of nerf_tile.cuh: each warp owns a set of 8-column
+//     output tiles and all 64 rows of the tile.
 //   * Weights (~1.2 MB bf16 per MLP) are read from global memory and stay
-//     in L2.  They are packed once per checkpoint as W^T with each
-//     16-wide k-group interleaved [0,1,8,9,2,3,10,11,...], so a thread's
-//     B fragment is one 8-byte load; the next k-step's fragments are
-//     loaded before the current step's products (one-step prefetch).
+//     in L2, packed once per set of weights as interleaved W^T (one-step
+//     prefetch of the B fragments).
 //   * Per-sample (sigma, rgb) go to shared memory; at the end one warp
 //     per ray runs the transmittance scan in sample order (a chunk per
 //     lane plus a multiplicative warp scan) and writes weights and rgb.
@@ -49,28 +60,11 @@
 //        octave's argument is 2^9*|p|, thousands of radians, where the
 //        fast sin is wrong).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "nerf_tile.cuh"
+
+using namespace nkt;
 
 namespace {
-
-constexpr int kTileRows = 64;
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kNB = 4;  // 8-column output tiles per warp per pass
-constexpr int kMaxDense = 16;
-constexpr int kMaxSmem = 232448;
-constexpr float kEps = 1e-10f;
-constexpr float kTerminalDelta = 1e10f;
-
-struct Dense {
-  int k_pad;  // input width, padded to 16 (rows of W, zero-filled)
-  int n;      // true output width
-  int n_pad;  // output width padded to 8
-  int w_off;  // offset of W^T (n_pad, k_pad) in the bf16 pack
-  int b_off;  // offset of the bias (n_pad) in the f32 pack
-};
 
 struct Params {
   const float* origins;  // (B, 3)
@@ -78,152 +72,15 @@ struct Params {
   const float* t_vals;   // (B, S)
   const __nv_bfloat16* w;
   const float* b;
-  float* rgb_out;  // (B, 3)
-  float* w_out;    // (B, S)
+  float* rgb_out;           // (B, 3)
+  float* w_out;             // (B, S)
+  __nv_bfloat16* xenc_out;  // (B*S, xyz_dim) or null
+  float* preds_out;         // (B*S, 4) or null
   int B, S, R;
   int num_layers, skip_layer, hidden;
   int l_xyz, l_dir, xyz_dim, xyz_pad, dir_dim, dir_pad, ldx;
   Dense dense[kMaxDense];
 };
-
-enum Epilogue { kReluBf16 = 0, kFeatureSigma = 1, kRgbLogits = 2 };
-
-__device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Column c of the encoding of a D=3 coordinate x with `dim` = 3 + 6L
-// columns: [x | sin 2^0 x, cos 2^0 x | ... ]; 0 beyond `dim` (padding).
-__device__ __forceinline__ float encode_feature(const float* x, int c, int dim) {
-  if (c < 3) return x[c];
-  if (c >= dim) return 0.f;
-  const int k = c - 3;
-  const int octave = k / 6;
-  const int w = k - octave * 6;
-  const int d = w < 3 ? w : w - 3;
-  const float arg = x[d] * (float)(1 << octave);  // exact: power of two
-  return w < 3 ? sinf(arg) : cosf(arg);
-}
-
-// out = epilogue(in[64, k_pad] @ W + b).  `in` and `out` are bf16 tiles in
-// shared memory with row stride ldx.  Warp w computes 8-column tiles
-// w, w+8, w+16, ... in passes of kNB tiles.  No block-level sync inside.
-template <int MODE>
-__device__ __forceinline__ void dense_layer(const Params& p, const Dense& L,
-                                            const __nv_bfloat16* in,
-                                            __nv_bfloat16* out, float* sig,
-                                            float* rgbl, int rows_valid) {
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int tg = lane & 3;
-  const int ldx = p.ldx;
-  const int nt_total = L.n_pad >> 3;
-  const int ksteps = L.k_pad >> 4;
-  const __nv_bfloat16* W = p.w + L.w_off;
-  const float* bias = p.b + L.b_off;
-
-  for (int pass = 0; pass * kWarps * kNB < nt_total; ++pass) {
-    int tile[kNB];
-    bool valid[kNB];
-#pragma unroll
-    for (int s = 0; s < kNB; ++s) {
-      tile[s] = warp + kWarps * (pass * kNB + s);
-      valid[s] = tile[s] < nt_total;
-    }
-    if (!valid[0]) continue;  // warp-uniform
-
-    const uint2* bptr[kNB];
-#pragma unroll
-    for (int s = 0; s < kNB; ++s) {
-      const int n = (valid[s] ? tile[s] : 0) * 8 + g;
-      bptr[s] = reinterpret_cast<const uint2*>(W + (size_t)n * L.k_pad + tg * 4);
-    }
-
-    float acc[4][kNB][4];
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-      for (int s = 0; s < kNB; ++s)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mt][s][e] = 0.f;
-
-    uint2 bcur[kNB], bnxt[kNB];
-#pragma unroll
-    for (int s = 0; s < kNB; ++s)
-      bcur[s] = valid[s] ? __ldg(bptr[s]) : make_uint2(0u, 0u);
-
-    for (int ks = 0; ks < ksteps; ++ks) {
-      // One k-step = 16 bf16 = 32 bytes = 4 uint2 along the packed row.
-#pragma unroll
-      for (int s = 0; s < kNB; ++s)
-        bnxt[s] = (valid[s] && ks + 1 < ksteps) ? __ldg(bptr[s] + (ks + 1) * 4)
-                                                 : make_uint2(0u, 0u);
-      uint32_t a[4][4];
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        const __nv_bfloat16* r0 = in + (mt * 16 + g) * ldx + ks * 16 + tg * 2;
-        const __nv_bfloat16* r1 = r0 + 8 * ldx;
-        a[mt][0] = *reinterpret_cast<const uint32_t*>(r0);
-        a[mt][1] = *reinterpret_cast<const uint32_t*>(r1);
-        a[mt][2] = *reinterpret_cast<const uint32_t*>(r0 + 8);
-        a[mt][3] = *reinterpret_cast<const uint32_t*>(r1 + 8);
-      }
-#pragma unroll
-      for (int s = 0; s < kNB; ++s) {
-        if (!valid[s]) continue;
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt)
-          mma_bf16_16816(acc[mt][s], a[mt], bcur[s].x, bcur[s].y);
-      }
-#pragma unroll
-      for (int s = 0; s < kNB; ++s) bcur[s] = bnxt[s];
-    }
-
-    // Epilogue: thread holds rows (mt*16+g, +8), columns (c0, c0+1).
-#pragma unroll
-    for (int s = 0; s < kNB; ++s) {
-      if (!valid[s]) continue;
-      const int c0 = tile[s] * 8 + tg * 2;
-      const float b0 = bias[c0];
-      const float b1 = bias[c0 + 1];
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int row = mt * 16 + g + half * 8;
-          const float v0 = acc[mt][s][half * 2 + 0] + b0;
-          const float v1 = acc[mt][s][half * 2 + 1] + b1;
-          if (MODE == kReluBf16) {
-            *reinterpret_cast<__nv_bfloat162*>(out + row * ldx + c0) =
-                __floats2bfloat162_rn(fmaxf(v0, 0.f), fmaxf(v1, 0.f));
-          } else if (MODE == kFeatureSigma) {
-            // Columns [0, hidden) are the feature, column hidden is sigma.
-            const int hid = L.n - 1;
-            if (c0 + 1 < hid) {
-              *reinterpret_cast<__nv_bfloat162*>(out + row * ldx + c0) =
-                  __floats2bfloat162_rn(v0, v1);
-            } else if (c0 == hid) {
-              if (row < rows_valid) sig[row] = v0;
-            }
-          } else {  // kRgbLogits
-            if (row < rows_valid) {
-              if (c0 < 3) rgbl[row * 3 + c0] = v0;
-              if (c0 + 1 < 3) rgbl[row * 3 + c0 + 1] = v1;
-            }
-          }
-        }
-      }
-    }
-  }
-}
-
-__device__ __forceinline__ float sigmoidf_(float x) { return 1.f / (1.f + expf(-x)); }
 
 __global__ void __launch_bounds__(kThreads)
     fused_render_fwd_kernel(const __grid_constant__ Params p) {
@@ -288,14 +145,20 @@ __global__ void __launch_bounds__(kThreads)
           __float2bfloat16_rn(encode_feature(pts + row * 4, c, p.xyz_dim));
       buf0[row * ldx + c] = v;
       xenc[i] = v;
+      if (p.xenc_out != nullptr && row < rows_valid && c < p.xyz_dim)
+        p.xenc_out[((size_t)r0 * S + q0 + row) * p.xyz_dim + c] = v;
     }
     __syncthreads();
 
     __nv_bfloat16* in = buf0;
     __nv_bfloat16* out = buf1;
+    Epi e{};
+    e.rows_valid = rows_valid;
     for (int i = 0; i < p.num_layers; ++i) {
-      dense_layer<kReluBf16>(p, p.dense[i], in, out, nullptr, nullptr, 0);
-      if (i % p.skip_layer == 0 && i > 0) {
+      e.out = out;
+      e.bias = p.b + p.dense[i].b_off;
+      tile_gemm<kReluBf16>(p.w, p.dense[i], in, ldx, e);
+      if (is_skip(i, p.skip_layer)) {
         for (int j = tid; j < kTileRows * p.xyz_pad; j += kThreads) {
           const int row = j / p.xyz_pad, c = j - row * p.xyz_pad;
           out[row * ldx + H + c] = xenc[j];
@@ -308,8 +171,11 @@ __global__ void __launch_bounds__(kThreads)
     }
     // Merged feature+sigma head; the direction features fill the columns
     // after the feature, so `out` becomes the branch input [feature, d_enc].
-    dense_layer<kFeatureSigma>(p, p.dense[p.num_layers], in, out, sig + q0,
-                               nullptr, rows_valid);
+    const Dense& fs = p.dense[p.num_layers];
+    e.out = out;
+    e.bias = p.b + fs.b_off;
+    e.sig = sig + q0;
+    tile_gemm<kFeatureSigma>(p.w, fs, in, ldx, e);
     for (int j = tid; j < kTileRows * p.dir_pad; j += kThreads) {
       const int row = j / p.dir_pad, c = j - row * p.dir_pad;
       const int q = q0 + row;
@@ -317,12 +183,22 @@ __global__ void __launch_bounds__(kThreads)
           q < P ? denc[(q / S) * p.dir_pad + c] : __float2bfloat16_rn(0.f);
     }
     __syncthreads();
-    dense_layer<kReluBf16>(p, p.dense[p.num_layers + 1], out, in, nullptr,
-                           nullptr, 0);
+    e.out = in;
+    e.bias = p.b + p.dense[p.num_layers + 1].b_off;
+    tile_gemm<kReluBf16>(p.w, p.dense[p.num_layers + 1], out, ldx, e);
     __syncthreads();
-    dense_layer<kRgbLogits>(p, p.dense[p.num_layers + 2], in, out, nullptr,
-                            rgbl + q0 * 3, rows_valid);
+    e.out = out;
+    e.bias = p.b + p.dense[p.num_layers + 2].b_off;
+    e.rgbl = rgbl + q0 * 3;
+    tile_gemm<kRgbLogits>(p.w, p.dense[p.num_layers + 2], in, ldx, e);
     __syncthreads();
+  }
+
+  if (p.preds_out != nullptr) {
+    for (int i = tid; i < P * 4; i += kThreads) {
+      const int q = i >> 2, c = i & 3;
+      p.preds_out[(size_t)r0 * S * 4 + i] = c < 3 ? rgbl[q * 3 + c] : sig[q];
+    }
   }
 
   // Transmittance scan: one warp per ray, a contiguous chunk per lane.
@@ -375,21 +251,20 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-int round_up(int x, int m) { return (x + m - 1) / m * m; }
-
 }  // namespace
 
 // Plain C entry point, loaded with ctypes.  `dense_desc` is a HOST array of
 // n_dense * 5 ints (k_pad, n, n_pad, w_off, b_off) in the order
-// trunk[0..num_layers), merged feature+sigma head, branch, rgb.  Launches
-// on `stream` and returns cudaGetLastError() (0 on success); does not
+// trunk[0..num_layers), merged feature+sigma head, branch, rgb.
+// `xenc_out` and `preds_out` may be null (forward only).  Launches on
+// `stream` and returns cudaGetLastError() (0 on success); does not
 // synchronise and allocates nothing.
 extern "C" int nkt_fused_render_fwd(
     const void* origins, const void* dirs, const void* t_vals,
     const void* w_pack, const void* b_pack, const void* dense_desc,
     int n_dense, int num_layers, int skip_layer, int hidden, int l_xyz,
-    int l_dir, int B, int S, void* rgb_out, void* w_out, int device,
-    void* stream) {
+    int l_dir, int B, int S, void* rgb_out, void* w_out, void* xenc_out,
+    void* preds_out, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (B <= 0 || S < 2 || num_layers < 1 || skip_layer < 1 ||
@@ -405,6 +280,8 @@ extern "C" int nkt_fused_render_fwd(
   p.b = static_cast<const float*>(b_pack);
   p.rgb_out = static_cast<float*>(rgb_out);
   p.w_out = static_cast<float*>(w_out);
+  p.xenc_out = static_cast<__nv_bfloat16*>(xenc_out);
+  p.preds_out = static_cast<float*>(preds_out);
   p.B = B;
   p.S = S;
   p.R = S >= kTileRows ? 1 : kTileRows / S;

@@ -1,33 +1,88 @@
-"""Trainer: owns the coarse+fine models and renders frames from them.
+"""Trainer: owns the models, trains them and renders frames from them.
 
-Counterpart of ``nerf_keras_tpu/engine/trainer.py``, render half only:
-``restore``, ``replace_params``, ``eval_params``, ``pose_rays``,
-``render_rays`` and ``render_image``.  Training methods arrive in later
-PRs.  One device, no mesh: ``device`` is resolved explicitly.
+Counterpart of ``nerf_keras_tpu/engine/trainer.py``.  One device, no mesh:
+``device`` is resolved explicitly.
+
+* ``TRAIN_SAMPLER=proposal``: ``{'proposal', 'fine'}`` models initialized
+  from ``cfg.seed``, the Adam state, the EMA shadow (EMA_DECAY > 0, a copy
+  of the params at init), the step count and a ``torch.Generator`` on the
+  device (seeded from ``cfg.seed``) that draws the t-values and the
+  chain's uniforms.  ``train_step``, ``train_epoch``, ``evaluate`` and the
+  proposal render.
+* ``TRAIN_SAMPLER=coarse``: ``{'coarse', 'fine'}`` models that render only
+  (``requires_grad`` off); their training is later work.
+
+``restore``/``save`` read and write the JAX package's ``.ckpt.npz`` key
+format (params, EMA, step; the optimizer restarts from zero moments).
 """
 
 from __future__ import annotations
 
+import copy
+from typing import Iterable
+
 import numpy as np
 import torch
+from torch import nn
 
 from nerf_keras_tpu.config import NeRFConfig
-from nerf_keras_tpu_torch.engine.step import make_render_fn
+from nerf_keras_tpu_torch.engine.step import (
+    TrainState,
+    check_train_support,
+    make_eval_step,
+    make_optimizer,
+    make_render_fn,
+    make_train_step,
+    params_of,
+)
 from nerf_keras_tpu_torch.models.mlp import NeRFMLP
+from nerf_keras_tpu_torch.ops.proposal import (
+    chain_nets,
+    init_proposal_chain,
+    proposal_to_jax,
+)
 from nerf_keras_tpu_torch.ops.rays import get_rays
 from nerf_keras_tpu_torch.runtime import resolve_device
 from nerf_keras_tpu_torch.utils.checkpoint import (
     check_render_support,
     load_checkpoint,
+    save_params_npz,
 )
-
-_MODELS = ("coarse", "fine")
 
 
 def rgb_to_u8(rgb: torch.Tensor) -> torch.Tensor:
     """[0,1] f32 -> uint8 on the device: clip*255 then a truncating cast,
     exactly the host-side ``utils/image.to_uint8``."""
     return torch.clamp(255.0 * rgb, 0.0, 255.0).to(torch.uint8)
+
+
+def _to_jax(models: dict[str, nn.Module], grad: bool = False) -> dict:
+    """``{name: JAX-layout tree}`` of the models' parameters (or grads)."""
+    return {name: (proposal_to_jax(m, grad) if name == "proposal" else m.to_jax_params(grad))
+            for name, m in models.items()}
+
+
+def _load(models: dict[str, nn.Module], tree: dict) -> None:
+    """Copy a ``{name: JAX-layout tree}`` into the models, in place."""
+    for name, m in models.items():
+        if name != "proposal":
+            m.load_jax_params(tree[name])
+            continue
+        nets = chain_nets(m)
+        sub = tree[name]
+        trees = [sub] if "layers" in sub else [sub[f"l{i + 1}"] for i in range(len(sub))]
+        if len(trees) != len(nets):
+            raise ValueError(f"checkpoint has {len(trees)} proposal level(s), "
+                             f"the config {len(nets)}")
+        for net, t in zip(nets, trees):
+            net.load_jax_params(t)
+
+
+def _realize_means(acc: dict[str, list[torch.Tensor]]) -> dict[str, float]:
+    """Per-metric means with one device-to-host copy."""
+    keys = list(acc)
+    vec = torch.stack([torch.stack(acc[k]).mean() for k in keys]).cpu().numpy()
+    return {k: float(v) for k, v in zip(keys, vec)}
 
 
 class Trainer:
@@ -45,63 +100,133 @@ class Trainer:
         self.near = float(near)
         self.far = float(far)
         self.device = resolve_device(None if device is None else str(device))
-        self.step = 0
+        self.proposal = cfg.train_sampler == "proposal"
+        if self.proposal:
+            check_train_support(cfg, self.device)
         gen = torch.Generator().manual_seed(cfg.seed)
         dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
 
-        def build() -> dict[str, NeRFMLP]:
-            return {
-                name: NeRFMLP(
-                    num_layers=cfg.num_layers, hidden_dim=cfg.hidden_dim,
-                    skip_layer=cfg.skip_layer, l_xyz=cfg.l_xyz, l_dir=cfg.l_dir,
-                    batch_norm=cfg.batch_norm, compute_dtype=dtype,
-                    generator=gen, device=self.device,
-                ).eval().requires_grad_(False)
-                for name in _MODELS
-            }
+        def nerf() -> NeRFMLP:
+            return NeRFMLP(
+                num_layers=cfg.num_layers, hidden_dim=cfg.hidden_dim,
+                skip_layer=cfg.skip_layer, l_xyz=cfg.l_xyz, l_dir=cfg.l_dir,
+                batch_norm=cfg.batch_norm, compute_dtype=dtype,
+                generator=gen, device=self.device,
+            )
 
-        self.params = build()
-        # The EMA shadow (EMA_DECAY > 0) serves every render, as in the JAX
-        # package's Trainer._eval_state.
-        self.ema = build() if cfg.ema_decay > 0 else None
-        if self.ema is not None:
-            self._load(self.ema, self._jax_tree(self.params))
+        if self.proposal:
+            self.params = {
+                "proposal": init_proposal_chain(
+                    cfg.prop_levels, cfg.prop_l_xyz, cfg.prop_hidden,
+                    cfg.prop_depth, generator=gen, device=self.device),
+                "fine": nerf(),
+            }
+        else:
+            self.params = {name: nerf().eval().requires_grad_(False)
+                           for name in ("coarse", "fine")}
+        # The EMA shadow (EMA_DECAY > 0) serves every render and eval, as
+        # in the JAX package's Trainer._eval_state.
+        self.ema = None
+        if cfg.ema_decay > 0:
+            self.ema = {k: copy.deepcopy(m).requires_grad_(False)
+                        for k, m in self.params.items()}
+        self.state = TrainState(self.params, None, self.ema)
+        if self.proposal:
+            self.state.opt = self._new_optimizer()
+            self._train_step = make_train_step(cfg, self.near, self.far)
+            self._eval_step = make_eval_step(cfg, self.near, self.far)
+            self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
         self._render = make_render_fn(cfg, self.near, self.far)
 
-    @staticmethod
-    def _jax_tree(models: dict[str, NeRFMLP]) -> dict:
-        return {name: mlp.to_jax_params() for name, mlp in models.items()}
+    def _new_optimizer(self):
+        return make_optimizer(self.cfg, params_of(self.params)) if self.proposal else None
 
-    @staticmethod
-    def _load(models: dict[str, NeRFMLP], tree: dict) -> None:
-        for name in _MODELS:
-            models[name].load_jax_params(tree[name])
+    @property
+    def step(self) -> int:
+        return self.state.step
+
+    @step.setter
+    def step(self, value: int) -> None:
+        self.state.step = value
 
     def restore(self, path: str) -> "Trainer":
         """Load a ``.ckpt.npz`` (JAX key format) into this trainer.  With
         EMA on, a checkpoint without a shadow seeds it from its params
-        (the JAX package's forward-compat rule)."""
+        (the JAX package's forward-compat rule).  Adam restarts."""
         ckpt = load_checkpoint(path)
         check_render_support(self.cfg, step=ckpt["step"])
-        self._load(self.params, ckpt["params"])
+        _load(self.params, ckpt["params"])
         if self.ema is not None:
-            self._load(self.ema, ckpt["ema"] if ckpt["ema"] is not None
-                       else ckpt["params"])
+            _load(self.ema, ckpt["ema"] if ckpt["ema"] is not None else ckpt["params"])
         self.step = ckpt["step"]
+        self.state.opt = self._new_optimizer()
         return self
+
+    def save(self, path: str, scene: dict | None = None) -> None:
+        """Write params, EMA and step in the JAX key format (no Adam state)."""
+        save_params_npz(path, _to_jax(self.params), self.cfg, scene=scene,
+                        step=self.step,
+                        ema=_to_jax(self.ema) if self.ema is not None else None)
 
     def replace_params(self, params: dict) -> "Trainer":
-        """Install externally built ``{'coarse', 'fine'}`` JAX-layout
-        params.  With EMA on, the shadow resets to the new params."""
-        self._load(self.params, params)
+        """Install externally built JAX-layout params (``{'coarse',
+        'fine'}`` or ``{'proposal', 'fine'}``).  With EMA on, the shadow
+        resets to the new params; Adam restarts."""
+        _load(self.params, params)
         if self.ema is not None:
-            self._load(self.ema, params)
+            _load(self.ema, params)
+        self.state.opt = self._new_optimizer()
         return self
 
+    def params_tree(self, grad: bool = False) -> dict:
+        """The params (or, with ``grad``, the last step's gradients) as
+        ``{name: JAX-layout tree}`` of numpy arrays."""
+        return _to_jax(self.params, grad)
+
+    def ema_tree(self) -> dict | None:
+        return None if self.ema is None else _to_jax(self.ema)
+
     @property
-    def eval_params(self) -> dict[str, NeRFMLP]:
-        """Models every render consumes (the EMA shadow when enabled)."""
+    def eval_params(self) -> dict[str, nn.Module]:
+        """Models every eval and render consumes (the EMA shadow when on)."""
         return self.ema if self.ema is not None else self.params
+
+    # ------------------------------------------------------------------
+    def put_batch(self, batch) -> tuple[torch.Tensor, ...]:
+        """``(images, origins, dirs)`` as contiguous f32 tensors on the device."""
+        return tuple(torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x,
+                                     dtype=torch.float32, device=self.device).contiguous()
+                     for x in batch)
+
+    def train_step(self, batch, draws: dict | None = None) -> dict:
+        """One optimization step; metrics as 0-d device tensors (no host
+        sync).  ``draws`` replaces the generator's uniforms (tests)."""
+        if not self.proposal:
+            check_train_support(self.cfg, self.device)
+        return self._train_step(self.state, self.put_batch(batch), draws,
+                                self.generator)
+
+    def train_epoch(self, batches: Iterable) -> dict:
+        """Run all batches; epoch-mean metrics as floats, fetched from the
+        device once at the end."""
+        acc: dict[str, list] = {}
+        for batch in batches:
+            for k, v in self.train_step(batch).items():
+                acc.setdefault(k, []).append(v)
+        return _realize_means(acc)
+
+    def eval_step(self, batch) -> dict:
+        if not self.proposal:
+            check_train_support(self.cfg, self.device)
+        return self._eval_step(self.eval_params, self.put_batch(batch))
+
+    def evaluate(self, batches: Iterable) -> dict:
+        """Mean eval metrics over batches, fetched once."""
+        acc: dict[str, list] = {}
+        for batch in batches:
+            for k, v in self.eval_step(batch).items():
+                acc.setdefault(k, []).append(v)
+        return _realize_means(acc)
 
     # ------------------------------------------------------------------
     def pose_rays(
@@ -164,7 +289,10 @@ class Trainer:
         chunk: int = 16384, include_coarse: bool = False,
         uint8_rgb: bool = False, need_depth: bool = True,
     ) -> dict[str, np.ndarray]:
-        """Render one frame from a camera pose; returns HxW maps."""
+        """Render one frame from a camera pose; returns HxW maps (the
+        proposal render has no coarse maps)."""
+        if include_coarse and self.proposal:
+            raise ValueError("TRAIN_SAMPLER=proposal renders no coarse pass")
         origins, dirs = self.pose_rays(pose, height, width, focal)
         if include_coarse:
             keys = None

@@ -191,12 +191,15 @@ class NeRFMLP(nn.Module):
         return mlp.load_jax_params(params)
 
     @torch.no_grad()
-    def to_jax_params(self) -> dict:
-        """The JAX-layout params tree as float32 numpy arrays."""
+    def to_jax_params(self, grad: bool = False) -> dict:
+        """The JAX-layout params tree as float32 numpy arrays; with
+        ``grad`` the parameters' ``.grad`` in the same layout."""
+
+        def val(p: torch.Tensor) -> np.ndarray:
+            return (p.grad if grad else p).detach().float().cpu().numpy()
 
         def dense(layer: nn.Linear) -> dict:
-            return {"w": layer.weight.detach().cpu().numpy().T.copy(),
-                    "b": layer.bias.detach().cpu().numpy().copy()}
+            return {"w": val(layer.weight).T.copy(), "b": val(layer.bias).copy()}
 
         out = {"trunk": [dense(layer) for layer in self.trunk]}
         out.update({k: dense(layer) for k, layer in self.heads().items()})

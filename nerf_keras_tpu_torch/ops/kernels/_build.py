@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-``nvcc`` compiles ``csrc/*.cu`` for Hopper (``sm_90a``) into one shared
-library with a plain C interface, at first use, and ``ctypes`` loads it.
-No PyTorch headers are involved, so a build takes seconds.  The library
-lands in ``nerf_keras_tpu_torch/_build/`` (ignored by git), named by a
-hash of the sources and flags, so an edited source rebuilds and an
-unchanged one is reused.
+``nvcc`` compiles each ``csrc/*.cu`` for Hopper (``sm_90a``) into its own
+shared library with a plain C interface, at first use, and ``ctypes``
+loads them.  The compilers for all sources start together and run in
+parallel.  No PyTorch headers are involved, so a build takes seconds.
+The libraries land in ``nerf_keras_tpu_torch/_build/`` (ignored by git),
+each named by a hash of its source, the shared headers and the flags, so
+an edited source rebuilds and an unchanged one is reused.
 
 Never ``-use_fast_math``: the encoding's top octave takes ``sin`` of
 thousands of radians, where the fast intrinsic is wrong.
@@ -31,13 +32,47 @@ NVCC_FLAGS = [
     "-Xptxas", "-v",
 ]
 
+_vp, _i32 = ctypes.c_void_p, ctypes.c_int
+# Entry points by source, with their ctypes signatures: pointers and the
+# stream as c_void_p, so ctypes never truncates them to 32 bits.
+ENTRY_POINTS = {
+    "fused_render_fwd": {
+        "nkt_fused_render_fwd": [
+            _vp, _vp, _vp,              # origins, dirs, t_vals
+            _vp, _vp, _vp,              # w_pack, b_pack, dense_desc (host)
+            _i32, _i32, _i32, _i32,     # n_dense, num_layers, skip, hidden
+            _i32, _i32, _i32, _i32,     # l_xyz, l_dir, B, S
+            _vp, _vp, _vp, _vp,         # rgb_out, w_out, xenc_out, preds_out
+            _i32, _vp,                  # device, stream
+        ],
+    },
+    "fused_render_bwd": {
+        "nkt_fused_render_bwd": [
+            _vp, _vp, _vp, _vp,         # x_res, dirs, t_vals, preds
+            _vp, _vp,                   # g_rgb, g_w
+            _vp, _vp, _vp,              # w_pack, b_pack, desc_fwd (host)
+            _vp, _vp, _vp,              # wb_pack, desc_bwd, desc_ws (host)
+            _i32, _i32, _i32, _i32,     # n_dense, num_layers, skip, hidden
+            _i32, _i32, _i32, _i32,     # l_xyz, l_dir, B, S
+            _i32, _i32,                 # total_b, total_out
+            _vp, _vp, _vp, _vp, _i32,   # ws_a, ws_d, db_part, dw_part, nsplit
+            _vp, _vp,                   # dw_out, db_out
+            _i32, _vp,                  # device, stream
+        ],
+    },
+}
+
 _lock = threading.Lock()
-_lib: ctypes.CDLL | None = None
+_libs: dict[str, ctypes.CDLL] = {}
 build_log = ""  # nvcc's output (ptxas register/spill report) of the last build
 
 
 def _sources() -> list[Path]:
-    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _headers() -> list[Path]:
+    return sorted(CSRC.glob("*.cuh"))
 
 
 def _nvcc() -> str:
@@ -54,55 +89,59 @@ def _nvcc() -> str:
     )
 
 
-def library_path() -> Path:
+def library_path(source: Path) -> Path:
     digest = hashlib.sha256()
-    for src in _sources():
+    for src in [source, *_headers()]:
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libnkt_kernels_{digest.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"lib{source.stem}_{digest.hexdigest()[:16]}.so"
 
 
 def build() -> float:
-    """Compile the kernels unless the hashed library exists; returns the
-    seconds spent in nvcc (0.0 when the library was already built)."""
+    """Compile every source whose hashed library is missing, one nvcc per
+    source, all started together; returns the wall seconds spent (0.0
+    when every library was already built)."""
     global build_log
-    so = library_path()
-    if so.exists():
+    todo = [s for s in _sources() if not library_path(s).exists()]
+    if not todo:
         return 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in _sources() if s.suffix == ".cu"]]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-    os.replace(tmp, so)
-    return seconds
+    jobs = []
+    for src in todo:
+        so = library_path(src)
+        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(src)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs.append((src, so, tmp, proc))
+    logs, failed = [], []
+    for src, so, tmp, proc in jobs:
+        out, _ = proc.communicate()
+        logs.append(f"== {src.name}\n{out}")
+        if proc.returncode != 0:
+            failed.append(f"{src.name} ({proc.returncode})")
+        else:
+            os.replace(tmp, so)
+    build_log = "\n".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed for {', '.join(failed)}:\n{build_log}")
+    return time.perf_counter() - t0
 
 
-def load() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call), with every entry
-    point's ``argtypes``/``restype`` declared: pointers and the stream as
-    ``c_void_p``, so ctypes never truncates them to 32 bits."""
-    global _lib
+def load(stem: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<stem>.cu`` (every source is built on
+    the first call), with its entry points' ``argtypes``/``restype``
+    declared."""
     with _lock:
-        if _lib is None:
+        if stem not in _libs:
             build()
-            lib = ctypes.CDLL(str(library_path()))
-            vp, i32 = ctypes.c_void_p, ctypes.c_int
-            fn = lib.nkt_fused_render_fwd
-            fn.argtypes = [
-                vp, vp, vp,          # origins, dirs, t_vals
-                vp, vp, vp,          # w_pack, b_pack, dense_desc (host)
-                i32, i32, i32, i32,  # n_dense, num_layers, skip, hidden
-                i32, i32, i32, i32,  # l_xyz, l_dir, B, S
-                vp, vp,              # rgb_out, w_out
-                i32, vp,             # device, stream
-            ]
-            fn.restype = i32
-            _lib = lib
-        return _lib
+            lib = ctypes.CDLL(str(library_path(CSRC / f"{stem}.cu")))
+            for name, argtypes in ENTRY_POINTS[stem].items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = _i32
+            _libs[stem] = lib
+        return _libs[stem]

@@ -1,19 +1,25 @@
-"""K1, the ray megakernel: rays -> points -> encoding -> MLP -> composite.
+"""K1 and K2, the ray megakernel and its backward.
 
 Counterpart of ``render_rays_fused`` in
-``nerf_keras_tpu/ops/pallas/fused_render.py`` (the forward of the TPU
-kernel ``_fwd_encode_kernel``).  The CUDA kernel is
-``csrc/fused_render_fwd.cu``; its source note says what bounds it and
-how the design answers.
+``nerf_keras_tpu/ops/pallas/fused_render.py``: the forward
+(``_fwd_encode_kernel``, with its ``emit_enc`` training residual) and the
+backward ``_bwd_xres_kernel``.  The CUDA kernels are
+``csrc/fused_render_fwd.cu`` (K1) and ``csrc/fused_render_bwd.cu`` (K2);
+their source notes say what bounds them and how the designs answer.
 
-* :func:`render_rays_reference` is the plain PyTorch version: encode ->
+* :func:`render_rays_reference` is the plain PyTorch K1: encode ->
   :class:`NeRFMLP` -> ``volume_render``, with the bf16 rounding where the
-  kernel has it.
+  kernel has it.  Plain autograd differentiates it;
+  :func:`render_rays_reference_vjp` is that gradient, K2's plain version.
 * :func:`render_rays_fused` takes the plain version for a tensor on the
-  CPU, and only then.  For a CUDA tensor it launches the kernel or
-  raises; nothing falls back.  Each launch adds one to :data:`launches`.
+  CPU, and only then.  For a CUDA tensor it launches the kernels or
+  raises; nothing falls back.  With grad enabled for the MLP it is a
+  ``torch.autograd.Function``: K1 in training mode (residuals) forward,
+  K2 backward.  Each K1 launch adds one to :data:`launches`, each K2
+  launch one to :data:`bwd_launches`.
 
-The kernel is forward only: its outputs carry no gradient.
+As in the JAX package, the weights output carries no gradient unless
+``weights_grad=True``; origins, directions and t-values never get one.
 """
 
 from __future__ import annotations
@@ -30,9 +36,10 @@ from nerf_keras_tpu_torch.ops.rays import sample_rays
 from nerf_keras_tpu_torch.ops.volume import volume_render
 
 # Kernel launches in this process (one per successful launch).
-launches = 0
+launches = 0      # K1
+bwd_launches = 0  # K2
 
-# Within every 16-wide k-group, W^T columns are stored in this order so a
+# Within every 16-wide k-group, packed rows are stored in this order so a
 # thread's mma.sync B fragment (k = 2t, 2t+1, 2t+8, 2t+9) is one 8-byte load.
 _K_INTERLEAVE = torch.tensor([0, 1, 8, 9, 2, 3, 10, 11, 4, 5, 12, 13, 6, 7, 14, 15])
 
@@ -42,10 +49,10 @@ def _round_up(x: int, m: int) -> int:
 
 
 class KernelPack(NamedTuple):
-    """An MLP's weights as the kernel reads them."""
+    """Matrices as the kernels read them."""
 
-    w: torch.Tensor      # bf16, every layer's padded, interleaved W^T
-    b: torch.Tensor      # f32, every layer's padded bias
+    w: torch.Tensor      # bf16, every layer's padded, interleaved matrix
+    b: torch.Tensor      # f32, every layer's padded bias (zeros without one)
     desc: np.ndarray     # int32 (n_dense, 5): k_pad, n, n_pad, w_off, b_off
 
 
@@ -63,18 +70,21 @@ def _dense_layers(mlp: NeRFMLP) -> list[tuple[torch.Tensor, torch.Tensor]]:
 
 
 @torch.no_grad()
-def pack_weights(mlp: NeRFMLP, device: torch.device) -> KernelPack:
-    """Pad and interleave the MLP's weights into the kernel's layout."""
+def _pack(layers: list[tuple[torch.Tensor, torch.Tensor | None]],
+          device: torch.device) -> KernelPack:
+    """Pad each ``(M (rows=output columns, k), bias)`` to (round8, round16)
+    and interleave its k-groups."""
     ws, bs, desc = [], [], []
     w_off = b_off = 0
-    for wt, b in _dense_layers(mlp):
-        n, k = wt.shape
+    for mat, b in layers:
+        n, k = mat.shape
         k_pad, n_pad = _round_up(k, 16), _round_up(n, 8)
         wp = torch.zeros((n_pad, k_pad), dtype=torch.float32, device=device)
-        wp[:n, :k] = wt.to(device=device, dtype=torch.float32)
+        wp[:n, :k] = mat.to(device=device, dtype=torch.float32)
         wp = wp.reshape(n_pad, k_pad // 16, 16)[..., _K_INTERLEAVE.to(device)]
         bp = torch.zeros((n_pad,), dtype=torch.float32, device=device)
-        bp[:n] = b.to(device=device, dtype=torch.float32)
+        if b is not None:
+            bp[:n] = b.to(device=device, dtype=torch.float32)
         ws.append(wp.reshape(-1).to(torch.bfloat16))
         bs.append(bp)
         desc.append((k_pad, n, n_pad, w_off, b_off))
@@ -86,16 +96,54 @@ def pack_weights(mlp: NeRFMLP, device: torch.device) -> KernelPack:
     )
 
 
-def kernel_pack(mlp: NeRFMLP, device: torch.device) -> KernelPack:
-    """The cached pack of ``mlp`` for ``device``: built once per installed
-    set of weights (a parameter written in place or replaced, or another
-    device, builds a new one), not once per chunk."""
+def pack_weights(mlp: NeRFMLP, device: torch.device) -> KernelPack:
+    """K1's pack: every layer's W^T (row = output column), interleaved."""
+    return _pack(_dense_layers(mlp), device)
+
+
+def pack_weights_bwd(mlp: NeRFMLP, device: torch.device) -> KernelPack:
+    """K2's pack for the dX products ``dX = dPre W^T``: per layer the
+    matrix W (row = input column, k = output column), cut to the input
+    columns that get a gradient: the hidden part of each trunk input
+    (none for layer 0, whose input is the encoding), of the head input
+    and of the branch input; all of the rgb head's."""
+    hid = mlp.hidden_dim
+    rows = [0] + [hid] * (mlp.num_layers - 1) + [hid, hid, hid // 2]
+    return _pack([(wt.T[:r], None) for (wt, _), r in zip(_dense_layers(mlp), rows)],
+                 device)
+
+
+def _cached(mlp: NeRFMLP, device: torch.device, attr: str, build) -> KernelPack:
+    """The pack of ``mlp`` for ``device``, built once per installed set of
+    weights (a parameter written in place -- an optimizer step -- or
+    replaced, or another device, builds a new one), not once per launch."""
     key = (str(device), tuple((p.data_ptr(), p._version) for p in mlp.parameters()))
-    cached = getattr(mlp, "_k1_pack", None)
+    cached = getattr(mlp, attr, None)
     if cached is None or cached[0] != key:
-        cached = (key, pack_weights(mlp, device))
-        mlp._k1_pack = cached
+        cached = (key, build(mlp, device))
+        setattr(mlp, attr, cached)
     return cached[1]
+
+
+def kernel_pack(mlp: NeRFMLP, device: torch.device) -> KernelPack:
+    return _cached(mlp, device, "_k1_pack", pack_weights)
+
+
+def kernel_pack_bwd(mlp: NeRFMLP, device: torch.device) -> KernelPack:
+    return _cached(mlp, device, "_k2_pack", pack_weights_bwd)
+
+
+def workspace_layout(fwd: KernelPack, bwd: KernelPack) -> np.ndarray:
+    """K2's per-layer workspace and output layout, int32 (n_dense, 5):
+    ``a_col, a_width`` (the layer input, width = K1's k_pad), ``d_col,
+    d_width`` (its dPre, width = round16(outputs)) as column offsets of
+    the (B*S, sum width) workspaces, and ``out_off`` of its (a_width,
+    d_width) f32 dW in the output."""
+    a_w = fwd.desc[:, 0].astype(np.int64)
+    d_w = bwd.desc[:, 0].astype(np.int64)
+    cols = lambda w: np.concatenate([[0], np.cumsum(w)[:-1]])  # noqa: E731
+    out = np.stack([cols(a_w), a_w, cols(d_w), d_w, cols(a_w * d_w)], axis=1)
+    return np.ascontiguousarray(out.astype(np.int32))
 
 
 def _check_args(mlp: NeRFMLP, l_xyz: int, l_dir: int, skip_layer: int) -> None:
@@ -116,7 +164,8 @@ def render_rays_reference(
     l_dir: int = 4,
     skip_layer: int = 4,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch K1: ``(rgb (B, 3), weights (B, S))`` float32."""
+    """Plain PyTorch K1: ``(rgb (B, 3), weights (B, S))`` float32,
+    differentiable by plain autograd."""
     _check_args(mlp, l_xyz, l_dir, skip_layer)
     b, s = t_vals.shape
     points, _ = sample_rays(origins, dirs, t_vals)
@@ -127,46 +176,56 @@ def render_rays_reference(
     return rgb, weights
 
 
-def _check_tensor(name: str, x: torch.Tensor, shape: tuple, device) -> None:
+def render_rays_reference_vjp(
+    mlp: NeRFMLP,
+    origins: torch.Tensor,
+    dirs: torch.Tensor,
+    t_vals: torch.Tensor,
+    g_rgb: torch.Tensor,
+    g_w: torch.Tensor | None = None,
+    *,
+    l_xyz: int = 10,
+    l_dir: int = 4,
+    skip_layer: int = 4,
+) -> list[torch.Tensor]:
+    """Plain K2: the gradients of ``<rgb, g_rgb> + <weights, g_w>`` with
+    respect to ``mlp.parameters()`` (in that order), by autograd of
+    :func:`render_rays_reference`."""
+    params = list(mlp.parameters())
+    with torch.enable_grad():
+        rgb, w = render_rays_reference(mlp, origins, dirs, t_vals, l_xyz=l_xyz,
+                                       l_dir=l_dir, skip_layer=skip_layer)
+        outs, cots = [rgb], [g_rgb]
+        if g_w is not None:
+            outs.append(w)
+            cots.append(g_w)
+        return list(torch.autograd.grad(outs, params, cots))
+
+
+def _check_tensor(name: str, x: torch.Tensor, shape: tuple, device,
+                  dtype=torch.float32) -> None:
     if x.device != device:
         raise ValueError(f"{name} is on {x.device}, expected {device}")
-    if x.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {x.dtype}")
+    if x.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
     if tuple(x.shape) != shape:
         raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {shape}")
     if not x.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
 
 
-def render_rays_fused(
-    mlp: NeRFMLP,
-    origins: torch.Tensor,
-    dirs: torch.Tensor,
-    t_vals: torch.Tensor,
-    *,
-    l_xyz: int = 10,
-    l_dir: int = 4,
-    skip_layer: int = 4,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """K1 over raw rays: ``origins``/``dirs`` ``(B, 3)``, ``t_vals``
-    ``(B, S)`` ascending -> ``(rgb (B, 3), weights (B, S))`` float32.
+def _device_index(device: torch.device) -> int:
+    return device.index if device.index is not None else torch.cuda.current_device()
 
-    CPU tensors take :func:`render_rays_reference`.  CUDA tensors launch
-    the kernel (bf16 MLPs only) or raise.
-    """
-    global launches
-    if origins.device.type == "cpu":
-        return render_rays_reference(
-            mlp, origins, dirs, t_vals,
-            l_xyz=l_xyz, l_dir=l_dir, skip_layer=skip_layer,
-        )
+
+def _check_cuda_call(mlp, origins, dirs, t_vals, l_xyz, l_dir, skip_layer) -> None:
     if origins.device.type != "cuda":
-        raise ValueError(f"K1 runs on cuda or cpu tensors, got {origins.device}")
+        raise ValueError(f"K1/K2 run on cuda or cpu tensors, got {origins.device}")
     _check_args(mlp, l_xyz, l_dir, skip_layer)
     if mlp.compute_dtype != torch.bfloat16:
         raise NotImplementedError(
-            f"K1 on CUDA runs bf16 MLPs only; COMPUTE_DTYPE="
-            f"{mlp.compute_dtype} is not ported to the kernel yet"
+            f"K1/K2 on CUDA run bf16 MLPs only; COMPUTE_DTYPE="
+            f"{mlp.compute_dtype} is not ported to the kernels yet"
         )
     device = origins.device
     if t_vals.dim() != 2:
@@ -178,24 +237,172 @@ def render_rays_fused(
     for p in mlp.parameters():
         if p.device != device:
             raise ValueError(f"MLP parameters are on {p.device}, rays on {device}")
+
+
+def launch_k1(mlp, origins, dirs, t_vals, l_xyz, l_dir, train: bool):
+    """One K1 launch: ``(rgb, weights)`` and, with ``train``, the residuals
+    ``(x_enc (B*S, 3+6L) bf16, preds (B*S, 4) f32)``."""
+    global launches
+    device = origins.device
+    b, s = t_vals.shape
     rgb = torch.empty((b, 3), dtype=torch.float32, device=device)
     weights = torch.empty((b, s), dtype=torch.float32, device=device)
+    x_enc = preds = None
+    if train:
+        x_enc = torch.empty((b * s, 3 + 6 * l_xyz), dtype=torch.bfloat16, device=device)
+        preds = torch.empty((b * s, 4), dtype=torch.float32, device=device)
     if b == 0:
-        return rgb, weights
+        return rgb, weights, x_enc, preds
     pack = kernel_pack(mlp, device)
-    lib = _build.load()
-    rc = lib.nkt_fused_render_fwd(
+    rc = _build.load("fused_render_fwd").nkt_fused_render_fwd(
         origins.data_ptr(), dirs.data_ptr(), t_vals.data_ptr(),
         pack.w.data_ptr(), pack.b.data_ptr(), pack.desc.ctypes.data,
         pack.desc.shape[0], mlp.num_layers, mlp.skip_layer, mlp.hidden_dim,
         l_xyz, l_dir, b, s, rgb.data_ptr(), weights.data_ptr(),
-        device.index if device.index is not None else torch.cuda.current_device(),
-        torch.cuda.current_stream(device).cuda_stream,
+        x_enc.data_ptr() if train else None, preds.data_ptr() if train else None,
+        _device_index(device), torch.cuda.current_stream(device).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(
             f"K1 launch failed with CUDA error {rc} (B={b}, S={s}, "
-            f"hidden={mlp.hidden_dim}, layers={mlp.num_layers})"
+            f"hidden={mlp.hidden_dim}, layers={mlp.num_layers}, train={train})"
         )
     launches += 1
-    return rgb, weights
+    return rgb, weights, x_enc, preds
+
+
+def _unpack_grads(mlp: NeRFMLP, fwd: KernelPack, layout: np.ndarray,
+                  dw: torch.Tensor, db: torch.Tensor) -> list[torch.Tensor]:
+    """K2's flat dW/db -> gradients in ``mlp.parameters()`` order, as the
+    JAX package returns them: weight gradients rounded to bf16 (the TPU
+    kernel returns ``dv.astype(w.dtype)`` of bf16-cast weights), biases
+    f32; the merged head's gradient split into feature and sigma."""
+    bf = lambda g: g.to(torch.bfloat16).to(torch.float32)  # noqa: E731
+    per_layer = []
+    for (wt, _), (_, n, _, _, b_off), (_, a_w, _, d_w, off) in zip(
+            _dense_layers(mlp), fwd.desc, layout):
+        k = wt.shape[1]
+        w = dw[off:off + a_w * d_w].view(a_w, d_w)[:k, :n].T
+        per_layer.append((w, db[b_off:b_off + n]))
+    grads = []
+    for w, b in per_layer[:mlp.num_layers]:
+        grads += [bf(w), b.clone()]
+    (w_fs, b_fs), (w_br, b_br), (w_rgb, b_rgb) = per_layer[mlp.num_layers:]
+    hid = mlp.hidden_dim
+    # parameters() order: trunk..., sigma, feature, branch, rgb.
+    grads += [bf(w_fs[hid:]), b_fs[hid:].clone(), bf(w_fs[:hid]), b_fs[:hid].clone()]
+    grads += [bf(w_br), b_br.clone(), bf(w_rgb), b_rgb.clone()]
+    return grads
+
+
+def launch_k2(mlp, x_enc, dirs, t_vals, preds, g_rgb, g_w, l_xyz, l_dir):
+    """One K2 launch: gradients in ``mlp.parameters()`` order."""
+    global bwd_launches
+    device = dirs.device
+    b, s = t_vals.shape
+    n = b * s
+    _check_tensor("x_enc", x_enc, (n, 3 + 6 * l_xyz), device, torch.bfloat16)
+    _check_tensor("preds", preds, (n, 4), device)
+    _check_tensor("g_rgb", g_rgb, (b, 3), device)
+    if g_w is not None:
+        _check_tensor("g_w", g_w, (b, s), device)
+    fwd = kernel_pack(mlp, device)
+    bwd = kernel_pack_bwd(mlp, device)
+    layout = workspace_layout(fwd, bwd)
+    a_cols, d_cols = int(layout[:, 1].sum()), int(layout[:, 3].sum())
+    total_out = int((layout[:, 1] * layout[:, 3]).sum())
+    total_b = fwd.b.numel()
+    rays_per_block = 1 if s >= 64 else 64 // s
+    grid = -(-b // rays_per_block)
+    tiles = int(sum(-(-int(a) // 128) * -(-int(d) // 128)
+                    for a, d in zip(layout[:, 1], layout[:, 3])))
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    nsplit = max(1, min(-(-4 * sms // tiles), n // 2048))
+    # Workspaces: freed on return to PyTorch's caching allocator, which hands
+    # their memory out again only to work queued after K2 on this stream.
+    ws_a = torch.empty((n * a_cols,), dtype=torch.bfloat16, device=device)
+    ws_d = torch.empty((n * d_cols,), dtype=torch.bfloat16, device=device)
+    db_part = torch.empty((grid * total_b,), dtype=torch.float32, device=device)
+    dw_part = torch.empty((nsplit * total_out,), dtype=torch.float32, device=device)
+    dw = torch.empty((total_out,), dtype=torch.float32, device=device)
+    db = torch.empty((total_b,), dtype=torch.float32, device=device)
+    rc = _build.load("fused_render_bwd").nkt_fused_render_bwd(
+        x_enc.data_ptr(), dirs.data_ptr(), t_vals.data_ptr(), preds.data_ptr(),
+        g_rgb.data_ptr(), g_w.data_ptr() if g_w is not None else None,
+        fwd.w.data_ptr(), fwd.b.data_ptr(), fwd.desc.ctypes.data,
+        bwd.w.data_ptr(), bwd.desc.ctypes.data, layout.ctypes.data,
+        fwd.desc.shape[0], mlp.num_layers, mlp.skip_layer, mlp.hidden_dim,
+        l_xyz, l_dir, b, s, total_b, total_out,
+        ws_a.data_ptr(), ws_d.data_ptr(), db_part.data_ptr(), dw_part.data_ptr(),
+        nsplit, dw.data_ptr(), db.data_ptr(),
+        _device_index(device), torch.cuda.current_stream(device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(
+            f"K2 launch failed with CUDA error {rc} (B={b}, S={s}, "
+            f"hidden={mlp.hidden_dim}, layers={mlp.num_layers})"
+        )
+    bwd_launches += 1
+    return _unpack_grads(mlp, fwd, layout, dw, db)
+
+
+class _FusedRender(torch.autograd.Function):
+    """K1 with residuals forward, K2 backward; the parameters are inputs
+    only so that autograd routes their gradients."""
+
+    @staticmethod
+    def forward(ctx, mlp, l_xyz, l_dir, origins, dirs, t_vals, *params):
+        rgb, weights, x_enc, preds = launch_k1(mlp, origins, dirs, t_vals,
+                                                l_xyz, l_dir, train=True)
+        ctx.mlp, ctx.l_xyz, ctx.l_dir = mlp, l_xyz, l_dir
+        ctx.save_for_backward(x_enc, preds, dirs, t_vals)
+        ctx.set_materialize_grads(False)
+        return rgb, weights
+
+    @staticmethod
+    def backward(ctx, g_rgb, g_w):
+        x_enc, preds, dirs, t_vals = ctx.saved_tensors
+        if g_rgb is None:
+            g_rgb = torch.zeros((t_vals.shape[0], 3), dtype=torch.float32,
+                                device=t_vals.device)
+        grads = launch_k2(
+            ctx.mlp, x_enc, dirs, t_vals, preds, g_rgb.contiguous(),
+            None if g_w is None else g_w.contiguous(), ctx.l_xyz, ctx.l_dir,
+        )
+        return (None,) * 6 + tuple(grads)
+
+
+def render_rays_fused(
+    mlp: NeRFMLP,
+    origins: torch.Tensor,
+    dirs: torch.Tensor,
+    t_vals: torch.Tensor,
+    *,
+    l_xyz: int = 10,
+    l_dir: int = 4,
+    skip_layer: int = 4,
+    weights_grad: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K1 over raw rays: ``origins``/``dirs`` ``(B, 3)``, ``t_vals``
+    ``(B, S)`` ascending -> ``(rgb (B, 3), weights (B, S))`` float32,
+    differentiable in the MLP's parameters (the weights only with
+    ``weights_grad``).
+
+    CPU tensors take :func:`render_rays_reference`.  CUDA tensors launch
+    the kernels (bf16 MLPs only) or raise.
+    """
+    if origins.device.type == "cpu":
+        rgb, weights = render_rays_reference(
+            mlp, origins, dirs, t_vals,
+            l_xyz=l_xyz, l_dir=l_dir, skip_layer=skip_layer,
+        )
+    else:
+        _check_cuda_call(mlp, origins, dirs, t_vals, l_xyz, l_dir, skip_layer)
+        params = list(mlp.parameters())
+        if torch.is_grad_enabled() and any(p.requires_grad for p in params):
+            rgb, weights = _FusedRender.apply(mlp, l_xyz, l_dir, origins, dirs,
+                                              t_vals, *params)
+        else:
+            rgb, weights, _, _ = launch_k1(mlp, origins, dirs, t_vals, l_xyz,
+                                            l_dir, train=False)
+    return rgb, weights if weights_grad else weights.detach()

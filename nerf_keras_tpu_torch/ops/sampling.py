@@ -1,7 +1,8 @@
 """Ray-interval sampling: t-values and inverse-CDF importance sampling.
 
 Counterpart of ``nerf_keras_tpu/ops/sampling.py``.  Randomness comes from
-an explicit ``torch.Generator``; the serving path is deterministic
+an explicit ``torch.Generator`` (or explicit draws, which the tests use
+to replay the JAX package's); the serving path is deterministic
 (centered t, deterministic u) and needs none.  The JAX package's one-hot
 MXU einsum is a TPU formulation of a lookup; here the lookup is a
 ``searchsorted`` plus a gather, with the same semantics.
@@ -20,25 +21,39 @@ def generate_t_vals(
     mode: str = "center",
     generator: torch.Generator | None = None,
     device=None,
+    noise: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Sample distances along rays in ``[near, far]``: ``(*batch_shape, S)``
-    float32, ascending per ray.
+    float32.
 
     ``'center'`` is the deterministic linspace; ``'stratified'`` adds
-    per-ray, per-sample jitter within each bin, drawn from ``generator``.
+    per-ray, per-sample jitter within each bin; ``'shared'`` adds one
+    jitter vector to every ray (a uniform shift of up to one bin per
+    sample, the reference's frozen-jitter analogue).  The jitter is
+    ``U * (far - near) / S`` with ``U`` uniform in [0, 1) drawn from
+    ``generator``, or given as ``noise`` (``(*batch_shape, S)`` for
+    stratified, ``(S,)`` for shared; tests feed both frameworks the same
+    draws).
     """
     base = torch.linspace(near, far, num_samples, dtype=torch.float32,
                           device=device)
     if mode == "center":
         return base.expand(*batch_shape, num_samples)
-    if mode == "stratified":
-        bin_width = (far - near) / num_samples
-        noise = torch.rand(
-            (*batch_shape, num_samples), generator=generator,
-            dtype=torch.float32, device=device,
-        ) * bin_width
-        return base + noise
-    raise ValueError(f"unknown sampling mode: {mode!r} (center|stratified)")
+    bin_width = (far - near) / num_samples
+    if mode == "shared":
+        shape = (num_samples,)
+    elif mode == "stratified":
+        shape = (*batch_shape, num_samples)
+    else:
+        raise ValueError(
+            f"unknown sampling mode: {mode!r} (center|stratified|shared)")
+    if noise is None:
+        noise = torch.rand(shape, generator=generator, dtype=torch.float32,
+                           device=device)
+    noise = noise.to(device=base.device, dtype=torch.float32)
+    if tuple(noise.shape) != shape:
+        raise ValueError(f"noise has shape {tuple(noise.shape)}, expected {shape}")
+    return (base + noise * bin_width).expand(*batch_shape, num_samples)
 
 
 def sorted_union(t_vals: torch.Tensor, t_fine: torch.Tensor) -> torch.Tensor:
@@ -53,6 +68,8 @@ def sample_pdf(
     deterministic: bool = False,
     generator: torch.Generator | None = None,
     u: torch.Tensor | None = None,
+    stratified: bool = False,
+    noise: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Hierarchical sampling: draw ``ns_fine`` t-values in proportion to
     the coarse compositing weights (inverse CDF of a piecewise-constant
@@ -69,10 +86,14 @@ def sample_pdf(
         weights: ``(..., S)`` coarse compositing weights.
         ns_fine: fine samples to draw, F.
         deterministic: evenly spaced ``u = linspace(0.5/F, 1-0.5/F, F)``
-            (the render path) instead of iid uniforms from ``generator``.
-        generator: source of the iid uniforms.
-        u: explicit ``(..., F)`` uniforms (tests feed both frameworks the
-            same draws); overrides both modes above.
+            (the render path) instead of random draws.
+        generator: source of the uniforms ``U`` of the random modes.
+        u: explicit ``(..., F)`` final ``u`` values; overrides every mode.
+        stratified: one draw per equal-width stratum, ``u_j = (j + U_j)/F``
+            (the proposal chain's intermediate draws), instead of iid
+            ``u = U``.
+        noise: explicit ``(..., F)`` uniforms ``U`` for the random modes
+            (tests feed both frameworks the same draws).
 
     Returns:
         ``(..., F)`` fine sample distances, unsorted.
@@ -93,7 +114,12 @@ def sample_pdf(
                                dtype=torch.float32, device=dev)
             u = u.expand(u_shape)
         else:
-            u = torch.rand(u_shape, generator=generator, device=dev)
+            if noise is None:
+                noise = torch.rand(u_shape, generator=generator, device=dev)
+            u = noise.to(device=dev, dtype=torch.float32)
+            if stratified:
+                base = torch.arange(ns_fine, dtype=torch.float32, device=dev) / ns_fine
+                u = base + u / ns_fine
     u = u.to(torch.float32).expand(u_shape).contiguous()
 
     below = torch.searchsorted(cdf.contiguous(), u, right=True) - 1

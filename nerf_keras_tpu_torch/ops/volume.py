@@ -48,3 +48,28 @@ def composite_background(
     ``c + (1 - sum_s w_s) * bkgd``."""
     acc = torch.sum(weights, dim=-1, keepdim=True)
     return rgb + (1.0 - acc) * bkgd
+
+
+def distortion_loss(
+    t_vals: torch.Tensor, weights: torch.Tensor, near: float, far: float
+) -> torch.Tensor:
+    """Mip-NeRF 360's distortion regularizer, the mean over rays of
+    ``sum_ij w_i w_j |m_i - m_j| + 1/3 sum_i w_i^2 delta_i`` on normalized
+    coordinates ``s = (t - near) / (far - near)``.
+
+    Interval ``i`` spans ``[s_i, s_{i+1})`` with midpoint ``m_i``; the last
+    sample gets a zero-width interval (not the compositor's 1e10).  The
+    samples are sorted, so the double sum is two cumulative sums:
+    ``2 sum_i w_i (m_i A_i - B_i)`` with ``A_i = sum_{j<i} w_j`` and
+    ``B_i = sum_{j<i} w_j m_j``.
+    """
+    s = (t_vals - near) / (far - near)
+    delta = torch.cat([s[..., 1:] - s[..., :-1], torch.zeros_like(s[..., :1])], dim=-1)
+    mid = s + 0.5 * delta
+    cw = torch.cumsum(weights, dim=-1)
+    cwm = torch.cumsum(weights * mid, dim=-1)
+    a = cw - weights
+    b = cwm - weights * mid
+    pairwise = 2.0 * torch.sum(weights * (mid * a - b), dim=-1)
+    self_term = torch.sum(torch.square(weights) * delta, dim=-1) / 3.0
+    return torch.mean(pairwise + self_term)

@@ -6,11 +6,14 @@ TrainState pytree — ``.params['fine']['trunk'][0]['w']``, ``.ema[...]``,
 ``.step``, ``.opt_state...`` — plus a ``.config.json`` sidecar in the
 reference's UPPERCASE schema, optionally carrying a ``SCENE`` record
 (near/far/focal).  The render path needs ``.params``, ``.ema`` and
-``.step``; the optimizer state is ignored.
+``.step``; the optimizer state is ignored (resuming Adam is later work).
+A ``TRAIN_SAMPLER=proposal`` state carries ``{'proposal', 'fine'}``, the
+proposal tree as ``['proposal']['layers'][i]`` (one level) or
+``['proposal']['l1']...`` (two).
 
-What this slice does not render raises ``NotImplementedError``:
-``TRAIN_SAMPLER=proposal``, ``NDC``, and a frequency-anneal window that is
-not yet the identity.
+What the port does not render raises ``NotImplementedError``: the
+union-free proposal layout (``PROP_UNION=false``), ``NDC``, and a
+frequency-anneal window that is not yet the identity.
 """
 
 from __future__ import annotations
@@ -118,12 +121,12 @@ def save_params_npz(
     step: int = 0,
     ema: dict | None = None,
 ) -> None:
-    """Write a render checkpoint in the JAX key format, numpy only.
+    """Write a checkpoint in the JAX key format, numpy only.
 
-    ``params`` (and ``ema``) are ``{'coarse': tree, 'fine': tree}`` in
-    the JAX layout.  The sidecar is the reference JSON of ``cfg`` plus
-    the ``SCENE`` record.  No optimizer state is written: this is a
-    checkpoint to render from, not to resume training from.
+    ``params`` (and ``ema``) are ``{'coarse': tree, 'fine': tree}`` or
+    ``{'proposal': tree, 'fine': tree}`` in the JAX layout.  The sidecar
+    is the reference JSON of ``cfg`` plus the ``SCENE`` record.  No
+    optimizer state is written: training restarts Adam from zero moments.
     """
     arrays = _flatten(params, ".params")
     if ema is not None:
@@ -168,10 +171,10 @@ def check_render_support(cfg: NeRFConfig, step: int | None = None) -> None:
     """Raise ``NotImplementedError`` for what this slice does not render.
     With ``step`` the frequency-anneal window is checked too: it is the
     identity when the knob is off or the run is past its horizon."""
-    if cfg.train_sampler == "proposal":
+    if cfg.train_sampler == "proposal" and not cfg.prop_union:
         raise NotImplementedError(
-            "TRAIN_SAMPLER=proposal checkpoints are not ported yet: the "
-            "proposal render (ops/proposal.py) arrives in a later PR"
+            "PROP_UNION=false (union-free proposal) checkpoints are not "
+            "ported yet (a later PR); the union layout renders"
         )
     if cfg.ndc:
         raise NotImplementedError("NDC rendering is not ported yet (later PR)")

@@ -1,4 +1,4 @@
-"""K1 on the card against its plain version, and the slice on the card.
+"""K1 and K2 on the card against their plain versions, and the slices on the card.
 
 Marked ``cuda``: without a card every test here skips (decided inside the
 fixture, never at import).  This file imports no JAX, so it also runs on
@@ -24,6 +24,7 @@ from nerf_keras_tpu_torch.models.mlp import (
     random_params,
     randomize_biases_,
 )
+from nerf_keras_tpu_torch.ops.encoding import encode_position
 from nerf_keras_tpu_torch.ops.kernels import fused_render as k1
 from nerf_keras_tpu_torch.ops.rays import pose_spherical
 from nerf_keras_tpu_torch.utils.checkpoint import save_params_npz
@@ -32,6 +33,7 @@ pytestmark = pytest.mark.cuda
 
 TOL_MAX = 5e-3
 TOL_MEAN = 1e-4
+K2_TOL_REL = 2e-2
 
 
 @pytest.fixture
@@ -95,6 +97,101 @@ def test_k1_checks_its_inputs(dev):
     cpu_mlp = NeRFMLP(num_layers=2, hidden_dim=32)
     with pytest.raises(ValueError, match="parameters"):
         k1.render_rays_fused(cpu_mlp, o, d, t)
+
+
+@pytest.mark.parametrize("b,s", [(333, 100), (1000, 24), (257, 160)])
+def test_k1_training_residuals_match_plain(dev, b, s):
+    """K1 in training mode writes the bf16 position encodings (exactly the
+    plain encode, rounded) and the raw predictions (the plain MLP on them,
+    TOL_MAX), and its rgb/weights equal the forward-only launch's."""
+    gen = torch.Generator().manual_seed(3)
+    mlp = randomize_biases_(NeRFMLP(generator=gen, device=dev), gen)
+    o, d, t = _rays(dev, b, s, seed=1)
+    with torch.no_grad():
+        rgb, w, x_enc, preds = k1.launch_k1(mlp, o, d, t, 10, 4, train=True)
+        rgb0, w0, _, _ = k1.launch_k1(mlp, o, d, t, 10, 4, train=False)
+        torch.cuda.synchronize()
+        pts = o[:, None, :] + d[:, None, :] * t[..., None]
+        x_plain = encode_position(pts, 10).reshape(b * s, -1)
+        d_plain = encode_position(d, 4)[:, None, :].expand(b, s, -1).reshape(b * s, -1)
+        preds_plain = mlp(x_enc.float(), d_plain)
+    assert torch.equal(rgb, rgb0) and torch.equal(w, w0)
+    assert x_enc.dtype == torch.bfloat16 and x_enc.shape == (b * s, 63)
+    assert float((x_enc.float() - x_plain.to(torch.bfloat16).float()).abs().max()) <= 1e-2
+    assert float((preds - preds_plain).abs().max()) <= TOL_MAX * 4
+    assert float((preds - preds_plain).abs().mean()) <= TOL_MEAN
+
+
+def _rel_l2(a, b):
+    return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b).clamp_min(1e-30))
+
+
+def _kernel_grads(mlp, o, d, t, g_rgb, g_w):
+    """Gradients of <rgb, g_rgb> + <weights, g_w> through render_rays_fused
+    (K1 in training mode, K2); ``g_w=None`` leaves the weights cotangent
+    unread."""
+    rgb, w = k1.render_rays_fused(mlp, o, d, t, weights_grad=g_w is not None)
+    outs, cots = ([rgb, w], [g_rgb, g_w]) if g_w is not None else ([rgb], [g_rgb])
+    return list(torch.autograd.grad(outs, list(mlp.parameters()), cots))
+
+
+@pytest.mark.parametrize("with_gw", [True, False])
+@pytest.mark.parametrize("b,s", [(333, 100), (1000, 24), (257, 160)])
+def test_k2_matches_plain_vjp(dev, b, s, with_gw):
+    """K2's gradients against autograd of the plain K1, per leaf: relative
+    L2 error <= K2_TOL_REL (see chip_smoke.py for the measured errors);
+    one K1 and one K2 launch."""
+    gen = torch.Generator().manual_seed(4)
+    mlp = randomize_biases_(NeRFMLP(generator=gen, device=dev), gen)
+    o, d, t = _rays(dev, b, s, seed=2)
+    g_rgb = torch.randn((b, 3), generator=gen).to(dev)
+    g_w = torch.randn((b, s), generator=gen).to(dev) if with_gw else None
+    before = (k1.launches, k1.bwd_launches)
+    got = _kernel_grads(mlp, o, d, t, g_rgb, g_w)
+    torch.cuda.synchronize()
+    assert (k1.launches, k1.bwd_launches) == (before[0] + 1, before[1] + 1)
+    want = k1.render_rays_reference_vjp(mlp, o, d, t, g_rgb, g_w)
+    for (name, _), g, r in zip(mlp.named_parameters(), got, want):
+        assert g.shape == r.shape, name
+        assert bool(torch.isfinite(g).all()), name
+        assert _rel_l2(g, r) <= K2_TOL_REL, (name, _rel_l2(g, r))
+
+
+def test_k2_is_deterministic(dev):
+    """No atomics: the same inputs give bit-identical gradients."""
+    gen = torch.Generator().manual_seed(5)
+    mlp = randomize_biases_(NeRFMLP(generator=gen, device=dev), gen)
+    o, d, t = _rays(dev, 300, 64, seed=3)
+    g_rgb = torch.randn((300, 3), generator=gen).to(dev)
+    g_w = torch.randn((300, 64), generator=gen).to(dev)
+    a = _kernel_grads(mlp, o, d, t, g_rgb, g_w)
+    b = _kernel_grads(mlp, o, d, t, g_rgb, g_w)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_autograd_seam_on_card(dev):
+    """render_rays_fused under autograd: the weights detached unless
+    weights_grad; .backward() fills each parameter's grad with K2's
+    gradients; without grad it launches K1 alone."""
+    gen = torch.Generator().manual_seed(6)
+    mlp = randomize_biases_(NeRFMLP(num_layers=4, hidden_dim=64, generator=gen,
+                                    device=dev), gen)
+    o, d, t = _rays(dev, 200, 40, seed=4)
+    g_w = torch.randn((200, 40), generator=gen).to(dev)
+    for weights_grad in (False, True):
+        mlp.zero_grad(set_to_none=True)
+        rgb, w = k1.render_rays_fused(mlp, o, d, t, weights_grad=weights_grad)
+        assert w.requires_grad == weights_grad
+        loss = rgb.square().sum() + ((w * g_w).sum() if weights_grad else 0.0)
+        loss.backward()
+        want = _kernel_grads(mlp, o, d, t, 2.0 * rgb.detach(),
+                             g_w if weights_grad else None)
+        for p, g in zip(mlp.parameters(), want):
+            assert torch.equal(p.grad, g)
+    before = (k1.launches, k1.bwd_launches)
+    with torch.no_grad():
+        k1.render_rays_fused(mlp, o, d, t)
+    assert (k1.launches, k1.bwd_launches) == (before[0] + 1, before[1])
 
 
 def test_trainer_frame_on_card_matches_cpu(dev, tmp_path):

@@ -103,7 +103,7 @@ def test_generate_t_vals_stratified():
     noise = a - base
     assert bool(((noise >= 0) & (noise < 0.5 + 1e-6)).all())
     with pytest.raises(ValueError, match="unknown sampling mode"):
-        sampling.generate_t_vals(2.0, 6.0, (2,), 8, "shared")
+        sampling.generate_t_vals(2.0, 6.0, (2,), 8, "jittered")
 
 
 def test_sorted_union():

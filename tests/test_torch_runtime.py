@@ -38,7 +38,9 @@ def test_resolve_device_is_explicit_and_pins_fp32(monkeypatch):
     ("train_sampler", "proposal"), ("ndc", True), ("batch_norm", True),
 ])
 def test_render_refuses_unported_configs(field, value):
-    cfg = dataclasses.replace(CFG, **{field: value})
+    # The proposal case is its union-free layout: the union layout renders.
+    extra = {"prop_union": False} if value == "proposal" else {}
+    cfg = dataclasses.replace(CFG, **{field: value}, **extra)
     with pytest.raises(NotImplementedError, match="not ported"):
         make_render_fn(cfg, 2.0, 6.0)
     with pytest.raises(NotImplementedError, match="not ported"):
