@@ -14,18 +14,36 @@ nonzero — nothing falls back to the CPU or to a plain path):
    step's shapes (8x256, B=4096, S=160, random biases): per-leaf gradient
    errors against autograd of the plain K1, within a gate that a dropped
    weights cotangent misses by 10x or more; CUDA-event times;
-5. serve: write a random-weight checkpoint for
+5. K5 (the MLP over encodings) forward and backward against their plain
+   versions at the parity step's shapes (8x256, N = 786,432 fine, 262,144
+   coarse, and a ragged N): raw predictions, per-leaf gradients, the
+   encodings' gradients, within gates that a K5 dropping the skip part of
+   dx_enc, or fed a wrong layer-0 pack, misses by 10x or more;
+   CUDA-event times;
+6. serve: write a random-weight checkpoint for
    ``config/lego_batch_h256_tpu.json``, start the port's HTTP server on
    127.0.0.1, issue /healthz, three 200x200 /render and /stats, decode
    the PNGs, and check from the launch counter that K1 rendered them;
-6. train: the bench recipe's proposal trainer (batch 4096, 64 + 96
-   samples) takes 20 steps on one fixed batch: one K1 and one K2 launch
-   per step by the counters, a falling loss, one step's gradients on the
-   kernel path against the plain path with the same draws, the median
-   step time; then ``evaluate`` and a 200x200 frame from the trained
-   proposal state.
+7. proposal train: the bench recipe's proposal trainer (batch 4096, 64 +
+   96 samples) takes 10 steps on one fixed batch: one K1 and one K2
+   launch per step by the counters, a falling loss, one step's gradients
+   on the kernel path against the plain path with the same draws, the
+   median step time; then ``evaluate`` and a 200x200 frame;
+8. parity train, STOP_PDF_GRADIENT=true (the default recipe at
+   ``lego_batch_h256_tpu`` widths: batch 4096, 64 + 128 samples): 20
+   steps, two K1 and two K2 launches per step and no K5, a falling loss,
+   one step's gradients kernel path vs plain path, median step time; then
+   ``evaluate`` and a 200x200 frame;
+9. parity train, STOP_PDF_GRADIENT=false: 5 steps, two K5 forward and two
+   K5 backward launches per step and no K1/K2, finite losses, one step's
+   gradients kernel path vs plain path (the coarse leaves, whose gradient
+   runs through sample_pdf, reported on their own);
+10. full render: a 200x200 frame with ``full=True`` from the phase-8
+    state (two K5 launches per chunk), all eight maps checked against the
+    port's CPU path on the same checkpoint (a strided subset of rays).
 
-The line before the last is the kernel report
+Each main path runs with the launch counters set to 0 just before it and
+read just after.  The line before the last is the kernel report
 ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 """
@@ -45,19 +63,21 @@ import numpy as np
 import torch
 
 from nerf_keras_tpu_torch import load_config, runtime
-from nerf_keras_tpu_torch.engine.step import params_of, draw_t_vals, make_loss_fn
+from nerf_keras_tpu_torch.engine.step import draw_t_vals, make_loss_fn, params_of
 from nerf_keras_tpu_torch.engine.trainer import Trainer
 from nerf_keras_tpu_torch.models.mlp import (
     NeRFMLP,
+    is_skip,
     random_params,
     randomize_biases_,
 )
-from nerf_keras_tpu_torch.ops.kernels import _build
 from nerf_keras_tpu_torch.ops.encoding import encode_position
+from nerf_keras_tpu_torch.ops.kernels import _build
+from nerf_keras_tpu_torch.ops.kernels import fused_mlp as k5
 from nerf_keras_tpu_torch.ops.kernels import fused_render as k1
 from nerf_keras_tpu_torch.ops.rays import get_rays, pose_spherical
 from nerf_keras_tpu_torch.ops.sampling import generate_t_vals
-from nerf_keras_tpu_torch.profile_train import bench_batch, bench_config
+from nerf_keras_tpu_torch.profile_train import bench_batch, bench_config, parity_config
 from nerf_keras_tpu_torch.serving import RenderService, serve
 from nerf_keras_tpu_torch.utils.checkpoint import save_params_npz
 from nerf_keras_tpu_torch.utils.png import decode_png
@@ -71,11 +91,16 @@ from nerf_keras_tpu_torch.utils.png import decode_png
 # 0.57+ (max) and 0.019+ (mean).
 TOL_MAX = 5e-3
 TOL_MEAN = 1e-4
-# A frame served on the card against the plain path on the CPU: the fine
+# A frame rendered on the card against the plain path on the CPU: the fine
 # samples follow the coarse weights, so a small weight difference moves
 # them a little (on an H100, 24x24: rgb 1.5e-4, depth 1.6e-3).
 FRAME_TOL_RGB = 5e-3
 FRAME_TOL_DEPTH = 2e-2
+# The full render's weights (in [0, 1]) and raw predictions against the
+# CPU path: on an H100 (1,000 rays of a 200x200 frame) weights 7.7e-5,
+# raw predictions 2.6e-3 (coarse) and 6.2e-3 (fine, whose samples follow
+# the coarse weights); the raw predictions take K5's own gate.
+FRAME_TOL_WEIGHTS = 5e-3
 
 # K2 against autograd of the plain K1, per parameter leaf: relative L2
 # error (||kernel - plain|| / ||plain||).  Both take bf16 operands with f32
@@ -91,13 +116,38 @@ PREDS_TOL = 5e-2
 # One train step's gradients, kernel path against plain path on the card
 # with the same draws (per leaf, relative L2): 7.8e-3 on an H100.
 STEP_TOL_REL = 2e-2
+# K5's raw predictions against the plain MLP on the same bf16 encodings:
+# the products are K1's, so K1's residual gate (PREDS_TOL) holds for the
+# max, and the mean is held 50x tighter.
+K5_PREDS_MAX = PREDS_TOL
+K5_PREDS_MEAN = 1e-3
+# K5's gradients against autograd of the plain MLP, per leaf and for
+# dx_enc/dd_enc: relative L2.  The same bf16 operands, cotangents rounded
+# at other places (as K2): K2's gate.
+K5_TOL_REL = K2_TOL_REL
+# STOP_PDF_GRADIENT=false: the coarse leaves' gradient runs through
+# sample_pdf's 1/denominator (floored at 1e-5), which amplifies the fine
+# pass's bf16 rounding differences (K5's dx_enc against the plain one) by
+# up to 1e5 on a few rays.  On an H100 at batch 4096: 0.16 in the coarse
+# sigma head, 0.009-0.02 in the other coarse leaves, against 3.5e-3 in the
+# fine leaves; the coarse gate sits 3x above.
+PDF_COARSE_TOL_REL = 0.5
+
+PEAK_BF16 = 989e12  # H100 SXM dense bf16 tensor-core FLOP/s (data sheet)
+HBM_BYTES_S = 3.35e12  # H100 SXM device memory bytes/s (data sheet)
 
 CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                       "config", "lego_batch_h256_tpu.json")
-K1_SOURCE = "nerf_keras_tpu_torch/csrc/fused_render_fwd.cu"
-K1_REPLACES = "nerf_keras_tpu/ops/pallas/fused_render.py:709"
-K2_SOURCE = "nerf_keras_tpu_torch/csrc/fused_render_bwd.cu"
-K2_REPLACES = "nerf_keras_tpu/ops/pallas/fused_render.py:453"
+SOURCES = {
+    "K1": ("nerf_keras_tpu_torch/csrc/fused_render_fwd.cu",
+           "nerf_keras_tpu/ops/pallas/fused_render.py:709"),
+    "K2": ("nerf_keras_tpu_torch/csrc/fused_render_bwd.cu",
+           "nerf_keras_tpu/ops/pallas/fused_render.py:453"),
+    "K5f": ("nerf_keras_tpu_torch/csrc/fused_mlp_fwd.cu",
+            "nerf_keras_tpu/ops/pallas/fused_mlp.py:148"),
+    "K5b": ("nerf_keras_tpu_torch/csrc/fused_mlp_bwd.cu",
+            "nerf_keras_tpu/ops/pallas/fused_mlp.py:260"),
+}
 
 
 def say(phase: str, **fields) -> None:
@@ -118,6 +168,89 @@ def cuda_ms(fn, reps: int = 10) -> float:
         times.append(start.elapsed_time(end))
     return statistics.median(times)
 
+
+def full_mlp(dev: torch.device, seed: int) -> NeRFMLP:
+    gen = torch.Generator().manual_seed(seed)
+    return randomize_biases_(
+        NeRFMLP(num_layers=8, hidden_dim=256, skip_layer=4, l_xyz=10, l_dir=4,
+                compute_dtype=torch.bfloat16, generator=gen, device=dev),
+        gen,
+    )
+
+
+# ---------------------------------------------------------------------------
+# The least time the card could take for a kernel's work: the larger of its
+# products at the bf16 tensor-core peak and its bytes (each input read once,
+# each output written once) at the memory rate.
+
+def mlp_macs(mlp: NeRFMLP) -> int:
+    """Multiply-adds of one forward of the MLP per sample (every weight once)."""
+    return sum(layer.weight.numel() for layer in (*mlp.trunk, *mlp.heads().values()))
+
+
+def mlp_dx_macs(mlp: NeRFMLP, input_grads: bool) -> int:
+    """Multiply-adds of the backward's dX products per sample: every weight
+    with input gradients; without, less layer 0, the skip columns and the
+    branch's direction columns (whose gradients nothing reads)."""
+    total = mlp_macs(mlp)
+    if input_grads:
+        return total
+    hid = mlp.hidden_dim
+    skip = sum(mlp.xyz_dim * hid for i in range(mlp.num_layers) if is_skip(i, mlp.skip_layer))
+    return total - mlp.trunk[0].weight.numel() - skip - mlp.dir_dim * mlp.branch.weight.shape[0]
+
+
+def param_bytes(mlp: NeRFMLP) -> int:
+    return sum(p.numel() for p in mlp.parameters()) * 4
+
+
+def bound(flops: float, nbytes: float) -> tuple[float, str]:
+    t_ops, t_bytes = flops / PEAK_BF16, nbytes / HBM_BYTES_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def k1_bound(mlp, b, s, train):
+    n = b * s
+    nbytes = b * (24 + 12) + n * (4 + 4) + param_bytes(mlp) // 2
+    if train:
+        nbytes += n * (mlp.xyz_dim * 2 + 16)
+    return bound(2.0 * mlp_macs(mlp) * n, nbytes)
+
+
+def k2_bound(mlp, b, s):
+    n = b * s
+    flops = 2.0 * (mlp_macs(mlp) + mlp_dx_macs(mlp, False)) * n
+    nbytes = n * (mlp.xyz_dim * 2 + 16 + 4 + 4) + b * (12 + 12) + 3 * param_bytes(mlp)
+    return bound(flops, nbytes)
+
+
+def k5_bounds(mlp, n, input_grads):
+    enc = (mlp.xyz_dim + mlp.dir_dim) * 2
+    fwd = bound(2.0 * mlp_macs(mlp) * n, n * (enc + 16) + param_bytes(mlp) // 2)
+    flops = 2.0 * (mlp_macs(mlp) + mlp_dx_macs(mlp, input_grads)) * n
+    nbytes = n * (enc + 16 + (enc if input_grads else 0)) + 3 * param_bytes(mlp)
+    return fwd, bound(flops, nbytes)
+
+
+def kernel_entry(name, key, launches, max_abs_err, ms, plain_ms, bnd) -> dict:
+    source, replaces = SOURCES[key]
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": max_abs_err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+            "library_ms": None}
+
+
+def reset_counts() -> None:
+    k1.launches = k1.train_launches = k1.bwd_launches = 0
+    k5.launches = k5.bwd_launches = 0
+
+
+def counts() -> dict:
+    return {"k1_fwd": k1.launches - k1.train_launches, "k1_train": k1.train_launches,
+            "k2": k1.bwd_launches, "k5_fwd": k5.launches, "k5_bwd": k5.bwd_launches}
+
+
+# ---------------------------------------------------------------------------
 
 def phase_card() -> str:
     if not torch.cuda.is_available():
@@ -148,12 +281,7 @@ def phase_kernel(card: str) -> dict:
     """K1 vs render_rays_reference at the main path's shapes."""
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
-    mlp = randomize_biases_(
-        NeRFMLP(num_layers=8, hidden_dim=256, skip_layer=4, l_xyz=10,
-                l_dir=4, compute_dtype=torch.bfloat16, generator=gen,
-                device=dev),
-        gen,
-    )
+    mlp = full_mlp(dev, 0)
     origins, dirs = get_rays(64, 64, 1.2 * 64, pose_spherical(30.0, -30.0, 4.0),
                              device=dev)
     origins = origins.reshape(-1, 3).contiguous()
@@ -178,8 +306,10 @@ def phase_kernel(card: str) -> dict:
             finite = bool(torch.isfinite(rgb_k).all() and torch.isfinite(w_k).all())
             ms = cuda_ms(lambda: k1.render_rays_fused(*args))
             plain_ms = cuda_ms(lambda: k1.render_rays_reference(*args))
+            bnd = k1_bound(mlp, b, s, train=False)
             say("k1", B=b, S=s, **errs, tol_max=TOL_MAX, tol_mean=TOL_MEAN,
-                finite=finite, ms=ms, plain_ms=plain_ms, card=card)
+                finite=finite, ms=ms, plain_ms=plain_ms, bound_ms=bnd[0],
+                bound_by=bnd[1], card=card)
             if not finite:
                 raise RuntimeError(f"K1 produced non-finite values at S={s}")
             if (errs["rgb_max"] > TOL_MAX or errs["w_max"] > TOL_MAX
@@ -189,16 +319,19 @@ def phase_kernel(card: str) -> dict:
                                         errs["rgb_max"], errs["w_max"])
             report[f"ms_s{s}"] = ms
             report[f"plain_ms_s{s}"] = plain_ms
+            report[f"bound_s{s}"] = bnd
     return report
+
+
+def _rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float(torch.linalg.vector_norm(got.float() - want.float())
+                 / torch.linalg.vector_norm(want.float()).clamp_min(1e-30))
 
 
 def _leaf_errors(got: list, want: list) -> tuple[float, float]:
     """(max |diff| over all leaves, max per-leaf relative L2 error)."""
     max_abs = max(float((g - w).abs().max()) for g, w in zip(got, want))
-    rel = max(float(torch.linalg.vector_norm(g - w)
-                    / torch.linalg.vector_norm(w).clamp_min(1e-30))
-              for g, w in zip(got, want))
-    return max_abs, rel
+    return max_abs, max(_rel_l2(g, w) for g, w in zip(got, want))
 
 
 def phase_k2(card: str) -> dict:
@@ -206,11 +339,7 @@ def phase_k2(card: str) -> dict:
     bench step's shapes (B=4096 rays, S=160 = 64 + 96)."""
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(1)
-    mlp = randomize_biases_(
-        NeRFMLP(num_layers=8, hidden_dim=256, skip_layer=4, l_xyz=10, l_dir=4,
-                compute_dtype=torch.bfloat16, generator=gen, device=dev),
-        gen,
-    )
+    mlp = full_mlp(dev, 1)
     images, origins, dirs = (torch.as_tensor(x, device=dev) for x in bench_batch(4096))
     b, s = origins.shape[0], 160
     t = generate_t_vals(2.0, 6.0, (b,), s, "stratified", generator=gen).to(dev).contiguous()
@@ -248,11 +377,12 @@ def phase_k2(card: str) -> dict:
         [rgb_p, w_p], params, [g_rgb, g_w], retain_graph=True))
     leaves = {name: _leaf_errors([g], [w])[1]
               for (name, _), g, w in zip(mlp.named_parameters(), got, want)}
+    k1t_bnd, k2_bnd = k1_bound(mlp, b, s, train=True), k2_bound(mlp, b, s)
     say("k2", B=b, S=s, max_abs_err=max_abs, max_rel_l2=rel, tol_rel=K2_TOL_REL,
         rel_l2_vs_plain_without_gw=rel_dropped, x_enc_max_err=enc_err,
         preds_max_err=preds_err, finite=finite, k1_train_ms=k1_train_ms,
-        k1_plain_fwd_ms=k1_plain_ms, k2_ms=k2_ms, plain_bwd_ms=plain_bwd_ms,
-        rel_l2_by_leaf=leaves, card=card)
+        k1_plain_fwd_ms=k1_plain_ms, k1_train_bound_ms=k1t_bnd[0], k2_ms=k2_ms,
+        plain_bwd_ms=plain_bwd_ms, k2_bound_ms=k2_bnd[0], rel_l2_by_leaf=leaves, card=card)
     if not finite:
         raise RuntimeError("K1 residuals or K2 gradients are not finite")
     if enc_err > 1e-2 or preds_err > PREDS_TOL:
@@ -265,7 +395,116 @@ def phase_k2(card: str) -> dict:
             f"the gate cannot see a dropped weights cotangent: {rel_dropped} "
             f"< 10 x {K2_TOL_REL}")
     del rgb_p, w_p
-    return {"max_abs_err": max_abs, "ms": k2_ms, "plain_ms": plain_bwd_ms}
+    return {"max_abs_err": max_abs, "ms": k2_ms, "plain_ms": plain_bwd_ms, "bound": k2_bnd,
+            "k1_train_err": preds_err, "k1_train_ms": k1_train_ms,
+            "k1_train_plain_ms": k1_plain_ms, "k1_train_bound": k1t_bnd}
+
+
+def _k5_inputs(dev, n, seed):
+    """bf16 encodings of N points along random rays between near and far,
+    unit directions, and a cotangent for the raw predictions."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    o = torch.randn((n, 3), generator=gen, device=dev) * 0.3 + torch.tensor([0.0, 0.0, 4.0], device=dev)
+    d = torch.randn((n, 3), generator=gen, device=dev)
+    d = d / d.norm(dim=-1, keepdim=True)
+    t = torch.rand((n, 1), generator=gen, device=dev) * 4.0 + 2.0
+    x_enc = encode_position(o + d * t, 10).to(torch.bfloat16).contiguous()
+    d_enc = encode_position(d, 4).to(torch.bfloat16).contiguous()
+    g = torch.randn((n, 4), generator=gen, device=dev) * 1e-2
+    return x_enc, d_enc, g
+
+
+def _broken_pack(mlp: NeRFMLP, dev, what: str) -> k1.KernelPack:
+    """K5's input-gradient pack with the skip rows zeroed (``skip``: dx_enc
+    loses the skip part) or layer 0's rows zeroed (``layer0``: it loses the
+    layer-0 product); every other product is unchanged."""
+    mats = [wt.T.detach().clone() for wt, _ in k1._dense_layers(mlp)]
+    hid = mlp.hidden_dim
+    if what == "layer0":
+        mats[0].zero_()
+    else:
+        for i in range(1, mlp.num_layers + 1):
+            if is_skip(i - 1, mlp.skip_layer):
+                mats[i][hid:] = 0.0
+    return k1._pack([(m, None) for m in mats], dev)
+
+
+def phase_k5(card: str) -> dict:
+    """K5 vs its plain versions at the parity step's shapes: the fine pass
+    (N = 4096 x 192, with input gradients, as STOP_PDF_GRADIENT=false runs
+    it), the coarse pass (N = 4096 x 64, without: its encodings carry no
+    gradient) and a ragged N."""
+    dev = torch.device("cuda")
+    mlp = full_mlp(dev, 5)
+    params = list(mlp.parameters())
+    report = {"fwd_max_abs_err": 0.0, "bwd_max_abs_err": 0.0}
+    for n, need in ((4096 * 192, True), (4096 * 64, False), (100_003, True)):
+        x_enc, d_enc, g = _k5_inputs(dev, n, seed=n)
+        with torch.no_grad():
+            out = k5.launch_k5_fwd(mlp, x_enc, d_enc)
+            got, dx, dd = k5.launch_k5_bwd(mlp, x_enc, d_enc, g, need, need)
+            torch.cuda.synchronize()
+            want_out = mlp(x_enc, d_enc)
+        diff = (out - want_out).abs()
+        fwd = {"max": float(diff.max()), "mean": float(diff.mean())}
+        del want_out, diff
+        want, want_dx, want_dd = k5.apply_nerf_mlp_reference_vjp(mlp, x_enc, d_enc, g, need)
+        max_abs, rel = _leaf_errors(got, want)
+        leaves = {name: _rel_l2(a, b) for (name, _), a, b in zip(mlp.named_parameters(), got, want)}
+        finite = bool(torch.isfinite(out).all()) and all(bool(torch.isfinite(a).all()) for a in got)
+        fields = {}
+        if need:
+            finite = finite and bool(torch.isfinite(dx.float()).all() and torch.isfinite(dd.float()).all())
+            fields["dx_rel_l2"] = _rel_l2(dx, want_dx)
+            fields["dd_rel_l2"] = _rel_l2(dd, want_dd)
+            orig = k5.kernel_pack_bwd
+            for what in ("skip", "layer0"):
+                broken = _broken_pack(mlp, dev, what)
+                k5.kernel_pack_bwd = lambda m, d, input_grads=False, b=broken: b  # noqa: E731
+                try:
+                    _, bdx, _ = k5.launch_k5_bwd(mlp, x_enc, d_enc, g, True, True)
+                finally:
+                    k5.kernel_pack_bwd = orig
+                fields[f"dx_rel_l2_{what}_broken"] = _rel_l2(bdx, want_dx)
+        timing = {}
+        if n == 4096 * 192:
+            with torch.no_grad():
+                timing["fwd_ms"] = cuda_ms(lambda: k5.launch_k5_fwd(mlp, x_enc, d_enc))
+                timing["fwd_plain_ms"] = cuda_ms(lambda: mlp(x_enc, d_enc))
+                timing["bwd_ms"] = cuda_ms(
+                    lambda: k5.launch_k5_bwd(mlp, x_enc, d_enc, g, True, True))
+            xl = x_enc.float().requires_grad_()
+            dl = d_enc.float().requires_grad_()
+            with torch.enable_grad():
+                preds = mlp(xl, dl)
+            timing["bwd_plain_ms"] = cuda_ms(lambda: torch.autograd.grad(
+                [preds], params + [xl, dl], [g], retain_graph=True))
+            del preds, xl, dl
+            fwd_bnd, bwd_bnd = k5_bounds(mlp, n, input_grads=True)
+            timing.update(fwd_bound_ms=fwd_bnd[0], fwd_bound_by=fwd_bnd[1],
+                          bwd_bound_ms=bwd_bnd[0], bwd_bound_by=bwd_bnd[1])
+            report.update(timing, fwd_bound=fwd_bnd, bwd_bound=bwd_bnd)
+        say("k5", N=n, input_grads=need, preds_max=fwd["max"], preds_mean=fwd["mean"],
+            tol_preds_max=K5_PREDS_MAX, tol_preds_mean=K5_PREDS_MEAN,
+            grad_max_abs=max_abs, grad_max_rel_l2=rel, tol_rel=K5_TOL_REL, **fields,
+            finite=finite, rel_l2_by_leaf=leaves, **timing, card=card)
+        if not finite:
+            raise RuntimeError(f"K5 produced non-finite values at N={n}")
+        if fwd["max"] > K5_PREDS_MAX or fwd["mean"] > K5_PREDS_MEAN:
+            raise RuntimeError(f"K5's forward disagrees with the plain MLP at N={n}: {fwd}")
+        bad = [k for k in ("dx_rel_l2", "dd_rel_l2") if fields.get(k, 0.0) > K5_TOL_REL]
+        if rel > K5_TOL_REL or bad:
+            raise RuntimeError(f"K5's backward disagrees with the plain one at N={n}: "
+                               f"{rel} {fields}")
+        for what in ("skip", "layer0"):
+            if need and fields[f"dx_rel_l2_{what}_broken"] < 10 * K5_TOL_REL:
+                raise RuntimeError(f"the dx_enc gate cannot see a K5 with a broken {what} "
+                                   f"pack: {fields} < 10 x {K5_TOL_REL}")
+        report["fwd_max_abs_err"] = max(report["fwd_max_abs_err"], fwd["max"])
+        report["bwd_max_abs_err"] = max(report["bwd_max_abs_err"], max_abs)
+        del x_enc, d_enc, g, got, dx, dd, want, want_dx, want_dd, out
+        torch.cuda.empty_cache()
+    return report
 
 
 def _get(url: str) -> tuple[bytes, float]:
@@ -275,9 +514,9 @@ def _get(url: str) -> tuple[bytes, float]:
     return body, time.perf_counter() - t0
 
 
-def phase_serve(card: str, tmp: str) -> int:
-    """Serve random weights at full width over HTTP; returns the K1
-    launches the requests made."""
+def phase_serve(card: str, tmp: str) -> dict:
+    """Serve random weights at full width over HTTP; returns the launches
+    the requests made."""
     cfg = load_config(CONFIG)
     ckpt = os.path.join(tmp, "random.ckpt.npz")
     save_params_npz(ckpt, random_params(cfg, seed=0), cfg,
@@ -294,7 +533,7 @@ def phase_serve(card: str, tmp: str) -> int:
         body, _ = _get(f"{base}/healthz")
         if body != b"ok":
             raise RuntimeError(f"/healthz answered {body!r}")
-        k1.launches = 0  # count only the main path's launches from here
+        reset_counts()  # count only the main path's launches from here
         for map_name, theta in requests:
             before = k1.launches
             png, seconds = _get(
@@ -316,7 +555,7 @@ def phase_serve(card: str, tmp: str) -> int:
                     f"K1 launched {grew} times for one frame, expected "
                     f"2 x {n_chunks} chunks"
                 )
-        launches = k1.launches
+        launches = counts()
         stats = json.loads(_get(f"{base}/stats")[0])
         say("stats", **stats)
         if stats["requests"] != len(requests):
@@ -343,29 +582,30 @@ def phase_serve(card: str, tmp: str) -> int:
     return launches
 
 
-def phase_train(card: str) -> tuple[int, int]:
-    """The bench recipe's proposal trainer on the card; returns the K1 and
-    K2 launches its 20 steps made."""
-    cfg = bench_config()
-    trainer = Trainer(cfg, 2.0, 6.0, device="cuda")
-    batch = trainer.put_batch(bench_batch(cfg.batch_size))
-    b = cfg.batch_size
-
-    # One step's gradients, kernel path against plain path, same draws.
-    gen = torch.Generator(device="cuda").manual_seed(2)
-    t_vals = draw_t_vals(cfg, 2.0, 6.0, (b,), trainer.device,
-                         noise=torch.rand((b, cfg.ns_coarse), generator=gen, device="cuda"))
-    noise = [torch.rand((b, cfg.ns_fine), generator=gen, device="cuda")]
-
+def _plain_render_pass(cfg):
     def plain_pass(mlp, o, d, t, weights_grad):
         rgb, w = k1.render_rays_reference(mlp, o, d, t, l_xyz=cfg.l_xyz,
                                           l_dir=cfg.l_dir, skip_layer=cfg.skip_layer)
         return rgb, w if weights_grad else w.detach()
+    return plain_pass
 
+
+def _grads_kernel_vs_plain(cfg, trainer, batch, noise_shapes, seed):
+    """One step's gradients, kernel path against plain path (the plain K1
+    for the render passes, the plain MLP for K5), with the same draws.
+    Returns (loss_kernel, loss_plain, per-leaf relative L2 by model)."""
+    b = cfg.batch_size
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    t_vals = draw_t_vals(cfg, 2.0, 6.0, (b,), trainer.device,
+                         noise=torch.rand((b, cfg.ns_coarse), generator=gen, device="cuda"))
+    noise = [torch.rand(s, generator=gen, device="cuda") for s in noise_shapes]
+    noise = noise if cfg.train_sampler == "proposal" else noise[0]
     params = params_of(trainer.params)
     grads, losses = [], []
-    for render_pass in (None, plain_pass):
-        loss_fn = make_loss_fn(cfg, 2.0, 6.0, render_pass=render_pass)
+    for plain in (False, True):
+        loss_fn = make_loss_fn(cfg, 2.0, 6.0,
+                               render_pass=_plain_render_pass(cfg) if plain else None,
+                               mlp_fn=(lambda mlp, x, d: mlp(x, d)) if plain else None)
         for p in params:
             p.grad = None
         loss, _ = loss_fn(trainer.params, *batch, t_vals, 0, noise=noise)
@@ -374,69 +614,191 @@ def phase_train(card: str) -> tuple[int, int]:
         losses.append(float(loss.detach()))
     for p in params:
         p.grad = None
-    max_abs, rel = _leaf_errors(grads[0], grads[1])
-    say("train_grads_vs_plain", loss_kernel=losses[0], loss_plain=losses[1],
-        max_abs_err=max_abs, max_rel_l2=rel, tol_rel=STEP_TOL_REL, card=card)
-    if rel > STEP_TOL_REL:
-        raise RuntimeError(f"kernel-path gradients disagree with the plain path: {rel}")
+    by_model, i = {}, 0
+    for name in sorted(trainer.params):
+        k = len(list(trainer.params[name].parameters()))
+        by_model[name] = [_rel_l2(a, b) for a, b in zip(grads[0][i:i + k], grads[1][i:i + k])]
+        i += k
+    max_abs = max(float((a - b).abs().max()) for a, b in zip(*grads))
     del grads
     torch.cuda.empty_cache()
+    return losses, by_model, max_abs
 
-    # The main path: 20 steps, one K1 and one K2 launch each.
-    k1.launches = k1.bwd_launches = 0
+
+def _train_steps(trainer, batch, steps, per_step: dict) -> dict:
+    """``steps`` train steps with the counters reset just before; each must
+    launch exactly ``per_step``."""
+    reset_counts()
     step_ms, loss_curve = [], []
-    for i in range(20):
-        before = (k1.launches, k1.bwd_launches)
+    for i in range(steps):
+        before = counts()
         t0 = time.perf_counter()
         metrics = trainer.train_step(batch)
         loss_curve.append(float(metrics["loss"]))  # synchronises
         step_ms.append((time.perf_counter() - t0) * 1e3)
-        grew = (k1.launches - before[0], k1.bwd_launches - before[1])
-        if grew != (1, 1):
-            raise RuntimeError(f"step {i} launched K1/K2 {grew} times, expected (1, 1)")
-    launches = (k1.launches, k1.bwd_launches)
-    warm = statistics.median(step_ms[2:])
+        grew = {k: v - before[k] for k, v in counts().items()}
+        if grew != per_step:
+            raise RuntimeError(f"step {i} launched {grew}, expected {per_step}")
+    warm = statistics.median(step_ms[2:]) if steps > 2 else statistics.median(step_ms)
+    return {"launches": counts(), "loss_curve": loss_curve, "step_ms": step_ms,
+            "median_step_ms": warm, "rays_per_s": trainer.cfg.batch_size / (warm / 1e3)}
+
+
+def _eval_and_frame(trainer, batch, what: str) -> tuple[dict, dict]:
+    """``evaluate`` and a 200x200 frame, counted as forward-only launches."""
+    reset_counts()
     ev = trainer.evaluate([batch])
     frame = trainer.render_image(pose_spherical(30.0, -30.0, 4.0), 200, 200, 240.0)
     rgb = frame["rgb"]
-    say("train", steps=20, loss_first=loss_curve[0], loss_last=loss_curve[-1],
-        loss_curve=loss_curve, step_ms=step_ms, median_step_ms=warm,
-        rays_per_s=b / (warm / 1e3), k1_launches=launches[0], k2_launches=launches[1],
-        eval=ev, frame_shape=list(rgb.shape), frame_std=float(rgb.std()), card=card)
-    if not loss_curve[-1] < loss_curve[0]:
-        raise RuntimeError(f"the loss did not fall: {loss_curve}")
     if not all(np.isfinite(v) for v in ev.values()):
-        raise RuntimeError(f"non-finite eval metrics {ev}")
+        raise RuntimeError(f"{what}: non-finite eval metrics {ev}")
     if not (np.isfinite(rgb).all() and np.isfinite(frame["depth"]).all()):
-        raise RuntimeError("non-finite frame from the trained proposal state")
+        raise RuntimeError(f"{what}: non-finite frame")
     if rgb.shape != (200, 200, 3) or rgb.std() == 0:
-        raise RuntimeError("the trained proposal state rendered a constant frame")
+        raise RuntimeError(f"{what}: a constant frame")
+    return ev, counts()
+
+
+ZERO = {"k1_fwd": 0, "k1_train": 0, "k2": 0, "k5_fwd": 0, "k5_bwd": 0}
+
+
+def phase_train(card: str) -> list[dict]:
+    """The bench recipe's proposal trainer on the card (10 steps)."""
+    cfg = bench_config()
+    trainer = Trainer(cfg, 2.0, 6.0, device="cuda")
+    batch = trainer.put_batch(bench_batch(cfg.batch_size))
+    losses, by_model, max_abs = _grads_kernel_vs_plain(
+        cfg, trainer, batch, [(cfg.batch_size, cfg.ns_fine)], seed=2)
+    rel = max(max(v) for v in by_model.values())
+    say("train_grads_vs_plain", loss_kernel=losses[0], loss_plain=losses[1],
+        max_abs_err=max_abs, max_rel_l2=rel, tol_rel=STEP_TOL_REL, card=card)
+    if rel > STEP_TOL_REL:
+        raise RuntimeError(f"kernel-path gradients disagree with the plain path: {rel}")
+    run = _train_steps(trainer, batch, 10, dict(ZERO, k1_train=1, k2=1))
+    ev, after = _eval_and_frame(trainer, batch, "proposal")
+    say("train", steps=10, **run, eval=ev, eval_frame_launches=after, card=card)
+    if not run["loss_curve"][-1] < run["loss_curve"][0]:
+        raise RuntimeError(f"the loss did not fall: {run['loss_curve']}")
+    return [run["launches"], after]
+
+
+def phase_parity(card: str, stop: bool, tmp: str) -> tuple[list[dict], str | None]:
+    """The coarse+fine parity step at lego_batch_h256_tpu widths (batch
+    4096, 64 + 128): with STOP_PDF_GRADIENT 20 steps over K1/K2, then
+    evaluate, a frame and a checkpoint; without it 5 steps over K5."""
+    cfg = parity_config(stop_pdf_gradient=stop)
+    trainer = Trainer(cfg, 2.0, 6.0, device="cuda")
+    for m in trainer.params.values():
+        randomize_biases_(m, torch.Generator().manual_seed(3))
+    batch = trainer.put_batch(bench_batch(cfg.batch_size))
+    losses, by_model, max_abs = _grads_kernel_vs_plain(
+        cfg, trainer, batch, [(cfg.batch_size, cfg.ns_fine)], seed=4)
+    rel_fine, rel_coarse = max(by_model["fine"]), max(by_model["coarse"])
+    tol_coarse = STEP_TOL_REL if stop else PDF_COARSE_TOL_REL
+    say("parity_grads_vs_plain", stop_pdf_gradient=stop, loss_kernel=losses[0],
+        loss_plain=losses[1], max_abs_err=max_abs, max_rel_l2_fine=rel_fine,
+        max_rel_l2_coarse=rel_coarse, rel_l2_coarse_by_leaf=by_model["coarse"],
+        tol_rel_fine=STEP_TOL_REL, tol_rel_coarse=tol_coarse, card=card)
+    if not (rel_fine <= STEP_TOL_REL and rel_coarse <= tol_coarse):
+        raise RuntimeError(f"kernel-path gradients disagree with the plain path: "
+                           f"fine {rel_fine}, coarse {rel_coarse}")
+    steps = 20 if stop else 5
+    per_step = dict(ZERO, k1_train=2, k2=2) if stop else dict(ZERO, k5_fwd=2, k5_bwd=2)
+    run = _train_steps(trainer, batch, steps, per_step)
+    name = "parity_train" if stop else "parity_train_pdf_grad"
+    if not all(np.isfinite(x) for x in run["loss_curve"]):
+        raise RuntimeError(f"{name}: non-finite losses {run['loss_curve']}")
+    if stop and not run["loss_curve"][-1] < run["loss_curve"][0]:
+        raise RuntimeError(f"{name}: the loss did not fall: {run['loss_curve']}")
+    if not stop:
+        say(name, steps=steps, **run, card=card)
+        return [run["launches"]], None
+    ev, after = _eval_and_frame(trainer, batch, name)
+    say(name, steps=steps, **run, eval=ev, eval_frame_launches=after, card=card)
+    ckpt = os.path.join(tmp, "parity.ckpt.npz")
+    trainer.save(ckpt, scene={"near": 2.0, "far": 6.0})
+    return [run["launches"], after], ckpt
+
+
+def phase_full_render(card: str, ckpt: str) -> dict:
+    """A 200x200 frame with full=True through K5 (two launches per chunk),
+    all eight maps held against the port's CPU path on a strided subset of
+    its rays (rays render independently)."""
+    cfg = parity_config()
+    gpu = Trainer(cfg, 2.0, 6.0, device="cuda").restore(ckpt)
+    origins, dirs = gpu.pose_rays(pose_spherical(30.0, -30.0, 4.0), 200, 200, 240.0)
+    chunk = 16384
+    reset_counts()
+    out = gpu.render_rays(origins, dirs, chunk=chunk, full=True)
+    launches = counts()
+    n_chunks = -(-origins.shape[0] // chunk)
+    expected = dict(ZERO, k5_fwd=2 * n_chunks)
+    if launches != expected:
+        raise RuntimeError(f"the full render launched {launches}, expected {expected}")
+    idx = torch.arange(0, origins.shape[0], 40)
+    cpu = Trainer(cfg, 2.0, 6.0, device="cpu").restore(ckpt)
+    ref = cpu.render_rays(origins[idx].cpu(), dirs[idx].cpu(), full=True)
+    tols = {"rgb": FRAME_TOL_RGB, "depth": FRAME_TOL_DEPTH, "weights": FRAME_TOL_WEIGHTS,
+            "preds": K5_PREDS_MAX}
+    errs, bad = {}, []
+    for k in sorted(ref):
+        got = out[k][idx.numpy()]
+        if got.shape != ref[k].shape or not np.isfinite(out[k]).all():
+            bad.append(f"{k}: shape {got.shape} vs {ref[k].shape} or non-finite")
+            continue
+        errs[k] = float(np.abs(got - ref[k]).max())
+        tol = tols.get(k, tols.get(k.split("_")[0]))
+        if errs[k] > tol:
+            bad.append(f"{k}: {errs[k]} > {tol}")
+    say("full_render", size=200, chunks=n_chunks, launches=launches, rays_checked=len(idx),
+        max_abs_err=errs, tolerances=tols, keys=sorted(out), card=card)
+    if len(out) != 8 or bad:
+        raise RuntimeError(f"the full render disagrees with the CPU path: {bad} {sorted(out)}")
     return launches
+
+
+def _sum(runs: list[dict], key: str) -> int:
+    return sum(r[key] for r in runs)
 
 
 def main() -> None:
     card = phase_card()
     phase_build()
-    kernel = phase_kernel(card)
-    k2 = phase_k2(card)
+    k1r = phase_kernel(card)
+    k2r = phase_k2(card)
     torch.cuda.empty_cache()
+    k5r = phase_k5(card)
+    torch.cuda.empty_cache()
+    runs = []
     with tempfile.TemporaryDirectory() as tmp:
-        serve_launches = phase_serve(card, tmp)
-    if serve_launches == 0:
-        raise RuntimeError("the served frames never launched K1")
-    train_k1, train_k2 = phase_train(card)
-    if train_k1 == 0 or train_k2 == 0:
-        raise RuntimeError("the train steps never launched K1 or K2")
-    print(json.dumps({"kernels": [{
-        "name": "K1 fused_render_fwd", "route": "cuda", "source": K1_SOURCE,
-        "replaces": K1_REPLACES, "launches": serve_launches + train_k1,
-        "max_abs_err": kernel["max_abs_err"],
-        "ms": kernel["ms_s192"], "plain_ms": kernel["plain_ms_s192"],
-    }, {
-        "name": "K2 fused_render_bwd", "route": "cuda", "source": K2_SOURCE,
-        "replaces": K2_REPLACES, "launches": train_k2,
-        "max_abs_err": k2["max_abs_err"], "ms": k2["ms"], "plain_ms": k2["plain_ms"],
-    }]}))
+        runs.append(phase_serve(card, tmp))
+        runs += phase_train(card)
+        torch.cuda.empty_cache()
+        parity, ckpt = phase_parity(card, True, tmp)
+        runs += parity
+        torch.cuda.empty_cache()
+        runs += phase_parity(card, False, tmp)[0]
+        torch.cuda.empty_cache()
+        runs.append(phase_full_render(card, ckpt))
+    kernels = [
+        kernel_entry("K1 fused_render_fwd", "K1", _sum(runs, "k1_fwd"), k1r["max_abs_err"],
+                     k1r["ms_s192"], k1r["plain_ms_s192"], k1r["bound_s192"]),
+        kernel_entry("K1-train fused_render_fwd (residuals)", "K1", _sum(runs, "k1_train"),
+                     k2r["k1_train_err"], k2r["k1_train_ms"], k2r["k1_train_plain_ms"],
+                     k2r["k1_train_bound"]),
+        kernel_entry("K2 fused_render_bwd", "K2", _sum(runs, "k2"), k2r["max_abs_err"],
+                     k2r["ms"], k2r["plain_ms"], k2r["bound"]),
+        kernel_entry("K5-fwd fused_mlp_fwd", "K5f", _sum(runs, "k5_fwd"),
+                     k5r["fwd_max_abs_err"], k5r["fwd_ms"], k5r["fwd_plain_ms"],
+                     k5r["fwd_bound"]),
+        kernel_entry("K5-bwd fused_mlp_bwd", "K5b", _sum(runs, "k5_bwd"),
+                     k5r["bwd_max_abs_err"], k5r["bwd_ms"], k5r["bwd_plain_ms"],
+                     k5r["bwd_bound"]),
+    ]
+    for entry in kernels:
+        if entry["launches"] == 0:
+            raise RuntimeError(f"{entry['name']} was never launched on the main path")
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

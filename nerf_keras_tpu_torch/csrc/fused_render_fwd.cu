@@ -77,26 +77,24 @@ struct Params {
   __nv_bfloat16* xenc_out;  // (B*S, xyz_dim) or null
   float* preds_out;         // (B*S, 4) or null
   int B, S, R;
-  int num_layers, skip_layer, hidden;
-  int l_xyz, l_dir, xyz_dim, xyz_pad, dir_dim, dir_pad, ldx;
-  Dense dense[kMaxDense];
+  MlpDims m;
 };
 
 __global__ void __launch_bounds__(kThreads)
     fused_render_fwd_kernel(const __grid_constant__ Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
+  const MlpDims& m = p.m;
   const int tid = threadIdx.x;
-  const int ldx = p.ldx;
+  const int ldx = m.ldx;
   const int R = p.R;
   const int S = p.S;
-  const int H = p.hidden;
 
   // Shared-memory carve-up (all section sizes are multiples of 16 bytes).
   __nv_bfloat16* buf0 = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* buf1 = buf0 + kTileRows * ldx;
   __nv_bfloat16* xenc = buf1 + kTileRows * ldx;     // (64, xyz_pad)
-  __nv_bfloat16* denc = xenc + kTileRows * p.xyz_pad;  // (R, dir_pad)
-  float* pts = reinterpret_cast<float*>(denc + R * p.dir_pad);  // (64, 4)
+  __nv_bfloat16* denc = xenc + kTileRows * m.xyz_pad;  // (R, dir_pad)
+  float* pts = reinterpret_cast<float*>(denc + R * m.dir_pad);  // (64, 4)
   float* ray_o = pts + kTileRows * 4;  // (R, 4)
   float* ray_d = ray_o + R * 4;        // (R, 4)
   float* sig = ray_d + R * 4;          // (R*S)
@@ -114,9 +112,9 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
   // Direction features once per ray (every sample of a ray shares them).
-  for (int i = tid; i < R * p.dir_pad; i += kThreads) {
-    const int r = i / p.dir_pad, c = i - r * p.dir_pad;
-    denc[i] = __float2bfloat16_rn(encode_feature(ray_d + r * 4, c, p.dir_dim));
+  for (int i = tid; i < R * m.dir_pad; i += kThreads) {
+    const int r = i / m.dir_pad, c = i - r * m.dir_pad;
+    denc[i] = __float2bfloat16_rn(encode_feature(ray_d + r * 4, c, m.dir_dim));
   }
 
   const int ntiles = (P + kTileRows - 1) / kTileRows;
@@ -139,59 +137,22 @@ __global__ void __launch_bounds__(kThreads)
       pts[tid * 4 + 2] = z;
     }
     __syncthreads();
-    for (int i = tid; i < kTileRows * p.xyz_pad; i += kThreads) {
-      const int row = i / p.xyz_pad, c = i - row * p.xyz_pad;
+    for (int i = tid; i < kTileRows * m.xyz_pad; i += kThreads) {
+      const int row = i / m.xyz_pad, c = i - row * m.xyz_pad;
       const __nv_bfloat16 v =
-          __float2bfloat16_rn(encode_feature(pts + row * 4, c, p.xyz_dim));
+          __float2bfloat16_rn(encode_feature(pts + row * 4, c, m.xyz_dim));
       buf0[row * ldx + c] = v;
       xenc[i] = v;
-      if (p.xenc_out != nullptr && row < rows_valid && c < p.xyz_dim)
-        p.xenc_out[((size_t)r0 * S + q0 + row) * p.xyz_dim + c] = v;
+      if (p.xenc_out != nullptr && row < rows_valid && c < m.xyz_dim)
+        p.xenc_out[((size_t)r0 * S + q0 + row) * m.xyz_dim + c] = v;
     }
     __syncthreads();
-
-    __nv_bfloat16* in = buf0;
-    __nv_bfloat16* out = buf1;
-    Epi e{};
-    e.rows_valid = rows_valid;
-    for (int i = 0; i < p.num_layers; ++i) {
-      e.out = out;
-      e.bias = p.b + p.dense[i].b_off;
-      tile_gemm<kReluBf16>(p.w, p.dense[i], in, ldx, e);
-      if (is_skip(i, p.skip_layer)) {
-        for (int j = tid; j < kTileRows * p.xyz_pad; j += kThreads) {
-          const int row = j / p.xyz_pad, c = j - row * p.xyz_pad;
-          out[row * ldx + H + c] = xenc[j];
-        }
-      }
-      __syncthreads();
-      __nv_bfloat16* tmp = in;
-      in = out;
-      out = tmp;
-    }
-    // Merged feature+sigma head; the direction features fill the columns
-    // after the feature, so `out` becomes the branch input [feature, d_enc].
-    const Dense& fs = p.dense[p.num_layers];
-    e.out = out;
-    e.bias = p.b + fs.b_off;
-    e.sig = sig + q0;
-    tile_gemm<kFeatureSigma>(p.w, fs, in, ldx, e);
-    for (int j = tid; j < kTileRows * p.dir_pad; j += kThreads) {
-      const int row = j / p.dir_pad, c = j - row * p.dir_pad;
+    auto dir = [&](int row, int c) {
       const int q = q0 + row;
-      out[row * ldx + H + c] =
-          q < P ? denc[(q / S) * p.dir_pad + c] : __float2bfloat16_rn(0.f);
-    }
-    __syncthreads();
-    e.out = in;
-    e.bias = p.b + p.dense[p.num_layers + 1].b_off;
-    tile_gemm<kReluBf16>(p.w, p.dense[p.num_layers + 1], out, ldx, e);
-    __syncthreads();
-    e.out = out;
-    e.bias = p.b + p.dense[p.num_layers + 2].b_off;
-    e.rgbl = rgbl + q0 * 3;
-    tile_gemm<kRgbLogits>(p.w, p.dense[p.num_layers + 2], in, ldx, e);
-    __syncthreads();
+      return q < P ? denc[(q / S) * m.dir_pad + c] : __float2bfloat16_rn(0.f);
+    };
+    mlp_forward_tile(m, p.w, p.b, buf0, buf1, xenc, dir, sig + q0, rgbl + q0 * 3,
+                     rows_valid);
   }
 
   if (p.preds_out != nullptr) {
@@ -267,12 +228,11 @@ extern "C" int nkt_fused_render_fwd(
     void* preds_out, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (B <= 0 || S < 2 || num_layers < 1 || skip_layer < 1 ||
-      hidden % 16 != 0 || hidden < 16 || n_dense != num_layers + 3 ||
-      n_dense > kMaxDense)
-    return (int)cudaErrorInvalidValue;
-
   Params p;
+  if (B <= 0 || S < 2 ||
+      !mlp_dims_init(p.m, static_cast<const int*>(dense_desc), n_dense, num_layers,
+                     skip_layer, hidden, l_xyz, l_dir))
+    return (int)cudaErrorInvalidValue;
   p.origins = static_cast<const float*>(origins);
   p.dirs = static_cast<const float*>(dirs);
   p.t_vals = static_cast<const float*>(t_vals);
@@ -285,36 +245,11 @@ extern "C" int nkt_fused_render_fwd(
   p.B = B;
   p.S = S;
   p.R = S >= kTileRows ? 1 : kTileRows / S;
-  p.num_layers = num_layers;
-  p.skip_layer = skip_layer;
-  p.hidden = hidden;
-  p.l_xyz = l_xyz;
-  p.l_dir = l_dir;
-  p.xyz_dim = 3 + 6 * l_xyz;
-  p.xyz_pad = round_up(p.xyz_dim, 16);
-  p.dir_dim = 3 + 6 * l_dir;
-  p.dir_pad = round_up(p.dir_dim, 16);
-  const int kmax = hidden + (p.xyz_pad > p.dir_pad ? p.xyz_pad : p.dir_pad);
-  // +8 bf16: row stride of 4 (mod 8) words keeps A-fragment loads
-  // conflict-free.
-  p.ldx = kmax + 8;
-  const int* desc = static_cast<const int*>(dense_desc);
-  for (int i = 0; i < n_dense; ++i) {
-    Dense& d = p.dense[i];
-    d.k_pad = desc[i * 5 + 0];
-    d.n = desc[i * 5 + 1];
-    d.n_pad = desc[i * 5 + 2];
-    d.w_off = desc[i * 5 + 3];
-    d.b_off = desc[i * 5 + 4];
-    if (d.k_pad % 16 != 0 || d.k_pad > kmax || d.n_pad % 8 != 0 ||
-        d.n > d.n_pad || d.w_off % 8 != 0)
-      return (int)cudaErrorInvalidValue;
-  }
 
   const size_t smem =
       sizeof(__nv_bfloat16) *
-          ((size_t)2 * kTileRows * p.ldx + (size_t)kTileRows * p.xyz_pad +
-           (size_t)p.R * p.dir_pad) +
+          ((size_t)2 * kTileRows * p.m.ldx + (size_t)kTileRows * p.m.xyz_pad +
+           (size_t)p.R * p.m.dir_pad) +
       sizeof(float) * ((size_t)kTileRows * 4 + (size_t)p.R * 8 +
                        (size_t)p.R * S * 4);
   if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;

@@ -2,9 +2,22 @@
 
 Counterpart of ``nerf_keras_tpu/engine/step.py``:
 
-* the coarse+fine render (``make_render_fn``, ``_make_fused_eval_forward``):
-  coarse K1 over centered t-values, ``sample_pdf`` with deterministic u on
-  the detached coarse weights, ``sorted_union``, fine K1 over the union;
+* the coarse+fine parity train step (the ``TRAIN_SAMPLER=coarse`` branch
+  of ``make_train_step``): a coarse pass over stratified t-values,
+  ``sample_pdf`` on the coarse weights, ``sorted_union``, a fine pass over
+  the union; loss ``mse(coarse) + mse(fine)`` (+ ``DISTORTION_LOSS_MULT``
+  x the distortion of the fine weights).  With ``STOP_PDF_GRADIENT`` (the
+  default) the coarse weights are detached before the draw and each pass
+  is one K1 launch forward and one K2 launch backward
+  (``_make_fused_train_forward``); without it the fine samples' t-values
+  stay differentiable through ``sample_pdf`` into the coarse MLP, so the
+  encodings are computed outside the MLP and each pass is one K5 launch
+  forward and one backward with input gradients (``make_forward_pass``);
+* the coarse+fine eval step and render (``make_render_fn``,
+  ``_make_fused_eval_forward``: coarse K1 over centered t-values,
+  deterministic ``sample_pdf``, ``sorted_union``, fine K1), and the full
+  render (``full=True``: weights and raw predictions of both passes,
+  through ``make_forward_pass`` and K5's forward);
 * the online-proposal train step (the proposal branch of
   ``make_train_step``), its eval step and the proposal render: the
   proposal chain (``ops/proposal.py``) places the fine samples, one fine
@@ -13,9 +26,13 @@ Counterpart of ``nerf_keras_tpu/engine/step.py``:
 * ``make_optimizer`` (optax's Adam, eps 1e-7, optional exponential decay),
   ``mse`` and ``psnr``.
 
-PyTorch runs eagerly, so there is nothing to compile: each function is
-plain Python around the kernel launches.  Parameters are updated in place
-(the optimizer and the EMA), where the JAX step returns a new state.
+The port does not read ``USE_PALLAS``: on the card the kernels always run
+(K1/K2 where the JAX package takes its fused megakernel, K5 where it
+takes ``apply_nerf_mlp_pallas``), and on the CPU each kernel's plain
+version does.  PyTorch runs eagerly, so there is nothing to compile: each
+function is plain Python around the kernel launches.  Parameters are
+updated in place (the optimizer and the EMA), where the JAX step returns
+a new state.
 """
 
 from __future__ import annotations
@@ -27,7 +44,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from nerf_keras_tpu.config import NeRFConfig
+from nerf_keras_tpu_torch.config import NeRFConfig
+from nerf_keras_tpu_torch.ops.encoding import encode_position
+from nerf_keras_tpu_torch.ops.kernels.fused_mlp import apply_nerf_mlp_fused
 from nerf_keras_tpu_torch.ops.kernels.fused_render import render_rays_fused
 from nerf_keras_tpu_torch.ops.proposal import (
     binned_fine_weights,
@@ -39,7 +58,12 @@ from nerf_keras_tpu_torch.ops.sampling import (
     sample_pdf,
     sorted_union,
 )
-from nerf_keras_tpu_torch.ops.volume import composite_background, distortion_loss
+from nerf_keras_tpu_torch.ops.rays import sample_rays
+from nerf_keras_tpu_torch.ops.volume import (
+    composite_background,
+    distortion_loss,
+    volume_render,
+)
 from nerf_keras_tpu_torch.utils.checkpoint import check_render_support
 
 _LATER = "arrives in a later slice of the port (ROADMAP.md queue 1)"
@@ -48,11 +72,6 @@ _LATER = "arrives in a later slice of the port (ROADMAP.md queue 1)"
 def check_train_support(cfg: NeRFConfig, device: torch.device | None = None) -> None:
     """Raise ``NotImplementedError`` for training knobs this port does not
     run yet; ``ValueError`` for an unresolved anneal horizon."""
-    if cfg.train_sampler != "proposal":
-        raise NotImplementedError(
-            f"TRAIN_SAMPLER={cfg.train_sampler!r} training (the coarse+fine "
-            f"parity step) {_LATER}; TRAIN_SAMPLER='proposal' trains"
-        )
     unported = {
         "PROP_UNION=false": not cfg.prop_union,
         "PROP_AUX_SAMPLES": cfg.prop_aux_samples > 0,
@@ -145,7 +164,7 @@ def psnr(a: torch.Tensor, b: torch.Tensor, max_val: float = 1.0) -> torch.Tensor
 class TrainState:
     """What one train step reads and updates in place."""
 
-    params: dict[str, nn.Module]        # {'proposal', 'fine'}
+    params: dict[str, nn.Module]        # {'coarse', 'fine'} or {'proposal', 'fine'}
     opt: Adam | None                    # None: a render-only state
     ema: dict[str, nn.Module] | None    # EMA shadow (EMA_DECAY > 0)
     step: int = 0
@@ -170,22 +189,178 @@ def params_of(models: dict[str, nn.Module]) -> list[torch.Tensor]:
     return [p for name in sorted(models) for p in models[name].parameters()]
 
 
-def make_loss_fn(cfg: NeRFConfig, near: float, far: float,
-                 render_pass: Callable | None = None) -> Callable:
-    """The proposal train step's loss.
+def _mlp_fn(cfg: NeRFConfig) -> Callable:
+    """The MLP over encodings ``(mlp, x_enc, d_enc) -> raw (..., 4)``: K5
+    on the card, :meth:`NeRFMLP.forward` on the CPU.  Gradients reach the
+    encodings only in the ``STOP_PDF_GRADIENT=false`` mode, the one where
+    they are differentiable (through ``sample_pdf``)."""
+    need_input_grads = not cfg.stop_pdf_gradient
 
-    ``loss_fn(params, images, origins, dirs, t_vals, step, generator=None,
-    noise=None) -> (loss, (loss_prop, loss_fine, rgb_fine))``: the chain
-    places the fine samples (draws from ``generator`` or the per-level
-    uniforms ``noise``), one fine pass renders them, and the loss is
-    MSE(fine rgb) + PROP_LOSS_MULT x the interlevel loss of each level
-    against the detached fine weights binned into its partition (blurred
-    ``[1/4, 1/2, 1/4]`` per the JAX blur rule) + DISTORTION_LOSS_MULT x
-    the distortion of the fine weights.  ``render_pass`` replaces the
-    fine pass (K1/K2 on the card, the plain version on the CPU); it gets
-    ``weights_grad`` as a keyword.
+    def run(mlp, x_enc, d_enc):
+        return apply_nerf_mlp_fused(mlp, x_enc, d_enc, need_input_grads=need_input_grads)
+
+    return run
+
+
+def make_forward_pass(cfg: NeRFConfig, return_t_fine: bool = False,
+                      mlp_fn: Callable | None = None) -> Callable:
+    """The coarse->fine forward pass with the encodings computed outside the
+    MLP (stored in the compute dtype, as the JAX package stores them).
+
+    ``forward(models, origins, dirs, t_vals, deterministic=False,
+    generator=None, noise=None)`` -> ``((rgb_coarse, rgb_fine),
+    (depth_coarse, depth_fine), (weights_coarse, weights_fine),
+    (preds_coarse, preds_fine))``; with ``return_t_fine`` the pair
+    ``(outputs, t_all)``, the fine pass's sorted t-union (the distortion
+    loss pairs it with ``weights_fine``).  The fine samples follow the
+    coarse weights: ``sample_pdf`` with evenly spaced u (``deterministic``,
+    the render) or with uniforms from ``generator`` or ``noise`` ``(B,
+    NS_FINE)`` (training).  The coarse weights are detached before the draw
+    only under ``STOP_PDF_GRADIENT``; otherwise the fine t-values, and so
+    the fine pass's position encodings, carry gradients into the coarse
+    MLP.  ``mlp_fn`` replaces the MLP (default :func:`_mlp_fn`).
+    """
+    mlp = _mlp_fn(cfg) if mlp_fn is None else mlp_fn
+    enc_dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
+
+    def run_mlp(model, origins, dirs, t):
+        points, _ = sample_rays(origins, dirs, t)
+        x_enc = encode_position(points, cfg.l_xyz).to(enc_dtype)
+        # Every sample of a ray shares its direction's encoding.
+        d_enc = encode_position(dirs, cfg.l_dir).to(enc_dtype)
+        return mlp(model, x_enc, d_enc[..., None, :].expand(*t.shape, -1))
+
+    def forward(models, origins, dirs, t_vals, deterministic=False,
+                generator=None, noise=None):
+        preds_coarse = run_mlp(models["coarse"], origins, dirs, t_vals)
+        rgb_coarse, depth_coarse, w_coarse = volume_render(preds_coarse, t_vals)
+        t_mid = 0.5 * (t_vals[..., 1:] + t_vals[..., :-1])
+        w_pdf = w_coarse.detach() if cfg.stop_pdf_gradient else w_coarse
+        t_fine = sample_pdf(t_mid, w_pdf, cfg.ns_fine, deterministic=deterministic,
+                            generator=generator, noise=noise)
+        t_all = sorted_union(t_vals, t_fine)
+        preds_fine = run_mlp(models["fine"], origins, dirs, t_all)
+        rgb_fine, depth_fine, w_fine = volume_render(preds_fine, t_all)
+        if cfg.white_bkgd:
+            rgb_coarse = composite_background(rgb_coarse, w_coarse)
+            rgb_fine = composite_background(rgb_fine, w_fine)
+        outputs = ((rgb_coarse, rgb_fine), (depth_coarse, depth_fine),
+                   (w_coarse, w_fine), (preds_coarse, preds_fine))
+        return (outputs, t_all) if return_t_fine else outputs
+
+    return forward
+
+
+def _make_fused_train_forward(cfg: NeRFConfig, want_weights: bool = False,
+                              render_pass: Callable | None = None) -> Callable:
+    """The parity step's training forward under ``STOP_PDF_GRADIENT``: each
+    pass is one :func:`render_rays_fused` (K1 with its residuals forward,
+    K2 backward on the card).
+
+    ``forward(models, origins, dirs, t_vals, generator=None, noise=None)``
+    -> ``(rgb_coarse, rgb_fine)``, or with ``want_weights`` (the distortion
+    loss) ``(rgb_coarse, rgb_fine, t_all, w_fine)``.  The weights output of
+    a pass carries a gradient only where a loss reads it: the coarse pass's
+    under ``WHITE_BKGD`` (its ``1 - acc`` term), the fine pass's under
+    distortion or ``WHITE_BKGD``; the draw always takes the detached coarse
+    weights.  ``render_pass`` replaces :func:`render_rays_fused` (it gets
+    ``weights_grad`` as a keyword).
+    """
+    def make(weights_grad: bool) -> Callable:
+        if render_pass is None:
+            return _make_pass_fn(cfg, weights_grad=weights_grad)
+        return lambda mlp, o, d, t: render_pass(mlp, o, d, t, weights_grad=weights_grad)
+
+    render = make(cfg.white_bkgd)
+    render_fine = make(want_weights or cfg.white_bkgd)
+
+    def forward(models, origins, dirs, t_vals, generator=None, noise=None):
+        rgb_coarse, w_coarse = render(models["coarse"], origins, dirs, t_vals)
+        if cfg.white_bkgd:
+            rgb_coarse = composite_background(rgb_coarse, w_coarse)
+        t_mid = 0.5 * (t_vals[..., 1:] + t_vals[..., :-1])
+        t_fine = sample_pdf(t_mid, w_coarse.detach(), cfg.ns_fine,
+                            generator=generator, noise=noise)
+        t_all = sorted_union(t_vals, t_fine).contiguous()
+        rgb_fine, w_fine = render_fine(models["fine"], origins, dirs, t_all)
+        if cfg.white_bkgd:
+            rgb_fine = composite_background(rgb_fine, w_fine)
+        if want_weights:
+            return rgb_coarse, rgb_fine, t_all, w_fine
+        return rgb_coarse, rgb_fine
+
+    return forward
+
+
+def make_loss_fn(cfg: NeRFConfig, near: float, far: float,
+                 render_pass: Callable | None = None,
+                 mlp_fn: Callable | None = None) -> Callable:
+    """The train step's loss, ``loss_fn(params, images, origins, dirs,
+    t_vals, step, generator=None, noise=None) -> (loss, (loss_coarse_slot,
+    loss_fine, rgb_fine))``.
+
+    ``TRAIN_SAMPLER=coarse`` (:func:`_make_coarse_loss_fn`): ``noise`` is
+    the ``(B, NS_FINE)`` uniforms of the fine draw.  ``proposal``
+    (:func:`_make_proposal_loss_fn`): the per-level uniforms of the chain.
+    ``render_pass`` replaces the K1/K2 render passes and ``mlp_fn`` the K5
+    MLP (a check on the card runs the plain versions through them).
     """
     check_train_support(cfg)
+    if cfg.train_sampler == "proposal":
+        return _make_proposal_loss_fn(cfg, near, far, render_pass)
+    return _make_coarse_loss_fn(cfg, near, far, render_pass, mlp_fn)
+
+
+def _make_coarse_loss_fn(cfg: NeRFConfig, near: float, far: float,
+                         render_pass: Callable | None,
+                         mlp_fn: Callable | None) -> Callable:
+    """The parity step's loss: ``mse(coarse rgb) + mse(fine rgb)`` (+
+    ``DISTORTION_LOSS_MULT`` x the distortion of the fine weights, which
+    the regularizer applies to the final level only).  Under
+    ``STOP_PDF_GRADIENT`` it runs :func:`_make_fused_train_forward` (K1/K2),
+    otherwise :func:`make_forward_pass` (K5).  The metric slot
+    ``loss_coarse`` is the coarse MSE."""
+    want_dist = cfg.distortion_loss_mult > 0.0
+    if cfg.stop_pdf_gradient:
+        fused = _make_fused_train_forward(cfg, want_dist, render_pass)
+
+        def run(params, origins, dirs, t_vals, generator, noise):
+            res = fused(params, origins, dirs, t_vals, generator, noise)
+            return res[0], res[1], res[2:] if want_dist else None
+    else:
+        forward = make_forward_pass(cfg, return_t_fine=want_dist, mlp_fn=mlp_fn)
+
+        def run(params, origins, dirs, t_vals, generator, noise):
+            res = forward(params, origins, dirs, t_vals, generator=generator, noise=noise)
+            outputs = res[0] if want_dist else res
+            rgb_coarse, rgb_fine = outputs[0]
+            return rgb_coarse, rgb_fine, (res[1], outputs[2][1]) if want_dist else None
+
+    def loss_fn(params, images, origins, dirs, t_vals, step, generator=None, noise=None):
+        del step  # the sampling anneal is proposal-mode only
+        rgb_coarse, rgb_fine, dist = run(params, origins, dirs, t_vals, generator, noise)
+        loss_coarse = mse(images, rgb_coarse)
+        loss_fine = mse(images, rgb_fine)
+        loss = loss_coarse + loss_fine
+        if dist is not None:
+            loss = loss + cfg.distortion_loss_mult * distortion_loss(dist[0], dist[1], near, far)
+        return loss, (loss_coarse, loss_fine, rgb_fine)
+
+    return loss_fn
+
+
+def _make_proposal_loss_fn(cfg: NeRFConfig, near: float, far: float,
+                           render_pass: Callable | None = None) -> Callable:
+    """The proposal train step's loss, ``(loss, (loss_prop, loss_fine,
+    rgb_fine))``: the chain places the fine samples (draws from
+    ``generator`` or the per-level uniforms ``noise``), one fine pass
+    renders them, and the loss is MSE(fine rgb) + PROP_LOSS_MULT x the
+    interlevel loss of each level against the detached fine weights binned
+    into its partition (blurred ``[1/4, 1/2, 1/4]`` per the JAX blur rule)
+    + DISTORTION_LOSS_MULT x the distortion of the fine weights.
+    ``render_pass`` replaces the fine pass (K1/K2 on the card, the plain
+    version on the CPU); it gets ``weights_grad`` as a keyword.
+    """
     union = cfg.prop_union
     chain = make_chain_sampler(cfg, cfg.prop_l_xyz, union, cfg.prop_levels,
                                cfg.prop_samples, train=True)
@@ -241,20 +416,23 @@ def draw_t_vals(cfg: NeRFConfig, near: float, far: float, batch_shape: tuple,
 
 
 def make_train_step(cfg: NeRFConfig, near: float, far: float) -> Callable:
-    """The online-proposal train step.
+    """The train step: the coarse+fine parity step or the online-proposal
+    step, by ``TRAIN_SAMPLER``.
 
     ``train_step(state, batch, draws=None, generator=None) -> metrics``
     with ``batch = (images, origins, dirs)`` ``(B, 3)`` tensors on one
-    device.  t-values and the chain's draws come from ``generator``, or
-    from ``draws = {'t': U, 'chain': [U_level1, ...]}`` (uniforms in
-    [0, 1); tests replay the JAX package's).  The loss is
+    device.  t-values and the fine draws come from ``generator``, or from
+    ``draws`` (uniforms in [0, 1); tests replay the JAX package's):
+    ``{'t': U, 'pdf': U (B, NS_FINE)}`` for the parity step, ``{'t': U,
+    'chain': [U_level1, ...]}`` for the proposal step.  The loss is
     :func:`make_loss_fn`'s.  Gradients land in each parameter's ``.grad``
     (kept after the step), then Adam and the EMA update the state in
-    place.  Metrics (0-d device tensors, the JAX meanings):
-    ``loss_coarse`` the interlevel loss, ``loss`` the fine MSE, ``psnr``
-    of the fine rgb.
+    place.  Metrics (0-d device tensors, the JAX meanings): ``loss_coarse``
+    the coarse MSE (proposal: the interlevel loss), ``loss`` the fine MSE,
+    ``psnr`` of the fine rgb.
     """
     loss_fn = make_loss_fn(cfg, near, far)
+    noise_key = "chain" if cfg.train_sampler == "proposal" else "pdf"
 
     def train_step(state: TrainState, batch, draws: dict | None = None,
                    generator: torch.Generator | None = None) -> dict:
@@ -265,9 +443,9 @@ def make_train_step(cfg: NeRFConfig, near: float, far: float) -> Callable:
         params = params_of(state.params)
         for p in params:
             p.grad = None
-        loss, (loss_prop, loss_fine, rgb_fine) = loss_fn(
+        loss, (loss_coarse, loss_fine, rgb_fine) = loss_fn(
             state.params, images, origins, dirs, t_vals, state.step, generator,
-            draws.get("chain"))
+            draws.get(noise_key))
         loss.backward()
         state.opt.step([p.grad for p in params])
         if state.ema is not None:
@@ -278,7 +456,7 @@ def make_train_step(cfg: NeRFConfig, near: float, far: float) -> Callable:
                 torch._foreach_add_(ema, params, alpha=1.0 - d)
         state.step += 1
         return {
-            "loss_coarse": loss_prop.detach(),
+            "loss_coarse": loss_coarse.detach(),
             "loss": loss_fine.detach(),
             "psnr": psnr(images, rgb_fine.detach()),
         }
@@ -287,13 +465,26 @@ def make_train_step(cfg: NeRFConfig, near: float, far: float) -> Callable:
 
 
 def make_eval_step(cfg: NeRFConfig, near: float, far: float) -> Callable:
-    """The proposal eval step ``eval_step(models, batch) -> metrics``:
-    centered t-values, midpoint draws, no gradients.  ``loss_coarse`` is
-    the interlevel loss summed over levels, ``loss`` and ``psnr`` those of
-    the fine rgb."""
-    if cfg.train_sampler != "proposal":
-        raise NotImplementedError(f"the coarse+fine eval step {_LATER}")
+    """The eval step ``eval_step(models, batch) -> metrics``: centered
+    t-values, deterministic draws, no gradients.  ``loss`` and ``psnr`` are
+    those of the fine rgb; ``loss_coarse`` the coarse MSE (the coarse+fine
+    render, one K1 launch per pass) or, for ``TRAIN_SAMPLER=proposal``, the
+    interlevel loss summed over levels."""
     check_render_support(cfg)
+    if cfg.train_sampler != "proposal":
+        forward = _make_fused_eval_forward(cfg)
+
+        @torch.no_grad()
+        def eval_step_coarse(models, batch) -> dict:
+            images, origins, dirs = batch
+            t_vals = generate_t_vals(near, far, tuple(images.shape[:-1]), cfg.ns_coarse,
+                                     "center", device=images.device).contiguous()
+            out = forward(models, origins, dirs, t_vals)
+            return {"loss_coarse": mse(images, out["rgb_coarse"]),
+                    "loss": mse(images, out["rgb_fine"]),
+                    "psnr": psnr(images, out["rgb_fine"])}
+
+        return eval_step_coarse
     fine_pass = _make_pass_fn(cfg)
     chain = make_chain_sampler(cfg, cfg.prop_l_xyz, cfg.prop_union,
                                cfg.prop_levels, cfg.prop_samples, train=False)
@@ -373,13 +564,26 @@ def _make_fused_eval_forward(cfg: NeRFConfig) -> Callable:
     return forward
 
 
-def make_render_fn(cfg: NeRFConfig, near: float, far: float) -> Callable:
+def make_render_fn(cfg: NeRFConfig, near: float, far: float,
+                   full: bool = False) -> Callable:
     """``render(models, origins, dirs) -> dict`` of rgb/depth maps; the
     rays are ``(B, 3)`` tensors on one device.  ``models`` is ``{'coarse',
     'fine'}`` (coarse and fine passes reported) or, for
-    ``TRAIN_SAMPLER=proposal``, ``{'proposal', 'fine'}`` (fine only)."""
+    ``TRAIN_SAMPLER=proposal``, ``{'proposal', 'fine'}`` (fine only).
+
+    ``full=True`` (coarse+fine only) adds the reference's other four
+    tensors: ``weights_coarse``/``weights_fine`` ``(B, S)`` and the raw
+    predictions ``preds_coarse``/``preds_fine`` ``(B, S, 4)``, rendered
+    through :func:`make_forward_pass` (K5's forward on the card); the
+    rgb/depth-only render stays on K1, which keeps them on chip."""
     check_render_support(cfg)
     if cfg.train_sampler == "proposal":
+        if full:
+            raise ValueError(
+                "full=True is unavailable for TRAIN_SAMPLER='proposal' "
+                "checkpoints: there is no coarse pass, and the proposal "
+                "render emits rgb/depth fine only"
+            )
         inner = make_proposal_render_fn(
             cfg, near, far, prop_l_xyz=cfg.prop_l_xyz, union=cfg.prop_union,
             levels=cfg.prop_levels, prop_samples=cfg.prop_samples,
@@ -390,14 +594,29 @@ def make_render_fn(cfg: NeRFConfig, near: float, far: float) -> Callable:
 
         return render_proposal
 
+    def center_t(origins):
+        return generate_t_vals(near, far, origins.shape[:-1], cfg.ns_coarse, "center",
+                               device=origins.device).contiguous()
+
+    if full:
+        forward_full = make_forward_pass(cfg)
+
+        def render_full(models, origins, dirs):
+            rgb, depth, weights, preds = forward_full(
+                models, origins, dirs, center_t(origins), deterministic=True)
+            return {
+                "rgb_coarse": rgb[0], "rgb_fine": rgb[1],
+                "depth_coarse": depth[0], "depth_fine": depth[1],
+                "weights_coarse": weights[0], "weights_fine": weights[1],
+                "preds_coarse": preds[0], "preds_fine": preds[1],
+            }
+
+        return render_full
+
     forward = _make_fused_eval_forward(cfg)
 
     def render(models, origins, dirs):
-        t_vals = generate_t_vals(
-            near, far, origins.shape[:-1], cfg.ns_coarse, "center",
-            device=origins.device,
-        ).contiguous()
-        out = forward(models, origins, dirs, t_vals)
+        out = forward(models, origins, dirs, center_t(origins))
         return {
             k: out[k]
             for k in ("rgb_coarse", "rgb_fine", "depth_coarse", "depth_fine")

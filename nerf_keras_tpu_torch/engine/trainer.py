@@ -3,17 +3,20 @@
 Counterpart of ``nerf_keras_tpu/engine/trainer.py``.  One device, no mesh:
 ``device`` is resolved explicitly.
 
-* ``TRAIN_SAMPLER=proposal``: ``{'proposal', 'fine'}`` models initialized
-  from ``cfg.seed``, the Adam state, the EMA shadow (EMA_DECAY > 0, a copy
-  of the params at init), the step count and a ``torch.Generator`` on the
-  device (seeded from ``cfg.seed``) that draws the t-values and the
-  chain's uniforms.  ``train_step``, ``train_epoch``, ``evaluate`` and the
-  proposal render.
-* ``TRAIN_SAMPLER=coarse``: ``{'coarse', 'fine'}`` models that render only
-  (``requires_grad`` off); their training is later work.
+The models are ``{'coarse', 'fine'}`` (``TRAIN_SAMPLER=coarse``, the
+parity step) or ``{'proposal', 'fine'}``, initialized from ``cfg.seed``,
+with the Adam state, the EMA shadow (EMA_DECAY > 0, a copy of the params
+at init), the step count and a ``torch.Generator`` on the device (seeded
+from ``cfg.seed``) that draws the t-values and the fine draws.
+``train_step``, ``train_epoch``, ``evaluate`` and the renders
+(``render_rays(full=True)`` adds the weights and raw predictions of the
+coarse+fine render).  The train and eval steps are built at first use, so
+a trainer that only serves never checks the training knobs.
 
 ``restore``/``save`` read and write the JAX package's ``.ckpt.npz`` key
-format (params, EMA, step; the optimizer restarts from zero moments).
+format: ``save`` writes params, EMA, step and the Adam state (so the JAX
+package's ``Trainer.restore`` loads it); ``restore`` reads params, EMA and
+step, and Adam restarts from zero moments.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from nerf_keras_tpu.config import NeRFConfig
+from nerf_keras_tpu_torch.config import NeRFConfig
 from nerf_keras_tpu_torch.engine.step import (
     TrainState,
     check_train_support,
@@ -101,8 +104,6 @@ class Trainer:
         self.far = float(far)
         self.device = resolve_device(None if device is None else str(device))
         self.proposal = cfg.train_sampler == "proposal"
-        if self.proposal:
-            check_train_support(cfg, self.device)
         gen = torch.Generator().manual_seed(cfg.seed)
         dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
 
@@ -122,24 +123,20 @@ class Trainer:
                 "fine": nerf(),
             }
         else:
-            self.params = {name: nerf().eval().requires_grad_(False)
-                           for name in ("coarse", "fine")}
+            self.params = {name: nerf() for name in ("coarse", "fine")}
         # The EMA shadow (EMA_DECAY > 0) serves every render and eval, as
         # in the JAX package's Trainer._eval_state.
         self.ema = None
         if cfg.ema_decay > 0:
             self.ema = {k: copy.deepcopy(m).requires_grad_(False)
                         for k, m in self.params.items()}
-        self.state = TrainState(self.params, None, self.ema)
-        if self.proposal:
-            self.state.opt = self._new_optimizer()
-            self._train_step = make_train_step(cfg, self.near, self.far)
-            self._eval_step = make_eval_step(cfg, self.near, self.far)
-            self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
+        self.state = TrainState(self.params, self._new_optimizer(), self.ema)
+        self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
+        self._train_step = self._eval_step = self._render_full = None
         self._render = make_render_fn(cfg, self.near, self.far)
 
     def _new_optimizer(self):
-        return make_optimizer(self.cfg, params_of(self.params)) if self.proposal else None
+        return make_optimizer(self.cfg, params_of(self.params))
 
     @property
     def step(self) -> int:
@@ -163,10 +160,21 @@ class Trainer:
         return self
 
     def save(self, path: str, scene: dict | None = None) -> None:
-        """Write params, EMA and step in the JAX key format (no Adam state)."""
+        """Write params, EMA, step and the Adam state in the JAX key format."""
+        opt = self.state.opt
+
+        def moments(values: list[torch.Tensor]) -> dict:
+            shadow = {k: copy.deepcopy(m) for k, m in self.params.items()}
+            with torch.no_grad():
+                for p, v in zip(params_of(shadow), values):
+                    p.copy_(v)
+            return _to_jax(shadow)
+
         save_params_npz(path, _to_jax(self.params), self.cfg, scene=scene,
                         step=self.step,
-                        ema=_to_jax(self.ema) if self.ema is not None else None)
+                        ema=_to_jax(self.ema) if self.ema is not None else None,
+                        opt_state={"count": opt.count, "mu": moments(opt.mu),
+                                   "nu": moments(opt.nu)})
 
     def replace_params(self, params: dict) -> "Trainer":
         """Install externally built JAX-layout params (``{'coarse',
@@ -200,9 +208,11 @@ class Trainer:
 
     def train_step(self, batch, draws: dict | None = None) -> dict:
         """One optimization step; metrics as 0-d device tensors (no host
-        sync).  ``draws`` replaces the generator's uniforms (tests)."""
-        if not self.proposal:
+        sync).  ``draws`` replaces the generator's uniforms (tests; see
+        :func:`make_train_step`)."""
+        if self._train_step is None:
             check_train_support(self.cfg, self.device)
+            self._train_step = make_train_step(self.cfg, self.near, self.far)
         return self._train_step(self.state, self.put_batch(batch), draws,
                                 self.generator)
 
@@ -216,8 +226,9 @@ class Trainer:
         return _realize_means(acc)
 
     def eval_step(self, batch) -> dict:
-        if not self.proposal:
+        if self._eval_step is None:
             check_train_support(self.cfg, self.device)
+            self._eval_step = make_eval_step(self.cfg, self.near, self.far)
         return self._eval_step(self.eval_params, self.put_batch(batch))
 
     def evaluate(self, batches: Iterable) -> dict:
@@ -245,14 +256,21 @@ class Trainer:
         chunk: int = 16384,
         keys: tuple[str, ...] | None = None,
         uint8_rgb: bool = False,
+        full: bool = False,
     ) -> dict[str, np.ndarray]:
         """Render a flat ray batch in fixed-size chunks.
 
         The last chunk is padded with dummy forward-facing rays so every
         chunk has one shape; their outputs are dropped.  ``keys``
         restricts the outputs kept; ``uint8_rgb`` converts rgb maps to
-        uint8 on the device before the one copy to the host.
+        uint8 on the device before the one copy to the host.  ``full``
+        (coarse+fine only) adds ``weights_*`` and ``preds_*`` (see
+        :func:`make_render_fn`); asking ``keys`` for one of them implies it.
         """
+        full = full or any(k.startswith(("weights_", "preds_")) for k in keys or ())
+        if full and self._render_full is None:
+            self._render_full = make_render_fn(self.cfg, self.near, self.far, full=True)
+        render = self._render_full if full else self._render
         origins = torch.as_tensor(origins, dtype=torch.float32, device=self.device)
         directions = torch.as_tensor(directions, dtype=torch.float32,
                                      device=self.device)
@@ -273,8 +291,8 @@ class Trainer:
         outs: dict[str, list] = {}
         for start in range(0, n, chunk):
             keep = min(chunk, n - start)
-            res = self._render(models, origins[start:start + chunk],
-                               directions[start:start + chunk])
+            res = render(models, origins[start:start + chunk],
+                         directions[start:start + chunk])
             for k, v in res.items():
                 if keys is not None and k not in keys:
                     continue

@@ -60,6 +60,30 @@ ENTRY_POINTS = {
             _i32, _vp,                  # device, stream
         ],
     },
+    "fused_mlp_fwd": {
+        "nkt_fused_mlp_fwd": [
+            _vp, _vp,                   # x_enc, d_enc
+            _vp, _vp, _vp,              # w_pack, b_pack, dense_desc (host)
+            _i32, _i32, _i32, _i32,     # n_dense, num_layers, skip, hidden
+            _i32, _i32, _i32, _i32,     # l_xyz, l_dir, N, grid
+            _vp,                        # preds_out
+            _i32, _vp,                  # device, stream
+        ],
+    },
+    "fused_mlp_bwd": {
+        "nkt_fused_mlp_bwd": [
+            _vp, _vp, _vp,              # x_enc, d_enc, g
+            _vp, _vp, _vp,              # w_pack, b_pack, desc_fwd (host)
+            _vp, _vp, _vp,              # wb_pack, desc_bwd, desc_ws (host)
+            _i32, _i32, _i32, _i32,     # n_dense, num_layers, skip, hidden
+            _i32, _i32, _i32,           # l_xyz, l_dir, N
+            _i32, _i32,                 # total_b, total_out
+            _vp, _vp, _vp, _i32,        # ws_a, ws_d, db_part, grid
+            _vp, _i32,                  # dw_part, nsplit
+            _vp, _vp, _vp, _vp,         # dw_out, db_out, dx_out, dd_out
+            _i32, _vp,                  # device, stream
+        ],
+    },
 }
 
 _lock = threading.Lock()

@@ -15,8 +15,9 @@ their source notes say what bounds them and how the designs answer.
   CPU, and only then.  For a CUDA tensor it launches the kernels or
   raises; nothing falls back.  With grad enabled for the MLP it is a
   ``torch.autograd.Function``: K1 in training mode (residuals) forward,
-  K2 backward.  Each K1 launch adds one to :data:`launches`, each K2
-  launch one to :data:`bwd_launches`.
+  K2 backward.  Each K1 launch adds one to :data:`launches` (and, in
+  training mode, to :data:`train_launches`), each K2 launch one to
+  :data:`bwd_launches`.
 
 As in the JAX package, the weights output carries no gradient unless
 ``weights_grad=True``; origins, directions and t-values never get one.
@@ -36,8 +37,9 @@ from nerf_keras_tpu_torch.ops.rays import sample_rays
 from nerf_keras_tpu_torch.ops.volume import volume_render
 
 # Kernel launches in this process (one per successful launch).
-launches = 0      # K1
-bwd_launches = 0  # K2
+launches = 0        # K1, both modes
+train_launches = 0  # K1 in training mode (with residuals), also in `launches`
+bwd_launches = 0    # K2
 
 # Within every 16-wide k-group, packed rows are stored in this order so a
 # thread's mma.sync B fragment (k = 2t, 2t+1, 2t+8, 2t+9) is one 8-byte load.
@@ -101,16 +103,24 @@ def pack_weights(mlp: NeRFMLP, device: torch.device) -> KernelPack:
     return _pack(_dense_layers(mlp), device)
 
 
-def pack_weights_bwd(mlp: NeRFMLP, device: torch.device) -> KernelPack:
-    """K2's pack for the dX products ``dX = dPre W^T``: per layer the
-    matrix W (row = input column, k = output column), cut to the input
-    columns that get a gradient: the hidden part of each trunk input
-    (none for layer 0, whose input is the encoding), of the head input
-    and of the branch input; all of the rgb head's."""
-    hid = mlp.hidden_dim
-    rows = [0] + [hid] * (mlp.num_layers - 1) + [hid, hid, hid // 2]
-    return _pack([(wt.T[:r], None) for (wt, _), r in zip(_dense_layers(mlp), rows)],
-                 device)
+def pack_weights_bwd(mlp: NeRFMLP, device: torch.device,
+                     input_grads: bool = False) -> KernelPack:
+    """The pack for the dX products ``dX = dPre W^T``: per layer the
+    matrix W (row = input column, k = output column).  K2's (and K5's
+    without input gradients) is cut to the input columns whose gradient
+    feeds the walk: the hidden part of each trunk input (none for layer
+    0, whose input is the encoding), of the head input and of the branch
+    input; all of the rgb head's.  With ``input_grads`` (K5) every layer
+    keeps all its input columns, so the products also give the gradients
+    of the position encodings (layer 0 and the skip concats) and of the
+    direction encodings (the branch)."""
+    layers = _dense_layers(mlp)
+    if input_grads:
+        rows = [wt.shape[1] for wt, _ in layers]
+    else:
+        hid = mlp.hidden_dim
+        rows = [0] + [hid] * (mlp.num_layers - 1) + [hid, hid, hid // 2]
+    return _pack([(wt.T[:r], None) for (wt, _), r in zip(layers, rows)], device)
 
 
 def _cached(mlp: NeRFMLP, device: torch.device, attr: str, build) -> KernelPack:
@@ -129,7 +139,11 @@ def kernel_pack(mlp: NeRFMLP, device: torch.device) -> KernelPack:
     return _cached(mlp, device, "_k1_pack", pack_weights)
 
 
-def kernel_pack_bwd(mlp: NeRFMLP, device: torch.device) -> KernelPack:
+def kernel_pack_bwd(mlp: NeRFMLP, device: torch.device,
+                    input_grads: bool = False) -> KernelPack:
+    if input_grads:
+        return _cached(mlp, device, "_k5_pack",
+                       lambda m, d: pack_weights_bwd(m, d, input_grads=True))
     return _cached(mlp, device, "_k2_pack", pack_weights_bwd)
 
 
@@ -144,6 +158,49 @@ def workspace_layout(fwd: KernelPack, bwd: KernelPack) -> np.ndarray:
     cols = lambda w: np.concatenate([[0], np.cumsum(w)[:-1]])  # noqa: E731
     out = np.stack([cols(a_w), a_w, cols(d_w), d_w, cols(a_w * d_w)], axis=1)
     return np.ascontiguousarray(out.astype(np.int32))
+
+
+class DwBuffers(NamedTuple):
+    """The workspaces and outputs of a backward (K2, K5) whose weight
+    gradients go through ``nerf_dw.cuh``: the layer inputs (A) and dPre
+    (D) of every sample, bf16, the per-block bias rows, the dW slabs, and
+    the summed dW/db.  Freed on return to PyTorch's caching allocator,
+    which hands their memory out again only to work queued after the
+    kernels on this stream."""
+
+    layout: np.ndarray
+    ws_a: torch.Tensor
+    ws_d: torch.Tensor
+    db_part: torch.Tensor
+    dw_part: torch.Tensor
+    nsplit: int
+    dw: torch.Tensor
+    db: torch.Tensor
+
+    @classmethod
+    def allocate(cls, fwd: KernelPack, bwd: KernelPack, n: int, nblk: int,
+                 device: torch.device) -> "DwBuffers":
+        """For ``n`` samples and ``nblk`` rows-kernel blocks; the dW
+        product splits its rows so that ~4 blocks per SM are in flight."""
+        layout = workspace_layout(fwd, bwd)
+        a_cols, d_cols = int(layout[:, 1].sum()), int(layout[:, 3].sum())
+        total_out = int((layout[:, 1] * layout[:, 3]).sum())
+        total_b = fwd.b.numel()
+        tiles = int(sum(-(-int(a) // 128) * -(-int(d) // 128)
+                        for a, d in zip(layout[:, 1], layout[:, 3])))
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        nsplit = max(1, min(-(-4 * sms // tiles), n // 2048))
+        f32 = dict(dtype=torch.float32, device=device)
+        return cls(
+            layout=layout,
+            ws_a=torch.empty((n * a_cols,), dtype=torch.bfloat16, device=device),
+            ws_d=torch.empty((n * d_cols,), dtype=torch.bfloat16, device=device),
+            db_part=torch.empty((nblk * total_b,), **f32),
+            dw_part=torch.empty((nsplit * total_out,), **f32),
+            nsplit=nsplit,
+            dw=torch.empty((total_out,), **f32),
+            db=torch.empty((total_b,), **f32),
+        )
 
 
 def _check_args(mlp: NeRFMLP, l_xyz: int, l_dir: int, skip_layer: int) -> None:
@@ -202,7 +259,7 @@ def render_rays_reference_vjp(
         return list(torch.autograd.grad(outs, params, cots))
 
 
-def _check_tensor(name: str, x: torch.Tensor, shape: tuple, device,
+def check_tensor(name: str, x: torch.Tensor, shape: tuple, device,
                   dtype=torch.float32) -> None:
     if x.device != device:
         raise ValueError(f"{name} is on {x.device}, expected {device}")
@@ -214,7 +271,7 @@ def _check_tensor(name: str, x: torch.Tensor, shape: tuple, device,
         raise ValueError(f"{name} must be contiguous")
 
 
-def _device_index(device: torch.device) -> int:
+def device_index(device: torch.device) -> int:
     return device.index if device.index is not None else torch.cuda.current_device()
 
 
@@ -231,9 +288,9 @@ def _check_cuda_call(mlp, origins, dirs, t_vals, l_xyz, l_dir, skip_layer) -> No
     if t_vals.dim() != 2:
         raise ValueError(f"t_vals must be (B, S), got {tuple(t_vals.shape)}")
     b, s = t_vals.shape
-    _check_tensor("origins", origins, (b, 3), device)
-    _check_tensor("dirs", dirs, (b, 3), device)
-    _check_tensor("t_vals", t_vals, (b, s), device)
+    check_tensor("origins", origins, (b, 3), device)
+    check_tensor("dirs", dirs, (b, 3), device)
+    check_tensor("t_vals", t_vals, (b, s), device)
     for p in mlp.parameters():
         if p.device != device:
             raise ValueError(f"MLP parameters are on {p.device}, rays on {device}")
@@ -242,7 +299,7 @@ def _check_cuda_call(mlp, origins, dirs, t_vals, l_xyz, l_dir, skip_layer) -> No
 def launch_k1(mlp, origins, dirs, t_vals, l_xyz, l_dir, train: bool):
     """One K1 launch: ``(rgb, weights)`` and, with ``train``, the residuals
     ``(x_enc (B*S, 3+6L) bf16, preds (B*S, 4) f32)``."""
-    global launches
+    global launches, train_launches
     device = origins.device
     b, s = t_vals.shape
     rgb = torch.empty((b, 3), dtype=torch.float32, device=device)
@@ -260,7 +317,7 @@ def launch_k1(mlp, origins, dirs, t_vals, l_xyz, l_dir, train: bool):
         pack.desc.shape[0], mlp.num_layers, mlp.skip_layer, mlp.hidden_dim,
         l_xyz, l_dir, b, s, rgb.data_ptr(), weights.data_ptr(),
         x_enc.data_ptr() if train else None, preds.data_ptr() if train else None,
-        _device_index(device), torch.cuda.current_stream(device).cuda_stream,
+        device_index(device), torch.cuda.current_stream(device).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(
@@ -268,12 +325,13 @@ def launch_k1(mlp, origins, dirs, t_vals, l_xyz, l_dir, train: bool):
             f"hidden={mlp.hidden_dim}, layers={mlp.num_layers}, train={train})"
         )
     launches += 1
+    train_launches += int(train)
     return rgb, weights, x_enc, preds
 
 
-def _unpack_grads(mlp: NeRFMLP, fwd: KernelPack, layout: np.ndarray,
+def unpack_grads(mlp: NeRFMLP, fwd: KernelPack, layout: np.ndarray,
                   dw: torch.Tensor, db: torch.Tensor) -> list[torch.Tensor]:
-    """K2's flat dW/db -> gradients in ``mlp.parameters()`` order, as the
+    """K2's or K5's flat dW/db -> gradients in ``mlp.parameters()`` order, as the
     JAX package returns them: weight gradients rounded to bf16 (the TPU
     kernel returns ``dv.astype(w.dtype)`` of bf16-cast weights), biases
     f32; the merged head's gradient split into feature and sigma."""
@@ -301,41 +359,26 @@ def launch_k2(mlp, x_enc, dirs, t_vals, preds, g_rgb, g_w, l_xyz, l_dir):
     device = dirs.device
     b, s = t_vals.shape
     n = b * s
-    _check_tensor("x_enc", x_enc, (n, 3 + 6 * l_xyz), device, torch.bfloat16)
-    _check_tensor("preds", preds, (n, 4), device)
-    _check_tensor("g_rgb", g_rgb, (b, 3), device)
+    check_tensor("x_enc", x_enc, (n, 3 + 6 * l_xyz), device, torch.bfloat16)
+    check_tensor("preds", preds, (n, 4), device)
+    check_tensor("g_rgb", g_rgb, (b, 3), device)
     if g_w is not None:
-        _check_tensor("g_w", g_w, (b, s), device)
+        check_tensor("g_w", g_w, (b, s), device)
     fwd = kernel_pack(mlp, device)
     bwd = kernel_pack_bwd(mlp, device)
-    layout = workspace_layout(fwd, bwd)
-    a_cols, d_cols = int(layout[:, 1].sum()), int(layout[:, 3].sum())
-    total_out = int((layout[:, 1] * layout[:, 3]).sum())
-    total_b = fwd.b.numel()
     rays_per_block = 1 if s >= 64 else 64 // s
     grid = -(-b // rays_per_block)
-    tiles = int(sum(-(-int(a) // 128) * -(-int(d) // 128)
-                    for a, d in zip(layout[:, 1], layout[:, 3])))
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    nsplit = max(1, min(-(-4 * sms // tiles), n // 2048))
-    # Workspaces: freed on return to PyTorch's caching allocator, which hands
-    # their memory out again only to work queued after K2 on this stream.
-    ws_a = torch.empty((n * a_cols,), dtype=torch.bfloat16, device=device)
-    ws_d = torch.empty((n * d_cols,), dtype=torch.bfloat16, device=device)
-    db_part = torch.empty((grid * total_b,), dtype=torch.float32, device=device)
-    dw_part = torch.empty((nsplit * total_out,), dtype=torch.float32, device=device)
-    dw = torch.empty((total_out,), dtype=torch.float32, device=device)
-    db = torch.empty((total_b,), dtype=torch.float32, device=device)
+    ws = DwBuffers.allocate(fwd, bwd, n, grid, device)
     rc = _build.load("fused_render_bwd").nkt_fused_render_bwd(
         x_enc.data_ptr(), dirs.data_ptr(), t_vals.data_ptr(), preds.data_ptr(),
         g_rgb.data_ptr(), g_w.data_ptr() if g_w is not None else None,
         fwd.w.data_ptr(), fwd.b.data_ptr(), fwd.desc.ctypes.data,
-        bwd.w.data_ptr(), bwd.desc.ctypes.data, layout.ctypes.data,
+        bwd.w.data_ptr(), bwd.desc.ctypes.data, ws.layout.ctypes.data,
         fwd.desc.shape[0], mlp.num_layers, mlp.skip_layer, mlp.hidden_dim,
-        l_xyz, l_dir, b, s, total_b, total_out,
-        ws_a.data_ptr(), ws_d.data_ptr(), db_part.data_ptr(), dw_part.data_ptr(),
-        nsplit, dw.data_ptr(), db.data_ptr(),
-        _device_index(device), torch.cuda.current_stream(device).cuda_stream,
+        l_xyz, l_dir, b, s, ws.db.numel(), ws.dw.numel(),
+        ws.ws_a.data_ptr(), ws.ws_d.data_ptr(), ws.db_part.data_ptr(),
+        ws.dw_part.data_ptr(), ws.nsplit, ws.dw.data_ptr(), ws.db.data_ptr(),
+        device_index(device), torch.cuda.current_stream(device).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(
@@ -343,7 +386,7 @@ def launch_k2(mlp, x_enc, dirs, t_vals, preds, g_rgb, g_w, l_xyz, l_dir):
             f"hidden={mlp.hidden_dim}, layers={mlp.num_layers})"
         )
     bwd_launches += 1
-    return _unpack_grads(mlp, fwd, layout, dw, db)
+    return unpack_grads(mlp, fwd, ws.layout, ws.dw, ws.db)
 
 
 class _FusedRender(torch.autograd.Function):

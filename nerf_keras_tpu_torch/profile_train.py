@@ -1,17 +1,28 @@
-"""Where the proposal train step's time goes, on one NVIDIA card.
+"""Where a train step's time goes, on one NVIDIA card.
 
     python -m nerf_keras_tpu_torch.profile_train [--steps 20]
+        [--train-sampler proposal|coarse] [--no-stop-pdf-gradient]
 
-Builds the bench recipe's trainer (:func:`bench_config`: online proposal,
-union layout, 64 uniform + 96 placed samples, batch 4096, 8x256 bf16,
-distortion 1e-4, sampling anneal 1000 steps) on the card with its seeded
-initial weights, and one fixed batch of random rays and colours
-(:func:`bench_batch`, as ``bench.py`` makes it).  Then:
+Builds a trainer on the card with its seeded initial weights and one
+fixed batch of random rays and colours (:func:`bench_batch`, as
+``bench.py`` makes it):
+
+* ``--train-sampler proposal`` (default): the bench recipe
+  (:func:`bench_config`: online proposal, union layout, 64 uniform + 96
+  placed samples, batch 4096, 8x256 bf16, distortion 1e-4, sampling
+  anneal 1000 steps);
+* ``--train-sampler coarse``: the coarse+fine parity step at
+  ``config/lego_batch_h256_tpu.json``'s widths (:func:`parity_config`:
+  8x256, skip 4, 64 coarse + 128 fine, batch 4096, bf16), with
+  ``STOP_PDF_GRADIENT`` (K1/K2) or, with ``--no-stop-pdf-gradient``,
+  without it (K5).
+
+Then:
 
 1. times ``--steps`` warm steps on the host clock, each ending in a
    device synchronise: median step ms and rays/s;
 2. traces one more step with ``torch.profiler``: device ms by kernel,
-   K1's and K2's share, the traced wall time and the device's idle share
+   each kernel's share, the traced wall time and the device's idle share
    ``1 - (union of kernel intervals) / wall``.
 
 Each measurement is one JSON line carrying the card string.
@@ -27,13 +38,22 @@ import time
 import numpy as np
 import torch
 
-from nerf_keras_tpu.config import NeRFConfig
+from nerf_keras_tpu_torch.config import NeRFConfig
 from nerf_keras_tpu_torch import runtime
 from nerf_keras_tpu_torch.engine.trainer import Trainer
 from nerf_keras_tpu_torch.profile_render import union_us
 
-K1_NAME = "fused_render_fwd_kernel"
-K2_NAMES = ("k2_rows_kernel", "k2_dw_kernel", "k2_reduce_kernel")
+# Device kernels by the port's kernel they belong to.  The dW product and
+# its reduce (nerf_dw.cuh) are the last stages of K2 or K5's backward,
+# whichever ran.
+KERNELS = {
+    "k1": ("fused_render_fwd_kernel",),
+    "k2_rows": ("k2_rows_kernel",),
+    "k5_fwd": ("fused_mlp_fwd_kernel",),
+    "k5_rows": ("k5_rows_kernel",),
+    "dw": ("mlp_dw_kernel",),
+    "reduce": ("mlp_reduce_kernel",),
+}
 
 
 def bench_config(batch_size: int = 4096) -> NeRFConfig:
@@ -42,6 +62,16 @@ def bench_config(batch_size: int = 4096) -> NeRFConfig:
         batch_size=batch_size, ns_coarse=64, ns_fine=96, num_layers=8,
         hidden_dim=256, compute_dtype="bfloat16", train_sampler="proposal",
         distortion_loss_mult=1e-4, prop_anneal_steps=1000,
+    ).validate()
+
+
+def parity_config(batch_size: int = 4096, stop_pdf_gradient: bool = True) -> NeRFConfig:
+    """The coarse+fine parity step at ``config/lego_batch_h256_tpu.json``'s
+    widths: 8x256 skip 4, L 10/4, 64 coarse + 128 fine, bf16."""
+    return NeRFConfig(
+        batch_size=batch_size, ns_coarse=64, ns_fine=128, num_layers=8,
+        hidden_dim=256, skip_layer=4, l_xyz=10, l_dir=4, compute_dtype="bfloat16",
+        train_sampler="coarse", stop_pdf_gradient=stop_pdf_gradient,
     ).validate()
 
 
@@ -91,10 +121,10 @@ def trace_step(trainer: Trainer, batch) -> dict:
     device_ms = sum(sum(v) for v in by_name.values()) / 1e3
     top = sorted(((sum(v) / 1e3, n[:80], len(v)) for n, v in by_name.items()),
                  reverse=True)[:14]
-    return {"wall_ms": wall_ms, "device_ms": device_ms, "k1_ms": total((K1_NAME,)),
-            "k2_ms": total(K2_NAMES),
-            **{f"{n}_ms": total((n,)) for n in K2_NAMES},
-            "other_ms": device_ms - total((K1_NAME, *K2_NAMES)),
+    ours = [n for names in KERNELS.values() for n in names]
+    return {"wall_ms": wall_ms, "device_ms": device_ms,
+            **{f"{k}_ms": total(names) for k, names in KERNELS.items()},
+            "other_ms": device_ms - total(ours),
             "busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / wall_ms,
             "kernels": len(kernels), "top": top}
 
@@ -102,16 +132,24 @@ def trace_step(trainer: Trainer, batch) -> dict:
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--steps", type=int, default=20)
+    parser.add_argument("--train-sampler", choices=("proposal", "coarse"),
+                        default="proposal")
+    parser.add_argument("--no-stop-pdf-gradient", action="store_true",
+                        help="coarse: the reference-faithful mode (K5)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("torch.cuda.is_available() is false: no card")
     card = runtime.card_string()
-    cfg = bench_config()
+    if args.train_sampler == "proposal":
+        cfg = bench_config()
+    else:
+        cfg = parity_config(stop_pdf_gradient=not args.no_stop_pdf_gradient)
     trainer = Trainer(cfg, 2.0, 6.0, device="cuda")
     batch = trainer.put_batch(bench_batch(cfg.batch_size))
     time_steps(trainer, batch, 3)  # warm-up: packs, allocator, kernel build
-    print(json.dumps({"phase": "steps", **time_steps(trainer, batch, args.steps),
-                      "card": card}), flush=True)
+    print(json.dumps({"phase": "steps", "train_sampler": cfg.train_sampler,
+                      "stop_pdf_gradient": cfg.stop_pdf_gradient,
+                      **time_steps(trainer, batch, args.steps), "card": card}), flush=True)
     print(json.dumps({"phase": "trace", **trace_step(trainer, batch), "card": card}),
           flush=True)
 

@@ -23,12 +23,10 @@ def configure_numerics() -> None:
 
 def resolve_device(name: str | None = None) -> torch.device:
     """``'cuda'``/``'cuda:N'``/``'cpu'`` -> ``torch.device``; ``None`` means
-    the card when one is present, else the CPU.  A CUDA request without a
-    card raises instead of silently running on the CPU."""
+    ``'cuda'``.  A CUDA request without a card raises: the CPU runs only
+    when the caller passes ``'cpu'``."""
     configure_numerics()
-    if name is None:
-        name = "cuda" if torch.cuda.is_available() else "cpu"
-    device = torch.device(name)
+    device = torch.device("cuda" if name is None else name)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {name!r} requested but CUDA is not available")
     if device.type not in ("cuda", "cpu"):

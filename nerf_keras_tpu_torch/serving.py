@@ -27,6 +27,7 @@ import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, urlparse
 
+from nerf_keras_tpu_torch.config import load_config
 from nerf_keras_tpu_torch.engine.trainer import Trainer
 from nerf_keras_tpu_torch.ops.rays import pose_spherical
 from nerf_keras_tpu_torch.utils.checkpoint import (
@@ -228,8 +229,6 @@ def serve(service: RenderService, port: int, host: str = "127.0.0.1"):
 
 
 def main(argv=None) -> None:
-    from nerf_keras_tpu.config import load_config
-
     p = argparse.ArgumentParser()
     p.add_argument("--config", type=str, required=True)
     p.add_argument("--checkpoint", type=str, required=True)
@@ -240,7 +239,8 @@ def main(argv=None) -> None:
     p.add_argument("--port", type=int, default=8042)
     p.add_argument("--host", type=str, default="127.0.0.1")
     p.add_argument("--device", type=str, default=None,
-                   help="cuda | cuda:N | cpu (default: cuda when present)")
+                   help="cuda | cuda:N | cpu (default: cuda; without a card, "
+                        "pass --device cpu)")
     p.add_argument("--quant", type=str, default="none", choices=("none", "int8"),
                    help="int8 is not yet ported")
     p.add_argument("--sampler", type=str, default="coarse",

@@ -6,7 +6,7 @@ TrainState pytree — ``.params['fine']['trunk'][0]['w']``, ``.ema[...]``,
 ``.step``, ``.opt_state...`` — plus a ``.config.json`` sidecar in the
 reference's UPPERCASE schema, optionally carrying a ``SCENE`` record
 (near/far/focal).  The render path needs ``.params``, ``.ema`` and
-``.step``; the optimizer state is ignored (resuming Adam is later work).
+``.step``; the optimizer state is not read (resuming Adam is later work).
 A ``TRAIN_SAMPLER=proposal`` state carries ``{'proposal', 'fine'}``, the
 proposal tree as ``['proposal']['layers'][i]`` (one level) or
 ``['proposal']['l1']...`` (two).
@@ -26,7 +26,7 @@ import re
 
 import numpy as np
 
-from nerf_keras_tpu.config import NeRFConfig, config_from_dict, to_reference_json
+from nerf_keras_tpu_torch.config import NeRFConfig, config_from_dict, to_reference_json
 
 _TOKEN = re.compile(r"\['([^']*)'\]|\[(\d+)\]|\.(\w+)")
 
@@ -120,17 +120,28 @@ def save_params_npz(
     scene: dict | None = None,
     step: int = 0,
     ema: dict | None = None,
+    opt_state: dict | None = None,
 ) -> None:
     """Write a checkpoint in the JAX key format, numpy only.
 
     ``params`` (and ``ema``) are ``{'coarse': tree, 'fine': tree}`` or
     ``{'proposal': tree, 'fine': tree}`` in the JAX layout.  The sidecar
-    is the reference JSON of ``cfg`` plus the ``SCENE`` record.  No
-    optimizer state is written: training restarts Adam from zero moments.
+    is the reference JSON of ``cfg`` plus the ``SCENE`` record.
+    ``opt_state`` ``{'count': int, 'mu': tree, 'nu': tree}`` is Adam's,
+    written as optax's state (``.opt_state[0]``, and the schedule's count
+    at ``.opt_state[1]`` when ``cfg.lr_final`` is set), which the JAX
+    package's restore requires; without it no optimizer state is written.
     """
     arrays = _flatten(params, ".params")
     if ema is not None:
         arrays.update(_flatten(ema, ".ema"))
+    if opt_state is not None:
+        count = np.asarray(opt_state["count"], dtype=np.int32)
+        arrays[".opt_state[0].count"] = count
+        arrays.update(_flatten(opt_state["mu"], ".opt_state[0].mu"))
+        arrays.update(_flatten(opt_state["nu"], ".opt_state[0].nu"))
+        if cfg is not None and cfg.lr_final is not None:
+            arrays[".opt_state[1].count"] = count
     arrays[".step"] = np.asarray(step, dtype=np.int32)
     buf = io.BytesIO()
     np.savez(buf, **arrays)

@@ -1,4 +1,4 @@
-"""K1 and K2 on the card against their plain versions, and the slices on the card.
+"""K1, K2 and K5 on the card against their plain versions, and the slices on the card.
 
 Marked ``cuda``: without a card every test here skips (decided inside the
 fixture, never at import).  This file imports no JAX, so it also runs on
@@ -17,7 +17,8 @@ import numpy as np
 import pytest
 import torch
 
-from nerf_keras_tpu.config import NeRFConfig
+from nerf_keras_tpu_torch.config import NeRFConfig
+from nerf_keras_tpu_torch.engine import step as pstep
 from nerf_keras_tpu_torch.engine.trainer import Trainer
 from nerf_keras_tpu_torch.models.mlp import (
     NeRFMLP,
@@ -25,6 +26,7 @@ from nerf_keras_tpu_torch.models.mlp import (
     randomize_biases_,
 )
 from nerf_keras_tpu_torch.ops.encoding import encode_position
+from nerf_keras_tpu_torch.ops.kernels import fused_mlp as k5
 from nerf_keras_tpu_torch.ops.kernels import fused_render as k1
 from nerf_keras_tpu_torch.ops.rays import pose_spherical
 from nerf_keras_tpu_torch.utils.checkpoint import save_params_npz
@@ -34,6 +36,16 @@ pytestmark = pytest.mark.cuda
 TOL_MAX = 5e-3
 TOL_MEAN = 1e-4
 K2_TOL_REL = 2e-2
+# K5's raw predictions (rgb logits, sigma: unbounded) against the plain MLP,
+# and its gradients (per leaf, dx_enc, dd_enc) as relative L2 errors; the
+# reasons are chip_smoke.py's.
+K5_PREDS_MAX = 5e-2
+K5_PREDS_MEAN = 1e-3
+K5_TOL_REL = 2e-2
+# STOP_PDF_GRADIENT=false: the coarse leaves' gradient runs through
+# sample_pdf's 1/denominator, which amplifies the bf16 differences of the
+# fine pass's dx_enc (chip_smoke.py: PDF_COARSE_TOL_REL).
+PDF_COARSE_TOL_REL = 0.5
 
 
 @pytest.fixture
@@ -212,3 +224,138 @@ def test_trainer_frame_on_card_matches_cpu(dev, tmp_path):
         pose, 16, 16, 19.2, chunk=100)
     assert np.abs(out["rgb"] - ref["rgb"]).max() <= TOL_MAX
     assert np.abs(out["depth"] - ref["depth"]).max() <= 2e-2
+
+
+def _k5_setup(dev, arch, n, seed):
+    """An MLP with random biases and N samples' bf16 encodings (points
+    along random rays from near the camera ring, unit directions) and a
+    cotangent for the raw predictions."""
+    num_layers, hidden, skip = arch
+    gen = torch.Generator().manual_seed(seed)
+    mlp = randomize_biases_(NeRFMLP(num_layers=num_layers, hidden_dim=hidden,
+                                    skip_layer=skip, generator=gen, device=dev), gen)
+    o, d, t = _rays(dev, n, 1, seed)
+    x_enc = encode_position(o + d * t, 10).to(torch.bfloat16)
+    d_enc = encode_position(d / d.norm(dim=-1, keepdim=True), 4).to(torch.bfloat16)
+    g = (torch.randn((n, 4), generator=gen) * 1e-2).to(dev)
+    return mlp, x_enc.contiguous(), d_enc.contiguous(), g
+
+
+@pytest.mark.parametrize("arch,n", [
+    ((8, 256, 4), 4096),
+    ((8, 256, 4), 1000),   # a ragged last tile
+    ((5, 64, 4), 257),     # skip on the last layer widens the heads
+])
+def test_k5_forward_matches_plain(dev, arch, n):
+    mlp, x_enc, d_enc, _ = _k5_setup(dev, arch, n, seed=7)
+    before = k5.launches
+    with torch.no_grad():
+        out = k5.apply_nerf_mlp_fused(mlp, x_enc, d_enc, need_input_grads=False)
+        torch.cuda.synchronize()
+        want = mlp(x_enc, d_enc)
+    assert k5.launches == before + 1
+    assert out.shape == (n, 4) and out.dtype == torch.float32
+    assert bool(torch.isfinite(out).all())
+    assert float((out - want).abs().max()) <= K5_PREDS_MAX
+    assert float((out - want).abs().mean()) <= K5_PREDS_MEAN
+
+
+@pytest.mark.parametrize("need", [True, False])
+@pytest.mark.parametrize("arch,n", [
+    ((8, 256, 4), 3000),   # ragged
+    ((5, 64, 4), 257),
+    ((4, 64, 1), 130),     # a skip after every layer but the first
+])
+def test_k5_backward_matches_plain(dev, arch, n, need):
+    """Per-leaf gradients, and with need_input_grads dx_enc/dd_enc (bf16),
+    against autograd of the plain MLP; one K5 forward and one backward."""
+    mlp, x_enc, d_enc, g = _k5_setup(dev, arch, n, seed=8)
+    x = x_enc.clone().requires_grad_(True)
+    d = d_enc.clone().requires_grad_(True)
+    params = list(mlp.parameters())
+    before = (k5.launches, k5.bwd_launches)
+    out = k5.apply_nerf_mlp_fused(mlp, x, d, need_input_grads=need)
+    got = torch.autograd.grad([out], params + [x, d], [g], allow_unused=True)
+    torch.cuda.synchronize()
+    assert (k5.launches, k5.bwd_launches) == (before[0] + 1, before[1] + 1)
+    want, dx, dd = k5.apply_nerf_mlp_reference_vjp(mlp, x_enc, d_enc, g, need)
+    for (name, _), a, b in zip(mlp.named_parameters(), got, want):
+        assert a.shape == b.shape and bool(torch.isfinite(a).all()), name
+        assert _rel_l2(a, b) <= K5_TOL_REL, (name, _rel_l2(a, b))
+    if not need:
+        assert got[-2] is None and got[-1] is None
+        return
+    assert got[-2].dtype == torch.bfloat16 and got[-1].dtype == torch.bfloat16
+    assert _rel_l2(got[-2].float(), dx.float()) <= K5_TOL_REL
+    assert _rel_l2(got[-1].float(), dd.float()) <= K5_TOL_REL
+
+
+def test_k5_backward_is_deterministic(dev):
+    """No atomics: the same inputs give bit-identical gradients."""
+    mlp, x_enc, d_enc, g = _k5_setup(dev, (8, 256, 4), 2000, seed=9)
+    runs = [k5.launch_k5_bwd(mlp, x_enc, d_enc, g, True, True) for _ in range(2)]
+    (ga, dxa, dda), (gb, dxb, ddb) = runs
+    assert all(torch.equal(a, b) for a, b in zip(ga, gb))
+    assert torch.equal(dxa, dxb) and torch.equal(dda, ddb)
+
+
+def _parity_cfg(stop: bool) -> NeRFConfig:
+    return NeRFConfig(batch_size=256, ns_coarse=64, ns_fine=128, num_layers=8,
+                      hidden_dim=256, skip_layer=4, stop_pdf_gradient=stop,
+                      distortion_loss_mult=1e-4).validate()
+
+
+def _plain_render_pass(mlp, o, d, t, weights_grad):
+    rgb, w = k1.render_rays_reference(mlp, o, d, t)
+    return rgb, w if weights_grad else w.detach()
+
+
+@pytest.mark.parametrize("stop", [True, False])
+def test_parity_step_kernel_path_matches_plain(dev, stop):
+    """One parity step's gradients, kernel path (K1/K2, or K5) against the
+    plain path on the card with the same draws: per leaf relative L2 <=
+    K2_TOL_REL, the coarse leaves without STOP_PDF_GRADIENT <=
+    PDF_COARSE_TOL_REL (chip_smoke.py reports the measured errors)."""
+    cfg = _parity_cfg(stop)
+    tr = Trainer(cfg, 2.0, 6.0, device="cuda")
+    for m in tr.params.values():
+        randomize_biases_(m, torch.Generator().manual_seed(10))
+    o, d, _ = _rays(dev, cfg.batch_size, 2, seed=10)
+    images = torch.rand((cfg.batch_size, 3), generator=torch.Generator().manual_seed(11)).to(dev)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    t_vals = pstep.draw_t_vals(cfg, 2.0, 6.0, (cfg.batch_size,), dev,
+                               noise=torch.rand((cfg.batch_size, cfg.ns_coarse),
+                                                generator=gen, device="cuda"))
+    noise = torch.rand((cfg.batch_size, cfg.ns_fine), generator=gen, device="cuda")
+    params = pstep.params_of(tr.params)
+    grads = []
+    for plain in (False, True):
+        loss_fn = pstep.make_loss_fn(
+            cfg, 2.0, 6.0, render_pass=_plain_render_pass if plain else None,
+            mlp_fn=(lambda mlp, x, dd: mlp(x, dd)) if plain else None)
+        for p in params:
+            p.grad = None
+        loss, _ = loss_fn(tr.params, images, o, d, t_vals, 0, noise=noise)
+        loss.backward()
+        grads.append([p.grad.clone() for p in params])
+    n_coarse = len(list(tr.params["coarse"].parameters()))  # params_of: sorted names
+    for i, (a, b) in enumerate(zip(*grads)):
+        tol = PDF_COARSE_TOL_REL if (not stop and i < n_coarse) else K2_TOL_REL
+        assert _rel_l2(a, b) <= tol, (i, _rel_l2(a, b))
+
+
+@pytest.mark.parametrize("stop", [True, False])
+def test_parity_step_launch_counts(dev, stop):
+    """STOP_PDF_GRADIENT: two K1 and two K2 launches per step, no K5;
+    without it two K5 forward and two K5 backward launches, no K1/K2."""
+    cfg = _parity_cfg(stop)
+    tr = Trainer(cfg, 2.0, 6.0, device="cuda")
+    o, d, _ = _rays(dev, cfg.batch_size, 2, seed=13)
+    batch = (torch.rand((cfg.batch_size, 3), device=dev), o, d / d.norm(dim=-1, keepdim=True))
+    for _ in range(2):
+        before = (k1.launches, k1.bwd_launches, k5.launches, k5.bwd_launches)
+        loss = float(tr.train_step(batch)["loss"])
+        grew = tuple(a - b for a, b in zip(
+            (k1.launches, k1.bwd_launches, k5.launches, k5.bwd_launches), before))
+        assert grew == ((2, 2, 0, 0) if stop else (0, 0, 2, 2))
+        assert np.isfinite(loss)

@@ -27,9 +27,12 @@ def test_resolve_device_is_explicit_and_pins_fp32(monkeypatch):
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    assert runtime.resolve_device(None) == torch.device("cpu")
+    # No silent CPU: the default is the card, and without one it raises.
+    for name in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            runtime.resolve_device(name)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        runtime.resolve_device("cuda")
+        Trainer(CFG, 2.0, 6.0)
     with pytest.raises(ValueError, match="unsupported device"):
         runtime.resolve_device("meta")
 

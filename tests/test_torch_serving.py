@@ -219,10 +219,10 @@ def _imports(path: pathlib.Path) -> list[str]:
 
 
 def test_port_imports_no_jax():
-    """The port imports neither JAX nor any module of the JAX package but
-    its stdlib-only config, and chip_smoke.py imports the JAX package not
-    at all (it reaches the config through the port).  A source scan: the
-    test process imports JAX itself, so sys.modules cannot tell."""
+    """Neither the port nor chip_smoke.py imports JAX or any module of the
+    JAX package, not even its stdlib-only config (the port keeps its own
+    copy).  A source scan: the test process imports JAX itself, so
+    sys.modules cannot tell."""
     smoke = PORT_ROOT.parent / "chip_smoke.py"
     files = sorted(PORT_ROOT.rglob("*.py")) + [smoke]
     assert len(files) > 10
@@ -230,9 +230,6 @@ def test_port_imports_no_jax():
     for path in files:
         for name in _imports(path):
             top = name.split(".")[0]
-            allowed = name == "nerf_keras_tpu.config" and path != smoke
-            if top in ("jax", "jaxlib", "flax", "optax", "PIL") or (
-                top == "nerf_keras_tpu" and not allowed
-            ):
+            if top in ("jax", "jaxlib", "flax", "optax", "PIL", "nerf_keras_tpu"):
                 bad.append(f"{path.relative_to(PORT_ROOT.parent)}: {name}")
     assert not bad, bad

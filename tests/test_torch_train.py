@@ -232,7 +232,6 @@ def test_proposal_configs_are_supported():
 @pytest.mark.parametrize("knob", [
     dict(prop_union=False), dict(prop_union=False, prop_aux_samples=8),
     dict(prop_union=False, prop_union_every=4), dict(freq_anneal_steps=5),
-    dict(train_sampler="coarse", prop_anneal_steps=0, distortion_loss_mult=0.0),
 ])
 def test_unported_training_knobs_raise(knob):
     cfg = _cfg(**knob)
@@ -271,9 +270,10 @@ def test_training_on_cpu_learns_and_is_seeded():
 
 
 def test_checkpoint_round_trip(tmp_path):
-    """A port-trained state (params, EMA, step) written in the JAX key
-    layout and read into a fresh Trainer renders the identical frame; its
-    keys equal those the JAX save_checkpoint writes for the same tree."""
+    """A port-trained state (params, EMA, step, Adam state) written in the
+    JAX key layout and read into a fresh Trainer renders the identical
+    frame; its keys equal those the JAX save_checkpoint writes for the same
+    tree."""
     cfg = _cfg(levels=2)
     tr = Trainer(cfg, NEAR, FAR, device="cpu")
     tr.train_epoch([_batch(5, cfg.batch_size)] * 2)
@@ -292,7 +292,7 @@ def test_checkpoint_round_trip(tmp_path):
 
     jpath = str(tmp_path / "j.ckpt.npz")
     jax_save_checkpoint(jpath, jstep.init_train_state(jax.random.PRNGKey(0), cfg), cfg)
-    jkeys = {k for k in np.load(jpath).files if k.split("[")[0] in (".params", ".ema", ".step")}
+    jkeys = set(np.load(jpath).files)
     assert set(np.load(path).files) == jkeys
     assert ".params['proposal']['l1']['layers'][0]['w']" in jkeys
     tree = proposal_from_jax(jax.tree_util.tree_map(
