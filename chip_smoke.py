@@ -40,7 +40,18 @@ nonzero — nothing falls back to the CPU or to a plain path):
    runs through sample_pdf, reported on their own);
 10. full render: a 200x200 frame with ``full=True`` from the phase-8
     state (two K5 launches per chunk), all eight maps checked against the
-    port's CPU path on the same checkpoint (a strided subset of rays).
+    port's CPU path on the same checkpoint (a strided subset of rays);
+11. K4 (the int8 ray megakernel) against its plain version at full width
+    (random weights and biases, int8 tables calibrated on orbit rays):
+    B=4096 with S=64, 160 and 192 and a ragged B, within gates that two
+    broken packs (the skip layer's x_enc rows zeroed, the fs head's sigma
+    column dropped) miss by 10x or more; CUDA-event times;
+12. int8 serving: the phase-6 checkpoint behind ``RenderService(quant=
+    True)`` over HTTP: the PSNR gate must pass, three 200x200 /render
+    with two K4 launches per chunk and no K1 launch, /stats says int8, and
+    one frame is held against the port's CPU int8 path on the same tables;
+13. the proposal-trained int8 render: phase 7's trainer calibrates int8
+    tables and renders a 200x200 frame, one K4 launch per chunk, no K1.
 
 Each main path runs with the launch counters set to 0 just before it and
 read just after.  The line before the last is the kernel report
@@ -74,12 +85,15 @@ from nerf_keras_tpu_torch.models.mlp import (
 from nerf_keras_tpu_torch.ops.encoding import encode_position
 from nerf_keras_tpu_torch.ops.kernels import _build
 from nerf_keras_tpu_torch.ops.kernels import fused_mlp as k5
+from nerf_keras_tpu_torch.ops import quant
 from nerf_keras_tpu_torch.ops.kernels import fused_render as k1
+from nerf_keras_tpu_torch.ops.kernels import quant_render as k4
 from nerf_keras_tpu_torch.ops.rays import get_rays, pose_spherical
 from nerf_keras_tpu_torch.ops.sampling import generate_t_vals
 from nerf_keras_tpu_torch.profile_train import bench_batch, bench_config, parity_config
 from nerf_keras_tpu_torch.serving import RenderService, serve
 from nerf_keras_tpu_torch.utils.checkpoint import save_params_npz
+from nerf_keras_tpu_torch.utils.image_metrics import frame_psnr
 from nerf_keras_tpu_torch.utils.png import decode_png
 
 # K1 vs plain at full width.  Both take bf16-rounded operands and
@@ -133,7 +147,18 @@ K5_TOL_REL = K2_TOL_REL
 # fine leaves; the coarse gate sits 3x above.
 PDF_COARSE_TOL_REL = 0.5
 
+# K4 against its plain version on the same int8 tables: the integer
+# pipeline is the same, so what is left is the compositing's order (and an
+# encoding that a sin/cos ulp could carry across an int8 boundary).  On an
+# H100 at B=4096, S=64/192: max |diff| 3.6e-7, mean 6.3e-8 (rgb); the gates
+# sit ~3000x and ~150x above, and broken packs must miss them by 10x.
+K4_TOL_MAX = 1e-3
+K4_TOL_MEAN = 1e-5
+# The int8 PSNR gate against the float render (the server's default).
+QUANT_GATE_DB = 30.0
+
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 tensor-core FLOP/s (data sheet)
+PEAK_INT8 = 1979e12  # H100 SXM dense int8 tensor-core OP/s (data sheet)
 HBM_BYTES_S = 3.35e12  # H100 SXM device memory bytes/s (data sheet)
 
 CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -147,6 +172,8 @@ SOURCES = {
             "nerf_keras_tpu/ops/pallas/fused_mlp.py:148"),
     "K5b": ("nerf_keras_tpu_torch/csrc/fused_mlp_bwd.cu",
             "nerf_keras_tpu/ops/pallas/fused_mlp.py:260"),
+    "K4": ("nerf_keras_tpu_torch/csrc/quant_render_fwd.cu",
+           "nerf_keras_tpu/ops/pallas/quant_render.py:66"),
 }
 
 
@@ -204,8 +231,8 @@ def param_bytes(mlp: NeRFMLP) -> int:
     return sum(p.numel() for p in mlp.parameters()) * 4
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / PEAK_BF16, nbytes / HBM_BYTES_S
+def bound(flops: float, nbytes: float, peak: float = PEAK_BF16) -> tuple[float, str]:
+    t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -222,6 +249,15 @@ def k2_bound(mlp, b, s):
     flops = 2.0 * (mlp_macs(mlp) + mlp_dx_macs(mlp, False)) * n
     nbytes = n * (mlp.xyz_dim * 2 + 16 + 4 + 4) + b * (12 + 12) + 3 * param_bytes(mlp)
     return bound(flops, nbytes)
+
+
+def k4_bound(mlp, b, s):
+    """int8 products at the int8 peak; rays and t in, rgb and weights out,
+    the int8 pack and its f32 scale/bias/requant rows read once."""
+    n = b * s
+    outs = sum(layer.weight.shape[0] for layer in (*mlp.trunk, *mlp.heads().values()))
+    nbytes = b * (24 + 12) + n * (4 + 4) + mlp_macs(mlp) + outs * 12
+    return bound(2.0 * mlp_macs(mlp) * n, nbytes, PEAK_INT8)
 
 
 def k5_bounds(mlp, n, input_grads):
@@ -243,11 +279,13 @@ def kernel_entry(name, key, launches, max_abs_err, ms, plain_ms, bnd) -> dict:
 def reset_counts() -> None:
     k1.launches = k1.train_launches = k1.bwd_launches = 0
     k5.launches = k5.bwd_launches = 0
+    k4.launches = 0
 
 
 def counts() -> dict:
     return {"k1_fwd": k1.launches - k1.train_launches, "k1_train": k1.train_launches,
-            "k2": k1.bwd_launches, "k5_fwd": k5.launches, "k5_bwd": k5.bwd_launches}
+            "k2": k1.bwd_launches, "k5_fwd": k5.launches, "k5_bwd": k5.bwd_launches,
+            "k4": k4.launches}
 
 
 # ---------------------------------------------------------------------------
@@ -507,6 +545,106 @@ def phase_k5(card: str) -> dict:
     return report
 
 
+def _orbit_rays(dev, size: int = 64) -> tuple[torch.Tensor, torch.Tensor]:
+    """The rays of 8 poses around the object (theta every 45 degrees, phi
+    -30, radius 4), ``size`` x ``size`` each, as the server calibrates."""
+    rays = [get_rays(size, size, 1.2 * size, pose_spherical(theta, -30.0, 4.0), device=dev)
+            for theta in range(0, 360, 45)]
+    return (torch.cat([o.reshape(-1, 3) for o, _ in rays]),
+            torch.cat([d.reshape(-1, 3) for _, d in rays]))
+
+
+def _calibrated_qparams(mlp: NeRFMLP, dev) -> dict:
+    """``mlp``'s int8 tables, calibrated on 2048 orbit rays at 192 centred
+    samples each."""
+    o, d = _orbit_rays(dev)
+    idx = torch.as_tensor(np.random.default_rng(0).choice(o.shape[0], 2048, replace=False),
+                          device=dev)
+    o, d = o[idx], d[idx]
+    t = generate_t_vals(2.0, 6.0, (o.shape[0],), 192, "center", device=dev)
+    pts = o[:, None, :] + d[:, None, :] * t[..., None]
+    d_enc = encode_position(d, mlp.l_dir)[:, None, :].expand(*t.shape, -1)
+    tree = quant.mlp_tree(mlp)
+    stats = quant.mlp_calibration_absmax(tree, encode_position(pts, mlp.l_xyz), d_enc,
+                                         mlp.skip_layer)
+    return quant.quantize_mlp(tree, stats, mlp.skip_layer)
+
+
+def _broken_qparams(qp: dict, hidden: int, skip_layer: int, what: str) -> dict:
+    """A copy of ``qp`` with the skip layer's x_enc rows zeroed (``skip``)
+    or the fs head's sigma column dropped (``sigma``)."""
+    bad = {**qp, "trunk": [dict(lyr) for lyr in qp["trunk"]], "fs": dict(qp["fs"])}
+    if what == "skip":
+        i = next(i for i in range(1, len(bad["trunk"])) if is_skip(i - 1, skip_layer))
+        bad["trunk"][i]["wq"] = bad["trunk"][i]["wq"].clone()
+        bad["trunk"][i]["wq"][hidden:] = 0
+    else:
+        for key in ("wq", "scale", "b"):
+            bad["fs"][key] = bad["fs"][key].clone()
+            bad["fs"][key][..., hidden] = 0
+    return bad
+
+
+def _errs(got: tuple, want: tuple) -> dict:
+    d_rgb, d_w = (got[0] - want[0]).abs(), (got[1] - want[1]).abs()
+    return {"rgb_max": d_rgb.max().item(), "rgb_mean": d_rgb.mean().item(),
+            "w_max": d_w.max().item(), "w_mean": d_w.mean().item()}
+
+
+def _miss(errs: dict) -> float:
+    """How far errors are beyond K4's gates (1 = at the gate)."""
+    return max(errs["rgb_max"] / K4_TOL_MAX, errs["w_max"] / K4_TOL_MAX,
+               errs["rgb_mean"] / K4_TOL_MEAN, errs["w_mean"] / K4_TOL_MEAN)
+
+
+def phase_k4(card: str) -> dict:
+    """K4 vs render_rays_reference_quant at full width: B=4096 (one 64x64
+    pose) with S=64, 160 (the proposal fine pass) and 192, and a ragged B
+    (several rays per block, a part-filled last block); two broken packs at
+    S=192 must miss the gates by 10x."""
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(4)
+    mlp = full_mlp(dev, 4)
+    qp = _calibrated_qparams(mlp, dev)
+    origins, dirs = get_rays(64, 64, 1.2 * 64, pose_spherical(30.0, -30.0, 4.0), device=dev)
+    origins = origins.reshape(-1, 3).contiguous()
+    dirs = dirs.reshape(-1, 3).contiguous()
+    report = {"max_abs_err": 0.0}
+    for b, s in ((4096, 64), (4096, 160), (4096, 192), (1001, 24)):
+        o, d = origins[:b].contiguous(), dirs[:b].contiguous()
+        t = generate_t_vals(2.0, 6.0, (b,), s, "stratified", generator=gen).to(dev).contiguous()
+        args = (qp, o, d, t)
+        got = k4.render_rays_fused_quant(*args)
+        torch.cuda.synchronize()
+        want = k4.render_rays_reference_quant(*args)
+        errs = _errs(got, want)
+        finite = bool(torch.isfinite(got[0]).all() and torch.isfinite(got[1]).all())
+        fields = {}
+        if s == 192:
+            for what in ("skip", "sigma"):
+                bad = _broken_qparams(qp, mlp.hidden_dim, mlp.skip_layer, what)
+                fields[f"miss_{what}_broken"] = _miss(_errs(k4.launch_k4(bad, o, d, t, 10, 4, 4),
+                                                            want))
+        if b == 4096:
+            bnd = k4_bound(mlp, b, s)
+            fields.update(ms=cuda_ms(lambda: k4.render_rays_fused_quant(*args)),
+                          plain_ms=cuda_ms(lambda: k4.render_rays_reference_quant(*args)),
+                          bound_ms=bnd[0], bound_by=bnd[1])
+            report[f"ms_s{s}"], report[f"plain_ms_s{s}"] = fields["ms"], fields["plain_ms"]
+            report[f"bound_s{s}"] = bnd
+        say("k4", B=b, S=s, **errs, tol_max=K4_TOL_MAX, tol_mean=K4_TOL_MEAN, finite=finite,
+            **fields, card=card)
+        if not finite:
+            raise RuntimeError(f"K4 produced non-finite values at B={b}, S={s}")
+        if _miss(errs) > 1.0:
+            raise RuntimeError(f"K4 disagrees with the plain version at B={b}, S={s}: {errs}")
+        for what in ("skip", "sigma"):
+            if s == 192 and fields[f"miss_{what}_broken"] < 10.0:
+                raise RuntimeError(f"K4's gates cannot see a broken {what} pack: {fields}")
+        report["max_abs_err"] = max(report["max_abs_err"], errs["rgb_max"], errs["w_max"])
+    return report
+
+
 def _get(url: str) -> tuple[bytes, float]:
     t0 = time.perf_counter()
     with urllib.request.urlopen(url, timeout=300) as resp:
@@ -579,6 +717,105 @@ def phase_serve(card: str, tmp: str) -> dict:
         raise RuntimeError("non-finite frame from the card")
     if d_rgb > FRAME_TOL_RGB or d_depth > FRAME_TOL_DEPTH:
         raise RuntimeError("card frame disagrees with the plain CPU frame")
+    return launches
+
+
+def phase_serve_int8(card: str, tmp: str) -> dict:
+    """The phase-6 checkpoint served with ``--quant int8``: the gate must
+    pass, and every frame must render through K4 alone (two launches per
+    chunk); one frame against the port's CPU int8 path on the same
+    tables."""
+    cfg = load_config(CONFIG)
+    ckpt = os.path.join(tmp, "random.ckpt.npz")
+    service = RenderService(cfg, ckpt, device="cuda", quant=True, quant_gate_db=QUANT_GATE_DB)
+    say("int8_gate", psnr_db=service.quant_gate_psnr, gate_db=QUANT_GATE_DB,
+        use_quant=service.use_quant, size=[cfg.height, cfg.width], card=card)
+    if not (service.use_quant and service.trainer.quant_ready):
+        raise RuntimeError(f"the int8 gate failed: {service.quant_gate_psnr} dB")
+    server = serve(service, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    size, chunk = 200, 16384
+    n_chunks = -(-size * size // chunk)
+    requests = [("rgb", 30.0), ("rgb", 120.0), ("depth", 30.0)]
+    try:
+        reset_counts()  # count only the main path's launches from here
+        for map_name, theta in requests:
+            before = counts()
+            png, seconds = _get(
+                f"{base}/render?theta={theta}&phi=-30&radius=4&width={size}"
+                f"&height={size}&chunk={chunk}&map={map_name}"
+            )
+            grew = {k: v - before[k] for k, v in counts().items()}
+            img = decode_png(png)
+            shape = (size, size, 3) if map_name == "rgb" else (size, size)
+            say("serve_int8", map=map_name, theta=theta, latency_s=seconds,
+                shape=list(img.shape), png_bytes=len(png), launches=grew,
+                std=float(img.std()), card=card)
+            if img.shape != shape:
+                raise RuntimeError(f"/render {map_name}: shape {img.shape} != {shape}")
+            if map_name == "rgb" and img.std() == 0:
+                raise RuntimeError("/render rgb returned a constant image")
+            if grew != dict(ZERO, k4=2 * n_chunks):
+                raise RuntimeError(f"an int8 frame launched {grew}, expected "
+                                   f"2 x {n_chunks} K4 launches and nothing else")
+        launches = counts()
+        stats = json.loads(_get(f"{base}/stats")[0])
+        say("stats_int8", **stats)
+        if stats["quant"] != "int8" or stats["requests"] != len(requests):
+            raise RuntimeError(f"/stats: {stats}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+
+    # One served frame on the card against the plain int8 path on the CPU,
+    # same tables, on every 40th ray.
+    gpu = service.trainer
+    origins, dirs = gpu.pose_rays(pose_spherical(30.0, -30.0, 4.0), size, size, 240.0)
+    out = gpu.render_rays(origins, dirs, quant=True)
+    idx = torch.arange(0, origins.shape[0], 40)
+    cpu = Trainer(cfg, 2.0, 6.0, device="cpu").restore(ckpt).install_quant(gpu.qparams)
+    ref = cpu.render_rays(origins[idx].cpu(), dirs[idx].cpu(), quant=True)
+    errs, bad = {}, []
+    for k in sorted(ref):
+        got = out[k][idx.numpy()]
+        if not np.isfinite(out[k]).all():
+            bad.append(f"{k}: non-finite")
+            continue
+        errs[k] = float(np.abs(got - ref[k]).max())
+        tol = FRAME_TOL_RGB if k.startswith("rgb") else FRAME_TOL_DEPTH
+        if errs[k] > tol:
+            bad.append(f"{k}: {errs[k]} > {tol}")
+    say("int8_frame_vs_plain", size=size, rays_checked=len(idx), max_abs_err=errs,
+        tol_rgb=FRAME_TOL_RGB, tol_depth=FRAME_TOL_DEPTH, card=card)
+    if len(errs) != 4 or bad:
+        raise RuntimeError(f"the int8 frame disagrees with the CPU int8 path: {bad}")
+    return launches
+
+
+def phase_proposal_int8(card: str, trainer: Trainer) -> dict:
+    """Phase 7's proposal-trained state: calibrate int8 tables on a 200x200
+    pose, then a 200x200 frame through the float proposal chain and one K4
+    fine pass per chunk."""
+    pose = pose_spherical(30.0, -30.0, 4.0)
+    trainer.quantize_for_inference(*trainer.pose_rays(pose, 200, 200, 240.0))
+    reset_counts()
+    frame = trainer.render_image(pose, 200, 200, 240.0, quant=True)
+    launches = counts()
+    n_chunks = -(-200 * 200 // 16384)
+    rgb = frame["rgb"]
+    flt = trainer.render_image(pose, 200, 200, 240.0)["rgb"]
+    say("proposal_int8", size=200, launches=launches, psnr_vs_float_db=frame_psnr(flt, rgb),
+        card=card)
+    if launches != dict(ZERO, k4=n_chunks):
+        raise RuntimeError(f"the proposal int8 frame launched {launches}, expected "
+                           f"{n_chunks} K4 launches and nothing else")
+    if not (np.isfinite(rgb).all() and np.isfinite(frame["depth"]).all()):
+        raise RuntimeError("proposal int8: non-finite frame")
+    if rgb.shape != (200, 200, 3) or rgb.std() == 0:
+        raise RuntimeError("proposal int8: a constant frame")
     return launches
 
 
@@ -659,11 +896,12 @@ def _eval_and_frame(trainer, batch, what: str) -> tuple[dict, dict]:
     return ev, counts()
 
 
-ZERO = {"k1_fwd": 0, "k1_train": 0, "k2": 0, "k5_fwd": 0, "k5_bwd": 0}
+ZERO = {"k1_fwd": 0, "k1_train": 0, "k2": 0, "k5_fwd": 0, "k5_bwd": 0, "k4": 0}
 
 
-def phase_train(card: str) -> list[dict]:
-    """The bench recipe's proposal trainer on the card (10 steps)."""
+def phase_train(card: str) -> tuple[list[dict], Trainer]:
+    """The bench recipe's proposal trainer on the card (10 steps); returns
+    the launch counts and the trainer."""
     cfg = bench_config()
     trainer = Trainer(cfg, 2.0, 6.0, device="cuda")
     batch = trainer.put_batch(bench_batch(cfg.batch_size))
@@ -679,7 +917,7 @@ def phase_train(card: str) -> list[dict]:
     say("train", steps=10, **run, eval=ev, eval_frame_launches=after, card=card)
     if not run["loss_curve"][-1] < run["loss_curve"][0]:
         raise RuntimeError(f"the loss did not fall: {run['loss_curve']}")
-    return [run["launches"], after]
+    return [run["launches"], after], trainer
 
 
 def phase_parity(card: str, stop: bool, tmp: str) -> tuple[list[dict], str | None]:
@@ -769,10 +1007,17 @@ def main() -> None:
     torch.cuda.empty_cache()
     k5r = phase_k5(card)
     torch.cuda.empty_cache()
+    k4r = phase_k4(card)
+    torch.cuda.empty_cache()
     runs = []
     with tempfile.TemporaryDirectory() as tmp:
         runs.append(phase_serve(card, tmp))
-        runs += phase_train(card)
+        runs.append(phase_serve_int8(card, tmp))
+        torch.cuda.empty_cache()
+        train_runs, trainer = phase_train(card)
+        runs += train_runs
+        runs.append(phase_proposal_int8(card, trainer))
+        del trainer
         torch.cuda.empty_cache()
         parity, ckpt = phase_parity(card, True, tmp)
         runs += parity
@@ -794,6 +1039,8 @@ def main() -> None:
         kernel_entry("K5-bwd fused_mlp_bwd", "K5b", _sum(runs, "k5_bwd"),
                      k5r["bwd_max_abs_err"], k5r["bwd_ms"], k5r["bwd_plain_ms"],
                      k5r["bwd_bound"]),
+        kernel_entry("K4 quant_render_fwd", "K4", _sum(runs, "k4"), k4r["max_abs_err"],
+                     k4r["ms_s192"], k4r["plain_ms_s192"], k4r["bound_s192"]),
     ]
     for entry in kernels:
         if entry["launches"] == 0:

@@ -49,7 +49,8 @@
 //     prefetch of the B fragments).
 //   * Per-sample (sigma, rgb) go to shared memory; at the end one warp
 //     per ray runs the transmittance scan in sample order (a chunk per
-//     lane plus a multiplicative warp scan) and writes weights and rgb.
+//     lane plus a multiplicative warp scan) and writes weights and rgb
+//     (composite_rays, nerf_tile.cuh, shared with K4).
 // Not carried over from the TPU kernel: its one-hot selector matmuls,
 // three-limb exact dots, the sin(z + pi/2) cos trick, the log-space
 // cumsum and the padded-t ragged batch (the ragged edge is masked here).
@@ -162,54 +163,8 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 
-  // Transmittance scan: one warp per ray, a contiguous chunk per lane.
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int chunk = (S + 31) / 32;
-  for (int r = warp; r < nrays; r += kWarps) {
-    const float* tr = p.t_vals + (size_t)(r0 + r) * S;
-    const float* sg = sig + r * S;
-    const int j0 = min(lane * chunk, S);
-    const int j1 = min(j0 + chunk, S);
-    float prod = 1.f;
-    for (int j = j0; j < j1; ++j) {
-      const float delta = j + 1 < S ? tr[j + 1] - tr[j] : kTerminalDelta;
-      const float alpha = 1.f - expf(-fmaxf(sg[j], 0.f) * delta);
-      prod *= fmaxf(1.f - alpha, 0.f) + kEps;
-    }
-    float incl = prod;
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const float v = __shfl_up_sync(0xffffffffu, incl, off);
-      if (lane >= off) incl *= v;
-    }
-    float trans = __shfl_up_sync(0xffffffffu, incl, 1);
-    if (lane == 0) trans = 1.f;
-    float cr = 0.f, cg = 0.f, cb = 0.f;
-    float* wr = p.w_out + (size_t)(r0 + r) * S;
-    const float* lg = rgbl + (size_t)r * S * 3;
-    for (int j = j0; j < j1; ++j) {
-      const float delta = j + 1 < S ? tr[j + 1] - tr[j] : kTerminalDelta;
-      const float alpha = 1.f - expf(-fmaxf(sg[j], 0.f) * delta);
-      const float w = alpha * trans;
-      trans *= fmaxf(1.f - alpha, 0.f) + kEps;
-      wr[j] = w;
-      cr += w * sigmoidf_(lg[j * 3 + 0]);
-      cg += w * sigmoidf_(lg[j * 3 + 1]);
-      cb += w * sigmoidf_(lg[j * 3 + 2]);
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      cr += __shfl_xor_sync(0xffffffffu, cr, off);
-      cg += __shfl_xor_sync(0xffffffffu, cg, off);
-      cb += __shfl_xor_sync(0xffffffffu, cb, off);
-    }
-    if (lane == 0) {
-      p.rgb_out[(size_t)(r0 + r) * 3 + 0] = cr;
-      p.rgb_out[(size_t)(r0 + r) * 3 + 1] = cg;
-      p.rgb_out[(size_t)(r0 + r) * 3 + 2] = cb;
-    }
-  }
+  composite_rays(p.t_vals + (size_t)r0 * S, sig, rgbl, nrays, S,
+                 p.w_out + (size_t)r0 * S, p.rgb_out + (size_t)r0 * 3);
 }
 
 }  // namespace

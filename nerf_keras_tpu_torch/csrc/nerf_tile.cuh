@@ -1,8 +1,10 @@
 // Device code shared by the ray megakernel's forward (K1,
-// fused_render_fwd.cu) and backward (K2, fused_render_bwd.cu) and by the
-// MLP kernel over encodings (K5, fused_mlp_fwd.cu and fused_mlp_bwd.cu):
-// the Fourier encoding of one coordinate column, the 64-row tile product
-// with its epilogues, and the MLP's forward and backward over one tile.
+// fused_render_fwd.cu) and backward (K2, fused_render_bwd.cu), by the MLP
+// kernel over encodings (K5, fused_mlp_fwd.cu and fused_mlp_bwd.cu) and by
+// the int8 ray megakernel (K4, quant_render_fwd.cu): the Fourier encoding
+// of one coordinate column, the compositing of whole rays (K1, K4), the
+// 64-row bf16 tile product with its epilogues, and the MLP's forward and
+// backward over one tile.
 //
 // A tile product computes out[64, n] = epilogue(in[64, k_pad] @ Pack^T)
 // with mma.sync m16n8k16 (bf16 operands, f32 accumulation).  `in` is a
@@ -75,6 +77,65 @@ __device__ __forceinline__ float encode_feature(const float* x, int c, int dim) 
 }
 
 __device__ __forceinline__ float sigmoidf_(float x) { return 1.f / (1.f + expf(-x)); }
+
+// Alpha compositing of `nrays` rays of S samples (K1 and K4): relu sigma,
+// sigmoid rgb, a 1e10 terminal delta, weights alpha * T with the exclusive
+// transmittance T = prod(max(1 - alpha, 0) + 1e-10).  One warp per ray, a
+// contiguous chunk of samples per lane plus a multiplicative warp scan.
+// t: (nrays, S) global; sig (nrays*S) and rgbl (nrays*S, 3): per-sample
+// sigma and rgb logits (shared memory).  Writes w_out (nrays, S) and
+// rgb_out (nrays, 3).  No block-level sync inside.
+__device__ __forceinline__ void composite_rays(const float* t, const float* sig,
+                                               const float* rgbl, int nrays, int S,
+                                               float* w_out, float* rgb_out) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int chunk = (S + 31) / 32;
+  for (int r = warp; r < nrays; r += kWarps) {
+    const float* tr = t + (size_t)r * S;
+    const float* sg = sig + r * S;
+    const int j0 = min(lane * chunk, S);
+    const int j1 = min(j0 + chunk, S);
+    float prod = 1.f;
+    for (int j = j0; j < j1; ++j) {
+      const float delta = j + 1 < S ? tr[j + 1] - tr[j] : kTerminalDelta;
+      const float alpha = 1.f - expf(-fmaxf(sg[j], 0.f) * delta);
+      prod *= fmaxf(1.f - alpha, 0.f) + kEps;
+    }
+    float incl = prod;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float v = __shfl_up_sync(0xffffffffu, incl, off);
+      if (lane >= off) incl *= v;
+    }
+    float trans = __shfl_up_sync(0xffffffffu, incl, 1);
+    if (lane == 0) trans = 1.f;
+    float cr = 0.f, cg = 0.f, cb = 0.f;
+    float* wr = w_out + (size_t)r * S;
+    const float* lg = rgbl + (size_t)r * S * 3;
+    for (int j = j0; j < j1; ++j) {
+      const float delta = j + 1 < S ? tr[j + 1] - tr[j] : kTerminalDelta;
+      const float alpha = 1.f - expf(-fmaxf(sg[j], 0.f) * delta);
+      const float w = alpha * trans;
+      trans *= fmaxf(1.f - alpha, 0.f) + kEps;
+      wr[j] = w;
+      cr += w * sigmoidf_(lg[j * 3 + 0]);
+      cg += w * sigmoidf_(lg[j * 3 + 1]);
+      cb += w * sigmoidf_(lg[j * 3 + 2]);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      cr += __shfl_xor_sync(0xffffffffu, cr, off);
+      cg += __shfl_xor_sync(0xffffffffu, cg, off);
+      cb += __shfl_xor_sync(0xffffffffu, cb, off);
+    }
+    if (lane == 0) {
+      rgb_out[(size_t)r * 3 + 0] = cr;
+      rgb_out[(size_t)r * 3 + 1] = cg;
+      rgb_out[(size_t)r * 3 + 2] = cb;
+    }
+  }
+}
 
 enum Epilogue {
   kReluBf16 = 0,      // out = bf16(relu(v + b))

@@ -23,6 +23,9 @@ Counterpart of ``nerf_keras_tpu/engine/step.py``:
   proposal chain (``ops/proposal.py``) places the fine samples, one fine
   pass renders them (K1 forward and K2 backward on the card), and one Adam
   step updates both nets;
+* the int8 renders (``make_quant_render_fn``, and
+  ``make_proposal_render_fn(quant=True)``): every MLP pass is one K4
+  launch on the card, over qparams from ``ops/quant.py``;
 * ``make_optimizer`` (optax's Adam, eps 1e-7, optional exponential decay),
   ``mse`` and ``psnr``.
 
@@ -48,6 +51,7 @@ from nerf_keras_tpu_torch.config import NeRFConfig
 from nerf_keras_tpu_torch.ops.encoding import encode_position
 from nerf_keras_tpu_torch.ops.kernels.fused_mlp import apply_nerf_mlp_fused
 from nerf_keras_tpu_torch.ops.kernels.fused_render import render_rays_fused
+from nerf_keras_tpu_torch.ops.kernels.quant_render import render_rays_fused_quant
 from nerf_keras_tpu_torch.ops.proposal import (
     binned_fine_weights,
     interlevel_loss,
@@ -170,11 +174,19 @@ class TrainState:
     step: int = 0
 
 
-def _make_pass_fn(cfg: NeRFConfig, weights_grad: bool = False) -> Callable:
+def _make_pass_fn(cfg: NeRFConfig, weights_grad: bool = False,
+                  quant: bool = False) -> Callable:
     """One MLP render pass ``(mlp, origins, dirs, t_vals) -> (rgb,
     weights)``: K1 (and K2 under autograd) on the card, the plain version
     on the CPU.  ``weights_grad`` keeps the weights output differentiable
-    (a weight-space loss consumes it)."""
+    (a weight-space loss consumes it).  With ``quant`` the first argument
+    is one MLP's qparams and the pass is K4 (inference only)."""
+    if quant:
+        def render_pass_q(qp, origins, dirs, t_vals):
+            return render_rays_fused_quant(qp, origins, dirs, t_vals, l_xyz=cfg.l_xyz,
+                                           l_dir=cfg.l_dir, skip_layer=cfg.skip_layer)
+
+        return render_pass_q
 
     def render_pass(mlp, origins, dirs, t_vals):
         return render_rays_fused(
@@ -511,12 +523,14 @@ def make_eval_step(cfg: NeRFConfig, near: float, far: float) -> Callable:
 def make_proposal_render_fn(
     cfg: NeRFConfig, near: float, far: float, prop_l_xyz: int = 4,
     union: bool = True, levels: int = 1, prop_samples: int = 0,
+    quant: bool = False,
 ) -> Callable:
     """``render(prop, fine, origins, dirs) -> {'rgb_fine', 'depth_fine'}``:
     the proposal chain at midpoint draws over ``ns_coarse`` centered
     t-values, then one fine K1 pass over their union with the ``ns_fine``
-    draws."""
-    fine_pass = _make_pass_fn(cfg)
+    draws.  With ``quant`` ``fine`` is the fine model's qparams and the
+    fine pass is K4; the proposal nets stay float."""
+    fine_pass = _make_pass_fn(cfg, quant=quant)
     chain = make_chain_sampler(cfg, prop_l_xyz, union, levels, prop_samples,
                                train=False)
 
@@ -529,6 +543,33 @@ def make_proposal_render_fn(
         if cfg.white_bkgd:
             rgb_fine = composite_background(rgb_fine, w_fine)
         return {"rgb_fine": rgb_fine, "depth_fine": depth_fine}
+
+    return render
+
+
+def make_quant_render_fn(cfg: NeRFConfig, near: float, far: float) -> Callable:
+    """``render(qparams, origins, dirs) -> dict`` of rgb/depth for the
+    coarse and fine passes, as :func:`make_render_fn`'s common path, with
+    both MLP passes through K4 over ``qparams = {'coarse', 'fine'}``
+    (``ops/quant.quantize_render_params``).  The pdf draw, the union and
+    the compositing stay float32."""
+    render_pass = _make_pass_fn(cfg, quant=True)
+
+    def render(qparams, origins, dirs):
+        t_vals = generate_t_vals(near, far, tuple(origins.shape[:-1]), cfg.ns_coarse,
+                                 "center", device=origins.device).contiguous()
+        rgb_coarse, w_coarse = render_pass(qparams["coarse"], origins, dirs, t_vals)
+        depth_coarse = torch.sum(w_coarse * t_vals, dim=-1)
+        t_mid = 0.5 * (t_vals[..., 1:] + t_vals[..., :-1])
+        t_fine = sample_pdf(t_mid, w_coarse, cfg.ns_fine, deterministic=True)
+        t_all = sorted_union(t_vals, t_fine).contiguous()
+        rgb_fine, w_fine = render_pass(qparams["fine"], origins, dirs, t_all)
+        depth_fine = torch.sum(w_fine * t_all, dim=-1)
+        if cfg.white_bkgd:
+            rgb_coarse = composite_background(rgb_coarse, w_coarse)
+            rgb_fine = composite_background(rgb_fine, w_fine)
+        return {"rgb_coarse": rgb_coarse, "rgb_fine": rgb_fine,
+                "depth_coarse": depth_coarse, "depth_fine": depth_fine}
 
     return render
 

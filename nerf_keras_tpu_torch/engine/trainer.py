@@ -13,6 +13,12 @@ from ``cfg.seed``) that draws the t-values and the fine draws.
 coarse+fine render).  The train and eval steps are built at first use, so
 a trainer that only serves never checks the training knobs.
 
+int8 inference: ``quantize_for_inference`` calibrates the eval weights on
+given rays and installs the int8 tables; ``render_rays(quant=True)`` and
+``render_image(quant=True)`` then run every MLP pass through K4.  The
+tables are a snapshot of the weights: ``restore``, ``replace_params`` and
+``train_step`` drop them (``quant_ready`` turns false).
+
 ``restore``/``save`` read and write the JAX package's ``.ckpt.npz`` key
 format: ``save`` writes params, EMA, step and the Adam state (so the JAX
 package's ``Trainer.restore`` loads it); ``restore`` reads params, EMA and
@@ -34,6 +40,8 @@ from nerf_keras_tpu_torch.engine.step import (
     check_train_support,
     make_eval_step,
     make_optimizer,
+    make_proposal_render_fn,
+    make_quant_render_fn,
     make_render_fn,
     make_train_step,
     params_of,
@@ -43,6 +51,12 @@ from nerf_keras_tpu_torch.ops.proposal import (
     chain_nets,
     init_proposal_chain,
     proposal_to_jax,
+)
+from nerf_keras_tpu_torch.ops.quant import (
+    calibrate_render,
+    calibrate_render_proposal,
+    mlp_tree,
+    quantize_render_params,
 )
 from nerf_keras_tpu_torch.ops.rays import get_rays
 from nerf_keras_tpu_torch.runtime import resolve_device
@@ -79,6 +93,14 @@ def _load(models: dict[str, nn.Module], tree: dict) -> None:
                              f"the config {len(nets)}")
         for net, t in zip(nets, trees):
             net.load_jax_params(t)
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_to(v, device) for v in tree]
+    return tree.to(device).contiguous()
 
 
 def _realize_means(acc: dict[str, list[torch.Tensor]]) -> dict[str, float]:
@@ -134,6 +156,7 @@ class Trainer:
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
         self._train_step = self._eval_step = self._render_full = None
         self._render = make_render_fn(cfg, self.near, self.far)
+        self._qparams = self._render_q = None
 
     def _new_optimizer(self):
         return make_optimizer(self.cfg, params_of(self.params))
@@ -146,6 +169,12 @@ class Trainer:
     def step(self, value: int) -> None:
         self.state.step = value
 
+    def _invalidate_derived(self) -> None:
+        """Drop the weight-derived int8 tables: they were calibrated for
+        the weights they were built from, and a server must never render
+        stale scales after new weights arrive."""
+        self._qparams = self._render_q = None
+
     def restore(self, path: str) -> "Trainer":
         """Load a ``.ckpt.npz`` (JAX key format) into this trainer.  With
         EMA on, a checkpoint without a shadow seeds it from its params
@@ -157,6 +186,7 @@ class Trainer:
             _load(self.ema, ckpt["ema"] if ckpt["ema"] is not None else ckpt["params"])
         self.step = ckpt["step"]
         self.state.opt = self._new_optimizer()
+        self._invalidate_derived()
         return self
 
     def save(self, path: str, scene: dict | None = None) -> None:
@@ -184,6 +214,7 @@ class Trainer:
         if self.ema is not None:
             _load(self.ema, params)
         self.state.opt = self._new_optimizer()
+        self._invalidate_derived()
         return self
 
     def params_tree(self, grad: bool = False) -> dict:
@@ -213,6 +244,7 @@ class Trainer:
         if self._train_step is None:
             check_train_support(self.cfg, self.device)
             self._train_step = make_train_step(self.cfg, self.near, self.far)
+        self._invalidate_derived()
         return self._train_step(self.state, self.put_batch(batch), draws,
                                 self.generator)
 
@@ -240,6 +272,74 @@ class Trainer:
         return _realize_means(acc)
 
     # ------------------------------------------------------------------
+    def quantize_for_inference(self, origins, directions, calib_rays: int = 2048,
+                               seed: int = 0) -> "Trainer":
+        """Calibrate the int8 render on representative rays (``(N, 3)``
+        numpy arrays or tensors) and install its tables.  More than
+        ``calib_rays`` rays are subsampled without replacement by
+        ``np.random.default_rng(seed)``, as the JAX package does.  The
+        eval weights (the EMA shadow when on) are calibrated: coarse and
+        fine, or the fine MLP at the t-unions of the float proposal chain
+        for ``TRAIN_SAMPLER=proposal``.  Gate the result against the float
+        render (PSNR) before serving it, as the server does."""
+        if self.cfg.batch_norm:
+            raise ValueError("int8 inference has no BatchNorm variant; use the float "
+                             "path for BN configs")
+
+        def host(x):
+            if torch.is_tensor(x):
+                x = x.detach().cpu()
+            return np.asarray(x, np.float32).reshape(-1, 3)
+
+        origins, directions = host(origins), host(directions)
+        if origins.shape[0] > calib_rays:
+            idx = np.random.default_rng(seed).choice(origins.shape[0], calib_rays,
+                                                     replace=False)
+            origins, directions = origins[idx], directions[idx]
+        o = torch.tensor(origins, device=self.device)
+        d = torch.tensor(directions, device=self.device)
+        models = self.eval_params
+        trees = {k: mlp_tree(m) for k, m in models.items() if k != "proposal"}
+        with torch.no_grad():
+            if self.proposal:
+                stats = calibrate_render_proposal(
+                    {"proposal": models["proposal"], **trees}, self.cfg, self.near,
+                    self.far, o, d)
+            else:
+                stats = calibrate_render(trees, self.cfg, self.near, self.far, o, d)
+            self.install_quant(quantize_render_params(trees, stats, self.cfg.skip_layer))
+        return self
+
+    def install_quant(self, qparams: dict) -> "Trainer":
+        """Install int8 tables (``{'coarse', 'fine'}``, or ``{'fine'}`` for
+        a proposal-trained model; tensors, e.g. ``ops/quant.qparams_from_jax``
+        of the JAX package's) and build the int8 render."""
+        names = ("fine",) if self.proposal else ("coarse", "fine")
+        self._qparams = _tree_to({k: qparams[k] for k in names}, self.device)
+        cfg = self.cfg
+        if self.proposal:
+            inner = make_proposal_render_fn(
+                cfg, self.near, self.far, prop_l_xyz=cfg.prop_l_xyz,
+                union=cfg.prop_union, levels=cfg.prop_levels,
+                prop_samples=cfg.prop_samples, quant=True)
+            qfine = self._qparams["fine"]
+            self._render_q = lambda models, o, d: inner(models["proposal"], qfine, o, d)
+        else:
+            render = make_quant_render_fn(cfg, self.near, self.far)
+            qp = self._qparams
+            self._render_q = lambda models, o, d: render(qp, o, d)
+        return self
+
+    @property
+    def quant_ready(self) -> bool:
+        """True when the int8 render is calibrated for the current weights."""
+        return self._qparams is not None
+
+    @property
+    def qparams(self) -> dict | None:
+        """The installed int8 tables, or None."""
+        return self._qparams
+
     def pose_rays(
         self, pose: np.ndarray, height: int, width: int, focal: float
     ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -257,6 +357,7 @@ class Trainer:
         keys: tuple[str, ...] | None = None,
         uint8_rgb: bool = False,
         full: bool = False,
+        quant: bool = False,
     ) -> dict[str, np.ndarray]:
         """Render a flat ray batch in fixed-size chunks.
 
@@ -266,11 +367,25 @@ class Trainer:
         uint8 on the device before the one copy to the host.  ``full``
         (coarse+fine only) adds ``weights_*`` and ``preds_*`` (see
         :func:`make_render_fn`); asking ``keys`` for one of them implies it.
+        ``quant`` renders through the int8 tables
+        (:meth:`quantize_for_inference` first; rgb/depth only).
         """
         full = full or any(k.startswith(("weights_", "preds_")) for k in keys or ())
-        if full and self._render_full is None:
-            self._render_full = make_render_fn(self.cfg, self.near, self.far, full=True)
-        render = self._render_full if full else self._render
+        if quant:
+            if full:
+                raise ValueError("quant=True supports rgb/depth outputs only (the int8 "
+                                 "kernel does not emit weights/raw preds)")
+            if self._render_q is None:
+                raise RuntimeError("call quantize_for_inference(...) before rendering "
+                                   "with quant=True")
+            render = self._render_q
+        elif full:
+            if self._render_full is None:
+                self._render_full = make_render_fn(self.cfg, self.near, self.far,
+                                                   full=True)
+            render = self._render_full
+        else:
+            render = self._render
         origins = torch.as_tensor(origins, dtype=torch.float32, device=self.device)
         directions = torch.as_tensor(directions, dtype=torch.float32,
                                      device=self.device)
@@ -305,10 +420,11 @@ class Trainer:
     def render_image(
         self, pose: np.ndarray, height: int, width: int, focal: float,
         chunk: int = 16384, include_coarse: bool = False,
-        uint8_rgb: bool = False, need_depth: bool = True,
+        uint8_rgb: bool = False, need_depth: bool = True, quant: bool = False,
     ) -> dict[str, np.ndarray]:
         """Render one frame from a camera pose; returns HxW maps (the
-        proposal render has no coarse maps)."""
+        proposal render has no coarse maps).  ``quant``: every MLP pass
+        through the int8 tables."""
         if include_coarse and self.proposal:
             raise ValueError("TRAIN_SAMPLER=proposal renders no coarse pass")
         origins, dirs = self.pose_rays(pose, height, width, focal)
@@ -319,7 +435,7 @@ class Trainer:
         else:
             keys = ("rgb_fine",)
         out = self.render_rays(origins, dirs, chunk=chunk, keys=keys,
-                               uint8_rgb=uint8_rgb)
+                               uint8_rgb=uint8_rgb, quant=quant)
         result = {"rgb": out["rgb_fine"].reshape(height, width, 3)}
         if "depth_fine" in out:
             result["depth"] = out["depth_fine"].reshape(height, width)

@@ -70,6 +70,17 @@ ENTRY_POINTS = {
             _i32, _vp,                  # device, stream
         ],
     },
+    "quant_render_fwd": {
+        "nkt_quant_render_fwd": [
+            _vp, _vp, _vp,              # origins, dirs, t_vals
+            _vp, _vp, _vp,              # w_pack (int8), f_pack, dense_desc (host)
+            _i32, _i32, _i32, _i32,     # n_dense, num_layers, skip, hidden
+            _i32, _i32, _i32, _i32,     # l_xyz, l_dir, x_off, d_off
+            _i32, _i32,                 # B, S
+            _vp, _vp,                   # rgb_out, w_out
+            _i32, _vp,                  # device, stream
+        ],
+    },
     "fused_mlp_bwd": {
         "nkt_fused_mlp_bwd": [
             _vp, _vp, _vp,              # x_enc, d_enc, g

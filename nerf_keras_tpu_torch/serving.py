@@ -3,7 +3,7 @@
 checkpoint, rendering through K1 on the card.
 
     python -m nerf_keras_tpu_torch.serving --config config/lego_batch_h256_tpu.json \
-        --checkpoint models/<run> --device cuda --port 8042
+        --checkpoint models/<run> --device cuda --port 8042 [--quant int8]
 
     GET /render?theta=30&phi=-30&radius=4&width=200&height=200  -> PNG
     GET /render?...&map=depth        -> normalized depth map as PNG
@@ -13,9 +13,13 @@ checkpoint, rendering through K1 on the card.
                                         checkpoint
 
 Render requests serialize through a lock onto the one device; handler
-threads come from ``ThreadingHTTPServer``.  This slice serves the float
-coarse-sampler path; ``--quant int8`` and ``--sampler proposal`` are not
-ported yet and raise.
+threads come from ``ThreadingHTTPServer``.  The float path renders through
+K1; ``--quant int8`` calibrates int8 tables at startup (and at every
+``/reload``), gates the int8 render against the float one on the default
+pose (``--quant-gate-db``, PSNR) and, when it passes, renders every frame
+through K4; when it fails the server says so and serves the float path,
+as the JAX server does.  ``--sampler proposal`` (the offline-distilled
+sampler) is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -27,6 +31,8 @@ import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, urlparse
 
+import torch
+
 from nerf_keras_tpu_torch.config import load_config
 from nerf_keras_tpu_torch.engine.trainer import Trainer
 from nerf_keras_tpu_torch.ops.rays import pose_spherical
@@ -35,6 +41,7 @@ from nerf_keras_tpu_torch.utils.checkpoint import (
     resolve_checkpoint,
     resolve_infer_config,
 )
+from nerf_keras_tpu_torch.utils.image_metrics import accuracy_gate
 from nerf_keras_tpu_torch.utils.image import normalize_depth, to_uint8
 from nerf_keras_tpu_torch.utils.png import encode_png
 
@@ -46,18 +53,19 @@ class RenderService:
         self, cfg, checkpoint: str,
         near: float | None = None, far: float | None = None,
         device: str | None = None,
-        quant: bool = False, sampler: str = "coarse",
+        quant: bool = False, quant_gate_db: float = 30.0,
+        sampler: str = "coarse",
     ):
-        if quant:
-            raise NotImplementedError(
-                "--quant int8 is not yet ported (the int8 kernel K4 "
-                "arrives in a later PR)"
-            )
         if sampler != "coarse":
             raise NotImplementedError(
-                f"--sampler {sampler} is not yet ported (the proposal "
-                "sampler arrives in a later PR)"
+                f"--sampler {sampler} is not yet ported (the offline-distilled "
+                "proposal sampler, ROADMAP.md queue 1 item 5, arrives in a "
+                "later PR)"
             )
+        self._quant_requested = quant
+        self._quant_gate_db = quant_gate_db
+        self.use_quant = False
+        self.quant_gate_psnr: float | None = None
         self._arg_checkpoint = checkpoint
         self._arg_cfg = cfg
         self._arg_near, self._arg_far = near, far
@@ -102,10 +110,31 @@ class RenderService:
         self.checkpoint = checkpoint
         self.cfg = cfg
         self.near, self.far = near, far
+        self.use_quant = False
+        if self._quant_requested:
+            self.use_quant = self._setup_quant(self._quant_gate_db)
+
+    def _setup_quant(self, gate_db: float) -> bool:
+        """Calibrate the int8 render on an orbit of 8 serving poses at the
+        config's frame size and gate it against the float render of the
+        default pose (PSNR); False (serve float) when the gate fails."""
+        h, w = self.cfg.height, self.cfg.width
+        focal = self.default_focal or 1.2 * max(h, w)
+        calib = [self.trainer.pose_rays(pose_spherical(theta, -30.0, 4.0), h, w, focal)
+                 for theta in range(0, 360, 45)]
+        self.trainer.quantize_for_inference(torch.cat([c[0] for c in calib]),
+                                            torch.cat([c[1] for c in calib]))
+        pose = pose_spherical(0.0, -30.0, 4.0)
+        ref = self.trainer.render_image(pose, h, w, focal)["rgb"]
+        q = self.trainer.render_image(pose, h, w, focal, quant=True)["rgb"]
+        ok, self.quant_gate_psnr = accuracy_gate(ref, q, gate_db, "serving int8",
+                                                 "serving the float path")
+        return ok
 
     def reload(self) -> dict:
         """Re-resolve the original checkpoint request and install the
-        newest checkpoint (hot reload)."""
+        newest checkpoint (hot reload); with ``quant`` the int8 tables are
+        calibrated and gated again for the new weights."""
         with self._lock:
             previous = self.checkpoint
             self._install()
@@ -114,7 +143,7 @@ class RenderService:
                 "previous": previous,
                 "checkpoint": self.checkpoint,
                 "changed": self.checkpoint != previous,
-                "quant": "none",
+                "quant": "int8" if self.use_quant else "none",
                 "sampler": "coarse",
             }
 
@@ -141,6 +170,7 @@ class RenderService:
                 pose, height, width, focal, chunk=chunk,
                 uint8_rgb=(map_name == "rgb"),
                 need_depth=(map_name == "depth"),
+                quant=self.use_quant,
             )
             self.total_render_s += time.perf_counter() - t0
             self.requests += 1
@@ -157,7 +187,7 @@ class RenderService:
             "mean_render_s": (
                 self.total_render_s / self.requests if self.requests else 0.0
             ),
-            "quant": "none",
+            "quant": "int8" if self.use_quant else "none",
             "sampler": "coarse",
             "reloads": self.reloads,
             "device": str(self.trainer.device),
@@ -242,18 +272,22 @@ def main(argv=None) -> None:
                    help="cuda | cuda:N | cpu (default: cuda; without a card, "
                         "pass --device cpu)")
     p.add_argument("--quant", type=str, default="none", choices=("none", "int8"),
-                   help="int8 is not yet ported")
+                   help="int8: serve through the calibrated int8 kernel (K4), "
+                        "PSNR-gated against the float render at startup")
+    p.add_argument("--quant-gate-db", type=float, default=30.0)
     p.add_argument("--sampler", type=str, default="coarse",
                    choices=("coarse", "proposal"),
                    help="proposal is not yet ported")
     args = p.parse_args(argv)
     service = RenderService(
         load_config(args.config), args.checkpoint, args.near, args.far,
-        device=args.device, quant=args.quant == "int8", sampler=args.sampler,
+        device=args.device, quant=args.quant == "int8",
+        quant_gate_db=args.quant_gate_db, sampler=args.sampler,
     )
     server = serve(service, args.port, args.host)
     print(f"[nerf-torch] serving {service.checkpoint} on "
-          f"http://{args.host}:{args.port} ({service.trainer.device})")
+          f"http://{args.host}:{args.port} ({service.trainer.device}, "
+          f"quant={'int8' if service.use_quant else 'none'})")
     try:
         server.serve_forever()
     finally:

@@ -1,4 +1,4 @@
-"""K1, K2 and K5 on the card against their plain versions, and the slices on the card.
+"""K1, K2, K4 and K5 on the card against their plain versions, and the slices on the card.
 
 Marked ``cuda``: without a card every test here skips (decided inside the
 fixture, never at import).  This file imports no JAX, so it also runs on
@@ -28,6 +28,8 @@ from nerf_keras_tpu_torch.models.mlp import (
 from nerf_keras_tpu_torch.ops.encoding import encode_position
 from nerf_keras_tpu_torch.ops.kernels import fused_mlp as k5
 from nerf_keras_tpu_torch.ops.kernels import fused_render as k1
+from nerf_keras_tpu_torch.ops.kernels import quant_render as k4
+from nerf_keras_tpu_torch.ops import quant
 from nerf_keras_tpu_torch.ops.rays import pose_spherical
 from nerf_keras_tpu_torch.utils.checkpoint import save_params_npz
 
@@ -359,3 +361,84 @@ def test_parity_step_launch_counts(dev, stop):
             (k1.launches, k1.bwd_launches, k5.launches, k5.bwd_launches), before))
         assert grew == ((2, 2, 0, 0) if stop else (0, 0, 2, 2))
         assert np.isfinite(loss)
+
+
+def _k4_setup(dev, arch, b, s, seed):
+    """A random-bias MLP, rays, and its qparams calibrated on the rays'
+    own samples (``quant.mlp_calibration_absmax`` -> ``quantize_mlp``)."""
+    num_layers, hidden, skip = arch
+    gen = torch.Generator().manual_seed(seed)
+    mlp = randomize_biases_(NeRFMLP(num_layers=num_layers, hidden_dim=hidden,
+                                    skip_layer=skip, generator=gen, device=dev), gen)
+    o, d, t = _rays(dev, b, s, seed)
+    tree = quant.mlp_tree(mlp)
+    pts = o[:, None, :] + d[:, None, :] * t[..., None]
+    d_enc = encode_position(d, 4)[:, None, :].expand(b, s, -1)
+    stats = quant.mlp_calibration_absmax(tree, encode_position(pts, 10), d_enc, skip)
+    return quant.quantize_mlp(tree, stats, skip), o, d, t
+
+
+@pytest.mark.parametrize("arch,b,s", [
+    ((8, 256, 4), 4096, 64),
+    ((8, 256, 4), 1024, 192),
+    ((8, 256, 4), 333, 160),   # a ragged last tile inside each ray
+    ((8, 256, 4), 1001, 24),   # several rays per block, ragged last block
+    ((5, 64, 4), 257, 40),     # skip on the last layer widens the heads
+])
+def test_k4_matches_plain(dev, arch, b, s):
+    """K4 against its plain version on the same qparams: the same integer
+    pipeline, so only a sin/cos ulp that moves an encoding across an int8
+    boundary, and the compositing's order, separate them (K1's gates)."""
+    qp, o, d, t = _k4_setup(dev, arch, b, s, seed=20)
+    before = k4.launches
+    rgb, w = k4.render_rays_fused_quant(qp, o, d, t, skip_layer=arch[2])
+    torch.cuda.synchronize()
+    rgb_p, w_p = k4.render_rays_reference_quant(qp, o, d, t, skip_layer=arch[2])
+    assert k4.launches == before + 1
+    assert rgb.shape == (b, 3) and w.shape == (b, s)
+    assert bool(torch.isfinite(rgb).all() and torch.isfinite(w).all())
+    for got, want in ((rgb, rgb_p), (w, w_p)):
+        assert float((got - want).abs().max()) <= TOL_MAX
+        assert float((got - want).abs().mean()) <= TOL_MEAN
+
+
+def test_k4_is_deterministic(dev):
+    qp, o, d, t = _k4_setup(dev, (8, 256, 4), 500, 96, seed=21)
+    a = k4.render_rays_fused_quant(qp, o, d, t)
+    b = k4.render_rays_fused_quant(qp, o, d, t)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def test_k4_checks_its_inputs(dev):
+    qp, o, d, t = _k4_setup(dev, (2, 32, 4), 16, 8, seed=22)
+    with pytest.raises(ValueError, match="contiguous"):
+        k4.render_rays_fused_quant(qp, o, d, t.t().contiguous().t())
+    with pytest.raises(TypeError, match="float32"):
+        k4.render_rays_fused_quant(qp, o.double(), d, t)
+    with pytest.raises(ValueError, match="l_xyz"):
+        k4.render_rays_fused_quant(qp, o, d, t, l_xyz=8)
+    cpu_qp = dict(qp, inv_x=qp["inv_x"].cpu())
+    with pytest.raises(ValueError, match="qparams"):
+        k4.render_rays_fused_quant(cpu_qp, o, d, t)
+
+
+def test_trainer_int8_frame_on_card_matches_cpu(dev, tmp_path):
+    """The int8 served path (two K4 launches per chunk, no K1) against the
+    plain int8 path on the CPU with the same qparams: rgb TOL_MAX, depth
+    2e-2, as the float frame check (the fine samples follow the coarse
+    weights)."""
+    cfg = NeRFConfig(num_layers=8, hidden_dim=256, ns_coarse=64, ns_fine=128,
+                     height=16, width=16).validate()
+    path = str(tmp_path / "q.ckpt.npz")
+    save_params_npz(path, random_params(cfg, seed=0), cfg)
+    pose = pose_spherical(45.0, -30.0, 4.0)
+    gpu = Trainer(cfg, 2.0, 6.0, device="cuda").restore(path)
+    o, d = gpu.pose_rays(pose, 16, 16, 19.2)
+    gpu.quantize_for_inference(o, d)
+    before = (k1.launches, k4.launches)
+    out = gpu.render_image(pose, 16, 16, 19.2, chunk=100, quant=True)
+    assert (k1.launches, k4.launches) == (before[0], before[1] + 2 * 3)
+    cpu = Trainer(cfg, 2.0, 6.0, device="cpu").restore(path).install_quant(gpu.qparams)
+    ref = cpu.render_image(pose, 16, 16, 19.2, chunk=100, quant=True)
+    assert np.abs(out["rgb"] - ref["rgb"]).max() <= TOL_MAX
+    assert np.abs(out["depth"] - ref["depth"]).max() <= 2e-2

@@ -130,9 +130,12 @@ def test_reload_picks_up_a_newer_checkpoint(tmp_path):
     assert not np.array_equal(decode_png(svc.render_png(**kw)), first)
 
 
-@pytest.mark.parametrize("kwargs", [{"quant": True}, {"sampler": "proposal"}])
+@pytest.mark.parametrize("kwargs", [{"quant": True, "sampler": "proposal"},
+                                    {"sampler": "proposal"}])
 def test_unported_modes_raise(ckpt, kwargs):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    """The offline-distilled proposal sampler is not ported yet, with or
+    without int8 (``--quant int8`` alone: tests/test_torch_quant.py)."""
+    with pytest.raises(NotImplementedError, match="not yet ported.*later PR"):
         RenderService(CFG, ckpt, device="cpu", **kwargs)
 
 
