@@ -51,7 +51,34 @@ nonzero — nothing falls back to the CPU or to a plain path):
     with two K4 launches per chunk and no K1 launch, /stats says int8, and
     one frame is held against the port's CPU int8 path on the same tables;
 13. the proposal-trained int8 render: phase 7's trainer calibrates int8
-    tables and renders a 200x200 frame, one K4 launch per chunk, no K1.
+    tables and renders a 200x200 frame, one K4 launch per chunk, no K1;
+14. K3 (the recompute backward) against K2 on the same K1 predictions at
+    B=4096 with S=64, 160 and 192 and a ragged B, with and without the
+    weights cotangent: dW/db bit-equal; at S=160 against autograd of the
+    plain K1 within K2's gate, which a K3 whose encode stops an octave
+    short misses by 10x; the memory a recompute forward holds for its
+    backward (bounded by B (20 S + 40) bytes + 1 MB) beside the residual
+    forward's; CUDA-event times;
+15. K6 (the MLP and compositing over per-sample encodings) forward and
+    backward against their plain versions at B=4096, S=64 and 192 and a
+    ragged B, within K1's and K2's gates, which a K6 reading the
+    direction encodings per ray misses by 10x; a loss on its weights adds
+    exactly nothing to the gradients; K6 against K1 on the same rays;
+16. K7 (inverse-CDF draw fused with the sorted union) against the
+    ``sample_pdf`` + ``sorted_union`` chain at the render chunk (B=16384,
+    S=64, NF=128, eval grid, with all-zero, single-spike and front-loaded
+    weight rows) and at B=4096 with sorted uniforms: the coarse t-values
+    bit-exact in every row, every row ascending, max |diff| <= 1e-3 (and
+    the count above 1e-5), a K7 without the 1e-5 weight floor missing by
+    10x; times against the chain;
+17. the parity step's three training paths
+    (``nerf_keras_tpu_torch.exp_train_paths``): one step's gradients of
+    the recompute path (K1 + K3) and of the encodings-in path (K6)
+    against the default path (K1 + K2), then 5 steps of each with their
+    launch counts (two K1 + two K3 and no K2; two K6 forward + two K6
+    backward and no K1) and the memory each forward holds;
+18. a 200x200 frame from the phase-8 checkpoint rendered with K7 in place
+    of the chain (one K7 launch per chunk), against the engine's render.
 
 Each main path runs with the launch counters set to 0 just before it and
 read just after.  The line before the last is the kernel report
@@ -73,8 +100,14 @@ import urllib.request
 import numpy as np
 import torch
 
-from nerf_keras_tpu_torch import load_config, runtime
-from nerf_keras_tpu_torch.engine.step import draw_t_vals, make_loss_fn, params_of
+from nerf_keras_tpu_torch import exp_train_paths, load_config, runtime
+from nerf_keras_tpu_torch.engine.step import (
+    draw_t_vals,
+    make_loss_fn,
+    make_render_fn,
+    make_train_step,
+    params_of,
+)
 from nerf_keras_tpu_torch.engine.trainer import Trainer
 from nerf_keras_tpu_torch.models.mlp import (
     NeRFMLP,
@@ -87,10 +120,13 @@ from nerf_keras_tpu_torch.ops.kernels import _build
 from nerf_keras_tpu_torch.ops.kernels import fused_mlp as k5
 from nerf_keras_tpu_torch.ops import quant
 from nerf_keras_tpu_torch.ops.kernels import fused_render as k1
+from nerf_keras_tpu_torch.ops.kernels import pdf_union as k7
 from nerf_keras_tpu_torch.ops.kernels import quant_render as k4
-from nerf_keras_tpu_torch.ops.rays import get_rays, pose_spherical
+from nerf_keras_tpu_torch.ops.rays import get_rays, pose_spherical, sample_rays
 from nerf_keras_tpu_torch.ops.sampling import generate_t_vals
+from nerf_keras_tpu_torch.exp_train_paths import counts
 from nerf_keras_tpu_torch.profile_train import bench_batch, bench_config, parity_config
+from nerf_keras_tpu_torch.runtime import cuda_ms
 from nerf_keras_tpu_torch.serving import RenderService, serve
 from nerf_keras_tpu_torch.utils.checkpoint import save_params_npz
 from nerf_keras_tpu_torch.utils.image_metrics import frame_psnr
@@ -174,26 +210,18 @@ SOURCES = {
             "nerf_keras_tpu/ops/pallas/fused_mlp.py:260"),
     "K4": ("nerf_keras_tpu_torch/csrc/quant_render_fwd.cu",
            "nerf_keras_tpu/ops/pallas/quant_render.py:66"),
+    "K3": ("nerf_keras_tpu_torch/csrc/fused_render_bwd.cu",
+           "nerf_keras_tpu/ops/pallas/fused_render.py:425"),
+    "K6f": ("nerf_keras_tpu_torch/csrc/fused_render_fwd.cu",
+            "nerf_keras_tpu/ops/pallas/fused_render.py:336"),
+    "K6b": ("nerf_keras_tpu_torch/csrc/fused_render_bwd.cu",
+            "nerf_keras_tpu/ops/pallas/fused_render.py:350"),
+    "K7": ("nerf_keras_tpu_torch/csrc/pdf_union.cu", "experimental/pdf_union.py:54"),
 }
 
 
 def say(phase: str, **fields) -> None:
     print(f"[{phase}] " + json.dumps(fields), flush=True)
-
-
-def cuda_ms(fn, reps: int = 10) -> float:
-    """Median milliseconds of ``fn()`` over ``reps`` runs, CUDA events."""
-    fn()  # warm-up
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def full_mlp(dev: torch.device, seed: int) -> NeRFMLP:
@@ -268,6 +296,31 @@ def k5_bounds(mlp, n, input_grads):
     return fwd, bound(flops, nbytes)
 
 
+def k3_bound(mlp, b, s):
+    """K2's products; it reads the rays instead of the x_enc residual."""
+    n = b * s
+    flops = 2.0 * (mlp_macs(mlp) + mlp_dx_macs(mlp, False)) * n
+    nbytes = n * (16 + 4 + 4) + b * (12 + 12 + 12) + 3 * param_bytes(mlp)
+    return bound(flops, nbytes)
+
+
+def k6_bounds(mlp, b, s):
+    """K6's forward (encodings, t in; rgb, weights out) and its backward
+    (encodings, predictions, t, the rgb cotangent in; dW/db out)."""
+    n = b * s
+    enc = (mlp.xyz_dim + mlp.dir_dim) * 2
+    fwd = bound(2.0 * mlp_macs(mlp) * n, n * (enc + 4 + 4) + b * 12 + param_bytes(mlp) // 2)
+    flops = 2.0 * (mlp_macs(mlp) + mlp_dx_macs(mlp, False)) * n
+    bwd = bound(flops, n * (enc + 16 + 4) + b * 12 + 3 * param_bytes(mlp))
+    return fwd, bwd
+
+
+def k7_bound(b, s, nf, u_given):
+    """Bytes: t and w in, (u in), the union out; a few hundred f32
+    operations per ray, far below."""
+    return bound(0.0, b * (s * 8 + (s + nf) * 4 + (nf * 4 if u_given else 0)))
+
+
 def kernel_entry(name, key, launches, max_abs_err, ms, plain_ms, bnd) -> dict:
     source, replaces = SOURCES[key]
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -277,15 +330,12 @@ def kernel_entry(name, key, launches, max_abs_err, ms, plain_ms, bnd) -> dict:
 
 
 def reset_counts() -> None:
-    k1.launches = k1.train_launches = k1.bwd_launches = 0
+    k1.launches = k1.train_launches = k1.bwd_launches = k1.recompute_launches = 0
+    k1.enc_launches = k1.enc_bwd_launches = 0
     k5.launches = k5.bwd_launches = 0
-    k4.launches = 0
+    k4.launches = k7.launches = 0
 
 
-def counts() -> dict:
-    return {"k1_fwd": k1.launches - k1.train_launches, "k1_train": k1.train_launches,
-            "k2": k1.bwd_launches, "k5_fwd": k5.launches, "k5_bwd": k5.bwd_launches,
-            "k4": k4.launches}
 
 
 # ---------------------------------------------------------------------------
@@ -862,15 +912,19 @@ def _grads_kernel_vs_plain(cfg, trainer, batch, noise_shapes, seed):
     return losses, by_model, max_abs
 
 
-def _train_steps(trainer, batch, steps, per_step: dict) -> dict:
-    """``steps`` train steps with the counters reset just before; each must
-    launch exactly ``per_step``."""
+def _train_steps(trainer, batch, steps, per_step: dict, step_fn=None) -> dict:
+    """``steps`` train steps (``trainer.train_step``, or ``step_fn(state,
+    batch, draws, generator)`` on the trainer's state) with the counters
+    reset just before; each must launch exactly ``per_step``."""
     reset_counts()
     step_ms, loss_curve = [], []
     for i in range(steps):
         before = counts()
         t0 = time.perf_counter()
-        metrics = trainer.train_step(batch)
+        if step_fn is None:
+            metrics = trainer.train_step(batch)
+        else:
+            metrics = step_fn(trainer.state, batch, None, trainer.generator)
         loss_curve.append(float(metrics["loss"]))  # synchronises
         step_ms.append((time.perf_counter() - t0) * 1e3)
         grew = {k: v - before[k] for k, v in counts().items()}
@@ -896,7 +950,8 @@ def _eval_and_frame(trainer, batch, what: str) -> tuple[dict, dict]:
     return ev, counts()
 
 
-ZERO = {"k1_fwd": 0, "k1_train": 0, "k2": 0, "k5_fwd": 0, "k5_bwd": 0, "k4": 0}
+ZERO = {"k1_fwd": 0, "k1_train": 0, "k2": 0, "k3": 0, "k5_fwd": 0, "k5_bwd": 0, "k4": 0,
+        "k6_fwd": 0, "k6_bwd": 0, "k7": 0}
 
 
 def phase_train(card: str) -> tuple[list[dict], Trainer]:
@@ -995,6 +1050,330 @@ def phase_full_render(card: str, ckpt: str) -> dict:
     return launches
 
 
+def _held_between(fn) -> tuple[int, tuple]:
+    """Device bytes allocated by ``fn()`` and still held when it returns
+    (its outputs and what its autograd graph saved), and its result."""
+    torch.cuda.synchronize()
+    before = exp_train_paths.requested_bytes()
+    out = fn()
+    torch.cuda.synchronize()
+    return exp_train_paths.requested_bytes() - before, out
+
+
+def phase_k3(card: str) -> dict:
+    """K3 against K2 on the same K1 predictions, bit for bit; at S=160 also
+    against autograd of the plain K1, with a broken K3 (its encode one
+    octave short: l_xyz 9, zeros in the top octave's columns); the memory
+    each backward mode holds between forward and backward."""
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(6)
+    mlp = full_mlp(dev, 6)
+    params = list(mlp.parameters())
+    _, origins, dirs = (torch.as_tensor(x, device=dev) for x in bench_batch(4096))
+    report = {}
+    for b, s in ((4096, 64), (4096, 160), (4096, 192), (1001, 24)):
+        o, d = origins[:b].contiguous(), dirs[:b].contiguous()
+        t = generate_t_vals(2.0, 6.0, (b,), s, "stratified", generator=gen).to(dev).contiguous()
+        g_rgb = (torch.randn((b, 3), generator=gen) * 1e-3).to(dev)
+        g_w = (torch.randn((b, s), generator=gen) * 1e-3).to(dev)
+        with torch.no_grad():
+            _, _, x_enc, preds = k1.launch_k1(mlp, o, d, t, 10, 4, train=True)
+            _, _, none, preds_only = k1.launch_k1(mlp, o, d, t, 10, 4, train=True,
+                                                 emit_xenc=False)
+        if none is not None or not torch.equal(preds, preds_only):
+            raise RuntimeError("K1 with predictions only wrote other predictions")
+        equal = {}
+        for tag, gw in (("with_gw", g_w), ("without_gw", None)):
+            with torch.no_grad():
+                _, ws2 = k1.launch_rows(k1._ROWS_K2, mlp, t, preds, g_rgb, gw, 10, 4,
+                                        x_res=x_enc, dirs=d)
+                _, ws3 = k1.launch_rows(k1._ROWS_K3, mlp, t, preds_only, g_rgb, gw, 10, 4,
+                                        origins=o, dirs=d)
+                torch.cuda.synchronize()
+            equal[tag] = bool(torch.equal(ws2.dw, ws3.dw) and torch.equal(ws2.db, ws3.db))
+            equal[f"{tag}_max_abs"] = float(max((ws2.dw - ws3.dw).abs().max(),
+                                                (ws2.db - ws3.db).abs().max()))
+            del ws2, ws3
+        fields = {}
+        if (b, s) == (4096, 160):
+            with torch.enable_grad():
+                rgb_p, w_p = k1.render_rays_reference(mlp, o, d, t)
+            want = list(torch.autograd.grad([rgb_p, w_p], params, [g_rgb, g_w],
+                                            retain_graph=True))
+            with torch.no_grad():
+                got = k1.launch_k3(mlp, o, d, t, preds_only, g_rgb, g_w, 10, 4)
+                fwd, wsb = k1.launch_rows(k1._ROWS_K3, mlp, t, preds_only, g_rgb, g_w, 9, 4,
+                                          origins=o, dirs=d)
+                broken = k1.unpack_grads(mlp, fwd, wsb.layout, wsb.dw, wsb.db)
+                del wsb
+            max_abs, rel = _leaf_errors(got, want)
+            _, rel_broken = _leaf_errors(broken, want)
+            with torch.no_grad():
+                k3_ms = cuda_ms(lambda: k1.launch_k3(mlp, o, d, t, preds_only, g_rgb, g_w,
+                                                     10, 4))
+                k2_ms = cuda_ms(lambda: k1.launch_k2(mlp, x_enc, d, t, preds, g_rgb, g_w,
+                                                     10, 4))
+            plain_ms = cuda_ms(lambda: torch.autograd.grad(
+                [rgb_p, w_p], params, [g_rgb, g_w], retain_graph=True))
+            del rgb_p, w_p
+            bnd = k3_bound(mlp, b, s)
+            fields = dict(max_abs_err=max_abs, max_rel_l2=rel, tol_rel=K2_TOL_REL,
+                          rel_l2_top_octave_dropped=rel_broken, ms=k3_ms, k2_ms=k2_ms,
+                          plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1])
+            report.update(max_abs_err=max_abs, ms=k3_ms, plain_ms=plain_ms, bound=bnd)
+        if b == 4096 and s in (64, 192):
+            held = {}
+            for mode in k1.BWD_MODES:
+                def fwd_pass(mode=mode):
+                    return k1.render_rays_fused(mlp, o, d, t, bwd_mode=mode)
+                torch.autograd.grad([fwd_pass()[0].sum()], params)  # packs built
+                held[mode], (rgb, _) = _held_between(fwd_pass)
+                torch.autograd.grad([rgb.sum()], params)
+                del rgb
+            fields.update(held_bytes_recompute=held["recompute"],
+                          held_bytes_residual=held["residual"],
+                          held_bound_bytes=b * (s * 20 + 40) + 2**20)
+            report[f"held_s{s}"] = held
+        say("k3", B=b, S=s, k2_bit_equal=equal, **fields, card=card)
+        if not (equal["with_gw"] and equal["without_gw"]):
+            if fields.get("max_rel_l2", 0.0) > K2_TOL_REL:
+                raise RuntimeError(f"K3 disagrees with K2 and with the plain backward at "
+                                   f"B={b}, S={s}: {equal} {fields}")
+            raise RuntimeError(f"K3's dW/db are not K2's bit for bit at B={b}, S={s}: {equal}")
+        if fields.get("max_rel_l2", 0.0) > K2_TOL_REL:
+            raise RuntimeError(f"K3 disagrees with the plain backward: {fields}")
+        if "rel_l2_top_octave_dropped" in fields and \
+                fields["rel_l2_top_octave_dropped"] < 10 * K2_TOL_REL:
+            raise RuntimeError(f"the gate cannot see K3's encode one octave short: {fields}")
+        if "held_bytes_recompute" in fields and \
+                fields["held_bytes_recompute"] > fields["held_bound_bytes"]:
+            raise RuntimeError(f"K3's forward holds more than its bound: {fields}")
+        del x_enc, preds, preds_only
+    torch.cuda.empty_cache()
+    return report
+
+
+def _k6_inputs(dev, gen, o, d, s, per_sample_dirs: bool):
+    """Stratified t, the bf16 position encodings of the rays' points and the
+    direction encodings: of the rays (``per_sample_dirs`` false) or of a
+    random unit direction per sample, so that a kernel reading them per ray
+    cannot pass."""
+    b = o.shape[0]
+    t = generate_t_vals(2.0, 6.0, (b,), s, "stratified", generator=gen).to(dev).contiguous()
+    points, dirs_s = sample_rays(o, d, t)
+    if per_sample_dirs:
+        dirs_s = torch.randn((b, s, 3), generator=gen).to(dev)
+        dirs_s = dirs_s / dirs_s.norm(dim=-1, keepdim=True)
+    x_enc = encode_position(points, 10).to(torch.bfloat16).contiguous()
+    d_enc = encode_position(dirs_s, 4).to(torch.bfloat16).contiguous()
+    return t, x_enc, d_enc
+
+
+def phase_k6(card: str) -> dict:
+    """K6 forward and backward against their plain versions (per-sample
+    directions), a K6 fed per-ray direction encodings against the gates, a
+    loss on the weights, and K6 against K1 on the same rays."""
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(7)
+    mlp = full_mlp(dev, 7)
+    params = list(mlp.parameters())
+    images, origins, dirs = (torch.as_tensor(x, device=dev) for x in bench_batch(4096))
+    report = {"fwd_max_abs_err": 0.0, "bwd_max_abs_err": 0.0}
+    for b, s in ((4096, 64), (4096, 192), (1001, 24)):
+        o, d = origins[:b].contiguous(), dirs[:b].contiguous()
+        t, x_enc, d_enc = _k6_inputs(dev, gen, o, d, s, per_sample_dirs=True)
+        with torch.no_grad():
+            got = k1.apply_nerf_render_fused(mlp, x_enc, d_enc, t)
+            torch.cuda.synchronize()
+            want = k1.apply_nerf_render_reference(mlp, x_enc, d_enc, t)
+            per_ray = d_enc[:, :1].expand(-1, s, -1).contiguous()
+            broken = k1.apply_nerf_render_fused(mlp, x_enc, per_ray, t)
+        errs = _errs(got, want)
+        miss = max(errs["rgb_max"] / TOL_MAX, errs["w_max"] / TOL_MAX,
+                   errs["rgb_mean"] / TOL_MEAN, errs["w_mean"] / TOL_MEAN)
+        _e = _errs(broken, want)
+        miss_broken = max(_e["rgb_max"] / TOL_MAX, _e["rgb_mean"] / TOL_MEAN)
+        g_rgb = (torch.randn((b, 3), generator=gen) * 1e-3).to(dev)
+        with torch.no_grad():
+            _, _, preds = k1.launch_k6_fwd(mlp, x_enc, d_enc, t, train=True)
+            grads = k1.launch_k6_bwd(mlp, x_enc, d_enc, t, preds, g_rgb)
+        want_g = k1.apply_nerf_render_reference_vjp(mlp, x_enc, d_enc, t, g_rgb)
+        max_abs, rel = _leaf_errors(grads, want_g)
+        finite = bool(torch.isfinite(got[0]).all() and torch.isfinite(got[1]).all()) and \
+            all(bool(torch.isfinite(g).all()) for g in grads)
+        fields = {}
+        if (b, s) == (4096, 192):
+            # The weights carry no gradient: a loss on them adds nothing.
+            target = images[:b]
+            rgb, w = k1.apply_nerf_render_fused(mlp, x_enc, d_enc, t)
+            g_rgb_only = torch.autograd.grad([((rgb - target) ** 2).mean()], params)
+            rgb, w = k1.apply_nerf_render_fused(mlp, x_enc, d_enc, t)
+            g_both = torch.autograd.grad([((rgb - target) ** 2).mean() + (w ** 2).sum()],
+                                         params)
+            fields["weights_loss_adds_nothing"] = (not w.requires_grad) and all(
+                torch.equal(a, c) for a, c in zip(g_rgb_only, g_both))
+            # K6 against K1 on the same rays (direction encodings per ray).
+            t1, x1, d1 = _k6_inputs(dev, gen, o, d, s, per_sample_dirs=False)
+            with torch.no_grad():
+                fields["vs_k1"] = _errs(k1.apply_nerf_render_fused(mlp, x1, d1, t1),
+                                        k1.render_rays_fused(mlp, o, d, t1))
+                fwd_ms = cuda_ms(lambda: k1.apply_nerf_render_fused(mlp, x_enc, d_enc, t))
+                fwd_plain_ms = cuda_ms(
+                    lambda: k1.apply_nerf_render_reference(mlp, x_enc, d_enc, t))
+                bwd_ms = cuda_ms(lambda: k1.launch_k6_bwd(mlp, x_enc, d_enc, t, preds, g_rgb))
+            with torch.enable_grad():
+                rgb_p, _ = k1.apply_nerf_render_reference(mlp, x_enc, d_enc, t)
+            bwd_plain_ms = cuda_ms(lambda: torch.autograd.grad([rgb_p], params, [g_rgb],
+                                                               retain_graph=True))
+            del rgb_p
+            fwd_bnd, bwd_bnd = k6_bounds(mlp, b, s)
+            fields.update(fwd_ms=fwd_ms, fwd_plain_ms=fwd_plain_ms, fwd_bound_ms=fwd_bnd[0],
+                          bwd_ms=bwd_ms, bwd_plain_ms=bwd_plain_ms, bwd_bound_ms=bwd_bnd[0])
+            report.update(fwd_ms=fwd_ms, fwd_plain_ms=fwd_plain_ms, fwd_bound=fwd_bnd,
+                          bwd_ms=bwd_ms, bwd_plain_ms=bwd_plain_ms, bwd_bound=bwd_bnd)
+        say("k6", B=b, S=s, **errs, tol_max=TOL_MAX, tol_mean=TOL_MEAN,
+            miss_dirs_per_ray=miss_broken, grad_max_abs=max_abs, grad_max_rel_l2=rel,
+            tol_rel=K2_TOL_REL, finite=finite, **fields, card=card)
+        if not finite:
+            raise RuntimeError(f"K6 produced non-finite values at B={b}, S={s}")
+        if miss > 1.0:
+            raise RuntimeError(f"K6's forward disagrees with the plain version: {errs}")
+        if rel > K2_TOL_REL:
+            raise RuntimeError(f"K6's backward disagrees with the plain one: {rel}")
+        if miss_broken < 10.0:
+            raise RuntimeError(f"the gates cannot see a K6 reading directions per ray: "
+                               f"{miss_broken}")
+        if fields.get("weights_loss_adds_nothing") is False:
+            raise RuntimeError("a loss on K6's weights moved the gradients")
+        report["fwd_max_abs_err"] = max(report["fwd_max_abs_err"], errs["rgb_max"],
+                                        errs["w_max"])
+        report["bwd_max_abs_err"] = max(report["bwd_max_abs_err"], max_abs)
+        del x_enc, d_enc, preds, grads, want_g
+    torch.cuda.empty_cache()
+    return report
+
+
+K7_TOL = 1e-3  # hard gate on any union value; the count above 1e-5 is reported
+
+
+def phase_k7(card: str) -> dict:
+    """K7 against the chain at the render chunk (eval grid) and at B=4096
+    with sorted uniforms, with adversarial weight rows."""
+    report = {"max_abs_err": 0.0}
+    for b, s, nf, sorted_u in ((16384, 64, 128, False), (4096, 64, 128, True)):
+        t, w = exp_train_paths.pdf_inputs(b, s, seed=b)
+        w[0] = 0.0  # uniform pdf through the floor
+        w[1] = 0.0
+        w[1, s // 2] = 5.0  # a single spike: plateaus in the cdf
+        w[2] = 0.0
+        w[2, :2] = 1.0  # front-loaded mass
+        u = None
+        if sorted_u:
+            gen = torch.Generator(device="cuda").manual_seed(8)
+            u = torch.sort(torch.rand((b, nf), generator=gen, device="cuda"), dim=-1).values
+        got = k7.sample_pdf_union(t, w, nf, u)
+        torch.cuda.synchronize()
+        want = k7.sample_pdf_union_reference(t, w, nf, u)
+        errs = exp_train_paths.union_errors(got, want)
+        idx = torch.searchsorted(got, t).clamp(max=s + nf - 1)
+        coarse_exact = bool(torch.equal(got.gather(1, idx), t))
+        ascending = bool((got.diff(dim=-1) >= 0).all())
+        broken = exp_train_paths.union_errors(k7.launch_k7(t, w, nf, u, w_floor=0.0), want)
+        fields = {}
+        if not sorted_u:
+            bnd = k7_bound(b, s, nf, False)
+            fields = dict(ms=cuda_ms(lambda: k7.sample_pdf_union(t, w, nf), reps=50),
+                          chain_ms=cuda_ms(lambda: k7.sample_pdf_union_reference(t, w, nf),
+                                           reps=50),
+                          bound_ms=bnd[0], bound_by=bnd[1])
+            report.update(ms=fields["ms"], plain_ms=fields["chain_ms"], bound=bnd)
+        say("k7", B=b, S=s, NF=nf, u="sorted" if sorted_u else "eval", **errs, tol=K7_TOL,
+            coarse_bit_exact=coarse_exact, ascending=ascending,
+            miss_without_floor=broken["max_abs_err"] / K7_TOL, **fields, card=card)
+        if not (coarse_exact and ascending):
+            raise RuntimeError(f"K7's union lost a coarse value or is not ascending at B={b}")
+        if errs["max_abs_err"] > K7_TOL:
+            raise RuntimeError(f"K7 disagrees with the chain at B={b}: {errs}")
+        if broken["max_abs_err"] < 10 * K7_TOL:
+            raise RuntimeError(f"the gate cannot see a K7 without the weight floor: {broken}")
+        report["max_abs_err"] = max(report["max_abs_err"], errs["max_abs_err"])
+    return report
+
+
+def phase_paths(card: str) -> list[dict]:
+    """The parity step's three training paths: one step's gradients of
+    paths c and a against path b on the same draws, then 5 steps of each
+    with their launch counts and the memory each forward holds."""
+    cfg = parity_config()
+    per_step = {"b": dict(ZERO, k1_train=2, k2=2), "c": dict(ZERO, k1_train=2, k3=2),
+                "a": dict(ZERO, k6_fwd=2, k6_bwd=2)}
+    trainers = {n: exp_train_paths.make_trainer(cfg) for n in per_step}
+    batch = trainers["b"].put_batch(bench_batch(cfg.batch_size))
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    t_vals = draw_t_vals(cfg, 2.0, 6.0, (cfg.batch_size,), "cuda",
+                         noise=torch.rand((cfg.batch_size, cfg.ns_coarse), generator=gen,
+                                          device="cuda"))
+    noise = torch.rand((cfg.batch_size, cfg.ns_fine), generator=gen, device="cuda")
+    grads = {}
+    for n, tr in trainers.items():
+        loss_fn = make_loss_fn(cfg, 2.0, 6.0, render_pass=exp_train_paths.variant_pass(cfg, n))
+        params = params_of(tr.params)
+        loss, _ = loss_fn(tr.params, *batch, t_vals, 0, noise=noise)
+        grads[n] = torch.autograd.grad([loss], params)
+    c_equal = all(torch.equal(x, y) for x, y in zip(grads["c"], grads["b"]))
+    rel = {n: max(_rel_l2(x, y) for x, y in zip(grads[n], grads["b"])) for n in ("c", "a")}
+    say("paths_grads_vs_default", c_bit_equal_b=c_equal, max_rel_l2=rel, tol_rel=STEP_TOL_REL,
+        card=card)
+    del grads
+    if not (c_equal or rel["c"] <= STEP_TOL_REL) or rel["a"] > STEP_TOL_REL:
+        raise RuntimeError(f"a training path's gradients disagree with the default: {rel}")
+    runs = []
+    for n, tr in trainers.items():
+        held = exp_train_paths.held_bytes(cfg, tr, batch, exp_train_paths.variant_pass(cfg, n))
+        step_fn = make_train_step(cfg, 2.0, 6.0, render_pass=exp_train_paths.variant_pass(cfg, n))
+        run = _train_steps(tr, batch, 5, per_step[n], step_fn=step_fn)
+        say("paths_train", variant=n, steps=5, held_mb=held / 2**20, **run, card=card)
+        if not all(np.isfinite(x) for x in run["loss_curve"]):
+            raise RuntimeError(f"path {n}: non-finite losses {run['loss_curve']}")
+        runs.append(run["launches"])
+    torch.cuda.empty_cache()
+    return runs
+
+
+def phase_pdf_frame(card: str, ckpt: str) -> dict:
+    """A 200x200 frame from the phase-8 checkpoint with K7 in place of the
+    chain (one launch per chunk), against the engine's render."""
+    cfg = parity_config()
+    trainer = Trainer(cfg, 2.0, 6.0, device="cuda").restore(ckpt)
+    origins, dirs = trainer.pose_rays(pose_spherical(30.0, -30.0, 4.0), 200, 200, 240.0)
+    chunk = 16384
+    reset_counts()
+    outs = [exp_train_paths.render_rays_union(cfg, trainer.eval_params, origins[i:i + chunk],
+                                              dirs[i:i + chunk])
+            for i in range(0, origins.shape[0], chunk)]
+    launches = counts()
+    n_chunks = len(outs)
+    expected = dict(ZERO, k1_fwd=2 * n_chunks, k7=n_chunks)
+    render = make_render_fn(cfg, 2.0, 6.0)
+    errs = {"rgb": 0.0, "depth": 0.0}
+    with torch.no_grad():
+        for i, got in zip(range(0, origins.shape[0], chunk), outs):
+            want = render(trainer.eval_params, origins[i:i + chunk], dirs[i:i + chunk])
+            for k in errs:
+                errs[k] = max(errs[k], float((got[f"{k}_fine"] - want[f"{k}_fine"]).abs().max()))
+    rgb = torch.cat([o["rgb_fine"] for o in outs])
+    say("pdf_frame", size=200, chunks=n_chunks, launches=launches, rgb_max_abs_err=errs["rgb"],
+        depth_max_abs_err=errs["depth"], tol_rgb=FRAME_TOL_RGB, tol_depth=FRAME_TOL_DEPTH,
+        card=card)
+    if launches != expected:
+        raise RuntimeError(f"the K7 frame launched {launches}, expected {expected}")
+    if not bool(torch.isfinite(rgb).all()) or float(rgb.std()) == 0.0:
+        raise RuntimeError("the K7 frame is non-finite or constant")
+    if errs["rgb"] > FRAME_TOL_RGB or errs["depth"] > FRAME_TOL_DEPTH:
+        raise RuntimeError(f"the K7 frame disagrees with the engine's render: {errs}")
+    return launches
+
+
 def _sum(runs: list[dict], key: str) -> int:
     return sum(r[key] for r in runs)
 
@@ -1009,6 +1388,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     k4r = phase_k4(card)
     torch.cuda.empty_cache()
+    k3r = phase_k3(card)
+    k6r = phase_k6(card)
+    k7r = phase_k7(card)
     runs = []
     with tempfile.TemporaryDirectory() as tmp:
         runs.append(phase_serve(card, tmp))
@@ -1025,6 +1407,9 @@ def main() -> None:
         runs += phase_parity(card, False, tmp)[0]
         torch.cuda.empty_cache()
         runs.append(phase_full_render(card, ckpt))
+        torch.cuda.empty_cache()
+        runs += phase_paths(card)
+        runs.append(phase_pdf_frame(card, ckpt))
     kernels = [
         kernel_entry("K1 fused_render_fwd", "K1", _sum(runs, "k1_fwd"), k1r["max_abs_err"],
                      k1r["ms_s192"], k1r["plain_ms_s192"], k1r["bound_s192"]),
@@ -1041,6 +1426,16 @@ def main() -> None:
                      k5r["bwd_bound"]),
         kernel_entry("K4 quant_render_fwd", "K4", _sum(runs, "k4"), k4r["max_abs_err"],
                      k4r["ms_s192"], k4r["plain_ms_s192"], k4r["bound_s192"]),
+        kernel_entry("K3 fused_render_bwd (recompute)", "K3", _sum(runs, "k3"),
+                     k3r["max_abs_err"], k3r["ms"], k3r["plain_ms"], k3r["bound"]),
+        kernel_entry("K6-fwd fused_render_fwd (encodings in)", "K6f", _sum(runs, "k6_fwd"),
+                     k6r["fwd_max_abs_err"], k6r["fwd_ms"], k6r["fwd_plain_ms"],
+                     k6r["fwd_bound"]),
+        kernel_entry("K6-bwd fused_render_bwd (encodings in)", "K6b", _sum(runs, "k6_bwd"),
+                     k6r["bwd_max_abs_err"], k6r["bwd_ms"], k6r["bwd_plain_ms"],
+                     k6r["bwd_bound"]),
+        kernel_entry("K7 pdf_union", "K7", _sum(runs, "k7"), k7r["max_abs_err"], k7r["ms"],
+                     k7r["plain_ms"], k7r["bound"]),
     ]
     for entry in kernels:
         if entry["launches"] == 0:

@@ -54,7 +54,8 @@ using namespace nkt;
 namespace {
 
 struct RowParams {
-  MlpBwdParams mb;             // x_res = x_enc; packs, workspaces, descriptors
+  MlpBwdParams mb;             // packs, workspaces, descriptors
+  const __nv_bfloat16* x_enc;  // (N, xyz_dim)
   const __nv_bfloat16* d_enc;  // (N, dir_dim)
   const float* g;              // (N, 4)
   float* db_part;              // (grid, total_b)
@@ -88,8 +89,9 @@ __global__ void __launch_bounds__(kThreads, 2)
       return row < nrows && c < m.dir_dim ? p.d_enc[(row0 + row) * m.dir_dim + c]
                                           : __float2bfloat16_rn(0.f);
     };
-    mlp_backward_tile(p.mb, buf0, buf1, masks, db, row0, nrows, dir, p.g + row0 * 4,
-                      dx_acc, p.dx_out, p.dd_out);
+    mlp_backward_tile(p.mb, buf0, buf1, masks, db, row0, nrows,
+                      StoredXenc{p.x_enc, row0, m.xyz_dim}, dir, p.g + row0 * 4, dx_acc,
+                      p.dx_out, p.dd_out);
   }
   __syncthreads();
   for (int i = tid; i < p.total_b; i += kThreads)
@@ -142,13 +144,13 @@ extern "C" int nkt_fused_mlp_bwd(
   if (dd_out != nullptr && mb.bdense[num_layers + 1].n != hidden + m.dir_dim)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  mb.x_res = static_cast<const __nv_bfloat16*>(x_enc);
   mb.w = static_cast<const __nv_bfloat16*>(w_pack);
   mb.b = static_cast<const float*>(b_pack);
   mb.wb = static_cast<const __nv_bfloat16*>(wb_pack);
   mb.ws_a = static_cast<__nv_bfloat16*>(ws_a);
   mb.ws_d = static_cast<__nv_bfloat16*>(ws_d);
   mb.N = N;
+  p.x_enc = static_cast<const __nv_bfloat16*>(x_enc);
   p.d_enc = static_cast<const __nv_bfloat16*>(d_enc);
   p.g = static_cast<const float*>(g);
   p.db_part = static_cast<float*>(db_part);

@@ -1,4 +1,5 @@
-// K2 on Hopper: the backward of the NeRF ray megakernel (K1).
+// K2 on Hopper: the backward of the NeRF ray megakernel (K1); with K3,
+// its recompute variant, and K6's backward (see the modes below).
 //
 // Replaces the TPU kernel `_bwd_xres_kernel`
 // (nerf_keras_tpu/ops/pallas/fused_render.py:453, with `_bwd_core` :362
@@ -30,7 +31,7 @@
 //
 // What the design does about that: three kernels on one stream, no
 // atomics, the same sums in the same order on every run (deterministic).
-//   1. k2_rows_kernel, one block per R rays (R = max(1, 64/S)), as K1.
+//   1. the rows kernel, one block per R rays (R = max(1, 64/S)), as K1.
 //      The stored predictions let it run the per-ray compositing VJP
 //      first (one warp per ray; the exclusive suffix sum is a chunk per
 //      lane, a warp suffix scan, and a reverse walk of the chunk, not the
@@ -63,6 +64,24 @@
 // nothing, and the workspace holds only the B*S real samples.  No TF32
 // anywhere (bf16 tensor-core products, f32 elsewhere), no fast math.
 // wgmma, TMA and keeping A/D on chip are later work.
+//
+// The rows kernel has three modes, one __global__ each (one body):
+//   * k2_rows_kernel (K2): position features from K1's x_enc residual.
+//   * k3_rows_kernel (K3): replaces `_bwd_encode_kernel`
+//     (fused_render.py:425, pl.pallas_call at :969), the
+//     bwd_mode="recompute" backward.  The position features of each
+//     64-sample tile are encoded again from (origins, dirs, t) with K1's
+//     arithmetic (o + d*t as two roundings, encode_feature, bf16), so it
+//     reads no x_enc: what a step holds between K1 and K3 is K1's f32
+//     predictions (16 B per sample) against K2's 142 B.  Given the same
+//     predictions its dW/db are K2's bit for bit.  The cost is the encode
+//     twice per tile (layer 0 and the skip concat): ~120 sin/cos per
+//     sample against ~2.4 MFLOP of products.
+//   * k6_rows_kernel (K6's backward): replaces `_bwd_kernel`
+//     (fused_render.py:350, pl.pallas_call at :592), the backward of
+//     `apply_nerf_render_pallas`: position and direction encodings both
+//     read per sample from the caller's (B*S, .) bf16 inputs, no weights
+//     cotangent (the JAX entry's weights carry no gradient).
 
 #include "nerf_dw.cuh"
 
@@ -70,21 +89,29 @@ using namespace nkt;
 
 namespace {
 
+// Where the rows kernel takes the MLP's inputs from.
+enum RowsMode {
+  kResidual = 0,     // K2: x_enc residual, directions encoded per ray
+  kRecompute = 1,    // K3: x_enc encoded from (origins, dirs, t), directions per ray
+  kEncodingsIn = 2,  // K6: x_enc and d_enc per sample, as given
+};
+
 struct RowParams {
-  MlpBwdParams mb;          // x_res, packs, workspaces, layer descriptors
-  const float* dirs;        // (B, 3)
-  const float* t_vals;      // (B, S)
-  const float* preds;       // (N, 4)
-  const float* g_rgb;       // (B, 3)
-  const float* g_w;         // (B, S) or null
-  float* db_part;           // (grid, total_b)
+  MlpBwdParams mb;             // packs, workspaces, layer descriptors
+  const __nv_bfloat16* x_res;  // (B*S, xyz_dim): K2's residual, K6's x_enc
+  const float* origins;        // (B, 3): K3
+  const float* dirs;           // (B, 3): K2, K3
+  const __nv_bfloat16* d_enc;  // (B*S, dir_dim): K6
+  const float* t_vals;         // (B, S)
+  const float* preds;          // (N, 4)
+  const float* g_rgb;          // (B, 3)
+  const float* g_w;            // (B, S) or null
+  float* db_part;              // (grid, total_b)
   int B, S, R, total_b;
 };
 
-// Two blocks per SM (<= 128 registers, <= 113 KB of shared memory) hide
-// the latency of the weight-fragment loads, as in K1.
-__global__ void __launch_bounds__(kThreads, 2)
-    k2_rows_kernel(const __grid_constant__ RowParams p) {
+template <int MODE>
+__device__ __forceinline__ void rows_body(const RowParams& p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const MlpDims& m = p.mb.m;
   const int tid = threadIdx.x;
@@ -105,6 +132,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   //                 (R*S, 4): d rgb logits, d sigma
   float* db = dpreds + R * S * 4;  // (total_b), the K1 bias-pack layout
   float* ray_d = db + p.total_b;   // (R, 4)
+  float* ray_o = ray_d + R * 4;    // (R, 4), K3 only
 
   const int r0 = blockIdx.x * R;
   const int nrays = min(R, p.B - r0);
@@ -112,14 +140,18 @@ __global__ void __launch_bounds__(kThreads, 2)
   const size_t s0 = (size_t)r0 * S;  // first sample of the block
 
   for (int i = tid; i < p.total_b; i += kThreads) db[i] = 0.f;
-  for (int i = tid; i < R * 3; i += kThreads) {
-    const int r = i / 3, c = i - r * 3;
-    ray_d[r * 4 + c] = r < nrays ? p.dirs[(size_t)(r0 + r) * 3 + c] : 0.f;
-  }
-  __syncthreads();
-  for (int i = tid; i < R * m.dir_pad; i += kThreads) {
-    const int r = i / m.dir_pad, c = i - r * m.dir_pad;
-    denc[i] = __float2bfloat16_rn(encode_feature(ray_d + r * 4, c, m.dir_dim));
+  if (MODE != kEncodingsIn) {
+    for (int i = tid; i < R * 3; i += kThreads) {
+      const int r = i / 3, c = i - r * 3;
+      const bool ok = r < nrays;
+      ray_d[r * 4 + c] = ok ? p.dirs[(size_t)(r0 + r) * 3 + c] : 0.f;
+      if (MODE == kRecompute) ray_o[r * 4 + c] = ok ? p.origins[(size_t)(r0 + r) * 3 + c] : 0.f;
+    }
+    __syncthreads();
+    for (int i = tid; i < R * m.dir_pad; i += kThreads) {
+      const int r = i / m.dir_pad, c = i - r * m.dir_pad;
+      denc[i] = __float2bfloat16_rn(encode_feature(ray_d + r * 4, c, m.dir_dim));
+    }
   }
 
   // ---- Compositing VJP: one warp per ray, a contiguous chunk per lane.
@@ -202,12 +234,41 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int ntiles = (P + kTileRows - 1) / kTileRows;
   for (int tile = 0; tile < ntiles; ++tile) {
     const int q0 = tile * kTileRows;
-    auto dir = [&](int row, int c) {
-      const int q = q0 + row;
-      return q < P ? denc[(q / S) * m.dir_pad + c] : __float2bfloat16_rn(0.f);
-    };
-    mlp_backward_tile(p.mb, buf0, buf1, masks, db, s0 + q0, min(kTileRows, P - q0), dir,
-                      dpreds + q0 * 4, nullptr, nullptr, nullptr);
+    const int nrows = min(kTileRows, P - q0);
+    const size_t row0 = s0 + q0;
+    if constexpr (MODE == kEncodingsIn) {
+      auto dir = [&](int row, int c) {
+        return row < nrows && c < m.dir_dim ? p.d_enc[(row0 + row) * m.dir_dim + c]
+                                            : __float2bfloat16_rn(0.f);
+      };
+      mlp_backward_tile(p.mb, buf0, buf1, masks, db, row0, nrows,
+                        StoredXenc{p.x_res, row0, m.xyz_dim}, dir, dpreds + q0 * 4, nullptr,
+                        nullptr, nullptr);
+    } else {
+      auto dir = [&](int row, int c) {
+        const int q = q0 + row;
+        return q < P ? denc[(q / S) * m.dir_pad + c] : __float2bfloat16_rn(0.f);
+      };
+      if constexpr (MODE == kRecompute) {
+        // K1's encode of sample q0 + row (called for row < nrows only).
+        auto xenc = [&](int row, int c) {
+          const int q = q0 + row;
+          const float* o = ray_o + (q / S) * 4;
+          const float* d = ray_d + (q / S) * 4;
+          const float t = p.t_vals[s0 + q];
+          const float x[3] = {__fadd_rn(o[0], __fmul_rn(d[0], t)),
+                              __fadd_rn(o[1], __fmul_rn(d[1], t)),
+                              __fadd_rn(o[2], __fmul_rn(d[2], t))};
+          return __float2bfloat16_rn(encode_feature(x, c, m.xyz_dim));
+        };
+        mlp_backward_tile(p.mb, buf0, buf1, masks, db, row0, nrows, xenc, dir,
+                          dpreds + q0 * 4, nullptr, nullptr, nullptr);
+      } else {
+        mlp_backward_tile(p.mb, buf0, buf1, masks, db, row0, nrows,
+                          StoredXenc{p.x_res, row0, m.xyz_dim}, dir, dpreds + q0 * 4,
+                          nullptr, nullptr, nullptr);
+      }
+    }
   }
 
   __syncthreads();
@@ -215,10 +276,29 @@ __global__ void __launch_bounds__(kThreads, 2)
     p.db_part[(size_t)blockIdx.x * p.total_b + i] = db[i];
 }
 
+// Two blocks per SM (<= 128 registers, <= 113 KB of shared memory) hide
+// the latency of the weight-fragment loads, as in K1.
+__global__ void __launch_bounds__(kThreads, 2)
+    k2_rows_kernel(const __grid_constant__ RowParams p) {
+  rows_body<kResidual>(p);
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
+    k3_rows_kernel(const __grid_constant__ RowParams p) {
+  rows_body<kRecompute>(p);
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
+    k6_rows_kernel(const __grid_constant__ RowParams p) {
+  rows_body<kEncodingsIn>(p);
+}
+
 }  // namespace
 
-// Plain C entry point, loaded with ctypes.  Host arrays: `desc_fwd`
-// (n_dense x 5: k_pad, n, n_pad, w_off, b_off of the K1 pack),
+// Plain C entry point, loaded with ctypes.  `mode` picks the rows kernel:
+// 0 = K2 (x_res and dirs given), 1 = K3 (origins and dirs given, x_res
+// null), 2 = K6 (x_res = x_enc and d_enc given, dirs null).  Host arrays:
+// `desc_fwd` (n_dense x 5: k_pad, n, n_pad, w_off, b_off of the K1 pack),
 // `desc_bwd` (the same for the K2 pack: k_pad = round16(n), n = dX
 // columns), `desc_ws` (n_dense x 5: a_col, a_width, d_col, d_width,
 // out_off), in the order trunk[0..num_layers), merged head, branch, rgb.
@@ -228,32 +308,38 @@ __global__ void __launch_bounds__(kThreads, 2)
 // Outputs dw (total_out) and db (total_b) f32.  Launches on `stream`,
 // returns the first CUDA error (0 on success); does not synchronise.
 extern "C" int nkt_fused_render_bwd(
-    const void* x_res, const void* dirs, const void* t_vals, const void* preds,
-    const void* g_rgb, const void* g_w, const void* w_pack, const void* b_pack,
-    const void* desc_fwd, const void* wb_pack, const void* desc_bwd,
-    const void* desc_ws, int n_dense, int num_layers, int skip_layer, int hidden,
-    int l_xyz, int l_dir, int B, int S, int total_b, int total_out, void* ws_a,
-    void* ws_d, void* db_part, void* dw_part, int nsplit, void* dw_out,
-    void* db_out, int device, void* stream) {
+    int mode, const void* x_res, const void* origins, const void* dirs, const void* d_enc,
+    const void* t_vals, const void* preds, const void* g_rgb, const void* g_w,
+    const void* w_pack, const void* b_pack, const void* desc_fwd, const void* wb_pack,
+    const void* desc_bwd, const void* desc_ws, int n_dense, int num_layers, int skip_layer,
+    int hidden, int l_xyz, int l_dir, int B, int S, int total_b, int total_out, void* ws_a,
+    void* ws_d, void* db_part, void* dw_part, int nsplit, void* dw_out, void* db_out,
+    int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  const bool inputs_ok =
+      (mode == kResidual && x_res != nullptr && dirs != nullptr) ||
+      (mode == kRecompute && x_res == nullptr && origins != nullptr && dirs != nullptr) ||
+      (mode == kEncodingsIn && x_res != nullptr && d_enc != nullptr && dirs == nullptr);
   RowParams p;
   MlpBwdParams& mb = p.mb;
-  if (B <= 0 || S < 2 || nsplit < 1 ||
+  if (!inputs_ok || B <= 0 || S < 2 || nsplit < 1 ||
       !mlp_dims_init(mb.m, static_cast<const int*>(desc_fwd), n_dense, num_layers,
                      skip_layer, hidden, l_xyz, l_dir) ||
       !mlp_bwd_init(mb, static_cast<const int*>(desc_bwd), static_cast<const int*>(desc_ws),
                     n_dense))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  mb.x_res = static_cast<const __nv_bfloat16*>(x_res);
   mb.w = static_cast<const __nv_bfloat16*>(w_pack);
   mb.b = static_cast<const float*>(b_pack);
   mb.wb = static_cast<const __nv_bfloat16*>(wb_pack);
   mb.ws_a = static_cast<__nv_bfloat16*>(ws_a);
   mb.ws_d = static_cast<__nv_bfloat16*>(ws_d);
   mb.N = B * S;
+  p.x_res = static_cast<const __nv_bfloat16*>(x_res);
+  p.origins = static_cast<const float*>(origins);
   p.dirs = static_cast<const float*>(dirs);
+  p.d_enc = static_cast<const __nv_bfloat16*>(d_enc);
   p.t_vals = static_cast<const float*>(t_vals);
   p.preds = static_cast<const float*>(preds);
   p.g_rgb = static_cast<const float*>(g_rgb);
@@ -268,12 +354,13 @@ extern "C" int nkt_fused_render_bwd(
   const size_t smem =
       sizeof(__nv_bfloat16) * ((size_t)2 * kTileRows * mb.m.ldx + (size_t)p.R * mb.m.dir_pad) +
       sizeof(uint32_t) * (size_t)(num_layers + 1) * kTileRows * mb.mask_words +
-      sizeof(float) * ((size_t)p.R * S * 4 + (size_t)total_b + (size_t)p.R * 4);
+      sizeof(float) * ((size_t)p.R * S * 4 + (size_t)total_b + (size_t)p.R * 8);
   if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(k2_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+  void (*kernel)(const RowParams) =
+      mode == kResidual ? k2_rows_kernel : mode == kRecompute ? k3_rows_kernel : k6_rows_kernel;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  k2_rows_kernel<<<grid, kThreads, smem, st>>>(p);
+  kernel<<<grid, kThreads, smem, st>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return (int)launch_dw_reduce(mb, n_dense, total_out, total_b, static_cast<float*>(dw_part),

@@ -56,6 +56,16 @@
 // cumsum and the padded-t ragged batch (the ragged edge is masked here).
 // wgmma, TMA and warp specialisation are later work.
 //
+// K6's forward is the same body over encodings: fused_render_enc_kernel
+// replaces `_fwd_kernel` (nerf_keras_tpu/ops/pallas/fused_render.py:336,
+// pl.pallas_call at :530; entry `apply_nerf_render_pallas` at :1083).  It
+// reads x_enc (B*S, 3+6 L_XYZ) and d_enc (B*S, 3+6 L_DIR) bf16 per sample
+// from the caller instead of encoding rays (d_enc per sample, as the JAX
+// entry takes it), then runs the same MLP tile and compositing; in
+// training mode it writes the f32 predictions for K6's backward
+// (fused_render_bwd.cu, k6_rows_kernel).  It reads 180 B per sample more
+// than K1 (its encodings), still far below the products' time.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -shared -Xcompiler -fPIC  (never -use_fast_math: the top
 //        octave's argument is 2^9*|p|, thousands of radians, where the
@@ -68,9 +78,11 @@ using namespace nkt;
 namespace {
 
 struct Params {
-  const float* origins;  // (B, 3)
-  const float* dirs;     // (B, 3)
+  const float* origins;  // (B, 3), K1
+  const float* dirs;     // (B, 3), K1
   const float* t_vals;   // (B, S)
+  const __nv_bfloat16* x_in;  // (B*S, xyz_dim), K6
+  const __nv_bfloat16* d_in;  // (B*S, dir_dim), K6
   const __nv_bfloat16* w;
   const float* b;
   float* rgb_out;           // (B, 3)
@@ -81,8 +93,9 @@ struct Params {
   MlpDims m;
 };
 
-__global__ void __launch_bounds__(kThreads)
-    fused_render_fwd_kernel(const __grid_constant__ Params p) {
+// kEncIn: K6 (encodings given per sample), else K1 (rays encoded here).
+template <bool kEncIn>
+__device__ __forceinline__ void render_body(const Params& p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const MlpDims& m = p.m;
   const int tid = threadIdx.x;
@@ -105,29 +118,51 @@ __global__ void __launch_bounds__(kThreads)
   const int nrays = min(R, p.B - r0);
   const int P = nrays * S;
 
-  for (int i = tid; i < R * 3; i += kThreads) {
-    const int r = i / 3, c = i - r * 3;
-    const bool ok = r < nrays;
-    ray_o[r * 4 + c] = ok ? p.origins[(size_t)(r0 + r) * 3 + c] : 0.f;
-    ray_d[r * 4 + c] = ok ? p.dirs[(size_t)(r0 + r) * 3 + c] : 0.f;
-  }
-  __syncthreads();
-  // Direction features once per ray (every sample of a ray shares them).
-  for (int i = tid; i < R * m.dir_pad; i += kThreads) {
-    const int r = i / m.dir_pad, c = i - r * m.dir_pad;
-    denc[i] = __float2bfloat16_rn(encode_feature(ray_d + r * 4, c, m.dir_dim));
+  const size_t s0 = (size_t)r0 * S;  // first sample of the block
+
+  if (!kEncIn) {
+    for (int i = tid; i < R * 3; i += kThreads) {
+      const int r = i / 3, c = i - r * 3;
+      const bool ok = r < nrays;
+      ray_o[r * 4 + c] = ok ? p.origins[(size_t)(r0 + r) * 3 + c] : 0.f;
+      ray_d[r * 4 + c] = ok ? p.dirs[(size_t)(r0 + r) * 3 + c] : 0.f;
+    }
+    __syncthreads();
+    // Direction features once per ray (every sample of a ray shares them).
+    for (int i = tid; i < R * m.dir_pad; i += kThreads) {
+      const int r = i / m.dir_pad, c = i - r * m.dir_pad;
+      denc[i] = __float2bfloat16_rn(encode_feature(ray_d + r * 4, c, m.dir_dim));
+    }
   }
 
   const int ntiles = (P + kTileRows - 1) / kTileRows;
   for (int tile = 0; tile < ntiles; ++tile) {
     const int q0 = tile * kTileRows;
     const int rows_valid = P - q0;
+    if (kEncIn) {
+      for (int i = tid; i < kTileRows * m.xyz_pad; i += kThreads) {
+        const int row = i / m.xyz_pad, c = i - row * m.xyz_pad;
+        const __nv_bfloat16 v = row < rows_valid && c < m.xyz_dim
+                                    ? p.x_in[(s0 + q0 + row) * m.xyz_dim + c]
+                                    : __float2bfloat16_rn(0.f);
+        buf0[row * ldx + c] = v;
+        xenc[i] = v;
+      }
+      __syncthreads();
+      auto dir = [&](int row, int c) {
+        return row < rows_valid && c < m.dir_dim ? p.d_in[(s0 + q0 + row) * m.dir_dim + c]
+                                                 : __float2bfloat16_rn(0.f);
+      };
+      mlp_forward_tile(m, p.w, p.b, buf0, buf1, xenc, dir, sig + q0, rgbl + q0 * 3,
+                       rows_valid);
+      continue;
+    }
     if (tid < kTileRows) {
       const int q = q0 + tid;
       float x = 0.f, y = 0.f, z = 0.f;
       if (q < P) {
         const int r = q / S;
-        const float t = p.t_vals[(size_t)r0 * S + q];
+        const float t = p.t_vals[s0 + q];
         // o + d*t rounded as two operations (no fma), as the plain path.
         x = __fadd_rn(ray_o[r * 4 + 0], __fmul_rn(ray_d[r * 4 + 0], t));
         y = __fadd_rn(ray_o[r * 4 + 1], __fmul_rn(ray_d[r * 4 + 1], t));
@@ -145,7 +180,7 @@ __global__ void __launch_bounds__(kThreads)
       buf0[row * ldx + c] = v;
       xenc[i] = v;
       if (p.xenc_out != nullptr && row < rows_valid && c < m.xyz_dim)
-        p.xenc_out[((size_t)r0 * S + q0 + row) * m.xyz_dim + c] = v;
+        p.xenc_out[(s0 + q0 + row) * m.xyz_dim + c] = v;
     }
     __syncthreads();
     auto dir = [&](int row, int c) {
@@ -159,38 +194,55 @@ __global__ void __launch_bounds__(kThreads)
   if (p.preds_out != nullptr) {
     for (int i = tid; i < P * 4; i += kThreads) {
       const int q = i >> 2, c = i & 3;
-      p.preds_out[(size_t)r0 * S * 4 + i] = c < 3 ? rgbl[q * 3 + c] : sig[q];
+      p.preds_out[s0 * 4 + i] = c < 3 ? rgbl[q * 3 + c] : sig[q];
     }
   }
 
-  composite_rays(p.t_vals + (size_t)r0 * S, sig, rgbl, nrays, S,
-                 p.w_out + (size_t)r0 * S, p.rgb_out + (size_t)r0 * 3);
+  composite_rays(p.t_vals + s0, sig, rgbl, nrays, S, p.w_out + s0,
+                 p.rgb_out + (size_t)r0 * 3);
+}
+
+__global__ void __launch_bounds__(kThreads)
+    fused_render_fwd_kernel(const __grid_constant__ Params p) {
+  render_body<false>(p);
+}
+
+__global__ void __launch_bounds__(kThreads)
+    fused_render_enc_kernel(const __grid_constant__ Params p) {
+  render_body<true>(p);
 }
 
 }  // namespace
 
-// Plain C entry point, loaded with ctypes.  `dense_desc` is a HOST array of
-// n_dense * 5 ints (k_pad, n, n_pad, w_off, b_off) in the order
-// trunk[0..num_layers), merged feature+sigma head, branch, rgb.
-// `xenc_out` and `preds_out` may be null (forward only).  Launches on
-// `stream` and returns cudaGetLastError() (0 on success); does not
-// synchronise and allocates nothing.
+// Plain C entry point, loaded with ctypes.  K1 takes origins and dirs
+// (x_in, d_in null); K6 takes x_in and d_in (origins, dirs and xenc_out
+// null).  `dense_desc` is a HOST array of n_dense * 5 ints (k_pad, n,
+// n_pad, w_off, b_off) in the order trunk[0..num_layers), merged
+// feature+sigma head, branch, rgb.  `xenc_out` and `preds_out` may be null
+// (forward only).  Launches on `stream` and returns cudaGetLastError() (0
+// on success); does not synchronise and allocates nothing.
 extern "C" int nkt_fused_render_fwd(
-    const void* origins, const void* dirs, const void* t_vals,
-    const void* w_pack, const void* b_pack, const void* dense_desc,
+    const void* origins, const void* dirs, const void* t_vals, const void* x_in,
+    const void* d_in, const void* w_pack, const void* b_pack, const void* dense_desc,
     int n_dense, int num_layers, int skip_layer, int hidden, int l_xyz,
     int l_dir, int B, int S, void* rgb_out, void* w_out, void* xenc_out,
     void* preds_out, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  const bool enc_in = x_in != nullptr;
+  const bool inputs_ok =
+      enc_in ? d_in != nullptr && origins == nullptr && dirs == nullptr && xenc_out == nullptr
+             : origins != nullptr && dirs != nullptr && d_in == nullptr;
   Params p;
-  if (B <= 0 || S < 2 ||
+  if (!inputs_ok || B <= 0 || S < 2 ||
       !mlp_dims_init(p.m, static_cast<const int*>(dense_desc), n_dense, num_layers,
                      skip_layer, hidden, l_xyz, l_dir))
     return (int)cudaErrorInvalidValue;
   p.origins = static_cast<const float*>(origins);
   p.dirs = static_cast<const float*>(dirs);
   p.t_vals = static_cast<const float*>(t_vals);
+  p.x_in = static_cast<const __nv_bfloat16*>(x_in);
+  p.d_in = static_cast<const __nv_bfloat16*>(d_in);
   p.w = static_cast<const __nv_bfloat16*>(w_pack);
   p.b = static_cast<const float*>(b_pack);
   p.rgb_out = static_cast<float*>(rgb_out);
@@ -208,12 +260,10 @@ extern "C" int nkt_fused_render_fwd(
       sizeof(float) * ((size_t)kTileRows * 4 + (size_t)p.R * 8 +
                        (size_t)p.R * S * 4);
   if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(fused_render_fwd_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+  void (*kernel)(const Params) = enc_in ? fused_render_enc_kernel : fused_render_fwd_kernel;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int grid = (B + p.R - 1) / p.R;
-  fused_render_fwd_kernel<<<grid, kThreads, smem,
-                            static_cast<cudaStream_t>(stream)>>>(p);
+  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
 }

@@ -1,10 +1,11 @@
-// Device code shared by the ray megakernel's forward (K1,
-// fused_render_fwd.cu) and backward (K2, fused_render_bwd.cu), by the MLP
-// kernel over encodings (K5, fused_mlp_fwd.cu and fused_mlp_bwd.cu) and by
-// the int8 ray megakernel (K4, quant_render_fwd.cu): the Fourier encoding
-// of one coordinate column, the compositing of whole rays (K1, K4), the
-// 64-row bf16 tile product with its epilogues, and the MLP's forward and
-// backward over one tile.
+// Device code shared by the ray megakernel's forward (K1, and K6 over
+// encodings: fused_render_fwd.cu) and backward (K2, K3 and K6:
+// fused_render_bwd.cu), by the MLP kernel over encodings (K5,
+// fused_mlp_fwd.cu and fused_mlp_bwd.cu) and by the int8 ray megakernel
+// (K4, quant_render_fwd.cu): the Fourier encoding of one coordinate
+// column, the compositing of whole rays (K1, K4, K6), the 64-row bf16
+// tile product with its epilogues, and the MLP's forward and backward over
+// one tile.
 //
 // A tile product computes out[64, n] = epilogue(in[64, k_pad] @ Pack^T)
 // with mma.sync m16n8k16 (bf16 operands, f32 accumulation).  `in` is a
@@ -414,7 +415,7 @@ __device__ void mlp_forward_tile(const MlpDims& m, const __nv_bfloat16* w, const
 }
 
 // ---------------------------------------------------------------------------
-// The backward over one tile (K2 and K5).
+// The backward over one tile (K2, K3, K5 and K6).
 
 // Per dense layer, where its backward lives in the workspaces.
 struct Bwd {
@@ -426,7 +427,6 @@ struct Bwd {
 };
 
 struct MlpBwdParams {
-  const __nv_bfloat16* x_res;  // (N, xyz_dim) bf16 position encodings
   const __nv_bfloat16* w;      // forward pack
   const float* b;
   const __nv_bfloat16* wb;     // transposed pack (dX products)
@@ -477,13 +477,27 @@ __device__ __forceinline__ void store_tile(const __nv_bfloat16* src, int ldx,
   }
 }
 
+// Position features of a tile read from stored (N, xyz_dim) bf16
+// encodings (K2's residual, K5's and K6's input): tile row `row` is sample
+// row0 + row.
+struct StoredXenc {
+  const __nv_bfloat16* x;
+  size_t row0;
+  int dim;
+  __device__ __forceinline__ __nv_bfloat16 operator()(int row, int c) const {
+    return x[(row0 + row) * dim + c];
+  }
+};
+
 // The MLP's backward for the 64-row tile at workspace rows [row0, row0 +
 // nrows), given the cotangent g of its raw predictions (f32, row stride 4:
 // d rgb logits, d sigma; rows < nrows are read).
-//   * Recompute: from the position encodings x_res (the same products as
-//     the forward, so the same ReLU pattern), keeping each ReLU's sign as
-//     a bitmask (masks: (L + 1) x (64, mask_words) words, trunk then
-//     branch) and writing each layer's input (A) to the workspace.
+//   * Recompute: from the position encodings, xenc(row, c) for row <
+//     nrows and c < xyz_dim as bf16 (read from a stored residual, or
+//     encoded from the points by K3), with the same products as the
+//     forward, so the same ReLU pattern; each ReLU's sign is kept as a
+//     bitmask (masks: (L + 1) x (64, mask_words) words, trunk then branch)
+//     and each layer's input (A) is written to the workspace.
 //   * Reverse walk with the dX products, writing each layer's dPre (D) to
 //     the workspace and adding the bias gradients (f32 column sums of
 //     dPre) into db (the forward bias-pack layout).
@@ -495,10 +509,11 @@ __device__ __forceinline__ void store_tile(const __nv_bfloat16* src, int ldx,
 //     sample as bf16.
 // dir(row, c) gives the direction features as in mlp_forward_tile.
 // Starts and ends synchronised.
-template <class DirFn>
+template <class XencFn, class DirFn>
 __device__ void mlp_backward_tile(const MlpBwdParams& p, __nv_bfloat16* buf0,
                                   __nv_bfloat16* buf1, uint32_t* masks, float* db,
-                                  size_t row0, int nrows, DirFn dir, const float* g,
+                                  size_t row0, int nrows, XencFn xenc, DirFn dir,
+                                  const float* g,
                                   float* dx_acc, __nv_bfloat16* dx_out,
                                   __nv_bfloat16* dd_out) {
   const MlpDims& m = p.m;
@@ -515,13 +530,12 @@ __device__ void mlp_backward_tile(const MlpBwdParams& p, __nv_bfloat16* buf0,
   const Dense& rgb = m.dense[L + 2];
   if (dx_out == nullptr) dx_acc = nullptr;
 
-  // The x_enc tile (read again from the residual, in L2, for the skip).
+  // The x_enc tile (fetched again for the skip concat).
   auto load_xenc = [&](__nv_bfloat16* dst) {
     for (int i = tid; i < kTileRows * m.xyz_pad; i += kThreads) {
       const int row = i / m.xyz_pad, c = i - row * m.xyz_pad;
-      dst[row * ldx + c] = row < nrows && c < m.xyz_dim
-                               ? p.x_res[(row0 + row) * m.xyz_dim + c]
-                               : __float2bfloat16_rn(0.f);
+      dst[row * ldx + c] =
+          row < nrows && c < m.xyz_dim ? xenc(row, c) : __float2bfloat16_rn(0.f);
     }
   };
   load_xenc(buf0);

@@ -427,9 +427,12 @@ def draw_t_vals(cfg: NeRFConfig, near: float, far: float, batch_shape: tuple,
     ).contiguous()
 
 
-def make_train_step(cfg: NeRFConfig, near: float, far: float) -> Callable:
+def make_train_step(cfg: NeRFConfig, near: float, far: float,
+                    render_pass: Callable | None = None) -> Callable:
     """The train step: the coarse+fine parity step or the online-proposal
-    step, by ``TRAIN_SAMPLER``.
+    step, by ``TRAIN_SAMPLER``.  ``render_pass`` replaces the K1 render
+    passes (:func:`make_loss_fn`); ``exp_train_paths`` times the parity
+    step's other training paths through it.
 
     ``train_step(state, batch, draws=None, generator=None) -> metrics``
     with ``batch = (images, origins, dirs)`` ``(B, 3)`` tensors on one
@@ -443,7 +446,7 @@ def make_train_step(cfg: NeRFConfig, near: float, far: float) -> Callable:
     the coarse MSE (proposal: the interlevel loss), ``loss`` the fine MSE,
     ``psnr`` of the fine rgb.
     """
-    loss_fn = make_loss_fn(cfg, near, far)
+    loss_fn = make_loss_fn(cfg, near, far, render_pass=render_pass)
     noise_key = "chain" if cfg.train_sampler == "proposal" else "pdf"
 
     def train_step(state: TrainState, batch, draws: dict | None = None,

@@ -39,6 +39,7 @@ ENTRY_POINTS = {
     "fused_render_fwd": {
         "nkt_fused_render_fwd": [
             _vp, _vp, _vp,              # origins, dirs, t_vals
+            _vp, _vp,                   # x_in, d_in (K6)
             _vp, _vp, _vp,              # w_pack, b_pack, dense_desc (host)
             _i32, _i32, _i32, _i32,     # n_dense, num_layers, skip, hidden
             _i32, _i32, _i32, _i32,     # l_xyz, l_dir, B, S
@@ -48,7 +49,9 @@ ENTRY_POINTS = {
     },
     "fused_render_bwd": {
         "nkt_fused_render_bwd": [
-            _vp, _vp, _vp, _vp,         # x_res, dirs, t_vals, preds
+            _i32,                       # mode: 0 K2, 1 K3, 2 K6
+            _vp, _vp, _vp, _vp,         # x_res, origins, dirs, d_enc
+            _vp, _vp,                   # t_vals, preds
             _vp, _vp,                   # g_rgb, g_w
             _vp, _vp, _vp,              # w_pack, b_pack, desc_fwd (host)
             _vp, _vp, _vp,              # wb_pack, desc_bwd, desc_ws (host)
@@ -92,6 +95,14 @@ ENTRY_POINTS = {
             _vp, _vp, _vp, _i32,        # ws_a, ws_d, db_part, grid
             _vp, _i32,                  # dw_part, nsplit
             _vp, _vp, _vp, _vp,         # dw_out, db_out, dx_out, dd_out
+            _i32, _vp,                  # device, stream
+        ],
+    },
+    "pdf_union": {
+        "nkt_pdf_union": [
+            _vp, _vp, _vp, ctypes.c_longlong,  # t, w, u, u_stride
+            _i32, _i32, _i32, ctypes.c_float,  # B, S, NF, w_floor
+            _vp,                        # out
             _i32, _vp,                  # device, stream
         ],
     },

@@ -1,26 +1,36 @@
-"""K1 and K2, the ray megakernel and its backward.
+"""K1, K2 and K3, the ray megakernel and its two backwards; K6, the same
+over encodings.
 
-Counterpart of ``render_rays_fused`` in
+Counterpart of ``render_rays_fused`` and ``apply_nerf_render_pallas`` in
 ``nerf_keras_tpu/ops/pallas/fused_render.py``: the forward
-(``_fwd_encode_kernel``, with its ``emit_enc`` training residual) and the
-backward ``_bwd_xres_kernel``.  The CUDA kernels are
-``csrc/fused_render_fwd.cu`` (K1) and ``csrc/fused_render_bwd.cu`` (K2);
-their source notes say what bounds them and how the designs answer.
+(``_fwd_encode_kernel``, with its ``emit_enc`` training residual), the
+backwards ``_bwd_xres_kernel`` (``bwd_mode="residual"``) and
+``_bwd_encode_kernel`` (``"recompute"``), and the encodings-in pair
+``_fwd_kernel``/``_bwd_kernel``.  The CUDA kernels are
+``csrc/fused_render_fwd.cu`` (K1, K6's forward) and
+``csrc/fused_render_bwd.cu`` (K2, K3, K6's backward); their source notes
+say what bounds them and how the designs answer.
 
 * :func:`render_rays_reference` is the plain PyTorch K1: encode ->
   :class:`NeRFMLP` -> ``volume_render``, with the bf16 rounding where the
   kernel has it.  Plain autograd differentiates it;
-  :func:`render_rays_reference_vjp` is that gradient, K2's plain version.
-* :func:`render_rays_fused` takes the plain version for a tensor on the
-  CPU, and only then.  For a CUDA tensor it launches the kernels or
-  raises; nothing falls back.  With grad enabled for the MLP it is a
-  ``torch.autograd.Function``: K1 in training mode (residuals) forward,
-  K2 backward.  Each K1 launch adds one to :data:`launches` (and, in
-  training mode, to :data:`train_launches`), each K2 launch one to
-  :data:`bwd_launches`.
+  :func:`render_rays_reference_vjp` is that gradient, the plain version of
+  K2 and K3.  :func:`apply_nerf_render_reference` and its VJP are K6's.
+* :func:`render_rays_fused` and :func:`apply_nerf_render_fused` take the
+  plain version for a tensor on the CPU, and only then.  For a CUDA tensor
+  they launch the kernels or raise; nothing falls back.  With grad enabled
+  for the MLP each is a ``torch.autograd.Function``.  ``render_rays_fused``
+  runs K1 in training mode forward, then K2 (``bwd_mode="residual"``: K1
+  also writes the bf16 position encodings, 126 B per sample) or K3
+  (``"recompute"``: K1 writes only its f32 predictions, 16 B per sample,
+  and K3 encodes the points again).  Counters, one per launch:
+  :data:`launches` (K1; in training mode also :data:`train_launches`),
+  :data:`bwd_launches` (K2), :data:`recompute_launches` (K3),
+  :data:`enc_launches` and :data:`enc_bwd_launches` (K6).
 
 As in the JAX package, the weights output carries no gradient unless
-``weights_grad=True``; origins, directions and t-values never get one.
+``weights_grad=True`` (never for K6); origins, directions, t-values and
+encodings never get one.
 """
 
 from __future__ import annotations
@@ -37,9 +47,16 @@ from nerf_keras_tpu_torch.ops.rays import sample_rays
 from nerf_keras_tpu_torch.ops.volume import volume_render
 
 # Kernel launches in this process (one per successful launch).
-launches = 0        # K1, both modes
-train_launches = 0  # K1 in training mode (with residuals), also in `launches`
-bwd_launches = 0    # K2
+launches = 0            # K1, both modes
+train_launches = 0      # K1 in training mode (with residuals), also in `launches`
+bwd_launches = 0        # K2
+recompute_launches = 0  # K3
+enc_launches = 0        # K6 forward
+enc_bwd_launches = 0    # K6 backward
+
+BWD_MODES = ("residual", "recompute")
+# The rows kernel's modes (csrc/fused_render_bwd.cu).
+_ROWS_K2, _ROWS_K3, _ROWS_K6 = 0, 1, 2
 
 # Within every 16-wide k-group, packed rows are stored in this order so a
 # thread's mma.sync B fragment (k = 2t, 2t+1, 2t+8, 2t+9) is one 8-byte load.
@@ -296,42 +313,62 @@ def _check_cuda_call(mlp, origins, dirs, t_vals, l_xyz, l_dir, skip_layer) -> No
             raise ValueError(f"MLP parameters are on {p.device}, rays on {device}")
 
 
-def launch_k1(mlp, origins, dirs, t_vals, l_xyz, l_dir, train: bool):
-    """One K1 launch: ``(rgb, weights)`` and, with ``train``, the residuals
-    ``(x_enc (B*S, 3+6L) bf16, preds (B*S, 4) f32)``."""
-    global launches, train_launches
-    device = origins.device
+def _ptr(x: torch.Tensor | None) -> int | None:
+    """A tensor's device address for ctypes, None for an absent input."""
+    return None if x is None else x.data_ptr()
+
+
+def _launch_fwd(mlp, t_vals, l_xyz, l_dir, *, origins=None, dirs=None,
+                x_in=None, d_in=None, emit_xenc=False, emit_preds=False):
+    """One launch of ``nkt_fused_render_fwd``: K1 over rays (``origins``,
+    ``dirs``) or K6 over encodings (``x_in``, ``d_in``, (B*S, .) bf16).
+    Returns ``(rgb, weights, x_enc or None, preds or None)``."""
+    device = t_vals.device
     b, s = t_vals.shape
     rgb = torch.empty((b, 3), dtype=torch.float32, device=device)
     weights = torch.empty((b, s), dtype=torch.float32, device=device)
     x_enc = preds = None
-    if train:
+    if emit_xenc:
         x_enc = torch.empty((b * s, 3 + 6 * l_xyz), dtype=torch.bfloat16, device=device)
+    if emit_preds:
         preds = torch.empty((b * s, 4), dtype=torch.float32, device=device)
     if b == 0:
         return rgb, weights, x_enc, preds
     pack = kernel_pack(mlp, device)
     rc = _build.load("fused_render_fwd").nkt_fused_render_fwd(
-        origins.data_ptr(), dirs.data_ptr(), t_vals.data_ptr(),
+        _ptr(origins), _ptr(dirs), t_vals.data_ptr(), _ptr(x_in), _ptr(d_in),
         pack.w.data_ptr(), pack.b.data_ptr(), pack.desc.ctypes.data,
         pack.desc.shape[0], mlp.num_layers, mlp.skip_layer, mlp.hidden_dim,
-        l_xyz, l_dir, b, s, rgb.data_ptr(), weights.data_ptr(),
-        x_enc.data_ptr() if train else None, preds.data_ptr() if train else None,
+        l_xyz, l_dir, b, s, rgb.data_ptr(), weights.data_ptr(), _ptr(x_enc), _ptr(preds),
         device_index(device), torch.cuda.current_stream(device).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(
-            f"K1 launch failed with CUDA error {rc} (B={b}, S={s}, "
-            f"hidden={mlp.hidden_dim}, layers={mlp.num_layers}, train={train})"
+            f"{'K6' if x_in is not None else 'K1'} launch failed with CUDA error {rc} "
+            f"(B={b}, S={s}, hidden={mlp.hidden_dim}, layers={mlp.num_layers}, "
+            f"residuals={emit_xenc}/{emit_preds})"
         )
-    launches += 1
-    train_launches += int(train)
     return rgb, weights, x_enc, preds
+
+
+def launch_k1(mlp, origins, dirs, t_vals, l_xyz, l_dir, train: bool,
+              emit_xenc: bool = True):
+    """One K1 launch: ``(rgb, weights, x_enc, preds)``.  With ``train`` it
+    writes the residuals: ``preds (B*S, 4) f32`` and, with ``emit_xenc``
+    (K2's; K3 needs none), ``x_enc (B*S, 3+6L) bf16``; else they are
+    None."""
+    global launches, train_launches
+    out = _launch_fwd(mlp, t_vals, l_xyz, l_dir, origins=origins, dirs=dirs,
+                      emit_xenc=train and emit_xenc, emit_preds=train)
+    if t_vals.shape[0]:
+        launches += 1
+        train_launches += int(train)
+    return out
 
 
 def unpack_grads(mlp: NeRFMLP, fwd: KernelPack, layout: np.ndarray,
                   dw: torch.Tensor, db: torch.Tensor) -> list[torch.Tensor]:
-    """K2's or K5's flat dW/db -> gradients in ``mlp.parameters()`` order, as the
+    """A backward's flat dW/db -> gradients in ``mlp.parameters()`` order, as the
     JAX package returns them: weight gradients rounded to bf16 (the TPU
     kernel returns ``dv.astype(w.dtype)`` of bf16-cast weights), biases
     f32; the merged head's gradient split into feature and sigma."""
@@ -353,13 +390,21 @@ def unpack_grads(mlp: NeRFMLP, fwd: KernelPack, layout: np.ndarray,
     return grads
 
 
-def launch_k2(mlp, x_enc, dirs, t_vals, preds, g_rgb, g_w, l_xyz, l_dir):
-    """One K2 launch: gradients in ``mlp.parameters()`` order."""
-    global bwd_launches
-    device = dirs.device
+def launch_rows(mode, mlp, t_vals, preds, g_rgb, g_w, l_xyz, l_dir, *,
+                x_res=None, origins=None, dirs=None, d_enc=None):
+    """One launch of the rows kernel in ``mode`` (``_ROWS_K2``: ``x_res``
+    and ``dirs``; ``_ROWS_K3``: ``origins`` and ``dirs``; ``_ROWS_K6``:
+    ``x_res`` = x_enc and ``d_enc``, (B*S, .) bf16), then the dW product
+    and the reduce.  Returns ``(K1 pack, DwBuffers)``: the summed f32 dW/db
+    are in ``ws.dw``/``ws.db`` (:func:`unpack_grads` maps them to the
+    parameters)."""
+    device = t_vals.device
     b, s = t_vals.shape
     n = b * s
-    check_tensor("x_enc", x_enc, (n, 3 + 6 * l_xyz), device, torch.bfloat16)
+    if x_res is not None:
+        check_tensor("x_enc", x_res, (n, 3 + 6 * l_xyz), device, torch.bfloat16)
+    if d_enc is not None:
+        check_tensor("d_enc", d_enc, (n, 3 + 6 * l_dir), device, torch.bfloat16)
     check_tensor("preds", preds, (n, 4), device)
     check_tensor("g_rgb", g_rgb, (b, 3), device)
     if g_w is not None:
@@ -370,8 +415,8 @@ def launch_k2(mlp, x_enc, dirs, t_vals, preds, g_rgb, g_w, l_xyz, l_dir):
     grid = -(-b // rays_per_block)
     ws = DwBuffers.allocate(fwd, bwd, n, grid, device)
     rc = _build.load("fused_render_bwd").nkt_fused_render_bwd(
-        x_enc.data_ptr(), dirs.data_ptr(), t_vals.data_ptr(), preds.data_ptr(),
-        g_rgb.data_ptr(), g_w.data_ptr() if g_w is not None else None,
+        mode, _ptr(x_res), _ptr(origins), _ptr(dirs), _ptr(d_enc), t_vals.data_ptr(),
+        preds.data_ptr(), g_rgb.data_ptr(), _ptr(g_w),
         fwd.w.data_ptr(), fwd.b.data_ptr(), fwd.desc.ctypes.data,
         bwd.w.data_ptr(), bwd.desc.ctypes.data, ws.layout.ctypes.data,
         fwd.desc.shape[0], mlp.num_layers, mlp.skip_layer, mlp.hidden_dim,
@@ -382,37 +427,59 @@ def launch_k2(mlp, x_enc, dirs, t_vals, preds, g_rgb, g_w, l_xyz, l_dir):
     )
     if rc != 0:
         raise RuntimeError(
-            f"K2 launch failed with CUDA error {rc} (B={b}, S={s}, "
-            f"hidden={mlp.hidden_dim}, layers={mlp.num_layers})"
+            f"{('K2', 'K3', 'K6 backward')[mode]} launch failed with CUDA error {rc} "
+            f"(B={b}, S={s}, hidden={mlp.hidden_dim}, layers={mlp.num_layers})"
         )
+    return fwd, ws
+
+
+def launch_k2(mlp, x_enc, dirs, t_vals, preds, g_rgb, g_w, l_xyz, l_dir):
+    """One K2 launch: gradients in ``mlp.parameters()`` order."""
+    global bwd_launches
+    fwd, ws = launch_rows(_ROWS_K2, mlp, t_vals, preds, g_rgb, g_w, l_xyz, l_dir,
+                          x_res=x_enc, dirs=dirs)
     bwd_launches += 1
     return unpack_grads(mlp, fwd, ws.layout, ws.dw, ws.db)
 
 
+def launch_k3(mlp, origins, dirs, t_vals, preds, g_rgb, g_w, l_xyz, l_dir):
+    """One K3 launch (K2 with the position encodings computed again from
+    the rays): gradients in ``mlp.parameters()`` order."""
+    global recompute_launches
+    fwd, ws = launch_rows(_ROWS_K3, mlp, t_vals, preds, g_rgb, g_w, l_xyz, l_dir,
+                          origins=origins, dirs=dirs)
+    recompute_launches += 1
+    return unpack_grads(mlp, fwd, ws.layout, ws.dw, ws.db)
+
+
 class _FusedRender(torch.autograd.Function):
-    """K1 with residuals forward, K2 backward; the parameters are inputs
-    only so that autograd routes their gradients."""
+    """K1 with residuals forward; K2 (``residual``) or K3 (``recompute``)
+    backward.  The parameters are inputs only so that autograd routes
+    their gradients."""
 
     @staticmethod
-    def forward(ctx, mlp, l_xyz, l_dir, origins, dirs, t_vals, *params):
-        rgb, weights, x_enc, preds = launch_k1(mlp, origins, dirs, t_vals,
-                                                l_xyz, l_dir, train=True)
-        ctx.mlp, ctx.l_xyz, ctx.l_dir = mlp, l_xyz, l_dir
-        ctx.save_for_backward(x_enc, preds, dirs, t_vals)
+    def forward(ctx, mlp, l_xyz, l_dir, bwd_mode, origins, dirs, t_vals, *params):
+        recompute = bwd_mode == "recompute"
+        rgb, weights, x_enc, preds = launch_k1(mlp, origins, dirs, t_vals, l_xyz, l_dir,
+                                                train=True, emit_xenc=not recompute)
+        ctx.mlp, ctx.l_xyz, ctx.l_dir, ctx.recompute = mlp, l_xyz, l_dir, recompute
+        # K3 holds the rays; K2 the position encodings (it needs no origins).
+        ctx.save_for_backward(origins if recompute else x_enc, preds, dirs, t_vals)
         ctx.set_materialize_grads(False)
         return rgb, weights
 
     @staticmethod
     def backward(ctx, g_rgb, g_w):
-        x_enc, preds, dirs, t_vals = ctx.saved_tensors
+        held, preds, dirs, t_vals = ctx.saved_tensors
         if g_rgb is None:
             g_rgb = torch.zeros((t_vals.shape[0], 3), dtype=torch.float32,
                                 device=t_vals.device)
-        grads = launch_k2(
-            ctx.mlp, x_enc, dirs, t_vals, preds, g_rgb.contiguous(),
+        launch = launch_k3 if ctx.recompute else launch_k2
+        grads = launch(
+            ctx.mlp, held, dirs, t_vals, preds, g_rgb.contiguous(),
             None if g_w is None else g_w.contiguous(), ctx.l_xyz, ctx.l_dir,
         )
-        return (None,) * 6 + tuple(grads)
+        return (None,) * 7 + tuple(grads)
 
 
 def render_rays_fused(
@@ -425,15 +492,21 @@ def render_rays_fused(
     l_dir: int = 4,
     skip_layer: int = 4,
     weights_grad: bool = False,
+    bwd_mode: str = "residual",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """K1 over raw rays: ``origins``/``dirs`` ``(B, 3)``, ``t_vals``
     ``(B, S)`` ascending -> ``(rgb (B, 3), weights (B, S))`` float32,
     differentiable in the MLP's parameters (the weights only with
-    ``weights_grad``).
+    ``weights_grad``).  ``bwd_mode`` picks the backward: ``"residual"``
+    (K2, from K1's stored position encodings) or ``"recompute"`` (K3,
+    which encodes the points again and so holds 16 B per sample between
+    forward and backward instead of 142 B); the gradients are the same.
 
     CPU tensors take :func:`render_rays_reference`.  CUDA tensors launch
     the kernels (bf16 MLPs only) or raise.
     """
+    if bwd_mode not in BWD_MODES:
+        raise ValueError(f"unknown bwd_mode: {bwd_mode!r}")
     if origins.device.type == "cpu":
         rgb, weights = render_rays_reference(
             mlp, origins, dirs, t_vals,
@@ -443,9 +516,131 @@ def render_rays_fused(
         _check_cuda_call(mlp, origins, dirs, t_vals, l_xyz, l_dir, skip_layer)
         params = list(mlp.parameters())
         if torch.is_grad_enabled() and any(p.requires_grad for p in params):
-            rgb, weights = _FusedRender.apply(mlp, l_xyz, l_dir, origins, dirs,
-                                              t_vals, *params)
+            rgb, weights = _FusedRender.apply(mlp, l_xyz, l_dir, bwd_mode, origins,
+                                              dirs, t_vals, *params)
         else:
             rgb, weights, _, _ = launch_k1(mlp, origins, dirs, t_vals, l_xyz,
                                             l_dir, train=False)
     return rgb, weights if weights_grad else weights.detach()
+
+
+# ---------------------------------------------------------------------------
+# K6: the MLP and the compositing over precomputed encodings.
+
+def apply_nerf_render_reference(
+    mlp: NeRFMLP,
+    x_enc: torch.Tensor,
+    d_enc: torch.Tensor,
+    t_vals: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain K6: :class:`NeRFMLP` over ``x_enc (B, S, 3+6 L_XYZ)`` and
+    ``d_enc (B, S, 3+6 L_DIR)``, then ``volume_render`` over ``t_vals (B,
+    S)`` -> ``(rgb (B, 3), weights (B, S))`` float32; rgb differentiable in
+    the MLP's parameters, the weights detached (the JAX entry's
+    stop-gradient)."""
+    rgb, _, weights = volume_render(mlp(x_enc, d_enc), t_vals)
+    return rgb, weights.detach()
+
+
+def apply_nerf_render_reference_vjp(
+    mlp: NeRFMLP,
+    x_enc: torch.Tensor,
+    d_enc: torch.Tensor,
+    t_vals: torch.Tensor,
+    g_rgb: torch.Tensor,
+) -> list[torch.Tensor]:
+    """Plain K6 backward: the gradients of ``<rgb, g_rgb>`` with respect to
+    ``mlp.parameters()`` (in that order), by autograd of
+    :func:`apply_nerf_render_reference`."""
+    with torch.enable_grad():
+        rgb, _ = apply_nerf_render_reference(mlp, x_enc, d_enc, t_vals)
+        return list(torch.autograd.grad([rgb], list(mlp.parameters()), [g_rgb]))
+
+
+def _check_enc_call(mlp, x_enc, d_enc, t_vals) -> None:
+    device = x_enc.device
+    if device.type != "cuda":
+        raise ValueError(f"K6 runs on cuda or cpu tensors, got {device}")
+    if mlp.compute_dtype != torch.bfloat16:
+        raise NotImplementedError(
+            f"K6 on CUDA runs bf16 MLPs only; COMPUTE_DTYPE={mlp.compute_dtype} "
+            "is not ported to the kernels yet"
+        )
+    if t_vals.dim() != 2:
+        raise ValueError(f"t_vals must be (B, S), got {tuple(t_vals.shape)}")
+    b, s = t_vals.shape
+    check_tensor("x_enc", x_enc, (b, s, mlp.xyz_dim), device, torch.bfloat16)
+    check_tensor("d_enc", d_enc, (b, s, mlp.dir_dim), device, torch.bfloat16)
+    check_tensor("t_vals", t_vals, (b, s), device)
+    for p in mlp.parameters():
+        if p.device != device:
+            raise ValueError(f"MLP parameters are on {p.device}, encodings on {device}")
+
+
+def launch_k6_fwd(mlp, x_enc, d_enc, t_vals, train: bool):
+    """One K6 forward launch over ``(B, S, .)`` bf16 encodings: ``(rgb,
+    weights, preds)``, ``preds (B*S, 4) f32`` with ``train`` (K6's
+    backward reads them), else None."""
+    global enc_launches
+    _check_enc_call(mlp, x_enc, d_enc, t_vals)
+    rgb, weights, _, preds = _launch_fwd(mlp, t_vals, mlp.l_xyz, mlp.l_dir,
+                                         x_in=x_enc, d_in=d_enc, emit_preds=train)
+    if t_vals.shape[0]:
+        enc_launches += 1
+    return rgb, weights, preds
+
+
+def launch_k6_bwd(mlp, x_enc, d_enc, t_vals, preds, g_rgb):
+    """One K6 backward launch: gradients in ``mlp.parameters()`` order
+    (none for the encodings, as in the JAX kernel)."""
+    global enc_bwd_launches
+    b, s = t_vals.shape
+    fwd, ws = launch_rows(_ROWS_K6, mlp, t_vals, preds, g_rgb, None, mlp.l_xyz, mlp.l_dir,
+                          x_res=x_enc.reshape(b * s, -1), d_enc=d_enc.reshape(b * s, -1))
+    enc_bwd_launches += 1
+    return unpack_grads(mlp, fwd, ws.layout, ws.dw, ws.db)
+
+
+class _FusedRenderEnc(torch.autograd.Function):
+    """K6's forward (writing its predictions), K6's backward; the weights
+    output is not differentiable."""
+
+    @staticmethod
+    def forward(ctx, mlp, x_enc, d_enc, t_vals, *params):
+        rgb, weights, preds = launch_k6_fwd(mlp, x_enc, d_enc, t_vals, train=True)
+        ctx.mlp = mlp
+        ctx.save_for_backward(x_enc, d_enc, t_vals, preds)
+        ctx.mark_non_differentiable(weights)
+        return rgb, weights
+
+    @staticmethod
+    def backward(ctx, g_rgb, _g_weights):
+        x_enc, d_enc, t_vals, preds = ctx.saved_tensors
+        grads = launch_k6_bwd(ctx.mlp, x_enc, d_enc, t_vals, preds, g_rgb.contiguous())
+        return (None,) * 4 + tuple(grads)
+
+
+def apply_nerf_render_fused(
+    mlp: NeRFMLP,
+    x_enc: torch.Tensor,
+    d_enc: torch.Tensor,
+    t_vals: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K6, the MLP and compositing over encodings: ``x_enc (B, S, 3+6
+    L_XYZ)`` and ``d_enc (B, S, 3+6 L_DIR)`` (per sample; bf16 on CUDA),
+    ``t_vals (B, S)`` ascending -> ``(rgb (B, 3), weights (B, S))``
+    float32.  rgb is differentiable in the MLP's parameters; the weights
+    and the encodings get no gradient, as in the JAX
+    ``apply_nerf_render_pallas``.
+
+    CPU tensors take :func:`apply_nerf_render_reference`.  CUDA tensors
+    launch the kernels (bf16 MLPs only) or raise.
+    """
+    if x_enc.device.type == "cpu":
+        return apply_nerf_render_reference(mlp, x_enc, d_enc, t_vals)
+    params = list(mlp.parameters())
+    if torch.is_grad_enabled() and any(p.requires_grad for p in params):
+        rgb, weights = _FusedRenderEnc.apply(mlp, x_enc, d_enc, t_vals, *params)
+    else:
+        rgb, weights, _ = launch_k6_fwd(mlp, x_enc, d_enc, t_vals, train=False)
+    return rgb, weights.detach()

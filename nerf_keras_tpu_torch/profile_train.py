@@ -44,13 +44,16 @@ from nerf_keras_tpu_torch.engine.trainer import Trainer
 from nerf_keras_tpu_torch.profile_render import union_us
 
 # Device kernels by the port's kernel they belong to.  The dW product and
-# its reduce (nerf_dw.cuh) are the last stages of K2 or K5's backward,
-# whichever ran.
+# its reduce (nerf_dw.cuh) are the last stages of the K2, K3, K5 or K6
+# backward, whichever ran.
 KERNELS = {
     "k1": ("fused_render_fwd_kernel",),
     "k2_rows": ("k2_rows_kernel",),
+    "k3_rows": ("k3_rows_kernel",),
     "k5_fwd": ("fused_mlp_fwd_kernel",),
     "k5_rows": ("k5_rows_kernel",),
+    "k6_fwd": ("fused_render_enc_kernel",),
+    "k6_rows": ("k6_rows_kernel",),
     "dw": ("mlp_dw_kernel",),
     "reduce": ("mlp_reduce_kernel",),
 }

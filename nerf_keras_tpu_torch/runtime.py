@@ -1,4 +1,4 @@
-"""Device resolution and numeric settings for the port.
+"""Device resolution, numeric settings and kernel timing for the port.
 
 Every entry point resolves its device here, explicitly.  The plain
 PyTorch path is what each kernel is compared with, so float32 products
@@ -10,6 +10,7 @@ the bug class that once cost the JAX package about 1.3 dB of PSNR
 
 from __future__ import annotations
 
+import statistics
 import subprocess
 
 import torch
@@ -44,3 +45,19 @@ def card_string() -> str:
         check=True, capture_output=True, text=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0].strip()
+
+
+def cuda_ms(fn, reps: int = 10) -> float:
+    """Median milliseconds of ``fn()`` on the card over ``reps`` runs after
+    one warm-up, each bracketed by CUDA events."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)

@@ -1,4 +1,4 @@
-"""K1, K2, K4 and K5 on the card against their plain versions, and the slices on the card.
+"""K1-K7 on the card against their plain versions, and the slices on the card.
 
 Marked ``cuda``: without a card every test here skips (decided inside the
 fixture, never at import).  This file imports no JAX, so it also runs on
@@ -28,6 +28,7 @@ from nerf_keras_tpu_torch.models.mlp import (
 from nerf_keras_tpu_torch.ops.encoding import encode_position
 from nerf_keras_tpu_torch.ops.kernels import fused_mlp as k5
 from nerf_keras_tpu_torch.ops.kernels import fused_render as k1
+from nerf_keras_tpu_torch.ops.kernels import pdf_union as k7
 from nerf_keras_tpu_torch.ops.kernels import quant_render as k4
 from nerf_keras_tpu_torch.ops import quant
 from nerf_keras_tpu_torch.ops.rays import pose_spherical
@@ -442,3 +443,124 @@ def test_trainer_int8_frame_on_card_matches_cpu(dev, tmp_path):
     ref = cpu.render_image(pose, 16, 16, 19.2, chunk=100, quant=True)
     assert np.abs(out["rgb"] - ref["rgb"]).max() <= TOL_MAX
     assert np.abs(out["depth"] - ref["depth"]).max() <= 2e-2
+
+
+# ---------------------------------------------------------------------------
+# K3 (the recompute backward), K6 (over encodings), K7 (pdf + union).
+
+@pytest.mark.parametrize("with_gw", [True, False])
+@pytest.mark.parametrize("b,s", [(333, 100), (1000, 24), (257, 160)])
+def test_k3_equals_k2_bit_for_bit(dev, b, s, with_gw):
+    """bwd_mode="recompute" (K1 with predictions only, then K3) gives K2's
+    gradients to the bit, launching K3 and no K2."""
+    gen = torch.Generator().manual_seed(11)
+    mlp = randomize_biases_(NeRFMLP(generator=gen, device=dev), gen)
+    o, d, t = _rays(dev, b, s, seed=5)
+    g_rgb = torch.randn((b, 3), generator=gen).to(dev)
+    g_w = torch.randn((b, s), generator=gen).to(dev) if with_gw else None
+    want = _kernel_grads(mlp, o, d, t, g_rgb, g_w)
+    before = (k1.train_launches, k1.bwd_launches, k1.recompute_launches)
+    rgb, w = k1.render_rays_fused(mlp, o, d, t, weights_grad=with_gw, bwd_mode="recompute")
+    outs, cots = ([rgb, w], [g_rgb, g_w]) if with_gw else ([rgb], [g_rgb])
+    got = torch.autograd.grad(outs, list(mlp.parameters()), cots)
+    assert (k1.train_launches, k1.bwd_launches, k1.recompute_launches) == (
+        before[0] + 1, before[1], before[2] + 1)
+    for g, r in zip(got, want):
+        assert torch.equal(g, r)
+
+
+def test_k3_checks_its_inputs(dev):
+    mlp = NeRFMLP(num_layers=4, hidden_dim=64, device=dev)
+    o, d, t = _rays(dev, 16, 24)
+    preds = torch.zeros((16 * 24, 4), device=dev)
+    g_rgb = torch.zeros((16, 3), device=dev)
+    with pytest.raises(ValueError, match="preds"):
+        k1.launch_k3(mlp, o, d, t, preds[:-1], g_rgb, None, 10, 4)
+    with pytest.raises(ValueError, match="bwd_mode"):
+        k1.render_rays_fused(mlp, o, d, t, bwd_mode="cached")
+
+
+def _k6_inputs(dev, b, s, seed):
+    """bf16 encodings of the rays' points and of a unit direction per sample."""
+    o, d, t = _rays(dev, b, s, seed=seed)
+    gen = torch.Generator().manual_seed(seed)
+    ds = torch.randn((b, s, 3), generator=gen).to(dev)
+    pts = o[:, None, :] + d[:, None, :] * t[..., None]
+    x_enc = encode_position(pts, 10).to(torch.bfloat16).contiguous()
+    d_enc = encode_position(ds / ds.norm(dim=-1, keepdim=True), 4).to(torch.bfloat16)
+    return x_enc, d_enc.contiguous(), t
+
+
+@pytest.mark.parametrize("b,s", [(1024, 64), (333, 100), (1000, 24), (257, 192)])
+def test_k6_matches_plain(dev, b, s):
+    """K6's forward within K1's gates and its backward within K2's, against
+    the plain MLP + compositing on the same bf16 encodings."""
+    gen = torch.Generator().manual_seed(12)
+    mlp = randomize_biases_(NeRFMLP(generator=gen, device=dev), gen)
+    x_enc, d_enc, t = _k6_inputs(dev, b, s, seed=6)
+    with torch.no_grad():
+        rgb, w = k1.apply_nerf_render_fused(mlp, x_enc, d_enc, t)
+        torch.cuda.synchronize()
+        rgb_p, w_p = k1.apply_nerf_render_reference(mlp, x_enc, d_enc, t)
+    for a, r in ((rgb, rgb_p), (w, w_p)):
+        assert float((a - r).abs().max()) <= TOL_MAX
+        assert float((a - r).abs().mean()) <= TOL_MEAN
+    g_rgb = torch.randn((b, 3), generator=gen).to(dev)
+    before = (k1.enc_launches, k1.enc_bwd_launches, k1.launches)
+    rgb, w = k1.apply_nerf_render_fused(mlp, x_enc, d_enc, t)
+    got = torch.autograd.grad([rgb], list(mlp.parameters()), [g_rgb])
+    assert (k1.enc_launches, k1.enc_bwd_launches, k1.launches) == (
+        before[0] + 1, before[1] + 1, before[2])
+    assert not w.requires_grad
+    want = k1.apply_nerf_render_reference_vjp(mlp, x_enc, d_enc, t, g_rgb)
+    for (name, _), g, r in zip(mlp.named_parameters(), got, want):
+        assert _rel_l2(g, r) <= K2_TOL_REL, (name, _rel_l2(g, r))
+
+
+def test_k6_is_deterministic_and_checks_its_inputs(dev):
+    gen = torch.Generator().manual_seed(13)
+    mlp = randomize_biases_(NeRFMLP(generator=gen, device=dev), gen)
+    x_enc, d_enc, t = _k6_inputs(dev, 300, 64, seed=7)
+    g_rgb = torch.randn((300, 3), generator=gen).to(dev)
+    runs = []
+    for _ in range(2):
+        rgb, _ = k1.apply_nerf_render_fused(mlp, x_enc, d_enc, t)
+        runs.append(torch.autograd.grad([rgb], list(mlp.parameters()), [g_rgb]))
+    assert all(torch.equal(x, y) for x, y in zip(*runs))
+    with pytest.raises(TypeError, match="bfloat16"):
+        k1.apply_nerf_render_fused(mlp, x_enc.float(), d_enc, t)
+    with pytest.raises(ValueError, match="d_enc"):
+        k1.apply_nerf_render_fused(mlp, x_enc, d_enc[:, :1], t)
+
+
+@pytest.mark.parametrize("b,s,nf,sorted_u", [(4096, 64, 128, False), (1000, 64, 128, True),
+                                             (77, 16, 8, False), (300, 40, 50, True)])
+def test_k7_matches_plain(dev, b, s, nf, sorted_u):
+    """K7 against the sample_pdf + sorted_union chain: the coarse values
+    bit-exact in every row, rows ascending, fine values within 1e-3 (the
+    1/denominator amplifies cdf rounding; chip_smoke.py reports the spread),
+    and the same bits on a second run."""
+    gen = torch.Generator().manual_seed(14)
+    t = torch.sort(torch.rand((b, s), generator=gen) * 4.0 + 2.0, dim=-1).values.to(dev)
+    w = (torch.rand((b, s), generator=gen) ** 3).to(dev)
+    w[0] = 0.0
+    w[1] = 0.0
+    w[1, s // 2] = 5.0
+    u = torch.sort(torch.rand((b, nf), generator=gen), dim=-1).values.to(dev) if sorted_u else None
+    before = k7.launches
+    got = k7.sample_pdf_union(t, w, nf, u)
+    assert k7.launches == before + 1
+    want = k7.sample_pdf_union_reference(t, w, nf, u)
+    idx = torch.searchsorted(got, t).clamp(max=s + nf - 1)
+    assert torch.equal(got.gather(1, idx), t)
+    assert bool((got.diff(dim=-1) >= 0).all())
+    assert float((got - want).abs().max()) <= 1e-3
+    assert torch.equal(k7.sample_pdf_union(t, w, nf, u), got)
+
+
+def test_k7_checks_its_inputs(dev):
+    t = torch.sort(torch.rand((8, 16), device=dev), dim=-1).values
+    with pytest.raises(TypeError, match="float32"):
+        k7.sample_pdf_union(t, t.double(), 4)
+    with pytest.raises(ValueError, match="u_sorted"):
+        k7.sample_pdf_union(t, t, 4, u_sorted=torch.rand((8, 5), device=dev))

@@ -223,8 +223,8 @@ def _imports(path: pathlib.Path) -> list[str]:
 
 def test_port_imports_no_jax():
     """Neither the port nor chip_smoke.py imports JAX or any module of the
-    JAX package, not even its stdlib-only config (the port keeps its own
-    copy).  A source scan: the test process imports JAX itself, so
+    JAX package or of ``experimental/``, not even the JAX package's
+    stdlib-only config (the port keeps its own copy).  A source scan: the test process imports JAX itself, so
     sys.modules cannot tell."""
     smoke = PORT_ROOT.parent / "chip_smoke.py"
     files = sorted(PORT_ROOT.rglob("*.py")) + [smoke]
@@ -233,6 +233,7 @@ def test_port_imports_no_jax():
     for path in files:
         for name in _imports(path):
             top = name.split(".")[0]
-            if top in ("jax", "jaxlib", "flax", "optax", "PIL", "nerf_keras_tpu"):
+            if top in ("jax", "jaxlib", "flax", "optax", "PIL", "nerf_keras_tpu",
+                       "experimental"):
                 bad.append(f"{path.relative_to(PORT_ROOT.parent)}: {name}")
     assert not bad, bad
