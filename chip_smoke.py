@@ -14,6 +14,13 @@ nonzero — nothing falls back to the CPU or to a plain path):
    step's shapes (8x256, B=4096, S=160, random biases): per-leaf gradient
    errors against autograd of the plain K1, within a gate that a dropped
    weights cotangent misses by 10x or more; CUDA-event times;
+   4b. K2 over chunks of whole rays (its workspace holds one chunk): the
+   default 640 MiB budget and two smaller ones (>= 3 chunks, a ragged last
+   one) within K2's gate of one chunk holding the whole batch; two runs
+   bit-identical; K3 equal to K2 bit for bit at the smallest budget; time
+   and per-kernel device ms at each budget; the dW product's library
+   yardstick (``torch.matmul`` of each layer's A^T D, never called by the
+   port);
 5. K5 (the MLP over encodings) forward and backward against their plain
    versions at the parity step's shapes (8x256, N = 786,432 fine, 262,144
    coarse, and a ragged N): raw predictions, per-leaf gradients, the
@@ -28,11 +35,13 @@ nonzero — nothing falls back to the CPU or to a plain path):
    96 samples) takes 10 steps on one fixed batch: one K1 and one K2
    launch per step by the counters, a falling loss, one step's gradients
    on the kernel path against the plain path with the same draws, the
-   median step time; then ``evaluate`` and a 200x200 frame;
+   median step time, the step's peak memory (<= 1,536 MiB); then
+   ``evaluate`` and a 200x200 frame;
 8. parity train, STOP_PDF_GRADIENT=true (the default recipe at
    ``lego_batch_h256_tpu`` widths: batch 4096, 64 + 128 samples): 20
    steps, two K1 and two K2 launches per step and no K5, a falling loss,
-   one step's gradients kernel path vs plain path, median step time; then
+   one step's gradients kernel path vs plain path, median step time and
+   peak memory (<= 1,536 MiB); then
    ``evaluate`` and a 200x200 frame;
 9. parity train, STOP_PDF_GRADIENT=false: 5 steps, two K5 forward and two
    K5 backward launches per step and no K1/K2, finite losses, one step's
@@ -193,6 +202,13 @@ K4_TOL_MEAN = 1e-5
 # The int8 PSNR gate against the float render (the server's default).
 QUANT_GATE_DB = 30.0
 
+# Peak device memory over a K1/K2 train step (max_memory_allocated over
+# what was allocated before it): K2's workspace holds one chunk of rays
+# (ops/kernels/fused_render.py: DW_CHUNK_BYTES), so the step stays below
+# this at batch 4096 whatever the samples per ray (on an H100: 942 MiB
+# proposal, 831 MiB parity; 7.6-7.9 GB before the chunks).
+STEP_PEAK_MIB = 1536
+
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 tensor-core FLOP/s (data sheet)
 PEAK_INT8 = 1979e12  # H100 SXM dense int8 tensor-core OP/s (data sheet)
 HBM_BYTES_S = 3.35e12  # H100 SXM device memory bytes/s (data sheet)
@@ -321,12 +337,13 @@ def k7_bound(b, s, nf, u_given):
     return bound(0.0, b * (s * 8 + (s + nf) * 4 + (nf * 4 if u_given else 0)))
 
 
-def kernel_entry(name, key, launches, max_abs_err, ms, plain_ms, bnd) -> dict:
+def kernel_entry(name, key, launches, max_abs_err, ms, plain_ms, bnd,
+                 library_ms=None) -> dict:
     source, replaces = SOURCES[key]
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": max_abs_err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
-            "library_ms": None}
+            "library_ms": library_ms}
 
 
 def reset_counts() -> None:
@@ -422,19 +439,26 @@ def _leaf_errors(got: list, want: list) -> tuple[float, float]:
     return max_abs, max(_rel_l2(g, w) for g, w in zip(got, want))
 
 
+def _k2_inputs(dev):
+    """The bench step's shapes (B=4096 rays, S=160 = 64 + 96): the MLP,
+    rays, t-values and cotangents of comparable size for rgb and weights,
+    so that either one dropped moves the gradients far beyond the gate."""
+    gen = torch.Generator().manual_seed(1)
+    mlp = full_mlp(dev, 1)
+    _, origins, dirs = (torch.as_tensor(x, device=dev) for x in bench_batch(4096))
+    b, s = origins.shape[0], 160
+    t = generate_t_vals(2.0, 6.0, (b,), s, "stratified", generator=gen).to(dev).contiguous()
+    g_rgb = (torch.randn((b, 3), generator=gen) * 1e-3).to(dev)
+    g_w = (torch.randn((b, s), generator=gen) * 1e-3).to(dev)
+    return mlp, origins, dirs, t, g_rgb, g_w
+
+
 def phase_k2(card: str) -> dict:
     """K1 in training mode and K2 against their plain versions at the
     bench step's shapes (B=4096 rays, S=160 = 64 + 96)."""
     dev = torch.device("cuda")
-    gen = torch.Generator().manual_seed(1)
-    mlp = full_mlp(dev, 1)
-    images, origins, dirs = (torch.as_tensor(x, device=dev) for x in bench_batch(4096))
-    b, s = origins.shape[0], 160
-    t = generate_t_vals(2.0, 6.0, (b,), s, "stratified", generator=gen).to(dev).contiguous()
-    # Cotangents of comparable size for rgb and weights, so that either one
-    # dropped moves the gradients far beyond the gate.
-    g_rgb = (torch.randn((b, 3), generator=gen) * 1e-3).to(dev)
-    g_w = (torch.randn((b, s), generator=gen) * 1e-3).to(dev)
+    mlp, origins, dirs, t, g_rgb, g_w = _k2_inputs(dev)
+    b, s = t.shape
     params = list(mlp.parameters())
     with torch.no_grad():
         rgb_t, w_t, x_enc, preds = k1.launch_k1(mlp, origins, dirs, t, 10, 4, train=True)
@@ -486,6 +510,110 @@ def phase_k2(card: str) -> dict:
     return {"max_abs_err": max_abs, "ms": k2_ms, "plain_ms": plain_bwd_ms, "bound": k2_bnd,
             "k1_train_err": preds_err, "k1_train_ms": k1_train_ms,
             "k1_train_plain_ms": k1_plain_ms, "k1_train_bound": k1t_bnd}
+
+
+# K2's kernels, by the names the profiler reports.
+K2_STAGES = {"vjp": ("composite_vjp_kernel",), "rows": ("k2_rows_kernel",),
+             "dw": ("mlp_dw_kernel",), "reduce": ("mlp_reduce_kernel",)}
+# Workspace budgets of K2's chunks (bytes): the default, and two that force
+# several chunks with a ragged last one; the smallest keeps a chunk's A/D
+# (~40 MB at 10,112 B per sample) inside the 50 MB L2 between the rows
+# kernel and the dW product.
+K2_BUDGETS = {"mid": 160 << 20, "l2": 40 << 20}
+
+
+def device_ms_by_kernel(fn, families: dict) -> dict:
+    """Device milliseconds of each kernel family in one call of ``fn``
+    (``torch.profiler``), and of all device work."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    span = lambda e: e.time_range.end - e.time_range.start  # noqa: E731
+    out = {k: sum(span(e) for e in events if any(n in e.name for n in names)) / 1e3
+           for k, names in families.items()}
+    out["all"] = sum(span(e) for e in events) / 1e3
+    return out
+
+
+def phase_k2_chunks(card: str) -> dict:
+    """K2 over chunks of whole rays at the bench step's shapes: the default
+    budget and two that force several chunks with a ragged last one, each
+    within K2's gate of one chunk holding the whole batch; run twice at the
+    default (identical bits); K3 against K2 bit for bit at the smallest budget;
+    times and the per-kernel breakdown at each budget; the dW product's
+    library yardstick (``torch.matmul`` of A^T D per layer over the batch,
+    never called by the port)."""
+    dev = torch.device("cuda")
+    mlp, origins, dirs, t, g_rgb, g_w = _k2_inputs(dev)
+    b, s = t.shape
+    default = k1.DW_CHUNK_BYTES
+    fwd, bwd = k1.kernel_pack_wg(mlp, dev), k1.kernel_pack_bwd_wg(mlp, dev)
+    bps = k1.DwBuffers.bytes_per_sample(fwd, bwd)
+    fields = {}
+    with torch.no_grad():
+        _, _, x_enc, preds = k1.launch_k1(mlp, origins, dirs, t, 10, 4, train=True)
+        run = lambda: k1.launch_k2(mlp, x_enc, dirs, t, preds, g_rgb, g_w, 10, 4)  # noqa: E731
+        base = run()
+        again = run()
+        torch.cuda.synchronize()
+        deterministic = all(torch.equal(x, y) for x, y in zip(base, again))
+        try:
+            k1.DW_CHUNK_BYTES = 1 << 40  # one chunk: the whole batch's workspace
+            one = run()
+            torch.cuda.synchronize()
+            one_ms = cuda_ms(run)
+            fields["one_chunk"] = {"ms": one_ms, "device_ms": device_ms_by_kernel(run, K2_STAGES),
+                                   "rel_l2_vs_default": _leaf_errors(base, one)[1]}
+            base = one
+            del one
+            for name, budget in {"default": default, **K2_BUDGETS}.items():
+                k1.DW_CHUNK_BYTES = budget
+                plan = k1.chunk_plan(b, s, bps)
+                got = run()
+                torch.cuda.synchronize()
+                max_abs, rel = _leaf_errors(got, base)
+                fields[name] = {
+                    "budget_mib": budget / 2**20, "chunks": len(plan),
+                    "rays_per_chunk": plan[0][1], "last_chunk_rays": plan[-1][1],
+                    "max_abs_vs_one_chunk": max_abs, "rel_l2_vs_one_chunk": rel,
+                    "ms": cuda_ms(run), "device_ms": device_ms_by_kernel(run, K2_STAGES)}
+                if name == "l2":
+                    k3 = k1.launch_k3(mlp, origins, dirs, t, preds, g_rgb, g_w, 10, 4)
+                    fields["k3_bit_equal_k2_at_l2"] = all(
+                        torch.equal(x, y) for x, y in zip(k3, got))
+                    del k3
+                del got
+        finally:
+            k1.DW_CHUNK_BYTES = default
+        del base, again, x_enc, preds
+        torch.cuda.empty_cache()
+        layout = k1.workspace_layout(fwd, bwd)
+        n = b * s
+        pairs = [(torch.randn((n, int(a)), device=dev, dtype=torch.bfloat16),
+                  torch.randn((n, int(d)), device=dev, dtype=torch.bfloat16))
+                 for a, d in zip(layout[:, 1], layout[:, 3])]
+        library_ms = cuda_ms(lambda: [torch.matmul(a.t(), d) for a, d in pairs])
+        del pairs
+        torch.cuda.empty_cache()
+    say("k2_chunks", B=b, S=s, bytes_per_sample=bps, deterministic=deterministic,
+        dw_library_ms=library_ms, tol_rel=K2_TOL_REL, **fields, card=card)
+    if not deterministic:
+        raise RuntimeError("K2 run twice gave different bits")
+    if not fields["k3_bit_equal_k2_at_l2"]:
+        raise RuntimeError("K3 differs from K2 at the chunked size")
+    for name in K2_BUDGETS:
+        f = fields[name]
+        if f["chunks"] < 3 or f["last_chunk_rays"] >= f["rays_per_chunk"]:
+            raise RuntimeError(f"budget {name} did not give >= 3 chunks with a ragged last one")
+        if f["rel_l2_vs_one_chunk"] > K2_TOL_REL:
+            raise RuntimeError(f"K2 in chunks ({name}) disagrees with one chunk: "
+                               f"{f['rel_l2_vs_one_chunk']}")
+    return {"library_ms": library_ms, "budgets": fields}
 
 
 def _k5_inputs(dev, n, seed):
@@ -917,9 +1045,11 @@ def _train_steps(trainer, batch, steps, per_step: dict, step_fn=None) -> dict:
     batch, draws, generator)`` on the trainer's state) with the counters
     reset just before; each must launch exactly ``per_step``."""
     reset_counts()
-    step_ms, loss_curve = [], []
+    step_ms, loss_curve, peak = [], [], 0
     for i in range(steps):
         before = counts()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         if step_fn is None:
             metrics = trainer.train_step(batch)
@@ -927,12 +1057,14 @@ def _train_steps(trainer, batch, steps, per_step: dict, step_fn=None) -> dict:
             metrics = step_fn(trainer.state, batch, None, trainer.generator)
         loss_curve.append(float(metrics["loss"]))  # synchronises
         step_ms.append((time.perf_counter() - t0) * 1e3)
+        peak = max(peak, torch.cuda.max_memory_allocated() - base)
         grew = {k: v - before[k] for k, v in counts().items()}
         if grew != per_step:
             raise RuntimeError(f"step {i} launched {grew}, expected {per_step}")
     warm = statistics.median(step_ms[2:]) if steps > 2 else statistics.median(step_ms)
     return {"launches": counts(), "loss_curve": loss_curve, "step_ms": step_ms,
-            "median_step_ms": warm, "rays_per_s": trainer.cfg.batch_size / (warm / 1e3)}
+            "median_step_ms": warm, "rays_per_s": trainer.cfg.batch_size / (warm / 1e3),
+            "peak_step_mib": peak / 2**20}
 
 
 def _eval_and_frame(trainer, batch, what: str) -> tuple[dict, dict]:
@@ -972,6 +1104,8 @@ def phase_train(card: str) -> tuple[list[dict], Trainer]:
     say("train", steps=10, **run, eval=ev, eval_frame_launches=after, card=card)
     if not run["loss_curve"][-1] < run["loss_curve"][0]:
         raise RuntimeError(f"the loss did not fall: {run['loss_curve']}")
+    if run["peak_step_mib"] > STEP_PEAK_MIB:
+        raise RuntimeError(f"a proposal step peaked at {run['peak_step_mib']} MiB")
     return [run["launches"], after], trainer
 
 
@@ -1003,6 +1137,8 @@ def phase_parity(card: str, stop: bool, tmp: str) -> tuple[list[dict], str | Non
         raise RuntimeError(f"{name}: non-finite losses {run['loss_curve']}")
     if stop and not run["loss_curve"][-1] < run["loss_curve"][0]:
         raise RuntimeError(f"{name}: the loss did not fall: {run['loss_curve']}")
+    if stop and run["peak_step_mib"] > STEP_PEAK_MIB:
+        raise RuntimeError(f"{name}: a step peaked at {run['peak_step_mib']} MiB")
     if not stop:
         say(name, steps=steps, **run, card=card)
         return [run["launches"]], None
@@ -1384,6 +1520,8 @@ def main() -> None:
     k1r = phase_kernel(card)
     k2r = phase_k2(card)
     torch.cuda.empty_cache()
+    k2c = phase_k2_chunks(card)
+    torch.cuda.empty_cache()
     k5r = phase_k5(card)
     torch.cuda.empty_cache()
     k4r = phase_k4(card)
@@ -1417,7 +1555,7 @@ def main() -> None:
                      k2r["k1_train_err"], k2r["k1_train_ms"], k2r["k1_train_plain_ms"],
                      k2r["k1_train_bound"]),
         kernel_entry("K2 fused_render_bwd", "K2", _sum(runs, "k2"), k2r["max_abs_err"],
-                     k2r["ms"], k2r["plain_ms"], k2r["bound"]),
+                     k2r["ms"], k2r["plain_ms"], k2r["bound"], k2c["library_ms"]),
         kernel_entry("K5-fwd fused_mlp_fwd", "K5f", _sum(runs, "k5_fwd"),
                      k5r["fwd_max_abs_err"], k5r["fwd_ms"], k5r["fwd_plain_ms"],
                      k5r["fwd_bound"]),

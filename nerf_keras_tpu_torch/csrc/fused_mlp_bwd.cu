@@ -31,7 +31,7 @@
 //      nerf_tile.cuh's mlp_backward_tile recomputes the activations from
 //      the stored encodings, keeps the ReLU signs as bitmasks, walks the
 //      layers in reverse, and writes each layer's bf16 input (A) and dPre
-//      (D) to a sample-major workspace; bias sums stay in shared memory,
+//      (D) to the workspace in nerf_dw.cuh's tiled layout; bias sums stay in shared memory,
 //      one partial row per block.  With input gradients the transposed
 //      pack carries every input column of every layer (layer 0's rows too,
 //      which K2's pack omits), so the products' extra columns are the
@@ -40,12 +40,14 @@
 //      without, two per SM), dd_enc goes out from the branch product's
 //      tile.
 //   2. mlp_dw_kernel and mlp_reduce_kernel (nerf_dw.cuh, K2's): dW = A^T D
-//      per layer as a tiled product split over row ranges, then a
-//      fixed-order sum of the slabs and of the per-block bias rows.
+//      per layer on wgmma, split over sample ranges, then a fixed-order
+//      sum of the slabs and of the per-block bias rows.  K5 keeps one
+//      workspace for all N samples (rows padded to 64), not K2's chunks.
 // No atomics: the same sums in the same order on every run.  Ragged N is
-// masked in the kernel (rows past N have zero cotangent, load zeros, and
-// are neither stored nor written).  wgmma, TMA and keeping A/D on chip
-// are later work.
+// masked in the kernel (rows past N have zero cotangent and load zeros;
+// their workspace rows are stored and add nothing to dW).  The rows
+// kernel keeps nerf_tile.cuh's mma.sync tile; moving it to wgmma is
+// queued after K2's.
 
 #include "nerf_dw.cuh"
 
@@ -61,7 +63,7 @@ struct RowParams {
   float* db_part;              // (grid, total_b)
   __nv_bfloat16* dx_out;       // (N, xyz_dim) or null
   __nv_bfloat16* dd_out;       // (N, dir_dim) or null
-  int ntiles, total_b;
+  int n, ntiles, total_b;  // samples, 64-row tiles, bias-pack length
 };
 
 __global__ void __launch_bounds__(kThreads, 2)
@@ -84,7 +86,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   // The first barrier inside mlp_backward_tile orders these writes.
   for (int tile = blockIdx.x; tile < p.ntiles; tile += gridDim.x) {
     const size_t row0 = (size_t)tile * kTileRows;
-    const int nrows = min(kTileRows, p.mb.N - tile * kTileRows);
+    const int nrows = min(kTileRows, p.n - tile * kTileRows);
     auto dir = [&](int row, int c) {
       return row < nrows && c < m.dir_dim ? p.d_enc[(row0 + row) * m.dir_dim + c]
                                           : __float2bfloat16_rn(0.f);
@@ -106,10 +108,12 @@ __global__ void __launch_bounds__(kThreads, 2)
 // full one whose every layer has all its input columns), `desc_ws`
 // (n_dense x 5: a_col, a_width, d_col, d_width, out_off), in the order
 // trunk[0..num_layers), merged head, branch, rgb.  Workspaces (allocated
-// by the caller): ws_a (N x sum a_width) and ws_d (N x sum d_width) bf16,
+// by the caller): ws_a (N64 x sum a_width) and ws_d (N64 x sum d_width)
+// bf16, N64 = round_up(N, 64),
 // db_part (grid x total_b) and dw_part (nsplit x total_out) f32.  Outputs
 // dw (total_out) and db (total_b) f32, and where given dx_out (N, xyz_dim)
-// and dd_out (N, dir_dim) bf16.  `grid` blocks stride over the ceil(N/64)
+// and dd_out (N, dir_dim) bf16.  The workspaces hold round_up(N, 64) rows
+// per layer in nerf_dw.cuh's tiled layout.  `grid` blocks stride over the ceil(N/64)
 // tiles (at most that many).  Launches on `stream`, returns the first
 // CUDA error (0 on success); does not synchronise.
 extern "C" int nkt_fused_mlp_bwd(
@@ -149,7 +153,8 @@ extern "C" int nkt_fused_mlp_bwd(
   mb.wb = static_cast<const __nv_bfloat16*>(wb_pack);
   mb.ws_a = static_cast<__nv_bfloat16*>(ws_a);
   mb.ws_d = static_cast<__nv_bfloat16*>(ws_d);
-  mb.N = N;
+  mb.N = round_up(N, kTileRows);
+  p.n = N;
   p.x_enc = static_cast<const __nv_bfloat16*>(x_enc);
   p.d_enc = static_cast<const __nv_bfloat16*>(d_enc);
   p.g = static_cast<const float*>(g);
@@ -170,7 +175,12 @@ extern "C" int nkt_fused_mlp_bwd(
   k5_rows_kernel<<<grid, kThreads, smem, st>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return (int)launch_dw_reduce(mb, n_dense, total_out, total_b, static_cast<float*>(dw_part),
-                               nsplit, static_cast<float*>(dw_out), p.db_part, grid,
-                               static_cast<float*>(db_out), st);
+  DwPlan dw;
+  if (!dw_plan(dw, mb, n_dense, mb.N, total_out, nsplit, static_cast<float*>(dw_part)))
+    return (int)cudaErrorInvalidValue;
+  err = launch_dw(dw, mb.N / kDwRows, false, st);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_reduce(static_cast<float*>(dw_part), nsplit, total_out,
+                            static_cast<float*>(dw_out), p.db_part, grid, total_b,
+                            static_cast<float*>(db_out), st);
 }

@@ -22,48 +22,51 @@
 // bias gradients sum the f32 dPre.  The weights cotangent is read only
 // when the pointer is given.
 //
-// What bounds it: ~2.4 MFLOP of products per sample at full width (the
+// What bounds it: ~2.3 MFLOP of products per sample at full width (the
 // forward recompute, the dX chain and dW), with dW summed over every
 // sample of the batch (655,360 at the bench step) into 595,844 f32
 // parameters.  The TPU grid runs in order and keeps dW resident in VMEM;
 // Hopper's blocks run in parallel with 227 KB of shared memory each, and
-// one f32 atomic per parameter per 64-row tile would be ~6e9 atomics.
+// one f32 atomic per parameter per tile would be ~6e9 atomics.  The first
+// design (mma.sync on 64-row tiles, weights read from L2 by every warp)
+// ran the rows kernel at ~11% of the bf16 peak, and its workspace (the
+// bf16 layer inputs and dPre of every sample, 10,112 B each) was the peak
+// memory of every training step.
 //
-// What the design does about that: three kernels on one stream, no
+// What the design does about that: four kernels on one stream, no
 // atomics, the same sums in the same order on every run (deterministic).
-//   1. the rows kernel, one block per R rays (R = max(1, 64/S)), as K1.
-//      The stored predictions let it run the per-ray compositing VJP
-//      first (one warp per ray; the exclusive suffix sum is a chunk per
-//      lane, a warp suffix scan, and a reverse walk of the chunk, not the
-//      TPU's log-scan), giving dpreds (rgb logits, sigma) per sample.
-//      Then per 64-sample tile it re-encodes the direction per ray,
-//      recomputes the MLP from the x_enc residual (same products as K1,
-//      so the same ReLU pattern), keeps each ReLU's sign as a bitmask in
-//      shared memory, and walks the MLP backwards with the dX products
-//      (merged feature+sigma head, skip split: only the hidden columns
-//      of a layer input get dX).  Each layer's bf16 input (A) and bf16
-//      dPre (D) are written to a global workspace, layer-major,
-//      (B*S, width) each; bias sums stay in shared memory and go out as
-//      one partial row per block.  Shared memory: a 64-row tile of every
-//      layer input would be 2,592 bf16 columns, ~330 KB; spilling A and
-//      D leaves two ping-pong tiles, the masks and the bias sums
-//      (~112 KB at 8x256, S=160: two blocks per SM).
-//      The recompute and the walk are nerf_tile.cuh's mlp_backward_tile,
-//      which K5's backward (fused_mlp_bwd.cu) runs too.
-//   2. mlp_dw_kernel (nerf_dw.cuh): dW = A^T D per layer, contracting over
-//      samples, as a tiled product (128x128 output tiles, 8 warps of
-//      32x64, 64-row stages double-buffered with cp.async, fragments by
-//      ldmatrix.trans because both operands are sample-major), split over
-//      row ranges; each block writes its partial tile to a slab.
-//   3. mlp_reduce_kernel (nerf_dw.cuh): sums the dW slabs and the
-//      per-block bias rows in a fixed order.
-// Orientation: K1's pack is W^T interleaved (row = output column); the
-// dX products read W in the other orientation, so K2 has its own pack
-// (row = layer input column, k = layer output, same interleave).  Ragged
-// edges: rows past a block's last sample get zero dpreds, so they add
-// nothing, and the workspace holds only the B*S real samples.  No TF32
-// anywhere (bf16 tensor-core products, f32 elsewhere), no fast math.
-// wgmma, TMA and keeping A/D on chip are later work.
+//   1. composite_vjp_kernel: the per-ray compositing VJP from K1's stored
+//      predictions (one warp per ray; the exclusive suffix sum is a chunk
+//      per lane, a warp suffix scan, and a reverse walk of the chunk, not
+//      the TPU's log-scan), giving dpreds (rgb logits, sigma) per sample.
+//   Then, over chunks of whole rays in order (the workspace holds one
+//   chunk, ops/kernels/fused_render.py: chunk_plan):
+//   2. the rows kernel: per 128-sample tile of the chunk, the MLP's
+//      recompute and reverse walk on nerf_wgmlp.cuh's wgmma product (two
+//      consumer warpgroups, weights staged by a producer warpgroup with
+//      bulk copies), direction features encoded per sample row; ReLU signs
+//      as bits in shared memory; each layer's bf16 input (A) and dPre (D)
+//      written to the chunk's workspace in the dW product's tiled layout;
+//      bias sums in shared memory, added into one row per block.  A block
+//      strides over the chunk's tiles (grid <= SMs).  Shared memory at
+//      8x256: the 128 x 328 bf16 activation tile (83,968 B), the ReLU
+//      bits of 9 layers (36,864 B), the bias sums (9,792 B), the
+//      column-sum scratch (16,384 B) and a ring of 2 weight stages of 264
+//      x 64 bf16 (67,584 B): 214,720 B, one block per SM.  Its epilogues
+//      (masks, bf16 stores, column sums) take ~40% of its time on an H100
+//      (PERF.md).
+//   3. mlp_dw_kernel (nerf_dw.cuh): dW = A^T D per layer on wgmma with
+//      both operands MN-major in shared memory, stages of 64 samples
+//      brought by bulk copies, split over sample ranges; each block adds
+//      its partial tile into its slab (chunks in order: deterministic).
+//   4. mlp_reduce_kernel (nerf_dw.cuh), once after the last chunk: sums
+//      the dW slabs and the per-block bias rows in a fixed order.
+// Orientation: the forward pack is W^T (row = output column); the dX
+// products read W in the other orientation, so K2 has its own pack (row =
+// layer input column, k = layer output), both in wgmma's core-matrix
+// layout.  Ragged edges: rows past the chunk's last sample get zero
+// dpreds and zero inputs, so their D is zero and they add nothing.  No
+// TF32 anywhere (bf16 tensor-core products, f32 elsewhere), no fast math.
 //
 // The rows kernel has three modes, one __global__ each (one body):
 //   * k2_rows_kernel (K2): position features from K1's x_enc residual.
@@ -76,7 +79,7 @@
 //     predictions (16 B per sample) against K2's 142 B.  Given the same
 //     predictions its dW/db are K2's bit for bit.  The cost is the encode
 //     twice per tile (layer 0 and the skip concat): ~120 sin/cos per
-//     sample against ~2.4 MFLOP of products.
+//     sample against ~2.3 MFLOP of products.
 //   * k6_rows_kernel (K6's backward): replaces `_bwd_kernel`
 //     (fused_render.py:350, pl.pallas_call at :592), the backward of
 //     `apply_nerf_render_pallas`: position and direction encodings both
@@ -84,6 +87,7 @@
 //     cotangent (the JAX entry's weights carry no gradient).
 
 #include "nerf_dw.cuh"
+#include "nerf_wgmlp.cuh"
 
 using namespace nkt;
 
@@ -91,206 +95,204 @@ namespace {
 
 // Where the rows kernel takes the MLP's inputs from.
 enum RowsMode {
-  kResidual = 0,     // K2: x_enc residual, directions encoded per ray
-  kRecompute = 1,    // K3: x_enc encoded from (origins, dirs, t), directions per ray
+  kResidual = 0,     // K2: x_enc residual, directions encoded per sample row
+  kRecompute = 1,    // K3: x_enc encoded from (origins, dirs, t)
   kEncodingsIn = 2,  // K6: x_enc and d_enc per sample, as given
 };
 
+// ---- 1. The compositing VJP: dpreds (B*S, 4) from K1's predictions.
+__global__ void __launch_bounds__(256)
+    composite_vjp_kernel(const float* t_vals, const float* preds, const float* g_rgb,
+                         const float* g_w, float* dpreds, int B, int S) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int ray = blockIdx.x * 8 + warp;
+  if (ray >= B) return;
+  float* dp = dpreds + (size_t)ray * S * 4;
+  const float* tr = t_vals + (size_t)ray * S;
+  const float* pr = preds + (size_t)ray * S * 4;
+  const float* gw = g_w != nullptr ? g_w + (size_t)ray * S : nullptr;
+  const float gr0 = g_rgb[(size_t)ray * 3 + 0];
+  const float gr1 = g_rgb[(size_t)ray * 3 + 1];
+  const float gr2 = g_rgb[(size_t)ray * 3 + 2];
+  const int chunk = (S + 31) / 32;
+  const int j0 = min(lane * chunk, S);
+  const int j1 = min(j0 + chunk, S);
+  float prod = 1.f;
+  for (int j = j0; j < j1; ++j) {
+    const float delta = j + 1 < S ? tr[j + 1] - tr[j] : kTerminalDelta;
+    const float alpha = 1.f - expf(-fmaxf(pr[j * 4 + 3], 0.f) * delta);
+    prod *= fmaxf(1.f - alpha, 0.f) + kEps;
+  }
+  float incl = prod;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float v = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl *= v;
+  }
+  float trans = __shfl_up_sync(0xffffffffu, incl, 1);
+  if (lane == 0) trans = 1.f;
+  // Forward walk: p_j = w_j * dw_sum_j (stored), trans_j (stored).
+  float psum = 0.f;
+  for (int j = j0; j < j1; ++j) {
+    const float delta = j + 1 < S ? tr[j + 1] - tr[j] : kTerminalDelta;
+    const float alpha = 1.f - expf(-fmaxf(pr[j * 4 + 3], 0.f) * delta);
+    float dws = gw != nullptr ? gw[j] : 0.f;
+    dws = dws + gr0 * sigmoidf_(pr[j * 4 + 0]);
+    dws = dws + gr1 * sigmoidf_(pr[j * 4 + 1]);
+    dws = dws + gr2 * sigmoidf_(pr[j * 4 + 2]);
+    const float pj = alpha * trans * dws;
+    dp[j * 4 + 0] = pj;
+    dp[j * 4 + 1] = trans;
+    dp[j * 4 + 2] = dws;
+    psum += pj;
+    trans *= fmaxf(1.f - alpha, 0.f) + kEps;
+  }
+  // Exclusive suffix over lanes of the chunk sums.
+  float sincl = psum;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float v = __shfl_down_sync(0xffffffffu, sincl, off);
+    if (lane + off < 32) sincl += v;
+  }
+  float suffix = __shfl_down_sync(0xffffffffu, sincl, 1);
+  if (lane == 31) suffix = 0.f;
+  // Reverse walk of the chunk: suffix = sum_{k > j} p_k.
+  for (int j = j1 - 1; j >= j0; --j) {
+    const float pj = dp[j * 4 + 0];
+    const float tj = dp[j * 4 + 1];
+    const float dws = dp[j * 4 + 2];
+    const float delta = j + 1 < S ? tr[j + 1] - tr[j] : kTerminalDelta;
+    const float sigma = fmaxf(pr[j * 4 + 3], 0.f);
+    const float alpha = 1.f - expf(-sigma * delta);
+    const float dalpha = tj * dws - suffix / (fmaxf(1.f - alpha, 0.f) + kEps);
+    suffix += pj;
+    const float dsigma = sigma > 0.f ? dalpha * (delta * expf(-sigma * delta)) : 0.f;
+    const float gr[3] = {gr0, gr1, gr2};
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const float rc = sigmoidf_(pr[j * 4 + c]);
+      dp[j * 4 + c] = gr[c] * alpha * tj * rc * (1.f - rc);
+    }
+    dp[j * 4 + 3] = dsigma;
+  }
+}
+
+// ---- 2. The rows kernel over one chunk of samples.
 struct RowParams {
-  MlpBwdParams mb;             // packs, workspaces, layer descriptors
+  MlpBwdParams mb;             // wgmma packs, the chunk's workspaces, descriptors
   const __nv_bfloat16* x_res;  // (B*S, xyz_dim): K2's residual, K6's x_enc
   const float* origins;        // (B, 3): K3
   const float* dirs;           // (B, 3): K2, K3
   const __nv_bfloat16* d_enc;  // (B*S, dir_dim): K6
   const float* t_vals;         // (B, S)
-  const float* preds;          // (N, 4)
-  const float* g_rgb;          // (B, 3)
-  const float* g_w;            // (B, S) or null
+  const float* dpreds;         // (B*S, 4)
   float* db_part;              // (grid, total_b)
-  int B, S, R, total_b;
+  long long n0;                // the chunk's first sample
+  int nc, ntiles, S, total_b, accumulate, stages, stage_bytes, sld;
 };
 
-template <int MODE>
+template <int H, int MODE>
 __device__ __forceinline__ void rows_body(const RowParams& p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const MlpDims& m = p.mb.m;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const MlpBwdParams& mb = p.mb;
+  const MlpDims& m = mb.m;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
   const int ldx = m.ldx;
-  const int R = p.R;
-  const int S = p.S;
   const int L = m.num_layers;
-  const int MW = p.mb.mask_words;
+  const int MW = mb.mask_words;
+  const int S = p.S;
 
-  __nv_bfloat16* buf0 = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* buf1 = buf0 + kTileRows * ldx;
-  __nv_bfloat16* denc = buf1 + kTileRows * ldx;  // (R, dir_pad)
-  uint32_t* masks = reinterpret_cast<uint32_t*>(denc + R * m.dir_pad);
-  //                 (L + 1) x (64, MW): trunk layers, then the branch
-  float* dpreds = reinterpret_cast<float*>(masks + (L + 1) * kTileRows * MW);
-  //                 (R*S, 4): d rgb logits, d sigma
-  float* db = dpreds + R * S * 4;  // (total_b), the K1 bias-pack layout
-  float* ray_d = db + p.total_b;   // (R, 4)
-  float* ray_o = ray_d + R * 4;    // (R, 4), K3 only
+  WRing ring;
+  ring.full = reinterpret_cast<uint64_t*>(smem);
+  ring.empty = ring.full + kMaxStages;
+  ring.buf = smem + kBarBytes;
+  ring.stages = p.stages;
+  ring.stage_bytes = p.stage_bytes;
+  __nv_bfloat16* act = reinterpret_cast<__nv_bfloat16*>(ring.buf + p.stages * p.stage_bytes);
+  uint32_t* masks = reinterpret_cast<uint32_t*>(act + kWgRows * ldx);  // (L+1) x (128, MW)
+  float* scratch = reinterpret_cast<float*>(masks + (L + 1) * kWgRows * MW);  // 2 x 8 x sld
+  float* db = scratch + 2 * kConsumerWarps * p.sld;  // (total_b), the forward bias-pack layout
 
-  const int r0 = blockIdx.x * R;
-  const int nrays = min(R, p.B - r0);
-  const int P = nrays * S;
-  const size_t s0 = (size_t)r0 * S;  // first sample of the block
-
-  for (int i = tid; i < p.total_b; i += kThreads) db[i] = 0.f;
-  if (MODE != kEncodingsIn) {
-    for (int i = tid; i < R * 3; i += kThreads) {
-      const int r = i / 3, c = i - r * 3;
-      const bool ok = r < nrays;
-      ray_d[r * 4 + c] = ok ? p.dirs[(size_t)(r0 + r) * 3 + c] : 0.f;
-      if (MODE == kRecompute) ray_o[r * 4 + c] = ok ? p.origins[(size_t)(r0 + r) * 3 + c] : 0.f;
-    }
-    __syncthreads();
-    for (int i = tid; i < R * m.dir_pad; i += kThreads) {
-      const int r = i / m.dir_pad, c = i - r * m.dir_pad;
-      denc[i] = __float2bfloat16_rn(encode_feature(ray_d + r * 4, c, m.dir_dim));
-    }
-  }
-
-  // ---- Compositing VJP: one warp per ray, a contiguous chunk per lane.
-  const int chunk = (S + 31) / 32;
-  for (int r = warp; r < R; r += kWarps) {
-    float* dp = dpreds + (size_t)r * S * 4;
-    if (r >= nrays) {  // padding ray: contributes nothing
-      for (int j = lane; j < S * 4; j += 32) dp[j] = 0.f;
-      continue;
-    }
-    const float* tr = p.t_vals + (size_t)(r0 + r) * S;
-    const float* pr = p.preds + (s0 + (size_t)r * S) * 4;
-    const float* gw = p.g_w != nullptr ? p.g_w + (size_t)(r0 + r) * S : nullptr;
-    const float gr0 = p.g_rgb[(size_t)(r0 + r) * 3 + 0];
-    const float gr1 = p.g_rgb[(size_t)(r0 + r) * 3 + 1];
-    const float gr2 = p.g_rgb[(size_t)(r0 + r) * 3 + 2];
-    const int j0 = min(lane * chunk, S);
-    const int j1 = min(j0 + chunk, S);
-    float prod = 1.f;
-    for (int j = j0; j < j1; ++j) {
-      const float delta = j + 1 < S ? tr[j + 1] - tr[j] : kTerminalDelta;
-      const float alpha = 1.f - expf(-fmaxf(pr[j * 4 + 3], 0.f) * delta);
-      prod *= fmaxf(1.f - alpha, 0.f) + kEps;
-    }
-    float incl = prod;
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const float v = __shfl_up_sync(0xffffffffu, incl, off);
-      if (lane >= off) incl *= v;
-    }
-    float trans = __shfl_up_sync(0xffffffffu, incl, 1);
-    if (lane == 0) trans = 1.f;
-    // Forward walk: p_j = w_j * dw_sum_j (stored), trans_j (stored).
-    float psum = 0.f;
-    for (int j = j0; j < j1; ++j) {
-      const float delta = j + 1 < S ? tr[j + 1] - tr[j] : kTerminalDelta;
-      const float alpha = 1.f - expf(-fmaxf(pr[j * 4 + 3], 0.f) * delta);
-      float dws = gw != nullptr ? gw[j] : 0.f;
-      dws = dws + gr0 * sigmoidf_(pr[j * 4 + 0]);
-      dws = dws + gr1 * sigmoidf_(pr[j * 4 + 1]);
-      dws = dws + gr2 * sigmoidf_(pr[j * 4 + 2]);
-      const float pj = alpha * trans * dws;
-      dp[j * 4 + 0] = pj;
-      dp[j * 4 + 1] = trans;
-      dp[j * 4 + 2] = dws;
-      psum += pj;
-      trans *= fmaxf(1.f - alpha, 0.f) + kEps;
-    }
-    // Exclusive suffix over lanes of the chunk sums.
-    float sincl = psum;
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const float v = __shfl_down_sync(0xffffffffu, sincl, off);
-      if (lane + off < 32) sincl += v;
-    }
-    float suffix = __shfl_down_sync(0xffffffffu, sincl, 1);
-    if (lane == 31) suffix = 0.f;
-    // Reverse walk of the chunk: suffix = sum_{k > j} p_k.
-    for (int j = j1 - 1; j >= j0; --j) {
-      const float pj = dp[j * 4 + 0];
-      const float tj = dp[j * 4 + 1];
-      const float dws = dp[j * 4 + 2];
-      const float delta = j + 1 < S ? tr[j + 1] - tr[j] : kTerminalDelta;
-      const float sigma = fmaxf(pr[j * 4 + 3], 0.f);
-      const float alpha = 1.f - expf(-sigma * delta);
-      const float dalpha = tj * dws - suffix / (fmaxf(1.f - alpha, 0.f) + kEps);
-      suffix += pj;
-      const float dsigma = sigma > 0.f ? dalpha * (delta * expf(-sigma * delta)) : 0.f;
-      const float gr[3] = {gr0, gr1, gr2};
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        const float rc = sigmoidf_(pr[j * 4 + c]);
-        dp[j * 4 + c] = gr[c] * alpha * tj * rc * (1.f - rc);
-      }
-      dp[j * 4 + 3] = dsigma;
-    }
-  }
+  if (tid == 0) ring_init(ring);
+  for (int i = tid; i < p.total_b; i += kWgThreads) db[i] = 0.f;
   __syncthreads();
 
-  const int ntiles = (P + kTileRows - 1) / kTileRows;
-  for (int tile = 0; tile < ntiles; ++tile) {
-    const int q0 = tile * kTileRows;
-    const int nrows = min(kTileRows, P - q0);
-    const size_t row0 = s0 + q0;
-    if constexpr (MODE == kEncodingsIn) {
-      auto dir = [&](int row, int c) {
-        return row < nrows && c < m.dir_dim ? p.d_enc[(row0 + row) * m.dir_dim + c]
-                                            : __float2bfloat16_rn(0.f);
+  if (warp >= kConsumerWarps) {  // the producer warpgroup: one thread issues
+    reg_dealloc<kProducerRegs>();
+    if (warp == kConsumerWarps && lane == 0) {
+      RingPos rp;
+      for (int tile = blockIdx.x; tile < p.ntiles; tile += gridDim.x)
+        produce_backward(mb, ring, rp);
+    }
+    return;
+  }
+  reg_alloc<kConsumerRegs>();
+
+  const int wrow = warp * 16;
+  __nv_bfloat16* wact = act + wrow * ldx;
+  uint32_t* wmasks = masks + wrow * MW;
+  RingPos rp;
+  for (int tile = blockIdx.x; tile < p.ntiles; tile += gridDim.x) {
+    const int rbase = tile * kWgRows + wrow;        // workspace row of the warp's row 0
+    const long long q0 = p.n0 + rbase;              // its sample
+    const int valid = min(16, p.nc - rbase);        // may be <= 0
+    const float* g = p.dpreds + q0 * 4;
+    auto dir = [&](int row, int c) {
+      if (row >= valid || c >= m.dir_dim) return __float2bfloat16_rn(0.f);
+      const long long q = q0 + row;
+      if (MODE == kEncodingsIn) return p.d_enc[q * m.dir_dim + c];
+      return __float2bfloat16_rn(encode_feature(p.dirs + (q / S) * 3, c, m.dir_dim));
+    };
+    if constexpr (MODE == kRecompute) {
+      // K1's encode of the sample (o + d*t as two roundings).
+      auto xf = [&](int row, int c) {
+        const long long q = q0 + row;
+        const float* o = p.origins + (q / S) * 3;
+        const float* d = p.dirs + (q / S) * 3;
+        const float t = p.t_vals[q];
+        const float x[3] = {__fadd_rn(o[0], __fmul_rn(d[0], t)),
+                            __fadd_rn(o[1], __fmul_rn(d[1], t)),
+                            __fadd_rn(o[2], __fmul_rn(d[2], t))};
+        return __float2bfloat16_rn(encode_feature(x, c, m.xyz_dim));
       };
-      mlp_backward_tile(p.mb, buf0, buf1, masks, db, row0, nrows,
-                        StoredXenc{p.x_res, row0, m.xyz_dim}, dir, dpreds + q0 * 4, nullptr,
-                        nullptr, nullptr);
+      mlp_backward_wg<H>(mb, wact, wmasks, scratch, p.sld, db, xf, dir, g, valid, rbase, ring,
+                         rp);
     } else {
-      auto dir = [&](int row, int c) {
-        const int q = q0 + row;
-        return q < P ? denc[(q / S) * m.dir_pad + c] : __float2bfloat16_rn(0.f);
-      };
-      if constexpr (MODE == kRecompute) {
-        // K1's encode of sample q0 + row (called for row < nrows only).
-        auto xenc = [&](int row, int c) {
-          const int q = q0 + row;
-          const float* o = ray_o + (q / S) * 4;
-          const float* d = ray_d + (q / S) * 4;
-          const float t = p.t_vals[s0 + q];
-          const float x[3] = {__fadd_rn(o[0], __fmul_rn(d[0], t)),
-                              __fadd_rn(o[1], __fmul_rn(d[1], t)),
-                              __fadd_rn(o[2], __fmul_rn(d[2], t))};
-          return __float2bfloat16_rn(encode_feature(x, c, m.xyz_dim));
-        };
-        mlp_backward_tile(p.mb, buf0, buf1, masks, db, row0, nrows, xenc, dir,
-                          dpreds + q0 * 4, nullptr, nullptr, nullptr);
-      } else {
-        mlp_backward_tile(p.mb, buf0, buf1, masks, db, row0, nrows,
-                          StoredXenc{p.x_res, row0, m.xyz_dim}, dir, dpreds + q0 * 4,
-                          nullptr, nullptr, nullptr);
-      }
+      auto xf = [&](int row, int c) { return p.x_res[(q0 + row) * m.xyz_dim + c]; };
+      mlp_backward_wg<H>(mb, wact, wmasks, scratch, p.sld, db, xf, dir, g, valid, rbase, ring,
+                         rp);
     }
   }
-
-  __syncthreads();
-  for (int i = tid; i < p.total_b; i += kThreads)
-    p.db_part[(size_t)blockIdx.x * p.total_b + i] = db[i];
+  consumer_sync(kWgConsumers);
+  float* out = p.db_part + (size_t)blockIdx.x * p.total_b;
+  for (int i = tid; i < p.total_b; i += kWgConsumers) out[i] = p.accumulate ? out[i] + db[i] : db[i];
 }
 
-// Two blocks per SM (<= 128 registers, <= 113 KB of shared memory) hide
-// the latency of the weight-fragment loads, as in K1.
-__global__ void __launch_bounds__(kThreads, 2)
+template <int H>
+__global__ void __launch_bounds__(kWgThreads, 1)
     k2_rows_kernel(const __grid_constant__ RowParams p) {
-  rows_body<kResidual>(p);
+  rows_body<H, kResidual>(p);
 }
 
-__global__ void __launch_bounds__(kThreads, 2)
+template <int H>
+__global__ void __launch_bounds__(kWgThreads, 1)
     k3_rows_kernel(const __grid_constant__ RowParams p) {
-  rows_body<kRecompute>(p);
+  rows_body<H, kRecompute>(p);
 }
 
-__global__ void __launch_bounds__(kThreads, 2)
+template <int H>
+__global__ void __launch_bounds__(kWgThreads, 1)
     k6_rows_kernel(const __grid_constant__ RowParams p) {
-  rows_body<kEncodingsIn>(p);
+  rows_body<H, kEncodingsIn>(p);
+}
+
+template <int H>
+void (*pick_rows(int mode))(const RowParams) {
+  return mode == kResidual ? k2_rows_kernel<H> : mode == kRecompute ? k3_rows_kernel<H>
+                                                                    : k6_rows_kernel<H>;
 }
 
 }  // namespace
@@ -298,23 +300,26 @@ __global__ void __launch_bounds__(kThreads, 2)
 // Plain C entry point, loaded with ctypes.  `mode` picks the rows kernel:
 // 0 = K2 (x_res and dirs given), 1 = K3 (origins and dirs given, x_res
 // null), 2 = K6 (x_res = x_enc and d_enc given, dirs null).  Host arrays:
-// `desc_fwd` (n_dense x 5: k_pad, n, n_pad, w_off, b_off of the K1 pack),
-// `desc_bwd` (the same for the K2 pack: k_pad = round16(n), n = dX
-// columns), `desc_ws` (n_dense x 5: a_col, a_width, d_col, d_width,
-// out_off), in the order trunk[0..num_layers), merged head, branch, rgb.
-// Workspaces (allocated by the caller): ws_a (N x sum a_width) and ws_d
-// (N x sum d_width) bf16, db_part (grid x total_b) and dw_part (nsplit x
-// total_out) f32, N = B*S; grid = ceil(B / R), R = max(1, 64 / S).
-// Outputs dw (total_out) and db (total_b) f32.  Launches on `stream`,
-// returns the first CUDA error (0 on success); does not synchronise.
+// `desc_fwd` (n_dense x 5: k_pad, n, n_pad, w_off, b_off of the forward
+// wgmma pack), `desc_bwd` (the same for the transposed pack: k_pad =
+// round16(n), n = dX columns), `desc_ws` (n_dense x 5: a_col, a_width,
+// d_col, d_width, out_off), in the order trunk[0..num_layers), merged
+// head, branch, rgb.  hidden is 64, 128 or 256.  The batch runs in chunks
+// of `chunk_rays` whole rays, in order; buffers (allocated by the caller):
+// dpreds (B*S x 4) f32; ws_a (rows_pad x sum a_width) and ws_d (rows_pad x
+// sum d_width) bf16 for one chunk, rows_pad = round_up(chunk_rays * S,
+// 128); db_part (grid x total_b) and dw_part (nsplit x total_out) f32,
+// where grid <= the first chunk's 128-row tiles.  Outputs dw (total_out)
+// and db (total_b) f32.  Launches on `stream`, returns the first CUDA
+// error (0 on success); does not synchronise.
 extern "C" int nkt_fused_render_bwd(
     int mode, const void* x_res, const void* origins, const void* dirs, const void* d_enc,
     const void* t_vals, const void* preds, const void* g_rgb, const void* g_w,
     const void* w_pack, const void* b_pack, const void* desc_fwd, const void* wb_pack,
     const void* desc_bwd, const void* desc_ws, int n_dense, int num_layers, int skip_layer,
-    int hidden, int l_xyz, int l_dir, int B, int S, int total_b, int total_out, void* ws_a,
-    void* ws_d, void* db_part, void* dw_part, int nsplit, void* dw_out, void* db_out,
-    int device, void* stream) {
+    int hidden, int l_xyz, int l_dir, int B, int S, int chunk_rays, int total_b,
+    int total_out, void* dpreds, void* ws_a, void* ws_d, void* db_part, int grid,
+    void* dw_part, int nsplit, void* dw_out, void* db_out, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const bool inputs_ok =
@@ -323,9 +328,12 @@ extern "C" int nkt_fused_render_bwd(
       (mode == kEncodingsIn && x_res != nullptr && d_enc != nullptr && dirs == nullptr);
   RowParams p;
   MlpBwdParams& mb = p.mb;
-  if (!inputs_ok || B <= 0 || S < 2 || nsplit < 1 ||
+  const int first_tiles = (int)(((long long)chunk_rays * S + kWgRows - 1) / kWgRows);
+  if (!inputs_ok || B <= 0 || S < 2 || nsplit < 1 || chunk_rays < 1 || grid < 1 ||
+      grid > first_tiles || !wg_hidden_ok(hidden) ||
       !mlp_dims_init(mb.m, static_cast<const int*>(desc_fwd), n_dense, num_layers,
                      skip_layer, hidden, l_xyz, l_dir) ||
+      !wg_dims_ok(mb.m) ||
       !mlp_bwd_init(mb, static_cast<const int*>(desc_bwd), static_cast<const int*>(desc_ws),
                     n_dense))
     return (int)cudaErrorInvalidValue;
@@ -335,35 +343,59 @@ extern "C" int nkt_fused_render_bwd(
   mb.wb = static_cast<const __nv_bfloat16*>(wb_pack);
   mb.ws_a = static_cast<__nv_bfloat16*>(ws_a);
   mb.ws_d = static_cast<__nv_bfloat16*>(ws_d);
-  mb.N = B * S;
+  const int rows_pad = first_tiles * kWgRows;
+  mb.N = rows_pad;
   p.x_res = static_cast<const __nv_bfloat16*>(x_res);
   p.origins = static_cast<const float*>(origins);
   p.dirs = static_cast<const float*>(dirs);
   p.d_enc = static_cast<const __nv_bfloat16*>(d_enc);
   p.t_vals = static_cast<const float*>(t_vals);
-  p.preds = static_cast<const float*>(preds);
-  p.g_rgb = static_cast<const float*>(g_rgb);
-  p.g_w = static_cast<const float*>(g_w);
+  p.dpreds = static_cast<const float*>(dpreds);
   p.db_part = static_cast<float*>(db_part);
-  p.B = B;
   p.S = S;
-  p.R = S >= kTileRows ? 1 : kTileRows / S;
   p.total_b = total_b;
+  p.sld = hidden;
+  int sb = wg_stage_bytes(mb.m.dense, n_dense);
+  const int sbb = wg_stage_bytes(mb.bdense, n_dense);
+  p.stage_bytes = sb > sbb ? sb : sbb;
 
-  const int grid = (B + p.R - 1) / p.R;
-  const size_t smem =
-      sizeof(__nv_bfloat16) * ((size_t)2 * kTileRows * mb.m.ldx + (size_t)p.R * mb.m.dir_pad) +
-      sizeof(uint32_t) * (size_t)(num_layers + 1) * kTileRows * mb.mask_words +
-      sizeof(float) * ((size_t)p.R * S * 4 + (size_t)total_b + (size_t)p.R * 8);
-  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
-  void (*kernel)(const RowParams) =
-      mode == kResidual ? k2_rows_kernel : mode == kRecompute ? k3_rows_kernel : k6_rows_kernel;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<grid, kThreads, smem, st>>>(p);
+  composite_vjp_kernel<<<(B + 7) / 8, 256, 0, st>>>(
+      static_cast<const float*>(t_vals), static_cast<const float*>(preds),
+      static_cast<const float*>(g_rgb), static_cast<const float*>(g_w),
+      static_cast<float*>(dpreds), B, S);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return (int)launch_dw_reduce(mb, n_dense, total_out, total_b, static_cast<float*>(dw_part),
-                               nsplit, static_cast<float*>(dw_out), p.db_part, grid,
-                               static_cast<float*>(db_out), st);
+
+  const size_t rest = kBarBytes + sizeof(__nv_bfloat16) * (size_t)kWgRows * mb.m.ldx +
+                      sizeof(uint32_t) * (size_t)(num_layers + 1) * kWgRows * mb.mask_words +
+                      sizeof(float) * ((size_t)2 * kConsumerWarps * p.sld + (size_t)total_b);
+  if (rest + 2 * (size_t)p.stage_bytes > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
+  const size_t fit = ((size_t)kMaxSmem - rest) / p.stage_bytes;
+  p.stages = fit < (size_t)kMaxStages ? (int)fit : kMaxStages;
+  const size_t smem = rest + (size_t)p.stages * p.stage_bytes;
+  void (*kernel)(const RowParams) = hidden == 64    ? pick_rows<64>(mode)
+                                    : hidden == 128 ? pick_rows<128>(mode)
+                                                    : pick_rows<256>(mode);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+
+  DwPlan dw;
+  if (!dw_plan(dw, mb, n_dense, rows_pad, total_out, nsplit, static_cast<float*>(dw_part)))
+    return (int)cudaErrorInvalidValue;
+  for (int r0 = 0, chunk = 0; r0 < B; r0 += chunk_rays, ++chunk) {
+    const int nr = B - r0 < chunk_rays ? B - r0 : chunk_rays;
+    p.n0 = (long long)r0 * S;
+    p.nc = nr * S;
+    p.ntiles = (p.nc + kWgRows - 1) / kWgRows;
+    p.accumulate = chunk > 0;
+    const int g = grid < p.ntiles ? grid : p.ntiles;
+    kernel<<<g, kWgThreads, smem, st>>>(p);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    err = launch_dw(dw, p.ntiles * (kWgRows / kDwRows), chunk > 0, st);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)launch_reduce(static_cast<float*>(dw_part), nsplit, total_out,
+                            static_cast<float*>(dw_out), p.db_part, grid, total_b,
+                            static_cast<float*>(db_out), st);
 }

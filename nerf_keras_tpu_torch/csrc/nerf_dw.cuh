@@ -1,158 +1,171 @@
-// The weight gradients of the MLP from the workspaces its backward tile
-// code writes (nerf_tile.cuh: mlp_backward_tile), shared by K2
-// (fused_render_bwd.cu) and K5 (fused_mlp_bwd.cu).
+// The weight gradients of the MLP from the workspaces its backward writes
+// (nerf_wgmlp.cuh: mlp_backward_wg for K2, K3 and K6; nerf_tile.cuh:
+// mlp_backward_tile for K5), shared by fused_render_bwd.cu and
+// fused_mlp_bwd.cu.
 //
 // dW = A^T D per layer: M = a_width (layer input), N = d_width (layer
-// output), K = samples.  Both operands are stored sample-major, so the
-// fragments come from shared memory by ldmatrix.trans.  A tiled product
-// (128x128 output tiles, 8 warps of 32x64, 64-row stages double-buffered
-// with cp.async), split over row ranges; each block writes its partial
-// tile to a slab, and a second kernel sums the slabs and the per-block
-// bias rows in a fixed order.  No atomics: the same sums in the same
-// order on every run (deterministic).
+// output), K = samples.  The workspaces are stored in 64-sample stages of
+// 8-column strips (element (r, c) of a layer of width W at (r / 64) * 64 *
+// W + (c / 8) * 512 + (r % 64) * 8 + c % 8), which are the MN-major core
+// matrices of wgmma: 8 samples x 16 bytes each, so both operands go to
+// shared memory by plain bulk copies (cp.async.bulk, the TMA unit) and
+// feed wgmma.mma_async without a transpose.
+//
+// A block computes a 128 x d_width tile of one layer's dW (two consumer
+// warpgroups of 64 rows, the whole d_width, up to 272, in registers) over
+// a range of sample stages; a producer warp keeps a ring of 4 stages (the
+// block's 128 columns of A and all of D for 64 samples, <= 51,200 B each)
+// in flight.  Each block writes (or, for a later chunk of rays, adds) its
+// partial tile to its own slab; mlp_reduce_kernel sums the slabs and the
+// per-block bias rows in a fixed order.  No atomics: the same sums in the
+// same order on every run (deterministic).
+//
+// What bounds it: the workspace bytes it reads (A once, D once for each
+// 128-row tile of a layer: ~15 KB a sample at 8x256), far below the
+// products' time; on an H100 it takes what one torch.matmul per layer
+// takes for the same A^T D (PERF.md).
 
 #pragma once
 
+#include "nerf_hopper.cuh"
 #include "nerf_tile.cuh"
 
 namespace nkt {
 
-constexpr int kBM = 128;
-constexpr int kBN = 128;
-constexpr int kBK = 64;
-constexpr int kLdS = kBN + 8;  // smem row stride (bf16): 272 B, conflict-free
-constexpr int kStageElems = kBK * kLdS;
+constexpr int kDwRows = 64;     // samples per stage
+constexpr int kDwM = 128;       // dW rows per block
+constexpr int kDwStages = 4;
+constexpr int kDwMaxN = 272;
+constexpr int kDwThreads = 288;  // two consumer warpgroups and a producer warp
+constexpr int kDwABytes = kDwM * kDwRows * 2;
 
 struct DwLayer {
-  int a_col, a_width, d_col, d_width, out_off, tile_start, tiles_n;
+  int a_col, a_width, d_col, d_width, out_off, tile_start;
 };
 
-struct DwParams {
+struct DwPlan {
   const __nv_bfloat16* ws_a;
   const __nv_bfloat16* ws_d;
   float* part;  // (nsplit, total_out)
-  int N, rows_per_split, n_layers, total_out;
+  int rows_pad, total_out, n_layers, tiles, nsplit, stage_bytes;
+  int nst, per_split, accumulate;  // set per launch
   DwLayer L[kMaxDense];
 };
 
-__device__ __forceinline__ void cp_async16(void* smem_ptr, const void* gmem, bool valid) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem_ptr);
-  const int n = valid ? 16 : 0;  // 0: zero-fill
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(n));
+template <int N>
+__device__ __forceinline__ void dw_consume(const DwPlan& p, const DwLayer& Ly, int m0, int s0,
+                                           int s1, uint64_t* full, uint64_t* empty,
+                                           unsigned char* buf) {
+  const int tid = threadIdx.x, wg = tid >> 7, warp = tid >> 5, lane = tid & 31;
+  const bool active = m0 + 64 * wg < Ly.a_width;  // warpgroup-uniform
+  float acc[N / 2];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+  int st = 0, prev = -1;
+  uint32_t ph = 0;
+  for (int s = s0; s < s1; ++s) {
+    mbar_wait(&full[st], ph);
+    const uint32_t sa = smem_u32(buf + (size_t)st * p.stage_bytes) + wg * 8 * 1024;
+    const uint32_t sd = smem_u32(buf + (size_t)st * p.stage_bytes + kDwABytes);
+    if (active) {
+      acc_fence<N / 2>(acc);
+      wg_fence();
+#pragma unroll
+      for (int q = 0; q < kDwRows / 16; ++q)
+        mma_ss_t<N>(acc, smem_desc(sa + q * 256, 128, 1024), smem_desc(sd + q * 256, 128, 1024),
+                    1024, 1);
+      wg_commit();
+      wg_wait<1>();  // the previous stage's products are done
+      acc_fence<N / 2>(acc);
+    }
+    if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
+    prev = st;
+    if (++st == kDwStages) {
+      st = 0;
+      ph ^= 1u;
+    }
+  }
+  if (!active) return;
+  wg_wait<0>();
+  acc_fence<N / 2>(acc);
+  const int g = lane >> 2, t = lane & 3;
+  float* out = p.part + (size_t)blockIdx.y * p.total_out + Ly.out_off;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int m = m0 + 64 * wg + 16 * (warp & 3) + g + 8 * half;
+    if (m >= Ly.a_width) continue;
+    float* row = out + (size_t)m * N;
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) {
+      float2* o = reinterpret_cast<float2*>(row + 8 * j + 2 * t);
+      const float2 v = make_float2(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+      if (p.accumulate) {
+        const float2 w = *o;
+        *o = make_float2(w.x + v.x, w.y + v.y);
+      } else {
+        *o = v;
+      }
+    }
+  }
 }
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], const void* smem_ptr) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem_ptr);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-
-__global__ void __launch_bounds__(kThreads)
-    mlp_dw_kernel(const __grid_constant__ DwParams p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* sA = reinterpret_cast<__nv_bfloat16*>(smem);  // [2][kBK][kLdS]
-  __nv_bfloat16* sD = sA + 2 * kStageElems;
+__global__ void __launch_bounds__(kDwThreads, 1)
+    mlp_dw_kernel(const __grid_constant__ DwPlan p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + kDwStages;
+  unsigned char* buf = smem + 128;
 
   int li = 0;
   while (li + 1 < p.n_layers && p.L[li + 1].tile_start <= (int)blockIdx.x) ++li;
   const DwLayer& Ly = p.L[li];
-  const int local = blockIdx.x - Ly.tile_start;
-  const int m0 = (local / Ly.tiles_n) * kBM;
-  const int n0 = (local % Ly.tiles_n) * kBN;
-  const __nv_bfloat16* A = p.ws_a + (size_t)p.N * Ly.a_col;
-  const __nv_bfloat16* D = p.ws_d + (size_t)p.N * Ly.d_col;
-  const int r_begin = blockIdx.y * p.rows_per_split;
-  const int r_end = min(p.N, r_begin + p.rows_per_split);
-
+  const int m0 = (blockIdx.x - Ly.tile_start) * kDwM;
+  const int s0 = min(p.nst, (int)blockIdx.y * p.per_split);
+  const int s1 = min(p.nst, s0 + p.per_split);
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int wm = warp & 3;   // 32-row slab of M
-  const int wn = warp >> 2;  // 64-column slab of N
 
-  float acc[2][8][4];
-#pragma unroll
-  for (int a = 0; a < 2; ++a)
-#pragma unroll
-    for (int b = 0; b < 8; ++b)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[a][b][c] = 0.f;
-
-  auto load_stage = [&](int buf, int rs) {
-    // kBK rows x 16 chunks of 8 bf16, for A and for D.
-    for (int i = tid; i < kBK * 16; i += kThreads) {
-      const int row = i >> 4, cc = (i & 15) * 8;
-      const int gr = rs + row;
-      const bool rv = gr < r_end;
-      const bool va = rv && m0 + cc < Ly.a_width;
-      const bool vd = rv && n0 + cc < Ly.d_width;
-      cp_async16(sA + buf * kStageElems + row * kLdS + cc,
-                 va ? A + (size_t)gr * Ly.a_width + m0 + cc : A, va);
-      cp_async16(sD + buf * kStageElems + row * kLdS + cc,
-                 vd ? D + (size_t)gr * Ly.d_width + n0 + cc : D, vd);
+  if (tid == 0) {
+    for (int i = 0; i < kDwStages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 8);
     }
-    asm volatile("cp.async.commit_group;\n" ::);
-  };
-
-  const int nstages = r_end > r_begin ? (r_end - r_begin + kBK - 1) / kBK : 0;
-  if (nstages > 0) load_stage(0, r_begin);
-  const int mat = lane >> 3, mr = lane & 7;
-  for (int st = 0; st < nstages; ++st) {
-    if (st + 1 < nstages) {
-      load_stage((st + 1) & 1, r_begin + (st + 1) * kBK);
-      asm volatile("cp.async.wait_group 1;\n" ::);
-    } else {
-      asm volatile("cp.async.wait_group 0;\n" ::);
-    }
-    __syncthreads();
-    const __nv_bfloat16* a_s = sA + (st & 1) * kStageElems;
-    const __nv_bfloat16* d_s = sD + (st & 1) * kStageElems;
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      uint32_t af[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        // Matrices: (k 0-7, m 0-7), (k 0-7, m 8-15), (k 8-15, m 0-7),
-        // (k 8-15, m 8-15); transposed they are a0..a3 of A = stored^T.
-        const int row = kk * 16 + mr + (mat >> 1) * 8;
-        const int col = wm * 32 + mi * 16 + (mat & 1) * 8;
-        ldmatrix_x4_trans(af[mi], a_s + row * kLdS + col);
-      }
-      uint32_t bf[4][4];
-#pragma unroll
-      for (int nj = 0; nj < 4; ++nj) {
-        // (k 0-7, n 0-7), (k 8-15, n 0-7), (k 0-7, n 8-15), (k 8-15, n 8-15):
-        // b0, b1 of n-tile 2nj, then of n-tile 2nj+1.
-        const int row = kk * 16 + mr + (mat & 1) * 8;
-        const int col = wn * 64 + nj * 16 + (mat >> 1) * 8;
-        ldmatrix_x4_trans(bf[nj], d_s + row * kLdS + col);
-      }
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 8; ++ni)
-          mma_bf16_16816(acc[mi][ni], af[mi], bf[ni >> 1][(ni & 1) * 2],
-                         bf[ni >> 1][(ni & 1) * 2 + 1]);
-    }
-    __syncthreads();
+    fence_mbar_init();
   }
+  __syncthreads();
 
-  const int g = lane >> 2, tg = lane & 3;
-  float* out = p.part + (size_t)blockIdx.y * p.total_out + Ly.out_off;
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int m = m0 + wm * 32 + mi * 16 + g + half * 8;
-        const int n = n0 + wn * 64 + ni * 8 + tg * 2;
-        if (m < Ly.a_width && n < Ly.d_width)
-          *reinterpret_cast<float2*>(out + (size_t)m * Ly.d_width + n) =
-              make_float2(acc[mi][ni][half * 2], acc[mi][ni][half * 2 + 1]);
+  if (tid >= 256) {  // the producer warp
+    if (tid == 256) {
+      const int a_rows = min(kDwM, Ly.a_width - m0);
+      const uint32_t a_bytes = a_rows * kDwRows * 2, d_bytes = Ly.d_width * kDwRows * 2;
+      const __nv_bfloat16* A = p.ws_a + (size_t)p.rows_pad * Ly.a_col + (m0 / 8) * 512;
+      const __nv_bfloat16* D = p.ws_d + (size_t)p.rows_pad * Ly.d_col;
+      int st = 0;
+      uint32_t ph = 0;
+      for (int s = s0; s < s1; ++s) {
+        mbar_wait(&empty[st], ph ^ 1u);
+        mbar_expect_tx(&full[st], a_bytes + d_bytes);
+        unsigned char* dst = buf + (size_t)st * p.stage_bytes;
+        bulk_g2s(dst, A + (size_t)s * kDwRows * Ly.a_width, a_bytes, &full[st]);
+        bulk_g2s(dst + kDwABytes, D + (size_t)s * kDwRows * Ly.d_width, d_bytes, &full[st]);
+        if (++st == kDwStages) {
+          st = 0;
+          ph ^= 1u;
+        }
       }
+    }
+    return;
+  }
+  switch (Ly.d_width) {
+    case 16: dw_consume<16>(p, Ly, m0, s0, s1, full, empty, buf); break;
+    case 32: dw_consume<32>(p, Ly, m0, s0, s1, full, empty, buf); break;
+    case 64: dw_consume<64>(p, Ly, m0, s0, s1, full, empty, buf); break;
+    case 80: dw_consume<80>(p, Ly, m0, s0, s1, full, empty, buf); break;
+    case 128: dw_consume<128>(p, Ly, m0, s0, s1, full, empty, buf); break;
+    case 144: dw_consume<144>(p, Ly, m0, s0, s1, full, empty, buf); break;
+    case 256: dw_consume<256>(p, Ly, m0, s0, s1, full, empty, buf); break;
+    case 272: dw_consume<272>(p, Ly, m0, s0, s1, full, empty, buf); break;
+    default: break;  // refused on the host (dw_plan)
+  }
 }
 
 // dw[i] = sum_s part[s][i]; db[i] = sum_blk db_part[blk][i]; fixed order.
@@ -171,37 +184,54 @@ __global__ void mlp_reduce_kernel(const float* part, int nsplit, int total_out, 
   }
 }
 
-// Host side: after the rows kernel has filled the workspaces and db_part
-// (nblk rows of total_b), launch the dW product over nsplit row ranges
-// into dw_part (nsplit x total_out) and the fixed-order reduce into dw_out
-// (total_out) and db_out (total_b).  Returns the first CUDA error.
-inline cudaError_t launch_dw_reduce(const MlpBwdParams& mb, int n_dense, int total_out,
-                                    int total_b, float* dw_part, int nsplit, float* dw_out,
-                                    const float* db_part, int nblk, float* db_out,
-                                    cudaStream_t st) {
-  DwParams q;
+inline bool dw_width_ok(int n) {
+  return n == 16 || n == 32 || n == 64 || n == 80 || n == 128 || n == 144 || n == 256 ||
+         n == 272;
+}
+
+// Host side: the dW product's plan for a backward's workspaces (rows_pad
+// rows per layer) into dw_part (nsplit x total_out).  False when a layer's
+// output width has no instantiation.
+inline bool dw_plan(DwPlan& q, const MlpBwdParams& mb, int n_dense, int rows_pad,
+                    int total_out, int nsplit, float* dw_part) {
   q.ws_a = mb.ws_a;
   q.ws_d = mb.ws_d;
   q.part = dw_part;
-  q.N = mb.N;
-  q.n_layers = n_dense;
+  q.rows_pad = rows_pad;
   q.total_out = total_out;
-  int tiles = 0;
+  q.n_layers = n_dense;
+  q.nsplit = nsplit;
+  int tiles = 0, dmax = 0;
   for (int i = 0; i < n_dense; ++i) {
     const Bwd& w = mb.bwd[i];
-    DwLayer& l = q.L[i];
-    l = DwLayer{w.a_col, w.a_width, w.d_col, w.d_width, w.out_off, tiles,
-                (w.d_width + kBN - 1) / kBN};
-    tiles += ((w.a_width + kBM - 1) / kBM) * l.tiles_n;
+    if (!dw_width_ok(w.d_width) || w.a_width % 16 != 0) return false;
+    q.L[i] = DwLayer{w.a_col, w.a_width, w.d_col, w.d_width, w.out_off, tiles};
+    tiles += (w.a_width + kDwM - 1) / kDwM;
+    dmax = w.d_width > dmax ? w.d_width : dmax;
   }
-  q.rows_per_split = ((q.N + nsplit - 1) / nsplit + kBK - 1) / kBK * kBK;
-  const size_t smem = sizeof(__nv_bfloat16) * 4 * kStageElems;
+  q.tiles = tiles;
+  q.stage_bytes = kDwABytes + dmax * kDwRows * 2;
+  return 128 + (size_t)kDwStages * q.stage_bytes <= (size_t)kMaxSmem;
+}
+
+// One dW pass over the first `nst` 64-sample stages of the workspaces;
+// `accumulate` adds into the slabs instead of writing them.
+inline cudaError_t launch_dw(DwPlan& q, int nst, bool accumulate, cudaStream_t st) {
+  q.nst = nst;
+  q.per_split = (nst + q.nsplit - 1) / q.nsplit;
+  q.accumulate = accumulate ? 1 : 0;
+  const int smem = 128 + kDwStages * q.stage_bytes;
   cudaError_t err =
-      cudaFuncSetAttribute(mlp_dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      cudaFuncSetAttribute(mlp_dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  mlp_dw_kernel<<<dim3(tiles, nsplit), kThreads, smem, st>>>(q);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  mlp_dw_kernel<<<dim3(q.tiles, q.nsplit), kDwThreads, smem, st>>>(q);
+  return cudaGetLastError();
+}
+
+// The fixed-order reduce into dw_out (total_out) and db_out (total_b).
+inline cudaError_t launch_reduce(const float* dw_part, int nsplit, int total_out, float* dw_out,
+                                 const float* db_part, int nblk, int total_b, float* db_out,
+                                 cudaStream_t st) {
   const int n = total_out + total_b;
   mlp_reduce_kernel<<<(n + 255) / 256, 256, 0, st>>>(dw_part, nsplit, total_out, dw_out,
                                                      db_part, nblk, total_b, db_out);

@@ -49,7 +49,7 @@ struct Dense {
   int b_off;  // offset of the bias (n_pad) in the f32 pack
 };
 
-inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
+__host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
 __host__ __device__ __forceinline__ bool is_skip(int i, int skip_layer) {
   return i % skip_layer == 0 && i > 0;
@@ -432,7 +432,7 @@ struct MlpBwdParams {
   const __nv_bfloat16* wb;     // transposed pack (dX products)
   __nv_bfloat16* ws_a;
   __nv_bfloat16* ws_d;
-  int N;           // workspace rows (samples)
+  int N;           // workspace rows per layer (samples, padded)
   int mask_words;  // hidden / 32
   MlpDims m;
   Dense bdense[kMaxDense];
@@ -464,16 +464,20 @@ inline bool mlp_bwd_init(MlpBwdParams& p, const int* desc_bwd, const int* desc_w
   return p.bwd[m.num_layers].d_width > m.hidden && p.bwd[m.num_layers + 2].d_width >= 3;
 }
 
-// rows [0, nrows) x width columns of a bf16 tile (row stride ldx) to
-// global rows starting at `row0` of a (N, width) matrix; 16-byte copies.
+// The 64 rows of a bf16 tile (row stride ldx, columns [0, width)) to the
+// workspace of one layer at the 64-row stage starting at row0 (a multiple
+// of 64), in nerf_dw.cuh's layout: element (r, c) at (r / 64) * 64 * width
+// + (c / 8) * 512 + (r % 64) * 8 + c % 8.  Rows past the last sample are
+// stored too: their inputs are zero and their dPre zero, so they add
+// nothing to dW.
 __device__ __forceinline__ void store_tile(const __nv_bfloat16* src, int ldx,
-                                           __nv_bfloat16* dst, int width,
-                                           size_t row0, int nrows) {
+                                           __nv_bfloat16* dst, int width, size_t row0) {
   const int vecs = width >> 3;
-  for (int i = threadIdx.x; i < nrows * vecs; i += kThreads) {
-    const int row = i / vecs, v = i - row * vecs;
-    *reinterpret_cast<uint4*>(dst + (row0 + row) * width + v * 8) =
-        *reinterpret_cast<const uint4*>(src + row * ldx + v * 8);
+  __nv_bfloat16* stage = dst + (row0 >> 6) * 64 * width;
+  for (int i = threadIdx.x; i < kTileRows * vecs; i += kThreads) {
+    const int row = i & (kTileRows - 1), cc = i >> 6;
+    *reinterpret_cast<uint4*>(stage + cc * 512 + row * 8) =
+        *reinterpret_cast<const uint4*>(src + row * ldx + cc * 8);
   }
 }
 
@@ -552,7 +556,7 @@ __device__ void mlp_backward_tile(const MlpBwdParams& p, __nv_bfloat16* buf0,
   e.rows_valid = nrows;
   for (int i = 0; i < L; ++i) {
     const Dense& d = m.dense[i];
-    store_tile(in, ldx, p.ws_a + N * p.bwd[i].a_col, d.k_pad, row0, nrows);
+    store_tile(in, ldx, p.ws_a + N * p.bwd[i].a_col, d.k_pad, row0);
     e.out = out;
     e.bias = p.b + d.b_off;
     e.mask = masks + i * kTileRows * MW;
@@ -563,7 +567,7 @@ __device__ void mlp_backward_tile(const MlpBwdParams& p, __nv_bfloat16* buf0,
     in = out;
     out = tmp;
   }
-  store_tile(in, ldx, p.ws_a + N * p.bwd[L].a_col, fs.k_pad, row0, nrows);
+  store_tile(in, ldx, p.ws_a + N * p.bwd[L].a_col, fs.k_pad, row0);
   e.out = out;
   e.bias = p.b + fs.b_off;
   e.sig = nullptr;  // sigma's cotangent is given; its value is not needed
@@ -573,13 +577,13 @@ __device__ void mlp_backward_tile(const MlpBwdParams& p, __nv_bfloat16* buf0,
     out[row * ldx + H + c] = dir(row, c);
   }
   __syncthreads();
-  store_tile(out, ldx, p.ws_a + N * p.bwd[L + 1].a_col, br.k_pad, row0, nrows);
+  store_tile(out, ldx, p.ws_a + N * p.bwd[L + 1].a_col, br.k_pad, row0);
   e.out = in;
   e.bias = p.b + br.b_off;
   e.mask = masks + L * kTileRows * MW;
   tile_gemm<kReluBf16Mask>(p.w, br, out, ldx, e);
   __syncthreads();
-  store_tile(in, ldx, p.ws_a + N * p.bwd[L + 2].a_col, rgb.k_pad, row0, nrows);
+  store_tile(in, ldx, p.ws_a + N * p.bwd[L + 2].a_col, rgb.k_pad, row0);
 
   // ---- Backward walk.  `out` is free: d rgb logits, bf16, 16 columns.
   const int dw_rgb = p.bwd[L + 2].d_width;
@@ -601,7 +605,7 @@ __device__ void mlp_backward_tile(const MlpBwdParams& p, __nv_bfloat16* buf0,
     }
   }
   __syncthreads();
-  store_tile(out, ldx, p.ws_d + N * p.bwd[L + 2].d_col, dw_rgb, row0, nrows);
+  store_tile(out, ldx, p.ws_d + N * p.bwd[L + 2].d_col, dw_rgb, row0);
   // dh2 = drgb W_rgb^T, masked by h2 > 0: dPre of the branch.
   e.out = in;
   e.mask = masks + L * kTileRows * MW;
@@ -609,7 +613,7 @@ __device__ void mlp_backward_tile(const MlpBwdParams& p, __nv_bfloat16* buf0,
   e.split = p.bdense[L + 2].n;
   tile_gemm<kBwdMask>(p.wb, p.bdense[L + 2], out, ldx, e);
   __syncthreads();
-  store_tile(in, ldx, p.ws_d + N * p.bwd[L + 1].d_col, p.bwd[L + 1].d_width, row0, nrows);
+  store_tile(in, ldx, p.ws_d + N * p.bwd[L + 1].d_col, p.bwd[L + 1].d_width, row0);
   // dfd = dh2 W_br^T: the feature columns [0, H), with d sigma the merged
   // head's dPre [dfeature, dsigma]; with K5's full pack also the direction
   // columns [H, H + dir_dim).
@@ -632,7 +636,7 @@ __device__ void mlp_backward_tile(const MlpBwdParams& p, __nv_bfloat16* buf0,
     out[row * ldx + H + c] = __float2bfloat16_rn(v);
   }
   __syncthreads();
-  store_tile(out, ldx, p.ws_d + N * p.bwd[L].d_col, dw_fs, row0, nrows);
+  store_tile(out, ldx, p.ws_d + N * p.bwd[L].d_col, dw_fs, row0);
   // dx_last = dfs W_fs^T: its hidden columns, masked by h_{L-1} > 0, are
   // dPre_{L-1}; a skip part (the last trunk layer is a skip) goes to dx_acc.
   e.out = in;
@@ -646,7 +650,7 @@ __device__ void mlp_backward_tile(const MlpBwdParams& p, __nv_bfloat16* buf0,
   // skip columns (layer i's input is [h, x_enc]) go to dx_acc.  Layer 0's
   // dX is all encoding gradient.
   for (int i = L - 1; i >= 0; --i) {
-    store_tile(in, ldx, p.ws_d + N * p.bwd[i].d_col, p.bwd[i].d_width, row0, nrows);
+    store_tile(in, ldx, p.ws_d + N * p.bwd[i].d_col, p.bwd[i].d_width, row0);
     if (i > 0 || dx_acc != nullptr) {
       e.out = out;
       e.split = i > 0 ? H : 0;

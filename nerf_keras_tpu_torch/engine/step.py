@@ -526,13 +526,15 @@ def make_eval_step(cfg: NeRFConfig, near: float, far: float) -> Callable:
 def make_proposal_render_fn(
     cfg: NeRFConfig, near: float, far: float, prop_l_xyz: int = 4,
     union: bool = True, levels: int = 1, prop_samples: int = 0,
-    quant: bool = False,
+    quant: bool = False, want_weights: bool = False,
 ) -> Callable:
     """``render(prop, fine, origins, dirs) -> {'rgb_fine', 'depth_fine'}``:
     the proposal chain at midpoint draws over ``ns_coarse`` centered
     t-values, then one fine K1 pass over their union with the ``ns_fine``
     draws.  With ``quant`` ``fine`` is the fine model's qparams and the
-    fine pass is K4; the proposal nets stay float."""
+    fine pass is K4; the proposal nets stay float.  ``want_weights`` adds
+    the fine pass's compositing weights ``weights_fine (B, S)`` and the
+    sorted t-values they weight, ``t_fine``."""
     fine_pass = _make_pass_fn(cfg, quant=quant)
     chain = make_chain_sampler(cfg, prop_l_xyz, union, levels, prop_samples,
                                train=False)
@@ -545,7 +547,11 @@ def make_proposal_render_fn(
         depth_fine = torch.sum(w_fine * t_all, dim=-1)
         if cfg.white_bkgd:
             rgb_fine = composite_background(rgb_fine, w_fine)
-        return {"rgb_fine": rgb_fine, "depth_fine": depth_fine}
+        out = {"rgb_fine": rgb_fine, "depth_fine": depth_fine}
+        if want_weights:
+            out["weights_fine"] = w_fine
+            out["t_fine"] = t_all
+        return out
 
     return render
 
@@ -609,7 +615,7 @@ def _make_fused_eval_forward(cfg: NeRFConfig) -> Callable:
 
 
 def make_render_fn(cfg: NeRFConfig, near: float, far: float,
-                   full: bool = False) -> Callable:
+                   full: bool = False, want_weights: bool = False) -> Callable:
     """``render(models, origins, dirs) -> dict`` of rgb/depth maps; the
     rays are ``(B, 3)`` tensors on one device.  ``models`` is ``{'coarse',
     'fine'}`` (coarse and fine passes reported) or, for
@@ -619,7 +625,9 @@ def make_render_fn(cfg: NeRFConfig, near: float, far: float,
     tensors: ``weights_coarse``/``weights_fine`` ``(B, S)`` and the raw
     predictions ``preds_coarse``/``preds_fine`` ``(B, S, 4)``, rendered
     through :func:`make_forward_pass` (K5's forward on the card); the
-    rgb/depth-only render stays on K1, which keeps them on chip."""
+    rgb/depth-only render stays on K1, which keeps them on chip.
+    ``want_weights`` (proposal only) adds ``weights_fine`` and ``t_fine``
+    (:func:`make_proposal_render_fn`)."""
     check_render_support(cfg)
     if cfg.train_sampler == "proposal":
         if full:
@@ -631,6 +639,7 @@ def make_render_fn(cfg: NeRFConfig, near: float, far: float,
         inner = make_proposal_render_fn(
             cfg, near, far, prop_l_xyz=cfg.prop_l_xyz, union=cfg.prop_union,
             levels=cfg.prop_levels, prop_samples=cfg.prop_samples,
+            want_weights=want_weights,
         )
 
         def render_proposal(models, origins, dirs):

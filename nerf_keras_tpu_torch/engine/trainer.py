@@ -21,8 +21,10 @@ tables are a snapshot of the weights: ``restore``, ``replace_params`` and
 
 ``restore``/``save`` read and write the JAX package's ``.ckpt.npz`` key
 format: ``save`` writes params, EMA, step and the Adam state (so the JAX
-package's ``Trainer.restore`` loads it); ``restore`` reads params, EMA and
-step, and Adam restarts from zero moments.
+package's ``Trainer.restore`` loads it); ``restore`` reads them back, so
+a resumed run carries on Adam's moments and its count (which the
+``LR_FINAL`` decay reads).  A checkpoint without the Adam state restores
+with a fresh Adam.
 """
 
 from __future__ import annotations
@@ -178,7 +180,8 @@ class Trainer:
     def restore(self, path: str) -> "Trainer":
         """Load a ``.ckpt.npz`` (JAX key format) into this trainer.  With
         EMA on, a checkpoint without a shadow seeds it from its params
-        (the JAX package's forward-compat rule).  Adam restarts."""
+        (the JAX package's forward-compat rule).  Adam's count and moments
+        come from the checkpoint when it has them, else Adam restarts."""
         ckpt = load_checkpoint(path)
         check_render_support(self.cfg, step=ckpt["step"])
         _load(self.params, ckpt["params"])
@@ -186,8 +189,22 @@ class Trainer:
             _load(self.ema, ckpt["ema"] if ckpt["ema"] is not None else ckpt["params"])
         self.step = ckpt["step"]
         self.state.opt = self._new_optimizer()
+        if ckpt["opt_state"] is not None:
+            self._load_adam(ckpt["opt_state"])
         self._invalidate_derived()
         return self
+
+    def _load_adam(self, opt_state: dict) -> None:
+        """Install Adam's count and moments (JAX-layout trees, as the
+        params) into the optimizer, in ``params_of`` order."""
+        opt = self.state.opt
+        for values, tree in ((opt.mu, opt_state["mu"]), (opt.nu, opt_state["nu"])):
+            shadow = {k: copy.deepcopy(m) for k, m in self.params.items()}
+            with torch.no_grad():
+                _load(shadow, tree)
+                for v, p in zip(values, params_of(shadow)):
+                    v.copy_(p)
+        opt.count = int(opt_state["count"])
 
     def save(self, path: str, scene: dict | None = None) -> None:
         """Write params, EMA, step and the Adam state in the JAX key format."""
@@ -209,11 +226,11 @@ class Trainer:
     def replace_params(self, params: dict) -> "Trainer":
         """Install externally built JAX-layout params (``{'coarse',
         'fine'}`` or ``{'proposal', 'fine'}``).  With EMA on, the shadow
-        resets to the new params; Adam restarts."""
+        resets to the new params.  Adam's state is kept, as the JAX
+        ``Trainer.replace_params`` keeps ``opt_state``."""
         _load(self.params, params)
         if self.ema is not None:
             _load(self.ema, params)
-        self.state.opt = self._new_optimizer()
         self._invalidate_derived()
         return self
 
@@ -367,10 +384,25 @@ class Trainer:
         uint8 on the device before the one copy to the host.  ``full``
         (coarse+fine only) adds ``weights_*`` and ``preds_*`` (see
         :func:`make_render_fn`); asking ``keys`` for one of them implies it.
+        A proposal-trained model has no coarse pass: ``keys`` may ask for
+        ``weights_fine`` and ``t_fine`` (the fine pass's compositing
+        weights and their sorted t-values), as the JAX ``Trainer`` gives.
         ``quant`` renders through the int8 tables
         (:meth:`quantize_for_inference` first; rgb/depth only).
         """
-        full = full or any(k.startswith(("weights_", "preds_")) for k in keys or ())
+        requested = set(keys or ())
+        want_weights = self.proposal and bool(requested & {"weights_fine", "t_fine"})
+        if self.proposal and (full or requested - {"rgb_fine", "depth_fine",
+                                                   "weights_fine", "t_fine"}):
+            raise ValueError(
+                "TRAIN_SAMPLER='proposal' checkpoints have no coarse pass: "
+                "rgb_fine, depth_fine, weights_fine and t_fine are the only outputs"
+            )
+        full = full or (not self.proposal
+                        and any(k.startswith(("weights_", "preds_")) for k in requested))
+        if quant and want_weights:
+            raise ValueError("quant=True supports rgb/depth outputs only (weights_fine/t_fine "
+                             "are not on the int8 render path)")
         if quant:
             if full:
                 raise ValueError("quant=True supports rgb/depth outputs only (the int8 "
@@ -379,10 +411,10 @@ class Trainer:
                 raise RuntimeError("call quantize_for_inference(...) before rendering "
                                    "with quant=True")
             render = self._render_q
-        elif full:
+        elif full or want_weights:
             if self._render_full is None:
                 self._render_full = make_render_fn(self.cfg, self.near, self.far,
-                                                   full=True)
+                                                   full=full, want_weights=want_weights)
             render = self._render_full
         else:
             render = self._render

@@ -57,8 +57,9 @@ ENTRY_POINTS = {
             _vp, _vp, _vp,              # wb_pack, desc_bwd, desc_ws (host)
             _i32, _i32, _i32, _i32,     # n_dense, num_layers, skip, hidden
             _i32, _i32, _i32, _i32,     # l_xyz, l_dir, B, S
-            _i32, _i32,                 # total_b, total_out
-            _vp, _vp, _vp, _vp, _i32,   # ws_a, ws_d, db_part, dw_part, nsplit
+            _i32, _i32, _i32,           # chunk_rays, total_b, total_out
+            _vp, _vp, _vp, _vp, _i32,   # dpreds, ws_a, ws_d, db_part, grid
+            _vp, _i32,                  # dw_part, nsplit
             _vp, _vp,                   # dw_out, db_out
             _i32, _vp,                  # device, stream
         ],

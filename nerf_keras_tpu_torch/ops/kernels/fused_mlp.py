@@ -137,7 +137,7 @@ def launch_k5_bwd(
     fwd = kernel_pack(mlp, device)
     bwd = kernel_pack_bwd(mlp, device, input_grads=need_dx or need_dd)
     grid = _grid(device, n)
-    ws = DwBuffers.allocate(fwd, bwd, n, grid, device)
+    ws = DwBuffers.allocate(fwd, bwd, -(-n // 64) * 64, grid, device)
     rc = _build.load("fused_mlp_bwd").nkt_fused_mlp_bwd(
         x_enc.data_ptr(), d_enc.data_ptr(), g.data_ptr(),
         fwd.w.data_ptr(), fwd.b.data_ptr(), fwd.desc.ctypes.data,

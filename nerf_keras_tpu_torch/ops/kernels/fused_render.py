@@ -8,8 +8,12 @@ backwards ``_bwd_xres_kernel`` (``bwd_mode="residual"``) and
 ``_bwd_encode_kernel`` (``"recompute"``), and the encodings-in pair
 ``_fwd_kernel``/``_bwd_kernel``.  The CUDA kernels are
 ``csrc/fused_render_fwd.cu`` (K1, K6's forward) and
-``csrc/fused_render_bwd.cu`` (K2, K3, K6's backward); their source notes
-say what bounds them and how the designs answer.
+``csrc/fused_render_bwd.cu`` (K2, K3, K6's backward), on Hopper's wgmma
+(``csrc/nerf_wgmlp.cuh``, weights in :func:`pack_weights_wg`'s layout);
+their source notes say what bounds them and how the designs answer.  The
+backward runs its rows kernel and dW product over the chunks of whole
+rays of :func:`chunk_plan`, so its workspace holds one chunk
+(``DW_CHUNK_BYTES``), not the batch.
 
 * :func:`render_rays_reference` is the plain PyTorch K1: encode ->
   :class:`NeRFMLP` -> ``volume_render``, with the bf16 rounding where the
@@ -116,8 +120,62 @@ def _pack(layers: list[tuple[torch.Tensor, torch.Tensor | None]],
 
 
 def pack_weights(mlp: NeRFMLP, device: torch.device) -> KernelPack:
-    """K1's pack: every layer's W^T (row = output column), interleaved."""
+    """The mma.sync pack (K5's): every layer's W^T (row = output column),
+    interleaved."""
     return _pack(_dense_layers(mlp), device)
+
+
+WG_KS = 64  # k per weight stage of the wgmma kernels (csrc/nerf_wgmlp.cuh: kKs)
+WG_HIDDEN = (64, 128, 256)  # their instantiations (csrc/nerf_wgmlp.cuh: wg_hidden_ok)
+
+
+def wg_layout(n_pad: int, k_pad: int) -> np.ndarray:
+    """Where element ``(n, k)`` of a padded ``(n_pad, k_pad)`` matrix lies
+    in its wgmma pack, as an ``(n_pad, k_pad)`` array of element offsets:
+    k-slices of ``WG_KS`` (the last a multiple of 16 up to it), each in the K-major
+    core-matrix layout, ``slice_start + ((k % WG_KS) // 8 * n_pad + n) * 8
+    + k % 8``."""
+    n = np.arange(n_pad)[:, None]
+    k = np.arange(k_pad)[None, :]
+    slice_start = (k // WG_KS) * WG_KS * n_pad
+    return slice_start + ((k % WG_KS) // 8 * n_pad + n) * 8 + k % 8
+
+
+@torch.no_grad()
+def _pack_wg(layers: list[tuple[torch.Tensor, torch.Tensor | None]],
+             device: torch.device) -> KernelPack:
+    """Pad each ``(M (rows=output columns, k), bias)`` to (round8, round16)
+    and lay it out for the wgmma kernels (:func:`wg_layout`): a producer
+    copies one k-slice per shared-memory stage, which wgmma's descriptor
+    reads as is.  Same descriptors as :func:`_pack`."""
+    ws, bs, desc = [], [], []
+    w_off = b_off = 0
+    for mat, b in layers:
+        n, k = mat.shape
+        k_pad, n_pad = _round_up(k, 16), _round_up(n, 8)
+        wp = torch.zeros((n_pad, k_pad), dtype=torch.float32, device=device)
+        wp[:n, :k] = mat.to(device=device, dtype=torch.float32)
+        slices = [wp[:, k0:k0 + WG_KS].reshape(n_pad, -1, 8).permute(1, 0, 2).reshape(-1)
+                  for k0 in range(0, k_pad, WG_KS) if n_pad]
+        bp = torch.zeros((n_pad,), dtype=torch.float32, device=device)
+        if b is not None:
+            bp[:n] = b.to(device=device, dtype=torch.float32)
+        ws.append(torch.cat(slices).to(torch.bfloat16) if slices
+                  else torch.zeros((0,), dtype=torch.bfloat16, device=device))
+        bs.append(bp)
+        desc.append((k_pad, n, n_pad, w_off, b_off))
+        w_off += n_pad * k_pad
+        b_off += n_pad
+    return KernelPack(
+        w=torch.cat(ws).contiguous(), b=torch.cat(bs).contiguous(),
+        desc=np.ascontiguousarray(np.asarray(desc, dtype=np.int32)),
+    )
+
+
+def pack_weights_wg(mlp: NeRFMLP, device: torch.device) -> KernelPack:
+    """K1's (and K6's, K2's recompute) pack: every layer's W^T in wgmma's
+    layout."""
+    return _pack_wg(_dense_layers(mlp), device)
 
 
 def pack_weights_bwd(mlp: NeRFMLP, device: torch.device,
@@ -132,12 +190,22 @@ def pack_weights_bwd(mlp: NeRFMLP, device: torch.device,
     of the position encodings (layer 0 and the skip concats) and of the
     direction encodings (the branch)."""
     layers = _dense_layers(mlp)
-    if input_grads:
-        rows = [wt.shape[1] for wt, _ in layers]
-    else:
-        hid = mlp.hidden_dim
-        rows = [0] + [hid] * (mlp.num_layers - 1) + [hid, hid, hid // 2]
-    return _pack([(wt.T[:r], None) for (wt, _), r in zip(layers, rows)], device)
+    if not input_grads:
+        return _pack(_bwd_layers(mlp), device)
+    return _pack([(wt.T, None) for wt, _ in layers], device)
+
+
+def _bwd_layers(mlp: NeRFMLP) -> list[tuple[torch.Tensor, None]]:
+    """K2's transposed matrices: per layer W cut to the hidden input columns."""
+    hid = mlp.hidden_dim
+    rows = [0] + [hid] * (mlp.num_layers - 1) + [hid, hid, hid // 2]
+    return [(wt.T[:r], None) for (wt, _), r in zip(_dense_layers(mlp), rows)]
+
+
+def pack_weights_bwd_wg(mlp: NeRFMLP, device: torch.device) -> KernelPack:
+    """K2's (and K3's, K6's) pack for the dX products in wgmma's layout:
+    the matrices of :func:`pack_weights_bwd` without input gradients."""
+    return _pack_wg(_bwd_layers(mlp), device)
 
 
 def _cached(mlp: NeRFMLP, device: torch.device, attr: str, build) -> KernelPack:
@@ -153,7 +221,15 @@ def _cached(mlp: NeRFMLP, device: torch.device, attr: str, build) -> KernelPack:
 
 
 def kernel_pack(mlp: NeRFMLP, device: torch.device) -> KernelPack:
-    return _cached(mlp, device, "_k1_pack", pack_weights)
+    return _cached(mlp, device, "_k5_fwd_pack", pack_weights)
+
+
+def kernel_pack_wg(mlp: NeRFMLP, device: torch.device) -> KernelPack:
+    return _cached(mlp, device, "_k1_pack", pack_weights_wg)
+
+
+def kernel_pack_bwd_wg(mlp: NeRFMLP, device: torch.device) -> KernelPack:
+    return _cached(mlp, device, "_k2_pack", pack_weights_bwd_wg)
 
 
 def kernel_pack_bwd(mlp: NeRFMLP, device: torch.device,
@@ -161,15 +237,16 @@ def kernel_pack_bwd(mlp: NeRFMLP, device: torch.device,
     if input_grads:
         return _cached(mlp, device, "_k5_pack",
                        lambda m, d: pack_weights_bwd(m, d, input_grads=True))
-    return _cached(mlp, device, "_k2_pack", pack_weights_bwd)
+    return _cached(mlp, device, "_k5_bwd_pack", pack_weights_bwd)
 
 
 def workspace_layout(fwd: KernelPack, bwd: KernelPack) -> np.ndarray:
-    """K2's per-layer workspace and output layout, int32 (n_dense, 5):
-    ``a_col, a_width`` (the layer input, width = K1's k_pad), ``d_col,
-    d_width`` (its dPre, width = round16(outputs)) as column offsets of
-    the (B*S, sum width) workspaces, and ``out_off`` of its (a_width,
-    d_width) f32 dW in the output."""
+    """The backward's per-layer workspace and output layout, int32
+    (n_dense, 5): ``a_col, a_width`` (the layer input, width = the forward
+    k_pad), ``d_col, d_width`` (its dPre, width = round16(outputs)): a
+    layer's workspace starts at ``rows * col`` of the bf16 workspaces and
+    holds ``rows`` samples in nerf_dw.cuh's tiled layout; ``out_off`` of
+    its (a_width, d_width) f32 dW in the output."""
     a_w = fwd.desc[:, 0].astype(np.int64)
     d_w = bwd.desc[:, 0].astype(np.int64)
     cols = lambda w: np.concatenate([[0], np.cumsum(w)[:-1]])  # noqa: E731
@@ -177,13 +254,36 @@ def workspace_layout(fwd: KernelPack, bwd: KernelPack) -> np.ndarray:
     return np.ascontiguousarray(out.astype(np.int32))
 
 
+# The dW workspace of K2, K3 and K6 holds one chunk of whole rays at most
+# this many bytes (csrc/fused_render_bwd.cu runs the rows kernel and the dW
+# product chunk by chunk); about 66K samples at 8x256.
+DW_CHUNK_BYTES = 640 << 20
+
+
+def chunk_plan(b: int, s: int, bytes_per_sample: int,
+               budget: int | None = None) -> list[tuple[int, int]]:
+    """``[(first ray, rays)]``: the chunks of whole rays the backward walks
+    in order.  Each chunk's workspace (its samples padded to 128-row tiles,
+    ``bytes_per_sample`` each) fits ``budget`` (``DW_CHUNK_BYTES``) unless
+    one ray alone does not; the last chunk may be short; one chunk when
+    the batch fits."""
+    budget = DW_CHUNK_BYTES if budget is None else budget
+    rows = budget // bytes_per_sample // 128 * 128
+    rays = max(1, rows // s)
+    return [(r, min(rays, b - r)) for r in range(0, b, rays)]
+
+
+def _tiles(n: int) -> int:
+    return -(-n // 128)
+
+
 class DwBuffers(NamedTuple):
     """The workspaces and outputs of a backward (K2, K5) whose weight
     gradients go through ``nerf_dw.cuh``: the layer inputs (A) and dPre
-    (D) of every sample, bf16, the per-block bias rows, the dW slabs, and
-    the summed dW/db.  Freed on return to PyTorch's caching allocator,
-    which hands their memory out again only to work queued after the
-    kernels on this stream."""
+    (D), bf16, of ``rows`` samples (one chunk), the per-block bias rows,
+    the dW slabs, and the summed dW/db.  Freed on return to PyTorch's
+    caching allocator, which hands their memory out again only to work
+    queued after the kernels on this stream."""
 
     layout: np.ndarray
     ws_a: torch.Tensor
@@ -194,24 +294,29 @@ class DwBuffers(NamedTuple):
     dw: torch.Tensor
     db: torch.Tensor
 
+    @staticmethod
+    def bytes_per_sample(fwd: KernelPack, bwd: KernelPack) -> int:
+        layout = workspace_layout(fwd, bwd)
+        return 2 * int(layout[:, 1].sum() + layout[:, 3].sum())
+
     @classmethod
-    def allocate(cls, fwd: KernelPack, bwd: KernelPack, n: int, nblk: int,
+    def allocate(cls, fwd: KernelPack, bwd: KernelPack, rows: int, nblk: int,
                  device: torch.device) -> "DwBuffers":
-        """For ``n`` samples and ``nblk`` rows-kernel blocks; the dW
-        product splits its rows so that ~4 blocks per SM are in flight."""
+        """For ``rows`` workspace rows (a multiple of 64) and ``nblk``
+        rows-kernel blocks; the dW product splits its 64-row stages so
+        that about two waves of blocks (one per SM) are in flight."""
         layout = workspace_layout(fwd, bwd)
         a_cols, d_cols = int(layout[:, 1].sum()), int(layout[:, 3].sum())
         total_out = int((layout[:, 1] * layout[:, 3]).sum())
         total_b = fwd.b.numel()
-        tiles = int(sum(-(-int(a) // 128) * -(-int(d) // 128)
-                        for a, d in zip(layout[:, 1], layout[:, 3])))
+        tiles = int(sum(-(-int(a) // 128) for a in layout[:, 1]))
         sms = torch.cuda.get_device_properties(device).multi_processor_count
-        nsplit = max(1, min(-(-4 * sms // tiles), n // 2048))
+        nsplit = max(1, min(-(-2 * sms // tiles), rows // 64 // 8))
         f32 = dict(dtype=torch.float32, device=device)
         return cls(
             layout=layout,
-            ws_a=torch.empty((n * a_cols,), dtype=torch.bfloat16, device=device),
-            ws_d=torch.empty((n * d_cols,), dtype=torch.bfloat16, device=device),
+            ws_a=torch.empty((rows * a_cols,), dtype=torch.bfloat16, device=device),
+            ws_d=torch.empty((rows * d_cols,), dtype=torch.bfloat16, device=device),
             db_part=torch.empty((nblk * total_b,), **f32),
             dw_part=torch.empty((nsplit * total_out,), **f32),
             nsplit=nsplit,
@@ -311,6 +416,15 @@ def _check_cuda_call(mlp, origins, dirs, t_vals, l_xyz, l_dir, skip_layer) -> No
     for p in mlp.parameters():
         if p.device != device:
             raise ValueError(f"MLP parameters are on {p.device}, rays on {device}")
+    _check_hidden(mlp)
+
+
+def _check_hidden(mlp: NeRFMLP) -> None:
+    if mlp.hidden_dim not in WG_HIDDEN:
+        raise NotImplementedError(
+            f"K1/K2/K3/K6 on CUDA take hidden widths {WG_HIDDEN}; "
+            f"hidden_dim={mlp.hidden_dim} has no kernel instantiation"
+        )
 
 
 def _ptr(x: torch.Tensor | None) -> int | None:
@@ -334,7 +448,7 @@ def _launch_fwd(mlp, t_vals, l_xyz, l_dir, *, origins=None, dirs=None,
         preds = torch.empty((b * s, 4), dtype=torch.float32, device=device)
     if b == 0:
         return rgb, weights, x_enc, preds
-    pack = kernel_pack(mlp, device)
+    pack = kernel_pack_wg(mlp, device)
     rc = _build.load("fused_render_fwd").nkt_fused_render_fwd(
         _ptr(origins), _ptr(dirs), t_vals.data_ptr(), _ptr(x_in), _ptr(d_in),
         pack.w.data_ptr(), pack.b.data_ptr(), pack.desc.ctypes.data,
@@ -392,12 +506,13 @@ def unpack_grads(mlp: NeRFMLP, fwd: KernelPack, layout: np.ndarray,
 
 def launch_rows(mode, mlp, t_vals, preds, g_rgb, g_w, l_xyz, l_dir, *,
                 x_res=None, origins=None, dirs=None, d_enc=None):
-    """One launch of the rows kernel in ``mode`` (``_ROWS_K2``: ``x_res``
-    and ``dirs``; ``_ROWS_K3``: ``origins`` and ``dirs``; ``_ROWS_K6``:
-    ``x_res`` = x_enc and ``d_enc``, (B*S, .) bf16), then the dW product
-    and the reduce.  Returns ``(K1 pack, DwBuffers)``: the summed f32 dW/db
-    are in ``ws.dw``/``ws.db`` (:func:`unpack_grads` maps them to the
-    parameters)."""
+    """One backward in ``mode`` (``_ROWS_K2``: ``x_res`` and ``dirs``;
+    ``_ROWS_K3``: ``origins`` and ``dirs``; ``_ROWS_K6``: ``x_res`` = x_enc
+    and ``d_enc``, (B*S, .) bf16): the compositing VJP, then the rows
+    kernel and the dW product over the chunks of :func:`chunk_plan`, then
+    the reduce.  Returns ``(forward pack, DwBuffers)``: the summed f32
+    dW/db are in ``ws.dw``/``ws.db`` (:func:`unpack_grads` maps them to
+    the parameters)."""
     device = t_vals.device
     b, s = t_vals.shape
     n = b * s
@@ -409,26 +524,32 @@ def launch_rows(mode, mlp, t_vals, preds, g_rgb, g_w, l_xyz, l_dir, *,
     check_tensor("g_rgb", g_rgb, (b, 3), device)
     if g_w is not None:
         check_tensor("g_w", g_w, (b, s), device)
-    fwd = kernel_pack(mlp, device)
-    bwd = kernel_pack_bwd(mlp, device)
-    rays_per_block = 1 if s >= 64 else 64 // s
-    grid = -(-b // rays_per_block)
-    ws = DwBuffers.allocate(fwd, bwd, n, grid, device)
+    _check_hidden(mlp)
+    fwd = kernel_pack_wg(mlp, device)
+    bwd = kernel_pack_bwd_wg(mlp, device)
+    plan = chunk_plan(b, s, DwBuffers.bytes_per_sample(fwd, bwd))
+    chunk_rays = plan[0][1]
+    rows = _tiles(chunk_rays * s) * 128
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    grid = min(_tiles(chunk_rays * s), sms)
+    ws = DwBuffers.allocate(fwd, bwd, rows, grid, device)
+    dpreds = torch.empty((n, 4), dtype=torch.float32, device=device)
     rc = _build.load("fused_render_bwd").nkt_fused_render_bwd(
         mode, _ptr(x_res), _ptr(origins), _ptr(dirs), _ptr(d_enc), t_vals.data_ptr(),
         preds.data_ptr(), g_rgb.data_ptr(), _ptr(g_w),
         fwd.w.data_ptr(), fwd.b.data_ptr(), fwd.desc.ctypes.data,
         bwd.w.data_ptr(), bwd.desc.ctypes.data, ws.layout.ctypes.data,
         fwd.desc.shape[0], mlp.num_layers, mlp.skip_layer, mlp.hidden_dim,
-        l_xyz, l_dir, b, s, ws.db.numel(), ws.dw.numel(),
-        ws.ws_a.data_ptr(), ws.ws_d.data_ptr(), ws.db_part.data_ptr(),
+        l_xyz, l_dir, b, s, chunk_rays, ws.db.numel(), ws.dw.numel(), dpreds.data_ptr(),
+        ws.ws_a.data_ptr(), ws.ws_d.data_ptr(), ws.db_part.data_ptr(), grid,
         ws.dw_part.data_ptr(), ws.nsplit, ws.dw.data_ptr(), ws.db.data_ptr(),
         device_index(device), torch.cuda.current_stream(device).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(
             f"{('K2', 'K3', 'K6 backward')[mode]} launch failed with CUDA error {rc} "
-            f"(B={b}, S={s}, hidden={mlp.hidden_dim}, layers={mlp.num_layers})"
+            f"(B={b}, S={s}, hidden={mlp.hidden_dim}, layers={mlp.num_layers}, "
+            f"chunks of {chunk_rays} rays)"
         )
     return fwd, ws
 
@@ -575,6 +696,7 @@ def _check_enc_call(mlp, x_enc, d_enc, t_vals) -> None:
     for p in mlp.parameters():
         if p.device != device:
             raise ValueError(f"MLP parameters are on {p.device}, encodings on {device}")
+    _check_hidden(mlp)
 
 
 def launch_k6_fwd(mlp, x_enc, d_enc, t_vals, train: bool):

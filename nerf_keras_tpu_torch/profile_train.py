@@ -48,6 +48,7 @@ from nerf_keras_tpu_torch.profile_render import union_us
 # backward, whichever ran.
 KERNELS = {
     "k1": ("fused_render_fwd_kernel",),
+    "k2_vjp": ("composite_vjp_kernel",),
     "k2_rows": ("k2_rows_kernel",),
     "k3_rows": ("k3_rows_kernel",),
     "k5_fwd": ("fused_mlp_fwd_kernel",),

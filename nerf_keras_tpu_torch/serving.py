@@ -18,8 +18,11 @@ K1; ``--quant int8`` calibrates int8 tables at startup (and at every
 ``/reload``), gates the int8 render against the float one on the default
 pose (``--quant-gate-db``, PSNR) and, when it passes, renders every frame
 through K4; when it fails the server says so and serves the float path,
-as the JAX server does.  ``--sampler proposal`` (the offline-distilled
-sampler) is not ported yet and raises.
+as the JAX server does.  ``--sampler proposal`` on a proposal-trained
+checkpoint (``TRAIN_SAMPLER=proposal``) serves unchanged, since every
+render already places its samples with the checkpoint's proposal nets;
+on a coarse-trained one it asks for the offline-distilled sampler, which
+is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -56,12 +59,9 @@ class RenderService:
         quant: bool = False, quant_gate_db: float = 30.0,
         sampler: str = "coarse",
     ):
-        if sampler != "coarse":
-            raise NotImplementedError(
-                f"--sampler {sampler} is not yet ported (the offline-distilled "
-                "proposal sampler, ROADMAP.md queue 1 item 5, arrives in a "
-                "later PR)"
-            )
+        if sampler not in ("coarse", "proposal"):
+            raise ValueError(f"sampler must be 'coarse' or 'proposal', got {sampler!r}")
+        self._sampler_requested = sampler
         self._quant_requested = quant
         self._quant_gate_db = quant_gate_db
         self.use_quant = False
@@ -96,6 +96,15 @@ class RenderService:
         cfg, notes = resolve_infer_config(self._arg_cfg, checkpoint)
         for note in notes:
             print(f"[nerf-torch] {note}")
+        if self._sampler_requested == "proposal":
+            if cfg.train_sampler != "proposal":
+                raise NotImplementedError(
+                    "--sampler proposal on a coarse-trained checkpoint is not yet "
+                    "ported (the offline-distilled proposal sampler, ROADMAP.md "
+                    "queue 1 item 4, arrives in a later PR)"
+                )
+            print("[nerf-torch] proposal-trained checkpoint: renders already use "
+                  "the in-state proposal nets")
         if (
             self.trainer is not None
             and cfg == self.cfg
@@ -277,7 +286,9 @@ def main(argv=None) -> None:
     p.add_argument("--quant-gate-db", type=float, default=30.0)
     p.add_argument("--sampler", type=str, default="coarse",
                    choices=("coarse", "proposal"),
-                   help="proposal is not yet ported")
+                   help="proposal: a proposal-trained checkpoint serves unchanged; "
+                        "the offline-distilled sampler (coarse-trained "
+                        "checkpoints) is not yet ported")
     args = p.parse_args(argv)
     service = RenderService(
         load_config(args.config), args.checkpoint, args.near, args.far,

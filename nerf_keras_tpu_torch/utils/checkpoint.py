@@ -6,7 +6,8 @@ TrainState pytree — ``.params['fine']['trunk'][0]['w']``, ``.ema[...]``,
 ``.step``, ``.opt_state...`` — plus a ``.config.json`` sidecar in the
 reference's UPPERCASE schema, optionally carrying a ``SCENE`` record
 (near/far/focal).  The render path needs ``.params``, ``.ema`` and
-``.step``; the optimizer state is not read (resuming Adam is later work).
+``.step``; training resumes Adam from ``.opt_state[0]`` (count and
+moments), which is optax's Adam state in the JAX package's checkpoints.
 A ``TRAIN_SAMPLER=proposal`` state carries ``{'proposal', 'fine'}``, the
 proposal tree as ``['proposal']['layers'][i]`` (one level) or
 ``['proposal']['l1']...`` (two).
@@ -82,8 +83,11 @@ def _flatten(tree, prefix: str) -> dict[str, np.ndarray]:
 
 
 def load_checkpoint(path: str) -> dict:
-    """``{'params': {...}, 'ema': {...} or None, 'step': int}`` from a
-    ``.ckpt.npz``: the params trees keep the JAX layout (numpy arrays)."""
+    """``{'params': {...}, 'ema': {...} or None, 'step': int,
+    'opt_state': {'count': int, 'mu': {...}, 'nu': {...}} or None}`` from a
+    ``.ckpt.npz``: the trees keep the JAX layout (numpy arrays).  The
+    optimizer state is Adam's (``.opt_state[0]``); a checkpoint without it
+    gives None."""
     with open(path, "rb") as f:
         data = np.load(io.BytesIO(f.read()))
     trees: dict = {}
@@ -93,7 +97,7 @@ def load_checkpoint(path: str) -> dict:
         head = path_parts[0]
         if head == "step":
             step = int(data[key])
-        elif head in ("params", "ema"):
+        elif head in ("params", "ema") or path_parts[:2] == ["opt_state", 0]:
             _insert(trees, path_parts, np.asarray(data[key]))
         elif head == "bn" and data[key].size:
             raise NotImplementedError(
@@ -101,7 +105,12 @@ def load_checkpoint(path: str) -> dict:
             )
     if "params" not in trees:
         raise KeyError(f"checkpoint at {path} has no .params leaves")
-    return {"params": trees["params"], "ema": trees.get("ema"), "step": step}
+    adam = trees.get("opt_state", [None])[0]
+    opt_state = None
+    if adam is not None and {"count", "mu", "nu"} <= set(adam):
+        opt_state = {"count": int(adam["count"]), "mu": adam["mu"], "nu": adam["nu"]}
+    return {"params": trees["params"], "ema": trees.get("ema"), "step": step,
+            "opt_state": opt_state}
 
 
 def _write_atomic(path: str, data: bytes) -> None:

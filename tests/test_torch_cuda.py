@@ -184,6 +184,29 @@ def test_k2_is_deterministic(dev):
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
+def test_k2_chunks_of_rays(dev, monkeypatch):
+    """A workspace budget that forces several chunks of whole rays (a
+    ragged last one) gives K2's one-chunk gradients within K2's gate, and
+    K3 equals K2 bit for bit at that budget."""
+    gen = torch.Generator().manual_seed(14)
+    mlp = randomize_biases_(NeRFMLP(generator=gen, device=dev), gen)
+    b, s = 333, 100
+    o, d, t = _rays(dev, b, s, seed=8)
+    g_rgb = torch.randn((b, 3), generator=gen).to(dev)
+    g_w = torch.randn((b, s), generator=gen).to(dev)
+    with torch.no_grad():
+        _, _, x_enc, preds = k1.launch_k1(mlp, o, d, t, 10, 4, train=True)
+        one = k1.launch_k2(mlp, x_enc, d, t, preds, g_rgb, g_w, 10, 4)
+        monkeypatch.setattr(k1, "DW_CHUNK_BYTES", 64 * 128 * 10_112)
+        plan = k1.chunk_plan(b, s, 10_112)
+        assert len(plan) >= 3 and plan[-1][1] < plan[0][1]
+        got = k1.launch_k2(mlp, x_enc, d, t, preds, g_rgb, g_w, 10, 4)
+        k3 = k1.launch_k3(mlp, o, d, t, preds, g_rgb, g_w, 10, 4)
+    for x, y, z in zip(got, one, k3):
+        assert _rel_l2(x, y) <= K2_TOL_REL
+        assert torch.equal(x, z)
+
+
 def test_autograd_seam_on_card(dev):
     """render_rays_fused under autograd: the weights detached unless
     weights_grad; .backward() fills each parameter's grad with K2's
