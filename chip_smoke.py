@@ -26,7 +26,13 @@ nonzero — nothing falls back to the CPU or to a plain path):
    coarse, and a ragged N): raw predictions, per-leaf gradients, the
    encodings' gradients, within gates that a K5 dropping the skip part of
    dx_enc, or fed a wrong layer-0 pack, misses by 10x or more;
-   CUDA-event times;
+   CUDA-event times at both passes' N;
+   5b. K5's backward over chunks of samples (its workspace holds one
+   chunk) at N = 786,432 with input gradients: the default 640 MiB budget
+   and a smaller one (>= 3 chunks, a ragged last one) within K5's gate of
+   one chunk holding the whole batch; two runs bit-identical; time and the
+   device ms of the rows kernel and the dW product at each budget; the dW
+   product's library yardstick;
 6. serve: write a random-weight checkpoint for
    ``config/lego_batch_h256_tpu.json``, start the port's HTTP server on
    127.0.0.1, issue /healthz, three 200x200 /render and /stats, decode
@@ -46,15 +52,17 @@ nonzero — nothing falls back to the CPU or to a plain path):
 9. parity train, STOP_PDF_GRADIENT=false: 5 steps, two K5 forward and two
    K5 backward launches per step and no K1/K2, finite losses, one step's
    gradients kernel path vs plain path (the coarse leaves, whose gradient
-   runs through sample_pdf, reported on their own);
+   runs through sample_pdf, reported on their own), the median step time
+   and peak memory (<= 1,536 MiB);
 10. full render: a 200x200 frame with ``full=True`` from the phase-8
     state (two K5 launches per chunk), all eight maps checked against the
     port's CPU path on the same checkpoint (a strided subset of rays);
 11. K4 (the int8 ray megakernel) against its plain version at full width
     (random weights and biases, int8 tables calibrated on orbit rays):
-    B=4096 with S=64, 160 and 192 and a ragged B, within gates that two
-    broken packs (the skip layer's x_enc rows zeroed, the fs head's sigma
-    column dropped) miss by 10x or more; CUDA-event times;
+    B=4096 with S=64, 160 and 192, a ragged B, and the server's chunk
+    (B=16384, S=64 and 192), within gates that two broken packs (the skip
+    layer's x_enc rows zeroed, the fs head's sigma column dropped) miss by
+    10x or more; CUDA-event times;
 12. int8 serving: the phase-6 checkpoint behind ``RenderService(quant=
     True)`` over HTTP: the PSNR gate must pass, three 200x200 /render
     with two K4 launches per chunk and no K1 launch, /stats says int8, and
@@ -202,11 +210,12 @@ K4_TOL_MEAN = 1e-5
 # The int8 PSNR gate against the float render (the server's default).
 QUANT_GATE_DB = 30.0
 
-# Peak device memory over a K1/K2 train step (max_memory_allocated over
-# what was allocated before it): K2's workspace holds one chunk of rays
-# (ops/kernels/fused_render.py: DW_CHUNK_BYTES), so the step stays below
-# this at batch 4096 whatever the samples per ray (on an H100: 942 MiB
-# proposal, 831 MiB parity; 7.6-7.9 GB before the chunks).
+# Peak device memory over a train step (max_memory_allocated over what was
+# allocated before it): the backward's workspace (K2's, K5's) holds one
+# chunk (ops/kernels/fused_render.py: DW_CHUNK_BYTES), so the step stays
+# below this at batch 4096 whatever the samples per ray (on an H100: 942
+# MiB proposal, 831 MiB parity; 7.6-7.9 GB before the chunks, 8,039 MiB
+# for STOP_PDF_GRADIENT=false while K5 held the whole batch's workspace).
 STEP_PEAK_MIB = 1536
 
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 tensor-core FLOP/s (data sheet)
@@ -222,7 +231,7 @@ SOURCES = {
            "nerf_keras_tpu/ops/pallas/fused_render.py:453"),
     "K5f": ("nerf_keras_tpu_torch/csrc/fused_mlp_fwd.cu",
             "nerf_keras_tpu/ops/pallas/fused_mlp.py:148"),
-    "K5b": ("nerf_keras_tpu_torch/csrc/fused_mlp_bwd.cu",
+    "K5b": ("nerf_keras_tpu_torch/csrc/fused_render_bwd.cu",
             "nerf_keras_tpu/ops/pallas/fused_mlp.py:260"),
     "K4": ("nerf_keras_tpu_torch/csrc/quant_render_fwd.cu",
            "nerf_keras_tpu/ops/pallas/quant_render.py:66"),
@@ -552,7 +561,7 @@ def phase_k2_chunks(card: str) -> dict:
     mlp, origins, dirs, t, g_rgb, g_w = _k2_inputs(dev)
     b, s = t.shape
     default = k1.DW_CHUNK_BYTES
-    fwd, bwd = k1.kernel_pack_wg(mlp, dev), k1.kernel_pack_bwd_wg(mlp, dev)
+    fwd, bwd = k1.kernel_pack(mlp, dev), k1.kernel_pack_bwd(mlp, dev)
     bps = k1.DwBuffers.bytes_per_sample(fwd, bwd)
     fields = {}
     with torch.no_grad():
@@ -592,14 +601,7 @@ def phase_k2_chunks(card: str) -> dict:
             k1.DW_CHUNK_BYTES = default
         del base, again, x_enc, preds
         torch.cuda.empty_cache()
-        layout = k1.workspace_layout(fwd, bwd)
-        n = b * s
-        pairs = [(torch.randn((n, int(a)), device=dev, dtype=torch.bfloat16),
-                  torch.randn((n, int(d)), device=dev, dtype=torch.bfloat16))
-                 for a, d in zip(layout[:, 1], layout[:, 3])]
-        library_ms = cuda_ms(lambda: [torch.matmul(a.t(), d) for a, d in pairs])
-        del pairs
-        torch.cuda.empty_cache()
+        library_ms = _dw_library_ms(mlp, dev, b * s)
     say("k2_chunks", B=b, S=s, bytes_per_sample=bps, deterministic=deterministic,
         dw_library_ms=library_ms, tol_rel=K2_TOL_REL, **fields, card=card)
     if not deterministic:
@@ -631,10 +633,11 @@ def _k5_inputs(dev, n, seed):
 
 
 def _broken_pack(mlp: NeRFMLP, dev, what: str) -> k1.KernelPack:
-    """K5's input-gradient pack with the skip rows zeroed (``skip``: dx_enc
-    loses the skip part) or layer 0's rows zeroed (``layer0``: it loses the
-    layer-0 product); every other product is unchanged."""
-    mats = [wt.T.detach().clone() for wt, _ in k1._dense_layers(mlp)]
+    """K5's input-gradient pack (wgmma layout) with the skip rows zeroed
+    (``skip``: dx_enc loses the skip part) or layer 0's rows zeroed
+    (``layer0``: it loses the layer-0 product); every other product is
+    unchanged."""
+    mats = [m.detach().clone() for m, _ in k1._bwd_layers(mlp, input_grads=True)]
     hid = mlp.hidden_dim
     if what == "layer0":
         mats[0].zero_()
@@ -642,7 +645,86 @@ def _broken_pack(mlp: NeRFMLP, dev, what: str) -> k1.KernelPack:
         for i in range(1, mlp.num_layers + 1):
             if is_skip(i - 1, mlp.skip_layer):
                 mats[i][hid:] = 0.0
-    return k1._pack([(m, None) for m in mats], dev)
+    return k1._pack_wg([(m, None) for m in mats], dev)
+
+
+# K5's backward kernels, by the names the profiler reports.
+K5_STAGES = {"rows": ("k5_rows_kernel",), "dw": ("mlp_dw_kernel",),
+             "reduce": ("mlp_reduce_kernel",)}
+# A workspace budget that splits K5's fine pass (N = 786,432) into >= 3
+# chunks of samples with a ragged last one.
+K5_SMALL_BUDGET = 160 << 20
+
+
+def _dw_library_ms(mlp: NeRFMLP, dev, n: int) -> float:
+    """The dW stage's library yardstick: one ``torch.matmul`` of A^T D per
+    layer over ``n`` samples (bf16 operands of the workspace's widths),
+    never called by the port."""
+    layout = k1.workspace_layout(k1.kernel_pack(mlp, dev), k1.kernel_pack_bwd(mlp, dev))
+    pairs = [(torch.randn((n, int(a)), device=dev, dtype=torch.bfloat16),
+              torch.randn((n, int(d)), device=dev, dtype=torch.bfloat16))
+             for a, d in zip(layout[:, 1], layout[:, 3])]
+    ms = cuda_ms(lambda: [torch.matmul(a.t(), d) for a, d in pairs])
+    del pairs
+    torch.cuda.empty_cache()
+    return ms
+
+
+def phase_k5_chunks(card: str) -> dict:
+    """K5's backward over chunks of samples at the fine pass's N = 786,432
+    with input gradients: one chunk (the whole batch's workspace), the
+    default budget and one that forces >= 3 chunks with a ragged last one,
+    each within K5's gate of one chunk; run twice at the default (identical
+    bits); times and the device ms of the rows kernel and the dW product at
+    each budget; the dW stage's library yardstick."""
+    dev = torch.device("cuda")
+    mlp = full_mlp(dev, 5)
+    n = 4096 * 192
+    x_enc, d_enc, g = _k5_inputs(dev, n, seed=n)
+    default = k1.DW_CHUNK_BYTES
+    bps = k1.DwBuffers.bytes_per_sample(k1.kernel_pack(mlp, dev), k1.kernel_pack_bwd(mlp, dev))
+    fields = {}
+    run = lambda: k5.launch_k5_bwd(mlp, x_enc, d_enc, g, True, True)  # noqa: E731
+    flat = lambda r: [*r[0], r[1], r[2]]  # noqa: E731
+    with torch.no_grad():
+        base = flat(run())
+        deterministic = all(torch.equal(a, b) for a, b in zip(base, flat(run())))
+        try:
+            k1.DW_CHUNK_BYTES = 1 << 40
+            one = flat(run())
+            torch.cuda.synchronize()
+            fields["one_chunk"] = {"ms": cuda_ms(run),
+                                   "device_ms": device_ms_by_kernel(run, K5_STAGES)}
+            for name, budget in (("default", default), ("small", K5_SMALL_BUDGET)):
+                k1.DW_CHUNK_BYTES = budget
+                plan = k1.chunk_plan(n, 1, bps)
+                got = flat(run())
+                torch.cuda.synchronize()
+                fields[name] = {
+                    "budget_mib": budget / 2**20, "chunks": len(plan),
+                    "samples_per_chunk": plan[0][1], "last_chunk_samples": plan[-1][1],
+                    "rel_l2_vs_one_chunk": max(_rel_l2(a, b) for a, b in zip(got, one)),
+                    "ms": cuda_ms(run), "device_ms": device_ms_by_kernel(run, K5_STAGES)}
+                del got
+        finally:
+            k1.DW_CHUNK_BYTES = default
+        del base, one
+    del x_enc, d_enc, g
+    torch.cuda.empty_cache()
+    library_ms = _dw_library_ms(mlp, dev, n)
+    say("k5_chunks", N=n, input_grads=True, bytes_per_sample=bps,
+        deterministic=deterministic, dw_library_ms=library_ms, tol_rel=K5_TOL_REL,
+        **fields, card=card)
+    if not deterministic:
+        raise RuntimeError("K5's backward run twice gave different bits")
+    small = fields["small"]
+    if small["chunks"] < 3 or small["last_chunk_samples"] >= small["samples_per_chunk"]:
+        raise RuntimeError("K5's small budget did not give >= 3 chunks with a ragged last one")
+    for name in ("default", "small"):
+        if fields[name]["rel_l2_vs_one_chunk"] > K5_TOL_REL:
+            raise RuntimeError(f"K5 in chunks ({name}) disagrees with one chunk: "
+                               f"{fields[name]['rel_l2_vs_one_chunk']}")
+    return {"library_ms": library_ms, "budgets": fields}
 
 
 def phase_k5(card: str) -> dict:
@@ -673,16 +755,21 @@ def phase_k5(card: str) -> dict:
             finite = finite and bool(torch.isfinite(dx.float()).all() and torch.isfinite(dd.float()).all())
             fields["dx_rel_l2"] = _rel_l2(dx, want_dx)
             fields["dd_rel_l2"] = _rel_l2(dd, want_dd)
-            orig = k5.kernel_pack_bwd
+            orig = k1.kernel_pack_bwd
             for what in ("skip", "layer0"):
                 broken = _broken_pack(mlp, dev, what)
-                k5.kernel_pack_bwd = lambda m, d, input_grads=False, b=broken: b  # noqa: E731
+                k1.kernel_pack_bwd = lambda m, d, input_grads=False, b=broken: b  # noqa: E731
                 try:
                     _, bdx, _ = k5.launch_k5_bwd(mlp, x_enc, d_enc, g, True, True)
                 finally:
-                    k5.kernel_pack_bwd = orig
+                    k1.kernel_pack_bwd = orig
                 fields[f"dx_rel_l2_{what}_broken"] = _rel_l2(bdx, want_dx)
         timing = {}
+        if n == 4096 * 64:  # the coarse pass: times only
+            with torch.no_grad():
+                timing["fwd_ms"] = cuda_ms(lambda: k5.launch_k5_fwd(mlp, x_enc, d_enc))
+                timing["bwd_ms"] = cuda_ms(
+                    lambda: k5.launch_k5_bwd(mlp, x_enc, d_enc, g, False, False))
         if n == 4096 * 192:
             with torch.no_grad():
                 timing["fwd_ms"] = cuda_ms(lambda: k5.launch_k5_fwd(mlp, x_enc, d_enc))
@@ -777,18 +864,21 @@ def _miss(errs: dict) -> float:
 
 def phase_k4(card: str) -> dict:
     """K4 vs render_rays_reference_quant at full width: B=4096 (one 64x64
-    pose) with S=64, 160 (the proposal fine pass) and 192, and a ragged B
-    (several rays per block, a part-filled last block); two broken packs at
-    S=192 must miss the gates by 10x."""
+    pose) with S=64, 160 (the proposal fine pass) and 192, a ragged B
+    (several rays per block, a part-filled last block), and the chunk the
+    server launches it on (B=16384 rays of a 128x128 pose, S=64 coarse and
+    192 fine); two broken packs at S=192 must miss the gates by 10x."""
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(4)
     mlp = full_mlp(dev, 4)
     qp = _calibrated_qparams(mlp, dev)
-    origins, dirs = get_rays(64, 64, 1.2 * 64, pose_spherical(30.0, -30.0, 4.0), device=dev)
-    origins = origins.reshape(-1, 3).contiguous()
-    dirs = dirs.reshape(-1, 3).contiguous()
+    rays = {}
+    for size in (64, 128):
+        o, d = get_rays(size, size, 1.2 * size, pose_spherical(30.0, -30.0, 4.0), device=dev)
+        rays[size * size] = (o.reshape(-1, 3).contiguous(), d.reshape(-1, 3).contiguous())
     report = {"max_abs_err": 0.0}
-    for b, s in ((4096, 64), (4096, 160), (4096, 192), (1001, 24)):
+    for b, s in ((4096, 64), (4096, 160), (4096, 192), (1001, 24), (16384, 64), (16384, 192)):
+        origins, dirs = rays[16384 if b > 4096 else 4096]
         o, d = origins[:b].contiguous(), dirs[:b].contiguous()
         t = generate_t_vals(2.0, 6.0, (b,), s, "stratified", generator=gen).to(dev).contiguous()
         args = (qp, o, d, t)
@@ -803,13 +893,14 @@ def phase_k4(card: str) -> dict:
                 bad = _broken_qparams(qp, mlp.hidden_dim, mlp.skip_layer, what)
                 fields[f"miss_{what}_broken"] = _miss(_errs(k4.launch_k4(bad, o, d, t, 10, 4, 4),
                                                             want))
-        if b == 4096:
+        if b in (4096, 16384):
             bnd = k4_bound(mlp, b, s)
             fields.update(ms=cuda_ms(lambda: k4.render_rays_fused_quant(*args)),
                           plain_ms=cuda_ms(lambda: k4.render_rays_reference_quant(*args)),
                           bound_ms=bnd[0], bound_by=bnd[1])
-            report[f"ms_s{s}"], report[f"plain_ms_s{s}"] = fields["ms"], fields["plain_ms"]
-            report[f"bound_s{s}"] = bnd
+            key = f"b{b}_s{s}"
+            report[f"ms_{key}"], report[f"plain_ms_{key}"] = fields["ms"], fields["plain_ms"]
+            report[f"bound_{key}"] = bnd
         say("k4", B=b, S=s, **errs, tol_max=K4_TOL_MAX, tol_mean=K4_TOL_MEAN, finite=finite,
             **fields, card=card)
         if not finite:
@@ -1137,7 +1228,7 @@ def phase_parity(card: str, stop: bool, tmp: str) -> tuple[list[dict], str | Non
         raise RuntimeError(f"{name}: non-finite losses {run['loss_curve']}")
     if stop and not run["loss_curve"][-1] < run["loss_curve"][0]:
         raise RuntimeError(f"{name}: the loss did not fall: {run['loss_curve']}")
-    if stop and run["peak_step_mib"] > STEP_PEAK_MIB:
+    if run["peak_step_mib"] > STEP_PEAK_MIB:
         raise RuntimeError(f"{name}: a step peaked at {run['peak_step_mib']} MiB")
     if not stop:
         say(name, steps=steps, **run, card=card)
@@ -1524,6 +1615,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     k5r = phase_k5(card)
     torch.cuda.empty_cache()
+    k5c = phase_k5_chunks(card)
+    torch.cuda.empty_cache()
     k4r = phase_k4(card)
     torch.cuda.empty_cache()
     k3r = phase_k3(card)
@@ -1559,11 +1652,12 @@ def main() -> None:
         kernel_entry("K5-fwd fused_mlp_fwd", "K5f", _sum(runs, "k5_fwd"),
                      k5r["fwd_max_abs_err"], k5r["fwd_ms"], k5r["fwd_plain_ms"],
                      k5r["fwd_bound"]),
-        kernel_entry("K5-bwd fused_mlp_bwd", "K5b", _sum(runs, "k5_bwd"),
+        kernel_entry("K5-bwd fused_render_bwd (k5_rows)", "K5b", _sum(runs, "k5_bwd"),
                      k5r["bwd_max_abs_err"], k5r["bwd_ms"], k5r["bwd_plain_ms"],
-                     k5r["bwd_bound"]),
+                     k5r["bwd_bound"], k5c["library_ms"]),
         kernel_entry("K4 quant_render_fwd", "K4", _sum(runs, "k4"), k4r["max_abs_err"],
-                     k4r["ms_s192"], k4r["plain_ms_s192"], k4r["bound_s192"]),
+                     k4r["ms_b16384_s192"], k4r["plain_ms_b16384_s192"],
+                     k4r["bound_b16384_s192"]),
         kernel_entry("K3 fused_render_bwd (recompute)", "K3", _sum(runs, "k3"),
                      k3r["max_abs_err"], k3r["ms"], k3r["plain_ms"], k3r["bound"]),
         kernel_entry("K6-fwd fused_render_fwd (encodings in)", "K6f", _sum(runs, "k6_fwd"),

@@ -10,11 +10,13 @@ own code; name a tree twice to interleave (parent, change, change,
 parent).  Phases:
 
 * ``kernels``: the tree's own ``chip_smoke.py`` phases for K1, K2 (with
-  K1's training form), K3 and K6, gates included; their CUDA-event times;
+  K1's training form), K3, K5 (forward, and backward with input gradients
+  at N = 786,432) and K6, gates included; their CUDA-event times;
 * ``k1k2``: K1 at B=4096, S=64 and 192 and in training form at S=160,
   and K2 at S=160 with the weights cotangent, with K2's device ms per
   kernel (``chip_smoke.device_ms_by_kernel``); CUDA events, median of 20;
-* ``steps``: 14 steps of the proposal recipe and of the parity step
+* ``steps``: 14 steps of the proposal recipe, of the parity step and of
+  the parity step with ``STOP_PDF_GRADIENT=false`` (K5's path)
   (``profile_train.bench_config``/``parity_config``, one fixed batch of
   4096 rays) through the tree's ``Trainer.train_step``: the median of
   the last 10 step times on the host clock (each step ends in a device
@@ -54,6 +56,9 @@ if "kernels" in phases:
     r = cs.phase_k6(card)
     out.update(k6_fwd=r["fwd_ms"], k6_bwd=r["bwd_ms"])
     torch.cuda.empty_cache()
+    r = cs.phase_k5(card)
+    out.update(k5_fwd=r["fwd_ms"], k5_bwd=r["bwd_ms"])
+    torch.cuda.empty_cache()
 if "k1k2" in phases:
     import chip_smoke as cs
     from nerf_keras_tpu_torch.ops.kernels import fused_render as k1
@@ -78,7 +83,8 @@ if "k1k2" in phases:
 if "steps" in phases:
     from nerf_keras_tpu_torch.engine.trainer import Trainer
     from nerf_keras_tpu_torch.profile_train import bench_batch, bench_config, parity_config
-    for name, cfg in (("proposal", bench_config()), ("parity", parity_config())):
+    for name, cfg in (("proposal", bench_config()), ("parity", parity_config()),
+                      ("parity_pdf_grad", parity_config(stop_pdf_gradient=False))):
         tr = Trainer(cfg, 2.0, 6.0, device="cuda")
         batch = tr.put_batch(bench_batch(cfg.batch_size))
         ms, peak, losses = [], 0, []

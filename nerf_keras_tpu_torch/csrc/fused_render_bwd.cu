@@ -1,5 +1,5 @@
 // K2 on Hopper: the backward of the NeRF ray megakernel (K1); with K3,
-// its recompute variant, and K6's backward (see the modes below).
+// its recompute variant, K6's backward and K5's (see the modes below).
 //
 // Replaces the TPU kernel `_bwd_xres_kernel`
 // (nerf_keras_tpu/ops/pallas/fused_render.py:453, with `_bwd_core` :362
@@ -68,7 +68,7 @@
 // dpreds and zero inputs, so their D is zero and they add nothing.  No
 // TF32 anywhere (bf16 tensor-core products, f32 elsewhere), no fast math.
 //
-// The rows kernel has three modes, one __global__ each (one body):
+// The rows kernel has four modes, one __global__ each (one body):
 //   * k2_rows_kernel (K2): position features from K1's x_enc residual.
 //   * k3_rows_kernel (K3): replaces `_bwd_encode_kernel`
 //     (fused_render.py:425, pl.pallas_call at :969), the
@@ -85,6 +85,34 @@
 //     `apply_nerf_render_pallas`: position and direction encodings both
 //     read per sample from the caller's (B*S, .) bf16 inputs, no weights
 //     cotangent (the JAX entry's weights carry no gradient).
+//   * k5_rows_kernel (K5's backward): replaces `_bwd_kernel`
+//     (nerf_keras_tpu/ops/pallas/fused_mlp.py:260, with `_mlp_bwd_tile`
+//     :163; pl.pallas_call at :393, entry `apply_nerf_mlp_pallas` at :430):
+//     the gradients of the skip MLP over encodings given the cotangent g
+//     (N, 4) f32 of its raw predictions.  K6's body with no compositing:
+//     no VJP kernel runs, the walk starts from g row by row, and the chunks
+//     are of samples (S = 1: K5 has no rays).  With input gradients (the
+//     STOP_PDF_GRADIENT=false fine pass) its own instantiation walks with
+//     the transposed pack of every input column (fused_render.py:
+//     kernel_pack_bwd(input_grads=True)) and runs the three products K2
+//     skips: the branch's direction columns (dd_enc), the x_enc columns
+//     of each layer after a skip concat and layer 0's product (dx_enc).
+//     Numerics as the TPU kernel's (fused_mlp.py:232-239, :253-257):
+//     dx_enc's parts are summed in f32 from the top skip layer down, then
+//     layer 0, and rounded to bf16 once; dd_enc is rounded once.  Where the
+//     f32 sum lives: in registers.  Each of those products is its own
+//     wgmma group of N = 64 columns (the x_enc columns, padded) read from
+//     the same weight stage as the layer's hidden columns (at column H,
+//     LBO = the stage's n_pad * 16 bytes), and wgmma accumulates it into
+//     the same 32 f32 a thread (nerf_wgmlp.cuh: mlp_backward_wg), live
+//     from the skip layer down to layer 0: 132 (acc) + 32 + 16 (A
+//     fragments) of the consumers' 232 registers.  A 128 x 64 f32 tile in
+//     shared memory (32 KB) does not fit: at 8x256 the activation tile, the
+//     ReLU bits, the scratch and the bias sums take 147,136 B, and the
+//     input-gradient pack widens a weight stage to 320 x 64 bf16 = 40,960
+//     B (the skip layer's dX has H + 64 columns), so two stages leave
+//     3,392 of 232,448 B.  dx_enc and dd_enc go out through the warp's
+//     own rows of the activation tile, row by row in order.
 
 #include "nerf_dw.cuh"
 #include "nerf_wgmlp.cuh"
@@ -98,6 +126,7 @@ enum RowsMode {
   kResidual = 0,     // K2: x_enc residual, directions encoded per sample row
   kRecompute = 1,    // K3: x_enc encoded from (origins, dirs, t)
   kEncodingsIn = 2,  // K6: x_enc and d_enc per sample, as given
+  kK5 = 3,           // K5: as K6, seeded from the caller's g (no compositing)
 };
 
 // ---- 1. The compositing VJP: dpreds (B*S, 4) from K1's predictions.
@@ -186,13 +215,15 @@ struct RowParams {
   const float* dirs;           // (B, 3): K2, K3
   const __nv_bfloat16* d_enc;  // (B*S, dir_dim): K6
   const float* t_vals;         // (B, S)
-  const float* dpreds;         // (B*S, 4)
+  const float* dpreds;         // (B*S, 4): the VJP's, K5's g
   float* db_part;              // (grid, total_b)
+  __nv_bfloat16* dx_out;       // (B*S, xyz_dim): K5 with input gradients, or null
+  __nv_bfloat16* dd_out;       // (B*S, dir_dim): K5 with input gradients, or null
   long long n0;                // the chunk's first sample
   int nc, ntiles, S, total_b, accumulate, stages, stage_bytes, sld;
 };
 
-template <int H, int MODE>
+template <int H, int MODE, bool kIG = false>
 __device__ __forceinline__ void rows_body(const RowParams& p) {
   extern __shared__ __align__(128) unsigned char smem[];
   const MlpBwdParams& mb = p.mb;
@@ -225,7 +256,7 @@ __device__ __forceinline__ void rows_body(const RowParams& p) {
     if (warp == kConsumerWarps && lane == 0) {
       RingPos rp;
       for (int tile = blockIdx.x; tile < p.ntiles; tile += gridDim.x)
-        produce_backward(mb, ring, rp);
+        produce_backward<kIG>(mb, ring, rp);
     }
     return;
   }
@@ -243,7 +274,7 @@ __device__ __forceinline__ void rows_body(const RowParams& p) {
     auto dir = [&](int row, int c) {
       if (row >= valid || c >= m.dir_dim) return __float2bfloat16_rn(0.f);
       const long long q = q0 + row;
-      if (MODE == kEncodingsIn) return p.d_enc[q * m.dir_dim + c];
+      if (MODE == kEncodingsIn || MODE == kK5) return p.d_enc[q * m.dir_dim + c];
       return __float2bfloat16_rn(encode_feature(p.dirs + (q / S) * 3, c, m.dir_dim));
     };
     if constexpr (MODE == kRecompute) {
@@ -262,8 +293,10 @@ __device__ __forceinline__ void rows_body(const RowParams& p) {
                          rp);
     } else {
       auto xf = [&](int row, int c) { return p.x_res[(q0 + row) * m.xyz_dim + c]; };
-      mlp_backward_wg<H>(mb, wact, wmasks, scratch, p.sld, db, xf, dir, g, valid, rbase, ring,
-                         rp);
+      __nv_bfloat16* dx = kIG && p.dx_out != nullptr ? p.dx_out + q0 * m.xyz_dim : nullptr;
+      __nv_bfloat16* dd = kIG && p.dd_out != nullptr ? p.dd_out + q0 * m.dir_dim : nullptr;
+      mlp_backward_wg<H, kIG>(mb, wact, wmasks, scratch, p.sld, db, xf, dir, g, valid, rbase,
+                              ring, rp, dx, dd);
     }
   }
   consumer_sync(kWgConsumers);
@@ -289,26 +322,41 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   rows_body<H, kEncodingsIn>(p);
 }
 
+template <int H, bool kIG>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    k5_rows_kernel(const __grid_constant__ RowParams p) {
+  rows_body<H, kK5, kIG>(p);
+}
+
 template <int H>
-void (*pick_rows(int mode))(const RowParams) {
-  return mode == kResidual ? k2_rows_kernel<H> : mode == kRecompute ? k3_rows_kernel<H>
-                                                                    : k6_rows_kernel<H>;
+void (*pick_rows(int mode, bool ig))(const RowParams) {
+  switch (mode) {
+    case kResidual: return k2_rows_kernel<H>;
+    case kRecompute: return k3_rows_kernel<H>;
+    case kEncodingsIn: return k6_rows_kernel<H>;
+    default: return ig ? k5_rows_kernel<H, true> : k5_rows_kernel<H, false>;
+  }
 }
 
 }  // namespace
 
 // Plain C entry point, loaded with ctypes.  `mode` picks the rows kernel:
 // 0 = K2 (x_res and dirs given), 1 = K3 (origins and dirs given, x_res
-// null), 2 = K6 (x_res = x_enc and d_enc given, dirs null).  Host arrays:
+// null), 2 = K6 (x_res = x_enc and d_enc given, dirs null), 3 = K5 (x_res
+// = x_enc, d_enc and dpreds = the cotangent g (N, 4) given, as B = N rays
+// of S = 1 sample; t_vals, preds, g_rgb, g_w, origins and dirs null: no
+// compositing VJP runs).  K5 alone takes dx_out (N, xyz_dim) and dd_out
+// (N, dir_dim) bf16: with either, its input-gradient walk, whose
+// transposed pack holds every input column (wg_input_grads_ok).  Host arrays:
 // `desc_fwd` (n_dense x 5: k_pad, n, n_pad, w_off, b_off of the forward
 // wgmma pack), `desc_bwd` (the same for the transposed pack: k_pad =
 // round16(n), n = dX columns), `desc_ws` (n_dense x 5: a_col, a_width,
 // d_col, d_width, out_off), in the order trunk[0..num_layers), merged
 // head, branch, rgb.  hidden is 64, 128 or 256.  The batch runs in chunks
 // of `chunk_rays` whole rays, in order; buffers (allocated by the caller):
-// dpreds (B*S x 4) f32; ws_a (rows_pad x sum a_width) and ws_d (rows_pad x
-// sum d_width) bf16 for one chunk, rows_pad = round_up(chunk_rays * S,
-// 128); db_part (grid x total_b) and dw_part (nsplit x total_out) f32,
+// dpreds (B*S x 4) f32, written by the VJP (read, for K5); ws_a (rows_pad
+// x sum a_width) and ws_d (rows_pad x sum d_width) bf16 for one chunk,
+// rows_pad = round_up(chunk_rays * S, 128); db_part (grid x total_b) and dw_part (nsplit x total_out) f32,
 // where grid <= the first chunk's 128-row tiles.  Outputs dw (total_out)
 // and db (total_b) f32.  Launches on `stream`, returns the first CUDA
 // error (0 on success); does not synchronise.
@@ -319,23 +367,30 @@ extern "C" int nkt_fused_render_bwd(
     const void* desc_bwd, const void* desc_ws, int n_dense, int num_layers, int skip_layer,
     int hidden, int l_xyz, int l_dir, int B, int S, int chunk_rays, int total_b,
     int total_out, void* dpreds, void* ws_a, void* ws_d, void* db_part, int grid,
-    void* dw_part, int nsplit, void* dw_out, void* db_out, int device, void* stream) {
+    void* dw_part, int nsplit, void* dw_out, void* db_out, void* dx_out, void* dd_out,
+    int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const bool inputs_ok =
       (mode == kResidual && x_res != nullptr && dirs != nullptr) ||
       (mode == kRecompute && x_res == nullptr && origins != nullptr && dirs != nullptr) ||
-      (mode == kEncodingsIn && x_res != nullptr && d_enc != nullptr && dirs == nullptr);
+      (mode == kEncodingsIn && x_res != nullptr && d_enc != nullptr && dirs == nullptr) ||
+      (mode == kK5 && x_res != nullptr && d_enc != nullptr && dpreds != nullptr && S == 1 &&
+       origins == nullptr && dirs == nullptr && t_vals == nullptr && preds == nullptr &&
+       g_rgb == nullptr && g_w == nullptr);
+  const bool ig = dx_out != nullptr || dd_out != nullptr;
   RowParams p;
   MlpBwdParams& mb = p.mb;
   const int first_tiles = (int)(((long long)chunk_rays * S + kWgRows - 1) / kWgRows);
-  if (!inputs_ok || B <= 0 || S < 2 || nsplit < 1 || chunk_rays < 1 || grid < 1 ||
+  if (!inputs_ok || (ig && mode != kK5) || B <= 0 || (S < 2 && mode != kK5) || nsplit < 1 ||
+      chunk_rays < 1 || grid < 1 ||
       grid > first_tiles || !wg_hidden_ok(hidden) ||
       !mlp_dims_init(mb.m, static_cast<const int*>(desc_fwd), n_dense, num_layers,
                      skip_layer, hidden, l_xyz, l_dir) ||
       !wg_dims_ok(mb.m) ||
       !mlp_bwd_init(mb, static_cast<const int*>(desc_bwd), static_cast<const int*>(desc_ws),
-                    n_dense))
+                    n_dense) ||
+      (ig && !wg_input_grads_ok(mb)))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   mb.w = static_cast<const __nv_bfloat16*>(w_pack);
@@ -352,6 +407,8 @@ extern "C" int nkt_fused_render_bwd(
   p.t_vals = static_cast<const float*>(t_vals);
   p.dpreds = static_cast<const float*>(dpreds);
   p.db_part = static_cast<float*>(db_part);
+  p.dx_out = static_cast<__nv_bfloat16*>(dx_out);
+  p.dd_out = static_cast<__nv_bfloat16*>(dd_out);
   p.S = S;
   p.total_b = total_b;
   p.sld = hidden;
@@ -359,12 +416,14 @@ extern "C" int nkt_fused_render_bwd(
   const int sbb = wg_stage_bytes(mb.bdense, n_dense);
   p.stage_bytes = sb > sbb ? sb : sbb;
 
-  composite_vjp_kernel<<<(B + 7) / 8, 256, 0, st>>>(
-      static_cast<const float*>(t_vals), static_cast<const float*>(preds),
-      static_cast<const float*>(g_rgb), static_cast<const float*>(g_w),
-      static_cast<float*>(dpreds), B, S);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  if (mode != kK5) {
+    composite_vjp_kernel<<<(B + 7) / 8, 256, 0, st>>>(
+        static_cast<const float*>(t_vals), static_cast<const float*>(preds),
+        static_cast<const float*>(g_rgb), static_cast<const float*>(g_w),
+        static_cast<float*>(dpreds), B, S);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
 
   const size_t rest = kBarBytes + sizeof(__nv_bfloat16) * (size_t)kWgRows * mb.m.ldx +
                       sizeof(uint32_t) * (size_t)(num_layers + 1) * kWgRows * mb.mask_words +
@@ -373,9 +432,9 @@ extern "C" int nkt_fused_render_bwd(
   const size_t fit = ((size_t)kMaxSmem - rest) / p.stage_bytes;
   p.stages = fit < (size_t)kMaxStages ? (int)fit : kMaxStages;
   const size_t smem = rest + (size_t)p.stages * p.stage_bytes;
-  void (*kernel)(const RowParams) = hidden == 64    ? pick_rows<64>(mode)
-                                    : hidden == 128 ? pick_rows<128>(mode)
-                                                    : pick_rows<256>(mode);
+  void (*kernel)(const RowParams) = hidden == 64    ? pick_rows<64>(mode, ig)
+                                    : hidden == 128 ? pick_rows<128>(mode, ig)
+                                                    : pick_rows<256>(mode, ig);
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
 

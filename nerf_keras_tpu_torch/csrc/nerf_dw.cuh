@@ -1,7 +1,6 @@
 // The weight gradients of the MLP from the workspaces its backward writes
-// (nerf_wgmlp.cuh: mlp_backward_wg for K2, K3 and K6; nerf_tile.cuh:
-// mlp_backward_tile for K5), shared by fused_render_bwd.cu and
-// fused_mlp_bwd.cu.
+// (nerf_wgmlp.cuh: mlp_backward_wg for K2, K3, K5 and K6), for
+// fused_render_bwd.cu.
 //
 // dW = A^T D per layer: M = a_width (layer input), N = d_width (layer
 // output), K = samples.  The workspaces are stored in 64-sample stages of
@@ -15,7 +14,7 @@
 // warpgroups of 64 rows, the whole d_width, up to 272, in registers) over
 // a range of sample stages; a producer warp keeps a ring of 4 stages (the
 // block's 128 columns of A and all of D for 64 samples, <= 51,200 B each)
-// in flight.  Each block writes (or, for a later chunk of rays, adds) its
+// in flight.  Each block writes (or, for a later chunk, adds) its
 // partial tile to its own slab; mlp_reduce_kernel sums the slabs and the
 // per-block bias rows in a fixed order.  No atomics: the same sums in the
 // same order on every run (deterministic).

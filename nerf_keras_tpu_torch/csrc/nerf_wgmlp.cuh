@@ -1,7 +1,8 @@
 // The NeRF MLP on Hopper's warpgroup products, shared by the ray
 // megakernel's forward (K1, and K6's forward over encodings:
-// fused_render_fwd.cu) and the rows kernel of its backward (K2, K3, K6:
-// fused_render_bwd.cu).  K4 and K5 keep nerf_tile.cuh's mma.sync tile.
+// fused_render_fwd.cu), the MLP over encodings (K5's forward:
+// fused_mlp_fwd.cu) and the rows kernel of the backwards (K2, K3, K5, K6:
+// fused_render_bwd.cu).  K4 keeps nerf_tile.cuh's mma.sync tile.
 //
 // A block is two consumer warpgroups and one producer warpgroup (384
 // threads; one thread of it issues the copies, and setmaxnreg moves its
@@ -24,7 +25,8 @@
 // pack_weights_wg): element (n, k) of the slice at ((k / 8) * n_pad + n)
 // * 8 + k % 8, so a k16 step starts 2 * n_pad * 16 bytes after the one
 // before, core matrices along K lie n_pad * 16 bytes apart (LBO) and
-// along N 128 bytes apart (SBO).
+// along N 128 bytes apart (SBO); columns [n0, n0 + N) of a stage are one
+// more product at n0 * 16 bytes.
 //
 // Products: wgmma.mma_async m64nNk16 (bf16, f32 accumulation), A from
 // registers (the mma.sync A fragment loaded from the row-major activation
@@ -145,15 +147,21 @@ __device__ __forceinline__ void load_a(uint32_t a[4], const __nv_bfloat16* act, 
   a[3] = *reinterpret_cast<const uint32_t*>(r0 + 8 * ldx + 8);
 }
 
-// acc[0, N/2) = act[64 rows of the warpgroup, 0:k_pad) @ (the layer's
-// stages).  Consumes ceil(k_pad / kKs) stages of the ring.
-template <int N>
+// acc[0, N/2) = act[64 rows of the warpgroup, 0:k_pad) @ columns [0, N)
+// of the layer's stages and, with NX > 0, accx[0, NX/2) += the same rows @
+// columns [N, N + NX) (the caller zeroes accx where a sum starts); `np`:
+// the stages' width (the layer's n_pad).  Consumes ceil(k_pad / kKs)
+// stages of the ring.
+template <int N, int NX = 0>
 __device__ __forceinline__ void wg_product(float* acc, const __nv_bfloat16* act, int ldx,
-                                           int k_pad, const WRing& r, RingPos& c) {
-  static_assert(N % 8 == 0 && N <= 264, "wgmma widths");
+                                           int k_pad, const WRing& r, RingPos& c,
+                                           float* accx = nullptr, int np = N + NX) {
+  static_assert(N % 8 == 0 && NX % 8 == 0 && N <= 264 && NX <= 64, "wgmma widths");
   constexpr int kSteps = kKs / 16;
+  if constexpr (N > 0) {
 #pragma unroll
-  for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+  }
   for (int k0 = 0; k0 < k_pad; k0 += kKs) {
     const int steps = min(kKs, k_pad - k0) >> 4;  // block-uniform
     uint32_t a[kSteps][4];
@@ -162,14 +170,21 @@ __device__ __forceinline__ void wg_product(float* acc, const __nv_bfloat16* act,
       if (q < steps) load_a(a[q], act, ldx, k0 + 16 * q);
     mbar_wait(&r.full[c.st], c.ph);
     const uint32_t sb = smem_u32(r.buf + static_cast<size_t>(c.st) * r.stage_bytes);
-    acc_fence<N / 2>(acc);
+    if constexpr (N > 0) acc_fence<N / 2>(acc);
+    if constexpr (NX > 0) acc_fence<NX / 2>(accx);
     wg_fence();
 #pragma unroll
     for (int q = 0; q < kSteps; ++q)
-      if (q < steps) mma_rs<N>(acc, a[q], smem_desc(sb + q * 2 * N * 16, N * 16, 128), 128, 1);
+      if (q < steps) {
+        const uint32_t step = sb + q * 2 * np * 16;
+        if constexpr (N > 0) mma_rs<N>(acc, a[q], smem_desc(step, np * 16, 128), 128, 1);
+        if constexpr (NX > 0)
+          mma_rs<NX>(accx, a[q], smem_desc(step + N * 16, np * 16, 128), 128, 1);
+      }
     wg_commit();
     wg_wait<0>();
-    acc_fence<N / 2>(acc);
+    if constexpr (N > 0) acc_fence<N / 2>(acc);
+    if constexpr (NX > 0) acc_fence<NX / 2>(accx);
     __syncwarp();
     if ((threadIdx.x & 31) == 0) mbar_arrive(&r.empty[c.st]);
     c.next(r.stages);
@@ -407,10 +422,37 @@ __device__ __forceinline__ void produce_forward(const MlpDims& m, const __nv_bfl
   for (int i = 0; i < m.num_layers + 3; ++i) produce_layer(ring, rp, w, m.dense[i]);
 }
 
+// act[rows, 0:N) = bf16(acc): an accumulator's 16 x N columns of the warp.
+template <int N>
+__device__ __forceinline__ void epi_store(const float* acc, __nv_bfloat16* act, int ldx) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const int c = 8 * j + 2 * t;
+    *reinterpret_cast<__nv_bfloat162*>(act + g * ldx + c) =
+        __floats2bfloat162_rn(acc[4 * j], acc[4 * j + 1]);
+    *reinterpret_cast<__nv_bfloat162*>(act + (g + 8) * ldx + c) =
+        __floats2bfloat162_rn(acc[4 * j + 2], acc[4 * j + 3]);
+  }
+}
+
+// out rows [0, valid) x columns [0, w) (row stride w) = the warp's tile
+// `act` (row stride ldx): per-sample rows out of shared memory, in order.
+__device__ __forceinline__ void rows_out(const __nv_bfloat16* act, int ldx, __nv_bfloat16* out,
+                                         int w, int valid) {
+  const int lane = threadIdx.x & 31;
+  __syncwarp();
+  for (int j = lane; j < valid * w; j += 32) {
+    const int row = j / w, c = j - row * w;
+    out[j] = act[row * ldx + c];
+  }
+  __syncwarp();
+}
+
 // ---------------------------------------------------------------------------
-// The backward of the warp's 16 rows (K2, K3, K6's rows kernel), given the
-// cotangent g of their raw predictions (f32, row stride 4: d rgb logits,
-// d sigma; rows < valid are read):
+// The backward of the warp's 16 rows (K2, K3, K5, K6's rows kernel), given
+// the cotangent g of their raw predictions (f32, row stride 4: d rgb
+// logits, d sigma; rows < valid are read):
 //   * recompute: from the position features xf(row, c) (called for rows <
 //     valid, c < xyz_dim), with the forward's products, so the same ReLU
 //     pattern; each ReLU's sign bits go to `masks` ((L + 1) slots of 128
@@ -420,14 +462,27 @@ __device__ __forceinline__ void produce_forward(const MlpDims& m, const __nv_bfl
 //     workspace; the bias gradients (f32 column sums of dPre) added into db
 //     (the forward bias-pack layout), through `scratch` (2 x 8 rows of sld
 //     floats).
+// With kIG (K5's input gradients; the pack then holds every input column,
+// the x_enc part of a layer padded to kXCols, the direction part of the
+// branch to kDCols) the walk also runs the products K2's skips: the
+// branch's direction columns, rounded once to bf16, go to dd (the warp's
+// rows, row stride dir_dim); the x_enc columns of each layer whose input
+// has the skip concat, from the top down, then layer 0's product, are
+// summed in f32 in kXCols/2 registers a thread (wgmma accumulates each
+// product into them) and rounded once to bf16 into dx (row stride
+// xyz_dim).  dx or dd may be null (not written).
 // The workspace rows are rbase + [0, 16) of p.N rows per layer.  The
-// producer streams produce_backward's order.
-template <int H, class XFn, class DirFn>
+// producer streams produce_backward<kIG>'s order.
+constexpr int kXCols = 64;  // x_enc gradient columns of K5's product (xyz_dim <= 64)
+constexpr int kDCols = 32;  // d_enc gradient columns (dir_dim <= 32)
+
+template <int H, bool kIG = false, class XFn, class DirFn>
 __device__ __forceinline__ void mlp_backward_wg(const MlpBwdParams& p, __nv_bfloat16* act,
                                                 uint32_t* masks, float* scratch, int sld,
                                                 float* db, XFn xf, DirFn dir, const float* g,
                                                 int valid, int rbase, const WRing& ring,
-                                                RingPos& rp) {
+                                                RingPos& rp, __nv_bfloat16* dx = nullptr,
+                                                __nv_bfloat16* dd = nullptr) {
   const MlpDims& m = p.m;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int ldx = m.ldx, L = m.num_layers, MW = p.mask_words;
@@ -452,6 +507,20 @@ __device__ __forceinline__ void mlp_backward_wg(const MlpBwdParams& p, __nv_bflo
     __syncwarp();
   };
   float acc[(H + 8) / 2];
+  float xs[kIG ? kXCols / 2 : 1];  // kIG: the encodings' gradient columns, f32
+  // The dX product of dense layer i (i >= 1) into acc: the hidden columns
+  // of its input and, with kIG where that input has the skip concat, its
+  // x_enc columns added into xs.
+  auto dx_product = [&](int i) {
+    if constexpr (kIG) {
+      if (is_skip(i - 1, m.skip_layer)) {
+        wg_product<H, kXCols>(acc, act, ldx, p.bdense[i].k_pad, ring, rp, xs,
+                              p.bdense[i].n_pad);
+        return;
+      }
+    }
+    wg_product<H>(acc, act, ldx, p.bdense[i].k_pad, ring, rp);
+  };
 
   // ---- Forward recompute, storing each layer's input (A).
   load_x(0);
@@ -509,10 +578,26 @@ __device__ __forceinline__ void mlp_backward_wg(const MlpBwdParams& p, __nv_bflo
   __syncwarp();
   finish(db + br.b_off, H / 2);
   store_ws(act, ldx, p.ws_d + N * p.bwd[L + 1].d_col, p.bwd[L + 1].d_width, rbase);
-  // dfeature = dh2 W_br^T; with d sigma the merged head's dPre.
-  wg_product<H>(acc, act, ldx, p.bdense[L + 1].k_pad, ring, rp);
+  // dfeature = dh2 W_br^T; with d sigma the merged head's dPre.  With kIG
+  // the direction columns too: dd_enc.
+  if constexpr (kIG) {
+#pragma unroll
+    for (int i = 0; i < kDCols / 2; ++i) xs[i] = 0.f;
+    wg_product<H, kDCols>(acc, act, ldx, p.bdense[L + 1].k_pad, ring, rp, xs,
+                          p.bdense[L + 1].n_pad);
+  } else {
+    wg_product<H>(acc, act, ldx, p.bdense[L + 1].k_pad, ring, rp);
+  }
   __syncwarp();
   epi_bwd<H, false>(acc, act, ldx, nullptr, 0, srow());
+  if constexpr (kIG) {
+    if (dd != nullptr) {
+      epi_store<kDCols>(xs, act + H, ldx);
+      rows_out(act + H, ldx, dd, m.dir_dim, valid);
+    }
+#pragma unroll
+    for (int i = 0; i < kXCols / 2; ++i) xs[i] = 0.f;
+  }
   const int dw_fs = p.bwd[L].d_width;
   for (int j = lane; j < 16 * (dw_fs - H); j += 32) {
     const int row = j / (dw_fs - H), c = j - row * (dw_fs - H);
@@ -522,7 +607,7 @@ __device__ __forceinline__ void mlp_backward_wg(const MlpBwdParams& p, __nv_bflo
   finish(db + fs.b_off, H);
   store_ws(act, ldx, p.ws_d + N * p.bwd[L].d_col, dw_fs, rbase);
   // dh_{L-1} = dfs W_fs^T (hidden columns), masked: dPre_{L-1}.
-  wg_product<H>(acc, act, ldx, p.bdense[L].k_pad, ring, rp);
+  dx_product(L);
   __syncwarp();
   epi_bwd<H, true>(acc, act, ldx, masks + (L - 1) * mslot, MW, srow());
   __syncwarp();
@@ -531,17 +616,28 @@ __device__ __forceinline__ void mlp_backward_wg(const MlpBwdParams& p, __nv_bflo
   for (int i = L - 1; i >= 0; --i) {
     store_ws(act, ldx, p.ws_d + N * p.bwd[i].d_col, p.bwd[i].d_width, rbase);
     if (i > 0) {
-      wg_product<H>(acc, act, ldx, p.bdense[i].k_pad, ring, rp);
+      dx_product(i);
       __syncwarp();
       epi_bwd<H, true>(acc, act, ldx, masks + (i - 1) * mslot, MW, srow());
       __syncwarp();
       finish(db + m.dense[i - 1].b_off, H);
     }
   }
+  if constexpr (kIG) {
+    // Layer 0's input is the encoding alone: its product adds into xs.
+    wg_product<0, kXCols>(nullptr, act, ldx, p.bdense[0].k_pad, ring, rp, xs,
+                          p.bdense[0].n_pad);
+    if (dx != nullptr) {
+      epi_store<kXCols>(xs, act, ldx);
+      rows_out(act, ldx, dx, m.xyz_dim, valid);
+    }
+  }
 }
 
 // The producer's side of mlp_backward_wg: the recompute's layers of the
-// forward pack, then the walk's of the transposed pack.
+// forward pack, then the walk's of the transposed pack (with kIG layer 0's
+// too).
+template <bool kIG = false>
 __device__ __forceinline__ void produce_backward(const MlpBwdParams& p, const WRing& ring,
                                                  RingPos& rp) {
   const int L = p.m.num_layers;
@@ -550,6 +646,21 @@ __device__ __forceinline__ void produce_backward(const MlpBwdParams& p, const WR
   produce_layer(ring, rp, p.wb, p.bdense[L + 1]);
   produce_layer(ring, rp, p.wb, p.bdense[L]);
   for (int i = L - 1; i > 0; --i) produce_layer(ring, rp, p.wb, p.bdense[i]);
+  if (kIG) produce_layer(ring, rp, p.wb, p.bdense[0]);
+}
+
+// Host: with K5's input gradients, the transposed pack's widths must be
+// the product's: layer 0 kXCols, a layer whose input has the skip concat
+// hidden + kXCols, the branch hidden + kDCols, every other hidden.
+inline bool wg_input_grads_ok(const MlpBwdParams& p) {
+  const MlpDims& m = p.m;
+  const int H = m.hidden, L = m.num_layers;
+  if (m.xyz_dim > kXCols || m.dir_dim > kDCols || p.bdense[0].n_pad != kXCols ||
+      p.bdense[L + 1].n_pad != H + kDCols || p.bdense[L + 2].n_pad != H / 2)
+    return false;
+  for (int i = 1; i <= L; ++i)
+    if (p.bdense[i].n_pad != (is_skip(i - 1, m.skip_layer) ? H + kXCols : H)) return false;
+  return true;
 }
 
 }  // namespace nkt

@@ -49,7 +49,7 @@ ENTRY_POINTS = {
     },
     "fused_render_bwd": {
         "nkt_fused_render_bwd": [
-            _i32,                       # mode: 0 K2, 1 K3, 2 K6
+            _i32,                       # mode: 0 K2, 1 K3, 2 K6, 3 K5
             _vp, _vp, _vp, _vp,         # x_res, origins, dirs, d_enc
             _vp, _vp,                   # t_vals, preds
             _vp, _vp,                   # g_rgb, g_w
@@ -60,7 +60,7 @@ ENTRY_POINTS = {
             _i32, _i32, _i32,           # chunk_rays, total_b, total_out
             _vp, _vp, _vp, _vp, _i32,   # dpreds, ws_a, ws_d, db_part, grid
             _vp, _i32,                  # dw_part, nsplit
-            _vp, _vp,                   # dw_out, db_out
+            _vp, _vp, _vp, _vp,         # dw_out, db_out, dx_out, dd_out (K5)
             _i32, _vp,                  # device, stream
         ],
     },
@@ -82,20 +82,6 @@ ENTRY_POINTS = {
             _i32, _i32, _i32, _i32,     # l_xyz, l_dir, x_off, d_off
             _i32, _i32,                 # B, S
             _vp, _vp,                   # rgb_out, w_out
-            _i32, _vp,                  # device, stream
-        ],
-    },
-    "fused_mlp_bwd": {
-        "nkt_fused_mlp_bwd": [
-            _vp, _vp, _vp,              # x_enc, d_enc, g
-            _vp, _vp, _vp,              # w_pack, b_pack, desc_fwd (host)
-            _vp, _vp, _vp,              # wb_pack, desc_bwd, desc_ws (host)
-            _i32, _i32, _i32, _i32,     # n_dense, num_layers, skip, hidden
-            _i32, _i32, _i32,           # l_xyz, l_dir, N
-            _i32, _i32,                 # total_b, total_out
-            _vp, _vp, _vp, _i32,        # ws_a, ws_d, db_part, grid
-            _vp, _i32,                  # dw_part, nsplit
-            _vp, _vp, _vp, _vp,         # dw_out, db_out, dx_out, dd_out
             _i32, _vp,                  # device, stream
         ],
     },

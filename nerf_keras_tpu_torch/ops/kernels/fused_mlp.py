@@ -2,10 +2,16 @@
 
 Counterpart of ``apply_nerf_mlp_pallas`` in
 ``nerf_keras_tpu/ops/pallas/fused_mlp.py`` (``_fwd_kernel`` and
-``_bwd_kernel``).  The CUDA kernels are ``csrc/fused_mlp_fwd.cu`` and
-``csrc/fused_mlp_bwd.cu``; they share the tile code with K1 and K2
-(``csrc/nerf_tile.cuh``, ``csrc/nerf_dw.cuh``), and reuse K1's weight
-pack and K2's transposed pack with their per-optimizer-step cache.
+``_bwd_kernel``).  The CUDA kernels run on Hopper's wgmma MLP
+(``csrc/nerf_wgmlp.cuh``): the forward is ``csrc/fused_mlp_fwd.cu``, the
+backward the rows kernel's K5 mode of ``csrc/fused_render_bwd.cu`` with
+``csrc/nerf_dw.cuh``'s dW product, over chunks of samples whose workspace
+holds ``DW_CHUNK_BYTES`` at most (``fused_render.launch_rows``).  They
+reuse K1's weight pack and K2's transposed pack (with input gradients,
+a transposed pack of every input column, cached apart) with their
+per-optimizer-step cache.  Hidden widths 64, 128 and 256 only; input
+gradients also need encodings that pad to the kernel's 64 x_enc and 32
+d_enc gradient columns (L_XYZ 9 or 10, L_DIR 4: every shipped config).
 
 * The plain version of the forward is :meth:`NeRFMLP.forward`, which
   rounds to bf16 where the kernel does; :func:`apply_nerf_mlp_reference_vjp`
@@ -31,11 +37,12 @@ import torch
 from nerf_keras_tpu_torch.models.mlp import NeRFMLP
 from nerf_keras_tpu_torch.ops.kernels import _build
 from nerf_keras_tpu_torch.ops.kernels.fused_render import (
-    DwBuffers,
+    _ROWS_K5,
+    _check_hidden,
     check_tensor,
     device_index,
     kernel_pack,
-    kernel_pack_bwd,
+    launch_rows,
     unpack_grads,
 )
 
@@ -43,9 +50,10 @@ from nerf_keras_tpu_torch.ops.kernels.fused_render import (
 launches = 0      # K5 forward
 bwd_launches = 0  # K5 backward
 
-# Blocks per SM of the tile loops: enough blocks for two waves at two
-# resident blocks per SM, few enough that the per-block bias rows stay small.
-_BLOCKS_PER_SM = 4
+# The gradient columns of the encodings in K5's input-gradient products
+# (csrc/nerf_wgmlp.cuh: kXCols, kDCols): x_enc's padded to 8 must be 64
+# wide (L_XYZ 10), d_enc's 32 (L_DIR 4).
+_IG_COLS = (64, 32)
 
 
 def apply_nerf_mlp_reference_vjp(
@@ -86,11 +94,13 @@ def _check_cuda_call(mlp: NeRFMLP, x_enc: torch.Tensor, d_enc: torch.Tensor) -> 
     for p in mlp.parameters():
         if p.device != device:
             raise ValueError(f"MLP parameters are on {p.device}, encodings on {device}")
+    _check_hidden(mlp)
 
 
 def _grid(device: torch.device, n: int) -> int:
+    """One block per SM at most, striding over the 128-row tiles."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(-(-n // 64), _BLOCKS_PER_SM * sms))
+    return max(1, min(-(-n // 128), sms))
 
 
 def launch_k5_fwd(mlp: NeRFMLP, x_enc: torch.Tensor, d_enc: torch.Tensor) -> torch.Tensor:
@@ -134,27 +144,14 @@ def launch_k5_bwd(
     dd = torch.empty_like(d_enc) if need_dd else None
     if n == 0:
         return [torch.zeros_like(p) for p in mlp.parameters()], dx, dd
-    fwd = kernel_pack(mlp, device)
-    bwd = kernel_pack_bwd(mlp, device, input_grads=need_dx or need_dd)
-    grid = _grid(device, n)
-    ws = DwBuffers.allocate(fwd, bwd, -(-n // 64) * 64, grid, device)
-    rc = _build.load("fused_mlp_bwd").nkt_fused_mlp_bwd(
-        x_enc.data_ptr(), d_enc.data_ptr(), g.data_ptr(),
-        fwd.w.data_ptr(), fwd.b.data_ptr(), fwd.desc.ctypes.data,
-        bwd.w.data_ptr(), bwd.desc.ctypes.data, ws.layout.ctypes.data,
-        fwd.desc.shape[0], mlp.num_layers, mlp.skip_layer, mlp.hidden_dim,
-        mlp.l_xyz, mlp.l_dir, n, ws.db.numel(), ws.dw.numel(),
-        ws.ws_a.data_ptr(), ws.ws_d.data_ptr(), ws.db_part.data_ptr(), grid,
-        ws.dw_part.data_ptr(), ws.nsplit, ws.dw.data_ptr(), ws.db.data_ptr(),
-        dx.data_ptr() if need_dx else None, dd.data_ptr() if need_dd else None,
-        device_index(device), torch.cuda.current_stream(device).cuda_stream,
-    )
-    if rc != 0:
-        raise RuntimeError(
-            f"K5 backward launch failed with CUDA error {rc} (N={n}, "
-            f"hidden={mlp.hidden_dim}, layers={mlp.num_layers}, "
-            f"input grads={need_dx}/{need_dd})"
+    if (need_dx or need_dd) and (
+            -(-mlp.xyz_dim // 8) * 8, -(-mlp.dir_dim // 8) * 8) != _IG_COLS:
+        raise NotImplementedError(
+            f"K5's input gradients on CUDA take encodings {_IG_COLS} wide padded to 8 "
+            f"(L_XYZ 10, L_DIR 4); got L_XYZ={mlp.l_xyz}, L_DIR={mlp.l_dir}"
         )
+    fwd, ws = launch_rows(_ROWS_K5, mlp, None, None, None, None, mlp.l_xyz, mlp.l_dir,
+                          x_res=x_enc, d_enc=d_enc, g=g, dx=dx, dd=dd)
     bwd_launches += 1
     return unpack_grads(mlp, fwd, ws.layout, ws.dw, ws.db), dx, dd
 

@@ -8,11 +8,12 @@ backwards ``_bwd_xres_kernel`` (``bwd_mode="residual"``) and
 ``_bwd_encode_kernel`` (``"recompute"``), and the encodings-in pair
 ``_fwd_kernel``/``_bwd_kernel``.  The CUDA kernels are
 ``csrc/fused_render_fwd.cu`` (K1, K6's forward) and
-``csrc/fused_render_bwd.cu`` (K2, K3, K6's backward), on Hopper's wgmma
-(``csrc/nerf_wgmlp.cuh``, weights in :func:`pack_weights_wg`'s layout);
-their source notes say what bounds them and how the designs answer.  The
-backward runs its rows kernel and dW product over the chunks of whole
-rays of :func:`chunk_plan`, so its workspace holds one chunk
+``csrc/fused_render_bwd.cu`` (K2, K3, K6's backward, and K5's:
+``fused_mlp.py`` launches it through :func:`launch_rows`), on Hopper's
+wgmma (``csrc/nerf_wgmlp.cuh``, weights in :func:`pack_weights_wg`'s
+layout); their source notes say what bounds them and how the designs
+answer.  The backward runs its rows kernel and dW product over the chunks
+of whole rays of :func:`chunk_plan`, so its workspace holds one chunk
 (``DW_CHUNK_BYTES``), not the batch.
 
 * :func:`render_rays_reference` is the plain PyTorch K1: encode ->
@@ -60,10 +61,11 @@ enc_bwd_launches = 0    # K6 backward
 
 BWD_MODES = ("residual", "recompute")
 # The rows kernel's modes (csrc/fused_render_bwd.cu).
-_ROWS_K2, _ROWS_K3, _ROWS_K6 = 0, 1, 2
+_ROWS_K2, _ROWS_K3, _ROWS_K6, _ROWS_K5 = 0, 1, 2, 3
 
-# Within every 16-wide k-group, packed rows are stored in this order so a
-# thread's mma.sync B fragment (k = 2t, 2t+1, 2t+8, 2t+9) is one 8-byte load.
+# Within every 16-wide k-group, the interleaved pack (:func:`_pack`, the
+# layout the first, mma.sync kernels read: a thread's B fragment k = 2t,
+# 2t+1, 2t+8, 2t+9 is one 8-byte load) stores rows in this order.
 _K_INTERLEAVE = torch.tensor([0, 1, 8, 9, 2, 3, 10, 11, 4, 5, 12, 13, 6, 7, 14, 15])
 
 
@@ -120,8 +122,9 @@ def _pack(layers: list[tuple[torch.Tensor, torch.Tensor | None]],
 
 
 def pack_weights(mlp: NeRFMLP, device: torch.device) -> KernelPack:
-    """The mma.sync pack (K5's): every layer's W^T (row = output column),
-    interleaved."""
+    """Every layer's W^T (row = output column) in the interleaved layout.
+    No kernel reads it since every bf16 kernel runs on wgmma; the tests
+    hold :func:`pack_weights_wg`'s descriptors to its."""
     return _pack(_dense_layers(mlp), device)
 
 
@@ -180,32 +183,35 @@ def pack_weights_wg(mlp: NeRFMLP, device: torch.device) -> KernelPack:
 
 def pack_weights_bwd(mlp: NeRFMLP, device: torch.device,
                      input_grads: bool = False) -> KernelPack:
-    """The pack for the dX products ``dX = dPre W^T``: per layer the
-    matrix W (row = input column, k = output column).  K2's (and K5's
-    without input gradients) is cut to the input columns whose gradient
-    feeds the walk: the hidden part of each trunk input (none for layer
-    0, whose input is the encoding), of the head input and of the branch
-    input; all of the rgb head's.  With ``input_grads`` (K5) every layer
-    keeps all its input columns, so the products also give the gradients
-    of the position encodings (layer 0 and the skip concats) and of the
-    direction encodings (the branch)."""
-    layers = _dense_layers(mlp)
-    if not input_grads:
-        return _pack(_bwd_layers(mlp), device)
-    return _pack([(wt.T, None) for wt, _ in layers], device)
+    """The matrices of :func:`pack_weights_bwd_wg` in the interleaved
+    layout of :func:`pack_weights`."""
+    return _pack(_bwd_layers(mlp, input_grads), device)
 
 
-def _bwd_layers(mlp: NeRFMLP) -> list[tuple[torch.Tensor, None]]:
-    """K2's transposed matrices: per layer W cut to the hidden input columns."""
+def _bwd_layers(mlp: NeRFMLP, input_grads: bool = False) -> list[tuple[torch.Tensor, None]]:
+    """The transposed matrices ``W`` (row = layer input column, k = layer
+    output): K2's cut to the hidden input columns, or with ``input_grads``
+    every input column."""
+    mats = [wt.T for wt, _ in _dense_layers(mlp)]
+    if input_grads:
+        return [(m, None) for m in mats]
     hid = mlp.hidden_dim
     rows = [0] + [hid] * (mlp.num_layers - 1) + [hid, hid, hid // 2]
-    return [(wt.T[:r], None) for (wt, _), r in zip(_dense_layers(mlp), rows)]
+    return [(m[:r], None) for m, r in zip(mats, rows)]
 
 
-def pack_weights_bwd_wg(mlp: NeRFMLP, device: torch.device) -> KernelPack:
-    """K2's (and K3's, K6's) pack for the dX products in wgmma's layout:
-    the matrices of :func:`pack_weights_bwd` without input gradients."""
-    return _pack_wg(_bwd_layers(mlp), device)
+def pack_weights_bwd_wg(mlp: NeRFMLP, device: torch.device,
+                        input_grads: bool = False) -> KernelPack:
+    """The pack for the dX products ``dX = dPre W^T`` in wgmma's layout:
+    per layer the matrix W (row = input column, k = output column).  K2's
+    (and K3's, K6's, K5's without input gradients) is cut to the input
+    columns whose gradient feeds the walk: the hidden part of each trunk
+    input (none for layer 0, whose input is the encoding), of the head
+    input and of the branch input; all of the rgb head's.  With
+    ``input_grads`` (K5) every layer keeps all its input columns, so the
+    products also give the gradients of the position encodings (layer 0
+    and the skip concats) and of the direction encodings (the branch)."""
+    return _pack_wg(_bwd_layers(mlp, input_grads), device)
 
 
 def _cached(mlp: NeRFMLP, device: torch.device, attr: str, build) -> KernelPack:
@@ -221,23 +227,19 @@ def _cached(mlp: NeRFMLP, device: torch.device, attr: str, build) -> KernelPack:
 
 
 def kernel_pack(mlp: NeRFMLP, device: torch.device) -> KernelPack:
-    return _cached(mlp, device, "_k5_fwd_pack", pack_weights)
-
-
-def kernel_pack_wg(mlp: NeRFMLP, device: torch.device) -> KernelPack:
+    """The forward pack every bf16 kernel reads (K1, K5, K6, and the
+    backwards' recompute)."""
     return _cached(mlp, device, "_k1_pack", pack_weights_wg)
-
-
-def kernel_pack_bwd_wg(mlp: NeRFMLP, device: torch.device) -> KernelPack:
-    return _cached(mlp, device, "_k2_pack", pack_weights_bwd_wg)
 
 
 def kernel_pack_bwd(mlp: NeRFMLP, device: torch.device,
                     input_grads: bool = False) -> KernelPack:
+    """The dX products' pack: K2's cut one, or K5's with input gradients
+    under an attribute of its own (the cache keys only on the weights)."""
     if input_grads:
         return _cached(mlp, device, "_k5_pack",
-                       lambda m, d: pack_weights_bwd(m, d, input_grads=True))
-    return _cached(mlp, device, "_k5_bwd_pack", pack_weights_bwd)
+                       lambda m, d: pack_weights_bwd_wg(m, d, input_grads=True))
+    return _cached(mlp, device, "_k2_pack", pack_weights_bwd_wg)
 
 
 def workspace_layout(fwd: KernelPack, bwd: KernelPack) -> np.ndarray:
@@ -422,7 +424,7 @@ def _check_cuda_call(mlp, origins, dirs, t_vals, l_xyz, l_dir, skip_layer) -> No
 def _check_hidden(mlp: NeRFMLP) -> None:
     if mlp.hidden_dim not in WG_HIDDEN:
         raise NotImplementedError(
-            f"K1/K2/K3/K6 on CUDA take hidden widths {WG_HIDDEN}; "
+            f"K1/K2/K3/K5/K6 on CUDA take hidden widths {WG_HIDDEN}; "
             f"hidden_dim={mlp.hidden_dim} has no kernel instantiation"
         )
 
@@ -448,7 +450,7 @@ def _launch_fwd(mlp, t_vals, l_xyz, l_dir, *, origins=None, dirs=None,
         preds = torch.empty((b * s, 4), dtype=torch.float32, device=device)
     if b == 0:
         return rgb, weights, x_enc, preds
-    pack = kernel_pack_wg(mlp, device)
+    pack = kernel_pack(mlp, device)
     rc = _build.load("fused_render_fwd").nkt_fused_render_fwd(
         _ptr(origins), _ptr(dirs), t_vals.data_ptr(), _ptr(x_in), _ptr(d_in),
         pack.w.data_ptr(), pack.b.data_ptr(), pack.desc.ctypes.data,
@@ -505,51 +507,58 @@ def unpack_grads(mlp: NeRFMLP, fwd: KernelPack, layout: np.ndarray,
 
 
 def launch_rows(mode, mlp, t_vals, preds, g_rgb, g_w, l_xyz, l_dir, *,
-                x_res=None, origins=None, dirs=None, d_enc=None):
+                x_res=None, origins=None, dirs=None, d_enc=None, g=None, dx=None, dd=None):
     """One backward in ``mode`` (``_ROWS_K2``: ``x_res`` and ``dirs``;
     ``_ROWS_K3``: ``origins`` and ``dirs``; ``_ROWS_K6``: ``x_res`` = x_enc
-    and ``d_enc``, (B*S, .) bf16): the compositing VJP, then the rows
-    kernel and the dW product over the chunks of :func:`chunk_plan`, then
-    the reduce.  Returns ``(forward pack, DwBuffers)``: the summed f32
-    dW/db are in ``ws.dw``/``ws.db`` (:func:`unpack_grads` maps them to
-    the parameters)."""
-    device = t_vals.device
-    b, s = t_vals.shape
+    and ``d_enc``, (B*S, .) bf16; ``_ROWS_K5``: ``x_res`` = x_enc, ``d_enc``
+    and the predictions' cotangent ``g`` (N, 4), with t_vals, preds and
+    g_rgb None, and where given ``dx``/``dd`` (bf16, like the encodings)
+    to receive their gradients): the compositing VJP (not K5's), then the
+    rows kernel and the dW product over the chunks of :func:`chunk_plan`
+    (K5's of samples), then the reduce.  Returns ``(forward pack,
+    DwBuffers)``: the summed f32 dW/db are in ``ws.dw``/``ws.db``
+    (:func:`unpack_grads` maps them to the parameters)."""
+    k5 = mode == _ROWS_K5
+    device = x_res.device if k5 else t_vals.device
+    b, s = (x_res.shape[0], 1) if k5 else t_vals.shape
     n = b * s
     if x_res is not None:
         check_tensor("x_enc", x_res, (n, 3 + 6 * l_xyz), device, torch.bfloat16)
     if d_enc is not None:
         check_tensor("d_enc", d_enc, (n, 3 + 6 * l_dir), device, torch.bfloat16)
-    check_tensor("preds", preds, (n, 4), device)
-    check_tensor("g_rgb", g_rgb, (b, 3), device)
+    if k5:
+        check_tensor("g", g, (n, 4), device)
+    else:
+        check_tensor("preds", preds, (n, 4), device)
+        check_tensor("g_rgb", g_rgb, (b, 3), device)
     if g_w is not None:
         check_tensor("g_w", g_w, (b, s), device)
     _check_hidden(mlp)
-    fwd = kernel_pack_wg(mlp, device)
-    bwd = kernel_pack_bwd_wg(mlp, device)
+    fwd = kernel_pack(mlp, device)
+    bwd = kernel_pack_bwd(mlp, device, input_grads=dx is not None or dd is not None)
     plan = chunk_plan(b, s, DwBuffers.bytes_per_sample(fwd, bwd))
     chunk_rays = plan[0][1]
     rows = _tiles(chunk_rays * s) * 128
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     grid = min(_tiles(chunk_rays * s), sms)
     ws = DwBuffers.allocate(fwd, bwd, rows, grid, device)
-    dpreds = torch.empty((n, 4), dtype=torch.float32, device=device)
+    dpreds = g if k5 else torch.empty((n, 4), dtype=torch.float32, device=device)
     rc = _build.load("fused_render_bwd").nkt_fused_render_bwd(
-        mode, _ptr(x_res), _ptr(origins), _ptr(dirs), _ptr(d_enc), t_vals.data_ptr(),
-        preds.data_ptr(), g_rgb.data_ptr(), _ptr(g_w),
+        mode, _ptr(x_res), _ptr(origins), _ptr(dirs), _ptr(d_enc), _ptr(t_vals),
+        _ptr(preds), _ptr(g_rgb), _ptr(g_w),
         fwd.w.data_ptr(), fwd.b.data_ptr(), fwd.desc.ctypes.data,
         bwd.w.data_ptr(), bwd.desc.ctypes.data, ws.layout.ctypes.data,
         fwd.desc.shape[0], mlp.num_layers, mlp.skip_layer, mlp.hidden_dim,
         l_xyz, l_dir, b, s, chunk_rays, ws.db.numel(), ws.dw.numel(), dpreds.data_ptr(),
         ws.ws_a.data_ptr(), ws.ws_d.data_ptr(), ws.db_part.data_ptr(), grid,
         ws.dw_part.data_ptr(), ws.nsplit, ws.dw.data_ptr(), ws.db.data_ptr(),
-        device_index(device), torch.cuda.current_stream(device).cuda_stream,
+        _ptr(dx), _ptr(dd), device_index(device), torch.cuda.current_stream(device).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(
-            f"{('K2', 'K3', 'K6 backward')[mode]} launch failed with CUDA error {rc} "
-            f"(B={b}, S={s}, hidden={mlp.hidden_dim}, layers={mlp.num_layers}, "
-            f"chunks of {chunk_rays} rays)"
+            f"{('K2', 'K3', 'K6 backward', 'K5 backward')[mode]} launch failed with CUDA "
+            f"error {rc} (B={b}, S={s}, hidden={mlp.hidden_dim}, layers={mlp.num_layers}, "
+            f"chunks of {chunk_rays} rays, input grads={dx is not None}/{dd is not None})"
         )
     return fwd, ws
 

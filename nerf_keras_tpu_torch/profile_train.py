@@ -43,7 +43,8 @@ from nerf_keras_tpu_torch import runtime
 from nerf_keras_tpu_torch.engine.trainer import Trainer
 from nerf_keras_tpu_torch.profile_render import union_us
 
-# Device kernels by the port's kernel they belong to.  The dW product and
+# Device kernels by the port's kernel they belong to (a name matches the
+# templated kernels, e.g. k5_rows_kernel<256, true>).  The dW product and
 # its reduce (nerf_dw.cuh) are the last stages of the K2, K3, K5 or K6
 # backward, whichever ran.
 KERNELS = {

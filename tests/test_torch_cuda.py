@@ -325,6 +325,31 @@ def test_k5_backward_is_deterministic(dev):
     assert torch.equal(dxa, dxb) and torch.equal(dda, ddb)
 
 
+def test_k5_chunks_of_samples(dev, monkeypatch):
+    """A workspace budget that forces several chunks of samples (a ragged
+    last one) gives the one-chunk gradients, dx_enc and dd_enc within K5's
+    gate."""
+    mlp, x_enc, d_enc, g = _k5_setup(dev, (8, 256, 4), 3000, seed=10)
+    one = k5.launch_k5_bwd(mlp, x_enc, d_enc, g, True, True)
+    monkeypatch.setattr(k1, "DW_CHUNK_BYTES", 8 * 128 * 10_112)
+    plan = k1.chunk_plan(3000, 1, 10_112)
+    assert len(plan) >= 3 and plan[-1][1] < plan[0][1]
+    got = k5.launch_k5_bwd(mlp, x_enc, d_enc, g, True, True)
+    for a, b in zip(got[0], one[0]):
+        assert _rel_l2(a, b) <= K5_TOL_REL
+    for a, b in zip(got[1:], one[1:]):
+        assert _rel_l2(a.float(), b.float()) <= K5_TOL_REL
+
+
+def test_k5_takes_only_instantiated_widths(dev):
+    """Hidden 96 has no wgmma instantiation: K5 raises, nothing falls back."""
+    mlp, x_enc, d_enc, g = _k5_setup(dev, (4, 96, 2), 256, seed=11)
+    with pytest.raises(NotImplementedError, match="hidden"):
+        k5.launch_k5_fwd(mlp, x_enc, d_enc)
+    with pytest.raises(NotImplementedError, match="hidden"):
+        k5.launch_k5_bwd(mlp, x_enc, d_enc, g, True, True)
+
+
 def _parity_cfg(stop: bool) -> NeRFConfig:
     return NeRFConfig(batch_size=256, ns_coarse=64, ns_fine=128, num_layers=8,
                       hidden_dim=256, skip_layer=4, stop_pdf_gradient=stop,

@@ -1,6 +1,7 @@
 """The layouts the Hopper kernels read, checked on the CPU with numpy.
 
-* The wgmma weight packs (``pack_weights_wg``, ``pack_weights_bwd_wg``):
+* The wgmma weight packs (``pack_weights_wg``, ``pack_weights_bwd_wg``
+  with and without K5's input gradients):
   every element of every layer is found where the kernel's B descriptor
   addresses it (csrc/nerf_wgmlp.cuh: k-slices of ``WG_KS`` staged one at
   a time; per k16 step a K-major operand with LBO = n_pad * 16 bytes between
@@ -10,7 +11,8 @@
   descriptors (LBO = 128 bytes between 8-sample groups, SBO = 1024 bytes
   between 8-column groups, 64-sample stages) gives A^T D.
 * The chunk plan of the backward (``chunk_plan``): whole rays in order, a
-  ragged last chunk, the byte budget, one chunk when the batch fits.
+  ragged last chunk, the byte budget, one chunk when the batch fits; for
+  K5 (``S = 1``) chunks of whole 128-row sample tiles.
 """
 
 import numpy as np
@@ -35,8 +37,8 @@ def _desc_address(n_pad, k_pad):
     return stage + step + (n // 8) * sbo + (kk // 8) * lbo + (n % 8) * 8 + kk % 8
 
 
-@pytest.mark.parametrize("arch", [(8, 256, 4), (5, 64, 4), (3, 128, 2)])
-@pytest.mark.parametrize("which", ["fwd", "bwd"])
+@pytest.mark.parametrize("arch", [(8, 256, 4), (5, 64, 4), (3, 128, 2), (4, 64, 1)])
+@pytest.mark.parametrize("which", ["fwd", "bwd", "bwd_input_grads"])
 def test_wg_pack_matches_the_descriptor(arch, which):
     num_layers, hidden, skip = arch
     gen = torch.Generator().manual_seed(7)
@@ -47,8 +49,18 @@ def test_wg_pack_matches_the_descriptor(arch, which):
         pack, ref = k1.pack_weights_wg(mlp, cpu), k1.pack_weights(mlp, cpu)
         mats = [wt for wt, _ in k1._dense_layers(mlp)]
     else:
-        pack, ref = k1.pack_weights_bwd_wg(mlp, cpu), k1.pack_weights_bwd(mlp, cpu)
-        mats = [m for m, _ in k1._bwd_layers(mlp)]
+        ig = which == "bwd_input_grads"
+        pack = k1.pack_weights_bwd_wg(mlp, cpu, input_grads=ig)
+        ref = k1.pack_weights_bwd(mlp, cpu, input_grads=ig)
+        mats = [m for m, _ in k1._bwd_layers(mlp, input_grads=ig)]
+        if ig:
+            # The widths K5's input-gradient walk takes (nerf_wgmlp.cuh:
+            # wg_input_grads_ok): layer 0 is the x_enc part alone (64), a
+            # layer after a skip concat hidden + 64, the branch hidden + 32.
+            want = [64] + [hidden + 64 * (i > 1 and (i - 1) % skip == 0)
+                           for i in range(1, num_layers + 1)]
+            assert pack.desc[:num_layers + 1, 2].tolist() == want
+            assert pack.desc[num_layers + 1, 2] == hidden + 32
     np.testing.assert_array_equal(pack.desc, ref.desc)
     torch.testing.assert_close(pack.b, ref.b, rtol=0, atol=0)
     w = pack.w.float().numpy()
@@ -134,6 +146,23 @@ def test_chunk_plan_ragged_and_small_budget():
 def test_chunk_plan_one_chunk_when_it_fits():
     assert k1.chunk_plan(100, 64, BPS) == [(0, 100)]
     assert k1.chunk_plan(4096, 160, BPS, 8 << 30) == [(0, 4096)]
+
+
+@pytest.mark.parametrize("n,budget", [
+    (786_432, None),         # the parity step's fine pass: 12 chunks, ragged last
+    (262_144, None),         # the coarse pass: 4 chunks
+    (100_003, 40 << 20),     # a ragged N over 25 chunks
+    (3000, 64 * 128 * BPS),  # one chunk: N fits
+])
+def test_chunk_plan_of_samples(n, budget):
+    """K5 plans chunks of samples (S = 1): whole 128-row tiles in every
+    chunk but the last, the exact cover of N in order, each chunk's
+    workspace within the budget."""
+    cap = k1.DW_CHUNK_BYTES if budget is None else budget
+    plan = k1.chunk_plan(n, 1, BPS, budget)
+    _check_plan(plan, n, 1, cap)
+    assert all(c % 128 == 0 for _, c in plan[:-1])
+    assert (len(plan) == 1) == (-(-n // 128) * 128 * BPS <= cap)
 
 
 def test_chunk_plan_ray_larger_than_budget():
