@@ -7,9 +7,12 @@ nonzero — nothing falls back to the CPU or to a plain path):
 
 1. the card, its power limit, torch/CUDA versions and the TF32 flags;
 2. build the CUDA kernels from ``nerf_keras_tpu_torch/csrc`` with nvcc
-   (one compiler per source, started together);
+   (one compiler per source, started together); report ptxas's registers,
+   spills and any wgmma serialization warning;
 3. K1 against its plain PyTorch version at full width (8x256, B=4096,
-   S=64 and S=192), with errors and CUDA-event times;
+   S=64 and S=192), with errors and CUDA-event times; the products'
+   library yardstick (one bf16 ``torch.matmul`` per padded layer at
+   M = B*S, never called by the port);
 4. K1 in training mode and K2 against their plain versions at the bench
    step's shapes (8x256, B=4096, S=160, random biases): per-leaf gradient
    errors against autograd of the plain K1, within a gate that a dropped
@@ -62,7 +65,9 @@ nonzero — nothing falls back to the CPU or to a plain path):
     B=4096 with S=64, 160 and 192, a ragged B, and the server's chunk
     (B=16384, S=64 and 192), within gates that two broken packs (the skip
     layer's x_enc rows zeroed, the fs head's sigma column dropped) miss by
-    10x or more; CUDA-event times;
+    10x or more; CUDA-event times; the products' library yardstick (one
+    ``torch._int_mm`` per padded int8 layer at M = B*S, never called by
+    the port) at B=4096 and 16384, S=192;
 12. int8 serving: the phase-6 checkpoint behind ``RenderService(quant=
     True)`` over HTTP: the PSNR gate must pass, three 200x200 /render
     with two K4 launches per chunk and no K1 launch, /stats says int8, and
@@ -383,12 +388,36 @@ def phase_card() -> str:
 def phase_build() -> None:
     seconds = _build.build()
     ptxas = [line.strip() for line in _build.build_log.splitlines()
-             if line.startswith("==") or "registers" in line or "spill" in line]
+             if line.startswith("==") or "registers" in line or "spill" in line
+             or "serialized" in line]
     for src in _build._sources():
         _build.load(src.stem)  # loads the library, declares argtypes
     say("build", seconds=seconds,
         libraries=[_build.library_path(s).name for s in _build._sources()],
         ptxas=ptxas)
+
+
+def library_products_ms(desc: np.ndarray, m: int, dtype: torch.dtype, dev) -> float:
+    """The products alone as one PyTorch call per layer at M = ``m`` rows,
+    on the padded (k_pad, n_pad) shapes of a pack's descriptors:
+    ``torch._int_mm`` (s32 out) for int8, ``torch.matmul`` for bf16.  A
+    yardstick timed here and used nowhere in the port."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    if dtype == torch.int8:
+        def rand(*shape):
+            return torch.randint(-127, 128, shape, generator=gen, dtype=torch.int8, device=dev)
+        mm = torch._int_mm
+    else:
+        def rand(*shape):
+            return torch.randn(shape, generator=gen, device=dev).to(dtype)
+        mm = torch.matmul
+    acts = {k: rand(m, k) for k in sorted({int(k) for k in desc[:, 0]})}
+    # B column-major, cuBLAS's native layout for int8.
+    mats = [(acts[int(k)], rand(int(n), int(k)).t()) for k, _, n, _, _ in desc]
+    ms = cuda_ms(lambda: [mm(a, w) for a, w in mats])
+    del acts, mats
+    torch.cuda.empty_cache()
+    return ms
 
 
 def phase_kernel(card: str) -> dict:
@@ -434,6 +463,9 @@ def phase_kernel(card: str) -> dict:
             report[f"ms_s{s}"] = ms
             report[f"plain_ms_s{s}"] = plain_ms
             report[f"bound_s{s}"] = bnd
+    report["library_ms_s192"] = library_products_ms(k1.kernel_pack(mlp, dev).desc, b * 192,
+                                                    torch.bfloat16, dev)
+    say("k1_library", B=b, S=192, library_ms=report["library_ms_s192"], card=card)
     return report
 
 
@@ -911,6 +943,10 @@ def phase_k4(card: str) -> dict:
             if s == 192 and fields[f"miss_{what}_broken"] < 10.0:
                 raise RuntimeError(f"K4's gates cannot see a broken {what} pack: {fields}")
         report["max_abs_err"] = max(report["max_abs_err"], errs["rgb_max"], errs["w_max"])
+    desc = k4.kernel_pack(qp, dev).desc
+    for b in (4096, 16384):
+        report[f"library_ms_b{b}_s192"] = library_products_ms(desc, b * 192, torch.int8, dev)
+        say("k4_library", B=b, S=192, library_ms=report[f"library_ms_b{b}_s192"], card=card)
     return report
 
 
@@ -1643,7 +1679,8 @@ def main() -> None:
         runs.append(phase_pdf_frame(card, ckpt))
     kernels = [
         kernel_entry("K1 fused_render_fwd", "K1", _sum(runs, "k1_fwd"), k1r["max_abs_err"],
-                     k1r["ms_s192"], k1r["plain_ms_s192"], k1r["bound_s192"]),
+                     k1r["ms_s192"], k1r["plain_ms_s192"], k1r["bound_s192"],
+                     k1r["library_ms_s192"]),
         kernel_entry("K1-train fused_render_fwd (residuals)", "K1", _sum(runs, "k1_train"),
                      k2r["k1_train_err"], k2r["k1_train_ms"], k2r["k1_train_plain_ms"],
                      k2r["k1_train_bound"]),
@@ -1657,7 +1694,7 @@ def main() -> None:
                      k5r["bwd_bound"], k5c["library_ms"]),
         kernel_entry("K4 quant_render_fwd", "K4", _sum(runs, "k4"), k4r["max_abs_err"],
                      k4r["ms_b16384_s192"], k4r["plain_ms_b16384_s192"],
-                     k4r["bound_b16384_s192"]),
+                     k4r["bound_b16384_s192"], k4r["library_ms_b16384_s192"]),
         kernel_entry("K3 fused_render_bwd (recompute)", "K3", _sum(runs, "k3"),
                      k3r["max_abs_err"], k3r["ms"], k3r["plain_ms"], k3r["bound"]),
         kernel_entry("K6-fwd fused_render_fwd (encodings in)", "K6f", _sum(runs, "k6_fwd"),

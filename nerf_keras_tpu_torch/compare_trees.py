@@ -15,6 +15,12 @@ parent).  Phases:
 * ``k1k2``: K1 at B=4096, S=64 and 192 and in training form at S=160,
   and K2 at S=160 with the weights cotangent, with K2's device ms per
   kernel (``chip_smoke.device_ms_by_kernel``); CUDA events, median of 20;
+* ``k4``: the tree's own ``chip_smoke.phase_k4`` (gates included): K4 at
+  B=4096 and the server's chunk of 16,384 rays, S=64 and 192, CUDA events;
+* ``serve``: float and int8 frames at 200x200 and 800x800 through a
+  ``RenderService`` on random weights (``profile_render.time_requests``:
+  the median of its warm ``render_png`` calls and of their
+  ``render_image`` part, host clock);
 * ``steps``: 14 steps of the proposal recipe, of the parity step and of
   the parity step with ``STOP_PDF_GRADIENT=false`` (K5's path)
   (``profile_train.bench_config``/``parity_config``, one fixed batch of
@@ -80,6 +86,33 @@ if "k1k2" in phases:
         run = lambda: k1.launch_k2(mlp, x_enc, dirs, t, preds, g_rgb, g_w, 10, 4)
         out["k2_s160"] = cuda_ms(run, reps=20)
         out["k2_device_ms"] = cs.device_ms_by_kernel(run, cs.K2_STAGES)
+if "k4" in phases:
+    import chip_smoke as cs
+    r = cs.phase_k4(cs.phase_card())
+    out.update({f"k4_{key}": r[f"ms_{key}"] for key in
+                ("b4096_s64", "b4096_s192", "b16384_s64", "b16384_s192")})
+    torch.cuda.empty_cache()
+if "serve" in phases:
+    import tempfile
+    from nerf_keras_tpu_torch import load_config, profile_render as pr
+    from nerf_keras_tpu_torch.models.mlp import random_params
+    from nerf_keras_tpu_torch.serving import RenderService
+    from nerf_keras_tpu_torch.utils.checkpoint import save_params_npz
+    cfg = load_config(pr.CONFIG)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "random.ckpt.npz")
+        save_params_npz(ckpt, random_params(cfg, seed=0), cfg, scene={"near": 2.0, "far": 6.0})
+        for quant in (False, True):
+            svc = RenderService(cfg, ckpt, device="cuda", quant=quant)
+            name = "int8" if quant else "float"
+            if quant and not svc.use_quant:
+                raise RuntimeError(f"the int8 gate failed: {svc.quant_gate_psnr} dB")
+            for size, n in pr.FRAMES:
+                r = pr.time_requests(svc, size, n)
+                out[f"serve_{name}_{size}_s"] = r["median_request_s"]
+                out[f"serve_{name}_{size}_render_s"] = r["median_render_image_s"]
+            del svc
+            torch.cuda.empty_cache()
 if "steps" in phases:
     from nerf_keras_tpu_torch.engine.trainer import Trainer
     from nerf_keras_tpu_torch.profile_train import bench_batch, bench_config, parity_config
@@ -108,11 +141,11 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("trees", nargs="+", help="checkout roots, in run order")
     parser.add_argument("--phases", default="kernels,steps",
-                        help="comma-separated: kernels, k1k2, steps")
+                        help="comma-separated: kernels, k1k2, k4, serve, steps")
     parser.add_argument("--timeout", type=float, default=900.0,
                         help="seconds allowed to each tree's process")
     args = parser.parse_args()
-    unknown = set(args.phases.split(",")) - {"kernels", "k1k2", "steps"}
+    unknown = set(args.phases.split(",")) - {"kernels", "k1k2", "k4", "serve", "steps"}
     if unknown:
         raise SystemExit(f"unknown phases: {sorted(unknown)}")
     failed = 0

@@ -1,6 +1,7 @@
 // Hopper building blocks shared by the wgmma kernels: K1 and K6's forward
-// (fused_render_fwd.cu), the rows kernel of K2, K3 and K6's backward
-// (fused_render_bwd.cu) and the dW product (nerf_dw.cuh).
+// (fused_render_fwd.cu), the rows kernel of K2, K3, K5 and K6's backward
+// (fused_render_bwd.cu), K5's forward (fused_mlp_fwd.cu), the dW product
+// (nerf_dw.cuh) and K4 (quant_render_fwd.cu).
 //
 //   * mbarriers and bulk copies (the TMA unit's cp.async.bulk: one thread
 //     asks for a contiguous run of bytes to land in shared memory, and the
@@ -11,20 +12,23 @@
 //   * wgmma.mma_async (bf16 operands, f32 accumulation), 64 rows per
 //     warpgroup, in two forms: A from registers with B from a K-major
 //     descriptor (the MLP's layers over activation tiles), and A and B from
-//     MN-major descriptors (dW = A^T D over samples).
+//     MN-major descriptors (dW = A^T D over samples);
+//   * wgmma.mma_async m64nNk32 with s8 operands and s32 accumulation (K4),
+//     A from registers with B from a K-major descriptor.
 //
 // Shared-memory operands use the layout without swizzle: "core matrices"
 // of 8 rows x 16 bytes, 128 contiguous bytes each.  A descriptor names the
 // start address, the byte stride between core matrices adjacent along K
 // (LBO) and between core matrices adjacent along M/N (SBO).  For K-major
-// operands a core matrix row is 8 consecutive k of one column; for MN-major
-// ones it is 8 consecutive columns of one k.
+// operands a core matrix row is 8 consecutive k of one column (16 for
+// int8); for MN-major ones it is 8 consecutive columns of one k.
 //
 // Accumulator layout (m64nNk16, f32): warp v of the warpgroup holds rows
 // 16v..16v+15; lane (g = lane/4, t = lane%4) holds, for each 8-column
 // block j, d[4j], d[4j+1] at (row g, columns 8j+2t, +1) and d[4j+2],
-// d[4j+3] at row g+8.  The A register fragment of warp v is mma.sync's
-// m16n8k16 A fragment of rows 16v..16v+15.
+// d[4j+3] at row g+8 (the s32 accumulator of m64nNk32 alike).  The A
+// register fragment of warp v is mma.sync's m16n8k16 A fragment of rows
+// 16v..16v+15 (m16n8k32's for s8).
 
 #pragma once
 
@@ -386,6 +390,153 @@ __device__ __forceinline__ void mma_ss_t(float* d, uint64_t a, uint64_t b, uint3
   constexpr int W = wg_width<N>();
   Wgmma<W>::ss_t(d + OFF / 2, a, b + (static_cast<uint64_t>(OFF / 8 * n8_stride) >> 4), scale_d);
   if constexpr (N > W) mma_ss_t<N - W, OFF + W>(d, a, b, n8_stride, scale_d);
+}
+
+// ---------------------------------------------------------------------------
+// wgmma.mma_async m64nNk32, s32 += s8 x s8 (K4).  Generated: one
+// specialisation per instruction width.  8-bit wgmma has no transpose, so B
+// is K-major; A comes from registers (mma.sync m16n8k32's A fragment of the
+// warp's 16 rows).  The s32 accumulator has the f32 one's layout.
+
+template <int N> struct WgmmaS8;
+template <> struct WgmmaS8<8> {
+  // D[64 x 8] += A (registers) * B (K-major descriptor).
+  static __device__ __forceinline__ void rs(int* d, const uint32_t* a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %9, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k32.s32.s8.s8 {"
+        "%0, %1, %2, %3"
+        "}, {%4, %5, %6, %7}, %8, p;\n"
+        "}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+template <> struct WgmmaS8<16> {
+  // D[64 x 16] += A (registers) * B (K-major descriptor).
+  static __device__ __forceinline__ void rs(int* d, const uint32_t* a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, {%8, %9, %10, %11}, %12, p;\n"
+        "}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+template <> struct WgmmaS8<32> {
+  // D[64 x 32] += A (registers) * B (K-major descriptor).
+  static __device__ __forceinline__ void rs(int* d, const uint32_t* a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, {%16, %17, %18, %19}, %20, p;\n"
+        "}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+          "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+template <> struct WgmmaS8<64> {
+  // D[64 x 64] += A (registers) * B (K-major descriptor).
+  static __device__ __forceinline__ void rs(int* d, const uint32_t* a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p;\n"
+        "}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+          "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+          "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+          "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+template <> struct WgmmaS8<128> {
+  // D[64 x 128] += A (registers) * B (K-major descriptor).
+  static __device__ __forceinline__ void rs(int* d, const uint32_t* a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p;\n"
+        "}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+          "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+          "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+          "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+          "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+          "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+          "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+          "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+template <> struct WgmmaS8<256> {
+  // D[64 x 256] += A (registers) * B (K-major descriptor).
+  static __device__ __forceinline__ void rs(int* d, const uint32_t* a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+        "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+        "}, {%128, %129, %130, %131}, %132, p;\n"
+        "}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+          "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+          "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+          "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+          "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+          "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+          "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+          "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
+          "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+          "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+          "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
+          "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
+          "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]),
+          "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]),
+          "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+          "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+// D[64 x N] (+)= A_regs * B for any N that is a multiple of 8, s8 operands
+// (as mma_rs): instructions of power-of-two widths, `n8_stride` the byte
+// distance in B between two 8-column groups.
+template <int N, int OFF = 0>
+__device__ __forceinline__ void mma_rs_s8(int* d, const uint32_t* a, uint64_t b,
+                                          uint32_t n8_stride, int scale_d) {
+  constexpr int W = wg_width<N>();
+  WgmmaS8<W>::rs(d + OFF / 2, a, b + (static_cast<uint64_t>(OFF / 8 * n8_stride) >> 4), scale_d);
+  if constexpr (N > W) mma_rs_s8<N - W, OFF + W>(d, a, b, n8_stride, scale_d);
+}
+
+// acc_fence for the s32 accumulators.
+template <int NR>
+__device__ __forceinline__ void acc_fence(int* d) {
+#pragma unroll
+  for (int i = 0; i < NR; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 }  // namespace nkt

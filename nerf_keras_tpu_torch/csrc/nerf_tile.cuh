@@ -7,9 +7,8 @@
 // kernels see it (the layer descriptors of the forward pack, the
 // transposed pack and the backward's workspace).
 //
-// K4's 64-row int8 tile (quant_render_fwd.cu) runs kThreads threads in
-// kWarps warps, each taking kNB 8-column output tiles per pass, with
-// mma.sync; the bf16 kernels run nerf_wgmlp.cuh's wgmma MLP.
+// Every kernel's MLP runs on wgmma: nerf_wgmlp.cuh's bf16 MLP, and K4's
+// int8 one in quant_render_fwd.cu.
 
 #pragma once
 
@@ -19,10 +18,7 @@
 
 namespace nkt {
 
-constexpr int kTileRows = 64;
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kNB = 4;  // 8-column output tiles per warp per pass
+constexpr int kWarps = 8;  // warps that composite: the two consumer warpgroups
 constexpr int kMaxDense = 16;
 constexpr int kMaxSmem = 232448;
 constexpr float kEps = 1e-10f;

@@ -2,7 +2,8 @@
 // megakernel's forward (K1, and K6's forward over encodings:
 // fused_render_fwd.cu), the MLP over encodings (K5's forward:
 // fused_mlp_fwd.cu) and the rows kernel of the backwards (K2, K3, K5, K6:
-// fused_render_bwd.cu).  K4 keeps nerf_tile.cuh's mma.sync tile.
+// fused_render_bwd.cu).  K4 (quant_render_fwd.cu) runs the same block,
+// ring and producer with int8 operands and an epilogue of its own.
 //
 // A block is two consumer warpgroups and one producer warpgroup (384
 // threads; one thread of it issues the copies, and setmaxnreg moves its

@@ -4,8 +4,9 @@ Counterpart of ``render_rays_fused_quant`` in
 ``nerf_keras_tpu/ops/pallas/quant_render.py``: raw rays -> points -> f32
 encode -> the int8 MLP of ``ops/quant.py`` -> compositing, with the MLP's
 products int8 x int8 -> int32.  The CUDA kernel is
-``csrc/quant_render_fwd.cu``; its source note says what bounds it and how
-the design answers.
+``csrc/quant_render_fwd.cu``, on Hopper's int8 ``wgmma`` (weights in
+:func:`pack_qparams`'s layout); its source note says what bounds it and
+how the design answers.
 
 * :func:`render_rays_reference_quant` is the plain PyTorch K4:
   ``sample_rays`` -> ``encode_position`` (f32) -> ``apply_nerf_mlp_quant``
@@ -33,26 +34,34 @@ from nerf_keras_tpu_torch.ops.volume import volume_render
 
 launches = 0  # K4 launches in this process (one per successful launch)
 
-# Within every 32-wide k-group, packed rows are stored in this order so a
-# thread's mma.sync m16n8k32 B fragment (k = 4t..4t+3, 16+4t..16+4t+3) is
-# one 8-byte load.
-_K_INTERLEAVE = torch.tensor(
-    [k for t in range(4) for k in (*range(4 * t, 4 * t + 4), *range(16 + 4 * t, 20 + 4 * t))]
-)
+K4_KS = 128  # k per weight stage (csrc/quant_render_fwd.cu: kQKs)
+K4_HIDDEN = (32, 64, 128, 256)  # its instantiations (quant_render_fwd.cu: q_hidden_ok)
 
 
 def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
 
 
+def q_layout(n_pad: int, k_pad: int) -> np.ndarray:
+    """Where element ``(n, k)`` of a padded ``(n_pad, k_pad)`` int8 matrix
+    lies in K4's pack, as an ``(n_pad, k_pad)`` array of byte offsets:
+    k-slices of ``K4_KS`` (the last a multiple of 32 up to it), each in
+    wgmma's K-major core-matrix layout with 16 k per 16-byte row,
+    ``slice_start + ((k % K4_KS) // 16 * n_pad + n) * 16 + k % 16``."""
+    n = np.arange(n_pad)[:, None]
+    k = np.arange(k_pad)[None, :]
+    slice_start = (k // K4_KS) * K4_KS * n_pad
+    return slice_start + ((k % K4_KS) // 16 * n_pad + n) * 16 + k % 16
+
+
 class QuantPack(NamedTuple):
     """One MLP's qparams as K4 reads them."""
 
-    w: torch.Tensor     # int8, every layer's padded, interleaved W^T
+    w: torch.Tensor     # int8, every layer's padded W^T in :func:`q_layout`
     f: torch.Tensor     # f32, per layer scale, bias, inv rows (n_pad each); inv_x; inv_d
     desc: np.ndarray    # int32 (n_dense, 5): k_pad, n, n_pad, w_off, f_off
     x_off: int          # inv_x in f (padded to 32 with zeros)
-    d_off: int          # inv_d in f (padded to 32 with zeros)
+    d_off: int          # inv_d in f (padded to 32 with zeros), the last row
 
 
 def _layers(qp: QuantParams) -> list[tuple]:
@@ -77,17 +86,22 @@ def _padded_row(x: torch.Tensor, width: int, device) -> torch.Tensor:
 @torch.no_grad()
 def pack_qparams(qp: QuantParams, device: torch.device) -> QuantPack:
     """Pad each layer to (round8 outputs, round32 inputs), transpose to one
-    row per output column, interleave its k-groups; gather the f32 rows."""
+    row per output column and lay it out for K4's wgmma
+    (:func:`q_layout`): the producer copies one k-slice per shared-memory
+    stage, which the descriptor reads as is.  Gather the f32 rows.  Raises
+    ``ValueError`` for a weight of -128: the kernel's exact dequantization
+    takes |acc| <= k * 127^2."""
     ws, fs, desc = [], [], []
     w_off = f_off = 0
-    interleave = _K_INTERLEAVE.to(device)
     for wq, scale, b, inv in _layers(qp):
+        if bool((wq == -128).any()):
+            raise ValueError("int8 weights must lie in [-127, 127] (quantize_mlp's range)")
         k, n = wq.shape
         k_pad, n_pad = _round_up(k, 32), _round_up(n, 8)
         wp = torch.zeros((n_pad, k_pad), dtype=torch.int8, device=device)
         wp[:n, :k] = wq.T.to(device)
-        wp = wp.reshape(n_pad, k_pad // 32, 32)[..., interleave]
-        ws.append(wp.reshape(-1))
+        ws += [wp[:, k0:k0 + K4_KS].reshape(n_pad, -1, 16).permute(1, 0, 2).reshape(-1)
+               for k0 in range(0, k_pad, K4_KS)]
         rows = [_padded_row(scale, n_pad, device), _padded_row(b, n_pad, device),
                 _padded_row(inv if inv is not None else torch.zeros(0), n_pad, device)]
         fs += rows
@@ -161,6 +175,11 @@ def launch_k4(qparams: QuantParams, origins, dirs, t_vals, l_xyz: int, l_dir: in
     if device.type != "cuda":
         raise ValueError(f"K4 runs on cuda or cpu tensors, got {device}")
     _check_widths(qparams, l_xyz, l_dir)
+    hidden = qparams["trunk"][0]["wq"].shape[1]
+    if hidden not in K4_HIDDEN:
+        raise NotImplementedError(
+            f"K4 on CUDA takes hidden widths {K4_HIDDEN}; got hidden {hidden}"
+        )
     if t_vals.dim() != 2:
         raise ValueError(f"t_vals must be (B, S), got {tuple(t_vals.shape)}")
     b, s = t_vals.shape
@@ -176,7 +195,6 @@ def launch_k4(qparams: QuantParams, origins, dirs, t_vals, l_xyz: int, l_dir: in
         return rgb, weights
     pack = kernel_pack(qparams, device)
     num_layers = len(qparams["trunk"])
-    hidden = qparams["trunk"][0]["wq"].shape[1]
     rc = _build.load("quant_render_fwd").nkt_quant_render_fwd(
         origins.data_ptr(), dirs.data_ptr(), t_vals.data_ptr(),
         pack.w.data_ptr(), pack.f.data_ptr(), pack.desc.ctypes.data,

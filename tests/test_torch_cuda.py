@@ -13,6 +13,7 @@ accumulate in f32; summation order can flip a hidden activation's bf16
 rounding, so rgb/weights max |diff| <= TOL_MAX and mean |diff| <= TOL_MEAN.
 """
 
+import k4_adversarial
 import numpy as np
 import pytest
 import torch
@@ -469,6 +470,30 @@ def test_k4_checks_its_inputs(dev):
     cpu_qp = dict(qp, inv_x=qp["inv_x"].cpu())
     with pytest.raises(ValueError, match="qparams"):
         k4.render_rays_fused_quant(cpu_qp, o, d, t)
+
+
+def test_k4_exact_where_accumulators_reach_the_bound(dev):
+    """The adversarial int8 MLP of ``k4_adversarial.py``: the layer after
+    the skip and the branch accumulate exactly k * 127^2 (> 2^22, where K4
+    converts instead of taking the magic number), the other layers up to
+    256 * 127^2.  K4 against its plain version within K4's gates
+    (chip_smoke.py: max 1e-3, mean 1e-5), which a K4 with the magic number
+    everywhere misses by 10x (``test_torch_wg_pack.py`` checks that on the
+    CPU)."""
+    qp, o, d, t = k4_adversarial.adversarial_case(dev)
+    rgb, w = k4.render_rays_fused_quant(qp, o, d, t)
+    torch.cuda.synchronize()
+    rgb_p, w_p = k4.render_rays_reference_quant(qp, o, d, t)
+    for got, want in ((rgb, rgb_p), (w, w_p)):
+        assert bool(torch.isfinite(got).all())
+        assert float((got - want).abs().max()) <= 1e-3
+        assert float((got - want).abs().mean()) <= 1e-5
+
+
+def test_k4_rejects_an_unsupported_width(dev):
+    qp, o, d, t = _k4_setup(dev, (2, 96, 4), 16, 8, seed=23)
+    with pytest.raises(NotImplementedError, match="hidden 96"):
+        k4.render_rays_fused_quant(qp, o, d, t)
 
 
 def test_trainer_int8_frame_on_card_matches_cpu(dev, tmp_path):
