@@ -87,12 +87,16 @@ nonzero — nothing falls back to the CPU or to a plain path):
     direction encodings per ray misses by 10x; a loss on its weights adds
     exactly nothing to the gradients; K6 against K1 on the same rays;
 16. K7 (inverse-CDF draw fused with the sorted union) against the
-    ``sample_pdf`` + ``sorted_union`` chain at the render chunk (B=16384,
-    S=64, NF=128, eval grid, with all-zero, single-spike and front-loaded
-    weight rows) and at B=4096 with sorted uniforms: the coarse t-values
-    bit-exact in every row, every row ascending, max |diff| <= 1e-3 (and
-    the count above 1e-5), a K7 without the 1e-5 weight floor missing by
-    10x; times against the chain;
+    ``sample_pdf`` + ``sorted_union`` chain at its three main shapes (the
+    render chunk B=16384, S=64, NF=128 on the eval grid; B=4096, S=64 with
+    sorted uniforms at NF=128 and 96), with all-zero, single-spike,
+    front-loaded and repeated-coarse-value rows: the coarse t-values
+    bit-exact in every row, every row ascending, the same bits on a second
+    run, max |diff| <= 1e-3 (and the count above 1e-5), against the chain
+    in float64 no further (max, count above 1e-5) than the float32 chain,
+    a K7 without the 1e-5 weight floor missing by 10x; the call time and
+    the device time (``torch.profiler``) of K7 and of the chain, the
+    ``torch.sort`` and ``torch.searchsorted`` yardsticks, the byte bound;
 17. the parity step's three training paths
     (``nerf_keras_tpu_torch.exp_train_paths``): one step's gradients of
     the recompute path (K1 + K3) and of the encodings-in path (K6)
@@ -148,7 +152,7 @@ from nerf_keras_tpu_torch.ops.rays import get_rays, pose_spherical, sample_rays
 from nerf_keras_tpu_torch.ops.sampling import generate_t_vals
 from nerf_keras_tpu_torch.exp_train_paths import counts
 from nerf_keras_tpu_torch.profile_train import bench_batch, bench_config, parity_config
-from nerf_keras_tpu_torch.runtime import cuda_ms
+from nerf_keras_tpu_torch.runtime import cuda_ms, device_ms_by_kernel
 from nerf_keras_tpu_torch.serving import RenderService, serve
 from nerf_keras_tpu_torch.utils.checkpoint import save_params_npz
 from nerf_keras_tpu_torch.utils.image_metrics import frame_psnr
@@ -561,24 +565,6 @@ K2_STAGES = {"vjp": ("composite_vjp_kernel",), "rows": ("k2_rows_kernel",),
 # (~40 MB at 10,112 B per sample) inside the 50 MB L2 between the rows
 # kernel and the dW product.
 K2_BUDGETS = {"mid": 160 << 20, "l2": 40 << 20}
-
-
-def device_ms_by_kernel(fn, families: dict) -> dict:
-    """Device milliseconds of each kernel family in one call of ``fn``
-    (``torch.profiler``), and of all device work."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    span = lambda e: e.time_range.end - e.time_range.start  # noqa: E731
-    out = {k: sum(span(e) for e in events if any(n in e.name for n in names)) / 1e3
-           for k, names in families.items()}
-    out["all"] = sum(span(e) for e in events) / 1e3
-    return out
 
 
 def phase_k2_chunks(card: str) -> dict:
@@ -1520,46 +1506,57 @@ K7_TOL = 1e-3  # hard gate on any union value; the count above 1e-5 is reported
 
 
 def phase_k7(card: str) -> dict:
-    """K7 against the chain at the render chunk (eval grid) and at B=4096
-    with sorted uniforms, with adversarial weight rows."""
+    """K7 against the chain at its three main shapes, with adversarial rows:
+    the gates, the float64 check, and call and device times beside the
+    byte bound and the yardsticks."""
     report = {"max_abs_err": 0.0}
-    for b, s, nf, sorted_u in ((16384, 64, 128, False), (4096, 64, 128, True)):
+    for b, s, nf, sorted_u in exp_train_paths.K7_SHAPES:
         t, w = exp_train_paths.pdf_inputs(b, s, seed=b)
         w[0] = 0.0  # uniform pdf through the floor
         w[1] = 0.0
         w[1, s // 2] = 5.0  # a single spike: plateaus in the cdf
         w[2] = 0.0
         w[2, :2] = 1.0  # front-loaded mass
-        u = None
-        if sorted_u:
-            gen = torch.Generator(device="cuda").manual_seed(8)
-            u = torch.sort(torch.rand((b, nf), generator=gen, device="cuda"), dim=-1).values
+        t[3, s // 2:s // 2 + 4] = t[3, s // 2]  # a repeated coarse value, and the
+        w[3] = 0.0  # mass between its equal midpoints: draws tie with it
+        w[3, s // 2 + 1:s // 2 + 3] = 1.0
+        u = exp_train_paths.k7_u(b, nf, sorted_u)
         got = k7.sample_pdf_union(t, w, nf, u)
         torch.cuda.synchronize()
+        same_bits = bool(torch.equal(k7.sample_pdf_union(t, w, nf, u), got))
         want = k7.sample_pdf_union_reference(t, w, nf, u)
         errs = exp_train_paths.union_errors(got, want)
+        exact = k7.sample_pdf_union_float64(t, w, nf, u)
+        vs64 = {"k7": exp_train_paths.union_errors(got.double(), exact),
+                "chain": exp_train_paths.union_errors(want.double(), exact)}
         idx = torch.searchsorted(got, t).clamp(max=s + nf - 1)
         coarse_exact = bool(torch.equal(got.gather(1, idx), t))
         ascending = bool((got.diff(dim=-1) >= 0).all())
+        ties = int((got[3] == t[3, s // 2]).sum()) - 4
         broken = exp_train_paths.union_errors(k7.launch_k7(t, w, nf, u, w_floor=0.0), want)
-        fields = {}
-        if not sorted_u:
-            bnd = k7_bound(b, s, nf, False)
-            fields = dict(ms=cuda_ms(lambda: k7.sample_pdf_union(t, w, nf), reps=50),
-                          chain_ms=cuda_ms(lambda: k7.sample_pdf_union_reference(t, w, nf),
-                                           reps=50),
-                          bound_ms=bnd[0], bound_by=bnd[1])
-            report.update(ms=fields["ms"], plain_ms=fields["chain_ms"], bound=bnd)
+        times = exp_train_paths.k7_times(t, w, nf, u)
+        bnd = k7_bound(b, s, nf, sorted_u)
         say("k7", B=b, S=s, NF=nf, u="sorted" if sorted_u else "eval", **errs, tol=K7_TOL,
-            coarse_bit_exact=coarse_exact, ascending=ascending,
-            miss_without_floor=broken["max_abs_err"] / K7_TOL, **fields, card=card)
-        if not (coarse_exact and ascending):
-            raise RuntimeError(f"K7's union lost a coarse value or is not ascending at B={b}")
+            vs_float64=vs64, coarse_bit_exact=coarse_exact, ascending=ascending,
+            same_bits=same_bits, draws_on_repeated_value=ties,
+            miss_without_floor=broken["max_abs_err"] / K7_TOL, **times, bound_ms=bnd[0],
+            bound_by=bnd[1], card=card)
+        if not (coarse_exact and ascending and same_bits) or ties <= 0:
+            raise RuntimeError(f"K7 lost a coarse value, is not ascending, changed between "
+                               f"runs or drew nothing on the repeated value at B={b}, NF={nf}")
         if errs["max_abs_err"] > K7_TOL:
-            raise RuntimeError(f"K7 disagrees with the chain at B={b}: {errs}")
+            raise RuntimeError(f"K7 disagrees with the chain at B={b}, NF={nf}: {errs}")
+        if (vs64["k7"]["max_abs_err"] > vs64["chain"]["max_abs_err"]
+                or vs64["k7"]["above_1e-5"] > vs64["chain"]["above_1e-5"]):
+            raise RuntimeError(f"K7 is further from the float64 chain than the float32 chain "
+                               f"at B={b}, NF={nf}: {vs64}")
         if broken["max_abs_err"] < 10 * K7_TOL:
             raise RuntimeError(f"the gate cannot see a K7 without the weight floor: {broken}")
         report["max_abs_err"] = max(report["max_abs_err"], errs["max_abs_err"])
+        if "ms" not in report:
+            # The render chunk stands for K7 in the kernel line, in device time:
+            # a call of a few microseconds is timed mostly on the host.
+            report.update(ms=times["device_ms"], plain_ms=times["chain_device_ms"], bound=bnd)
     return report
 
 

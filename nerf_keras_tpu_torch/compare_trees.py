@@ -17,6 +17,12 @@ parent).  Phases:
   kernel (``chip_smoke.device_ms_by_kernel``); CUDA events, median of 20;
 * ``k4``: the tree's own ``chip_smoke.phase_k4`` (gates included): K4 at
   B=4096 and the server's chunk of 16,384 rays, S=64 and 192, CUDA events;
+* ``k7``: the tree's ``sample_pdf_union`` at K7's three main shapes (the
+  render chunk B=16384, S=64, NF=128 on the eval grid; B=4096, S=64 with
+  sorted uniforms at NF=128 and 96), timed both ways: the call (CUDA
+  events around it, median of 50) and ``pdf_union_kernel``'s device time
+  (``chip_smoke.device_ms_by_kernel``, mean of 20 launches), with the
+  chain's device time; a run of this phase alone builds only K7;
 * ``serve``: float and int8 frames at 200x200 and 800x800 through a
   ``RenderService`` on random weights (``profile_render.time_requests``:
   the median of its warm ``render_png`` calls and of their
@@ -47,6 +53,8 @@ from nerf_keras_tpu_torch.ops.kernels import _build
 
 phases = sys.argv[1].split(",")
 out = {"tree": os.getcwd()}
+if phases == ["k7"]:
+    _build._sources = lambda: [_build.CSRC / "pdf_union.cu"]
 _build.build()
 if "kernels" in phases:
     import chip_smoke as cs
@@ -92,6 +100,28 @@ if "k4" in phases:
     out.update({f"k4_{key}": r[f"ms_{key}"] for key in
                 ("b4096_s64", "b4096_s192", "b16384_s64", "b16384_s192")})
     torch.cuda.empty_cache()
+if "k7" in phases:
+    import chip_smoke as cs
+    from nerf_keras_tpu_torch import exp_train_paths as etp
+    from nerf_keras_tpu_torch.ops.kernels import pdf_union as k7
+    from nerf_keras_tpu_torch.runtime import configure_numerics, cuda_ms
+    configure_numerics()
+    # exp_train_paths.K7_SHAPES and k7_u, written out: older trees lack them.
+    for b, s, nf, sorted_u in ((16384, 64, 128, False), (4096, 64, 128, True),
+                               (4096, 64, 96, True)):
+        t, w = etp.pdf_inputs(b, s, seed=b)
+        u = None
+        if sorted_u:
+            gen = torch.Generator(device="cuda").manual_seed(8)
+            u = torch.sort(torch.rand((b, nf), generator=gen, device="cuda"), dim=-1).values
+        key = f"k7_b{b}_nf{nf}"
+        for name, fn, names in (("", lambda: k7.sample_pdf_union(t, w, nf, u), "pdf_union_kernel"),
+                                ("chain_", lambda: k7.sample_pdf_union_reference(t, w, nf, u),
+                                 None)):
+            dev = cs.device_ms_by_kernel(lambda: [fn() for _ in range(20)],
+                                         {"k": (names,) if names else ()})
+            out[f"{key}_{name}ms"] = cuda_ms(fn, reps=50)
+            out[f"{key}_{name}device_ms"] = (dev["k"] if names else dev["all"]) / 20
 if "serve" in phases:
     import tempfile
     from nerf_keras_tpu_torch import load_config, profile_render as pr
@@ -141,11 +171,11 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("trees", nargs="+", help="checkout roots, in run order")
     parser.add_argument("--phases", default="kernels,steps",
-                        help="comma-separated: kernels, k1k2, k4, serve, steps")
+                        help="comma-separated: kernels, k1k2, k4, k7, serve, steps")
     parser.add_argument("--timeout", type=float, default=900.0,
                         help="seconds allowed to each tree's process")
     args = parser.parse_args()
-    unknown = set(args.phases.split(",")) - {"kernels", "k1k2", "k4", "serve", "steps"}
+    unknown = set(args.phases.split(",")) - {"kernels", "k1k2", "k4", "k7", "serve", "steps"}
     if unknown:
         raise SystemExit(f"unknown phases: {sorted(unknown)}")
     failed = 0

@@ -25,10 +25,10 @@ The port of three scripts of the JAX package:
   forward at (B, 64) and (B, 192), and forward + backward at (B, 192),
   with the plain versions' times, CUDA events.
 * ``pdf`` (``scripts/exp_render_r3.py``'s ``pdf`` phase): K7 against the
-  ``sample_pdf`` + ``sorted_union`` chain at the 16384-ray render chunk
-  (S = 64, NF = 128, eval grid) and at B = 4096 with sorted uniforms;
-  then a 200x200 frame rendered with K7 in place of the chain
-  (:func:`render_rays_union`) against the engine's render.
+  ``sample_pdf`` + ``sorted_union`` chain at its three main shapes
+  (:data:`K7_SHAPES`), timed as :func:`k7_times` says; then a 200x200
+  frame rendered with K7 in place of the chain (:func:`render_rays_union`)
+  against the engine's render.
 
 The configuration is ``profile_train.parity_config()`` (lego widths 8x256,
 skip 4, L 10/4, 64 + 128 samples, batch 4096, bf16, STOP_PDF_GRADIENT),
@@ -49,7 +49,7 @@ import numpy as np
 import torch
 
 from nerf_keras_tpu_torch import runtime
-from nerf_keras_tpu_torch.runtime import cuda_ms
+from nerf_keras_tpu_torch.runtime import cuda_ms, device_ms_by_kernel
 from nerf_keras_tpu_torch.config import NeRFConfig
 from nerf_keras_tpu_torch.engine.step import make_loss_fn, make_render_fn, make_train_step
 from nerf_keras_tpu_torch.engine.trainer import Trainer
@@ -60,12 +60,16 @@ from nerf_keras_tpu_torch.ops.kernels import fused_render as k1
 from nerf_keras_tpu_torch.ops.kernels import pdf_union as k7
 from nerf_keras_tpu_torch.ops.kernels import quant_render as k4
 from nerf_keras_tpu_torch.ops.rays import get_rays, pose_spherical, sample_rays
-from nerf_keras_tpu_torch.ops.sampling import generate_t_vals
+from nerf_keras_tpu_torch.ops.sampling import generate_t_vals, sample_pdf
 from nerf_keras_tpu_torch.ops.volume import composite_background
 from nerf_keras_tpu_torch.profile_train import bench_batch, parity_config
 
 NEAR, FAR = 2.0, 6.0
 PHASES = ("steps", "kernels", "pdf")
+# K7's main shapes (B, S, NF, sorted uniforms): the render chunk on the eval
+# grid, the parity step (64 + 128) and the bench recipe (64 + 96) on sorted
+# uniforms.
+K7_SHAPES = ((16384, 64, 128, False), (4096, 64, 128, True), (4096, 64, 96, True))
 
 
 def recompute_render_pass(cfg: NeRFConfig) -> Callable:
@@ -246,22 +250,50 @@ def union_errors(got: torch.Tensor, want: torch.Tensor) -> dict:
     return {"max_abs_err": float(diff.max()), "above_1e-5": int((diff > 1e-5).sum())}
 
 
+def k7_u(b: int, nf: int, sorted_u: bool, seed: int = 8) -> torch.Tensor | None:
+    """Sorted uniforms ``(b, nf)`` on the card, or None (the eval grid)."""
+    if not sorted_u:
+        return None
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.sort(torch.rand((b, nf), generator=gen, device="cuda"), dim=-1).values
+
+
+def k7_times(t: torch.Tensor, w: torch.Tensor, nf: int, u: torch.Tensor | None,
+             reps: int = 20) -> dict:
+    """K7 beside the chain at one shape, in ms: the call of
+    ``sample_pdf_union`` (CUDA events around the Python call, median of
+    50) and its kernel's device time (``torch.profiler``, mean of ``reps``
+    launches); the chain's call and device time (all its kernels); and the
+    device time of two yardsticks the port never calls: one ``torch.sort``
+    of the ``(B, S + NF)`` concatenation (K7's union half) and one
+    ``torch.searchsorted`` of ``u`` in the cdf (its bin-lookup half)."""
+    def dev_ms(fn, names=()):
+        r = device_ms_by_kernel(lambda: [fn() for _ in range(reps)], {"k": names})
+        return (r["k"] if names else r["all"]) / reps
+
+    run = lambda: k7.sample_pdf_union(t, w, nf, u)  # noqa: E731
+    chain = lambda: k7.sample_pdf_union_reference(t, w, nf, u)  # noqa: E731
+    t_fine = sample_pdf(0.5 * (t[:, 1:] + t[:, :-1]), w, nf, deterministic=u is None, u=u)
+    both = torch.cat([t, t_fine], dim=-1)
+    pdf = (w + k7.WEIGHT_FLOOR) / torch.sum(w + k7.WEIGHT_FLOOR, dim=-1, keepdim=True)
+    cdf = torch.cat([torch.zeros_like(pdf[:, :1]), torch.cumsum(pdf, dim=-1)], dim=-1)
+    uu = (k7.device_grid(nf, t.device) if u is None else u).expand(t.shape[0], nf).contiguous()
+    return {"ms": cuda_ms(run, reps=50), "device_ms": dev_ms(run, ("pdf_union_kernel",)),
+            "chain_ms": cuda_ms(chain, reps=50), "chain_device_ms": dev_ms(chain),
+            "sort_device_ms": dev_ms(lambda: torch.sort(both, dim=-1)),
+            "searchsorted_device_ms": dev_ms(lambda: torch.searchsorted(cdf, uu, right=True))}
+
+
 def phase_pdf(card: str) -> dict:
     report = {}
-    for b, s, nf, sorted_u in ((16384, 64, 128, False), (4096, 64, 128, True)):
+    for b, s, nf, sorted_u in K7_SHAPES:
         t, w = pdf_inputs(b, s)
-        u = None
-        if sorted_u:
-            gen = torch.Generator(device="cuda").manual_seed(1)
-            u = torch.sort(torch.rand((b, nf), generator=gen, device="cuda"), dim=-1).values
+        u = k7_u(b, nf, sorted_u, seed=1)
         got = k7.sample_pdf_union(t, w, nf, u)
         want = k7.sample_pdf_union_reference(t, w, nf, u)
         row = {"phase": "pdf", "B": b, "S": s, "NF": nf, "u": "sorted" if sorted_u else "eval",
-               **union_errors(got, want),
-               "ms": cuda_ms(lambda: k7.sample_pdf_union(t, w, nf, u), reps=50),
-               "chain_ms": cuda_ms(lambda: k7.sample_pdf_union_reference(t, w, nf, u),
-                                   reps=50)}
-        report[(b, sorted_u)] = row
+               **union_errors(got, want), **k7_times(t, w, nf, u)}
+        report[(b, nf)] = row
         print(json.dumps({**row, "card": card}), flush=True)
     # A 200x200 frame with K7 in place of the chain, against the engine's.
     cfg = parity_config()

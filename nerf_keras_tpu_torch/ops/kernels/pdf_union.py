@@ -11,12 +11,17 @@ engine: the render and train steps take the ``sample_pdf`` +
 * :func:`sample_pdf_union_reference` is the plain version: that chain,
   with the eval grid (``deterministic=True``) or the caller's sorted
   uniforms as ``sample_pdf``'s ``u``.
+* :func:`sample_pdf_union_float64` is that chain evaluated in float64 on
+  the same inputs: the yardstick that shows how much of a draw's error is
+  float32 rounding of the cdf (K7 accumulates it in double).
 * :func:`sample_pdf_union` takes the plain version for a tensor on the
   CPU, and only then.  For a CUDA tensor it launches K7 or raises; each
   launch adds one to :data:`launches`.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -27,12 +32,21 @@ from nerf_keras_tpu_torch.ops.sampling import sample_pdf, sorted_union
 launches = 0  # K7
 
 WEIGHT_FLOOR = 1e-5  # sample_pdf's floor on the weights
+MAX_S = 256  # csrc/pdf_union.cu: kMaxS (16 lanes a ray, 16 values a lane)
 
 
 def eval_grid(ns_fine: int, device) -> torch.Tensor:
     """``sample_pdf``'s deterministic ``u``, ``(ns_fine,)``."""
     return torch.linspace(0.5 / ns_fine, 1.0 - 0.5 / ns_fine, ns_fine,
                           dtype=torch.float32, device=device)
+
+
+@functools.lru_cache(maxsize=16)
+def device_grid(ns_fine: int, device: torch.device) -> torch.Tensor:
+    """:func:`eval_grid`, made once per ``(ns_fine, device)`` by the same
+    ``torch.linspace`` call as ``sample_pdf``'s, so it is the plain
+    version's ``u`` bit for bit on that device.  K7 only reads it."""
+    return eval_grid(ns_fine, device)
 
 
 def sample_pdf_union_reference(
@@ -48,11 +62,39 @@ def sample_pdf_union_reference(
     return sorted_union(t_vals, t_fine)
 
 
+def sample_pdf_union_float64(
+    t_vals: torch.Tensor,
+    weights: torch.Tensor,
+    ns_fine: int,
+    u_sorted: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """:func:`sample_pdf_union_reference`'s chain in float64 on the same
+    inputs (``u``: the float32 eval grid or ``u_sorted``, widened):
+    ``(B, S + ns_fine)`` float64."""
+    t = t_vals.double()
+    w = weights.double() + WEIGHT_FLOOR
+    cdf = torch.cumsum(w / torch.sum(w, dim=-1, keepdim=True), dim=-1)
+    cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], dim=-1)
+    k = cdf.shape[-1]
+    u = eval_grid(ns_fine, t.device) if u_sorted is None else u_sorted
+    u = u.double().expand(*t.shape[:-1], ns_fine).contiguous()
+    below = (torch.searchsorted(cdf, u, right=True) - 1).clamp(0, k - 1)
+    above = (below + 1).clamp(max=k - 1)
+    mid = 0.5 * (t[..., 1:] + t[..., :-1])
+    mid = torch.cat([mid, mid[..., -1:], mid[..., -1:]], dim=-1)
+    cdf_b, cdf_a = cdf.gather(-1, below), cdf.gather(-1, above)
+    t_b, t_a = mid.gather(-1, below), mid.gather(-1, above)
+    denom = cdf_a - cdf_b
+    denom = torch.where(denom < 1e-5, torch.ones_like(denom), denom)
+    return sorted_union(t, t_b + (u - cdf_b) / denom * (t_a - t_b))
+
+
 def launch_k7(t_vals: torch.Tensor, weights: torch.Tensor, ns_fine: int,
               u_sorted: torch.Tensor | None = None,
               w_floor: float = WEIGHT_FLOOR) -> torch.Tensor:
     """One K7 launch: ``(B, S + ns_fine)`` float32.  Without ``u_sorted``
-    every ray reads one shared row, :func:`eval_grid`."""
+    every ray reads one shared row, :func:`device_grid`.  Allocates only
+    the output."""
     global launches
     device = t_vals.device
     if device.type != "cuda":
@@ -60,10 +102,12 @@ def launch_k7(t_vals: torch.Tensor, weights: torch.Tensor, ns_fine: int,
     if t_vals.dim() != 2 or t_vals.shape[1] < 2:
         raise ValueError(f"t_vals must be (B, S >= 2), got {tuple(t_vals.shape)}")
     b, s = t_vals.shape
+    if s > MAX_S:
+        raise NotImplementedError(f"K7 on CUDA takes S <= {MAX_S} coarse samples, got {s}")
     check_tensor("t_vals", t_vals, (b, s), device)
     check_tensor("weights", weights, (b, s), device)
     if u_sorted is None:
-        u, u_stride = eval_grid(ns_fine, device), 0
+        u, u_stride = device_grid(ns_fine, device), 0
     else:
         check_tensor("u_sorted", u_sorted, (b, ns_fine), device)
         u, u_stride = u_sorted, ns_fine

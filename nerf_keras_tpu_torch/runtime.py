@@ -61,3 +61,29 @@ def cuda_ms(fn, reps: int = 10) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms_by_kernel(fn, families: dict, tries: int = 3) -> dict:
+    """Device milliseconds of each kernel family in one call of ``fn``
+    (``torch.profiler``; a family is a tuple of substrings of kernel
+    names), and of all device work under ``"all"``.  The profiler now and
+    then records no device event in a window: ``fn`` then runs again in a
+    new one, and after ``tries`` empty windows this raises."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if events:
+            break
+    else:
+        raise RuntimeError(f"torch.profiler recorded no device work in {tries} windows")
+    span = lambda e: e.time_range.end - e.time_range.start  # noqa: E731
+    out = {k: sum(span(e) for e in events if any(n in e.name for n in names)) / 1e3
+           for k, names in families.items()}
+    out["all"] = sum(span(e) for e in events) / 1e3
+    return out
