@@ -104,7 +104,25 @@ nonzero — nothing falls back to the CPU or to a plain path):
     launch counts (two K1 + two K3 and no K2; two K6 forward + two K6
     backward and no K1) and the memory each forward holds;
 18. a 200x200 frame from the phase-8 checkpoint rendered with K7 in place
-    of the chain (one K7 launch per chunk), against the engine's render.
+    of the chain (one K7 launch per chunk), against the engine's render;
+19. ``train_cli``: the training CLI in-process (``run_training(...,
+    argv=[...])`` in a temp dir, the native batcher required):
+    (a) ``cli.train_synthetic --config config/lego_batch_h256_tpu.json
+    --epochs 3 --eval-every 1``: every batch from the native batcher;
+    exactly 2 K1 training-mode and 2 K2 launches per step, 2 K1 launches
+    per eval batch and per panel render chunk, nothing else; the train
+    loss and the val PSNR better at epoch 3 than at 1; the checkpoint,
+    ``best.*``, the history JSON (``History.load``) and the first panel;
+    per-epoch step ms and Krays/s; (b) ``--resume`` to 4 epochs: "at step
+    63", 4 epochs of history, Adam's count at 84, the same launches per
+    step, and a ``--profile`` window over 10 steps whose Chrome trace gives
+    the device's idle share; (c) the entry point's default config
+    (``lego_batch_debug.json``, BatchNorm, 25x25) for 2 epochs: no kernel
+    launch, a finite falling loss, running statistics off their init; (d)
+    a tiny RGBA Blender scene this script writes (6 train and 2 val frames
+    of 40x40) through ``cli.train_blender`` for 1 epoch at full width,
+    batch 1024; (e) ``RenderService`` on (a)'s run dir serves a 100x100
+    val view from ``best.*`` (2 K1 launches), held to the ground truth.
 
 Each main path runs with the launch counters set to 0 just before it and
 read just after.  The line before the last is the kernel report
@@ -114,8 +132,13 @@ read just after.  The line before the last is the kernel report
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import io
 import json
+import math
 import os
+import re
 import statistics
 import sys
 import tempfile
@@ -154,9 +177,14 @@ from nerf_keras_tpu_torch.exp_train_paths import counts
 from nerf_keras_tpu_torch.profile_train import bench_batch, bench_config, parity_config
 from nerf_keras_tpu_torch.runtime import cuda_ms, device_ms_by_kernel
 from nerf_keras_tpu_torch.serving import RenderService, serve
-from nerf_keras_tpu_torch.utils.checkpoint import save_params_npz
+from nerf_keras_tpu_torch.cli import train as train_cli
+from nerf_keras_tpu_torch.cli import train_blender, train_synthetic
+from nerf_keras_tpu_torch.data import native as native_batcher
+from nerf_keras_tpu_torch.profile_render import union_us
+from nerf_keras_tpu_torch.utils.checkpoint import checkpoint_name, save_params_npz
 from nerf_keras_tpu_torch.utils.image_metrics import frame_psnr
-from nerf_keras_tpu_torch.utils.png import decode_png
+from nerf_keras_tpu_torch.utils.metrics import History
+from nerf_keras_tpu_torch.utils.png import decode_png, encode_png
 
 # K1 vs plain at full width.  Both take bf16-rounded operands and
 # accumulate in f32; they differ in summation order, which can flip the
@@ -552,9 +580,13 @@ def phase_k2(card: str) -> dict:
             f"the gate cannot see a dropped weights cotangent: {rel_dropped} "
             f"< 10 x {K2_TOL_REL}")
     del rgb_p, w_p
+    k1_train_library_ms = library_products_ms(k1.kernel_pack(mlp, dev).desc, b * s,
+                                              torch.bfloat16, dev)
+    say("k1_train_library", B=b, S=s, library_ms=k1_train_library_ms, card=card)
     return {"max_abs_err": max_abs, "ms": k2_ms, "plain_ms": plain_bwd_ms, "bound": k2_bnd,
             "k1_train_err": preds_err, "k1_train_ms": k1_train_ms,
-            "k1_train_plain_ms": k1_plain_ms, "k1_train_bound": k1t_bnd}
+            "k1_train_plain_ms": k1_plain_ms, "k1_train_bound": k1t_bnd,
+            "k1_train_library_ms": k1_train_library_ms}
 
 
 # K2's kernels, by the names the profiler reports.
@@ -931,8 +963,10 @@ def phase_k4(card: str) -> dict:
         report["max_abs_err"] = max(report["max_abs_err"], errs["rgb_max"], errs["w_max"])
     desc = k4.kernel_pack(qp, dev).desc
     for b in (4096, 16384):
-        report[f"library_ms_b{b}_s192"] = library_products_ms(desc, b * 192, torch.int8, dev)
-        say("k4_library", B=b, S=192, library_ms=report[f"library_ms_b{b}_s192"], card=card)
+        for s in (64, 192):
+            key = f"library_ms_b{b}_s{s}"
+            report[key] = library_products_ms(desc, b * s, torch.int8, dev)
+            say("k4_library", B=b, S=s, library_ms=report[key], card=card)
     return report
 
 
@@ -1634,6 +1668,234 @@ def phase_pdf_frame(card: str, ckpt: str) -> dict:
     return launches
 
 
+class _Tee(io.TextIOBase):
+    """Write to the real stdout and keep a copy (the CLI's epoch lines)."""
+
+    def __init__(self, out):
+        self.out, self.buf = out, io.StringIO()
+
+    def write(self, text):
+        self.buf.write(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def _cli(main, argv: list[str]) -> tuple[Trainer, str, dict]:
+    """One in-process CLI run with the counters set to 0 just before it:
+    (trainer, its stdout, the launches it made)."""
+    tee = _Tee(sys.stdout)
+    reset_counts()
+    native_batcher.batches = 0
+    with contextlib.redirect_stdout(tee):
+        trainer = main(argv)
+    launches = dict(counts(), native_batches=native_batcher.batches)
+    return trainer, tee.buf.getvalue(), launches
+
+
+def _expected_launches(cfg, prepare, epochs: int, evals: int) -> dict:
+    """The launches of ``epochs`` epochs and ``evals`` evals by the CLI's
+    own accounting: K1 in training mode and K2 twice per step (coarse and
+    fine), the native batcher once per step; K1 forward twice per eval
+    batch (drop remainder) and per render chunk of the two panel views."""
+    train_ds, val_ds, _, _ = prepare(cfg.height, cfg.width)
+    steps = len(train_ds) // cfg.batch_size
+    test_bs = cfg.test_batch_size or cfg.batch_size
+    eval_batches = len(val_ds) // train_cli.resolve_eval_batch(test_bs, len(val_ds))
+    chunks = min(2, val_ds.num_images) * math.ceil(cfg.height * cfg.width
+                                                   / max(test_bs, 4096))
+    return dict(ZERO, k1_train=2 * steps * epochs, k2=2 * steps * epochs,
+                k1_fwd=2 * (eval_batches + chunks) * evals,
+                native_batches=steps * epochs), steps
+
+
+EPOCH_LINE = re.compile(r"^epoch (\d+)/\d+ loss=\S+ loss_coarse=\S+ psnr=\S+ "
+                        r"\(([\d.]+) Krays/s, ([\d.]+) ms/step\)", re.M)
+
+
+def _idle_share(trace_path: str) -> dict:
+    """The device's idle share over a Chrome trace's window: one minus the
+    union of its device intervals (kernels, copies, sets) over the span of
+    all its events."""
+    with open(trace_path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    device = [(e["ts"], e["ts"] + e["dur"]) for e in events
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    if not device:
+        raise RuntimeError(f"the profiler trace {trace_path} holds no device work")
+    start = min(e["ts"] for e in events)
+    end = max(e["ts"] + e["dur"] for e in events)
+    busy = union_us(device)
+    return {"window_ms": (end - start) / 1e3, "device_busy_ms": busy / 1e3,
+            "idle_share": 1.0 - busy / (end - start), "device_events": len(device)}
+
+
+def _write_blender_scene(root: str) -> None:
+    """6 train and 2 val RGBA frames of 40x40 (an orange disk, soft-edged
+    alpha, on a clear background) with ``transforms_*.json``."""
+    y, x = np.mgrid[0:40, 0:40]
+    for split, n in (("train", 6), ("val", 2)):
+        os.makedirs(os.path.join(root, split))
+        frames = []
+        for i in range(n):
+            theta = 360.0 * (i + 0.5 * (split == "val")) / 6
+            r = np.hypot(x - 20 - 4 * math.cos(math.radians(theta)), y - 20)
+            alpha = np.clip(14.0 - r, 0.0, 1.0)
+            rgba = np.stack([0.9 + 0 * r, 0.45 + 0.3 * y / 40, 0.1 + 0 * r, alpha], -1)
+            with open(os.path.join(root, split, f"r_{i}.png"), "wb") as f:
+                f.write(encode_png((rgba * 255).astype(np.uint8)))
+            frames.append({"file_path": f"./{split}/r_{i}",
+                           "transform_matrix": pose_spherical(theta, -30.0, 4.0).tolist()})
+        with open(os.path.join(root, f"transforms_{split}.json"), "w") as f:
+            json.dump({"camera_angle_x": 0.6911, "frames": frames}, f)
+
+
+def _history_name(cfg) -> str:
+    return (f"history_l{cfg.num_layers}_d{cfg.hidden_dim}"
+            f"_n{cfg.ns_coarse + cfg.ns_fine}_ep{cfg.epochs}.json")
+
+
+def _config_file(path: str, **changes) -> str:
+    with open(CONFIG) as f:
+        raw = json.load(f)
+    raw.update(changes)
+    with open(path, "w") as f:
+        json.dump(raw, f)
+    return path
+
+
+def phase_train_cli(card: str, tmp: str) -> list[dict]:
+    """Phase 19 (module docstring): the training CLI on the card, (a)-(e)."""
+    cfg = load_config(CONFIG)
+    run = os.path.join(tmp, "cli_run")
+    base = ["--config", CONFIG, "--run-dir", run]
+    # (a) three epochs at full width.
+    cfg3 = dataclasses.replace(cfg, epochs=3)
+    expected, steps = _expected_launches(cfg3, train_synthetic.prepare, 3, 3)
+    trainer, out, launches = _cli(train_synthetic.main, base + ["--epochs", "3",
+                                                                "--eval-every", "1"])
+    epochs = [{"epoch": int(m[0]), "krays_per_s": float(m[1]), "step_ms": float(m[2])}
+              for m in EPOCH_LINE.findall(out)]
+    name = checkpoint_name(cfg3)
+    hist_path = os.path.join(run, _history_name(cfg3))
+    files = {f: os.path.exists(os.path.join(run, f))
+             for f in (name, "best." + name, _history_name(cfg3),
+                       os.path.join("images", "000.png"))}
+    history = History.load(hist_path) if files[_history_name(cfg3)] else None
+    say("train_cli_synthetic", steps_per_epoch=steps, epochs=epochs, launches=launches,
+        expected=expected, files=files,
+        losses=None if history is None else history.losses,
+        val_psnrs=None if history is None else history.val["psnrs"],
+        val_ssims=None if history is None else history.val["ssims"], card=card)
+    if "batches: native batcher" not in out or "using numpy" in out:
+        raise RuntimeError("train_cli (a): the native batcher did not feed the run")
+    if launches != expected:
+        raise RuntimeError(f"train_cli (a): launched {launches}, expected {expected}")
+    if not all(files.values()) or len(epochs) != 3:
+        raise RuntimeError(f"train_cli (a): files {files}, epoch lines {epochs}")
+    if not (np.isfinite(history.losses).all() and history.losses[2] < history.losses[0]
+            and history.val["psnrs"][2] > history.val["psnrs"][0]):
+        raise RuntimeError(f"train_cli (a): loss {history.losses} or val PSNR "
+                           f"{history.val['psnrs']} did not improve over 3 epochs")
+    runs = [launches]
+    del trainer
+    torch.cuda.empty_cache()
+
+    # (b) resume to 4 epochs, with a profiler window over 10 steps.
+    profile_dir = os.path.join(tmp, "cli_profile")
+    cfg4 = dataclasses.replace(cfg, epochs=4)
+    expected, _ = _expected_launches(cfg4, train_synthetic.prepare, 1, 1)
+    trainer, out, launches = _cli(train_synthetic.main, base + [
+        "--resume", os.path.join(run, name), "--epochs", "4", "--eval-every", "1",
+        "--profile", profile_dir, "--profile-steps", "10"])
+    idle = _idle_share(os.path.join(profile_dir, "trace.json"))
+    resumed = History.load(os.path.join(run, _history_name(cfg4)))
+    epochs = [{"epoch": int(m[0]), "krays_per_s": float(m[1]), "step_ms": float(m[2])}
+              for m in EPOCH_LINE.findall(out)]
+    say("train_cli_resume", launches=launches, expected=expected, epochs=epochs,
+        history_epochs=len(resumed.losses), adam_count=trainer.state.opt.count,
+        profile_window_steps=10, **idle, card=card)
+    if f"at step {3 * steps}" not in out or len(resumed.losses) != 4 \
+            or trainer.state.opt.count != 4 * steps or trainer.step != 4 * steps:
+        raise RuntimeError(f"train_cli (b): the resume did not continue at step {3 * steps}: "
+                           f"history {len(resumed.losses)}, Adam {trainer.state.opt.count}")
+    if launches != expected:
+        raise RuntimeError(f"train_cli (b): launched {launches}, expected {expected}")
+    runs.append(launches)
+    del trainer
+    torch.cuda.empty_cache()
+
+    # (c) the entry point's default config: BatchNorm, plain MLP only.
+    bn_cfg = load_config(os.path.join(os.path.dirname(CONFIG), "lego_batch_debug.json"))
+    bn_run = os.path.join(tmp, "cli_bn")
+    trainer, out, launches = _cli(train_synthetic.main, [
+        "--run-dir", bn_run, "--epochs", "2"])
+    bn_hist = History.load(os.path.join(bn_run, _history_name(
+        dataclasses.replace(bn_cfg, epochs=2))))
+    stats = trainer.bn_tree()
+    moved = max(max(float(np.abs(layer["mean"]).max()), float(np.abs(layer["var"] - 1).max()))
+                for tree in stats.values() for layer in [*tree["trunk"], tree["branch"]])
+    say("train_cli_bn", config="lego_batch_debug.json", launches=launches,
+        losses=bn_hist.losses, val_psnrs=bn_hist.val["psnrs"], stats_moved_max=moved,
+        card=card)
+    if any(v for k, v in launches.items() if k != "native_batches"):
+        raise RuntimeError(f"train_cli (c): a BatchNorm run launched kernels: {launches}")
+    if not (np.isfinite(bn_hist.losses).all() and bn_hist.losses[1] < bn_hist.losses[0]):
+        raise RuntimeError(f"train_cli (c): the BN loss did not fall: {bn_hist.losses}")
+    if not moved > 1e-4:
+        raise RuntimeError(f"train_cli (c): the running statistics stayed at init: {moved}")
+    runs.append(launches)
+    del trainer
+
+    # (d) a tiny Blender scene, written here, at full width.
+    scene = os.path.join(tmp, "blender_scene")
+    _write_blender_scene(scene)
+    bl_config = _config_file(os.path.join(tmp, "blender.json"), BATCH_SIZE=1024,
+                             HEIGHT=40, WIDTH=40, WITH_GCS=False)
+    bl_cfg = dataclasses.replace(load_config(bl_config), epochs=1)
+    expected, bl_steps = _expected_launches(
+        bl_cfg, lambda h, w: train_blender.prepare(h, w, data_dir=scene, config=bl_cfg), 1, 1)
+    bl_run = os.path.join(tmp, "cli_blender")
+    trainer, out, launches = _cli(train_blender.main, [
+        "--config", bl_config, "--data-dir", scene, "--run-dir", bl_run, "--epochs", "1"])
+    bl_hist = History.load(os.path.join(bl_run, _history_name(bl_cfg)))
+    say("train_cli_blender", frames="6 train + 2 val RGBA 40x40", steps=bl_steps,
+        launches=launches, expected=expected, losses=bl_hist.losses,
+        val_psnrs=bl_hist.val["psnrs"], card=card)
+    if launches != expected or not np.isfinite(bl_hist.losses + bl_hist.val["psnrs"]).all():
+        raise RuntimeError(f"train_cli (d): launched {launches} (expected {expected}), "
+                           f"history {bl_hist.to_dict()}")
+    runs.append(launches)
+    del trainer
+    torch.cuda.empty_cache()
+
+    # (e) serve (a)'s run dir: best.*, one val view at the config's 100x100.
+    service = RenderService(cfg, run, device="cuda")
+    _, val_ds, _, _ = train_synthetic.prepare(cfg.height, cfg.width)
+    thetas = np.linspace(0.0, 360.0, 12, endpoint=False)
+    phis = np.random.default_rng(0).uniform(-40.0, -20.0, size=12)  # the scene's poses
+    reset_counts()
+    png = service.render_png(float(thetas[9]), float(phis[9]), 4.0, cfg.height, cfg.width)
+    launches = counts()
+    img = decode_png(png)
+    served_psnr = frame_psnr(val_ds.image(0), img.astype(np.float32) / 255.0)
+    best_val = max(History.load(hist_path).val["psnrs"])
+    say("train_cli_serve", checkpoint=os.path.basename(service.checkpoint), launches=launches,
+        shape=list(img.shape), psnr_vs_ground_truth=served_psnr, best_val_psnr=best_val,
+        card=card)
+    if not os.path.basename(service.checkpoint).startswith("best."):
+        raise RuntimeError(f"train_cli (e): served {service.checkpoint}, not best.*")
+    if launches != dict(ZERO, k1_fwd=2) or img.shape != (cfg.height, cfg.width, 3):
+        raise RuntimeError(f"train_cli (e): launched {launches}, shape {img.shape}")
+    if not served_psnr > best_val - 3.0:
+        raise RuntimeError(f"train_cli (e): the served val view reads {served_psnr} dB "
+                           f"against the run's best val PSNR {best_val}")
+    runs.append(launches)
+    return [{k: v for k, v in r.items() if k != "native_batches"} for r in runs]
+
+
 def _sum(runs: list[dict], key: str) -> int:
     return sum(r[key] for r in runs)
 
@@ -1674,18 +1936,24 @@ def main() -> None:
         torch.cuda.empty_cache()
         runs += phase_paths(card)
         runs.append(phase_pdf_frame(card, ckpt))
+        torch.cuda.empty_cache()
+        runs += phase_train_cli(card, tmp)
+    # Library yardsticks measured once and shared where two kernels do the
+    # same products at the same M: K1's per-layer bf16 matmul at M = 4096 x
+    # 192 is K5's forward at N = 786,432 and K6's forward at S=192; K2's dW
+    # at B=4096, S=160 is K3's; K5's dW at N = 786,432 is K6's backward.
     kernels = [
         kernel_entry("K1 fused_render_fwd", "K1", _sum(runs, "k1_fwd"), k1r["max_abs_err"],
                      k1r["ms_s192"], k1r["plain_ms_s192"], k1r["bound_s192"],
                      k1r["library_ms_s192"]),
         kernel_entry("K1-train fused_render_fwd (residuals)", "K1", _sum(runs, "k1_train"),
                      k2r["k1_train_err"], k2r["k1_train_ms"], k2r["k1_train_plain_ms"],
-                     k2r["k1_train_bound"]),
+                     k2r["k1_train_bound"], k2r["k1_train_library_ms"]),
         kernel_entry("K2 fused_render_bwd", "K2", _sum(runs, "k2"), k2r["max_abs_err"],
                      k2r["ms"], k2r["plain_ms"], k2r["bound"], k2c["library_ms"]),
         kernel_entry("K5-fwd fused_mlp_fwd", "K5f", _sum(runs, "k5_fwd"),
                      k5r["fwd_max_abs_err"], k5r["fwd_ms"], k5r["fwd_plain_ms"],
-                     k5r["fwd_bound"]),
+                     k5r["fwd_bound"], k1r["library_ms_s192"]),
         kernel_entry("K5-bwd fused_render_bwd (k5_rows)", "K5b", _sum(runs, "k5_bwd"),
                      k5r["bwd_max_abs_err"], k5r["bwd_ms"], k5r["bwd_plain_ms"],
                      k5r["bwd_bound"], k5c["library_ms"]),
@@ -1693,13 +1961,14 @@ def main() -> None:
                      k4r["ms_b16384_s192"], k4r["plain_ms_b16384_s192"],
                      k4r["bound_b16384_s192"], k4r["library_ms_b16384_s192"]),
         kernel_entry("K3 fused_render_bwd (recompute)", "K3", _sum(runs, "k3"),
-                     k3r["max_abs_err"], k3r["ms"], k3r["plain_ms"], k3r["bound"]),
+                     k3r["max_abs_err"], k3r["ms"], k3r["plain_ms"], k3r["bound"],
+                     k2c["library_ms"]),
         kernel_entry("K6-fwd fused_render_fwd (encodings in)", "K6f", _sum(runs, "k6_fwd"),
                      k6r["fwd_max_abs_err"], k6r["fwd_ms"], k6r["fwd_plain_ms"],
-                     k6r["fwd_bound"]),
+                     k6r["fwd_bound"], k1r["library_ms_s192"]),
         kernel_entry("K6-bwd fused_render_bwd (encodings in)", "K6b", _sum(runs, "k6_bwd"),
                      k6r["bwd_max_abs_err"], k6r["bwd_ms"], k6r["bwd_plain_ms"],
-                     k6r["bwd_bound"]),
+                     k6r["bwd_bound"], k5c["library_ms"]),
         kernel_entry("K7 pdf_union", "K7", _sum(runs, "k7"), k7r["max_abs_err"], k7r["ms"],
                      k7r["plain_ms"], k7r["bound"]),
     ]

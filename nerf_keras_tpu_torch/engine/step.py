@@ -14,7 +14,7 @@ Counterpart of ``nerf_keras_tpu/engine/step.py``:
   encodings are computed outside the MLP and each pass is one K5 launch
   forward and one backward with input gradients (``make_forward_pass``);
 * the coarse+fine eval step and render (``make_render_fn``,
-  ``_make_fused_eval_forward``: coarse K1 over centered t-values,
+  ``_make_eval_forward``: coarse K1 over centered t-values,
   deterministic ``sample_pdf``, ``sorted_union``, fine K1), and the full
   render (``full=True``: weights and raw predictions of both passes,
   through ``make_forward_pass`` and K5's forward);
@@ -32,7 +32,11 @@ Counterpart of ``nerf_keras_tpu/engine/step.py``:
 The port does not read ``USE_PALLAS``: on the card the kernels always run
 (K1/K2 where the JAX package takes its fused megakernel, K5 where it
 takes ``apply_nerf_mlp_pallas``), and on the CPU each kernel's plain
-version does.  PyTorch runs eagerly, so there is nothing to compile: each
+version does.  ``BATCH_NORM`` models are the exception, on every device:
+no kernel has BatchNorm, so (as the JAX ``Trainer`` resolves
+``use_pallas=False`` for them) every pass is :func:`make_forward_pass`
+over ``NeRFMLP.forward``, with batch statistics in the train step and the
+running ones in eval and render.  PyTorch runs eagerly, so there is nothing to compile: each
 function is plain Python around the kernel launches.  Parameters are
 updated in place (the optimizer and the EMA), where the JAX step returns
 a new state.
@@ -81,13 +85,13 @@ def check_train_support(cfg: NeRFConfig, device: torch.device | None = None) -> 
         "PROP_AUX_SAMPLES": cfg.prop_aux_samples > 0,
         "PROP_UNION_EVERY": cfg.prop_union_every > 0,
         "FREQ_ANNEAL_STEPS>0": cfg.freq_anneal_steps != 0,
-        "BATCH_NORM": cfg.batch_norm,
         "NDC": cfg.ndc,
     }
     for knob, on in unported.items():
         if on:
             raise NotImplementedError(f"{knob} {_LATER}")
-    if device is not None and device.type == "cuda" and cfg.compute_dtype != "bfloat16":
+    if (device is not None and device.type == "cuda" and cfg.compute_dtype != "bfloat16"
+            and not cfg.batch_norm):
         raise NotImplementedError(
             f"COMPUTE_DTYPE={cfg.compute_dtype} on CUDA: the kernels run bf16 "
             f"MLPs only; float32 kernels {_LATER}"
@@ -201,11 +205,15 @@ def params_of(models: dict[str, nn.Module]) -> list[torch.Tensor]:
     return [p for name in sorted(models) for p in models[name].parameters()]
 
 
-def _mlp_fn(cfg: NeRFConfig) -> Callable:
+def _mlp_fn(cfg: NeRFConfig, bn_train: bool = False) -> Callable:
     """The MLP over encodings ``(mlp, x_enc, d_enc) -> raw (..., 4)``: K5
     on the card, :meth:`NeRFMLP.forward` on the CPU.  Gradients reach the
     encodings only in the ``STOP_PDF_GRADIENT=false`` mode, the one where
-    they are differentiable (through ``sample_pdf``)."""
+    they are differentiable (through ``sample_pdf``).  ``BATCH_NORM``
+    models take :meth:`NeRFMLP.forward` on every device, with the batch
+    statistics (and their running update) under ``bn_train``."""
+    if cfg.batch_norm:
+        return lambda mlp, x_enc, d_enc: mlp(x_enc, d_enc, bn_train=bn_train)
     need_input_grads = not cfg.stop_pdf_gradient
 
     def run(mlp, x_enc, d_enc):
@@ -215,7 +223,7 @@ def _mlp_fn(cfg: NeRFConfig) -> Callable:
 
 
 def make_forward_pass(cfg: NeRFConfig, return_t_fine: bool = False,
-                      mlp_fn: Callable | None = None) -> Callable:
+                      mlp_fn: Callable | None = None, bn_train: bool = False) -> Callable:
     """The coarse->fine forward pass with the encodings computed outside the
     MLP (stored in the compute dtype, as the JAX package stores them).
 
@@ -230,9 +238,10 @@ def make_forward_pass(cfg: NeRFConfig, return_t_fine: bool = False,
     NS_FINE)`` (training).  The coarse weights are detached before the draw
     only under ``STOP_PDF_GRADIENT``; otherwise the fine t-values, and so
     the fine pass's position encodings, carry gradients into the coarse
-    MLP.  ``mlp_fn`` replaces the MLP (default :func:`_mlp_fn`).
+    MLP.  ``mlp_fn`` replaces the MLP (default :func:`_mlp_fn`, BatchNorm
+    in training mode under ``bn_train``).
     """
-    mlp = _mlp_fn(cfg) if mlp_fn is None else mlp_fn
+    mlp = _mlp_fn(cfg, bn_train) if mlp_fn is None else mlp_fn
     enc_dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
 
     def run_mlp(model, origins, dirs, t):
@@ -331,16 +340,19 @@ def _make_coarse_loss_fn(cfg: NeRFConfig, near: float, far: float,
     the regularizer applies to the final level only).  Under
     ``STOP_PDF_GRADIENT`` it runs :func:`_make_fused_train_forward` (K1/K2),
     otherwise :func:`make_forward_pass` (K5).  The metric slot
-    ``loss_coarse`` is the coarse MSE."""
+    ``loss_coarse`` is the coarse MSE.  ``BATCH_NORM`` takes the plain
+    forward in both modes (no kernel has BatchNorm), normalising with the
+    batch statistics."""
     want_dist = cfg.distortion_loss_mult > 0.0
-    if cfg.stop_pdf_gradient:
+    if cfg.stop_pdf_gradient and not cfg.batch_norm:
         fused = _make_fused_train_forward(cfg, want_dist, render_pass)
 
         def run(params, origins, dirs, t_vals, generator, noise):
             res = fused(params, origins, dirs, t_vals, generator, noise)
             return res[0], res[1], res[2:] if want_dist else None
     else:
-        forward = make_forward_pass(cfg, return_t_fine=want_dist, mlp_fn=mlp_fn)
+        forward = make_forward_pass(cfg, return_t_fine=want_dist, mlp_fn=mlp_fn,
+                                    bn_train=True)
 
         def run(params, origins, dirs, t_vals, generator, noise):
             res = forward(params, origins, dirs, t_vals, generator=generator, noise=noise)
@@ -442,7 +454,9 @@ def make_train_step(cfg: NeRFConfig, near: float, far: float,
     'chain': [U_level1, ...]}`` for the proposal step.  The loss is
     :func:`make_loss_fn`'s.  Gradients land in each parameter's ``.grad``
     (kept after the step), then Adam and the EMA update the state in
-    place.  Metrics (0-d device tensors, the JAX meanings): ``loss_coarse``
+    place; the EMA shadow takes the BatchNorm running statistics as they are
+    (the JAX eval state pairs the EMA params with the trained ``bn``).
+    Metrics (0-d device tensors, the JAX meanings): ``loss_coarse``
     the coarse MSE (proposal: the interlevel loss), ``loss`` the fine MSE,
     ``psnr`` of the fine rgb.
     """
@@ -469,6 +483,10 @@ def make_train_step(cfg: NeRFConfig, near: float, far: float,
             with torch.no_grad():
                 torch._foreach_mul_(ema, d)
                 torch._foreach_add_(ema, params, alpha=1.0 - d)
+                if cfg.batch_norm:
+                    for name, m in state.params.items():
+                        for e, b in zip(state.ema[name].buffers(), m.buffers()):
+                            e.copy_(b)
         state.step += 1
         return {
             "loss_coarse": loss_coarse.detach(),
@@ -487,7 +505,7 @@ def make_eval_step(cfg: NeRFConfig, near: float, far: float) -> Callable:
     interlevel loss summed over levels."""
     check_render_support(cfg)
     if cfg.train_sampler != "proposal":
-        forward = _make_fused_eval_forward(cfg)
+        forward = _make_eval_forward(cfg)
 
         @torch.no_grad()
         def eval_step_coarse(models, batch) -> dict:
@@ -583,9 +601,22 @@ def make_quant_render_fn(cfg: NeRFConfig, near: float, far: float) -> Callable:
     return render
 
 
-def _make_fused_eval_forward(cfg: NeRFConfig) -> Callable:
+def _make_eval_forward(cfg: NeRFConfig) -> Callable:
     """``forward(models, origins, dirs, t_vals) -> dict`` with rgb, depth
-    and weights of both passes, each pass one K1 launch on CUDA."""
+    and weights of both passes, each pass one K1 launch on CUDA;
+    ``BATCH_NORM`` models through :func:`make_forward_pass` (running
+    statistics)."""
+    if cfg.batch_norm:
+        plain = make_forward_pass(cfg)
+
+        def forward_plain(models, origins, dirs, t_vals):
+            rgb, depth, weights, _ = plain(models, origins, dirs, t_vals,
+                                           deterministic=True)
+            return {"rgb_coarse": rgb[0], "rgb_fine": rgb[1],
+                    "depth_coarse": depth[0], "depth_fine": depth[1],
+                    "weights_coarse": weights[0], "weights_fine": weights[1]}
+
+        return forward_plain
     render_pass = _make_pass_fn(cfg)
 
     def forward(models, origins, dirs, t_vals):
@@ -666,7 +697,7 @@ def make_render_fn(cfg: NeRFConfig, near: float, far: float,
 
         return render_full
 
-    forward = _make_fused_eval_forward(cfg)
+    forward = _make_eval_forward(cfg)
 
     def render(models, origins, dirs):
         out = forward(models, origins, dirs, center_t(origins))

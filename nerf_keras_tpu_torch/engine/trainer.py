@@ -20,11 +20,15 @@ tables are a snapshot of the weights: ``restore``, ``replace_params`` and
 ``train_step`` drop them (``quant_ready`` turns false).
 
 ``restore``/``save`` read and write the JAX package's ``.ckpt.npz`` key
-format: ``save`` writes params, EMA, step and the Adam state (so the JAX
-package's ``Trainer.restore`` loads it); ``restore`` reads them back, so
-a resumed run carries on Adam's moments and its count (which the
-``LR_FINAL`` decay reads).  A checkpoint without the Adam state restores
-with a fresh Adam.
+format: ``save`` writes params, EMA, BatchNorm statistics, step and the
+Adam state (so the JAX package's ``Trainer.restore`` loads it);
+``restore`` reads them back, so a resumed run carries on Adam's moments
+and its count (which the ``LR_FINAL`` decay reads).  A checkpoint
+without the Adam state restores with a fresh Adam.
+
+``BATCH_NORM`` models keep their running statistics as module buffers;
+the EMA shadow carries the training models' statistics (the JAX eval
+state pairs the EMA params with the trained ``bn``).
 """
 
 from __future__ import annotations
@@ -52,7 +56,6 @@ from nerf_keras_tpu_torch.models.mlp import NeRFMLP
 from nerf_keras_tpu_torch.ops.proposal import (
     chain_nets,
     init_proposal_chain,
-    proposal_to_jax,
 )
 from nerf_keras_tpu_torch.ops.quant import (
     calibrate_render,
@@ -65,7 +68,9 @@ from nerf_keras_tpu_torch.runtime import resolve_device
 from nerf_keras_tpu_torch.utils.checkpoint import (
     check_render_support,
     load_checkpoint,
-    save_params_npz,
+    models_bn,
+    models_to_jax,
+    save_checkpoint,
 )
 
 
@@ -75,17 +80,14 @@ def rgb_to_u8(rgb: torch.Tensor) -> torch.Tensor:
     return torch.clamp(255.0 * rgb, 0.0, 255.0).to(torch.uint8)
 
 
-def _to_jax(models: dict[str, nn.Module], grad: bool = False) -> dict:
-    """``{name: JAX-layout tree}`` of the models' parameters (or grads)."""
-    return {name: (proposal_to_jax(m, grad) if name == "proposal" else m.to_jax_params(grad))
-            for name, m in models.items()}
-
-
-def _load(models: dict[str, nn.Module], tree: dict) -> None:
-    """Copy a ``{name: JAX-layout tree}`` into the models, in place."""
+def _load(models: dict[str, nn.Module], tree: dict, bn: dict | None = None) -> None:
+    """Copy a ``{name: JAX-layout tree}`` (and, when given, the BatchNorm
+    models' ``{name: bn_state}``) into the models, in place."""
     for name, m in models.items():
         if name != "proposal":
             m.load_jax_params(tree[name])
+            if bn is not None and m.batch_norm:
+                m.load_bn_state(bn[name])
             continue
         nets = chain_nets(m)
         sub = tree[name]
@@ -184,9 +186,13 @@ class Trainer:
         come from the checkpoint when it has them, else Adam restarts."""
         ckpt = load_checkpoint(path)
         check_render_support(self.cfg, step=ckpt["step"])
-        _load(self.params, ckpt["params"])
+        if self.cfg.batch_norm and ckpt["bn"] is None:
+            raise KeyError(f"checkpoint at {path} has no BatchNorm statistics (.bn) "
+                           "for this BATCH_NORM config")
+        _load(self.params, ckpt["params"], ckpt["bn"])
         if self.ema is not None:
-            _load(self.ema, ckpt["ema"] if ckpt["ema"] is not None else ckpt["params"])
+            _load(self.ema, ckpt["ema"] if ckpt["ema"] is not None else ckpt["params"],
+                  ckpt["bn"])
         self.step = ckpt["step"]
         self.state.opt = self._new_optimizer()
         if ckpt["opt_state"] is not None:
@@ -207,40 +213,33 @@ class Trainer:
         opt.count = int(opt_state["count"])
 
     def save(self, path: str, scene: dict | None = None) -> None:
-        """Write params, EMA, step and the Adam state in the JAX key format."""
-        opt = self.state.opt
+        """Write params, EMA, BatchNorm statistics, step and the Adam state
+        in the JAX key format (:func:`save_checkpoint`)."""
+        save_checkpoint(path, self.state, self.cfg, scene=scene)
 
-        def moments(values: list[torch.Tensor]) -> dict:
-            shadow = {k: copy.deepcopy(m) for k, m in self.params.items()}
-            with torch.no_grad():
-                for p, v in zip(params_of(shadow), values):
-                    p.copy_(v)
-            return _to_jax(shadow)
-
-        save_params_npz(path, _to_jax(self.params), self.cfg, scene=scene,
-                        step=self.step,
-                        ema=_to_jax(self.ema) if self.ema is not None else None,
-                        opt_state={"count": opt.count, "mu": moments(opt.mu),
-                                   "nu": moments(opt.nu)})
-
-    def replace_params(self, params: dict) -> "Trainer":
+    def replace_params(self, params: dict, bn: dict | None = None) -> "Trainer":
         """Install externally built JAX-layout params (``{'coarse',
-        'fine'}`` or ``{'proposal', 'fine'}``).  With EMA on, the shadow
-        resets to the new params.  Adam's state is kept, as the JAX
-        ``Trainer.replace_params`` keeps ``opt_state``."""
-        _load(self.params, params)
+        'fine'}`` or ``{'proposal', 'fine'}``, and ``bn`` ``{'coarse',
+        'fine'}`` running statistics for BatchNorm models).  With EMA on,
+        the shadow resets to the new params.  Adam's state is kept, as the
+        JAX ``Trainer.replace_params`` keeps ``opt_state``."""
+        _load(self.params, params, bn)
         if self.ema is not None:
-            _load(self.ema, params)
+            _load(self.ema, params, bn)
         self._invalidate_derived()
         return self
 
     def params_tree(self, grad: bool = False) -> dict:
         """The params (or, with ``grad``, the last step's gradients) as
         ``{name: JAX-layout tree}`` of numpy arrays."""
-        return _to_jax(self.params, grad)
+        return models_to_jax(self.params, grad)
 
     def ema_tree(self) -> dict | None:
-        return None if self.ema is None else _to_jax(self.ema)
+        return None if self.ema is None else models_to_jax(self.ema)
+
+    def bn_tree(self) -> dict | None:
+        """The BatchNorm running statistics, ``{name: bn_state}``, or None."""
+        return models_bn(self.params)
 
     @property
     def eval_params(self) -> dict[str, nn.Module]:
@@ -265,13 +264,21 @@ class Trainer:
         return self._train_step(self.state, self.put_batch(batch), draws,
                                 self.generator)
 
-    def train_epoch(self, batches: Iterable) -> dict:
+    def train_epoch(self, batches: Iterable, log_every: int = 0) -> dict:
         """Run all batches; epoch-mean metrics as floats, fetched from the
-        device once at the end."""
+        device once at the end.  ``log_every > 0`` prints the step's
+        metrics every N steps (each print waits for the device)."""
         acc: dict[str, list] = {}
+        count = 0
         for batch in batches:
-            for k, v in self.train_step(batch).items():
+            metrics = self.train_step(batch)
+            for k, v in metrics.items():
                 acc.setdefault(k, []).append(v)
+            count += 1
+            if log_every and count % log_every == 0:
+                print(f"  step {self.step}: loss={float(metrics['loss']):.5f} "
+                      f"loss_coarse={float(metrics['loss_coarse']):.5f} "
+                      f"psnr={float(metrics['psnr']):.2f}")
         return _realize_means(acc)
 
     def eval_step(self, batch) -> dict:

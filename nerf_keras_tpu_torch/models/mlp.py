@@ -16,8 +16,23 @@ The plain path here emulates that by rounding the operands to
 ``runtime.py``), so the rounding sits exactly where the kernel's does:
 the encodings, each post-ReLU hidden, and the feature before the concat.
 
+The BatchNorm variant (``BATCH_NORM``; Dense -> BN -> ReLU in every
+trunk layer and the branch) is Keras' BatchNormalization at its defaults,
+as the JAX ``_batch_norm`` computes it: normalised over every axis but
+the last (all rays x samples of a pass), eps 1e-3, and in training the
+running statistics become ``0.99 old + 0.01 batch`` with the *biased*
+batch variance (``nn.BatchNorm1d`` would store the unbiased one, under
+the opposite momentum convention).  The running statistics are buffers
+of the module; ``forward(..., bn_train=True)`` normalises with the batch
+statistics and updates them, otherwise the running ones are used.  No
+kernel has a BatchNorm variant: BN models run this plain path on every
+device.
+
 Parameters carry across from the JAX pytree exactly
-(:meth:`NeRFMLP.from_jax_params`, :meth:`NeRFMLP.to_jax_params`).
+(:meth:`NeRFMLP.from_jax_params`, :meth:`NeRFMLP.to_jax_params`, with
+``gamma``/``beta`` in the BN layers; :meth:`NeRFMLP.bn_state` and
+:meth:`NeRFMLP.load_bn_state` for the running statistics, the JAX
+``bn_state`` layout).
 """
 
 from __future__ import annotations
@@ -70,6 +85,35 @@ def _glorot_linear(in_dim: int, out_dim: int, generator, device) -> nn.Linear:
     return layer
 
 
+BN_MOMENTUM = 0.99  # keras BatchNormalization default
+BN_EPS = 1e-3  # keras BatchNormalization default
+
+
+class KerasBatchNorm(nn.Module):
+    """Keras-default BatchNormalization over every axis but the last:
+    ``gamma``/``beta`` parameters, ``mean``/``var`` running buffers."""
+
+    def __init__(self, width: int, device=None):
+        super().__init__()
+        self.gamma = nn.Parameter(torch.ones(width, device=device))
+        self.beta = nn.Parameter(torch.zeros(width, device=device))
+        self.register_buffer("mean", torch.zeros(width, device=device))
+        self.register_buffer("var", torch.ones(width, device=device))
+
+    def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+        if train:
+            flat = x.reshape(-1, x.shape[-1])
+            mean = flat.mean(dim=0)
+            var = torch.square(flat - mean).mean(dim=0)  # biased, as jnp.var
+            with torch.no_grad():
+                self.mean.copy_(BN_MOMENTUM * self.mean + (1 - BN_MOMENTUM) * mean)
+                self.var.copy_(BN_MOMENTUM * self.var + (1 - BN_MOMENTUM) * var)
+        else:
+            mean, var = self.mean, self.var
+        inv = torch.rsqrt(var + BN_EPS) * self.gamma
+        return (x - mean) * inv + self.beta
+
+
 def _dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
     """``x @ w + b``: operands rounded to ``dtype``, float32 accumulation,
     float32 bias."""
@@ -93,11 +137,7 @@ class NeRFMLP(nn.Module):
         device=None,
     ):
         super().__init__()
-        if batch_norm:
-            raise NotImplementedError(
-                "BATCH_NORM=true is not ported yet: the BatchNorm MLP "
-                "variant arrives with the training slice in a later PR"
-            )
+        self.batch_norm = batch_norm
         self.num_layers = num_layers
         self.hidden_dim = hidden_dim
         self.skip_layer = skip_layer
@@ -116,19 +156,33 @@ class NeRFMLP(nn.Module):
         self.feature = lin(head_in, hidden_dim)
         self.branch = lin(hidden_dim + self.dir_dim, hidden_dim // 2)
         self.rgb = lin(hidden_dim // 2, 3)
+        if batch_norm:
+            self.trunk_bn = nn.ModuleList(
+                [KerasBatchNorm(hidden_dim, device) for _ in range(num_layers)])
+            self.branch_bn = KerasBatchNorm(hidden_dim // 2, device)
+
+    def bn_layers(self) -> list[KerasBatchNorm]:
+        """The BN modules by position: each trunk layer's, then the branch's."""
+        return [*self.trunk_bn, self.branch_bn] if self.batch_norm else []
 
     def heads(self) -> dict[str, nn.Linear]:
         """The non-trunk layers by their JAX pytree names."""
         return {"sigma": self.sigma, "feature": self.feature,
                 "branch": self.branch, "rgb": self.rgb}
 
-    def forward(self, x_enc: torch.Tensor, d_enc: torch.Tensor) -> torch.Tensor:
+    def forward(self, x_enc: torch.Tensor, d_enc: torch.Tensor,
+                bn_train: bool = False) -> torch.Tensor:
         """``(..., xyz_dim)`` and ``(..., dir_dim)`` encodings -> raw
-        ``(..., 4)`` float32 ``[rgb_logits, sigma]``."""
+        ``(..., 4)`` float32 ``[rgb_logits, sigma]``.  ``bn_train``: the BN
+        layers normalise with this pass's statistics and update their
+        running ones (ignored without BN)."""
         cd = self.compute_dtype
         x = x_enc
         for i, layer in enumerate(self.trunk):
-            h = torch.relu(_dense(x, layer, cd))
+            h = _dense(x, layer, cd)
+            if self.batch_norm:
+                h = self.trunk_bn[i](h, bn_train)
+            h = torch.relu(h)
             if is_skip(i, self.skip_layer):
                 x = torch.cat([h, x_enc.to(h.dtype)], dim=-1)
             else:
@@ -136,7 +190,10 @@ class NeRFMLP(nn.Module):
         sigma = _dense(x, self.sigma, cd)
         feature = _dense(x, self.feature, cd)
         feature = torch.cat([feature, d_enc.to(feature.dtype)], dim=-1)
-        h = torch.relu(_dense(feature, self.branch, cd))
+        h = _dense(feature, self.branch, cd)
+        if self.batch_norm:
+            h = self.branch_bn(h, bn_train)
+        h = torch.relu(h)
         rgb = _dense(h, self.rgb, cd)
         return torch.cat([rgb, sigma], dim=-1).to(torch.float32)
 
@@ -155,11 +212,16 @@ class NeRFMLP(nn.Module):
                 f"params have {len(params['trunk'])} trunk layers, the "
                 f"module {len(self.trunk)}"
             )
+        if ("gamma" in params["trunk"][0]) != self.batch_norm:
+            raise ValueError(
+                f"params {'carry' if not self.batch_norm else 'lack'} BatchNorm "
+                f"gamma/beta, the module has batch_norm={self.batch_norm}"
+            )
+        bn_srcs = [*params["trunk"], params["branch"]] if self.batch_norm else []
+        for src, bn in zip(bn_srcs, self.bn_layers()):
+            bn.gamma.copy_(torch.tensor(np.asarray(src["gamma"], np.float32)))
+            bn.beta.copy_(torch.tensor(np.asarray(src["beta"], np.float32)))
         for src, layer in pairs:
-            if "gamma" in src:
-                raise NotImplementedError(
-                    "BatchNorm params are not ported yet (later PR)"
-                )
             w = torch.tensor(np.asarray(src["w"], np.float32))
             b = torch.tensor(np.asarray(src["b"], np.float32))
             if tuple(w.shape) != tuple(layer.weight.shape[::-1]):
@@ -171,14 +233,35 @@ class NeRFMLP(nn.Module):
             layer.bias.copy_(b)
         return self
 
+    @torch.no_grad()
+    def load_bn_state(self, bn_state: dict) -> "NeRFMLP":
+        """Copy JAX-layout running statistics (``{'trunk': [{'mean',
+        'var'}...], 'branch': {...}}``) into the BN buffers."""
+        for src, bn in zip([*bn_state["trunk"], bn_state["branch"]], self.bn_layers()):
+            bn.mean.copy_(torch.tensor(np.asarray(src["mean"], np.float32)))
+            bn.var.copy_(torch.tensor(np.asarray(src["var"], np.float32)))
+        return self
+
+    @torch.no_grad()
+    def bn_state(self) -> dict | None:
+        """The running statistics in the JAX ``bn_state`` layout (float32
+        numpy), or None without BN."""
+        if not self.batch_norm:
+            return None
+        stats = [{"mean": bn.mean.float().cpu().numpy().copy(),
+                  "var": bn.var.float().cpu().numpy().copy()} for bn in self.bn_layers()]
+        return {"trunk": stats[:-1], "branch": stats[-1]}
+
     @classmethod
     def from_jax_params(
         cls, params: dict, skip_layer: int = 4,
         compute_dtype: torch.dtype = torch.bfloat16, device=None,
+        bn_state: dict | None = None,
     ) -> "NeRFMLP":
         """Build a module whose shapes come from a JAX params tree:
         ``l_xyz`` from the first layer's input width, ``l_dir`` from the
-        branch's."""
+        branch's, BatchNorm when the layers carry ``gamma`` (with
+        ``bn_state``'s running statistics, else the init ones)."""
         w0 = np.asarray(params["trunk"][0]["w"])
         hidden = w0.shape[1]
         l_xyz = (w0.shape[0] - 3) // 6
@@ -186,9 +269,11 @@ class NeRFMLP(nn.Module):
         mlp = cls(
             num_layers=len(params["trunk"]), hidden_dim=hidden,
             skip_layer=skip_layer, l_xyz=l_xyz, l_dir=l_dir,
+            batch_norm="gamma" in params["trunk"][0],
             compute_dtype=compute_dtype, device=device,
         )
-        return mlp.load_jax_params(params)
+        mlp.load_jax_params(params)
+        return mlp if bn_state is None else mlp.load_bn_state(bn_state)
 
     @torch.no_grad()
     def to_jax_params(self, grad: bool = False) -> dict:
@@ -203,6 +288,9 @@ class NeRFMLP(nn.Module):
 
         out = {"trunk": [dense(layer) for layer in self.trunk]}
         out.update({k: dense(layer) for k, layer in self.heads().items()})
+        for dst, bn in zip([*out["trunk"], out["branch"]], self.bn_layers()):
+            dst["gamma"] = val(bn.gamma).copy()
+            dst["beta"] = val(bn.beta).copy()
         return out
 
 

@@ -43,6 +43,7 @@ from nerf_keras_tpu_torch.ops.kernels.fused_render import (
     device_index,
     kernel_pack,
     launch_rows,
+    refuse_batch_norm,
     unpack_grads,
 )
 
@@ -193,6 +194,7 @@ def apply_nerf_mlp_fused(
     CPU tensors take :meth:`NeRFMLP.forward`.  CUDA tensors launch the
     kernels (bf16 MLPs only) or raise.
     """
+    refuse_batch_norm(mlp)
     if x_enc.device.type == "cpu":
         return mlp(x_enc, d_enc)
     lead = x_enc.shape[:-1]

@@ -327,6 +327,14 @@ class DwBuffers(NamedTuple):
         )
 
 
+def refuse_batch_norm(mlp: NeRFMLP) -> None:
+    """K1-K6 and their plain versions have no BatchNorm: a BN model must
+    take ``NeRFMLP.forward`` (``engine/step.py`` routes it there)."""
+    if getattr(mlp, "batch_norm", False):
+        raise ValueError("the ray and MLP kernels have no BatchNorm variant; "
+                         "BATCH_NORM models run the plain MLP")
+
+
 def _check_args(mlp: NeRFMLP, l_xyz: int, l_dir: int, skip_layer: int) -> None:
     if (l_xyz, l_dir, skip_layer) != (mlp.l_xyz, mlp.l_dir, mlp.skip_layer):
         raise ValueError(
@@ -637,6 +645,7 @@ def render_rays_fused(
     """
     if bwd_mode not in BWD_MODES:
         raise ValueError(f"unknown bwd_mode: {bwd_mode!r}")
+    refuse_batch_norm(mlp)
     if origins.device.type == "cpu":
         rgb, weights = render_rays_reference(
             mlp, origins, dirs, t_vals,
@@ -767,6 +776,7 @@ def apply_nerf_render_fused(
     CPU tensors take :func:`apply_nerf_render_reference`.  CUDA tensors
     launch the kernels (bf16 MLPs only) or raise.
     """
+    refuse_batch_norm(mlp)
     if x_enc.device.type == "cpu":
         return apply_nerf_render_reference(mlp, x_enc, d_enc, t_vals)
     params = list(mlp.parameters())

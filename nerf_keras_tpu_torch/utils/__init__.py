@@ -1,1 +1,2 @@
-"""Checkpoint IO, display conversions and PNG codec of the port."""
+"""Checkpoint IO, storage, images (resize, PNG codec, panels), metrics,
+history and profiling helpers of the port."""

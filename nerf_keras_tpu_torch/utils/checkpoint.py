@@ -10,7 +10,11 @@ reference's UPPERCASE schema, optionally carrying a ``SCENE`` record
 moments), which is optax's Adam state in the JAX package's checkpoints.
 A ``TRAIN_SAMPLER=proposal`` state carries ``{'proposal', 'fine'}``, the
 proposal tree as ``['proposal']['layers'][i]`` (one level) or
-``['proposal']['l1']...`` (two).
+``['proposal']['l1']...`` (two).  A ``BATCH_NORM`` state adds ``gamma``/
+``beta`` to the params' BN layers and the running statistics under
+``.bn['coarse']['trunk'][i]['mean']`` (and ``'var'``, ``['branch']``).
+:func:`save_checkpoint` writes a training state (the JAX
+``save_checkpoint``'s counterpart), named by :func:`checkpoint_name`.
 
 What the port does not render raises ``NotImplementedError``: the
 union-free proposal layout (``PROP_UNION=false``), ``NDC``, and a
@@ -19,6 +23,7 @@ frequency-anneal window that is not yet the identity.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import io
 import json
@@ -26,8 +31,10 @@ import os
 import re
 
 import numpy as np
+import torch
 
 from nerf_keras_tpu_torch.config import NeRFConfig, config_from_dict, to_reference_json
+from nerf_keras_tpu_torch.ops.proposal import proposal_to_jax
 
 _TOKEN = re.compile(r"\['([^']*)'\]|\[(\d+)\]|\.(\w+)")
 
@@ -82,12 +89,18 @@ def _flatten(tree, prefix: str) -> dict[str, np.ndarray]:
     return out
 
 
+def checkpoint_name(cfg: NeRFConfig) -> str:
+    """The reference's file name, ``nerf_l{L}_d{D}_n{NS}_ep{E}.ckpt.npz``."""
+    return (f"nerf_l{cfg.num_layers}_d{cfg.hidden_dim}"
+            f"_n{cfg.ns_coarse + cfg.ns_fine}_ep{cfg.epochs}.ckpt.npz")
+
+
 def load_checkpoint(path: str) -> dict:
-    """``{'params': {...}, 'ema': {...} or None, 'step': int,
-    'opt_state': {'count': int, 'mu': {...}, 'nu': {...}} or None}`` from a
-    ``.ckpt.npz``: the trees keep the JAX layout (numpy arrays).  The
-    optimizer state is Adam's (``.opt_state[0]``); a checkpoint without it
-    gives None."""
+    """``{'params': {...}, 'ema': {...} or None, 'bn': {...} or None,
+    'step': int, 'opt_state': {'count': int, 'mu': {...}, 'nu': {...}} or
+    None}`` from a ``.ckpt.npz``: the trees keep the JAX layout (numpy
+    arrays).  The optimizer state is Adam's (``.opt_state[0]``); a
+    checkpoint without it gives None."""
     with open(path, "rb") as f:
         data = np.load(io.BytesIO(f.read()))
     trees: dict = {}
@@ -97,20 +110,16 @@ def load_checkpoint(path: str) -> dict:
         head = path_parts[0]
         if head == "step":
             step = int(data[key])
-        elif head in ("params", "ema") or path_parts[:2] == ["opt_state", 0]:
+        elif head in ("params", "ema", "bn") or path_parts[:2] == ["opt_state", 0]:
             _insert(trees, path_parts, np.asarray(data[key]))
-        elif head == "bn" and data[key].size:
-            raise NotImplementedError(
-                "BatchNorm checkpoints are not ported yet (later PR)"
-            )
     if "params" not in trees:
         raise KeyError(f"checkpoint at {path} has no .params leaves")
     adam = trees.get("opt_state", [None])[0]
     opt_state = None
     if adam is not None and {"count", "mu", "nu"} <= set(adam):
         opt_state = {"count": int(adam["count"]), "mu": adam["mu"], "nu": adam["nu"]}
-    return {"params": trees["params"], "ema": trees.get("ema"), "step": step,
-            "opt_state": opt_state}
+    return {"params": trees["params"], "ema": trees.get("ema"), "bn": trees.get("bn"),
+            "step": step, "opt_state": opt_state}
 
 
 def _write_atomic(path: str, data: bytes) -> None:
@@ -130,6 +139,7 @@ def save_params_npz(
     step: int = 0,
     ema: dict | None = None,
     opt_state: dict | None = None,
+    bn: dict | None = None,
 ) -> None:
     """Write a checkpoint in the JAX key format, numpy only.
 
@@ -140,10 +150,13 @@ def save_params_npz(
     written as optax's state (``.opt_state[0]``, and the schedule's count
     at ``.opt_state[1]`` when ``cfg.lr_final`` is set), which the JAX
     package's restore requires; without it no optimizer state is written.
+    ``bn`` is ``{'coarse': bn_state, 'fine': bn_state}`` (BatchNorm).
     """
     arrays = _flatten(params, ".params")
     if ema is not None:
         arrays.update(_flatten(ema, ".ema"))
+    if bn is not None:
+        arrays.update(_flatten(bn, ".bn"))
     if opt_state is not None:
         count = np.asarray(opt_state["count"], dtype=np.int32)
         arrays[".opt_state[0].count"] = count
@@ -163,6 +176,45 @@ def save_params_npz(
             }
         _write_atomic(path + ".config.json", json.dumps(sidecar, indent=2).encode())
     _write_atomic(path, buf.getvalue())
+
+
+def models_to_jax(models: dict, grad: bool = False) -> dict:
+    """``{name: JAX-layout tree}`` of ``{name: module}`` (``NeRFMLP`` or the
+    proposal chain): the parameters, or with ``grad`` their gradients."""
+    return {name: (proposal_to_jax(m, grad) if name == "proposal" else m.to_jax_params(grad))
+            for name, m in models.items()}
+
+
+def models_bn(models: dict) -> dict | None:
+    """``{name: bn_state}`` of the BatchNorm models, or None without BN."""
+    bn = {name: m.bn_state() for name, m in models.items()
+          if getattr(m, "batch_norm", False)}
+    return bn or None
+
+
+def save_checkpoint(path: str, state, cfg: NeRFConfig | None = None,
+                    scene: dict | None = None) -> None:
+    """Write a training state (``engine.step.TrainState``: params, Adam's
+    count and moments, EMA, BatchNorm statistics, step) with the config
+    and ``scene`` sidecar, in the key format the JAX package's
+    ``load_checkpoint`` restores."""
+    from nerf_keras_tpu_torch.engine.step import params_of  # engine imports this module
+
+    def moments(values: list) -> dict:
+        # Adam's moments mirror the params: load them into a copy of the
+        # models and read that copy's trees.
+        shadow = {k: copy.deepcopy(m) for k, m in state.params.items()}
+        with torch.no_grad():
+            for p, v in zip(params_of(shadow), values):
+                p.copy_(v)
+        return models_to_jax(shadow)
+
+    opt = state.opt
+    opt_state = None if opt is None else {
+        "count": opt.count, "mu": moments(opt.mu), "nu": moments(opt.nu)}
+    save_params_npz(path, models_to_jax(state.params), cfg, scene=scene, step=state.step,
+                    ema=None if state.ema is None else models_to_jax(state.ema),
+                    opt_state=opt_state, bn=models_bn(state.params))
 
 
 def load_checkpoint_config(path: str) -> NeRFConfig:
@@ -198,8 +250,6 @@ def check_render_support(cfg: NeRFConfig, step: int | None = None) -> None:
         )
     if cfg.ndc:
         raise NotImplementedError("NDC rendering is not ported yet (later PR)")
-    if cfg.batch_norm:
-        raise NotImplementedError("BATCH_NORM=true is not ported yet (later PR)")
     horizon = cfg.freq_anneal_steps
     if step is not None and horizon > 0 and step < horizon:
         raise NotImplementedError(

@@ -3,7 +3,8 @@
 Encodes 8-bit grayscale, RGB and RGBA images (filter type 0 on every
 row).  Decodes 8-bit, non-interlaced grayscale, gray+alpha, RGB and RGBA
 PNGs with any of the five row filters, which covers what this package
-and PIL write.
+and PIL write; palette, 16-bit and interlaced files raise ``ValueError``.
+``to_rgba`` widens a decoded image as PIL's ``convert("RGBA")`` does.
 """
 
 from __future__ import annotations
@@ -112,3 +113,17 @@ def decode_png(data: bytes) -> np.ndarray:
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
     img = _unfilter(raw.reshape(h, 1 + w * c), c).reshape(h, w, c)
     return img[..., 0] if c == 1 else img
+
+
+def to_rgba(img: np.ndarray) -> np.ndarray:
+    """A decoded 8-bit image -> ``(H, W, 4)`` uint8, as PIL's
+    ``convert("RGBA")``: gray fills r, g and b; an absent alpha is 255."""
+    img = np.asarray(img)
+    if img.ndim == 2:
+        img = img[..., None]
+    c = img.shape[-1]
+    if c not in _CHANNEL_COLOR:
+        raise ValueError(f"unsupported image shape {img.shape}")
+    rgb = np.repeat(img[..., :1], 3, axis=-1) if c <= 2 else img[..., :3]
+    alpha = img[..., -1:] if c in (2, 4) else np.full(img.shape[:2] + (1,), 255, np.uint8)
+    return np.concatenate([rgb, alpha], axis=-1).astype(np.uint8)

@@ -1,0 +1,80 @@
+"""The per-eval panel PNG (counterpart of ``nerf_keras_tpu/utils/viz.save_panel``).
+
+The JAX package draws its pred/depth/loss panel with matplotlib.  The
+card's machine has neither matplotlib nor PIL, so the port composes the
+panel as an array in numpy and writes it with ``utils/png.encode_png``:
+one row per view, its rgb tile beside its normalised depth, and under
+the rows a strip with the loss curve drawn in.  The loss values
+themselves are kept in the history JSON.  Video and GIF writing are not
+ported yet (ROADMAP.md queue 1).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from nerf_keras_tpu_torch.utils import io
+from nerf_keras_tpu_torch.utils.image import normalize_depth, to_uint8
+from nerf_keras_tpu_torch.utils.png import encode_png
+
+_GAP = 2  # white pixels between tiles
+_INK = np.array([31, 119, 180], np.uint8)  # the curve
+_FRAME = np.array([160, 160, 160], np.uint8)
+
+
+def loss_strip(losses: list[float], height: int, width: int) -> np.ndarray:
+    """``(height, width, 3)`` uint8: the finite values of ``losses`` as a
+    polyline, first epoch at the left, the largest loss at the top, inside
+    a gray frame."""
+    img = np.full((height, width, 3), 255, np.uint8)
+    img[[0, -1], :] = _FRAME
+    img[:, [0, -1]] = _FRAME
+    v = np.asarray([x for x in losses if np.isfinite(x)], np.float64)
+    if v.size == 0 or height < 4 or width < 4:
+        return img
+    lo, hi = float(v.min()), float(v.max())
+    frac = (v - lo) / (hi - lo) if hi > lo else np.full_like(v, 0.5)
+    ys = np.round(1 + (1.0 - frac) * (height - 3)).astype(np.int64)
+    xs = (np.round(np.linspace(1, width - 2, v.size)).astype(np.int64) if v.size > 1
+          else np.array([width // 2]))
+    img[ys[0], xs[0]] = _INK
+    for (x0, y0), (x1, y1) in zip(zip(xs[:-1], ys[:-1]), zip(xs[1:], ys[1:])):
+        n = int(max(abs(x1 - x0), abs(y1 - y0))) + 1
+        img[np.round(np.linspace(y0, y1, n)).astype(np.int64),
+            np.round(np.linspace(x0, x1, n)).astype(np.int64)] = _INK
+    return img
+
+
+def panel(rgb, depth, losses: list[float]) -> np.ndarray:
+    """The panel as a uint8 ``(rows, cols, 3)`` array (see module docstring)."""
+    rgbs = rgb if isinstance(rgb, list) else [rgb]
+    depths = depth if isinstance(depth, list) else [depth]
+    rows = []
+    for im, dp in zip(rgbs, depths):
+        im = to_uint8(np.clip(np.asarray(im, np.float32), 0.0, 1.0))
+        dp = to_uint8(normalize_depth(dp))
+        gap = np.full((im.shape[0], _GAP, 3), 255, np.uint8)
+        rows.append(np.concatenate([im, gap, np.repeat(dp[..., None], 3, axis=-1)], axis=1))
+    width = max(r.shape[1] for r in rows)
+    strip_h = max(16, rows[0].shape[0] // 2)
+    parts = []
+    for r in rows + [loss_strip(losses, strip_h, width)]:
+        pad = np.full((r.shape[0], width - r.shape[1], 3), 255, np.uint8)
+        parts += [np.concatenate([r, pad], axis=1), np.full((_GAP, width, 3), 255, np.uint8)]
+    return np.concatenate(parts[:-1], axis=0)
+
+
+def save_panel(
+    path: str,
+    rgb: np.ndarray | list[np.ndarray],
+    depth: np.ndarray | list[np.ndarray],
+    losses: list[float],
+    epoch: int,
+    total_epochs: int,
+) -> None:
+    """Write the panel of one view or a list of views as a PNG at ``path``.
+    ``epoch`` and ``total_epochs`` name the panel in the JAX package's
+    titles; here the file name carries the epoch."""
+    del epoch, total_epochs
+    with io.open_file(path, "wb") as f:
+        f.write(encode_png(panel(rgb, depth, losses)))

@@ -95,37 +95,32 @@ def test_forward_matches_apply_nerf_mlp(dtype, atol, num_layers):
 def test_reference_golden_forward():
     """The TF-reference golden outputs (``ref_tiny_golden.npz``) are
     reproduced from the imported reference weights, to the fixture's own
-    tolerance (rtol/atol 2e-4, as tests/test_keras_import.py).  The
-    golden's BatchNorm half does not apply: BN is not ported, and raises."""
+    tolerance (rtol/atol 2e-4, as tests/test_keras_import.py): the plain
+    MLPs, and the BatchNorm ones in inference mode on their imported
+    running statistics."""
     from nerf_keras_tpu.utils.keras_import import import_reference_weights
 
     cfg = NeRFConfig(num_layers=6, hidden_dim=32, skip_layer=4, l_xyz=10,
                      l_dir=4, compute_dtype="float32")
-    params, _ = import_reference_weights(
-        os.path.join(FIXTURES, "ref_tiny_plain.weights.h5"), cfg
-    )
     golden = np.load(os.path.join(FIXTURES, "ref_tiny_golden.npz"))
-    for which in ("coarse", "fine"):
-        mlp = NeRFMLP.from_jax_params(
-            jax.tree_util.tree_map(np.asarray, params[which]),
-            skip_layer=4, compute_dtype=torch.float32,
+    for variant, batch_norm in (("plain", False), ("bn", True)):
+        params, bn = import_reference_weights(
+            os.path.join(FIXTURES, f"ref_tiny_{variant}.weights.h5"),
+            NeRFConfig(**{**cfg.__dict__, "batch_norm": batch_norm}),
         )
-        with torch.no_grad():
-            out = mlp(torch.as_tensor(golden["x_enc"]),
-                      torch.as_tensor(golden["d_enc"]))
-        np.testing.assert_allclose(out.numpy(), golden[f"out_{which}_plain"],
-                                   rtol=2e-4, atol=2e-4)
-
-    bn_cfg = NeRFConfig(**{**cfg.__dict__, "batch_norm": True})
-    bn_params, _ = import_reference_weights(
-        os.path.join(FIXTURES, "ref_tiny_bn.weights.h5"), bn_cfg
-    )
-    with pytest.raises(NotImplementedError, match="BatchNorm"):
-        NeRFMLP.from_jax_params(
-            jax.tree_util.tree_map(np.asarray, bn_params["fine"]), skip_layer=4
-        )
-    with pytest.raises(NotImplementedError, match="BATCH_NORM"):
-        NeRFMLP(num_layers=2, hidden_dim=16, batch_norm=True)
+        assert (bn is not None) == batch_norm
+        for which in ("coarse", "fine"):
+            mlp = NeRFMLP.from_jax_params(
+                jax.tree_util.tree_map(np.asarray, params[which]),
+                skip_layer=4, compute_dtype=torch.float32,
+                bn_state=None if bn is None else jax.tree_util.tree_map(np.asarray, bn[which]),
+            )
+            assert mlp.batch_norm == batch_norm
+            with torch.no_grad():
+                out = mlp(torch.as_tensor(golden["x_enc"]),
+                          torch.as_tensor(golden["d_enc"]))
+            np.testing.assert_allclose(out.numpy(), golden[f"out_{which}_{variant}"],
+                                       rtol=2e-4, atol=2e-4)
 
 
 def test_init_is_glorot_and_seeded():

@@ -42,6 +42,18 @@ def test_resolve_device_is_explicit_and_pins_fp32(monkeypatch):
 ])
 def test_render_refuses_unported_configs(field, value):
     # The proposal case is its union-free layout: the union layout renders.
+    if field == "batch_norm":
+        # BatchNorm renders (the plain MLP on every device); what both
+        # configs refuse with it is an explicit USE_PALLAS.
+        from nerf_keras_tpu_torch.config import NeRFConfig as PortConfig
+
+        for config in (NeRFConfig, PortConfig):
+            with pytest.raises(ValueError, match="incompatible with batch_norm"):
+                config(batch_norm=True, use_pallas=True).validate()
+        cfg = dataclasses.replace(CFG, batch_norm=True)
+        make_render_fn(cfg, 2.0, 6.0)
+        Trainer(cfg, 2.0, 6.0, device="cpu")
+        return
     extra = {"prop_union": False} if value == "proposal" else {}
     cfg = dataclasses.replace(CFG, **{field: value}, **extra)
     with pytest.raises(NotImplementedError, match="not ported"):
