@@ -122,7 +122,25 @@ nonzero — nothing falls back to the CPU or to a plain path):
     a tiny RGBA Blender scene this script writes (6 train and 2 val frames
     of 40x40) through ``cli.train_blender`` for 1 epoch at full width,
     batch 1024; (e) ``RenderService`` on (a)'s run dir serves a 100x100
-    val view from ``best.*`` (2 K1 launches), held to the ground truth.
+    val view from ``best.*`` (2 K1 launches), held to the ground truth;
+20. ``infer_cli``: the evaluation and inference CLIs and the server
+    in-process on (19a)'s run dir: (a) ``cli.evaluate --split val``, exactly
+    2 K1 launches per view (3 views of 100x100, one chunk each), a report
+    that beats a random-weight checkpoint's by 1 dB, view 0 against the
+    CPU path on every 40th ray (rgb 5e-3), ms per view; (b) ``--quant
+    int8``: 2 K4 per view, view 0 >= 30 dB of (a)'s; (c) ``--sampler
+    proposal --infer-cache``: the default distillation (1,500 x 16,384,
+    wall time, final loss below the first), 1 K1 per view, the cache saved,
+    and a second call that loads it and reports the same bits; the
+    distillation's device time against its wall time over 100 steps; (d)
+    ``--sampler proposal --quant int8``: 1 K4 per view; (e) ``cli.infer
+    --frames 8 --quant int8 --sampler proposal --depth-video`` on the cache
+    (the net loaded, the tables calibrated and saved): both gates, the
+    launches they imply, 8 frames and 8 depth frames, the frame ms, and one
+    frame's ms on each of float/int8 x coarse/proposal; (f) the server with
+    ``sampler='proposal'`` on the cache (no distillation, /stats reports
+    the sampler), then on a cache of the random weights (the stale notice,
+    the file overwritten).
 
 Each main path runs with the launch counters set to 0 just before it and
 read just after.  The line before the last is the kernel report
@@ -139,6 +157,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import sys
 import tempfile
@@ -165,6 +184,7 @@ from nerf_keras_tpu_torch.models.mlp import (
     randomize_biases_,
 )
 from nerf_keras_tpu_torch.ops.encoding import encode_position
+from nerf_keras_tpu_torch.ops.proposal import distill_proposal
 from nerf_keras_tpu_torch.ops.kernels import _build
 from nerf_keras_tpu_torch.ops.kernels import fused_mlp as k5
 from nerf_keras_tpu_torch.ops import quant
@@ -177,11 +197,17 @@ from nerf_keras_tpu_torch.exp_train_paths import counts
 from nerf_keras_tpu_torch.profile_train import bench_batch, bench_config, parity_config
 from nerf_keras_tpu_torch.runtime import cuda_ms, device_ms_by_kernel
 from nerf_keras_tpu_torch.serving import RenderService, serve
+from nerf_keras_tpu_torch.cli import evaluate as eval_cli
+from nerf_keras_tpu_torch.cli import infer as infer_cli
 from nerf_keras_tpu_torch.cli import train as train_cli
 from nerf_keras_tpu_torch.cli import train_blender, train_synthetic
 from nerf_keras_tpu_torch.data import native as native_batcher
 from nerf_keras_tpu_torch.profile_render import union_us
-from nerf_keras_tpu_torch.utils.checkpoint import checkpoint_name, save_params_npz
+from nerf_keras_tpu_torch.utils.checkpoint import (
+    checkpoint_name,
+    resolve_checkpoint,
+    save_params_npz,
+)
 from nerf_keras_tpu_torch.utils.image_metrics import frame_psnr
 from nerf_keras_tpu_torch.utils.metrics import History
 from nerf_keras_tpu_torch.utils.png import decode_png, encode_png
@@ -1682,9 +1708,14 @@ class _Tee(io.TextIOBase):
         self.out.flush()
 
 
-def _cli(main, argv: list[str]) -> tuple[Trainer, str, dict]:
+def _clean(launches: dict) -> dict:
+    """The kernel launches of a ``_cli`` count, without the batcher's."""
+    return {k: v for k, v in launches.items() if k != "native_batches"}
+
+
+def _cli(main, argv: list[str]) -> tuple[object, str, dict]:
     """One in-process CLI run with the counters set to 0 just before it:
-    (trainer, its stdout, the launches it made)."""
+    (what ``main`` returns, its stdout, the launches it made)."""
     tee = _Tee(sys.stdout)
     reset_counts()
     native_batcher.batches = 0
@@ -1766,8 +1797,9 @@ def _config_file(path: str, **changes) -> str:
     return path
 
 
-def phase_train_cli(card: str, tmp: str) -> list[dict]:
-    """Phase 19 (module docstring): the training CLI on the card, (a)-(e)."""
+def phase_train_cli(card: str, tmp: str) -> tuple[list[dict], str]:
+    """Phase 19 (module docstring): the training CLI on the card, (a)-(e);
+    returns the launches and (a)'s run directory."""
     cfg = load_config(CONFIG)
     run = os.path.join(tmp, "cli_run")
     base = ["--config", CONFIG, "--run-dir", run]
@@ -1893,7 +1925,258 @@ def phase_train_cli(card: str, tmp: str) -> list[dict]:
         raise RuntimeError(f"train_cli (e): the served val view reads {served_psnr} dB "
                            f"against the run's best val PSNR {best_val}")
     runs.append(launches)
-    return [{k: v for k, v in r.items() if k != "native_batches"} for r in runs]
+    return [_clean(r) for r in runs], run
+
+
+DISTILL_LINE = re.compile(r"distilled the proposal net: (\d+) steps of (\d+) points in "
+                          r"([\d.]+) s, loss (\S+) -> (\S+)")
+GATE_LINE = re.compile(r"\] (int8|proposal) gate (PASS|FAIL): (\S+) dB")
+FRAME_MS = re.compile(r"frame \d+/\d+ \(([\d.]+) ms\)")
+
+
+def _host_ms(fn, reps: int = 5) -> float:
+    """Median host milliseconds of ``fn()`` after one warm-up; ``fn`` ends in
+    a copy to the host, which waits for the card."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase_infer_cli(card: str, tmp: str, run: str) -> list[dict]:
+    """Phase 20 (module docstring): the evaluation and inference CLIs and
+    the server with the distilled sampler and the artifact cache, on the
+    run directory of ``train_cli`` (a), (a)-(f)."""
+    cfg = load_config(CONFIG)
+    views = 3  # the synthetic val split; 100x100 views are one chunk each
+    cache = os.path.join(tmp, "a.infer.npz")
+    base = ["--config", CONFIG, "--checkpoint", run, "--data", "synthetic",
+            "--split", "val"]
+    runs = []
+
+    def evaluate(tag: str, *extra: str) -> tuple[dict, str, dict, float]:
+        t0 = time.perf_counter()
+        report, out, launches = _cli(eval_cli.run_evaluation, base + [
+            "--out", os.path.join(tmp, f"eval_{tag}.json"),
+            "--save-images", os.path.join(tmp, f"eval_{tag}")] + list(extra))
+        launches = _clean(launches)
+        runs.append(launches)
+        return report, out, launches, time.perf_counter() - t0
+
+    def expect(part: str, launches: dict, **want) -> None:
+        if launches != dict(ZERO, **want):
+            raise RuntimeError(f"infer_cli ({part}): launched {launches}, expected {want}")
+
+    def pred(tag: str) -> np.ndarray:
+        with open(os.path.join(tmp, f"eval_{tag}", "val_000_pred.png"), "rb") as f:
+            return decode_png(f.read()).astype(np.float32) / 255.0
+
+    # (a) float, against a random-weight checkpoint of the same config and
+    # against the plain path on the CPU.
+    rep_a, _, launches, seconds = evaluate("a")
+    rnd_dir = os.path.join(tmp, "random_run")
+    os.makedirs(rnd_dir)
+    rnd_ckpt = os.path.join(rnd_dir, "random.ckpt.npz")
+    save_params_npz(rnd_ckpt, random_params(cfg, seed=0), cfg,
+                    scene={"near": 2.0, "far": 6.0, "focal": 1.2 * cfg.width})
+    rep_rnd, _, rnd_launches = _cli(eval_cli.run_evaluation, [
+        "--config", CONFIG, "--checkpoint", rnd_ckpt, "--out",
+        os.path.join(tmp, "eval_random.json")])
+    runs.append(_clean(rnd_launches))
+    ckpt = resolve_checkpoint(run)
+    _, val_ds, _, _ = train_synthetic.prepare(cfg.height, cfg.width)
+    o, d = val_ds.image_rays(0)
+    gpu = Trainer(cfg, 2.0, 6.0, device="cuda").restore(ckpt)
+    full = gpu.render_rays(o, d, keys=("rgb_fine",))["rgb_fine"]
+    view_ms = _host_ms(lambda: gpu.render_rays(o, d, keys=("rgb_fine",)))
+    idx = np.arange(0, o.shape[0], 40)
+    cpu = Trainer(cfg, 2.0, 6.0, device="cpu").restore(ckpt)
+    ref = cpu.render_rays(o[idx], d[idx], keys=("rgb_fine",))["rgb_fine"]
+    rgb_err = float(np.abs(full[idx] - ref).max())
+    view0_psnr = frame_psnr(val_ds.image(0), full.reshape(cfg.height, cfg.width, 3))
+    say("infer_cli_eval", part="a", launches=launches, seconds=seconds,
+        view_ms=view_ms, mean=rep_a["mean"], views=rep_a["views"],
+        random_mean=rep_rnd["mean"], view0_rgb_max_vs_cpu=rgb_err,
+        rays_checked=len(idx), tol_rgb=FRAME_TOL_RGB, card=card)
+    expect("a", launches, k1_fwd=2 * views)
+    if _clean(rnd_launches) != dict(ZERO, k1_fwd=2 * views):
+        raise RuntimeError(f"infer_cli (a): the random checkpoint launched {rnd_launches}")
+    if not rep_a["mean"]["psnr"] > rep_rnd["mean"]["psnr"] + 1.0:
+        raise RuntimeError(f"infer_cli (a): trained {rep_a['mean']} does not beat random "
+                           f"{rep_rnd['mean']}")
+    if rgb_err > FRAME_TOL_RGB or abs(view0_psnr - rep_a["views"][0]["psnr"]) > 1e-3:
+        raise RuntimeError(f"infer_cli (a): view 0 {rgb_err} from the CPU path, PSNR "
+                           f"{view0_psnr} against the report's {rep_a['views'][0]}")
+    del cpu
+    torch.cuda.empty_cache()
+
+    # (b) int8: K4 alone, view 0 within the server's gate of (a)'s.
+    rep_b, _, launches, seconds = evaluate("b", "--quant", "int8")
+    psnr_b = frame_psnr(pred("a"), pred("b"))
+    say("infer_cli_eval", part="b", launches=launches, seconds=seconds, mean=rep_b["mean"],
+        view0_psnr_vs_float_db=psnr_b, gate_db=QUANT_GATE_DB, card=card)
+    expect("b", launches, k4=2 * views)
+    if not psnr_b >= QUANT_GATE_DB:
+        raise RuntimeError(f"infer_cli (b): int8 view 0 at {psnr_b} dB of the float one")
+
+    # (c) the distilled sampler at its defaults, saved to the cache; the same
+    # call again loads it and gives the same report.
+    rep_c, out_c, launches, seconds = evaluate("c", "--sampler", "proposal",
+                                               "--infer-cache", cache)
+    m = DISTILL_LINE.search(out_c)
+    distill = None if m is None else {"steps": int(m[1]), "batch": int(m[2]),
+                                      "seconds": float(m[3]), "first_loss": float(m[4]),
+                                      "final_loss": float(m[5])}
+    rep_c2, out_c2, launches2, _ = evaluate("c2", "--sampler", "proposal",
+                                            "--infer-cache", cache)
+    say("infer_cli_eval", part="c", launches=launches, seconds=seconds, distill=distill,
+        mean=rep_c["mean"], float_mean=rep_a["mean"], saved=os.path.exists(cache),
+        second_call_launches=launches2, card=card)
+    expect("c", launches, k1_fwd=views)
+    expect("c, second call", launches2, k1_fwd=views)
+    if distill is None or (distill["steps"], distill["batch"]) != (1500, 16384) or not (
+            math.isfinite(distill["final_loss"])
+            and distill["final_loss"] < distill["first_loss"]):
+        raise RuntimeError(f"infer_cli (c): distillation {distill}")
+    if "saved inference artifacts" not in out_c or not os.path.exists(cache):
+        raise RuntimeError("infer_cli (c): the cache was not saved")
+    if f"loaded inference artifacts from {cache}" not in out_c2 or "distilled" in out_c2 \
+            or rep_c2["views"] != rep_c["views"]:
+        raise RuntimeError(f"infer_cli (c): the second call did not reuse the cache: "
+                           f"{rep_c2['views']} against {rep_c['views']}")
+
+    # Where the distillation's wall time goes: 100 steps, their device time
+    # (torch.profiler) against the host clock.
+    fine = gpu.eval_params["fine"]
+    o_t, d_t = torch.tensor(o, device=gpu.device), torch.tensor(d, device=gpu.device)
+
+    def distill_100():
+        distill_proposal(lambda p: fine.sigma_logits(encode_position(p, cfg.l_xyz).to(
+            fine.compute_dtype)), o_t, d_t, 2.0, 6.0, steps=100)
+
+    wall_ms = _host_ms(distill_100, reps=3)
+    dev_ms = device_ms_by_kernel(distill_100, {"gemm": ("gemm", "Gemm")})
+    say("infer_cli_distill_profile", steps=100, batch=16384, wall_ms=wall_ms,
+        device_ms=dev_ms["all"], gemm_device_ms=dev_ms["gemm"],
+        idle_share=1.0 - dev_ms["all"] / wall_ms, card=card)
+
+    # (d) int8 with the distilled sampler, on a copy of (c)'s cache.
+    cache_d = os.path.join(tmp, "d.infer.npz")
+    shutil.copyfile(cache, cache_d)
+    rep_d, out_d, launches, seconds = evaluate("d", "--sampler", "proposal", "--quant",
+                                               "int8", "--infer-cache", cache_d)
+    say("infer_cli_eval", part="d", launches=launches, seconds=seconds, mean=rep_d["mean"],
+        card=card)
+    expect("d", launches, k4=views)
+    if "distilled" in out_d:
+        raise RuntimeError("infer_cli (d): distilled again instead of loading the cache")
+
+    # (e) the inference CLI: loads the net, calibrates, saves both; the
+    # gates decide the launches.
+    video = os.path.join(tmp, "e.mp4")
+    t0 = time.perf_counter()
+    written, out_e, launches = _cli(infer_cli.run_inference, [
+        "--config", CONFIG, "--checkpoint", run, "--frames", "8", "--quant", "int8",
+        "--sampler", "proposal", "--infer-cache", cache, "--depth-video", "--out", video])
+    seconds = time.perf_counter() - t0
+    launches = _clean(launches)
+    runs.append(launches)
+    gates = {g[0]: {"decision": g[1], "psnr_db": float(g[2])}
+             for g in GATE_LINE.findall(out_e)}
+    q = gates.get("int8", {}).get("decision") == "PASS"
+    s = gates.get("proposal", {}).get("decision") == "PASS"
+    per_frame = 1 if s else 2
+    want = dict(k1_fwd=2 + (0 if q else 3 + 8 * per_frame),
+                k4=2 + (3 + 8 * per_frame if q else 0))
+    frame_ms = [float(x) for x in FRAME_MS.findall(out_e)]
+    # An mp4 each where imageio has an ffmpeg backend, else PNG directories.
+    depth = video.rsplit(".", 1)[0] + ("_depth.mp4" if written.endswith(".mp4")
+                                       else "_depth_frames")
+    counts_written = [len(os.listdir(p)) if os.path.isdir(p) else int(os.path.exists(p))
+                      for p in (written, depth)]
+    trainer = Trainer(cfg, 2.0, 6.0, device="cuda").restore(ckpt)
+    trainer.load_inference_artifacts(cache)
+    pose = infer_cli.spherical_poses(8)[3]
+    focal = 1.2 * max(cfg.height, cfg.width)
+    paths = {}
+    for quant_ in (False, True):
+        for sampler in ("coarse", "proposal"):
+            paths[f"{'int8' if quant_ else 'float'}/{sampler}"] = _host_ms(
+                lambda: trainer.render_image(pose, cfg.height, cfg.width, focal,
+                                             quant=quant_, sampler=sampler,
+                                             uint8_rgb=True, need_depth=False))
+    say("infer_cli_infer", part="e", launches=launches, expected=dict(ZERO, **want),
+        gates=gates, seconds=seconds, frame_ms=frame_ms,
+        median_frame_ms=statistics.median(frame_ms) if frame_ms else None,
+        frame_ms_by_path=paths, written=os.path.basename(written),
+        files=counts_written, card=card)
+    if len(gates) != 2 or launches != dict(ZERO, **want):
+        raise RuntimeError(f"infer_cli (e): gates {gates}, launched {launches}, "
+                           f"expected {want}")
+    if "loaded inference artifacts" not in out_e or "distilled" in out_e \
+            or "saved inference artifacts" not in out_e:
+        raise RuntimeError("infer_cli (e): the net was not loaded, or the tables not saved")
+    if not (trainer.quant_ready and trainer.proposal_ready):
+        raise RuntimeError("infer_cli (e): the saved cache lacks the tables or the net")
+    if len(frame_ms) != 8 or written.endswith(".mp4") != os.path.isfile(written) \
+            or counts_written not in ([1, 1], [8, 8]):
+        raise RuntimeError(f"infer_cli (e): frames {frame_ms}, written {counts_written}")
+    del trainer, gpu
+    torch.cuda.empty_cache()
+
+    # (f) the server on the same cache: no distillation; then a cache of the
+    # random weights is ignored with the notice and overwritten.
+    tee = _Tee(sys.stdout)
+    reset_counts()
+    with contextlib.redirect_stdout(tee):
+        service = RenderService(cfg, run, device="cuda", sampler="proposal",
+                                infer_cache=cache)
+    server = serve(service, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        base_url = f"http://127.0.0.1:{server.server_address[1]}"
+        png, latency = _get(f"{base_url}/render?theta=10&phi=-30&radius=4")
+        stats = json.loads(_get(f"{base_url}/stats")[0])
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    launches = counts()
+    runs.append(launches)
+    out_f = tee.buf.getvalue()
+    frame = 1 if service.use_sampler == "proposal" else 2
+    say("infer_cli_serve", part="f", launches=launches, sampler=stats["sampler"],
+        gate_psnr_db=service.sampler_gate_psnr, latency_s=latency,
+        shape=list(decode_png(png).shape), card=card)
+    expect("f", launches, k1_fwd=2 + 1 + frame)
+    if f"loaded inference artifacts from {cache}" not in out_f or "distilled" in out_f \
+            or stats["sampler"] != service.use_sampler:
+        raise RuntimeError(f"infer_cli (f): {stats}; {out_f}")
+    stale = os.path.join(tmp, "stale.infer.npz")
+    rnd = Trainer(cfg, 2.0, 6.0, device="cuda").restore(rnd_ckpt)
+    rnd.quantize_for_inference(o, d)
+    rnd.save_inference_artifacts(stale)
+    before = np.load(stale)["__digest__"].item()
+    tee = _Tee(sys.stdout)
+    reset_counts()
+    with contextlib.redirect_stdout(tee):
+        service = RenderService(cfg, run, device="cuda", sampler="proposal",
+                                proposal_steps=200, infer_cache=stale)
+    launches = counts()
+    runs.append(launches)
+    out_f = tee.buf.getvalue()
+    after = np.load(stale)["__digest__"].item()
+    say("infer_cli_serve", part="f_stale", launches=launches, sampler=service.use_sampler,
+        digest_before=before[:12], digest_after=after[:12], card=card)
+    expect("f, stale cache", launches, k1_fwd=3)
+    if "ignoring artifact cache" not in out_f or "saved inference artifacts" not in out_f \
+            or after != service.trainer.infer_digest() or after == before:
+        raise RuntimeError(f"infer_cli (f): the stale cache was not replaced: {out_f}")
+    return runs
 
 
 def _sum(runs: list[dict], key: str) -> int:
@@ -1937,7 +2220,10 @@ def main() -> None:
         runs += phase_paths(card)
         runs.append(phase_pdf_frame(card, ckpt))
         torch.cuda.empty_cache()
-        runs += phase_train_cli(card, tmp)
+        cli_runs, run_dir = phase_train_cli(card, tmp)
+        runs += cli_runs
+        torch.cuda.empty_cache()
+        runs += phase_infer_cli(card, tmp, run_dir)
     # Library yardsticks measured once and shared where two kernels do the
     # same products at the same M: K1's per-layer bf16 matmul at M = 4096 x
     # 192 is K5's forward at N = 786,432 and K6's forward at S=192; K2's dW

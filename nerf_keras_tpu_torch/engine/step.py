@@ -110,11 +110,12 @@ class Adam:
     with the incremented count, ``p += -lr * mu_hat / (sqrt(nu_hat) + eps)``.
     With ``LR_FINAL`` the learning rate is optax's ``exponential_decay``
     read at the count before the update (0 for the first), clipped at
-    ``LR_FINAL``."""
+    ``LR_FINAL``.  ``eps`` is the training step's; the offline proposal
+    distillation takes optax's default 1e-8."""
 
-    b1, b2, eps = 0.9, 0.999, 1e-7
+    b1, b2 = 0.9, 0.999
 
-    def __init__(self, params: list[torch.Tensor], cfg: NeRFConfig):
+    def __init__(self, params: list[torch.Tensor], cfg: NeRFConfig, eps: float = 1e-7):
         if cfg.lr_final is not None and cfg.lr_decay_steps <= 0:
             raise ValueError(
                 "LR_FINAL is set but LR_DECAY_STEPS is unresolved (0): direct "
@@ -122,6 +123,7 @@ class Adam:
             )
         self.params = params
         self.cfg = cfg
+        self.eps = eps
         self.mu = [torch.zeros_like(p) for p in params]
         self.nu = [torch.zeros_like(p) for p in params]
         self.count = 0

@@ -15,9 +15,22 @@ a trainer that only serves never checks the training knobs.
 
 int8 inference: ``quantize_for_inference`` calibrates the eval weights on
 given rays and installs the int8 tables; ``render_rays(quant=True)`` and
-``render_image(quant=True)`` then run every MLP pass through K4.  The
-tables are a snapshot of the weights: ``restore``, ``replace_params`` and
-``train_step`` drop them (``quant_ready`` turns false).
+``render_image(quant=True)`` then run every MLP pass through K4.
+
+The distilled proposal sampler (coarse-trained models):
+``build_proposal_sampler`` fits a tiny density net to the eval fine
+model's density (``ops/proposal.distill_proposal``) on given rays;
+``render_rays(sampler='proposal')`` then places the fine samples with it
+and renders one fine pass (K1, or K4 with ``quant``), with no coarse pass.
+On a proposal-trained model every render already uses its own proposal
+nets, and ``sampler='proposal'`` changes nothing.
+
+The int8 tables and the distilled net are snapshots of the weights:
+``restore``, ``replace_params`` and ``train_step`` drop them
+(``quant_ready``/``proposal_ready`` turn false).  ``save_inference_
+artifacts`` and ``load_inference_artifacts`` keep them in an
+``.infer.npz`` keyed by ``infer_digest`` (``utils/infer_cache.py``, the
+JAX package's format), so another process skips the rebuild.
 
 ``restore``/``save`` read and write the JAX package's ``.ckpt.npz`` key
 format: ``save`` writes params, EMA, BatchNorm statistics, step and the
@@ -34,6 +47,7 @@ state pairs the EMA params with the trained ``bn``).
 from __future__ import annotations
 
 import copy
+import time
 from typing import Iterable
 
 import numpy as np
@@ -53,14 +67,20 @@ from nerf_keras_tpu_torch.engine.step import (
     params_of,
 )
 from nerf_keras_tpu_torch.models.mlp import NeRFMLP
+from nerf_keras_tpu_torch.ops.encoding import encode_position
 from nerf_keras_tpu_torch.ops.proposal import (
+    ProposalMLP,
     chain_nets,
+    distill_proposal,
     init_proposal_chain,
+    proposal_to_jax,
 )
 from nerf_keras_tpu_torch.ops.quant import (
     calibrate_render,
     calibrate_render_proposal,
     mlp_tree,
+    qparams_from_jax,
+    qparams_to_jax,
     quantize_render_params,
 )
 from nerf_keras_tpu_torch.ops.rays import get_rays
@@ -71,6 +91,11 @@ from nerf_keras_tpu_torch.utils.checkpoint import (
     models_bn,
     models_to_jax,
     save_checkpoint,
+)
+from nerf_keras_tpu_torch.utils.infer_cache import (
+    load_artifacts,
+    params_digest,
+    save_artifacts,
 )
 
 
@@ -97,6 +122,19 @@ def _load(models: dict[str, nn.Module], tree: dict, bn: dict | None = None) -> N
                              f"the config {len(nets)}")
         for net, t in zip(nets, trees):
             net.load_jax_params(t)
+
+
+def _subsample(origins, directions, n: int, seed: int):
+    """At most ``n`` rays (numpy or tensors on any device) as ``(N, 3)``
+    float32 numpy, drawn without replacement by
+    ``np.random.default_rng(seed)`` as the JAX package draws them."""
+    origins, directions = (
+        np.asarray(x.detach().cpu() if torch.is_tensor(x) else x, np.float32).reshape(-1, 3)
+        for x in (origins, directions))
+    if origins.shape[0] > n:
+        idx = np.random.default_rng(seed).choice(origins.shape[0], n, replace=False)
+        origins, directions = origins[idx], directions[idx]
+    return origins, directions
 
 
 def _tree_to(tree, device):
@@ -160,7 +198,7 @@ class Trainer:
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
         self._train_step = self._eval_step = self._render_full = None
         self._render = make_render_fn(cfg, self.near, self.far)
-        self._qparams = self._render_q = None
+        self._invalidate_derived()
 
     def _new_optimizer(self):
         return make_optimizer(self.cfg, params_of(self.params))
@@ -174,10 +212,13 @@ class Trainer:
         self.state.step = value
 
     def _invalidate_derived(self) -> None:
-        """Drop the weight-derived int8 tables: they were calibrated for
-        the weights they were built from, and a server must never render
-        stale scales after new weights arrive."""
+        """Drop the weight-derived int8 tables and distilled proposal net:
+        each is a function of the weights it was built from, and a server
+        must never render stale ones after new weights arrive."""
         self._qparams = self._render_q = None
+        self._pparams = self._render_p = self._render_pq = None
+        self._prop_l_xyz = self._distill_loss = None
+        self.distill_losses: list[float] = []
 
     def restore(self, path: str) -> "Trainer":
         """Load a ``.ckpt.npz`` (JAX key format) into this trainer.  With
@@ -310,16 +351,7 @@ class Trainer:
             raise ValueError("int8 inference has no BatchNorm variant; use the float "
                              "path for BN configs")
 
-        def host(x):
-            if torch.is_tensor(x):
-                x = x.detach().cpu()
-            return np.asarray(x, np.float32).reshape(-1, 3)
-
-        origins, directions = host(origins), host(directions)
-        if origins.shape[0] > calib_rays:
-            idx = np.random.default_rng(seed).choice(origins.shape[0], calib_rays,
-                                                     replace=False)
-            origins, directions = origins[idx], directions[idx]
+        origins, directions = _subsample(origins, directions, calib_rays, seed)
         o = torch.tensor(origins, device=self.device)
         d = torch.tensor(directions, device=self.device)
         models = self.eval_params
@@ -364,6 +396,142 @@ class Trainer:
         """The installed int8 tables, or None."""
         return self._qparams
 
+    # ------------------------------------------------------------------
+    def build_proposal_sampler(
+        self, origins, directions, *, calib_rays: int = 65536, steps: int = 1500,
+        batch: int = 16384, hidden: int = 64, depth: int = 3, l_xyz: int = 4,
+        lr: float = 2e-3, under_weight: float = 4.0, seed: int = 0,
+    ) -> "Trainer":
+        """Distill the eval fine model's density (the EMA shadow when on)
+        into a proposal net (:func:`distill_proposal`) and install it for
+        ``render_rays(sampler='proposal')``.  Pass rays from several poses
+        of the render path: a frustum the net never saw is one it can only
+        extrapolate into.  More than ``calib_rays`` rays are subsampled as
+        :meth:`quantize_for_inference` does.  Gate the result against the
+        coarse sampler (PSNR) before serving it, as the CLIs do."""
+        if self.proposal:
+            raise ValueError(
+                "TRAIN_SAMPLER='proposal' checkpoints already carry their proposal net "
+                "in the train state, and every render uses it; post-training "
+                "distillation is only for coarse-trained models")
+        if self.cfg.batch_norm:
+            raise ValueError("the proposal sampler has no BatchNorm variant; use the "
+                             "coarse sampler for BN configs")
+        if self.cfg.ns_fine <= 0:
+            raise ValueError("the proposal sampler places fine samples; ns_fine must "
+                             "be positive")
+        origins, directions = _subsample(origins, directions, calib_rays, seed)
+        fine = self.eval_params["fine"]
+        cdt = fine.compute_dtype
+
+        def sigma_fn(pts):
+            return fine.sigma_logits(encode_position(pts, self.cfg.l_xyz).to(cdt))
+
+        losses: list[float] = []
+        t0 = time.perf_counter()
+        net, final_loss = distill_proposal(
+            sigma_fn, torch.tensor(origins, device=self.device),
+            torch.tensor(directions, device=self.device), self.near, self.far,
+            l_xyz=l_xyz, hidden=hidden, depth=depth, steps=steps, batch=batch, lr=lr,
+            under_weight=under_weight,
+            generator=torch.Generator(device=self.device).manual_seed(seed),
+            losses_out=losses)
+        print(f"[nerf-torch] distilled the proposal net: {steps} steps of {batch} points "
+              f"in {time.perf_counter() - t0:.3f} s, loss {losses[0]:.6g} -> {final_loss:.6g}")
+        self._install_proposal(net, l_xyz)
+        self._distill_loss = final_loss
+        self.distill_losses = losses
+        return self
+
+    def _install_proposal(self, pparams, l_xyz: int) -> None:
+        """Install a distilled net (a :class:`ProposalMLP` or its JAX-layout
+        tree) and build the proposal render; the int8 one is built at its
+        first use."""
+        if not isinstance(pparams, ProposalMLP):
+            pparams = ProposalMLP.from_jax_params(pparams, device=self.device)
+        if pparams.l_xyz != l_xyz:
+            raise ValueError(f"the proposal net encodes L_XYZ {pparams.l_xyz}, not {l_xyz}")
+        self._pparams = pparams.to(self.device).requires_grad_(False)
+        self._prop_l_xyz = l_xyz
+        self._render_pq = None
+        self._render_p = make_proposal_render_fn(self.cfg, self.near, self.far,
+                                                 prop_l_xyz=l_xyz)
+
+    @property
+    def online_proposal(self) -> bool:
+        """True for ``TRAIN_SAMPLER='proposal'`` models: the proposal nets
+        live in the train state and every render uses them."""
+        return self.proposal
+
+    @property
+    def proposal_ready(self) -> bool:
+        """True when proposal-sampled renders are available: always for a
+        proposal-trained model, else once a net is distilled from (or
+        loaded for) the current weights."""
+        return self.proposal or self._pparams is not None
+
+    def infer_digest(self) -> str:
+        """The digest of the eval weights and the config fields the int8
+        tables and the distilled net depend on (the JAX package's, so one
+        checkpoint gives the same hex string in both)."""
+        # The JAX package hashes its eval params with the frequency-anneal
+        # window folded in.  The port renders no checkpoint inside the
+        # window (check_render_support), where the fold is the identity;
+        # once ops/freq_anneal.py is ported, fold before hashing.
+        return params_digest(models_to_jax(self.eval_params), extra={
+            "skip_layer": self.cfg.skip_layer, "l_xyz": self.cfg.l_xyz,
+            "l_dir": self.cfg.l_dir, "compute_dtype": self.cfg.compute_dtype})
+
+    def save_inference_artifacts(self, path: str) -> "Trainer":
+        """Write whatever int8 tables and distilled net are installed,
+        keyed to the current weights (:func:`save_artifacts`)."""
+        if self._qparams is None and self._pparams is None:
+            raise RuntimeError("nothing to save: run quantize_for_inference and/or "
+                               "build_proposal_sampler first")
+        save_artifacts(
+            path, self.infer_digest(),
+            pparams=None if self._pparams is None else proposal_to_jax(self._pparams),
+            prop_l_xyz=self._prop_l_xyz, distill_loss=self._distill_loss,
+            qparams=None if self._qparams is None else qparams_to_jax(self._qparams))
+        return self
+
+    def load_inference_artifacts(self, path: str) -> "Trainer":
+        """Install what :meth:`save_inference_artifacts` wrote (by either
+        package).  Raises ``StaleArtifactsError`` when it was derived from
+        other weights or config: a stale acceleration is never installed."""
+        if self.cfg.batch_norm:
+            raise ValueError("inference artifacts have no BatchNorm variant; use the "
+                             "float coarse path for BN configs")
+        art = load_artifacts(path, self.infer_digest())
+        if "qparams" in art:
+            self.install_quant(qparams_from_jax(art["qparams"]))
+        if "pparams" in art:
+            if self.cfg.ns_fine <= 0:
+                raise ValueError("the proposal sampler places fine samples; ns_fine "
+                                 "must be positive")
+            self._install_proposal(art["pparams"], art["prop_l_xyz"])
+            self._distill_loss = art.get("distill_loss")
+        return self
+
+    def _proposal_render_fn(self, quant: bool):
+        """The distilled-sampler render for :meth:`render_rays`: the fine
+        pass through K1 on the eval fine model, or through K4 on the int8
+        tables with ``quant``."""
+        if self._pparams is None:
+            raise RuntimeError("call build_proposal_sampler(...) before rendering with "
+                               "sampler='proposal'")
+        prop = self._pparams
+        if not quant:
+            return lambda models, o, d: self._render_p(prop, models["fine"], o, d)
+        if self._qparams is None:
+            raise RuntimeError("call quantize_for_inference(...) before rendering with "
+                               "sampler='proposal' and quant=True")
+        if self._render_pq is None:
+            self._render_pq = make_proposal_render_fn(
+                self.cfg, self.near, self.far, prop_l_xyz=self._prop_l_xyz, quant=True)
+        qfine = self._qparams["fine"]
+        return lambda models, o, d: self._render_pq(prop, qfine, o, d)
+
     def pose_rays(
         self, pose: np.ndarray, height: int, width: int, focal: float
     ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -382,6 +550,7 @@ class Trainer:
         uint8_rgb: bool = False,
         full: bool = False,
         quant: bool = False,
+        sampler: str = "coarse",
     ) -> dict[str, np.ndarray]:
         """Render a flat ray batch in fixed-size chunks.
 
@@ -396,7 +565,13 @@ class Trainer:
         weights and their sorted t-values), as the JAX ``Trainer`` gives.
         ``quant`` renders through the int8 tables
         (:meth:`quantize_for_inference` first; rgb/depth only).
+        ``sampler='proposal'`` places the fine samples with the distilled
+        net (:meth:`build_proposal_sampler` first; fine rgb/depth only,
+        with or without ``quant``); on a proposal-trained model it is the
+        default render.
         """
+        if sampler not in ("coarse", "proposal"):
+            raise ValueError(f"sampler must be 'coarse' or 'proposal', got {sampler!r}")
         requested = set(keys or ())
         want_weights = self.proposal and bool(requested & {"weights_fine", "t_fine"})
         if self.proposal and (full or requested - {"rgb_fine", "depth_fine",
@@ -410,7 +585,15 @@ class Trainer:
         if quant and want_weights:
             raise ValueError("quant=True supports rgb/depth outputs only (weights_fine/t_fine "
                              "are not on the int8 render path)")
-        if quant:
+        if sampler == "proposal" and not self.proposal:
+            if full or "t_fine" in requested:
+                raise ValueError("sampler='proposal' renders rgb/depth fine only (the "
+                                 "weights/preds maps are not wired for the distilled sampler)")
+            if any(k.endswith("_coarse") for k in requested):
+                raise ValueError("sampler='proposal' has no coarse outputs (the proposal "
+                                 "net replaces the coarse MLP pass)")
+            render = self._proposal_render_fn(quant)
+        elif quant:
             if full:
                 raise ValueError("quant=True supports rgb/depth outputs only (the int8 "
                                  "kernel does not emit weights/raw preds)")
@@ -460,12 +643,16 @@ class Trainer:
         self, pose: np.ndarray, height: int, width: int, focal: float,
         chunk: int = 16384, include_coarse: bool = False,
         uint8_rgb: bool = False, need_depth: bool = True, quant: bool = False,
+        sampler: str = "coarse",
     ) -> dict[str, np.ndarray]:
         """Render one frame from a camera pose; returns HxW maps (the
         proposal render has no coarse maps).  ``quant``: every MLP pass
-        through the int8 tables."""
+        through the int8 tables; ``sampler``: as :meth:`render_rays`."""
         if include_coarse and self.proposal:
             raise ValueError("TRAIN_SAMPLER=proposal renders no coarse pass")
+        if include_coarse and sampler == "proposal":
+            raise ValueError("no coarse outputs: the proposal sampler replaces the "
+                             "coarse pass")
         origins, dirs = self.pose_rays(pose, height, width, focal)
         if include_coarse:
             keys = None
@@ -474,7 +661,7 @@ class Trainer:
         else:
             keys = ("rgb_fine",)
         out = self.render_rays(origins, dirs, chunk=chunk, keys=keys,
-                               uint8_rgb=uint8_rgb, quant=quant)
+                               uint8_rgb=uint8_rgb, quant=quant, sampler=sampler)
         result = {"rgb": out["rgb_fine"].reshape(height, width, 3)}
         if "depth_fine" in out:
             result["depth"] = out["depth_fine"].reshape(height, width)

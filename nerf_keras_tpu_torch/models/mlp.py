@@ -197,6 +197,23 @@ class NeRFMLP(nn.Module):
         rgb = _dense(h, self.rgb, cd)
         return torch.cat([rgb, sigma], dim=-1).to(torch.float32)
 
+    def sigma_logits(self, x_enc: torch.Tensor) -> torch.Tensor:
+        """Density only: the trunk and the sigma head on ``(..., xyz_dim)``
+        encodings, raw ``(...,)`` float32 logits before the ReLU (the
+        JAX ``apply_nerf_sigma``).  Sigma reads the trunk before the
+        direction concat, so the feature, branch and rgb products are
+        skipped.  The proposal distillation is its one caller, and it has
+        no BatchNorm variant."""
+        if self.batch_norm:
+            raise ValueError("the density-only pass has no BatchNorm variant (the "
+                             "proposal sampler needs a model without BATCH_NORM)")
+        cd = self.compute_dtype
+        x = x_enc
+        for i, layer in enumerate(self.trunk):
+            h = torch.relu(_dense(x, layer, cd))
+            x = torch.cat([h, x_enc.to(h.dtype)], dim=-1) if is_skip(i, self.skip_layer) else h
+        return _dense(x, self.sigma, cd)[..., 0].to(torch.float32)
+
     # ------------------------------------------------------------------
     # The JAX params pytree: {'trunk': [{'w','b'}...], 'sigma', 'feature',
     # 'branch', 'rgb'}, w laid out (in, out) — nn.Linear keeps (out, in).

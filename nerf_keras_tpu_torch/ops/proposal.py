@@ -1,13 +1,16 @@
-"""The online proposal sampler: tiny density nets that place the fine samples.
+"""Proposal samplers: tiny density nets that place the fine samples.
 
-Counterpart of ``nerf_keras_tpu/ops/proposal.py`` (the online-training
-half; offline ``distill_proposal`` is not ported yet).  With
+Counterpart of ``nerf_keras_tpu/ops/proposal.py``.  With
 ``TRAIN_SAMPLER=proposal`` a small MLP on Fourier-encoded positions
 replaces the 8x256 coarse model: its compositing weights drive the
 inverse-CDF draw of the fine samples, and it learns by distilling the
 fine pass's (detached) weight histogram (:func:`interlevel_loss`).  Two
 levels stack two nets (Mip-NeRF 360's chain): the second re-bins at the
 union of the uniform grid and stratified draws from the first.
+
+Offline, :func:`distill_proposal` fits one such net to a trained coarse
+model's fine density after training, so that inference can place the fine
+samples without the coarse MLP pass (``Trainer.build_proposal_sampler``).
 
 The nets are plain float32 PyTorch (tiny products; the TF32 switch is off,
 ``runtime.py``).  Parameters carry across from the JAX layout
@@ -166,6 +169,83 @@ def interlevel_loss(w_prop: torch.Tensor, w_target: torch.Tensor,
     mean over rays."""
     excess = torch.relu(w_target - w_prop)
     return torch.mean(torch.sum(excess * excess / (w_prop + eps), dim=-1))
+
+
+def distill_proposal(
+    sigma_fn: Callable[[torch.Tensor], torch.Tensor],
+    origins: torch.Tensor,
+    directions: torch.Tensor,
+    near: float,
+    far: float,
+    *,
+    l_xyz: int = 4,
+    hidden: int = 64,
+    depth: int = 3,
+    steps: int = 1500,
+    batch: int = 16384,
+    lr: float = 2e-3,
+    under_weight: float = 4.0,
+    generator: torch.Generator | None = None,
+    draws: dict | None = None,
+    losses_out: list | None = None,
+) -> tuple[ProposalMLP, float]:
+    """Fit a :class:`ProposalMLP` to a trained model's density (the JAX
+    ``distill_proposal``).
+
+    ``sigma_fn(pts (N, 3)) -> (N,)`` raw sigma logits of the trained fine
+    model.  Each step draws ``batch`` (ray, t) pairs from the given rays,
+    ``t ~ U(near, far)``, and regresses ``log1p(relu(sigma))`` (the
+    compressed density) with ``mean(w * err^2)``, ``w = under_weight``
+    where the net under-predicts: missing mass starves the surface of
+    fine samples, excess mass only wastes a few.  Adam at optax's
+    defaults (eps 1e-8, not the training optimizer's 1e-7).
+
+    ``generator`` (on the rays' device) draws the init and every step's
+    rays and t-values, all on the device before the loop, so the loop
+    never waits for the host.  ``draws = {'idx': (steps, batch) int64,
+    't': (steps, batch) f32, 'init': JAX-layout proposal tree}`` replaces
+    them (tests replay the JAX package's ``jax.random`` draws).
+    ``losses_out``, when given, receives every step's loss.  Returns
+    ``(net, final_loss)``, the loss of the last step.
+    """
+    from nerf_keras_tpu_torch.config import NeRFConfig
+    from nerf_keras_tpu_torch.engine.step import Adam  # the engine imports this module
+
+    dev = origins.device
+    origins = origins.to(torch.float32).reshape(-1, 3).contiguous()
+    directions = directions.to(device=dev, dtype=torch.float32).reshape(-1, 3).contiguous()
+    if draws is None:
+        if generator is None:
+            generator = torch.Generator(device=dev).manual_seed(0)
+        init_gen = torch.Generator().manual_seed(generator.initial_seed())
+        net = ProposalMLP(l_xyz, hidden, depth, generator=init_gen, device=dev)
+        idx = torch.randint(0, origins.shape[0], (steps, batch), generator=generator,
+                            device=dev)
+        t = torch.rand((steps, batch), generator=generator, device=dev) * (far - near) + near
+    else:
+        net = ProposalMLP.from_jax_params(draws["init"], device=dev)
+        idx = torch.tensor(np.asarray(draws["idx"], np.int64), device=dev)
+        t = torch.tensor(np.asarray(draws["t"], np.float32), device=dev)
+        if tuple(idx.shape) != (steps, batch) or tuple(t.shape) != (steps, batch):
+            raise ValueError(f"draws are {tuple(idx.shape)}/{tuple(t.shape)}, the "
+                             f"run needs ({steps}, {batch})")
+    params = list(net.parameters())
+    opt = Adam(params, NeRFConfig(learning_rate=lr), eps=1e-8)
+    losses = []
+    for s in range(steps):
+        ray = idx[s]
+        pts = origins[ray] + directions[ray] * t[s][:, None]
+        with torch.no_grad():
+            target = torch.log1p(torch.relu(sigma_fn(pts)))
+        err = net(encode_position(pts, net.l_xyz)) - target
+        w = torch.where(err < 0, under_weight, 1.0)
+        loss = torch.mean(w * err * err)
+        opt.step(list(torch.autograd.grad(loss, params)))
+        losses.append(loss.detach())
+    losses = torch.stack(losses).cpu()
+    if losses_out is not None:
+        losses_out.extend(losses.tolist())
+    return net.requires_grad_(False), float(losses[-1])
 
 
 def anneal_exponent(step: int, anneal_steps: int) -> float:

@@ -334,3 +334,15 @@ def qparams_from_jax(tree, device=None):
     arr = np.asarray(tree)
     dtype = torch.int8 if arr.dtype == np.int8 else torch.float32
     return torch.tensor(arr, device=device).to(dtype)
+
+
+def qparams_to_jax(tree):
+    """The inverse of :func:`qparams_from_jax`: the port's qparams as host
+    numpy in the same nested layout (the JAX package's), int8 kept, every
+    other leaf float32."""
+    if isinstance(tree, dict):
+        return {k: qparams_to_jax(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [qparams_to_jax(v) for v in tree]
+    arr = tree.detach().cpu().numpy()
+    return arr if arr.dtype == np.int8 else arr.astype(np.float32)

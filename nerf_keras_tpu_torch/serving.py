@@ -3,7 +3,8 @@
 checkpoint, rendering through K1 on the card.
 
     python -m nerf_keras_tpu_torch.serving --config config/lego_batch_h256_tpu.json \
-        --checkpoint models/<run> --device cuda --port 8042 [--quant int8]
+        --checkpoint models/<run> --device cuda --port 8042 [--quant int8] \
+        [--sampler proposal] [--infer-cache models/<run>/model.infer.npz]
 
     GET /render?theta=30&phi=-30&radius=4&width=200&height=200  -> PNG
     GET /render?...&map=depth        -> normalized depth map as PNG
@@ -18,11 +19,18 @@ K1; ``--quant int8`` calibrates int8 tables at startup (and at every
 ``/reload``), gates the int8 render against the float one on the default
 pose (``--quant-gate-db``, PSNR) and, when it passes, renders every frame
 through K4; when it fails the server says so and serves the float path,
-as the JAX server does.  ``--sampler proposal`` on a proposal-trained
-checkpoint (``TRAIN_SAMPLER=proposal``) serves unchanged, since every
-render already places its samples with the checkpoint's proposal nets;
-on a coarse-trained one it asks for the offline-distilled sampler, which
-is not ported yet and raises.
+as the JAX server does.  ``--sampler proposal`` on a coarse-trained
+checkpoint distills a proposal net from the fine model on the same orbit
+(``--proposal-steps``), gates its render of the default pose against the
+coarse sampler's at the quant setting already decided
+(``--sampler-gate-db``) and, when it passes, renders every frame with one
+fine pass (K1, or K4 with int8) and no coarse pass.  On a proposal-trained
+checkpoint (``TRAIN_SAMPLER=proposal``) it serves unchanged, since every
+render already places its samples with the checkpoint's proposal nets.
+``--infer-cache`` keeps the int8 tables and the distilled net in an
+``.infer.npz`` keyed to the weights (``utils/infer_cache.py``): a start
+loads it when it matches, ignores it with a notice when it does not, and
+saves it when anything new was built.
 """
 
 from __future__ import annotations
@@ -46,6 +54,7 @@ from nerf_keras_tpu_torch.utils.checkpoint import (
 )
 from nerf_keras_tpu_torch.utils.image_metrics import accuracy_gate
 from nerf_keras_tpu_torch.utils.image import normalize_depth, to_uint8
+from nerf_keras_tpu_torch.utils.infer_cache import load_if_fresh
 from nerf_keras_tpu_torch.utils.png import encode_png
 
 
@@ -57,14 +66,20 @@ class RenderService:
         near: float | None = None, far: float | None = None,
         device: str | None = None,
         quant: bool = False, quant_gate_db: float = 30.0,
-        sampler: str = "coarse",
+        sampler: str = "coarse", sampler_gate_db: float = 30.0,
+        proposal_steps: int = 1500, infer_cache: str | None = None,
     ):
         if sampler not in ("coarse", "proposal"):
             raise ValueError(f"sampler must be 'coarse' or 'proposal', got {sampler!r}")
         self._sampler_requested = sampler
+        self._sampler_gate_db = sampler_gate_db
+        self._proposal_steps = proposal_steps
+        self._infer_cache = infer_cache
         self._quant_requested = quant
         self._quant_gate_db = quant_gate_db
         self.use_quant = False
+        self.use_sampler = "coarse"
+        self.sampler_gate_psnr: float | None = None
         self.quant_gate_psnr: float | None = None
         self._arg_checkpoint = checkpoint
         self._arg_cfg = cfg
@@ -96,15 +111,6 @@ class RenderService:
         cfg, notes = resolve_infer_config(self._arg_cfg, checkpoint)
         for note in notes:
             print(f"[nerf-torch] {note}")
-        if self._sampler_requested == "proposal":
-            if cfg.train_sampler != "proposal":
-                raise NotImplementedError(
-                    "--sampler proposal on a coarse-trained checkpoint is not yet "
-                    "ported (the offline-distilled proposal sampler, ROADMAP.md "
-                    "queue 1 item 4, arrives in a later PR)"
-                )
-            print("[nerf-torch] proposal-trained checkpoint: renders already use "
-                  "the in-state proposal nets")
         if (
             self.trainer is not None
             and cfg == self.cfg
@@ -119,20 +125,42 @@ class RenderService:
         self.checkpoint = checkpoint
         self.cfg = cfg
         self.near, self.far = near, far
+        # The artifact cache holds functions of the weights: a file of other
+        # weights is ignored with a notice, and the build below overwrites it.
+        cache = self._infer_cache
+        load_if_fresh(self.trainer, cache)
+        pre = (self.trainer.quant_ready, self.trainer.proposal_ready)
         self.use_quant = False
         if self._quant_requested:
             self.use_quant = self._setup_quant(self._quant_gate_db)
+        self.use_sampler = "coarse"
+        if self._sampler_requested == "proposal" and self.trainer.online_proposal:
+            print("[nerf-torch] proposal-trained checkpoint: renders already use "
+                  "the in-state proposal nets")
+        elif self._sampler_requested == "proposal":
+            self.use_sampler = self._setup_proposal(self._sampler_gate_db,
+                                                    self._proposal_steps)
+        post = (self.trainer.quant_ready, self.trainer.proposal_ready)
+        if cache and post != pre and any(post):
+            self.trainer.save_inference_artifacts(cache)
+            print(f"[nerf-torch] saved inference artifacts to {cache}")
 
-    def _setup_quant(self, gate_db: float) -> bool:
-        """Calibrate the int8 render on an orbit of 8 serving poses at the
-        config's frame size and gate it against the float render of the
-        default pose (PSNR); False (serve float) when the gate fails."""
-        h, w = self.cfg.height, self.cfg.width
-        focal = self.default_focal or 1.2 * max(h, w)
+    def _orbit_rays(self, h: int, w: int, focal: float) -> tuple[torch.Tensor, torch.Tensor]:
+        """The rays of an orbit of 8 serving poses at the config's frame
+        size, where the int8 tables are calibrated and the proposal net
+        distilled."""
         calib = [self.trainer.pose_rays(pose_spherical(theta, -30.0, 4.0), h, w, focal)
                  for theta in range(0, 360, 45)]
-        self.trainer.quantize_for_inference(torch.cat([c[0] for c in calib]),
-                                            torch.cat([c[1] for c in calib]))
+        return torch.cat([c[0] for c in calib]), torch.cat([c[1] for c in calib])
+
+    def _setup_quant(self, gate_db: float) -> bool:
+        """Calibrate the int8 render on the orbit (unless the cache gave the
+        tables) and gate it against the float render of the default pose
+        (PSNR); False (serve float) when the gate fails."""
+        h, w = self.cfg.height, self.cfg.width
+        focal = self.default_focal or 1.2 * max(h, w)
+        if not self.trainer.quant_ready:
+            self.trainer.quantize_for_inference(*self._orbit_rays(h, w, focal))
         pose = pose_spherical(0.0, -30.0, 4.0)
         ref = self.trainer.render_image(pose, h, w, focal)["rgb"]
         q = self.trainer.render_image(pose, h, w, focal, quant=True)["rgb"]
@@ -140,10 +168,29 @@ class RenderService:
                                                  "serving the float path")
         return ok
 
+    def _setup_proposal(self, gate_db: float, steps: int) -> str:
+        """Distill the proposal net on the orbit (unless the cache gave it)
+        and gate its render of the default pose against the coarse
+        sampler's, at the quant setting already decided; the sampler to
+        serve."""
+        h, w = self.cfg.height, self.cfg.width
+        focal = self.default_focal or 1.2 * max(h, w)
+        if not self.trainer.proposal_ready:
+            self.trainer.build_proposal_sampler(*self._orbit_rays(h, w, focal), steps=steps)
+        pose = pose_spherical(0.0, -30.0, 4.0)
+        ref = self.trainer.render_image(pose, h, w, focal, quant=self.use_quant)["rgb"]
+        p = self.trainer.render_image(pose, h, w, focal, quant=self.use_quant,
+                                      sampler="proposal")["rgb"]
+        ok, self.sampler_gate_psnr = accuracy_gate(ref, p, gate_db,
+                                                   "serving proposal sampler",
+                                                   "serving the coarse sampler")
+        return "proposal" if ok else "coarse"
+
     def reload(self) -> dict:
         """Re-resolve the original checkpoint request and install the
-        newest checkpoint (hot reload); with ``quant`` the int8 tables are
-        calibrated and gated again for the new weights."""
+        newest checkpoint (hot reload); the int8 tables and the distilled
+        net (as requested) are built, or loaded from the cache, and gated
+        again for the new weights."""
         with self._lock:
             previous = self.checkpoint
             self._install()
@@ -153,7 +200,7 @@ class RenderService:
                 "checkpoint": self.checkpoint,
                 "changed": self.checkpoint != previous,
                 "quant": "int8" if self.use_quant else "none",
-                "sampler": "coarse",
+                "sampler": self.use_sampler,
             }
 
     def render_png(
@@ -179,7 +226,7 @@ class RenderService:
                 pose, height, width, focal, chunk=chunk,
                 uint8_rgb=(map_name == "rgb"),
                 need_depth=(map_name == "depth"),
-                quant=self.use_quant,
+                quant=self.use_quant, sampler=self.use_sampler,
             )
             self.total_render_s += time.perf_counter() - t0
             self.requests += 1
@@ -197,7 +244,7 @@ class RenderService:
                 self.total_render_s / self.requests if self.requests else 0.0
             ),
             "quant": "int8" if self.use_quant else "none",
-            "sampler": "coarse",
+            "sampler": self.use_sampler,
             "reloads": self.reloads,
             "device": str(self.trainer.device),
         }
@@ -286,19 +333,29 @@ def main(argv=None) -> None:
     p.add_argument("--quant-gate-db", type=float, default=30.0)
     p.add_argument("--sampler", type=str, default="coarse",
                    choices=("coarse", "proposal"),
-                   help="proposal: a proposal-trained checkpoint serves unchanged; "
-                        "the offline-distilled sampler (coarse-trained "
-                        "checkpoints) is not yet ported")
+                   help="proposal: serve with a proposal net distilled from the fine "
+                        "model (no coarse pass), PSNR-gated against the coarse "
+                        "sampler at startup; a proposal-trained checkpoint serves "
+                        "unchanged")
+    p.add_argument("--sampler-gate-db", type=float, default=30.0)
+    p.add_argument("--proposal-steps", type=int, default=1500)
+    p.add_argument("--infer-cache", type=str, default=None,
+                   help="an .infer.npz of int8 tables and the distilled proposal "
+                        "net: loaded when it matches the checkpoint's weights "
+                        "(sha256), else rebuilt and saved there")
     args = p.parse_args(argv)
     service = RenderService(
         load_config(args.config), args.checkpoint, args.near, args.far,
         device=args.device, quant=args.quant == "int8",
         quant_gate_db=args.quant_gate_db, sampler=args.sampler,
+        sampler_gate_db=args.sampler_gate_db, proposal_steps=args.proposal_steps,
+        infer_cache=args.infer_cache,
     )
     server = serve(service, args.port, args.host)
     print(f"[nerf-torch] serving {service.checkpoint} on "
           f"http://{args.host}:{args.port} ({service.trainer.device}, "
-          f"quant={'int8' if service.use_quant else 'none'})")
+          f"quant={'int8' if service.use_quant else 'none'}, "
+          f"sampler={service.use_sampler})")
     try:
         server.serve_forever()
     finally:

@@ -1,12 +1,18 @@
-"""The per-eval panel PNG (counterpart of ``nerf_keras_tpu/utils/viz.save_panel``).
+"""PNG frames, videos and the per-eval panel (counterpart of
+``nerf_keras_tpu/utils/viz.py``).
 
 The JAX package draws its pred/depth/loss panel with matplotlib.  The
 card's machine has neither matplotlib nor PIL, so the port composes the
 panel as an array in numpy and writes it with ``utils/png.encode_png``:
 one row per view, its rgb tile beside its normalised depth, and under
 the rows a strip with the loss curve drawn in.  The loss values
-themselves are kept in the history JSON.  Video and GIF writing are not
-ported yet (ROADMAP.md queue 1).
+themselves are kept in the history JSON.
+
+Videos go through ``imageio`` with an ffmpeg backend, as in the JAX
+package, where both import.  Where they do not (the card's machine has
+neither imageio nor PIL, so the JAX package's GIF fallback is not
+available), :func:`write_video` writes the frames as numbered PNGs into a
+directory beside the requested path instead.
 """
 
 from __future__ import annotations
@@ -15,7 +21,7 @@ import numpy as np
 
 from nerf_keras_tpu_torch.utils import io
 from nerf_keras_tpu_torch.utils.image import normalize_depth, to_uint8
-from nerf_keras_tpu_torch.utils.png import encode_png
+from nerf_keras_tpu_torch.utils.png import decode_png, encode_png
 
 _GAP = 2  # white pixels between tiles
 _INK = np.array([31, 119, 180], np.uint8)  # the curve
@@ -78,3 +84,46 @@ def save_panel(
     del epoch, total_epochs
     with io.open_file(path, "wb") as f:
         f.write(encode_png(panel(rgb, depth, losses)))
+
+
+def save_png(path: str, img: np.ndarray) -> None:
+    """Write a uint8 ``(H, W, 3)`` image as a PNG."""
+    with io.open_file(path, "wb") as f:
+        f.write(encode_png(np.asarray(img)))
+
+
+def write_video(path: str, frames: list[np.ndarray], fps: int = 30) -> str:
+    """Encode frames to an mp4 at ``path`` (``imageio.mimwrite``, the
+    reference's writer) and return the path written.  Without imageio or
+    an ffmpeg backend the frames go to ``<path stem>_frames/000.png``, ...,
+    and that directory is returned."""
+    if not frames:
+        raise ValueError(f"write_video({path!r}): no frames to encode")
+    frames = [to_uint8(f) for f in frames]
+    try:
+        import imageio.v2 as imageio
+
+        imageio.mimwrite(path, frames, fps=fps, quality=7, macro_block_size=None)
+        return path
+    except (ImportError, OSError, ValueError) as e:
+        # No ffmpeg backend (or no imageio): PNG frames; anything else
+        # should surface, not degrade.
+        out_dir = path.rsplit(".", 1)[0] + "_frames"
+        print(f"[nerf-torch] mp4 encoder unavailable ({e}); writing PNG frames to {out_dir}")
+        io.makedirs(out_dir)
+        for i, frame in enumerate(frames):
+            save_png(io.join(out_dir, f"{i:03d}.png"), frame)
+        return out_dir
+
+
+def frames_to_video(image_dir: str, out_path: str, fps: int = 30) -> str:
+    """Encode the PNGs of a directory, in name order, as a video (the
+    training-progress video of the reference's ``visualization.py``)."""
+    names = [n for n in io.listdir(image_dir) if n.endswith(".png")]
+    if not names:
+        raise FileNotFoundError(f"no PNG frames found under {image_dir}")
+    frames = []
+    for name in sorted(names):
+        with io.open_file(io.join(image_dir, name), "rb") as f:
+            frames.append(decode_png(f.read()))
+    return write_video(out_path, frames, fps=fps)

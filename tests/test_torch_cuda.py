@@ -669,3 +669,71 @@ def test_k7_checks_its_inputs(dev):
         k7.sample_pdf_union(t, t.double(), 4)
     with pytest.raises(ValueError, match="u_sorted"):
         k7.sample_pdf_union(t, t, 4, u_sorted=torch.rand((8, 5), device=dev))
+
+
+# ---------------------------------------------------------------------------
+# The distilled proposal sampler and the evaluation CLI on the card.
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_proposal_render_on_card_matches_cpu(dev, tmp_path, quant):
+    """``sampler='proposal'`` at full width: one K1 launch per chunk (one
+    K4 with ``quant``) and nothing else, against the plain path on the CPU
+    with the same net and tables: rgb TOL_MAX, depth 2e-2."""
+    cfg = NeRFConfig(num_layers=8, hidden_dim=256, ns_coarse=64, ns_fine=128,
+                     height=16, width=16).validate()
+    path = str(tmp_path / "p.ckpt.npz")
+    save_params_npz(path, random_params(cfg, seed=0), cfg)
+    pose = pose_spherical(45.0, -30.0, 4.0)
+    gpu = Trainer(cfg, 2.0, 6.0, device="cuda").restore(path)
+    o, d = gpu.pose_rays(pose, 16, 16, 19.2)
+    gpu.build_proposal_sampler(o, d, steps=50, batch=4096)
+    if quant:
+        gpu.quantize_for_inference(o, d)
+    before = (k1.launches, k4.launches, k5.launches, k7.launches)
+    out = gpu.render_image(pose, 16, 16, 19.2, chunk=100, quant=quant, sampler="proposal")
+    grew = (k1.launches, k4.launches, k5.launches, k7.launches)
+    assert tuple(a - b for a, b in zip(grew, before)) == ((0, 3) if quant else (3, 0)) + (0, 0)
+    cpu = Trainer(cfg, 2.0, 6.0, device="cpu").restore(path)
+    cpu._install_proposal(gpu._pparams.to_jax_params(), 4)
+    if quant:
+        cpu.install_quant(gpu.qparams)
+    ref = cpu.render_image(pose, 16, 16, 19.2, chunk=100, quant=quant, sampler="proposal")
+    assert np.isfinite(out["rgb"]).all() and np.isfinite(out["depth"]).all()
+    assert np.abs(out["rgb"] - ref["rgb"]).max() <= TOL_MAX
+    assert np.abs(out["depth"] - ref["depth"]).max() <= 2e-2
+
+
+def test_distill_on_card_learns(dev, tmp_path):
+    """The default distillation (1,500 steps of 16,384 points) at full
+    width: finite losses, the last below the first."""
+    cfg = NeRFConfig(num_layers=8, hidden_dim=256, ns_coarse=64, ns_fine=128,
+                     height=32, width=32).validate()
+    path = str(tmp_path / "d.ckpt.npz")
+    save_params_npz(path, random_params(cfg, seed=1), cfg)
+    gpu = Trainer(cfg, 2.0, 6.0, device="cuda").restore(path)
+    o, d = gpu.pose_rays(pose_spherical(0.0, -30.0, 4.0), 32, 32, 38.4)
+    gpu.build_proposal_sampler(o, d)
+    losses = gpu.distill_losses
+    assert len(losses) == 1500 and np.isfinite(losses).all()
+    assert losses[-1] < losses[0]
+
+
+def test_run_evaluation_on_card(dev, tmp_path):
+    """``cli.evaluate`` without ``--device`` on the card: the synthetic val
+    split at 100x100 (3 views, one chunk each), two K1 launches a view."""
+    import json
+
+    from nerf_keras_tpu_torch.cli.evaluate import run_evaluation
+
+    cfg = NeRFConfig(num_layers=8, hidden_dim=256, ns_coarse=64, ns_fine=128,
+                     height=100, width=100).validate()
+    cfg_path = tmp_path / "c.json"
+    cfg_path.write_text(json.dumps({"NUM_LAYERS": 8, "HIDDEN_DIM": 256, "NS_COARSE": 64,
+                                    "NS_FINE": 128, "HEIGHT": 100, "WIDTH": 100}))
+    path = str(tmp_path / "e.ckpt.npz")
+    save_params_npz(path, random_params(cfg, seed=2), cfg, scene={"near": 2.0, "far": 6.0})
+    before = (k1.launches, k4.launches, k5.launches)
+    report = run_evaluation(["--config", str(cfg_path), "--checkpoint", path])
+    assert (k1.launches - before[0], k4.launches - before[1], k5.launches - before[2]) == (
+        2 * 3, 0, 0)
+    assert len(report["views"]) == 3 and np.isfinite(report["mean"]["psnr"])

@@ -8,8 +8,8 @@
   compositing over t-values that agree to ~1e-5, ``test_torch_train.py``),
   t_fine atol 1e-4 (``sample_pdf`` in another summation order).
 * ``RenderService(sampler="proposal")`` serves a proposal-trained
-  checkpoint unchanged, as the JAX server does; on a coarse-trained one it
-  still raises (the offline-distilled sampler is not ported).
+  checkpoint unchanged, as the JAX server does; what the distilled sampler
+  of coarse-trained ones does not cover still raises.
 """
 
 import jax
@@ -101,10 +101,22 @@ def test_sampler_proposal_serves_a_proposal_checkpoint_unchanged(tmp_path):
 
 
 def test_sampler_proposal_on_a_coarse_checkpoint_still_raises(tmp_path):
+    """What the distilled sampler does not cover raises, as in the JAX
+    package: an unknown sampler, BatchNorm models and ``ns_fine=0`` (the
+    sampler places fine samples).  A coarse-trained checkpoint without
+    those serves with it (tests/test_torch_serving.py)."""
     cfg = _cfg("coarse")
     path = _checkpoint(tmp_path, cfg)
     RenderService(cfg, path, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 4"):
-        RenderService(cfg, path, device="cpu", sampler="proposal")
     with pytest.raises(ValueError, match="sampler"):
         RenderService(cfg, path, device="cpu", sampler="distilled")
+    bn = _cfg("coarse", batch_norm=True)
+    bn_dir = tmp_path / "bn"
+    bn_dir.mkdir()
+    bn_path = _checkpoint(bn_dir, bn)
+    with pytest.raises(ValueError, match="BatchNorm"):
+        RenderService(bn, bn_path, device="cpu", sampler="proposal",
+                      proposal_steps=2)
+    with pytest.raises(ValueError, match="ns_fine"):
+        RenderService(_cfg("coarse", ns_fine=0), path, device="cpu", sampler="proposal",
+                      proposal_steps=2)

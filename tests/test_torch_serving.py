@@ -130,13 +130,96 @@ def test_reload_picks_up_a_newer_checkpoint(tmp_path):
     assert not np.array_equal(decode_png(svc.render_png(**kw)), first)
 
 
-@pytest.mark.parametrize("kwargs", [{"quant": True, "sampler": "proposal"},
-                                    {"sampler": "proposal"}])
-def test_unported_modes_raise(ckpt, kwargs):
-    """The offline-distilled proposal sampler is not ported yet, with or
-    without int8 (``--quant int8`` alone: tests/test_torch_quant.py)."""
-    with pytest.raises(NotImplementedError, match="not yet ported.*later PR"):
-        RenderService(CFG, ckpt, device="cpu", **kwargs)
+@pytest.fixture(scope="module")
+def dense_ckpt(tmp_path_factory):
+    """A checkpoint of a denser field than the init (sigma biases +1, noise
+    on every leaf): at the init's sigma of 0 the 1e10 terminal delta makes
+    int8 and proposal frames jump (tests/test_torch_quant.py)."""
+    jt = JaxTrainer(CFG, 2.0, 6.0)
+    rng = np.random.default_rng(3)
+
+    def bump(path, x):
+        x = np.asarray(x) + rng.normal(size=x.shape).astype(np.float32) * 0.05
+        return x + 1.0 if jax.tree_util.keystr(path).endswith("['sigma']['b']") else x
+
+    jt.state = jt.state._replace(params=jax.tree_util.tree_map_with_path(
+        bump, jax.device_get(jt.state.params)))
+    path = tmp_path_factory.mktemp("dense") / "model.ckpt.npz"
+    _write(jt, path)
+    return str(path)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_proposal_sampler_serves_from_the_jax_cache(dense_ckpt, tmp_path, capsys,
+                                                    monkeypatch, quant):
+    """``--sampler proposal`` (with and without int8) on a coarse-trained
+    checkpoint: the JAX server starts first and writes its cache; the
+    port's server loads it (the same net and tables, no distillation or
+    calibration) and serves PNGs within +-2 levels of the JAX server's."""
+    import nerf_keras_tpu_torch.engine.trainer as ptrainer
+
+    cache = str(tmp_path / "model.infer.npz")
+    kw = dict(quant=quant, sampler="proposal", sampler_gate_db=0.0, quant_gate_db=0.0,
+              proposal_steps=10, infer_cache=cache)
+    jax_svc = JaxRenderService(CFG, dense_ckpt, 2.0, 6.0, **kw)
+    assert jax_svc.use_sampler == "proposal"
+    capsys.readouterr()
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the port rebuilt an artifact the cache holds")
+
+    monkeypatch.setattr(ptrainer, "distill_proposal", refuse)
+    monkeypatch.setattr(ptrainer, "calibrate_render", refuse)
+    svc = RenderService(CFG, dense_ckpt, device="cpu", **kw)
+    out = capsys.readouterr().out
+    assert f"loaded inference artifacts from {cache}" in out
+    assert "saved inference artifacts" not in out and "gate PASS" in out
+    assert svc.use_sampler == "proposal" and svc.use_quant == quant
+    stats = svc.stats()
+    assert stats["sampler"] == "proposal" and stats["quant"] == ("int8" if quant else "none")
+    for map_name in ("rgb", "depth"):
+        req = dict(theta=30.0, phi=-30.0, radius=4.0, height=8, width=8, chunk=64,
+                   map_name=map_name)
+        ours = decode_png(svc.render_png(**req))
+        theirs = decode_png(jax_svc.render_png(**req))
+        assert ours.shape == theirs.shape
+        assert np.abs(ours.astype(int) - theirs.astype(int)).max() <= 2
+    # The served frame is the proposal-sampled one, not the coarse one.
+    req = dict(theta=30.0, phi=-30.0, radius=4.0, height=8, width=8)
+    coarse = RenderService(CFG, dense_ckpt, device="cpu", quant=quant, quant_gate_db=0.0,
+                           infer_cache=cache)
+    assert coarse.use_sampler == "coarse"
+    assert not np.array_equal(decode_png(svc.render_png(**req)),
+                              decode_png(coarse.render_png(**req)))
+    assert svc.reload()["sampler"] == "proposal"
+
+
+def test_infer_cache_round_trip(dense_ckpt, tmp_path, capsys):
+    """The first start distills and saves; a restart loads instead (the
+    file is unchanged); a cache of other weights is ignored with a notice
+    and overwritten."""
+    cache = str(tmp_path / "model.infer.npz")
+    kw = dict(sampler="proposal", sampler_gate_db=0.0, proposal_steps=10, infer_cache=cache)
+    svc = RenderService(CFG, dense_ckpt, device="cpu", **kw)
+    assert svc.trainer.proposal_ready and svc.use_sampler == "proposal"
+    out = capsys.readouterr().out
+    assert "saved inference artifacts" in out and "loaded" not in out
+    first = np.load(cache)["__digest__"].item()
+    assert first == svc.trainer.infer_digest()
+
+    again = RenderService(CFG, dense_ckpt, device="cpu", **kw)
+    out = capsys.readouterr().out
+    assert "loaded inference artifacts" in out and "saved inference artifacts" not in out
+    assert again.trainer.proposal_ready
+    assert np.load(cache)["__digest__"].item() == first
+
+    other = tmp_path / "other.ckpt.npz"
+    _write(JaxTrainer(CFG, 2.0, 6.0), other)
+    RenderService(CFG, str(other), device="cpu", **kw)
+    out = capsys.readouterr().out
+    assert "ignoring artifact cache" in out and "different weights" in out
+    assert "saved inference artifacts" in out
+    assert np.load(cache)["__digest__"].item() != first
 
 
 @pytest.mark.parametrize(
