@@ -140,7 +140,29 @@ nonzero — nothing falls back to the CPU or to a plain path):
     frame's ms on each of float/int8 x coarse/proposal; (f) the server with
     ``sampler='proposal'`` on the cache (no distillation, /stats reports
     the sampler), then on a cache of the random weights (the stale notice,
-    the file overwritten).
+    the file overwritten);
+21. ``fern_cli``: the forward-facing path at ``fern_batch_h256_tpu.json``'s
+    widths (378x504, batch 4096, 64 + 128 samples, 8x256) on a synthetic
+    LLFF capture this script writes (20 views of the multi-sphere scene in
+    ``images_8/`` and ``poses_bounds.npy``): (a) ``cli.train_fern`` for one
+    epoch (883 steps) in world space: the native batcher, exactly 2 K1
+    training-mode and 2 K2 launches per step and 2 K1 per eval batch and
+    panel chunk, the train loss read every 100 steps finite and falling,
+    the checkpoint, step ms and Krays/s; (b) the same with ``NDC`` and a
+    1,300-step frequency anneal, still open when the checkpoint is
+    written: the printed bounds [0, 1], ``SCENE.ndc``, the same launches,
+    and one step's gradients through ``make_grad_fn`` on the kernel path
+    (the window folded into the weights in place) against the plain path
+    that folds the window by autograd, with the same draws (phase 8's
+    gate), the masked octaves' columns of ``trunk[0]`` exactly 0 on the
+    card (so finite); (c)
+    ``cli.evaluate --data llff`` on (b): 2 K1 launches per chunk, a report
+    1 dB above a random-weight checkpoint's, the val view against the CPU
+    path on every 40th ray, ms per view; (d) ``cli.infer --path spiral
+    --frames 5``, float (K1 only) and ``--quant int8`` (the gate passes, 2
+    K4 per chunk and no K1 after the gate's float frame), s per frame; (e)
+    the orbit at ``--phi 0`` on (b) refused with the forward-facing
+    ``ValueError`` before any launch.
 
 Each main path runs with the launch counters set to 0 just before it and
 read just after.  The line before the last is the kernel report
@@ -151,6 +173,7 @@ read just after.  The line before the last is the kernel report
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import io
 import json
@@ -167,10 +190,12 @@ import urllib.request
 
 import numpy as np
 import torch
+from torch.nn.utils import parametrize
 
 from nerf_keras_tpu_torch import exp_train_paths, load_config, runtime
 from nerf_keras_tpu_torch.engine.step import (
     draw_t_vals,
+    make_grad_fn,
     make_loss_fn,
     make_render_fn,
     make_train_step,
@@ -200,8 +225,11 @@ from nerf_keras_tpu_torch.serving import RenderService, serve
 from nerf_keras_tpu_torch.cli import evaluate as eval_cli
 from nerf_keras_tpu_torch.cli import infer as infer_cli
 from nerf_keras_tpu_torch.cli import train as train_cli
-from nerf_keras_tpu_torch.cli import train_blender, train_synthetic
+from nerf_keras_tpu_torch.cli import train_blender, train_fern, train_synthetic
 from nerf_keras_tpu_torch.data import native as native_batcher
+from nerf_keras_tpu_torch.data.pipeline import dataset_to_ndc
+from nerf_keras_tpu_torch.data.synthetic import write_forward_facing_capture
+from nerf_keras_tpu_torch.ops.freq_anneal import anneal_alpha, freq_window
 from nerf_keras_tpu_torch.profile_render import union_us
 from nerf_keras_tpu_torch.utils.checkpoint import (
     checkpoint_name,
@@ -1178,39 +1206,89 @@ def _plain_render_pass(cfg):
     return plain_pass
 
 
-def _grads_kernel_vs_plain(cfg, trainer, batch, noise_shapes, seed):
-    """One step's gradients, kernel path against plain path (the plain K1
-    for the render passes, the plain MLP for K5), with the same draws.
-    Returns (loss_kernel, loss_plain, per-leaf relative L2 by model)."""
+class _ColumnScale(torch.nn.Module):
+    """A parametrization: the weight times a column scale, under autograd."""
+
+    def __init__(self, scale: torch.Tensor):
+        super().__init__()
+        self.register_buffer("scale", scale)
+
+    def forward(self, w):
+        return w * self.scale[None, :]
+
+
+def _autograd_fold_grads(cfg, trainer, batch, draws) -> tuple[float, list]:
+    """The plain parity step's loss and gradients (in ``params_of`` order)
+    with the frequency-anneal window applied by autograd: on copies of the
+    trainer's NeRF MLPs, each linear layer that reads the position encoding
+    (``in_features`` its width, or the hidden width plus it for the skip
+    concat) computes ``weight * s`` inside the loss.  Independent of
+    ``make_grad_fn``'s in-place fold and of ``ops/freq_anneal.fold_scales``."""
+    images, origins, dirs = batch
+    window = freq_window(cfg.l_xyz, anneal_alpha(trainer.step, cfg.freq_anneal_steps),
+                         device=images.device)
+    skip = torch.cat([torch.ones(cfg.hidden_dim, device=images.device), window])
+    models = {k: copy.deepcopy(m) for k, m in trainer.params.items()}
+    order = params_of(models)
+    for model in models.values():
+        for layer in list(model.modules()):
+            if isinstance(layer, torch.nn.Linear):
+                scale = {window.numel(): window, skip.numel(): skip}.get(layer.in_features)
+                if scale is not None:
+                    parametrize.register_parametrization(layer, "weight",
+                                                         _ColumnScale(scale))
+    loss_fn = make_loss_fn(cfg, trainer.near, trainer.far,
+                           render_pass=_plain_render_pass(cfg),
+                           mlp_fn=lambda mlp, x, d: mlp(x, d))
+    t_vals = draw_t_vals(cfg, trainer.near, trainer.far, images.shape[:-1], images.device,
+                         noise=draws["t"])
+    loss, _ = loss_fn(models, images, origins, dirs, t_vals, trainer.step, None, draws["pdf"])
+    loss.backward()
+    return float(loss.detach()), [p.grad for p in order]
+
+
+def _grads_kernel_vs_plain(cfg, trainer, batch, noise_shapes, seed, autograd_fold=False):
+    """One step's gradients through ``make_grad_fn`` (with the
+    frequency-anneal fold at the trainer's step) on the kernel path and on
+    the plain path (the plain K1 for the render passes, the plain MLP for
+    K5), with the same draws; with ``autograd_fold`` (a parity step) the
+    plain path folds by autograd instead (:func:`_autograd_fold_grads`).
+    Returns (loss_kernel, loss_plain), the per-leaf relative L2 by model,
+    the max |diff| and the kernel path's gradients by model."""
     b = cfg.batch_size
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    t_vals = draw_t_vals(cfg, 2.0, 6.0, (b,), trainer.device,
-                         noise=torch.rand((b, cfg.ns_coarse), generator=gen, device="cuda"))
+    draws = {"t": torch.rand((b, cfg.ns_coarse), generator=gen, device="cuda")}
     noise = [torch.rand(s, generator=gen, device="cuda") for s in noise_shapes]
-    noise = noise if cfg.train_sampler == "proposal" else noise[0]
+    if cfg.train_sampler == "proposal":
+        draws["chain"] = noise
+    else:
+        draws["pdf"] = noise[0]
     params = params_of(trainer.params)
     grads, losses = [], []
     for plain in (False, True):
-        loss_fn = make_loss_fn(cfg, 2.0, 6.0,
+        if plain and autograd_fold:
+            loss, plain_grads = _autograd_fold_grads(cfg, trainer, batch, draws)
+            grads.append(plain_grads)
+            losses.append(loss)
+            continue
+        grad_fn = make_grad_fn(cfg, trainer.near, trainer.far,
                                render_pass=_plain_render_pass(cfg) if plain else None,
                                mlp_fn=(lambda mlp, x, d: mlp(x, d)) if plain else None)
-        for p in params:
-            p.grad = None
-        loss, _ = loss_fn(trainer.params, *batch, t_vals, 0, noise=noise)
-        loss.backward()
+        loss, _ = grad_fn(trainer.state, batch, draws)
         grads.append([p.grad.clone() for p in params])
         losses.append(float(loss.detach()))
     for p in params:
         p.grad = None
-    by_model, i = {}, 0
+    by_model, kernel, i = {}, {}, 0
     for name in sorted(trainer.params):
         k = len(list(trainer.params[name].parameters()))
-        by_model[name] = [_rel_l2(a, b) for a, b in zip(grads[0][i:i + k], grads[1][i:i + k])]
+        by_model[name] = [_rel_l2(a, c) for a, c in zip(grads[0][i:i + k], grads[1][i:i + k])]
+        kernel[name] = grads[0][i:i + k]
         i += k
-    max_abs = max(float((a - b).abs().max()) for a, b in zip(*grads))
+    max_abs = max(float((a - c).abs().max()) for a, c in zip(*grads))
     del grads
     torch.cuda.empty_cache()
-    return losses, by_model, max_abs
+    return losses, by_model, max_abs, kernel
 
 
 def _train_steps(trainer, batch, steps, per_step: dict, step_fn=None) -> dict:
@@ -1265,7 +1343,7 @@ def phase_train(card: str) -> tuple[list[dict], Trainer]:
     cfg = bench_config()
     trainer = Trainer(cfg, 2.0, 6.0, device="cuda")
     batch = trainer.put_batch(bench_batch(cfg.batch_size))
-    losses, by_model, max_abs = _grads_kernel_vs_plain(
+    losses, by_model, max_abs, _ = _grads_kernel_vs_plain(
         cfg, trainer, batch, [(cfg.batch_size, cfg.ns_fine)], seed=2)
     rel = max(max(v) for v in by_model.values())
     say("train_grads_vs_plain", loss_kernel=losses[0], loss_plain=losses[1],
@@ -1291,7 +1369,7 @@ def phase_parity(card: str, stop: bool, tmp: str) -> tuple[list[dict], str | Non
     for m in trainer.params.values():
         randomize_biases_(m, torch.Generator().manual_seed(3))
     batch = trainer.put_batch(bench_batch(cfg.batch_size))
-    losses, by_model, max_abs = _grads_kernel_vs_plain(
+    losses, by_model, max_abs, _ = _grads_kernel_vs_plain(
         cfg, trainer, batch, [(cfg.batch_size, cfg.ns_fine)], seed=4)
     rel_fine, rel_coarse = max(by_model["fine"]), max(by_model["coarse"])
     tol_coarse = STEP_TOL_REL if stop else PDF_COARSE_TOL_REL
@@ -1788,8 +1866,8 @@ def _history_name(cfg) -> str:
             f"_n{cfg.ns_coarse + cfg.ns_fine}_ep{cfg.epochs}.json")
 
 
-def _config_file(path: str, **changes) -> str:
-    with open(CONFIG) as f:
+def _config_file(path: str, base: str = CONFIG, **changes) -> str:
+    with open(base) as f:
         raw = json.load(f)
     raw.update(changes)
     with open(path, "w") as f:
@@ -2179,6 +2257,215 @@ def phase_infer_cli(card: str, tmp: str, run: str) -> list[dict]:
     return runs
 
 
+FERN_CONFIG = os.path.join(os.path.dirname(CONFIG), "fern_batch_h256_tpu.json")
+# The synthetic capture: 20 views of 378x504 with the focal of a factor-8
+# Fern view (3260 px at 4032 wide): 19 train views (3,619,728 rays, 883
+# steps of 4096) and the holdout.
+FERN_VIEWS, FERN_FOCAL = 20, 407.5
+# (b) anneals the encoding over 1,300 steps: after its one epoch (883
+# steps) the checkpoint is still inside the window (octaves 7-9 masked).
+FERN_ANNEAL_STEPS = 1300
+
+
+@contextlib.contextmanager
+def _loss_probe(every: int):
+    """Record ``(step, loss)`` of every ``every``-th train step (each read
+    waits for the card)."""
+    seen, real = [], Trainer.train_step
+
+    def probed(self, batch, draws=None):
+        metrics = real(self, batch, draws)
+        if (self.step - 1) % every == 0:
+            seen.append((self.step - 1, float(metrics["loss"])))
+        return metrics
+
+    Trainer.train_step = probed
+    try:
+        yield seen
+    finally:
+        Trainer.train_step = real
+
+
+def phase_fern_cli(card: str, tmp: str) -> list[dict]:
+    """Phase 21 (module docstring): the forward-facing path at the Fern
+    config's widths on a synthetic LLFF capture, (a)-(e)."""
+    cap = os.path.join(tmp, "fern_capture")
+    t0 = time.perf_counter()
+    write_forward_facing_capture(cap, FERN_VIEWS, 378, 504, FERN_FOCAL)
+    write_s = time.perf_counter() - t0
+    cfg = dataclasses.replace(load_config(FERN_CONFIG), epochs=1)
+
+    def prepare(h, w):
+        return train_fern.prepare(h, w, data_dir=cap)
+
+    expected, steps = _expected_launches(cfg, prepare, 1, 1)
+    runs = []
+
+    def train(tag: str, config: str, run: str):
+        with _loss_probe(100) as probe:
+            trainer, out, launches = _cli(train_fern.main, [
+                "--config", config, "--data-dir", cap, "--run-dir", run, "--epochs", "1",
+                "--eval-every", "1"])
+        epochs = [{"epoch": int(m[0]), "krays_per_s": float(m[1]), "step_ms": float(m[2])}
+                  for m in EPOCH_LINE.findall(out)]
+        name = checkpoint_name(cfg)
+        files = {f: os.path.exists(os.path.join(run, f))
+                 for f in (name, name + ".config.json", _history_name(cfg))}
+        if "batches: native batcher" not in out or "using numpy" in out:
+            raise RuntimeError(f"fern_cli ({tag}): the native batcher did not feed the run")
+        if launches != expected:
+            raise RuntimeError(f"fern_cli ({tag}): launched {launches}, expected {expected}")
+        if not all(files.values()) or len(epochs) != 1:
+            raise RuntimeError(f"fern_cli ({tag}): files {files}, epoch lines {epochs}")
+        losses = [loss for _, loss in probe]
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            raise RuntimeError(f"fern_cli ({tag}): the train loss did not fall: {probe}")
+        runs.append(_clean(launches))
+        history = History.load(os.path.join(run, _history_name(cfg)))
+        return trainer, out, launches, epochs, probe, history
+
+    # (a) world space, the config as shipped.
+    run_a = os.path.join(tmp, "fern_run")
+    trainer, out, launches, epochs, probe, history = train("a", FERN_CONFIG, run_a)
+    bounds = re.search(r"near=(\S+) far=(\S+) focal=(\S+)", out).groups()
+    say("fern_cli_train", part="a", size=[cfg.height, cfg.width], views=FERN_VIEWS,
+        capture_write_s=write_s, batch=cfg.batch_size, samples=[cfg.ns_coarse, cfg.ns_fine],
+        mlp=[cfg.num_layers, cfg.hidden_dim], steps_per_epoch=steps, epochs=epochs,
+        bounds=bounds, launches=launches, expected=expected, loss_probe=probe,
+        val_psnr=history.val["psnrs"], card=card)
+    del trainer
+    torch.cuda.empty_cache()
+
+    # (b) NDC with the frequency anneal still open at the checkpoint.
+    ndc_config = _config_file(os.path.join(tmp, "fern_ndc.json"), base=FERN_CONFIG,
+                              NDC=True, FREQ_ANNEAL_STEPS=FERN_ANNEAL_STEPS)
+    ndc_cfg = dataclasses.replace(load_config(ndc_config), epochs=1)
+    run_b = os.path.join(tmp, "fern_ndc_run")
+    trainer, out, launches, epochs, probe, history = train("b", ndc_config, run_b)
+    ckpt = os.path.join(run_b, checkpoint_name(ndc_cfg))
+    with open(ckpt + ".config.json") as f:
+        scene = json.load(f)["SCENE"]
+    # One step's gradients mid-window, kernel path against plain path, on
+    # a batch of the NDC train rays.
+    train_ds, _, _, _ = prepare(cfg.height, cfg.width)
+    train_ds = dataset_to_ndc(train_ds)
+    idx = np.random.default_rng(0).choice(len(train_ds), cfg.batch_size, replace=False)
+    batch = trainer.put_batch((train_ds.pixels[idx], train_ds.origins[idx],
+                               train_ds.directions[idx]))
+    alpha = anneal_alpha(trainer.step, FERN_ANNEAL_STEPS)
+    masked = torch.nonzero(freq_window(ndc_cfg.l_xyz, alpha) == 0).flatten().tolist()
+    _, by_model, max_abs, kernel = _grads_kernel_vs_plain(
+        ndc_cfg, trainer, batch, [(cfg.batch_size, cfg.ns_fine)], seed=5,
+        autograd_fold=True)
+    rel = max(max(v) for v in by_model.values())
+    # A finiteness check: the window's 0 times a finite gradient is 0.
+    trunk0 = {name: float(g[0][:, masked].abs().max()) for name, g in kernel.items()}
+    say("fern_cli_train", part="b", ndc_printed="near=0.000 far=1.000" in out,
+        scene=scene, step=trainer.step, anneal_alpha=alpha, masked_columns=len(masked),
+        epochs=epochs, launches=launches, expected=expected, loss_probe=probe,
+        val_psnr=history.val["psnrs"], grads_max_rel_l2=rel, grads_max_abs_err=max_abs,
+        tol_rel=STEP_TOL_REL, masked_trunk0_grad_max=trunk0, card=card)
+    if "near=0.000 far=1.000" not in out or scene.get("NDC") is not True:
+        raise RuntimeError(f"fern_cli (b): NDC bounds not printed, or SCENE {scene}")
+    if not 0 < alpha < 1 or not masked:
+        raise RuntimeError(f"fern_cli (b): the window is not open at step {trainer.step}")
+    if rel > STEP_TOL_REL or any(v != 0.0 for v in trunk0.values()):
+        raise RuntimeError(f"fern_cli (b): kernel-path gradients {rel} (masked columns "
+                           f"{trunk0}) against the plain path")
+    del trainer, kernel, batch
+    torch.cuda.empty_cache()
+
+    # (c) the evaluation CLI on (b), against a random-weight checkpoint and
+    # the CPU path.
+    chunks = math.ceil(cfg.height * cfg.width / 16384)
+    t0 = time.perf_counter()
+    rep, _, launches = _cli(eval_cli.run_evaluation, [
+        "--config", ndc_config, "--checkpoint", run_b, "--data", "llff", "--data-dir", cap,
+        "--out", os.path.join(tmp, "fern_eval.json")])
+    seconds = time.perf_counter() - t0
+    runs.append(_clean(launches))
+    rnd_dir = os.path.join(tmp, "fern_random")
+    os.makedirs(rnd_dir)
+    rnd_ckpt = os.path.join(rnd_dir, "random.ckpt.npz")
+    save_params_npz(rnd_ckpt, random_params(ndc_cfg, seed=0), ndc_cfg,
+                    scene={"near": 0.0, "far": 1.0, "focal": FERN_FOCAL, "ndc": True})
+    rep_rnd, _, rnd_launches = _cli(eval_cli.run_evaluation, [
+        "--config", ndc_config, "--checkpoint", rnd_ckpt, "--data", "llff", "--data-dir",
+        cap, "--out", os.path.join(tmp, "fern_eval_random.json")])
+    runs.append(_clean(rnd_launches))
+    _, val_ds, _, _ = prepare(cfg.height, cfg.width)
+    o, d = dataset_to_ndc(val_ds).image_rays(0)
+    gpu = Trainer(ndc_cfg, 0.0, 1.0, device="cuda").restore(ckpt)
+    full = gpu.render_rays(o, d, keys=("rgb_fine",))["rgb_fine"]
+    view_ms = _host_ms(lambda: gpu.render_rays(o, d, keys=("rgb_fine",)), reps=3)
+    idx = np.arange(0, o.shape[0], 40)
+    cpu = Trainer(ndc_cfg, 0.0, 1.0, device="cpu").restore(ckpt)
+    ref = cpu.render_rays(o[idx], d[idx], keys=("rgb_fine",))["rgb_fine"]
+    rgb_err = float(np.abs(full[idx] - ref).max())
+    say("fern_cli_eval", part="c", launches=_clean(launches), expected=dict(ZERO, k1_fwd=2 * chunks),
+        seconds=seconds, view_ms=view_ms, mean=rep["mean"], random_mean=rep_rnd["mean"],
+        view_rgb_max_vs_cpu=rgb_err, rays_checked=len(idx), tol_rgb=FRAME_TOL_RGB, card=card)
+    if _clean(launches) != dict(ZERO, k1_fwd=2 * chunks) or \
+            _clean(rnd_launches) != dict(ZERO, k1_fwd=2 * chunks):
+        raise RuntimeError(f"fern_cli (c): launched {launches} / {rnd_launches}, expected "
+                           f"{2 * chunks} K1 each")
+    if not rep["mean"]["psnr"] > rep_rnd["mean"]["psnr"] + 1.0:
+        raise RuntimeError(f"fern_cli (c): trained {rep['mean']} does not beat random "
+                           f"{rep_rnd['mean']}")
+    if rgb_err > FRAME_TOL_RGB:
+        raise RuntimeError(f"fern_cli (c): the val view is {rgb_err} from the CPU path")
+    del cpu, gpu
+    torch.cuda.empty_cache()
+
+    # (d) the spiral path of the capture, float then int8.
+    frames = 5
+    parts = {}
+    for tag, extra in (("float", []), ("int8", ["--quant", "int8"])):
+        t0 = time.perf_counter()
+        written, out, launches = _cli(infer_cli.run_inference, [
+            "--config", ndc_config, "--checkpoint", run_b, "--path", "spiral", "--data-dir",
+            cap, "--frames", str(frames), "--out", os.path.join(tmp, f"fern_{tag}.mp4")]
+            + extra)
+        seconds = time.perf_counter() - t0
+        launches = _clean(launches)
+        runs.append(launches)
+        gates = {g[0]: {"decision": g[1], "psnr_db": float(g[2])}
+                 for g in GATE_LINE.findall(out)}
+        frame_ms = [float(x) for x in FRAME_MS.findall(out)]
+        per_frame = 2 * chunks
+        if tag == "float":
+            want = dict(ZERO, k1_fwd=frames * per_frame)
+        else:  # the gate's float and int8 frames, then int8 frames only
+            want = dict(ZERO, k1_fwd=per_frame, k4=(frames + 1) * per_frame)
+        parts[tag] = {"launches": launches, "expected": want, "gates": gates,
+                      "seconds": seconds, "frame_ms": frame_ms,
+                      "s_per_frame": statistics.median(frame_ms) / 1e3 if frame_ms else None}
+        if launches != want or len(frame_ms) != frames:
+            raise RuntimeError(f"fern_cli (d, {tag}): launched {launches}, expected {want}; "
+                               f"frames {frame_ms}")
+        if tag == "int8" and gates.get("int8", {}).get("decision") != "PASS":
+            raise RuntimeError(f"fern_cli (d): the int8 gate did not pass: {gates}")
+    say("fern_cli_infer", part="d", size=[cfg.height, cfg.width], frames=frames, **parts,
+        card=card)
+
+    # (e) the orbit on (b)'s checkpoint: a level camera (half its rays point
+    # up) must be refused before any launch.
+    reset_counts()
+    try:
+        infer_cli.run_inference(["--config", ndc_config, "--checkpoint", run_b, "--frames",
+                                 "1", "--phi", "0", "--out", os.path.join(tmp, "orbit.mp4")])
+    except ValueError as e:
+        if "forward-facing camera" not in str(e):
+            raise
+        refused = str(e)
+    else:
+        raise RuntimeError("fern_cli (e): the orbit rendered an NDC checkpoint")
+    say("fern_cli_orbit_guard", part="e", error=refused, launches=counts(), card=card)
+    if counts() != ZERO:
+        raise RuntimeError(f"fern_cli (e): launched {counts()} before refusing")
+    return runs
+
+
 def _sum(runs: list[dict], key: str) -> int:
     return sum(r[key] for r in runs)
 
@@ -2224,6 +2511,8 @@ def main() -> None:
         runs += cli_runs
         torch.cuda.empty_cache()
         runs += phase_infer_cli(card, tmp, run_dir)
+        torch.cuda.empty_cache()
+        runs += phase_fern_cli(card, tmp)
     # Library yardsticks measured once and shared where two kernels do the
     # same products at the same M: K1's per-layer bf16 matmul at M = 4096 x
     # 192 is K5's forward at N = 786,432 and K6's forward at S=192; K2's dW

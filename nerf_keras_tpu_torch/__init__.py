@@ -15,10 +15,11 @@ backward K2 (``csrc/fused_render_bwd.cu``), both behind
 (``csrc/fused_mlp_fwd.cu``, ``csrc/fused_mlp_bwd.cu``) behind
 ``ops/kernels/fused_mlp.py``.
 
-It also trains from data: ``cli/train_synthetic``, ``cli/train_lego`` and
-``cli/train_blender`` over ``cli/train.py`` and the data layer
-(``data/``, with its own native C++ batcher), BatchNorm configs included
-(they run the plain MLP; no kernel has BatchNorm).
+It also trains from data: ``cli/train_synthetic``, ``cli/train_lego``,
+``cli/train_blender`` and ``cli/train_fern`` (LLFF forward-facing
+captures, NDC and the frequency anneal) over ``cli/train.py`` and the
+data layer (``data/``, with its own native C++ batcher), BatchNorm
+configs included (they run the plain MLP; no kernel has BatchNorm).
 
 The port imports nothing of the JAX package: ``NeRFConfig`` and its JSON
 helpers are the port's own copy (``nerf_keras_tpu_torch/config.py``).

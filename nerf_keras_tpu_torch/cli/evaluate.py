@@ -14,10 +14,14 @@ no coarse pass) are scored ungated, since the report itself measures
 them; their int8 tables and proposal net are fit on up to 8 train views,
 never on the scored split, and ``--infer-cache`` reuses them across runs.
 
+``--data llff`` scores the holdout view of an LLFF capture
+(``--data-dir``, ``data/llff.py``); an ``NDC`` checkpoint is scored in NDC
+ray space with bounds [0, 1], as it was trained, and its int8 tables and
+distilled net are fit on train views in that space too.
+
 Unlike the JAX CLI: ``--device`` (default ``cuda``, which raises without a
 card; ``--device cpu`` for the CPU) replaces ``--platform``, and there is
-no compilation cache.  ``--data llff`` raises until the LLFF loader is
-ported (ROADMAP.md queue 1 item 6), and so does a config with ``NDC``.
+no compilation cache.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ import numpy as np
 
 from nerf_keras_tpu_torch.cli.train import LOG
 from nerf_keras_tpu_torch.config import load_config
+from nerf_keras_tpu_torch.data.pipeline import dataset_to_ndc
 from nerf_keras_tpu_torch.engine.trainer import Trainer
 from nerf_keras_tpu_torch.runtime import resolve_device
 from nerf_keras_tpu_torch.utils import io
@@ -41,6 +46,7 @@ from nerf_keras_tpu_torch.utils.image import to_uint8
 from nerf_keras_tpu_torch.utils.image_metrics import ssim
 from nerf_keras_tpu_torch.utils.infer_cache import load_if_fresh
 from nerf_keras_tpu_torch.utils.viz import save_png
+
 
 def _prepare(data: str, height: int, width: int, data_dir: str | None, *,
              white_bkgd: bool = False, split: str = "val", scene: str | None = None):
@@ -65,8 +71,9 @@ def _prepare(data: str, height: int, width: int, data_dir: str | None, *,
         return prepare_blender_data(height, width, path=data_dir, scene=scene or "lego",
                                     white_bkgd=white_bkgd, **kw)
     if data == "llff":
-        raise NotImplementedError("--data llff: the LLFF loader is not ported yet "
-                                  "(ROADMAP.md queue 1 item 6)")
+        from nerf_keras_tpu_torch.data.llff import prepare_fern_data
+
+        return prepare_fern_data(height, width, basedir=data_dir)
     raise SystemExit(f"unknown --data {data!r}")
 
 
@@ -145,7 +152,7 @@ def run_evaluation(argv: list[str] | None = None) -> dict:
             raise FileNotFoundError(f"no .ckpt.npz under {ckpt}")
         ckpt = found
     scene = load_checkpoint_scene(ckpt) or {}
-    cfg, notes = resolve_infer_config(cfg, ckpt)  # raises for NDC
+    cfg, notes = resolve_infer_config(cfg, ckpt)
     for note in notes:
         print(f"{LOG} {note}")
 
@@ -155,6 +162,11 @@ def run_evaluation(argv: list[str] | None = None) -> dict:
     ds = train_ds if args.split == "train" else val_ds
     near = scene.get("near", near)
     far = scene.get("far", far)
+    if cfg.ndc:
+        # Score in the ray space the checkpoint was trained in: world rays
+        # would render garbage without an error.
+        ds = dataset_to_ndc(ds)
+        near, far = 0.0, 1.0
     trainer = Trainer(cfg, near, far, device=device).restore(ckpt)
     print(f"{LOG} loaded {ckpt}; scoring {ds.num_images} {args.split} views at "
           f"{ds.height}x{ds.width} on {device}")
@@ -165,8 +177,10 @@ def run_evaluation(argv: list[str] | None = None) -> dict:
         # Fit the weight-derived state on up to 8 TRAIN views spread over
         # the split, never on the scored one: self-calibration would bias
         # the reported PSNR upwards.
-        idx = list(range(0, train_ds.num_images, max(1, train_ds.num_images // 8)))[:8]
-        pairs = [train_ds.image_rays(i) for i in idx]
+        # NDC checkpoints calibrate in NDC ray space, as they score.
+        cds = dataset_to_ndc(train_ds) if cfg.ndc else train_ds
+        idx = list(range(0, cds.num_images, max(1, cds.num_images // 8)))[:8]
+        pairs = [cds.image_rays(i) for i in idx]
         return (np.concatenate([q[0] for q in pairs], axis=0),
                 np.concatenate([q[1] for q in pairs], axis=0))
 

@@ -26,10 +26,16 @@ a printed line, as in the JAX package:
 weights.  ``--profile DIR`` writes a ``torch.profiler`` Chrome trace of
 one steady frame (``DIR/trace.json``) after an untraced one.
 
+``--path spiral --data-dir <capture>`` renders the LLFF capture's own
+path instead (the spiral around its average pose, or with ``--spherify``
+the spherified orbit), from its ``poses_bounds.npy`` alone.  An ``NDC``
+checkpoint renders NDC rays and so needs that path: on the orbit it raises
+the forward-facing ``ValueError``.
+
 Unlike the JAX CLI: ``--device`` (default ``cuda``, which raises without a
 card) replaces ``--platform``, and there is no compilation cache.
-``--path spiral`` needs the LLFF loader (ROADMAP.md queue 1 item 6) and
-``--reference-weights`` the Keras import (item 8); both raise until then.
+``--reference-weights`` needs the Keras import (ROADMAP.md queue 1 item 8)
+and raises until then.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ import torch
 
 from nerf_keras_tpu_torch.cli.train import LOG
 from nerf_keras_tpu_torch.config import config_name, load_config
+from nerf_keras_tpu_torch.data.llff import load_llff_render_path
 from nerf_keras_tpu_torch.engine.trainer import Trainer
 from nerf_keras_tpu_torch.ops.rays import pose_spherical
 from nerf_keras_tpu_torch.runtime import resolve_device
@@ -66,6 +73,16 @@ def spherical_poses(n_frames: int = 30, full_orbit: bool = False, phi: float = -
     lo, hi = (0.0, 360.0) if full_orbit else (-45.0, 45.0)
     return [pose_spherical(float(theta), phi, radius)
             for theta in np.linspace(lo, hi, n_frames, endpoint=False)]
+
+
+def spiral_poses_from_capture(data_dir: str, n_frames: int,
+                              spherify: bool = False) -> list[np.ndarray]:
+    """``n_frames`` ``(3, 4)`` camera-to-world poses taken evenly from an
+    LLFF capture's 120-pose render path (the spiral, or with ``spherify``
+    the spherified orbit), read from ``poses_bounds.npy`` alone."""
+    render_poses = load_llff_render_path(data_dir, recenter=True, spherify=spherify)
+    idx = np.linspace(0, len(render_poses) - 1, n_frames)
+    return [render_poses[int(round(i))][:, :4] for i in idx]
 
 
 def _rays_of(trainer: Trainer, poses, cfg, focal) -> tuple[torch.Tensor, torch.Tensor]:
@@ -116,7 +133,7 @@ def run_inference(argv: list[str] | None = None) -> str:
     p.add_argument("--frames", type=int, default=30)
     p.add_argument("--path", type=str, default="orbit", choices=("orbit", "spiral"),
                    help="'orbit' = the Blender-style spherical sweep; 'spiral' = the "
-                        "LLFF path of --data-dir's capture (not ported yet)")
+                        "LLFF path of --data-dir's capture")
     p.add_argument("--data-dir", type=str, default=None,
                    help="LLFF capture directory (for --path spiral)")
     p.add_argument("--spherify", action="store_true",
@@ -171,9 +188,6 @@ def run_inference(argv: list[str] | None = None) -> str:
     if args.reference_weights is not None:
         raise NotImplementedError("--reference-weights needs the Keras import, which is "
                                   "not ported yet (ROADMAP.md queue 1 item 8)")
-    if args.path == "spiral":
-        raise NotImplementedError("--path spiral needs the LLFF loader, which is not "
-                                  "ported yet (ROADMAP.md queue 1 item 6)")
     if args.checkpoint is None:
         raise SystemExit("--checkpoint is required")
     device = resolve_device(args.device)
@@ -206,8 +220,15 @@ def run_inference(argv: list[str] | None = None) -> str:
 
     trainer = Trainer(cfg, near, far, device=device).restore(ckpt)
     print(f"{LOG} loaded {ckpt} on {device}")
-    poses = spherical_poses(args.frames, full_orbit=args.full_orbit, phi=args.phi,
-                            radius=args.radius)
+    if args.path == "spiral":
+        if not args.data_dir:
+            raise SystemExit("--path spiral requires --data-dir "
+                             "(LLFF capture with poses_bounds.npy)")
+        poses = spiral_poses_from_capture(args.data_dir, args.frames,
+                                          spherify=args.spherify)
+    else:
+        poses = spherical_poses(args.frames, full_orbit=args.full_orbit, phi=args.phi,
+                                radius=args.radius)
     load_if_fresh(trainer, args.infer_cache)
     cache_pre = (trainer.quant_ready, trainer.proposal_ready)
     use_quant = args.quant == "int8" and quant_gate(

@@ -32,7 +32,7 @@ from typing import Callable
 import numpy as np
 
 from nerf_keras_tpu_torch.config import NeRFConfig, config_name, load_config
-from nerf_keras_tpu_torch.data.pipeline import RayDataset, iterate_batches
+from nerf_keras_tpu_torch.data.pipeline import RayDataset, dataset_to_ndc, iterate_batches
 from nerf_keras_tpu_torch.engine.trainer import Trainer
 from nerf_keras_tpu_torch.runtime import resolve_device
 from nerf_keras_tpu_torch.utils import io, profiling
@@ -241,7 +241,9 @@ def run_training(
     train_ds, val_ds, (near, far), focal = prepare_data(cfg.height, cfg.width,
                                                         **prepare_kwargs)
     if cfg.ndc:
-        raise NotImplementedError("NDC is not ported yet (ROADMAP.md queue 1)")
+        # Forward-facing captures: rays into the NDC cube, t in [0, 1].
+        train_ds, val_ds = dataset_to_ndc(train_ds), dataset_to_ndc(val_ds)
+        near, far = 0.0, 1.0
     print(f"{LOG} rays: train={len(train_ds)} val={len(val_ds)} "
           f"near={near:.3f} far={far:.3f} focal={focal:.2f}")
 
@@ -421,7 +423,7 @@ def _run_epochs(cfg, trainer, run_dir, viz_dir, scene, history, history_name, va
                       f"low while train PSNR keeps rising (the model is memorizing the "
                       f"training views).  Sampler tuning does NOT fix this.  Measured "
                       f"remedies: ADD TRAINING VIEWS, or FREQ_ANNEAL_STEPS=-1 as a last "
-                      f"resort (not ported yet)")
+                      f"resort")
 
             io.makedirs(run_dir)
             io.makedirs(viz_dir)

@@ -16,7 +16,7 @@ from typing import Iterator
 
 import numpy as np
 
-from nerf_keras_tpu_torch.ops.rays import get_rays
+from nerf_keras_tpu_torch.ops.rays import NDC_NEAR_PLANE, get_rays, ndc_rays
 
 
 @dataclasses.dataclass
@@ -134,7 +134,12 @@ def build_ray_dataset(
 
 
 def dataset_to_ndc(ds: RayDataset, near_plane: float | None = None) -> RayDataset:
-    """NDC reparameterization of forward-facing datasets: not ported."""
-    raise NotImplementedError(
-        "NDC is not ported yet (ROADMAP.md queue 1, secondary knobs)"
-    )
+    """A forward-facing dataset with its rays in NDC (``ops/rays.ndc_rays``,
+    ``NDC``).  Bounds become [0, 1]: t'=0 is the world-space ``near_plane``
+    (default :data:`NDC_NEAR_PLANE`, which rendering assumes too), t'=1 is
+    infinity."""
+    if near_plane is None:
+        near_plane = NDC_NEAR_PLANE
+    o, d = ndc_rays(ds.height, ds.width, ds.focal, near_plane, ds.origins, ds.directions)
+    return dataclasses.replace(ds, origins=o.numpy(), directions=d.numpy(), near=0.0,
+                               far=1.0)

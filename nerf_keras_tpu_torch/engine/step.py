@@ -27,7 +27,12 @@ Counterpart of ``nerf_keras_tpu/engine/step.py``:
   ``make_proposal_render_fn(quant=True)``): every MLP pass is one K4
   launch on the card, over qparams from ``ops/quant.py``;
 * ``make_optimizer`` (optax's Adam, eps 1e-7, optional exponential decay),
-  ``mse`` and ``psnr``.
+  ``mse`` and ``psnr``;
+* the frequency anneal (``FREQ_ANNEAL_STEPS``, ``ops/freq_anneal.py``):
+  the train step folds the window into the parameters in place
+  (:func:`make_grad_fn`); the eval and render functions take models that
+  the caller folded (the ``Trainer`` at its step), where the JAX package
+  folds the state it is given.
 
 The port does not read ``USE_PALLAS``: on the card the kernels always run
 (K1/K2 where the JAX package takes its fused megakernel, K5 where it
@@ -53,6 +58,7 @@ from torch import nn
 
 from nerf_keras_tpu_torch.config import NeRFConfig
 from nerf_keras_tpu_torch.ops.encoding import encode_position
+from nerf_keras_tpu_torch.ops.freq_anneal import fold_scales, require_folded
 from nerf_keras_tpu_torch.ops.kernels.fused_mlp import apply_nerf_mlp_fused
 from nerf_keras_tpu_torch.ops.kernels.fused_render import render_rays_fused
 from nerf_keras_tpu_torch.ops.kernels.quant_render import render_rays_fused_quant
@@ -84,8 +90,6 @@ def check_train_support(cfg: NeRFConfig, device: torch.device | None = None) -> 
         "PROP_UNION=false": not cfg.prop_union,
         "PROP_AUX_SAMPLES": cfg.prop_aux_samples > 0,
         "PROP_UNION_EVERY": cfg.prop_union_every > 0,
-        "FREQ_ANNEAL_STEPS>0": cfg.freq_anneal_steps != 0,
-        "NDC": cfg.ndc,
     }
     for knob, on in unported.items():
         if on:
@@ -101,6 +105,16 @@ def check_train_support(cfg: NeRFConfig, device: torch.device | None = None) -> 
             "PROP_ANNEAL_STEPS=-1 (auto) must be resolved to a step count "
             "before building the train step; direct callers pass an "
             "explicit count"
+        )
+    _check_freq_anneal_resolved(cfg)
+
+
+def _check_freq_anneal_resolved(cfg: NeRFConfig) -> None:
+    if cfg.freq_anneal_steps == -1:
+        raise ValueError(
+            "FREQ_ANNEAL_STEPS=-1 (auto) must be resolved to a step count "
+            "before building steps — the training CLI does this; direct "
+            "callers pass an explicit count"
         )
 
 
@@ -441,6 +455,70 @@ def draw_t_vals(cfg: NeRFConfig, near: float, far: float, batch_shape: tuple,
     ).contiguous()
 
 
+@torch.no_grad()
+def _fold_in_place(pairs: list) -> list[torch.Tensor]:
+    """Scale each ``(weight, column scale)`` of the anneal window into its
+    weight; returns the raw values."""
+    raw = [w.detach().clone() for w, _ in pairs]
+    for w, scale in pairs:
+        w.mul_(scale[None, :])
+    return raw
+
+
+@torch.no_grad()
+def _unfold_in_place(pairs: list, raw: list[torch.Tensor]) -> None:
+    """Undo :func:`_fold_in_place`: each gradient, taken with respect to
+    the folded weight, becomes the raw weight's (``dL/dW = s dL/dW_folded``,
+    exactly 0 on a masked column), and the raw values come back from the
+    copy (a masked column's scale is 0, so no division could)."""
+    for (w, scale), r in zip(pairs, raw):
+        if w.grad is not None:
+            w.grad.mul_(scale[None, :])
+        w.copy_(r)
+
+
+def make_grad_fn(cfg: NeRFConfig, near: float, far: float,
+                 render_pass: Callable | None = None,
+                 mlp_fn: Callable | None = None) -> Callable:
+    """The train step up to the gradients: ``grad_fn(state, batch,
+    draws=None, generator=None) -> (loss, (loss_coarse_slot, loss_fine,
+    rgb_fine))`` with each parameter's gradient in its ``.grad``.
+
+    t-values and the fine draws come from ``generator``, or from ``draws``
+    (see :func:`make_train_step`).  With ``FREQ_ANNEAL_STEPS`` the window
+    at ``state.step`` is folded into the parameters in place for the
+    forward and the backward, so the kernels (K1/K2, which read the
+    weights from the modules) see folded weights and their packs are
+    rebuilt once per step; then the gradients are scaled by the window and
+    the raw values restored (the JAX package folds inside the
+    differentiated loss; the chain rule gives the same gradients).
+    ``render_pass`` and ``mlp_fn`` replace the kernels as in
+    :func:`make_loss_fn`.
+    """
+    loss_fn = make_loss_fn(cfg, near, far, render_pass=render_pass, mlp_fn=mlp_fn)
+    noise_key = "chain" if cfg.train_sampler == "proposal" else "pdf"
+
+    def grad_fn(state: TrainState, batch, draws: dict | None = None,
+                generator: torch.Generator | None = None):
+        images, origins, dirs = batch
+        draws = draws or {}
+        t_vals = draw_t_vals(cfg, near, far, images.shape[:-1], images.device,
+                             generator, draws.get("t"))
+        for p in params_of(state.params):
+            p.grad = None
+        pairs = fold_scales(cfg, state.params, state.step)
+        raw = _fold_in_place(pairs)
+        try:
+            loss, aux = loss_fn(state.params, images, origins, dirs, t_vals, state.step,
+                                generator, draws.get(noise_key))
+            loss.backward()
+        finally:
+            _unfold_in_place(pairs, raw)
+        return loss, aux
+
+    return grad_fn
+
+
 def make_train_step(cfg: NeRFConfig, near: float, far: float,
                     render_pass: Callable | None = None) -> Callable:
     """The train step: the coarse+fine parity step or the online-proposal
@@ -454,30 +532,22 @@ def make_train_step(cfg: NeRFConfig, near: float, far: float,
     ``draws`` (uniforms in [0, 1); tests replay the JAX package's):
     ``{'t': U, 'pdf': U (B, NS_FINE)}`` for the parity step, ``{'t': U,
     'chain': [U_level1, ...]}`` for the proposal step.  The loss is
-    :func:`make_loss_fn`'s.  Gradients land in each parameter's ``.grad``
-    (kept after the step), then Adam and the EMA update the state in
-    place; the EMA shadow takes the BatchNorm running statistics as they are
-    (the JAX eval state pairs the EMA params with the trained ``bn``).
-    Metrics (0-d device tensors, the JAX meanings): ``loss_coarse``
-    the coarse MSE (proposal: the interlevel loss), ``loss`` the fine MSE,
-    ``psnr`` of the fine rgb.
+    :func:`make_loss_fn`'s, under the frequency-anneal fold of
+    :func:`make_grad_fn`.  Gradients land in each parameter's ``.grad``
+    (kept after the step), then Adam and the EMA update the raw parameters
+    in place; the EMA shadow takes the BatchNorm running statistics as
+    they are (the JAX eval state pairs the EMA params with the trained
+    ``bn``).  Metrics (0-d device tensors, the JAX meanings):
+    ``loss_coarse`` the coarse MSE (proposal: the interlevel loss), ``loss``
+    the fine MSE, ``psnr`` of the fine rgb.
     """
-    loss_fn = make_loss_fn(cfg, near, far, render_pass=render_pass)
-    noise_key = "chain" if cfg.train_sampler == "proposal" else "pdf"
+    grad_fn = make_grad_fn(cfg, near, far, render_pass=render_pass)
 
     def train_step(state: TrainState, batch, draws: dict | None = None,
                    generator: torch.Generator | None = None) -> dict:
-        images, origins, dirs = batch
-        draws = draws or {}
-        t_vals = draw_t_vals(cfg, near, far, images.shape[:-1], images.device,
-                             generator, draws.get("t"))
+        images = batch[0]
         params = params_of(state.params)
-        for p in params:
-            p.grad = None
-        loss, (loss_coarse, loss_fine, rgb_fine) = loss_fn(
-            state.params, images, origins, dirs, t_vals, state.step, generator,
-            draws.get(noise_key))
-        loss.backward()
+        _, (loss_coarse, loss_fine, rgb_fine) = grad_fn(state, batch, draws, generator)
         state.opt.step([p.grad for p in params])
         if state.ema is not None:
             d = cfg.ema_decay
@@ -504,13 +574,18 @@ def make_eval_step(cfg: NeRFConfig, near: float, far: float) -> Callable:
     t-values, deterministic draws, no gradients.  ``loss`` and ``psnr`` are
     those of the fine rgb; ``loss_coarse`` the coarse MSE (the coarse+fine
     render, one K1 launch per pass) or, for ``TRAIN_SAMPLER=proposal``, the
-    interlevel loss summed over levels."""
+    interlevel loss summed over levels.  Under ``FREQ_ANNEAL_STEPS``
+    ``models`` must be ``ops/freq_anneal.fold_train_params``'s, with the
+    window at their step folded in (``Trainer`` folds its eval weights at
+    its step); raw models raise ``ValueError``."""
     check_render_support(cfg)
+    _check_freq_anneal_resolved(cfg)
     if cfg.train_sampler != "proposal":
         forward = _make_eval_forward(cfg)
 
         @torch.no_grad()
         def eval_step_coarse(models, batch) -> dict:
+            require_folded(cfg, models)
             images, origins, dirs = batch
             t_vals = generate_t_vals(near, far, tuple(images.shape[:-1]), cfg.ns_coarse,
                                      "center", device=images.device).contiguous()
@@ -526,6 +601,7 @@ def make_eval_step(cfg: NeRFConfig, near: float, far: float) -> Callable:
 
     @torch.no_grad()
     def eval_step(models, batch) -> dict:
+        require_folded(cfg, models)
         images, origins, dirs = batch
         t_vals = generate_t_vals(near, far, tuple(images.shape[:-1]), cfg.ns_coarse,
                                  "center", device=images.device).contiguous()
@@ -660,8 +736,10 @@ def make_render_fn(cfg: NeRFConfig, near: float, far: float,
     through :func:`make_forward_pass` (K5's forward on the card); the
     rgb/depth-only render stays on K1, which keeps them on chip.
     ``want_weights`` (proposal only) adds ``weights_fine`` and ``t_fine``
-    (:func:`make_proposal_render_fn`)."""
+    (:func:`make_proposal_render_fn`).  As in :func:`make_eval_step`, an
+    annealed config takes only folded models."""
     check_render_support(cfg)
+    _check_freq_anneal_resolved(cfg)
     if cfg.train_sampler == "proposal":
         if full:
             raise ValueError(
@@ -676,6 +754,7 @@ def make_render_fn(cfg: NeRFConfig, near: float, far: float,
         )
 
         def render_proposal(models, origins, dirs):
+            require_folded(cfg, models)
             return inner(models["proposal"], models["fine"], origins, dirs)
 
         return render_proposal
@@ -688,6 +767,7 @@ def make_render_fn(cfg: NeRFConfig, near: float, far: float,
         forward_full = make_forward_pass(cfg)
 
         def render_full(models, origins, dirs):
+            require_folded(cfg, models)
             rgb, depth, weights, preds = forward_full(
                 models, origins, dirs, center_t(origins), deterministic=True)
             return {
@@ -702,6 +782,7 @@ def make_render_fn(cfg: NeRFConfig, near: float, far: float,
     forward = _make_eval_forward(cfg)
 
     def render(models, origins, dirs):
+        require_folded(cfg, models)
         out = forward(models, origins, dirs, center_t(origins))
         return {
             k: out[k]

@@ -39,6 +39,13 @@ Adam state (so the JAX package's ``Trainer.restore`` loads it);
 and its count (which the ``LR_FINAL`` decay reads).  A checkpoint
 without the Adam state restores with a fresh Adam.
 
+With ``FREQ_ANNEAL_STEPS`` every eval, render, int8 calibration,
+proposal distillation and ``infer_digest`` reads the eval weights with the
+window at the current step folded in (``_folded_eval_params``, built once
+per step); the masked octaves' columns hold init values that the trained
+paths never see.  NDC models (``NDC``) take NDC rays from ``pose_rays``,
+which refuses a camera that is not forward-facing.
+
 ``BATCH_NORM`` models keep their running statistics as module buffers;
 the EMA shadow carries the training models' statistics (the JAX eval
 state pairs the EMA params with the trained ``bn``).
@@ -68,6 +75,7 @@ from nerf_keras_tpu_torch.engine.step import (
 )
 from nerf_keras_tpu_torch.models.mlp import NeRFMLP
 from nerf_keras_tpu_torch.ops.encoding import encode_position
+from nerf_keras_tpu_torch.ops.freq_anneal import FoldedModels, fold_train_params
 from nerf_keras_tpu_torch.ops.proposal import (
     ProposalMLP,
     chain_nets,
@@ -83,7 +91,7 @@ from nerf_keras_tpu_torch.ops.quant import (
     qparams_to_jax,
     quantize_render_params,
 )
-from nerf_keras_tpu_torch.ops.rays import get_rays
+from nerf_keras_tpu_torch.ops.rays import NDC_NEAR_PLANE, get_rays, ndc_rays
 from nerf_keras_tpu_torch.runtime import resolve_device
 from nerf_keras_tpu_torch.utils.checkpoint import (
     check_render_support,
@@ -216,6 +224,7 @@ class Trainer:
         each is a function of the weights it was built from, and a server
         must never render stale ones after new weights arrive."""
         self._qparams = self._render_q = None
+        self._folded = None
         self._pparams = self._render_p = self._render_pq = None
         self._prop_l_xyz = self._distill_loss = None
         self.distill_losses: list[float] = []
@@ -226,7 +235,6 @@ class Trainer:
         (the JAX package's forward-compat rule).  Adam's count and moments
         come from the checkpoint when it has them, else Adam restarts."""
         ckpt = load_checkpoint(path)
-        check_render_support(self.cfg, step=ckpt["step"])
         if self.cfg.batch_norm and ckpt["bn"] is None:
             raise KeyError(f"checkpoint at {path} has no BatchNorm statistics (.bn) "
                            "for this BATCH_NORM config")
@@ -284,8 +292,21 @@ class Trainer:
 
     @property
     def eval_params(self) -> dict[str, nn.Module]:
-        """Models every eval and render consumes (the EMA shadow when on)."""
+        """The raw eval models: the EMA shadow when on, else the params."""
         return self.ema if self.ema is not None else self.params
+
+    def _folded_eval_params(self) -> FoldedModels:
+        """The models every eval, render and derived artifact consumes:
+        :attr:`eval_params` with the frequency-anneal window at the current
+        step folded in (``fold_train_params``: copies, rebuilt when the step
+        or the weights change; the eval models themselves where the fold
+        is the identity, no anneal or past its horizon)."""
+        if self._folded is None or self._folded.step != self.step:
+            # Normal tensors even when asked inside render_rays'
+            # inference mode: the kernels' pack caches read versions.
+            with torch.inference_mode(False):
+                self._folded = fold_train_params(self.cfg, self.eval_params, self.step)
+        return self._folded
 
     # ------------------------------------------------------------------
     def put_batch(self, batch) -> tuple[torch.Tensor, ...]:
@@ -326,7 +347,7 @@ class Trainer:
         if self._eval_step is None:
             check_train_support(self.cfg, self.device)
             self._eval_step = make_eval_step(self.cfg, self.near, self.far)
-        return self._eval_step(self.eval_params, self.put_batch(batch))
+        return self._eval_step(self._folded_eval_params(), self.put_batch(batch))
 
     def evaluate(self, batches: Iterable) -> dict:
         """Mean eval metrics over batches, fetched once."""
@@ -354,7 +375,7 @@ class Trainer:
         origins, directions = _subsample(origins, directions, calib_rays, seed)
         o = torch.tensor(origins, device=self.device)
         d = torch.tensor(directions, device=self.device)
-        models = self.eval_params
+        models = self._folded_eval_params()
         trees = {k: mlp_tree(m) for k, m in models.items() if k != "proposal"}
         with torch.no_grad():
             if self.proposal:
@@ -421,7 +442,7 @@ class Trainer:
             raise ValueError("the proposal sampler places fine samples; ns_fine must "
                              "be positive")
         origins, directions = _subsample(origins, directions, calib_rays, seed)
-        fine = self.eval_params["fine"]
+        fine = self._folded_eval_params()["fine"]
         cdt = fine.compute_dtype
 
         def sigma_fn(pts):
@@ -473,12 +494,10 @@ class Trainer:
     def infer_digest(self) -> str:
         """The digest of the eval weights and the config fields the int8
         tables and the distilled net depend on (the JAX package's, so one
-        checkpoint gives the same hex string in both)."""
-        # The JAX package hashes its eval params with the frequency-anneal
-        # window folded in.  The port renders no checkpoint inside the
-        # window (check_render_support), where the fold is the identity;
-        # once ops/freq_anneal.py is ported, fold before hashing.
-        return params_digest(models_to_jax(self.eval_params), extra={
+        checkpoint gives the same hex string in both).  The weights are the
+        folded ones: inside a frequency-anneal window the artifacts are
+        functions of the window too."""
+        return params_digest(models_to_jax(self._folded_eval_params()), extra={
             "skip_layer": self.cfg.skip_layer, "l_xyz": self.cfg.l_xyz,
             "l_dir": self.cfg.l_dir, "compute_dtype": self.cfg.compute_dtype})
 
@@ -535,8 +554,22 @@ class Trainer:
     def pose_rays(
         self, pose: np.ndarray, height: int, width: int, focal: float
     ) -> tuple[torch.Tensor, torch.Tensor]:
-        """Flat ``(H*W, 3)`` ray origins and directions on the device."""
+        """Flat ``(H*W, 3)`` ray origins and directions on the device, in
+        the space the renderer expects: NDC for ``NDC`` models, which needs
+        a forward-facing camera (every ray ``d_z < 0``; a sideways pose
+        would divide by ~0 and render NaN frames) and raises
+        ``ValueError`` otherwise."""
         origins, dirs = get_rays(height, width, focal, pose, device=self.device)
+        if self.cfg.ndc:
+            max_dz = float(dirs[..., 2].max())
+            if not max_dz < 0:
+                raise ValueError(
+                    "NDC rendering requires a forward-facing camera "
+                    f"(all ray d_z < 0; got max d_z = {max_dz:.4f}). "
+                    "Use the capture-implied path (inference.py --path "
+                    "spiral) for NDC-trained checkpoints."
+                )
+            origins, dirs = ndc_rays(height, width, focal, NDC_NEAR_PLANE, origins, dirs)
         return (origins.reshape(-1, 3).contiguous(),
                 dirs.reshape(-1, 3).contiguous())
 
@@ -624,7 +657,7 @@ class Trainer:
         origins = origins.contiguous()
         directions = directions.contiguous()
 
-        models = self.eval_params
+        models = self._folded_eval_params()
         outs: dict[str, list] = {}
         for start in range(0, n, chunk):
             keep = min(chunk, n - start)

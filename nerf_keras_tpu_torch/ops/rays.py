@@ -1,8 +1,9 @@
 """Ray generation and camera-pose math.
 
 Counterpart of ``nerf_keras_tpu/ops/rays.py`` (``get_rays``,
-``sample_rays`` and the spherical pose helpers).  Directions stay
-unnormalised, as in the reference.  ``ndc_rays`` is not ported yet.
+``sample_rays``, the NDC reparameterization ``ndc_rays`` of
+forward-facing rays, and the spherical pose helpers).  Directions stay
+unnormalised, as in the reference.
 """
 
 from __future__ import annotations
@@ -53,6 +54,51 @@ def sample_rays(
     )
     dirs = ray_directions[..., None, :].expand(points.shape)
     return points, dirs
+
+
+# The world-space near plane of the NDC projection, shared by training
+# (``data/pipeline.dataset_to_ndc``) and rendering (``Trainer.pose_rays``):
+# a mismatch silently shifts where t'=0 lands.  After LLFF's bound
+# rescaling (bd_factor 0.75) the closest bound sits at ~1.33.
+NDC_NEAR_PLANE = 1.0
+
+
+def ndc_rays(
+    height: int,
+    width: int,
+    focal: float,
+    near: float,
+    ray_origins,
+    ray_directions,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Forward-facing rays (``d_z < 0``) into normalized device
+    coordinates, where ``t in [0, 1]`` sweeps from the near plane to
+    infinity (the original NeRF's appendix C).
+
+    Each origin moves onto the world plane ``z = -near`` along its ray,
+    then ``o' = (-f/(W/2) o_x/o_z, -f/(H/2) o_y/o_z, 1 + 2n/o_z)`` and
+    ``d' = (-f/(W/2) (d_x/d_z - o_x/o_z), -f/(H/2) (d_y/d_z - o_y/o_z),
+    -2n/o_z)``, in float32 with the JAX package's order of operations.
+    ``(..., 3)`` tensors or arrays in; ``(origins, directions)`` float32
+    tensors on the origins' device out; sample them with bounds [0, 1].
+    """
+    o = torch.as_tensor(ray_origins, dtype=torch.float32)
+    d = torch.as_tensor(ray_directions, dtype=torch.float32, device=o.device)
+    focal = torch.tensor(float(focal), dtype=torch.float32, device=o.device)
+    near = torch.tensor(float(near), dtype=torch.float32, device=o.device)
+
+    # Shift the origins onto the near plane so that t'=0 starts there.
+    t = -(near + o[..., 2]) / d[..., 2]
+    o = o + t[..., None] * d
+
+    ox, oy, oz = o[..., 0], o[..., 1], o[..., 2]
+    dx, dy, dz = d[..., 0], d[..., 1], d[..., 2]
+    sx = -focal / (0.5 * width)
+    sy = -focal / (0.5 * height)
+    o_ndc = torch.stack([sx * ox / oz, sy * oy / oz, 1.0 + 2.0 * near / oz], dim=-1)
+    d_ndc = torch.stack(
+        [sx * (dx / dz - ox / oz), sy * (dy / dz - oy / oz), -2.0 * near / oz], dim=-1)
+    return o_ndc, d_ndc
 
 
 # Spherical camera paths: host-side numpy, computed once per frame.

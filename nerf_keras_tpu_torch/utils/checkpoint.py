@@ -17,8 +17,7 @@ proposal tree as ``['proposal']['layers'][i]`` (one level) or
 ``save_checkpoint``'s counterpart), named by :func:`checkpoint_name`.
 
 What the port does not render raises ``NotImplementedError``: the
-union-free proposal layout (``PROP_UNION=false``), ``NDC``, and a
-frequency-anneal window that is not yet the identity.
+union-free proposal layout (``PROP_UNION=false``).
 """
 
 from __future__ import annotations
@@ -239,23 +238,12 @@ def load_checkpoint_scene(path: str) -> dict | None:
     }
 
 
-def check_render_support(cfg: NeRFConfig, step: int | None = None) -> None:
-    """Raise ``NotImplementedError`` for what this slice does not render.
-    With ``step`` the frequency-anneal window is checked too: it is the
-    identity when the knob is off or the run is past its horizon."""
+def check_render_support(cfg: NeRFConfig) -> None:
+    """Raise ``NotImplementedError`` for what the port does not render."""
     if cfg.train_sampler == "proposal" and not cfg.prop_union:
         raise NotImplementedError(
             "PROP_UNION=false (union-free proposal) checkpoints are not "
             "ported yet (a later PR); the union layout renders"
-        )
-    if cfg.ndc:
-        raise NotImplementedError("NDC rendering is not ported yet (later PR)")
-    horizon = cfg.freq_anneal_steps
-    if step is not None and horizon > 0 and step < horizon:
-        raise NotImplementedError(
-            f"checkpoint at step {step} is inside its {horizon}-step "
-            "frequency-anneal window; the window fold is not ported yet "
-            "(only completed runs, whose window is the identity, render)"
         )
 
 

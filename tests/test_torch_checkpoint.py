@@ -85,22 +85,58 @@ def test_resolve_infer_config_matches_jax(jax_file):
     ("train_sampler", "proposal"), ("ndc", True),
 ])
 def test_unported_render_modes_raise(jax_file, tmp_path, field, value):
+    """The union-free proposal layout still raises; an NDC checkpoint (the
+    ``ndc`` case, ported) renders in NDC space instead."""
     path, state = jax_file
     # The proposal case is its union-free layout: the union layout renders.
     extra = {"prop_union": False} if value == "proposal" else {}
     cfg = dataclasses.replace(CFG, **{field: value}, **extra).validate()
     out = str(tmp_path / "x.ckpt.npz")
     ckpt.save_params_npz(out, jax.tree_util.tree_map(np.asarray, state.params), cfg)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ckpt.resolve_infer_config(CFG, out)
+    if field != "ndc":
+        with pytest.raises(NotImplementedError, match="not ported"):
+            ckpt.resolve_infer_config(CFG, out)
+        return
+    # NDC checkpoints render: the sidecar's NDC wins over the user config,
+    # as in the JAX package, and the Trainer takes NDC rays.
+    from nerf_keras_tpu_torch.engine.trainer import Trainer
+
+    ours, notes = ckpt.resolve_infer_config(CFG, out)
+    assert (ours, notes) == jckpt.resolve_infer_config(CFG, out)
+    assert ours.ndc
+    pose = np.array([[1, 0, 0, 0], [0, 1, 0, 0], [0, 0, 1, 1.5]], np.float32)
+    pt = Trainer(ours, 0.0, 1.0, device="cpu").restore(out)
+    jt = JaxTrainer(ours, 0.0, 1.0)  # the rays depend on no weights
+    for a, b in zip(pt.pose_rays(pose, 8, 8, 9.0), jt.pose_rays(pose, 8, 8, 9.0)):
+        np.testing.assert_allclose(a.numpy(), b, rtol=1e-6, atol=1e-6)
+    assert np.isfinite(pt.render_image(pose, 8, 8, 9.0)["rgb"]).all()
 
 
-def test_freq_anneal_window_must_be_identity():
+def test_freq_anneal_window_must_be_identity(jax_file, tmp_path):
+    """A checkpoint inside its frequency-anneal window renders, with the
+    window at its step folded into the weights (the JAX Trainer's render of
+    the same file); past the horizon the window is the identity."""
+    from nerf_keras_tpu_torch.engine.trainer import Trainer
+
+    _, state = jax_file
     cfg = dataclasses.replace(CFG, freq_anneal_steps=100).validate()
-    ckpt.check_render_support(cfg, step=100)  # past the horizon: identity
-    ckpt.check_render_support(dataclasses.replace(cfg, freq_anneal_steps=0), step=3)
-    with pytest.raises(NotImplementedError, match="frequency-anneal"):
-        ckpt.check_render_support(cfg, step=99)
+    ckpt.check_render_support(cfg)
+    rng = np.random.default_rng(0)
+    o = np.tile(np.float32([0, 0, 4.0]), (32, 1))
+    d = rng.normal(size=(32, 3)).astype(np.float32) * 0.2 - np.float32([0, 0, 1])
+    frames = []
+    for step in (30, 100):
+        out = str(tmp_path / f"s{step}.ckpt.npz")
+        jckpt.save_checkpoint(out, state._replace(step=np.int32(step)), cfg)
+        pt = Trainer(cfg, 2.0, 6.0, device="cpu").restore(out)
+        jt = JaxTrainer(cfg, 2.0, 6.0).restore(out)
+        got = pt.render_rays(o, d, keys=("rgb_fine",))["rgb_fine"]
+        want = jt.render_rays(o, d, keys=("rgb_fine",))["rgb_fine"]
+        # bf16 MLPs: the fine samples follow the coarse weights (as in
+        # tests/test_torch_render.py).
+        np.testing.assert_allclose(got, want, atol=5e-3, rtol=0)
+        frames.append(got)
+    assert np.abs(frames[0] - frames[1]).max() > 2e-2  # the window at step 30 matters
 
 
 def test_resolve_checkpoint_prefers_best(tmp_path):

@@ -269,3 +269,55 @@ def test_batches_reaching_train_step_are_the_jax_pipeline(tmp_path, monkeypatch,
     for got, ref in zip(seen, want):
         for a, b in zip(got, ref):
             np.testing.assert_array_equal(a, b)
+
+
+# An LLFF capture at 12x16 (5 views: 4 train, the holdout val), a 4x16 MLP.
+FERN = {**TINY, "HEIGHT": 12, "WIDTH": 16, "BATCH_SIZE": 64, "HIDDEN_DIM": 16,
+        "NS_FINE": 16}
+
+
+@pytest.mark.parametrize("ndc", [False, True])
+def test_train_fern_end_to_end(tmp_path, capsys, monkeypatch, ndc):
+    """``cli.train_fern`` on a capture it has not seen before, world space
+    and NDC (with the frequency anneal open through the run): the rays the
+    steps train on are the JAX loader's (through the JAX ``dataset_to_ndc``
+    for NDC), the printed bounds, the sidecar's ``SCENE``, a falling loss."""
+    from nerf_keras_tpu.data.llff import prepare_fern_data as jax_prepare_fern
+    from nerf_keras_tpu_torch.cli import train_fern
+    from nerf_keras_tpu_torch.data.synthetic import write_forward_facing_capture
+    from nerf_keras_tpu_torch.utils.checkpoint import load_checkpoint_scene
+
+    capture = write_forward_facing_capture(str(tmp_path / "cap"), 5, 12, 16, 15.0)
+    config = _config(tmp_path, **FERN, **({"NDC": True, "FREQ_ANNEAL_STEPS": 40} if ndc
+                                         else {}))
+    seen = []
+    real_step = Trainer.train_step
+
+    def record(self, batch, draws=None):
+        seen.append(tuple(np.array(x) for x in batch))
+        return real_step(self, batch, draws)
+
+    monkeypatch.setattr(Trainer, "train_step", record)
+    tr = train_fern.main(["--config", config, "--data-dir", capture, "--run-dir",
+                          str(tmp_path / "run"), "--device", "cpu"])
+    out = capsys.readouterr().out
+    bounds = "near=0.000 far=1.000" if ndc else "near=1.200 far=3.111"
+    assert f"rays: train=768 val=192 {bounds} focal=15.00" in out
+    train, _, bounds, _ = jax_prepare_fern(12, 16, basedir=capture)
+    bounds = (0.0, 1.0) if ndc else bounds
+    assert tr.step == 2 * 12 and (tr.near, tr.far) == bounds
+    if ndc:
+        train = jpipe.dataset_to_ndc(train)
+    want = [b for epoch in range(2)
+            for b in jpipe.iterate_batches(train, 64, shuffle=True, seed=42, epoch=epoch)]
+    assert len(seen) == len(want)
+    for got, ref in zip(seen, want):
+        for a, b in zip(got, ref):
+            np.testing.assert_allclose(a, np.asarray(b), rtol=1e-6, atol=1e-6)
+
+    ckpt = str(tmp_path / "run" / "nerf_l4_d16_n24_ep2.ckpt.npz")
+    scene = load_checkpoint_scene(ckpt)
+    assert scene["ndc"] is ndc and scene["focal"] == 15.0
+    assert (scene["near"], scene["far"]) == bounds
+    history = History.load(str(tmp_path / "run" / "history_l4_d16_n24_ep2.json"))
+    assert np.isfinite(history.losses).all() and history.losses[1] < history.losses[0]

@@ -91,8 +91,11 @@ def test_build_ray_dataset_and_focal():
     _same_ds(got, want, pixel_tol=0.0)
     assert ppipe.rescale_focal(50.0, 100, 100, 25, 40) == jpipe.rescale_focal(
         50.0, 100, 100, 25, 40)
-    with pytest.raises(NotImplementedError, match="NDC"):
-        ppipe.dataset_to_ndc(got)
+    # These cameras look down at 30 degrees, so every ray is forward-facing
+    # and NDC applies: bounds [0, 1], the JAX rays.
+    ndc = ppipe.dataset_to_ndc(got)
+    _same_ds(ndc, jpipe.dataset_to_ndc(want), pixel_tol=0.0)
+    assert (ndc.near, ndc.far) == (0.0, 1.0)
 
 
 @pytest.mark.parametrize("scene,holdout,size", [

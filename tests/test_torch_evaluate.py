@@ -1,7 +1,9 @@
 """The port's evaluation CLI (``cli/evaluate.py``) against the JAX package's.
 
 Both score the same checkpoint on the procedural synthetic scene at 20x20
-(3 val views).  Per-view PSNR within 0.05 dB and SSIM within 1e-3: the
+(3 val views), and a checkpoint ``cli.train_fern`` wrote on an LLFF
+capture (``--data llff``: its holdout view, world space and NDC;
+``fern_run.py``).  Per-view PSNR within 0.05 dB and SSIM within 1e-3: the
 float renders agree to ~1e-6 rgb (``tests/test_torch_render.py``), far
 inside both.  With ``--quant int8 --sampler proposal`` the port loads the
 ``--infer-cache`` the JAX run wrote, so both render with the same int8
@@ -22,6 +24,8 @@ from nerf_keras_tpu.config import load_config as jax_load_config
 from nerf_keras_tpu.engine.step import init_train_state
 from nerf_keras_tpu.utils.checkpoint import save_checkpoint
 from nerf_keras_tpu_torch.cli.evaluate import run_evaluation
+
+from fern_run import fern_run
 
 torch.set_num_threads(1)
 
@@ -127,16 +131,60 @@ def test_unported_inputs_raise_before_any_work(tmp_path, monkeypatch):
         raise AssertionError("work started")
 
     monkeypatch.setattr(pev, "Trainer", no_trainer)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+    # An LLFF capture without its minified frames (building them is not
+    # ported), and a remote root.
+    capture = tmp_path / "capture"
+    (capture / "images").mkdir(parents=True)
+    np.save(capture / "poses_bounds.npy", np.zeros((3, 17)))
+    with pytest.raises(NotImplementedError, match="images_8"):
         run_evaluation(["--config", cfg_path, "--checkpoint", ckpt, "--data", "llff",
-                        "--device", "cpu"])
-    ndc = _write_config(tmp_path, "ndc", NDC=True)
-    with pytest.raises(NotImplementedError, match="NDC"):
-        run_evaluation(["--config", ndc, "--checkpoint", _make_ckpt(tmp_path, ndc, "ndc"),
+                        "--data-dir", str(capture), "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="remote storage"):
+        run_evaluation(["--config", cfg_path, "--checkpoint", ckpt, "--data", "llff",
+                        "--data-dir", "gs://dataset-nerf/nerf_llff_data/fern",
                         "--device", "cpu"])
     with pytest.raises(SystemExit):
         run_evaluation(["--config", cfg_path, "--checkpoint", ckpt, "--split", "test",
                         "--device", "cpu"])
+
+
+@pytest.mark.parametrize("ndc", [False, True])
+def test_llff_report_matches_jax(tmp_path, monkeypatch, ndc):
+    """``--data llff`` on a checkpoint ``cli.train_fern`` wrote (world space,
+    and NDC with the anneal window still open): the holdout view's report
+    within 0.05 dB of the JAX CLI's.  With ``--quant int8`` the tables are
+    calibrated on train views in the checkpoint's ray space (NDC there),
+    never on the scored view."""
+    from nerf_keras_tpu.data import pipeline as jpipe
+    from nerf_keras_tpu.data.llff import prepare_fern_data as jax_prepare_fern
+    from nerf_keras_tpu_torch.engine.trainer import Trainer
+
+    capture, cfg_path, run = fern_run(ndc)
+    argv = ["--config", cfg_path, "--checkpoint", run, "--data", "llff", "--data-dir",
+            capture]
+    theirs = jax_run_evaluation(argv + ["--platform", "cpu", "--out", str(tmp_path / "j.json")])
+    ours = run_evaluation(argv + ["--device", "cpu", "--out", str(tmp_path / "p.json")])
+    assert len(ours["views"]) == len(theirs["views"]) == 1
+    for k in ("psnr", "ssim"):
+        assert abs(ours["mean"][k] - theirs["mean"][k]) <= (0.05 if k == "psnr" else 1e-3)
+    assert ours["mean"]["psnr"] > 10.0
+
+    seen = {}
+    real = Trainer.quantize_for_inference
+
+    def record(self, origins, directions, **kw):
+        seen["rays"] = (np.asarray(origins), np.asarray(directions))
+        return real(self, origins, directions, **kw)
+
+    monkeypatch.setattr(Trainer, "quantize_for_inference", record)
+    q = run_evaluation(argv + ["--device", "cpu", "--quant", "int8", "--out",
+                               str(tmp_path / "q.json")])
+    train, _, _, _ = jax_prepare_fern(12, 16, basedir=capture)
+    if ndc:
+        train = jpipe.dataset_to_ndc(train)
+    np.testing.assert_allclose(seen["rays"][0], train.origins, rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(seen["rays"][1], train.directions, rtol=1e-6, atol=1e-6)
+    assert abs(q["mean"]["psnr"] - ours["mean"]["psnr"]) < 1.0
 
 
 def test_no_silent_cpu(tmp_path, monkeypatch):

@@ -22,6 +22,8 @@ from nerf_keras_tpu_torch.config import load_config
 from nerf_keras_tpu_torch.engine.trainer import Trainer
 from nerf_keras_tpu_torch.utils.png import decode_png
 
+from fern_run import fern_run
+
 torch.set_num_threads(1)
 
 FOCAL = 24.0
@@ -182,9 +184,11 @@ def test_profile_writes_a_trace(ckpt, tmp_path):
 
 def test_unported_paths_raise(ckpt, tmp_path, monkeypatch):
     cfg_path, path = ckpt
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+    # The spiral is the capture's own path: without a capture, the JAX
+    # CLI's exit.
+    with pytest.raises(SystemExit, match="--path spiral requires --data-dir"):
         run_inference(["--config", cfg_path, "--checkpoint", path, "--path", "spiral",
-                       "--data-dir", str(tmp_path), "--device", "cpu"])
+                       "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="queue 1 item 8"):
         run_inference(["--config", cfg_path, "--reference-weights", "ref.weights.h5",
                        "--device", "cpu"])
@@ -195,3 +199,47 @@ def test_unported_paths_raise(ckpt, tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         run_inference(["--config", cfg_path, "--checkpoint", path])
+
+
+@pytest.mark.parametrize("spherify", [False, True])
+def test_spiral_poses_from_capture_match_jax(tmp_path, spherify):
+    from nerf_keras_tpu.cli.infer import spiral_poses_from_capture as jax_spiral
+    from nerf_keras_tpu_torch.cli.infer import spiral_poses_from_capture
+    from nerf_keras_tpu_torch.data.synthetic import write_forward_facing_capture
+
+    capture = write_forward_facing_capture(str(tmp_path / "cap"), 5, 12, 16, 15.0)
+    ours = spiral_poses_from_capture(capture, 7, spherify=spherify)
+    theirs = jax_spiral(capture, 7, spherify=spherify)
+    assert len(ours) == len(theirs) == 7
+    for a, b in zip(ours, theirs):
+        assert a.shape == (3, 4)
+        np.testing.assert_allclose(a, b, atol=1e-6, rtol=0)
+
+
+def test_spiral_frames_match_the_jax_cli(tmp_path, monkeypatch):
+    """``--path spiral`` on an NDC checkpoint that ``cli.train_fern`` wrote
+    with its frequency-anneal window open, float and ``--quant int8``:
+    every frame within rgb 5e-3 (one uint8 level) of the JAX CLI's; the
+    orbit raises the forward-facing ``ValueError`` on the same
+    checkpoint."""
+    import nerf_keras_tpu.cli.infer as jinfer
+
+    capture, cfg_path, run = fern_run(ndc=True)
+    captured = {}
+    monkeypatch.setattr(jinfer, "write_video",
+                        lambda path, frames, fps: captured.setdefault(path, frames) and path)
+    base = ["--config", cfg_path, "--checkpoint", run, "--path", "spiral",
+            "--data-dir", capture, "--frames", "3", "--chunk", "64"]
+    for extra in ([], ["--quant", "int8", "--quant-gate-db", "0"]):
+        out = str(tmp_path / f"{len(extra)}.mp4")
+        jinfer.run_inference(base + extra + ["--out", out, "--platform", "cpu"])
+        written = run_inference(base + extra + ["--out", out, "--device", "cpu"])
+        ours, theirs = _frames(written, 3), captured[out]
+        assert len(theirs) == 3
+        for a, b in zip(ours, theirs):
+            assert a.shape == (12, 16, 3)
+            assert np.abs(a.astype(np.int16) - np.asarray(b, np.int16)).max() <= 1
+        assert ours[0].std() > 1.0
+    with pytest.raises(ValueError, match="forward-facing camera"):
+        run_inference(["--config", cfg_path, "--checkpoint", run, "--frames", "1",
+                       "--phi", "0", "--out", str(tmp_path / "o.mp4"), "--device", "cpu"])

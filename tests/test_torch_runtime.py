@@ -2,6 +2,7 @@
 
 import dataclasses
 
+import jax
 import pytest
 import torch
 
@@ -41,6 +42,8 @@ def test_resolve_device_is_explicit_and_pins_fp32(monkeypatch):
     ("train_sampler", "proposal"), ("ndc", True), ("batch_norm", True),
 ])
 def test_render_refuses_unported_configs(field, value):
+    """The union-free proposal layout still raises; BatchNorm and NDC (the
+    other cases, ported) render instead."""
     # The proposal case is its union-free layout: the union layout renders.
     if field == "batch_norm":
         # BatchNorm renders (the plain MLP on every device); what both
@@ -53,6 +56,22 @@ def test_render_refuses_unported_configs(field, value):
         cfg = dataclasses.replace(CFG, batch_norm=True)
         make_render_fn(cfg, 2.0, 6.0)
         Trainer(cfg, 2.0, 6.0, device="cpu")
+        return
+    if field == "ndc":
+        # NDC renders: the render function and the Trainer build, and an
+        # NDC frame of a forward-facing camera matches the JAX Trainer's.
+        import numpy as np
+        from nerf_keras_tpu.engine.trainer import Trainer as JaxTrainer
+
+        cfg = dataclasses.replace(CFG, ndc=True)
+        make_render_fn(cfg, 0.0, 1.0)
+        jt = JaxTrainer(cfg, 0.0, 1.0)
+        pt = Trainer(cfg, 0.0, 1.0, device="cpu")
+        pt.replace_params(jax.device_get(jt.state.params))
+        pose = np.array([[1, 0, 0, 0.1], [0, 1, 0, 0], [0, 0, 1, 1.5]], np.float32)
+        np.testing.assert_allclose(pt.render_image(pose, 4, 4, 5.0)["rgb"],
+                                   np.asarray(jt.render_image(pose, 4, 4, 5.0)["rgb"]),
+                                   atol=5e-3, rtol=0)
         return
     extra = {"prop_union": False} if value == "proposal" else {}
     cfg = dataclasses.replace(CFG, **{field: value}, **extra)

@@ -234,7 +234,29 @@ def test_proposal_configs_are_supported():
     dict(prop_union=False, prop_union_every=4), dict(freq_anneal_steps=5),
 ])
 def test_unported_training_knobs_raise(knob):
+    """The proposal-variant knobs still raise.  ``FREQ_ANNEAL_STEPS`` (the
+    last case) is ported and trains instead; tests/test_torch_freq_anneal.py
+    holds its steps inside the window against the JAX step."""
     cfg = _cfg(**knob)
+    if "freq_anneal_steps" in knob:
+        # At the horizon the window is all ones: the step is the
+        # unannealed config's, bit for bit; one step earlier it is not.
+        pstep.check_train_support(cfg)
+        batch = _batch(0, cfg.batch_size)
+        draws = _draws(cfg, jax.random.PRNGKey(3), 5, cfg.batch_size)
+        ref = Trainer(_cfg(), NEAR, FAR, device="cpu")
+        trainers = [Trainer(cfg, NEAR, FAR, device="cpu"),
+                    Trainer(cfg, NEAR, FAR, device="cpu"), ref]
+        for tr, step in zip(trainers, (5, 4, 5)):
+            tr.replace_params(ref.params_tree())
+            tr.step = step
+        at, inside, want = [tr.train_step(batch, draws=draws) for tr in trainers]
+        for k in ("loss_coarse", "loss", "psnr"):
+            assert float(at[k]) == float(want[k]), k
+        assert float(inside["loss"]) != float(want["loss"])
+        for a, c in zip(_leaves(trainers[0].params_tree()), _leaves(ref.params_tree())):
+            np.testing.assert_array_equal(a, c)
+        return
     with pytest.raises(NotImplementedError, match="later"):
         pstep.check_train_support(cfg)
     with pytest.raises(NotImplementedError):
