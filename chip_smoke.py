@@ -162,7 +162,26 @@ nonzero — nothing falls back to the CPU or to a plain path):
     --frames 5``, float (K1 only) and ``--quant int8`` (the gate passes, 2
     K4 per chunk and no K1 after the gate's float frame), s per frame; (e)
     the orbit at ``--phi 0`` on (b) refused with the forward-facing
-    ``ValueError`` before any launch.
+    ``ValueError`` before any launch;
+22. ``dp``: data parallelism over rays (``nerf_keras_tpu_torch/parallel``)
+    at the parity step's widths (8x256, 64 + 128, bf16, global batch 4096,
+    random weights with nonzero biases): (a) a world of 1 on NCCL in a
+    child process (``Trainer(mesh=make_mesh())``), 3 steps with exactly 2
+    K1 training-mode and 2 K2 launches each, one gradient all-reduce a step
+    by the collective counter and by ``torch.profiler`` over 3 more steps
+    (one ``nccl:all_reduce`` host call a step; NCCL's device kernels are
+    reported: over one rank it launches none), the first step's gradients
+    equal, bit for bit, to one process without a mesh on the same batch
+    and draws, and the step ms with and without the mesh in that process
+    (CUDA events, median of 10 warm steps); (b) two ranks on gloo, both
+    on ``cuda:0`` (NCCL refuses two ranks on one device; gloo is asked for
+    explicitly), 2,048 rays each: exact K1/K2 launches, identical
+    parameter digests after 3 steps, the reduced gradients of step 1
+    against the one process on the 4,096 rays within K2's relative-L2
+    gate, while a copy whose rank 1 leaves its gradients out of the
+    reduce misses it by 10x; a 4,096-ray render split over the ranks with
+    no all-reduce; the step ms (two processes sharing one card: not a
+    scaling figure).
 
 Each main path runs with the launch counters set to 0 just before it and
 read just after.  The line before the last is the kernel report
@@ -230,8 +249,10 @@ from nerf_keras_tpu_torch.data import native as native_batcher
 from nerf_keras_tpu_torch.data.pipeline import dataset_to_ndc
 from nerf_keras_tpu_torch.data.synthetic import write_forward_facing_capture
 from nerf_keras_tpu_torch.ops.freq_anneal import anneal_alpha, freq_window
+from nerf_keras_tpu_torch.parallel.audit import run_ranks, run_two_process_smoke, tree_rel_l2
 from nerf_keras_tpu_torch.profile_render import union_us
 from nerf_keras_tpu_torch.utils.checkpoint import (
+    _flatten,
     checkpoint_name,
     resolve_checkpoint,
     save_params_npz,
@@ -2466,6 +2487,100 @@ def phase_fern_cli(card: str, tmp: str) -> list[dict]:
     return runs
 
 
+# Phase dp's gradient gate is K2's (relative L2 per leaf).  Two ranks are
+# not one process up to summation order alone: each rank's weight gradient
+# is rounded to bf16 before the sum (the cotangent of w.astype(bf16) is
+# bf16, in the JAX package as in the plain path), so the weight leaves
+# differ by ~bf16 epsilon: 2.5e-3 on an H100, 2.6e-3 in the plain path on
+# the CPU at 4x64; the biases by ~1e-7.
+DP_STEPS = 3
+# The children of phase dp start, build nothing (the kernels are built) and
+# take 3 + 10 steps; 300 s is a generous bound for one of them.
+DP_TIMEOUT = 300.0
+
+
+def _dp_launches(rec: dict, per_step: dict, render: dict | None = None) -> dict:
+    """A rank's main-path launches (its steps and render), each step held
+    to ``per_step`` exactly."""
+    for i, grew in enumerate(rec["launches"]):
+        if grew != per_step:
+            raise RuntimeError(f"dp rank {rec['rank']}: step {i} launched {grew}, "
+                               f"expected {per_step}")
+    if render is not None and rec["render_launches"] != render:
+        raise RuntimeError(f"dp rank {rec['rank']}: the render launched "
+                           f"{rec['render_launches']}, expected {render}")
+    total = dict(ZERO)
+    for grew in rec["launches"] + ([rec["render_launches"]] if render else []):
+        for k, v in grew.items():
+            total[k] += v
+    return total
+
+
+def phase_dp(card: str) -> list[dict]:
+    """Data parallelism: (a) a world of 1 on NCCL, (b) two gloo ranks on one
+    card, each against one process without a mesh (module docstring, 22)."""
+    cfg = parity_config()
+    params = random_params(cfg, seed=7)
+    batch = bench_batch(cfg.batch_size, seed=5)
+    spec = {"near": 2.0, "far": 6.0, "batch": batch, "params": params, "steps": DP_STEPS}
+    per_step = {"k1_train": 2, "k2": 2}
+
+    # The reference: one process, no mesh, the whole batch; its generator
+    # is seeded as every rank's, so the draws are the same.
+    one = Trainer(cfg, 2.0, 6.0, device="cuda").replace_params(params)
+    one.train_step(batch)
+    want = one.params_tree(grad=True)
+    del one
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    (rec,) = run_ranks(1, dict(spec, device="cuda", backend=None, cfg=cfg, time_steps=10,
+                               profile=DP_STEPS), timeout=DP_TIMEOUT)
+    a_s = time.perf_counter() - t0
+    launches = [_dp_launches(rec, per_step)]
+    got = _flatten(rec["grads"], "")
+    diff = max(float(np.abs(got[k] - w).max()) for k, w in _flatten(want, "").items())
+    nccl = rec["nccl_all_reduce"]
+    say("dp_world1_nccl", backend=rec["backend"], device=rec["device"], steps=DP_STEPS,
+        launches_per_step=rec["launches"], collectives=rec["audit"]["collectives"],
+        nccl_all_reduce=nccl, grads_max_abs_diff_vs_no_mesh=diff,
+        step_ms=rec["step_ms"], no_mesh_step_ms=rec["no_mesh_step_ms"], wall_s=a_s,
+        card=card)
+    if rec["backend"] != "nccl":
+        raise RuntimeError(f"world 1 ran on {rec['backend']}, not NCCL")
+    if nccl["host_calls"] != DP_STEPS or not nccl["device_events"]:
+        raise RuntimeError(f"the profiler saw {nccl} over {DP_STEPS} steps: expected one "
+                           f"NCCL all-reduce a step among the device work")
+    if diff != 0.0:
+        raise RuntimeError(f"world-1 gradients differ from the no-mesh step by {diff}")
+
+    t0 = time.perf_counter()
+    ranks = run_two_process_smoke("cuda", "gloo", dataclasses.asdict(cfg), DP_TIMEOUT,
+                                  **dict(spec, render_rays=cfg.batch_size, time_steps=10))
+    b_s = time.perf_counter() - t0
+    launches += [_dp_launches(r, per_step, {"k1_fwd": 2}) for r in ranks]
+    rel = tree_rel_l2(ranks[0]["grads"], want)
+    broken = run_two_process_smoke("cuda", "gloo", dataclasses.asdict(cfg), DP_TIMEOUT,
+                                   **dict(spec, steps=1, drop_rank=1))
+    rel_broken = tree_rel_l2(broken[0]["grads"], want)
+    say("dp_two_gloo_ranks_one_card", backend=ranks[0]["backend"],
+        devices=[r["device"] for r in ranks], rays_per_rank=cfg.batch_size // 2,
+        note="gloo asked for explicitly: NCCL refuses two ranks on one device; the two "
+             "processes share one card, so the step ms is not a scaling figure",
+        launches_per_step=ranks[0]["launches"], render_launches=ranks[0]["render_launches"],
+        collectives=ranks[0]["audit"]["collectives"],
+        render_collectives=ranks[0]["render_collectives"], digests_equal=True,
+        grads_max_rel_l2_vs_one_process=rel, tol_rel=K2_TOL_REL,
+        broken_rank1_left_out_rel_l2=rel_broken, step_ms=[r["step_ms"] for r in ranks],
+        wall_s=b_s, card=card)
+    if rel > K2_TOL_REL:
+        raise RuntimeError(f"two-rank gradients disagree with one process: {rel}")
+    if rel_broken < 10 * K2_TOL_REL:
+        raise RuntimeError(f"the gate cannot see a rank left out of the reduce: "
+                           f"{rel_broken} < 10 x {K2_TOL_REL}")
+    return launches
+
+
 def _sum(runs: list[dict], key: str) -> int:
     return sum(r[key] for r in runs)
 
@@ -2513,6 +2628,8 @@ def main() -> None:
         runs += phase_infer_cli(card, tmp, run_dir)
         torch.cuda.empty_cache()
         runs += phase_fern_cli(card, tmp)
+        torch.cuda.empty_cache()
+        runs += phase_dp(card)
     # Library yardsticks measured once and shared where two kernels do the
     # same products at the same M: K1's per-layer bf16 matmul at M = 4096 x
     # 192 is K5's forward at N = 786,432 and K6's forward at S=192; K2's dW

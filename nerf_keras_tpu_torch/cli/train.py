@@ -10,16 +10,28 @@ Adam state, the batch order and the history; a non-finite loss writes an
 emergency checkpoint and raises ``FloatingPointError``; SIGTERM ends the
 run at the next epoch boundary with a checkpoint.
 
+Data parallelism: launched as N processes (the ``NERF_*`` trio or
+torchrun's environment; ``parallel/distributed.py``), each rank drives
+one device, reads its contiguous shard of the training rays, feeds
+``BATCH_SIZE / N`` rows of every global batch and makes one gradient
+all-reduce per step; the metrics and the Krays/s are the global batch's.
+Rank 0 alone writes checkpoints, ``best.*``, the history, panels, the
+emergency checkpoint and the ``--profile`` trace.  SIGTERM sets a flag in
+the process it reaches, as in the JAX CLI: a launcher must signal every
+rank.
+
 Unlike the JAX CLI: ``--device`` (default ``cuda``; the CPU only with
-``--device cpu``) replaces ``--platform``; one process on one device (no
-multi-host sharding, no mesh); local paths only, so a ``WITH_GCS`` config
-needs ``--run-dir``; ``--profile`` writes a ``torch.profiler`` Chrome
-trace; there is no compilation cache to enable.
+``--device cpu``) replaces ``--platform``; one process drives one device
+(JAX drives every local device from one process); ``MESH_MODEL > 1``
+raises; local paths only, so a ``WITH_GCS`` config needs ``--run-dir``;
+``--profile`` writes a ``torch.profiler`` Chrome trace; there is no
+compilation cache to enable.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import datetime
 import inspect
@@ -34,6 +46,13 @@ import numpy as np
 from nerf_keras_tpu_torch.config import NeRFConfig, config_name, load_config
 from nerf_keras_tpu_torch.data.pipeline import RayDataset, dataset_to_ndc, iterate_batches
 from nerf_keras_tpu_torch.engine.trainer import Trainer
+from nerf_keras_tpu_torch.parallel.distributed import (
+    maybe_initialize,
+    process_info,
+    shard_dataset_for_process,
+    shutdown,
+)
+from nerf_keras_tpu_torch.parallel.mesh import config_mesh
 from nerf_keras_tpu_torch.runtime import resolve_device
 from nerf_keras_tpu_torch.utils import io, profiling
 from nerf_keras_tpu_torch.utils.checkpoint import (
@@ -120,7 +139,8 @@ def warn_chain_horizon(cfg: NeRFConfig) -> bool:
 def resolve_eval_batch(test_bs: int, n_val: int, data_div: int = 1,
                        proc_count: int = 1) -> int:
     """The eval batch: ``min(test_bs, n_val)`` rounded down to a multiple of
-    ``lcm(data_div, proc_count)`` (both 1 for the port's single device)."""
+    ``lcm(data_div, proc_count)`` (the port's data axis is its process
+    count: one process per device)."""
     div = math.lcm(data_div, proc_count)
     if n_val < div:
         raise ValueError(
@@ -213,17 +233,35 @@ def run_training(
     default_eval_every: int,
     argv: list[str] | None = None,
 ) -> Trainer:
-    """The whole training program; returns the Trainer (for tests)."""
+    """The whole training program; returns the Trainer (for tests).  Under
+    a launch environment it joins the process group first and leaves it at
+    the end."""
     args = build_arg_parser(default_config).parse_args(argv)
-    device = resolve_device(args.device)
     cfg = load_config(args.config)
+    maybe_initialize(args.device)
+    try:
+        return _train(args, cfg, prepare_data, default_eval_every)
+    finally:
+        shutdown()
+
+
+def _train(args, cfg: NeRFConfig, prepare_data, default_eval_every: int) -> Trainer:
+    """:func:`run_training` after the process group is joined."""
+    mesh = config_mesh(cfg.mesh_data, cfg.mesh_model)
+    rank, world = process_info()
+    device = mesh.device if mesh is not None else resolve_device(args.device)
+    if cfg.batch_size % world:
+        raise ValueError(f"BATCH_SIZE={cfg.batch_size} must be divisible by the process "
+                         f"count ({world})")
+    local_bs = cfg.batch_size // world
+    is_main = rank == 0
     if args.epochs is not None:
         cfg = dataclasses.replace(cfg, epochs=args.epochs)
     eval_every = resolve_eval_every(args.eval_every, cfg, default_eval_every)
     warn_chain_horizon(cfg)
     name = config_name(args.config)
     run_dir, viz_dir = resolve_run_dirs(cfg, name, args.run_dir)
-    print(f"{LOG} config={name} device={device} dtype={cfg.compute_dtype}")
+    print(f"{LOG} rank {rank}/{world} config={name} device={device} dtype={cfg.compute_dtype}")
 
     # Entry points adapt each loader to (h, w, data_dir=None); loaders
     # whose preprocessing follows the config (the Blender background)
@@ -244,17 +282,19 @@ def run_training(
         # Forward-facing captures: rays into the NDC cube, t in [0, 1].
         train_ds, val_ds = dataset_to_ndc(train_ds), dataset_to_ndc(val_ds)
         near, far = 0.0, 1.0
+    train_ds = shard_dataset_for_process(train_ds)
     print(f"{LOG} rays: train={len(train_ds)} val={len(val_ds)} "
           f"near={near:.3f} far={far:.3f} focal={focal:.2f}")
 
-    if len(train_ds) < cfg.batch_size:
+    if len(train_ds) < local_bs:
         # Drop-remainder batching would yield no batch at all.
         raise ValueError(f"BATCH_SIZE={cfg.batch_size} exceeds the train set "
-                         f"({len(train_ds)} rays) — lower BATCH_SIZE or enlarge the dataset")
-    steps_per_epoch = len(train_ds) // cfg.batch_size
+                         f"({len(train_ds)} rays on each of {world} process(es)) — lower "
+                         f"BATCH_SIZE or enlarge the dataset")
+    steps_per_epoch = len(train_ds) // local_bs
     cfg = resolve_horizons(cfg, steps_per_epoch, args.no_pin_schedules)
 
-    trainer = Trainer(cfg, near, far, device=device)
+    trainer = Trainer(cfg, near, far, device=device, mesh=mesh)
     if args.resume:
         trainer.restore(args.resume)
         print(f"{LOG} resumed from {args.resume} at step {trainer.step}")
@@ -269,7 +309,7 @@ def run_training(
     best_val = {"psnr": max(history.val["psnrs"]) if history.val["psnrs"] else None}
 
     test_bs = cfg.test_batch_size or cfg.batch_size
-    eval_bs = resolve_eval_batch(test_bs, len(val_ds))
+    eval_bs = resolve_eval_batch(test_bs, len(val_ds), world, world)
     if len(val_ds) % eval_bs:
         print(f"{LOG} val: {len(val_ds) % eval_bs} of {len(val_ds)} rays excluded from "
               f"metrics (eval batch {eval_bs}, drop-remainder — matches the reference "
@@ -282,7 +322,7 @@ def run_training(
     try:
         from nerf_keras_tpu_torch.data.native import NativeRayBatcher
 
-        native_batcher = NativeRayBatcher(train_ds, cfg.batch_size, seed=cfg.seed,
+        native_batcher = NativeRayBatcher(train_ds, local_bs, seed=cfg.seed,
                                           start_epoch=start_epoch)
         print(f"{LOG} batches: native batcher")
     except (RuntimeError, OSError) as e:
@@ -291,7 +331,7 @@ def run_training(
     def epoch_batches(epoch: int):
         if native_batcher is not None:
             return (next(native_batcher) for _ in range(steps_per_epoch))
-        return iterate_batches(train_ds, cfg.batch_size, shuffle=True, seed=cfg.seed,
+        return iterate_batches(train_ds, local_bs, shuffle=True, seed=cfg.seed,
                                epoch=epoch)
 
     # SIGTERM (preemption): only set a flag; the loop checkpoints at the
@@ -309,7 +349,7 @@ def run_training(
     try:
         _run_epochs(cfg, trainer, run_dir, viz_dir, scene, history, history_name, val_ds,
                     start_epoch, steps_per_epoch, eval_every, eval_bs, test_bs,
-                    losses_for_plot, epoch_batches, stop_requested, best_val,
+                    losses_for_plot, epoch_batches, stop_requested, best_val, is_main,
                     profile_dir=args.profile, profile_steps=args.profile_steps)
     finally:
         if prev_sigterm is not None:
@@ -328,10 +368,11 @@ def run_training(
 
 
 def _profiled_first_epoch(cfg, trainer, batches, steps_per_epoch, profile_dir,
-                          profile_steps):
+                          profile_steps, is_main):
     """The first epoch with its first ``profile_steps`` steps inside a
     ``torch.profiler`` window; the rest of the epoch runs outside it, and
-    the two partial means are weighted back into one by their step counts."""
+    the two partial means are weighted back into one by their step counts.
+    Rank 0 alone traces."""
     n_head = max(1, min(profile_steps, steps_per_epoch))
     counts = {"head": 0, "tail": 0}
 
@@ -341,11 +382,13 @@ def _profiled_first_epoch(cfg, trainer, batches, steps_per_epoch, profile_dir,
             yield b
 
     gen = iter(batches)
-    with profiling.trace(profile_dir, trainer.device):
+    ctx = profiling.trace(profile_dir, trainer.device) if is_main else contextlib.nullcontext()
+    with ctx:
         head = trainer.train_epoch(counted(itertools.islice(gen, n_head), "head"),
                                    log_every=cfg.log_every)
-    print(f"{LOG} profiler trace of {counts['head']} steps -> "
-          f"{io.join(profile_dir, profiling.TRACE_FILE)}")
+    if is_main:
+        print(f"{LOG} profiler trace of {counts['head']} steps -> "
+              f"{io.join(profile_dir, profiling.TRACE_FILE)}")
     try:
         first_tail = next(gen)
     except StopIteration:
@@ -358,9 +401,9 @@ def _profiled_first_epoch(cfg, trainer, batches, steps_per_epoch, profile_dir,
 
 def _run_epochs(cfg, trainer, run_dir, viz_dir, scene, history, history_name, val_ds,
                 start_epoch, steps_per_epoch, eval_every, eval_bs, test_bs,
-                losses_for_plot, epoch_batches, stop_requested, best_val,
+                losses_for_plot, epoch_batches, stop_requested, best_val, is_main=True,
                 profile_dir=None, profile_steps=20):
-    """The epoch loop of :func:`run_training`."""
+    """The epoch loop of :func:`run_training`; only ``is_main`` writes."""
     if profile_dir is not None and start_epoch >= cfg.epochs:
         print(f"{LOG} WARNING: --profile {profile_dir} captured nothing — the restored "
               f"checkpoint is already at epoch {start_epoch} >= EPOCHS ({cfg.epochs}); "
@@ -371,16 +414,20 @@ def _run_epochs(cfg, trainer, run_dir, viz_dir, scene, history, history_name, va
         t0 = time.perf_counter()
         if profile_dir is not None and epoch == start_epoch:
             metrics = _profiled_first_epoch(cfg, trainer, epoch_batches(epoch),
-                                            steps_per_epoch, profile_dir, profile_steps)
+                                            steps_per_epoch, profile_dir, profile_steps,
+                                            is_main)
         else:
             metrics = trainer.train_epoch(epoch_batches(epoch), log_every=cfg.log_every)
         dt = time.perf_counter() - t0  # train_epoch ends in a host read of the means
+        # The global batch: every rank fed BATCH_SIZE / world of each step's rays.
         rays_per_sec = steps_per_epoch * cfg.batch_size / dt if dt > 0 else 0.0
 
+        # The metrics are the global batch's, so every rank raises together.
         if not np.isfinite(metrics["loss"]):
             crash_path = io.join(run_dir, "emergency." + ckpt_name)
-            io.makedirs(run_dir)
-            save_checkpoint(crash_path, trainer.state, cfg, scene=scene)
+            if is_main:
+                io.makedirs(run_dir)
+                save_checkpoint(crash_path, trainer.state, cfg, scene=scene)
             raise FloatingPointError(
                 f"non-finite train loss {metrics['loss']} at epoch {epoch + 1} "
                 f"(step {trainer.step}); state saved to {crash_path}")
@@ -425,22 +472,24 @@ def _run_epochs(cfg, trainer, run_dir, viz_dir, scene, history, history_name, va
                       f"remedies: ADD TRAINING VIEWS, or FREQ_ANNEAL_STEPS=-1 as a last "
                       f"resort")
 
-            io.makedirs(run_dir)
-            io.makedirs(viz_dir)
-            save_panel(io.join(viz_dir, f"{epoch:03d}.png"), rgbs, depths,
-                       losses_for_plot, epoch, cfg.epochs)
-            save_checkpoint(io.join(run_dir, ckpt_name), trainer.state, cfg, scene=scene)
-            if is_best:
-                save_checkpoint(io.join(run_dir, "best." + ckpt_name), trainer.state, cfg,
-                                scene=scene)
-            history.save(io.join(run_dir, history_name))
+            if is_main:
+                io.makedirs(run_dir)
+                io.makedirs(viz_dir)
+                save_panel(io.join(viz_dir, f"{epoch:03d}.png"), rgbs, depths,
+                           losses_for_plot, epoch, cfg.epochs)
+                save_checkpoint(io.join(run_dir, ckpt_name), trainer.state, cfg, scene=scene)
+                if is_best:
+                    save_checkpoint(io.join(run_dir, "best." + ckpt_name), trainer.state,
+                                    cfg, scene=scene)
+                history.save(io.join(run_dir, history_name))
         else:
             history.append(metrics)
 
         if stop_requested["sig"] is not None:
             ckpt_path = io.join(run_dir, ckpt_name)
-            io.makedirs(run_dir)
-            save_checkpoint(ckpt_path, trainer.state, cfg, scene=scene)
+            if is_main:
+                io.makedirs(run_dir)
+                save_checkpoint(ckpt_path, trainer.state, cfg, scene=scene)
             print(f"{LOG} signal {stop_requested['sig']} at epoch {epoch + 1}: checkpoint "
                   f"saved to {ckpt_path}; resume with --resume")
             break

@@ -78,6 +78,7 @@ from nerf_keras_tpu_torch.ops.volume import (
     distortion_loss,
     volume_render,
 )
+from nerf_keras_tpu_torch.parallel.mesh import DataMesh, all_reduce_flat, local_rows
 from nerf_keras_tpu_torch.utils.checkpoint import check_render_support
 
 _LATER = "arrives in a later slice of the port (ROADMAP.md queue 1)"
@@ -181,7 +182,36 @@ def mse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def psnr(a: torch.Tensor, b: torch.Tensor, max_val: float = 1.0) -> torch.Tensor:
-    return 20.0 * float(np.log10(max_val)) - 10.0 * torch.log10(mse(a, b))
+    return psnr_of_mse(mse(a, b), max_val)
+
+
+def psnr_of_mse(err: torch.Tensor, max_val: float = 1.0) -> torch.Tensor:
+    return 20.0 * float(np.log10(max_val)) - 10.0 * torch.log10(err)
+
+
+# The metric numerators a step's all-reduce carries beside the gradients:
+# the coarse-slot loss, the fine MSE and the fine squared-error sum.
+N_METRICS = 3
+
+
+def step_metrics(images: torch.Tensor, rgb_fine: torch.Tensor, loss_coarse: torch.Tensor,
+                 loss_fine: torch.Tensor, mesh: DataMesh | None = None,
+                 grads: list[torch.Tensor] = ()) -> dict:
+    """The step's metrics: ``loss_coarse``, ``loss`` (the fine MSE) and
+    ``psnr`` of the fine rgb.  Under ``mesh`` they are the global batch's:
+    one all-reduce sums the rank means and the squared-error sum (the PSNR
+    is that of the global MSE, not a mean of rank PSNRs) together with
+    ``grads``, which are then replaced in place by their mean over ranks."""
+    if mesh is None:
+        return {"loss_coarse": loss_coarse, "loss": loss_fine, "psnr": psnr(images, rgb_fine)}
+    sq_err = torch.sum(torch.square(images - rgb_fine))
+    *summed, lc, lf, sq = all_reduce_flat([*grads, loss_coarse, loss_fine, sq_err], mesh)
+    world = float(mesh.world)
+    if grads:
+        with torch.no_grad():
+            torch._foreach_copy_(grads, torch._foreach_div(summed, world))
+    return {"loss_coarse": lc / world, "loss": lf / world,
+            "psnr": psnr_of_mse(sq / (images.numel() * mesh.world))}
 
 
 @dataclasses.dataclass
@@ -221,15 +251,16 @@ def params_of(models: dict[str, nn.Module]) -> list[torch.Tensor]:
     return [p for name in sorted(models) for p in models[name].parameters()]
 
 
-def _mlp_fn(cfg: NeRFConfig, bn_train: bool = False) -> Callable:
+def _mlp_fn(cfg: NeRFConfig, bn_train: bool = False, mesh: DataMesh | None = None) -> Callable:
     """The MLP over encodings ``(mlp, x_enc, d_enc) -> raw (..., 4)``: K5
     on the card, :meth:`NeRFMLP.forward` on the CPU.  Gradients reach the
     encodings only in the ``STOP_PDF_GRADIENT=false`` mode, the one where
     they are differentiable (through ``sample_pdf``).  ``BATCH_NORM``
     models take :meth:`NeRFMLP.forward` on every device, with the batch
-    statistics (and their running update) under ``bn_train``."""
+    statistics (and their running update) under ``bn_train``: the global
+    batch's under ``mesh``."""
     if cfg.batch_norm:
-        return lambda mlp, x_enc, d_enc: mlp(x_enc, d_enc, bn_train=bn_train)
+        return lambda mlp, x_enc, d_enc: mlp(x_enc, d_enc, bn_train=bn_train, mesh=mesh)
     need_input_grads = not cfg.stop_pdf_gradient
 
     def run(mlp, x_enc, d_enc):
@@ -239,7 +270,8 @@ def _mlp_fn(cfg: NeRFConfig, bn_train: bool = False) -> Callable:
 
 
 def make_forward_pass(cfg: NeRFConfig, return_t_fine: bool = False,
-                      mlp_fn: Callable | None = None, bn_train: bool = False) -> Callable:
+                      mlp_fn: Callable | None = None, bn_train: bool = False,
+                      mesh: DataMesh | None = None) -> Callable:
     """The coarse->fine forward pass with the encodings computed outside the
     MLP (stored in the compute dtype, as the JAX package stores them).
 
@@ -255,9 +287,10 @@ def make_forward_pass(cfg: NeRFConfig, return_t_fine: bool = False,
     only under ``STOP_PDF_GRADIENT``; otherwise the fine t-values, and so
     the fine pass's position encodings, carry gradients into the coarse
     MLP.  ``mlp_fn`` replaces the MLP (default :func:`_mlp_fn`, BatchNorm
-    in training mode under ``bn_train``).
+    in training mode under ``bn_train``, with the global batch's moments
+    under ``mesh``).
     """
-    mlp = _mlp_fn(cfg, bn_train) if mlp_fn is None else mlp_fn
+    mlp = _mlp_fn(cfg, bn_train, mesh) if mlp_fn is None else mlp_fn
     enc_dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
 
     def run_mlp(model, origins, dirs, t):
@@ -331,7 +364,8 @@ def _make_fused_train_forward(cfg: NeRFConfig, want_weights: bool = False,
 
 def make_loss_fn(cfg: NeRFConfig, near: float, far: float,
                  render_pass: Callable | None = None,
-                 mlp_fn: Callable | None = None) -> Callable:
+                 mlp_fn: Callable | None = None,
+                 mesh: DataMesh | None = None) -> Callable:
     """The train step's loss, ``loss_fn(params, images, origins, dirs,
     t_vals, step, generator=None, noise=None) -> (loss, (loss_coarse_slot,
     loss_fine, rgb_fine))``.
@@ -340,17 +374,20 @@ def make_loss_fn(cfg: NeRFConfig, near: float, far: float,
     the ``(B, NS_FINE)`` uniforms of the fine draw.  ``proposal``
     (:func:`_make_proposal_loss_fn`): the per-level uniforms of the chain.
     ``render_pass`` replaces the K1/K2 render passes and ``mlp_fn`` the K5
-    MLP (a check on the card runs the plain versions through them).
+    MLP (a check on the card runs the plain versions through them).  The
+    loss is the mean over the rows given; under ``mesh`` BatchNorm takes
+    the global batch's moments.
     """
     check_train_support(cfg)
     if cfg.train_sampler == "proposal":
         return _make_proposal_loss_fn(cfg, near, far, render_pass)
-    return _make_coarse_loss_fn(cfg, near, far, render_pass, mlp_fn)
+    return _make_coarse_loss_fn(cfg, near, far, render_pass, mlp_fn, mesh)
 
 
 def _make_coarse_loss_fn(cfg: NeRFConfig, near: float, far: float,
                          render_pass: Callable | None,
-                         mlp_fn: Callable | None) -> Callable:
+                         mlp_fn: Callable | None,
+                         mesh: DataMesh | None = None) -> Callable:
     """The parity step's loss: ``mse(coarse rgb) + mse(fine rgb)`` (+
     ``DISTORTION_LOSS_MULT`` x the distortion of the fine weights, which
     the regularizer applies to the final level only).  Under
@@ -368,7 +405,7 @@ def _make_coarse_loss_fn(cfg: NeRFConfig, near: float, far: float,
             return res[0], res[1], res[2:] if want_dist else None
     else:
         forward = make_forward_pass(cfg, return_t_fine=want_dist, mlp_fn=mlp_fn,
-                                    bn_train=True)
+                                    bn_train=True, mesh=mesh)
 
         def run(params, origins, dirs, t_vals, generator, noise):
             res = forward(params, origins, dirs, t_vals, generator=generator, noise=noise)
@@ -455,6 +492,41 @@ def draw_t_vals(cfg: NeRFConfig, near: float, far: float, batch_shape: tuple,
     ).contiguous()
 
 
+def rank_draws(cfg: NeRFConfig, mesh: DataMesh, local_b: int, draws: dict | None,
+               generator: torch.Generator | None, device) -> dict:
+    """A rank's uniforms for one train step: each is taken at the global
+    batch shape, from ``draws`` (global-shaped) or else from ``generator``
+    in the order and shapes the one-process step draws them, and this
+    rank's rows are kept.  Every rank holds the same generator, so a step
+    over ``world`` ranks equals the one-process step on the concatenated
+    batch, as one JAX key draws the global array and each shard takes its
+    part."""
+    draws = draws or {}
+    b = local_b * mesh.world
+    rows = local_rows(b, mesh)
+
+    def take(given, shape, per_ray=True):
+        if not shape[-1]:
+            return None  # nothing to draw (sample_pdf with no fine samples)
+        u = (torch.rand(shape, generator=generator, dtype=torch.float32, device=device)
+             if given is None else torch.as_tensor(given))
+        return u[rows] if per_ray else u
+
+    out = {}
+    if cfg.sampling_mode in ("stratified", "shared"):
+        stratified = cfg.sampling_mode == "stratified"
+        out["t"] = take(draws.get("t"), (b, cfg.ns_coarse) if stratified else (cfg.ns_coarse,),
+                        per_ray=stratified)
+    if cfg.train_sampler != "proposal":
+        out["pdf"] = take(draws.get("pdf"), (b, cfg.ns_fine))
+        return out
+    given = draws.get("chain") or [None] * cfg.prop_levels
+    n2 = cfg.prop_samples or cfg.ns_coarse
+    out["chain"] = [take(u, (b, cfg.ns_fine if i == cfg.prop_levels - 1 else n2))
+                    for i, u in enumerate(given)]
+    return out
+
+
 @torch.no_grad()
 def _fold_in_place(pairs: list) -> list[torch.Tensor]:
     """Scale each ``(weight, column scale)`` of the anneal window into its
@@ -479,7 +551,8 @@ def _unfold_in_place(pairs: list, raw: list[torch.Tensor]) -> None:
 
 def make_grad_fn(cfg: NeRFConfig, near: float, far: float,
                  render_pass: Callable | None = None,
-                 mlp_fn: Callable | None = None) -> Callable:
+                 mlp_fn: Callable | None = None,
+                 mesh: DataMesh | None = None) -> Callable:
     """The train step up to the gradients: ``grad_fn(state, batch,
     draws=None, generator=None) -> (loss, (loss_coarse_slot, loss_fine,
     rgb_fine))`` with each parameter's gradient in its ``.grad``.
@@ -493,14 +566,18 @@ def make_grad_fn(cfg: NeRFConfig, near: float, far: float,
     the raw values restored (the JAX package folds inside the
     differentiated loss; the chain rule gives the same gradients).
     ``render_pass`` and ``mlp_fn`` replace the kernels as in
-    :func:`make_loss_fn`.
+    :func:`make_loss_fn`.  Under ``mesh`` ``batch`` is this rank's rows,
+    the draws are :func:`rank_draws`' and the gradients are this rank's
+    (of its rows' mean loss), before any reduction.
     """
-    loss_fn = make_loss_fn(cfg, near, far, render_pass=render_pass, mlp_fn=mlp_fn)
+    loss_fn = make_loss_fn(cfg, near, far, render_pass=render_pass, mlp_fn=mlp_fn, mesh=mesh)
     noise_key = "chain" if cfg.train_sampler == "proposal" else "pdf"
 
     def grad_fn(state: TrainState, batch, draws: dict | None = None,
                 generator: torch.Generator | None = None):
         images, origins, dirs = batch
+        if mesh is not None:
+            draws = rank_draws(cfg, mesh, images.shape[0], draws, generator, images.device)
         draws = draws or {}
         t_vals = draw_t_vals(cfg, near, far, images.shape[:-1], images.device,
                              generator, draws.get("t"))
@@ -520,7 +597,8 @@ def make_grad_fn(cfg: NeRFConfig, near: float, far: float,
 
 
 def make_train_step(cfg: NeRFConfig, near: float, far: float,
-                    render_pass: Callable | None = None) -> Callable:
+                    render_pass: Callable | None = None,
+                    mesh: DataMesh | None = None) -> Callable:
     """The train step: the coarse+fine parity step or the online-proposal
     step, by ``TRAIN_SAMPLER``.  ``render_pass`` replaces the K1 render
     passes (:func:`make_loss_fn`); ``exp_train_paths`` times the parity
@@ -540,15 +618,26 @@ def make_train_step(cfg: NeRFConfig, near: float, far: float,
     ``bn``).  Metrics (0-d device tensors, the JAX meanings):
     ``loss_coarse`` the coarse MSE (proposal: the interlevel loss), ``loss``
     the fine MSE, ``psnr`` of the fine rgb.
+
+    Data parallelism (``mesh``): ``batch`` is this rank's rows of the
+    global batch and ``draws`` are global-shaped (:func:`rank_draws`).
+    After the backward (and the anneal's unfold) one all-reduce carries
+    every parameter's gradient and the :data:`N_METRICS` metric numerators
+    (:func:`step_metrics`); the gradients are divided by the world size
+    and Adam runs on every rank, so the parameters stay replicated and the
+    metrics are the global batch's.
     """
-    grad_fn = make_grad_fn(cfg, near, far, render_pass=render_pass)
+    grad_fn = make_grad_fn(cfg, near, far, render_pass=render_pass, mesh=mesh)
 
     def train_step(state: TrainState, batch, draws: dict | None = None,
                    generator: torch.Generator | None = None) -> dict:
         images = batch[0]
         params = params_of(state.params)
         _, (loss_coarse, loss_fine, rgb_fine) = grad_fn(state, batch, draws, generator)
-        state.opt.step([p.grad for p in params])
+        grads = [p.grad for p in params]
+        metrics = step_metrics(images, rgb_fine.detach(), loss_coarse.detach(),
+                               loss_fine.detach(), mesh, grads)
+        state.opt.step(grads)
         if state.ema is not None:
             d = cfg.ema_decay
             ema = params_of(state.ema)
@@ -560,16 +649,13 @@ def make_train_step(cfg: NeRFConfig, near: float, far: float,
                         for e, b in zip(state.ema[name].buffers(), m.buffers()):
                             e.copy_(b)
         state.step += 1
-        return {
-            "loss_coarse": loss_coarse.detach(),
-            "loss": loss_fine.detach(),
-            "psnr": psnr(images, rgb_fine.detach()),
-        }
+        return metrics
 
     return train_step
 
 
-def make_eval_step(cfg: NeRFConfig, near: float, far: float) -> Callable:
+def make_eval_step(cfg: NeRFConfig, near: float, far: float,
+                   mesh: DataMesh | None = None) -> Callable:
     """The eval step ``eval_step(models, batch) -> metrics``: centered
     t-values, deterministic draws, no gradients.  ``loss`` and ``psnr`` are
     those of the fine rgb; ``loss_coarse`` the coarse MSE (the coarse+fine
@@ -577,7 +663,9 @@ def make_eval_step(cfg: NeRFConfig, near: float, far: float) -> Callable:
     interlevel loss summed over levels.  Under ``FREQ_ANNEAL_STEPS``
     ``models`` must be ``ops/freq_anneal.fold_train_params``'s, with the
     window at their step folded in (``Trainer`` folds its eval weights at
-    its step); raw models raise ``ValueError``."""
+    its step); raw models raise ``ValueError``.  Under ``mesh`` ``batch`` is
+    this rank's rows and the metrics the global batch's, through one
+    all-reduce (:func:`step_metrics`)."""
     check_render_support(cfg)
     _check_freq_anneal_resolved(cfg)
     if cfg.train_sampler != "proposal":
@@ -590,9 +678,8 @@ def make_eval_step(cfg: NeRFConfig, near: float, far: float) -> Callable:
             t_vals = generate_t_vals(near, far, tuple(images.shape[:-1]), cfg.ns_coarse,
                                      "center", device=images.device).contiguous()
             out = forward(models, origins, dirs, t_vals)
-            return {"loss_coarse": mse(images, out["rgb_coarse"]),
-                    "loss": mse(images, out["rgb_fine"]),
-                    "psnr": psnr(images, out["rgb_fine"])}
+            return step_metrics(images, out["rgb_fine"], mse(images, out["rgb_coarse"]),
+                                mse(images, out["rgb_fine"]), mesh)
 
         return eval_step_coarse
     fine_pass = _make_pass_fn(cfg)
@@ -613,8 +700,7 @@ def make_eval_step(cfg: NeRFConfig, near: float, far: float) -> Callable:
         for w_prop, t_part in levels:
             distill = distill + interlevel_loss(
                 w_prop, binned_fine_weights(t_all, w_fine, t_part))
-        return {"loss_coarse": distill, "loss": mse(images, rgb_fine),
-                "psnr": psnr(images, rgb_fine)}
+        return step_metrics(images, rgb_fine, distill, mse(images, rgb_fine), mesh)
 
     return eval_step
 

@@ -1,7 +1,21 @@
 """Trainer: owns the models, trains them and renders frames from them.
 
-Counterpart of ``nerf_keras_tpu/engine/trainer.py``.  One device, no mesh:
-``device`` is resolved explicitly.
+Counterpart of ``nerf_keras_tpu/engine/trainer.py``.  ``device`` is
+resolved explicitly.  Data parallelism (``mesh``, ``parallel/mesh.py``):
+one process per device, each holding the replicated models; by default
+the mesh comes from the config's ``MESH_DATA``/``MESH_MODEL`` when a
+process group is initialized (``parallel.distributed.maybe_initialize``),
+and without one the config must ask for a world of 1.  Under a mesh
+``train_step`` takes this rank's rows of the global batch (``put_batch``)
+and makes one gradient all-reduce; ``eval_step``/``evaluate`` take
+batches every rank holds whole (``put_global_batch``) and give the global
+metrics through one all-reduce a batch; the renders split each chunk over
+the ranks and all-gather the maps, with no all-reduce.  The parameters,
+the EMA shadow and the BatchNorm statistics are broadcast from rank 0
+after init and after ``restore``.  The int8 tables and the distilled
+sampler are single-process: under more than one rank
+``quantize_for_inference``, ``build_proposal_sampler`` and
+``load_inference_artifacts`` raise ``NotImplementedError``.
 
 The models are ``{'coarse', 'fine'}`` (``TRAIN_SAMPLER=coarse``, the
 parity step) or ``{'proposal', 'fine'}``, initialized from ``cfg.seed``,
@@ -92,6 +106,13 @@ from nerf_keras_tpu_torch.ops.quant import (
     quantize_render_params,
 )
 from nerf_keras_tpu_torch.ops.rays import NDC_NEAR_PLANE, get_rays, ndc_rays
+from nerf_keras_tpu_torch.parallel.mesh import (
+    DataMesh,
+    all_gather_rows,
+    broadcast_,
+    config_mesh,
+    local_rows,
+)
 from nerf_keras_tpu_torch.runtime import resolve_device
 from nerf_keras_tpu_torch.utils.checkpoint import (
     check_render_support,
@@ -161,7 +182,8 @@ def _realize_means(acc: dict[str, list[torch.Tensor]]) -> dict[str, float]:
 
 
 class Trainer:
-    """Owns the models for one (config, scene-bounds) pair on one device."""
+    """Owns the models for one (config, scene-bounds) pair on one device
+    (this rank's, under a data mesh)."""
 
     def __init__(
         self,
@@ -169,11 +191,20 @@ class Trainer:
         near: float,
         far: float,
         device: str | torch.device | None = None,
+        mesh: DataMesh | None = None,
     ):
         check_render_support(cfg)
+        if mesh is None:
+            mesh = config_mesh(cfg.mesh_data, cfg.mesh_model)
+        if mesh is not None and cfg.batch_size % mesh.world:
+            raise ValueError(f"batch_size={cfg.batch_size} must be divisible by the data "
+                             f"mesh axis ({mesh.world} ranks)")
+        self.mesh = mesh
         self.cfg = cfg
         self.near = float(near)
         self.far = float(far)
+        if device is None and mesh is not None:
+            device = mesh.device
         self.device = resolve_device(None if device is None else str(device))
         self.proposal = cfg.train_sampler == "proposal"
         gen = torch.Generator().manual_seed(cfg.seed)
@@ -203,13 +234,34 @@ class Trainer:
             self.ema = {k: copy.deepcopy(m).requires_grad_(False)
                         for k, m in self.params.items()}
         self.state = TrainState(self.params, self._new_optimizer(), self.ema)
+        # Every rank seeds the same generator: the train step draws at the
+        # global batch shape and keeps its rows (step.rank_draws).
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
         self._train_step = self._eval_step = self._render_full = None
         self._render = make_render_fn(cfg, self.near, self.far)
         self._invalidate_derived()
+        self._broadcast_state()
 
     def _new_optimizer(self):
         return make_optimizer(self.cfg, params_of(self.params))
+
+    def state_tensors(self) -> list[torch.Tensor]:
+        """The parameters and buffers (BatchNorm statistics) of the models,
+        then of the EMA shadow: the state every rank must hold alike."""
+        return [t for models in (self.params, self.ema or {}) for k in sorted(models)
+                for t in (*models[k].parameters(), *models[k].buffers())]
+
+    def _broadcast_state(self) -> None:
+        """Under a mesh, rank 0's :meth:`state_tensors` on every rank (one
+        broadcast)."""
+        if self.mesh is not None:
+            broadcast_([t.data for t in self.state_tensors()], self.mesh)
+
+    def _single_process(self, what: str) -> None:
+        if self.mesh is not None and self.mesh.world > 1:
+            raise NotImplementedError(
+                f"{what} under a data mesh of {self.mesh.world} ranks is not ported: "
+                "it is single-process, as in the JAX package (run it in one process)")
 
     @property
     def step(self) -> int:
@@ -247,6 +299,7 @@ class Trainer:
         if ckpt["opt_state"] is not None:
             self._load_adam(ckpt["opt_state"])
         self._invalidate_derived()
+        self._broadcast_state()
         return self
 
     def _load_adam(self, opt_state: dict) -> None:
@@ -310,18 +363,27 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def put_batch(self, batch) -> tuple[torch.Tensor, ...]:
-        """``(images, origins, dirs)`` as contiguous f32 tensors on the device."""
+        """``(images, origins, dirs)`` as contiguous f32 tensors on the
+        device; under a mesh the caller's own rows of the global batch
+        (``BATCH_SIZE / world`` each, in rank order)."""
         return tuple(torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x,
                                      dtype=torch.float32, device=self.device).contiguous()
                      for x in batch)
 
+    def put_global_batch(self, batch) -> tuple[torch.Tensor, ...]:
+        """This rank's contiguous rows of a batch every rank holds whole
+        (val batches); the whole batch on one process."""
+        if self.mesh is None:
+            return self.put_batch(batch)
+        return self.put_batch(tuple(x[local_rows(x.shape[0], self.mesh)] for x in batch))
+
     def train_step(self, batch, draws: dict | None = None) -> dict:
         """One optimization step; metrics as 0-d device tensors (no host
         sync).  ``draws`` replaces the generator's uniforms (tests; see
-        :func:`make_train_step`)."""
+        :func:`make_train_step`; global-shaped under a mesh)."""
         if self._train_step is None:
             check_train_support(self.cfg, self.device)
-            self._train_step = make_train_step(self.cfg, self.near, self.far)
+            self._train_step = make_train_step(self.cfg, self.near, self.far, mesh=self.mesh)
         self._invalidate_derived()
         return self._train_step(self.state, self.put_batch(batch), draws,
                                 self.generator)
@@ -344,10 +406,12 @@ class Trainer:
         return _realize_means(acc)
 
     def eval_step(self, batch) -> dict:
+        """Metrics of the eval models on ``batch`` (under a mesh a batch
+        every rank holds whole: each evaluates its rows, one all-reduce)."""
         if self._eval_step is None:
             check_train_support(self.cfg, self.device)
-            self._eval_step = make_eval_step(self.cfg, self.near, self.far)
-        return self._eval_step(self._folded_eval_params(), self.put_batch(batch))
+            self._eval_step = make_eval_step(self.cfg, self.near, self.far, mesh=self.mesh)
+        return self._eval_step(self._folded_eval_params(), self.put_global_batch(batch))
 
     def evaluate(self, batches: Iterable) -> dict:
         """Mean eval metrics over batches, fetched once."""
@@ -368,6 +432,7 @@ class Trainer:
         fine, or the fine MLP at the t-unions of the float proposal chain
         for ``TRAIN_SAMPLER=proposal``.  Gate the result against the float
         render (PSNR) before serving it, as the server does."""
+        self._single_process("int8 calibration")
         if self.cfg.batch_norm:
             raise ValueError("int8 inference has no BatchNorm variant; use the float "
                              "path for BN configs")
@@ -430,6 +495,7 @@ class Trainer:
         extrapolate into.  More than ``calib_rays`` rays are subsampled as
         :meth:`quantize_for_inference` does.  Gate the result against the
         coarse sampler (PSNR) before serving it, as the CLIs do."""
+        self._single_process("the proposal distillation")
         if self.proposal:
             raise ValueError(
                 "TRAIN_SAMPLER='proposal' checkpoints already carry their proposal net "
@@ -518,6 +584,7 @@ class Trainer:
         """Install what :meth:`save_inference_artifacts` wrote (by either
         package).  Raises ``StaleArtifactsError`` when it was derived from
         other weights or config: a stale acceleration is never installed."""
+        self._single_process("inference artifacts")
         if self.cfg.batch_norm:
             raise ValueError("inference artifacts have no BatchNorm variant; use the "
                              "float coarse path for BN configs")
@@ -601,7 +668,10 @@ class Trainer:
         ``sampler='proposal'`` places the fine samples with the distilled
         net (:meth:`build_proposal_sampler` first; fine rgb/depth only,
         with or without ``quant``); on a proposal-trained model it is the
-        default render.
+        default render.  Under a data mesh every rank passes the same rays:
+        the chunk is rounded up to a multiple of the world size, each rank
+        renders its rows of every chunk and one all-gather per kept map
+        rebuilds it, so every rank returns the whole result.
         """
         if sampler not in ("coarse", "proposal"):
             raise ValueError(f"sampler must be 'coarse' or 'proposal', got {sampler!r}")
@@ -646,6 +716,8 @@ class Trainer:
                                      device=self.device)
         n = origins.shape[0]
         chunk = min(chunk, max(n, 1))
+        if self.mesh is not None:
+            chunk = -(-chunk // self.mesh.world) * self.mesh.world
         num_chunks = (n + chunk - 1) // chunk
         total_pad = num_chunks * chunk - n
         if total_pad:
@@ -659,17 +731,19 @@ class Trainer:
 
         models = self._folded_eval_params()
         outs: dict[str, list] = {}
+        rows = slice(None) if self.mesh is None else local_rows(chunk, self.mesh)
         for start in range(0, n, chunk):
             keep = min(chunk, n - start)
-            res = render(models, origins[start:start + chunk],
-                         directions[start:start + chunk])
+            res = render(models, origins[start:start + chunk][rows],
+                         directions[start:start + chunk][rows])
             for k, v in res.items():
                 if keys is not None and k not in keys:
                     continue
-                part = v[:keep]
                 if uint8_rgb and k.startswith("rgb"):
-                    part = rgb_to_u8(part)
-                outs.setdefault(k, []).append(part)
+                    v = rgb_to_u8(v)
+                if self.mesh is not None:
+                    v = all_gather_rows(v, self.mesh)
+                outs.setdefault(k, []).append(v[:keep])
         return {k: torch.cat(v, dim=0).cpu().numpy() for k, v in outs.items()}
 
     def render_image(

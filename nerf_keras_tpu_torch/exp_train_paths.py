@@ -55,10 +55,9 @@ from nerf_keras_tpu_torch.engine.step import make_loss_fn, make_render_fn, make_
 from nerf_keras_tpu_torch.engine.trainer import Trainer
 from nerf_keras_tpu_torch.models.mlp import randomize_biases_
 from nerf_keras_tpu_torch.ops.encoding import encode_position
-from nerf_keras_tpu_torch.ops.kernels import fused_mlp as k5
 from nerf_keras_tpu_torch.ops.kernels import fused_render as k1
+from nerf_keras_tpu_torch.ops.kernels import launch_counts as counts
 from nerf_keras_tpu_torch.ops.kernels import pdf_union as k7
-from nerf_keras_tpu_torch.ops.kernels import quant_render as k4
 from nerf_keras_tpu_torch.ops.rays import get_rays, pose_spherical, sample_rays
 from nerf_keras_tpu_torch.ops.sampling import generate_t_vals, sample_pdf
 from nerf_keras_tpu_torch.ops.volume import composite_background
@@ -127,14 +126,6 @@ def render_rays_union(cfg: NeRFConfig, models: dict, origins: torch.Tensor,
         if cfg.white_bkgd:
             rgb = composite_background(rgb, w_fine)
         return {"rgb_fine": rgb, "depth_fine": torch.sum(w_fine * t_all, dim=-1)}
-
-
-def counts() -> dict:
-    """Every kernel wrapper's launch count in this process."""
-    return {"k1_fwd": k1.launches - k1.train_launches, "k1_train": k1.train_launches,
-            "k2": k1.bwd_launches, "k3": k1.recompute_launches, "k5_fwd": k5.launches,
-            "k5_bwd": k5.bwd_launches, "k4": k4.launches, "k6_fwd": k1.enc_launches,
-            "k6_bwd": k1.enc_bwd_launches, "k7": k7.launches}
 
 
 def make_trainer(cfg: NeRFConfig, device: str = "cuda") -> Trainer:

@@ -41,6 +41,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from nerf_keras_tpu_torch.parallel.mesh import DataMesh, all_reduce_sum
+
 
 def trunk_input_dims(
     num_layers: int, hidden_dim: int, skip_layer: int, xyz_dim: int
@@ -91,7 +93,13 @@ BN_EPS = 1e-3  # keras BatchNormalization default
 
 class KerasBatchNorm(nn.Module):
     """Keras-default BatchNormalization over every axis but the last:
-    ``gamma``/``beta`` parameters, ``mean``/``var`` running buffers."""
+    ``gamma``/``beta`` parameters, ``mean``/``var`` running buffers.
+
+    Under a data mesh the training moments are those of the global batch,
+    as ``jnp.mean``/``jnp.var`` of a sharded array give them: the mean of
+    the rank sums, then the mean of the centred squares, each through a
+    differentiable all-reduce (two forward, two backward per layer), so
+    the running statistics stay identical on every rank."""
 
     def __init__(self, width: int, device=None):
         super().__init__()
@@ -100,11 +108,16 @@ class KerasBatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(width, device=device))
         self.register_buffer("var", torch.ones(width, device=device))
 
-    def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool, mesh: DataMesh | None = None) -> torch.Tensor:
         if train:
             flat = x.reshape(-1, x.shape[-1])
-            mean = flat.mean(dim=0)
-            var = torch.square(flat - mean).mean(dim=0)  # biased, as jnp.var
+            if mesh is None:
+                mean = flat.mean(dim=0)
+                var = torch.square(flat - mean).mean(dim=0)  # biased, as jnp.var
+            else:
+                n = flat.shape[0] * mesh.world
+                mean = all_reduce_sum(flat.sum(dim=0), mesh) / n
+                var = all_reduce_sum(torch.square(flat - mean).sum(dim=0), mesh) / n
             with torch.no_grad():
                 self.mean.copy_(BN_MOMENTUM * self.mean + (1 - BN_MOMENTUM) * mean)
                 self.var.copy_(BN_MOMENTUM * self.var + (1 - BN_MOMENTUM) * var)
@@ -171,17 +184,18 @@ class NeRFMLP(nn.Module):
                 "branch": self.branch, "rgb": self.rgb}
 
     def forward(self, x_enc: torch.Tensor, d_enc: torch.Tensor,
-                bn_train: bool = False) -> torch.Tensor:
+                bn_train: bool = False, mesh: DataMesh | None = None) -> torch.Tensor:
         """``(..., xyz_dim)`` and ``(..., dir_dim)`` encodings -> raw
         ``(..., 4)`` float32 ``[rgb_logits, sigma]``.  ``bn_train``: the BN
-        layers normalise with this pass's statistics and update their
-        running ones (ignored without BN)."""
+        layers normalise with this pass's statistics (the global batch's
+        under ``mesh``) and update their running ones (ignored without
+        BN)."""
         cd = self.compute_dtype
         x = x_enc
         for i, layer in enumerate(self.trunk):
             h = _dense(x, layer, cd)
             if self.batch_norm:
-                h = self.trunk_bn[i](h, bn_train)
+                h = self.trunk_bn[i](h, bn_train, mesh)
             h = torch.relu(h)
             if is_skip(i, self.skip_layer):
                 x = torch.cat([h, x_enc.to(h.dtype)], dim=-1)
@@ -192,7 +206,7 @@ class NeRFMLP(nn.Module):
         feature = torch.cat([feature, d_enc.to(feature.dtype)], dim=-1)
         h = _dense(feature, self.branch, cd)
         if self.batch_norm:
-            h = self.branch_bn(h, bn_train)
+            h = self.branch_bn(h, bn_train, mesh)
         h = torch.relu(h)
         rgb = _dense(h, self.rgb, cd)
         return torch.cat([rgb, sigma], dim=-1).to(torch.float32)

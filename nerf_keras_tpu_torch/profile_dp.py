@@ -1,0 +1,99 @@
+"""Step time of the data-parallel parity step over the GPUs of one host.
+
+    python -m nerf_keras_tpu_torch.profile_dp [--world 4]
+    python -m nerf_keras_tpu_torch.profile_dp --device cpu --world 4 --tiny
+
+Runs the parity step at ``config/lego_batch_h256_tpu.json``'s widths
+(8x256, 64 + 128, bf16; random weights with nonzero biases) as real
+ranks (``parallel/audit.run_ranks``, NCCL on the card, one GPU a rank):
+a world of 1 at batch 4,096; ``--world`` ranks at the same global batch
+(each rank 4,096 / world rays); and ``--world`` ranks at 4,096 rays a
+rank.  For each it prints one JSON line: the step's median ms on each
+rank (CUDA events over 10 warm steps; the world of 1 also without the
+mesh, in the same process), the global rays/s, the kernel
+launches and collectives of a step, the NCCL all-reduces of a step in a
+``torch.profiler`` window of 3 steps (host calls and device kernels), and
+whether the ranks' parameters stayed bit-identical; the same-batch
+worlds also report the reduced gradients against the world of 1
+(largest per-leaf relative L2: the bf16 weight gradients are rounded per
+rank before the sum, as each rank's partial of ``w.astype(bf16)``'s
+cotangent is in the JAX package).  ``--tiny`` shrinks the model for a
+CPU rehearsal (gloo; no times).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+
+import torch
+
+from nerf_keras_tpu_torch.config import NeRFConfig
+from nerf_keras_tpu_torch.models.mlp import random_params
+from nerf_keras_tpu_torch.parallel.audit import run_ranks, tree_rel_l2
+from nerf_keras_tpu_torch.profile_train import bench_batch, parity_config
+from nerf_keras_tpu_torch.runtime import card_string
+
+TIME_STEPS, PROFILE_STEPS = 10, 3
+
+
+def run(world: int, batch_size: int, cfg: NeRFConfig, device: str) -> list[dict]:
+    cfg = dataclasses.replace(cfg, batch_size=batch_size)
+    spec = {"device": device, "backend": None, "cfg": cfg, "near": 2.0, "far": 6.0,
+            "batch": bench_batch(batch_size, seed=5), "params": random_params(cfg, seed=7),
+            "steps": 2}
+    if device == "cuda":
+        spec.update(time_steps=TIME_STEPS, profile=PROFILE_STEPS)
+    return run_ranks(world, spec, timeout=600.0)
+
+
+def main(argv=None) -> None:
+    p = argparse.ArgumentParser()
+    p.add_argument("--world", type=int, default=4)
+    p.add_argument("--device", default="cuda")
+    p.add_argument("--tiny", action="store_true",
+                   help="2x16 MLP, 8 + 8 samples, batch 64 (a CPU rehearsal)")
+    args = p.parse_args(argv)
+    if args.device == "cuda" and torch.cuda.device_count() < args.world:
+        raise RuntimeError(f"--world {args.world} needs {args.world} GPUs, "
+                           f"found {torch.cuda.device_count()}")
+    cfg = parity_config()
+    base = 4096
+    if args.tiny:
+        cfg = dataclasses.replace(cfg, num_layers=2, hidden_dim=16, ns_coarse=8, ns_fine=8,
+                                  compute_dtype="float32")
+        base = 64
+    card = card_string() if args.device == "cuda" else "cpu"
+    cells = [(1, base), (args.world, base), (args.world, base * args.world)]
+    ref = None
+    for world, b in cells:
+        ranks = run(world, b, cfg, args.device)
+        line = {"world": world, "global_batch": b, "rays_per_rank": b // world,
+                "backend": ranks[0]["backend"], "devices": [r["device"] for r in ranks],
+                "launches_per_step": ranks[0]["launches"][-1],
+                "collectives": ranks[0]["audit"]["collectives"],
+                "params_identical": len({r["digest"] for r in ranks}) == 1,
+                "loss": ranks[0]["metrics"][-1]["loss"], "card": card}
+        if args.device == "cuda":
+            step_ms = [r["step_ms"] for r in ranks]
+            nccl = ranks[0]["nccl_all_reduce"]
+            if world == 1:
+                line["no_mesh_step_ms"] = ranks[0]["no_mesh_step_ms"]
+            line.update(step_ms=step_ms, rays_per_s=b / (max(step_ms) / 1e3),
+                        nccl_all_reduce_per_step={
+                            "host_calls": nccl["host_calls"] / PROFILE_STEPS,
+                            "device_kernels": nccl["device_kernels"] / PROFILE_STEPS,
+                            "kernel_names": nccl["nccl_kernel_names"]})
+        if b == base:
+            if world == 1:
+                ref = ranks[0]["grads"]
+            else:
+                line["grads_rel_l2_vs_world_1"] = tree_rel_l2(ranks[0]["grads"], ref)
+        print(json.dumps(line), flush=True)
+        if not line["params_identical"]:
+            raise RuntimeError(f"world {world}: the ranks' parameters diverged")
+
+
+if __name__ == "__main__":
+    main()

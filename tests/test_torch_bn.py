@@ -82,7 +82,7 @@ def _encodings(b=6, s=5, l_xyz=4, l_dir=2, seed=1):
     return x, d
 
 
-def _unbiased_forward(self, x, train):
+def _unbiased_forward(self, x, train, mesh=None):
     """A KerasBatchNorm that stores the unbiased batch variance, as
     ``nn.BatchNorm1d`` does: the mutation the statistics test must catch."""
     flat = x.reshape(-1, x.shape[-1])

@@ -737,3 +737,31 @@ def test_run_evaluation_on_card(dev, tmp_path):
     assert (k1.launches - before[0], k4.launches - before[1], k5.launches - before[2]) == (
         2 * 3, 0, 0)
     assert len(report["views"]) == 3 and np.isfinite(report["mean"]["psnr"])
+
+
+def test_world_one_nccl_mesh_equals_no_mesh(dev):
+    """A world of 1 on NCCL (a child process: ``parallel/audit.run_ranks``)
+    at 8x256 and 64 + 128: the first step's gradients through the mesh
+    equal the no-mesh step's on the same batch and draws bit for bit, every
+    step makes exactly one all-reduce (the counter, and one
+    ``nccl:all_reduce`` host call in the profile) and two K1 training-mode
+    and two K2 launches."""
+    from nerf_keras_tpu_torch.parallel.audit import run_ranks
+    from nerf_keras_tpu_torch.profile_train import bench_batch
+    from nerf_keras_tpu_torch.utils.checkpoint import _flatten
+
+    cfg = _parity_cfg(True)
+    params = random_params(cfg, seed=4)
+    batch = bench_batch(cfg.batch_size, seed=5)
+    (rec,) = run_ranks(1, {"device": "cuda", "backend": None, "cfg": cfg, "near": 2.0,
+                           "far": 6.0, "batch": batch, "params": params, "steps": 2,
+                           "profile": 2}, timeout=300)
+    assert rec["backend"] == "nccl"
+    assert rec["audit"]["all_reduce_count"] == 1
+    assert rec["launches"] == [{"k1_train": 2, "k2": 2}] * 2
+    assert rec["nccl_all_reduce"]["host_calls"] == 2
+    one = Trainer(cfg, 2.0, 6.0, device="cuda").replace_params(params)
+    one.train_step(batch)
+    got = _flatten(rec["grads"], "")
+    for k, want in _flatten(one.params_tree(grad=True), "").items():
+        np.testing.assert_array_equal(got[k], want, err_msg=k)

@@ -324,4 +324,6 @@ def test_port_imports_no_jax():
             if top == "urllib" and path.is_relative_to(PORT_ROOT / "data"):
                 bad.append(f"{path.relative_to(PORT_ROOT.parent)}: {name}")
     assert len(list((PORT_ROOT / "data").rglob("*.py"))) >= 5
+    assert {p.name for p in (PORT_ROOT / "parallel").glob("*.py")} >= {
+        "distributed.py", "mesh.py", "audit.py"}
     assert not bad, bad
