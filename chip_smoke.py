@@ -73,7 +73,8 @@ nonzero — nothing falls back to the CPU or to a plain path):
     with two K4 launches per chunk and no K1 launch, /stats says int8, and
     one frame is held against the port's CPU int8 path on the same tables;
 13. the proposal-trained int8 render: phase 7's trainer calibrates int8
-    tables and renders a 200x200 frame, one K4 launch per chunk, no K1;
+    tables and renders a 200x200 frame, one K4 launch per chunk, no K1,
+    at least 30 dB of its float frame;
 14. K3 (the recompute backward) against K2 on the same K1 predictions at
     B=4096 with S=64, 160 and 192 and a ragged B, with and without the
     weights cotangent: dW/db bit-equal; at S=160 against autograd of the
@@ -181,7 +182,33 @@ nonzero — nothing falls back to the CPU or to a plain path):
     gate, while a copy whose rank 1 leaves its gradients out of the
     reduce misses it by 10x; a 4,096-ray render split over the ranks with
     no all-reduce; the step ms (two processes sharing one card: not a
-    scaling figure).
+    scaling figure);
+23. ``union_free``: the union-free proposal layout (``PROP_UNION=false``,
+    ``PROP_AUX_SAMPLES``, ``PROP_UNION_EVERY``): (a) K1 forward, K1 in
+    training mode and K2 (with the weights cotangent) at B=4096, S=128
+    (the fine pass: one ray a block) and S=32 (the aux pass) against their
+    plain versions within phases 3-4's gates, and K4 at the server's
+    chunk B=16384, S=128 within phase 11's; CUDA-event times, bounds and
+    the library yardsticks (bf16 ``torch.matmul`` per padded layer, the dW
+    product's, ``torch._int_mm``); (b) the arms of the JAX package's
+    ``scripts/exp_coverage_step_ab.py`` on one fixed batch in one process
+    (the union 64 + 96 recipe, ``auxfree-128+32``, ``il4-128``) and
+    ``docs/TRAINING.md``'s ``nounion-128`` (``profile_train.ARMS``): one step's gradients kernel path
+    vs plain path with the same draws (phase 7's gate), 10 steps with
+    exactly 1 K1 training-mode and 1 K2 launch a step (the aux arm 2 and
+    2), the samples a ray of each launch by step (the interleave at S=192
+    on steps 0, 4, 8 and S=128 between; the aux pass at S=32), a falling
+    loss, the median step ms and the peak memory (<= 1,536 MiB); (c) the
+    ``nounion-128`` trainer: ``evaluate`` and a 200x200 frame (K1 only, at
+    S=128), the int8 frame after ``quantize_for_inference`` (K4 only, >= 30
+    dB of the float frame), its checkpoint served once over HTTP (K1
+    only), ``cli.evaluate`` (1 K1 a view) and ``cli.infer --frames 3`` (1
+    K1 a frame); (d) ``cli.train_synthetic`` for one epoch of a config
+    JSON with all three knobs (aux 32, a union step every 4th, the anneal
+    horizon auto): exactly the K1/K2 launches its 21 steps (1 + 1 on union
+    steps, 2 + 2 else), eval and panels imply, the horizon resolved to 21.
+    The kernels line adds K1, K1-train, K2 and K4 at these shapes, each
+    with its launches at that S on the phase's main paths.
 
 Each main path runs with the launch counters set to 0 just before it and
 read just after.  The line before the last is the kernel report
@@ -213,12 +240,14 @@ from torch.nn.utils import parametrize
 
 from nerf_keras_tpu_torch import exp_train_paths, load_config, runtime
 from nerf_keras_tpu_torch.engine.step import (
+    aux_samples,
     draw_t_vals,
     make_grad_fn,
     make_loss_fn,
     make_render_fn,
     make_train_step,
     params_of,
+    union_step,
 )
 from nerf_keras_tpu_torch.engine.trainer import Trainer
 from nerf_keras_tpu_torch.models.mlp import (
@@ -238,7 +267,14 @@ from nerf_keras_tpu_torch.ops.kernels import quant_render as k4
 from nerf_keras_tpu_torch.ops.rays import get_rays, pose_spherical, sample_rays
 from nerf_keras_tpu_torch.ops.sampling import generate_t_vals
 from nerf_keras_tpu_torch.exp_train_paths import counts
-from nerf_keras_tpu_torch.profile_train import bench_batch, bench_config, parity_config
+from nerf_keras_tpu_torch.profile_train import (
+    ARMS,
+    UNION_ARM,
+    arm_config,
+    bench_batch,
+    bench_config,
+    parity_config,
+)
 from nerf_keras_tpu_torch.runtime import cuda_ms, device_ms_by_kernel
 from nerf_keras_tpu_torch.serving import RenderService, serve
 from nerf_keras_tpu_torch.cli import evaluate as eval_cli
@@ -1195,27 +1231,34 @@ def phase_serve_int8(card: str, tmp: str) -> dict:
     return launches
 
 
-def phase_proposal_int8(card: str, trainer: Trainer) -> dict:
-    """Phase 7's proposal-trained state: calibrate int8 tables on a 200x200
-    pose, then a 200x200 frame through the float proposal chain and one K4
-    fine pass per chunk."""
+def phase_proposal_int8(card: str, trainer: Trainer, phase: str = "proposal_int8",
+                        rec=None) -> dict:
+    """Phase 7's proposal-trained state (or another ``trainer``): calibrate
+    int8 tables on a 200x200 pose, then a 200x200 frame through the float
+    proposal chain and one K4 fine pass per chunk (inside ``rec``'s block
+    when given), at least ``QUANT_GATE_DB`` of the float frame."""
     pose = pose_spherical(30.0, -30.0, 4.0)
     trainer.quantize_for_inference(*trainer.pose_rays(pose, 200, 200, 240.0))
     reset_counts()
-    frame = trainer.render_image(pose, 200, 200, 240.0, quant=True)
+    with rec or contextlib.nullcontext():
+        frame = trainer.render_image(pose, 200, 200, 240.0, quant=True)
     launches = counts()
     n_chunks = -(-200 * 200 // 16384)
     rgb = frame["rgb"]
     flt = trainer.render_image(pose, 200, 200, 240.0)["rgb"]
-    say("proposal_int8", size=200, launches=launches, psnr_vs_float_db=frame_psnr(flt, rgb),
+    psnr = frame_psnr(flt, rgb)
+    say(phase, size=200, launches=launches, psnr_vs_float_db=psnr, gate_db=QUANT_GATE_DB,
         card=card)
     if launches != dict(ZERO, k4=n_chunks):
-        raise RuntimeError(f"the proposal int8 frame launched {launches}, expected "
+        raise RuntimeError(f"{phase}: the int8 frame launched {launches}, expected "
                            f"{n_chunks} K4 launches and nothing else")
     if not (np.isfinite(rgb).all() and np.isfinite(frame["depth"]).all()):
-        raise RuntimeError("proposal int8: non-finite frame")
+        raise RuntimeError(f"{phase}: non-finite frame")
     if rgb.shape != (200, 200, 3) or rgb.std() == 0:
-        raise RuntimeError("proposal int8: a constant frame")
+        raise RuntimeError(f"{phase}: a constant frame")
+    if not psnr >= QUANT_GATE_DB:
+        raise RuntimeError(f"{phase}: the int8 frame reads {psnr} dB against the float "
+                           f"frame, below the {QUANT_GATE_DB} dB gate")
     return launches
 
 
@@ -1282,6 +1325,9 @@ def _grads_kernel_vs_plain(cfg, trainer, batch, noise_shapes, seed, autograd_fol
     noise = [torch.rand(s, generator=gen, device="cuda") for s in noise_shapes]
     if cfg.train_sampler == "proposal":
         draws["chain"] = noise
+        if aux_samples(cfg, trainer.step):
+            draws["aux"] = torch.rand((b, aux_samples(cfg, trainer.step)), generator=gen,
+                                      device="cuda")
     else:
         draws["pdf"] = noise[0]
     params = params_of(trainer.params)
@@ -1824,19 +1870,22 @@ def _cli(main, argv: list[str]) -> tuple[object, str, dict]:
     return trainer, tee.buf.getvalue(), launches
 
 
-def _expected_launches(cfg, prepare, epochs: int, evals: int) -> dict:
+def _expected_launches(cfg, prepare, epochs: int, evals: int, passes: int = 2,
+                       train_passes=None) -> dict:
     """The launches of ``epochs`` epochs and ``evals`` evals by the CLI's
-    own accounting: K1 in training mode and K2 twice per step (coarse and
-    fine), the native batcher once per step; K1 forward twice per eval
-    batch (drop remainder) and per render chunk of the two panel views."""
+    own accounting: K1 in training mode and K2 ``train_passes(step)`` times
+    per step (default ``passes``: the coarse and fine passes), the native
+    batcher once per step; K1 forward ``passes`` times per eval batch (drop
+    remainder) and per render chunk of the two panel views."""
     train_ds, val_ds, _, _ = prepare(cfg.height, cfg.width)
     steps = len(train_ds) // cfg.batch_size
     test_bs = cfg.test_batch_size or cfg.batch_size
     eval_batches = len(val_ds) // train_cli.resolve_eval_batch(test_bs, len(val_ds))
     chunks = min(2, val_ds.num_images) * math.ceil(cfg.height * cfg.width
                                                    / max(test_bs, 4096))
-    return dict(ZERO, k1_train=2 * steps * epochs, k2=2 * steps * epochs,
-                k1_fwd=2 * (eval_batches + chunks) * evals,
+    train = sum(passes if train_passes is None else train_passes(i)
+                for i in range(steps * epochs))
+    return dict(ZERO, k1_train=train, k2=train, k1_fwd=passes * (eval_batches + chunks) * evals,
                 native_batches=steps * epochs), steps
 
 
@@ -2581,6 +2630,327 @@ def phase_dp(card: str) -> list[dict]:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 23: the union-free proposal layout (PROP_UNION=false with
+# PROP_AUX_SAMPLES and PROP_UNION_EVERY).
+
+# The arms of profile_train.ARMS at 64 + 128 (auxfree-128+32 and il4-128 from
+# the JAX package's scripts/exp_coverage_step_ab.py, nounion-128 from
+# docs/TRAINING.md's throughput recipe), after the shipped union recipe
+# (64 + 96) as the yardstick.
+UF_ARMS = (UNION_ARM, *ARMS)
+UF_STEPS = 10
+# The kernels' new shapes: the union-free fine pass and the aux pass (B,
+# S), and the server's chunk for K4.
+UF_SHAPES = ((4096, 128), (4096, 32))
+UF_K4_SHAPE = (16384, 128)
+
+
+class _SampleCounts:
+    """Inside each ``with`` block, the samples a ray (S) of every K1, K2 and
+    K4 launch, by wrapping the launch functions: ``steps`` holds a list per
+    :meth:`mark` (reset on entry) and ``total`` a count by (kernel, S) over
+    every block, the kernel one of ``k1_fwd``, ``k1_train``, ``k2``,
+    ``k4``.  A call is counted only where the kernel's own counter grew in
+    it, so ``total`` counts what the counters count.  Only main-path work
+    runs inside a block."""
+
+    # Each kernel's own launch counter.
+    COUNTERS = {"k1_fwd": lambda: k1.launches - k1.train_launches,
+                "k1_train": lambda: k1.train_launches,
+                "k2": lambda: k1.bwd_launches, "k4": lambda: k4.launches}
+
+    def __init__(self):
+        self.steps: list[list] = [[]]
+        self.total: dict = {}
+
+    def mark(self) -> None:
+        self.steps.append([])
+
+    def _wrap(self, fn, name):
+        def wrapped(*args, **kw):
+            kernel = name
+            if name == "k1":
+                train = kw.get("train", args[6] if len(args) > 6 else False)
+                kernel = "k1_train" if train else "k1_fwd"
+            before = self.COUNTERS[kernel]()
+            out = fn(*args, **kw)
+            grew = self.COUNTERS[kernel]() - before
+            if grew not in (0, 1):
+                raise RuntimeError(f"one {kernel} call counted {grew} launches")
+            if grew:
+                key = (kernel, int(args[3].shape[-1]))
+                self.steps[-1].append(key)
+                self.total[key] = self.total.get(key, 0) + 1
+            return out
+        return wrapped
+
+    def __enter__(self):
+        self.steps = [[]]
+        self._real = (k1.launch_k1, k1.launch_k2, k4.launch_k4)
+        k1.launch_k1 = self._wrap(self._real[0], "k1")
+        k1.launch_k2 = self._wrap(self._real[1], "k2")
+        k4.launch_k4 = self._wrap(self._real[2], "k4")
+        return self
+
+    def __exit__(self, *exc):
+        k1.launch_k1, k1.launch_k2, k4.launch_k4 = self._real
+
+
+def _uf_kernels(card: str) -> dict:
+    """(a) K1 forward, K1 in training mode and K2 at B=4096, S=128 and 32,
+    and K4 at B=16384, S=128, each against its plain version with the
+    gates of phases 3, 4 and 11; CUDA-event times, bounds and library
+    yardsticks."""
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(14)
+    mlp = full_mlp(dev, 14)
+    params = list(mlp.parameters())
+    _, origins, dirs = (torch.as_tensor(x, device=dev) for x in bench_batch(4096, seed=14))
+    desc = k1.kernel_pack(mlp, dev).desc
+    report = {}
+    for b, s in UF_SHAPES:
+        t = generate_t_vals(2.0, 6.0, (b,), s, "stratified", generator=gen).to(dev).contiguous()
+        args = (mlp, origins, dirs, t)
+        with torch.inference_mode():
+            rgb_k, w_k = k1.render_rays_fused(*args)
+            rgb_p, w_p = k1.render_rays_reference(*args)
+            d_rgb, d_w = (rgb_k - rgb_p).abs(), (w_k - w_p).abs()
+            fwd = {"rgb_max": d_rgb.max().item(), "rgb_mean": d_rgb.mean().item(),
+                   "w_max": d_w.max().item(), "w_mean": d_w.mean().item()}
+            fwd_ms = cuda_ms(lambda: k1.render_rays_fused(*args))
+            fwd_plain_ms = cuda_ms(lambda: k1.render_rays_reference(*args))
+        g_rgb = (torch.randn((b, 3), generator=gen) * 1e-3).to(dev)
+        g_w = (torch.randn((b, s), generator=gen) * 1e-3).to(dev)
+        with torch.no_grad():
+            _, _, x_enc, preds = k1.launch_k1(mlp, origins, dirs, t, 10, 4, train=True)
+            got = k1.launch_k2(mlp, x_enc, dirs, t, preds, g_rgb, g_w, 10, 4)
+            d_enc = encode_position(dirs, 4)[:, None, :].expand(b, s, -1).reshape(b * s, -1)
+            preds_err = float((preds - mlp(x_enc.float(), d_enc)).abs().max())
+            train_ms = cuda_ms(lambda: k1.launch_k1(mlp, origins, dirs, t, 10, 4, train=True))
+            k2_ms = cuda_ms(lambda: k1.launch_k2(mlp, x_enc, dirs, t, preds, g_rgb, g_w, 10, 4))
+        with torch.enable_grad():
+            rgb_p, w_p = k1.render_rays_reference(*args)
+        want = list(torch.autograd.grad([rgb_p, w_p], params, [g_rgb, g_w], retain_graph=True))
+        max_abs, rel = _leaf_errors(got, want)
+        plain_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+            [rgb_p, w_p], params, [g_rgb, g_w], retain_graph=True))
+        del rgb_p, w_p, want, x_enc, preds, d_enc
+        torch.cuda.empty_cache()
+        entry = {"fwd_err": max(fwd["rgb_max"], fwd["w_max"]), "fwd_ms": fwd_ms,
+                 "fwd_plain_ms": fwd_plain_ms, "fwd_bound": k1_bound(mlp, b, s, False),
+                 "train_err": preds_err, "train_ms": train_ms, "train_plain_ms": fwd_plain_ms,
+                 "train_bound": k1_bound(mlp, b, s, True), "k2_err": max_abs, "k2_ms": k2_ms,
+                 "k2_plain_ms": plain_bwd_ms, "k2_bound": k2_bound(mlp, b, s),
+                 "library_ms": library_products_ms(desc, b * s, torch.bfloat16, dev),
+                 "dw_library_ms": _dw_library_ms(mlp, dev, b * s)}
+        report[s] = entry
+        say("union_free_k1_k2", B=b, S=s, **fwd, tol_max=TOL_MAX, tol_mean=TOL_MEAN,
+            k1_ms=fwd_ms, k1_plain_ms=fwd_plain_ms, k1_bound_ms=entry["fwd_bound"][0],
+            k1_train_ms=train_ms, k1_train_bound_ms=entry["train_bound"][0],
+            preds_max_err=preds_err, k2_max_abs_err=max_abs, k2_max_rel_l2=rel,
+            tol_rel=K2_TOL_REL, k2_ms=k2_ms, k2_plain_bwd_ms=plain_bwd_ms,
+            k2_bound_ms=entry["k2_bound"][0], library_products_ms=entry["library_ms"],
+            library_dw_ms=entry["dw_library_ms"], card=card)
+        if (fwd["rgb_max"] > TOL_MAX or fwd["w_max"] > TOL_MAX or fwd["rgb_mean"] > TOL_MEAN
+                or fwd["w_mean"] > TOL_MEAN):
+            raise RuntimeError(f"K1 disagrees with the plain version at S={s}: {fwd}")
+        if preds_err > PREDS_TOL or rel > K2_TOL_REL or not np.isfinite(max_abs):
+            raise RuntimeError(f"K1-train/K2 disagree with the plain versions at S={s}: "
+                               f"preds {preds_err}, rel L2 {rel}")
+
+    b, s = UF_K4_SHAPE
+    qp = _calibrated_qparams(mlp, dev)
+    o, d = get_rays(128, 128, 153.6, pose_spherical(30.0, -30.0, 4.0), device=dev)
+    o, d = o.reshape(-1, 3).contiguous(), d.reshape(-1, 3).contiguous()
+    t = generate_t_vals(2.0, 6.0, (b,), s, "stratified", generator=gen).to(dev).contiguous()
+    args = (qp, o, d, t)
+    errs = _errs(k4.render_rays_fused_quant(*args), k4.render_rays_reference_quant(*args))
+    ms = cuda_ms(lambda: k4.render_rays_fused_quant(*args))
+    plain_ms = cuda_ms(lambda: k4.render_rays_reference_quant(*args))
+    bnd = k4_bound(mlp, b, s)
+    library = library_products_ms(k4.kernel_pack(qp, dev).desc, b * s, torch.int8, dev)
+    report["k4"] = {"err": max(errs["rgb_max"], errs["w_max"]), "ms": ms, "plain_ms": plain_ms,
+                    "bound": bnd, "library_ms": library}
+    say("union_free_k4", B=b, S=s, **errs, tol_max=K4_TOL_MAX, tol_mean=K4_TOL_MEAN, ms=ms,
+        plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1], library_ms=library, card=card)
+    if _miss(errs) > 1.0:
+        raise RuntimeError(f"K4 disagrees with the plain version at B={b}, S={s}: {errs}")
+    return report
+
+
+def _uf_expected_samples(cfg, step: int) -> list:
+    """The (kernel, S) launches of one proposal train step, sorted."""
+    if union_step(cfg, step):
+        s = [cfg.ns_coarse + cfg.ns_fine]
+    else:
+        s = [cfg.ns_fine] + ([aux_samples(cfg, step)] if aux_samples(cfg, step) else [])
+    return sorted([("k1_train", x) for x in s] + [("k2", x) for x in s])
+
+
+def _uf_arms(card: str, rec: _SampleCounts) -> tuple[list[dict], Trainer, tuple]:
+    """(b) Each arm on one fixed bench batch: one step's gradients, kernel
+    path against plain path with the same draws; 10 steps with exact
+    launches and samples a ray by step; a falling loss, the median step and
+    the peak memory.  Returns the launches, the nounion-128 trainer and the
+    batch."""
+    runs, kept = [], None
+    for name in UF_ARMS:
+        cfg = arm_config(name)
+        trainer = Trainer(cfg, 2.0, 6.0, device="cuda")
+        batch = trainer.put_batch(bench_batch(cfg.batch_size))
+        losses, by_model, max_abs, _ = _grads_kernel_vs_plain(
+            cfg, trainer, batch, [(cfg.batch_size, cfg.ns_fine)], seed=15)
+        rel = max(max(v) for v in by_model.values())
+        n = 2 if cfg.prop_aux_samples else 1
+
+        def step_fn(state, batch_, draws, generator, trainer=trainer):
+            rec.mark()
+            return trainer.train_step(batch_)
+
+        with rec:
+            run = _train_steps(trainer, batch, UF_STEPS, dict(ZERO, k1_train=n, k2=n), step_fn)
+        samples = [sorted(s) for s in rec.steps[1:]]
+        want = [_uf_expected_samples(cfg, i) for i in range(UF_STEPS)]
+        say("union_free_arm", arm=name, ns_coarse=cfg.ns_coarse, ns_fine=cfg.ns_fine,
+            prop_union=cfg.prop_union, prop_aux_samples=cfg.prop_aux_samples,
+            prop_union_every=cfg.prop_union_every, loss_kernel=losses[0],
+            loss_plain=losses[1], grads_max_abs_err=max_abs, grads_max_rel_l2=rel,
+            tol_rel=STEP_TOL_REL, samples_by_step=[[x[1] for x in s if x[0] == "k1_train"]
+                                                   for s in samples],
+            **run, card=card)
+        if rel > STEP_TOL_REL:
+            raise RuntimeError(f"{name}: kernel-path gradients disagree with the plain "
+                               f"path: {rel}")
+        if samples != want:
+            raise RuntimeError(f"{name}: launched at samples {samples}, expected {want}")
+        if not run["loss_curve"][-1] < run["loss_curve"][0]:
+            raise RuntimeError(f"{name}: the loss did not fall: {run['loss_curve']}")
+        if run["peak_step_mib"] > STEP_PEAK_MIB:
+            raise RuntimeError(f"{name}: a step peaked at {run['peak_step_mib']} MiB")
+        runs.append(run["launches"])
+        if name == "nounion-128":
+            kept = (trainer, batch)
+        del trainer
+        torch.cuda.empty_cache()
+    return runs, *kept
+
+
+def _uf_serving(card: str, tmp: str, trainer: Trainer, batch, rec: _SampleCounts) -> list:
+    """(c) The nounion-128 trainer: ``evaluate`` and a 200x200 frame (K1
+    only, S=128), the int8 frame after ``quantize_for_inference`` (K4 only,
+    the PSNR gate), a checkpoint, one /render from the server on it, and
+    ``cli.evaluate`` and ``cli.infer`` (3 frames) on it."""
+    n_chunks = -(-200 * 200 // 16384)
+    with rec:
+        ev, launches = _eval_and_frame(trainer, batch, "union_free")
+    say("union_free_eval_frame", eval=ev, launches=launches,
+        samples=sorted(set(rec.steps[0])), card=card)
+    if launches != dict(ZERO, k1_fwd=1 + n_chunks) or set(rec.steps[0]) != {("k1_fwd", 128)}:
+        raise RuntimeError(f"union_free (c): eval and frame launched {launches} at "
+                           f"{set(rec.steps[0])}, expected K1 only at S=128")
+    runs = [launches, phase_proposal_int8(card, trainer, "union_free_int8", rec)]
+
+    root = os.path.join(tmp, "union_free")
+    os.makedirs(root)
+    config = _config_file(os.path.join(root, "union_free.json"), TRAIN_SAMPLER="proposal",
+                          PROP_UNION=False, PROP_EXPLORE=0.1, DISTORTION_LOSS_MULT=1e-4,
+                          PROP_ANNEAL_STEPS=1000, WITH_GCS=False)
+    ckpt = os.path.join(root, "nounion.ckpt.npz")
+    trainer.save(ckpt, scene={"near": 2.0, "far": 6.0, "focal": 120.0})
+    service = RenderService(load_config(config), ckpt, device="cuda")
+    server = serve(service, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        reset_counts()
+        with rec:
+            png, seconds = _get(f"http://127.0.0.1:{server.server_address[1]}/render?"
+                                f"theta=30&phi=-30&radius=4&width=200&height=200")
+        launches = counts()
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    img = decode_png(png)
+    say("union_free_serve", latency_s=seconds, shape=list(img.shape), launches=launches,
+        std=float(img.std()), card=card)
+    if launches != dict(ZERO, k1_fwd=n_chunks) or img.shape != (200, 200, 3) or img.std() == 0:
+        raise RuntimeError(f"union_free (c): /render launched {launches}, {img.shape}")
+    runs.append(launches)
+
+    with rec:
+        report, _, launches = _cli(eval_cli.run_evaluation, [
+            "--config", config, "--checkpoint", ckpt, "--data", "synthetic", "--split",
+            "val", "--device", "cuda", "--out", os.path.join(root, "eval.json")])
+    views = len(report["views"])
+    say("union_free_cli_evaluate", launches=_clean(launches), views=views,
+        mean=report["mean"], card=card)
+    if _clean(launches) != dict(ZERO, k1_fwd=views) or not np.isfinite(report["mean"]["psnr"]):
+        raise RuntimeError(f"union_free (c): cli.evaluate launched {launches}, "
+                           f"report {report['mean']}")
+    runs.append(_clean(launches))
+    with rec:
+        written, _, launches = _cli(infer_cli.run_inference, [
+            "--config", config, "--checkpoint", ckpt, "--frames", "3", "--device", "cuda",
+            "--out", os.path.join(root, "orbit.mp4")])
+    frames = sorted(os.listdir(written)) if os.path.isdir(written) else [written]
+    say("union_free_cli_infer", launches=_clean(launches), written=frames, card=card)
+    if _clean(launches) != dict(ZERO, k1_fwd=3) or len(frames) not in (1, 3):
+        raise RuntimeError(f"union_free (c): cli.infer launched {launches}, wrote {frames}")
+    runs.append(_clean(launches))
+    return runs
+
+
+def _uf_train_cli(card: str, tmp: str, rec: _SampleCounts) -> dict:
+    """(d) ``cli.train_synthetic`` for 1 epoch on a config JSON with the
+    three knobs (aux 32, a union step every 4th) and an auto anneal
+    horizon: the launches its steps, eval and panels imply, a finite loss."""
+    config = _config_file(os.path.join(tmp, "union_free_train.json"),
+                          TRAIN_SAMPLER="proposal", PROP_UNION=False, PROP_EXPLORE=0.1,
+                          PROP_AUX_SAMPLES=32, PROP_UNION_EVERY=4, PROP_ANNEAL_STEPS=-1,
+                          DISTORTION_LOSS_MULT=1e-4, WITH_GCS=False)
+    cfg = dataclasses.replace(load_config(config), epochs=1)
+    expected, steps = _expected_launches(
+        cfg, train_synthetic.prepare, 1, 1, passes=1,
+        train_passes=lambda i: 1 if i % 4 == 0 else 2)
+    run = os.path.join(tmp, "union_free_run")
+    with rec:
+        trainer, out, launches = _cli(train_synthetic.main, [
+            "--config", config, "--run-dir", run, "--epochs", "1", "--eval-every", "1"])
+    history = History.load(os.path.join(run, _history_name(cfg)))
+    epochs = [{"epoch": int(m[0]), "krays_per_s": float(m[1]), "step_ms": float(m[2])}
+              for m in EPOCH_LINE.findall(out)]
+    say("union_free_train_cli", steps=steps, epochs=epochs, launches=launches,
+        expected=expected, prop_anneal_steps=trainer.cfg.prop_anneal_steps,
+        losses=history.losses, val_psnrs=history.val["psnrs"], card=card)
+    if launches != expected:
+        raise RuntimeError(f"union_free (d): launched {launches}, expected {expected}")
+    if trainer.cfg.prop_anneal_steps != steps or not np.isfinite(history.losses).all():
+        raise RuntimeError(f"union_free (d): horizon {trainer.cfg.prop_anneal_steps} "
+                           f"(expected {steps}), losses {history.losses}")
+    return _clean(launches)
+
+
+def phase_union_free(card: str, tmp: str) -> tuple[list[dict], dict]:
+    """Phase 23 (module docstring): returns the main path's launches and a
+    report of the kernels' new shapes, with each one's launches by S."""
+    t0 = time.perf_counter()
+    report = _uf_kernels(card)
+    torch.cuda.empty_cache()
+    rec = _SampleCounts()
+    runs, trainer, batch = _uf_arms(card, rec)
+    runs += _uf_serving(card, tmp, trainer, batch, rec)
+    del trainer
+    torch.cuda.empty_cache()
+    runs.append(_uf_train_cli(card, tmp, rec))
+    report["launches"] = rec.total
+    say("union_free", wall_s=time.perf_counter() - t0,
+        launches_by_kernel_and_samples={f"{k}@S={s}": v for (k, s), v in rec.total.items()},
+        card=card)
+    return runs, report
+
+
 def _sum(runs: list[dict], key: str) -> int:
     return sum(r[key] for r in runs)
 
@@ -2630,6 +3000,9 @@ def main() -> None:
         runs += phase_fern_cli(card, tmp)
         torch.cuda.empty_cache()
         runs += phase_dp(card)
+        torch.cuda.empty_cache()
+        uf_runs, uf = phase_union_free(card, tmp)
+        runs += uf_runs
     # Library yardsticks measured once and shared where two kernels do the
     # same products at the same M: K1's per-layer bf16 matmul at M = 4096 x
     # 192 is K5's forward at N = 786,432 and K6's forward at S=192; K2's dW
@@ -2664,6 +3037,27 @@ def main() -> None:
         kernel_entry("K7 pdf_union", "K7", _sum(runs, "k7"), k7r["max_abs_err"], k7r["ms"],
                      k7r["plain_ms"], k7r["bound"]),
     ]
+    # The union-free layout's shapes (phase 23), each with its launches at
+    # that S on phase 23's main paths.
+    n = uf["launches"]
+    for s in (128, 32):
+        r = uf[s]
+        if s == 128:
+            kernels.append(kernel_entry(
+                "K1 fused_render_fwd (union-free, S=128)", "K1", n.get(("k1_fwd", s), 0),
+                r["fwd_err"], r["fwd_ms"], r["fwd_plain_ms"], r["fwd_bound"], r["library_ms"]))
+        kernels += [
+            kernel_entry(f"K1-train fused_render_fwd (union-free, S={s})", "K1",
+                         n.get(("k1_train", s), 0), r["train_err"], r["train_ms"],
+                         r["train_plain_ms"], r["train_bound"], r["library_ms"]),
+            kernel_entry(f"K2 fused_render_bwd (union-free, S={s})", "K2", n.get(("k2", s), 0),
+                         r["k2_err"], r["k2_ms"], r["k2_plain_ms"], r["k2_bound"],
+                         r["dw_library_ms"]),
+        ]
+    r = uf["k4"]
+    kernels.append(kernel_entry("K4 quant_render_fwd (union-free, S=128)", "K4",
+                                n.get(("k4", 128), 0), r["err"], r["ms"], r["plain_ms"],
+                                r["bound"], r["library_ms"]))
     for entry in kernels:
         if entry["launches"] == 0:
             raise RuntimeError(f"{entry['name']} was never launched on the main path")

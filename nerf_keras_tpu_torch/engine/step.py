@@ -22,7 +22,11 @@ Counterpart of ``nerf_keras_tpu/engine/step.py``:
   ``make_train_step``), its eval step and the proposal render: the
   proposal chain (``ops/proposal.py``) places the fine samples, one fine
   pass renders them (K1 forward and K2 backward on the card), and one Adam
-  step updates both nets;
+  step updates both nets.  The fine pass sees the union of the uniform
+  grid with the placed samples, or with ``PROP_UNION=false`` the placed
+  samples alone; that layout may add an auxiliary coverage pass
+  (``PROP_AUX_SAMPLES``, a second K1/K2 pass over stratified t) and
+  interleave union steps (``PROP_UNION_EVERY``, :func:`union_step`);
 * the int8 renders (``make_quant_render_fn``, and
   ``make_proposal_render_fn(quant=True)``): every MLP pass is one K4
   launch on the card, over qparams from ``ops/quant.py``;
@@ -79,22 +83,13 @@ from nerf_keras_tpu_torch.ops.volume import (
     volume_render,
 )
 from nerf_keras_tpu_torch.parallel.mesh import DataMesh, all_reduce_flat, local_rows
-from nerf_keras_tpu_torch.utils.checkpoint import check_render_support
 
 _LATER = "arrives in a later slice of the port (ROADMAP.md queue 1)"
 
 
 def check_train_support(cfg: NeRFConfig, device: torch.device | None = None) -> None:
-    """Raise ``NotImplementedError`` for training knobs this port does not
-    run yet; ``ValueError`` for an unresolved anneal horizon."""
-    unported = {
-        "PROP_UNION=false": not cfg.prop_union,
-        "PROP_AUX_SAMPLES": cfg.prop_aux_samples > 0,
-        "PROP_UNION_EVERY": cfg.prop_union_every > 0,
-    }
-    for knob, on in unported.items():
-        if on:
-            raise NotImplementedError(f"{knob} {_LATER}")
+    """Raise ``NotImplementedError`` for float32 kernels on CUDA, which this
+    port does not run yet; ``ValueError`` for an unresolved anneal horizon."""
     if (device is not None and device.type == "cuda" and cfg.compute_dtype != "bfloat16"
             and not cfg.batch_norm):
         raise NotImplementedError(
@@ -372,7 +367,8 @@ def make_loss_fn(cfg: NeRFConfig, near: float, far: float,
 
     ``TRAIN_SAMPLER=coarse`` (:func:`_make_coarse_loss_fn`): ``noise`` is
     the ``(B, NS_FINE)`` uniforms of the fine draw.  ``proposal``
-    (:func:`_make_proposal_loss_fn`): the per-level uniforms of the chain.
+    (:func:`_make_proposal_loss_fn`): the dict of the chain's per-level
+    uniforms and the aux pass's.
     ``render_pass`` replaces the K1/K2 render passes and ``mlp_fn`` the K5
     MLP (a check on the card runs the plain versions through them).  The
     loss is the mean over the rows given; under ``mesh`` BatchNorm takes
@@ -426,27 +422,65 @@ def _make_coarse_loss_fn(cfg: NeRFConfig, near: float, far: float,
     return loss_fn
 
 
+def union_step(cfg: NeRFConfig, step: int) -> bool:
+    """Whether the proposal train step at ``step`` (the count before its
+    increment) runs the union layout: always with ``PROP_UNION``; with
+    ``PROP_UNION_EVERY=N`` on every step ``step % N == 0`` (step 0 too),
+    as the JAX step's ``lax.cond``; never otherwise."""
+    return cfg.prop_union or (cfg.prop_union_every > 0 and step % cfg.prop_union_every == 0)
+
+
+def aux_samples(cfg: NeRFConfig, step: int) -> int:
+    """The auxiliary coverage pass's samples a ray at ``step``: it rides the
+    union-free layout only (0 on union steps)."""
+    return 0 if union_step(cfg, step) else cfg.prop_aux_samples
+
+
 def _make_proposal_loss_fn(cfg: NeRFConfig, near: float, far: float,
                            render_pass: Callable | None = None) -> Callable:
     """The proposal train step's loss, ``(loss, (loss_prop, loss_fine,
-    rgb_fine))``: the chain places the fine samples (draws from
-    ``generator`` or the per-level uniforms ``noise``), one fine pass
-    renders them, and the loss is MSE(fine rgb) + PROP_LOSS_MULT x the
-    interlevel loss of each level against the detached fine weights binned
-    into its partition (blurred ``[1/4, 1/2, 1/4]`` per the JAX blur rule)
-    + DISTORTION_LOSS_MULT x the distortion of the fine weights.
-    ``render_pass`` replaces the fine pass (K1/K2 on the card, the plain
+    rgb_fine))``: the chain places the fine samples, one fine pass renders
+    them, and the loss is MSE(fine rgb) + PROP_LOSS_MULT x the interlevel
+    loss of each level against the detached fine weights binned into its
+    partition (blurred ``[1/4, 1/2, 1/4]`` per the JAX blur rule) +
+    DISTORTION_LOSS_MULT x the distortion of the fine weights; on
+    union-free steps with ``PROP_AUX_SAMPLES`` + PROP_AUX_LOSS_MULT x the
+    MSE of an auxiliary pass of the same fine MLP over that many
+    stratified t a ray (whatever ``SAMPLING_MODE`` says).  The layout of
+    each step follows :func:`union_step`: with ``PROP_UNION_EVERY`` both
+    layouts' losses are built and the step count picks one.  Draws come
+    from ``generator`` (the chain's levels, then the aux t) or from
+    ``noise = {'chain': [U_level1, ...], 'aux': U (B, PROP_AUX_SAMPLES)}``.
+    ``render_pass`` replaces the fine passes (K1/K2 on the card, the plain
     version on the CPU); it gets ``weights_grad`` as a keyword.
     """
-    union = cfg.prop_union
+    def make_pass(weights_grad: bool) -> Callable:
+        if render_pass is None:
+            return _make_pass_fn(cfg, weights_grad=weights_grad)
+        return lambda mlp, o, d, t: render_pass(mlp, o, d, t, weights_grad=weights_grad)
+
+    fine_pass = make_pass(cfg.distortion_loss_mult > 0.0 or cfg.white_bkgd)
+    # Only the background composite reads the aux pass's weights.
+    aux_pass = make_pass(cfg.white_bkgd)
+    if cfg.prop_union_every > 0:
+        losses = {True: _layout_loss(cfg, near, far, True, fine_pass, aux_pass),
+                  False: _layout_loss(cfg, near, far, False, fine_pass, aux_pass)}
+
+        def loss_interleaved(params, images, origins, dirs, t_vals, step, generator=None,
+                             noise=None):
+            return losses[union_step(cfg, step)](params, images, origins, dirs, t_vals,
+                                                 step, generator, noise)
+
+        return loss_interleaved
+    return _layout_loss(cfg, near, far, cfg.prop_union, fine_pass, aux_pass)
+
+
+def _layout_loss(cfg: NeRFConfig, near: float, far: float, union: bool,
+                 fine_pass: Callable, aux_pass: Callable) -> Callable:
+    """:func:`_make_proposal_loss_fn`'s loss for one sample layout."""
     chain = make_chain_sampler(cfg, cfg.prop_l_xyz, union, cfg.prop_levels,
                                cfg.prop_samples, train=True)
-    weights_grad = cfg.distortion_loss_mult > 0.0 or cfg.white_bkgd
-    if render_pass is None:
-        fine_pass = _make_pass_fn(cfg, weights_grad=weights_grad)
-    else:
-        def fine_pass(mlp, origins, dirs, t_vals):
-            return render_pass(mlp, origins, dirs, t_vals, weights_grad=weights_grad)
+    aux_n = 0 if union else cfg.prop_aux_samples
 
     def blur_level(i: int) -> bool:
         if cfg.prop_target_blur is not None:
@@ -463,8 +497,9 @@ def _make_proposal_loss_fn(cfg: NeRFConfig, near: float, far: float,
 
     def loss_fn(params, images, origins, dirs, t_vals, step, generator=None,
                 noise=None):
+        noise = noise or {}
         t_all, levels = chain(params["proposal"], origins, dirs, t_vals, step,
-                              generator, noise)
+                              generator, noise.get("chain"))
         rgb_fine, w_fine = fine_pass(params["fine"], origins, dirs, t_all)
         if cfg.white_bkgd:
             rgb_fine = composite_background(rgb_fine, w_fine)
@@ -478,6 +513,14 @@ def _make_proposal_loss_fn(cfg: NeRFConfig, near: float, far: float,
         if cfg.distortion_loss_mult > 0.0:
             loss = loss + cfg.distortion_loss_mult * distortion_loss(
                 t_all, w_fine, near, far)
+        if aux_n:
+            t_aux = generate_t_vals(near, far, tuple(images.shape[:-1]), aux_n, "stratified",
+                                    generator=generator, device=images.device,
+                                    noise=noise.get("aux")).contiguous()
+            rgb_aux, w_aux = aux_pass(params["fine"], origins, dirs, t_aux)
+            if cfg.white_bkgd:
+                rgb_aux = composite_background(rgb_aux, w_aux)
+            loss = loss + cfg.prop_aux_loss_mult * mse(images, rgb_aux)
         return loss, (loss_prop, loss_fine, rgb_fine)
 
     return loss_fn
@@ -493,14 +536,15 @@ def draw_t_vals(cfg: NeRFConfig, near: float, far: float, batch_shape: tuple,
 
 
 def rank_draws(cfg: NeRFConfig, mesh: DataMesh, local_b: int, draws: dict | None,
-               generator: torch.Generator | None, device) -> dict:
-    """A rank's uniforms for one train step: each is taken at the global
-    batch shape, from ``draws`` (global-shaped) or else from ``generator``
-    in the order and shapes the one-process step draws them, and this
-    rank's rows are kept.  Every rank holds the same generator, so a step
-    over ``world`` ranks equals the one-process step on the concatenated
-    batch, as one JAX key draws the global array and each shard takes its
-    part."""
+               generator: torch.Generator | None, device, step: int = 0) -> dict:
+    """A rank's uniforms for the train step at ``step``: each is taken at
+    the global batch shape, from ``draws`` (global-shaped) or else from
+    ``generator`` in the order and shapes the one-process step draws them
+    (t, the chain's levels, then the aux pass's t on a step that has one,
+    :func:`aux_samples`), and this rank's rows are kept.  Every rank holds
+    the same generator, so a step over ``world`` ranks equals the
+    one-process step on the concatenated batch, as one JAX key draws the
+    global array and each shard takes its part."""
     draws = draws or {}
     b = local_b * mesh.world
     rows = local_rows(b, mesh)
@@ -524,6 +568,9 @@ def rank_draws(cfg: NeRFConfig, mesh: DataMesh, local_b: int, draws: dict | None
     n2 = cfg.prop_samples or cfg.ns_coarse
     out["chain"] = [take(u, (b, cfg.ns_fine if i == cfg.prop_levels - 1 else n2))
                     for i, u in enumerate(given)]
+    aux_n = aux_samples(cfg, step)
+    if aux_n:
+        out["aux"] = take(draws.get("aux"), (b, aux_n))
     return out
 
 
@@ -571,13 +618,14 @@ def make_grad_fn(cfg: NeRFConfig, near: float, far: float,
     (of its rows' mean loss), before any reduction.
     """
     loss_fn = make_loss_fn(cfg, near, far, render_pass=render_pass, mlp_fn=mlp_fn, mesh=mesh)
-    noise_key = "chain" if cfg.train_sampler == "proposal" else "pdf"
+    proposal = cfg.train_sampler == "proposal"
 
     def grad_fn(state: TrainState, batch, draws: dict | None = None,
                 generator: torch.Generator | None = None):
         images, origins, dirs = batch
         if mesh is not None:
-            draws = rank_draws(cfg, mesh, images.shape[0], draws, generator, images.device)
+            draws = rank_draws(cfg, mesh, images.shape[0], draws, generator, images.device,
+                               state.step)
         draws = draws or {}
         t_vals = draw_t_vals(cfg, near, far, images.shape[:-1], images.device,
                              generator, draws.get("t"))
@@ -587,7 +635,7 @@ def make_grad_fn(cfg: NeRFConfig, near: float, far: float,
         raw = _fold_in_place(pairs)
         try:
             loss, aux = loss_fn(state.params, images, origins, dirs, t_vals, state.step,
-                                generator, draws.get(noise_key))
+                                generator, draws if proposal else draws.get("pdf"))
             loss.backward()
         finally:
             _unfold_in_place(pairs, raw)
@@ -609,7 +657,8 @@ def make_train_step(cfg: NeRFConfig, near: float, far: float,
     device.  t-values and the fine draws come from ``generator``, or from
     ``draws`` (uniforms in [0, 1); tests replay the JAX package's):
     ``{'t': U, 'pdf': U (B, NS_FINE)}`` for the parity step, ``{'t': U,
-    'chain': [U_level1, ...]}`` for the proposal step.  The loss is
+    'chain': [U_level1, ...]}`` for the proposal step, with ``'aux': U (B,
+    PROP_AUX_SAMPLES)`` on a union-free step with the aux pass.  The loss is
     :func:`make_loss_fn`'s, under the frequency-anneal fold of
     :func:`make_grad_fn`.  Gradients land in each parameter's ``.grad``
     (kept after the step), then Adam and the EMA update the raw parameters
@@ -665,8 +714,9 @@ def make_eval_step(cfg: NeRFConfig, near: float, far: float,
     window at their step folded in (``Trainer`` folds its eval weights at
     its step); raw models raise ``ValueError``.  Under ``mesh`` ``batch`` is
     this rank's rows and the metrics the global batch's, through one
-    all-reduce (:func:`step_metrics`)."""
-    check_render_support(cfg)
+    all-reduce (:func:`step_metrics`).  The proposal eval follows
+    ``PROP_UNION`` (union-free under ``PROP_UNION_EVERY`` too), and its
+    distillation metric bins the fine weights unblurred."""
     _check_freq_anneal_resolved(cfg)
     if cfg.train_sampler != "proposal":
         forward = _make_eval_forward(cfg)
@@ -713,8 +763,9 @@ def make_proposal_render_fn(
     """``render(prop, fine, origins, dirs) -> {'rgb_fine', 'depth_fine'}``:
     the proposal chain at midpoint draws over ``ns_coarse`` centered
     t-values, then one fine K1 pass over their union with the ``ns_fine``
-    draws.  With ``quant`` ``fine`` is the fine model's qparams and the
-    fine pass is K4; the proposal nets stay float.  ``want_weights`` adds
+    draws (with ``union=False`` over the sorted draws alone).  With
+    ``quant`` ``fine`` is the fine model's qparams and the fine pass is K4;
+    the proposal nets stay float.  ``want_weights`` adds
     the fine pass's compositing weights ``weights_fine (B, S)`` and the
     sorted t-values they weight, ``t_fine``."""
     fine_pass = _make_pass_fn(cfg, quant=quant)
@@ -824,7 +875,6 @@ def make_render_fn(cfg: NeRFConfig, near: float, far: float,
     ``want_weights`` (proposal only) adds ``weights_fine`` and ``t_fine``
     (:func:`make_proposal_render_fn`).  As in :func:`make_eval_step`, an
     annealed config takes only folded models."""
-    check_render_support(cfg)
     _check_freq_anneal_resolved(cfg)
     if cfg.train_sampler == "proposal":
         if full:

@@ -115,7 +115,6 @@ from nerf_keras_tpu_torch.parallel.mesh import (
 )
 from nerf_keras_tpu_torch.runtime import resolve_device
 from nerf_keras_tpu_torch.utils.checkpoint import (
-    check_render_support,
     load_checkpoint,
     models_bn,
     models_to_jax,
@@ -193,7 +192,6 @@ class Trainer:
         device: str | torch.device | None = None,
         mesh: DataMesh | None = None,
     ):
-        check_render_support(cfg)
         if mesh is None:
             mesh = config_mesh(cfg.mesh_data, cfg.mesh_model)
         if mesh is not None and cfg.batch_size % mesh.world:
@@ -429,9 +427,11 @@ class Trainer:
         ``calib_rays`` rays are subsampled without replacement by
         ``np.random.default_rng(seed)``, as the JAX package does.  The
         eval weights (the EMA shadow when on) are calibrated: coarse and
-        fine, or the fine MLP at the t-unions of the float proposal chain
-        for ``TRAIN_SAMPLER=proposal``.  Gate the result against the float
-        render (PSNR) before serving it, as the server does."""
+        fine, or the fine MLP at the t-values the float proposal chain
+        places for ``TRAIN_SAMPLER=proposal`` (its union with the grid, or
+        the draws alone under ``PROP_UNION=false``).  Gate the result
+        against the float render (PSNR) before serving it, as the server
+        does."""
         self._single_process("int8 calibration")
         if self.cfg.batch_norm:
             raise ValueError("int8 inference has no BatchNorm variant; use the float "

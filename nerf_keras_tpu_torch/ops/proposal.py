@@ -264,18 +264,17 @@ def make_chain_sampler(cfg, l_xyz: int, union: bool, levels: int,
     noise=None) -> (t_all, [(w_prop, t_partition), ...])``.  Level 1
     evaluates its net on ``t_vals``; with two levels the second net
     re-bins at the union of ``t_vals`` and ``prop_samples`` stratified
-    draws from the first histogram.  ``t_all`` is the sorted union of
-    ``t_vals`` with the final ``ns_fine`` draws.  ``train=True`` draws
+    draws from the first histogram.  ``t_all`` is the fine pass's sample
+    positions: with ``union`` the sorted union of ``t_vals`` with the final
+    ``ns_fine`` draws; without it (Mip-NeRF 360's layout) the final draws
+    alone, sorted, so the fine pass sees ``ns_fine`` samples a ray.  An
+    intermediate level's partition is always its draws' union with
+    ``t_vals`` (the grid keeps ``[near, far]`` covered).  ``train=True`` draws
     from ``generator`` (or the per-level uniforms ``noise``) and shapes
     each draw with the sampling anneal ``(w + 1e-5)^b`` and the
     exploration floor; ``train=False`` draws at midpoint ``u`` from the
     raw weights.  Draws always consume detached weights.
     """
-    if not union:
-        raise NotImplementedError(
-            "PROP_UNION=false (the union-free fine layout) is not ported "
-            "yet: it arrives with the proposal-variant slice in a later PR"
-        )
     n2 = prop_samples or cfg.ns_coarse
 
     def shape_draw(w: torch.Tensor, step: int) -> torch.Tensor:
@@ -314,7 +313,8 @@ def make_chain_sampler(cfg, l_xyz: int, union: bool, levels: int,
                 t_draw = sample_pdf(t_mid, shape_draw(w, step), n_draw,
                                     deterministic=True)
             if last:
-                t_all = sorted_union(t_vals, t_draw)
+                t_all = (sorted_union(t_vals, t_draw) if union
+                         else torch.sort(t_draw, dim=-1).values)
             else:
                 t_part = sorted_union(t_vals, t_draw)
         return t_all, level_outs

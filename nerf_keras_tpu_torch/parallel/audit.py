@@ -269,7 +269,7 @@ def run_ranks(world: int, spec: dict, timeout: float = 120.0) -> list[dict]:
     return records
 
 
-def run_two_process_smoke(device: str = "cpu", backend: str | None = None,
+def run_two_process_smoke(device: str, backend: str | None = None,
                           cfg_overrides: dict | None = None, timeout: float = 120.0,
                           **spec) -> list[dict]:
     """Two ranks of :func:`run_ranks` on ``device`` (``backend`` None: the

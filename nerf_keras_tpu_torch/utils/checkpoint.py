@@ -15,9 +15,6 @@ proposal tree as ``['proposal']['layers'][i]`` (one level) or
 ``.bn['coarse']['trunk'][i]['mean']`` (and ``'var'``, ``['branch']``).
 :func:`save_checkpoint` writes a training state (the JAX
 ``save_checkpoint``'s counterpart), named by :func:`checkpoint_name`.
-
-What the port does not render raises ``NotImplementedError``: the
-union-free proposal layout (``PROP_UNION=false``).
 """
 
 from __future__ import annotations
@@ -238,15 +235,6 @@ def load_checkpoint_scene(path: str) -> dict | None:
     }
 
 
-def check_render_support(cfg: NeRFConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port does not render."""
-    if cfg.train_sampler == "proposal" and not cfg.prop_union:
-        raise NotImplementedError(
-            "PROP_UNION=false (union-free proposal) checkpoints are not "
-            "ported yet (a later PR); the union layout renders"
-        )
-
-
 def resolve_infer_config(
     cfg: NeRFConfig, path: str | None
 ) -> tuple[NeRFConfig, list[str]]:
@@ -298,7 +286,6 @@ def resolve_infer_config(
         cfg = dataclasses.replace(cfg, lr_final=None, lr_decay_steps=0)
     if cfg.freq_anneal_steps == -1:
         cfg = dataclasses.replace(cfg, freq_anneal_steps=1)
-    check_render_support(cfg)
     return cfg, notes
 
 

@@ -85,21 +85,21 @@ def test_resolve_infer_config_matches_jax(jax_file):
     ("train_sampler", "proposal"), ("ndc", True),
 ])
 def test_unported_render_modes_raise(jax_file, tmp_path, field, value):
-    """The union-free proposal layout still raises; an NDC checkpoint (the
-    ``ndc`` case, ported) renders in NDC space instead."""
+    """Render modes this test once held as refused render now, from the
+    checkpoint's sidecar: a JAX-written union-free proposal checkpoint (the
+    ``proposal`` case) gives the JAX ``Trainer``'s frame, and an NDC
+    checkpoint renders in NDC space."""
+    from nerf_keras_tpu_torch.engine.trainer import Trainer
+
     path, state = jax_file
-    # The proposal case is its union-free layout: the union layout renders.
-    extra = {"prop_union": False} if value == "proposal" else {}
-    cfg = dataclasses.replace(CFG, **{field: value}, **extra).validate()
+    if value == "proposal":
+        _union_free_checkpoint_renders(tmp_path)
+        return
+    cfg = dataclasses.replace(CFG, **{field: value}).validate()
     out = str(tmp_path / "x.ckpt.npz")
     ckpt.save_params_npz(out, jax.tree_util.tree_map(np.asarray, state.params), cfg)
-    if field != "ndc":
-        with pytest.raises(NotImplementedError, match="not ported"):
-            ckpt.resolve_infer_config(CFG, out)
-        return
     # NDC checkpoints render: the sidecar's NDC wins over the user config,
     # as in the JAX package, and the Trainer takes NDC rays.
-    from nerf_keras_tpu_torch.engine.trainer import Trainer
 
     ours, notes = ckpt.resolve_infer_config(CFG, out)
     assert (ours, notes) == jckpt.resolve_infer_config(CFG, out)
@@ -112,6 +112,37 @@ def test_unported_render_modes_raise(jax_file, tmp_path, field, value):
     assert np.isfinite(pt.render_image(pose, 8, 8, 9.0)["rgb"]).all()
 
 
+def _union_free_checkpoint_renders(tmp_path):
+    """A ``PROP_UNION=false`` state the JAX package trained one step and
+    saved: the sidecar turns the user's coarse config into the union-free
+    proposal one (as the JAX ``resolve_infer_config`` does), and the port's
+    frame of its EMA weights matches the JAX ``Trainer``'s to the fine
+    pass's rgb tolerance, 5e-3 (bf16 MLPs; the placed samples follow the
+    proposal weights, as in tests/test_torch_render.py)."""
+    from nerf_keras_tpu_torch.engine.trainer import Trainer
+
+    cfg = dataclasses.replace(CFG, train_sampler="proposal", prop_union=False,
+                              prop_explore=0.1, ns_fine=8).validate()
+    jt = JaxTrainer(cfg, 2.0, 6.0)
+    rng = np.random.default_rng(1)
+    o = np.tile(np.float32([0, 0, 4.0]), (24, 1))
+    d = (rng.normal(size=(24, 3)) * 0.2 - np.float32([0, 0, 1])).astype(np.float32)
+    jt.train_step((rng.uniform(0, 1, (CFG.batch_size, 3)).astype(np.float32),
+                   np.tile(o[:1], (CFG.batch_size, 1)),
+                   np.resize(d, (CFG.batch_size, 3))))
+    out = str(tmp_path / "u.ckpt.npz")
+    jckpt.save_checkpoint(out, jax.device_get(jt.state), cfg)
+    ours, notes = ckpt.resolve_infer_config(CFG, out)
+    assert (ours, notes) == jckpt.resolve_infer_config(CFG, out)
+    assert ours.train_sampler == "proposal" and not ours.prop_union
+    pt = Trainer(ours, 2.0, 6.0, device="cpu").restore(out)
+    want = JaxTrainer(ours, 2.0, 6.0).restore(out).render_rays(o, d)
+    got = pt.render_rays(o, d)
+    assert sorted(got) == sorted(want) == ["depth_fine", "rgb_fine"]
+    np.testing.assert_allclose(got["rgb_fine"], want["rgb_fine"], atol=5e-3, rtol=0)
+    assert np.isfinite(got["depth_fine"]).all()
+
+
 def test_freq_anneal_window_must_be_identity(jax_file, tmp_path):
     """A checkpoint inside its frequency-anneal window renders, with the
     window at its step folded into the weights (the JAX Trainer's render of
@@ -120,7 +151,6 @@ def test_freq_anneal_window_must_be_identity(jax_file, tmp_path):
 
     _, state = jax_file
     cfg = dataclasses.replace(CFG, freq_anneal_steps=100).validate()
-    ckpt.check_render_support(cfg)
     rng = np.random.default_rng(0)
     o = np.tile(np.float32([0, 0, 4.0]), (32, 1))
     d = rng.normal(size=(32, 3)).astype(np.float32) * 0.2 - np.float32([0, 0, 1])

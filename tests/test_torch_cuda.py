@@ -73,6 +73,8 @@ def _rays(dev, b, s, seed=0):
     ((8, 256, 4), 1000, 24),   # several rays per block, ragged last block
     ((8, 256, 4), 333, 100),   # a ragged last tile inside each ray
     ((5, 64, 4), 257, 40),     # skip on the last layer widens the heads
+    ((8, 256, 4), 4096, 128),  # the union-free fine pass: one ray a block
+    ((8, 256, 4), 4096, 32),   # the union-free aux pass
 ])
 def test_k1_matches_plain(dev, arch, b, s):
     num_layers, hidden, skip = arch
@@ -115,7 +117,8 @@ def test_k1_checks_its_inputs(dev):
         k1.render_rays_fused(cpu_mlp, o, d, t)
 
 
-@pytest.mark.parametrize("b,s", [(333, 100), (1000, 24), (257, 160)])
+@pytest.mark.parametrize("b,s", [(333, 100), (1000, 24), (257, 160), (4096, 128),
+                                 (4096, 32)])
 def test_k1_training_residuals_match_plain(dev, b, s):
     """K1 in training mode writes the bf16 position encodings (exactly the
     plain encode, rounded) and the raw predictions (the plain MLP on them,
@@ -152,7 +155,8 @@ def _kernel_grads(mlp, o, d, t, g_rgb, g_w):
 
 
 @pytest.mark.parametrize("with_gw", [True, False])
-@pytest.mark.parametrize("b,s", [(333, 100), (1000, 24), (257, 160)])
+@pytest.mark.parametrize("b,s", [(333, 100), (1000, 24), (257, 160), (4096, 128),
+                                 (4096, 32)])
 def test_k2_matches_plain_vjp(dev, b, s, with_gw):
     """K2's gradients against autograd of the plain K1, per leaf: relative
     L2 error <= K2_TOL_REL (see chip_smoke.py for the measured errors);
@@ -434,6 +438,7 @@ def _k4_setup(dev, arch, b, s, seed):
     ((8, 256, 4), 333, 160),   # a ragged last tile inside each ray
     ((8, 256, 4), 1001, 24),   # several rays per block, ragged last block
     ((5, 64, 4), 257, 40),     # skip on the last layer widens the heads
+    ((8, 256, 4), 16384, 128),  # the server's chunk, union-free
 ])
 def test_k4_matches_plain(dev, arch, b, s):
     """K4 against its plain version on the same qparams: the same integer
@@ -765,3 +770,42 @@ def test_world_one_nccl_mesh_equals_no_mesh(dev):
     got = _flatten(rec["grads"], "")
     for k, want in _flatten(one.params_tree(grad=True), "").items():
         np.testing.assert_array_equal(got[k], want, err_msg=k)
+
+
+@pytest.mark.parametrize("knobs,per_step", [
+    (dict(), [(1, 1)] * 4),
+    (dict(prop_aux_samples=32), [(2, 2)] * 4),
+    (dict(prop_union_every=2), [(1, 1)] * 4),
+])
+def test_union_free_steps_launch_k1_k2_at_the_layouts_sample_counts(dev, knobs, per_step):
+    """The union-free proposal steps on the card at full width (batch 1024,
+    64 + 128): K1 training-mode and K2 launches a step (the aux pass adds
+    one of each), at S=128 (union steps of the interleave: 192; the aux
+    pass: 32), and a finite loss."""
+    cfg = NeRFConfig(batch_size=1024, ns_coarse=64, ns_fine=128, train_sampler="proposal",
+                     prop_union=False, prop_explore=0.1, distortion_loss_mult=1e-4,
+                     prop_anneal_steps=1000, **knobs).validate()
+    tr = Trainer(cfg, 2.0, 6.0, device="cuda")
+    o, d, _ = _rays(dev, cfg.batch_size, 2, seed=30)
+    batch = (torch.rand((cfg.batch_size, 3), generator=torch.Generator().manual_seed(31)).to(dev),
+             o, d / d.norm(dim=-1, keepdim=True))
+    seen = []
+    real = k1.launch_k1
+
+    def spy(mlp, origins, dirs, t_vals, *args, **kw):
+        seen.append(t_vals.shape[-1])
+        return real(mlp, origins, dirs, t_vals, *args, **kw)
+
+    k1.launch_k1 = spy
+    try:
+        for i, (n_fwd, n_bwd) in enumerate(per_step):
+            before = (k1.train_launches, k1.bwd_launches)
+            seen.clear()
+            loss = float(tr.train_step(batch)["loss"])
+            assert (k1.train_launches - before[0], k1.bwd_launches - before[1]) == (n_fwd, n_bwd)
+            union = cfg.prop_union_every and i % cfg.prop_union_every == 0
+            want = [192] if union else [128] + ([32] if cfg.prop_aux_samples else [])
+            assert seen == want, (i, seen)
+            assert np.isfinite(loss)
+    finally:
+        k1.launch_k1 = real

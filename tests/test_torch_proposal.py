@@ -232,23 +232,26 @@ def _chain_noise(cfg, key):
 KB = 9
 
 
+@pytest.mark.parametrize("union", [True, False])
 @pytest.mark.parametrize("train", [True, False])
 @pytest.mark.parametrize("levels", [1, 2])
-def test_chain_sampler_replays_jax(levels, train):
+def test_chain_sampler_replays_jax(levels, train, union):
+    """The chain in both fine layouts: ``t_all`` is the grid's union with
+    the final draws, or (``union=False``) the sorted draws alone."""
     cfg = _chain_cfg(levels)
     tree = _chain_params(levels)
     o, d, _ = _rays(9, KB, 2)
     t = np.broadcast_to(np.linspace(2.0, 6.0, 8, dtype=np.float32), (KB, 8)).copy()
     key, step = jax.random.PRNGKey(21), 4
-    jchain = jprop.make_chain_sampler(cfg, 4, True, levels, cfg.prop_samples, train)
+    jchain = jprop.make_chain_sampler(cfg, 4, union, levels, cfg.prop_samples, train)
     t_all_j, lv_j = jchain(tree, jnp.asarray(o), jnp.asarray(d), jnp.asarray(t),
                            key if train else None, jnp.asarray(step) if train else None)
-    chain = proposal.make_chain_sampler(cfg, 4, True, levels, cfg.prop_samples, train)
+    chain = proposal.make_chain_sampler(cfg, 4, union, levels, cfg.prop_samples, train)
     noise = _chain_noise(cfg, key) if train else None
     with torch.no_grad():
         t_all, lv = chain(proposal.proposal_from_jax(tree), T(o), T(d), T(t), step,
                           noise=noise)
-    assert t_all.shape == (KB, 8 + 10)
+    assert t_all.shape == (KB, (8 if union else 0) + 10)
     np.testing.assert_allclose(t_all.numpy(), _np(t_all_j), atol=1e-4, rtol=0)
     assert len(lv) == levels
     for (w, tp), (wj, tpj) in zip(lv, lv_j):
@@ -257,9 +260,27 @@ def test_chain_sampler_replays_jax(levels, train):
 
 
 def test_chain_refuses_the_union_free_layout():
-    cfg = dataclasses.replace(_chain_cfg(1), prop_union=False)
-    with pytest.raises(NotImplementedError, match="PROP_UNION=false"):
-        proposal.make_chain_sampler(cfg, 4, False, 1, 0, True)
+    """The union-free layout, which the chain once refused, places exactly
+    ``NS_FINE`` samples a ray, ascending, at 1 and 2 levels, in training
+    draws and in the render's; an intermediate level's partition still
+    holds the whole grid."""
+    o, d, _ = _rays(10, KB, 2)
+    t = torch.linspace(2.0, 6.0, 8).expand(KB, 8).contiguous()
+    for levels in (1, 2):
+        cfg = dataclasses.replace(_chain_cfg(levels), prop_union=False)
+        prop = proposal.proposal_from_jax(_chain_params(levels))
+        for train in (True, False):
+            chain = proposal.make_chain_sampler(cfg, 4, False, levels, cfg.prop_samples, train)
+            with torch.no_grad():
+                t_all, lv = chain(prop, T(o), T(d), t, 4,
+                                  generator=torch.Generator().manual_seed(levels))
+            assert t_all.shape == (KB, cfg.ns_fine)
+            assert bool((t_all[:, 1:] >= t_all[:, :-1]).all())
+            assert bool(((t_all >= 2.0) & (t_all <= 6.0)).all())
+            if levels == 2:
+                part = lv[1][1]
+                assert part.shape == (KB, 8 + cfg.prop_samples)
+                assert bool(torch.isin(t, part).all())
 
 
 def test_anneal_exponent():

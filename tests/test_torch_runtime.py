@@ -42,9 +42,13 @@ def test_resolve_device_is_explicit_and_pins_fp32(monkeypatch):
     ("train_sampler", "proposal"), ("ndc", True), ("batch_norm", True),
 ])
 def test_render_refuses_unported_configs(field, value):
-    """The union-free proposal layout still raises; BatchNorm and NDC (the
-    other cases, ported) render instead."""
-    # The proposal case is its union-free layout: the union layout renders.
+    """Configs this test once held as refused render now: the union-free
+    proposal layout (the ``proposal`` case: the render function and the
+    Trainer build, and the frame of JAX-initialized weights matches the JAX
+    Trainer's), BatchNorm and NDC."""
+    import numpy as np
+    from nerf_keras_tpu.engine.trainer import Trainer as JaxTrainer
+
     if field == "batch_norm":
         # BatchNorm renders (the plain MLP on every device); what both
         # configs refuse with it is an explicit USE_PALLAS.
@@ -60,9 +64,6 @@ def test_render_refuses_unported_configs(field, value):
     if field == "ndc":
         # NDC renders: the render function and the Trainer build, and an
         # NDC frame of a forward-facing camera matches the JAX Trainer's.
-        import numpy as np
-        from nerf_keras_tpu.engine.trainer import Trainer as JaxTrainer
-
         cfg = dataclasses.replace(CFG, ndc=True)
         make_render_fn(cfg, 0.0, 1.0)
         jt = JaxTrainer(cfg, 0.0, 1.0)
@@ -73,12 +74,18 @@ def test_render_refuses_unported_configs(field, value):
                                    np.asarray(jt.render_image(pose, 4, 4, 5.0)["rgb"]),
                                    atol=5e-3, rtol=0)
         return
-    extra = {"prop_union": False} if value == "proposal" else {}
-    cfg = dataclasses.replace(CFG, **{field: value}, **extra)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        make_render_fn(cfg, 2.0, 6.0)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        Trainer(cfg, 2.0, 6.0, device="cpu")
+    # The union-free layout: the fine pass sees the 8 placed samples alone.
+    cfg = dataclasses.replace(CFG, train_sampler="proposal", prop_union=False,
+                              prop_explore=0.1, ns_fine=8).validate()
+    make_render_fn(cfg, 2.0, 6.0)
+    jt = JaxTrainer(cfg, 2.0, 6.0)
+    pt = Trainer(cfg, 2.0, 6.0, device="cpu")
+    pt.replace_params(jax.device_get(jt.state.params))
+    pose = np.array([[1, 0, 0, 0.1], [0, 1, 0, 0], [0, 0, 1, 4.0]], np.float32)
+    got = pt.render_image(pose, 4, 4, 5.0)
+    np.testing.assert_allclose(got["rgb"], np.asarray(jt.render_image(pose, 4, 4, 5.0)["rgb"]),
+                               atol=5e-3, rtol=0)
+    assert np.isfinite(got["depth"]).all()
 
 
 def test_rgb_to_u8_truncates_like_the_host():

@@ -5,7 +5,8 @@ recipe's knobs at tiny widths: distortion 1e-4, the sampling anneal, the
 exploration floor, EMA 0.9 and an exponential LR decay.  Both sides start
 from the same JAX-initialized params; the JAX step's draws are replayed
 into the port by copying its key schedule (``fold_in(key, step)`` ->
-split into t and chain keys; one split per chain level; then
+split into t and chain keys; with the aux pass on the step, the chain key
+split again into (chain, aux); one split per chain level; then
 ``jax.random.uniform``).
 
 Tolerances.  float32: metrics rtol 5e-4; gradients per leaf rtol 5e-4 and
@@ -34,7 +35,6 @@ from nerf_keras_tpu_torch.engine.trainer import Trainer
 from nerf_keras_tpu_torch.ops.kernels import fused_render as k1
 from nerf_keras_tpu_torch.ops.proposal import proposal_from_jax
 from nerf_keras_tpu_torch.ops.rays import pose_spherical
-from nerf_keras_tpu_torch.utils.checkpoint import check_render_support
 
 # See tests/test_torch_fused_render.py: one torch thread beside JAX workers.
 torch.set_num_threads(1)
@@ -75,9 +75,16 @@ def _batch(seed, b):
 
 def _draws(cfg, key, step, b):
     """The uniforms JAX's train step draws at ``step`` (step.py:935,
-    proposal.py:379, sampling.py:67 and :136-140)."""
+    proposal.py:379, sampling.py:67 and :136-140; the aux pass's split at
+    step.py:785-786 and its stratified t at :826-829)."""
     key_t, key_pdf = jax.random.split(jax.random.fold_in(key, step))
     t_shape = (b, cfg.ns_coarse) if cfg.sampling_mode == "stratified" else (cfg.ns_coarse,)
+    union = cfg.prop_union or (cfg.prop_union_every > 0 and step % cfg.prop_union_every == 0)
+    out = {}
+    if cfg.prop_aux_samples and not union:
+        key_pdf, key_aux = jax.random.split(key_pdf)
+        out["aux"] = torch.as_tensor(np.array(
+            jax.random.uniform(key_aux, (b, cfg.prop_aux_samples))))
     chain, k = [], key_pdf
     n2 = cfg.prop_samples or cfg.ns_coarse
     for i in range(cfg.prop_levels):
@@ -85,7 +92,7 @@ def _draws(cfg, key, step, b):
         n = cfg.ns_fine if i == cfg.prop_levels - 1 else n2
         chain.append(torch.as_tensor(np.array(jax.random.uniform(sub, (b, n), dtype=jnp.float32))))
     t = torch.as_tensor(np.array(jax.random.uniform(key_t, t_shape)))
-    return {"t": t, "chain": chain}
+    return {"t": t, "chain": chain, **out}
 
 
 def _leaves(tree):
@@ -118,8 +125,14 @@ def _port(cfg, st):
 def test_train_step_matches_jax(levels, dtype, monkeypatch):
     """One full proposal train step (at step 5: the anneal is mid-way):
     metrics, each gradient leaf before Adam, params and EMA after it."""
-    cfg = _cfg(levels, dtype)
-    st = _jax_state(cfg, 5)
+    _check_step_matches_jax(_cfg(levels, dtype), 5, monkeypatch)
+
+
+def _check_step_matches_jax(cfg, step, monkeypatch):
+    """One port train step at ``step`` against the JAX step from the same
+    state, with the JAX draws replayed (module docstring)."""
+    dtype = cfg.compute_dtype
+    st = _jax_state(cfg, step)
     key = jax.random.PRNGKey(7)
     batch = _batch(1, cfg.batch_size)
     jbatch = tuple(jnp.asarray(x) for x in batch)
@@ -131,8 +144,8 @@ def test_train_step_matches_jax(levels, dtype, monkeypatch):
             st._replace(opt_state=_grab_grads().init(st.params)), jbatch, key)[0].opt_state
 
     tr = _port(cfg, st)
-    pm = tr.train_step(batch, draws=_draws(cfg, key, 5, cfg.batch_size))
-    assert tr.step == 6
+    pm = tr.train_step(batch, draws=_draws(cfg, key, step, cfg.batch_size))
+    assert tr.step == step + 1
     mtol = 5e-4 if dtype == "float32" else BF16_METRIC_TOL
     for k in ("loss_coarse", "loss", "psnr"):
         np.testing.assert_allclose(float(pm[k]), float(jm[k]), rtol=mtol, err_msg=k)
@@ -218,11 +231,12 @@ def test_proposal_render_matches_jax(levels):
 
 
 def test_proposal_configs_are_supported():
-    """Before the port's training slice, check_render_support refused every
-    TRAIN_SAMPLER=proposal config, so no proposal Trainer could be built."""
-    for levels in (1, 2):
-        cfg = _cfg(levels)
-        check_render_support(cfg)
+    """Every TRAIN_SAMPLER=proposal config builds a Trainer and its render,
+    in both sample layouts (before the port's training slice none did, and
+    before the union-free slice the union-free layout did not)."""
+    for levels, union in ((1, True), (2, True), (1, False), (2, False)):
+        cfg = _cfg(levels, prop_union=union)
+        pstep.make_render_fn(cfg, NEAR, FAR)
         tr = Trainer(cfg, NEAR, FAR, device="cpu")
         assert sorted(tr.params) == ["fine", "proposal"]
         assert all(p.requires_grad for m in tr.params.values() for p in m.parameters())
@@ -230,13 +244,26 @@ def test_proposal_configs_are_supported():
 
 
 @pytest.mark.parametrize("knob", [
-    dict(prop_union=False), dict(prop_union=False, prop_aux_samples=8),
-    dict(prop_union=False, prop_union_every=4), dict(freq_anneal_steps=5),
+    dict(prop_union=False, step=5),
+    dict(prop_union=False, prop_aux_samples=8, step=5),
+    dict(prop_union=False, prop_union_every=2, step=0),
+    dict(freq_anneal_steps=5),
+    dict(prop_union=False, levels=2, step=5),
+    dict(prop_union=False, prop_union_every=2, step=1),
 ])
-def test_unported_training_knobs_raise(knob):
-    """The proposal-variant knobs still raise.  ``FREQ_ANNEAL_STEPS`` (the
-    last case) is ported and trains instead; tests/test_torch_freq_anneal.py
-    holds its steps inside the window against the JAX step."""
+def test_unported_training_knobs_raise(knob, monkeypatch):
+    """The knobs this test once held as refused train now, each replayed
+    against the JAX train step as :func:`test_train_step_matches_jax`
+    (float32): the union-free layout at 1 and 2 levels, its aux coverage
+    pass (JAX's aux key split replayed into ``draws['aux']``), and the
+    interleave at a union step (0) and a union-free one (1).
+    ``FREQ_ANNEAL_STEPS`` trains at the horizon exactly as without it;
+    tests/test_torch_freq_anneal.py holds its steps inside the window."""
+    knob = dict(knob)
+    if "step" in knob:
+        step, levels = knob.pop("step"), knob.pop("levels", 1)
+        _check_step_matches_jax(_cfg(levels, prop_explore=0.1, **knob), step, monkeypatch)
+        return
     cfg = _cfg(**knob)
     if "freq_anneal_steps" in knob:
         # At the horizon the window is all ones: the step is the
@@ -256,11 +283,6 @@ def test_unported_training_knobs_raise(knob):
         assert float(inside["loss"]) != float(want["loss"])
         for a, c in zip(_leaves(trainers[0].params_tree()), _leaves(ref.params_tree())):
             np.testing.assert_array_equal(a, c)
-        return
-    with pytest.raises(NotImplementedError, match="later"):
-        pstep.check_train_support(cfg)
-    with pytest.raises(NotImplementedError):
-        Trainer(cfg, NEAR, FAR, device="cpu").train_step(_batch(0, cfg.batch_size))
 
 
 def test_float32_kernels_are_refused_on_cuda():
