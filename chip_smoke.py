@@ -208,7 +208,24 @@ nonzero — nothing falls back to the CPU or to a plain path):
     horizon auto): exactly the K1/K2 launches its 21 steps (1 + 1 on union
     steps, 2 + 2 else), eval and panels imply, the horizon resolved to 21.
     The kernels line adds K1, K1-train, K2 and K4 at these shapes, each
-    with its launches at that S on the phase's main paths.
+    with its launches at that S on the phase's main paths;
+24. ``keras``: the reference's Keras weights, read and written by the
+    port's own HDF5 code (``utils/h5.py``; this machine has no h5py):
+    (a) the committed Keras 3 fixtures (``tests/fixtures/ref_tiny_{plain,
+    bn}.weights.h5``) imported and run through the plain ``NeRFMLP`` in
+    float32 on the card, TF32 off, BatchNorm in inference mode, within
+    2e-4 of ``ref_tiny_golden.npz`` (hidden 32 has no K1 instantiation,
+    so this part is plain by design); (b) seeded random coarse+fine params
+    at full width exported, then ``cli.infer --reference-weights --frames
+    3``: the frames equal, bit for bit, those of the same params installed
+    with ``replace_params``, with exactly 2 K1 launches a frame; ``--quant
+    int8``: the gate's float and int8 frames, then 2 K4 launches a frame
+    where the gate keeps int8 (else 2 K1); (c) a BatchNorm file at full
+    width renders one frame with no kernel launch (BatchNorm runs the
+    plain MLP); (d) ``cli.export_keras`` on phase 19's run directories (no
+    BatchNorm, and the BatchNorm default config), re-imported: exactly the
+    trainer's eval params and running statistics.  Import, export and
+    frame host ms on the card's machine.
 
 Each main path runs with the launch counters set to 0 just before it and
 read just after.  The line before the last is the kernel report
@@ -278,6 +295,7 @@ from nerf_keras_tpu_torch.profile_train import (
 from nerf_keras_tpu_torch.runtime import cuda_ms, device_ms_by_kernel
 from nerf_keras_tpu_torch.serving import RenderService, serve
 from nerf_keras_tpu_torch.cli import evaluate as eval_cli
+from nerf_keras_tpu_torch.cli import export_keras as export_cli
 from nerf_keras_tpu_torch.cli import infer as infer_cli
 from nerf_keras_tpu_torch.cli import train as train_cli
 from nerf_keras_tpu_torch.cli import train_blender, train_fern, train_synthetic
@@ -287,12 +305,18 @@ from nerf_keras_tpu_torch.data.synthetic import write_forward_facing_capture
 from nerf_keras_tpu_torch.ops.freq_anneal import anneal_alpha, freq_window
 from nerf_keras_tpu_torch.parallel.audit import run_ranks, run_two_process_smoke, tree_rel_l2
 from nerf_keras_tpu_torch.profile_render import union_us
+from nerf_keras_tpu_torch.config import NeRFConfig
 from nerf_keras_tpu_torch.utils.checkpoint import (
     _flatten,
     checkpoint_name,
+    models_to_jax,
     resolve_checkpoint,
+    resolve_infer_config,
     save_params_npz,
 )
+from nerf_keras_tpu_torch.utils.image import to_uint8
+from nerf_keras_tpu_torch.utils.keras_export import export_reference_weights
+from nerf_keras_tpu_torch.utils.keras_import import import_reference_weights
 from nerf_keras_tpu_torch.utils.image_metrics import frame_psnr
 from nerf_keras_tpu_torch.utils.metrics import History
 from nerf_keras_tpu_torch.utils.png import decode_png, encode_png
@@ -2951,6 +2975,183 @@ def phase_union_free(card: str, tmp: str) -> tuple[list[dict], dict]:
     return runs, report
 
 
+# The Keras fixtures' golden forwards: the JAX package's own tolerance for
+# them (tests/test_keras_import.py), float32 against Keras' float32.
+KERAS_GOLDEN_TOL = 2e-4
+
+
+@contextlib.contextmanager
+def _captured_frames():
+    """The uint8 frames ``cli.infer`` hands to ``write_video``, by path; the
+    CLI still writes them."""
+    frames, write = {}, infer_cli.write_video
+
+    def capture(path, images, fps):
+        frames[path] = [np.array(f) for f in images]
+        return write(path, images, fps)
+
+    infer_cli.write_video = capture
+    try:
+        yield frames
+    finally:
+        infer_cli.write_video = write
+
+
+def _trees_equal(a: dict, b: dict) -> bool:
+    fa, fb = _flatten(a, ""), _flatten(b, "")
+    return fa.keys() == fb.keys() and all(
+        fa[k].dtype == fb[k].dtype and np.array_equal(fa[k], fb[k]) for k in fa)
+
+
+def _bn_params(cfg, seed: int) -> tuple[dict, dict]:
+    """Seeded BatchNorm params (random biases, gamma, beta) and running
+    statistics at ``cfg``'s widths."""
+    rng = np.random.default_rng(seed)
+    params = random_params(cfg, seed)
+    stats = {}
+    for name, tree in params.items():
+        layers = [*tree["trunk"], tree["branch"]]
+        for layer in layers:
+            width = layer["b"].shape[0]
+            layer["gamma"] = rng.uniform(0.5, 1.5, width).astype(np.float32)
+            layer["beta"] = rng.normal(0.0, 0.1, width).astype(np.float32)
+        moments = [{"mean": rng.normal(0.0, 0.3, layer["b"].shape).astype(np.float32),
+                    "var": rng.uniform(0.5, 2.0, layer["b"].shape).astype(np.float32)}
+                   for layer in layers]
+        stats[name] = {"trunk": moments[:-1], "branch": moments[-1]}
+    return params, stats
+
+
+def phase_keras(card: str, tmp: str, runs_dirs: dict[str, tuple[str, str]]) -> list[dict]:
+    """Phase 24 (module docstring): (a)-(d); ``runs_dirs`` maps a name to
+    (config, run directory) of phase 19.  Returns the main paths' launches."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    fixtures = os.path.join(root, "tests", "fixtures")
+    dev = torch.device("cuda")
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise RuntimeError("keras (a): TF32 is on; the golden forwards need float32 products")
+    golden = np.load(os.path.join(fixtures, "ref_tiny_golden.npz"))
+    x = torch.tensor(golden["x_enc"], device=dev)
+    d = torch.tensor(golden["d_enc"], device=dev)
+    errs = {}
+    for variant in ("plain", "bn"):
+        tiny = NeRFConfig(num_layers=6, hidden_dim=32, skip_layer=4, l_xyz=10, l_dir=4,
+                          compute_dtype="float32", batch_norm=variant == "bn")
+        params, stats = import_reference_weights(
+            os.path.join(fixtures, f"ref_tiny_{variant}.weights.h5"), tiny)
+        for which in ("coarse", "fine"):
+            mlp = NeRFMLP.from_jax_params(params[which], skip_layer=4,
+                                          compute_dtype=torch.float32, device=dev,
+                                          bn_state=None if stats is None else stats[which])
+            with torch.no_grad():
+                out = mlp(x, d).cpu().numpy()
+            want = golden[f"out_{which}_{variant}"]
+            diff = np.abs(out - want)
+            errs[f"{which}_{variant}"] = {
+                "max_abs_err": float(diff.max()), "max_abs_golden": float(np.abs(want).max()),
+                # the largest |diff| / (atol + rtol |golden|): the gate at 1
+                "gate_share": float((diff / (KERAS_GOLDEN_TOL * (1 + np.abs(want)))).max())}
+            if not errs[f"{which}_{variant}"]["gate_share"] <= 1.0:
+                raise RuntimeError(f"keras (a): {which} {variant} is {errs} from the golden "
+                                   "forward")
+    say("keras_fixtures", errors=errs, rtol=KERAS_GOLDEN_TOL, atol=KERAS_GOLDEN_TOL,
+        hidden=32, card=card)
+
+    # (b) full width: export, import, then the CLI on the file.
+    cfg = load_config(CONFIG)
+    focal = 1.2 * max(cfg.height, cfg.width)
+    params = random_params(cfg, seed=24)
+    path = os.path.join(tmp, "keras_ref.weights.h5")
+    export_ms = _host_ms(lambda: export_reference_weights(path, params, cfg), reps=3)
+    import_ms = _host_ms(lambda: import_reference_weights(path, cfg), reps=3)
+    imported, none = import_reference_weights(path, cfg)
+    if none is not None or not _trees_equal(imported, params):
+        raise RuntimeError("keras (b): the full-width file does not re-import exactly")
+    runs = []
+    per_frame = 2 * math.ceil(cfg.height * cfg.width / 16384)
+    base = ["--config", CONFIG, "--reference-weights", path, "--frames", "3"]
+    with _captured_frames() as frames:
+        _, out_f, launches = _cli(infer_cli.run_inference,
+                                  base + ["--out", os.path.join(tmp, "keras_f.mp4")])
+    runs.append(_clean(launches))
+    frame_ms = [float(v) for v in FRAME_MS.findall(out_f)]
+    trainer = Trainer(resolve_infer_config(cfg, None)[0], 2.0, 6.0, device=dev)
+    trainer.replace_params(params)
+    want = [to_uint8(trainer.render_image(pose, cfg.height, cfg.width, focal,
+                                          uint8_rgb=True, need_depth=False)["rgb"])
+            for pose in infer_cli.spherical_poses(3)]
+    got = next(iter(frames.values()))
+    same = len(got) == 3 and all(np.array_equal(a, b) for a, b in zip(got, want))
+    if runs[-1] != dict(ZERO, k1_fwd=3 * per_frame) or not same \
+            or "imported reference weights" not in out_f:
+        raise RuntimeError(f"keras (b): launched {runs[-1]}, frames equal to replace_params: "
+                           f"{same}")
+    with _captured_frames() as frames:
+        _, out_q, launches = _cli(infer_cli.run_inference, base + [
+            "--quant", "int8", "--out", os.path.join(tmp, "keras_q.mp4")])
+    runs.append(_clean(launches))
+    gates = {g[0]: {"decision": g[1], "psnr_db": float(g[2])} for g in GATE_LINE.findall(out_q)}
+    q = gates.get("int8", {}).get("decision") == "PASS"
+    want_q = dict(ZERO, k1_fwd=per_frame * (1 if q else 4), k4=per_frame * (4 if q else 1))
+    got_q = next(iter(frames.values()))
+    if len(gates) != 1 or runs[-1] != want_q or len(got_q) != 3:
+        raise RuntimeError(f"keras (b): int8 gates {gates}, launched {runs[-1]}, expected "
+                           f"{want_q}")
+    del trainer
+    torch.cuda.empty_cache()
+
+    # (c) a BatchNorm file: the plain MLP, no kernel.
+    bn_config = _config_file(os.path.join(tmp, "keras_bn.json"), BATCH_NORM=True,
+                             WITH_GCS=False)
+    bn_cfg = load_config(bn_config)
+    bn_params, bn_stats = _bn_params(bn_cfg, seed=25)
+    bn_path = os.path.join(tmp, "keras_bn.weights.h5")
+    export_reference_weights(bn_path, bn_params, bn_cfg, bn_state=bn_stats)
+    with _captured_frames() as frames:
+        _, out_bn, launches = _cli(infer_cli.run_inference, [
+            "--config", bn_config, "--reference-weights", bn_path, "--frames", "1",
+            "--out", os.path.join(tmp, "keras_bn.mp4")])
+    runs.append(_clean(launches))
+    bn_trainer = Trainer(resolve_infer_config(bn_cfg, None)[0], 2.0, 6.0, device=dev)
+    bn_trainer.replace_params(bn_params, bn_stats)
+    bn_want = to_uint8(bn_trainer.render_image(
+        infer_cli.spherical_poses(1)[0], bn_cfg.height, bn_cfg.width,
+        1.2 * max(bn_cfg.height, bn_cfg.width), uint8_rgb=True, need_depth=False)["rgb"])
+    bn_got = next(iter(frames.values()))[0]
+    bn_diff = int(np.abs(bn_got.astype(np.int16) - bn_want.astype(np.int16)).max())
+    if runs[-1] != ZERO or bn_diff > 1 or bn_got.shape != (bn_cfg.height, bn_cfg.width, 3):
+        raise RuntimeError(f"keras (c): launched {runs[-1]}, frame {bn_got.shape} "
+                           f"{bn_diff} levels from replace_params")
+    del bn_trainer
+    torch.cuda.empty_cache()
+
+    # (d) cli.export_keras on phase 19's run directories.
+    exported = {}
+    for name, (config, run) in runs_dirs.items():
+        out = os.path.join(tmp, f"keras_export_{name}.weights.h5")
+        _, _, launches = _cli(export_cli.run_export, ["--config", config, "--checkpoint",
+                                                      run, "--out", out])
+        runs.append(_clean(launches))
+        ckpt = resolve_checkpoint(run)
+        run_cfg = resolve_infer_config(load_config(config), ckpt)[0]
+        source = Trainer(run_cfg, 2.0, 6.0, device=dev).restore(ckpt)
+        got_p, got_bn = import_reference_weights(out, run_cfg)
+        want_bn = source.bn_tree()
+        exact = _trees_equal(got_p, models_to_jax(source.eval_params)) and (
+            got_bn is None if want_bn is None else _trees_equal(got_bn, want_bn))
+        exported[name] = {"checkpoint": os.path.basename(ckpt), "batch_norm": run_cfg.batch_norm,
+                          "exact": exact, "bytes": os.path.getsize(out)}
+        if runs[-1] != ZERO or not exact:
+            raise RuntimeError(f"keras (d): {name} launched {runs[-1]}, {exported[name]}")
+        del source
+    say("keras", import_ms=import_ms, export_ms=export_ms, frame_ms=frame_ms,
+        median_frame_ms=statistics.median(frame_ms), file_bytes=os.path.getsize(path),
+        float_launches=runs[0], int8_gates=gates, int8_launches=runs[1],
+        bn_launches=runs[2], bn_frame_levels_from_replace_params=bn_diff,
+        exported=exported, card=card)
+    return runs
+
+
 def _sum(runs: list[dict], key: str) -> int:
     return sum(r[key] for r in runs)
 
@@ -3003,6 +3204,11 @@ def main() -> None:
         torch.cuda.empty_cache()
         uf_runs, uf = phase_union_free(card, tmp)
         runs += uf_runs
+        torch.cuda.empty_cache()
+        runs += phase_keras(card, tmp, {
+            "lego_batch_h256_tpu": (CONFIG, run_dir),
+            "lego_batch_debug": (os.path.join(os.path.dirname(CONFIG), "lego_batch_debug.json"),
+                                 os.path.join(tmp, "cli_bn"))})
     # Library yardsticks measured once and shared where two kernels do the
     # same products at the same M: K1's per-layer bf16 matmul at M = 4096 x
     # 192 is K5's forward at N = 786,432 and K6's forward at S=192; K2's dW

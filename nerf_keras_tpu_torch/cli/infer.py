@@ -5,6 +5,14 @@
         [--quant int8] [--sampler proposal] [--infer-cache <path>] [--depth-video] \
         [--profile <dir>]
 
+``--reference-weights <file>.weights.h5`` takes the place of
+``--checkpoint``: a Keras checkpoint of the TF reference (or one that
+``cli.export_keras`` wrote), imported by ``utils/keras_import.py`` into the
+coarse and fine models.  It has no sidecar, so near, far and focal are the
+Lego scene's unless the flags set them, and a ``TRAIN_SAMPLER='proposal'``
+config cannot take it (it has no coarse model).  Every other flag works on
+the imported weights as on a checkpoint.
+
 Counterpart of ``nerf_keras_tpu/cli/infer.py`` (the reference's
 ``inference.py``): the Blender-style orbit (theta in [-45, 45), phi -30,
 radius 4; ``--full-orbit`` for 360 degrees) rendered through the fine
@@ -34,8 +42,6 @@ the forward-facing ``ValueError``.
 
 Unlike the JAX CLI: ``--device`` (default ``cuda``, which raises without a
 card) replaces ``--platform``, and there is no compilation cache.
-``--reference-weights`` needs the Keras import (ROADMAP.md queue 1 item 8)
-and raises until then.
 """
 
 from __future__ import annotations
@@ -63,6 +69,7 @@ from nerf_keras_tpu_torch.utils.checkpoint import (
 from nerf_keras_tpu_torch.utils.image import normalize_depth, to_uint8
 from nerf_keras_tpu_torch.utils.image_metrics import accuracy_gate
 from nerf_keras_tpu_torch.utils.infer_cache import load_if_fresh
+from nerf_keras_tpu_torch.utils.keras_import import import_reference_weights
 from nerf_keras_tpu_torch.utils.viz import write_video
 
 
@@ -129,7 +136,9 @@ def run_inference(argv: list[str] | None = None) -> str:
     p.add_argument("--checkpoint", type=str, default=None,
                    help="checkpoint file or run directory")
     p.add_argument("--reference-weights", type=str, default=None,
-                   help="a Keras .weights.h5 of the TF reference (not ported yet)")
+                   help="a Keras .weights.h5 of the TF reference (or of cli.export_keras), "
+                        "imported into the coarse and fine models in place of "
+                        "--checkpoint")
     p.add_argument("--frames", type=int, default=30)
     p.add_argument("--path", type=str, default="orbit", choices=("orbit", "spiral"),
                    help="'orbit' = the Blender-style spherical sweep; 'spiral' = the "
@@ -185,11 +194,8 @@ def run_inference(argv: list[str] | None = None) -> str:
                         "reloaded when it matches the checkpoint's weights (sha256), "
                         "else rebuilt and saved there")
     args = p.parse_args(argv)
-    if args.reference_weights is not None:
-        raise NotImplementedError("--reference-weights needs the Keras import, which is "
-                                  "not ported yet (ROADMAP.md queue 1 item 8)")
-    if args.checkpoint is None:
-        raise SystemExit("--checkpoint is required")
+    if (args.checkpoint is None) == (args.reference_weights is None):
+        raise SystemExit("exactly one of --checkpoint / --reference-weights is required")
     device = resolve_device(args.device)
 
     cfg = load_config(args.config)
@@ -201,13 +207,13 @@ def run_inference(argv: list[str] | None = None) -> str:
             cfg, ns_coarse=cfg.ns_coarse if args.ns_coarse is None else args.ns_coarse,
             ns_fine=cfg.ns_fine if args.ns_fine is None else args.ns_fine).validate()
     ckpt = args.checkpoint
-    if not ckpt.endswith(".npz"):
+    if ckpt is not None and not ckpt.endswith(".npz"):
         found = resolve_checkpoint(ckpt)
         if found is None:
             raise FileNotFoundError(f"no .ckpt.npz under {ckpt}")
         ckpt = found
     # Scene geometry: flag > checkpoint sidecar > the Lego scene's.
-    scene = load_checkpoint_scene(ckpt) or {}
+    scene = (load_checkpoint_scene(ckpt) if ckpt else None) or {}
     near = args.near if args.near is not None else scene.get("near", 2.0)
     far = args.far if args.far is not None else scene.get("far", 6.0)
     focal = (args.focal if args.focal is not None
@@ -218,8 +224,17 @@ def run_inference(argv: list[str] | None = None) -> str:
     print(f"{LOG} scene: near={near:.3f} far={far:.3f} focal={focal:.2f}"
           + ("" if scene else " (no sidecar; Lego-scene defaults)"))
 
-    trainer = Trainer(cfg, near, far, device=device).restore(ckpt)
-    print(f"{LOG} loaded {ckpt} on {device}")
+    if ckpt is None and cfg.train_sampler == "proposal":
+        raise SystemExit("--reference-weights carries a coarse+fine pair; it cannot load "
+                         "into a TRAIN_SAMPLER='proposal' config (no coarse model) — use "
+                         "the default coarse config for parity renders")
+    trainer = Trainer(cfg, near, far, device=device)
+    if ckpt is not None:
+        trainer.restore(ckpt)
+        print(f"{LOG} loaded {ckpt} on {device}")
+    else:
+        trainer.replace_params(*import_reference_weights(args.reference_weights, cfg))
+        print(f"{LOG} imported reference weights {args.reference_weights} on {device}")
     if args.path == "spiral":
         if not args.data_dir:
             raise SystemExit("--path spiral requires --data-dir "

@@ -1,9 +1,9 @@
 """The port's inference CLI (``cli/infer.py``): the JAX package's orbit,
 both accelerations' gates (pass and fail, with the frames of the path
-that was decided), the artifact cache, the profiler trace, and what still
-raises.  Where imageio has no ffmpeg backend (or is missing) the frames
-land in the PNG directory that ``write_video`` falls back to; the tests
-read either."""
+that was decided), the artifact cache, the profiler trace, and what
+raises or exits.  Where imageio has no ffmpeg backend (or is missing) the
+frames land in the PNG directory that ``write_video`` falls back to; the
+tests read either."""
 
 import json
 import os
@@ -189,9 +189,11 @@ def test_unported_paths_raise(ckpt, tmp_path, monkeypatch):
     with pytest.raises(SystemExit, match="--path spiral requires --data-dir"):
         run_inference(["--config", cfg_path, "--checkpoint", path, "--path", "spiral",
                        "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        run_inference(["--config", cfg_path, "--reference-weights", "ref.weights.h5",
-                       "--device", "cpu"])
+    # Beside a checkpoint, --reference-weights is the JAX CLI's exit
+    # (its renders: tests/test_torch_keras.py).
+    with pytest.raises(SystemExit, match="exactly one of"):
+        run_inference(["--config", cfg_path, "--checkpoint", path, "--reference-weights",
+                       "ref.weights.h5", "--device", "cpu"])
     with pytest.raises(ValueError, match="ns_fine"):
         run_inference(["--config", cfg_path, "--checkpoint", path, "--frames", "1",
                        "--ns-fine", "0", "--sampler", "proposal", "--device", "cpu",
