@@ -226,6 +226,22 @@ nonzero — nothing falls back to the CPU or to a plain path):
     BatchNorm, and the BatchNorm default config), re-imported: exactly the
     trainer's eval params and running statistics.  Import, export and
     frame host ms on the card's machine.
+25. ``fern_jpeg``: a user's own capture shipped as full-size JPEGs only
+    (``tests/fixtures/torch_jpeg/capture``: 8 views of 504x672, PIL's
+    quality 90, 4:2:0), run after ``fern_cli`` on a copy: (a) the port's
+    decoder (``utils/jpeg.py``, host C++ built with g++) on every fixture
+    file and ``data/llff.minify`` (Pillow's LANCZOS by 8 into
+    ``images_8/*.png``) on the capture, each frame's uint8 SHA-256 equal
+    to PIL's (``goldens.json``; this machine has no PIL); the decode Mpx/s
+    and the minify seconds on the card's host; (b) ``cli.train_fern
+    --config config/fern_batch_h256_tpu.json --epochs 1`` on it (63x84
+    frames resized to 378x504, 7 train views, 325 steps): the native
+    batcher, exactly 2 K1 training-mode and 2 K2 launches per step and 2 K1
+    per eval batch and panel chunk, the loss read every 100 steps finite
+    and falling; (c) ``cli.evaluate --data llff`` on its checkpoint, 2 K1
+    launches per chunk, 1 dB above a random-weight checkpoint's report;
+    (d) ``cli.infer --path spiral --frames 2``, float (K1 only) and
+    ``--quant int8`` (the gate passes, then K4 only).
 
 Each main path runs with the launch counters set to 0 just before it and
 read just after.  The line before the last is the kernel report
@@ -238,6 +254,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import hashlib
 import io
 import json
 import math
@@ -299,6 +316,7 @@ from nerf_keras_tpu_torch.cli import export_keras as export_cli
 from nerf_keras_tpu_torch.cli import infer as infer_cli
 from nerf_keras_tpu_torch.cli import train as train_cli
 from nerf_keras_tpu_torch.cli import train_blender, train_fern, train_synthetic
+from nerf_keras_tpu_torch.data import llff
 from nerf_keras_tpu_torch.data import native as native_batcher
 from nerf_keras_tpu_torch.data.pipeline import dataset_to_ndc
 from nerf_keras_tpu_torch.data.synthetic import write_forward_facing_capture
@@ -314,6 +332,7 @@ from nerf_keras_tpu_torch.utils.checkpoint import (
     resolve_infer_config,
     save_params_npz,
 )
+from nerf_keras_tpu_torch.utils import jpeg as jpeg_codec
 from nerf_keras_tpu_torch.utils.image import to_uint8
 from nerf_keras_tpu_torch.utils.keras_export import export_reference_weights
 from nerf_keras_tpu_torch.utils.keras_import import import_reference_weights
@@ -2380,6 +2399,71 @@ def _loss_probe(every: int):
         Trainer.train_step = real
 
 
+def _fern_train(phase: str, tag: str, config: str, cap: str, run: str, cfg,
+                expected: dict, runs: list):
+    """``cli.train_fern --epochs 1`` on capture ``cap`` in-process: the native
+    batcher feeds it, exactly ``expected`` launches, the loss read every 100
+    steps finite and falling, the checkpoint, its sidecar and the history
+    written.  Appends the launches to ``runs``; returns (trainer, stdout,
+    launches, epoch lines, loss probe, history)."""
+    with _loss_probe(100) as probe:
+        trainer, out, launches = _cli(train_fern.main, [
+            "--config", config, "--data-dir", cap, "--run-dir", run, "--epochs", "1",
+            "--eval-every", "1"])
+    epochs = [{"epoch": int(m[0]), "krays_per_s": float(m[1]), "step_ms": float(m[2])}
+              for m in EPOCH_LINE.findall(out)]
+    name = checkpoint_name(cfg)
+    files = {f: os.path.exists(os.path.join(run, f))
+             for f in (name, name + ".config.json", _history_name(cfg))}
+    if "batches: native batcher" not in out or "using numpy" in out:
+        raise RuntimeError(f"{phase} ({tag}): the native batcher did not feed the run")
+    if launches != expected:
+        raise RuntimeError(f"{phase} ({tag}): launched {launches}, expected {expected}")
+    if not all(files.values()) or len(epochs) != 1:
+        raise RuntimeError(f"{phase} ({tag}): files {files}, epoch lines {epochs}")
+    losses = [loss for _, loss in probe]
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise RuntimeError(f"{phase} ({tag}): the train loss did not fall: {probe}")
+    runs.append(_clean(launches))
+    history = History.load(os.path.join(run, _history_name(cfg)))
+    return trainer, out, launches, epochs, probe, history
+
+
+def _fern_spiral(phase: str, config: str, run: str, cap: str, frames: int, chunks: int,
+                 tmp: str, runs: list) -> dict:
+    """``cli.infer --path spiral`` on ``run``, float (K1 only: 2 a chunk) then
+    ``--quant int8`` (the gate's float and int8 frames, then int8 frames
+    only, 2 K4 a chunk; the gate must pass).  Appends the launches to
+    ``runs``; returns each part's launches, gates and frame times."""
+    parts = {}
+    for tag, extra in (("float", []), ("int8", ["--quant", "int8"])):
+        t0 = time.perf_counter()
+        written, out, launches = _cli(infer_cli.run_inference, [
+            "--config", config, "--checkpoint", run, "--path", "spiral", "--data-dir",
+            cap, "--frames", str(frames), "--out", os.path.join(tmp, f"{phase}_{tag}.mp4")]
+            + extra)
+        seconds = time.perf_counter() - t0
+        launches = _clean(launches)
+        runs.append(launches)
+        gates = {g[0]: {"decision": g[1], "psnr_db": float(g[2])}
+                 for g in GATE_LINE.findall(out)}
+        frame_ms = [float(x) for x in FRAME_MS.findall(out)]
+        per_frame = 2 * chunks
+        if tag == "float":
+            want = dict(ZERO, k1_fwd=frames * per_frame)
+        else:
+            want = dict(ZERO, k1_fwd=per_frame, k4=(frames + 1) * per_frame)
+        parts[tag] = {"launches": launches, "expected": want, "gates": gates,
+                      "seconds": seconds, "frame_ms": frame_ms,
+                      "s_per_frame": statistics.median(frame_ms) / 1e3 if frame_ms else None}
+        if launches != want or len(frame_ms) != frames:
+            raise RuntimeError(f"{phase} ({tag}): launched {launches}, expected {want}; "
+                               f"frames {frame_ms}")
+        if tag == "int8" and gates.get("int8", {}).get("decision") != "PASS":
+            raise RuntimeError(f"{phase}: the int8 gate did not pass: {gates}")
+    return parts
+
+
 def phase_fern_cli(card: str, tmp: str) -> list[dict]:
     """Phase 21 (module docstring): the forward-facing path at the Fern
     config's widths on a synthetic LLFF capture, (a)-(e)."""
@@ -2395,32 +2479,10 @@ def phase_fern_cli(card: str, tmp: str) -> list[dict]:
     expected, steps = _expected_launches(cfg, prepare, 1, 1)
     runs = []
 
-    def train(tag: str, config: str, run: str):
-        with _loss_probe(100) as probe:
-            trainer, out, launches = _cli(train_fern.main, [
-                "--config", config, "--data-dir", cap, "--run-dir", run, "--epochs", "1",
-                "--eval-every", "1"])
-        epochs = [{"epoch": int(m[0]), "krays_per_s": float(m[1]), "step_ms": float(m[2])}
-                  for m in EPOCH_LINE.findall(out)]
-        name = checkpoint_name(cfg)
-        files = {f: os.path.exists(os.path.join(run, f))
-                 for f in (name, name + ".config.json", _history_name(cfg))}
-        if "batches: native batcher" not in out or "using numpy" in out:
-            raise RuntimeError(f"fern_cli ({tag}): the native batcher did not feed the run")
-        if launches != expected:
-            raise RuntimeError(f"fern_cli ({tag}): launched {launches}, expected {expected}")
-        if not all(files.values()) or len(epochs) != 1:
-            raise RuntimeError(f"fern_cli ({tag}): files {files}, epoch lines {epochs}")
-        losses = [loss for _, loss in probe]
-        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
-            raise RuntimeError(f"fern_cli ({tag}): the train loss did not fall: {probe}")
-        runs.append(_clean(launches))
-        history = History.load(os.path.join(run, _history_name(cfg)))
-        return trainer, out, launches, epochs, probe, history
-
     # (a) world space, the config as shipped.
     run_a = os.path.join(tmp, "fern_run")
-    trainer, out, launches, epochs, probe, history = train("a", FERN_CONFIG, run_a)
+    trainer, out, launches, epochs, probe, history = _fern_train(
+        "fern_cli", "a", FERN_CONFIG, cap, run_a, cfg, expected, runs)
     bounds = re.search(r"near=(\S+) far=(\S+) focal=(\S+)", out).groups()
     say("fern_cli_train", part="a", size=[cfg.height, cfg.width], views=FERN_VIEWS,
         capture_write_s=write_s, batch=cfg.batch_size, samples=[cfg.ns_coarse, cfg.ns_fine],
@@ -2435,7 +2497,8 @@ def phase_fern_cli(card: str, tmp: str) -> list[dict]:
                               NDC=True, FREQ_ANNEAL_STEPS=FERN_ANNEAL_STEPS)
     ndc_cfg = dataclasses.replace(load_config(ndc_config), epochs=1)
     run_b = os.path.join(tmp, "fern_ndc_run")
-    trainer, out, launches, epochs, probe, history = train("b", ndc_config, run_b)
+    trainer, out, launches, epochs, probe, history = _fern_train(
+        "fern_cli", "b", ndc_config, cap, run_b, cfg, expected, runs)
     ckpt = os.path.join(run_b, checkpoint_name(ndc_cfg))
     with open(ckpt + ".config.json") as f:
         scene = json.load(f)["SCENE"]
@@ -2513,32 +2576,7 @@ def phase_fern_cli(card: str, tmp: str) -> list[dict]:
 
     # (d) the spiral path of the capture, float then int8.
     frames = 5
-    parts = {}
-    for tag, extra in (("float", []), ("int8", ["--quant", "int8"])):
-        t0 = time.perf_counter()
-        written, out, launches = _cli(infer_cli.run_inference, [
-            "--config", ndc_config, "--checkpoint", run_b, "--path", "spiral", "--data-dir",
-            cap, "--frames", str(frames), "--out", os.path.join(tmp, f"fern_{tag}.mp4")]
-            + extra)
-        seconds = time.perf_counter() - t0
-        launches = _clean(launches)
-        runs.append(launches)
-        gates = {g[0]: {"decision": g[1], "psnr_db": float(g[2])}
-                 for g in GATE_LINE.findall(out)}
-        frame_ms = [float(x) for x in FRAME_MS.findall(out)]
-        per_frame = 2 * chunks
-        if tag == "float":
-            want = dict(ZERO, k1_fwd=frames * per_frame)
-        else:  # the gate's float and int8 frames, then int8 frames only
-            want = dict(ZERO, k1_fwd=per_frame, k4=(frames + 1) * per_frame)
-        parts[tag] = {"launches": launches, "expected": want, "gates": gates,
-                      "seconds": seconds, "frame_ms": frame_ms,
-                      "s_per_frame": statistics.median(frame_ms) / 1e3 if frame_ms else None}
-        if launches != want or len(frame_ms) != frames:
-            raise RuntimeError(f"fern_cli (d, {tag}): launched {launches}, expected {want}; "
-                               f"frames {frame_ms}")
-        if tag == "int8" and gates.get("int8", {}).get("decision") != "PASS":
-            raise RuntimeError(f"fern_cli (d): the int8 gate did not pass: {gates}")
+    parts = _fern_spiral("fern_cli", ndc_config, run_b, cap, frames, chunks, tmp, runs)
     say("fern_cli_infer", part="d", size=[cfg.height, cfg.width], frames=frames, **parts,
         card=card)
 
@@ -2557,6 +2595,110 @@ def phase_fern_cli(card: str, tmp: str) -> list[dict]:
     say("fern_cli_orbit_guard", part="e", error=refused, launches=counts(), card=card)
     if counts() != ZERO:
         raise RuntimeError(f"fern_cli (e): launched {counts()} before refusing")
+    return runs
+
+
+# The JPEG-only capture committed for phase fern_jpeg, written by PIL 12.1.0
+# (tests/torch_jpeg_fixtures.py): 8 views of 504x672 in images/ only, and
+# the SHA-256 of PIL's decode of every fixture file and of PIL's LANCZOS
+# minify by 8 of every view.
+JPEG_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                             "fixtures", "torch_jpeg")
+
+
+def _digest(img: np.ndarray) -> dict:
+    img = np.ascontiguousarray(img, dtype=np.uint8)
+    return {"shape": list(img.shape), "sha256": hashlib.sha256(img.tobytes()).hexdigest()}
+
+
+def phase_fern_jpeg(card: str, tmp: str) -> list[dict]:
+    """Phase 25 (module docstring): a user's own capture shipped as
+    full-size JPEGs, minified and decoded by the port, then trained, scored
+    and rendered at the Fern config's widths, (a)-(d)."""
+    with open(os.path.join(JPEG_FIXTURES, "goldens.json")) as f:
+        goldens = json.load(f)
+    cap = os.path.join(tmp, "jpeg_capture")
+    shutil.copytree(os.path.join(JPEG_FIXTURES, "capture"), cap)
+    if os.path.exists(os.path.join(cap, "images_8")):
+        raise RuntimeError(f"fern_jpeg: {cap} already holds images_8/")
+
+    # (a) the decoder and minify on this machine's host, against PIL's
+    # digests (this machine has no PIL).
+    t0 = time.perf_counter()
+    jpeg_codec.load_library()
+    build_s = time.perf_counter() - t0
+    wrong = {}
+    for rel, want in goldens["decode"].items():
+        if _digest(llff._read_rgb_u8(os.path.join(JPEG_FIXTURES, rel))) != want:
+            wrong[rel] = "decode"
+    frames = sorted(os.listdir(os.path.join(cap, "images")))
+    t0 = time.perf_counter()
+    decoded = [llff._read_rgb_u8(os.path.join(cap, "images", f)) for f in frames]
+    decode_s = time.perf_counter() - t0
+    mpx = sum(im.shape[0] * im.shape[1] for im in decoded) / 1e6
+    t0 = time.perf_counter()
+    out_dir = llff.minify(cap, 8)
+    minify_s = time.perf_counter() - t0
+    for f in frames:
+        with open(os.path.join(out_dir, os.path.splitext(f)[0] + ".png"), "rb") as fh:
+            small = decode_png(fh.read())
+        if _digest(small) != goldens["minify"][f"capture/images/{f}"]:
+            wrong[f"capture/images/{f}"] = "minify"
+    say("fern_jpeg", part="a", frames=len(frames), frame_size=list(decoded[0].shape),
+        decode_files_checked=len(goldens["decode"]), minify_files_checked=len(frames),
+        mismatches=wrong, build_s=build_s, decode_s=decode_s, decode_mpx=mpx,
+        decode_mpx_per_s=mpx / decode_s, minify_s=minify_s, card=card)
+    if wrong or len(frames) != len(goldens["minify"]):
+        raise RuntimeError(f"fern_jpeg (a): the port differs from PIL's digests: {wrong}")
+
+    # (b) the training CLI on the minified capture, the config as shipped.
+    cfg = dataclasses.replace(load_config(FERN_CONFIG), epochs=1)
+
+    def prepare(h, w):
+        return train_fern.prepare(h, w, data_dir=cap)
+
+    expected, steps = _expected_launches(cfg, prepare, 1, 1)
+    runs = []
+    run = os.path.join(tmp, "jpeg_run")
+    trainer, out, launches, epochs, probe, history = _fern_train(
+        "fern_jpeg", "b", FERN_CONFIG, cap, run, cfg, expected, runs)
+    near, far, focal = (float(v) for v in
+                        re.search(r"near=(\S+) far=(\S+) focal=(\S+)", out).groups())
+    say("fern_jpeg", part="b", size=[cfg.height, cfg.width], batch=cfg.batch_size,
+        samples=[cfg.ns_coarse, cfg.ns_fine], mlp=[cfg.num_layers, cfg.hidden_dim],
+        steps_per_epoch=steps, epochs=epochs, bounds=[near, far, focal], launches=launches,
+        expected=expected, loss_probe=probe, val_psnr=history.val["psnrs"], card=card)
+    del trainer
+    torch.cuda.empty_cache()
+
+    # (c) the evaluation CLI on (b)'s checkpoint against random weights.
+    chunks = math.ceil(cfg.height * cfg.width / 16384)
+    want = dict(ZERO, k1_fwd=2 * chunks)
+    reports = {}
+    rnd_ckpt = os.path.join(tmp, "jpeg_random", "random.ckpt.npz")
+    os.makedirs(os.path.dirname(rnd_ckpt))
+    save_params_npz(rnd_ckpt, random_params(cfg, seed=0), cfg,
+                    scene={"near": near, "far": far, "focal": focal, "ndc": False})
+    for tag, ckpt in (("trained", run), ("random", rnd_ckpt)):
+        t0 = time.perf_counter()
+        rep, _, launches = _cli(eval_cli.run_evaluation, [
+            "--config", FERN_CONFIG, "--checkpoint", ckpt, "--data", "llff", "--data-dir",
+            cap, "--out", os.path.join(tmp, f"jpeg_eval_{tag}.json")])
+        runs.append(_clean(launches))
+        reports[tag] = {"mean": rep["mean"], "launches": _clean(launches),
+                        "seconds": time.perf_counter() - t0}
+        if _clean(launches) != want:
+            raise RuntimeError(f"fern_jpeg (c, {tag}): launched {launches}, expected {want}")
+    say("fern_jpeg", part="c", expected=want, **reports, card=card)
+    if not reports["trained"]["mean"]["psnr"] > reports["random"]["mean"]["psnr"] + 1.0:
+        raise RuntimeError(f"fern_jpeg (c): trained {reports['trained']} does not beat "
+                           f"random {reports['random']} by 1 dB")
+
+    # (d) the capture's spiral path, float then int8.
+    frames_n = 2
+    parts = _fern_spiral("fern_jpeg", FERN_CONFIG, run, cap, frames_n, chunks, tmp, runs)
+    say("fern_jpeg", part="d", size=[cfg.height, cfg.width], frames=frames_n, **parts,
+        card=card)
     return runs
 
 
@@ -3199,6 +3341,8 @@ def main() -> None:
         runs += phase_infer_cli(card, tmp, run_dir)
         torch.cuda.empty_cache()
         runs += phase_fern_cli(card, tmp)
+        torch.cuda.empty_cache()
+        runs += phase_fern_jpeg(card, tmp)
         torch.cuda.empty_cache()
         runs += phase_dp(card)
         torch.cuda.empty_cache()

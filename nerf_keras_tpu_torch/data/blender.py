@@ -11,10 +11,12 @@ Counterpart of ``nerf_keras_tpu/data/blender.py``:
 Poses pass through unchanged (the OpenGL-style camera-to-world of
 ``ops/rays.get_rays``); the focal is ``W/2 / tan(a/2)`` at the native
 width, rescaled with the resize; alpha is composited onto a white or
-black background; bounds are near=2, far=6.  PNGs are decoded by the
-port's ``utils/png.decode_png`` and widened to RGBA as PIL's
-``convert("RGBA")`` does (the card's machine has no PIL); a palette,
-16-bit or interlaced PNG raises ``ValueError`` naming the file.
+black background; bounds are near=2, far=6.  Frames are decoded by the
+port's ``utils/image.decode_image`` (PNG, or JPEG where a ``file_path``
+names one; the card's machine has no PIL) and widened to RGBA as PIL's
+``convert("RGBA")`` does (a JPEG's alpha is 255); a JPEG the port
+refuses, or a palette, 16-bit or interlaced PNG, raises ``ValueError``
+naming the file.
 """
 
 from __future__ import annotations
@@ -25,8 +27,8 @@ import os
 import numpy as np
 
 from nerf_keras_tpu_torch.data.pipeline import RayDataset, build_ray_dataset, rescale_focal
-from nerf_keras_tpu_torch.utils.image import resize_bilinear
-from nerf_keras_tpu_torch.utils.png import decode_png, to_rgba
+from nerf_keras_tpu_torch.utils.image import decode_image, resize_bilinear
+from nerf_keras_tpu_torch.utils.png import to_rgba
 
 NEAR, FAR = 2.0, 6.0
 
@@ -56,13 +58,10 @@ def find_blender_scene(path: str | None = None, scene: str = "lego") -> str:
 
 
 def _read_rgba(path: str) -> np.ndarray:
-    """A PNG as ``(H, W, 4)`` float32 in [0, 1]."""
+    """A PNG or JPEG frame as ``(H, W, 4)`` float32 in [0, 1]."""
     with open(path, "rb") as f:
         data = f.read()
-    try:
-        return to_rgba(decode_png(data)).astype(np.float32) / 255.0
-    except ValueError as e:
-        raise ValueError(f"{path}: {e}") from e
+    return to_rgba(decode_image(data, path)).astype(np.float32) / 255.0
 
 
 def _composite(rgba: np.ndarray, white_bkgd: bool) -> np.ndarray:

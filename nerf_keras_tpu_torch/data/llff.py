@@ -13,13 +13,15 @@ reorder to NeRF's [right, up, back], the bound rescale (``bd_factor``),
 recentering on the average pose, the spiral render path or the
 spherified orbit, and the single-view holdout nearest the average pose.
 
-What differs: images decode through the port's ``utils/png`` (the card's
-machine has no PIL), so a capture must ship PNGs; a JPEG, a palette or a
-16-bit PNG raises ``NotImplementedError`` naming the file.  ``minify``
-returns ``images_{factor}/`` when it already holds images, as the
-published captures ship them; building it (PIL's LANCZOS resize in the
-JAX package) is not ported, and a capture without it raises naming the
-directory.  Remote (``gs://``) roots raise through ``utils/io``.
+Images decode through the port's own ``utils/png`` and ``utils/jpeg``
+(the card's machine has no PIL), told apart by content as PIL does: the
+JPEGs users' cameras write give PIL's pixels bit for bit; a JPEG outside
+baseline 8-bit gray/YCbCr raises ``ValueError`` naming the file, a
+palette or 16-bit PNG ``NotImplementedError``.  ``minify`` builds
+``images_{factor}/`` from ``images/`` with Pillow's LANCZOS resize
+(``utils/image.resize_lanczos_u8``, bit for bit) into PNGs, as the JAX
+package does through PIL.  Remote (``gs://``) roots raise through
+``utils/io``: the JAX package's remote minify cache is not ported.
 """
 
 from __future__ import annotations
@@ -30,8 +32,8 @@ import numpy as np
 
 from nerf_keras_tpu_torch.data.pipeline import RayDataset, build_ray_dataset, rescale_focal
 from nerf_keras_tpu_torch.utils import io
-from nerf_keras_tpu_torch.utils.image import resize_bilinear
-from nerf_keras_tpu_torch.utils.png import decode_png, to_rgba
+from nerf_keras_tpu_torch.utils.image import decode_image, resize_bilinear, resize_lanczos_u8
+from nerf_keras_tpu_torch.utils.png import PNG_SIGNATURE, encode_png, to_rgba
 
 # ---------------------------------------------------------------------------
 # pose math (numpy; the standard LLFF recipe)
@@ -165,34 +167,44 @@ def _image_files(directory: str) -> list[str]:
     return [io.join(directory, f) for f in io.listdir(directory) if f.endswith(_IMG_EXTS)]
 
 
-def _read_image(path: str) -> np.ndarray:
-    """An 8-bit PNG as float32 RGB in [0, 1], as PIL's ``convert("RGB")``
+def _read_rgb_u8(path: str) -> np.ndarray:
+    """An image file as ``(H, W, 3)`` uint8, as PIL's ``convert("RGB")``
     gives it (gray fills r, g and b; alpha is dropped)."""
-    if not path.lower().endswith(".png"):
-        raise NotImplementedError(
-            f"{path}: only PNG captures load in the port (JPEG decoding is not "
-            "ported; ROADMAP.md lists it)")
     with io.open_file(path, "rb") as f:
         data = f.read()
     try:
-        img = decode_png(data)
+        img = decode_image(data, path)
     except ValueError as e:
-        raise NotImplementedError(f"{path}: {e} (the port decodes 8-bit "
-                                  "grayscale/RGB/RGBA PNGs only)") from e
-    return to_rgba(img)[..., :3].astype(np.float32) / 255.0
+        if data[:len(PNG_SIGNATURE)] != PNG_SIGNATURE:
+            raise
+        raise NotImplementedError(f"{e} (the port decodes 8-bit grayscale/RGB/RGBA "
+                                  "PNGs only)") from e
+    return to_rgba(img)[..., :3]
+
+
+def _read_image(path: str) -> np.ndarray:
+    """A PNG or JPEG as float32 RGB in [0, 1]."""
+    return _read_rgb_u8(path).astype(np.float32) / 255.0
 
 
 def minify(basedir: str, factor: int) -> str:
-    """The capture's ``images_{factor}/`` directory, which must already
-    hold the minified frames (building it from ``images/`` is not
-    ported)."""
+    """The capture's ``images_{factor}/`` directory: returned as it is when
+    it holds images, else made from ``images/``, each frame resized to
+    ``(w // factor, h // factor)`` with Pillow's LANCZOS and written as
+    ``<stem>.png``."""
+    src_dir = io.join(basedir, "images")
     out_dir = io.join(basedir, f"images_{factor}")
     if io.exists(out_dir) and _image_files(out_dir):
         return out_dir
-    raise NotImplementedError(
-        f"{out_dir} holds no images: minifying {io.join(basedir, 'images')} "
-        f"(a LANCZOS resize by {factor}) is not ported; ship the capture with "
-        f"images_{factor}/ as the published LLFF captures do")
+    io.makedirs(out_dir)
+    for src in _image_files(src_dir):
+        img = _read_rgb_u8(src)
+        h, w = img.shape[:2]
+        small = resize_lanczos_u8(img, w // factor, h // factor)
+        stem = os.path.splitext(os.path.basename(src))[0]
+        with io.open_file(io.join(out_dir, stem + ".png"), "wb") as f:
+            f.write(encode_png(small))
+    return out_dir
 
 
 def _render_path_from_poses(

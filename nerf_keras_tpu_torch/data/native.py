@@ -18,7 +18,6 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
-import os
 import subprocess
 import threading
 from pathlib import Path
@@ -26,8 +25,9 @@ from typing import Iterator
 
 import numpy as np
 
+from nerf_keras_tpu_torch.utils.hostbuild import BUILD_DIR, compile_library
+
 _SRC = Path(__file__).resolve().parent / "native" / "batcher.cc"
-BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 batches = 0  # batches served in this process (every NativeRayBatcher)
@@ -44,21 +44,6 @@ def library_path() -> Path:
     return BUILD_DIR / f"libray_batcher-{digest}.so"
 
 
-def _build(lib: Path) -> None:
-    # A per-process temp name and os.replace: a sibling process never
-    # loads a half-written library.
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    try:
-        subprocess.run(
-            ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", "-o", str(tmp), str(_SRC)],
-            check=True, capture_output=True,
-        )
-        os.replace(tmp, lib)
-    finally:
-        tmp.unlink(missing_ok=True)
-
-
 def load_library() -> ctypes.CDLL:
     """Compile (once) and load the batcher.  Raises ``RuntimeError`` when
     it cannot be built or loaded."""
@@ -69,7 +54,7 @@ def load_library() -> ctypes.CDLL:
         path = library_path()
         try:
             if not path.exists():
-                _build(path)
+                compile_library(_SRC, path)
             lib = ctypes.CDLL(str(path))
         except (OSError, subprocess.CalledProcessError) as e:
             detail = getattr(e, "stderr", b"") or b""

@@ -5,8 +5,9 @@ Counterpart of ``nerf_keras_tpu/data/synthetic.py``: a diffuse sphere
 (``"spheres"``), rendered analytically by exact ray intersection in
 numpy on the port's rays (``ops/rays.get_rays`` on the host).  The same
 seed gives the JAX package's views, poses and pixels.
-:func:`write_forward_facing_capture` writes the spheres scene as an LLFF
-capture on disk for the forward-facing path (``data/llff.py``).
+:func:`forward_facing_views` renders the spheres scene from a
+forward-facing rig, and :func:`write_forward_facing_capture` writes it as
+an LLFF capture on disk for the forward-facing path (``data/llff.py``).
 """
 
 from __future__ import annotations
@@ -210,29 +211,26 @@ _CAPTURE_FACTOR = 8
 _CAPTURE_SEED = 7
 
 
-def write_forward_facing_capture(
-    out_dir: str,
+def forward_facing_views(
     num_views: int,
     height: int,
     width: int,
     focal: float,
-) -> str:
-    """Write the spheres scene as an LLFF capture (``data/llff.py``) and
-    return ``out_dir``: ``images_8/img_NN.png`` rendered at
-    ``height x width`` with ``focal`` (pixels), and ``poses_bounds.npy``
-    in the raw layout ``[down, right, back, t, hwf]`` with hwf at the
-    full size (8 times each), as the published captures ship their
-    factor-8 minified frames.
+) -> tuple[np.ndarray, np.ndarray]:
+    """The spheres scene seen from a forward-facing rig: ``(frames (N, H,
+    W, 3) uint8, poses_bounds (N, 17))``, the frames rendered at ``height x
+    width`` with ``focal`` (pixels), ``poses_bounds`` in LLFF's raw layout
+    ``[down, right, back, t, hwf]`` + bounds, hwf the rendered size.
 
     The cameras sit around ``(0, 0, 4)`` (x and y jittered by up to 0.45,
     z by 0.15, from a fixed seed) and look at the origin, so every ray has
     ``d_z < 0``; bounds are [2.4, 5.6], the depth range of the scene
-    seen from there.
+    seen from there.  The same ``num_views`` give the same cameras at any
+    size.
     """
-    img_dir = os.path.join(out_dir, f"images_{_CAPTURE_FACTOR}")
-    os.makedirs(img_dir, exist_ok=True)
     rng = np.random.default_rng(_CAPTURE_SEED)
     poses_raw = np.zeros((num_views, 3, 5))
+    frames = np.zeros((num_views, height, width, 3), np.uint8)
     for i in range(num_views):
         pos = np.array([*rng.uniform(-0.45, 0.45, 2), 4.0 + rng.uniform(-0.15, 0.15)])
         back = pos / np.linalg.norm(pos)
@@ -241,13 +239,32 @@ def write_forward_facing_capture(
         up = np.cross(back, right)
         c2w = np.stack([right, up, back, pos], axis=1).astype(np.float32)
         o, d = view_rays([c2w], height, width, focal)
-        rgb = _render_analytic_spheres(o[0], d[0])
-        with open(os.path.join(img_dir, f"img_{i:02d}.png"), "wb") as f:
-            f.write(encode_png((rgb * 255).astype(np.uint8)))
+        frames[i] = (_render_analytic_spheres(o[0], d[0]) * 255).astype(np.uint8)
         # LLFF's columns are [down, right, back, t, hwf].
         poses_raw[i, :, :4] = np.stack([-up, right, back, pos], axis=1)
-        poses_raw[i, :, 4] = np.array([height, width, focal]) * _CAPTURE_FACTOR
+        poses_raw[i, :, 4] = height, width, focal
     bds = np.stack([np.full(num_views, 2.4), np.full(num_views, 5.6)], axis=1)
-    np.save(os.path.join(out_dir, "poses_bounds.npy"),
-            np.concatenate([poses_raw.reshape(num_views, -1), bds], axis=1))
+    return frames, np.concatenate([poses_raw.reshape(num_views, -1), bds], axis=1)
+
+
+def write_forward_facing_capture(
+    out_dir: str,
+    num_views: int,
+    height: int,
+    width: int,
+    focal: float,
+) -> str:
+    """Write :func:`forward_facing_views` as an LLFF capture
+    (``data/llff.py``) and return ``out_dir``: ``images_8/img_NN.png``
+    rendered at ``height x width`` with ``focal`` (pixels), and
+    ``poses_bounds.npy`` with hwf at the full size (8 times each), as the
+    published captures ship their factor-8 minified frames."""
+    img_dir = os.path.join(out_dir, f"images_{_CAPTURE_FACTOR}")
+    os.makedirs(img_dir, exist_ok=True)
+    frames, poses_bounds = forward_facing_views(num_views, height, width, focal)
+    poses_bounds[:, 4:15:5] *= _CAPTURE_FACTOR  # hwf, the 5th column of each row
+    for i, rgb in enumerate(frames):
+        with open(os.path.join(img_dir, f"img_{i:02d}.png"), "wb") as f:
+            f.write(encode_png(rgb))
+    np.save(os.path.join(out_dir, "poses_bounds.npy"), poses_bounds)
     return out_dir

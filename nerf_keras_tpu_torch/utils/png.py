@@ -14,7 +14,7 @@ import zlib
 
 import numpy as np
 
-_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _COLOR_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
 _CHANNEL_COLOR = {1: 0, 3: 2, 2: 4, 4: 6}
 
@@ -39,7 +39,7 @@ def encode_png(img: np.ndarray) -> bytes:
     )
     header = struct.pack(">IIBBBBB", w, h, 8, _CHANNEL_COLOR[c], 0, 0, 0)
     return b"".join([
-        _SIGNATURE,
+        PNG_SIGNATURE,
         _chunk(b"IHDR", header),
         _chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)),
         _chunk(b"IEND", b""),
@@ -87,7 +87,7 @@ def _unfilter(rows: np.ndarray, bpp: int) -> np.ndarray:
 
 def decode_png(data: bytes) -> np.ndarray:
     """PNG bytes -> ``(H, W)`` (grayscale) or ``(H, W, C)`` uint8."""
-    if data[:8] != _SIGNATURE:
+    if data[:8] != PNG_SIGNATURE:
         raise ValueError("not a PNG")
     pos, idat, header = 8, [], None
     while pos < len(data):

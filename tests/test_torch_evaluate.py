@@ -131,14 +131,19 @@ def test_unported_inputs_raise_before_any_work(tmp_path, monkeypatch):
         raise AssertionError("work started")
 
     monkeypatch.setattr(pev, "Trainer", no_trainer)
-    # An LLFF capture without its minified frames (building them is not
-    # ported), and a remote root.
+    # An LLFF capture without frames: minify makes an empty images_8/ and the
+    # loader raises the JAX package's count error; and a remote root.
+    from nerf_keras_tpu.data.llff import load_llff_data as jax_load_llff
+
     capture = tmp_path / "capture"
     (capture / "images").mkdir(parents=True)
     np.save(capture / "poses_bounds.npy", np.zeros((3, 17)))
-    with pytest.raises(NotImplementedError, match="images_8"):
+    with pytest.raises(ValueError, match="0 images in .*images_8 but 3 poses") as e:
         run_evaluation(["--config", cfg_path, "--checkpoint", ckpt, "--data", "llff",
                         "--data-dir", str(capture), "--device", "cpu"])
+    with pytest.raises(ValueError) as want:
+        jax_load_llff(str(capture))
+    assert str(e.value) == str(want.value)
     with pytest.raises(NotImplementedError, match="remote storage"):
         run_evaluation(["--config", cfg_path, "--checkpoint", ckpt, "--data", "llff",
                         "--data-dir", "gs://dataset-nerf/nerf_llff_data/fern",

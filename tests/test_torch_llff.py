@@ -5,9 +5,9 @@ images and rays agree to 1e-6 (they come out bit-equal; the resized
 frames go through ``resize_bilinear``, held to ``jax.image.resize`` at
 6e-7 by ``tests/test_torch_image.py``).  The capture is the port's
 ``write_forward_facing_capture``: 5 PNG views in ``images_8/`` at 12x16
-(the JAX loader reads them with PIL).  What the port does not load (JPEG,
-palette PNGs, a capture without ``images_8/``, a ``gs://`` root) raises
-``NotImplementedError`` naming the file or directory.
+(the JAX loader reads them with PIL).  What the port does not load (a
+broken JPEG, palette PNGs, a ``gs://`` root) raises naming the file or
+directory; JPEG captures and ``minify`` are ``tests/test_torch_jpeg.py``'s.
 """
 
 import os
@@ -98,17 +98,30 @@ def test_prepare_fern_data_matches_jax(capture, size):
 
 
 def test_unported_captures_raise_naming_what(capture, tmp_path):
-    root = tmp_path / "cap"
-    (root / "images").mkdir(parents=True)
-    with open(os.path.join(capture, "poses_bounds.npy"), "rb") as f:
-        (root / "poses_bounds.npy").write_bytes(f.read())
-    with pytest.raises(NotImplementedError, match="images_8"):
-        pllff.load_llff_data(str(root))
-    (root / "images_8").mkdir()
+    """What the loader cannot read raises naming the file or directory: a
+    capture with an empty ``images/`` gets the JAX package's count error
+    (both create ``images_8/`` first), a JPEG too short to be one a
+    ``ValueError`` naming it (the JAX loader fails there too, with PIL's
+    ``OSError``), a 16-bit PNG ``NotImplementedError``, a ``gs://`` root
+    the remote-storage error."""
+    msgs = []
+    for pkg, name in ((pllff, "port"), (jllff, "jax")):
+        root = tmp_path / name
+        (root / "images").mkdir(parents=True)
+        with open(os.path.join(capture, "poses_bounds.npy"), "rb") as f:
+            (root / "poses_bounds.npy").write_bytes(f.read())
+        with pytest.raises(ValueError, match="0 images in .*images_8 but 5 poses") as e:
+            pkg.load_llff_data(str(root))
+        assert (root / "images_8").is_dir()
+        msgs.append(str(e.value).replace(str(root), ""))
+    assert msgs[0] == msgs[1]
+    root = tmp_path / "port"
     for i in range(5):
         (root / "images_8" / f"img_{i:02d}.jpg").write_bytes(b"\xff\xd8\xff")
-    with pytest.raises(NotImplementedError, match="img_00.jpg"):
+    with pytest.raises(ValueError, match="img_00.jpg: truncated data"):
         pllff.load_llff_data(str(root))
+    with pytest.raises(OSError):
+        jllff.load_llff_data(str(root))
     # A 16-bit PNG: the decoder refuses it, the loader names the file.
     png = bytearray(encode_png(np.zeros((2, 2, 3), np.uint8)))
     png[24] = 16  # IHDR bit depth
