@@ -183,6 +183,33 @@ nonzero — nothing falls back to the CPU or to a plain path):
     reduce misses it by 10x; a 4,096-ray render split over the ranks with
     no all-reduce; the step ms (two processes sharing one card: not a
     scaling figure);
+    22b. ``dp_infer``: scoring, rendering and serving under a mesh at the
+    same widths (random weights, the sigma bias +1): (a) a world of 1 on
+    NCCL in a child process calibrates int8 tables on 4 orbit views,
+    distills the proposal net (cut to 200 steps of the default 1,500),
+    saves the cache from rank 0 and loads it into a new trainer, and
+    renders a 200x200 frame float, int8, distilled and distilled int8:
+    the tables and the net (sha256) and every map bit for bit those of
+    one process without a mesh, exactly 2 K1 / 2 K4 / 1 K1 / 1 K4 a chunk,
+    the collectives of each step exact (calibration one header and one
+    broadcast per dtype of the tables, the distillation one header and one
+    of the net, the cache load one header and one per dtype, a save none,
+    a render its maps' all-gathers only); (b) the same as two gloo ranks
+    sharing the card (rank 1 is given a path where no cache file is): both
+    ranks' digests one process's, the maps within 1e-6 of it (the
+    measured maximum printed), the same collectives; (c) the broken
+    variant, each rank installing the tables it calibrates itself, rank 1
+    on other rays: its rows miss the 1e-6 gate by 10x or more; (d) ``cli.evaluate --quant int8
+    --sampler proposal --infer-cache`` as two gloo ranks (in process,
+    ``audit.run_ranks``): rank 0's report equal to one process's, one K4
+    a view on each rank, rank 1 writes nothing; (e) a server
+    (``serving.main``) in each served mode, float, ``--quant int8`` and
+    ``--sampler proposal``, as two gloo ranks: a ``GET /render`` at
+    200x200 (and ``/reload`` for int8) and ``/stats``, then SIGTERM: the
+    PNG bytes, ``/reload`` and ``/stats`` equal one process's, each
+    rank's launches from the server's start equal one process's exactly,
+    the gate lines equal on both ranks, rank 1 writes nothing.  The
+    phase's K1 and K4 launches on every rank join the kernels line;
 23. ``union_free``: the union-free proposal layout (``PROP_UNION=false``,
     ``PROP_AUX_SAMPLES``, ``PROP_UNION_EVERY``): (a) K1 forward, K1 in
     training mode and K2 (with the weights cotangent) at B=4096, S=128
@@ -321,7 +348,13 @@ from nerf_keras_tpu_torch.data import native as native_batcher
 from nerf_keras_tpu_torch.data.pipeline import dataset_to_ndc
 from nerf_keras_tpu_torch.data.synthetic import write_forward_facing_capture
 from nerf_keras_tpu_torch.ops.freq_anneal import anneal_alpha, freq_window
-from nerf_keras_tpu_torch.parallel.audit import run_ranks, run_two_process_smoke, tree_rel_l2
+from nerf_keras_tpu_torch.parallel.audit import (
+    artifact_digests,
+    free_port,
+    run_ranks,
+    run_two_process_smoke,
+    tree_rel_l2,
+)
 from nerf_keras_tpu_torch.profile_render import union_us
 from nerf_keras_tpu_torch.config import NeRFConfig
 from nerf_keras_tpu_torch.utils.checkpoint import (
@@ -2797,6 +2830,257 @@ def phase_dp(card: str) -> list[dict]:
 
 
 # ---------------------------------------------------------------------------
+# Phase 22b: scoring, rendering and serving on every rank of a data mesh.
+
+# The distillation of phase dp_infer, cut from the default 1,500 steps of
+# 16,384 points to 200 (the net need not be good: each rank must hold the
+# same one as one process).
+DPI_DISTILL = {"steps": 200}
+DPI_SIZE = 200
+# Two ranks against one process: each ray is rendered alone, so the maps
+# agree bit for bit (expected 0); the gate allows float32 noise.
+DPI_TOL = 1e-6
+# Phase dp_infer (e): a server in each served mode (its flags and
+# RenderService's, and its requests), each as two ranks and as one process.
+DPI_RENDER = ("GET", f"/render?theta=30&width={DPI_SIZE}&height={DPI_SIZE}")
+DPI_SERVERS = {
+    "float": ([], {}, [DPI_RENDER, ("GET", "/stats")]),
+    "int8": (["--quant", "int8"], {"quant": True},
+             [DPI_RENDER, ("POST", "/reload"), ("GET", "/stats")]),
+    "proposal": (["--sampler", "proposal", "--proposal-steps", str(DPI_DISTILL["steps"])],
+                 {"sampler": "proposal", "proposal_steps": DPI_DISTILL["steps"]},
+                 [DPI_RENDER, ("GET", "/stats")]),
+}
+# Each server's served setting and its gate lines (int8: at start and at
+# /reload; proposal: at start).
+DPI_SERVED = {"float": ("none", "coarse", 0), "int8": ("int8", "coarse", 2),
+              "proposal": ("none", "proposal", 1)}
+DPI_GATE_LINE = re.compile(r"\] (serving [a-z0-9 ]+?) gate (PASS|FAIL): (\S+) dB")
+DPI_RENDERS = {"float": {}, "int8": {"quant": True}, "proposal": {"sampler": "proposal"},
+               "proposal_int8": {"sampler": "proposal", "quant": True}}
+
+
+def _dpi_launches(rec: dict, want: dict) -> dict:
+    """A rank's render launches, each render held to ``want`` exactly;
+    their sum."""
+    total = dict(ZERO)
+    for name in DPI_RENDERS:
+        grew = dict(ZERO, **rec["steps"][name]["launches"])
+        if grew != dict(ZERO, **want[name]):
+            raise RuntimeError(f"dp_infer: the {name} render launched {grew}, expected "
+                               f"{want[name]}")
+        for k, v in grew.items():
+            total[k] += v
+    return total
+
+
+def _dpi_max_diff(got: dict, want: dict) -> float:
+    return max(float(np.abs(got[name][k] - want[name][k]).max())
+               for name in want for k in want[name])
+
+
+def phase_dp_infer(card: str, tmp: str) -> list[dict]:
+    """Phase 22b (module docstring): the int8 tables, the distilled net and
+    the cache under a mesh, and cli.evaluate and the server as two ranks."""
+    cfg = load_config(CONFIG)
+    params = random_params(cfg, seed=17)
+    for tree in params.values():  # a denser field than sigma at 0
+        tree["sigma"]["b"] = tree["sigma"]["b"] + 1.0
+    cpu = Trainer(cfg, 2.0, 6.0, device="cpu")
+    calib = [np.concatenate(x) for x in zip(*(
+        [t.numpy() for t in cpu.pose_rays(pose_spherical(theta, -30.0, 4.0), 100, 100, 120.0)]
+        for theta in (0.0, 90.0, 180.0, 270.0)))]
+    rays = [t.numpy() for t in cpu.pose_rays(pose_spherical(30.0, -30.0, 4.0), DPI_SIZE,
+                                             DPI_SIZE, 1.2 * DPI_SIZE)]
+    del cpu
+    chunks = -(-DPI_SIZE * DPI_SIZE // 16384)
+    want_launches = {"float": {"k1_fwd": 2 * chunks}, "int8": {"k4": 2 * chunks},
+                     "proposal": {"k1_fwd": chunks}, "proposal_int8": {"k4": chunks}}
+
+    # The reference: one process, no mesh.
+    one = Trainer(cfg, 2.0, 6.0, device="cuda").replace_params(params)
+    one.quantize_for_inference(*calib)
+    one.build_proposal_sampler(*calib, **DPI_DISTILL)
+    ref_digests = artifact_digests(one)
+    ref = {name: one.render_rays(*rays, **kw) for name, kw in DPI_RENDERS.items()}
+    q_elems = sum(a.size for a in _flatten(quant.qparams_to_jax(one.qparams), "").values())
+    p_elems = sum(p.numel() for p in one.proposal_net.parameters())
+    del one
+    torch.cuda.empty_cache()
+    spec = {"cfg": cfg, "near": 2.0, "far": 6.0, "params": params,
+            "infer": {"calib": calib, "distill": DPI_DISTILL, "rays": rays}}
+    want_coll = {"calibrate": (1, 2, q_elems), "distill": (1, 1, p_elems),
+                 "load": (1, 2, q_elems + p_elems)}
+
+    def check_collectives(rec: dict, what: str) -> dict:
+        got = {k: v["collectives"] for k, v in rec["steps"].items()}
+        for step, (objects, broadcasts, elements) in want_coll.items():
+            c = got[step]
+            if (c["broadcast_object"], c["broadcast"], c["broadcast_elements"],
+                    c["all_reduce"], c["all_gather"]) != (objects, broadcasts, elements, 0, 0):
+                raise RuntimeError(f"dp_infer ({what}): {step} made {c}, expected "
+                                   f"{objects} header and {broadcasts} broadcasts of "
+                                   f"{elements} elements")
+        for name, kw in DPI_RENDERS.items():
+            c, maps = got[name], 2 if kw.get("sampler") else 4
+            if (c["all_gather"], c["all_reduce"], c["broadcast"], c["broadcast_object"]) != (
+                    chunks * maps, 0, 0, 0):
+                raise RuntimeError(f"dp_infer ({what}): the {name} render made {c}")
+        return {k: {kk: v for kk, v in c.items() if v} for k, c in got.items()}
+
+    # (a) a world of 1 on NCCL.
+    t0 = time.perf_counter()
+    (rec,) = run_ranks(1, dict(spec, device="cuda", backend=None, infer=dict(
+        spec["infer"], cache=os.path.join(tmp, "dpi_a.infer.npz"))), timeout=DP_TIMEOUT)
+    a_s = time.perf_counter() - t0
+    a = rec["infer"]
+    launches = [_dpi_launches(a, want_launches)]
+    diff = _dpi_max_diff(a["frames"], ref)
+    coll = check_collectives(a, "a")
+    say("dp_infer", part="a", backend=rec["backend"], device=rec["device"],
+        digests_equal_no_mesh=a["digests"] == a["loaded_digests"] == ref_digests,
+        frames_max_abs_diff_vs_no_mesh=diff, size=DPI_SIZE, chunks=chunks,
+        launches={k: a["steps"][k]["launches"] for k in DPI_RENDERS}, collectives=coll,
+        distill_steps=len(a["distill_losses"]), wall_s=a_s, card=card)
+    if rec["backend"] != "nccl":
+        raise RuntimeError(f"dp_infer (a): world 1 ran on {rec['backend']}, not NCCL")
+    if not a["digests"] == a["loaded_digests"] == ref_digests or diff != 0.0:
+        raise RuntimeError(f"dp_infer (a): world 1 differs from no mesh: digests "
+                           f"{a['digests']} / {a['loaded_digests']} vs {ref_digests}, "
+                           f"frames {diff}")
+
+    # (b) two gloo ranks sharing the card.
+    t0 = time.perf_counter()
+    recs = run_ranks(2, dict(spec, device="cuda", backend="gloo", infer=dict(
+        spec["infer"], cache=os.path.join(tmp, "dpi_b.infer.npz"), hidden_from=1)),
+        timeout=DP_TIMEOUT)
+    b_s = time.perf_counter() - t0
+    b = [r["infer"] for r in recs]
+    launches += [_dpi_launches(r, want_launches) for r in b]
+    diffs = [_dpi_max_diff(r["frames"], ref) for r in b]
+    coll = [check_collectives(r, "b") for r in b]
+    same = all(r["digests"] == r["loaded_digests"] == ref_digests for r in b)
+    say("dp_infer", part="b", backend=recs[0]["backend"],
+        devices=[r["device"] for r in recs],
+        note="gloo asked for explicitly: NCCL refuses two ranks on one device; rank 1 "
+             "is given a path where no cache file is",
+        digests_equal_one_process=same, frames_max_abs_diff_vs_one_process=diffs,
+        tol=DPI_TOL, collectives=coll[0], collectives_equal=coll[0] == coll[1],
+        wall_s=b_s, card=card)
+    if not same or max(diffs) > DPI_TOL or coll[0] != coll[1]:
+        raise RuntimeError(f"dp_infer (b): digests equal {same}, frames {diffs}, "
+                           f"collectives {coll}")
+
+    # (c) the broken variant: no rank shares, rank 1 calibrates on other rays.
+    broken_calib = [t.numpy() for t in Trainer(cfg, 2.0, 6.0, device="cpu").pose_rays(
+        pose_spherical(45.0, -60.0, 4.0), 100, 100, 120.0)]
+    recs = run_ranks(2, dict(spec, device="cuda", backend="gloo", infer={
+        "calib": calib, "rays": rays, "broken": True, "broken_calib": broken_calib}),
+        timeout=DP_TIMEOUT)
+    rgb = recs[0]["infer"]["frames"]["int8"]["rgb_fine"]
+    want = ref["int8"]["rgb_fine"]
+    rank1 = np.zeros(len(want), bool)
+    for start in range(0, len(want), 16384):
+        rank1[start + 8192:start + 16384] = True
+    miss = float(np.abs(rgb[rank1] - want[rank1]).max())
+    own = float(np.abs(rgb[~rank1] - want[~rank1]).max())
+    say("dp_infer", part="c", rank0_rows_max_abs_diff=own, rank1_rows_max_abs_diff=miss,
+        tol=DPI_TOL, card=card)
+    if own > DPI_TOL or miss < 10 * DPI_TOL:
+        raise RuntimeError(f"dp_infer (c): the gate cannot see unshared tables: rank 1's "
+                           f"rows {miss}, rank 0's {own}")
+
+    # (d) cli.evaluate and (e) a server in each served mode, two gloo
+    # ranks, outputs under r{rank}/, against one process of each in this
+    # process.
+    ckpt = os.path.join(tmp, "dpi.ckpt.npz")
+    save_params_npz(ckpt, params, cfg, scene={"near": 2.0, "far": 6.0, "focal": 120.0})
+    for out in ("dpi_r0", "dpi_r1", "dpi_one"):
+        os.makedirs(os.path.join(tmp, out))
+    common = ["--config", CONFIG, "--checkpoint", ckpt]
+
+    def ev_argv(out):
+        return common + ["--quant", "int8", "--sampler", "proposal", "--proposal-steps",
+                         str(DPI_DISTILL["steps"]), "--data", "synthetic", "--split", "val",
+                         "--infer-cache", os.path.join(tmp, out, "c.infer.npz"), "--out",
+                         os.path.join(tmp, out, "eval.json")]
+
+    t0 = time.perf_counter()
+    recs = run_ranks(2, {"cfg": cfg, "near": 2.0, "far": 6.0, "device": "cuda",
+                         "backend": "gloo", "cli": [("evaluate", ev_argv("dpi_r{rank}"))] + [
+        ("serve", common + flags + ["--port", str(free_port())], requests)
+        for flags, _, requests in DPI_SERVERS.values()]}, timeout=DP_TIMEOUT)
+    de_s = time.perf_counter() - t0
+    clis = [r["cli"] for r in recs]
+    report, _, one_launches = _cli(eval_cli.run_evaluation, ev_argv("dpi_one"))
+    views = 3
+    ev_launches = [dict(ZERO, **c[0]["launches"]) for c in clis]
+    r1_files = os.listdir(os.path.join(tmp, "dpi_r1"))
+    say("dp_infer", part="d", entry="cli.evaluate --quant int8 --sampler proposal "
+        "--infer-cache", report_equal_one_process=clis[0][0]["result"] == report,
+        mean=clis[0][0]["result"]["mean"], one_process_mean=report["mean"],
+        launches=ev_launches, rank1_files=r1_files,
+        rank0_files=sorted(os.listdir(os.path.join(tmp, "dpi_r0"))), card=card)
+    if clis[0][0]["result"] != report or clis[1][0]["result"] != report:
+        raise RuntimeError(f"dp_infer (d): the ranks' reports {clis[0][0]['result']} "
+                           f"differ from one process's {report}")
+    if any(x != dict(ZERO, k4=views) for x in ev_launches) or r1_files:
+        raise RuntimeError(f"dp_infer (d): launches {ev_launches}, rank 1 wrote {r1_files}")
+    launches += ev_launches
+
+    # Each rank renders its rows of every chunk, so it launches per chunk
+    # what one process launches, gates included: the launches of each
+    # server equal one process's exactly.
+    for i, (mode, (_, kw, requests)) in enumerate(DPI_SERVERS.items(), start=1):
+        before = counts()
+        service = RenderService(cfg, ckpt, device="cuda", **kw)
+        server = serve(service, port=0)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        bodies = []
+        try:
+            base = f"http://127.0.0.1:{server.server_address[1]}"
+            for method, path in requests:
+                req = urllib.request.Request(base + path, method=method,
+                                             data=b"" if method == "POST" else None)
+                with urllib.request.urlopen(req, timeout=300) as resp:
+                    bodies.append(resp.read())
+            one_srv = {k: counts()[k] - before[k] for k in ZERO}
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=60)
+        del service
+        got = clis[0][i]["result"]
+        png_equal = got[0] == bodies[0]
+        stats, one_stats = json.loads(got[-1]), json.loads(bodies[-1])
+        for k in ("mean_render_s", "device"):  # the rank's cuda:0, one process's cuda
+            del stats[k], one_stats[k]
+        reload_equal = all(json.loads(g) == json.loads(w) for (m, _), g, w
+                           in zip(requests, got, bodies) if m == "POST")
+        srv_launches = [dict(ZERO, **c[i]["launches"]) for c in clis]
+        gates = [DPI_GATE_LINE.findall(c[i]["stdout"]) for c in clis]
+        say("dp_infer", part="e", mode=mode, requests=[p for _, p in requests],
+            png_equal=png_equal, reload_equal=reload_equal, stats=stats,
+            stats_equal=stats == one_stats, shape=list(decode_png(got[0]).shape),
+            launches=srv_launches, one_process_launches=one_srv,
+            gates=gates[0], gates_equal=gates[0] == gates[1], card=card)
+        if not png_equal or not reload_equal or stats != one_stats \
+                or (stats["quant"], stats["sampler"], len(gates[0])) != DPI_SERVED[mode] \
+                or gates[0] != gates[1] or len(got) != len(requests) \
+                or srv_launches != [one_srv, one_srv]:
+            raise RuntimeError(f"dp_infer (e, {mode}): PNG equal {png_equal}, reload "
+                               f"{reload_equal}, stats {stats} / {one_stats}, gates {gates}, "
+                               f"launches {srv_launches} vs one process's {one_srv}")
+        launches += srv_launches
+    r1_files = os.listdir(os.path.join(tmp, "dpi_r1"))
+    say("dp_infer", part="e", rank1_files=r1_files, wall_s_d_and_e=de_s, card=card)
+    if r1_files:
+        raise RuntimeError(f"dp_infer (e): rank 1 wrote {r1_files}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # Phase 23: the union-free proposal layout (PROP_UNION=false with
 # PROP_AUX_SAMPLES and PROP_UNION_EVERY).
 
@@ -3345,6 +3629,8 @@ def main() -> None:
         runs += phase_fern_jpeg(card, tmp)
         torch.cuda.empty_cache()
         runs += phase_dp(card)
+        torch.cuda.empty_cache()
+        runs += phase_dp_infer(card, tmp)
         torch.cuda.empty_cache()
         uf_runs, uf = phase_union_free(card, tmp)
         runs += uf_runs

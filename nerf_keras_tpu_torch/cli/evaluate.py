@@ -19,6 +19,14 @@ never on the scored split, and ``--infer-cache`` reuses them across runs.
 ray space with bounds [0, 1], as it was trained, and its int8 tables and
 distilled net are fit on train views in that space too.
 
+Launched as N ranks (``torchrun``, or the ``NERF_*`` trio; see
+``parallel/distributed.py``), every rank scores every view, each rendering
+its rows of every chunk (``Trainer.render_rays``); the int8 tables and
+the distilled net are built, or read from ``--infer-cache``, on rank 0 and
+shared.  Rank 0 alone prints the report and writes the JSON, the
+``--save-images`` PNGs and the cache.  Without a launch environment it
+runs as one process.
+
 Unlike the JAX CLI: ``--device`` (default ``cuda``, which raises without a
 card; ``--device cpu`` for the CPU) replaces ``--platform``, and there is
 no compilation cache.
@@ -35,7 +43,7 @@ from nerf_keras_tpu_torch.cli.train import LOG
 from nerf_keras_tpu_torch.config import load_config
 from nerf_keras_tpu_torch.data.pipeline import dataset_to_ndc
 from nerf_keras_tpu_torch.engine.trainer import Trainer
-from nerf_keras_tpu_torch.runtime import resolve_device
+from nerf_keras_tpu_torch.parallel.distributed import launched, process_info
 from nerf_keras_tpu_torch.utils import io
 from nerf_keras_tpu_torch.utils.checkpoint import (
     load_checkpoint_scene,
@@ -142,8 +150,15 @@ def run_evaluation(argv: list[str] | None = None) -> dict:
     args = p.parse_args(argv)
     if args.split == "test" and args.data != "blender":
         raise SystemExit("--split test requires --data blender")
-    device = resolve_device(args.device)
+    with launched(args.device) as device:
+        return _evaluate(args, device)
 
+
+def _evaluate(args, device) -> dict:
+    """:func:`run_evaluation` on ``device``, after the process group (if
+    any) is joined."""
+    rank, world = process_info()
+    main = rank == 0
     cfg = load_config(args.config)
     ckpt = args.checkpoint
     if not ckpt.endswith(".npz"):
@@ -168,8 +183,8 @@ def run_evaluation(argv: list[str] | None = None) -> dict:
         ds = dataset_to_ndc(ds)
         near, far = 0.0, 1.0
     trainer = Trainer(cfg, near, far, device=device).restore(ckpt)
-    print(f"{LOG} loaded {ckpt}; scoring {ds.num_images} {args.split} views at "
-          f"{ds.height}x{ds.width} on {device}")
+    print(f"{LOG} rank {rank}/{world}: loaded {ckpt}; scoring {ds.num_images} "
+          f"{args.split} views at {ds.height}x{ds.width} on {device}")
 
     load_if_fresh(trainer, args.infer_cache)
 
@@ -194,14 +209,18 @@ def run_evaluation(argv: list[str] | None = None) -> dict:
         trainer.build_proposal_sampler(*calib_rays(), steps=args.proposal_steps)
     if args.infer_cache and (trainer.quant_ready, trainer.proposal_ready) != cache_pre:
         trainer.save_inference_artifacts(args.infer_cache)
-        print(f"{LOG} saved inference artifacts to {args.infer_cache}")
+        if main:
+            print(f"{LOG} saved inference artifacts to {args.infer_cache}")
 
     report = evaluate_views(trainer, ds, chunk=args.chunk, quant=args.quant == "int8",
-                            sampler=sampler, save_dir=args.save_images, split=args.split)
+                            sampler=sampler, save_dir=args.save_images if main else None,
+                            split=args.split)
     report["split"] = args.split
     report["checkpoint"] = ckpt
     report["quant"] = args.quant
     report["sampler"] = args.sampler
+    if not main:
+        return report
 
     out_path = args.out or io.join(ckpt.rsplit("/", 1)[0] if "/" in ckpt else ".",
                                    f"eval_{args.split}.json")

@@ -40,6 +40,15 @@ the spherified orbit), from its ``poses_bounds.npy`` alone.  An ``NDC``
 checkpoint renders NDC rays and so needs that path: on the orbit it raises
 the forward-facing ``ValueError``.
 
+Launched as N ranks (``torchrun``, or the ``NERF_*`` trio; see
+``parallel/distributed.py``), every rank renders every frame, each its
+rows of every chunk, and holds the whole frame after the gather, so every
+rank takes the same gate decisions without a collective.  The int8 tables
+and the distilled net are built, or read from ``--infer-cache``, on rank 0
+and shared.  Rank 0 alone writes the video, the depth video, the cache and
+the ``--profile`` trace.  Without a launch environment it runs as one
+process.
+
 Unlike the JAX CLI: ``--device`` (default ``cuda``, which raises without a
 card) replaces ``--platform``, and there is no compilation cache.
 """
@@ -59,7 +68,7 @@ from nerf_keras_tpu_torch.config import config_name, load_config
 from nerf_keras_tpu_torch.data.llff import load_llff_render_path
 from nerf_keras_tpu_torch.engine.trainer import Trainer
 from nerf_keras_tpu_torch.ops.rays import pose_spherical
-from nerf_keras_tpu_torch.runtime import resolve_device
+from nerf_keras_tpu_torch.parallel.distributed import launched, process_info
 from nerf_keras_tpu_torch.utils import profiling
 from nerf_keras_tpu_torch.utils.checkpoint import (
     load_checkpoint_scene,
@@ -130,7 +139,9 @@ def proposal_gate(trainer: Trainer, poses, cfg, focal, chunk: int, gate_db: floa
                          "falling back to the coarse sampler")[0]
 
 
-def run_inference(argv: list[str] | None = None) -> str:
+def run_inference(argv: list[str] | None = None) -> str | None:
+    """The whole program; returns the path written (rank 0), None on the
+    other ranks of a launch."""
     p = argparse.ArgumentParser()
     p.add_argument("--config", type=str, default="config/fern_batch_h256.json")
     p.add_argument("--checkpoint", type=str, default=None,
@@ -196,8 +207,15 @@ def run_inference(argv: list[str] | None = None) -> str:
     args = p.parse_args(argv)
     if (args.checkpoint is None) == (args.reference_weights is None):
         raise SystemExit("exactly one of --checkpoint / --reference-weights is required")
-    device = resolve_device(args.device)
+    with launched(args.device) as device:
+        return _infer(args, device)
 
+
+def _infer(args, device) -> str | None:
+    """:func:`run_inference` on ``device``, after the process group (if
+    any) is joined."""
+    rank, world = process_info()
+    main = rank == 0
     cfg = load_config(args.config)
     name = config_name(args.config)
     if args.ns_coarse is not None or args.ns_fine is not None:
@@ -231,10 +249,11 @@ def run_inference(argv: list[str] | None = None) -> str:
     trainer = Trainer(cfg, near, far, device=device)
     if ckpt is not None:
         trainer.restore(ckpt)
-        print(f"{LOG} loaded {ckpt} on {device}")
+        print(f"{LOG} rank {rank}/{world}: loaded {ckpt} on {device}")
     else:
         trainer.replace_params(*import_reference_weights(args.reference_weights, cfg))
-        print(f"{LOG} imported reference weights {args.reference_weights} on {device}")
+        print(f"{LOG} rank {rank}/{world}: imported reference weights "
+              f"{args.reference_weights} on {device}")
     if args.path == "spiral":
         if not args.data_dir:
             raise SystemExit("--path spiral requires --data-dir "
@@ -259,7 +278,8 @@ def run_inference(argv: list[str] | None = None) -> str:
     post = (trainer.quant_ready, trainer.proposal_ready)
     if args.infer_cache and post != cache_pre and any(post):
         trainer.save_inference_artifacts(args.infer_cache)
-        print(f"{LOG} saved inference artifacts to {args.infer_cache}")
+        if main:
+            print(f"{LOG} saved inference artifacts to {args.infer_cache}")
 
     def render(pose):
         return trainer.render_image(pose, cfg.height, cfg.width, focal, chunk=args.chunk,
@@ -270,10 +290,13 @@ def run_inference(argv: list[str] | None = None) -> str:
     for i, pose in enumerate(poses):
         if args.profile is not None and i == 0:
             render(pose)  # untraced first, so the trace holds a steady frame
-            with profiling.trace(args.profile, device):
+            if main:
+                with profiling.trace(args.profile, device):
+                    out = render(pose)
+                print(f"{LOG} profiler trace of one {cfg.height}x{cfg.width} frame -> "
+                      f"{os.path.join(args.profile, profiling.TRACE_FILE)}")
+            else:
                 out = render(pose)
-            print(f"{LOG} profiler trace of one {cfg.height}x{cfg.width} frame -> "
-                  f"{os.path.join(args.profile, profiling.TRACE_FILE)}")
             timing = "traced"
         else:
             t0 = time.perf_counter()
@@ -282,8 +305,11 @@ def run_inference(argv: list[str] | None = None) -> str:
         frames.append(to_uint8(out["rgb"]))
         if args.depth_video:
             depth_frames.append(to_uint8(normalize_depth(out["depth"])))
-        print(f"  frame {i + 1}/{args.frames} ({timing})")
+        if main:
+            print(f"  frame {i + 1}/{args.frames} ({timing})")
 
+    if not main:
+        return None
     out_path = args.out or f"{name}_rgb_video_gpu.mp4"
     written = write_video(out_path, frames, fps=30)
     print(f"{LOG} video saved to {written}")

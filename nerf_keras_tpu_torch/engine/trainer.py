@@ -12,10 +12,17 @@ batches every rank holds whole (``put_global_batch``) and give the global
 metrics through one all-reduce a batch; the renders split each chunk over
 the ranks and all-gather the maps, with no all-reduce.  The parameters,
 the EMA shadow and the BatchNorm statistics are broadcast from rank 0
-after init and after ``restore``.  The int8 tables and the distilled
-sampler are single-process: under more than one rank
-``quantize_for_inference``, ``build_proposal_sampler`` and
-``load_inference_artifacts`` raise ``NotImplementedError``.
+after init and after ``restore``.  What is derived from the weights after
+training is built on rank 0 alone and shared
+(``parallel/mesh.share_from_main``), as the JAX package builds it on one
+device and replicates it: ``quantize_for_inference`` calibrates on rank
+0's rays, ``build_proposal_sampler`` distills on them (and prints there),
+and ``load_inference_artifacts`` reads the file and checks its digest on
+rank 0, so every rank installs the same tables and net, bit for bit, or
+raises the same error; ``save_inference_artifacts`` writes from rank 0.
+Every rank then renders its rows of each chunk through them, as for the
+float render.  The checks that refuse a call depend on the config and the
+model alone, so every rank refuses it before any collective.
 
 The models are ``{'coarse', 'fine'}`` (``TRAIN_SAMPLER=coarse``, the
 parity step) or ``{'proposal', 'fine'}``, initialized from ``cfg.seed``,
@@ -111,9 +118,12 @@ from nerf_keras_tpu_torch.parallel.mesh import (
     all_gather_rows,
     broadcast_,
     config_mesh,
+    is_main,
     local_rows,
+    share_from_main,
 )
 from nerf_keras_tpu_torch.runtime import resolve_device
+from nerf_keras_tpu_torch.utils import io
 from nerf_keras_tpu_torch.utils.checkpoint import (
     load_checkpoint,
     models_bn,
@@ -121,6 +131,7 @@ from nerf_keras_tpu_torch.utils.checkpoint import (
     save_checkpoint,
 )
 from nerf_keras_tpu_torch.utils.infer_cache import (
+    StaleArtifactsError,
     load_artifacts,
     params_digest,
     save_artifacts,
@@ -254,12 +265,6 @@ class Trainer:
         broadcast)."""
         if self.mesh is not None:
             broadcast_([t.data for t in self.state_tensors()], self.mesh)
-
-    def _single_process(self, what: str) -> None:
-        if self.mesh is not None and self.mesh.world > 1:
-            raise NotImplementedError(
-                f"{what} under a data mesh of {self.mesh.world} ranks is not ported: "
-                "it is single-process, as in the JAX package (run it in one process)")
 
     @property
     def step(self) -> int:
@@ -431,15 +436,22 @@ class Trainer:
         places for ``TRAIN_SAMPLER=proposal`` (its union with the grid, or
         the draws alone under ``PROP_UNION=false``).  Gate the result
         against the float render (PSNR) before serving it, as the server
-        does."""
-        self._single_process("int8 calibration")
+        does.  Under a mesh rank 0 calibrates on its rays (the other
+        ranks' are not read) and every rank installs its tables."""
         if self.cfg.batch_norm:
             raise ValueError("int8 inference has no BatchNorm variant; use the float "
                              "path for BN configs")
+        return self.install_quant(share_from_main(
+            lambda: (None, self.calibrate_int8(origins, directions, calib_rays, seed)),
+            self.mesh)[1])
 
-        origins, directions = _subsample(origins, directions, calib_rays, seed)
-        o = torch.tensor(origins, device=self.device)
-        d = torch.tensor(directions, device=self.device)
+    def calibrate_int8(self, origins, directions, calib_rays: int = 2048,
+                       seed: int = 0) -> dict:
+        """The int8 tables this process calibrates on the rays, neither
+        installed nor shared: what :meth:`quantize_for_inference` computes
+        (on rank 0 under a mesh)."""
+        o, d = (torch.tensor(x, device=self.device)
+                for x in _subsample(origins, directions, calib_rays, seed))
         models = self._folded_eval_params()
         trees = {k: mlp_tree(m) for k, m in models.items() if k != "proposal"}
         with torch.no_grad():
@@ -449,8 +461,7 @@ class Trainer:
                     self.far, o, d)
             else:
                 stats = calibrate_render(trees, self.cfg, self.near, self.far, o, d)
-            self.install_quant(quantize_render_params(trees, stats, self.cfg.skip_layer))
-        return self
+            return quantize_render_params(trees, stats, self.cfg.skip_layer)
 
     def install_quant(self, qparams: dict) -> "Trainer":
         """Install int8 tables (``{'coarse', 'fine'}``, or ``{'fine'}`` for
@@ -482,6 +493,11 @@ class Trainer:
         """The installed int8 tables, or None."""
         return self._qparams
 
+    @property
+    def proposal_net(self) -> ProposalMLP | None:
+        """The installed distilled proposal net, or None."""
+        return self._pparams
+
     # ------------------------------------------------------------------
     def build_proposal_sampler(
         self, origins, directions, *, calib_rays: int = 65536, steps: int = 1500,
@@ -494,8 +510,9 @@ class Trainer:
         of the render path: a frustum the net never saw is one it can only
         extrapolate into.  More than ``calib_rays`` rays are subsampled as
         :meth:`quantize_for_inference` does.  Gate the result against the
-        coarse sampler (PSNR) before serving it, as the CLIs do."""
-        self._single_process("the proposal distillation")
+        coarse sampler (PSNR) before serving it, as the CLIs do.  Under a
+        mesh rank 0 distills on its rays and every rank installs its net,
+        its final loss and :attr:`distill_losses`."""
         if self.proposal:
             raise ValueError(
                 "TRAIN_SAMPLER='proposal' checkpoints already carry their proposal net "
@@ -507,27 +524,34 @@ class Trainer:
         if self.cfg.ns_fine <= 0:
             raise ValueError("the proposal sampler places fine samples; ns_fine must "
                              "be positive")
-        origins, directions = _subsample(origins, directions, calib_rays, seed)
-        fine = self._folded_eval_params()["fine"]
-        cdt = fine.compute_dtype
 
-        def sigma_fn(pts):
-            return fine.sigma_logits(encode_position(pts, self.cfg.l_xyz).to(cdt))
+        def distill():
+            o, d = (torch.tensor(x, device=self.device)
+                    for x in _subsample(origins, directions, calib_rays, seed))
+            fine = self._folded_eval_params()["fine"]
+            cdt = fine.compute_dtype
 
-        losses: list[float] = []
-        t0 = time.perf_counter()
-        net, final_loss = distill_proposal(
-            sigma_fn, torch.tensor(origins, device=self.device),
-            torch.tensor(directions, device=self.device), self.near, self.far,
-            l_xyz=l_xyz, hidden=hidden, depth=depth, steps=steps, batch=batch, lr=lr,
-            under_weight=under_weight,
-            generator=torch.Generator(device=self.device).manual_seed(seed),
-            losses_out=losses)
-        print(f"[nerf-torch] distilled the proposal net: {steps} steps of {batch} points "
-              f"in {time.perf_counter() - t0:.3f} s, loss {losses[0]:.6g} -> {final_loss:.6g}")
+            def sigma_fn(pts):
+                return fine.sigma_logits(encode_position(pts, self.cfg.l_xyz).to(cdt))
+
+            losses: list[float] = []
+            t0 = time.perf_counter()
+            net, final_loss = distill_proposal(
+                sigma_fn, o, d, self.near, self.far, l_xyz=l_xyz, hidden=hidden,
+                depth=depth, steps=steps, batch=batch, lr=lr, under_weight=under_weight,
+                generator=torch.Generator(device=self.device).manual_seed(seed),
+                losses_out=losses)
+            print(f"[nerf-torch] distilled the proposal net: {steps} steps of {batch} "
+                  f"points in {time.perf_counter() - t0:.3f} s, loss {losses[0]:.6g} -> "
+                  f"{final_loss:.6g}")
+            return {"loss": final_loss, "losses": losses}, dict(net.state_dict())
+
+        meta, tensors = share_from_main(distill, self.mesh)
+        net = ProposalMLP(l_xyz=l_xyz, hidden=hidden, depth=depth, device=self.device)
+        net.load_state_dict(tensors)
         self._install_proposal(net, l_xyz)
-        self._distill_loss = final_loss
-        self.distill_losses = losses
+        self._distill_loss = meta["loss"]
+        self.distill_losses = meta["losses"]
         return self
 
     def _install_proposal(self, pparams, l_xyz: int) -> None:
@@ -569,10 +593,14 @@ class Trainer:
 
     def save_inference_artifacts(self, path: str) -> "Trainer":
         """Write whatever int8 tables and distilled net are installed,
-        keyed to the current weights (:func:`save_artifacts`)."""
+        keyed to the current weights (:func:`save_artifacts`); under a
+        mesh rank 0 writes and the other ranks, which hold the same bits,
+        write nothing."""
         if self._qparams is None and self._pparams is None:
             raise RuntimeError("nothing to save: run quantize_for_inference and/or "
                                "build_proposal_sampler first")
+        if not is_main(self.mesh):
+            return self
         save_artifacts(
             path, self.infer_digest(),
             pparams=None if self._pparams is None else proposal_to_jax(self._pparams),
@@ -582,21 +610,45 @@ class Trainer:
 
     def load_inference_artifacts(self, path: str) -> "Trainer":
         """Install what :meth:`save_inference_artifacts` wrote (by either
-        package).  Raises ``StaleArtifactsError`` when it was derived from
-        other weights or config: a stale acceleration is never installed."""
-        self._single_process("inference artifacts")
+        package).  Raises ``FileNotFoundError`` when there is no file and
+        ``StaleArtifactsError`` when it was derived from other weights or
+        config: a stale acceleration is never installed; a BatchNorm config
+        refuses a file with ``ValueError``.  Under a mesh rank 0 alone
+        reads the file and checks the digest; its verdict (absent,
+        stale with its message, or fresh with the tables and the net)
+        reaches every rank, which installs them or raises the same error."""
+
+        def read():
+            if not io.exists(path):
+                return {"verdict": "absent"}, None
+            if self.cfg.batch_norm:  # refused below, on every rank
+                return {"verdict": "present"}, None
+            try:
+                art = load_artifacts(path, self.infer_digest())
+            except StaleArtifactsError as e:
+                return {"verdict": "stale", "message": str(e)}, None
+            meta = {"verdict": "fresh", "prop_l_xyz": art.get("prop_l_xyz"),
+                    "distill_loss": art.get("distill_loss")}
+            tree = {k: qparams_from_jax(art[k], self.device) for k in ("qparams", "pparams")
+                    if k in art}
+            return meta, tree
+
+        meta, tree = share_from_main(read, self.mesh)
+        if meta["verdict"] == "absent":
+            raise FileNotFoundError(f"no inference artifacts at {path}")
         if self.cfg.batch_norm:
             raise ValueError("inference artifacts have no BatchNorm variant; use the "
                              "float coarse path for BN configs")
-        art = load_artifacts(path, self.infer_digest())
-        if "qparams" in art:
-            self.install_quant(qparams_from_jax(art["qparams"]))
-        if "pparams" in art:
+        if meta["verdict"] == "stale":
+            raise StaleArtifactsError(meta["message"])
+        if "qparams" in tree:
+            self.install_quant(tree["qparams"])
+        if "pparams" in tree:
             if self.cfg.ns_fine <= 0:
                 raise ValueError("the proposal sampler places fine samples; ns_fine "
                                  "must be positive")
-            self._install_proposal(art["pparams"], art["prop_l_xyz"])
-            self._distill_loss = art.get("distill_loss")
+            self._install_proposal(_tree_to(tree["pparams"], "cpu"), meta["prop_l_xyz"])
+            self._distill_loss = meta["distill_loss"]
         return self
 
     def _proposal_render_fn(self, quant: bool):

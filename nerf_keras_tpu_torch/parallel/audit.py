@@ -16,8 +16,11 @@ checks read those counters instead:
 
 :func:`run_ranks` launches a real job of N processes on one host (the
 ``NERF_*`` trio, a localhost rendezvous) that trains a few steps, audits
-them and renders; :func:`run_two_process_smoke` runs two ranks and raises
-when their metrics or parameters diverge (the counterpart of
+them and renders; or that builds, saves, reloads and renders through the
+int8 tables and the distilled net (:func:`_infer_part`); or that runs the
+entry points (:func:`_cli_part`: ``cli.evaluate``, ``cli.infer``, the
+server).  :func:`run_two_process_smoke` runs two ranks and raises when
+their metrics or parameters diverge (the counterpart of
 ``run_two_process_pallas_smoke``).  A rank runs as ``python -m
 nerf_keras_tpu_torch.parallel.audit SPEC OUT`` (pickles this module
 writes and reads).
@@ -25,13 +28,20 @@ writes and reads).
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
+import io
 import os
 import pickle
+import signal
 import socket
 import subprocess
 import sys
 import tempfile
+import threading
+import time
+import urllib.error
+import urllib.request
 
 import numpy as np
 import torch
@@ -42,11 +52,14 @@ from nerf_keras_tpu_torch.engine.step import N_METRICS, make_train_step, params_
 from nerf_keras_tpu_torch.engine.trainer import Trainer
 from nerf_keras_tpu_torch.models.mlp import NeRFMLP
 from nerf_keras_tpu_torch.ops.kernels import launch_counts
+from nerf_keras_tpu_torch.ops.proposal import proposal_to_jax
+from nerf_keras_tpu_torch.ops.quant import qparams_to_jax
 from nerf_keras_tpu_torch.parallel import mesh as mesh_mod
 from nerf_keras_tpu_torch.parallel.distributed import maybe_initialize, shutdown
 from nerf_keras_tpu_torch.profile_train import bench_batch
 from nerf_keras_tpu_torch.runtime import cuda_ms
 from nerf_keras_tpu_torch.utils.checkpoint import _flatten
+from nerf_keras_tpu_torch.utils.infer_cache import load_if_fresh
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -121,6 +134,24 @@ def state_digest(trainer: Trainer) -> str:
     return h.hexdigest()
 
 
+def tree_digest(tree) -> str:
+    """sha256 of a JAX-layout tree's paths and bytes."""
+    h = hashlib.sha256()
+    for path, arr in _flatten(tree, "").items():
+        h.update(path.encode())
+        h.update(arr.tobytes())
+    return h.hexdigest()
+
+
+def artifact_digests(trainer: Trainer) -> dict:
+    """``{'qparams', 'pparams'}``: :func:`tree_digest` of the installed int8
+    tables and distilled net, None where absent."""
+    return {"qparams": None if trainer.qparams is None
+            else tree_digest(qparams_to_jax(trainer.qparams)),
+            "pparams": None if trainer.proposal_net is None
+            else tree_digest(proposal_to_jax(trainer.proposal_net))}
+
+
 def _drop_own_gradients() -> None:
     """The broken variant: this rank sends zeros into every reduce of the
     step (its gradients and metrics are left out of the sum), and takes
@@ -149,16 +180,33 @@ def _count_profiled(prof) -> dict:
 def _run_rank(spec: dict) -> dict:
     """One rank's job (see :func:`run_ranks`)."""
     mesh = mesh_mod.make_mesh()
+    record = {"rank": mesh.rank, "world": mesh.world, "device": str(mesh.device),
+              "backend": torch.distributed.get_backend()}
+    if spec.get("batch") is not None:
+        record.update(_train_part(spec, mesh))
+    if spec.get("infer") is not None:
+        record["infer"] = _infer_part(spec, mesh)
+    if spec.get("cli") is not None:
+        record["cli"] = _cli_part(spec["cli"], mesh)
+    return record
+
+
+def _new_trainer(spec: dict, mesh) -> Trainer:
     trainer = Trainer(spec["cfg"], spec["near"], spec["far"], mesh=mesh)
     if spec.get("params") is not None:
         trainer.replace_params(spec["params"], spec.get("bn"))
+    return trainer
+
+
+def _train_part(spec: dict, mesh) -> dict:
+    """Train, audit and render (:func:`run_ranks`)."""
+    trainer = _new_trainer(spec, mesh)
     trainer.step = spec.get("start_step", 0)
     if spec.get("drop_rank") == mesh.rank:
         _drop_own_gradients()
     rows = mesh_mod.local_rows(len(spec["batch"][0]), mesh)
     batch = trainer.put_batch(tuple(x[rows] for x in spec["batch"]))
-    record = {"rank": mesh.rank, "world": mesh.world, "device": str(trainer.device),
-              "backend": torch.distributed.get_backend(), "metrics": [], "launches": []}
+    record = {"device": str(trainer.device), "metrics": [], "launches": []}
     for i in range(spec.get("steps", 3)):
         before = launch_counts()
         if i == 0:
@@ -205,6 +253,157 @@ def _run_rank(spec: dict) -> dict:
     return record
 
 
+def _counted(steps: dict, name: str, fn):
+    """``fn()`` with this rank's collectives and kernel launches in it
+    recorded as ``steps[name]``."""
+    mesh_mod.reset_counts()
+    before = launch_counts()
+    out = fn()
+    steps[name] = {"collectives": mesh_mod.counts(),
+                   "launches": {k: v - before[k] for k, v in launch_counts().items()
+                                if v != before[k]}}
+    return out
+
+
+def _error(fn) -> str | None:
+    """``'Type: message'`` of what ``fn()`` raised, or None."""
+    try:
+        fn()
+    except (OSError, RuntimeError, ValueError) as e:
+        return f"{type(e).__name__}: {e}"
+    return None
+
+
+def _infer_part(spec: dict, mesh) -> dict:
+    """The int8 tables and the distilled net under the mesh
+    (:func:`run_ranks`, ``infer``): build them, save and reload the cache,
+    render frames through them."""
+    job = spec["infer"]
+    trainer = _new_trainer(spec, mesh)
+    steps: dict = {}
+    out: dict = {"steps": steps}
+    calib = job["calib"]
+    if job.get("broken"):
+        # The broken variant: each rank installs the tables it calibrates
+        # itself (nothing is shared), rank 1 on other rays.
+        own = job["broken_calib"] if mesh.rank == 1 else calib
+        _counted(steps, "calibrate", lambda: trainer.install_quant(
+            trainer.calibrate_int8(*own)))
+    else:
+        _counted(steps, "calibrate", lambda: trainer.quantize_for_inference(*calib))
+    if job.get("distill") is not None:
+        _counted(steps, "distill", lambda: trainer.build_proposal_sampler(
+            *calib, **job["distill"]))
+        out["distill_losses"] = trainer.distill_losses
+    out["digests"] = artifact_digests(trainer)
+    if mesh.rank == 0:
+        out["qparams"] = qparams_to_jax(trainer.qparams)
+        if trainer.proposal_net is not None:
+            out["pparams"] = proposal_to_jax(trainer.proposal_net)
+    if job.get("cache") is not None:
+        cache = job["cache"]
+        if job.get("hidden_from") == mesh.rank:
+            # A rank whose filesystem lacks the file: no file is at its path.
+            cache += ".elsewhere"
+        _counted(steps, "save", lambda: trainer.save_inference_artifacts(cache))
+        trainer = _new_trainer(spec, mesh)
+        _counted(steps, "load", lambda: trainer.load_inference_artifacts(cache))
+        out["loaded_digests"] = artifact_digests(trainer)
+    if job.get("stale") is not None:
+        fresh = _new_trainer(spec, mesh)
+        out["stale_error"] = _counted(steps, "stale", lambda: _error(
+            lambda: fresh.load_inference_artifacts(job["stale"])))
+        out["absent_error"] = _error(lambda: fresh.load_inference_artifacts(
+            job["stale"] + ".absent"))
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            load_if_fresh(fresh, job["stale"])
+        out["stale_notice"] = buf.getvalue()
+        out["stale_installed"] = fresh.quant_ready
+    if job.get("corrupt") is not None:
+        other = _new_trainer(spec, mesh)
+        out["corrupt_error"] = _error(lambda: other.load_inference_artifacts(job["corrupt"]))
+    origins, dirs = job["rays"]
+    chunk = job.get("chunk", 16384)
+    renders = {"float": {}, "int8": {"quant": True}}
+    if trainer.proposal_net is not None:
+        renders.update(proposal={"sampler": "proposal"},
+                       proposal_int8={"sampler": "proposal", "quant": True})
+    extra = job.get("render_kw", {})
+    out["frames"] = {name: _counted(steps, name, lambda: trainer.render_rays(
+        origins, dirs, chunk=chunk, **kw, **extra)) for name, kw in renders.items()}
+    if job.get("time_frames"):
+        # Each render ends in the copy of its maps to the host.
+        out["frame_s"] = {}
+        for name, kw in renders.items():
+            times = []
+            for _ in range(job["time_frames"]):
+                t0 = time.perf_counter()
+                trainer.render_rays(origins, dirs, chunk=chunk, **kw, **extra)
+                times.append(time.perf_counter() - t0)
+            out["frame_s"][name] = times
+    return out
+
+
+def _serve_client(port: int, requests: list, bodies: list) -> None:
+    """Rank 0's client of its own server: wait for /healthz, send
+    ``requests`` (``(method, path)``), keep each body (or ``'HTTP <code>'``),
+    then stop the server as an operator does (SIGTERM)."""
+    base = f"http://127.0.0.1:{port}"
+    try:
+        for _ in range(600):
+            try:
+                urllib.request.urlopen(f"{base}/healthz", timeout=5).read()
+                break
+            except OSError:
+                time.sleep(0.1)
+        for method, path in requests:
+            req = urllib.request.Request(base + path, method=method,
+                                         data=b"" if method == "POST" else None)
+            try:
+                with urllib.request.urlopen(req, timeout=600) as resp:
+                    bodies.append(resp.read())
+            except urllib.error.HTTPError as e:
+                bodies.append(f"HTTP {e.code}: {e.read().decode()}")
+    finally:
+        os.kill(os.getpid(), signal.SIGTERM)
+
+
+def _cli_part(runs: list, mesh) -> list[dict]:
+    """The entry points as ranks of this job (:func:`run_ranks`, ``cli``):
+    each ``(name, argv)``, ``'{rank}'`` in an argument replaced by the
+    rank; stdout, the return value and the launches of each."""
+    from nerf_keras_tpu_torch import serving
+    from nerf_keras_tpu_torch.cli import evaluate, infer
+
+    records = []
+    for name, argv, *rest in runs:
+        argv = [a.replace("{rank}", str(mesh.rank)) for a in argv]
+        buf = io.StringIO()
+        before = launch_counts()
+        bodies: list = []
+        with contextlib.redirect_stdout(buf):
+            if name == "evaluate":
+                result = evaluate.run_evaluation(argv)
+            elif name == "infer":
+                result = infer.run_inference(argv)
+            else:
+                client = None
+                if mesh.rank == 0:
+                    port = int(argv[argv.index("--port") + 1])
+                    client = threading.Thread(target=_serve_client,
+                                              args=(port, rest[0], bodies))
+                    client.start()
+                serving.main(argv)
+                if client is not None:
+                    client.join(timeout=600)
+                result = bodies
+        records.append({"name": name, "stdout": buf.getvalue(), "result": result,
+                        "launches": {k: v - before[k] for k, v in launch_counts().items()
+                                     if v != before[k]}})
+    return records
+
+
 def free_port() -> int:
     with socket.socket() as s:
         s.bind(("localhost", 0))
@@ -227,13 +426,41 @@ def run_ranks(world: int, spec: dict, timeout: float = 120.0) -> list[dict]:
     one rank also of the same step built without the mesh),
     ``profile`` (count the NCCL all-reduces of that many more steps in a
     ``torch.profiler`` window), and ``drop_rank`` (that rank leaves its gradients
-    out of the reduce: the broken variant).
+    out of the reduce: the broken variant).  Without ``batch`` nothing is
+    trained.
 
     A record holds ``metrics`` and kernel ``launches`` per step, the
     first step's reduced ``grads``, its ``audit`` and the BatchNorm
     statistics after it (``bn_first``), the final
-    ``params``, ``bn`` and ``digest``, and what was asked for.  Raises
-    when a rank fails or outlives ``timeout`` seconds.
+    ``params``, ``bn`` and ``digest``, and what was asked for.
+
+    ``infer`` (a dict) builds what is derived from the weights on a
+    trainer of ``cfg``/``params`` under the mesh: ``calib`` (rays every
+    rank passes) calibrates the int8 tables, ``distill`` (keyword
+    arguments of ``build_proposal_sampler``, or None) distills the
+    proposal net on them; ``cache`` (a path) saves them, then a new
+    trainer loads them (``hidden_from``: that rank is given a path where
+    no file is, as on a filesystem that lacks it); ``stale`` (a path of another weights' artifacts) is
+    loaded by a new trainer, and so is ``corrupt`` (a file rank 0 cannot
+    read); ``rays`` (``(origins, dirs)``, e.g. a frame's) and ``chunk``
+    are rendered float, int8 and, with a net, distilled and distilled int8
+    (``render_rays``, every map, or as ``render_kw`` asks), then rendered
+    ``time_frames`` times more each on the host clock (``frame_s``).
+    ``broken`` with ``broken_calib``: no rank shares the tables, and rank
+    1 calibrates on ``broken_calib``.  Its record: ``steps``
+    (collectives and launches of each), ``digests``, ``loaded_digests``,
+    ``frames``, ``distill_losses``, the errors the stale, an absent and
+    the corrupt file raised with the stale notice, and rank 0's
+    ``qparams`` and ``pparams`` (JAX layout).
+
+    ``cli`` (a list of ``(name, argv[, requests])``) runs ``evaluate``
+    (``cli.evaluate``), ``infer`` (``cli.infer``) or ``serve``
+    (``serving.main``; rank 0 sends ``requests``, ``(method, path)``, to
+    its ``--port`` and then SIGTERMs itself) in turn, ``{rank}`` in an
+    argument replaced by the rank: stdout, the returned value (the
+    server's: the response bodies) and the launches of each.
+
+    Raises when a rank fails or outlives ``timeout`` seconds.
     """
     env = dict(os.environ)
     env["PYTHONPATH"] = _REPO + os.pathsep + env.get("PYTHONPATH", "")

@@ -25,6 +25,7 @@ A rank's GPU is ``cuda:{LOCAL_RANK}``, else ``cuda:{rank % device_count}``.
 
 from __future__ import annotations
 
+import contextlib
 import os
 
 import torch
@@ -122,6 +123,21 @@ def shard_dataset_for_process(dataset):
     if world == 1:
         return dataset
     return dataset.process_slice(rank, world)
+
+
+@contextlib.contextmanager
+def launched(device: str | None = None):
+    """The enclosed work as one rank of a launch: joins the process group
+    (:func:`maybe_initialize`) when a launch environment is set and leaves
+    it at the end; inside a group joined before, it joins and leaves
+    nothing.  Yields the device this process drives: the rank's, else
+    ``device`` resolved (default ``'cuda'``)."""
+    joined = not dist.is_initialized() and maybe_initialize(device)
+    try:
+        yield initialized_device() if dist.is_initialized() else resolve_device(device)
+    finally:
+        if joined:
+            shutdown()
 
 
 def shutdown() -> None:

@@ -22,12 +22,24 @@ Differences from the JAX mesh:
 Every collective goes through a wrapper here that adds one to
 :data:`calls` (and the elements it carries to :data:`elements`) per
 call, by kind, as the kernel wrappers count their launches;
-``parallel/audit.py`` reads them.
+``parallel/audit.py`` reads them.  A picklable object's broadcast
+(:func:`broadcast_object`) counts as ``broadcast_object`` with its
+pickled bytes as the elements.
+
+What one process builds from the weights after training (the int8
+tables, the distilled proposal net, an ``.infer.npz`` read) is built on
+rank 0 alone and handed to every rank by :func:`share_from_main`: one
+object broadcast of a header, then :func:`broadcast_tree_`, one
+broadcast per dtype of the tensors.  As in the JAX package, which builds
+them on one device and replicates them, every rank then holds rank 0's
+bits.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import pickle
+from typing import Any, Callable
 
 import torch
 import torch.distributed as dist
@@ -38,8 +50,8 @@ TENSOR_PARALLEL = ("MESH_MODEL > 1 (tensor parallelism) is not ported; the port 
                    "data parallelism over rays only (ROADMAP.md queue 1 item 7)")
 
 # Collective calls and the elements they carried, in this process.
-calls = {"all_reduce": 0, "all_gather": 0, "broadcast": 0}
-elements = {"all_reduce": 0, "all_gather": 0, "broadcast": 0}
+calls = {"all_reduce": 0, "all_gather": 0, "broadcast": 0, "broadcast_object": 0}
+elements = {"all_reduce": 0, "all_gather": 0, "broadcast": 0, "broadcast_object": 0}
 
 
 def reset_counts() -> None:
@@ -102,6 +114,12 @@ def config_mesh(data: int, model: int) -> DataMesh | None:
     return None
 
 
+def is_main(mesh: DataMesh | None) -> bool:
+    """True on rank 0, and in one process without a mesh: the rank that
+    prints reports and writes files."""
+    return mesh is None or mesh.rank == 0
+
+
 def local_rows(n: int, mesh: DataMesh) -> slice:
     """This rank's contiguous rows of a global batch of ``n`` rows."""
     if n % mesh.world:
@@ -147,6 +165,89 @@ def broadcast_(tensors: list[torch.Tensor], mesh: DataMesh, src: int = 0) -> Non
     for t in tensors:
         t.copy_(flat[start:start + t.numel()].view(t.shape))
         start += t.numel()
+
+
+def broadcast_object(obj: Any, mesh: DataMesh, src: int = 0) -> Any:
+    """Rank ``src``'s picklable ``obj`` on every rank (the others pass
+    anything, e.g. None).  NCCL moves it through the rank's own device."""
+    box = [obj]
+    device = mesh.device if dist.get_backend() == "nccl" else torch.device("cpu")
+    dist.broadcast_object_list(box, src, device=device)
+    _count("broadcast_object", len(pickle.dumps(box[0])))
+    return box[0]
+
+
+def _leaves(tree) -> list[torch.Tensor]:
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+def tree_spec(tree):
+    """The nested dicts and lists of ``tree`` with each tensor replaced by
+    ``(dtype name, shape)``: what a rank needs to receive it."""
+    if isinstance(tree, dict):
+        return {k: tree_spec(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_spec(v) for v in tree]
+    return (str(tree.dtype).removeprefix("torch."), tuple(tree.shape))
+
+
+def empty_tree(spec, device):
+    """Uninitialized tensors on ``device`` in the layout of ``spec``
+    (:func:`tree_spec`)."""
+    if isinstance(spec, dict):
+        return {k: empty_tree(v, device) for k, v in spec.items()}
+    if isinstance(spec, list):
+        return [empty_tree(v, device) for v in spec]
+    dtype, shape = spec
+    return torch.empty(shape, dtype=getattr(torch, dtype), device=device)
+
+
+def broadcast_tree_(tree, mesh: DataMesh, src: int = 0) -> None:
+    """Overwrite every tensor of ``tree`` (nested dicts and lists, the same
+    layout on every rank) with rank ``src``'s, in place: one
+    :func:`broadcast_` per dtype, dtypes in name order."""
+    by_dtype: dict[str, list[torch.Tensor]] = {}
+    for t in _leaves(tree):
+        by_dtype.setdefault(str(t.dtype), []).append(t)
+    for name in sorted(by_dtype):
+        broadcast_(by_dtype[name], mesh, src)
+
+
+def share_from_main(build: Callable[[], tuple[Any, Any]], mesh: DataMesh | None):
+    """``build()`` -> ``(meta, tree)`` run on rank 0 alone, and its result
+    on every rank: ``meta`` (picklable) and the layout of ``tree`` (a
+    nested tree of tensors on the rank's device, or None) in one
+    :func:`broadcast_object`, then the tensors by :func:`broadcast_tree_`.
+    Without a mesh, ``build()``.
+
+    The other ranks wait in the header's broadcast.  When ``build`` raises
+    on rank 0, the header says so: rank 0 re-raises its error and every
+    other rank raises ``RuntimeError`` naming it, so that no rank waits for
+    a broadcast that will not come."""
+    if mesh is None:
+        return build()
+    if mesh.rank == 0:
+        try:
+            meta, tree = build()
+        except Exception as e:
+            broadcast_object({"error": f"{type(e).__name__}: {e}"}, mesh)
+            raise
+        spec = None if tree is None else tree_spec(tree)
+        broadcast_object({"meta": meta, "spec": spec}, mesh)
+    else:
+        head = broadcast_object(None, mesh)
+        if "error" in head:
+            raise RuntimeError(f"rank 0 failed where this rank waits for its result: "
+                               f"{head['error']}")
+        meta, spec = head["meta"], head["spec"]
+        tree = None if spec is None else empty_tree(spec, mesh.device)
+    if tree is not None:
+        broadcast_tree_(tree, mesh)
+    return meta, tree
 
 
 class _AllReduceSum(torch.autograd.Function):

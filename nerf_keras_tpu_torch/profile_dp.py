@@ -2,6 +2,7 @@
 
     python -m nerf_keras_tpu_torch.profile_dp [--world 4]
     python -m nerf_keras_tpu_torch.profile_dp --device cpu --world 4 --tiny
+    python -m nerf_keras_tpu_torch.profile_dp --world 4 --frames 5
 
 Runs the parity step at ``config/lego_batch_h256_tpu.json``'s widths
 (8x256, 64 + 128, bf16; random weights with nonzero biases) as real
@@ -19,6 +20,14 @@ worlds also report the reduced gradients against the world of 1
 rank before the sum, as each rank's partial of ``w.astype(bf16)``'s
 cotangent is in the JAX package).  ``--tiny`` shrinks the model for a
 CPU rehearsal (gloo; no times).
+
+``--frames N`` times frames instead: at worlds 1, 2, 4, ... up to
+``--world``, int8 tables calibrated on rank 0 (4 orbit views of 100x100)
+and shared, every rank renders its rows of each 16,384-ray chunk of an
+800x800 frame (``Trainer.render_rays``, uint8 rgb, as a served rgb frame
+before its PNG encode), float and int8: the median of N warm frames on
+each rank (host clock; each frame ends in its copy to the host), the
+speedup over the world of 1, a frame's launches and collectives.
 """
 
 from __future__ import annotations
@@ -26,11 +35,15 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import statistics
 
+import numpy as np
 import torch
 
 from nerf_keras_tpu_torch.config import NeRFConfig
+from nerf_keras_tpu_torch.engine.trainer import Trainer
 from nerf_keras_tpu_torch.models.mlp import random_params
+from nerf_keras_tpu_torch.ops.rays import pose_spherical
 from nerf_keras_tpu_torch.parallel.audit import run_ranks, tree_rel_l2
 from nerf_keras_tpu_torch.profile_train import bench_batch, parity_config
 from nerf_keras_tpu_torch.runtime import card_string
@@ -48,12 +61,50 @@ def run(world: int, batch_size: int, cfg: NeRFConfig, device: str) -> list[dict]
     return run_ranks(world, spec, timeout=600.0)
 
 
+FRAME = 800
+
+
+def time_frames(world: int, cfg: NeRFConfig, device: str, frames: int, size: int) -> dict:
+    """One JSON line of ``--frames`` at ``world`` ranks."""
+    host = Trainer(cfg, 2.0, 6.0, device="cpu")
+
+    def rays(theta, n):
+        return [t.numpy() for t in host.pose_rays(pose_spherical(theta, -30.0, 4.0), n, n,
+                                                  1.2 * n)]
+
+    views = [rays(theta, 100) for theta in (0.0, 90.0, 180.0, 270.0)]
+    spec = {"device": device, "backend": None, "cfg": cfg, "near": 2.0, "far": 6.0,
+            "params": random_params(cfg, seed=7), "infer": {
+                "calib": [np.concatenate([v[i] for v in views]) for i in (0, 1)],
+                "rays": rays(30.0, size), "time_frames": frames,
+                "render_kw": {"keys": ("rgb_fine",), "uint8_rgb": True}}}
+    ranks = [r["infer"] for r in run_ranks(world, spec, timeout=600.0)]
+    kinds = ("float", "int8")
+    line = {"world": world, "frame": [size, size],
+            "rays_per_rank_per_chunk": -(-min(16384, size * size) // world),
+            "frames_timed": frames,
+            "launches_per_frame": {k: ranks[0]["steps"][k]["launches"] for k in kinds},
+            "collectives_per_frame": {k: {c: n for c, n in
+                                          ranks[0]["steps"][k]["collectives"].items() if n}
+                                      for k in kinds},
+            "digests_equal": len({r["digests"]["qparams"] for r in ranks}) == 1,
+            "frames_equal": all(np.array_equal(r["frames"][k]["rgb_fine"],
+                                               ranks[0]["frames"][k]["rgb_fine"])
+                                for r in ranks for k in kinds)}
+    for k in kinds:
+        line[f"{k}_frame_s"] = max(statistics.median(r["frame_s"][k]) for r in ranks)
+    return line
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser()
     p.add_argument("--world", type=int, default=4)
     p.add_argument("--device", default="cuda")
     p.add_argument("--tiny", action="store_true",
                    help="2x16 MLP, 8 + 8 samples, batch 64 (a CPU rehearsal)")
+    p.add_argument("--frames", type=int, default=0,
+                   help="time N warm 800x800 frames (float and int8) at worlds 1, 2, "
+                        "4, ... up to --world, instead of train steps")
     args = p.parse_args(argv)
     if args.device == "cuda" and torch.cuda.device_count() < args.world:
         raise RuntimeError(f"--world {args.world} needs {args.world} GPUs, "
@@ -65,6 +116,19 @@ def main(argv=None) -> None:
                                   compute_dtype="float32")
         base = 64
     card = card_string() if args.device == "cuda" else "cpu"
+    if args.frames:
+        first, world = None, 1
+        while world <= args.world:
+            line = time_frames(world, cfg, args.device, args.frames,
+                               40 if args.tiny else FRAME)
+            first = first or line
+            for k in ("float", "int8"):
+                line[f"{k}_speedup"] = first[f"{k}_frame_s"] / line[f"{k}_frame_s"]
+            print(json.dumps(dict(line, card=card)), flush=True)
+            if not (line["digests_equal"] and line["frames_equal"]):
+                raise RuntimeError(f"world {world}: the ranks' tables or frames differ")
+            world *= 2
+        return
     cells = [(1, base), (args.world, base), (args.world, base * args.world)]
     ref = None
     for world, b in cells:

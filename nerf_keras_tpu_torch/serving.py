@@ -13,8 +13,25 @@ checkpoint, rendering through K1 on the card.
     POST /reload                     -> re-resolve + install the newest
                                         checkpoint
 
-Render requests serialize through a lock onto the one device; handler
-threads come from ``ThreadingHTTPServer``.  The float path renders through
+Render requests serialize through a lock; handler threads come from
+``ThreadingHTTPServer``.  Launched as N ranks (``torchrun``, or the
+``NERF_*`` trio; see ``parallel/distributed.py``), one a GPU, rank 0 runs
+the HTTP server and ranks 1..N-1 a follower loop that opens no port
+(:meth:`RenderService.follow`).  Under the render lock rank 0 checks each
+request, then broadcasts one command (render with its size, focal, pose,
+the served int8 and sampler setting and map; ``reload``; ``stop`` at
+shutdown), and every rank runs the same service method, so the
+collectives of ``restore``, of the gates and of ``render_rays`` (each rank
+renders its rows of every chunk) line up.  A request rank 0 refuses is
+refused before the broadcast; a command that fails after it (a pose an
+NDC model cannot render, memory) fails on every rank, rank 0 answers 500
+and every rank goes on to the next command.  Rank 0 resolves the
+checkpoint at start and at ``/reload`` and shares the path; the int8
+tables and the distilled net are built, or read from ``--infer-cache``,
+on rank 0 and shared; rank 0 alone encodes PNGs, keeps ``/stats`` and
+writes the cache.
+
+The float path renders through
 K1; ``--quant int8`` calibrates int8 tables at startup (and at every
 ``/reload``), gates the int8 render against the float one on the default
 pose (``--quant-gate-db``, PSNR) and, when it passes, renders every frame
@@ -37,6 +54,8 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
+import signal
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -47,6 +66,13 @@ import torch
 from nerf_keras_tpu_torch.config import load_config
 from nerf_keras_tpu_torch.engine.trainer import Trainer
 from nerf_keras_tpu_torch.ops.rays import pose_spherical
+from nerf_keras_tpu_torch.parallel.distributed import launched
+from nerf_keras_tpu_torch.parallel.mesh import (
+    broadcast_object,
+    config_mesh,
+    is_main,
+    share_from_main,
+)
 from nerf_keras_tpu_torch.utils.checkpoint import (
     load_checkpoint_scene,
     resolve_checkpoint,
@@ -59,7 +85,9 @@ from nerf_keras_tpu_torch.utils.png import encode_png
 
 
 class RenderService:
-    """Owns the Trainer + checkpoint; thread-safe render calls."""
+    """Owns the Trainer + checkpoint; thread-safe render calls.  Under a
+    data mesh (a launch of N ranks) every rank builds one; rank 0's
+    serves requests and ranks 1..N-1 run :meth:`follow`."""
 
     def __init__(
         self, cfg, checkpoint: str,
@@ -85,6 +113,8 @@ class RenderService:
         self._arg_cfg = cfg
         self._arg_near, self._arg_far = near, far
         self._device = device
+        self.mesh = config_mesh(cfg.mesh_data, cfg.mesh_model)
+        self._stopped = False
         self._lock = threading.Lock()
         self.requests = 0
         self.total_render_s = 0.0
@@ -96,14 +126,19 @@ class RenderService:
         self._install()
 
     def _install(self) -> None:
-        """Resolve the checkpoint from the original request and install
-        it.  Callers hold ``_lock`` (or are the constructor)."""
+        """Resolve the checkpoint from the original request (on rank 0,
+        shared) and install it.  Callers hold ``_lock`` (or are the
+        constructor)."""
         checkpoint = self._arg_checkpoint
-        if not checkpoint.endswith(".npz"):
-            found = resolve_checkpoint(checkpoint)
-            if found is None:
-                raise FileNotFoundError(f"no .ckpt.npz under {checkpoint}")
-            checkpoint = found
+
+        def newest():
+            return (checkpoint if checkpoint.endswith(".npz")
+                    else resolve_checkpoint(checkpoint)), None
+
+        found = share_from_main(newest, self.mesh)[0]
+        if found is None:
+            raise FileNotFoundError(f"no .ckpt.npz under {checkpoint}")
+        checkpoint = found
         scene = load_checkpoint_scene(checkpoint) or {}
         near = self._arg_near if self._arg_near is not None else scene.get("near", 2.0)
         far = self._arg_far if self._arg_far is not None else scene.get("far", 6.0)
@@ -119,9 +154,8 @@ class RenderService:
             # Same wiring and bounds: load the new weights into the models.
             self.trainer.restore(checkpoint)
         else:
-            self.trainer = Trainer(cfg, near, far, device=self._device).restore(
-                checkpoint
-            )
+            self.trainer = Trainer(cfg, near, far, device=self._device,
+                                   mesh=self.mesh).restore(checkpoint)
         self.checkpoint = checkpoint
         self.cfg = cfg
         self.near, self.far = near, far
@@ -143,7 +177,8 @@ class RenderService:
         post = (self.trainer.quant_ready, self.trainer.proposal_ready)
         if cache and post != pre and any(post):
             self.trainer.save_inference_artifacts(cache)
-            print(f"[nerf-torch] saved inference artifacts to {cache}")
+            if is_main(self.mesh):
+                print(f"[nerf-torch] saved inference artifacts to {cache}")
 
     def _orbit_rays(self, h: int, w: int, focal: float) -> tuple[torch.Tensor, torch.Tensor]:
         """The rays of an orbit of 8 serving poses at the config's frame
@@ -193,6 +228,7 @@ class RenderService:
         again for the new weights."""
         with self._lock:
             previous = self.checkpoint
+            self._command("reload")
             self._install()
             self.reloads += 1
             return {
@@ -203,14 +239,27 @@ class RenderService:
                 "sampler": self.use_sampler,
             }
 
-    def render_png(
-        self, theta: float, phi: float, radius: float,
-        height: int, width: int, chunk: int = 16384,
-        focal: float | None = None, map_name: str = "rgb",
-    ) -> bytes:
+    def _command(self, name: str, **kw) -> None:
+        """Under a mesh, send the followers the command that rank 0 runs
+        next (the caller holds ``_lock``)."""
+        if self._stopped:
+            raise RuntimeError("the render service is stopped")
+        if self.mesh is not None:
+            broadcast_object((name, kw), self.mesh)
+
+    def _render(self, pose, height: int, width: int, focal: float, chunk: int,
+                map_name: str, quant: bool, sampler: str) -> dict:
+        return self.trainer.render_image(
+            pose, height, width, focal, chunk=chunk, uint8_rgb=(map_name == "rgb"),
+            need_depth=(map_name == "depth"), quant=quant, sampler=sampler)
+
+    def _request(self, theta, phi, radius, height, width, chunk, focal, map_name) -> dict:
+        """A render request checked and resolved: what every rank renders."""
         if map_name not in ("rgb", "depth"):
             raise ValueError(f"unknown map {map_name!r} (rgb|depth)")
-        pose = pose_spherical(theta, phi, radius)
+        if min(height, width, chunk) < 1:
+            raise ValueError(f"height, width and chunk must be positive, got "
+                             f"{height}, {width}, {chunk}")
         if focal is None:
             # The sidecar focal was recorded at the training resolution;
             # scale it so the field of view matches training.
@@ -220,14 +269,25 @@ class RenderService:
                 )
             else:
                 focal = 1.2 * max(height, width)
-        with self._lock:  # one device: serialize device work
+        if not (math.isfinite(focal) and focal > 0):
+            raise ValueError(f"focal must be a positive number, got {focal}")
+        return {"pose": pose_spherical(theta, phi, radius), "height": height,
+                "width": width, "focal": float(focal), "chunk": chunk,
+                "map_name": map_name, "quant": self.use_quant, "sampler": self.use_sampler}
+
+    def render_png(
+        self, theta: float, phi: float, radius: float,
+        height: int, width: int, chunk: int = 16384,
+        focal: float | None = None, map_name: str = "rgb",
+    ) -> bytes:
+        """One frame as PNG bytes, through the served int8 and sampler
+        setting."""
+        with self._lock:  # serialize device work (and, under a mesh, commands)
+            request = self._request(theta, phi, radius, height, width, chunk, focal,
+                                    map_name)
+            self._command("render", **request)
             t0 = time.perf_counter()
-            out = self.trainer.render_image(
-                pose, height, width, focal, chunk=chunk,
-                uint8_rgb=(map_name == "rgb"),
-                need_depth=(map_name == "depth"),
-                quant=self.use_quant, sampler=self.use_sampler,
-            )
+            out = self._render(**request)
             self.total_render_s += time.perf_counter() - t0
             self.requests += 1
         img = (
@@ -235,6 +295,32 @@ class RenderService:
             else to_uint8(normalize_depth(out["depth"]))
         )
         return encode_png(img)
+
+    def follow(self) -> None:
+        """Ranks 1..N-1 of a launch: run each command rank 0 broadcasts,
+        until ``stop``.  A command that fails here failed on rank 0 at the
+        same point (the same request, files and shared checkpoint path;
+        what rank 0 alone builds reaches this rank as its error), and rank
+        0 answered it with a 500 and serves on: so does this loop."""
+        while True:
+            name, kw = broadcast_object(None, self.mesh)
+            if name == "stop":
+                self._stopped = True
+                return
+            try:
+                if name == "render":
+                    self._render(**kw)
+                else:
+                    self._install()
+            except Exception as e:  # rank 0's handler makes this a 500
+                print(f"[nerf-torch] {name} failed as on rank 0: {e}", flush=True)
+
+    def stop(self) -> None:
+        """Release the followers (under a mesh; rank 0, once)."""
+        with self._lock:
+            if not self._stopped:
+                self._command("stop")
+                self._stopped = True
 
     def stats(self) -> dict:
         return {
@@ -314,7 +400,14 @@ def serve(service: RenderService, port: int, host: str = "127.0.0.1"):
     return ThreadingHTTPServer((host, port), _make_handler(service))
 
 
+def _interrupt(signum, frame):
+    raise KeyboardInterrupt
+
+
 def main(argv=None) -> None:
+    """The server's command line.  Under a launch environment rank 0
+    serves and the other ranks follow it; a SIGINT or SIGTERM to rank 0
+    stops them all."""
     p = argparse.ArgumentParser()
     p.add_argument("--config", type=str, required=True)
     p.add_argument("--checkpoint", type=str, required=True)
@@ -344,22 +437,32 @@ def main(argv=None) -> None:
                         "net: loaded when it matches the checkpoint's weights "
                         "(sha256), else rebuilt and saved there")
     args = p.parse_args(argv)
-    service = RenderService(
-        load_config(args.config), args.checkpoint, args.near, args.far,
-        device=args.device, quant=args.quant == "int8",
-        quant_gate_db=args.quant_gate_db, sampler=args.sampler,
-        sampler_gate_db=args.sampler_gate_db, proposal_steps=args.proposal_steps,
-        infer_cache=args.infer_cache,
-    )
-    server = serve(service, args.port, args.host)
-    print(f"[nerf-torch] serving {service.checkpoint} on "
-          f"http://{args.host}:{args.port} ({service.trainer.device}, "
-          f"quant={'int8' if service.use_quant else 'none'}, "
-          f"sampler={service.use_sampler})")
-    try:
-        server.serve_forever()
-    finally:
-        server.server_close()
+    with launched(args.device) as device:
+        service = RenderService(
+            load_config(args.config), args.checkpoint, args.near, args.far,
+            device=device, quant=args.quant == "int8",
+            quant_gate_db=args.quant_gate_db, sampler=args.sampler,
+            sampler_gate_db=args.sampler_gate_db, proposal_steps=args.proposal_steps,
+            infer_cache=args.infer_cache,
+        )
+        if not is_main(service.mesh):
+            print(f"[nerf-torch] rank {service.mesh.rank}/{service.mesh.world} follows "
+                  f"rank 0 ({service.trainer.device})", flush=True)
+            service.follow()
+            return
+        server = serve(service, args.port, args.host)
+        signal.signal(signal.SIGTERM, _interrupt)
+        print(f"[nerf-torch] serving {service.checkpoint} on "
+              f"http://{args.host}:{server.server_address[1]} ({service.trainer.device}, "
+              f"quant={'int8' if service.use_quant else 'none'}, "
+              f"sampler={service.use_sampler})", flush=True)
+        try:
+            server.serve_forever()
+        except KeyboardInterrupt:
+            pass
+        finally:
+            server.server_close()
+            service.stop()
 
 
 if __name__ == "__main__":

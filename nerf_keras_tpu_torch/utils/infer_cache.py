@@ -27,6 +27,7 @@ import re
 
 import numpy as np
 
+from nerf_keras_tpu_torch.parallel.mesh import is_main
 from nerf_keras_tpu_torch.utils import io
 from nerf_keras_tpu_torch.utils.checkpoint import _flatten, _write_atomic
 
@@ -134,10 +135,19 @@ def load_if_fresh(trainer, path: str | None) -> None:
     """Install the artifacts at ``path`` into ``trainer`` (an
     ``engine.trainer.Trainer``) when the file exists and matches its
     weights; a stale file is ignored with a notice, and the caller's build
-    overwrites it."""
-    if path and io.exists(path):
-        try:
-            trainer.load_inference_artifacts(path)
-            print(f"[nerf-torch] loaded inference artifacts from {path}")
-        except StaleArtifactsError as e:
+    overwrites it.  Under a data mesh the trainer takes rank 0's verdict
+    on the file (``Trainer.load_inference_artifacts``), so every rank
+    installs the same artifacts or none, and rank 0 prints the notice."""
+    if not path:
+        return
+    main = is_main(trainer.mesh)
+    try:
+        trainer.load_inference_artifacts(path)
+    except FileNotFoundError:
+        return
+    except StaleArtifactsError as e:
+        if main:
             print(f"[nerf-torch] ignoring artifact cache: {e}")
+        return
+    if main:
+        print(f"[nerf-torch] loaded inference artifacts from {path}")

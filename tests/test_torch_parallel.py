@@ -42,7 +42,6 @@ from nerf_keras_tpu.engine import step as jstep
 from nerf_keras_tpu_torch.cli import train_synthetic
 from nerf_keras_tpu_torch.config import NeRFConfig
 from nerf_keras_tpu_torch.engine import step as pstep
-from nerf_keras_tpu_torch.engine import trainer as trainer_mod
 from nerf_keras_tpu_torch.engine.trainer import Trainer
 from nerf_keras_tpu_torch.parallel import distributed, mesh as pmesh
 from nerf_keras_tpu_torch.parallel.audit import free_port, run_two_process_smoke
@@ -206,8 +205,9 @@ def test_two_ranks_equal_one_process_and_jax(case, monkeypatch):
     # both passes (the proposal render: fine only).
     maps = 2 if pcfg.train_sampler == "proposal" else 4
     assert a["render_collectives"] == {
-        "all_reduce": 0, "all_gather": 3 * maps, "broadcast": 0, "all_reduce_elements": 0,
-        "all_gather_elements": 3 * 8 * (4 if maps == 2 else 8), "broadcast_elements": 0}
+        "all_reduce": 0, "all_gather": 3 * maps, "broadcast": 0, "broadcast_object": 0,
+        "all_reduce_elements": 0, "all_gather_elements": 3 * 8 * (4 if maps == 2 else 8),
+        "broadcast_elements": 0, "broadcast_object_elements": 0}
     for k in a["render"]:
         np.testing.assert_array_equal(a["render"][k], b["render"][k])
 
@@ -316,22 +316,6 @@ def test_trainer_refuses_a_batch_the_ranks_cannot_split():
     cfg = NeRFConfig(**dict(BASE, batch_size=33)).validate()
     with pytest.raises(ValueError, match="divisible"):
         Trainer(cfg, NEAR, FAR, mesh=pmesh.DataMesh(2, 0, torch.device("cpu")))
-
-
-def test_single_process_features_refuse_a_mesh(monkeypatch):
-    """int8 calibration, the proposal distillation and the artifact cache
-    stay single-process: under two ranks they raise."""
-    monkeypatch.setattr(trainer_mod, "broadcast_", lambda tensors, mesh: None)
-    tr = Trainer(NeRFConfig(**BASE).validate(), NEAR, FAR,
-                 mesh=pmesh.DataMesh(2, 0, torch.device("cpu")))
-    o = np.zeros((4, 3), np.float32)
-    d = np.tile(np.array([0, 0, -1.0], np.float32), (4, 1))
-    with pytest.raises(NotImplementedError, match="2 ranks"):
-        tr.quantize_for_inference(o, d)
-    with pytest.raises(NotImplementedError, match="2 ranks"):
-        tr.build_proposal_sampler(o, d, steps=1, batch=4)
-    with pytest.raises(NotImplementedError, match="2 ranks"):
-        tr.load_inference_artifacts("unused.infer.npz")
 
 
 @pytest.mark.parametrize("field,value,error", [("MESH_DATA", 2, ValueError),
