@@ -210,6 +210,26 @@ nonzero — nothing falls back to the CPU or to a plain path):
     rank's launches from the server's start equal one process's exactly,
     the gate lines equal on both ranks, rank 1 writes nothing.  The
     phase's K1 and K4 launches on every rank join the kernels line;
+    22c. ``tp``: tensor parallelism, ``MESH_MODEL=2``, as a (1, 2) mesh of
+    two gloo ranks sharing the card at full width (8x256, L 10/4, the
+    proposal bench recipe's 64 + 96 samples, bf16), 256 rays a step:
+    3 split steps (no K1/K2: every float pass is the split
+    ``NeRFMLP.forward``, as the JAX package resolves ``use_pallas=False``
+    under a model axis), their collectives by axis pinned by the audit
+    (one data-group all-reduce; the model group's all-reduces and
+    all-gathers of each pass, element for element), the first step's
+    reduced gradients against one process on the card running the plain
+    path from the same weights and draws within K2's relative-L2 gate
+    (bf16 rounds each rank's partial cotangents, as in phase 22), while
+    the broken variant (the split's backward all-reduce dropped) misses it
+    by 10x or more; the replicated leaves bit-identical on both ranks; the
+    step ms and peak memory (not a scaling figure); ``evaluate``; the
+    checkpoint written by the split run, reloaded by a second job and by
+    one process (parameters equal); a 100x100 float frame (no kernel,
+    within the frame gates of one process's K1 frame) and an int8 frame
+    after ``quantize_for_inference`` (K4 on both ranks, one launch a
+    chunk, the tables, ``infer_digest`` and every map of one process bit
+    for bit).  Its K4 launches join the kernels line;
 23. ``union_free``: the union-free proposal layout (``PROP_UNION=false``,
     ``PROP_AUX_SAMPLES``, ``PROP_UNION_EVERY``): (a) K1 forward, K1 in
     training mode and K2 (with the weights cotangent) at B=4096, S=128
@@ -3081,6 +3101,126 @@ def phase_dp_infer(card: str, tmp: str) -> list[dict]:
 
 
 # ---------------------------------------------------------------------------
+# Phase 22c: tensor parallelism (MESH_MODEL=2), two gloo ranks on the card.
+
+# 256 rays: a split pass carries its activations through gloo, which copies
+# them through the host (at 4,096 rays every collective would be hundreds of
+# MB).
+TP_BATCH = 256
+TP_STEPS = 3
+TP_SIZE = 100
+
+
+def phase_tp(card: str, tmp: str) -> list[dict]:
+    """Phase 22c (module docstring): the split step, eval and renders as a
+    (1, 2) mesh of two gloo ranks sharing the card, against one process."""
+    cfg1 = bench_config(TP_BATCH)
+    cfg = dataclasses.replace(cfg1, mesh_model=2)
+    cpu = Trainer(cfg1, 2.0, 6.0, device="cpu")
+    # The seeded init with the fine MLP's biases random (sigma +1): the
+    # init's empty field gives the fine MLP no gradient at all.
+    params = cpu.params_tree()
+    params["fine"] = random_params(cfg1, seed=27)["fine"]
+    calib = [np.concatenate(x) for x in zip(*(
+        [t.numpy() for t in cpu.pose_rays(pose_spherical(theta, -30.0, 4.0), TP_SIZE,
+                                          TP_SIZE, 1.2 * TP_SIZE)]
+        for theta in (0.0, 90.0, 180.0, 270.0)))]
+    rays = [t.numpy() for t in cpu.pose_rays(pose_spherical(30.0, -30.0, 4.0), TP_SIZE,
+                                             TP_SIZE, 1.2 * TP_SIZE)]
+    del cpu
+    batch = bench_batch(TP_BATCH, seed=5)
+    ckpt = os.path.join(tmp, "tp.ckpt.npz")
+
+    # The reference: one process on the card, its first step on the plain
+    # path (the split's arithmetic, whole), from the same weights and draws.
+    one = Trainer(cfg1, 2.0, 6.0, device="cuda").replace_params(params)
+    plain = make_train_step(cfg1, 2.0, 6.0, render_pass=_plain_render_pass(cfg1))
+    one_metrics = {k: float(v) for k, v in plain(one.state, one.put_batch(batch), None,
+                                                 one.generator).items()}
+    want = one.params_tree(grad=True)
+    del one, plain
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    recs = run_ranks(2, {"device": "cuda", "backend": "gloo", "near": 2.0, "far": 6.0,
+                         "jobs": [
+        {"cfg": cfg, "params": params, "batch": batch, "steps": TP_STEPS, "time_steps": 10,
+         "render_rays": TP_BATCH, "evaluate": True, "save": ckpt},
+        {"cfg": cfg, "restore": ckpt, "infer": {"calib": calib, "rays": rays}},
+        # Last: it breaks the split's backward in these processes.
+        {"cfg": cfg, "params": params, "batch": batch, "steps": 1,
+         "drop_model_reduce": True}]}, timeout=DP_TIMEOUT)
+    wall_s = time.perf_counter() - t0
+    train, infer, broken = ([r[i] for r in recs] for i in range(3))
+    infer = [r["infer"] for r in infer]
+    rel = [tree_rel_l2(r["grads"], want) for r in train]
+    rel_broken = tree_rel_l2(broken[0]["grads"], want)
+    metrics_rel = max(abs(r["metrics"][0][k] / one_metrics[k] - 1) for r in train
+                      for k in one_metrics)
+    replicated_equal = all(np.array_equal(v, train[1]["replicated"][k])
+                           for k, v in train[0]["replicated"].items())
+
+    # A checkpoint of the split run, reloaded in one process.
+    whole = Trainer(cfg1, 2.0, 6.0, device="cuda").restore(ckpt)
+    params_equal = _trees_equal(whole.params_tree(), train[0]["params"])
+    whole.quantize_for_inference(*calib)
+    frames = {"float": whole.render_rays(*rays), "int8": whole.render_rays(*rays, quant=True)}
+    digest_equal = whole.infer_digest() == infer[0]["infer_digest"] == infer[1]["infer_digest"]
+    tables_equal = all(r["digests"] == artifact_digests(whole) for r in infer)
+    del whole
+    torch.cuda.empty_cache()
+    int8_equal = all(np.array_equal(r["frames"]["int8"][k], v) for r in infer
+                     for k, v in frames["int8"].items())
+    float_diff = {k: max(float(np.abs(r["frames"]["float"][k] - v).max()) for r in infer)
+                  for k, v in frames["float"].items()}
+    chunks = -(-TP_SIZE * TP_SIZE // 16384)
+    step_launches = [g for r in train for g in r["launches"]] + [r["render_launches"]
+                                                                 for r in train]
+    int8_launches = [dict(ZERO, **r["steps"]["int8"]["launches"]) for r in infer]
+    float_launches = [r["steps"]["float"]["launches"] for r in infer]
+    audit = train[0]["audit"]
+    say("tp", mesh=[1, 2], backend=train[0]["backend"], devices=[r["device"] for r in train],
+        note="gloo asked for explicitly: NCCL refuses two ranks on one device; the two "
+             "processes share one card and gloo copies each collective through the host, "
+             "so the step ms is not a scaling figure",
+        rays=TP_BATCH, samples=[cfg.ns_coarse, cfg.ns_fine], steps=TP_STEPS,
+        step_ms=[r["step_ms"] for r in train], peak_mib=[r["peak_mib"] for r in train],
+        collectives_per_step={axis: {k: v for k, v in c.items() if v}
+                              for axis, c in audit["by_axis"].items()},
+        render_collectives={"data": train[0]["render_collectives"],
+                            "model": train[0]["render_model"]},
+        grads_rel_l2_vs_one_process=rel, tol_rel=K2_TOL_REL,
+        broken_model_reduce_rel_l2=rel_broken, metrics_max_rel_vs_one_process=metrics_rel,
+        loss_curve=[m["loss"] for m in train[0]["metrics"]], eval=train[0]["eval"],
+        eval_equal=train[0]["eval"] == train[1]["eval"],
+        replicated_leaves_equal=replicated_equal, step_launches=step_launches[0],
+        checkpoint_params_equal_one_process=params_equal, infer_digest_equal=digest_equal,
+        tables_equal=tables_equal, int8_frame_equal_one_process=int8_equal,
+        int8_launches=int8_launches, float_launches=float_launches,
+        float_frame_max_abs_diff_vs_one_process_k1=float_diff, frame=[TP_SIZE, TP_SIZE],
+        wall_s=wall_s, card=card)
+    if max(rel) > K2_TOL_REL or rel_broken < 10 * K2_TOL_REL or metrics_rel > K2_TOL_REL:
+        raise RuntimeError(f"tp: gradients {rel} (broken {rel_broken}) and metrics "
+                           f"{metrics_rel} against one process, gate {K2_TOL_REL}")
+    if any(step_launches) or any(float_launches):
+        raise RuntimeError(f"tp: a split pass launched a kernel: {step_launches}, "
+                           f"{float_launches}")
+    if int8_launches != [dict(ZERO, k4=chunks)] * 2:
+        raise RuntimeError(f"tp: the int8 frame launched {int8_launches}, expected "
+                           f"{chunks} K4 a rank")
+    if not (replicated_equal and params_equal and digest_equal and tables_equal
+            and int8_equal and train[0]["eval"] == train[1]["eval"]):
+        raise RuntimeError("tp: replicated leaves, the checkpoint, the digest, the tables, "
+                           "the int8 frame or the eval differ across ranks or from one "
+                           "process")
+    if float_diff["rgb_fine"] > FRAME_TOL_RGB or float_diff["depth_fine"] > FRAME_TOL_DEPTH \
+            or not np.isfinite(train[0]["metrics"][-1]["loss"]):
+        raise RuntimeError(f"tp: the float frame is {float_diff} from one process's K1 "
+                           f"frame")
+    return int8_launches
+
+
+# ---------------------------------------------------------------------------
 # Phase 23: the union-free proposal layout (PROP_UNION=false with
 # PROP_AUX_SAMPLES and PROP_UNION_EVERY).
 
@@ -3631,6 +3771,8 @@ def main() -> None:
         runs += phase_dp(card)
         torch.cuda.empty_cache()
         runs += phase_dp_infer(card, tmp)
+        torch.cuda.empty_cache()
+        runs += phase_tp(card, tmp)
         torch.cuda.empty_cache()
         uf_runs, uf = phase_union_free(card, tmp)
         runs += uf_runs

@@ -10,20 +10,24 @@ Adam state, the batch order and the history; a non-finite loss writes an
 emergency checkpoint and raises ``FloatingPointError``; SIGTERM ends the
 run at the next epoch boundary with a checkpoint.
 
-Data parallelism: launched as N processes (the ``NERF_*`` trio or
-torchrun's environment; ``parallel/distributed.py``), each rank drives
-one device, reads its contiguous shard of the training rays, feeds
-``BATCH_SIZE / N`` rows of every global batch and makes one gradient
-all-reduce per step; the metrics and the Krays/s are the global batch's.
-Rank 0 alone writes checkpoints, ``best.*``, the history, panels, the
-emergency checkpoint and the ``--profile`` trace.  SIGTERM sets a flag in
-the process it reaches, as in the JAX CLI: a launcher must signal every
-rank.
+Parallelism: launched as N processes (the ``NERF_*`` trio or torchrun's
+environment; ``parallel/distributed.py``), each rank drives one device
+on the ``(MESH_DATA, MESH_MODEL)`` mesh (``parallel/mesh.py``).  Each
+data group reads its contiguous shard of the training rays (every model
+rank of a group the same, batched with the shared seed), feeds
+``BATCH_SIZE / data`` rows of every global batch and makes one gradient
+all-reduce per step; a model axis splits the MLPs.  The metrics and the
+Krays/s are the global batch's.  Every rank takes part in each
+checkpoint (a model axis gathers the weights); rank 0 alone writes
+checkpoints, ``best.*``, the history, panels, the emergency checkpoint
+and the ``--profile`` trace.  SIGTERM sets a flag in the process it
+reaches, as in the JAX CLI: a launcher must signal every rank.
 
 Unlike the JAX CLI: ``--device`` (default ``cuda``; the CPU only with
 ``--device cpu``) replaces ``--platform``; one process drives one device
-(JAX drives every local device from one process); ``MESH_MODEL > 1``
-raises; local paths only, so a ``WITH_GCS`` config needs ``--run-dir``;
+(JAX drives every local device from one process), so ``MESH_DATA x
+MESH_MODEL`` must be the process count;
+local paths only, so a ``WITH_GCS`` config needs ``--run-dir``;
 ``--profile`` writes a ``torch.profiler`` Chrome trace; there is no
 compilation cache to enable.
 """
@@ -47,6 +51,7 @@ from nerf_keras_tpu_torch.config import NeRFConfig, config_name, load_config
 from nerf_keras_tpu_torch.data.pipeline import RayDataset, dataset_to_ndc, iterate_batches
 from nerf_keras_tpu_torch.engine.trainer import Trainer
 from nerf_keras_tpu_torch.parallel.distributed import (
+    barrier,
     maybe_initialize,
     process_info,
     shard_dataset_for_process,
@@ -139,8 +144,8 @@ def warn_chain_horizon(cfg: NeRFConfig) -> bool:
 def resolve_eval_batch(test_bs: int, n_val: int, data_div: int = 1,
                        proc_count: int = 1) -> int:
     """The eval batch: ``min(test_bs, n_val)`` rounded down to a multiple of
-    ``lcm(data_div, proc_count)`` (the port's data axis is its process
-    count: one process per device)."""
+    ``lcm(data_div, proc_count)`` (the port passes its data axis alone:
+    each data rank evaluates its rows, its model ranks together)."""
     div = math.lcm(data_div, proc_count)
     if n_val < div:
         raise ValueError(
@@ -240,7 +245,9 @@ def run_training(
     cfg = load_config(args.config)
     maybe_initialize(args.device)
     try:
-        return _train(args, cfg, prepare_data, default_eval_every)
+        trainer = _train(args, cfg, prepare_data, default_eval_every)
+        barrier()
+        return trainer
     finally:
         shutdown()
 
@@ -249,11 +256,12 @@ def _train(args, cfg: NeRFConfig, prepare_data, default_eval_every: int) -> Trai
     """:func:`run_training` after the process group is joined."""
     mesh = config_mesh(cfg.mesh_data, cfg.mesh_model)
     rank, world = process_info()
+    data = 1 if mesh is None else mesh.data
     device = mesh.device if mesh is not None else resolve_device(args.device)
-    if cfg.batch_size % world:
-        raise ValueError(f"BATCH_SIZE={cfg.batch_size} must be divisible by the process "
-                         f"count ({world})")
-    local_bs = cfg.batch_size // world
+    if cfg.batch_size % data:
+        raise ValueError(f"BATCH_SIZE={cfg.batch_size} must be divisible by the data axis "
+                         f"({data} ranks)")
+    local_bs = cfg.batch_size // data
     is_main = rank == 0
     if args.epochs is not None:
         cfg = dataclasses.replace(cfg, epochs=args.epochs)
@@ -282,14 +290,14 @@ def _train(args, cfg: NeRFConfig, prepare_data, default_eval_every: int) -> Trai
         # Forward-facing captures: rays into the NDC cube, t in [0, 1].
         train_ds, val_ds = dataset_to_ndc(train_ds), dataset_to_ndc(val_ds)
         near, far = 0.0, 1.0
-    train_ds = shard_dataset_for_process(train_ds)
+    train_ds = shard_dataset_for_process(train_ds, mesh)
     print(f"{LOG} rays: train={len(train_ds)} val={len(val_ds)} "
           f"near={near:.3f} far={far:.3f} focal={focal:.2f}")
 
     if len(train_ds) < local_bs:
         # Drop-remainder batching would yield no batch at all.
         raise ValueError(f"BATCH_SIZE={cfg.batch_size} exceeds the train set "
-                         f"({len(train_ds)} rays on each of {world} process(es)) — lower "
+                         f"({len(train_ds)} rays on each of {data} data rank(s)) — lower "
                          f"BATCH_SIZE or enlarge the dataset")
     steps_per_epoch = len(train_ds) // local_bs
     cfg = resolve_horizons(cfg, steps_per_epoch, args.no_pin_schedules)
@@ -309,7 +317,7 @@ def _train(args, cfg: NeRFConfig, prepare_data, default_eval_every: int) -> Trai
     best_val = {"psnr": max(history.val["psnrs"]) if history.val["psnrs"] else None}
 
     test_bs = cfg.test_batch_size or cfg.batch_size
-    eval_bs = resolve_eval_batch(test_bs, len(val_ds), world, world)
+    eval_bs = resolve_eval_batch(test_bs, len(val_ds), data)
     if len(val_ds) % eval_bs:
         print(f"{LOG} val: {len(val_ds) % eval_bs} of {len(val_ds)} rays excluded from "
               f"metrics (eval batch {eval_bs}, drop-remainder — matches the reference "
@@ -419,7 +427,7 @@ def _run_epochs(cfg, trainer, run_dir, viz_dir, scene, history, history_name, va
         else:
             metrics = trainer.train_epoch(epoch_batches(epoch), log_every=cfg.log_every)
         dt = time.perf_counter() - t0  # train_epoch ends in a host read of the means
-        # The global batch: every rank fed BATCH_SIZE / world of each step's rays.
+        # The global batch: every data rank fed BATCH_SIZE / data of each step's rays.
         rays_per_sec = steps_per_epoch * cfg.batch_size / dt if dt > 0 else 0.0
 
         # The metrics are the global batch's, so every rank raises together.
@@ -427,7 +435,7 @@ def _run_epochs(cfg, trainer, run_dir, viz_dir, scene, history, history_name, va
             crash_path = io.join(run_dir, "emergency." + ckpt_name)
             if is_main:
                 io.makedirs(run_dir)
-                save_checkpoint(crash_path, trainer.state, cfg, scene=scene)
+            save_checkpoint(crash_path, trainer.state, cfg, scene=scene, write=is_main)
             raise FloatingPointError(
                 f"non-finite train loss {metrics['loss']} at epoch {epoch + 1} "
                 f"(step {trainer.step}); state saved to {crash_path}")
@@ -477,10 +485,13 @@ def _run_epochs(cfg, trainer, run_dir, viz_dir, scene, history, history_name, va
                 io.makedirs(viz_dir)
                 save_panel(io.join(viz_dir, f"{epoch:03d}.png"), rgbs, depths,
                            losses_for_plot, epoch, cfg.epochs)
-                save_checkpoint(io.join(run_dir, ckpt_name), trainer.state, cfg, scene=scene)
-                if is_best:
-                    save_checkpoint(io.join(run_dir, "best." + ckpt_name), trainer.state,
-                                    cfg, scene=scene)
+            # Every rank: a model axis gathers the weights; rank 0 writes.
+            save_checkpoint(io.join(run_dir, ckpt_name), trainer.state, cfg, scene=scene,
+                            write=is_main)
+            if is_best:
+                save_checkpoint(io.join(run_dir, "best." + ckpt_name), trainer.state, cfg,
+                                scene=scene, write=is_main)
+            if is_main:
                 history.save(io.join(run_dir, history_name))
         else:
             history.append(metrics)
@@ -489,7 +500,7 @@ def _run_epochs(cfg, trainer, run_dir, viz_dir, scene, history, history_name, va
             ckpt_path = io.join(run_dir, ckpt_name)
             if is_main:
                 io.makedirs(run_dir)
-                save_checkpoint(ckpt_path, trainer.state, cfg, scene=scene)
+            save_checkpoint(ckpt_path, trainer.state, cfg, scene=scene, write=is_main)
             print(f"{LOG} signal {stop_requested['sig']} at epoch {epoch + 1}: checkpoint "
                   f"saved to {ckpt_path}; resume with --resume")
             break

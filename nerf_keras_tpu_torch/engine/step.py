@@ -41,11 +41,16 @@ Counterpart of ``nerf_keras_tpu/engine/step.py``:
 The port does not read ``USE_PALLAS``: on the card the kernels always run
 (K1/K2 where the JAX package takes its fused megakernel, K5 where it
 takes ``apply_nerf_mlp_pallas``), and on the CPU each kernel's plain
-version does.  ``BATCH_NORM`` models are the exception, on every device:
+version does.  ``BATCH_NORM`` models are one exception, on every device:
 no kernel has BatchNorm, so (as the JAX ``Trainer`` resolves
 ``use_pallas=False`` for them) every pass is :func:`make_forward_pass`
 over ``NeRFMLP.forward``, with batch statistics in the train step and the
-running ones in eval and render.  PyTorch runs eagerly, so there is nothing to compile: each
+running ones in eval and render.  Models split over a model axis
+(``MESH_MODEL > 1``) are the other: the JAX ``Trainer`` resolves
+``use_pallas=False`` under tensor parallelism too, so every float pass of
+a split model is ``NeRFMLP.forward`` over the split (encodings outside
+the MLP, as :func:`make_forward_pass` computes them; no K1, K2, K3, K5 or
+K6), while the int8 passes stay K4 over replicated tables.  PyTorch runs eagerly, so there is nothing to compile: each
 function is plain Python around the kernel launches.  Parameters are
 updated in place (the optimizer and the EMA), where the JAX step returns
 a new state.
@@ -82,7 +87,7 @@ from nerf_keras_tpu_torch.ops.volume import (
     distortion_loss,
     volume_render,
 )
-from nerf_keras_tpu_torch.parallel.mesh import DataMesh, all_reduce_flat, local_rows
+from nerf_keras_tpu_torch.parallel.mesh import Mesh, all_reduce_flat, local_rows
 
 _LATER = "arrives in a later slice of the port (ROADMAP.md queue 1)"
 
@@ -190,23 +195,27 @@ N_METRICS = 3
 
 
 def step_metrics(images: torch.Tensor, rgb_fine: torch.Tensor, loss_coarse: torch.Tensor,
-                 loss_fine: torch.Tensor, mesh: DataMesh | None = None,
+                 loss_fine: torch.Tensor, mesh: Mesh | None = None,
                  grads: list[torch.Tensor] = ()) -> dict:
     """The step's metrics: ``loss_coarse``, ``loss`` (the fine MSE) and
     ``psnr`` of the fine rgb.  Under ``mesh`` they are the global batch's:
-    one all-reduce sums the rank means and the squared-error sum (the PSNR
-    is that of the global MSE, not a mean of rank PSNRs) together with
-    ``grads``, which are then replaced in place by their mean over ranks."""
+    one all-reduce over the data group sums the data ranks' means and the
+    squared-error sum (the PSNR is that of the global MSE, not a mean of
+    rank PSNRs) together with ``grads`` (this rank's leaves, whole or its
+    blocks of split ones), which are then replaced in place by their mean
+    over the data ranks.  Every model rank of a data group computes the
+    same loss on the same rows, so a replicated leaf's gradient stays the
+    same on each."""
     if mesh is None:
         return {"loss_coarse": loss_coarse, "loss": loss_fine, "psnr": psnr(images, rgb_fine)}
     sq_err = torch.sum(torch.square(images - rgb_fine))
     *summed, lc, lf, sq = all_reduce_flat([*grads, loss_coarse, loss_fine, sq_err], mesh)
-    world = float(mesh.world)
+    data = float(mesh.data)
     if grads:
         with torch.no_grad():
-            torch._foreach_copy_(grads, torch._foreach_div(summed, world))
-    return {"loss_coarse": lc / world, "loss": lf / world,
-            "psnr": psnr_of_mse(sq / (images.numel() * mesh.world))}
+            torch._foreach_copy_(grads, torch._foreach_div(summed, data))
+    return {"loss_coarse": lc / data, "loss": lf / data,
+            "psnr": psnr_of_mse(sq / (images.numel() * mesh.data))}
 
 
 @dataclasses.dataclass
@@ -219,13 +228,28 @@ class TrainState:
     step: int = 0
 
 
+def _encoded_mlp(cfg: NeRFConfig, mlp: Callable, model, origins, dirs,
+                 t: torch.Tensor) -> torch.Tensor:
+    """``mlp(model, x_enc, d_enc)`` on the samples of rays at ``t``, the
+    encodings computed outside the MLP and stored in the compute dtype,
+    as the JAX package stores them; every sample of a ray shares its
+    direction's encoding."""
+    enc_dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
+    points, _ = sample_rays(origins, dirs, t)
+    x_enc = encode_position(points, cfg.l_xyz).to(enc_dtype)
+    d_enc = encode_position(dirs, cfg.l_dir).to(enc_dtype)
+    return mlp(model, x_enc, d_enc[..., None, :].expand(*t.shape, -1))
+
+
 def _make_pass_fn(cfg: NeRFConfig, weights_grad: bool = False,
                   quant: bool = False) -> Callable:
     """One MLP render pass ``(mlp, origins, dirs, t_vals) -> (rgb,
     weights)``: K1 (and K2 under autograd) on the card, the plain version
-    on the CPU.  ``weights_grad`` keeps the weights output differentiable
-    (a weight-space loss consumes it).  With ``quant`` the first argument
-    is one MLP's qparams and the pass is K4 (inference only)."""
+    on the CPU; a model split over a model axis runs its split forward
+    (``NeRFMLP.forward``) on every device.  ``weights_grad`` keeps the
+    weights output differentiable (a weight-space loss consumes it).  With
+    ``quant`` the first argument is one MLP's qparams and the pass is K4
+    (inference only)."""
     if quant:
         def render_pass_q(qp, origins, dirs, t_vals):
             return render_rays_fused_quant(qp, origins, dirs, t_vals, l_xyz=cfg.l_xyz,
@@ -234,6 +258,10 @@ def _make_pass_fn(cfg: NeRFConfig, weights_grad: bool = False,
         return render_pass_q
 
     def render_pass(mlp, origins, dirs, t_vals):
+        if mlp.tp is not None:
+            preds = _encoded_mlp(cfg, lambda m, x, d: m(x, d), mlp, origins, dirs, t_vals)
+            rgb, _, weights = volume_render(preds, t_vals)
+            return rgb, weights if weights_grad else weights.detach()
         return render_rays_fused(
             mlp, origins, dirs, t_vals, l_xyz=cfg.l_xyz, l_dir=cfg.l_dir,
             skip_layer=cfg.skip_layer, weights_grad=weights_grad,
@@ -246,19 +274,21 @@ def params_of(models: dict[str, nn.Module]) -> list[torch.Tensor]:
     return [p for name in sorted(models) for p in models[name].parameters()]
 
 
-def _mlp_fn(cfg: NeRFConfig, bn_train: bool = False, mesh: DataMesh | None = None) -> Callable:
+def _mlp_fn(cfg: NeRFConfig, bn_train: bool = False, mesh: Mesh | None = None) -> Callable:
     """The MLP over encodings ``(mlp, x_enc, d_enc) -> raw (..., 4)``: K5
     on the card, :meth:`NeRFMLP.forward` on the CPU.  Gradients reach the
     encodings only in the ``STOP_PDF_GRADIENT=false`` mode, the one where
     they are differentiable (through ``sample_pdf``).  ``BATCH_NORM``
-    models take :meth:`NeRFMLP.forward` on every device, with the batch
-    statistics (and their running update) under ``bn_train``: the global
-    batch's under ``mesh``."""
+    models and split models take :meth:`NeRFMLP.forward` on every device,
+    with the batch statistics (and their running update) under
+    ``bn_train``: the global batch's under ``mesh``."""
     if cfg.batch_norm:
         return lambda mlp, x_enc, d_enc: mlp(x_enc, d_enc, bn_train=bn_train, mesh=mesh)
     need_input_grads = not cfg.stop_pdf_gradient
 
     def run(mlp, x_enc, d_enc):
+        if mlp.tp is not None:
+            return mlp(x_enc, d_enc)
         return apply_nerf_mlp_fused(mlp, x_enc, d_enc, need_input_grads=need_input_grads)
 
     return run
@@ -266,7 +296,7 @@ def _mlp_fn(cfg: NeRFConfig, bn_train: bool = False, mesh: DataMesh | None = Non
 
 def make_forward_pass(cfg: NeRFConfig, return_t_fine: bool = False,
                       mlp_fn: Callable | None = None, bn_train: bool = False,
-                      mesh: DataMesh | None = None) -> Callable:
+                      mesh: Mesh | None = None) -> Callable:
     """The coarse->fine forward pass with the encodings computed outside the
     MLP (stored in the compute dtype, as the JAX package stores them).
 
@@ -286,14 +316,9 @@ def make_forward_pass(cfg: NeRFConfig, return_t_fine: bool = False,
     under ``mesh``).
     """
     mlp = _mlp_fn(cfg, bn_train, mesh) if mlp_fn is None else mlp_fn
-    enc_dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
 
     def run_mlp(model, origins, dirs, t):
-        points, _ = sample_rays(origins, dirs, t)
-        x_enc = encode_position(points, cfg.l_xyz).to(enc_dtype)
-        # Every sample of a ray shares its direction's encoding.
-        d_enc = encode_position(dirs, cfg.l_dir).to(enc_dtype)
-        return mlp(model, x_enc, d_enc[..., None, :].expand(*t.shape, -1))
+        return _encoded_mlp(cfg, mlp, model, origins, dirs, t)
 
     def forward(models, origins, dirs, t_vals, deterministic=False,
                 generator=None, noise=None):
@@ -360,7 +385,7 @@ def _make_fused_train_forward(cfg: NeRFConfig, want_weights: bool = False,
 def make_loss_fn(cfg: NeRFConfig, near: float, far: float,
                  render_pass: Callable | None = None,
                  mlp_fn: Callable | None = None,
-                 mesh: DataMesh | None = None) -> Callable:
+                 mesh: Mesh | None = None) -> Callable:
     """The train step's loss, ``loss_fn(params, images, origins, dirs,
     t_vals, step, generator=None, noise=None) -> (loss, (loss_coarse_slot,
     loss_fine, rgb_fine))``.
@@ -383,7 +408,7 @@ def make_loss_fn(cfg: NeRFConfig, near: float, far: float,
 def _make_coarse_loss_fn(cfg: NeRFConfig, near: float, far: float,
                          render_pass: Callable | None,
                          mlp_fn: Callable | None,
-                         mesh: DataMesh | None = None) -> Callable:
+                         mesh: Mesh | None = None) -> Callable:
     """The parity step's loss: ``mse(coarse rgb) + mse(fine rgb)`` (+
     ``DISTORTION_LOSS_MULT`` x the distortion of the fine weights, which
     the regularizer applies to the final level only).  Under
@@ -535,18 +560,19 @@ def draw_t_vals(cfg: NeRFConfig, near: float, far: float, batch_shape: tuple,
     ).contiguous()
 
 
-def rank_draws(cfg: NeRFConfig, mesh: DataMesh, local_b: int, draws: dict | None,
+def rank_draws(cfg: NeRFConfig, mesh: Mesh, local_b: int, draws: dict | None,
                generator: torch.Generator | None, device, step: int = 0) -> dict:
     """A rank's uniforms for the train step at ``step``: each is taken at
     the global batch shape, from ``draws`` (global-shaped) or else from
     ``generator`` in the order and shapes the one-process step draws them
     (t, the chain's levels, then the aux pass's t on a step that has one,
     :func:`aux_samples`), and this rank's rows are kept.  Every rank holds
-    the same generator, so a step over ``world`` ranks equals the
+    the same generator, so a step over ``data`` ranks equals the
     one-process step on the concatenated batch, as one JAX key draws the
-    global array and each shard takes its part."""
+    global array and each shard takes its part.  Every model rank of a
+    data group keeps the same rows."""
     draws = draws or {}
-    b = local_b * mesh.world
+    b = local_b * mesh.data
     rows = local_rows(b, mesh)
 
     def take(given, shape, per_ray=True):
@@ -599,7 +625,7 @@ def _unfold_in_place(pairs: list, raw: list[torch.Tensor]) -> None:
 def make_grad_fn(cfg: NeRFConfig, near: float, far: float,
                  render_pass: Callable | None = None,
                  mlp_fn: Callable | None = None,
-                 mesh: DataMesh | None = None) -> Callable:
+                 mesh: Mesh | None = None) -> Callable:
     """The train step up to the gradients: ``grad_fn(state, batch,
     draws=None, generator=None) -> (loss, (loss_coarse_slot, loss_fine,
     rgb_fine))`` with each parameter's gradient in its ``.grad``.
@@ -646,7 +672,7 @@ def make_grad_fn(cfg: NeRFConfig, near: float, far: float,
 
 def make_train_step(cfg: NeRFConfig, near: float, far: float,
                     render_pass: Callable | None = None,
-                    mesh: DataMesh | None = None) -> Callable:
+                    mesh: Mesh | None = None) -> Callable:
     """The train step: the coarse+fine parity step or the online-proposal
     step, by ``TRAIN_SAMPLER``.  ``render_pass`` replaces the K1 render
     passes (:func:`make_loss_fn`); ``exp_train_paths`` times the parity
@@ -668,13 +694,15 @@ def make_train_step(cfg: NeRFConfig, near: float, far: float,
     ``loss_coarse`` the coarse MSE (proposal: the interlevel loss), ``loss``
     the fine MSE, ``psnr`` of the fine rgb.
 
-    Data parallelism (``mesh``): ``batch`` is this rank's rows of the
-    global batch and ``draws`` are global-shaped (:func:`rank_draws`).
-    After the backward (and the anneal's unfold) one all-reduce carries
-    every parameter's gradient and the :data:`N_METRICS` metric numerators
-    (:func:`step_metrics`); the gradients are divided by the world size
-    and Adam runs on every rank, so the parameters stay replicated and the
-    metrics are the global batch's.
+    Under a mesh (``mesh``): ``batch`` is this rank's rows of the global
+    batch (its data rank's) and ``draws`` are global-shaped
+    (:func:`rank_draws`).  After the backward (and the anneal's unfold)
+    one all-reduce over the data group carries every local leaf's gradient
+    and the :data:`N_METRICS` metric numerators (:func:`step_metrics`);
+    the gradients are divided by the data axis size and Adam runs on every
+    rank, so the parameters stay alike over the data group and the
+    metrics are the global batch's.  On a model axis the split MLPs make
+    their own collectives over the model group in the passes.
     """
     grad_fn = make_grad_fn(cfg, near, far, render_pass=render_pass, mesh=mesh)
 
@@ -704,7 +732,7 @@ def make_train_step(cfg: NeRFConfig, near: float, far: float,
 
 
 def make_eval_step(cfg: NeRFConfig, near: float, far: float,
-                   mesh: DataMesh | None = None) -> Callable:
+                   mesh: Mesh | None = None) -> Callable:
     """The eval step ``eval_step(models, batch) -> metrics``: centered
     t-values, deterministic draws, no gradients.  ``loss`` and ``psnr`` are
     those of the fine rgb; ``loss_coarse`` the coarse MSE (the coarse+fine

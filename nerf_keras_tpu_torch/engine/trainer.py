@@ -1,28 +1,42 @@
 """Trainer: owns the models, trains them and renders frames from them.
 
 Counterpart of ``nerf_keras_tpu/engine/trainer.py``.  ``device`` is
-resolved explicitly.  Data parallelism (``mesh``, ``parallel/mesh.py``):
-one process per device, each holding the replicated models; by default
-the mesh comes from the config's ``MESH_DATA``/``MESH_MODEL`` when a
-process group is initialized (``parallel.distributed.maybe_initialize``),
-and without one the config must ask for a world of 1.  Under a mesh
-``train_step`` takes this rank's rows of the global batch (``put_batch``)
-and makes one gradient all-reduce; ``eval_step``/``evaluate`` take
-batches every rank holds whole (``put_global_batch``) and give the global
-metrics through one all-reduce a batch; the renders split each chunk over
-the ranks and all-gather the maps, with no all-reduce.  The parameters,
-the EMA shadow and the BatchNorm statistics are broadcast from rank 0
-after init and after ``restore``.  What is derived from the weights after
-training is built on rank 0 alone and shared
-(``parallel/mesh.share_from_main``), as the JAX package builds it on one
-device and replicates it: ``quantize_for_inference`` calibrates on rank
-0's rays, ``build_proposal_sampler`` distills on them (and prints there),
-and ``load_inference_artifacts`` reads the file and checks its digest on
-rank 0, so every rank installs the same tables and net, bit for bit, or
-raises the same error; ``save_inference_artifacts`` writes from rank 0.
-Every rank then renders its rows of each chunk through them, as for the
-float render.  The checks that refuse a call depend on the config and the
-model alone, so every rank refuses it before any collective.
+resolved explicitly.  Parallelism (``mesh``, ``parallel/mesh.py``): one
+process per device on a ``(data, model)`` mesh; by default the mesh comes
+from the config's ``MESH_DATA``/``MESH_MODEL`` when a process group is
+initialized (``parallel.distributed.maybe_initialize``), and without one
+the config must ask for a world of 1.  Under a mesh ``train_step`` takes
+this rank's rows of the global batch (``put_batch``: its data rank's,
+the same on every model rank) and makes one gradient all-reduce over the
+data group; ``eval_step``/``evaluate`` take batches every rank holds
+whole (``put_global_batch``) and give the global metrics through one
+all-reduce a batch; the renders split each chunk over the data ranks and
+all-gather the maps, with no all-reduce over the data group.  The
+parameters, the EMA shadow and the BatchNorm statistics are broadcast
+over each data group from its first rank after init and after
+``restore``.
+
+With a model axis (``MESH_MODEL > 1``) the NeRF MLPs are initialised
+whole from the seed, as in one process, and each rank keeps its blocks
+(``models/mlp.py``); the Adam moments and the EMA shadow are blocks of
+the same leaves (Adam is elementwise), the proposal nets whole.  Every
+float pass runs the split MLP (``engine/step.py``).  Whatever reads whole
+trees gathers them over the model group on every rank first: ``save``,
+``params_tree``/``ema_tree``/``bn_tree``, ``infer_digest`` (so an
+``.infer.npz`` written under a model axis is one process's), the int8
+calibration and the proposal distillation; ``restore`` and
+``replace_params`` slice whole trees.
+
+What is derived from the weights after training is built on rank 0 alone
+and shared (``parallel/mesh.share_from_main``), as the JAX package builds
+it on one device and replicates it: ``quantize_for_inference`` calibrates
+on rank 0's rays, ``build_proposal_sampler`` distills on them (and prints
+there), and ``load_inference_artifacts`` reads the file and checks its
+digest on rank 0, so every rank installs the same tables and net, bit for
+bit, or raises the same error; ``save_inference_artifacts`` writes from
+rank 0.  Every rank then renders its rows of each chunk through them, as
+for the float render.  The checks that refuse a call depend on the config
+and the model alone, so every rank refuses it before any collective.
 
 The models are ``{'coarse', 'fine'}`` (``TRAIN_SAMPLER=coarse``, the
 parity step) or ``{'proposal', 'fine'}``, initialized from ``cfg.seed``,
@@ -114,13 +128,14 @@ from nerf_keras_tpu_torch.ops.quant import (
 )
 from nerf_keras_tpu_torch.ops.rays import NDC_NEAR_PLANE, get_rays, ndc_rays
 from nerf_keras_tpu_torch.parallel.mesh import (
-    DataMesh,
+    Mesh,
     all_gather_rows,
     broadcast_,
     config_mesh,
     is_main,
     local_rows,
     share_from_main,
+    split_model,
 )
 from nerf_keras_tpu_torch.runtime import resolve_device
 from nerf_keras_tpu_torch.utils import io
@@ -193,7 +208,7 @@ def _realize_means(acc: dict[str, list[torch.Tensor]]) -> dict[str, float]:
 
 class Trainer:
     """Owns the models for one (config, scene-bounds) pair on one device
-    (this rank's, under a data mesh)."""
+    (this rank's, under a mesh)."""
 
     def __init__(
         self,
@@ -201,14 +216,15 @@ class Trainer:
         near: float,
         far: float,
         device: str | torch.device | None = None,
-        mesh: DataMesh | None = None,
+        mesh: Mesh | None = None,
     ):
         if mesh is None:
             mesh = config_mesh(cfg.mesh_data, cfg.mesh_model)
-        if mesh is not None and cfg.batch_size % mesh.world:
+        if mesh is not None and cfg.batch_size % mesh.data:
             raise ValueError(f"batch_size={cfg.batch_size} must be divisible by the data "
-                             f"mesh axis ({mesh.world} ranks)")
+                             f"mesh axis ({mesh.data} ranks)")
         self.mesh = mesh
+        self.tp = split_model(mesh)
         self.cfg = cfg
         self.near = float(near)
         self.far = float(far)
@@ -224,7 +240,7 @@ class Trainer:
                 num_layers=cfg.num_layers, hidden_dim=cfg.hidden_dim,
                 skip_layer=cfg.skip_layer, l_xyz=cfg.l_xyz, l_dir=cfg.l_dir,
                 batch_norm=cfg.batch_norm, compute_dtype=dtype,
-                generator=gen, device=self.device,
+                generator=gen, device=self.device, mesh=mesh,
             )
 
         if self.proposal:
@@ -261,10 +277,12 @@ class Trainer:
                 for t in (*models[k].parameters(), *models[k].buffers())]
 
     def _broadcast_state(self) -> None:
-        """Under a mesh, rank 0's :meth:`state_tensors` on every rank (one
-        broadcast)."""
+        """Under a mesh, the :meth:`state_tensors` of data rank 0 of this
+        rank's model index on each rank of its data group (one broadcast;
+        global rank ``model_rank`` is that rank)."""
         if self.mesh is not None:
-            broadcast_([t.data for t in self.state_tensors()], self.mesh)
+            broadcast_([t.data for t in self.state_tensors()], self.mesh,
+                       src=self.mesh.model_rank, axis="data")
 
     @property
     def step(self) -> int:
@@ -319,8 +337,10 @@ class Trainer:
 
     def save(self, path: str, scene: dict | None = None) -> None:
         """Write params, EMA, BatchNorm statistics, step and the Adam state
-        in the JAX key format (:func:`save_checkpoint`)."""
-        save_checkpoint(path, self.state, self.cfg, scene=scene)
+        in the JAX key format (:func:`save_checkpoint`).  Under a mesh every
+        rank calls it (a model axis gathers the trees) and rank 0 writes."""
+        save_checkpoint(path, self.state, self.cfg, scene=scene,
+                        write=is_main(self.mesh))
 
     def replace_params(self, params: dict, bn: dict | None = None) -> "Trainer":
         """Install externally built JAX-layout params (``{'coarse',
@@ -336,7 +356,9 @@ class Trainer:
 
     def params_tree(self, grad: bool = False) -> dict:
         """The params (or, with ``grad``, the last step's gradients) as
-        ``{name: JAX-layout tree}`` of numpy arrays."""
+        ``{name: JAX-layout tree}`` of whole numpy arrays (a collective of
+        every model rank under a model axis, as are :meth:`ema_tree` and
+        :meth:`bn_tree`)."""
         return models_to_jax(self.params, grad)
 
     def ema_tree(self) -> dict | None:
@@ -364,11 +386,23 @@ class Trainer:
                 self._folded = fold_train_params(self.cfg, self.eval_params, self.step)
         return self._folded
 
+    def _whole_eval_params(self) -> FoldedModels:
+        """:meth:`_folded_eval_params` whole: under a model axis, each NeRF
+        MLP gathered (on every model rank) into an unsplit copy, which a
+        rank may then use alone."""
+        models = self._folded_eval_params()
+        if self.tp is None:
+            return models
+        return FoldedModels({k: m if k == "proposal" else NeRFMLP.from_jax_params(
+            m.to_jax_params(), skip_layer=m.skip_layer, compute_dtype=m.compute_dtype,
+            device=self.device, bn_state=m.bn_state()) for k, m in models.items()},
+            models.step)
+
     # ------------------------------------------------------------------
     def put_batch(self, batch) -> tuple[torch.Tensor, ...]:
         """``(images, origins, dirs)`` as contiguous f32 tensors on the
         device; under a mesh the caller's own rows of the global batch
-        (``BATCH_SIZE / world`` each, in rank order)."""
+        (``BATCH_SIZE / data`` each, in data rank order)."""
         return tuple(torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x,
                                      dtype=torch.float32, device=self.device).contiguous()
                      for x in batch)
@@ -386,6 +420,10 @@ class Trainer:
         :func:`make_train_step`; global-shaped under a mesh)."""
         if self._train_step is None:
             check_train_support(self.cfg, self.device)
+            if self.tp is not None:
+                print(f"[nerf-torch] MESH_MODEL={self.tp.model}: every float pass runs the "
+                      f"split MLP (NeRFMLP.forward), no K1/K2/K5: the JAX package resolves "
+                      f"use_pallas=False under tensor parallelism", flush=True)
             self._train_step = make_train_step(self.cfg, self.near, self.far, mesh=self.mesh)
         self._invalidate_derived()
         return self._train_step(self.state, self.put_batch(batch), draws,
@@ -437,22 +475,28 @@ class Trainer:
         the draws alone under ``PROP_UNION=false``).  Gate the result
         against the float render (PSNR) before serving it, as the server
         does.  Under a mesh rank 0 calibrates on its rays (the other
-        ranks' are not read) and every rank installs its tables."""
+        ranks' are not read; a model axis first gathers the weights on every
+        rank) and every rank installs its tables."""
         if self.cfg.batch_norm:
             raise ValueError("int8 inference has no BatchNorm variant; use the float "
                              "path for BN configs")
+        models = self._whole_eval_params()
         return self.install_quant(share_from_main(
-            lambda: (None, self.calibrate_int8(origins, directions, calib_rays, seed)),
+            lambda: (None, self._calibrate(models, origins, directions, calib_rays, seed)),
             self.mesh)[1])
 
     def calibrate_int8(self, origins, directions, calib_rays: int = 2048,
                        seed: int = 0) -> dict:
         """The int8 tables this process calibrates on the rays, neither
         installed nor shared: what :meth:`quantize_for_inference` computes
-        (on rank 0 under a mesh)."""
+        (on rank 0 under a mesh; every model rank calls it)."""
+        return self._calibrate(self._whole_eval_params(), origins, directions, calib_rays,
+                               seed)
+
+    def _calibrate(self, models: dict, origins, directions, calib_rays: int,
+                   seed: int) -> dict:
         o, d = (torch.tensor(x, device=self.device)
                 for x in _subsample(origins, directions, calib_rays, seed))
-        models = self._folded_eval_params()
         trees = {k: mlp_tree(m) for k, m in models.items() if k != "proposal"}
         with torch.no_grad():
             if self.proposal:
@@ -525,10 +569,11 @@ class Trainer:
             raise ValueError("the proposal sampler places fine samples; ns_fine must "
                              "be positive")
 
+        fine = self._whole_eval_params()["fine"]
+
         def distill():
             o, d = (torch.tensor(x, device=self.device)
                     for x in _subsample(origins, directions, calib_rays, seed))
-            fine = self._folded_eval_params()["fine"]
             cdt = fine.compute_dtype
 
             def sigma_fn(pts):
@@ -586,7 +631,9 @@ class Trainer:
         tables and the distilled net depend on (the JAX package's, so one
         checkpoint gives the same hex string in both).  The weights are the
         folded ones: inside a frequency-anneal window the artifacts are
-        functions of the window too."""
+        functions of the window too.  Under a model axis the weights are
+        gathered whole (every model rank calls it), so the digest is one
+        process's."""
         return params_digest(models_to_jax(self._folded_eval_params()), extra={
             "skip_layer": self.cfg.skip_layer, "l_xyz": self.cfg.l_xyz,
             "l_dir": self.cfg.l_dir, "compute_dtype": self.cfg.compute_dtype})
@@ -599,10 +646,11 @@ class Trainer:
         if self._qparams is None and self._pparams is None:
             raise RuntimeError("nothing to save: run quantize_for_inference and/or "
                                "build_proposal_sampler first")
+        digest = self.infer_digest()
         if not is_main(self.mesh):
             return self
         save_artifacts(
-            path, self.infer_digest(),
+            path, digest,
             pparams=None if self._pparams is None else proposal_to_jax(self._pparams),
             prop_l_xyz=self._prop_l_xyz, distill_loss=self._distill_loss,
             qparams=None if self._qparams is None else qparams_to_jax(self._qparams))
@@ -617,6 +665,7 @@ class Trainer:
         reads the file and checks the digest; its verdict (absent,
         stale with its message, or fresh with the tables and the net)
         reaches every rank, which installs them or raises the same error."""
+        digest = None if self.cfg.batch_norm else self.infer_digest()
 
         def read():
             if not io.exists(path):
@@ -624,7 +673,7 @@ class Trainer:
             if self.cfg.batch_norm:  # refused below, on every rank
                 return {"verdict": "present"}, None
             try:
-                art = load_artifacts(path, self.infer_digest())
+                art = load_artifacts(path, digest)
             except StaleArtifactsError as e:
                 return {"verdict": "stale", "message": str(e)}, None
             meta = {"verdict": "fresh", "prop_l_xyz": art.get("prop_l_xyz"),
@@ -720,10 +769,11 @@ class Trainer:
         ``sampler='proposal'`` places the fine samples with the distilled
         net (:meth:`build_proposal_sampler` first; fine rgb/depth only,
         with or without ``quant``); on a proposal-trained model it is the
-        default render.  Under a data mesh every rank passes the same rays:
-        the chunk is rounded up to a multiple of the world size, each rank
-        renders its rows of every chunk and one all-gather per kept map
-        rebuilds it, so every rank returns the whole result.
+        default render.  Under a mesh every rank passes the same rays: the
+        chunk is rounded up to a multiple of the data axis size, each data
+        rank renders its rows of every chunk (its model ranks together,
+        through the split MLP) and one all-gather per kept map over the
+        data group rebuilds it, so every rank returns the whole result.
         """
         if sampler not in ("coarse", "proposal"):
             raise ValueError(f"sampler must be 'coarse' or 'proposal', got {sampler!r}")
@@ -769,7 +819,7 @@ class Trainer:
         n = origins.shape[0]
         chunk = min(chunk, max(n, 1))
         if self.mesh is not None:
-            chunk = -(-chunk // self.mesh.world) * self.mesh.world
+            chunk = -(-chunk // self.mesh.data) * self.mesh.data
         num_chunks = (n + chunk - 1) // chunk
         total_pad = num_chunks * chunk - n
         if total_pad:

@@ -31,8 +31,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from nerf_keras_tpu_torch.models.mlp import NeRFMLP
+from nerf_keras_tpu_torch.models.mlp import NeRFMLP, head_input_dim, trunk_input_dims
 from nerf_keras_tpu_torch.ops.proposal import chain_nets
+from nerf_keras_tpu_torch.parallel.mesh import shard
 
 
 def freq_window(num_freqs: int, alpha: float, device=None) -> torch.Tensor:
@@ -69,15 +70,21 @@ def fold_nerf_params(mlp: NeRFMLP, w_xyz: torch.Tensor) -> list[tuple[nn.Paramet
     reads the position encoding: all of ``trunk[0]``'s inputs, and the
     trailing ``xyz_dim`` inputs of any trunk layer or sigma/feature head
     whose input is the ``hidden + xyz_dim`` skip concat.  The direction
-    encoding is not annealed."""
+    encoding is not annealed.  On a model rank of a split MLP a row-split
+    layer's scale is its block of the inputs' (``trunk[0]`` reads the whole
+    encoding: it is column-split or whole)."""
     nx = w_xyz.shape[0]
-    hidden = mlp.trunk[0].weight.shape[0]
+    hidden = mlp.hidden_dim
     skip_scale = torch.cat([torch.ones((hidden,), dtype=w_xyz.dtype, device=w_xyz.device),
                             w_xyz])
+    widths = [*trunk_input_dims(mlp.num_layers, hidden, mlp.skip_layer, nx),
+              *[head_input_dim(mlp.num_layers, hidden, mlp.skip_layer, nx)] * 2]
+    layers = [*mlp.trunk, mlp.sigma, mlp.feature]
     out = [(mlp.trunk[0].weight, w_xyz)]
-    for layer in [*mlp.trunk[1:], mlp.sigma, mlp.feature]:
-        if layer.weight.shape[1] == hidden + nx:
-            out.append((layer.weight, skip_scale))
+    for layer, kind, width in zip(layers[1:], mlp.kinds[1:], widths[1:]):
+        if width == hidden + nx:
+            out.append((layer.weight, shard(skip_scale, 0 if kind == "row" else None,
+                                            mlp.tp)))
     return out
 
 

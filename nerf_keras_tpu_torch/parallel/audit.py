@@ -6,13 +6,21 @@ reads the collectives from the compiled HLO text; the port calls each
 collective through a counted wrapper (``parallel/mesh.py``), so its two
 checks read those counters instead:
 
-* the train step makes exactly ONE all-reduce, carrying every parameter's
-  gradient and the :data:`~nerf_keras_tpu_torch.engine.step.N_METRICS`
-  metric numerators, element for element; a ``BATCH_NORM`` config adds
-  four per BatchNorm layer (its global mean and variance, forward and
-  backward) and nothing else (:func:`audit_train_step`);
-* a render makes ZERO all-reduces: its only collectives are all-gathers
-  of the output maps, exactly their elements (:func:`audit_render`).
+* the train step makes exactly ONE all-reduce over the data group,
+  carrying every local parameter's gradient and the
+  :data:`~nerf_keras_tpu_torch.engine.step.N_METRICS` metric numerators,
+  element for element; a ``BATCH_NORM`` config adds four per BatchNorm
+  layer (its global mean and variance, forward and backward) and nothing
+  else (:func:`audit_train_step`);
+* a render makes ZERO all-reduces over the data group: its only
+  collectives there are all-gathers of the output maps, exactly their
+  elements (:func:`audit_render`);
+* under a model axis each split MLP pass makes exactly the model-group
+  all-reduces and all-gathers its layout implies (:func:`pass_collectives`:
+  at 8x256, skip 4, 4 all-reduces and 2 all-gathers a forward, 4
+  all-reduces a backward, 5 with input gradients), element for element,
+  in the step and in the render, and nothing else crosses the model
+  group.
 
 :func:`run_ranks` launches a real job of N processes on one host (the
 ``NERF_*`` trio, a localhost rendezvous) that trains a few steps, audits
@@ -48,14 +56,20 @@ import torch
 
 from nerf_keras_tpu_torch.config import NeRFConfig
 from nerf_keras_tpu_torch.engine import step as step_mod
-from nerf_keras_tpu_torch.engine.step import N_METRICS, make_train_step, params_of
+from nerf_keras_tpu_torch.engine.step import (
+    N_METRICS,
+    aux_samples,
+    make_train_step,
+    params_of,
+    union_step,
+)
 from nerf_keras_tpu_torch.engine.trainer import Trainer
-from nerf_keras_tpu_torch.models.mlp import NeRFMLP
+from nerf_keras_tpu_torch.models.mlp import NeRFMLP, is_skip
 from nerf_keras_tpu_torch.ops.kernels import launch_counts
 from nerf_keras_tpu_torch.ops.proposal import proposal_to_jax
 from nerf_keras_tpu_torch.ops.quant import qparams_to_jax
 from nerf_keras_tpu_torch.parallel import mesh as mesh_mod
-from nerf_keras_tpu_torch.parallel.distributed import maybe_initialize, shutdown
+from nerf_keras_tpu_torch.parallel.distributed import barrier, maybe_initialize, shutdown
 from nerf_keras_tpu_torch.profile_train import bench_batch
 from nerf_keras_tpu_torch.runtime import cuda_ms
 from nerf_keras_tpu_torch.utils.checkpoint import _flatten
@@ -74,15 +88,120 @@ def expected_train_reduce(trainer: Trainer) -> tuple[int, int]:
     return 1 + 4 * len(bns), n_params + N_METRICS + 4 * sum(bn.gamma.numel() for bn in bns)
 
 
+_MODEL_KEYS = ("all_reduce", "all_reduce_elements", "all_gather", "all_gather_elements")
+
+
+def pass_collectives(mlp: NeRFMLP, n: int, backward: bool = False,
+                     input_grads: bool = False) -> dict:
+    """The model-group collectives of one pass of a split ``mlp`` over
+    ``n`` samples (forward, and with ``backward`` its backward; with
+    ``input_grads`` the encodings carry a gradient), derived from its
+    layout as ``NeRFMLP.forward`` runs it: a row split's partial
+    all-reduce (its output width), a gather of a split activation before a
+    layer or concat that reads it whole (the full width), and, backward,
+    one all-reduce of the cotangent of each activation that split layers
+    read (its width).  All zero for a whole module."""
+    out = dict.fromkeys(_MODEL_KEYS, 0)
+    if mlp.tp is None:
+        return out
+
+    def add(kind: str, width: int) -> None:
+        out[kind] += 1
+        out[kind + "_elements"] += n * width
+
+    def act(width, sharded=False, grad=backward):
+        return {"width": width, "sharded": sharded, "copied": False, "grad": grad}
+
+    def full(a):
+        if a["sharded"]:
+            add("all_gather", a["width"])
+            a["sharded"] = False
+
+    def copy(a):
+        full(a)
+        if not a["copied"]:
+            a["copied"] = True
+            if backward and a["grad"]:
+                add("all_reduce", a["width"])
+
+    def dense(a, kind, width):
+        if kind == "col":
+            copy(a)
+            return act(width, sharded=True)
+        if kind == "row":
+            if not a["sharded"]:
+                copy(a)
+            add("all_reduce", width)
+        else:
+            full(a)
+        return act(width)
+
+    a = act(mlp.xyz_dim, grad=backward and input_grads)
+    for i in range(mlp.num_layers):
+        h = dense(a, mlp.kinds[i], mlp.hidden_dim)
+        if is_skip(i, mlp.skip_layer):
+            full(h)
+            h = act(mlp.hidden_dim + mlp.xyz_dim)
+        a = h
+    dense(a, mlp.kinds[mlp.num_layers], 1)
+    full(dense(a, mlp.kinds[mlp.num_layers + 1], mlp.hidden_dim))
+    return out
+
+
+def _sum(parts: list[dict]) -> dict:
+    return {k: sum(p[k] for p in parts) for k in _MODEL_KEYS}
+
+
+def expected_step_model(trainer: Trainer, local_b: int, step: int) -> dict:
+    """The model-group collectives of the train step at ``step`` over
+    ``local_b`` rays a rank: the coarse and fine passes (the fine one with
+    input gradients without ``STOP_PDF_GRADIENT``), or the proposal step's
+    fine pass over its layout's samples and its aux pass."""
+    cfg, models = trainer.cfg, trainer.params
+    if cfg.train_sampler == "proposal":
+        s = cfg.ns_fine + (cfg.ns_coarse if union_step(cfg, step) else 0)
+        passes = [pass_collectives(models["fine"], local_b * s, True)]
+        if aux_samples(cfg, step):
+            passes.append(pass_collectives(models["fine"], local_b * aux_samples(cfg, step),
+                                           True))
+        return _sum(passes)
+    return _sum([pass_collectives(models["coarse"], local_b * cfg.ns_coarse, True),
+                 pass_collectives(models["fine"], local_b * (cfg.ns_coarse + cfg.ns_fine),
+                                  True, not cfg.stop_pdf_gradient)])
+
+
+def expected_render_model(trainer: Trainer, rows: int) -> dict:
+    """The model-group collectives of rendering ``rows`` rays a rank (the
+    float render, forward only)."""
+    cfg, models = trainer.cfg, trainer.params
+    if cfg.train_sampler == "proposal":
+        s = cfg.ns_fine + (cfg.ns_coarse if cfg.prop_union else 0)
+        return pass_collectives(models["fine"], rows * s)
+    return _sum([pass_collectives(models["coarse"], rows * cfg.ns_coarse),
+                 pass_collectives(models["fine"], rows * (cfg.ns_coarse + cfg.ns_fine))])
+
+
+def _check_model(what: str, got: dict, want: dict) -> None:
+    got = {k: got[k] for k in _MODEL_KEYS} | {"broadcast": got["broadcast"]}
+    if got != dict(want, broadcast=0):
+        raise AssertionError(f"{what} made {got} over the model group; expected {want}")
+
+
 def audit_train_step(trainer: Trainer, batch, draws: dict | None = None) -> dict:
     """Run one train step of a trainer under a mesh and check its
     collectives (module docstring); returns the step's metrics and the
-    counts."""
+    counts (``collectives`` over every axis, ``model`` over the model
+    group)."""
     if trainer.mesh is None:
-        raise ValueError("audit_train_step needs a trainer under a data mesh")
+        raise ValueError("audit_train_step needs a trainer under a mesh")
     mesh_mod.reset_counts()
+    step = trainer.step
     metrics = trainer.train_step(batch, draws)
-    got = mesh_mod.counts()
+    got = mesh_mod.counts("data")
+    model = mesh_mod.counts("model")
+    _check_model("the train step", model, expected_step_model(trainer, len(batch[0]), step))
+    if any(mesh_mod.counts("world").values()):
+        raise AssertionError(f"the train step made world collectives: {mesh_mod.counts()}")
     calls, elements = expected_train_reduce(trainer)
     if (got["all_reduce"], got["all_reduce_elements"]) != (calls, elements):
         raise AssertionError(
@@ -92,22 +211,29 @@ def audit_train_step(trainer: Trainer, batch, draws: dict | None = None) -> dict
             f"{', and BatchNorm moments' if calls > 1 else ''})")
     if got["all_gather"] or got["broadcast"]:
         raise AssertionError(f"the train step made other collectives: {got}")
-    return {"metrics": metrics, "collectives": got, "all_reduce_count": calls,
-            "all_reduce_elements": elements}
+    return {"metrics": metrics, "collectives": mesh_mod.counts(), "model": model,
+            "by_axis": {axis: mesh_mod.counts(axis) for axis in mesh_mod.AXES},
+            "all_reduce_count": calls, "all_reduce_elements": elements}
 
 
 def audit_render(trainer: Trainer, origins, dirs, chunk: int = 16384) -> dict:
     """Render rays under a mesh (``Trainer.render_rays``) and check that
-    no all-reduce ran and that the all-gathers carried exactly the output
-    maps of every (padded) chunk; returns the outputs and the counts."""
+    no all-reduce ran over the data group, that the all-gathers there
+    carried exactly the output maps of every (padded) chunk, and that each
+    chunk's passes made exactly their model-group collectives; returns the
+    outputs and the counts (``collectives`` of the data group, ``model``
+    of the model group)."""
     if trainer.mesh is None:
-        raise ValueError("audit_render needs a trainer under a data mesh")
+        raise ValueError("audit_render needs a trainer under a mesh")
     mesh_mod.reset_counts()
     out = trainer.render_rays(origins, dirs, chunk=chunk)
-    got = mesh_mod.counts()
-    n, world = len(origins), trainer.mesh.world
-    chunk = -(-min(chunk, max(n, 1)) // world) * world
+    got = mesh_mod.counts("data")
+    model = mesh_mod.counts("model")
+    n, data = len(origins), trainer.mesh.data
+    chunk = -(-min(chunk, max(n, 1)) // data) * data
     num_chunks = -(-n // chunk)
+    per_chunk = expected_render_model(trainer, chunk // data)
+    _check_model("the render", model, {k: v * num_chunks for k, v in per_chunk.items()})
     want = sum(v.size // n for v in out.values()) * num_chunks * chunk
     if got["all_reduce"] or got["broadcast"]:
         raise AssertionError(f"the render made a reduction or broadcast: {got}")
@@ -115,7 +241,7 @@ def audit_render(trainer: Trainer, origins, dirs, chunk: int = 16384) -> dict:
         raise AssertionError(
             f"the render gathered {got['all_gather']} maps of {got['all_gather_elements']} "
             f"elements; expected {num_chunks * len(out)} of {want} (the output maps)")
-    return {"outputs": out, "collectives": got}
+    return {"outputs": out, "collectives": got, "model": model}
 
 
 def tree_rel_l2(got: dict, want: dict) -> float:
@@ -124,6 +250,28 @@ def tree_rel_l2(got: dict, want: dict) -> float:
     got, want = _flatten(got, ""), _flatten(want, "")
     return max(float(np.linalg.norm(got[k] - w) / max(np.linalg.norm(w), 1e-30))
                for k, w in want.items())
+
+
+def replicated_leaves(trainer: Trainer) -> dict[str, np.ndarray]:
+    """The leaves this rank holds whole under a model axis (every leaf
+    without one), by name: a split MLP's replicated weights, its row
+    splits' biases and the BatchNorm vectors of layers not column-split,
+    and the proposal nets."""
+    out = {}
+    for name, m in trainer.params.items():
+        if not isinstance(m, NeRFMLP):
+            out.update({f"{name}.{n}": p for n, p in m.named_parameters()})
+            continue
+        for i, (layer, kind) in enumerate(zip(m.dense_layers(), m.kinds)):
+            if kind is None:
+                out[f"{name}.{i}.w"] = layer.weight
+            if kind != "col":
+                out[f"{name}.{i}.b"] = layer.bias
+        for i, (bn, kind) in enumerate(m._bn_kinds()):
+            if kind != "col":
+                out.update({f"{name}.bn{i}.{k}": getattr(bn, k)
+                            for k in ("gamma", "beta", "mean", "var")})
+    return {k: v.detach().cpu().numpy() for k, v in out.items()}
 
 
 def state_digest(trainer: Trainer) -> str:
@@ -157,8 +305,8 @@ def _drop_own_gradients() -> None:
     step (its gradients and metrics are left out of the sum), and takes
     the result as the others do."""
     real = step_mod.all_reduce_flat
-    step_mod.all_reduce_flat = lambda tensors, mesh: real(
-        [torch.zeros_like(t) for t in tensors], mesh)
+    step_mod.all_reduce_flat = lambda tensors, mesh, axis="data": real(
+        [torch.zeros_like(t) for t in tensors], mesh, axis)
 
 
 def _count_profiled(prof) -> dict:
@@ -179,8 +327,11 @@ def _count_profiled(prof) -> dict:
 
 def _run_rank(spec: dict) -> dict:
     """One rank's job (see :func:`run_ranks`)."""
-    mesh = mesh_mod.make_mesh()
+    cfg = spec.get("cfg")
+    mesh = (mesh_mod.make_mesh() if cfg is None
+            else mesh_mod.make_mesh(cfg.mesh_data, cfg.mesh_model))
     record = {"rank": mesh.rank, "world": mesh.world, "device": str(mesh.device),
+              "data_rank": mesh.data_rank, "model_rank": mesh.model_rank,
               "backend": torch.distributed.get_backend()}
     if spec.get("batch") is not None:
         record.update(_train_part(spec, mesh))
@@ -195,24 +346,38 @@ def _new_trainer(spec: dict, mesh) -> Trainer:
     trainer = Trainer(spec["cfg"], spec["near"], spec["far"], mesh=mesh)
     if spec.get("params") is not None:
         trainer.replace_params(spec["params"], spec.get("bn"))
+    if spec.get("restore") is not None:
+        trainer.restore(spec["restore"])
     return trainer
+
+
+def _drop_model_reduce() -> None:
+    """The broken variant of a split step: ``copy_to_model`` passes each
+    rank's partial cotangent on unsummed."""
+    mesh_mod._CopyToModel.backward = staticmethod(lambda ctx, g: (g, None))
 
 
 def _train_part(spec: dict, mesh) -> dict:
     """Train, audit and render (:func:`run_ranks`)."""
     trainer = _new_trainer(spec, mesh)
-    trainer.step = spec.get("start_step", 0)
+    if spec.get("start_step") is not None:
+        trainer.step = spec["start_step"]
     if spec.get("drop_rank") == mesh.rank:
         _drop_own_gradients()
+    if spec.get("drop_model_reduce"):
+        _drop_model_reduce()
     rows = mesh_mod.local_rows(len(spec["batch"][0]), mesh)
     batch = trainer.put_batch(tuple(x[rows] for x in spec["batch"]))
     record = {"device": str(trainer.device), "metrics": [], "launches": []}
     for i in range(spec.get("steps", 3)):
         before = launch_counts()
         if i == 0:
-            audit = audit_train_step(trainer, batch, spec.get("draws"))
-            metrics = audit.pop("metrics")
-            record["audit"] = audit
+            if spec.get("drop_model_reduce"):  # its collectives are not the audit's
+                metrics = trainer.train_step(batch, spec.get("draws"))
+            else:
+                audit = audit_train_step(trainer, batch, spec.get("draws"))
+                metrics = audit.pop("metrics")
+                record["audit"] = audit
             record["grads"] = trainer.params_tree(grad=True)
             record["bn_first"] = trainer.bn_tree()
         else:
@@ -223,6 +388,11 @@ def _train_part(spec: dict, mesh) -> dict:
     record["params"] = trainer.params_tree()
     record["bn"] = trainer.bn_tree()
     record["digest"] = state_digest(trainer)
+    record["replicated"] = replicated_leaves(trainer)
+    if spec.get("evaluate"):
+        record["eval"] = {k: float(v) for k, v in trainer.evaluate([spec["batch"]]).items()}
+    if spec.get("save") is not None:
+        trainer.save(spec["save"])
     if spec.get("render_rays"):
         n = spec["render_rays"]
         before = launch_counts()
@@ -231,10 +401,13 @@ def _train_part(spec: dict, mesh) -> dict:
         record["render_launches"] = {k: v - before[k] for k, v in launch_counts().items()
                                      if v != before[k]}
         record["render_collectives"] = render["collectives"]
+        record["render_model"] = render["model"]
         record["render"] = {k: v for k, v in render["outputs"].items()}
     if spec.get("time_steps"):
         n = spec["time_steps"]
+        torch.cuda.reset_peak_memory_stats(trainer.device)
         record["step_ms"] = cuda_ms(lambda: trainer.train_step(batch), n)
+        record["peak_mib"] = torch.cuda.max_memory_allocated(trainer.device) / 2**20
         if mesh.world == 1:
             # The same work without the mesh (no draws at the global shape,
             # no collective), on the same state, in the same process.
@@ -259,7 +432,7 @@ def _counted(steps: dict, name: str, fn):
     mesh_mod.reset_counts()
     before = launch_counts()
     out = fn()
-    steps[name] = {"collectives": mesh_mod.counts(),
+    steps[name] = {"collectives": mesh_mod.counts(), "model": mesh_mod.counts("model"),
                    "launches": {k: v - before[k] for k, v in launch_counts().items()
                                 if v != before[k]}}
     return out
@@ -296,6 +469,7 @@ def _infer_part(spec: dict, mesh) -> dict:
             *calib, **job["distill"]))
         out["distill_losses"] = trainer.distill_losses
     out["digests"] = artifact_digests(trainer)
+    out["infer_digest"] = trainer.infer_digest()
     if mesh.rank == 0:
         out["qparams"] = qparams_to_jax(trainer.qparams)
         if trainer.proposal_net is not None:
@@ -419,20 +593,30 @@ def run_ranks(world: int, spec: dict, timeout: float = 120.0) -> list[dict]:
     ``NeRFConfig``), ``near``/``far``, ``batch`` (the global ``(pixels,
     origins, dirs)`` numpy arrays; each rank trains on its rows), and
     optionally ``draws`` (the first step's, global-shaped), ``params``/
-    ``bn`` (JAX-layout trees to start from), ``start_step``, ``steps``
+    ``bn`` (JAX-layout trees to start from), ``start_step``, ``restore`` (a
+    checkpoint to resume from), ``steps``
     (default 3; the first is audited), ``render_rays`` (render and audit
     that many of the batch's rays), ``render_chunk``, and on the card
     ``time_steps`` (median ms of that many more steps, CUDA events; on
     one rank also of the same step built without the mesh),
+    and each rank's peak memory over them (``peak_mib``),
     ``profile`` (count the NCCL all-reduces of that many more steps in a
     ``torch.profiler`` window), and ``drop_rank`` (that rank leaves its gradients
-    out of the reduce: the broken variant).  Without ``batch`` nothing is
+    out of the reduce: the broken variant), ``drop_model_reduce`` (the
+    split MLP's backward leaves each rank's partial cotangent unsummed:
+    the broken variant of a model axis), ``evaluate`` (the eval metrics of
+    the global batch after the steps).  Without ``batch`` nothing is
     trained.
 
-    A record holds ``metrics`` and kernel ``launches`` per step, the
-    first step's reduced ``grads``, its ``audit`` and the BatchNorm
-    statistics after it (``bn_first``), the final
-    ``params``, ``bn`` and ``digest``, and what was asked for.
+    ``save`` (a path: every rank saves, rank 0 writes).  ``restore`` (a
+    checkpoint) is loaded into the trainer of a train or ``infer`` job.
+    The mesh is the config's ``MESH_DATA`` x ``MESH_MODEL``.
+
+    A record holds the rank's place in the mesh, ``metrics`` and kernel
+    ``launches`` per step, the first step's reduced ``grads``, its
+    ``audit`` and the BatchNorm statistics after it (``bn_first``), the
+    final ``params``, ``bn``, ``digest`` and the leaves held whole
+    (``replicated``), and what was asked for.
 
     ``infer`` (a dict) builds what is derived from the weights on a
     trainer of ``cfg``/``params`` under the mesh: ``calib`` (rays every
@@ -445,7 +629,8 @@ def run_ranks(world: int, spec: dict, timeout: float = 120.0) -> list[dict]:
     read); ``rays`` (``(origins, dirs)``, e.g. a frame's) and ``chunk``
     are rendered float, int8 and, with a net, distilled and distilled int8
     (``render_rays``, every map, or as ``render_kw`` asks), then rendered
-    ``time_frames`` times more each on the host clock (``frame_s``).
+    ``time_frames`` times more each on the host clock (``frame_s``); the
+    record also holds ``infer_digest``.
     ``broken`` with ``broken_calib``: no rank shares the tables, and rank
     1 calibrates on ``broken_calib``.  Its record: ``steps``
     (collectives and launches of each), ``digests``, ``loaded_digests``,
@@ -459,6 +644,10 @@ def run_ranks(world: int, spec: dict, timeout: float = 120.0) -> list[dict]:
     its ``--port`` and then SIGTERMs itself) in turn, ``{rank}`` in an
     argument replaced by the rank: stdout, the returned value (the
     server's: the response bodies) and the launches of each.
+
+    ``jobs`` (a list of specs over ``spec``, each with a config of the
+    same mesh shape) runs each in turn in the one launch; a rank's record
+    is then the list of theirs.
 
     Raises when a rank fails or outlives ``timeout`` seconds.
     """
@@ -529,7 +718,9 @@ def _main(spec_path: str, out_path: str) -> None:
     if not maybe_initialize(spec["device"], spec.get("backend")):
         raise RuntimeError("no launch environment (NERF_* trio) for this rank")
     try:
-        record = _run_rank(spec)
+        record = ([_run_rank(dict(spec, jobs=None, **job)) for job in spec["jobs"]]
+                  if spec.get("jobs") else _run_rank(spec))
+        barrier()
     finally:
         shutdown()
     with open(out_path, "wb") as f:

@@ -114,15 +114,17 @@ def process_info() -> tuple[int, int]:
     return dist.get_rank(), dist.get_world_size()
 
 
-def shard_dataset_for_process(dataset):
+def shard_dataset_for_process(dataset, mesh):
     """This rank's contiguous shard of a ``RayDataset``
-    (``data/pipeline.RayDataset.process_slice``); the whole dataset on one
-    process.  Every rank shuffles its shard with the shared epoch seed and
-    feeds ``BATCH_SIZE / world`` rows of each global batch."""
-    rank, world = process_info()
-    if world == 1:
+    (``data/pipeline.RayDataset.process_slice``): its data rank's among
+    ``mesh.data`` (``parallel/mesh.Mesh``); the whole dataset on one
+    process (``mesh`` None) or one data rank.  Every rank shuffles its
+    shard with the shared epoch seed and feeds ``BATCH_SIZE / data`` rows
+    of each global batch, so the model ranks of a data group batch the
+    same rows."""
+    if mesh is None or mesh.data == 1:
         return dataset
-    return dataset.process_slice(rank, world)
+    return dataset.process_slice(mesh.data_rank, mesh.data)
 
 
 @contextlib.contextmanager
@@ -135,9 +137,20 @@ def launched(device: str | None = None):
     joined = not dist.is_initialized() and maybe_initialize(device)
     try:
         yield initialized_device() if dist.is_initialized() else resolve_device(device)
+        if joined:
+            barrier()
     finally:
         if joined:
             shutdown()
+
+
+def barrier() -> None:
+    """Wait for every rank (a no-op without a process group).  Call it when
+    a launch's work ended well, before :func:`shutdown`: a gloo rank whose
+    peer closes its connections while it still talks to a third rank (the
+    groups of a model axis) dies in a background thread."""
+    if dist.is_initialized():
+        dist.barrier()
 
 
 def shutdown() -> None:

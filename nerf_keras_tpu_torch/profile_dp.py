@@ -3,6 +3,7 @@
     python -m nerf_keras_tpu_torch.profile_dp [--world 4]
     python -m nerf_keras_tpu_torch.profile_dp --device cpu --world 4 --tiny
     python -m nerf_keras_tpu_torch.profile_dp --world 4 --frames 5
+    python -m nerf_keras_tpu_torch.profile_dp --world 4 --model
 
 Runs the parity step at ``config/lego_batch_h256_tpu.json``'s widths
 (8x256, 64 + 128, bf16; random weights with nonzero biases) as real
@@ -28,6 +29,15 @@ and shared, every rank renders its rows of each 16,384-ray chunk of an
 before its PNG encode), float and int8: the median of N warm frames on
 each rank (host clock; each frame ends in its copy to the host), the
 speedup over the world of 1, a frame's launches and collectives.
+
+``--model`` is the data-vs-model A/B instead: the parity step at the
+global batch of 4,096 on ``--world`` ranks as the meshes ``(world, 1)``,
+``(world / 2, 2)`` and ``(1, world)`` (``MESH_DATA`` x ``MESH_MODEL``;
+a model axis runs the split MLP, no K1/K2): per mesh one JSON line with
+each rank's median step ms, the global rays/s, the collectives of a step
+by axis with their bytes (float32 elements x 4), each rank's peak
+memory over the timed steps, the loss, and the first step's gradients
+against the ``(world, 1)`` mesh's (largest per-leaf relative L2).
 """
 
 from __future__ import annotations
@@ -51,8 +61,9 @@ from nerf_keras_tpu_torch.runtime import card_string
 TIME_STEPS, PROFILE_STEPS = 10, 3
 
 
-def run(world: int, batch_size: int, cfg: NeRFConfig, device: str) -> list[dict]:
-    cfg = dataclasses.replace(cfg, batch_size=batch_size)
+def run(world: int, batch_size: int, cfg: NeRFConfig, device: str,
+        model: int = 1) -> list[dict]:
+    cfg = dataclasses.replace(cfg, batch_size=batch_size, mesh_model=model)
     spec = {"device": device, "backend": None, "cfg": cfg, "near": 2.0, "far": 6.0,
             "batch": bench_batch(batch_size, seed=5), "params": random_params(cfg, seed=7),
             "steps": 2}
@@ -96,12 +107,42 @@ def time_frames(world: int, cfg: NeRFConfig, device: str, frames: int, size: int
     return line
 
 
+def model_ab(world: int, cfg: NeRFConfig, device: str, batch: int, card: str) -> None:
+    """The ``--model`` lines (module docstring)."""
+    ref = None
+    for model in sorted({1, min(2, world), world}):
+        ranks = run(world, batch, cfg, device, model)
+        audit = ranks[0]["audit"]
+        by_axis = {axis: {k: v for k, v in counts.items() if v}
+                   for axis, counts in audit["by_axis"].items()}
+        line = {"mesh": [world // model, model], "global_batch": batch,
+                "rays_per_data_rank": batch // (world // model),
+                "backend": ranks[0]["backend"], "collectives_per_step": by_axis,
+                "collective_bytes_per_step": {
+                    axis: 4 * (c.get("all_reduce_elements", 0) + c.get("all_gather_elements", 0))
+                    for axis, c in by_axis.items()},
+                "launches_per_step": ranks[0]["launches"][-1],
+                "loss": ranks[0]["metrics"][-1]["loss"], "card": card}
+        if device == "cuda":
+            step_ms = [r["step_ms"] for r in ranks]
+            line.update(step_ms=step_ms, rays_per_s=batch / (max(step_ms) / 1e3),
+                        peak_mib=[r["peak_mib"] for r in ranks])
+        if ref is None:
+            ref = ranks[0]["grads"]
+        else:
+            line["grads_rel_l2_vs_data_mesh"] = tree_rel_l2(ranks[0]["grads"], ref)
+        print(json.dumps(line), flush=True)
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser()
     p.add_argument("--world", type=int, default=4)
     p.add_argument("--device", default="cuda")
     p.add_argument("--tiny", action="store_true",
                    help="2x16 MLP, 8 + 8 samples, batch 64 (a CPU rehearsal)")
+    p.add_argument("--model", action="store_true",
+                   help="the data-vs-model A/B: the meshes (world, 1), (world/2, 2) and "
+                        "(1, world) at one global batch, instead of the worlds")
     p.add_argument("--frames", type=int, default=0,
                    help="time N warm 800x800 frames (float and int8) at worlds 1, 2, "
                         "4, ... up to --world, instead of train steps")
@@ -116,6 +157,9 @@ def main(argv=None) -> None:
                                   compute_dtype="float32")
         base = 64
     card = card_string() if args.device == "cuda" else "cpu"
+    if args.model:
+        model_ab(args.world, cfg, args.device, base, card)
+        return
     if args.frames:
         first, world = None, 1
         while world <= args.world:

@@ -86,7 +86,7 @@ from nerf_keras_tpu_torch.utils.png import encode_png
 
 class RenderService:
     """Owns the Trainer + checkpoint; thread-safe render calls.  Under a
-    data mesh (a launch of N ranks) every rank builds one; rank 0's
+    mesh (a launch of N ranks) every rank builds one; rank 0's
     serves requests and ranks 1..N-1 run :meth:`follow`."""
 
     def __init__(

@@ -189,11 +189,13 @@ def models_bn(models: dict) -> dict | None:
 
 
 def save_checkpoint(path: str, state, cfg: NeRFConfig | None = None,
-                    scene: dict | None = None) -> None:
+                    scene: dict | None = None, write: bool = True) -> None:
     """Write a training state (``engine.step.TrainState``: params, Adam's
     count and moments, EMA, BatchNorm statistics, step) with the config
     and ``scene`` sidecar, in the key format the JAX package's
-    ``load_checkpoint`` restores."""
+    ``load_checkpoint`` restores.  Models split over a model axis gather
+    their trees, a collective: every rank calls this, and only the rank
+    given ``write`` writes."""
     from nerf_keras_tpu_torch.engine.step import params_of  # engine imports this module
 
     def moments(values: list) -> dict:
@@ -208,9 +210,11 @@ def save_checkpoint(path: str, state, cfg: NeRFConfig | None = None,
     opt = state.opt
     opt_state = None if opt is None else {
         "count": opt.count, "mu": moments(opt.mu), "nu": moments(opt.nu)}
-    save_params_npz(path, models_to_jax(state.params), cfg, scene=scene, step=state.step,
-                    ema=None if state.ema is None else models_to_jax(state.ema),
-                    opt_state=opt_state, bn=models_bn(state.params))
+    params, bn = models_to_jax(state.params), models_bn(state.params)
+    ema = None if state.ema is None else models_to_jax(state.ema)
+    if write:
+        save_params_npz(path, params, cfg, scene=scene, step=state.step, ema=ema,
+                        opt_state=opt_state, bn=bn)
 
 
 def load_checkpoint_config(path: str) -> NeRFConfig:

@@ -135,7 +135,7 @@ def load_if_fresh(trainer, path: str | None) -> None:
     """Install the artifacts at ``path`` into ``trainer`` (an
     ``engine.trainer.Trainer``) when the file exists and matches its
     weights; a stale file is ignored with a notice, and the caller's build
-    overwrites it.  Under a data mesh the trainer takes rank 0's verdict
+    overwrites it.  Under a mesh the trainer takes rank 0's verdict
     on the file (``Trainer.load_inference_artifacts``), so every rank
     installs the same artifacts or none, and rank 0 prints the notice."""
     if not path:

@@ -19,8 +19,9 @@ widths (2 layers, hidden 16, 4 + 8 samples, global batch 32, float32):
   elements a step (BatchNorm: 1 + 4 per BN layer), none on the render.
 
 In-process: the launch environment's checks and the mesh-shape repairs
-(``MESH_DATA`` other than the world size, ``MESH_MODEL > 1`` and a batch
-that does not divide raise).  A tiny two-rank ``cli.train_synthetic`` run
+(a mesh other than the world size, a world the model axis does not
+divide, and a batch that does not divide raise; tensor parallelism is
+``tests/test_torch_tensor_parallel.py``'s).  A tiny two-rank ``cli.train_synthetic`` run
 checks that rank 0 alone writes.
 """
 
@@ -257,14 +258,14 @@ def test_rank_draws_are_rows_of_the_global_draws(case):
              "shared_t": dict(sampling_mode="shared")}[case]
     cfg = NeRFConfig(**dict(BASE, **extra)).validate()
     world, b = 4, cfg.batch_size
-    whole = pstep.rank_draws(cfg, pmesh.DataMesh(1, 0, torch.device("cpu")), b, None,
+    whole = pstep.rank_draws(cfg, pmesh.Mesh(1, 1, 0, 0, torch.device("cpu")), b, None,
                              torch.Generator().manual_seed(5), "cpu")
     gen = torch.Generator().manual_seed(5)
     shared = cfg.sampling_mode == "shared"
     t = torch.rand((cfg.ns_coarse,) if shared else (b, cfg.ns_coarse), generator=gen)
     torch.testing.assert_close(whole["t"], t, rtol=0, atol=0)
     for r in range(world):
-        part = pstep.rank_draws(cfg, pmesh.DataMesh(world, r, torch.device("cpu")),
+        part = pstep.rank_draws(cfg, pmesh.Mesh(world, 1, r, 0, torch.device("cpu")),
                                 b // world, None, torch.Generator().manual_seed(5), "cpu")
         rows = slice(8 * r, 8 * r + 8)
         torch.testing.assert_close(part["t"], whole["t"] if shared else whole["t"][rows],
@@ -280,18 +281,19 @@ def test_rank_draws_are_rows_of_the_global_draws(case):
 @pytest.mark.parametrize("n,world,rank,want", [(32, 4, 1, (8, 16)), (32, 2, 0, (0, 16)),
                                                (6, 3, 2, (4, 6))])
 def test_local_rows_follow_rank_order(n, world, rank, want):
-    rows = pmesh.local_rows(n, pmesh.DataMesh(world, rank, torch.device("cpu")))
+    rows = pmesh.local_rows(n, pmesh.Mesh(world, 1, rank, 0, torch.device("cpu")))
     assert (rows.start, rows.stop) == want
 
 
 def test_local_rows_refuse_a_ragged_batch():
     with pytest.raises(ValueError, match="not divisible"):
-        pmesh.local_rows(33, pmesh.DataMesh(2, 0, torch.device("cpu")))
+        pmesh.local_rows(33, pmesh.Mesh(2, 1, 0, 0, torch.device("cpu")))
 
 
 @pytest.mark.parametrize("data,model,world,error", [
     (2, 1, 1, ValueError), (8, 1, 4, ValueError), (1, 1, 2, ValueError),
-    (0, 1, 1, ValueError), (-1, 2, 2, NotImplementedError), (1, 0, 1, ValueError)])
+    (0, 1, 1, ValueError), (-1, 2, 3, ValueError), (2, 2, 2, ValueError),
+    (1, 2, 4, ValueError), (1, 0, 1, ValueError)])
 def test_mesh_shapes_the_port_cannot_run_raise(data, model, world, error):
     with pytest.raises(error):
         pmesh.check_mesh_shape(data, model, world)
@@ -303,10 +305,10 @@ def test_mesh_shape_resolves_to_the_world(data, world):
 
 
 @pytest.mark.parametrize("field,value,error", [("mesh_data", 2, ValueError),
-                                               ("mesh_model", 2, NotImplementedError)])
+                                               ("mesh_model", 2, ValueError)])
 def test_trainer_refuses_a_mesh_it_cannot_run(field, value, error):
-    """One process: MESH_DATA=2 needs two ranks, MESH_MODEL=2 tensor
-    parallelism; both raise instead of training on one device."""
+    """One process: MESH_DATA=2 needs two ranks, MESH_MODEL=2 a world that
+    2 divides; both raise instead of training on one device."""
     cfg = NeRFConfig(**dict(BASE, **{field: value})).validate()
     with pytest.raises(error):
         Trainer(cfg, NEAR, FAR, device="cpu")
@@ -315,11 +317,11 @@ def test_trainer_refuses_a_mesh_it_cannot_run(field, value, error):
 def test_trainer_refuses_a_batch_the_ranks_cannot_split():
     cfg = NeRFConfig(**dict(BASE, batch_size=33)).validate()
     with pytest.raises(ValueError, match="divisible"):
-        Trainer(cfg, NEAR, FAR, mesh=pmesh.DataMesh(2, 0, torch.device("cpu")))
+        Trainer(cfg, NEAR, FAR, mesh=pmesh.Mesh(2, 1, 0, 0, torch.device("cpu")))
 
 
 @pytest.mark.parametrize("field,value,error", [("MESH_DATA", 2, ValueError),
-                                               ("MESH_MODEL", 2, NotImplementedError)])
+                                               ("MESH_MODEL", 2, ValueError)])
 def test_cli_refuses_a_mesh_it_cannot_run(tmp_path, field, value, error):
     cfg = tmp_path / "mesh.json"
     cfg.write_text(json.dumps({"BATCH_SIZE": 32, "WITH_GCS": False, field: value}))
