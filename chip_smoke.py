@@ -289,6 +289,35 @@ nonzero — nothing falls back to the CPU or to a plain path):
     launches per chunk, 1 dB above a random-weight checkpoint's report;
     (d) ``cli.infer --path spiral --frames 2``, float (K1 only) and
     ``--quant int8`` (the gate passes, then K4 only).
+26. ``widths``: any hidden width up to 256 on the zero-padded packs, at
+    B = 1,024, S = 64: K1 (both modes), K2, K3, K5 (with input gradients)
+    and K6 at hidden 16, 96 and 192 (padded to 64, 128, 256) against their
+    plain versions at the same width within the bf16 gates of phases 3-5,
+    14 and 15, and at 64, 128 and 256 for the padding's cost in time; K1,
+    K2 and K5 with input gradients at (L_XYZ, L_DIR) = (4, 2) and (16, 6)
+    (64/32 and 128/64 gradient columns) at hidden 96 and 256; K4 at hidden
+    48, 96 and 192 (padded int8 tables) within phase 11's gates; a
+    checkpoint, ``infer_digest`` and a Keras export at hidden 96 hold the
+    same bytes in every array before and after the padded packs are built;
+27. ``f32``: COMPUTE_DTYPE=float32 at ``lego_batch_h256_tpu``'s widths:
+    (a) each f32 kernel (``csrc/fused_render_f32.cu``: K1 both modes, K2,
+    K3, K5 forward and backward with input gradients, K6 forward and
+    backward) against its plain version (f32 products, TF32 off) with the
+    parameter gradients' sums over the batch and the compositing in
+    float64, at B = 4,096, S = 192, within 1e-5 relative L2 on every
+    output and gradient (the plain f32 version beside it: its own f32 sums
+    and compositing VJP err by ~1e-5 on the sigma head), while the bf16 kernels on a bf16 copy of the same weights and
+    inputs miss it by 10x or more; CUDA-event times, the bound at the card's f32 FFMA peak
+    (SMs x 128 x 2 x the maximum SM clock) and the f32 ``torch.matmul``
+    yardsticks; (b) one parity step's gradients kernel path vs plain path
+    (same draws, 1e-3), 3 steps each through K1+K2, K1+K3, K6 and K5
+    (``STOP_PDF_GRADIENT=false``) and 3 proposal-recipe steps, each with
+    exact f32 launches and no bf16 launch; (c) ``evaluate`` and a 200x200
+    frame from ``Trainer.render_image`` (f32 K1 only); (d) one ``GET
+    /render`` from the server on the f32 checkpoint (2 f32 K1 a chunk);
+    (e) the verify recipe's tiny f32 config through ``cli.train_synthetic``
+    (f32 K1/K2 only, the loss falling over 3 epochs).  The kernels line
+    adds the eight f32 kernels with their launches on (b)-(e).
 
 Each main path runs with the launch counters set to 0 just before it and
 read just after.  The line before the last is the kernel report
@@ -309,6 +338,7 @@ import os
 import re
 import shutil
 import statistics
+import subprocess
 import sys
 import tempfile
 import threading
@@ -339,7 +369,7 @@ from nerf_keras_tpu_torch.models.mlp import (
 )
 from nerf_keras_tpu_torch.ops.encoding import encode_position
 from nerf_keras_tpu_torch.ops.proposal import distill_proposal
-from nerf_keras_tpu_torch.ops.kernels import _build
+from nerf_keras_tpu_torch.ops.kernels import _build, fused_f32
 from nerf_keras_tpu_torch.ops.kernels import fused_mlp as k5
 from nerf_keras_tpu_torch.ops import quant
 from nerf_keras_tpu_torch.ops.kernels import fused_render as k1
@@ -487,6 +517,11 @@ SOURCES = {
             "nerf_keras_tpu/ops/pallas/fused_render.py:350"),
     "K7": ("nerf_keras_tpu_torch/csrc/pdf_union.cu", "experimental/pdf_union.py:54"),
 }
+# The float32 kernels (one source), by the JAX kernel each replaces in its
+# float32 instantiation.
+F32_SOURCE = "nerf_keras_tpu_torch/csrc/fused_render_f32.cu"
+SOURCES.update({f"{k}-f32": (F32_SOURCE, SOURCES[k][1])
+                for k in ("K1", "K2", "K3", "K5f", "K5b", "K6f", "K6b")})
 
 
 def say(phase: str, **fields) -> None:
@@ -604,6 +639,9 @@ def reset_counts() -> None:
     k1.enc_launches = k1.enc_bwd_launches = 0
     k5.launches = k5.bwd_launches = 0
     k4.launches = k7.launches = 0
+    fused_f32.launches = fused_f32.train_launches = fused_f32.bwd_launches = 0
+    fused_f32.recompute_launches = fused_f32.enc_launches = fused_f32.enc_bwd_launches = 0
+    fused_f32.mlp_launches = fused_f32.mlp_bwd_launches = 0
 
 
 
@@ -629,11 +667,20 @@ def phase_build() -> None:
     ptxas = [line.strip() for line in _build.build_log.splitlines()
              if line.startswith("==") or "registers" in line or "spill" in line
              or "serialized" in line]
+    # The kernels that spill, by name (ptxas reports a function's spills
+    # after the line that names it).
+    spills, name = [], None
+    for line in _build.build_log.splitlines():
+        found = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
+        if found:
+            name = found.group(1)
+        elif re.search(r"[1-9]\d* bytes spill stores", line) and name not in spills:
+            spills.append(name)
     for src in _build._sources():
         _build.load(src.stem)  # loads the library, declares argtypes
     say("build", seconds=seconds,
         libraries=[_build.library_path(s).name for s in _build._sources()],
-        ptxas=ptxas)
+        ptxas=ptxas, spills=spills)
 
 
 def library_products_ms(desc: np.ndarray, m: int, dtype: torch.dtype, dev) -> float:
@@ -1497,7 +1544,8 @@ def _eval_and_frame(trainer, batch, what: str) -> tuple[dict, dict]:
 
 
 ZERO = {"k1_fwd": 0, "k1_train": 0, "k2": 0, "k3": 0, "k5_fwd": 0, "k5_bwd": 0, "k4": 0,
-        "k6_fwd": 0, "k6_bwd": 0, "k7": 0}
+        "k6_fwd": 0, "k6_bwd": 0, "k7": 0, "k1_fwd_f32": 0, "k1_train_f32": 0, "k2_f32": 0,
+        "k3_f32": 0, "k5_fwd_f32": 0, "k5_bwd_f32": 0, "k6_fwd_f32": 0, "k6_bwd_f32": 0}
 
 
 def phase_train(card: str) -> tuple[list[dict], Trainer]:
@@ -3718,8 +3766,519 @@ def phase_keras(card: str, tmp: str, runs_dirs: dict[str, tuple[str, str]]) -> l
     return runs
 
 
+# ---------------------------------------------------------------------------
+# Phases 26 and 27: any hidden width up to 256 (the zero-padded wgmma packs)
+# and COMPUTE_DTYPE=float32 (the f32 kernels).
+
+# The f32 kernels against their plain versions, relative L2 on every output
+# and gradient.  The yardstick is the plain version (f32 products, TF32
+# off: per sample the kernels' arithmetic) with its weight- and
+# bias-gradient sums over the batch and its compositing taken in float64
+# (``_f64_yardstick``): the plain f32 version's own sums over 786,432
+# samples err by ~1e-5 on the sigma head's gradient (the sum of dsigma x h
+# cancels ~100x; two plain f32 runs that differ only in the order of the
+# rays differ by 5e-6 at 196,608 samples), and so does its f32 compositing
+# VJP (2e-6 from float64 at 196,608 samples).  Each kernel's distance to
+# the plain f32 version is reported beside it.  Products in float64 would
+# be no yardstick: they move pre-activations by an f32 ulp, which flips a
+# few hundred ReLU masks and the gradients by ~3e-4.
+F32_TOL_REL = 1e-5
+# One f32 train step's gradients, kernel path against plain path with the
+# same draws: the fine samples follow the coarse weights through
+# sample_pdf, which carries the kernels' rounding differences on.
+F32_STEP_TOL_REL = 1e-3
+WIDTHS_PADDED = (16, 96, 192)
+WIDTHS_NATIVE = (64, 128, 256)
+
+
+def peak_f32() -> float:
+    """The card's f32 FFMA peak, SMs x 128 lanes x 2 x the maximum SM clock
+    (nvidia-smi), FLOP/s: about 66.9e12 on an H100 SXM."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                         check=True).stdout
+    return sms * 128 * 2 * float(out.splitlines()[0]) * 1e6
+
+
+def _suite_mlp(dev, hidden: int, seed: int, dtype=torch.bfloat16, l_xyz: int = 10,
+               l_dir: int = 4) -> NeRFMLP:
+    gen = torch.Generator().manual_seed(seed)
+    return randomize_biases_(
+        NeRFMLP(num_layers=8, hidden_dim=hidden, skip_layer=4, l_xyz=l_xyz, l_dir=l_dir,
+                compute_dtype=dtype, generator=gen, device=dev), gen)
+
+
+def _suite_inputs(mlp: NeRFMLP, b: int, s: int, seed: int) -> dict:
+    """Rays, t-values, cotangents (rgb, weights, K5's predictions) and the
+    per-sample encodings in the MLP's compute dtype."""
+    dev = next(mlp.parameters()).device
+    _, o, d = (torch.as_tensor(x, device=dev) for x in bench_batch(b, seed))
+    gen = torch.Generator().manual_seed(seed)
+    t = generate_t_vals(2.0, 6.0, (b,), s, "stratified", generator=gen).to(dev).contiguous()
+    dt = mlp.compute_dtype
+    pts = o[:, None, :] + d[:, None, :] * t[..., None]
+    return {
+        "o": o, "d": d, "t": t,
+        "g_rgb": (torch.randn((b, 3), generator=gen) * 1e-3).to(dev),
+        "g_w": (torch.randn((b, s), generator=gen) * 1e-3).to(dev),
+        "g5": (torch.randn((b * s, 4), generator=gen) * 1e-2).to(dev),
+        "x_enc": encode_position(pts, mlp.l_xyz).to(dt).contiguous(),
+        "d_enc": encode_position(d, mlp.l_dir)[:, None, :].expand(b, s, -1).to(dt).contiguous(),
+    }
+
+
+SUITE = ("k1", "k1_train", "k2", "k3", "k6_fwd", "k6_bwd", "k5_fwd", "k5_bwd")
+
+
+def _suite_calls(mlp: NeRFMLP, x: dict) -> dict:
+    """Each kernel of the suite as a call on ``x``'s inputs, returning its
+    outputs as a list: K1 (rgb, weights), K1 in training mode (with its
+    predictions), K2 and K3 (gradients of <rgb, g_rgb> + <weights, g_w>
+    from K1's residuals), K6 forward and backward (over the per-sample
+    encodings), K5 forward and backward with input gradients."""
+    o, d, t, g_rgb, g_w = x["o"], x["d"], x["t"], x["g_rgb"], x["g_w"]
+    lx, ld = mlp.l_xyz, mlp.l_dir
+    b, s = t.shape
+    x2, d2 = x["x_enc"].reshape(b * s, -1), x["d_enc"].reshape(b * s, -1)
+    res = {}
+
+    def k1_train():
+        rgb, w, x_res, preds = k1.launch_k1(mlp, o, d, t, lx, ld, train=True)
+        res["k2"] = (x_res, preds)
+        return [rgb, w, preds]
+
+    def k2():
+        if "k2" not in res:
+            k1_train()
+        return k1.launch_k2(mlp, res["k2"][0], d, t, res["k2"][1], g_rgb, g_w, lx, ld)
+
+    def k3():
+        _, _, _, preds = k1.launch_k1(mlp, o, d, t, lx, ld, train=True, emit_xenc=False)
+        return k1.launch_k3(mlp, o, d, t, preds, g_rgb, g_w, lx, ld)
+
+    def k6_bwd():
+        _, _, preds = k1.launch_k6_fwd(mlp, x["x_enc"], x["d_enc"], t, train=True)
+        return k1.launch_k6_bwd(mlp, x["x_enc"], x["d_enc"], t, preds, g_rgb)
+
+    def k5_bwd():
+        grads, dx, dd = k5.launch_k5_bwd(mlp, x2, d2, x["g5"], True, True)
+        return grads + [dx, dd]
+
+    return {
+        "k1": lambda: list(k1.render_rays_fused(mlp, o, d, t, l_xyz=lx, l_dir=ld,
+                                                skip_layer=mlp.skip_layer)),
+        "k1_train": k1_train,
+        "k2": k2,
+        "k3": k3,
+        "k6_fwd": lambda: list(k1.apply_nerf_render_fused(mlp, x["x_enc"], x["d_enc"], t)),
+        "k6_bwd": k6_bwd,
+        "k5_fwd": lambda: [k5.launch_k5_fwd(mlp, x2, d2)],
+        "k5_bwd": k5_bwd,
+    }
+
+
+def _suite_plain(mlp: NeRFMLP, x: dict) -> dict:
+    """The plain versions of :func:`_suite_calls`, as calls."""
+    o, d, t, g_rgb, g_w = x["o"], x["d"], x["t"], x["g_rgb"], x["g_w"]
+    kw = dict(l_xyz=mlp.l_xyz, l_dir=mlp.l_dir, skip_layer=mlp.skip_layer)
+    b, s = t.shape
+    x2, d2 = x["x_enc"].reshape(b * s, -1), x["d_enc"].reshape(b * s, -1)
+
+    def k1_train():
+        with torch.no_grad():
+            rgb, w = k1.render_rays_reference(mlp, o, d, t, **kw)
+            return [rgb, w, mlp(x2, d2)]
+
+    def k5_bwd():
+        grads, dx, dd = k5.apply_nerf_mlp_reference_vjp(mlp, x2, d2, x["g5"], True)
+        return grads + [dx, dd]
+
+    def no_grad(fn):
+        def call():
+            with torch.no_grad():
+                return fn()
+        return call
+
+    vjp = lambda: k1.render_rays_reference_vjp(mlp, o, d, t, g_rgb, g_w, **kw)  # noqa: E731
+    return {
+        "k1": no_grad(lambda: list(k1.render_rays_reference(mlp, o, d, t, **kw))),
+        "k1_train": k1_train,
+        "k2": vjp,
+        "k3": vjp,
+        "k6_fwd": no_grad(lambda: list(k1.apply_nerf_render_reference(
+            mlp, x["x_enc"], x["d_enc"], t))),
+        "k6_bwd": lambda: k1.apply_nerf_render_reference_vjp(mlp, x["x_enc"], x["d_enc"], t,
+                                                             g_rgb),
+        "k5_fwd": no_grad(lambda: [mlp(x2, d2)]),
+        "k5_bwd": k5_bwd,
+    }
+
+
+def _suite_errors(got: list, want: list) -> dict:
+    """Max |diff|, mean |diff| (over the first two outputs: rgb/weights or
+    predictions) and the largest relative L2 over the outputs."""
+    rel = [_rel_l2(a, w) for a, w in zip(got, want)]
+    return {"max_abs": max(float((a.float() - w.float()).abs().max()) for a, w in zip(got, want)),
+            "mean_abs": max(float((a.float() - w.float()).abs().mean())
+                            for a, w in zip(got[:2], want[:2])),
+            "rel_l2": max(rel), "rel_l2_each": rel}
+
+
+def _bf16_gate_ok(name: str, e: dict) -> bool:
+    """K1-K6's bf16 gates (the same gates phases 3-5, 14 and 15 hold them
+    to), by the suite's error figures."""
+    if name in ("k1", "k6_fwd", "k1_train"):
+        return e["mean_abs"] <= TOL_MEAN and e["max_abs"] <= (
+            PREDS_TOL if name == "k1_train" else TOL_MAX)
+    if name == "k5_fwd":
+        return e["max_abs"] <= K5_PREDS_MAX and e["mean_abs"] <= K5_PREDS_MEAN
+    return e["rel_l2"] <= (K5_TOL_REL if name == "k5_bwd" else K2_TOL_REL)
+
+
+def _run_suite(mlp: NeRFMLP, x: dict, names=SUITE, reps: int = 5,
+               plain_ms: bool = False) -> dict:
+    """Every kernel of ``names`` once against its plain version, synchronised;
+    then its CUDA-event time (and, with ``plain_ms``, the plain version's)."""
+    calls, plain = _suite_calls(mlp, x), _suite_plain(mlp, x)
+    out = {}
+    for name in names:
+        with torch.no_grad():
+            got = calls[name]()
+            torch.cuda.synchronize()
+        want = plain[name]()
+        errs = _suite_errors(got, want)
+        errs["finite"] = all(bool(torch.isfinite(g.float()).all()) for g in got)
+        del got, want
+        with torch.no_grad():
+            errs["ms"] = cuda_ms(calls[name], reps=reps)
+        if plain_ms:
+            errs["plain_ms"] = cuda_ms(plain[name], reps=reps)
+        out[name] = errs
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_widths(card: str) -> dict:
+    """Phase 26: K1 (both modes), K2, K3, K5 (with input gradients) and K6
+    at hidden 16, 96 and 192 (zero-padded to 64, 128 and 256) against
+    their plain versions at the same width, within the bf16 gates; the same
+    kernels at 64, 128 and 256 for the padding's cost; K5's input
+    gradients (and K1/K2) at L 4/2 and 16/6; K4 at hidden 48, 96 and 192.
+    B = 1,024, S = 64."""
+    dev = torch.device("cuda")
+    b, s = 1024, 64
+    report = {"ms": {}}
+    cases = [(h, 10, 4) for h in WIDTHS_PADDED + WIDTHS_NATIVE]
+    cases += [(h, lx, ld) for h in (96, 256) for lx, ld in ((4, 2), (16, 6))]
+    for hidden, lx, ld in cases:
+        mlp = _suite_mlp(dev, hidden, seed=hidden + lx, l_xyz=lx, l_dir=ld)
+        x = _suite_inputs(mlp, b, s, seed=hidden)
+        names = SUITE if (lx, ld) == (10, 4) else ("k1", "k1_train", "k2", "k5_fwd", "k5_bwd")
+        res = _run_suite(mlp, x, names)
+        bad = [n for n, e in res.items() if not (e["finite"] and _bf16_gate_ok(n, e))]
+        say("widths", hidden=hidden, kernel_width=k1.kernel_width(hidden), l_xyz=lx, l_dir=ld,
+            B=b, S=s, results=res, failed=bad, card=card)
+        if bad:
+            raise RuntimeError(f"widths: hidden {hidden}, L {lx}/{ld}: {bad} miss the bf16 "
+                               f"gates: {res}")
+        report["ms"][(hidden, lx, ld)] = {n: e["ms"] for n, e in res.items()}
+        del mlp, x
+        torch.cuda.empty_cache()
+    # K4 at widths it pads (48 -> 64, 96 -> 128, 192 -> 256), against its
+    # plain version on the same tables; rays of the 64x64 orbit pose.
+    o, d = _orbit_rays(dev)
+    for hidden in (48, 96, 192):
+        mlp = _suite_mlp(dev, hidden, seed=hidden)
+        qp = _calibrated_qparams(mlp, dev)
+        t = generate_t_vals(2.0, 6.0, (o.shape[0],), s, "stratified",
+                            generator=torch.Generator().manual_seed(hidden)).to(dev).contiguous()
+        got = k4.render_rays_fused_quant(qp, o, d, t)
+        torch.cuda.synchronize()
+        errs = _errs(got, k4.render_rays_reference_quant(qp, o, d, t))
+        ms = cuda_ms(lambda: k4.render_rays_fused_quant(qp, o, d, t), reps=5)
+        finite = bool(torch.isfinite(got[0]).all() and torch.isfinite(got[1]).all())
+        say("widths_k4", hidden=hidden, kernel_width=k1.kernel_width(hidden, k4.K4_HIDDEN),
+            B=o.shape[0], S=s, **errs, tol_max=K4_TOL_MAX, tol_mean=K4_TOL_MEAN, ms=ms,
+            finite=finite, card=card)
+        if not finite or _miss(errs) > 1.0:
+            raise RuntimeError(f"widths: K4 at hidden {hidden} misses its gates: {errs}")
+        report["ms"][("k4", hidden)] = ms
+    # The padded pack never reaches a checkpoint, a digest or a Keras export:
+    # each written before and after a frame (which builds the packs) holds
+    # the same bytes in every array.
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = dataclasses.replace(parity_config(), hidden_dim=96)
+        trainer = Trainer(cfg, 2.0, 6.0, device="cuda")
+        files, digests = [], []
+        for i in range(2):
+            if i:
+                trainer.render_image(pose_spherical(30.0, -30.0, 4.0), 32, 32, 38.4)
+            path = os.path.join(tmp, f"{i}.ckpt.npz")
+            trainer.save(path, scene={"near": 2.0, "far": 6.0})
+            keras = os.path.join(tmp, f"{i}.weights.h5")
+            export_reference_weights(keras, trainer.params_tree(), cfg)
+            with np.load(path) as z:
+                files.append(({k: z[k].tobytes() for k in z.files}, open(keras, "rb").read()))
+            digests.append(trainer.infer_digest())
+        shapes = {n: tuple(p.shape) for n, p in trainer.params["fine"].named_parameters()}
+    same = files[0] == files[1] and digests[0] == digests[1]
+    say("widths_checkpoint", hidden=96, arrays_and_export_equal=same,
+        fine_shapes=shapes, card=card)
+    if not same or (shapes["feature.weight"], shapes["rgb.weight"]) != ((96, 96), (3, 48)):
+        raise RuntimeError("widths: building the padded pack changed a checkpoint, a digest "
+                           "or an export")
+    del trainer
+    torch.cuda.empty_cache()
+    return report
+
+
+class _F64SumDense(torch.autograd.Function):
+    """The plain float32 dense layer, ``x @ w.T + b`` forward and ``g @ w``
+    for the input's gradient, with its weight and bias gradients summed
+    over the batch in float64."""
+
+    @staticmethod
+    def forward(ctx, x, w, b):
+        ctx.save_for_backward(x, w)
+        return x @ w.T + b
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1]).double()
+        gw = (g2.T @ x.reshape(-1, x.shape[-1]).double()).float()
+        return g @ w, gw, g2.sum(0).float()
+
+
+def _volume_render_f64(preds, t_vals):
+    """``ops/volume.volume_render``'s compositing in float64, its outputs
+    rounded to float32 (depth is not used by the plain kernels)."""
+    p, t = preds.double(), t_vals.double()
+    rgb, sigma = torch.sigmoid(p[..., :3]), torch.relu(p[..., 3])
+    delta = torch.cat([torch.diff(t, dim=-1), torch.full_like(t[..., :1], 1e10)], dim=-1)
+    alpha = 1.0 - torch.exp(-sigma * delta)
+    trans = torch.cumprod(1.0 - alpha + 1e-10, dim=-1)
+    trans = torch.cat([torch.ones_like(trans[..., :1]), trans[..., :-1]], dim=-1)
+    weights = alpha * trans
+    return (weights[..., None] * rgb).sum(dim=-2).float(), None, weights.float()
+
+
+@contextlib.contextmanager
+def _f64_yardstick():
+    """The plain float32 MLP (``models/mlp._dense``) with its parameter
+    gradients summed in float64 (:class:`_F64SumDense`), and the plain
+    kernels' compositing in float64 (:func:`_volume_render_f64`)."""
+    from nerf_keras_tpu_torch.models import mlp as mlp_module
+
+    orig_dense, orig_vr = mlp_module._dense, k1.volume_render
+
+    def dense(x, layer, dtype):
+        if dtype != torch.float32:
+            raise ValueError("the float64 sums are a yardstick of float32 MLPs")
+        return _F64SumDense.apply(x.float(), layer.weight, layer.bias)
+
+    mlp_module._dense, k1.volume_render = dense, _volume_render_f64
+    try:
+        yield
+    finally:
+        mlp_module._dense, k1.volume_render = orig_dense, orig_vr
+
+
+def _f32_bounds(mlp: NeRFMLP, b: int, s: int, peak: float) -> dict:
+    """The least time of each f32 kernel of the suite at (B, S): its
+    products at the card's f32 FFMA peak, or its bytes (each input read
+    once, each output written once; f32 weights and encodings) at the
+    memory rate."""
+    n = b * s
+    fwd, dx = 2.0 * mlp_macs(mlp) * n, 2.0 * mlp_dx_macs(mlp, False) * n
+    dx_ig = 2.0 * mlp_dx_macs(mlp, True) * n
+    pb = param_bytes(mlp)
+    enc = (mlp.xyz_dim + mlp.dir_dim) * 4
+    rays = b * (24 + 12)
+    return {
+        "k1": bound(fwd, rays + n * 8 + pb, peak),
+        "k1_train": bound(fwd, rays + n * (8 + mlp.xyz_dim * 4 + 16) + pb, peak),
+        "k2": bound(2 * fwd + dx, n * (mlp.xyz_dim * 4 + 16 + 8) + b * 24 + 3 * pb, peak),
+        "k3": bound(2 * fwd + dx, n * (16 + 8) + b * 36 + 3 * pb, peak),
+        "k6_fwd": bound(fwd, n * (enc + 8) + b * 12 + pb, peak),
+        "k6_bwd": bound(2 * fwd + dx, n * (enc + 20) + b * 12 + 3 * pb, peak),
+        "k5_fwd": bound(fwd, n * (enc + 16) + pb, peak),
+        "k5_bwd": bound(2 * fwd + dx_ig, n * (2 * enc + 16) + 3 * pb, peak),
+    }
+
+
+def _f32_library_ms(mlp: NeRFMLP, dev, m: int) -> dict:
+    """Yardsticks, never called by the port: the forward's products as one
+    f32 ``torch.matmul`` per padded layer at M = ``m`` rows (TF32 off), and
+    the dW product as one f32 ``torch.matmul`` of A^T D per layer."""
+    fwd = library_products_ms(k1.kernel_pack(mlp, dev).desc, m, torch.float32, dev)
+    pack = fused_f32.kernel_pack_f32(mlp, dev)
+    pairs = [(torch.randn((m, int(k)), device=dev), torch.randn((m, int(n)), device=dev))
+             for k, n in pack.desc[:, :2]]
+    dw = cuda_ms(lambda: [torch.matmul(a.t(), d) for a, d in pairs], reps=5)
+    del pairs
+    torch.cuda.empty_cache()
+    return {"fwd": fwd, "dw": dw}
+
+
+def _f32_config(base, **changes):
+    return dataclasses.replace(base, compute_dtype="float32", **changes).validate()
+
+
+def _f32_steps(card: str, name: str, trainer, batch, steps: int, per_step: dict,
+               step_fn=None) -> dict:
+    run = _train_steps(trainer, batch, steps, per_step, step_fn=step_fn)
+    say("f32_train", path=name, steps=steps, **run, card=card)
+    if not all(np.isfinite(x) for x in run["loss_curve"]):
+        raise RuntimeError(f"f32 {name}: non-finite losses {run['loss_curve']}")
+    return run["launches"]
+
+
+def phase_f32(card: str, tmp: str) -> tuple[list[dict], dict]:
+    """Phase 27: COMPUTE_DTYPE=float32 at ``lego_batch_h256_tpu``'s full
+    widths (8x256, skip 4, L 10/4): (a) each f32 kernel against its plain
+    version (TF32 off) with its parameter-gradient sums and compositing in
+    float64 (``_f64_yardstick``) at B = 4,096, S = 192 within F32_TOL_REL,
+    its distance to the plain f32 version beside it, while the bf16 kernels on a bf16 copy of
+    the same weights and inputs miss the gate by 10x or more; times, bounds (the card's f32 FFMA peak) and the f32
+    library yardsticks; (b) parity steps through K1+K2 (one step's
+    gradients against the plain path with the same draws), K1+K3, K6 and
+    K5 (STOP_PDF_GRADIENT=false), and proposal-recipe steps, each with
+    exact f32 launch counts and no bf16 launch; (c) a 200x200 frame from
+    ``Trainer.render_image``; (d) one ``GET /render`` from the server on an
+    f32 checkpoint; (e) the verify recipe's tiny f32 config through
+    ``cli.train_synthetic``.  Returns the main paths' launches and the
+    kernels' figures."""
+    dev = torch.device("cuda")
+    b, s = 4096, 192
+    peak = peak_f32()
+    mlp = _suite_mlp(dev, 256, seed=27, dtype=torch.float32)
+    x = _suite_inputs(mlp, b, s, seed=27)
+    res = _run_suite(mlp, x, reps=3, plain_ms=True)  # errors vs the plain f32 version
+    bf = copy.deepcopy(mlp)
+    bf.compute_dtype = torch.bfloat16
+    xb = dict(x, x_enc=x["x_enc"].to(torch.bfloat16), d_enc=x["d_enc"].to(torch.bfloat16))
+    calls, calls_bf, plain = _suite_calls(mlp, x), _suite_calls(bf, xb), _suite_plain(mlp, x)
+    for name in SUITE:
+        e = res[name]
+        e["rel_l2_vs_plain_f32"], e["each_vs_plain_f32"] = e.pop("rel_l2"), e.pop("rel_l2_each")
+        with _f64_yardstick():
+            want = plain[name]()
+        with torch.no_grad():
+            got = calls[name]()
+            got_bf = calls_bf[name]()
+        errs = _suite_errors(got, want)
+        e.update(max_abs=errs["max_abs"], rel_l2=errs["rel_l2"], rel_l2_each=errs["rel_l2_each"],
+                 bf16_rel_l2=_suite_errors(got_bf, want)["rel_l2"])
+        del got, got_bf, want
+        torch.cuda.empty_cache()
+    del bf, xb, calls, calls_bf, plain
+    bounds = _f32_bounds(mlp, b, s, peak)
+    library = _f32_library_ms(mlp, dev, b * s)
+    for name, e in res.items():
+        e.update(bound_ms=bounds[name][0], bound_by=bounds[name][1])
+    say("f32_kernels", B=b, S=s, peak_f32_flops=peak, tol_rel=F32_TOL_REL, results=res,
+        library_ms=library, card=card)
+    bad = [n for n, e in res.items() if not (e["finite"] and e["rel_l2"] <= F32_TOL_REL)]
+    blind = [n for n, e in res.items() if e["bf16_rel_l2"] < 10 * F32_TOL_REL]
+    if bad or blind:
+        raise RuntimeError(f"f32: {bad} miss the f32 gate; the gate cannot tell bf16 "
+                           f"products from f32 for {blind}: {res}")
+    del mlp, x
+    torch.cuda.empty_cache()
+
+    runs = []
+    # (b) The parity step (64 + 128 samples) through each training path.
+    cfg = _f32_config(parity_config())
+    trainer = exp_train_paths.make_trainer(cfg)
+    batch = trainer.put_batch(bench_batch(cfg.batch_size))
+    losses, by_model, max_abs, _ = _grads_kernel_vs_plain(
+        cfg, trainer, batch, [(cfg.batch_size, cfg.ns_fine)], seed=4)
+    rel = max(max(v) for v in by_model.values())
+    say("f32_parity_grads_vs_plain", loss_kernel=losses[0], loss_plain=losses[1],
+        max_abs_err=max_abs, max_rel_l2=rel, tol_rel=F32_STEP_TOL_REL, card=card)
+    if rel > F32_STEP_TOL_REL:
+        raise RuntimeError(f"f32 parity step: kernel-path gradients disagree: {rel}")
+    per_step = {"b": dict(ZERO, k1_train_f32=2, k2_f32=2), "c": dict(ZERO, k1_train_f32=2,
+                                                                      k3_f32=2),
+                "a": dict(ZERO, k6_fwd_f32=2, k6_bwd_f32=2)}
+    for n, want in per_step.items():
+        step_fn = (None if n == "b" else
+                   make_train_step(cfg, 2.0, 6.0, render_pass=exp_train_paths.variant_pass(cfg, n)))
+        runs.append(_f32_steps(card, f"parity-{n}", trainer, batch, 3, want, step_fn))
+    ev, after = _eval_and_frame(trainer, batch, "f32 parity")
+    n_chunks = -(-200 * 200 // (cfg.test_batch_size or cfg.batch_size))
+    say("f32_frame", eval=ev, launches=after, card=card)
+    if after["k1_fwd_f32"] == 0 or any(v for k, v in after.items() if k != "k1_fwd_f32"):
+        raise RuntimeError(f"f32 eval and frame launched {after} ({n_chunks} chunks)")
+    runs.append(after)
+    ckpt = os.path.join(tmp, "f32.ckpt.npz")
+    trainer.save(ckpt, scene={"near": 2.0, "far": 6.0})
+    del trainer, batch
+    torch.cuda.empty_cache()
+    cfg5 = _f32_config(parity_config(stop_pdf_gradient=False))
+    trainer = exp_train_paths.make_trainer(cfg5)
+    batch = trainer.put_batch(bench_batch(cfg5.batch_size))
+    runs.append(_f32_steps(card, "parity-k5", trainer, batch, 3,
+                           dict(ZERO, k5_fwd_f32=2, k5_bwd_f32=2)))
+    del trainer, batch
+    torch.cuda.empty_cache()
+    cfgp = _f32_config(bench_config())
+    trainer = Trainer(cfgp, 2.0, 6.0, device="cuda")
+    batch = trainer.put_batch(bench_batch(cfgp.batch_size))
+    runs.append(_f32_steps(card, "proposal", trainer, batch, 3,
+                           dict(ZERO, k1_train_f32=1, k2_f32=1)))
+    del trainer, batch
+    torch.cuda.empty_cache()
+
+    # (d) The server on the f32 checkpoint.
+    cfg_file = _config_file(os.path.join(tmp, "f32.json"), COMPUTE_DTYPE="float32")
+    service = RenderService(load_config(cfg_file), ckpt, device="cuda")
+    server = serve(service, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        reset_counts()
+        png, seconds = _get(f"http://127.0.0.1:{server.server_address[1]}/render?theta=30"
+                            f"&phi=-30&radius=4&width=200&height=200&chunk=16384&map=rgb")
+        served = counts()
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    img = decode_png(png)
+    say("f32_serve", latency_s=seconds, shape=list(img.shape), std=float(img.std()),
+        launches=served, card=card)
+    if img.shape != (200, 200, 3) or img.std() == 0 or served != dict(ZERO, k1_fwd_f32=2 * 3):
+        raise RuntimeError(f"f32 /render: shape {img.shape}, launches {served}")
+    runs.append(served)
+    del service
+    torch.cuda.empty_cache()
+
+    # (e) The verify recipe's tiny f32 config through the training CLI.
+    tiny = os.path.join(tmp, "tiny_f32.json")
+    with open(tiny, "w") as f:
+        json.dump({"BATCH_SIZE": 128, "NS_COARSE": 8, "NS_FINE": 16, "HEIGHT": 20,
+                   "WIDTH": 20, "L_XYZ": 10, "L_DIR": 4, "NUM_LAYERS": 4, "HIDDEN_DIM": 64,
+                   "SKIP_LAYER": 4, "EPOCHS": 3, "LEARNING_RATE": 0.002,
+                   "BATCH_NORM": False, "WITH_GCS": False, "COMPUTE_DTYPE": "float32",
+                   "EVAL_EVERY": 2}, f)
+    _, out, launches = _cli(train_synthetic.main, ["--config", tiny, "--run-dir",
+                                                   os.path.join(tmp, "tiny_f32")])
+    losses = [float(m) for m in re.findall(r"^epoch \d+/\d+ loss=(\S+)", out, re.M)]
+    say("f32_train_cli", launches=launches, losses=losses, card=card)
+    bf16 = {k: v for k, v in _clean(launches).items() if not k.endswith("_f32") and v}
+    if bf16 or not launches["k1_train_f32"] or launches["k2_f32"] != launches["k1_train_f32"]:
+        raise RuntimeError(f"f32 train_cli: launches {launches}")
+    if len(losses) != 3 or not losses[-1] < losses[0]:
+        raise RuntimeError(f"f32 train_cli: losses {losses}")
+    runs.append(_clean(launches))
+    return runs, {"results": res, "library": library, "card": card}
+
+
 def _sum(runs: list[dict], key: str) -> int:
-    return sum(r[key] for r in runs)
+    return sum(r.get(key, 0) for r in runs)
 
 
 def main() -> None:
@@ -3781,6 +4340,11 @@ def main() -> None:
             "lego_batch_h256_tpu": (CONFIG, run_dir),
             "lego_batch_debug": (os.path.join(os.path.dirname(CONFIG), "lego_batch_debug.json"),
                                  os.path.join(tmp, "cli_bn"))})
+        torch.cuda.empty_cache()
+        wr = phase_widths(card)
+        torch.cuda.empty_cache()
+        f32_runs, f32r = phase_f32(card, tmp)
+        runs += f32_runs
     # Library yardsticks measured once and shared where two kernels do the
     # same products at the same M: K1's per-layer bf16 matmul at M = 4096 x
     # 192 is K5's forward at N = 786,432 and K6's forward at S=192; K2's dW
@@ -3836,6 +4400,24 @@ def main() -> None:
     kernels.append(kernel_entry("K4 quant_render_fwd (union-free, S=128)", "K4",
                                 n.get(("k4", 128), 0), r["err"], r["ms"], r["plain_ms"],
                                 r["bound"], r["library_ms"]))
+    # The float32 kernels (phase 27), each with its launches on phase 27's
+    # main paths; the products' and the dW product's f32 yardsticks.
+    res, lib = f32r["results"], f32r["library"]
+    for name, key, count, library in (
+            ("K1-f32 f32_fwd_kernel", "K1-f32", "k1_fwd_f32", lib["fwd"]),
+            ("K1-train-f32 f32_fwd_kernel (f32 residual)", "K1-f32", "k1_train_f32", lib["fwd"]),
+            ("K2-f32 f32_rows_kernel", "K2-f32", "k2_f32", lib["dw"]),
+            ("K3-f32 f32_rows_kernel (recompute)", "K3-f32", "k3_f32", lib["dw"]),
+            ("K5-fwd-f32 f32_fwd_kernel (no compositing)", "K5f-f32", "k5_fwd_f32", lib["fwd"]),
+            ("K5-bwd-f32 f32_rows_kernel (input gradients)", "K5b-f32", "k5_bwd_f32", lib["dw"]),
+            ("K6-fwd-f32 f32_fwd_kernel (encodings in)", "K6f-f32", "k6_fwd_f32", lib["fwd"]),
+            ("K6-bwd-f32 f32_rows_kernel (encodings in)", "K6b-f32", "k6_bwd_f32", lib["dw"])):
+        e = res[{"K1-f32": "k1_train" if "train" in name else "k1", "K2-f32": "k2",
+                 "K3-f32": "k3", "K5f-f32": "k5_fwd", "K5b-f32": "k5_bwd",
+                 "K6f-f32": "k6_fwd", "K6b-f32": "k6_bwd"}[key]]
+        kernels.append(kernel_entry(name, key, _sum(runs, count), e["max_abs"], e["ms"],
+                                    e["plain_ms"], (e["bound_ms"], e["bound_by"]), library))
+    say("widths_ms", ms={str(k): v for k, v in wr["ms"].items()}, card=card)
     for entry in kernels:
         if entry["launches"] == 0:
             raise RuntimeError(f"{entry['name']} was never launched on the main path")

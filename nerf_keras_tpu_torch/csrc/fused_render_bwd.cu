@@ -129,85 +129,9 @@ enum RowsMode {
   kK5 = 3,           // K5: as K6, seeded from the caller's g (no compositing)
 };
 
-// ---- 1. The compositing VJP: dpreds (B*S, 4) from K1's predictions.
-__global__ void __launch_bounds__(256)
-    composite_vjp_kernel(const float* t_vals, const float* preds, const float* g_rgb,
-                         const float* g_w, float* dpreds, int B, int S) {
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int ray = blockIdx.x * 8 + warp;
-  if (ray >= B) return;
-  float* dp = dpreds + (size_t)ray * S * 4;
-  const float* tr = t_vals + (size_t)ray * S;
-  const float* pr = preds + (size_t)ray * S * 4;
-  const float* gw = g_w != nullptr ? g_w + (size_t)ray * S : nullptr;
-  const float gr0 = g_rgb[(size_t)ray * 3 + 0];
-  const float gr1 = g_rgb[(size_t)ray * 3 + 1];
-  const float gr2 = g_rgb[(size_t)ray * 3 + 2];
-  const int chunk = (S + 31) / 32;
-  const int j0 = min(lane * chunk, S);
-  const int j1 = min(j0 + chunk, S);
-  float prod = 1.f;
-  for (int j = j0; j < j1; ++j) {
-    const float delta = j + 1 < S ? tr[j + 1] - tr[j] : kTerminalDelta;
-    const float alpha = 1.f - expf(-fmaxf(pr[j * 4 + 3], 0.f) * delta);
-    prod *= fmaxf(1.f - alpha, 0.f) + kEps;
-  }
-  float incl = prod;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const float v = __shfl_up_sync(0xffffffffu, incl, off);
-    if (lane >= off) incl *= v;
-  }
-  float trans = __shfl_up_sync(0xffffffffu, incl, 1);
-  if (lane == 0) trans = 1.f;
-  // Forward walk: p_j = w_j * dw_sum_j (stored), trans_j (stored).
-  float psum = 0.f;
-  for (int j = j0; j < j1; ++j) {
-    const float delta = j + 1 < S ? tr[j + 1] - tr[j] : kTerminalDelta;
-    const float alpha = 1.f - expf(-fmaxf(pr[j * 4 + 3], 0.f) * delta);
-    float dws = gw != nullptr ? gw[j] : 0.f;
-    dws = dws + gr0 * sigmoidf_(pr[j * 4 + 0]);
-    dws = dws + gr1 * sigmoidf_(pr[j * 4 + 1]);
-    dws = dws + gr2 * sigmoidf_(pr[j * 4 + 2]);
-    const float pj = alpha * trans * dws;
-    dp[j * 4 + 0] = pj;
-    dp[j * 4 + 1] = trans;
-    dp[j * 4 + 2] = dws;
-    psum += pj;
-    trans *= fmaxf(1.f - alpha, 0.f) + kEps;
-  }
-  // Exclusive suffix over lanes of the chunk sums.
-  float sincl = psum;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const float v = __shfl_down_sync(0xffffffffu, sincl, off);
-    if (lane + off < 32) sincl += v;
-  }
-  float suffix = __shfl_down_sync(0xffffffffu, sincl, 1);
-  if (lane == 31) suffix = 0.f;
-  // Reverse walk of the chunk: suffix = sum_{k > j} p_k.
-  for (int j = j1 - 1; j >= j0; --j) {
-    const float pj = dp[j * 4 + 0];
-    const float tj = dp[j * 4 + 1];
-    const float dws = dp[j * 4 + 2];
-    const float delta = j + 1 < S ? tr[j + 1] - tr[j] : kTerminalDelta;
-    const float sigma = fmaxf(pr[j * 4 + 3], 0.f);
-    const float alpha = 1.f - expf(-sigma * delta);
-    const float dalpha = tj * dws - suffix / (fmaxf(1.f - alpha, 0.f) + kEps);
-    suffix += pj;
-    const float dsigma = sigma > 0.f ? dalpha * (delta * expf(-sigma * delta)) : 0.f;
-    const float gr[3] = {gr0, gr1, gr2};
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      const float rc = sigmoidf_(pr[j * 4 + c]);
-      dp[j * 4 + c] = gr[c] * alpha * tj * rc * (1.f - rc);
-    }
-    dp[j * 4 + 3] = dsigma;
-  }
-}
+// ---- 1. The compositing VJP: composite_vjp_kernel (nerf_tile.cuh, shared
+// with the float32 backward, fused_render_f32.cu).
 
-// ---- 2. The rows kernel over one chunk of samples.
 struct RowParams {
   MlpBwdParams mb;             // wgmma packs, the chunk's workspaces, descriptors
   const __nv_bfloat16* x_res;  // (B*S, xyz_dim): K2's residual, K6's x_enc
@@ -223,7 +147,7 @@ struct RowParams {
   int nc, ntiles, S, total_b, accumulate, stages, stage_bytes, sld;
 };
 
-template <int H, int MODE, bool kIG = false>
+template <int H, int MODE, bool kIG = false, int kXC = 64, int kDC = 32>
 __device__ __forceinline__ void rows_body(const RowParams& p) {
   extern __shared__ __align__(128) unsigned char smem[];
   const MlpBwdParams& mb = p.mb;
@@ -256,7 +180,7 @@ __device__ __forceinline__ void rows_body(const RowParams& p) {
     if (warp == kConsumerWarps && lane == 0) {
       RingPos rp;
       for (int tile = blockIdx.x; tile < p.ntiles; tile += gridDim.x)
-        produce_backward<kIG>(mb, ring, rp);
+        produce_backward<kIG>(mb, ring, rp, kIG ? ig_ks(kXC, kDC) : kKs);
     }
     return;
   }
@@ -295,7 +219,7 @@ __device__ __forceinline__ void rows_body(const RowParams& p) {
       auto xf = [&](int row, int c) { return p.x_res[(q0 + row) * m.xyz_dim + c]; };
       __nv_bfloat16* dx = kIG && p.dx_out != nullptr ? p.dx_out + q0 * m.xyz_dim : nullptr;
       __nv_bfloat16* dd = kIG && p.dd_out != nullptr ? p.dd_out + q0 * m.dir_dim : nullptr;
-      mlp_backward_wg<H, kIG>(mb, wact, wmasks, scratch, p.sld, db, xf, dir, g, valid, rbase,
+      mlp_backward_wg<H, kIG, kXC, kDC>(mb, wact, wmasks, scratch, p.sld, db, xf, dir, g, valid, rbase,
                               ring, rp, dx, dd);
     }
   }
@@ -322,19 +246,25 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   rows_body<H, kEncodingsIn>(p);
 }
 
-template <int H, bool kIG>
+template <int H, bool kIG, int kXC = 64, int kDC = 32>
 __global__ void __launch_bounds__(kWgThreads, 1)
     k5_rows_kernel(const __grid_constant__ RowParams p) {
-  rows_body<H, kK5, kIG>(p);
+  rows_body<H, kK5, kIG, kXC, kDC>(p);
 }
 
 template <int H>
-void (*pick_rows(int mode, bool ig))(const RowParams) {
+void (*pick_ig(int kxc, int kdc))(const RowParams) {
+  if (kxc == 64) return kdc == 32 ? k5_rows_kernel<H, true, 64, 32> : k5_rows_kernel<H, true, 64, 64>;
+  return kdc == 32 ? k5_rows_kernel<H, true, 128, 32> : k5_rows_kernel<H, true, 128, 64>;
+}
+
+template <int H>
+void (*pick_rows(int mode, bool ig, int kxc, int kdc))(const RowParams) {
   switch (mode) {
     case kResidual: return k2_rows_kernel<H>;
     case kRecompute: return k3_rows_kernel<H>;
     case kEncodingsIn: return k6_rows_kernel<H>;
-    default: return ig ? k5_rows_kernel<H, true> : k5_rows_kernel<H, false>;
+    default: return ig ? pick_ig<H>(kxc, kdc) : k5_rows_kernel<H, false>;
   }
 }
 
@@ -412,12 +342,13 @@ extern "C" int nkt_fused_render_bwd(
   p.S = S;
   p.total_b = total_b;
   p.sld = hidden;
+  const int kxc = ig_xcols(mb.m.xyz_dim), kdc = ig_dcols(mb.m.dir_dim);
   int sb = wg_stage_bytes(mb.m.dense, n_dense);
-  const int sbb = wg_stage_bytes(mb.bdense, n_dense);
+  const int sbb = wg_stage_bytes(mb.bdense, n_dense, ig ? ig_ks(kxc, kdc) : kKs);
   p.stage_bytes = sb > sbb ? sb : sbb;
 
   if (mode != kK5) {
-    composite_vjp_kernel<<<(B + 7) / 8, 256, 0, st>>>(
+    composite_vjp_kernel<float><<<(B + 7) / 8, 256, 0, st>>>(
         static_cast<const float*>(t_vals), static_cast<const float*>(preds),
         static_cast<const float*>(g_rgb), static_cast<const float*>(g_w),
         static_cast<float*>(dpreds), B, S);
@@ -432,9 +363,9 @@ extern "C" int nkt_fused_render_bwd(
   const size_t fit = ((size_t)kMaxSmem - rest) / p.stage_bytes;
   p.stages = fit < (size_t)kMaxStages ? (int)fit : kMaxStages;
   const size_t smem = rest + (size_t)p.stages * p.stage_bytes;
-  void (*kernel)(const RowParams) = hidden == 64    ? pick_rows<64>(mode, ig)
-                                    : hidden == 128 ? pick_rows<128>(mode, ig)
-                                                    : pick_rows<256>(mode, ig);
+  void (*kernel)(const RowParams) = hidden == 64    ? pick_rows<64>(mode, ig, kxc, kdc)
+                                    : hidden == 128 ? pick_rows<128>(mode, ig, kxc, kdc)
+                                                    : pick_rows<256>(mode, ig, kxc, kdc);
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
 

@@ -53,13 +53,16 @@ __device__ __forceinline__ float encode_feature(const float* x, int c, int dim) 
 
 __device__ __forceinline__ float sigmoidf_(float x) { return 1.f / (1.f + expf(-x)); }
 
-// Alpha compositing of `nrays` rays of S samples (K1 and K4): relu sigma,
-// sigmoid rgb, a 1e10 terminal delta, weights alpha * T with the exclusive
-// transmittance T = prod(max(1 - alpha, 0) + 1e-10).  One warp per ray, a
-// contiguous chunk of samples per lane plus a multiplicative warp scan.
-// t: (nrays, S) global; sig (nrays*S) and rgbl (nrays*S, 3): per-sample
-// sigma and rgb logits (shared memory).  Writes w_out (nrays, S) and
-// rgb_out (nrays, 3).  No block-level sync inside.
+// Alpha compositing of `nrays` rays of S samples (K1, K4 and the float32
+// kernels): relu sigma, sigmoid rgb, a 1e10 terminal delta, weights alpha *
+// T with the exclusive transmittance T = prod(max(1 - alpha, 0) + 1e-10).
+// One warp per ray, a contiguous chunk of samples per lane plus a
+// multiplicative warp scan.  t: (nrays, S) global; sigma of sample q at
+// sig[q * kSigStride], its rgb logits at rgbl[q * kRgbStride + c] (shared
+// memory for the bf16 and int8 kernels; the float32 kernels read their
+// (N, 4) predictions in global memory with strides 4 and 4).  Writes w_out
+// (nrays, S) and rgb_out (nrays, 3).  No block-level sync inside.
+template <int kSigStride = 1, int kRgbStride = 3>
 __device__ __forceinline__ void composite_rays(const float* t, const float* sig,
                                                const float* rgbl, int nrays, int S,
                                                float* w_out, float* rgb_out) {
@@ -68,13 +71,13 @@ __device__ __forceinline__ void composite_rays(const float* t, const float* sig,
   const int chunk = (S + 31) / 32;
   for (int r = warp; r < nrays; r += kWarps) {
     const float* tr = t + (size_t)r * S;
-    const float* sg = sig + r * S;
+    const float* sg = sig + (size_t)r * S * kSigStride;
     const int j0 = min(lane * chunk, S);
     const int j1 = min(j0 + chunk, S);
     float prod = 1.f;
     for (int j = j0; j < j1; ++j) {
       const float delta = j + 1 < S ? tr[j + 1] - tr[j] : kTerminalDelta;
-      const float alpha = 1.f - expf(-fmaxf(sg[j], 0.f) * delta);
+      const float alpha = 1.f - expf(-fmaxf(sg[j * kSigStride], 0.f) * delta);
       prod *= fmaxf(1.f - alpha, 0.f) + kEps;
     }
     float incl = prod;
@@ -87,16 +90,16 @@ __device__ __forceinline__ void composite_rays(const float* t, const float* sig,
     if (lane == 0) trans = 1.f;
     float cr = 0.f, cg = 0.f, cb = 0.f;
     float* wr = w_out + (size_t)r * S;
-    const float* lg = rgbl + (size_t)r * S * 3;
+    const float* lg = rgbl + (size_t)r * S * kRgbStride;
     for (int j = j0; j < j1; ++j) {
       const float delta = j + 1 < S ? tr[j + 1] - tr[j] : kTerminalDelta;
-      const float alpha = 1.f - expf(-fmaxf(sg[j], 0.f) * delta);
+      const float alpha = 1.f - expf(-fmaxf(sg[j * kSigStride], 0.f) * delta);
       const float w = alpha * trans;
       trans *= fmaxf(1.f - alpha, 0.f) + kEps;
       wr[j] = w;
-      cr += w * sigmoidf_(lg[j * 3 + 0]);
-      cg += w * sigmoidf_(lg[j * 3 + 1]);
-      cb += w * sigmoidf_(lg[j * 3 + 2]);
+      cr += w * sigmoidf_(lg[j * kRgbStride + 0]);
+      cg += w * sigmoidf_(lg[j * kRgbStride + 1]);
+      cb += w * sigmoidf_(lg[j * kRgbStride + 2]);
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) {
@@ -112,6 +115,102 @@ __device__ __forceinline__ void composite_rays(const float* t, const float* sig,
   }
 }
 
+// The compositing VJP (K2, K3, K6 and the float32 backward): dpreds (B*S,
+// 4) from K1's predictions.
+// T: the arithmetic of the VJP, float for the bf16 backwards and double for
+// the float32 one (fused_render_f32.cu), whose rays' cancelling terms
+// (dalpha = T dw - suffix / (1 - alpha)) would otherwise carry the f32
+// rounding of this formula into the sigma head's gradient.  dpreds holds
+// each sample's p_j and trans_j (two T) between the walks.
+__device__ __forceinline__ float t_exp(float x) { return expf(x); }
+__device__ __forceinline__ double t_exp(double x) { return exp(x); }
+__device__ __forceinline__ float t_max(float a, float b) { return fmaxf(a, b); }
+__device__ __forceinline__ double t_max(double a, double b) { return fmax(a, b); }
+template <class T>
+__device__ __forceinline__ T t_sigmoid(T x) { return T(1) / (T(1) + t_exp(-x)); }
+
+template <class T = float>
+__global__ void __launch_bounds__(256)
+    composite_vjp_kernel(const float* t_vals, const float* preds, const float* g_rgb,
+                         const float* g_w, float* dpreds, int B, int S) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int ray = blockIdx.x * 8 + warp;
+  if (ray >= B) return;
+  float* dp = dpreds + (size_t)ray * S * 4;
+  const float* tr = t_vals + (size_t)ray * S;
+  const float* pr = preds + (size_t)ray * S * 4;
+  const float* gw = g_w != nullptr ? g_w + (size_t)ray * S : nullptr;
+  const T gr0 = g_rgb[(size_t)ray * 3 + 0];
+  const T gr1 = g_rgb[(size_t)ray * 3 + 1];
+  const T gr2 = g_rgb[(size_t)ray * 3 + 2];
+  const T eps = T(1e-10), terminal = T(1e10), zero = T(0), one = T(1);
+  const int chunk = (S + 31) / 32;
+  const int j0 = min(lane * chunk, S);
+  const int j1 = min(j0 + chunk, S);
+  auto delta_at = [&](int j) { return j + 1 < S ? T(tr[j + 1]) - T(tr[j]) : terminal; };
+  auto dws_at = [&](int j) {
+    T dws = gw != nullptr ? T(gw[j]) : zero;
+    dws = dws + gr0 * t_sigmoid(T(pr[j * 4 + 0]));
+    dws = dws + gr1 * t_sigmoid(T(pr[j * 4 + 1]));
+    dws = dws + gr2 * t_sigmoid(T(pr[j * 4 + 2]));
+    return dws;
+  };
+  T prod = one;
+  for (int j = j0; j < j1; ++j) {
+    const T alpha = one - t_exp(-t_max(T(pr[j * 4 + 3]), zero) * delta_at(j));
+    prod *= t_max(one - alpha, zero) + eps;
+  }
+  T incl = prod;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const T v = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl *= v;
+  }
+  T trans = __shfl_up_sync(0xffffffffu, incl, 1);
+  if (lane == 0) trans = one;
+  // Forward walk: p_j = w_j * dw_sum_j and trans_j (stored).
+  T psum = zero;
+  for (int j = j0; j < j1; ++j) {
+    const T alpha = one - t_exp(-t_max(T(pr[j * 4 + 3]), zero) * delta_at(j));
+    const T pj = alpha * trans * dws_at(j);
+    T* held = reinterpret_cast<T*>(dp + j * 4);
+    held[0] = pj;
+    held[1] = trans;
+    psum += pj;
+    trans *= t_max(one - alpha, zero) + eps;
+  }
+  // Exclusive suffix over lanes of the chunk sums.
+  T sincl = psum;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const T v = __shfl_down_sync(0xffffffffu, sincl, off);
+    if (lane + off < 32) sincl += v;
+  }
+  T suffix = __shfl_down_sync(0xffffffffu, sincl, 1);
+  if (lane == 31) suffix = zero;
+  // Reverse walk of the chunk: suffix = sum_{k > j} p_k.
+  for (int j = j1 - 1; j >= j0; --j) {
+    const T* held = reinterpret_cast<const T*>(dp + j * 4);
+    const T pj = held[0];
+    const T tj = held[1];
+    const T dws = dws_at(j);
+    const T delta = delta_at(j);
+    const T sigma = t_max(T(pr[j * 4 + 3]), zero);
+    const T alpha = one - t_exp(-sigma * delta);
+    const T dalpha = tj * dws - suffix / (t_max(one - alpha, zero) + eps);
+    suffix += pj;
+    const T dsigma = sigma > zero ? dalpha * (delta * t_exp(-sigma * delta)) : zero;
+    const T gr[3] = {gr0, gr1, gr2};
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const T rc = t_sigmoid(T(pr[j * 4 + c]));
+      dp[j * 4 + c] = float(gr[c] * alpha * tj * rc * (one - rc));
+    }
+    dp[j * 4 + 3] = float(dsigma);
+  }
+}
+
 // ---------------------------------------------------------------------------
 // The network as the kernels see it.
 
@@ -121,6 +220,12 @@ struct MlpDims {
   int ldx;                  // row stride (bf16) of the activation tiles
   Dense dense[kMaxDense];   // the forward pack (W^T): trunk, merged head, branch, rgb
 };
+
+// The x_enc and d_enc gradient columns of K5's input-gradient products
+// (nerf_wgmlp.cuh: mlp_backward_wg): 64 or 128 (xyz_dim <= 128: L_XYZ <=
+// 20) and 32 or 64 (dir_dim <= 64: L_DIR <= 10).
+__host__ __device__ constexpr int ig_xcols(int xyz_dim) { return xyz_dim <= 64 ? 64 : 128; }
+__host__ __device__ constexpr int ig_dcols(int dir_dim) { return dir_dim <= 32 ? 32 : 64; }
 
 // Host side: fill `m` from the launch arguments and the forward pack's
 // descriptors (a host array of n_dense * 5 ints: k_pad, n, n_pad, w_off,
@@ -137,7 +242,11 @@ inline bool mlp_dims_init(MlpDims& m, const int* desc, int n_dense, int num_laye
   m.xyz_pad = round_up(m.xyz_dim, 16);
   m.dir_dim = 3 + 6 * l_dir;
   m.dir_pad = round_up(m.dir_dim, 16);
-  const int kmax = hidden + (m.xyz_pad > m.dir_pad ? m.xyz_pad : m.dir_pad);
+  // The activation tile holds hidden + the widest encoding part of a
+  // layer's input or of K5's input-gradient products (which pad x_enc to
+  // ig_xcols and d_enc to ig_dcols columns, at least xyz_pad and dir_pad).
+  const int ix = ig_xcols(m.xyz_dim), id = ig_dcols(m.dir_dim);
+  const int kmax = hidden + (ix > id ? ix : id);
   // +8 bf16: row stride of 4 (mod 8) words keeps A-fragment loads
   // conflict-free.
   m.ldx = kmax + 8;

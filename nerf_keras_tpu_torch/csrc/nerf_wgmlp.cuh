@@ -57,6 +57,7 @@ constexpr int kConsumerWarps = kWgConsumers / 32;
 constexpr int kProducerRegs = 40;   // setmaxnreg: the producer's warpgroup gives
 constexpr int kConsumerRegs = 232;  // registers to the consumers' (2 x 232 + 40 <= 512)
 constexpr int kKs = 64;        // k per weight stage
+constexpr int kKsNarrow = 32;  // k per stage of the wide input-gradient packs
 constexpr int kMaxStages = 8;  // ring stages at most
 constexpr int kBarBytes = 2 * kMaxStages * 8;
 
@@ -88,11 +89,11 @@ inline bool wg_dims_ok(const MlpDims& m) {
          m.dense[L + 2].n_pad == 8;
 }
 
-// Bytes of one weight stage: the widest layer's k-slice.
-inline int wg_stage_bytes(const Dense* d, int n) {
+// Bytes of one weight stage: the widest layer's k-slice of `ks` k.
+inline int wg_stage_bytes(const Dense* d, int n, int ks = kKs) {
   int w = 0;
   for (int i = 0; i < n; ++i) w = d[i].n_pad > w ? d[i].n_pad : w;
-  return w * kKs * 2;
+  return w * ks * 2;
 }
 
 struct WRing {
@@ -124,11 +125,14 @@ __device__ __forceinline__ void ring_init(const WRing& r) {
   fence_mbar_init();
 }
 
-// Producer: every k-slice of one layer of the pack `w`, in order.
+// Producer: every k-slice of one layer of the pack `w`, in order; `ks`:
+// the pack's k per slice (kKs, or kKsNarrow for the input-gradient packs
+// whose stages would not fit two in shared memory at kKs).
 __device__ __forceinline__ void produce_layer(const WRing& r, RingPos& p,
-                                              const __nv_bfloat16* w, const Dense& L) {
-  for (int k0 = 0; k0 < L.k_pad; k0 += kKs) {
-    const int kw = min(kKs, L.k_pad - k0);
+                                              const __nv_bfloat16* w, const Dense& L,
+                                              int ks = kKs) {
+  for (int k0 = 0; k0 < L.k_pad; k0 += ks) {
+    const int kw = min(ks, L.k_pad - k0);
     const uint32_t bytes = static_cast<uint32_t>(L.n_pad * kw * 2);
     mbar_wait(&r.empty[p.st], p.ph ^ 1u);
     mbar_expect_tx(&r.full[p.st], bytes);
@@ -151,20 +155,21 @@ __device__ __forceinline__ void load_a(uint32_t a[4], const __nv_bfloat16* act, 
 // acc[0, N/2) = act[64 rows of the warpgroup, 0:k_pad) @ columns [0, N)
 // of the layer's stages and, with NX > 0, accx[0, NX/2) += the same rows @
 // columns [N, N + NX) (the caller zeroes accx where a sum starts); `np`:
-// the stages' width (the layer's n_pad).  Consumes ceil(k_pad / kKs)
-// stages of the ring.
-template <int N, int NX = 0>
+// the stages' width (the layer's n_pad); KS: the pack's k per stage.
+// Consumes ceil(k_pad / KS) stages of the ring.
+template <int N, int NX = 0, int KS = kKs>
 __device__ __forceinline__ void wg_product(float* acc, const __nv_bfloat16* act, int ldx,
                                            int k_pad, const WRing& r, RingPos& c,
                                            float* accx = nullptr, int np = N + NX) {
-  static_assert(N % 8 == 0 && NX % 8 == 0 && N <= 264 && NX <= 64, "wgmma widths");
-  constexpr int kSteps = kKs / 16;
+  static_assert(N % 8 == 0 && NX % 8 == 0 && N <= 264 && NX <= 128, "wgmma widths");
+  static_assert(KS % 16 == 0 && KS <= kKs, "k per stage");
+  constexpr int kSteps = KS / 16;
   if constexpr (N > 0) {
 #pragma unroll
     for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
   }
-  for (int k0 = 0; k0 < k_pad; k0 += kKs) {
-    const int steps = min(kKs, k_pad - k0) >> 4;  // block-uniform
+  for (int k0 = 0; k0 < k_pad; k0 += KS) {
+    const int steps = min(KS, k_pad - k0) >> 4;  // block-uniform
     uint32_t a[kSteps][4];
 #pragma unroll
     for (int q = 0; q < kSteps; ++q)
@@ -464,26 +469,32 @@ __device__ __forceinline__ void rows_out(const __nv_bfloat16* act, int ldx, __nv
 //     (the forward bias-pack layout), through `scratch` (2 x 8 rows of sld
 //     floats).
 // With kIG (K5's input gradients; the pack then holds every input column,
-// the x_enc part of a layer padded to kXCols, the direction part of the
-// branch to kDCols) the walk also runs the products K2's skips: the
+// the x_enc part of a layer padded to kXC, the direction part of the
+// branch to kDC) the walk also runs the products K2's skips: the
 // branch's direction columns, rounded once to bf16, go to dd (the warp's
 // rows, row stride dir_dim); the x_enc columns of each layer whose input
 // has the skip concat, from the top down, then layer 0's product, are
-// summed in f32 in kXCols/2 registers a thread (wgmma accumulates each
+// summed in f32 in kXC/2 registers a thread (wgmma accumulates each
 // product into them) and rounded once to bf16 into dx (row stride
 // xyz_dim).  dx or dd may be null (not written).
 // The workspace rows are rbase + [0, 16) of p.N rows per layer.  The
 // producer streams produce_backward<kIG>'s order.
-constexpr int kXCols = 64;  // x_enc gradient columns of K5's product (xyz_dim <= 64)
-constexpr int kDCols = 32;  // d_enc gradient columns (dir_dim <= 32)
+// kXC, kDC: the x_enc and d_enc gradient columns of K5's products
+// (nerf_tile.cuh: ig_xcols, ig_dcols).  Beyond (64, 32) the transposed
+// pack's stages are kKsNarrow deep (ig_ks), so that two of them still fit
+// beside the activation tile.
+__host__ __device__ constexpr int ig_ks(int kxc, int kdc) {
+  return kxc == 64 && kdc == 32 ? kKs : kKsNarrow;
+}
 
-template <int H, bool kIG = false, class XFn, class DirFn>
+template <int H, bool kIG = false, int kXC = 64, int kDC = 32, class XFn, class DirFn>
 __device__ __forceinline__ void mlp_backward_wg(const MlpBwdParams& p, __nv_bfloat16* act,
                                                 uint32_t* masks, float* scratch, int sld,
                                                 float* db, XFn xf, DirFn dir, const float* g,
                                                 int valid, int rbase, const WRing& ring,
                                                 RingPos& rp, __nv_bfloat16* dx = nullptr,
                                                 __nv_bfloat16* dd = nullptr) {
+  constexpr int KSB = kIG ? ig_ks(kXC, kDC) : kKs;  // the transposed pack's k per stage
   const MlpDims& m = p.m;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int ldx = m.ldx, L = m.num_layers, MW = p.mask_words;
@@ -508,19 +519,19 @@ __device__ __forceinline__ void mlp_backward_wg(const MlpBwdParams& p, __nv_bflo
     __syncwarp();
   };
   float acc[(H + 8) / 2];
-  float xs[kIG ? kXCols / 2 : 1];  // kIG: the encodings' gradient columns, f32
+  float xs[kIG ? kXC / 2 : 1];  // kIG: the encodings' gradient columns, f32
   // The dX product of dense layer i (i >= 1) into acc: the hidden columns
   // of its input and, with kIG where that input has the skip concat, its
   // x_enc columns added into xs.
   auto dx_product = [&](int i) {
     if constexpr (kIG) {
       if (is_skip(i - 1, m.skip_layer)) {
-        wg_product<H, kXCols>(acc, act, ldx, p.bdense[i].k_pad, ring, rp, xs,
-                              p.bdense[i].n_pad);
+        wg_product<H, kXC, KSB>(acc, act, ldx, p.bdense[i].k_pad, ring, rp, xs,
+                                p.bdense[i].n_pad);
         return;
       }
     }
-    wg_product<H>(acc, act, ldx, p.bdense[i].k_pad, ring, rp);
+    wg_product<H, 0, KSB>(acc, act, ldx, p.bdense[i].k_pad, ring, rp);
   };
 
   // ---- Forward recompute, storing each layer's input (A).
@@ -573,7 +584,7 @@ __device__ __forceinline__ void mlp_backward_wg(const MlpBwdParams& p, __nv_bflo
   sb ^= 1;
   store_ws(act, ldx, p.ws_d + N * p.bwd[L + 2].d_col, dw_rgb, rbase);
   // dh2 = drgb W_rgb^T, masked by h2 > 0: the branch's dPre.
-  wg_product<H / 2>(acc, act, ldx, p.bdense[L + 2].k_pad, ring, rp);
+  wg_product<H / 2, 0, KSB>(acc, act, ldx, p.bdense[L + 2].k_pad, ring, rp);
   __syncwarp();
   epi_bwd<H / 2, true>(acc, act, ldx, masks + L * mslot, MW, srow());
   __syncwarp();
@@ -583,21 +594,21 @@ __device__ __forceinline__ void mlp_backward_wg(const MlpBwdParams& p, __nv_bflo
   // the direction columns too: dd_enc.
   if constexpr (kIG) {
 #pragma unroll
-    for (int i = 0; i < kDCols / 2; ++i) xs[i] = 0.f;
-    wg_product<H, kDCols>(acc, act, ldx, p.bdense[L + 1].k_pad, ring, rp, xs,
-                          p.bdense[L + 1].n_pad);
+    for (int i = 0; i < kDC / 2; ++i) xs[i] = 0.f;
+    wg_product<H, kDC, KSB>(acc, act, ldx, p.bdense[L + 1].k_pad, ring, rp, xs,
+                            p.bdense[L + 1].n_pad);
   } else {
-    wg_product<H>(acc, act, ldx, p.bdense[L + 1].k_pad, ring, rp);
+    wg_product<H, 0, KSB>(acc, act, ldx, p.bdense[L + 1].k_pad, ring, rp);
   }
   __syncwarp();
   epi_bwd<H, false>(acc, act, ldx, nullptr, 0, srow());
   if constexpr (kIG) {
     if (dd != nullptr) {
-      epi_store<kDCols>(xs, act + H, ldx);
+      epi_store<kDC>(xs, act + H, ldx);
       rows_out(act + H, ldx, dd, m.dir_dim, valid);
     }
 #pragma unroll
-    for (int i = 0; i < kXCols / 2; ++i) xs[i] = 0.f;
+    for (int i = 0; i < kXC / 2; ++i) xs[i] = 0.f;
   }
   const int dw_fs = p.bwd[L].d_width;
   for (int j = lane; j < 16 * (dw_fs - H); j += 32) {
@@ -626,10 +637,10 @@ __device__ __forceinline__ void mlp_backward_wg(const MlpBwdParams& p, __nv_bflo
   }
   if constexpr (kIG) {
     // Layer 0's input is the encoding alone: its product adds into xs.
-    wg_product<0, kXCols>(nullptr, act, ldx, p.bdense[0].k_pad, ring, rp, xs,
-                          p.bdense[0].n_pad);
+    wg_product<0, kXC, KSB>(nullptr, act, ldx, p.bdense[0].k_pad, ring, rp, xs,
+                            p.bdense[0].n_pad);
     if (dx != nullptr) {
-      epi_store<kXCols>(xs, act, ldx);
+      epi_store<kXC>(xs, act, ldx);
       rows_out(act, ldx, dx, m.xyz_dim, valid);
     }
   }
@@ -637,30 +648,33 @@ __device__ __forceinline__ void mlp_backward_wg(const MlpBwdParams& p, __nv_bflo
 
 // The producer's side of mlp_backward_wg: the recompute's layers of the
 // forward pack, then the walk's of the transposed pack (with kIG layer 0's
-// too).
+// too), `ksb` deep (the consumers' KSB).
 template <bool kIG = false>
 __device__ __forceinline__ void produce_backward(const MlpBwdParams& p, const WRing& ring,
-                                                 RingPos& rp) {
+                                                 RingPos& rp, int ksb = kKs) {
   const int L = p.m.num_layers;
   for (int i = 0; i < L + 2; ++i) produce_layer(ring, rp, p.w, p.m.dense[i]);
-  produce_layer(ring, rp, p.wb, p.bdense[L + 2]);
-  produce_layer(ring, rp, p.wb, p.bdense[L + 1]);
-  produce_layer(ring, rp, p.wb, p.bdense[L]);
-  for (int i = L - 1; i > 0; --i) produce_layer(ring, rp, p.wb, p.bdense[i]);
-  if (kIG) produce_layer(ring, rp, p.wb, p.bdense[0]);
+  produce_layer(ring, rp, p.wb, p.bdense[L + 2], ksb);
+  produce_layer(ring, rp, p.wb, p.bdense[L + 1], ksb);
+  produce_layer(ring, rp, p.wb, p.bdense[L], ksb);
+  for (int i = L - 1; i > 0; --i) produce_layer(ring, rp, p.wb, p.bdense[i], ksb);
+  if (kIG) produce_layer(ring, rp, p.wb, p.bdense[0], ksb);
 }
 
 // Host: with K5's input gradients, the transposed pack's widths must be
-// the product's: layer 0 kXCols, a layer whose input has the skip concat
-// hidden + kXCols, the branch hidden + kDCols, every other hidden.
+// the product's: layer 0 kXC, a layer whose input has the skip concat
+// hidden + kXC, the branch hidden + kDC, every other hidden, with kXC and
+// kDC the encodings' ig_xcols and ig_dcols.
 inline bool wg_input_grads_ok(const MlpBwdParams& p) {
   const MlpDims& m = p.m;
   const int H = m.hidden, L = m.num_layers;
-  if (m.xyz_dim > kXCols || m.dir_dim > kDCols || p.bdense[0].n_pad != kXCols ||
-      p.bdense[L + 1].n_pad != H + kDCols || p.bdense[L + 2].n_pad != H / 2)
+  if (m.xyz_dim > 128 || m.dir_dim > 64) return false;
+  const int kxc = ig_xcols(m.xyz_dim), kdc = ig_dcols(m.dir_dim);
+  if (p.bdense[0].n_pad != kxc || p.bdense[L + 1].n_pad != H + kdc ||
+      p.bdense[L + 2].n_pad != H / 2)
     return false;
   for (int i = 1; i <= L; ++i)
-    if (p.bdense[i].n_pad != (is_skip(i - 1, m.skip_layer) ? H + kXCols : H)) return false;
+    if (p.bdense[i].n_pad != (is_skip(i - 1, m.skip_layer) ? H + kxc : H)) return false;
   return true;
 }
 

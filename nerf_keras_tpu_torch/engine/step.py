@@ -89,18 +89,11 @@ from nerf_keras_tpu_torch.ops.volume import (
 )
 from nerf_keras_tpu_torch.parallel.mesh import Mesh, all_reduce_flat, local_rows
 
-_LATER = "arrives in a later slice of the port (ROADMAP.md queue 1)"
 
-
-def check_train_support(cfg: NeRFConfig, device: torch.device | None = None) -> None:
-    """Raise ``NotImplementedError`` for float32 kernels on CUDA, which this
-    port does not run yet; ``ValueError`` for an unresolved anneal horizon."""
-    if (device is not None and device.type == "cuda" and cfg.compute_dtype != "bfloat16"
-            and not cfg.batch_norm):
-        raise NotImplementedError(
-            f"COMPUTE_DTYPE={cfg.compute_dtype} on CUDA: the kernels run bf16 "
-            f"MLPs only; float32 kernels {_LATER}"
-        )
+def check_train_support(cfg: NeRFConfig) -> None:
+    """``ValueError`` for an unresolved anneal horizon.  Every compute
+    dtype trains on every device: a float32 MLP on CUDA runs the f32
+    kernels (``ops/kernels/fused_f32.py``), a bf16 one the wgmma kernels."""
     if cfg.prop_anneal_steps < 0:
         raise ValueError(
             "PROP_ANNEAL_STEPS=-1 (auto) must be resolved to a step count "

@@ -419,7 +419,7 @@ class Trainer:
         sync).  ``draws`` replaces the generator's uniforms (tests; see
         :func:`make_train_step`; global-shaped under a mesh)."""
         if self._train_step is None:
-            check_train_support(self.cfg, self.device)
+            check_train_support(self.cfg)
             if self.tp is not None:
                 print(f"[nerf-torch] MESH_MODEL={self.tp.model}: every float pass runs the "
                       f"split MLP (NeRFMLP.forward), no K1/K2/K5: the JAX package resolves "
@@ -450,7 +450,7 @@ class Trainer:
         """Metrics of the eval models on ``batch`` (under a mesh a batch
         every rank holds whole: each evaluates its rows, one all-reduce)."""
         if self._eval_step is None:
-            check_train_support(self.cfg, self.device)
+            check_train_support(self.cfg)
             self._eval_step = make_eval_step(self.cfg, self.near, self.far, mesh=self.mesh)
         return self._eval_step(self._folded_eval_params(), self.put_global_batch(batch))
 

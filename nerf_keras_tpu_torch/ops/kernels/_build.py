@@ -85,6 +85,31 @@ ENTRY_POINTS = {
             _i32, _vp,                  # device, stream
         ],
     },
+    "fused_render_f32": {
+        "nkt_f32_fwd": [
+            _vp, _vp, _vp,              # origins, dirs, t_vals
+            _vp, _vp,                   # x_in, d_in (K5, K6)
+            _vp, _vp,                   # pack (f32), desc (host)
+            _i32, _i32, _i32, _i32,     # n_dense, num_layers, skip, hidden
+            _i32, _i32, _i32, _i32,     # l_xyz, l_dir, B, S
+            _vp, _vp, _vp, _vp,         # rgb_out, w_out, xenc_out, preds_out
+            _i32, _vp,                  # device, stream
+        ],
+        "nkt_f32_bwd": [
+            _i32,                       # mode: 0 K2, 1 K3, 2 K6, 3 K5
+            _vp, _vp, _vp, _vp,         # x_res, origins, dirs, d_enc
+            _vp, _vp,                   # t_vals, preds
+            _vp, _vp,                   # g_rgb, g_w
+            _vp, _vp, _vp,              # pack, desc, desc_ws (host)
+            _i32, _i32, _i32, _i32,     # n_dense, num_layers, skip, hidden
+            _i32, _i32, _i32, _i32,     # l_xyz, l_dir, B, S
+            _i32, _i32, _i32,           # chunk_rays, total_b, total_out
+            _vp, _vp, _vp, _vp, _i32,   # dpreds, ws_a, ws_d, db_part, grid
+            _vp, _i32,                  # dw_part, nsplit
+            _vp, _vp, _vp, _vp,         # dw_out, db_out, dx_out, dd_out (K5)
+            _i32, _vp,                  # device, stream
+        ],
+    },
     "pdf_union": {
         "nkt_pdf_union": [
             _vp, _vp, _vp, ctypes.c_longlong,  # t, w, u, u_stride

@@ -9,9 +9,13 @@ backward the rows kernel's K5 mode of ``csrc/fused_render_bwd.cu`` with
 holds ``DW_CHUNK_BYTES`` at most (``fused_render.launch_rows``).  They
 reuse K1's weight pack and K2's transposed pack (with input gradients,
 a transposed pack of every input column, cached apart) with their
-per-optimizer-step cache.  Hidden widths 64, 128 and 256 only; input
-gradients also need encodings that pad to the kernel's 64 x_enc and 32
-d_enc gradient columns (L_XYZ 9 or 10, L_DIR 4: every shipped config).
+per-optimizer-step cache, zero-padded to the kernel width
+(``fused_render.kernel_width``: any hidden width up to 256).  The input
+gradients' products compute 64 or 128 x_enc and 32 or 64 d_enc gradient
+columns (``fused_render.ig_cols``): L_XYZ up to 20 and L_DIR up to 10;
+wider encodings raise ``NotImplementedError``.  A float32 MLP runs the
+f32 K5 (``fused_f32``: ``csrc/fused_render_f32.cu``, true f32 products,
+f32 encodings and gradients; its own counters).
 
 * The plain version of the forward is :meth:`NeRFMLP.forward`, which
   rounds to bf16 where the kernel does; :func:`apply_nerf_mlp_reference_vjp`
@@ -35,13 +39,16 @@ from __future__ import annotations
 import torch
 
 from nerf_keras_tpu_torch.models.mlp import NeRFMLP
-from nerf_keras_tpu_torch.ops.kernels import _build
+from nerf_keras_tpu_torch.ops.kernels import _build, fused_f32
 from nerf_keras_tpu_torch.ops.kernels.fused_render import (
     _ROWS_K5,
-    _check_hidden,
+    check_encodings,
     check_tensor,
     device_index,
+    is_f32,
     kernel_pack,
+    kernel_route,
+    kernel_width,
     launch_rows,
     refuse_batch_norm,
     unpack_grads,
@@ -50,11 +57,6 @@ from nerf_keras_tpu_torch.ops.kernels.fused_render import (
 # Kernel launches in this process (one per successful launch).
 launches = 0      # K5 forward
 bwd_launches = 0  # K5 backward
-
-# The gradient columns of the encodings in K5's input-gradient products
-# (csrc/nerf_wgmlp.cuh: kXCols, kDCols): x_enc's padded to 8 must be 64
-# wide (L_XYZ 10), d_enc's 32 (L_DIR 4).
-_IG_COLS = (64, 32)
 
 
 def apply_nerf_mlp_reference_vjp(
@@ -84,18 +86,14 @@ def _check_cuda_call(mlp: NeRFMLP, x_enc: torch.Tensor, d_enc: torch.Tensor) -> 
     device = x_enc.device
     if device.type != "cuda":
         raise ValueError(f"K5 runs on cuda or cpu tensors, got {device}")
-    if mlp.compute_dtype != torch.bfloat16:
-        raise NotImplementedError(
-            f"K5 on CUDA runs bf16 MLPs only; COMPUTE_DTYPE={mlp.compute_dtype} "
-            "is not ported to the kernels yet"
-        )
+    kernel_route(mlp.compute_dtype, mlp.hidden_dim, "cuda")
+    check_encodings(mlp.l_xyz, mlp.l_dir)
     n = x_enc.shape[0]
-    check_tensor("x_enc", x_enc, (n, mlp.xyz_dim), device, torch.bfloat16)
-    check_tensor("d_enc", d_enc, (n, mlp.dir_dim), device, torch.bfloat16)
+    check_tensor("x_enc", x_enc, (n, mlp.xyz_dim), device, mlp.compute_dtype)
+    check_tensor("d_enc", d_enc, (n, mlp.dir_dim), device, mlp.compute_dtype)
     for p in mlp.parameters():
         if p.device != device:
             raise ValueError(f"MLP parameters are on {p.device}, encodings on {device}")
-    _check_hidden(mlp)
 
 
 def _grid(device: torch.device, n: int) -> int:
@@ -105,10 +103,12 @@ def _grid(device: torch.device, n: int) -> int:
 
 
 def launch_k5_fwd(mlp: NeRFMLP, x_enc: torch.Tensor, d_enc: torch.Tensor) -> torch.Tensor:
-    """One K5 forward launch over ``(N, xyz_dim)``/``(N, dir_dim)`` bf16
-    encodings: raw predictions ``(N, 4)`` f32."""
+    """One K5 forward launch over ``(N, xyz_dim)``/``(N, dir_dim)``
+    encodings in the compute dtype: raw predictions ``(N, 4)`` f32."""
     global launches
     _check_cuda_call(mlp, x_enc, d_enc)
+    if is_f32(mlp):
+        return fused_f32.launch_k5_fwd(mlp, x_enc, d_enc)
     device = x_enc.device
     n = x_enc.shape[0]
     preds = torch.empty((n, 4), dtype=torch.float32, device=device)
@@ -118,7 +118,7 @@ def launch_k5_fwd(mlp: NeRFMLP, x_enc: torch.Tensor, d_enc: torch.Tensor) -> tor
     rc = _build.load("fused_mlp_fwd").nkt_fused_mlp_fwd(
         x_enc.data_ptr(), d_enc.data_ptr(), pack.w.data_ptr(), pack.b.data_ptr(),
         pack.desc.ctypes.data, pack.desc.shape[0], mlp.num_layers, mlp.skip_layer,
-        mlp.hidden_dim, mlp.l_xyz, mlp.l_dir, n, _grid(device, n), preds.data_ptr(),
+        kernel_width(mlp.hidden_dim), mlp.l_xyz, mlp.l_dir, n, _grid(device, n), preds.data_ptr(),
         device_index(device), torch.cuda.current_stream(device).cuda_stream,
     )
     if rc != 0:
@@ -135,22 +135,19 @@ def launch_k5_bwd(
     need_dx: bool, need_dd: bool,
 ) -> tuple[list[torch.Tensor], torch.Tensor | None, torch.Tensor | None]:
     """One K5 backward launch: gradients in ``mlp.parameters()`` order,
-    and ``dx_enc``/``dd_enc`` (bf16) where asked for, else None."""
+    and ``dx_enc``/``dd_enc`` (in the encodings' dtype) where asked for,
+    else None."""
     global bwd_launches
     _check_cuda_call(mlp, x_enc, d_enc)
     device = x_enc.device
     n = x_enc.shape[0]
     check_tensor("g", g, (n, 4), device)
+    if is_f32(mlp):
+        return fused_f32.launch_k5_bwd(mlp, x_enc, d_enc, g, need_dx, need_dd)
     dx = torch.empty_like(x_enc) if need_dx else None
     dd = torch.empty_like(d_enc) if need_dd else None
     if n == 0:
         return [torch.zeros_like(p) for p in mlp.parameters()], dx, dd
-    if (need_dx or need_dd) and (
-            -(-mlp.xyz_dim // 8) * 8, -(-mlp.dir_dim // 8) * 8) != _IG_COLS:
-        raise NotImplementedError(
-            f"K5's input gradients on CUDA take encodings {_IG_COLS} wide padded to 8 "
-            f"(L_XYZ 10, L_DIR 4); got L_XYZ={mlp.l_xyz}, L_DIR={mlp.l_dir}"
-        )
     fwd, ws = launch_rows(_ROWS_K5, mlp, None, None, None, None, mlp.l_xyz, mlp.l_dir,
                           x_res=x_enc, d_enc=d_enc, g=g, dx=dx, dd=dd)
     bwd_launches += 1
@@ -192,7 +189,7 @@ def apply_nerf_mlp_fused(
     with ``need_input_grads``, in the encodings.
 
     CPU tensors take :meth:`NeRFMLP.forward`.  CUDA tensors launch the
-    kernels (bf16 MLPs only) or raise.
+    kernels (``fused_render.kernel_route``: bf16 or f32) or raise.
     """
     refuse_batch_norm(mlp)
     if x_enc.device.type == "cpu":

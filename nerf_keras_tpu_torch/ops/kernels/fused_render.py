@@ -33,6 +33,18 @@ of whole rays of :func:`chunk_plan`, so its workspace holds one chunk
   :data:`bwd_launches` (K2), :data:`recompute_launches` (K3),
   :data:`enc_launches` and :data:`enc_bwd_launches` (K6).
 
+Any hidden width up to 256 and any encoding up to 128 position and 64
+direction columns (L_XYZ 20, L_DIR 10) runs on the kernels.  The bf16
+kernels are instantiated at hidden 64, 128 and 256; another width runs on
+packs zero-padded to the next (:func:`kernel_width`, :func:`layer_maps`):
+exact, since a zero unit's ReLU is 0, feeds zeros forward and passes no
+gradient back.  Only the packs are padded; :func:`unpack_grads` returns the
+model's real shapes, and checkpoints, digests and exports never see a
+padded weight.  A float32 MLP runs the f32 kernels instead
+(``fused_f32.py``: true f32 products, at the model's own widths), with
+counters of their own; :func:`kernel_route` is the dispatch.  Beyond these
+limits the wrappers raise ``NotImplementedError`` naming them.
+
 As in the JAX package, the weights output carries no gradient unless
 ``weights_grad=True`` (never for K6); origins, directions, t-values and
 encodings never get one.
@@ -40,6 +52,8 @@ encodings never get one.
 
 from __future__ import annotations
 
+import functools
+from types import SimpleNamespace
 from typing import NamedTuple
 
 import numpy as np
@@ -47,7 +61,7 @@ import torch
 
 from nerf_keras_tpu_torch.models.mlp import NeRFMLP
 from nerf_keras_tpu_torch.ops.encoding import encode_position
-from nerf_keras_tpu_torch.ops.kernels import _build
+from nerf_keras_tpu_torch.ops.kernels import _build, fused_f32
 from nerf_keras_tpu_torch.ops.rays import sample_rays
 from nerf_keras_tpu_torch.ops.volume import volume_render
 
@@ -81,9 +95,59 @@ class KernelPack(NamedTuple):
     desc: np.ndarray     # int32 (n_dense, 5): k_pad, n, n_pad, w_off, b_off
 
 
-def _dense_layers(mlp: NeRFMLP) -> list[tuple[torch.Tensor, torch.Tensor]]:
+WG_HIDDEN = (64, 128, 256)  # the bf16 kernels' instantiations (csrc/nerf_wgmlp.cuh: wg_hidden_ok)
+MAX_HIDDEN = 256
+MAX_ENC = (128, 64)  # position and direction encoding columns the kernels take
+WIDE_QUEUE = "ROADMAP.md queue 2 A3"  # where the wider kernels are queued
+
+
+def kernel_width(hidden: int, widths: tuple[int, ...] = WG_HIDDEN) -> int:
+    """The instantiation a model of ``hidden`` units runs on: the least of
+    ``widths`` that holds it; the model is zero-padded to it
+    (:func:`padded_layers`).  ``NotImplementedError`` above the widest."""
+    for w in widths:
+        if hidden <= w:
+            return w
+    raise NotImplementedError(
+        f"hidden_dim={hidden}: the CUDA kernels take hidden widths up to {widths[-1]}; "
+        f"wider MLPs need a kernel design of their own ({WIDE_QUEUE})"
+    )
+
+
+def check_encodings(l_xyz: int, l_dir: int) -> None:
+    """``NotImplementedError`` for encodings wider than the kernels' tiles
+    (128 position and 64 direction columns: L_XYZ 20, L_DIR 10)."""
+    x, d = 3 + 6 * l_xyz, 3 + 6 * l_dir
+    if x > MAX_ENC[0] or d > MAX_ENC[1]:
+        raise NotImplementedError(
+            f"L_XYZ={l_xyz}, L_DIR={l_dir}: the CUDA kernels take encodings up to "
+            f"{MAX_ENC[0]} position and {MAX_ENC[1]} direction columns (L_XYZ <= 20, "
+            f"L_DIR <= 10; {WIDE_QUEUE})"
+        )
+
+
+def kernel_route(compute_dtype: torch.dtype, hidden: int, device_type: str) -> tuple[str, int]:
+    """Which kernels run an MLP, and at what hidden width: ``("plain",
+    hidden)`` for tensors on the CPU, ``("f32", hidden)`` for a float32 MLP
+    on CUDA (``csrc/fused_render_f32.cu``, at the model's own widths),
+    ``("wgmma", kernel_width(hidden))`` for a bf16 one (the wgmma kernels on
+    the zero-padded pack).  ``NotImplementedError`` above ``MAX_HIDDEN`` on
+    CUDA."""
+    if device_type == "cpu":
+        return "plain", hidden
+    if hidden > MAX_HIDDEN:
+        kernel_width(hidden)  # raises, naming the limit
+    if compute_dtype == torch.float32:
+        return "f32", hidden
+    if compute_dtype != torch.bfloat16:
+        raise NotImplementedError(f"the CUDA kernels run bf16 or float32 MLPs, got {compute_dtype}")
+    return "wgmma", kernel_width(hidden)
+
+
+def _dense_layers(mlp: NeRFMLP, hp: int | None = None) -> list[tuple[torch.Tensor, torch.Tensor]]:
     """``(W^T (out, in), b)`` per kernel layer: the trunk, the merged
-    feature+sigma head (feature columns first, sigma last), branch, rgb."""
+    feature+sigma head (feature columns first, sigma last), branch, rgb;
+    with ``hp`` zero-padded to ``hp`` hidden units (:func:`padded_layers`)."""
     layers = [(layer.weight, layer.bias) for layer in mlp.trunk]
     layers.append((
         torch.cat([mlp.feature.weight, mlp.sigma.weight], dim=0),
@@ -91,7 +155,90 @@ def _dense_layers(mlp: NeRFMLP) -> list[tuple[torch.Tensor, torch.Tensor]]:
     ))
     layers += [(mlp.branch.weight, mlp.branch.bias),
                (mlp.rgb.weight, mlp.rgb.bias)]
-    return layers
+    if hp is None or hp == mlp.hidden_dim:
+        return layers
+    return padded_layers(mlp, layers, hp)
+
+
+def layer_maps(mlp: NeRFMLP, hp: int) -> list[tuple[torch.Tensor, torch.Tensor, int, int]]:
+    """Per kernel layer of a model (``mlp``: anything with its
+    ``hidden_dim``, ``num_layers``, ``skip_layer``, ``xyz_dim`` and
+    ``dir_dim``) padded from ``H = mlp.hidden_dim`` to ``hp`` hidden units: ``(in_idx, out_idx, k, n)``, where the model's
+    input column ``c`` of the layer sits at column ``in_idx[c]`` of the
+    padded input (``k`` wide) and its output column ``j`` at ``out_idx[j]``
+    of the padded output (``n`` wide).  The moved offsets: a skip layer's
+    and the head's ``x_enc`` columns start at ``hp``, the branch's ``d_enc``
+    columns at ``hp``, sigma sits at head column ``hp``, the branch is
+    ``hp // 2`` wide and so is the rgb layer's input."""
+    hid, nl, skip = mlp.hidden_dim, mlp.num_layers, mlp.skip_layer
+    xd, dd = mlp.xyz_dim, mlp.dir_dim
+    ar = torch.arange
+
+    def trunk_in(i):  # the input of trunk layer i (i == nl: the head)
+        if i == 0:
+            return ar(xd), xd
+        if i - 1 > 0 and (i - 1) % skip == 0:
+            return torch.cat([ar(hid), hp + ar(xd)]), hp + xd
+        return ar(hid), hp
+
+    maps = []
+    for i in range(nl):
+        in_idx, k = trunk_in(i)
+        maps.append((in_idx, ar(hid), k, hp))
+    head_in, head_k = trunk_in(nl)
+    maps.append((head_in, torch.cat([ar(hid), torch.tensor([hp])]), head_k, hp + 1))
+    maps.append((torch.cat([ar(hid), hp + ar(dd)]), ar(hid // 2), hp + dd, hp // 2))
+    maps.append((ar(hid // 2), ar(3), hp // 2, 3))
+    return maps
+
+
+def _runs(idx: torch.Tensor) -> tuple[tuple[int, int, int], ...]:
+    """An increasing index map as its contiguous runs ``(real start, padded
+    start, length)``."""
+    runs = []
+    for real, padded in enumerate(idx.tolist()):
+        if runs and runs[-1][1] + runs[-1][2] == padded:
+            runs[-1][2] += 1
+        else:
+            runs.append([real, padded, 1])
+    return tuple(tuple(r) for r in runs)
+
+
+@functools.lru_cache(maxsize=None)
+def _cached_runs(hidden: int, num_layers: int, skip_layer: int, xyz_dim: int, dir_dim: int,
+                 hp: int) -> tuple:
+    shape = SimpleNamespace(hidden_dim=hidden, num_layers=num_layers, skip_layer=skip_layer,
+                            xyz_dim=xyz_dim, dir_dim=dir_dim)
+    return tuple((_runs(i), _runs(o), k, n) for i, o, k, n in layer_maps(shape, hp))
+
+
+def layer_runs(mlp: NeRFMLP, hp: int) -> tuple:
+    """:func:`layer_maps` as contiguous runs, ``(in runs, out runs, k, n)``
+    per layer (a block copy per pair of runs: no index tensor reaches the
+    device)."""
+    return _cached_runs(mlp.hidden_dim, mlp.num_layers, mlp.skip_layer, mlp.xyz_dim,
+                        mlp.dir_dim, hp)
+
+
+def _cat(parts: list[torch.Tensor], dim: int) -> torch.Tensor:
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim)
+
+
+def padded_layers(mlp: NeRFMLP, layers: list, hp: int) -> list[tuple[torch.Tensor, torch.Tensor]]:
+    """``layers`` (:func:`_dense_layers`' real ones) scattered into zero
+    matrices and biases of ``hp`` hidden units by :func:`layer_maps`.
+    Exact: a zero unit's pre-activation is 0, its ReLU 0, it feeds zeros
+    forward, and its mask passes no gradient back."""
+    out = []
+    for (wt, b), (in_runs, out_runs, k, n) in zip(layers, layer_runs(mlp, hp)):
+        m = wt.new_zeros((n, k))
+        bp = b.new_zeros((n,))
+        for ro, po, lo in out_runs:
+            bp[po:po + lo] = b[ro:ro + lo]
+            for ri, pi, li in in_runs:
+                m[po:po + lo, pi:pi + li] = wt[ro:ro + lo, ri:ri + li]
+        out.append((m, bp))
+    return out
 
 
 @torch.no_grad()
@@ -129,37 +276,48 @@ def pack_weights(mlp: NeRFMLP, device: torch.device) -> KernelPack:
 
 
 WG_KS = 64  # k per weight stage of the wgmma kernels (csrc/nerf_wgmlp.cuh: kKs)
-WG_HIDDEN = (64, 128, 256)  # their instantiations (csrc/nerf_wgmlp.cuh: wg_hidden_ok)
+WG_KS_NARROW = 32  # k per stage of the wide input-gradient packs (kKsNarrow)
 
 
-def wg_layout(n_pad: int, k_pad: int) -> np.ndarray:
+def wg_layout(n_pad: int, k_pad: int, ks: int = WG_KS) -> np.ndarray:
     """Where element ``(n, k)`` of a padded ``(n_pad, k_pad)`` matrix lies
     in its wgmma pack, as an ``(n_pad, k_pad)`` array of element offsets:
-    k-slices of ``WG_KS`` (the last a multiple of 16 up to it), each in the K-major
-    core-matrix layout, ``slice_start + ((k % WG_KS) // 8 * n_pad + n) * 8
+    k-slices of ``ks`` (the last a multiple of 16 up to it), each in the K-major
+    core-matrix layout, ``slice_start + ((k % ks) // 8 * n_pad + n) * 8
     + k % 8``."""
     n = np.arange(n_pad)[:, None]
     k = np.arange(k_pad)[None, :]
-    slice_start = (k // WG_KS) * WG_KS * n_pad
-    return slice_start + ((k % WG_KS) // 8 * n_pad + n) * 8 + k % 8
+    slice_start = (k // ks) * ks * n_pad
+    return slice_start + ((k % ks) // 8 * n_pad + n) * 8 + k % 8
+
+
+def ig_cols(xyz_dim: int, dir_dim: int) -> tuple[int, int, int]:
+    """K5's input-gradient products (csrc/nerf_wgmlp.cuh: ig_xcols,
+    ig_dcols, ig_ks): the x_enc and d_enc gradient columns they compute
+    (64 or 128; 32 or 64) and the k per stage of their transposed pack."""
+    kx = 64 if xyz_dim <= 64 else 128
+    kd = 32 if dir_dim <= 32 else 64
+    return kx, kd, WG_KS if (kx, kd) == (64, 32) else WG_KS_NARROW
 
 
 @torch.no_grad()
 def _pack_wg(layers: list[tuple[torch.Tensor, torch.Tensor | None]],
-             device: torch.device) -> KernelPack:
+             device: torch.device, ks: int = 64,
+             n_pads: list[int] | None = None) -> KernelPack:
     """Pad each ``(M (rows=output columns, k), bias)`` to (round8, round16)
-    and lay it out for the wgmma kernels (:func:`wg_layout`): a producer
-    copies one k-slice per shared-memory stage, which wgmma's descriptor
-    reads as is.  Same descriptors as :func:`_pack`."""
+    (or to ``n_pads`` rows) and lay it out for the wgmma kernels
+    (:func:`wg_layout`, ``ks`` k per slice): a producer copies one k-slice
+    per shared-memory stage, which wgmma's descriptor reads as is.  Same
+    descriptors as :func:`_pack`."""
     ws, bs, desc = [], [], []
     w_off = b_off = 0
-    for mat, b in layers:
+    for j, (mat, b) in enumerate(layers):
         n, k = mat.shape
-        k_pad, n_pad = _round_up(k, 16), _round_up(n, 8)
+        k_pad, n_pad = _round_up(k, 16), _round_up(n, 8) if n_pads is None else n_pads[j]
         wp = torch.zeros((n_pad, k_pad), dtype=torch.float32, device=device)
         wp[:n, :k] = mat.to(device=device, dtype=torch.float32)
-        slices = [wp[:, k0:k0 + WG_KS].reshape(n_pad, -1, 8).permute(1, 0, 2).reshape(-1)
-                  for k0 in range(0, k_pad, WG_KS) if n_pad]
+        slices = [wp[:, k0:k0 + ks].reshape(n_pad, -1, 8).permute(1, 0, 2).reshape(-1)
+                  for k0 in range(0, k_pad, ks) if n_pad]
         bp = torch.zeros((n_pad,), dtype=torch.float32, device=device)
         if b is not None:
             bp[:n] = b.to(device=device, dtype=torch.float32)
@@ -177,8 +335,8 @@ def _pack_wg(layers: list[tuple[torch.Tensor, torch.Tensor | None]],
 
 def pack_weights_wg(mlp: NeRFMLP, device: torch.device) -> KernelPack:
     """K1's (and K6's, K2's recompute) pack: every layer's W^T in wgmma's
-    layout."""
-    return _pack_wg(_dense_layers(mlp), device)
+    layout, zero-padded to the kernel width (:func:`kernel_width`)."""
+    return _pack_wg(_dense_layers(mlp, kernel_width(mlp.hidden_dim)), device)
 
 
 def pack_weights_bwd(mlp: NeRFMLP, device: torch.device,
@@ -188,14 +346,16 @@ def pack_weights_bwd(mlp: NeRFMLP, device: torch.device,
     return _pack(_bwd_layers(mlp, input_grads), device)
 
 
-def _bwd_layers(mlp: NeRFMLP, input_grads: bool = False) -> list[tuple[torch.Tensor, None]]:
+def _bwd_layers(mlp: NeRFMLP, input_grads: bool = False,
+                hp: int | None = None) -> list[tuple[torch.Tensor, None]]:
     """The transposed matrices ``W`` (row = layer input column, k = layer
-    output): K2's cut to the hidden input columns, or with ``input_grads``
-    every input column."""
-    mats = [wt.T for wt, _ in _dense_layers(mlp)]
+    output), of the model padded to ``hp`` hidden units where given: K2's
+    cut to the hidden input columns, or with ``input_grads`` every input
+    column."""
+    mats = [wt.T for wt, _ in _dense_layers(mlp, hp)]
     if input_grads:
         return [(m, None) for m in mats]
-    hid = mlp.hidden_dim
+    hid = hp or mlp.hidden_dim
     rows = [0] + [hid] * (mlp.num_layers - 1) + [hid, hid, hid // 2]
     return [(m[:r], None) for m, r in zip(mats, rows)]
 
@@ -210,8 +370,20 @@ def pack_weights_bwd_wg(mlp: NeRFMLP, device: torch.device,
     input and of the branch input; all of the rgb head's.  With
     ``input_grads`` (K5) every layer keeps all its input columns, so the
     products also give the gradients of the position encodings (layer 0
-    and the skip concats) and of the direction encodings (the branch)."""
-    return _pack_wg(_bwd_layers(mlp, input_grads), device)
+    and the skip concats) and of the direction encodings (the branch); the
+    x_enc part of each such layer padded to the products' ``kx`` columns,
+    the d_enc part to ``kd`` (:func:`ig_cols`).  Padded to the kernel
+    width as :func:`pack_weights_wg`."""
+    hp = kernel_width(mlp.hidden_dim)
+    layers = _bwd_layers(mlp, input_grads, hp)
+    if not input_grads:
+        return _pack_wg(layers, device)
+    check_encodings(mlp.l_xyz, mlp.l_dir)
+    kx, kd, ks = ig_cols(mlp.xyz_dim, mlp.dir_dim)
+    skip = lambda i: i > 0 and i % mlp.skip_layer == 0  # noqa: E731
+    n_pads = ([kx] + [hp + kx if skip(i - 1) else hp for i in range(1, mlp.num_layers + 1)]
+              + [hp + kd, hp // 2])
+    return _pack_wg(layers, device, ks, n_pads)
 
 
 def _cached(mlp: NeRFMLP, device: torch.device, attr: str, build) -> KernelPack:
@@ -411,11 +583,8 @@ def _check_cuda_call(mlp, origins, dirs, t_vals, l_xyz, l_dir, skip_layer) -> No
     if origins.device.type != "cuda":
         raise ValueError(f"K1/K2 run on cuda or cpu tensors, got {origins.device}")
     _check_args(mlp, l_xyz, l_dir, skip_layer)
-    if mlp.compute_dtype != torch.bfloat16:
-        raise NotImplementedError(
-            f"K1/K2 on CUDA run bf16 MLPs only; COMPUTE_DTYPE="
-            f"{mlp.compute_dtype} is not ported to the kernels yet"
-        )
+    kernel_route(mlp.compute_dtype, mlp.hidden_dim, "cuda")
+    check_encodings(l_xyz, l_dir)
     device = origins.device
     if t_vals.dim() != 2:
         raise ValueError(f"t_vals must be (B, S), got {tuple(t_vals.shape)}")
@@ -426,15 +595,12 @@ def _check_cuda_call(mlp, origins, dirs, t_vals, l_xyz, l_dir, skip_layer) -> No
     for p in mlp.parameters():
         if p.device != device:
             raise ValueError(f"MLP parameters are on {p.device}, rays on {device}")
-    _check_hidden(mlp)
 
 
-def _check_hidden(mlp: NeRFMLP) -> None:
-    if mlp.hidden_dim not in WG_HIDDEN:
-        raise NotImplementedError(
-            f"K1/K2/K3/K5/K6 on CUDA take hidden widths {WG_HIDDEN}; "
-            f"hidden_dim={mlp.hidden_dim} has no kernel instantiation"
-        )
+def is_f32(mlp: NeRFMLP) -> bool:
+    """The f32 kernels (``fused_f32``) run ``mlp`` on CUDA
+    (:func:`kernel_route`)."""
+    return kernel_route(mlp.compute_dtype, mlp.hidden_dim, "cuda")[0] == "f32"
 
 
 def _ptr(x: torch.Tensor | None) -> int | None:
@@ -462,7 +628,7 @@ def _launch_fwd(mlp, t_vals, l_xyz, l_dir, *, origins=None, dirs=None,
     rc = _build.load("fused_render_fwd").nkt_fused_render_fwd(
         _ptr(origins), _ptr(dirs), t_vals.data_ptr(), _ptr(x_in), _ptr(d_in),
         pack.w.data_ptr(), pack.b.data_ptr(), pack.desc.ctypes.data,
-        pack.desc.shape[0], mlp.num_layers, mlp.skip_layer, mlp.hidden_dim,
+        pack.desc.shape[0], mlp.num_layers, mlp.skip_layer, kernel_width(mlp.hidden_dim),
         l_xyz, l_dir, b, s, rgb.data_ptr(), weights.data_ptr(), _ptr(x_enc), _ptr(preds),
         device_index(device), torch.cuda.current_stream(device).cuda_stream,
     )
@@ -480,8 +646,11 @@ def launch_k1(mlp, origins, dirs, t_vals, l_xyz, l_dir, train: bool,
     """One K1 launch: ``(rgb, weights, x_enc, preds)``.  With ``train`` it
     writes the residuals: ``preds (B*S, 4) f32`` and, with ``emit_xenc``
     (K2's; K3 needs none), ``x_enc (B*S, 3+6L) bf16``; else they are
-    None."""
+    None.  A float32 MLP runs the f32 K1 (``fused_f32.launch_k1``: f32
+    x_enc, its own counters)."""
     global launches, train_launches
+    if is_f32(mlp):
+        return fused_f32.launch_k1(mlp, origins, dirs, t_vals, train, emit_xenc)
     out = _launch_fwd(mlp, t_vals, l_xyz, l_dir, origins=origins, dirs=dirs,
                       emit_xenc=train and emit_xenc, emit_preds=train)
     if t_vals.shape[0]:
@@ -492,25 +661,33 @@ def launch_k1(mlp, origins, dirs, t_vals, l_xyz, l_dir, train: bool,
 
 def unpack_grads(mlp: NeRFMLP, fwd: KernelPack, layout: np.ndarray,
                   dw: torch.Tensor, db: torch.Tensor) -> list[torch.Tensor]:
-    """A backward's flat dW/db -> gradients in ``mlp.parameters()`` order, as the
-    JAX package returns them: weight gradients rounded to bf16 (the TPU
+    """A backward's flat dW/db (of the pack padded to the kernel width) ->
+    gradients of the model's real shapes in ``mlp.parameters()`` order, as
+    the JAX package returns them: weight gradients rounded to bf16 (the TPU
     kernel returns ``dv.astype(w.dtype)`` of bf16-cast weights), biases
     f32; the merged head's gradient split into feature and sigma."""
     bf = lambda g: g.to(torch.bfloat16).to(torch.float32)  # noqa: E731
     per_layer = []
-    for (wt, _), (_, n, _, _, b_off), (_, a_w, _, d_w, off) in zip(
-            _dense_layers(mlp), fwd.desc, layout):
-        k = wt.shape[1]
-        w = dw[off:off + a_w * d_w].view(a_w, d_w)[:k, :n].T
-        per_layer.append((w, db[b_off:b_off + n]))
+    for (in_runs, out_runs, _, _), (_, _, _, _, b_off), (_, a_w, _, d_w, off) in zip(
+            layer_runs(mlp, kernel_width(mlp.hidden_dim)), fwd.desc, layout):
+        slab = dw[off:off + a_w * d_w].view(a_w, d_w)
+        rows = _cat([slab[pi:pi + li] for _, pi, li in in_runs], 0)
+        w = _cat([rows[:, po:po + lo] for _, po, lo in out_runs], 1)
+        per_layer.append((w.T, _cat([db[b_off + po:b_off + po + lo] for _, po, lo in out_runs], 0)))
+    return split_head_grads(mlp, per_layer, bf)
+
+
+def split_head_grads(mlp: NeRFMLP, per_layer: list, cast) -> list[torch.Tensor]:
+    """Per kernel layer ``(dW (out, in), db)`` -> ``mlp.parameters()``
+    order (trunk..., sigma, feature, branch, rgb), the weight gradients
+    through ``cast``."""
     grads = []
     for w, b in per_layer[:mlp.num_layers]:
-        grads += [bf(w), b.clone()]
+        grads += [cast(w), b.clone()]
     (w_fs, b_fs), (w_br, b_br), (w_rgb, b_rgb) = per_layer[mlp.num_layers:]
     hid = mlp.hidden_dim
-    # parameters() order: trunk..., sigma, feature, branch, rgb.
-    grads += [bf(w_fs[hid:]), b_fs[hid:].clone(), bf(w_fs[:hid]), b_fs[:hid].clone()]
-    grads += [bf(w_br), b_br.clone(), bf(w_rgb), b_rgb.clone()]
+    grads += [cast(w_fs[hid:]), b_fs[hid:].clone(), cast(w_fs[:hid]), b_fs[:hid].clone()]
+    grads += [cast(w_br), b_br.clone(), cast(w_rgb), b_rgb.clone()]
     return grads
 
 
@@ -541,7 +718,8 @@ def launch_rows(mode, mlp, t_vals, preds, g_rgb, g_w, l_xyz, l_dir, *,
         check_tensor("g_rgb", g_rgb, (b, 3), device)
     if g_w is not None:
         check_tensor("g_w", g_w, (b, s), device)
-    _check_hidden(mlp)
+    check_encodings(l_xyz, l_dir)
+    hp = kernel_width(mlp.hidden_dim)
     fwd = kernel_pack(mlp, device)
     bwd = kernel_pack_bwd(mlp, device, input_grads=dx is not None or dd is not None)
     plan = chunk_plan(b, s, DwBuffers.bytes_per_sample(fwd, bwd))
@@ -556,7 +734,7 @@ def launch_rows(mode, mlp, t_vals, preds, g_rgb, g_w, l_xyz, l_dir, *,
         _ptr(preds), _ptr(g_rgb), _ptr(g_w),
         fwd.w.data_ptr(), fwd.b.data_ptr(), fwd.desc.ctypes.data,
         bwd.w.data_ptr(), bwd.desc.ctypes.data, ws.layout.ctypes.data,
-        fwd.desc.shape[0], mlp.num_layers, mlp.skip_layer, mlp.hidden_dim,
+        fwd.desc.shape[0], mlp.num_layers, mlp.skip_layer, hp,
         l_xyz, l_dir, b, s, chunk_rays, ws.db.numel(), ws.dw.numel(), dpreds.data_ptr(),
         ws.ws_a.data_ptr(), ws.ws_d.data_ptr(), ws.db_part.data_ptr(), grid,
         ws.dw_part.data_ptr(), ws.nsplit, ws.dw.data_ptr(), ws.db.data_ptr(),
@@ -565,15 +743,19 @@ def launch_rows(mode, mlp, t_vals, preds, g_rgb, g_w, l_xyz, l_dir, *,
     if rc != 0:
         raise RuntimeError(
             f"{('K2', 'K3', 'K6 backward', 'K5 backward')[mode]} launch failed with CUDA "
-            f"error {rc} (B={b}, S={s}, hidden={mlp.hidden_dim}, layers={mlp.num_layers}, "
-            f"chunks of {chunk_rays} rays, input grads={dx is not None}/{dd is not None})"
+            f"error {rc} (B={b}, S={s}, hidden={mlp.hidden_dim} as {hp}, layers="
+            f"{mlp.num_layers}, chunks of {chunk_rays} rays, input grads={dx is not None}/"
+            f"{dd is not None})"
         )
     return fwd, ws
 
 
 def launch_k2(mlp, x_enc, dirs, t_vals, preds, g_rgb, g_w, l_xyz, l_dir):
-    """One K2 launch: gradients in ``mlp.parameters()`` order."""
+    """One K2 launch: gradients in ``mlp.parameters()`` order (the f32 K2
+    for a float32 MLP)."""
     global bwd_launches
+    if is_f32(mlp):
+        return fused_f32.launch_k2(mlp, x_enc, dirs, t_vals, preds, g_rgb, g_w)
     fwd, ws = launch_rows(_ROWS_K2, mlp, t_vals, preds, g_rgb, g_w, l_xyz, l_dir,
                           x_res=x_enc, dirs=dirs)
     bwd_launches += 1
@@ -582,8 +764,11 @@ def launch_k2(mlp, x_enc, dirs, t_vals, preds, g_rgb, g_w, l_xyz, l_dir):
 
 def launch_k3(mlp, origins, dirs, t_vals, preds, g_rgb, g_w, l_xyz, l_dir):
     """One K3 launch (K2 with the position encodings computed again from
-    the rays): gradients in ``mlp.parameters()`` order."""
+    the rays): gradients in ``mlp.parameters()`` order (the f32 K3 for a
+    float32 MLP)."""
     global recompute_launches
+    if is_f32(mlp):
+        return fused_f32.launch_k3(mlp, origins, dirs, t_vals, preds, g_rgb, g_w)
     fwd, ws = launch_rows(_ROWS_K3, mlp, t_vals, preds, g_rgb, g_w, l_xyz, l_dir,
                           origins=origins, dirs=dirs)
     recompute_launches += 1
@@ -641,7 +826,8 @@ def render_rays_fused(
     forward and backward instead of 142 B); the gradients are the same.
 
     CPU tensors take :func:`render_rays_reference`.  CUDA tensors launch
-    the kernels (bf16 MLPs only) or raise.
+    the kernels (:func:`kernel_route`: the wgmma kernels for a bf16 MLP,
+    the f32 ones for a float32 MLP) or raise.
     """
     if bwd_mode not in BWD_MODES:
         raise ValueError(f"unknown bwd_mode: {bwd_mode!r}")
@@ -700,29 +886,28 @@ def _check_enc_call(mlp, x_enc, d_enc, t_vals) -> None:
     device = x_enc.device
     if device.type != "cuda":
         raise ValueError(f"K6 runs on cuda or cpu tensors, got {device}")
-    if mlp.compute_dtype != torch.bfloat16:
-        raise NotImplementedError(
-            f"K6 on CUDA runs bf16 MLPs only; COMPUTE_DTYPE={mlp.compute_dtype} "
-            "is not ported to the kernels yet"
-        )
+    kernel_route(mlp.compute_dtype, mlp.hidden_dim, "cuda")
+    check_encodings(mlp.l_xyz, mlp.l_dir)
     if t_vals.dim() != 2:
         raise ValueError(f"t_vals must be (B, S), got {tuple(t_vals.shape)}")
     b, s = t_vals.shape
-    check_tensor("x_enc", x_enc, (b, s, mlp.xyz_dim), device, torch.bfloat16)
-    check_tensor("d_enc", d_enc, (b, s, mlp.dir_dim), device, torch.bfloat16)
+    dt = mlp.compute_dtype
+    check_tensor("x_enc", x_enc, (b, s, mlp.xyz_dim), device, dt)
+    check_tensor("d_enc", d_enc, (b, s, mlp.dir_dim), device, dt)
     check_tensor("t_vals", t_vals, (b, s), device)
     for p in mlp.parameters():
         if p.device != device:
             raise ValueError(f"MLP parameters are on {p.device}, encodings on {device}")
-    _check_hidden(mlp)
 
 
 def launch_k6_fwd(mlp, x_enc, d_enc, t_vals, train: bool):
-    """One K6 forward launch over ``(B, S, .)`` bf16 encodings: ``(rgb,
-    weights, preds)``, ``preds (B*S, 4) f32`` with ``train`` (K6's
-    backward reads them), else None."""
+    """One K6 forward launch over ``(B, S, .)`` encodings in the compute
+    dtype: ``(rgb, weights, preds)``, ``preds (B*S, 4) f32`` with
+    ``train`` (K6's backward reads them), else None."""
     global enc_launches
     _check_enc_call(mlp, x_enc, d_enc, t_vals)
+    if is_f32(mlp):
+        return fused_f32.launch_k6_fwd(mlp, x_enc, d_enc, t_vals, train)
     rgb, weights, _, preds = _launch_fwd(mlp, t_vals, mlp.l_xyz, mlp.l_dir,
                                          x_in=x_enc, d_in=d_enc, emit_preds=train)
     if t_vals.shape[0]:
@@ -734,6 +919,8 @@ def launch_k6_bwd(mlp, x_enc, d_enc, t_vals, preds, g_rgb):
     """One K6 backward launch: gradients in ``mlp.parameters()`` order
     (none for the encodings, as in the JAX kernel)."""
     global enc_bwd_launches
+    if is_f32(mlp):
+        return fused_f32.launch_k6_bwd(mlp, x_enc, d_enc, t_vals, preds, g_rgb)
     b, s = t_vals.shape
     fwd, ws = launch_rows(_ROWS_K6, mlp, t_vals, preds, g_rgb, None, mlp.l_xyz, mlp.l_dir,
                           x_res=x_enc.reshape(b * s, -1), d_enc=d_enc.reshape(b * s, -1))
@@ -767,14 +954,14 @@ def apply_nerf_render_fused(
     t_vals: torch.Tensor,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """K6, the MLP and compositing over encodings: ``x_enc (B, S, 3+6
-    L_XYZ)`` and ``d_enc (B, S, 3+6 L_DIR)`` (per sample; bf16 on CUDA),
+    L_XYZ)`` and ``d_enc (B, S, 3+6 L_DIR)`` (per sample; in the compute dtype on CUDA),
     ``t_vals (B, S)`` ascending -> ``(rgb (B, 3), weights (B, S))``
     float32.  rgb is differentiable in the MLP's parameters; the weights
     and the encodings get no gradient, as in the JAX
     ``apply_nerf_render_pallas``.
 
     CPU tensors take :func:`apply_nerf_render_reference`.  CUDA tensors
-    launch the kernels (bf16 MLPs only) or raise.
+    launch the kernels (:func:`kernel_route`) or raise.
     """
     refuse_batch_norm(mlp)
     if x_enc.device.type == "cpu":

@@ -20,6 +20,7 @@ No gradients: quantization is inference-only.
 
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import NamedTuple
 
 import numpy as np
@@ -27,7 +28,13 @@ import torch
 
 from nerf_keras_tpu_torch.ops.encoding import encode_position
 from nerf_keras_tpu_torch.ops.kernels import _build
-from nerf_keras_tpu_torch.ops.kernels.fused_render import check_tensor, device_index
+from nerf_keras_tpu_torch.ops.kernels.fused_render import (
+    check_encodings,
+    check_tensor,
+    device_index,
+    kernel_width,
+    layer_runs,
+)
 from nerf_keras_tpu_torch.ops.quant import QuantParams, apply_nerf_mlp_quant, flatten_qparams
 from nerf_keras_tpu_torch.ops.rays import sample_rays
 from nerf_keras_tpu_torch.ops.volume import volume_render
@@ -35,7 +42,8 @@ from nerf_keras_tpu_torch.ops.volume import volume_render
 launches = 0  # K4 launches in this process (one per successful launch)
 
 K4_KS = 128  # k per weight stage (csrc/quant_render_fwd.cu: kQKs)
-K4_HIDDEN = (32, 64, 128, 256)  # its instantiations (quant_render_fwd.cu: q_hidden_ok)
+K4_HIDDEN = (32, 64, 128, 256)  # its instantiations (quant_render_fwd.cu: q_hidden_ok);
+# a model of another width up to 256 runs zero-padded to the next (pad_qparams)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -75,6 +83,41 @@ def _layers(qp: QuantParams) -> list[tuple]:
                    qp["inv_h2"]))
     layers.append((qp["rgb"]["wq"], qp["rgb"]["scale"], qp["rgb"]["b"], None))
     return layers
+
+
+def pad_qparams(qp: QuantParams, skip_layer: int, hq: int) -> QuantParams:
+    """One MLP's qparams zero-padded to ``hq`` hidden units, by
+    ``fused_render.layer_runs`` (the skip layer's and the head's x_enc
+    rows, the branch's d_enc rows and sigma's column move to ``hq``).  A
+    padded column has weights 0, bias 0, scale 1 and requant ``inv`` 1:
+    its accumulator is 0, it dequantizes to 0 and quantizes to 0, and no
+    scale is 0 or NaN.  ``qp`` itself when it already has ``hq`` units."""
+    hid = qp["trunk"][0]["wq"].shape[1]
+    if hid == hq:
+        return qp
+    shape = SimpleNamespace(hidden_dim=hid, num_layers=len(qp["trunk"]), skip_layer=skip_layer,
+                            xyz_dim=qp["inv_x"].numel(), dir_dim=qp["inv_d"].numel())
+
+    def row(x, runs, n, fill):
+        out = torch.full((1, n), fill, dtype=torch.float32, device=x.device)
+        for ro, po, lo in runs:
+            out[0, po:po + lo] = x.reshape(-1)[ro:ro + lo]
+        return out
+
+    dense = []
+    for (wq, scale, b, _), (in_runs, out_runs, k, n) in zip(_layers(qp), layer_runs(shape, hq)):
+        wp = torch.zeros((k, n), dtype=torch.int8, device=wq.device)
+        for ro, po, lo in out_runs:
+            for ri, pi, li in in_runs:
+                wp[pi:pi + li, po:po + lo] = wq[ri:ri + li, ro:ro + lo]
+        dense.append({"wq": wp, "scale": row(scale, out_runs, n, 1.0),
+                      "b": row(b, out_runs, n, 0.0)})
+    nl = len(qp["trunk"])
+    inv = lambda x, n: row(x, ((0, 0, x.numel()),), n, 1.0)  # noqa: E731
+    return {"trunk": dense[:nl], "inv_h": [inv(x, hq) for x in qp["inv_h"]],
+            "fs": dense[nl], "inv_feat": inv(qp["inv_feat"], hq),
+            "branch": dense[nl + 1], "inv_h2": inv(qp["inv_h2"], hq // 2),
+            "rgb": dense[nl + 2], "inv_x": qp["inv_x"], "inv_d": qp["inv_d"]}
 
 
 def _padded_row(x: torch.Tensor, width: int, device) -> torch.Tensor:
@@ -126,14 +169,18 @@ _packs: dict[int, tuple] = {}
 _MAX_PACKS = 8
 
 
-def kernel_pack(qp: QuantParams, device: torch.device) -> QuantPack:
-    key = (str(device), tuple((t.data_ptr(), t._version) for t in flatten_qparams(qp)))
+def kernel_pack(qp: QuantParams, device: torch.device, skip_layer: int = 4) -> QuantPack:
+    """K4's pack of ``qp``, zero-padded to its instantiation (``K4_HIDDEN``)
+    by :func:`pad_qparams`, built once per installed set of qparams."""
+    key = (str(device), skip_layer,
+           tuple((t.data_ptr(), t._version) for t in flatten_qparams(qp)))
     hit = _packs.get(id(qp))
     if hit is None or hit[0] is not qp or hit[1] != key:
         _packs.pop(id(qp), None)
         if len(_packs) >= _MAX_PACKS:
             _packs.pop(next(iter(_packs)))
-        hit = (qp, key, pack_qparams(qp, device))
+        hq = kernel_width(qp["trunk"][0]["wq"].shape[1], K4_HIDDEN)
+        hit = (qp, key, pack_qparams(pad_qparams(qp, skip_layer, hq), device))
         _packs[id(qp)] = hit
     return hit[2]
 
@@ -175,11 +222,8 @@ def launch_k4(qparams: QuantParams, origins, dirs, t_vals, l_xyz: int, l_dir: in
     if device.type != "cuda":
         raise ValueError(f"K4 runs on cuda or cpu tensors, got {device}")
     _check_widths(qparams, l_xyz, l_dir)
-    hidden = qparams["trunk"][0]["wq"].shape[1]
-    if hidden not in K4_HIDDEN:
-        raise NotImplementedError(
-            f"K4 on CUDA takes hidden widths {K4_HIDDEN}; got hidden {hidden}"
-        )
+    check_encodings(l_xyz, l_dir)
+    hidden = kernel_width(qparams["trunk"][0]["wq"].shape[1], K4_HIDDEN)
     if t_vals.dim() != 2:
         raise ValueError(f"t_vals must be (B, S), got {tuple(t_vals.shape)}")
     b, s = t_vals.shape
@@ -193,7 +237,7 @@ def launch_k4(qparams: QuantParams, origins, dirs, t_vals, l_xyz: int, l_dir: in
     weights = torch.empty((b, s), dtype=torch.float32, device=device)
     if b == 0:
         return rgb, weights
-    pack = kernel_pack(qparams, device)
+    pack = kernel_pack(qparams, device, skip_layer)
     num_layers = len(qparams["trunk"])
     rc = _build.load("quant_render_fwd").nkt_quant_render_fwd(
         origins.data_ptr(), dirs.data_ptr(), t_vals.data_ptr(),

@@ -28,6 +28,7 @@ from nerf_keras_tpu_torch.models.mlp import (
 )
 from nerf_keras_tpu_torch.ops.encoding import encode_position
 from nerf_keras_tpu_torch.ops.kernels import fused_mlp as k5
+from nerf_keras_tpu_torch.ops.kernels import launch_counts
 from nerf_keras_tpu_torch.ops.kernels import fused_render as k1
 from nerf_keras_tpu_torch.ops.kernels import pdf_union as k7
 from nerf_keras_tpu_torch.ops.kernels import quant_render as k4
@@ -50,6 +51,9 @@ K5_TOL_REL = 2e-2
 # sample_pdf's 1/denominator, which amplifies the bf16 differences of the
 # fine pass's dx_enc (chip_smoke.py: PDF_COARSE_TOL_REL).
 PDF_COARSE_TOL_REL = 0.5
+# The f32 kernels against their plain f32 versions (TF32 off): relative L2
+# on every output and gradient (chip_smoke.py: F32_TOL_REL).
+F32_TOL_REL = 1e-5
 
 
 @pytest.fixture
@@ -108,10 +112,14 @@ def test_k1_checks_its_inputs(dev):
         k1.render_rays_fused(mlp, o.double(), d, t)
     with pytest.raises(ValueError, match="shape"):
         k1.render_rays_fused(mlp, o[:8], d, t)
+    # A float32 MLP runs the f32 K1, held to its plain f32 version.
     mlp32 = NeRFMLP(num_layers=2, hidden_dim=32, compute_dtype=torch.float32,
                     device=dev)
-    with pytest.raises(NotImplementedError, match="bf16"):
-        k1.render_rays_fused(mlp32, o, d, t)
+    with torch.no_grad():
+        got = k1.render_rays_fused(mlp32, o, d, t)
+        want = k1.render_rays_reference(mlp32, o, d, t)
+    for a, b in zip(got, want):
+        assert _rel_l2(a, b) <= F32_TOL_REL
     cpu_mlp = NeRFMLP(num_layers=2, hidden_dim=32)
     with pytest.raises(ValueError, match="parameters"):
         k1.render_rays_fused(cpu_mlp, o, d, t)
@@ -347,12 +355,22 @@ def test_k5_chunks_of_samples(dev, monkeypatch):
 
 
 def test_k5_takes_only_instantiated_widths(dev):
-    """Hidden 96 has no wgmma instantiation: K5 raises, nothing falls back."""
+    """Its name is historical: hidden 96 runs on the pack zero-padded to the
+    128 instantiation, held to the plain version at K5's gates (forward,
+    every leaf, dx_enc and dd_enc)."""
     mlp, x_enc, d_enc, g = _k5_setup(dev, (4, 96, 2), 256, seed=11)
-    with pytest.raises(NotImplementedError, match="hidden"):
-        k5.launch_k5_fwd(mlp, x_enc, d_enc)
-    with pytest.raises(NotImplementedError, match="hidden"):
-        k5.launch_k5_bwd(mlp, x_enc, d_enc, g, True, True)
+    with torch.no_grad():
+        out = k5.launch_k5_fwd(mlp, x_enc, d_enc)
+        got, dx, dd = k5.launch_k5_bwd(mlp, x_enc, d_enc, g, True, True)
+        torch.cuda.synchronize()
+        want_out = mlp(x_enc, d_enc)
+    assert float((out - want_out).abs().max()) <= K5_PREDS_MAX
+    assert float((out - want_out).abs().mean()) <= K5_PREDS_MEAN
+    want, want_dx, want_dd = k5.apply_nerf_mlp_reference_vjp(mlp, x_enc, d_enc, g, True)
+    for (name, p), a, b in zip(mlp.named_parameters(), got, want):
+        assert a.shape == p.shape and _rel_l2(a, b) <= K5_TOL_REL, name
+    assert _rel_l2(dx.float(), want_dx.float()) <= K5_TOL_REL
+    assert _rel_l2(dd.float(), want_dd.float()) <= K5_TOL_REL
 
 
 def _parity_cfg(stop: bool) -> NeRFConfig:
@@ -496,8 +514,18 @@ def test_k4_exact_where_accumulators_reach_the_bound(dev):
 
 
 def test_k4_rejects_an_unsupported_width(dev):
+    """Its name is historical: hidden 96 runs on the int8 tables zero-padded
+    to the 128 instantiation (quant_render.pad_qparams), held to the plain
+    version at K4's gates; hidden 320 still raises."""
     qp, o, d, t = _k4_setup(dev, (2, 96, 4), 16, 8, seed=23)
-    with pytest.raises(NotImplementedError, match="hidden 96"):
+    rgb, w = k4.render_rays_fused_quant(qp, o, d, t)
+    torch.cuda.synchronize()
+    rgb_p, w_p = k4.render_rays_reference_quant(qp, o, d, t)
+    for got, want in ((rgb, rgb_p), (w, w_p)):
+        assert float((got - want).abs().max()) <= TOL_MAX
+        assert float((got - want).abs().mean()) <= TOL_MEAN
+    qp, o, d, t = _k4_setup(dev, (2, 320, 4), 16, 8, seed=23)
+    with pytest.raises(NotImplementedError, match="up to 256"):
         k4.render_rays_fused_quant(qp, o, d, t)
 
 
@@ -809,3 +837,90 @@ def test_union_free_steps_launch_k1_k2_at_the_layouts_sample_counts(dev, knobs, 
             assert np.isfinite(loss)
     finally:
         k1.launch_k1 = real
+
+
+def _f32_setup(dev, hidden, b, s, seed, l_xyz=10, l_dir=4):
+    """A float32 MLP (8 layers, skip 4) with random biases, rays, t, the
+    per-sample f32 encodings and cotangents."""
+    gen = torch.Generator().manual_seed(seed)
+    mlp = randomize_biases_(NeRFMLP(num_layers=8, hidden_dim=hidden, skip_layer=4, l_xyz=l_xyz,
+                                    l_dir=l_dir, compute_dtype=torch.float32, generator=gen,
+                                    device=dev), gen)
+    o, d, t = _rays(dev, b, s, seed)
+    pts = o[:, None, :] + d[:, None, :] * t[..., None]
+    x_enc = encode_position(pts, l_xyz).contiguous()
+    d_enc = encode_position(d, l_dir)[:, None, :].expand(b, s, -1).contiguous()
+    g = [(torch.randn(shape, generator=gen) * 1e-3).to(dev) for shape in ((b, 3), (b, s))]
+    return mlp, o, d, t, x_enc, d_enc, g[0], g[1]
+
+
+@pytest.mark.parametrize("hidden,l_xyz,l_dir", [(256, 10, 4), (96, 16, 6), (17, 4, 2)])
+@pytest.mark.parametrize("kernel", ["k1", "k2", "k3", "k6", "k5"])
+def test_f32_kernels_match_plain(dev, kernel, hidden, l_xyz, l_dir):
+    """Each f32 kernel against its plain f32 version at relative L2 <=
+    F32_TOL_REL on every output and gradient, and one launch of it by the
+    f32 counters (the bf16 ones untouched)."""
+    mlp, o, d, t, x_enc, d_enc, g_rgb, g_w = _f32_setup(dev, hidden, 300, 48, seed=31,
+                                                        l_xyz=l_xyz, l_dir=l_dir)
+    b, s = t.shape
+    before = launch_counts()
+    with torch.no_grad():
+        if kernel == "k1":
+            got = list(k1.render_rays_fused(mlp, o, d, t, l_xyz=l_xyz, l_dir=l_dir))
+            want = list(k1.render_rays_reference(mlp, o, d, t, l_xyz=l_xyz, l_dir=l_dir))
+        elif kernel in ("k2", "k3"):
+            _, _, x_res, preds = k1.launch_k1(mlp, o, d, t, l_xyz, l_dir, train=True,
+                                              emit_xenc=kernel == "k2")
+            assert (x_res is None) == (kernel == "k3")
+            got = (k1.launch_k2(mlp, x_res, d, t, preds, g_rgb, g_w, l_xyz, l_dir)
+                   if kernel == "k2" else
+                   k1.launch_k3(mlp, o, d, t, preds, g_rgb, g_w, l_xyz, l_dir))
+        elif kernel == "k6":
+            got = list(k1.apply_nerf_render_fused(mlp, x_enc, d_enc, t))
+            want = list(k1.apply_nerf_render_reference(mlp, x_enc, d_enc, t))
+            _, _, preds = k1.launch_k6_fwd(mlp, x_enc, d_enc, t, train=True)
+            got += k1.launch_k6_bwd(mlp, x_enc, d_enc, t, preds, g_rgb)
+        else:
+            x2, d2 = x_enc.reshape(b * s, -1), d_enc.reshape(b * s, -1)
+            g5 = torch.randn((b * s, 4), generator=torch.Generator().manual_seed(3)).to(dev)
+            got = [k5.launch_k5_fwd(mlp, x2, d2)]
+            grads, dx, dd = k5.launch_k5_bwd(mlp, x2, d2, g5, True, True)
+            got += grads + [dx, dd]
+        torch.cuda.synchronize()
+    if kernel in ("k2", "k3"):
+        want = k1.render_rays_reference_vjp(mlp, o, d, t, g_rgb, g_w, l_xyz=l_xyz, l_dir=l_dir)
+    elif kernel == "k6":
+        want += k1.apply_nerf_render_reference_vjp(mlp, x_enc, d_enc, t, g_rgb)
+    elif kernel == "k5":
+        with torch.no_grad():
+            want = [mlp(x2, d2)]
+        grads, dx, dd = k5.apply_nerf_mlp_reference_vjp(mlp, x2, d2, g5, True)
+        want += grads + [dx, dd]
+    assert len(got) == len(want)
+    for i, (a, w) in enumerate(zip(got, want)):
+        assert a.dtype == torch.float32 and a.shape == w.shape, i
+        assert _rel_l2(a, w) <= F32_TOL_REL, (i, _rel_l2(a, w))
+    grew = {k: v - before[k] for k, v in launch_counts().items() if v != before[k]}
+    assert grew and all(k.endswith("_f32") for k in grew), grew
+
+
+@pytest.mark.parametrize("what", ["hidden 320 bf16", "hidden 320 f32", "L_XYZ 21",
+                                  "L_DIR 11"])
+def test_beyond_the_kernels_raises_naming_the_limit(dev, what):
+    """Hidden > 256, L_XYZ > 20 and L_DIR > 10 raise NotImplementedError
+    naming the limit and the ROADMAP.md item; nothing falls back."""
+    hidden = 320 if "hidden" in what else 64
+    l_xyz, l_dir = (21 if what == "L_XYZ 21" else 10), (11 if what == "L_DIR 11" else 4)
+    dtype = torch.float32 if "f32" in what else torch.bfloat16
+    mlp = NeRFMLP(num_layers=2, hidden_dim=hidden, l_xyz=l_xyz, l_dir=l_dir,
+                  compute_dtype=dtype, device=dev)
+    o, d, t = _rays(dev, 8, 8)
+    x = torch.zeros((8, mlp.xyz_dim), dtype=dtype, device=dev)
+    dd = torch.zeros((8, mlp.dir_dim), dtype=dtype, device=dev)
+    limit = "up to 256" if "hidden" in what else "L_XYZ <= 20, L_DIR <= 10"
+    with pytest.raises(NotImplementedError, match=limit) as err:
+        k1.render_rays_fused(mlp, o, d, t, l_xyz=l_xyz, l_dir=l_dir)
+    assert "ROADMAP.md queue 2 A3" in str(err.value)
+    with pytest.raises(NotImplementedError, match=limit):
+        k5.apply_nerf_mlp_fused(mlp, x, dd, need_input_grads=True)
+
