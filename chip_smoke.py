@@ -309,7 +309,13 @@ nonzero — nothing falls back to the CPU or to a plain path):
     and compositing VJP err by ~1e-5 on the sigma head), while the bf16 kernels on a bf16 copy of the same weights and
     inputs miss it by 10x or more; CUDA-event times, the bound at the card's f32 FFMA peak
     (SMs x 128 x 2 x the maximum SM clock) and the f32 ``torch.matmul``
-    yardsticks; (b) one parity step's gradients kernel path vs plain path
+    yardsticks (the forward's products, the dW product, the whole
+    backward's products); the backward alone in all four modes (K3 and K6
+    without their forwards, those times kept as ``ms_with_forward``), its
+    device ms by kernel (compositing VJP, ``f32_rows_kernel``,
+    ``f32_dw_kernel``, reduce), two launches of K2 and of K5 bit for bit,
+    and the f32 source's ``-Xptxas -v`` lines; (b) one parity step's
+    gradients kernel path vs plain path
     (same draws, 1e-3), 3 steps each through K1+K2, K1+K3, K6 and K5
     (``STOP_PDF_GRADIENT=false``) and 3 proposal-recipe steps, each with
     exact f32 launches and no bf16 launch; (c) ``evaluate`` and a 200x200
@@ -4110,16 +4116,91 @@ def _f32_bounds(mlp: NeRFMLP, b: int, s: int, peak: float) -> dict:
 
 def _f32_library_ms(mlp: NeRFMLP, dev, m: int) -> dict:
     """Yardsticks, never called by the port: the forward's products as one
-    f32 ``torch.matmul`` per padded layer at M = ``m`` rows (TF32 off), and
-    the dW product as one f32 ``torch.matmul`` of A^T D per layer."""
+    f32 ``torch.matmul`` per padded layer at M = ``m`` rows (TF32 off); the
+    dW product as one f32 ``torch.matmul`` of A^T D per layer; the whole
+    backward's products (the recomputed forward A W, dX = D W^T and dW =
+    A^T D) as three per layer, at the f32 pack's widths."""
     fwd = library_products_ms(k1.kernel_pack(mlp, dev).desc, m, torch.float32, dev)
     pack = fused_f32.kernel_pack_f32(mlp, dev)
-    pairs = [(torch.randn((m, int(k)), device=dev), torch.randn((m, int(n)), device=dev))
-             for k, n in pack.desc[:, :2]]
-    dw = cuda_ms(lambda: [torch.matmul(a.t(), d) for a, d in pairs], reps=5)
-    del pairs
+    layers = [(torch.randn((m, int(k)), device=dev), torch.randn((m, int(n)), device=dev),
+               torch.randn((int(k), int(n)), device=dev)) for k, n in pack.desc[:, :2]]
+
+    def backward():
+        for a, d, w in layers:
+            torch.matmul(a, w)
+            torch.matmul(d, w.t())
+            torch.matmul(a.t(), d)
+
+    dw = cuda_ms(lambda: [torch.matmul(a.t(), d) for a, d, _ in layers], reps=5)
+    bwd = cuda_ms(backward, reps=3)
+    del layers
     torch.cuda.empty_cache()
-    return {"fwd": fwd, "dw": dw}
+    return {"fwd": fwd, "dw": dw, "bwd": bwd}
+
+
+# The f32 backward's kernels, by the names torch.profiler reports.
+F32_BWD_FAMILIES = {"vjp": ("composite_vjp_kernel",), "rows": ("f32_rows_kernel",),
+                    "dw": ("f32_dw_kernel",), "reduce": ("mlp_reduce_kernel",)}
+
+
+def _f32_ptxas() -> list[str]:
+    """``fused_render_f32.cu``'s lines of the ``-Xptxas -v`` report: each
+    kernel's name, then its stack, spills, registers and static shared
+    memory.  From ``phase_build``'s log, or, where the library was built
+    before this process, from compiling the source to a cubin again."""
+    log = _build.build_log
+    if "== fused_render_f32.cu" not in log:
+        flags = [f for f in _build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
+        with tempfile.TemporaryDirectory() as tmp:
+            proc = subprocess.run([_build._nvcc(), *flags, "-cubin", "-I", str(_build.CSRC), "-o",
+                                   os.path.join(tmp, "f32.cubin"),
+                                   str(_build.CSRC / "fused_render_f32.cu")],
+                                  capture_output=True, text=True, check=True)
+        log = "== fused_render_f32.cu\n" + proc.stdout + proc.stderr
+    section = log.split("== fused_render_f32.cu")[1].split("\n== ")[0]
+    return [line.strip() for line in section.splitlines()
+            if "Compiling entry" in line or "Used" in line or "spill" in line]
+
+
+def _f32_backward(mlp: NeRFMLP, x: dict) -> dict:
+    """The f32 backward alone in its four modes on ``x``: K3 and K6 timed
+    without their forwards (the suite times K2 and K5's backwards alone
+    already), the device ms of each mode's kernels (``F32_BWD_FAMILIES``,
+    from a profiler window that recorded every launch: the launches it
+    saw beside them), and two launches of K2 and of K5 compared bit for
+    bit."""
+    o, d, t, g_rgb, g_w = x["o"], x["d"], x["t"], x["g_rgb"], x["g_w"]
+    lx, ld = mlp.l_xyz, mlp.l_dir
+    b, s = t.shape
+    calls = _suite_calls(mlp, x)
+    per = fused_f32.bytes_per_sample(fused_f32.kernel_pack_f32(mlp, t.device))
+    chunks = {name: len(k1.chunk_plan(b * s, 1, per) if name == "k5_bwd" else
+                        k1.chunk_plan(b, s, per))
+              for name in ("k2", "k3", "k6_bwd", "k5_bwd")}
+    out = {"ms": {}, "device_ms": {}, "repeat_identical": {}}
+    with torch.no_grad():
+        preds3 = k1.launch_k1(mlp, o, d, t, lx, ld, train=True, emit_xenc=False)[3]
+        preds6 = k1.launch_k6_fwd(mlp, x["x_enc"], x["d_enc"], t, train=True)[2]
+        alone = {
+            "k2": calls["k2"],
+            "k3": lambda: k1.launch_k3(mlp, o, d, t, preds3, g_rgb, g_w, lx, ld),
+            "k6_bwd": lambda: k1.launch_k6_bwd(mlp, x["x_enc"], x["d_enc"], t, preds6, g_rgb),
+            "k5_bwd": calls["k5_bwd"],
+        }
+        for name in ("k2", "k5_bwd"):
+            first, second = alone[name](), alone[name]()
+            out["repeat_identical"][name] = all(torch.equal(u, v) for u, v in zip(first, second))
+            del first, second
+        for name, fn in alone.items():
+            # A rows and a dW launch a chunk, one reduce, one VJP but K5's.
+            want = {"vjp": int(name != "k5_bwd"), "rows": chunks[name], "dw": chunks[name],
+                    "reduce": 1}
+            out["device_ms"][name] = device_ms_by_kernel(fn, F32_BWD_FAMILIES, launches=want)
+        for name in ("k3", "k6_bwd"):
+            out["ms"][name] = cuda_ms(alone[name], reps=3)
+    del calls, alone, preds3, preds6
+    torch.cuda.empty_cache()
+    return out
 
 
 def _f32_config(base, **changes):
@@ -4148,8 +4229,12 @@ def phase_f32(card: str, tmp: str) -> tuple[list[dict], dict]:
     exact f32 launch counts and no bf16 launch; (c) a 200x200 frame from
     ``Trainer.render_image``; (d) one ``GET /render`` from the server on an
     f32 checkpoint; (e) the verify recipe's tiny f32 config through
-    ``cli.train_synthetic``.  Returns the main paths' launches and the
-    kernels' figures."""
+    ``cli.train_synthetic``.  With (a) the backward alone in all four
+    modes (``_f32_backward``: K3's and K6's times without their forwards,
+    which stay beside them as ``ms_with_forward``; device ms by kernel;
+    K2 and K5 launched twice, bit for bit), the f32 source's ``-Xptxas -v``
+    lines and the whole backward's library yardstick.  Returns the main
+    paths' launches and the kernels' figures."""
     dev = torch.device("cuda")
     b, s = 4096, 192
     peak = peak_f32()
@@ -4174,17 +4259,28 @@ def phase_f32(card: str, tmp: str) -> tuple[list[dict], dict]:
         del got, got_bf, want
         torch.cuda.empty_cache()
     del bf, xb, calls, calls_bf, plain
+    # K3's and K6's suite calls run their forwards too: their times become
+    # the backward's alone, the forward-plus-backward kept beside them.
+    backward = _f32_backward(mlp, x)
+    for name in ("k3", "k6_bwd"):
+        res[name]["ms_with_forward"] = res[name]["ms"]
+        res[name]["ms"] = backward["ms"][name]
     bounds = _f32_bounds(mlp, b, s, peak)
     library = _f32_library_ms(mlp, dev, b * s)
     for name, e in res.items():
         e.update(bound_ms=bounds[name][0], bound_by=bounds[name][1])
     say("f32_kernels", B=b, S=s, peak_f32_flops=peak, tol_rel=F32_TOL_REL, results=res,
         library_ms=library, card=card)
+    say("f32_backward", B=b, S=s, device_ms=backward["device_ms"],
+        repeat_identical=backward["repeat_identical"], ptxas=_f32_ptxas(), card=card)
     bad = [n for n, e in res.items() if not (e["finite"] and e["rel_l2"] <= F32_TOL_REL)]
     blind = [n for n, e in res.items() if e["bf16_rel_l2"] < 10 * F32_TOL_REL]
     if bad or blind:
         raise RuntimeError(f"f32: {bad} miss the f32 gate; the gate cannot tell bf16 "
                            f"products from f32 for {blind}: {res}")
+    differ = [n for n, same in backward["repeat_identical"].items() if not same]
+    if differ:
+        raise RuntimeError(f"f32: two launches of {differ} gave different bits")
     del mlp, x
     torch.cuda.empty_cache()
 

@@ -33,7 +33,15 @@ parent).  Phases:
   4096 rays) through the tree's ``Trainer.train_step``: the median of
   the last 10 step times on the host clock (each step ends in a device
   synchronise) and the peak memory over a step (``max_memory_allocated``
-  over what was allocated before it).
+  over what was allocated before it);
+* ``f32``: COMPUTE_DTYPE=float32 at 8x256 (``chip_smoke._suite_mlp``),
+  B=4096, S=192: the f32 K1 in training form, K2 and K5's backward with
+  input gradients at N = 786,432, each alone (CUDA events, median of 5)
+  with its device ms per kernel (``chip_smoke.device_ms_by_kernel``: the
+  compositing VJP, ``f32_rows_kernel``, ``f32_dw_kernel``, the reduce,
+  the forward and its compositing); ``fused_render_f32.cu``'s
+  ``-Xptxas -v`` report; then the f32 parity and proposal steps as in
+  ``steps``; a run of this phase alone builds only the f32 source.
 
 Prints one JSON line per tree and phase, prefixed ``TREE``.
 """
@@ -53,9 +61,33 @@ from nerf_keras_tpu_torch.ops.kernels import _build
 
 phases = sys.argv[1].split(",")
 out = {"tree": os.getcwd()}
-if phases == ["k7"]:
-    _build._sources = lambda: [_build.CSRC / "pdf_union.cu"]
+if phases in (["k7"], ["f32"]):
+    _build._sources = lambda: [_build.CSRC / ("pdf_union.cu" if phases == ["k7"] else
+                                              "fused_render_f32.cu")]
 _build.build()
+
+
+def time_steps(prefix, configs):
+    from nerf_keras_tpu_torch.engine.trainer import Trainer
+    from nerf_keras_tpu_torch.profile_train import bench_batch
+    for name, cfg in configs:
+        tr = Trainer(cfg, 2.0, 6.0, device="cuda")
+        batch = tr.put_batch(bench_batch(cfg.batch_size))
+        ms, peak, losses = [], 0, []
+        for _ in range(14):
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            losses.append(float(tr.train_step(batch)["loss"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+            peak = max(peak, torch.cuda.max_memory_allocated() - base)
+        out[f"{prefix}{name}_median_ms"] = statistics.median(ms[4:])
+        out[f"{prefix}{name}_peak_mib"] = peak / 2**20
+        out[f"{prefix}{name}_loss_first_last"] = [losses[0], losses[-1]]
+        del tr
+        torch.cuda.empty_cache()
+
+
 if "kernels" in phases:
     import chip_smoke as cs
     card = cs.phase_card()
@@ -144,25 +176,34 @@ if "serve" in phases:
             del svc
             torch.cuda.empty_cache()
 if "steps" in phases:
-    from nerf_keras_tpu_torch.engine.trainer import Trainer
-    from nerf_keras_tpu_torch.profile_train import bench_batch, bench_config, parity_config
-    for name, cfg in (("proposal", bench_config()), ("parity", parity_config()),
-                      ("parity_pdf_grad", parity_config(stop_pdf_gradient=False))):
-        tr = Trainer(cfg, 2.0, 6.0, device="cuda")
-        batch = tr.put_batch(bench_batch(cfg.batch_size))
-        ms, peak, losses = [], 0, []
-        for _ in range(14):
-            base = torch.cuda.memory_allocated()
-            torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            losses.append(float(tr.train_step(batch)["loss"]))
-            ms.append((time.perf_counter() - t0) * 1e3)
-            peak = max(peak, torch.cuda.max_memory_allocated() - base)
-        out[f"{name}_median_ms"] = statistics.median(ms[4:])
-        out[f"{name}_peak_mib"] = peak / 2**20
-        out[f"{name}_loss_first_last"] = [losses[0], losses[-1]]
-        del tr
-        torch.cuda.empty_cache()
+    from nerf_keras_tpu_torch.profile_train import bench_config, parity_config
+    time_steps("", (("proposal", bench_config()), ("parity", parity_config()),
+                    ("parity_pdf_grad", parity_config(stop_pdf_gradient=False))))
+if "f32" in phases:
+    import dataclasses
+    import chip_smoke as cs
+    from nerf_keras_tpu_torch.profile_train import bench_config, parity_config
+    from nerf_keras_tpu_torch.runtime import configure_numerics, cuda_ms
+    configure_numerics()
+    log = _build.build_log.split("== fused_render_f32.cu")[-1].split("\n== ")[0]
+    out["f32_ptxas"] = [ln.strip() for ln in log.splitlines()
+                        if "Used" in ln or "spill" in ln or "Compiling entry" in ln]
+    dev = torch.device("cuda")
+    mlp = cs._suite_mlp(dev, 256, seed=27, dtype=torch.float32)
+    x = cs._suite_inputs(mlp, 4096, 192, seed=27)
+    calls = cs._suite_calls(mlp, x)
+    families = {"vjp": ("composite_vjp_kernel",), "rows": ("f32_rows_kernel",),
+                "dw": ("f32_dw_kernel",), "reduce": ("mlp_reduce_kernel",),
+                "fwd": ("f32_fwd_kernel",), "composite": ("f32_composite_kernel",)}
+    with torch.no_grad():
+        for name in ("k1_train", "k2", "k5_bwd"):
+            out[f"f32_{name}_ms"] = cuda_ms(calls[name], reps=5)
+            out[f"f32_{name}_device_ms"] = cs.device_ms_by_kernel(calls[name], families)
+    del mlp, x, calls
+    torch.cuda.empty_cache()
+    time_steps("f32_", [(name, dataclasses.replace(cfg, compute_dtype="float32").validate())
+                        for name, cfg in (("proposal", bench_config()),
+                                          ("parity", parity_config()))])
 print("TREE " + json.dumps(out), flush=True)
 '''
 
@@ -171,11 +212,11 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("trees", nargs="+", help="checkout roots, in run order")
     parser.add_argument("--phases", default="kernels,steps",
-                        help="comma-separated: kernels, k1k2, k4, k7, serve, steps")
+                        help="comma-separated: kernels, k1k2, k4, k7, serve, steps, f32")
     parser.add_argument("--timeout", type=float, default=900.0,
                         help="seconds allowed to each tree's process")
     args = parser.parse_args()
-    unknown = set(args.phases.split(",")) - {"kernels", "k1k2", "k4", "k7", "serve", "steps"}
+    unknown = set(args.phases.split(",")) - {"kernels", "k1k2", "k4", "k7", "serve", "steps", "f32"}
     if unknown:
         raise SystemExit(f"unknown phases: {sorted(unknown)}")
     failed = 0

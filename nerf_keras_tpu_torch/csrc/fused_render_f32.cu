@@ -29,7 +29,11 @@
 // SXM), about 15x below the bf16 tensor cores.  Device memory is far below
 // that (a few hundred bytes a sample).
 //
-// What the design does about that (simple first; fast is later work):
+// On Hopper an SM's shared memory hands its threads 32 floats a cycle
+// while its lanes do 128 FMAs, so a product keeps up only if each float a
+// thread loads from shared memory feeds 4 FMAs or more.
+//
+// What the forward (f32_fwd_kernel) does about that (simple first):
 //   * A block of 256 threads owns a tile of 64 samples and runs it through
 //     the whole MLP.  The activations stay in shared memory as one f32
 //     tile stored k-major (row k of the tile holds column k of all 64
@@ -46,17 +50,29 @@
 //     block).
 //   * The forward writes raw predictions (N, 4); a second kernel
 //     composites one ray per warp (composite_rays).
-//   * The backward recomputes the tile's forward, storing every layer's
-//     input (A) in a workspace, walks back with the transposed matrices
-//     (the ReLU masks read back from A), storing every dPre (D), and sums
-//     the bias gradients per block; then an f32 product dW = A^T D per
-//     layer over the chunk's samples, in 64 x 64 output tiles split over
-//     sample ranges (each tile's 64-sample sums added with Kahan's
-//     compensation), and the reduce of nerf_dw.cuh sums the splits and the
-//     blocks in a fixed order.  No atomics: the same sums on every run.
-//     The workspace holds one chunk of whole rays (chunk_plan), 4 bytes a
-//     sample per layer input and output column (~20 KB at 8x256).
 //
+// The backward (per chunk of whole rays, chunk_plan: the workspace holds 4
+// bytes a sample per layer input and output column, ~20 KB at 8x256):
+//   * f32_rows_kernel recomputes a 64-sample tile's forward, every layer's
+//     input (A) to the workspace, and walks back with the transposed
+//     matrices, every dPre (D) to the workspace, the bias gradients summed
+//     per block.  The walk is a list of products the host builds (the rgb
+//     head's forward and the sigma column are not needed), run by one loop,
+//     so the FMA loop exists once in the binary.  Each thread holds 8
+//     samples x 4 columns of each 128-column chunk (8 + 4 floats a weight
+//     row for 32 FMAs a chunk); the weights stream through a ring of three
+//     32-row stages (16 where shared memory is short), one barrier a stage,
+//     running ahead across products and tiles; the operands of row k + 1
+//     load before row k's FMAs; the ReLU masks stay in shared memory as
+//     bits; the tile's rows go to the workspace by bulk copies of the TMA
+//     unit while the next product runs.
+//   * f32_dw_kernel: dW = A^T D, 128 x 128 output tiles, 8 x 8 a thread
+//     with 16-byte loads along the samples (16 loads for 256 FMAs), over
+//     sample ranges split for whole waves of blocks (fused_f32.dw_splits);
+//     each 64-sample tile's sums start afresh before they join the block's
+//     totals.  The reduce of nerf_dw.cuh sums the splits and the blocks in
+//     a fixed order.  No atomics: the same sums on every run.
+
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC, never -use_fast_math (the top octave's sin and
 //        cos take thousands of radians).  FFMA contraction stays on.
@@ -389,9 +405,23 @@ struct Ws {
   int a_col, a_width, d_col, d_width, out_off;
 };
 
+constexpr int kRowThreads = 256;  // 8 warps: 2 groups of 32 samples x 4 of 32 columns
+constexpr int kSub = 16;          // weight rows (k) a fully unrolled step of the product
+constexpr int kRing = 3;          // stages in the ring: two in flight while one is multiplied
+constexpr int kColsMax = 384;     // a product's output columns: hidden 256 + 128 position
+constexpr int kMaxProds = 2 * kMaxDense + 2;
+
+// One product of the walk: rows [0, K) of the tile times rows [0, K) of the
+// matrix at pack + off (row stride ldm), its first `ncols` columns; the
+// dense layer's forward matrix (fwd) or its transpose.
+struct Prod {
+  int off, ldm, K, ncols, layer, fwd;
+};
+
 struct RowParams {
   F32Net m;
   Ws ws[kMaxDense];
+  Prod prods[kMaxProds];  // the walk: the forward but the rgb head, then back
   const float* pack;
   const float* x_res;   // (N, xyz_dim): K2's residual, K5's and K6's x_enc
   const float* origins;
@@ -407,19 +437,225 @@ struct RowParams {
   long long n0;         // the chunk's first sample
   long long rows_pad;   // workspace rows per layer
   int nc, ntiles, S, total_b, accumulate, mode;
+  int nprod, stages, stage_rows, wmax, tile_rows, xs0;  // stages: a tile's, of stage_rows rows
 };
 
-__global__ void __launch_bounds__(kThreads, 1) f32_rows_kernel(const __grid_constant__ RowParams p) {
+// A thread's outputs of a product: samples s0 .. s0 + 7 of the tile and,
+// per 128-column chunk j, columns 128 j + c0 .. + 3.  Per weight row a
+// thread loads 8 + 4 NJ floats from shared memory for 32 NJ FMAs: at two
+// chunks the card's shared-memory rate (32 floats a cycle an SM) just
+// feeds its FMA rate (128 a cycle).
+__device__ __forceinline__ int rows_s0() {
+  return 32 * ((threadIdx.x >> 5) & 1) + 8 * ((threadIdx.x & 31) >> 3);
+}
+__device__ __forceinline__ int rows_c0() { return 32 * (threadIdx.x >> 6) + 4 * (threadIdx.x & 7); }
+
+using RAcc = float[3][32];
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+// The tile's rows written by this thread, made visible to the TMA unit's
+// reads (after a barrier); a thread's bulk copies, waited for until they
+// have read shared memory, or until they are done.
+__device__ __forceinline__ void fence_to_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait() { asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory"); }
+
+// Rows [0, n) of the tile (64 samples each) to the workspace columns at g
+// (k-major: row r at g + 64 r), one bulk copy of the TMA unit a row.  After
+// fence_to_async and a barrier.
+__device__ __forceinline__ void rows_to_ws(const float* tile, int n, float* g) {
+  if ((int)threadIdx.x >= n) return;
+  for (int r = threadIdx.x; r < n; r += kRowThreads)
+    asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], 256;\n" ::"l"(
+                     g + r * kRows),
+                 "r"(smem_u32(tile + r * kTS))
+                 : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// The weight stream: every product's stages in the walk's order, tile after
+// tile, `left` of them still to be issued by this block.
+struct Stream {
+  int pi, k0, left, issued;
+};
+
+// Issues the stream's next stage (rows [k0, k0 + stage_rows) of its
+// product's matrix, round32(ncols) columns) into its ring slot; commits a
+// group of asynchronous copies, empty once the stream is done.
+__device__ __forceinline__ void issue_stage(const RowParams& p, Stream& s, float* ring) {
+  if (s.left > 0) {
+    const Prod& q = p.prods[s.pi];
+    float* dst = ring + (s.issued % kRing) * p.stage_rows * p.wmax;
+    const int rows = min(p.stage_rows, q.K - s.k0), vec = round_up(q.ncols, 32) >> 2;
+    const int dr = kRowThreads / vec, dc = kRowThreads - dr * vec;
+    const float* src = p.pack + q.off + (size_t)s.k0 * q.ldm;
+    for (int r = threadIdx.x / vec, c = threadIdx.x - r * vec; r < rows; r += dr, c += dc) {
+      if (c >= vec) {
+        c -= vec;
+        ++r;
+        if (r >= rows) break;
+      }
+      cp_async16(dst + (r * vec + c) * 4, src + (size_t)r * q.ldm + c * 4);
+    }
+    s.k0 += p.stage_rows;
+    if (s.k0 >= q.K) {
+      s.k0 = 0;
+      s.pi = s.pi + 1 == p.nprod ? 0 : s.pi + 1;
+    }
+    --s.left;
+  }
+  ++s.issued;
+  cp_async_commit();
+}
+
+// acc[j][4 i + c] += sum over kn <= kSub rows k of tile[k][s0 + i] *
+// W[k][128 j + c0 + c], j < NJ; tp, wp: the thread's first operands.  A
+// full step loads row k + 1's operands before it multiplies row k's, so the
+// loads' latency hides behind the warp's own FMAs.
+template <int NJ>
+__device__ __forceinline__ void sub_fma(RAcc& acc, const float* tp, const float* wp, int w,
+                                        int kn) {
+  float4 a[2][2], b[2][NJ];
+  auto load = [&](int buf, int kk) {
+    a[buf][0] = *reinterpret_cast<const float4*>(tp + kk * kTS);
+    a[buf][1] = *reinterpret_cast<const float4*>(tp + kk * kTS + 4);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) b[buf][j] = *reinterpret_cast<const float4*>(wp + kk * w + 128 * j);
+  };
+  auto fma_row = [&](int buf) {
+    const float av[8] = {a[buf][0].x, a[buf][0].y, a[buf][0].z, a[buf][0].w,
+                         a[buf][1].x, a[buf][1].y, a[buf][1].z, a[buf][1].w};
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const float bv[4] = {b[buf][j].x, b[buf][j].y, b[buf][j].z, b[buf][j].w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[j][4 * i + c] = fmaf(av[i], bv[c], acc[j][4 * i + c]);
+    }
+  };
+  if (kn == kSub) {
+    load(0, 0);
+#pragma unroll
+    for (int kk = 0; kk < kSub; ++kk) {
+      if (kk + 1 < kSub) load((kk + 1) & 1, kk + 1);
+      fma_row(kk & 1);
+    }
+  } else {
+    for (int kk = 0; kk < kn; ++kk) {
+      load(0, kk);
+      fma_row(0);
+    }
+  }
+}
+
+// Product q of the walk into acc: its stages from the ring, each opening
+// with one barrier after which the stream's next stage is issued into the
+// slot the previous stage freed.  A warp multiplies only the 128-column
+// chunks that reach its columns.  Every thread calls it; it ends with a
+// barrier, once this thread's bulk copies have read the tile: the tile may
+// then be overwritten.
+__device__ __forceinline__ void walk_product(const RowParams& p, const Prod& q, Stream& st,
+                                             int& gs, float* ring, const float* tile, RAcc& acc) {
+#pragma unroll
+  for (int j = 0; j < 3; ++j)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[j][e] = 0.f;
+  const int c0 = rows_c0(), w = round_up(q.ncols, 32);
+  const int nj = min(3, max(0, (q.ncols - (c0 & ~31) + 127) / 128));
+  for (int k0 = 0; k0 < q.K; k0 += p.stage_rows) {
+    cp_async_wait<kRing - 2>();
+    __syncthreads();
+    issue_stage(p, st, ring);
+    const float* slot = ring + (gs % kRing) * p.stage_rows * p.wmax + c0;
+    const int kn = min(p.stage_rows, q.K - k0);
+    for (int kb = 0; kb < kn; kb += kSub) {
+      const float* wp = slot + kb * w;
+      const float* tp = tile + (k0 + kb) * kTS + rows_s0();
+      const int ks = min(kSub, kn - kb);
+      if (nj == 1) sub_fma<1>(acc, tp, wp, w, ks);
+      else if (nj == 2) sub_fma<2>(acc, tp, wp, w, ks);
+      else if (nj == 3) sub_fma<3>(acc, tp, wp, w, ks);
+    }
+    ++gs;
+  }
+  bulk_wait_read();
+  __syncthreads();
+}
+
+// f(j, c, col, v) for each of the thread's output columns: v[i] is sample
+// s0 + i.
+template <class F>
+__device__ __forceinline__ void each_output(const RAcc& acc, F f) {
+  const int c0 = rows_c0();
+#pragma unroll
+  for (int j = 0; j < 3; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      float v[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) v[i] = acc[j][4 * i + c];
+      f(j, c, 128 * j + c0 + c, v);
+    }
+}
+
+// The tile's rows [col0, col0 + w) = f(r, c) for samples r < valid, else 0,
+// and the same into the workspace columns at g (k-major: g[c * 64 + r]).
+template <class F>
+__device__ __forceinline__ void load_ws(float* tile, int col0, int w, int valid, F f, float* g) {
+  for (int i = threadIdx.x; i < w * kRows; i += kRowThreads) {
+    const int c = i >> 6, r = i & 63;
+    const float v = r < valid ? f(r, c) : 0.f;
+    tile[(col0 + c) * kTS + r] = v;
+    g[i] = v;
+  }
+}
+
+// db[c] += the sum of tile row col0 + c over the 64 samples, c < w <= 16:
+// one warp a row, in a fixed order.
+__device__ __forceinline__ void row_sums(const float* tile, int col0, int w, float* db) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp >= w) return;
+  const float* row = tile + (col0 + warp) * kTS;
+  float s = row[lane] + row[lane + 32];
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  if (lane == 0) db[warp] += s;
+}
+
+// The backward of one chunk, one 64-sample tile at a time (grid-stride):
+// the tile's forward again, every layer's input (A) to the workspace and
+// the ReLU masks as bits in shared memory, then the walk back with the
+// transposed matrices, every dPre (D) to the workspace and the bias
+// gradients summed per block.  The walk is the host's list of products,
+// run by one loop: each streams its weights through the ring
+// (walk_product), which runs ahead across products and tiles; the tile's
+// rows go to the workspace by bulk copies while the next product runs.
+__global__ void __launch_bounds__(kRowThreads, 1)
+    f32_rows_kernel(const __grid_constant__ RowParams p) {
   extern __shared__ __align__(16) float smem[];
   const F32Net& m = p.m;
-  const int H = m.hidden, L = m.num_layers;
-  const bool ig = p.dx_out != nullptr || p.dd_out != nullptr;
-  float* wbuf = smem;                                   // the weight stages
-  float* tile = smem + kWBuf;                           // (tile_rows, kTS)
-  float* db = tile + (size_t)m.tile_rows * kTS;          // (total_b)
-  float* xs = db + round_up(p.total_b, 4);              // (xyz_dim, kTS): dx_enc, with ig
-  for (int i = threadIdx.x; i < p.total_b; i += kThreads) db[i] = 0.f;
-  __syncthreads();
+  const int H = m.hidden, L = m.num_layers, tid = threadIdx.x, lane = tid & 31;
+  const bool x_here = p.dx_out != nullptr;
+  float* ring = smem;                                        // kRing x (stage_rows, wmax)
+  float* tile = ring + kRing * p.stage_rows * p.wmax;        // (tile_rows, kTS)
+  float* part = tile + (size_t)p.tile_rows * kTS;            // (2, kColsMax): bias sums
+  float* db = part + 2 * kColsMax;                           // (total_b)
+  uint64_t* masks = reinterpret_cast<uint64_t*>(db + round_up(p.total_b, 4));  // (L + 3, 256)
+  const int s0 = rows_s0(), half = (tid >> 5) & 1;
+  for (int i = tid; i < p.total_b; i += kRowThreads) db[i] = 0.f;
+  const int my_tiles = (int)blockIdx.x < p.ntiles ? (p.ntiles - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+  Stream st{0, 0, my_tiles * p.stages, 0};
+  for (int i = 0; i < kRing - 1; ++i) issue_stage(p, st, ring);
+  int gs = 0;
+  RAcc acc;
 
   for (int tile_i = blockIdx.x; tile_i < p.ntiles; tile_i += gridDim.x) {
     const int rbase = tile_i * kRows;           // workspace row of the tile's sample 0
@@ -428,13 +664,7 @@ __global__ void __launch_bounds__(kThreads, 1) f32_rows_kernel(const __grid_cons
     const float* g = p.dpreds + q0 * 4;
     auto ws_a = [&](int i) { return p.ws_a + p.rows_pad * p.ws[i].a_col + (size_t)rbase * p.ws[i].a_width; };
     auto ws_d = [&](int i) { return p.ws_d + p.rows_pad * p.ws[i].d_col + (size_t)rbase * p.ws[i].d_width; };
-    auto store_a = [&](int i) {
-      float* dst = ws_a(i);
-      for (int e = threadIdx.x; e < m.L[i].k * kRows; e += kThreads) {
-        const int c = e / kRows, r = e - c * kRows;
-        dst[e] = tile[c * kTS + r];
-      }
-    };
+    auto dbl = [&](int i) { return db + m.L[i].b_off - m.L[0].b_off; };
     auto xf = [&](int r, int c) -> float {
       const long long q = q0 + r;
       if (p.mode == kRecompute) return ray_feature(p.origins, p.dirs, p.t_vals, q, p.S, c, m.xyz_dim);
@@ -445,99 +675,140 @@ __global__ void __launch_bounds__(kThreads, 1) f32_rows_kernel(const __grid_cons
       if (p.mode == kEncodingsIn || p.mode == kK5) return p.d_enc[q * m.dir_dim + c];
       return encode_feature(p.dirs + (q / p.S) * 3, c, m.dir_dim);
     };
-    forward_tile(m, p.pack, tile, wbuf, xf, df, nullptr, valid, store_a);
-    if (ig)
-      for (int e = threadIdx.x; e < m.xyz_dim * kTS; e += kThreads) xs[e] = 0.f;
 
-    // Store dPre of layer i (rows [0, n) of the tile) and add its column sums
-    // into the bias gradients (rows >= valid are 0).
-    auto finish = [&](int i) {
-      const int n = m.L[i].n;
-      float* dst = ws_d(i);
-      for (int e = threadIdx.x; e < n * kRows; e += kThreads) {
-        const int c = e / kRows, r = e - c * kRows;
-        dst[e] = tile[c * kTS + r];
-      }
-      float* dbl = db + m.L[i].b_off - m.L[0].b_off;
-      for (int c = threadIdx.x; c < n; c += kThreads) {
-        float s = 0.f;
-        for (int r = 0; r < kRows; ++r) s += tile[c * kTS + r];
-        dbl[c] += s;
-      }
-      __syncthreads();
-    };
-    // dX of layer i: the columns below `xcol` (the hidden ones) masked by
-    // the ReLU of the layer below (A of `mask_layer` > 0) into the tile, and
-    // with ig the position columns (from `xcol`) added into xs.
-    Acc acc;
-    auto dx_product = [&](int i, int n_out, int mask_layer, int xcol) {
-      const F32Layer& d = m.L[i];
-      tile_product(acc, tile, d.n, p.pack + d.t_off, ld64(d.k), chunks(n_out), wbuf);
-      __syncthreads();
-      const float* a = ws_a(mask_layer);
-      tile_epilogue(acc, n_out, [&](int col, int row0, float* v) {
-        if (col >= xcol) {
-          float* x = xs + (col - xcol) * kTS + row0;
-          for (int q = 0; q < 4; ++q) x[q] += v[q];
-        } else {
-          for (int q = 0; q < 4; ++q)
-            if (!(a[col * kRows + row0 + q] > 0.f)) v[q] = 0.f;
-          store4(tile, col, row0, v);
+    load_ws(tile, 0, m.xyz_dim, valid, xf, ws_a(0));
+    for (int pi = 0; pi < p.nprod; ++pi) {
+      const Prod& q = p.prods[pi];
+      const int li = q.layer;
+      walk_product(p, q, st, gs, ring, tile, acc);
+      if (q.fwd) {
+        // Layer li's output + its bias, ReLU'd but at the merged head (its
+        // feature columns), into the tile's rows [0, ncols) and its ReLU
+        // bits, then to the workspace: A of the next layer (the rgb head's
+        // after the branch).
+        const int next = li == L + 1 ? L + 2 : li + 1;
+        const bool relu = li != L;
+        const float* b = p.pack + m.L[li].b_off;
+        uint64_t bits = 0;
+        each_output(acc, [&](int j, int c, int col, float* v) {
+          if (col >= q.ncols) return;
+          const float bc = b[col];
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            v[i] += bc;
+            if (relu) v[i] = fmaxf(v[i], 0.f);
+            if (j < 2 && v[i] > 0.f) bits |= 1ull << (32 * j + 4 * i + c);
+          }
+          float* t = tile + col * kTS + s0;
+          *reinterpret_cast<float4*>(t) = make_float4(v[0], v[1], v[2], v[3]);
+          *reinterpret_cast<float4*>(t + 4) = make_float4(v[4], v[5], v[6], v[7]);
+        });
+        if (relu) masks[next * kRowThreads + tid] = bits;
+        fence_to_async();
+        __syncthreads();
+        rows_to_ws(tile, q.ncols, ws_a(next));
+        if (li < L && is_skip(li, m.skip_layer)) {
+          load_ws(tile, H, m.xyz_dim, valid, xf, ws_a(li + 1) + H * kRows);
+        } else if (li == L) {
+          load_ws(tile, H, m.dir_dim, valid, df, ws_a(L + 1) + H * kRows);
+        } else if (li == L + 1) {
+          // The walk back, once h2's rows are copied out: d rgb logits.
+          bulk_wait_read();
+          __syncthreads();
+          if (x_here)
+            for (int e = tid; e < m.xyz_dim * kRows; e += kRowThreads)
+              tile[(p.xs0 + (e >> 6)) * kTS + (e & 63)] = 0.f;
+          load_ws(tile, 0, 3, valid, [&](int r, int c) { return g[r * 4 + c]; }, ws_d(L + 2));
+          __syncthreads();
+          row_sums(tile, 0, 3, dbl(L + 2));
         }
+        continue;
+      }
+      // dX of layer li: its columns below xcol are the dPre of layer `out`
+      // (masked by A_li > 0 but at the branch, whose feature input has no
+      // ReLU): into the tile's rows, their sums over the samples into the
+      // bias gradients (a warp's four sample groups by shuffles, then the
+      // two warps' in a fixed order), the rows to the workspace.  Columns
+      // [xcol, ncols): the branch's into dd_out, the skip layers' and layer
+      // 0's added into the dx_enc rows.
+      const int out = li == L + 2 ? L + 1 : li - 1;
+      const int xcol = li == L + 2 ? H / 2 : (li == 0 ? 0 : H);
+      const bool to_dd = li == L + 1;
+      const uint64_t bits = li == L + 1 || li == 0 ? ~0ull : masks[li * kRowThreads + tid];
+      each_output(acc, [&](int j, int c, int col, float* v) {
+        float sum = 0.f;
+        if (col < xcol) {
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+            if (!(j < 2 && ((bits >> (32 * j + 4 * i + c)) & 1u))) v[i] = 0.f;
+          float* t = tile + col * kTS + s0;
+          *reinterpret_cast<float4*>(t) = make_float4(v[0], v[1], v[2], v[3]);
+          *reinterpret_cast<float4*>(t + 4) = make_float4(v[4], v[5], v[6], v[7]);
+          sum = ((v[0] + v[1]) + (v[2] + v[3])) + ((v[4] + v[5]) + (v[6] + v[7]));
+        } else if (col < q.ncols) {
+          if (to_dd) {
+#pragma unroll
+            for (int i = 0; i < 8; ++i)
+              if (s0 + i < valid) p.dd_out[(q0 + s0 + i) * m.dir_dim + col - xcol] = v[i];
+          } else {
+            float* x = tile + (p.xs0 + col - xcol) * kTS + s0;
+#pragma unroll
+            for (int i = 0; i < 8; ++i) x[i] += v[i];
+          }
+        }
+        sum += __shfl_xor_sync(0xffffffffu, sum, 8);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 16);
+        if (lane < 8 && col < xcol) part[half * kColsMax + col] = sum;
       });
+      fence_to_async();
       __syncthreads();
-    };
-
-    // ---- The walk.  d rgb logits.
-    load_cols(tile, 0, 3, valid, [&](int r, int c) { return g[r * 4 + c]; });
+      if (out >= 0) {
+        rows_to_ws(tile, xcol, ws_d(out));
+        float* d = dbl(out);
+        for (int col = tid; col < xcol; col += kRowThreads) d[col] += part[col] + part[kColsMax + col];
+      }
+      if (li == L + 1) {  // dsigma: the merged head's last dPre column
+        load_ws(tile, H, 1, valid, [&](int r, int) { return g[r * 4 + 3]; }, ws_d(L) + H * kRows);
+        __syncthreads();
+        row_sums(tile, H, 1, dbl(L) + H);
+      } else if (li == 0) {
+        for (int e = tid; e < valid * m.xyz_dim; e += kRowThreads) {
+          const int r = e / m.xyz_dim, c = e - r * m.xyz_dim;
+          p.dx_out[(q0 + r) * m.xyz_dim + c] = tile[(p.xs0 + c) * kTS + r];
+        }
+      }
+    }
+    // The last rows copied out before the next tile overwrites them.
+    bulk_wait_read();
     __syncthreads();
-    finish(L + 2);
-    // dh2 = drgb W_rgb^T, masked by h2 > 0 (A of the rgb head): the branch's dPre.
-    dx_product(L + 2, H / 2, L + 2, kMaxWidth);
-    finish(L + 1);
-    {  // dfeature = dh2 W_br^T; with ig the direction columns: dd_enc.
-      const F32Layer& d = m.L[L + 1];
-      const int n_out = H + (p.dd_out != nullptr ? m.dir_dim : 0);
-      tile_product(acc, tile, d.n, p.pack + d.t_off, ld64(d.k), chunks(n_out), wbuf);
-      __syncthreads();
-      tile_epilogue(acc, n_out, [&](int col, int row0, float* v) {
-        if (col < H) {
-          store4(tile, col, row0, v);
-        } else {
-          for (int q = 0; q < 4; ++q)
-            if (row0 + q < valid) p.dd_out[(q0 + row0 + q) * m.dir_dim + col - H] = v[q];
-        }
-      });
-      load_cols(tile, H, 1, valid, [&](int r, int) { return g[r * 4 + 3]; });
-      __syncthreads();
-    }
-    finish(L);  // the merged head's dPre: [dfeature, dsigma]
-    // dh_{L-1} = dfs W_fs^T (hidden columns), masked: dPre_{L-1}.
-    const bool x_here = p.dx_out != nullptr;
-    dx_product(L, H + (x_here && is_skip(L - 1, m.skip_layer) ? m.xyz_dim : 0), L, H);
-    for (int i = L - 1; i >= 0; --i) {
-      finish(i);
-      if (i > 0) dx_product(i, H + (x_here && is_skip(i - 1, m.skip_layer) ? m.xyz_dim : 0), i, H);
-    }
-    if (x_here) {
-      // Layer 0's input is the encoding alone: its product adds into xs.
-      dx_product(0, m.xyz_dim, 0, 0);
-      for (int e = threadIdx.x; e < valid * m.xyz_dim; e += kThreads) {
-        const int r = e / m.xyz_dim, c = e - r * m.xyz_dim;
-        p.dx_out[(q0 + r) * m.xyz_dim + c] = xs[c * kTS + r];
-      }
-      __syncthreads();
-    }
   }
+  cp_async_wait<0>();
+  bulk_wait();
   float* out = p.db_part + (size_t)blockIdx.x * p.total_b;
-  for (int i = threadIdx.x; i < p.total_b; i += kThreads)
+  for (int i = tid; i < p.total_b; i += kRowThreads)
     out[i] = p.accumulate ? out[i] + db[i] : db[i];
 }
 
-// dW = A^T D over a chunk: one 64 x 64 tile of one layer's dW per block
-// (4 x 4 a thread), over the sample tiles [s * per, (s + 1) * per) of
-// split s = blockIdx.y, written (or, for a later chunk, added) to the
-// split's slab.
+
+// dW = A^T D over a chunk.  A block owns a 128 x 128 tile of one layer's
+// dW (8 x 8 a thread: rows tm + 16 i, columns tn + 16 j) over the sample
+// tiles [s * per, (s + 1) * per) of split s = blockIdx.y, and writes (or,
+// for a later chunk, adds) it to the split's slab.  The workspaces are
+// k-major, so both operands are copied as they lie (cp.async, 16 bytes, a
+// ring of four 32-sample stages) and each thread reads four samples of one
+// row with one 16-byte load: per four samples 8 + 8 loads (64 floats) feed
+// 256 FMAs, which the card's shared-memory rate just feeds.  Each 64-sample
+// tile's sums start afresh and are then added to the block's totals; the
+// splits and the chunks add in a fixed order (no atomics: the same sums on
+// every run).
+constexpr int kDwBM = 128;                    // dW rows (k) a block
+constexpr int kDwBN = 128;                    // dW columns (n) a block
+constexpr int kDwSS = 32;                     // samples a stage
+constexpr int kDwTS = kDwSS + 4;              // a stage row's stride (floats): no bank conflicts
+constexpr int kDwRing = 4;
+constexpr int kDwStage = (kDwBM + kDwBN) * kDwTS;  // floats
+constexpr int kDwBlock = 256;
+
 struct DwParams {
   Ws ws[kMaxDense];
   int tile_start[kMaxDense + 1];
@@ -548,75 +819,121 @@ struct DwParams {
   int n_layers, total_out, ntiles, per, accumulate;
 };
 
-__global__ void __launch_bounds__(kThreads) f32_dw_kernel(const __grid_constant__ DwParams p) {
-  __shared__ __align__(16) float as[kRows * kTS];  // A: (k, sample), k-major
-  __shared__ __align__(16) float ds[kRows * kTS];  // D: (sample, n), sample-major
+__device__ __forceinline__ void cp_async16_zfill(float* dst, const float* src, bool ok) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(ok ? 16 : 0));
+}
+
+__global__ void __launch_bounds__(kDwBlock, 1) f32_dw_kernel(const __grid_constant__ DwParams p) {
+  extern __shared__ __align__(16) float smem[];
   int li = 0;
   while (li + 1 < p.n_layers && (int)blockIdx.x >= p.tile_start[li + 1]) ++li;
   const Ws& w = p.ws[li];
   const int t = blockIdx.x - p.tile_start[li];
-  const int ntn = (w.d_width + 63) / 64;
-  const int k0 = (t / ntn) * 64, n0 = (t % ntn) * 64;
-  const int tid = threadIdx.x, rg = tid >> 4, cg = tid & 15;
-  // Per sample tile a fresh sum of 64 products, added into the total with
-  // Kahan's compensation: the total over hundreds of thousands of samples
-  // keeps f32 accuracy.
-  float total[16], comp[16];
-#pragma unroll
-  for (int e = 0; e < 16; ++e) total[e] = comp[e] = 0.f;
-  const int s0 = blockIdx.y * p.per, s1 = min(s0 + p.per, p.ntiles);
+  const int ntn = (w.d_width + kDwBN - 1) / kDwBN;
+  const int k0 = (t / ntn) * kDwBM, n0 = (t % ntn) * kDwBN;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tm = 4 * (warp & 3) + (lane >> 3), tn = 8 * (warp >> 2) + (lane & 7);
+  const int t0 = blockIdx.y * p.per, t1 = min(t0 + p.per, p.ntiles);
+  const int nst = 2 * max(0, t1 - t0);  // 32-sample stages
   const float* a_base = p.ws_a + p.rows_pad * w.a_col;
   const float* d_base = p.ws_d + p.rows_pad * w.d_col;
-  for (int st = s0; st < s1; ++st) {
-    const float* a = a_base + (size_t)st * kRows * w.a_width;
-    const float* d = d_base + (size_t)st * kRows * w.d_width;
-    for (int e = tid; e < 64 * kRows; e += kThreads) {
-      const int c = e / kRows, r = e - c * kRows;
-      as[c * kTS + r] = k0 + c < w.a_width ? a[(size_t)(k0 + c) * kRows + r] : 0.f;
-      ds[r * kTS + c] = n0 + c < w.d_width ? d[(size_t)(n0 + c) * kRows + r] : 0.f;
-    }
-    __syncthreads();
-    float acc[16];
+  // This thread's copies of a stage: 16 bytes at sample (tid % 8) * 4 of
+  // rows tid / 8 + 32 i of A and of D (i < 4); rows past the layer's width
+  // are zero-filled.
+  const int crow = tid >> 3, cq = (tid & 7) * 4;
+  unsigned ok = 0;
 #pragma unroll
-    for (int e = 0; e < 16; ++e) acc[e] = 0.f;
-#pragma unroll 4
-    for (int r = 0; r < kRows; ++r) {
-      const float4 dv = *reinterpret_cast<const float4*>(ds + r * kTS + 4 * cg);
-      const float dd[4] = {dv.x, dv.y, dv.z, dv.w};
+  for (int i = 0; i < 4; ++i) {
+    ok |= (k0 + crow + 32 * i < w.a_width ? 1u : 0u) << i;
+    ok |= (n0 + crow + 32 * i < w.d_width ? 1u : 0u) << (4 + i);
+  }
+  const float* a_src = a_base + (size_t)(k0 + crow) * kRows + cq;
+  const float* d_src = d_base + (size_t)(n0 + crow) * kRows + cq;
+  auto issue = [&](int s) {
+    if (s < nst) {
+      float* dst = smem + (s % kDwRing) * kDwStage + crow * kDwTS + cq;
+      const size_t st = t0 + (s >> 1), half = (s & 1) * kDwSS;
+      const float* a = a_src + st * kRows * w.a_width + half;
+      const float* d = d_src + st * kRows * w.d_width + half;
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const float av = as[(4 * rg + i) * kTS + r];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[4 * i + c] = fmaf(av, dd[c], acc[4 * i + c]);
+        const bool oa = (ok >> i) & 1u, od = (ok >> (4 + i)) & 1u;
+        cp_async16_zfill(dst + 32 * i * kDwTS, oa ? a + 32 * i * kRows : a_base, oa);
+        cp_async16_zfill(dst + (kDwBM + 32 * i) * kDwTS, od ? d + 32 * i * kRows : d_base, od);
       }
     }
+    cp_async_commit();
+  };
+  float acc[8][8], total[8][8];
 #pragma unroll
-    for (int e = 0; e < 16; ++e) {
-      const float y = __fsub_rn(acc[e], comp[e]);
-      const float t = __fadd_rn(total[e], y);
-      comp[e] = __fsub_rn(__fsub_rn(t, total[e]), y);
-      total[e] = t;
-    }
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = total[i][j] = 0.f;
+#pragma unroll
+  for (int s = 0; s < kDwRing - 1; ++s) issue(s);
+  for (int s = 0; s < nst; ++s) {
+    cp_async_wait<kDwRing - 2>();
     __syncthreads();
+    issue(s + kDwRing - 1);
+    const float* buf = smem + (s % kDwRing) * kDwStage;
+    const float* ap = buf + tm * kDwTS;
+    const float* dp = buf + (kDwBM + tn) * kDwTS;
+    // Four samples a step; the next step's D operands and the next row's A
+    // operand are loaded before this one's FMAs.
+    float4 dv[2][8], av[2];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) dv[0][j] = *reinterpret_cast<const float4*>(dp + 16 * j * kDwTS);
+    av[0] = *reinterpret_cast<const float4*>(ap);
+#pragma unroll
+    for (int t = 0; t < kDwSS / 4; ++t) {
+      const int cur = t & 1, q = 4 * t;
+      if (t + 1 < kDwSS / 4)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          dv[cur ^ 1][j] = *reinterpret_cast<const float4*>(dp + 16 * j * kDwTS + q + 4);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int ai = (8 * t + i) & 1;
+        if (i + 1 < 8)
+          av[ai ^ 1] = *reinterpret_cast<const float4*>(ap + 16 * (i + 1) * kDwTS + q);
+        else if (t + 1 < kDwSS / 4)
+          av[ai ^ 1] = *reinterpret_cast<const float4*>(ap + q + 4);
+        const float4 x = av[ai];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float4 y = dv[cur][j];
+          acc[i][j] = fmaf(x.x, y.x, acc[i][j]);
+          acc[i][j] = fmaf(x.y, y.y, acc[i][j]);
+          acc[i][j] = fmaf(x.z, y.z, acc[i][j]);
+          acc[i][j] = fmaf(x.w, y.w, acc[i][j]);
+        }
+      }
+    }
+    if (s & 1) {  // a whole 64-sample tile: its sums into the totals
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          total[i][j] += acc[i][j];
+          acc[i][j] = 0.f;
+        }
+    }
   }
   float* out = p.part + (size_t)blockIdx.y * p.total_out + w.out_off;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int k = k0 + 4 * rg + i;
+  for (int i = 0; i < 8; ++i) {
+    const int k = k0 + tm + 16 * i;
     if (k >= w.a_width) continue;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int n = n0 + 4 * cg + c;
+    for (int j = 0; j < 8; ++j) {
+      const int n = n0 + tn + 16 * j;
       if (n >= w.d_width) continue;
       float* o = out + (size_t)k * w.d_width + n;
-      *o = p.accumulate ? *o + total[4 * i + c] : total[4 * i + c];
+      *o = p.accumulate ? *o + total[i][j] : total[i][j];
     }
   }
-}
-
-size_t rows_smem(const F32Net& m, int total_b, bool ig) {
-  return sizeof(float) * ((size_t)kWBuf + (size_t)m.tile_rows * kTS + round_up(total_b, 4) +
-                          (ig ? (size_t)m.xyz_dim * kTS : 0));
 }
 
 }  // namespace
@@ -723,9 +1040,45 @@ extern "C" int nkt_f32_bwd(int mode, const void* x_res, const void* origins, con
       return (int)cudaErrorInvalidValue;
     dp.ws[i] = w;
     dp.tile_start[i] = tiles;
-    tiles += ((w.a_width + 63) / 64) * ((w.d_width + 63) / 64);
+    tiles += ((w.a_width + kDwBM - 1) / kDwBM) * ((w.d_width + kDwBN - 1) / kDwBN);
   }
   dp.tile_start[n_dense] = tiles;
+  // The walk's products, in the order f32_rows_kernel runs them: the
+  // forward's (the forward matrices, K = k) but the rgb head's, then the
+  // transposed ones back (K = n), with the position columns at the skip
+  // layers and layer 0 where dx_enc is asked for, the direction columns at
+  // the branch where dd_enc is.
+  {
+    const F32Net& m = p.m;
+    const int H = m.hidden, L = m.num_layers;
+    const bool x_here = dx_out != nullptr;
+    int widest = H + 1;
+    p.nprod = p.wmax = 0;
+    auto add = [&](int li, bool fwd, int ncols) {
+      const F32Layer& d = m.L[li];
+      p.prods[p.nprod++] = fwd ? Prod{d.f_off, ld64(d.n), d.k, ncols, li, 1}
+                               : Prod{d.t_off, ld64(d.k), d.n, ncols, li, 0};
+      p.wmax = round_up(ncols, 32) > p.wmax ? round_up(ncols, 32) : p.wmax;
+      widest = p.prods[p.nprod - 1].K > widest ? p.prods[p.nprod - 1].K : widest;
+    };
+    for (int i = 0; i <= L + 1; ++i) add(i, true, i == L + 1 ? H / 2 : H);
+    add(L + 2, false, H / 2);
+    add(L + 1, false, H + (dd_out != nullptr ? m.dir_dim : 0));
+    for (int i = L; i >= 1; --i)
+      add(i, false, H + (x_here && is_skip(i - 1, m.skip_layer) ? m.xyz_dim : 0));
+    if (x_here) add(0, false, m.xyz_dim);
+    p.xs0 = round_up(H + 1, 4);
+    p.tile_rows = round_up(x_here && p.xs0 + m.xyz_dim > widest ? p.xs0 + m.xyz_dim : widest, 4);
+  }
+  // The ring's stages: 32 weight rows where shared memory holds them, else 16.
+  auto rows_smem = [&](int rows) {
+    return sizeof(float) * ((size_t)kRing * rows * p.wmax + (size_t)p.tile_rows * kTS +
+                            2 * kColsMax + round_up(total_b, 4) +
+                            (size_t)(num_layers + 3) * kRowThreads * 2);
+  };
+  p.stage_rows = rows_smem(2 * kSub) <= (size_t)kMaxSmem ? 2 * kSub : kSub;
+  p.stages = 0;
+  for (int i = 0; i < p.nprod; ++i) p.stages += (p.prods[i].K + p.stage_rows - 1) / p.stage_rows;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   p.pack = static_cast<const float*>(pack);
   p.x_res = static_cast<const float*>(x_res);
@@ -758,10 +1111,13 @@ extern "C" int nkt_f32_bwd(int mode, const void* x_res, const void* origins, con
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  const size_t smem = rows_smem(p.m, total_b, ig);
+  const size_t smem = rows_smem(p.stage_rows);
+  const int dw_smem = (int)sizeof(float) * kDwRing * kDwStage;
   if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
   err = cudaFuncSetAttribute(f32_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(f32_dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dw_smem);
   if (err != cudaSuccess) return (int)err;
   for (int r0 = 0, chunk = 0; r0 < B; r0 += chunk_rays, ++chunk) {
     const int nr = B - r0 < chunk_rays ? B - r0 : chunk_rays;
@@ -770,13 +1126,13 @@ extern "C" int nkt_f32_bwd(int mode, const void* x_res, const void* origins, con
     p.ntiles = (p.nc + kRows - 1) / kRows;
     p.accumulate = chunk > 0;
     const int g = grid < p.ntiles ? grid : p.ntiles;
-    f32_rows_kernel<<<g, kThreads, smem, st>>>(p);
+    f32_rows_kernel<<<g, kRowThreads, smem, st>>>(p);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     dp.ntiles = p.ntiles;
     dp.per = (p.ntiles + nsplit - 1) / nsplit;
     dp.accumulate = chunk > 0;
-    f32_dw_kernel<<<dim3(tiles, nsplit), kThreads, 0, st>>>(dp);
+    f32_dw_kernel<<<dim3(tiles, nsplit), kDwBlock, dw_smem, st>>>(dp);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }

@@ -33,6 +33,7 @@ per layer the forward matrix ``(k, round64(n))`` and the transposed one
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -53,6 +54,12 @@ mlp_launches = 0        # K5 forward
 mlp_bwd_launches = 0    # K5 backward
 
 ROWS = 64  # samples per tile of the rows kernel (csrc/fused_render_f32.cu: kRows)
+# The dW product's output tile, (k, n) (csrc/fused_render_f32.cu: kDwBM,
+# kDwBN), the blocks an SM holds at once (f32_dw_kernel's launch bounds) and
+# a block's fixed cost in 64-sample tiles (its ring's fill, its slab write).
+DW_TILE = (128, 128)
+DW_BLOCKS_PER_SM = 1
+DW_BLOCK_COST = 2
 # The rows kernel's modes (csrc/fused_render_f32.cu, as fused_render_bwd.cu's).
 _K2, _K3, _K6, _K5 = 0, 1, 2, 3
 
@@ -119,6 +126,41 @@ def workspace_layout(pack: F32Pack) -> np.ndarray:
 def bytes_per_sample(pack: F32Pack) -> int:
     """The workspace a sample takes: every layer's input and output, f32."""
     return 4 * int(pack.desc[:, 0].sum() + pack.desc[:, 1].sum())
+
+
+def dw_tiles(layout: np.ndarray) -> int:
+    """The dW product's output tiles over every layer: ceil(k / 128) x
+    ceil(n / 128) a layer (``layout``: :func:`workspace_layout`)."""
+    k, n = layout[:, 1].astype(np.int64), layout[:, 3].astype(np.int64)
+    return int(((-(-k // DW_TILE[0])) * (-(-n // DW_TILE[1]))).sum())
+
+
+@functools.lru_cache(maxsize=None)
+def dw_splits(out_tiles: int, ntiles: int, slots: int) -> int:
+    """The sample splits of a chunk's dW product: ``out_tiles`` x splits
+    blocks, each over ``ceil(ntiles / splits)`` consecutive 64-sample tiles.
+    The count whose whole waves of ``slots`` blocks at once end soonest
+    (each block costing its tiles and ``DW_BLOCK_COST``), the fewest on a
+    tie; none of the splits is empty."""
+    best, best_cost = 1, None
+    for q in range(1, min(ntiles, max(1, 8 * slots // out_tiles)) + 1):
+        per = -(-ntiles // q)
+        if -(-ntiles // per) != q:
+            continue
+        cost = -(-out_tiles * q // slots) * (per + DW_BLOCK_COST)
+        if best_cost is None or cost < best_cost:
+            best, best_cost = q, cost
+    return best
+
+
+def dw_blocks(layout: np.ndarray, ntiles: int, nsplit: int) -> list[tuple[int, ...]]:
+    """The dW product's blocks in ``f32_dw_kernel``'s grid order (x: layer,
+    k tile, n tile; y: split): ``(layer, k0, n0, first tile, end tile)``."""
+    per = -(-ntiles // nsplit)
+    return [(li, k0, n0, min(s * per, ntiles), min(s * per + per, ntiles))
+            for s in range(nsplit)
+            for li, (k, n) in enumerate(layout[:, [1, 3]].tolist())
+            for k0 in range(0, k, DW_TILE[0]) for n0 in range(0, n, DW_TILE[1])]
 
 
 def _ptr(x: torch.Tensor | None) -> int | None:
@@ -220,8 +262,7 @@ def _launch_rows(mode, mlp, b, s, *, t_vals=None, preds=None, g_rgb=None, g_w=No
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     grid = min(tiles, sms)
     total_out = int((layout[:, 1].astype(np.int64) * layout[:, 3]).sum())
-    dw_tiles = int(sum(-(-int(k) // 64) * -(-int(n) // 64) for k, n in pack.desc[:, :2]))
-    nsplit = max(1, min(-(-2 * sms // dw_tiles), tiles // 8))
+    nsplit = dw_splits(dw_tiles(layout), tiles, sms * DW_BLOCKS_PER_SM)
     f32 = dict(dtype=torch.float32, device=device)
     a_cols, d_cols = int(layout[:, 1].sum()), int(layout[:, 3].sum())
     ws_a = torch.empty((rows * a_cols,), **f32)

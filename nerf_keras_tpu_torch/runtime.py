@@ -63,27 +63,41 @@ def cuda_ms(fn, reps: int = 10) -> float:
     return statistics.median(times)
 
 
-def device_ms_by_kernel(fn, families: dict, tries: int = 3) -> dict:
+def device_ms_by_kernel(fn, families: dict, tries: int = 3, launches: dict | None = None) -> dict:
     """Device milliseconds of each kernel family in one call of ``fn``
     (``torch.profiler``; a family is a tuple of substrings of kernel
     names), and of all device work under ``"all"``.  The profiler now and
-    then records no device event in a window: ``fn`` then runs again in a
-    new one, and after ``tries`` empty windows this raises."""
+    then records no device event in a window, or only some of them: ``fn``
+    then runs again in a new one, for a window with no event, and for one
+    whose family counts differ from ``launches`` (family -> the launches
+    one call of ``fn`` makes) where it is given; the counts recorded are
+    then returned under ``"launches"``.  After ``tries`` empty windows this
+    raises; after ``tries`` incomplete ones it returns the last, whose
+    ``"launches"`` show what it missed."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    def count(events, names):
+        return sum(1 for e in events if any(n in e.name for n in names))
+
+    found = None
     for _ in range(tries):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
         events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        if events:
+        if not events:
+            continue
+        found = events
+        if launches is None or all(count(events, families[k]) == n for k, n in launches.items()):
             break
-    else:
+    if found is None:
         raise RuntimeError(f"torch.profiler recorded no device work in {tries} windows")
     span = lambda e: e.time_range.end - e.time_range.start  # noqa: E731
-    out = {k: sum(span(e) for e in events if any(n in e.name for n in names)) / 1e3
+    out = {k: sum(span(e) for e in found if any(n in e.name for n in names)) / 1e3
            for k, names in families.items()}
-    out["all"] = sum(span(e) for e in events) / 1e3
+    out["all"] = sum(span(e) for e in found) / 1e3
+    if launches is not None:
+        out["launches"] = {k: count(found, families[k]) for k in launches}
     return out

@@ -27,6 +27,7 @@ from nerf_keras_tpu_torch.models.mlp import (
     randomize_biases_,
 )
 from nerf_keras_tpu_torch.ops.encoding import encode_position
+from nerf_keras_tpu_torch.ops.kernels import fused_f32
 from nerf_keras_tpu_torch.ops.kernels import fused_mlp as k5
 from nerf_keras_tpu_torch.ops.kernels import launch_counts
 from nerf_keras_tpu_torch.ops.kernels import fused_render as k1
@@ -902,6 +903,49 @@ def test_f32_kernels_match_plain(dev, kernel, hidden, l_xyz, l_dir):
         assert _rel_l2(a, w) <= F32_TOL_REL, (i, _rel_l2(a, w))
     grew = {k: v - before[k] for k, v in launch_counts().items() if v != before[k]}
     assert grew and all(k.endswith("_f32") for k in grew), grew
+
+
+@pytest.mark.parametrize("kernel", ["k2", "k5"])
+def test_f32_backward_over_chunks_repeats_its_bits(dev, monkeypatch, kernel):
+    """The f32 backward (K2, and K5 with input gradients) over a workspace
+    budget that forces several chunks, the last one short, within
+    F32_TOL_REL on every gradient of its plain version with the parameter
+    gradients' sums and the compositing in float64 (chip_smoke.py's
+    yardstick for this gate: the plain f32 version's own sums over 33,300
+    samples err by ~1e-5 on the sigma head's bias); two launches give
+    identical bits (no atomics, a fixed order of sums)."""
+    from chip_smoke import _f64_yardstick
+
+    mlp, o, d, t, x_enc, d_enc, g_rgb, g_w = _f32_setup(dev, 256, 333, 100, seed=37)
+    b, s = t.shape
+    per = fused_f32.bytes_per_sample(fused_f32.kernel_pack_f32(mlp, dev))
+    monkeypatch.setattr(k1, "DW_CHUNK_BYTES", 64 * 128 * per)
+    n = b if kernel == "k2" else b * s
+    plan = k1.chunk_plan(n, s if kernel == "k2" else 1, per)
+    assert len(plan) >= 3 and plan[-1][1] < plan[0][1]
+    x2, d2 = x_enc.reshape(b * s, -1), d_enc.reshape(b * s, -1)
+    g5 = (torch.randn((b * s, 4), generator=torch.Generator().manual_seed(5)) * 1e-2).to(dev)
+    runs = []
+    with torch.no_grad():
+        if kernel == "k2":
+            _, _, x_res, preds = k1.launch_k1(mlp, o, d, t, 10, 4, train=True)
+        for _ in range(2):
+            if kernel == "k2":
+                runs.append(k1.launch_k2(mlp, x_res, d, t, preds, g_rgb, g_w, 10, 4))
+            else:
+                grads, dx, dd = k5.launch_k5_bwd(mlp, x2, d2, g5, True, True)
+                runs.append(grads + [dx, dd])
+        torch.cuda.synchronize()
+    with _f64_yardstick():
+        if kernel == "k2":
+            want = k1.render_rays_reference_vjp(mlp, o, d, t, g_rgb, g_w)
+        else:
+            grads, dx, dd = k5.apply_nerf_mlp_reference_vjp(mlp, x2, d2, g5, True)
+            want = grads + [dx, dd]
+    assert len(runs[0]) == len(want)
+    for i, (a, a2, w) in enumerate(zip(runs[0], runs[1], want)):
+        assert torch.equal(a, a2), i
+        assert _rel_l2(a, w) <= F32_TOL_REL, (i, _rel_l2(a, w))
 
 
 @pytest.mark.parametrize("what", ["hidden 320 bf16", "hidden 320 f32", "L_XYZ 21",

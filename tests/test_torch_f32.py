@@ -9,6 +9,10 @@ version.  Here:
   width; the limits (hidden 256, L_XYZ 20, L_DIR 10) raise
   ``NotImplementedError`` naming themselves and the ROADMAP item.
 * ``check_train_support`` accepts float32 (on any device).
+* The f32 backward's weight-gradient plan (``dw_tiles``, ``dw_splits``,
+  ``dw_blocks``): every (layer, k tile, n tile, sample tile) of a chunk
+  covered by exactly one block, no split empty, and what it gives at
+  ``chip_smoke.py``'s shapes.
 * The f32 pack (``pack_f32``: each layer's forward matrix, its transpose
   and the biases) and workspace layout against numpy, and ``unpack_grads``
   on a backward's flat f32 dW/db laid out as the kernel writes them.
@@ -135,6 +139,58 @@ def test_f32_pack_and_workspace_layout():
     assert lay[1:, 0].tolist() == np.cumsum(lay[:-1, 1]).tolist()
     assert lay[1:, 4].tolist() == np.cumsum(lay[:-1, 1] * lay[:-1, 3]).tolist()
     assert fused_f32.bytes_per_sample(pack) == 4 * int(lay[:, 1].sum() + lay[:, 3].sum())
+
+
+def _f32_layout(hidden, l_xyz=10, l_dir=4):
+    mlp = NeRFMLP(num_layers=8, hidden_dim=hidden, skip_layer=4, l_xyz=l_xyz, l_dir=l_dir,
+                  compute_dtype=F32)
+    pack = fused_f32.pack_f32(mlp, CPU)
+    return pack, fused_f32.workspace_layout(pack)
+
+
+@pytest.mark.parametrize("hidden,l_xyz,l_dir,b,s,slots", [
+    (256, 10, 4, 4096, 192, 132),  # chip_smoke.py's f32 phase
+    (256, 20, 10, 1000, 24, 132),
+    (96, 16, 6, 300, 48, 132),
+    (17, 4, 2, 333, 100, 7),
+    (64, 10, 4, 5, 3, 132),        # one sample tile
+])
+def test_dw_blocks_cover_every_tile_once(hidden, l_xyz, l_dir, b, s, slots):
+    """The dW product's blocks (f32_dw_kernel's grid: output tile x split)
+    cover every (layer, 128-row tile, 128-column tile, 64-sample tile) of a
+    chunk exactly once, and no split is empty."""
+    pack, layout = _f32_layout(hidden, l_xyz, l_dir)
+    rays = k1.chunk_plan(b, s, fused_f32.bytes_per_sample(pack))[0][1]
+    ntiles = -(-rays * s // fused_f32.ROWS)
+    nsplit = fused_f32.dw_splits(fused_f32.dw_tiles(layout), ntiles, slots)
+    blocks = fused_f32.dw_blocks(layout, ntiles, nsplit)
+    assert len(blocks) == fused_f32.dw_tiles(layout) * nsplit
+    seen = {}
+    for li, k0, n0, t0, t1 in blocks:
+        k, n = int(layout[li, 1]), int(layout[li, 3])
+        assert k0 % 128 == 0 and n0 % 128 == 0 and k0 < k and n0 < n
+        assert t0 < t1  # no empty split
+        for t in range(t0, t1):
+            seen[(li, k0, n0, t)] = seen.get((li, k0, n0, t), 0) + 1
+    want = {(li, k0, n0, t) for li, (k, n) in enumerate(layout[:, [1, 3]].tolist())
+            for k0 in range(0, k, 128) for n0 in range(0, n, 128) for t in range(ntiles)}
+    assert set(seen) == want and set(seen.values()) == {1}
+
+
+def test_dw_plan_at_the_smokes_shapes():
+    """At 8x256, B = 4,096, S = 192 (chip_smoke.py's f32 phase) a chunk is
+    174 rays (522 tiles), the dW product 42 output tiles a split, and the
+    plan takes 3 splits: 126 blocks, one wave on an H100's 132 SMs."""
+    pack, layout = _f32_layout(256)
+    assert fused_f32.bytes_per_sample(pack) == 20_084
+    plan = k1.chunk_plan(4096, 192, fused_f32.bytes_per_sample(pack))
+    assert (len(plan), plan[0][1]) == (24, 174)
+    assert fused_f32.dw_tiles(layout) == 42
+    assert fused_f32.dw_splits(42, 522, 132) == 3
+    assert fused_f32.dw_splits(42, 14, 132) == 3   # the last, short chunk keeps 3 splits
+    # More slots than blocks of one split: the splits grow to fill whole waves.
+    assert fused_f32.dw_splits(4, 40, 132) == 20
+    assert fused_f32.dw_splits(1, 1, 132) == 1
 
 
 def test_f32_unpack_grads_is_exact():
