@@ -4143,6 +4143,17 @@ F32_BWD_FAMILIES = {"vjp": ("composite_vjp_kernel",), "rows": ("f32_rows_kernel"
                     "dw": ("f32_dw_kernel",), "reduce": ("mlp_reduce_kernel",)}
 
 
+def _device_ms_or_note(fn, families: dict, launches: dict) -> dict:
+    """``device_ms_by_kernel`` over up to 8 profiler windows; where the
+    profiler recorded no device work in any (it did so once late in a
+    whole smoke run, where a fresh process records it), the reason in
+    place of the times: a measurement, not a gate."""
+    try:
+        return device_ms_by_kernel(fn, families, tries=8, launches=launches)
+    except RuntimeError as e:
+        return {"not_measured": str(e)}
+
+
 def _f32_ptxas() -> list[str]:
     """``fused_render_f32.cu``'s lines of the ``-Xptxas -v`` report: each
     kernel's name, then its stack, spills, registers and static shared
@@ -4195,11 +4206,57 @@ def _f32_backward(mlp: NeRFMLP, x: dict) -> dict:
             # A rows and a dW launch a chunk, one reduce, one VJP but K5's.
             want = {"vjp": int(name != "k5_bwd"), "rows": chunks[name], "dw": chunks[name],
                     "reduce": 1}
-            out["device_ms"][name] = device_ms_by_kernel(fn, F32_BWD_FAMILIES, launches=want)
+            out["device_ms"][name] = _device_ms_or_note(fn, F32_BWD_FAMILIES, want)
         for name in ("k3", "k6_bwd"):
             out["ms"][name] = cuda_ms(alone[name], reps=3)
     del calls, alone, preds3, preds6
     torch.cuda.empty_cache()
+    return out
+
+
+# The f32 forward's kernels, by the names torch.profiler reports.
+F32_FWD_FAMILIES = {"fwd": ("f32_fwd_kernel",), "composite": ("f32_composite_kernel",)}
+
+
+
+def _f32_forward(mlp: NeRFMLP, x: dict) -> dict:
+    """The f32 forward in its four forms on ``x`` (K1 and its training
+    form, K6's and K5's forwards): the device ms of ``f32_fwd_kernel`` and
+    of ``f32_composite_kernel`` apart, from a profiler window that recorded
+    one launch of each; two launches compared bit for bit; K1's f32 x_enc
+    residual against the plain encode of o + d * t (``x["x_enc"]``), bit
+    for bit."""
+    calls = _suite_calls(mlp, x)
+    out = {"device_ms": {}, "repeat_identical": {}}
+    with torch.no_grad():
+        for name in ("k1", "k1_train", "k6_fwd", "k5_fwd"):
+            first, second = calls[name](), calls[name]()
+            out["repeat_identical"][name] = all(torch.equal(u, v) for u, v in zip(first, second))
+            del first, second
+            want = {"fwd": 1, "composite": int(name != "k5_fwd")}
+            out["device_ms"][name] = _device_ms_or_note(calls[name], F32_FWD_FAMILIES, want)
+        b, s = x["t"].shape
+        x_res = k1.launch_k1(mlp, x["o"], x["d"], x["t"], mlp.l_xyz, mlp.l_dir, train=True)[2]
+        out["x_enc_equal"] = torch.equal(x_res, x["x_enc"].reshape(b * s, -1))
+    del calls
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ptxas_kernel(lines: list[str], kernel: str) -> dict:
+    """``kernel``'s registers and spill bytes from ``-Xptxas -v`` lines
+    (:func:`_f32_ptxas`)."""
+    entry = [i for i, ln in enumerate(lines) if "Compiling entry" in ln and kernel in ln]
+    if not entry:
+        raise RuntimeError(f"no -Xptxas -v line of {kernel}")
+    out = {}
+    for ln in lines[entry[0] + 1:]:
+        if "Compiling entry" in ln:
+            break
+        if "spill" in ln:
+            out["spill_bytes"] = sum(int(v) for v in re.findall(r"(\d+) bytes spill", ln))
+        if "Used" in ln:
+            out["registers"] = int(re.search(r"Used (\d+) registers", ln).group(1))
     return out
 
 
@@ -4229,12 +4286,16 @@ def phase_f32(card: str, tmp: str) -> tuple[list[dict], dict]:
     exact f32 launch counts and no bf16 launch; (c) a 200x200 frame from
     ``Trainer.render_image``; (d) one ``GET /render`` from the server on an
     f32 checkpoint; (e) the verify recipe's tiny f32 config through
-    ``cli.train_synthetic``.  With (a) the backward alone in all four
-    modes (``_f32_backward``: K3's and K6's times without their forwards,
-    which stay beside them as ``ms_with_forward``; device ms by kernel;
-    K2 and K5 launched twice, bit for bit), the f32 source's ``-Xptxas -v``
-    lines and the whole backward's library yardstick.  Returns the main
-    paths' launches and the kernels' figures."""
+    ``cli.train_synthetic``.  With (a) the forward in its four forms
+    (``_f32_forward``: the device ms of ``f32_fwd_kernel`` and of the
+    compositing apart, two launches bit for bit, K1's x_enc residual equal
+    to the plain encode bit for bit, ``f32_fwd_kernel``'s registers with no
+    spill), the backward alone in all four modes (``_f32_backward``: K3's
+    and K6's times without their forwards, which stay beside them as
+    ``ms_with_forward``; device ms by kernel; K2 and K5 launched twice, bit
+    for bit), the f32 source's ``-Xptxas -v`` lines and the whole
+    backward's library yardstick.  Returns the main paths' launches and the
+    kernels' figures."""
     dev = torch.device("cuda")
     b, s = 4096, 192
     peak = peak_f32()
@@ -4261,6 +4322,16 @@ def phase_f32(card: str, tmp: str) -> tuple[list[dict], dict]:
     del bf, xb, calls, calls_bf, plain
     # K3's and K6's suite calls run their forwards too: their times become
     # the backward's alone, the forward-plus-backward kept beside them.
+    forward = _f32_forward(mlp, x)
+    ptxas = _f32_ptxas()
+    fwd_ptxas = _ptxas_kernel(ptxas, "f32_fwd_kernel")
+    say("f32_forward", B=b, S=s, device_ms=forward["device_ms"],
+        repeat_identical=forward["repeat_identical"], x_enc_equal=forward["x_enc_equal"],
+        ptxas=fwd_ptxas, card=card)
+    if (not forward["x_enc_equal"] or not all(forward["repeat_identical"].values())
+            or fwd_ptxas.get("spill_bytes", 1)):
+        raise RuntimeError(f"f32 forward: x_enc residual equal {forward['x_enc_equal']}, "
+                           f"repeats {forward['repeat_identical']}, ptxas {fwd_ptxas}")
     backward = _f32_backward(mlp, x)
     for name in ("k3", "k6_bwd"):
         res[name]["ms_with_forward"] = res[name]["ms"]
@@ -4272,7 +4343,7 @@ def phase_f32(card: str, tmp: str) -> tuple[list[dict], dict]:
     say("f32_kernels", B=b, S=s, peak_f32_flops=peak, tol_rel=F32_TOL_REL, results=res,
         library_ms=library, card=card)
     say("f32_backward", B=b, S=s, device_ms=backward["device_ms"],
-        repeat_identical=backward["repeat_identical"], ptxas=_f32_ptxas(), card=card)
+        repeat_identical=backward["repeat_identical"], ptxas=ptxas, card=card)
     bad = [n for n, e in res.items() if not (e["finite"] and e["rel_l2"] <= F32_TOL_REL)]
     blind = [n for n, e in res.items() if e["bf16_rel_l2"] < 10 * F32_TOL_REL]
     if bad or blind:

@@ -35,13 +35,16 @@ parent).  Phases:
   synchronise) and the peak memory over a step (``max_memory_allocated``
   over what was allocated before it);
 * ``f32``: COMPUTE_DTYPE=float32 at 8x256 (``chip_smoke._suite_mlp``),
-  B=4096, S=192: the f32 K1 in training form, K2 and K5's backward with
-  input gradients at N = 786,432, each alone (CUDA events, median of 5)
-  with its device ms per kernel (``chip_smoke.device_ms_by_kernel``: the
-  compositing VJP, ``f32_rows_kernel``, ``f32_dw_kernel``, the reduce,
-  the forward and its compositing); ``fused_render_f32.cu``'s
-  ``-Xptxas -v`` report; then the f32 parity and proposal steps as in
-  ``steps``; a run of this phase alone builds only the f32 source.
+  B=4096, S=192: the f32 K1 in both forms, K6's and K5's forwards (N =
+  786,432), K2 and K5's backward with input gradients, each alone (CUDA
+  events, median of 5) with its device ms per kernel
+  (``chip_smoke.device_ms_by_kernel``: the compositing VJP,
+  ``f32_rows_kernel``, ``f32_dw_kernel``, the reduce, the forward and its
+  compositing), the forwards' plain f32 versions beside them and their
+  relative L2 to the float64 yardstick (``chip_smoke._f64_yardstick``);
+  ``fused_render_f32.cu``'s ``-Xptxas -v`` report; then the f32 parity and
+  proposal steps as in ``steps``; a run of this phase alone builds only
+  the f32 source.
 
 Prints one JSON line per tree and phase, prefixed ``TREE``.
 """
@@ -195,11 +198,18 @@ if "f32" in phases:
     families = {"vjp": ("composite_vjp_kernel",), "rows": ("f32_rows_kernel",),
                 "dw": ("f32_dw_kernel",), "reduce": ("mlp_reduce_kernel",),
                 "fwd": ("f32_fwd_kernel",), "composite": ("f32_composite_kernel",)}
+    plain = cs._suite_plain(mlp, x)
     with torch.no_grad():
-        for name in ("k1_train", "k2", "k5_bwd"):
+        for name in ("k1", "k1_train", "k6_fwd", "k5_fwd", "k2", "k5_bwd"):
             out[f"f32_{name}_ms"] = cuda_ms(calls[name], reps=5)
             out[f"f32_{name}_device_ms"] = cs.device_ms_by_kernel(calls[name], families)
-    del mlp, x, calls
+            if name in ("k1", "k1_train", "k6_fwd", "k5_fwd"):
+                out[f"f32_{name}_plain_ms"] = cuda_ms(plain[name], reps=5)
+                with cs._f64_yardstick():
+                    want = plain[name]()
+                out[f"f32_{name}_rel_l2"] = cs._suite_errors(calls[name](), want)["rel_l2"]
+                del want
+    del mlp, x, calls, plain
     torch.cuda.empty_cache()
     time_steps("f32_", [(name, dataclasses.replace(cfg, compute_dtype="float32").validate())
                         for name, cfg in (("proposal", bench_config()),

@@ -14,13 +14,13 @@
 // encodings, every activation, K1's x_enc residual (f32, 252 B a sample at
 // L_XYZ 10), the cotangents, the dW workspaces and the weight gradients
 // stay f32.  The compositing and its VJP are K1's and K2's device code
-// (nerf_tile.cuh: encode_feature, composite_rays, composite_vjp_kernel),
-// so the numerics of the 1e10 terminal delta, the delta * exp(-sigma *
-// delta) bracket and max(1 - alpha, 0) + 1e-10 are theirs; the VJP runs in
-// double here (a few operations a sample), because its cancelling terms
-// would carry f32 rounding into the sigma head's gradient.  Any hidden
-// width up to 256 and any encoding up to 128 position and 64 direction
-// columns: the pack is built at the model's true widths.
+// (nerf_tile.cuh: composite_rays, composite_vjp_kernel), so the numerics of
+// the 1e10 terminal delta, the delta * exp(-sigma * delta) bracket and
+// max(1 - alpha, 0) + 1e-10 are theirs; the VJP runs in double here (a few
+// operations a sample), because its cancelling terms would carry f32
+// rounding into the sigma head's gradient.  Any hidden width up to 256 and
+// any encoding up to 128 position and 64 direction columns: the pack is
+// built at the model's true widths.
 //
 // What bounds it on this card: the products.  Hopper has no f32 tensor-core
 // product, and TF32 is off by the port's precision rule, so every
@@ -33,39 +33,38 @@
 // while its lanes do 128 FMAs, so a product keeps up only if each float a
 // thread loads from shared memory feeds 4 FMAs or more.
 //
-// What the forward (f32_fwd_kernel) does about that (simple first):
-//   * A block of 256 threads owns a tile of 64 samples and runs it through
-//     the whole MLP.  The activations stay in shared memory as one f32
-//     tile stored k-major (row k of the tile holds column k of all 64
-//     samples, 68 floats apart), updated in place layer by layer.
-//   * A layer's product streams the weights through shared memory in
-//     stages of 16 rows (k), double-buffered with asynchronous copies
-//     (cp.async), the next stage in flight while this one is multiplied.
-//     It gives each thread a 4-sample x 4-column block of
-//     every 64-column chunk of the output (up to 6 chunks: hidden 256 and
-//     123 position columns, K5's skip layers with input gradients): per k
-//     one 16-byte load of the tile and one 16-byte load of the weight row
-//     per chunk feed 16 FFMAs per chunk.  The weights are (k, n)
-//     row-major f32, padded to 64 columns, L2-resident (shared by every
-//     block).
-//   * The forward writes raw predictions (N, 4); a second kernel
-//     composites one ray per warp (composite_rays).
+// One product loop serves every kernel but the dW product.  A block of 8
+// warps owns a tile of 64 samples at a time (grid-stride over the tiles,
+// one block an SM), its activations in shared memory as one f32 tile
+// stored k-major (row k holds column k of the 64 samples, 68 floats
+// apart).  A kernel walks a list of products the host builds (Walk): each
+// multiplies rows [a0, a0 + K) of the tile by a weight matrix of the pack,
+// its first `ncols` columns.  Each thread holds 8 samples x 4 columns of
+// each 128-column chunk (8 + 4 floats a weight row for 32 FMAs a chunk);
+// the weights stream through a ring of three 32-row stages (16 where
+// shared memory is short), one barrier a stage, running ahead across
+// products and tiles; the operands of row k + 1 load before row k's FMAs.
+//
+// The forward (f32_fwd_kernel): the walk is the trunk, the merged head's
+// feature columns and the branch.  Each sample's point is computed once
+// and each octave's sine and cosine come from one sincosf, four threads a
+// sample, into the tile's rows [H, H + xyz_dim), which layer 0 and the skip
+// layers read; K5's and K6's encodings, and K1's x_enc residual, move as
+// the contiguous block a tile owns, in 16-byte accesses.  The sigma column
+// and the 3-column rgb head are dot products over the tile's rows (four
+// threads a sample, summed in a fixed order), not chunks of the product.
+// The forward writes raw predictions (N, 4); a second kernel composites one
+// ray per warp (composite_rays).
 //
 // The backward (per chunk of whole rays, chunk_plan: the workspace holds 4
 // bytes a sample per layer input and output column, ~20 KB at 8x256):
 //   * f32_rows_kernel recomputes a 64-sample tile's forward, every layer's
 //     input (A) to the workspace, and walks back with the transposed
 //     matrices, every dPre (D) to the workspace, the bias gradients summed
-//     per block.  The walk is a list of products the host builds (the rgb
-//     head's forward and the sigma column are not needed), run by one loop,
-//     so the FMA loop exists once in the binary.  Each thread holds 8
-//     samples x 4 columns of each 128-column chunk (8 + 4 floats a weight
-//     row for 32 FMAs a chunk); the weights stream through a ring of three
-//     32-row stages (16 where shared memory is short), one barrier a stage,
-//     running ahead across products and tiles; the operands of row k + 1
-//     load before row k's FMAs; the ReLU masks stay in shared memory as
-//     bits; the tile's rows go to the workspace by bulk copies of the TMA
-//     unit while the next product runs.
+//     per block.  Its walk is the forward's (the rgb head and the sigma
+//     column are not needed), then the transposed products; the ReLU masks
+//     stay in shared memory as bits; the tile's rows go to the workspace by
+//     bulk copies of the TMA unit while the next product runs.
 //   * f32_dw_kernel: dW = A^T D, 128 x 128 output tiles, 8 x 8 a thread
 //     with 16-byte loads along the samples (16 loads for 256 FMAs), over
 //     sample ranges split for whole waves of blocks (fused_f32.dw_splits);
@@ -86,16 +85,15 @@ namespace {
 
 constexpr int kRows = 64;        // samples per tile
 constexpr int kTS = kRows + 4;   // the tile's row stride (floats): 16-byte rows, fewer conflicts
-constexpr int kThreads = 256;
-constexpr int kMaxChunks = 6;    // 64-column chunks of a product's output: up to 384
-constexpr int kMaxWidth = 384;   // hidden 256 + 128 position columns
-constexpr int kKT = 16;          // weight rows (k) per shared-memory stage
-constexpr int kWStage = kKT * kMaxChunks * 64;  // floats per stage
-constexpr int kWBuf = 2 * kWStage;              // the double-buffered stages
+constexpr int kThreads = 256;    // 8 warps: 2 groups of 32 samples x 4 of 32 columns
+constexpr int kMaxWidth = 384;   // a tile's rows, a product's output: hidden 256 + 128 position
+constexpr int kSub = 16;         // weight rows (k) a fully unrolled step of the product
+constexpr int kRing = 3;         // stages in the ring: two in flight while one is multiplied
+constexpr int kMaxProds = 2 * kMaxDense + 2;
 
-// One dense layer of the f32 pack (fused_render_f32.py's pack_f32): the
-// forward matrix (k, round64(n)) and the transposed one (n, round64(k)),
-// row-major, and the bias (n).
+// One dense layer of the f32 pack (fused_f32.py's pack_f32): the forward
+// matrix (k, round64(n)) and the transposed one (n, round64(k)), row-major,
+// and the bias (n).
 struct F32Layer {
   int k, n, f_off, t_off, b_off;
 };
@@ -138,307 +136,49 @@ bool net_init(F32Net& m, const int* desc, int n_dense, int num_layers, int skip_
   if (m.L[L].k != kh || m.L[L].n != H + 1 || m.L[L + 1].k != H + m.dir_dim ||
       m.L[L + 1].n != H / 2 || m.L[L + 2].k != H / 2 || m.L[L + 2].n != 3)
     return false;
-  // The walk's products write up to hidden + the position columns.
+  // The encodings sit in rows [H, H + xyz_dim or dir_dim); the backward's
+  // products write up to hidden + the position columns.
   const int widest = H + (m.xyz_dim > m.dir_dim ? m.xyz_dim : m.dir_dim);
   m.tile_rows = round_up(m.tile_rows > widest ? m.tile_rows : widest, 4);
   return m.tile_rows <= kMaxWidth;
 }
 
 // ---------------------------------------------------------------------------
-// The product of a tile: acc[j][4 i + c] = sum_k tile[k][4 rg + i] * M[k][64 j
-// + 4 cg + c] for j < nch (rg = tid / 16, cg = tid % 16); M (K, ldm) row-major.
+// The product loop.
 
-using Acc = float[kMaxChunks][16];
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait1() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
-// Rows [k0, k0 + kKT) of M (those below K), their first w columns, into
-// the stage `buf` (row stride w), as 16-byte asynchronous copies.
-__device__ __forceinline__ void stage_rows(float* buf, const float* M, int ldm, int k0, int K,
-                                           int w) {
-  const int rows = min(kKT, K - k0), vec = w >> 2;
-  for (int i = threadIdx.x; i < rows * vec; i += kThreads) {
-    const int r = i / vec, c = (i - r * vec) * 4;
-    cp_async16(buf + r * w + c, M + (size_t)(k0 + r) * ldm + c);
-  }
-}
-
-// The weights go through `wbuf` (kWBuf floats of shared memory) in stages
-// of kKT rows, the next stage copied while this one is multiplied.  Every
-// thread of the block calls it; it ends with a barrier.
-__device__ __forceinline__ void tile_product(Acc& acc, const float* tile, int K, const float* M,
-                                             int ldm, int nch, float* wbuf) {
-  const int tid = threadIdx.x, rg = tid >> 4, cg = tid & 15;
-#pragma unroll
-  for (int j = 0; j < kMaxChunks; ++j)
-#pragma unroll
-    for (int e = 0; e < 16; ++e) acc[j][e] = 0.f;
-  const int w = 64 * nch;
-  const float* ap = tile + 4 * rg;
-  stage_rows(wbuf, M, ldm, 0, K, w);
-  cp_async_commit();
-  int cur = 0;
-  for (int k0 = 0; k0 < K; k0 += kKT) {
-    if (k0 + kKT < K) stage_rows(wbuf + (cur ^ 1) * kWStage, M, ldm, k0 + kKT, K, w);
-    cp_async_commit();
-    cp_async_wait1();
-    __syncthreads();
-    const float* ws = wbuf + cur * kWStage + 4 * cg;
-    const int kn = min(kKT, K - k0);
-#pragma unroll 4
-    for (int kk = 0; kk < kn; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(ap + (k0 + kk) * kTS);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-#pragma unroll
-      for (int j = 0; j < kMaxChunks; ++j) {
-        if (j < nch) {
-          const float4 wv4 = *reinterpret_cast<const float4*>(ws + kk * w + 64 * j);
-          const float wv[4] = {wv4.x, wv4.y, wv4.z, wv4.w};
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int c = 0; c < 4; ++c) acc[j][4 * i + c] = fmaf(av[i], wv[c], acc[j][4 * i + c]);
-        }
-      }
-    }
-    __syncthreads();
-    cur ^= 1;
-  }
-}
-
-// epi(col, row0, v[4]) for each of the thread's output columns col < n:
-// v holds rows row0 .. row0 + 3.
-template <class Epi>
-__device__ __forceinline__ void tile_epilogue(const Acc& acc, int n, Epi epi) {
-  const int tid = threadIdx.x, rg = tid >> 4, cg = tid & 15;
-#pragma unroll
-  for (int j = 0; j < kMaxChunks; ++j)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int col = 64 * j + 4 * cg + c;
-      if (col < n) {
-        float v[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) v[i] = acc[j][4 * i + c];
-        epi(col, 4 * rg, v);
-      }
-    }
-}
-
-__device__ __forceinline__ int chunks(int n) { return (n + 63) / 64; }
-
-__device__ __forceinline__ void store4(float* tile, int col, int row0, const float v[4]) {
-  *reinterpret_cast<float4*>(tile + col * kTS + row0) = make_float4(v[0], v[1], v[2], v[3]);
-}
-
-// tile rows [col0, col0 + w) = f(r, c) for samples r < valid, else 0.
-template <class F>
-__device__ __forceinline__ void load_cols(float* tile, int col0, int w, int valid, F f) {
-  for (int i = threadIdx.x; i < w * kRows; i += kThreads) {
-    const int c = i / kRows, r = i - c * kRows;
-    tile[(col0 + c) * kTS + r] = r < valid ? f(r, c) : 0.f;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// The forward of one tile.  xf(r, c) / df(r, c): the position and direction
-// features of sample r (r < valid).  on_input(i): the tile holds layer i's
-// input (rows [0, k)); a barrier follows.  Raw predictions of rows < valid
-// go to preds (row stride 4) when it is given.
-template <class XF, class DF, class OnInput>
-__device__ void forward_tile(const F32Net& m, const float* pack, float* tile, float* wbuf,
-                             XF xf, DF df, float* preds, int valid, OnInput on_input) {
-  const int H = m.hidden, L = m.num_layers;
-  load_cols(tile, 0, m.xyz_dim, valid, xf);
-  __syncthreads();
-  Acc acc;
-  for (int i = 0; i < L; ++i) {
-    const F32Layer& d = m.L[i];
-    on_input(i);
-    __syncthreads();
-    tile_product(acc, tile, d.k, pack + d.f_off, ld64(d.n), chunks(d.n), wbuf);
-    __syncthreads();
-    const float* b = pack + d.b_off;
-    tile_epilogue(acc, d.n, [&](int col, int row0, float* v) {
-      for (int q = 0; q < 4; ++q) v[q] = fmaxf(v[q] + b[col], 0.f);
-      store4(tile, col, row0, v);
-    });
-    if (is_skip(i, m.skip_layer)) load_cols(tile, H, m.xyz_dim, valid, xf);
-    __syncthreads();
-  }
-  {  // the merged feature+sigma head: feature (no ReLU) in place, sigma out
-    const F32Layer& d = m.L[L];
-    on_input(L);
-    __syncthreads();
-    tile_product(acc, tile, d.k, pack + d.f_off, ld64(d.n), chunks(d.n), wbuf);
-    __syncthreads();
-    const float* b = pack + d.b_off;
-    tile_epilogue(acc, d.n, [&](int col, int row0, float* v) {
-      for (int q = 0; q < 4; ++q) v[q] += b[col];
-      if (col < H) {
-        store4(tile, col, row0, v);
-      } else if (preds != nullptr) {
-        for (int q = 0; q < 4; ++q)
-          if (row0 + q < valid) preds[(row0 + q) * 4 + 3] = v[q];
-      }
-    });
-    load_cols(tile, H, m.dir_dim, valid, df);
-    __syncthreads();
-  }
-  {  // the branch over [feature, d_enc]
-    const F32Layer& d = m.L[L + 1];
-    on_input(L + 1);
-    __syncthreads();
-    tile_product(acc, tile, d.k, pack + d.f_off, ld64(d.n), chunks(d.n), wbuf);
-    __syncthreads();
-    const float* b = pack + d.b_off;
-    tile_epilogue(acc, d.n, [&](int col, int row0, float* v) {
-      for (int q = 0; q < 4; ++q) v[q] = fmaxf(v[q] + b[col], 0.f);
-      store4(tile, col, row0, v);
-    });
-    __syncthreads();
-  }
-  {  // the rgb head
-    const F32Layer& d = m.L[L + 2];
-    on_input(L + 2);
-    __syncthreads();
-    tile_product(acc, tile, d.k, pack + d.f_off, ld64(d.n), 1, wbuf);
-    __syncthreads();
-    const float* b = pack + d.b_off;
-    tile_epilogue(acc, d.n, [&](int col, int row0, float* v) {
-      if (preds == nullptr) return;
-      for (int q = 0; q < 4; ++q)
-        if (row0 + q < valid) preds[(row0 + q) * 4 + col] = v[q] + b[col];
-    });
-    __syncthreads();
-  }
-}
-
-// K1's point of sample q (o + d * t rounded as two operations, as the
-// plain path and the bf16 kernels) and its position feature c.
-__device__ __forceinline__ float ray_feature(const float* origins, const float* dirs,
-                                             const float* t_vals, long long q, int S, int c,
-                                             int dim) {
-  const long long ray = q / S;
-  const float* o = origins + ray * 3;
-  const float* d = dirs + ray * 3;
-  const float t = t_vals[q];
-  const float x[3] = {__fadd_rn(o[0], __fmul_rn(d[0], t)), __fadd_rn(o[1], __fmul_rn(d[1], t)),
-                      __fadd_rn(o[2], __fmul_rn(d[2], t))};
-  return encode_feature(x, c, dim);
-}
-
-struct FwdParams {
-  const float* origins;  // (B, 3): K1
-  const float* dirs;     // (B, 3): K1
-  const float* t_vals;   // (B, S): K1
-  const float* x_in;     // (N, xyz_dim): K5, K6
-  const float* d_in;     // (N, dir_dim): K5, K6
-  const float* pack;
-  float* xenc_out;       // (N, xyz_dim) or null: K1's training residual
-  float* preds;          // (N, 4)
-  long long N;
-  int S;
-  F32Net m;
-};
-
-__global__ void __launch_bounds__(kThreads, 1) f32_fwd_kernel(const __grid_constant__ FwdParams p) {
-  extern __shared__ __align__(16) float smem[];
-  float* wbuf = smem;
-  float* tile = smem + kWBuf;
-  const F32Net& m = p.m;
-  const long long q0 = (long long)blockIdx.x * kRows;
-  const int valid = (int)min((long long)kRows, p.N - q0);
-  auto none = [](int) {};
-  if (p.x_in != nullptr) {
-    auto xf = [&](int r, int c) { return p.x_in[(q0 + r) * m.xyz_dim + c]; };
-    auto df = [&](int r, int c) { return p.d_in[(q0 + r) * m.dir_dim + c]; };
-    forward_tile(m, p.pack, tile, wbuf, xf, df, p.preds + q0 * 4, valid, none);
-    return;
-  }
-  auto xf = [&](int r, int c) {
-    const float v = ray_feature(p.origins, p.dirs, p.t_vals, q0 + r, p.S, c, m.xyz_dim);
-    if (p.xenc_out != nullptr) p.xenc_out[(q0 + r) * m.xyz_dim + c] = v;
-    return v;
-  };
-  auto df = [&](int r, int c) {
-    return encode_feature(p.dirs + ((q0 + r) / p.S) * 3, c, m.dir_dim);
-  };
-  forward_tile(m, p.pack, tile, wbuf, xf, df, p.preds + q0 * 4, valid, none);
-}
-
-// One warp per ray: weights and rgb from the (N, 4) predictions.
-__global__ void __launch_bounds__(256) f32_composite_kernel(const float* t_vals,
-                                                            const float* preds, int B, int S,
-                                                            float* w_out, float* rgb_out) {
-  const int r0 = blockIdx.x * kWarps;
-  const size_t s0 = (size_t)r0 * S;
-  composite_rays<4, 4>(t_vals + s0, preds + s0 * 4 + 3, preds + s0 * 4, min(kWarps, B - r0), S,
-                       w_out + s0, rgb_out + (size_t)r0 * 3);
-}
-
-// ---------------------------------------------------------------------------
-// The backward.
-
-enum RowsMode {
-  kResidual = 0,     // K2: x_enc residual (f32), directions encoded per sample
-  kRecompute = 1,    // K3: x_enc encoded from (origins, dirs, t)
-  kEncodingsIn = 2,  // K6: x_enc and d_enc per sample, as given
-  kK5 = 3,           // K5: as K6, seeded from the caller's g (no compositing)
-};
-
-// Per dense layer, where its backward lives in the workspaces: A (input)
-// of a_width = k columns at ws_a + N * a_col, D (dPre) of d_width = n at
-// ws_d + N * d_col, each stored in 64-sample tiles, k-major within a tile
-// (element (r, c) at (r / 64) * 64 * width + c * 64 + r % 64); dW (k, n)
-// row-major at dw + out_off.
-struct Ws {
-  int a_col, a_width, d_col, d_width, out_off;
-};
-
-constexpr int kRowThreads = 256;  // 8 warps: 2 groups of 32 samples x 4 of 32 columns
-constexpr int kSub = 16;          // weight rows (k) a fully unrolled step of the product
-constexpr int kRing = 3;          // stages in the ring: two in flight while one is multiplied
-constexpr int kColsMax = 384;     // a product's output columns: hidden 256 + 128 position
-constexpr int kMaxProds = 2 * kMaxDense + 2;
-
-// One product of the walk: rows [0, K) of the tile times rows [0, K) of the
-// matrix at pack + off (row stride ldm), its first `ncols` columns; the
-// dense layer's forward matrix (fwd) or its transpose.
+// One product of a walk: rows [a0, a0 + K) of the tile times rows [0, K)
+// of the matrix at pack + off (row stride ldm), its first `ncols` columns;
+// the dense layer's forward matrix (fwd) or its transpose.
 struct Prod {
-  int off, ldm, K, ncols, layer, fwd;
+  int off, ldm, K, ncols, layer, fwd, a0;
 };
 
-struct RowParams {
-  F32Net m;
-  Ws ws[kMaxDense];
-  Prod prods[kMaxProds];  // the walk: the forward but the rgb head, then back
+// A kernel's walk: its products in order, for every tile, and the ring's
+// stages (of stage_rows weight rows, wmax floats a row) a tile takes.
+struct Walk {
+  Prod prods[kMaxProds];
   const float* pack;
-  const float* x_res;   // (N, xyz_dim): K2's residual, K5's and K6's x_enc
-  const float* origins;
-  const float* dirs;
-  const float* d_enc;   // (N, dir_dim): K5, K6
-  const float* t_vals;
-  const float* dpreds;  // (N, 4)
-  float* ws_a;
-  float* ws_d;
-  float* db_part;       // (grid, total_b)
-  float* dx_out;        // (N, xyz_dim) or null: K5's input gradients
-  float* dd_out;        // (N, dir_dim) or null
-  long long n0;         // the chunk's first sample
-  long long rows_pad;   // workspace rows per layer
-  int nc, ntiles, S, total_b, accumulate, mode;
-  int nprod, stages, stage_rows, wmax, tile_rows, xs0;  // stages: a tile's, of stage_rows rows
+  int nprod, stages, stage_rows, wmax;
 };
+
+// Host: appends layer li's forward product (K = k) or its transposed one
+// (K = n), its first `ncols` columns, over the tile's rows from a0.
+void walk_add(Walk& w, const F32Layer& d, int li, bool fwd, int ncols, int a0 = 0) {
+  w.prods[w.nprod++] = fwd ? Prod{d.f_off, ld64(d.n), d.k, ncols, li, 1, a0}
+                           : Prod{d.t_off, ld64(d.k), d.n, ncols, li, 0, a0};
+  w.wmax = round_up(ncols, 32) > w.wmax ? round_up(ncols, 32) : w.wmax;
+}
+
+// Host: the ring's stages, 32 weight rows where shared memory holds them
+// beside `fixed` other floats, else 16; and the stages a tile's walk
+// takes.  Returns the block's shared memory in bytes.
+size_t walk_plan(Walk& w, size_t fixed) {
+  auto bytes = [&](int rows) { return sizeof(float) * ((size_t)kRing * rows * w.wmax + fixed); };
+  w.stage_rows = bytes(2 * kSub) <= (size_t)kMaxSmem ? 2 * kSub : kSub;
+  w.stages = 0;
+  for (int i = 0; i < w.nprod; ++i) w.stages += (w.prods[i].K + w.stage_rows - 1) / w.stage_rows;
+  return bytes(w.stage_rows);
+}
 
 // A thread's outputs of a product: samples s0 .. s0 + 7 of the tile and,
 // per 128-column chunk j, columns 128 j + c0 .. + 3.  Per weight row a
@@ -450,8 +190,16 @@ __device__ __forceinline__ int rows_s0() {
 }
 __device__ __forceinline__ int rows_c0() { return 32 * (threadIdx.x >> 6) + 4 * (threadIdx.x & 7); }
 
-using RAcc = float[3][32];
+template <int NJ>
+using Acc = float[NJ][32];
 
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
@@ -467,19 +215,6 @@ __device__ __forceinline__ void bulk_wait_read() {
 }
 __device__ __forceinline__ void bulk_wait() { asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory"); }
 
-// Rows [0, n) of the tile (64 samples each) to the workspace columns at g
-// (k-major: row r at g + 64 r), one bulk copy of the TMA unit a row.  After
-// fence_to_async and a barrier.
-__device__ __forceinline__ void rows_to_ws(const float* tile, int n, float* g) {
-  if ((int)threadIdx.x >= n) return;
-  for (int r = threadIdx.x; r < n; r += kRowThreads)
-    asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], 256;\n" ::"l"(
-                     g + r * kRows),
-                 "r"(smem_u32(tile + r * kTS))
-                 : "memory");
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-
 // The weight stream: every product's stages in the walk's order, tile after
 // tile, `left` of them still to be issued by this block.
 struct Stream {
@@ -489,13 +224,13 @@ struct Stream {
 // Issues the stream's next stage (rows [k0, k0 + stage_rows) of its
 // product's matrix, round32(ncols) columns) into its ring slot; commits a
 // group of asynchronous copies, empty once the stream is done.
-__device__ __forceinline__ void issue_stage(const RowParams& p, Stream& s, float* ring) {
+__device__ __forceinline__ void issue_stage(const Walk& w, Stream& s, float* ring) {
   if (s.left > 0) {
-    const Prod& q = p.prods[s.pi];
-    float* dst = ring + (s.issued % kRing) * p.stage_rows * p.wmax;
-    const int rows = min(p.stage_rows, q.K - s.k0), vec = round_up(q.ncols, 32) >> 2;
-    const int dr = kRowThreads / vec, dc = kRowThreads - dr * vec;
-    const float* src = p.pack + q.off + (size_t)s.k0 * q.ldm;
+    const Prod& q = w.prods[s.pi];
+    float* dst = ring + (s.issued % kRing) * w.stage_rows * w.wmax;
+    const int rows = min(w.stage_rows, q.K - s.k0), vec = round_up(q.ncols, 32) >> 2;
+    const int dr = kThreads / vec, dc = kThreads - dr * vec;
+    const float* src = w.pack + q.off + (size_t)s.k0 * q.ldm;
     for (int r = threadIdx.x / vec, c = threadIdx.x - r * vec; r < rows; r += dr, c += dc) {
       if (c >= vec) {
         c -= vec;
@@ -504,10 +239,10 @@ __device__ __forceinline__ void issue_stage(const RowParams& p, Stream& s, float
       }
       cp_async16(dst + (r * vec + c) * 4, src + (size_t)r * q.ldm + c * 4);
     }
-    s.k0 += p.stage_rows;
+    s.k0 += w.stage_rows;
     if (s.k0 >= q.K) {
       s.k0 = 0;
-      s.pi = s.pi + 1 == p.nprod ? 0 : s.pi + 1;
+      s.pi = s.pi + 1 == w.nprod ? 0 : s.pi + 1;
     }
     --s.left;
   }
@@ -518,9 +253,10 @@ __device__ __forceinline__ void issue_stage(const RowParams& p, Stream& s, float
 // acc[j][4 i + c] += sum over kn <= kSub rows k of tile[k][s0 + i] *
 // W[k][128 j + c0 + c], j < NJ; tp, wp: the thread's first operands.  A
 // full step loads row k + 1's operands before it multiplies row k's, so the
-// loads' latency hides behind the warp's own FMAs.
-template <int NJ>
-__device__ __forceinline__ void sub_fma(RAcc& acc, const float* tp, const float* wp, int w,
+// loads' latency hides behind the warp's own FMAs.  The only FMA loop of
+// the products.
+template <int NJ, int NA>
+__device__ __forceinline__ void sub_fma(Acc<NA>& acc, const float* tp, const float* wp, int w,
                                         int kn) {
   float4 a[2][2], b[2][NJ];
   auto load = [&](int buf, int kk) {
@@ -556,33 +292,38 @@ __device__ __forceinline__ void sub_fma(RAcc& acc, const float* tp, const float*
   }
 }
 
-// Product q of the walk into acc: its stages from the ring, each opening
-// with one barrier after which the stream's next stage is issued into the
-// slot the previous stage freed.  A warp multiplies only the 128-column
-// chunks that reach its columns.  Every thread calls it; it ends with a
-// barrier, once this thread's bulk copies have read the tile: the tile may
-// then be overwritten.
-__device__ __forceinline__ void walk_product(const RowParams& p, const Prod& q, Stream& st,
-                                             int& gs, float* ring, const float* tile, RAcc& acc) {
+// Product q of the walk into acc (NA chunks, enough for its ncols): its
+// stages from the ring, each opening with one barrier after which the
+// stream's next stage is issued into the slot the previous stage freed.  A
+// warp multiplies only the 128-column chunks that reach its columns.
+// Every thread calls it; it ends with a barrier, once this thread's bulk
+// copies have read the tile: the tile may then be overwritten.
+template <int NA>
+__device__ __forceinline__ void walk_product(const Walk& wk, const Prod& q, Stream& st, int& gs,
+                                             float* ring, const float* tile, Acc<NA>& acc) {
 #pragma unroll
-  for (int j = 0; j < 3; ++j)
+  for (int j = 0; j < NA; ++j)
 #pragma unroll
     for (int e = 0; e < 32; ++e) acc[j][e] = 0.f;
   const int c0 = rows_c0(), w = round_up(q.ncols, 32);
-  const int nj = min(3, max(0, (q.ncols - (c0 & ~31) + 127) / 128));
-  for (int k0 = 0; k0 < q.K; k0 += p.stage_rows) {
+  const int nj = min(NA, max(0, (q.ncols - (c0 & ~31) + 127) / 128));
+  for (int k0 = 0; k0 < q.K; k0 += wk.stage_rows) {
     cp_async_wait<kRing - 2>();
     __syncthreads();
-    issue_stage(p, st, ring);
-    const float* slot = ring + (gs % kRing) * p.stage_rows * p.wmax + c0;
-    const int kn = min(p.stage_rows, q.K - k0);
+    issue_stage(wk, st, ring);
+    const float* slot = ring + (gs % kRing) * wk.stage_rows * wk.wmax + c0;
+    const int kn = min(wk.stage_rows, q.K - k0);
     for (int kb = 0; kb < kn; kb += kSub) {
       const float* wp = slot + kb * w;
-      const float* tp = tile + (k0 + kb) * kTS + rows_s0();
+      const float* tp = tile + (q.a0 + k0 + kb) * kTS + rows_s0();
       const int ks = min(kSub, kn - kb);
-      if (nj == 1) sub_fma<1>(acc, tp, wp, w, ks);
-      else if (nj == 2) sub_fma<2>(acc, tp, wp, w, ks);
-      else if (nj == 3) sub_fma<3>(acc, tp, wp, w, ks);
+      if (nj == 1) {
+        sub_fma<1>(acc, tp, wp, w, ks);
+      } else if (nj == 2) {
+        sub_fma<2>(acc, tp, wp, w, ks);
+      } else if constexpr (NA == 3) {
+        if (nj == 3) sub_fma<3>(acc, tp, wp, w, ks);
+      }
     }
     ++gs;
   }
@@ -592,11 +333,11 @@ __device__ __forceinline__ void walk_product(const RowParams& p, const Prod& q, 
 
 // f(j, c, col, v) for each of the thread's output columns: v[i] is sample
 // s0 + i.
-template <class F>
-__device__ __forceinline__ void each_output(const RAcc& acc, F f) {
+template <int NA, class F>
+__device__ __forceinline__ void each_output(const Acc<NA>& acc, F f) {
   const int c0 = rows_c0();
 #pragma unroll
-  for (int j = 0; j < 3; ++j)
+  for (int j = 0; j < NA; ++j)
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       float v[8];
@@ -606,11 +347,297 @@ __device__ __forceinline__ void each_output(const RAcc& acc, F f) {
     }
 }
 
+__device__ __forceinline__ void store8(float* t, const float v[8]) {
+  *reinterpret_cast<float4*>(t) = make_float4(v[0], v[1], v[2], v[3]);
+  *reinterpret_cast<float4*>(t + 4) = make_float4(v[4], v[5], v[6], v[7]);
+}
+
+// ---------------------------------------------------------------------------
+// The forward.
+
+// K1's point of sample q (o + d * t rounded as two operations, as the
+// plain path and the bf16 kernels).
+__device__ __forceinline__ void ray_point(const float* origins, const float* dirs,
+                                          const float* t_vals, long long q, int S, float x[3]) {
+  const long long ray = q / S;
+  const float* o = origins + ray * 3;
+  const float* d = dirs + ray * 3;
+  const float t = t_vals[q];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) x[i] = __fadd_rn(o[i], __fmul_rn(d[i], t));
+}
+
+// Rows [0, dim) of `rows` (row stride kTS; column r is sample r): the
+// encoding of each sample's point(r, x) in encode_feature's layout, each
+// octave's sine and cosine from one sincosf (full precision).  Four
+// threads a sample, the octaves dealt round among them; samples from
+// `valid` on encode the origin.
+template <class Point>
+__device__ __forceinline__ void encode_rows(float* rows, int dim, int valid, Point point) {
+  const int r = threadIdx.x >> 2, part = threadIdx.x & 3;
+  float x[3] = {0.f, 0.f, 0.f};
+  if (r < valid) point(r, x);
+  if (part == 0)
+#pragma unroll
+    for (int d = 0; d < 3; ++d) rows[d * kTS + r] = x[d];
+  for (int o = part; 6 * o + 3 < dim; o += 4) {
+    const float scale = __int_as_float((127 + o) << 23);  // 2^o, exact
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      float sn, cs;
+      sincosf(__fmul_rn(x[d], scale), &sn, &cs);
+      rows[(3 + 6 * o + d) * kTS + r] = sn;
+      rows[(6 + 6 * o + d) * kTS + r] = cs;
+    }
+  }
+}
+
+// The tile's block of `valid` samples x w floats, row-major and contiguous
+// at g in global memory, <-> rows [0, w) of `rows` (column r: sample r).
+// 16-byte accesses where g is 16-byte aligned; loads fill the samples from
+// `valid` on with 0.
+__device__ __forceinline__ bool aligned16(const void* g) {
+  return (reinterpret_cast<uintptr_t>(g) & 15) == 0;
+}
+__device__ __forceinline__ void block_to_rows(float* rows, int w, int valid, const float* g) {
+  const int n = valid * w;
+  auto put = [&](int i, float v) {
+    const int r = i / w;
+    rows[(i - r * w) * kTS + r] = v;
+  };
+  const int step = aligned16(g) ? 4 : 1;
+  for (int i = step * threadIdx.x; i < n; i += step * kThreads) {
+    if (step == 4 && i + 4 <= n) {
+      const float4 v = *reinterpret_cast<const float4*>(g + i);
+      put(i, v.x);
+      put(i + 1, v.y);
+      put(i + 2, v.z);
+      put(i + 3, v.w);
+    } else {
+      for (int e = i; e < min(i + step, n); ++e) put(e, g[e]);
+    }
+  }
+  for (int i = n + threadIdx.x; i < kRows * w; i += kThreads) put(i, 0.f);
+}
+__device__ __forceinline__ void rows_to_block(const float* rows, int w, int valid, float* g) {
+  const int n = valid * w;
+  auto get = [&](int i) {
+    const int r = i / w;
+    return rows[(i - r * w) * kTS + r];
+  };
+  const int step = aligned16(g) ? 4 : 1;
+  for (int i = step * threadIdx.x; i < n; i += step * kThreads) {
+    if (step == 4 && i + 4 <= n) {
+      *reinterpret_cast<float4*>(g + i) = make_float4(get(i), get(i + 1), get(i + 2), get(i + 3));
+    } else {
+      for (int e = i; e < min(i + step, n); ++e) g[e] = get(e);
+    }
+  }
+}
+
+// This thread's share of NC dot products of the tile's rows [0, K) (from
+// `rows`) with the columns of wt (shared memory, column-major, K apart):
+// sample r = tid % 64 over rows part, part + 4, ... (part = tid / 64), into
+// out[(part * NC + c) * 64 + r].
+template <int NC>
+__device__ __forceinline__ void dot_part(const float* rows, int K, const float* wt, float* out) {
+  const int r = threadIdx.x & 63, part = threadIdx.x >> 6;
+  float s[NC];
+#pragma unroll
+  for (int c = 0; c < NC; ++c) s[c] = 0.f;
+  for (int k = part; k < K; k += 4) {
+    const float a = rows[k * kTS + r];
+#pragma unroll
+    for (int c = 0; c < NC; ++c) s[c] = fmaf(a, wt[c * K + k], s[c]);
+  }
+#pragma unroll
+  for (int c = 0; c < NC; ++c) out[(part * NC + c) * kRows + r] = s[c];
+}
+
+struct FwdParams {
+  F32Net m;
+  Walk w;                // the trunk, the merged head's feature columns, the branch
+  const float* origins;  // (B, 3): K1
+  const float* dirs;     // (B, 3): K1
+  const float* t_vals;   // (B, S): K1
+  const float* x_in;     // (N, xyz_dim): K5, K6
+  const float* d_in;     // (N, dir_dim): K5, K6
+  float* xenc_out;       // (N, xyz_dim) or null: K1's training residual
+  float* preds;          // (N, 4)
+  long long N;
+  int S, ntiles;
+};
+
+// The forward, one 64-sample tile at a time (grid-stride): the position
+// encodings into the tile's rows [H, H + xyz_dim), the walk (each product's
+// output, ReLU'd but at the merged head, into rows [0, ncols)), the
+// direction encodings into rows [H, H + dir_dim) once the head has read the
+// position rows; the sigma column from the head's input rows and the rgb
+// head from the branch's output rows as dot products, into the raw
+// predictions.
+__global__ void __launch_bounds__(kThreads, 1) f32_fwd_kernel(const __grid_constant__ FwdParams p) {
+  extern __shared__ __align__(16) float smem[];
+  const F32Net& m = p.m;
+  const int H = m.hidden, L = m.num_layers, tid = threadIdx.x;
+  const F32Layer& head = m.L[L];
+  const F32Layer& rgb = m.L[L + 2];
+  float* ring = smem;                                        // kRing x (stage_rows, wmax)
+  float* tile = ring + kRing * p.w.stage_rows * p.w.wmax;    // (tile_rows, kTS)
+  float* w_sig = tile + (size_t)m.tile_rows * kTS;           // the head's sigma column (head.k)
+  float* w_rgb = w_sig + round_up(head.k, 4);                // the rgb head, column-major
+  float* s_sig = w_rgb + round_up(3 * rgb.k, 4);             // (4, 64): dot partials
+  float* s_rgb = s_sig + 4 * kRows;                          // (4, 3, 64)
+  for (int k = tid; k < head.k; k += kThreads)
+    w_sig[k] = p.w.pack[head.f_off + (size_t)k * ld64(head.n) + H];
+  for (int i = tid; i < 3 * rgb.k; i += kThreads) {
+    const int c = i / rgb.k, k = i - c * rgb.k;
+    w_rgb[i] = p.w.pack[rgb.f_off + (size_t)k * ld64(rgb.n) + c];
+  }
+  const float* b_head = p.w.pack + head.b_off;
+  const float* b_rgb = p.w.pack + rgb.b_off;
+  const int my_tiles = (int)blockIdx.x < p.ntiles ? (p.ntiles - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+  Stream st{0, 0, my_tiles * p.w.stages, 0};
+  for (int i = 0; i < kRing - 1; ++i) issue_stage(p.w, st, ring);
+  int gs = 0;
+  Acc<2> acc;
+  const int s0 = rows_s0();
+  float* enc = tile + H * kTS;  // the encodings' rows
+
+  for (int tile_i = blockIdx.x; tile_i < p.ntiles; tile_i += gridDim.x) {
+    const long long q0 = (long long)tile_i * kRows;
+    const int valid = (int)min((long long)kRows, p.N - q0);
+    if (p.x_in != nullptr) {
+      block_to_rows(enc, m.xyz_dim, valid, p.x_in + q0 * m.xyz_dim);
+    } else {
+      encode_rows(enc, m.xyz_dim, valid, [&](int r, float* x) {
+        ray_point(p.origins, p.dirs, p.t_vals, q0 + r, p.S, x);
+      });
+    }
+    for (int pi = 0; pi < p.w.nprod; ++pi) {
+      const Prod& q = p.w.prods[pi];
+      const int li = q.layer;
+      if (li == L) {  // sigma: the head's input rows, before the product
+        __syncthreads();
+        dot_part<1>(tile, head.k, w_sig, s_sig);
+      }
+      walk_product(p.w, q, st, gs, ring, tile, acc);
+      const float* b = p.w.pack + m.L[li].b_off;
+      const bool relu = li != L;
+      each_output(acc, [&](int, int, int col, float* v) {
+        if (col >= q.ncols) return;
+        const float bc = b[col];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) v[i] = relu ? fmaxf(v[i] + bc, 0.f) : v[i] + bc;
+        store8(tile + col * kTS + s0, v);
+      });
+      if (li == 0 && p.xenc_out != nullptr) {
+        rows_to_block(enc, m.xyz_dim, valid, p.xenc_out + q0 * m.xyz_dim);
+      } else if (li == L) {
+        if (p.d_in != nullptr) {
+          block_to_rows(enc, m.dir_dim, valid, p.d_in + q0 * m.dir_dim);
+        } else {
+          encode_rows(enc, m.dir_dim, valid, [&](int r, float* x) {
+            const float* d = p.dirs + ((q0 + r) / p.S) * 3;
+#pragma unroll
+            for (int i = 0; i < 3; ++i) x[i] = d[i];
+          });
+        }
+      }
+    }
+    // The rgb head over the branch's output, then the predictions: one
+    // thread a sample and column, the four partial sums in a fixed order.
+    __syncthreads();
+    dot_part<3>(tile, rgb.k, w_rgb, s_rgb);
+    __syncthreads();
+    {
+      const int c = tid >> 6, r = tid & 63;
+      const float* part = c < 3 ? s_rgb + c * kRows + r : s_sig + r;
+      const int stride = (c < 3 ? 3 : 1) * kRows;
+      const float v = ((part[0] + part[stride]) + (part[2 * stride] + part[3 * stride])) +
+                      (c < 3 ? b_rgb[c] : b_head[H]);
+      if (r < valid) p.preds[(q0 + r) * 4 + c] = v;
+    }
+  }
+  cp_async_wait<0>();
+}
+
+// One warp per ray: weights and rgb from the (N, 4) predictions.
+__global__ void __launch_bounds__(256) f32_composite_kernel(const float* t_vals,
+                                                            const float* preds, int B, int S,
+                                                            float* w_out, float* rgb_out) {
+  const int r0 = blockIdx.x * kWarps;
+  const size_t s0 = (size_t)r0 * S;
+  composite_rays<4, 4>(t_vals + s0, preds + s0 * 4 + 3, preds + s0 * 4, min(kWarps, B - r0), S,
+                       w_out + s0, rgb_out + (size_t)r0 * 3);
+}
+
+// ---------------------------------------------------------------------------
+// The backward.
+
+enum RowsMode {
+  kResidual = 0,     // K2: x_enc residual (f32), directions encoded per sample
+  kRecompute = 1,    // K3: x_enc encoded from (origins, dirs, t)
+  kEncodingsIn = 2,  // K6: x_enc and d_enc per sample, as given
+  kK5 = 3,           // K5: as K6, seeded from the caller's g (no compositing)
+};
+
+// Per dense layer, where its backward lives in the workspaces: A (input)
+// of a_width = k columns at ws_a + N * a_col, D (dPre) of d_width = n at
+// ws_d + N * d_col, each stored in 64-sample tiles, k-major within a tile
+// (element (r, c) at (r / 64) * 64 * width + c * 64 + r % 64); dW (k, n)
+// row-major at dw + out_off.
+struct Ws {
+  int a_col, a_width, d_col, d_width, out_off;
+};
+
+struct RowParams {
+  F32Net m;
+  Ws ws[kMaxDense];
+  Walk w;               // the forward but the rgb head, then back
+  const float* x_res;   // (N, xyz_dim): K2's residual, K5's and K6's x_enc
+  const float* origins;
+  const float* dirs;
+  const float* d_enc;   // (N, dir_dim): K5, K6
+  const float* t_vals;
+  const float* dpreds;  // (N, 4)
+  float* ws_a;
+  float* ws_d;
+  float* db_part;       // (grid, total_b)
+  float* dx_out;        // (N, xyz_dim) or null: K5's input gradients
+  float* dd_out;        // (N, dir_dim) or null
+  long long n0;         // the chunk's first sample
+  long long rows_pad;   // workspace rows per layer
+  int nc, ntiles, S, total_b, accumulate, mode;
+  int tile_rows, xs0;
+};
+
+// Rows [0, n) of the tile (64 samples each) to the workspace columns at g
+// (k-major: row r at g + 64 r), one bulk copy of the TMA unit a row.  After
+// fence_to_async and a barrier.
+__device__ __forceinline__ void rows_to_ws(const float* tile, int n, float* g) {
+  if ((int)threadIdx.x >= n) return;
+  for (int r = threadIdx.x; r < n; r += kThreads)
+    asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], 256;\n" ::"l"(
+                     g + r * kRows),
+                 "r"(smem_u32(tile + r * kTS))
+                 : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// K2's, K3's point of sample q: its position feature c.
+__device__ __forceinline__ float ray_feature(const float* origins, const float* dirs,
+                                             const float* t_vals, long long q, int S, int c,
+                                             int dim) {
+  float x[3];
+  ray_point(origins, dirs, t_vals, q, S, x);
+  return encode_feature(x, c, dim);
+}
+
 // The tile's rows [col0, col0 + w) = f(r, c) for samples r < valid, else 0,
 // and the same into the workspace columns at g (k-major: g[c * 64 + r]).
 template <class F>
 __device__ __forceinline__ void load_ws(float* tile, int col0, int w, int valid, F f, float* g) {
-  for (int i = threadIdx.x; i < w * kRows; i += kRowThreads) {
+  for (int i = threadIdx.x; i < w * kRows; i += kThreads) {
     const int c = i >> 6, r = i & 63;
     const float v = r < valid ? f(r, c) : 0.f;
     tile[(col0 + c) * kTS + r] = v;
@@ -638,24 +665,24 @@ __device__ __forceinline__ void row_sums(const float* tile, int col0, int w, flo
 // run by one loop: each streams its weights through the ring
 // (walk_product), which runs ahead across products and tiles; the tile's
 // rows go to the workspace by bulk copies while the next product runs.
-__global__ void __launch_bounds__(kRowThreads, 1)
+__global__ void __launch_bounds__(kThreads, 1)
     f32_rows_kernel(const __grid_constant__ RowParams p) {
   extern __shared__ __align__(16) float smem[];
   const F32Net& m = p.m;
   const int H = m.hidden, L = m.num_layers, tid = threadIdx.x, lane = tid & 31;
   const bool x_here = p.dx_out != nullptr;
   float* ring = smem;                                        // kRing x (stage_rows, wmax)
-  float* tile = ring + kRing * p.stage_rows * p.wmax;        // (tile_rows, kTS)
-  float* part = tile + (size_t)p.tile_rows * kTS;            // (2, kColsMax): bias sums
-  float* db = part + 2 * kColsMax;                           // (total_b)
+  float* tile = ring + kRing * p.w.stage_rows * p.w.wmax;        // (tile_rows, kTS)
+  float* part = tile + (size_t)p.tile_rows * kTS;            // (2, kMaxWidth): bias sums
+  float* db = part + 2 * kMaxWidth;                           // (total_b)
   uint64_t* masks = reinterpret_cast<uint64_t*>(db + round_up(p.total_b, 4));  // (L + 3, 256)
   const int s0 = rows_s0(), half = (tid >> 5) & 1;
-  for (int i = tid; i < p.total_b; i += kRowThreads) db[i] = 0.f;
+  for (int i = tid; i < p.total_b; i += kThreads) db[i] = 0.f;
   const int my_tiles = (int)blockIdx.x < p.ntiles ? (p.ntiles - 1 - blockIdx.x) / gridDim.x + 1 : 0;
-  Stream st{0, 0, my_tiles * p.stages, 0};
-  for (int i = 0; i < kRing - 1; ++i) issue_stage(p, st, ring);
+  Stream st{0, 0, my_tiles * p.w.stages, 0};
+  for (int i = 0; i < kRing - 1; ++i) issue_stage(p.w, st, ring);
   int gs = 0;
-  RAcc acc;
+  Acc<3> acc;
 
   for (int tile_i = blockIdx.x; tile_i < p.ntiles; tile_i += gridDim.x) {
     const int rbase = tile_i * kRows;           // workspace row of the tile's sample 0
@@ -677,10 +704,10 @@ __global__ void __launch_bounds__(kRowThreads, 1)
     };
 
     load_ws(tile, 0, m.xyz_dim, valid, xf, ws_a(0));
-    for (int pi = 0; pi < p.nprod; ++pi) {
-      const Prod& q = p.prods[pi];
+    for (int pi = 0; pi < p.w.nprod; ++pi) {
+      const Prod& q = p.w.prods[pi];
       const int li = q.layer;
-      walk_product(p, q, st, gs, ring, tile, acc);
+      walk_product(p.w, q, st, gs, ring, tile, acc);
       if (q.fwd) {
         // Layer li's output + its bias, ReLU'd but at the merged head (its
         // feature columns), into the tile's rows [0, ncols) and its ReLU
@@ -688,7 +715,7 @@ __global__ void __launch_bounds__(kRowThreads, 1)
         // after the branch).
         const int next = li == L + 1 ? L + 2 : li + 1;
         const bool relu = li != L;
-        const float* b = p.pack + m.L[li].b_off;
+        const float* b = p.w.pack + m.L[li].b_off;
         uint64_t bits = 0;
         each_output(acc, [&](int j, int c, int col, float* v) {
           if (col >= q.ncols) return;
@@ -703,7 +730,7 @@ __global__ void __launch_bounds__(kRowThreads, 1)
           *reinterpret_cast<float4*>(t) = make_float4(v[0], v[1], v[2], v[3]);
           *reinterpret_cast<float4*>(t + 4) = make_float4(v[4], v[5], v[6], v[7]);
         });
-        if (relu) masks[next * kRowThreads + tid] = bits;
+        if (relu) masks[next * kThreads + tid] = bits;
         fence_to_async();
         __syncthreads();
         rows_to_ws(tile, q.ncols, ws_a(next));
@@ -716,7 +743,7 @@ __global__ void __launch_bounds__(kRowThreads, 1)
           bulk_wait_read();
           __syncthreads();
           if (x_here)
-            for (int e = tid; e < m.xyz_dim * kRows; e += kRowThreads)
+            for (int e = tid; e < m.xyz_dim * kRows; e += kThreads)
               tile[(p.xs0 + (e >> 6)) * kTS + (e & 63)] = 0.f;
           load_ws(tile, 0, 3, valid, [&](int r, int c) { return g[r * 4 + c]; }, ws_d(L + 2));
           __syncthreads();
@@ -734,7 +761,7 @@ __global__ void __launch_bounds__(kRowThreads, 1)
       const int out = li == L + 2 ? L + 1 : li - 1;
       const int xcol = li == L + 2 ? H / 2 : (li == 0 ? 0 : H);
       const bool to_dd = li == L + 1;
-      const uint64_t bits = li == L + 1 || li == 0 ? ~0ull : masks[li * kRowThreads + tid];
+      const uint64_t bits = li == L + 1 || li == 0 ? ~0ull : masks[li * kThreads + tid];
       each_output(acc, [&](int j, int c, int col, float* v) {
         float sum = 0.f;
         if (col < xcol) {
@@ -758,21 +785,21 @@ __global__ void __launch_bounds__(kRowThreads, 1)
         }
         sum += __shfl_xor_sync(0xffffffffu, sum, 8);
         sum += __shfl_xor_sync(0xffffffffu, sum, 16);
-        if (lane < 8 && col < xcol) part[half * kColsMax + col] = sum;
+        if (lane < 8 && col < xcol) part[half * kMaxWidth + col] = sum;
       });
       fence_to_async();
       __syncthreads();
       if (out >= 0) {
         rows_to_ws(tile, xcol, ws_d(out));
         float* d = dbl(out);
-        for (int col = tid; col < xcol; col += kRowThreads) d[col] += part[col] + part[kColsMax + col];
+        for (int col = tid; col < xcol; col += kThreads) d[col] += part[col] + part[kMaxWidth + col];
       }
       if (li == L + 1) {  // dsigma: the merged head's last dPre column
         load_ws(tile, H, 1, valid, [&](int r, int) { return g[r * 4 + 3]; }, ws_d(L) + H * kRows);
         __syncthreads();
         row_sums(tile, H, 1, dbl(L) + H);
       } else if (li == 0) {
-        for (int e = tid; e < valid * m.xyz_dim; e += kRowThreads) {
+        for (int e = tid; e < valid * m.xyz_dim; e += kThreads) {
           const int r = e / m.xyz_dim, c = e - r * m.xyz_dim;
           p.dx_out[(q0 + r) * m.xyz_dim + c] = tile[(p.xs0 + c) * kTS + r];
         }
@@ -785,7 +812,7 @@ __global__ void __launch_bounds__(kRowThreads, 1)
   cp_async_wait<0>();
   bulk_wait();
   float* out = p.db_part + (size_t)blockIdx.x * p.total_b;
-  for (int i = tid; i < p.total_b; i += kRowThreads)
+  for (int i = tid; i < p.total_b; i += kThreads)
     out[i] = p.accumulate ? out[i] + db[i] : db[i];
 }
 
@@ -967,22 +994,34 @@ extern "C" int nkt_f32_fwd(const void* origins, const void* dirs, const void* t_
   if (!ok || !net_init(p.m, static_cast<const int*>(desc), n_dense, num_layers, skip_layer,
                        hidden, l_xyz, l_dir))
     return (int)cudaErrorInvalidValue;
+  // The walk: the trunk (layer 0 over the position rows at H), the merged
+  // head's feature columns, the branch.
+  const F32Net& m = p.m;
+  const int H = m.hidden, L = m.num_layers;
+  p.w.nprod = p.w.wmax = 0;
+  for (int i = 0; i <= L + 1; ++i) walk_add(p.w, m.L[i], i, true, i == L + 1 ? H / 2 : H, i ? 0 : H);
+  p.w.pack = static_cast<const float*>(pack);
+  const size_t smem = walk_plan(p.w, (size_t)m.tile_rows * kTS + round_up(m.L[L].k, 4) +
+                                         round_up(3 * m.L[L + 2].k, 4) + 16 * kRows);
+  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
   p.origins = static_cast<const float*>(origins);
   p.dirs = static_cast<const float*>(dirs);
   p.t_vals = static_cast<const float*>(t_vals);
   p.x_in = static_cast<const float*>(x_in);
   p.d_in = static_cast<const float*>(d_in);
-  p.pack = static_cast<const float*>(pack);
   p.xenc_out = static_cast<float*>(xenc_out);
   p.preds = static_cast<float*>(preds_out);
   p.N = (long long)B * S;
   p.S = S;
+  p.ntiles = (int)((p.N + kRows - 1) / kRows);
+  int sms = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return (int)err;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = sizeof(float) * ((size_t)kWBuf + (size_t)p.m.tile_rows * kTS);
   err = cudaFuncSetAttribute(f32_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return (int)err;
-  f32_fwd_kernel<<<(unsigned)((p.N + kRows - 1) / kRows), kThreads, smem, st>>>(p);
+  f32_fwd_kernel<<<p.ntiles < sms ? p.ntiles : sms, kThreads, smem, st>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess || !composite) return (int)err;
   f32_composite_kernel<<<(B + kWarps - 1) / kWarps, 256, 0, st>>>(
@@ -1052,35 +1091,24 @@ extern "C" int nkt_f32_bwd(int mode, const void* x_res, const void* origins, con
     const F32Net& m = p.m;
     const int H = m.hidden, L = m.num_layers;
     const bool x_here = dx_out != nullptr;
-    int widest = H + 1;
-    p.nprod = p.wmax = 0;
-    auto add = [&](int li, bool fwd, int ncols) {
-      const F32Layer& d = m.L[li];
-      p.prods[p.nprod++] = fwd ? Prod{d.f_off, ld64(d.n), d.k, ncols, li, 1}
-                               : Prod{d.t_off, ld64(d.k), d.n, ncols, li, 0};
-      p.wmax = round_up(ncols, 32) > p.wmax ? round_up(ncols, 32) : p.wmax;
-      widest = p.prods[p.nprod - 1].K > widest ? p.prods[p.nprod - 1].K : widest;
-    };
-    for (int i = 0; i <= L + 1; ++i) add(i, true, i == L + 1 ? H / 2 : H);
-    add(L + 2, false, H / 2);
-    add(L + 1, false, H + (dd_out != nullptr ? m.dir_dim : 0));
+    Walk& w = p.w;
+    w.nprod = w.wmax = 0;
+    for (int i = 0; i <= L + 1; ++i) walk_add(w, m.L[i], i, true, i == L + 1 ? H / 2 : H);
+    walk_add(w, m.L[L + 2], L + 2, false, H / 2);
+    walk_add(w, m.L[L + 1], L + 1, false, H + (dd_out != nullptr ? m.dir_dim : 0));
     for (int i = L; i >= 1; --i)
-      add(i, false, H + (x_here && is_skip(i - 1, m.skip_layer) ? m.xyz_dim : 0));
-    if (x_here) add(0, false, m.xyz_dim);
+      walk_add(w, m.L[i], i, false, H + (x_here && is_skip(i - 1, m.skip_layer) ? m.xyz_dim : 0));
+    if (x_here) walk_add(w, m.L[0], 0, false, m.xyz_dim);
+    int widest = H + 1;
+    for (int i = 0; i < w.nprod; ++i) widest = w.prods[i].K > widest ? w.prods[i].K : widest;
     p.xs0 = round_up(H + 1, 4);
     p.tile_rows = round_up(x_here && p.xs0 + m.xyz_dim > widest ? p.xs0 + m.xyz_dim : widest, 4);
   }
-  // The ring's stages: 32 weight rows where shared memory holds them, else 16.
-  auto rows_smem = [&](int rows) {
-    return sizeof(float) * ((size_t)kRing * rows * p.wmax + (size_t)p.tile_rows * kTS +
-                            2 * kColsMax + round_up(total_b, 4) +
-                            (size_t)(num_layers + 3) * kRowThreads * 2);
-  };
-  p.stage_rows = rows_smem(2 * kSub) <= (size_t)kMaxSmem ? 2 * kSub : kSub;
-  p.stages = 0;
-  for (int i = 0; i < p.nprod; ++i) p.stages += (p.prods[i].K + p.stage_rows - 1) / p.stage_rows;
+  const size_t smem = walk_plan(p.w, (size_t)p.tile_rows * kTS + 2 * kMaxWidth +
+                                         round_up(total_b, 4) +
+                                         (size_t)(num_layers + 3) * kThreads * 2);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  p.pack = static_cast<const float*>(pack);
+  p.w.pack = static_cast<const float*>(pack);
   p.x_res = static_cast<const float*>(x_res);
   p.origins = static_cast<const float*>(origins);
   p.dirs = static_cast<const float*>(dirs);
@@ -1111,7 +1139,6 @@ extern "C" int nkt_f32_bwd(int mode, const void* x_res, const void* origins, con
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  const size_t smem = rows_smem(p.stage_rows);
   const int dw_smem = (int)sizeof(float) * kDwRing * kDwStage;
   if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
   err = cudaFuncSetAttribute(f32_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1126,7 +1153,7 @@ extern "C" int nkt_f32_bwd(int mode, const void* x_res, const void* origins, con
     p.ntiles = (p.nc + kRows - 1) / kRows;
     p.accumulate = chunk > 0;
     const int g = grid < p.ntiles ? grid : p.ntiles;
-    f32_rows_kernel<<<g, kRowThreads, smem, st>>>(p);
+    f32_rows_kernel<<<g, kThreads, smem, st>>>(p);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     dp.ntiles = p.ntiles;

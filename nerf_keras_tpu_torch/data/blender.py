@@ -14,7 +14,8 @@ width, rescaled with the resize; alpha is composited onto a white or
 black background; bounds are near=2, far=6.  Frames are decoded by the
 port's ``utils/image.decode_image`` (PNG, or JPEG where a ``file_path``
 names one; the card's machine has no PIL) and widened to RGBA as PIL's
-``convert("RGBA")`` does (a JPEG's alpha is 255); a JPEG the port
+``convert("RGBA")`` does (a JPEG's alpha is 255; a gray or RGB PNG's
+``tRNS`` key colour gets alpha 0); a JPEG the port
 refuses, or a palette, 16-bit or interlaced PNG, raises ``ValueError``
 naming the file.
 """
@@ -28,7 +29,7 @@ import numpy as np
 
 from nerf_keras_tpu_torch.data.pipeline import RayDataset, build_ray_dataset, rescale_focal
 from nerf_keras_tpu_torch.utils.image import decode_image, resize_bilinear
-from nerf_keras_tpu_torch.utils.png import to_rgba
+from nerf_keras_tpu_torch.utils.png import PNG_SIGNATURE, png_transparency, to_rgba
 
 NEAR, FAR = 2.0, 6.0
 
@@ -61,7 +62,9 @@ def _read_rgba(path: str) -> np.ndarray:
     """A PNG or JPEG frame as ``(H, W, 4)`` float32 in [0, 1]."""
     with open(path, "rb") as f:
         data = f.read()
-    return to_rgba(decode_image(data, path)).astype(np.float32) / 255.0
+    img = decode_image(data, path)
+    key = png_transparency(data) if data[:len(PNG_SIGNATURE)] == PNG_SIGNATURE else None
+    return to_rgba(img, key).astype(np.float32) / 255.0
 
 
 def _composite(rgba: np.ndarray, white_bkgd: bool) -> np.ndarray:

@@ -4,7 +4,9 @@ Encodes 8-bit grayscale, RGB and RGBA images (filter type 0 on every
 row).  Decodes 8-bit, non-interlaced grayscale, gray+alpha, RGB and RGBA
 PNGs with any of the five row filters, which covers what this package
 and PIL write; palette, 16-bit and interlaced files raise ``ValueError``.
-``to_rgba`` widens a decoded image as PIL's ``convert("RGBA")`` does.
+``to_rgba`` widens a decoded image as PIL's ``convert("RGBA")`` does,
+with the key colour of a gray or RGB file's ``tRNS`` chunk
+(``png_transparency``) made transparent.
 """
 
 from __future__ import annotations
@@ -85,22 +87,28 @@ def _unfilter(rows: np.ndarray, bpp: int) -> np.ndarray:
     return out
 
 
-def decode_png(data: bytes) -> np.ndarray:
-    """PNG bytes -> ``(H, W)`` (grayscale) or ``(H, W, C)`` uint8."""
+def _chunks(data: bytes):
+    """``(kind, body)`` of each chunk up to IEND."""
     if data[:8] != PNG_SIGNATURE:
         raise ValueError("not a PNG")
-    pos, idat, header = 8, [], None
+    pos = 8
     while pos < len(data):
         (length,) = struct.unpack(">I", data[pos:pos + 4])
         kind = data[pos + 4:pos + 8]
-        body = data[pos + 8:pos + 8 + length]
+        yield kind, data[pos + 8:pos + 8 + length]
         pos += 12 + length
+        if kind == b"IEND":
+            return
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """PNG bytes -> ``(H, W)`` (grayscale) or ``(H, W, C)`` uint8."""
+    idat, header = [], None
+    for kind, body in _chunks(data):
         if kind == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
         elif kind == b"IDAT":
             idat.append(body)
-        elif kind == b"IEND":
-            break
     if header is None:
         raise ValueError("PNG without IHDR")
     w, h, depth, color, _, _, interlace = header
@@ -115,9 +123,32 @@ def decode_png(data: bytes) -> np.ndarray:
     return img[..., 0] if c == 1 else img
 
 
-def to_rgba(img: np.ndarray) -> np.ndarray:
+def png_transparency(data: bytes) -> tuple[int, ...] | None:
+    """The key colour of a gray (``(v,)``) or RGB (``(r, g, b)``) PNG's
+    ``tRNS`` chunk, each sample's 16 bits as PIL reads them; None without
+    one.  PIL ignores the chunk in gray+alpha and RGBA files, and so does
+    this; a palette file's raises in ``decode_png``."""
+    color = None
+    for kind, body in _chunks(data):
+        if kind == b"IHDR":
+            color = body[9]
+        elif kind == b"tRNS" and color in (0, 2):
+            n = 1 if color == 0 else 3
+            if len(body) < 2 * n:
+                raise ValueError(f"tRNS chunk of {len(body)} bytes in a PNG of color "
+                                 f"type {color}")
+            return struct.unpack(f">{n}H", body[:2 * n])
+        elif kind == b"IDAT":
+            break
+    return None
+
+
+def to_rgba(img: np.ndarray, transparency: tuple[int, ...] | None = None) -> np.ndarray:
     """A decoded 8-bit image -> ``(H, W, 4)`` uint8, as PIL's
-    ``convert("RGBA")``: gray fills r, g and b; an absent alpha is 255."""
+    ``convert("RGBA")``: gray fills r, g and b; an absent alpha is 255,
+    and 0 where a gray or RGB pixel equals ``transparency``
+    (:func:`png_transparency`), whose samples PIL compares by their low
+    byte."""
     img = np.asarray(img)
     if img.ndim == 2:
         img = img[..., None]
@@ -125,5 +156,11 @@ def to_rgba(img: np.ndarray) -> np.ndarray:
     if c not in _CHANNEL_COLOR:
         raise ValueError(f"unsupported image shape {img.shape}")
     rgb = np.repeat(img[..., :1], 3, axis=-1) if c <= 2 else img[..., :3]
-    alpha = img[..., -1:] if c in (2, 4) else np.full(img.shape[:2] + (1,), 255, np.uint8)
+    if c in (2, 4):
+        alpha = img[..., -1:]
+    else:
+        alpha = np.full(img.shape[:2] + (1,), 255, np.uint8)
+        if transparency is not None:
+            key = np.asarray(transparency, np.int64) & 0xFF
+            alpha[(img == key).all(axis=-1)] = 0
     return np.concatenate([rgb, alpha], axis=-1).astype(np.uint8)

@@ -905,6 +905,51 @@ def test_f32_kernels_match_plain(dev, kernel, hidden, l_xyz, l_dir):
     assert grew and all(k.endswith("_f32") for k in grew), grew
 
 
+@pytest.mark.parametrize("hidden", [16, 96, 192, 256])
+@pytest.mark.parametrize("l_xyz,l_dir", [(4, 2), (16, 6)])
+@pytest.mark.parametrize("kernel", ["k1", "k1_train", "k5", "k6"])
+def test_f32_forward_matches_the_f64_yardstick(dev, kernel, hidden, l_xyz, l_dir):
+    """The f32 forward (f32_fwd_kernel: K1 in both modes, K5 at S = 1, K6)
+    on 300 rays of 49 samples (14,700: no multiple of the 64-sample tile)
+    within F32_TOL_REL of its plain version with the compositing in
+    float64 (chip_smoke.py's yardstick), K1's f32 x_enc residual equal
+    to the plain encode of o + d * t bit for bit, and two launches giving
+    the same bits."""
+    from chip_smoke import _f64_yardstick
+
+    mlp, o, d, t, x_enc, d_enc, _, _ = _f32_setup(dev, hidden, 300, 49, seed=hidden + l_xyz,
+                                                  l_xyz=l_xyz, l_dir=l_dir)
+    b, s = t.shape
+    x2, d2 = x_enc.reshape(b * s, -1), d_enc.reshape(b * s, -1)
+    kw = dict(l_xyz=l_xyz, l_dir=l_dir)
+    calls = {
+        "k1": lambda: list(k1.render_rays_fused(mlp, o, d, t, **kw)),
+        "k1_train": lambda: list(k1.launch_k1(mlp, o, d, t, l_xyz, l_dir, train=True)),
+        "k5": lambda: [k5.launch_k5_fwd(mlp, x2, d2)],
+        "k6": lambda: list(k1.apply_nerf_render_fused(mlp, x_enc, d_enc, t)),
+    }
+    with torch.no_grad():
+        got, again = calls[kernel](), calls[kernel]()
+        torch.cuda.synchronize()
+        with _f64_yardstick():
+            if kernel in ("k1", "k1_train"):
+                want = list(k1.render_rays_reference(mlp, o, d, t, **kw))
+            elif kernel == "k6":
+                want = list(k1.apply_nerf_render_reference(mlp, x_enc, d_enc, t))
+            else:
+                want = []
+            if kernel in ("k1_train", "k5"):
+                want.append(mlp(x2, d2))
+    if kernel == "k1_train":
+        assert torch.equal(got.pop(2), x2)  # the residual: the plain encode, bit for bit
+        again.pop(2)
+    assert len(got) == len(want)
+    for i, (a, a2, w) in enumerate(zip(got, again, want)):
+        assert a.dtype == torch.float32 and a.shape == w.shape, i
+        assert torch.equal(a, a2), i
+        assert _rel_l2(a, w) <= F32_TOL_REL, (i, _rel_l2(a, w))
+
+
 @pytest.mark.parametrize("kernel", ["k2", "k5"])
 def test_f32_backward_over_chunks_repeats_its_bits(dev, monkeypatch, kernel):
     """The f32 backward (K2, and K5 with input gradients) over a workspace
