@@ -324,6 +324,26 @@ nonzero — nothing falls back to the CPU or to a plain path):
     (e) the verify recipe's tiny f32 config through ``cli.train_synthetic``
     (f32 K1/K2 only, the loss falling over 3 epochs).  The kernels line
     adds the eight f32 kernels with their launches on (b)-(e).
+28. ``captures``: a user's own capture in the PNG and JPEG layouts PIL
+    reads, run last on copies of the committed fixtures: (a) the port's
+    PNG decoder (``utils/png.py`` with the host C++ unfilter
+    ``utils/native/png.cc``, built with g++) on the Blender scene of
+    ``tests/fixtures/torch_png`` (16-bit RGBA, Adam7, palette + ``tRNS``
+    at 8 and 4 bits, 16-bit gray+alpha) and the progressive JPEG decoder on
+    every ``prog_*`` case and the progressive capture, each frame's uint8
+    SHA-256 equal to PIL's (``goldens.json``; this machine has no PIL); an
+    800x800 RGBA frame whose every row is Paeth, at 8 and 16 bits, decoded
+    exactly; decode Mpx/s of those two and of a progressive 504x672 view
+    on the card's host; (b) ``cli.train_blender`` on the scene at full
+    width (40x40, batch 1024, white background, 5 epochs of 9 steps, the
+    native batcher, exactly 2 K1 training-mode and 2 K2 launches a step and
+    2 K1 per eval batch and panel chunk, a falling loss), then
+    ``cli.evaluate --data blender`` (2 K1 launches, 1 dB above a
+    random-weight checkpoint's report); (c) the progressive capture
+    (``tests/fixtures/torch_jpeg/capture_progressive``, 8 views):
+    ``data/llff.minify`` against PIL's digests, ``cli.train_fern --config
+    config/fern_batch_h256_tpu.json --epochs 1`` (as 25 (b)), then
+    ``cli.infer --path spiral --frames 1`` (K1 only, 2 a chunk).
 
 Each main path runs with the launch counters set to 0 just before it and
 read just after.  The line before the last is the kernel report
@@ -344,12 +364,14 @@ import os
 import re
 import shutil
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
 import threading
 import time
 import urllib.request
+import zlib
 
 import numpy as np
 import torch
@@ -422,12 +444,13 @@ from nerf_keras_tpu_torch.utils.checkpoint import (
     save_params_npz,
 )
 from nerf_keras_tpu_torch.utils import jpeg as jpeg_codec
+from nerf_keras_tpu_torch.utils import png as png_codec
 from nerf_keras_tpu_torch.utils.image import to_uint8
 from nerf_keras_tpu_torch.utils.keras_export import export_reference_weights
 from nerf_keras_tpu_torch.utils.keras_import import import_reference_weights
 from nerf_keras_tpu_torch.utils.image_metrics import frame_psnr
 from nerf_keras_tpu_torch.utils.metrics import History
-from nerf_keras_tpu_torch.utils.png import decode_png, encode_png
+from nerf_keras_tpu_torch.utils.png import decode_png, encode_png, png_transparency, to_rgba
 
 # K1 vs plain at full width.  Both take bf16-rounded operands and
 # accumulate in f32; they differ in summation order, which can flip the
@@ -2809,6 +2832,185 @@ def phase_fern_jpeg(card: str, tmp: str) -> list[dict]:
     return runs
 
 
+# The fixtures of phase captures: a Blender scene of 16-bit, Adam7 and
+# palette + tRNS PNG frames with the SHA-256 of PIL 12.1.0's
+# convert("RGBA") of each (tests/torch_png_fixtures.py), and the
+# progressive JPEGs of JPEG_FIXTURES.
+PNG_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                            "fixtures", "torch_png")
+
+
+def _paeth_png(samples: np.ndarray, depth: int) -> bytes:
+    """An RGBA PNG (8 or 16 bits) of ``samples`` whose every row is
+    Paeth-filtered: each row's predictor comes from the raw bytes, so numpy
+    filters every row at once."""
+    h, w, c = samples.shape
+    raw = (samples.astype(">u2").view(np.uint8) if depth == 16
+           else samples.astype(np.uint8)).reshape(h, -1).astype(np.int16)
+    bpp = c * depth // 8
+    a, b, up_left = (np.zeros_like(raw) for _ in range(3))
+    a[:, bpp:], b[1:], up_left[1:, bpp:] = raw[:, :-bpp], raw[:-1], raw[:-1, :-bpp]
+    p = a + b - up_left
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - up_left)
+    pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, up_left))
+    rows = np.concatenate([np.full((h, 1), 4, np.uint8), ((raw - pred) & 0xFF).astype(np.uint8)],
+                          axis=1)
+    chunk = png_codec._chunk
+    return b"".join([png_codec.PNG_SIGNATURE,
+                     chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, 6, 0, 0, 0)),
+                     chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)), chunk(b"IEND", b"")])
+
+
+def _paeth_frame() -> np.ndarray:
+    """The decode-rate frame: 800x800 16-bit RGBA, smooth ramps with noise
+    in the low 10 bits (as a 16-bit render's low bits are)."""
+    y, x = np.mgrid[0:800, 0:800]
+    smooth = np.stack([x * 81, y * 79, (x + y) * 41, 65535 - x * 40], -1) % 65536
+    noisy = smooth + np.random.default_rng(0).integers(0, 1024, smooth.shape)
+    return np.minimum(noisy, 65535).astype(np.uint16)
+
+
+def phase_captures(card: str, tmp: str) -> list[dict]:
+    """Phase 28 (module docstring): a user's own capture in the PNG and
+    JPEG layouts PIL reads, decoded on the card's host and trained through
+    the kernels, (a)-(c)."""
+    with open(os.path.join(PNG_FIXTURES, "goldens.json")) as f:
+        png_goldens = json.load(f)["decode"]
+    with open(os.path.join(JPEG_FIXTURES, "goldens.json")) as f:
+        jpeg_goldens = json.load(f)
+    scene = os.path.join(tmp, "png_scene")
+    shutil.copytree(os.path.join(PNG_FIXTURES, "scene"), scene)
+    cap = os.path.join(tmp, "progressive_capture")
+    shutil.copytree(os.path.join(JPEG_FIXTURES, "capture_progressive"), cap)
+
+    # (a) every new golden against the port's decoders, and decode rates.
+    t0 = time.perf_counter()
+    png_codec.load_library()
+    build_s = time.perf_counter() - t0
+    wrong = {}
+    for rel, want in png_goldens.items():
+        with open(os.path.join(scene, rel), "rb") as fh:
+            data = fh.read()
+        if _digest(to_rgba(decode_png(data), png_transparency(data))) != want:
+            wrong[f"torch_png/scene/{rel}"] = "decode"
+    progressive = {rel: want for rel, want in jpeg_goldens["decode"].items()
+                   if rel.startswith(("cases/prog_", "capture_progressive/"))}
+    for rel, want in progressive.items():
+        if _digest(llff._read_rgb_u8(os.path.join(JPEG_FIXTURES, rel))) != want:
+            wrong[f"torch_jpeg/{rel}"] = "decode"
+    rgba16 = _paeth_frame()
+    rgba8 = (rgba16 >> 8).astype(np.uint8)
+    png8, png16 = _paeth_png(rgba8, 8), _paeth_png(rgba16, 16)
+    exact = {"rgba8_paeth": bool(np.array_equal(decode_png(png8), rgba8)),
+             "rgba16_paeth": bool(np.array_equal(decode_png(png16), rgba8))}
+    view = os.path.join(cap, "images", sorted(os.listdir(os.path.join(cap, "images")))[0])
+    with open(view, "rb") as fh:
+        view_bytes = fh.read()
+    shape = jpeg_codec.decode_jpeg(view_bytes, view).shape
+    rates = {}  # Mpx/s of the median of 5 decodes after one
+    for name, decode, mpx in (
+            ("png_rgba8_800x800_paeth", lambda: decode_png(png8), 0.64),
+            ("png_rgba16_800x800_paeth", lambda: decode_png(png16), 0.64),
+            ("jpeg_progressive_504x672", lambda: jpeg_codec.decode_jpeg(view_bytes, view),
+             shape[0] * shape[1] / 1e6)):
+        rates[name] = mpx / (_host_ms(decode) / 1e3)
+    say("captures", part="a", png_files_checked=len(png_goldens),
+        jpeg_files_checked=len(progressive), mismatches=wrong, exact=exact,
+        png_build_s=build_s, decode_mpx_per_s=rates,
+        png_bytes={"rgba8": len(png8), "rgba16": len(png16)},
+        card=card)
+    if wrong or not all(exact.values()) or not progressive or shape != (504, 672, 3):
+        raise RuntimeError(f"captures (a): the port differs from PIL's digests: {wrong}, "
+                           f"exact {exact}, shape {shape}")
+    runs = []
+
+    # (b) the Blender scene through cli.train_blender at full width, then
+    # cli.evaluate --data blender against random weights.
+    bl_config = _config_file(os.path.join(tmp, "png_scene.json"), BATCH_SIZE=1024,
+                             HEIGHT=40, WIDTH=40, WITH_GCS=False, WHITE_BKGD=True)
+    bl_cfg = dataclasses.replace(load_config(bl_config), epochs=5)
+    expected, bl_steps = _expected_launches(
+        bl_cfg, lambda h, w: train_blender.prepare(h, w, data_dir=scene, config=bl_cfg), 5, 1)
+    bl_run = os.path.join(tmp, "png_scene_run")
+    t0 = time.perf_counter()
+    trainer, out, launches = _cli(train_blender.main, [
+        "--config", bl_config, "--data-dir", scene, "--run-dir", bl_run, "--epochs", "5",
+        "--eval-every", "5"])
+    train_s = time.perf_counter() - t0
+    hist = History.load(os.path.join(bl_run, _history_name(bl_cfg)))
+    if "batches: native batcher" not in out or launches != expected:
+        raise RuntimeError(f"captures (b): launched {launches}, expected {expected}")
+    if not (np.isfinite(hist.losses).all() and hist.losses[-1] < hist.losses[0]):
+        raise RuntimeError(f"captures (b): the loss did not fall: {hist.losses}")
+    runs.append(_clean(launches))
+    del trainer
+    rnd_ckpt = os.path.join(tmp, "png_scene_random", "random.ckpt.npz")
+    os.makedirs(os.path.dirname(rnd_ckpt))
+    _, _, (near, far), focal = train_blender.prepare(40, 40, data_dir=scene, config=bl_cfg)
+    save_params_npz(rnd_ckpt, random_params(bl_cfg, seed=0), bl_cfg,
+                    scene={"near": near, "far": far, "focal": focal, "ndc": False})
+    reports, want = {}, dict(ZERO, k1_fwd=2)
+    for tag, ckpt in (("trained", bl_run), ("random", rnd_ckpt)):
+        rep, _, launches = _cli(eval_cli.run_evaluation, [
+            "--config", bl_config, "--checkpoint", ckpt, "--data", "blender", "--data-dir",
+            scene, "--out", os.path.join(tmp, f"png_scene_eval_{tag}.json")])
+        runs.append(_clean(launches))
+        reports[tag] = {"mean": rep["mean"], "views": len(rep["views"]),
+                        "launches": _clean(launches)}
+        if _clean(launches) != want or len(rep["views"]) != 1:
+            raise RuntimeError(f"captures (b, {tag}): launched {launches}, expected {want}")
+    say("captures", part="b", frames="6 train + 2 val 40x40: 16-bit RGBA (one Adam7), "
+        "palette + tRNS (8-bit; 4-bit Adam7), 16-bit gray+alpha, 8-bit RGBA Adam7",
+        steps=bl_steps * 5, launches=runs[0], expected=expected, train_s=train_s,
+        losses=hist.losses, val_psnrs=hist.val["psnrs"], eval=reports, card=card)
+    if not reports["trained"]["mean"]["psnr"] > reports["random"]["mean"]["psnr"] + 1.0:
+        raise RuntimeError(f"captures (b): trained {reports['trained']} does not beat "
+                           f"random {reports['random']} by 1 dB")
+    torch.cuda.empty_cache()
+
+    # (c) the progressive capture: minify, cli.train_fern, a spiral frame.
+    t0 = time.perf_counter()
+    out_dir = llff.minify(cap, 8)
+    minify_s = time.perf_counter() - t0
+    for rel, want in jpeg_goldens["minify_progressive"].items():
+        stem = os.path.splitext(os.path.basename(rel))[0]
+        with open(os.path.join(out_dir, stem + ".png"), "rb") as fh:
+            if _digest(decode_png(fh.read())) != want:
+                wrong[rel] = "minify"
+    if wrong:
+        raise RuntimeError(f"captures (c): minify differs from PIL's digests: {wrong}")
+    cfg = dataclasses.replace(load_config(FERN_CONFIG), epochs=1)
+
+    def prepare(h, w):
+        return train_fern.prepare(h, w, data_dir=cap)
+
+    expected, steps = _expected_launches(cfg, prepare, 1, 1)
+    run = os.path.join(tmp, "progressive_run")
+    t0 = time.perf_counter()
+    trainer, out, launches, epochs, probe, history = _fern_train(
+        "captures", "c", FERN_CONFIG, cap, run, cfg, expected, runs)
+    train_s = time.perf_counter() - t0
+    del trainer
+    torch.cuda.empty_cache()
+    chunks = math.ceil(cfg.height * cfg.width / 16384)
+    want = dict(ZERO, k1_fwd=2 * chunks)
+    written, out, launches = _cli(infer_cli.run_inference, [
+        "--config", FERN_CONFIG, "--checkpoint", run, "--path", "spiral", "--data-dir", cap,
+        "--frames", "1", "--out", os.path.join(tmp, "progressive_spiral.mp4")])
+    frame_ms = [float(v) for v in FRAME_MS.findall(out)]
+    runs.append(_clean(launches))
+    say("captures", part="c", views=len(jpeg_goldens["minify_progressive"]),
+        minify_s=minify_s, minify_checked=len(jpeg_goldens["minify_progressive"]),
+        size=[cfg.height, cfg.width], steps_per_epoch=steps, epochs=epochs,
+        train_launches=runs[-2], expected=expected, loss_probe=probe, train_s=train_s,
+        val_psnr=history.val["psnrs"], spiral_launches=_clean(launches),
+        spiral_expected=want, frame_ms=frame_ms, card=card)
+    if _clean(launches) != want or len(frame_ms) != 1:
+        raise RuntimeError(f"captures (c): the spiral launched {launches}, expected {want}; "
+                           f"frames {frame_ms}")
+    return runs
+
+
 # Phase dp's gradient gate is K2's (relative L2 per leaf).  Two ranks are
 # not one process up to summation order alone: each rank's weight gradient
 # is rounded to bf16 before the sum (the cotangent of w.astype(bf16) is
@@ -4512,6 +4714,8 @@ def main() -> None:
         torch.cuda.empty_cache()
         f32_runs, f32r = phase_f32(card, tmp)
         runs += f32_runs
+        torch.cuda.empty_cache()
+        runs += phase_captures(card, tmp)
     # Library yardsticks measured once and shared where two kernels do the
     # same products at the same M: K1's per-layer bf16 matmul at M = 4096 x
     # 192 is K5's forward at N = 786,432 and K6's forward at S=192; K2's dW

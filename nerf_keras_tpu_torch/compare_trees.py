@@ -44,7 +44,13 @@ parent).  Phases:
   relative L2 to the float64 yardstick (``chip_smoke._f64_yardstick``);
   ``fused_render_f32.cu``'s ``-Xptxas -v`` report; then the f32 parity and
   proposal steps as in ``steps``; a run of this phase alone builds only
-  the f32 source.
+  the f32 source;
+* ``decode``: the tree's image decoders on the card's host (no kernel;
+  a run of this phase alone builds none): an 800x800 RGBA PNG whose every
+  row is Paeth, at 8 and 16 bits (written once by this tree's
+  ``chip_smoke._paeth_frame`` and ``_paeth_png``), and the views of the committed baseline and
+  progressive JPEG captures; Mpx/s of the median of up to 5 passes (fewer
+  where one pass takes over 2 s), or the error a tree's decoder raises.
 
 Prints one JSON line per tree and phase, prefixed ``TREE``.
 """
@@ -55,6 +61,7 @@ import argparse
 import os
 import subprocess
 import sys
+import tempfile
 
 _CHILD = r'''
 import json, os, statistics, sys, time
@@ -67,7 +74,8 @@ out = {"tree": os.getcwd()}
 if phases in (["k7"], ["f32"]):
     _build._sources = lambda: [_build.CSRC / ("pdf_union.cu" if phases == ["k7"] else
                                               "fused_render_f32.cu")]
-_build.build()
+if phases != ["decode"]:
+    _build.build()
 
 
 def time_steps(prefix, configs):
@@ -214,6 +222,32 @@ if "f32" in phases:
     time_steps("f32_", [(name, dataclasses.replace(cfg, compute_dtype="float32").validate())
                         for name, cfg in (("proposal", bench_config()),
                                           ("parity", parity_config()))])
+if "decode" in phases:
+    from nerf_keras_tpu_torch.utils import jpeg, png
+
+    def rate(decode, blobs):
+        """Mpx/s over ``blobs`` (the median pass), or the decoder's error."""
+        try:
+            img = [decode(b) for b in blobs][-1]  # the first pass builds the library
+            runs = []
+            while len(runs) < 5 and sum(runs) < 2.0:
+                t0 = time.perf_counter()
+                for b in blobs:
+                    decode(b)
+                runs.append(time.perf_counter() - t0)
+        except ValueError as e:
+            return {"error": str(e)[:200]}
+        mpx = len(blobs) * img.shape[0] * img.shape[1] / 1e6
+        return {"mpx_per_s": mpx / statistics.median(runs), "passes_s": runs}
+
+    for depth in (8, 16):
+        with open(os.path.join(sys.argv[2], f"paeth{depth}.png"), "rb") as f:
+            out[f"decode_png_rgba{depth}_paeth"] = rate(png.decode_png, [f.read()])
+    for capture in ("capture", "capture_progressive"):
+        d = os.path.join("tests", "fixtures", "torch_jpeg", capture, "images")
+        if os.path.isdir(d):
+            blobs = [open(os.path.join(d, f), "rb").read() for f in sorted(os.listdir(d))]
+            out[f"decode_jpeg_{capture}"] = rate(jpeg.decode_jpeg, blobs)
 print("TREE " + json.dumps(out), flush=True)
 '''
 
@@ -222,16 +256,26 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("trees", nargs="+", help="checkout roots, in run order")
     parser.add_argument("--phases", default="kernels,steps",
-                        help="comma-separated: kernels, k1k2, k4, k7, serve, steps, f32")
+                        help="comma-separated: kernels, k1k2, k4, k7, serve, steps, f32, "
+                             "decode")
     parser.add_argument("--timeout", type=float, default=900.0,
                         help="seconds allowed to each tree's process")
     args = parser.parse_args()
-    unknown = set(args.phases.split(",")) - {"kernels", "k1k2", "k4", "k7", "serve", "steps", "f32"}
+    unknown = set(args.phases.split(",")) - {"kernels", "k1k2", "k4", "k7", "serve", "steps",
+                                             "f32", "decode"}
     if unknown:
         raise SystemExit(f"unknown phases: {sorted(unknown)}")
+    pngs = tempfile.TemporaryDirectory()
+    if "decode" in args.phases.split(","):
+        from chip_smoke import _paeth_frame, _paeth_png
+
+        rgba16 = _paeth_frame()
+        for depth, img in ((8, rgba16 >> 8), (16, rgba16)):
+            with open(os.path.join(pngs.name, f"paeth{depth}.png"), "wb") as f:
+                f.write(_paeth_png(img, depth))
     failed = 0
     for tree in args.trees:
-        proc = subprocess.run([sys.executable, "-c", _CHILD, args.phases],
+        proc = subprocess.run([sys.executable, "-c", _CHILD, args.phases, pngs.name],
                               cwd=os.path.abspath(tree), capture_output=True, text=True,
                               timeout=args.timeout)
         lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("TREE ")]
@@ -240,6 +284,7 @@ def main() -> None:
             failed += 1
             print(f"[compare_trees] {tree}: exit {proc.returncode}\n{proc.stderr[-4000:]}",
                   file=sys.stderr, flush=True)
+    pngs.cleanup()
     sys.exit(1 if failed else 0)
 
 

@@ -12,12 +12,13 @@ Poses pass through unchanged (the OpenGL-style camera-to-world of
 ``ops/rays.get_rays``); the focal is ``W/2 / tan(a/2)`` at the native
 width, rescaled with the resize; alpha is composited onto a white or
 black background; bounds are near=2, far=6.  Frames are decoded by the
-port's ``utils/image.decode_image`` (PNG, or JPEG where a ``file_path``
-names one; the card's machine has no PIL) and widened to RGBA as PIL's
-``convert("RGBA")`` does (a JPEG's alpha is 255; a gray or RGB PNG's
-``tRNS`` key colour gets alpha 0); a JPEG the port
-refuses, or a palette, 16-bit or interlaced PNG, raises ``ValueError``
-naming the file.
+port's ``utils/image.decode_image`` (PNG at any colour type and bit
+depth, Adam7 too, or JPEG, baseline or progressive, where a
+``file_path`` names one; the card's machine has no PIL) and widened to
+RGBA as PIL's ``convert("RGBA")`` does: a JPEG's alpha is 255, a 16-bit
+PNG gives each sample's high byte (16-bit gray clipped to 255), a palette
+PNG each index's ``tRNS`` alpha, and a gray or RGB PNG's ``tRNS`` key
+colour alpha 0.  A file the port refuses raises ``ValueError`` naming it.
 """
 
 from __future__ import annotations

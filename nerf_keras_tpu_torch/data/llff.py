@@ -14,10 +14,10 @@ recentering on the average pose, the spiral render path or the
 spherified orbit, and the single-view holdout nearest the average pose.
 
 Images decode through the port's own ``utils/png`` and ``utils/jpeg``
-(the card's machine has no PIL), told apart by content as PIL does: the
-JPEGs users' cameras write give PIL's pixels bit for bit; a JPEG outside
-baseline 8-bit gray/YCbCr raises ``ValueError`` naming the file, a
-palette or 16-bit PNG ``NotImplementedError``.  ``minify`` builds
+(the card's machine has no PIL), told apart by content as PIL does, to
+PIL's ``convert("RGB")`` bit for bit: every PNG PIL opens (any colour type
+and bit depth, Adam7 too) and baseline and progressive 8-bit gray/YCbCr
+JPEGs; a file the port refuses raises ``ValueError`` naming it.  ``minify`` builds
 ``images_{factor}/`` from ``images/`` with Pillow's LANCZOS resize
 (``utils/image.resize_lanczos_u8``, bit for bit) into PNGs, as the JAX
 package does through PIL.  Remote (``gs://``) roots raise through
@@ -33,7 +33,7 @@ import numpy as np
 from nerf_keras_tpu_torch.data.pipeline import RayDataset, build_ray_dataset, rescale_focal
 from nerf_keras_tpu_torch.utils import io
 from nerf_keras_tpu_torch.utils.image import decode_image, resize_bilinear, resize_lanczos_u8
-from nerf_keras_tpu_torch.utils.png import PNG_SIGNATURE, encode_png, to_rgba
+from nerf_keras_tpu_torch.utils.png import encode_png, to_rgba
 
 # ---------------------------------------------------------------------------
 # pose math (numpy; the standard LLFF recipe)
@@ -169,17 +169,10 @@ def _image_files(directory: str) -> list[str]:
 
 def _read_rgb_u8(path: str) -> np.ndarray:
     """An image file as ``(H, W, 3)`` uint8, as PIL's ``convert("RGB")``
-    gives it (gray fills r, g and b; alpha is dropped)."""
+    gives it (gray fills r, g and b; alpha and a ``tRNS`` key are
+    dropped)."""
     with io.open_file(path, "rb") as f:
-        data = f.read()
-    try:
-        img = decode_image(data, path)
-    except ValueError as e:
-        if data[:len(PNG_SIGNATURE)] != PNG_SIGNATURE:
-            raise
-        raise NotImplementedError(f"{e} (the port decodes 8-bit grayscale/RGB/RGBA "
-                                  "PNGs only)") from e
-    return to_rgba(img)[..., :3]
+        return to_rgba(decode_image(f.read(), path))[..., :3]
 
 
 def _read_image(path: str) -> np.ndarray:

@@ -2,7 +2,8 @@
 
 Each library goes into ``nerf_keras_tpu_torch/_build/``, never next to its
 source, named by its caller after a hash of the source: the ray batcher
-(``data/native.py``) and the JPEG scan decoder (``utils/jpeg.py``).
+(``data/native.py``), the JPEG scan decoder (``utils/jpeg.py``) and the
+PNG unfilter (``utils/png.py``).
 """
 
 from __future__ import annotations

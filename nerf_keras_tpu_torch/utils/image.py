@@ -16,10 +16,10 @@ from nerf_keras_tpu_torch.utils.png import PNG_SIGNATURE, decode_png
 
 def decode_image(data: bytes, name: str) -> np.ndarray:
     """A PNG or a JPEG, told apart by its first bytes as PIL tells them
-    (not by the file name), -> ``(H, W)`` or ``(H, W, C)`` uint8.  What the
-    port does not read (a JPEG ``utils/jpeg.py`` refuses, a PNG outside
-    ``utils/png.py``'s 8-bit gray/RGB/RGBA, any other file) raises
-    ``ValueError`` starting with ``name`` (the file)."""
+    (not by the file name), -> ``(H, W)`` or ``(H, W, C)`` uint8 (a PNG as
+    ``utils/png.decode_png`` gives it).  What the port does not read (a
+    JPEG ``utils/jpeg.py`` refuses, a PNG PIL refuses too, any other file)
+    raises ``ValueError`` starting with ``name`` (the file)."""
     if is_jpeg(data):
         return decode_jpeg(data, name)
     if data[:len(PNG_SIGNATURE)] != PNG_SIGNATURE:

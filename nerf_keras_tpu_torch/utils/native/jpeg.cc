@@ -1,13 +1,17 @@
-// The scan of a baseline JPEG, decoded as libjpeg-turbo decodes it with its
-// defaults (host code, not a kernel): Huffman entropy decoding with restart
-// markers, dequantisation, the accurate integer IDCT (JDCT_ISLOW), fancy
-// (triangle) chroma upsampling and the fixed-point YCbCr -> RGB tables.
+// The scans of a baseline or progressive Huffman JPEG, decoded as
+// libjpeg-turbo decodes them with its defaults (host code, not a kernel):
+// Huffman entropy decoding with restart markers into coefficient buffers
+// (sequential blocks; jdphuff.c's DC and AC first and refinement passes
+// with end-of-band runs), then dequantisation, the accurate integer IDCT
+// (JDCT_ISLOW), fancy (triangle) chroma upsampling and the fixed-point
+// YCbCr -> RGB tables.
 //
 // The marker segments (tables, frame and scan headers) are parsed in
-// utils/jpeg.py, which calls jpeg_decode_scan() with the tables in natural
-// order and the entropy-coded data that follows the SOS header.  Anything
-// the stream does not support is reported through `err` with a nonzero
-// return; the decoder never guesses.
+// utils/jpeg.py, which calls jpeg_scan() once per scan with the entropy-
+// coded data that follows its SOS header, then jpeg_finish() with each
+// component's latched quantisation table in natural order.  Anything the
+// stream does not support is reported through `err` with a nonzero return;
+// the decoder never guesses.
 
 #include <cstdint>
 #include <cstdio>
@@ -216,9 +220,192 @@ void idct_islow(const int16_t* coef, const int16_t* q, uint8_t* out, int stride)
   }
 }
 
+int fail(char* err, int err_len, const char* msg) {
+  std::snprintf(err, err_len, "%s", msg);
+  return 1;
+}
+
+// One component of a scan: its coefficient blocks (64 each, natural order,
+// `stride` blocks a row), its blocks per MCU in an interleaved scan (its
+// sampling factors), its own block grid (a scan of it alone covers that,
+// not the MCU-padded one), its Huffman tables and its DC predictor.
+struct ScanComp {
+  int16_t* coef;
+  int stride, h, v, bw, bh;
+  const Huffman* dc;
+  const Huffman* ac;
+  int32_t pred;
+};
+
+// The state of one scan: the bit stream, the spectral band [ss, se], the
+// successive approximation (ah, al) and the end-of-band run left.
+struct Scan {
+  BitReader br;
+  bool progressive;
+  int ss, se, ah, al;
+  int32_t eobrun;
+  const char* why;  // set when a block fails
+
+  bool bad(const char* msg) {
+    why = msg;
+    return false;
+  }
+  bool huff(const Huffman& h, int* v, const char* code) {
+    *v = br.decode(h);
+    if (*v == -2) return bad("truncated data in the scan");
+    if (*v < 0) return bad(code);
+    return true;
+  }
+  bool get(int n, int32_t* v) { return br.bits(n, v) || bad("truncated data in the scan"); }
+
+  // A sequential block: the DC difference and the run-length AC codes.
+  bool sequential(ScanComp& c, int16_t* blk) {
+    int s;
+    int32_t v;
+    if (!huff(*c.dc, &s, "corrupt data: bad DC Huffman code")) return false;
+    if (s > 15) return bad("corrupt data: DC magnitude category > 15");
+    if (!get(s, &v)) return false;
+    c.pred += s ? extend(v, s) : 0;
+    blk[0] = static_cast<int16_t>(c.pred);
+    for (int k = 1; k < 64; ++k) {
+      int rs;
+      if (!huff(*c.ac, &rs, "corrupt data: bad AC Huffman code")) return false;
+      const int r = rs >> 4, sz = rs & 15;
+      if (sz) {
+        k += r;
+        if (k > 63) return bad("corrupt data: AC run past the block");
+        if (!get(sz, &v)) return false;
+        blk[kNatural[k]] = static_cast<int16_t>(extend(v, sz));
+      } else {
+        if (r != 15) break;
+        k += 15;
+      }
+    }
+    return true;
+  }
+
+  // jdphuff.c's decode_mcu_DC_first: the difference, scaled by 2^al.
+  bool dc_first(ScanComp& c, int16_t* blk) {
+    int s;
+    int32_t v;
+    if (!huff(*c.dc, &s, "corrupt data: bad DC Huffman code")) return false;
+    if (s > 15) return bad("corrupt data: DC magnitude category > 15");
+    if (!get(s, &v)) return false;
+    c.pred += s ? extend(v, s) : 0;
+    blk[0] = static_cast<int16_t>(static_cast<uint32_t>(c.pred) << al);
+    return true;
+  }
+
+  // decode_mcu_DC_refine: one more bit of the DC coefficient.
+  bool dc_refine(int16_t* blk) {
+    int32_t bit;
+    if (!get(1, &bit)) return false;
+    if (bit) blk[0] = static_cast<int16_t>(blk[0] | (1 << al));
+    return true;
+  }
+
+  // decode_mcu_AC_first: the band's first pass, with end-of-band runs
+  // that span blocks.
+  bool ac_first(ScanComp& c, int16_t* blk) {
+    if (eobrun > 0) {
+      --eobrun;
+      return true;
+    }
+    for (int k = ss; k <= se; ++k) {
+      int rs;
+      int32_t v;
+      if (!huff(*c.ac, &rs, "corrupt data: bad AC Huffman code")) return false;
+      const int r = rs >> 4, s = rs & 15;
+      if (s) {
+        k += r;
+        if (k > se) return bad("corrupt data: AC run past the spectral band");
+        if (!get(s, &v)) return false;
+        blk[kNatural[k]] = static_cast<int16_t>(static_cast<uint32_t>(extend(v, s)) << al);
+      } else if (r == 15) {
+        k += 15;
+      } else {
+        eobrun = 1 << r;
+        if (r) {
+          if (!get(r, &v)) return false;
+          eobrun += v;
+        }
+        --eobrun;
+        break;
+      }
+    }
+    return true;
+  }
+
+  // One correction bit of a coefficient already nonzero: its magnitude
+  // grows by 2^al where the bit says so and that bit is not set yet.
+  bool correct(int16_t* coef, int p1) {
+    int32_t bit;
+    if (!get(1, &bit)) return false;
+    if (bit && (*coef & p1) == 0)
+      *coef = static_cast<int16_t>(*coef >= 0 ? *coef + p1 : *coef - p1);
+    return true;
+  }
+
+  // decode_mcu_AC_refine: new coefficients of magnitude 2^al placed after
+  // a run of still-zero ones, correction bits for the nonzero ones passed
+  // on the way and through an end-of-band run.
+  bool ac_refine(ScanComp& c, int16_t* blk) {
+    const int p1 = 1 << al;
+    int k = ss;
+    if (eobrun == 0) {
+      for (; k <= se; ++k) {
+        int rs;
+        int32_t v;
+        if (!huff(*c.ac, &rs, "corrupt data: bad AC Huffman code")) return false;
+        int r = rs >> 4, s = rs & 15;
+        if (s) {
+          if (s != 1) return bad("corrupt data: a refined AC coefficient of size > 1");
+          if (!get(1, &v)) return false;
+          s = v ? p1 : -p1;
+        } else if (r != 15) {
+          eobrun = 1 << r;
+          if (r) {
+            if (!get(r, &v)) return false;
+            eobrun += v;
+          }
+          break;
+        }
+        do {
+          int16_t* coef = blk + kNatural[k];
+          if (*coef != 0) {
+            if (!correct(coef, p1)) return false;
+          } else if (--r < 0) {
+            break;
+          }
+          ++k;
+        } while (k <= se);
+        if (s) {
+          if (k > se) return bad("corrupt data: AC run past the spectral band");
+          blk[kNatural[k]] = static_cast<int16_t>(s);
+        }
+      }
+    }
+    if (eobrun > 0) {
+      for (; k <= se; ++k) {
+        int16_t* coef = blk + kNatural[k];
+        if (*coef != 0 && !correct(coef, p1)) return false;
+      }
+      --eobrun;
+    }
+    return true;
+  }
+
+  bool block(ScanComp& c, int16_t* blk) {
+    if (!progressive) return sequential(c, blk);
+    if (ss == 0) return ah == 0 ? dc_first(c, blk) : dc_refine(blk);
+    return ah == 0 ? ac_first(c, blk) : ac_refine(c, blk);
+  }
+};
+
+// One component's samples: the IDCT of each of its bw x bh blocks.
 struct Plane {
   std::vector<uint8_t> px;
-  int stride = 0;  // allocated width (whole blocks)
+  int stride = 0;  // bytes a row (whole blocks)
   int w = 0, h = 0;  // libjpeg's downsampled_width/height
   int at(int y, int x) const { return px[static_cast<size_t>(y) * stride + x]; }
 };
@@ -282,77 +469,49 @@ std::vector<uint8_t> upsample(const Plane& p, int rh, int rv, int width, int hei
   return out;
 }
 
-int fail(char* err, int err_len, const char* msg) {
-  std::snprintf(err, err_len, "%s", msg);
-  return 1;
-}
-
 }  // namespace
 
 extern "C" {
 
-// Decode one baseline scan holding every component of the frame.
+// Entropy-decode one scan into the frame's coefficient buffers.
 //   scan, scan_len: the bytes after the SOS header, to the end of the file
-//   comps: per component (h, v, quant table, DC table, AC table)
-//   quant: 4 x 64 quantisation tables, natural order
+//   ns: components in the scan; desc: per scan component (buffer stride in
+//     blocks, h, v, blocks wide, blocks high, DC table, AC table)
+//   coefs: per scan component, its coefficient buffer (zero before the
+//     frame's first scan; each scan adds its band or its bits)
+//   mcux, mcuy: the frame's MCU grid (an interleaved scan walks it)
+//   progressive: 0 for a sequential scan (ss, se, ah, al = 0, 63, 0, 0)
 //   huff_bits, huff_vals: 8 tables (DC 0-3, then AC 0-3) of 17 counts
 //     (index 1..16) and 256 values; huff_present says which were defined
-//   out: height x width x (1 if ncomp == 1 else 3) bytes
 //   consumed: the offset in `scan` where the marker after the scan starts
 // Returns 0, or 1 with a message in err.
-int jpeg_decode_scan(const uint8_t* scan, int64_t scan_len, int width, int height,
-                     int ncomp, const int32_t* comps, const int32_t* quant,
-                     const uint8_t* huff_bits, const uint8_t* huff_vals,
-                     const int32_t* huff_present, int restart_interval, uint8_t* out,
-                     int64_t* consumed, char* err, int err_len) {
-  if (ncomp != 1 && ncomp != 3) return fail(err, err_len, "component count not 1 or 3");
+int jpeg_scan(const uint8_t* scan, int64_t scan_len, int ns, const int32_t* desc,
+              int16_t* const* coefs, int mcux, int mcuy, int progressive, int ss, int se,
+              int ah, int al, const uint8_t* huff_bits, const uint8_t* huff_vals,
+              const int32_t* huff_present, int restart_interval, int64_t* consumed,
+              char* err, int err_len) {
+  if (ns < 1 || ns > 4) return fail(err, err_len, "SOS: component count not 1-4");
   Huffman tables[8];
   for (int t = 0; t < 8; ++t) {
     if (huff_present[t] && !build_huffman(huff_bits + 17 * t, huff_vals + 256 * t, &tables[t]))
       return fail(err, err_len, "DHT: code counts overflow the code space");
   }
-  int hmax = 1, vmax = 1;
-  for (int c = 0; c < ncomp; ++c) {
-    hmax = comps[5 * c] > hmax ? comps[5 * c] : hmax;
-    vmax = comps[5 * c + 1] > vmax ? comps[5 * c + 1] : vmax;
+  ScanComp comps[4];
+  for (int c = 0; c < ns; ++c) {
+    const int32_t* d = desc + 7 * c;
+    comps[c] = {coefs[c], d[0], d[1], d[2], d[3], d[4], &tables[d[5]], &tables[4 + d[6]], 0};
   }
-  int16_t q16[4][64];
-  for (int t = 0; t < 4; ++t)
-    for (int i = 0; i < 64; ++i) q16[t][i] = static_cast<int16_t>(quant[64 * t + i]);
-
-  // Blocks of each component in an MCU, and MCUs of the scan.  A scan of one
-  // component is not interleaved: its MCU is one block.
-  const bool interleaved = ncomp > 1;
-  int mcux, mcuy;
-  if (interleaved) {
-    mcux = (width + 8 * hmax - 1) / (8 * hmax);
-    mcuy = (height + 8 * vmax - 1) / (8 * vmax);
-  } else {
-    int cw = (width * comps[0] + hmax - 1) / hmax, ch = (height * comps[1] + vmax - 1) / vmax;
-    mcux = (cw + 7) / 8;
-    mcuy = (ch + 7) / 8;
-  }
-  Plane planes[3];
-  int bh[3], bv[3];
-  for (int c = 0; c < ncomp; ++c) {
-    bh[c] = interleaved ? comps[5 * c] : 1;
-    bv[c] = interleaved ? comps[5 * c + 1] : 1;
-    Plane& p = planes[c];
-    p.stride = mcux * bh[c] * 8;
-    p.px.assign(static_cast<size_t>(p.stride) * mcuy * bv[c] * 8, 0);
-    p.w = (width * comps[5 * c] + hmax - 1) / hmax;
-    p.h = (height * comps[5 * c + 1] + vmax - 1) / vmax;
-    if (!huff_present[comps[5 * c + 3]] || !huff_present[4 + comps[5 * c + 4]])
-      return fail(err, err_len, "SOS: a component's Huffman table is not defined (DHT)");
-  }
-
-  BitReader br{scan, scan_len};
-  int32_t pred[3] = {0, 0, 0};
-  int16_t coef[64];
+  Scan s{BitReader{scan, scan_len}, progressive != 0, ss, se, ah, al, 0, nullptr};
+  // A scan of one component is not interleaved: its MCU is one block, over
+  // the component's own grid.
+  const bool interleaved = ns > 1;
+  const int64_t cols = interleaved ? mcux : comps[0].bw;
+  const int64_t total = interleaved ? static_cast<int64_t>(mcux) * mcuy
+                                    : static_cast<int64_t>(comps[0].bw) * comps[0].bh;
   int next_rst = 0;
-  const int64_t total = static_cast<int64_t>(mcux) * mcuy;
   for (int64_t m = 0; m < total; ++m) {
     if (restart_interval && m > 0 && m % restart_interval == 0) {
+      BitReader& br = s.br;
       if (br.real_bits() >= 8)
         return fail(err, err_len, "extraneous data before a restart marker (RST)");
       br.discard();
@@ -368,49 +527,58 @@ int jpeg_decode_scan(const uint8_t* scan, int64_t scan_len, int width, int heigh
       br.pos = p + 1;
       br.at_marker = false;
       next_rst = (next_rst + 1) & 7;
-      pred[0] = pred[1] = pred[2] = 0;
+      for (int c = 0; c < ns; ++c) comps[c].pred = 0;
+      s.eobrun = 0;
     }
-    const int mx = static_cast<int>(m % mcux), my = static_cast<int>(m / mcux);
-    for (int c = 0; c < ncomp; ++c) {
-      const Huffman& dc = tables[comps[5 * c + 3]];
-      const Huffman& ac = tables[4 + comps[5 * c + 4]];
-      const int16_t* qt = q16[comps[5 * c + 2]];
-      Plane& p = planes[c];
-      for (int by = 0; by < bv[c]; ++by) {
-        for (int bx = 0; bx < bh[c]; ++bx) {
-          std::memset(coef, 0, sizeof(coef));
-          int s = br.decode(dc);
-          if (s == -2) return fail(err, err_len, "truncated data in the scan");
-          if (s < 0) return fail(err, err_len, "corrupt data: bad DC Huffman code");
-          if (s > 15) return fail(err, err_len, "corrupt data: DC magnitude category > 15");
-          int32_t v;
-          if (!br.bits(s, &v)) return fail(err, err_len, "truncated data in the scan");
-          pred[c] += s ? extend(v, s) : 0;
-          coef[0] = static_cast<int16_t>(pred[c]);
-          for (int k = 1; k < 64; ++k) {
-            int rs = br.decode(ac);
-            if (rs == -2) return fail(err, err_len, "truncated data in the scan");
-            if (rs < 0) return fail(err, err_len, "corrupt data: bad AC Huffman code");
-            int r = rs >> 4, sz = rs & 15;
-            if (sz) {
-              k += r;
-              if (k > 63) return fail(err, err_len, "corrupt data: AC run past the block");
-              if (!br.bits(sz, &v)) return fail(err, err_len, "truncated data in the scan");
-              coef[kNatural[k]] = static_cast<int16_t>(extend(v, sz));
-            } else {
-              if (r != 15) break;
-              k += 15;
-            }
-          }
-          const int x0 = (mx * bh[c] + bx) * 8, y0 = (my * bv[c] + by) * 8;
-          idct_islow(coef, qt, &p.px[static_cast<size_t>(y0) * p.stride + x0], p.stride);
+    const int mx = static_cast<int>(m % cols), my = static_cast<int>(m / cols);
+    for (int c = 0; c < ns; ++c) {
+      ScanComp& sc = comps[c];
+      const int bv = interleaved ? sc.v : 1, bh = interleaved ? sc.h : 1;
+      for (int by = 0; by < bv; ++by) {
+        for (int bx = 0; bx < bh; ++bx) {
+          const int64_t row = static_cast<int64_t>(my) * bv + by, col = mx * bh + bx;
+          if (!s.block(sc, sc.coef + (row * sc.stride + col) * 64))
+            return fail(err, err_len, s.why);
         }
       }
     }
   }
-  if (br.real_bits() >= 8) return fail(err, err_len, "extraneous data after the scan");
-  *consumed = br.pos;
+  if (s.br.real_bits() >= 8) return fail(err, err_len, "extraneous data after the scan");
+  *consumed = s.br.pos;
+  return 0;
+}
 
+// The image from the frame's coefficients: dequantised by each component's
+// latched table, the IDCT of every block of its own grid, upsampled and
+// turned to RGB (one component: gray).
+//   comps: per component (h, v, buffer stride in blocks, blocks wide,
+//     blocks high)
+//   quant: per component, its 64 quantisation values, natural order
+//   out: height x width x (1 if ncomp == 1 else 3) bytes
+int jpeg_finish(int width, int height, int ncomp, const int32_t* comps,
+                const int32_t* quant, int16_t* const* coefs, uint8_t* out, char* err,
+                int err_len) {
+  if (ncomp != 1 && ncomp != 3) return fail(err, err_len, "component count not 1 or 3");
+  int hmax = 1, vmax = 1;
+  for (int c = 0; c < ncomp; ++c) {
+    hmax = comps[5 * c] > hmax ? comps[5 * c] : hmax;
+    vmax = comps[5 * c + 1] > vmax ? comps[5 * c + 1] : vmax;
+  }
+  Plane planes[3];
+  for (int c = 0; c < ncomp; ++c) {
+    const int32_t* d = comps + 5 * c;
+    int16_t q16[64];
+    for (int i = 0; i < 64; ++i) q16[i] = static_cast<int16_t>(quant[64 * c + i]);
+    Plane& p = planes[c];
+    p.w = (width * d[0] + hmax - 1) / hmax;
+    p.h = (height * d[1] + vmax - 1) / vmax;
+    p.stride = d[3] * 8;
+    p.px.assign(static_cast<size_t>(p.stride) * d[4] * 8, 0);
+    for (int by = 0; by < d[4]; ++by)
+      for (int bx = 0; bx < d[3]; ++bx)
+        idct_islow(coefs[c] + (static_cast<int64_t>(by) * d[2] + bx) * 64, q16,
+                   &p.px[static_cast<size_t>(by) * 8 * p.stride + bx * 8], p.stride);
+  }
   if (ncomp == 1) {
     for (int y = 0; y < height; ++y)
       std::memcpy(out + static_cast<size_t>(y) * width,

@@ -1,24 +1,96 @@
-"""A stdlib PNG encoder and decoder (zlib + struct), in place of PIL.
+"""A PNG encoder and decoder (zlib + struct + host C++), in place of PIL.
 
 Encodes 8-bit grayscale, RGB and RGBA images (filter type 0 on every
-row).  Decodes 8-bit, non-interlaced grayscale, gray+alpha, RGB and RGBA
-PNGs with any of the five row filters, which covers what this package
-and PIL write; palette, 16-bit and interlaced files raise ``ValueError``.
-``to_rgba`` widens a decoded image as PIL's ``convert("RGBA")`` does,
-with the key colour of a gray or RGB file's ``tRNS`` chunk
-(``png_transparency``) made transparent.
+row).  Decodes every PNG that PIL 12.1.0 opens: gray at 1, 2, 4, 8 and
+16 bits, RGB, gray+alpha and RGBA at 8 and 16, palette at 1, 2, 4 and 8,
+each non-interlaced or Adam7, with any of the five row filters.
+``decode_png`` gives the 8-bit image that PIL's ``convert("RGB")`` and
+``convert("RGBA")`` start from:
+
+- gray at 1, 2 and 4 bits scaled to 0..255 (x255, x85, x17), as PIL's
+  modes ``1`` and ``L`` hold it; 16-bit gray (PIL's ``I;16``) clipped to
+  255, as its conversions clip it;
+- 16-bit RGB, gray+alpha and RGBA at the high byte of each sample;
+- a palette file looked up in its ``PLTE`` (entries past it black, as in
+  PIL), as RGB, or as RGBA with each index's alpha from ``tRNS`` (255 past
+  its end) where the file has one.
+
+``to_rgba`` widens a decoded image as ``convert("RGBA")`` does, with the
+key colour of a gray or RGB file's ``tRNS`` (``png_transparency``) made
+transparent.  The chunk walk, the checks on chunks and zlib are Python;
+undoing the filters, splitting the Adam7 passes and unpacking the
+samples is host C++: g++ builds ``native/png.cc`` at first use into
+``nerf_keras_tpu_torch/_build/``, named by a hash of the source, and
+without g++ the decoder raises ``RuntimeError`` naming it.  Where PIL
+refuses a file (a bad CRC before the image data, a filter byte past 4,
+image data that ends early, a palette of more than 256 entries, a short
+``tRNS``) ``decode_png`` raises ``ValueError`` naming the cause.
 """
 
 from __future__ import annotations
 
+import ctypes
+import hashlib
+import re
+import shutil
 import struct
+import subprocess
+import threading
 import zlib
+from dataclasses import dataclass
+from pathlib import Path
 
 import numpy as np
 
+from nerf_keras_tpu_torch.utils.hostbuild import BUILD_DIR, compile_library
+
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_COLOR_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
 _CHANNEL_COLOR = {1: 0, 3: 2, 2: 4, 4: 6}
+# The bit depths the specification allows for each colour type, and the
+# colour type's samples per pixel.
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
+_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+_GRAY_SCALE = {1: 255, 2: 85, 4: 17, 8: 1}
+# Adam7's passes: (first column, first row, column step, row step).
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4),
+          (1, 0, 2, 2), (0, 1, 1, 2))
+# PIL's test of a chunk type (``PngImagePlugin.is_cid``).
+_CHUNK_TYPE = re.compile(rb"\w\w\w\w")
+
+_SRC = Path(__file__).resolve().parent / "native" / "png.cc"
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+
+
+def library_path() -> Path:
+    digest = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:12]
+    return BUILD_DIR / f"libpng_unfilter-{digest}.so"
+
+
+def load_library() -> ctypes.CDLL:
+    """Compile (once) and load the unfilter."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        path = library_path()
+        if not path.exists():
+            if shutil.which("g++") is None:
+                raise RuntimeError(
+                    "the PNG decoder needs g++ to build native/png.cc, and no g++ "
+                    "is on PATH")
+            try:
+                compile_library(_SRC, path)
+            except subprocess.CalledProcessError as e:
+                raise RuntimeError(f"g++ failed to build {_SRC}: "
+                                   f"{e.stderr.decode(errors='replace')[:400]}") from e
+        lib = ctypes.CDLL(str(path))
+        p = ctypes.c_void_p
+        lib.png_unfilter.restype = ctypes.c_int
+        lib.png_unfilter.argtypes = [p, ctypes.c_int64] + [ctypes.c_int] * 5 + [
+            p, ctypes.c_char_p, ctypes.c_int]
+        _lib = lib
+        return _lib
 
 
 def _chunk(kind: bytes, data: bytes) -> bytes:
@@ -48,99 +120,158 @@ def encode_png(img: np.ndarray) -> bytes:
     ])
 
 
-def _unfilter(rows: np.ndarray, bpp: int) -> np.ndarray:
-    """Undo the per-row filters of ``(H, 1 + stride)`` scanlines."""
-    h, stride = rows.shape[0], rows.shape[1] - 1
-    out = np.zeros((h, stride), np.uint8)
-    prev = np.zeros(stride, np.int32)
-    for y in range(h):
-        ftype = int(rows[y, 0])
-        line = rows[y, 1:].astype(np.int32)
-        if ftype == 0:
-            cur = line
-        elif ftype == 1:  # Sub: running sum per channel
-            cur = line.reshape(-1, bpp).cumsum(axis=0).reshape(-1) & 0xFF
-        elif ftype == 2:  # Up
-            cur = (line + prev) & 0xFF
-        elif ftype in (3, 4):  # Average, Paeth: sequential across pixels
-            cur = line.copy()
-            for x in range(0, stride, bpp):
-                b = prev[x:x + bpp]
-                if x == 0:
-                    a = np.zeros(bpp, np.int32)
-                    c = np.zeros(bpp, np.int32)
-                else:
-                    a = cur[x - bpp:x]
-                    c = prev[x - bpp:x]
-                if ftype == 3:
-                    pred = (a + b) // 2
-                else:
-                    p = a + b - c
-                    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
-                    pred = np.where((pa <= pb) & (pa <= pc), a,
-                                    np.where(pb <= pc, b, c))
-                cur[x:x + bpp] = (cur[x:x + bpp] + pred) & 0xFF
-        else:
-            raise ValueError(f"unknown PNG filter type {ftype}")
-        out[y] = cur
-        prev = cur
+@dataclass
+class _Png:
+    width: int
+    height: int
+    depth: int
+    color: int
+    interlace: bool
+    idat: bytes
+    palette: bytes | None  # the last PLTE before the image data
+    trns: bytes | None  # the last tRNS before IEND
+
+
+def _parse(data: bytes) -> _Png:
+    """Walk the chunks as PIL's ``PngImageFile`` reads them: the header,
+    ``PLTE`` and the CRCs up to the first IDAT, the first run of IDAT
+    chunks as the image data, and the chunks after it up to IEND (where a
+    ``tRNS`` still counts) without their CRCs."""
+    if data[:8] != PNG_SIGNATURE:
+        raise ValueError("not a PNG")
+    header = palette = trns = None
+    idat: list[bytes] = []
+    pos, n = 8, len(data)
+    state = "header"  # then "idat" inside the first run of IDATs, then "after"
+    while pos + 8 <= n:
+        (length,) = struct.unpack(">I", data[pos:pos + 4])
+        kind = data[pos + 4:pos + 8]
+        body = data[pos + 8:pos + 8 + length]
+        if not _CHUNK_TYPE.fullmatch(kind):
+            if state == "header":
+                raise ValueError(f"broken PNG: chunk type {kind!r} at byte {pos}")
+            break
+        if len(body) < length:
+            raise ValueError(f"truncated {kind.decode()} chunk: {len(body)} of its "
+                             f"{length} bytes")
+        if state == "header" and kind != b"IDAT":
+            crc = data[pos + 8 + length:pos + 12 + length]
+            if len(crc) < 4 or struct.unpack(">I", crc)[0] != zlib.crc32(kind + body):
+                raise ValueError(f"broken PNG: bad CRC in the {kind.decode()} chunk")
+        pos += 12 + length
+        if kind == b"IEND":
+            break
+        if header is None:
+            if kind != b"IHDR":
+                raise ValueError(f"the first chunk is {kind.decode()}, not IHDR")
+            if length < 13:
+                raise ValueError(f"truncated IHDR chunk ({length} bytes)")
+            header = struct.unpack(">IIBBBBB", body[:13])
+            continue
+        if kind == b"IDAT":
+            if state == "after":
+                continue  # PIL reads only the first run of IDAT chunks
+            state = "idat"
+            idat.append(body)
+            continue
+        if state == "idat":
+            state = "after"
+        if kind == b"PLTE" and state == "header":
+            palette = body
+        elif kind == b"tRNS":
+            trns = body
+    if header is None:
+        raise ValueError("PNG without IHDR")
+    w, h, depth, color, _, filter_method, interlace = header
+    if color not in _DEPTHS or depth not in _DEPTHS[color]:
+        raise ValueError(f"bit depth {depth} with color type {color} (not a PNG layout)")
+    if filter_method:
+        raise ValueError(f"unknown filter method {filter_method}")
+    if w == 0 or h == 0:
+        raise ValueError(f"image size {w}x{h}")
+    if not idat:
+        raise ValueError("no image data (IDAT)")
+    if color == 3:
+        if palette is not None and len(palette) // 3 > 256:
+            raise ValueError(f"PLTE of {len(palette) // 3} entries (256 at most)")
+        if trns is not None and len(trns) > 256:
+            raise ValueError(f"tRNS of {len(trns)} entries in a palette PNG (256 at most)")
+    elif color in (0, 2) and trns is not None and len(trns) < 2 * _CHANNELS[color]:
+        raise ValueError(f"tRNS chunk of {len(trns)} bytes in a PNG of color type {color}")
+    return _Png(w, h, depth, color, bool(interlace), b"".join(idat), palette, trns)
+
+
+def _image_bytes(png: _Png) -> int:
+    """The inflated size of the image data: a filter byte and the packed
+    samples of each row of each (non-empty) pass."""
+    bits = png.depth * _CHANNELS[png.color]
+    passes = _ADAM7 if png.interlace else ((0, 0, 1, 1),)
+    total = 0
+    for x0, y0, dx, dy in passes:
+        if png.width > x0 and png.height > y0:
+            pw, ph = -(-(png.width - x0) // dx), -(-(png.height - y0) // dy)
+            total += ph * (1 + (pw * bits + 7) // 8)
+    return total
+
+
+def _samples(png: _Png) -> np.ndarray:
+    """Every sample, ``(H, W, C)``: uint8 below 16 bits (unscaled), uint16
+    at 16."""
+    try:
+        raw = zlib.decompressobj().decompress(png.idat, _image_bytes(png))
+    except zlib.error as e:
+        raise ValueError(f"corrupt image data (zlib: {e})") from e
+    c = _CHANNELS[png.color]
+    out = np.empty((png.height, png.width, c), np.uint16 if png.depth == 16 else np.uint8)
+    buf = np.frombuffer(raw, np.uint8)
+    err = ctypes.create_string_buffer(256)
+    rc = load_library().png_unfilter(buf.ctypes.data, buf.size, png.width, png.height,
+                                     png.depth, c, int(png.interlace), out.ctypes.data, err,
+                                     len(err))
+    if rc != 0:
+        raise ValueError(err.value.decode())
     return out
 
 
-def _chunks(data: bytes):
-    """``(kind, body)`` of each chunk up to IEND."""
-    if data[:8] != PNG_SIGNATURE:
-        raise ValueError("not a PNG")
-    pos = 8
-    while pos < len(data):
-        (length,) = struct.unpack(">I", data[pos:pos + 4])
-        kind = data[pos + 4:pos + 8]
-        yield kind, data[pos + 8:pos + 8 + length]
-        pos += 12 + length
-        if kind == b"IEND":
-            return
-
-
 def decode_png(data: bytes) -> np.ndarray:
-    """PNG bytes -> ``(H, W)`` (grayscale) or ``(H, W, C)`` uint8."""
-    idat, header = [], None
-    for kind, body in _chunks(data):
-        if kind == b"IHDR":
-            header = struct.unpack(">IIBBBBB", body)
-        elif kind == b"IDAT":
-            idat.append(body)
-    if header is None:
-        raise ValueError("PNG without IHDR")
-    w, h, depth, color, _, _, interlace = header
-    if depth != 8 or color not in _COLOR_CHANNELS or interlace != 0:
-        raise ValueError(
-            f"unsupported PNG: bit depth {depth}, color type {color}, "
-            f"interlace {interlace}"
-        )
-    c = _COLOR_CHANNELS[color]
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    img = _unfilter(raw.reshape(h, 1 + w * c), c).reshape(h, w, c)
-    return img[..., 0] if c == 1 else img
+    """PNG bytes -> ``(H, W)`` (gray), ``(H, W, 2)``, ``(H, W, 3)`` or
+    ``(H, W, 4)`` uint8: the 8-bit image of the module docstring."""
+    png = _parse(data)
+    s = _samples(png)
+    if png.color == 3:
+        table = np.zeros((256, 4), np.uint8)
+        table[:, 3] = 255
+        pal = np.frombuffer(png.palette or b"", np.uint8)
+        entries = len(pal) // 3
+        table[:entries, :3] = pal[:3 * entries].reshape(entries, 3)
+        if png.trns is None:
+            return table[s[..., 0], :3]
+        table[:len(png.trns), 3] = np.frombuffer(png.trns, np.uint8)
+        return table[s[..., 0]]
+    if png.depth == 16:
+        img = np.minimum(s, 255) if png.color == 0 else s >> 8
+        img = img.astype(np.uint8)
+    elif png.depth < 8:
+        img = s * np.uint8(_GRAY_SCALE[png.depth])
+    else:
+        img = s
+    return img[..., 0] if img.shape[-1] == 1 else img
 
 
 def png_transparency(data: bytes) -> tuple[int, ...] | None:
     """The key colour of a gray (``(v,)``) or RGB (``(r, g, b)``) PNG's
-    ``tRNS`` chunk, each sample's 16 bits as PIL reads them; None without
-    one.  PIL ignores the chunk in gray+alpha and RGBA files, and so does
-    this; a palette file's raises in ``decode_png``."""
-    color = None
-    for kind, body in _chunks(data):
-        if kind == b"IHDR":
-            color = body[9]
-        elif kind == b"tRNS" and color in (0, 2):
-            n = 1 if color == 0 else 3
-            if len(body) < 2 * n:
-                raise ValueError(f"tRNS chunk of {len(body)} bytes in a PNG of color "
-                                 f"type {color}")
-            return struct.unpack(f">{n}H", body[:2 * n])
-        elif kind == b"IDAT":
-            break
-    return None
+    ``tRNS`` chunk as PIL holds it (``info["transparency"]``): each
+    sample's 16 bits, a 1-bit file's as 255 where it is not 0; the last
+    ``tRNS`` before IEND, after the image data too.  None without one,
+    and for the other colour types: PIL ignores the chunk beside alpha,
+    and a palette file's alphas are ``decode_png``'s."""
+    png = _parse(data)
+    if png.trns is None or png.color not in (0, 2):
+        return None
+    key = struct.unpack(f">{_CHANNELS[png.color]}H", png.trns[:2 * _CHANNELS[png.color]])
+    if png.color == 0 and png.depth == 1:
+        return (255 if key[0] else 0,)
+    return key
 
 
 def to_rgba(img: np.ndarray, transparency: tuple[int, ...] | None = None) -> np.ndarray:
@@ -148,7 +279,7 @@ def to_rgba(img: np.ndarray, transparency: tuple[int, ...] | None = None) -> np.
     ``convert("RGBA")``: gray fills r, g and b; an absent alpha is 255,
     and 0 where a gray or RGB pixel equals ``transparency``
     (:func:`png_transparency`), whose samples PIL compares by their low
-    byte."""
+    byte with the 8-bit pixels."""
     img = np.asarray(img)
     if img.ndim == 2:
         img = img[..., None]

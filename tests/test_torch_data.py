@@ -218,9 +218,19 @@ def test_prepare_blender_data_matches_jax(tmp_path, with_val):
 
 
 def test_blender_refuses_unsupported_pngs_by_name(tmp_path):
+    """A palette frame loads as the JAX loader loads it; a PNG whose image
+    data ends early (PIL refuses it too) raises naming the file."""
     _write_scene(tmp_path, "RGB", train=2, with_val=False)
     bad = tmp_path / "train" / "r_1.png"
-    Image.fromarray(np.zeros((12, 16), np.uint8), mode="L").convert("P").save(bad)
+    Image.fromarray(np.arange(192, dtype=np.uint8).reshape(12, 16), mode="L").convert(
+        "P").save(bad)
+    got = pblender.load_blender_split(str(tmp_path), "train")
+    want = jblender.load_blender_split(str(tmp_path), "train")
+    np.testing.assert_array_equal(got[0], want[0])
+    data = bad.read_bytes()
+    bad.write_bytes(data[:data.index(b"IEND") - 12] + data[data.index(b"IEND") - 4:])
+    with pytest.raises(OSError):
+        jblender.load_blender_split(str(tmp_path), "train")
     with pytest.raises(ValueError, match="r_1.png"):
         pblender.load_blender_split(str(tmp_path), "train")
     with pytest.raises(FileNotFoundError, match="transforms_train.json"):

@@ -6,10 +6,17 @@ captures through PIL).
 * Decoding is bit for bit PIL's ``Image.open(f).convert("RGB")`` on every
   file of ``tests/fixtures/torch_jpeg/`` and on JPEGs written here from
   seeded images over subsampling (4:4:4, 4:2:2, 4:2:0, 4:4:0, gray),
-  quality, optimised tables, restart intervals and small odd sizes.  PIL
-  cannot write 4:4:0; OpenCV writes those files, PIL still decodes them.
-* Every refused kind (progressive, arithmetic, lossless, 12-bit, CMYK,
-  YCCK, Adobe RGB, truncated) raises ``ValueError`` naming the file and the
+  quality, optimised tables, restart intervals and small odd sizes, each
+  baseline and progressive.  PIL cannot write 4:4:0; OpenCV writes those
+  files (and progressive ones through its own libjpeg), PIL still decodes
+  them.  Progressive scripts libjpeg never writes (non-interleaved DC
+  scans, a DC refinement alone, a DQT between scans that a latched
+  component ignores, DHT and DRI between scans) come from
+  ``torch_jpeg_fixtures.custom_script``.
+* Every refused kind (arithmetic, SOF10, lossless, 12-bit, CMYK, YCCK,
+  Adobe RGB, truncated, DNL, several scans in a sequential frame,
+  progressive scripts libjpeg rejects or warns about, one that leaves a
+  coefficient incomplete) raises ``ValueError`` naming the file and the
   marker or field.
 * ``resize_lanczos_u8`` is bit for bit ``Image.resize(..., LANCZOS)``.
 * ``minify``, ``load_llff_data`` and ``prepare_fern_data`` on a capture
@@ -72,9 +79,16 @@ def test_goldens_are_what_pil_computes():
     fresh = fx.pil_goldens()
     assert stored["decode"] == fresh["decode"]
     assert stored["minify"] == fresh["minify"]
-    assert len(stored["decode"]) == len(fx.CASES) + 1 + fx.CAPTURE_VIEWS
-    assert len(stored["minify"]) == fx.CAPTURE_VIEWS
-    size = sum(p.stat().st_size for p in fx.FIXTURES.rglob("*") if p.is_file())
+    assert stored["minify_progressive"] == fresh["minify_progressive"]
+    assert len(stored["decode"]) == (len(fx.CASES) + 1 + len(fx.PROGRESSIVE_CASES)
+                                     + 2 * fx.CAPTURE_VIEWS)
+    assert len(stored["minify"]) == len(stored["minify_progressive"]) == fx.CAPTURE_VIEWS
+    files = [p for p in fx.FIXTURES.rglob("*") if p.is_file()]
+    progressive = [p for p in files
+                   if "capture_progressive" in p.parts or p.name.startswith("prog_")]
+    size = sum(p.stat().st_size for p in files if p not in progressive)
+    assert size < 400_000, size
+    size = sum(p.stat().st_size for p in progressive)
     assert size < 400_000, size
 
 
@@ -147,6 +161,80 @@ def test_written_jpegs_decode_as_pil(layout, quality, optimize, restart):
         _assert_same(_port_rgb(data), _pil_rgb(data), f"{layout} q{quality} {h}x{w}")
 
 
+def _write_progressive(img: np.ndarray, layout: str, quality: int, optimize: bool,
+                       restart: int) -> bytes:
+    if layout.startswith("cv2"):  # OpenCV's own libjpeg, its 4:4:0 too
+        import cv2
+
+        sampling = {"cv2 4:2:0": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_420,
+                    "cv2 4:4:0": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_440}[layout]
+        ok, enc = cv2.imencode(".jpg", img[..., ::-1], [
+            cv2.IMWRITE_JPEG_QUALITY, quality, cv2.IMWRITE_JPEG_OPTIMIZE, int(optimize),
+            cv2.IMWRITE_JPEG_PROGRESSIVE, 1, cv2.IMWRITE_JPEG_RST_INTERVAL, restart,
+            cv2.IMWRITE_JPEG_SAMPLING_FACTOR, sampling])
+        assert ok
+        return enc.tobytes()
+    buf = io.BytesIO()
+    opts = dict(quality=quality, optimize=optimize, restart_marker_blocks=restart,
+                progressive=True)
+    if layout == "gray":
+        Image.fromarray(img[..., 0]).save(buf, "JPEG", **opts)
+    else:
+        Image.fromarray(img).save(buf, "JPEG", subsampling=layout, **opts)
+    return buf.getvalue()
+
+
+@pytest.mark.parametrize("restart", [0, 2])
+@pytest.mark.parametrize("optimize", [False, True])
+@pytest.mark.parametrize("quality", [50, 95])
+@pytest.mark.parametrize("layout", ["4:4:4", "4:2:2", "4:2:0", "gray", "cv2 4:2:0",
+                                    "cv2 4:4:0"])
+def test_written_progressive_jpegs_decode_as_pil(layout, quality, optimize, restart):
+    for i, (h, w) in enumerate(SIZES):
+        img = fx.case_image(h, w, seed=2000 + 7 * i + quality)
+        data = _write_progressive(img, layout, quality, optimize, restart)
+        assert b"\xff\xc2" in data
+        _assert_same(_port_rgb(data), _pil_rgb(data), f"progressive {layout} q{quality} "
+                                                       f"{h}x{w}")
+
+
+@pytest.mark.parametrize("sampling", [(1, 1), (2, 1), (2, 2), (1, 2), "gray"])
+def test_custom_progressive_scripts_decode_as_pil(sampling):
+    """Scripts libjpeg's encoders never write: Y's DC alone at Al = 1 and
+    refined alone, Cb and Cr's DC interleaved, each AC band alone over the
+    component's own block grid (not the MCU-padded one), restart intervals
+    set and cleared, DHT and DQT between scans."""
+    for i, (h, w) in enumerate(SIZES + [(40, 33)]):
+        img = fx.case_image(h, w, seed=3000 + i)
+        data = fx.custom_script(img[..., 0] if sampling == "gray" else img,
+                                (1, 1) if sampling == "gray" else sampling)
+        _assert_same(_port_rgb(data), _pil_rgb(data), f"custom {sampling} {h}x{w}")
+
+
+def test_dqt_between_scans_keeps_the_latched_table(monkeypatch):
+    """In ``prog_custom_s420`` a DQT after Y's first scan redefines the
+    table all three components name: Y keeps the table it latched, as
+    libjpeg keeps it; a decoder that re-read the table at each scan would
+    differ from PIL."""
+    data = (fx.FIXTURES / "cases" / "prog_custom_s420.jpg").read_bytes()
+    want = _pil_rgb(data)
+    _assert_same(_port_rgb(data), want, "latched")
+    real = jpeg._Frame.scan_header
+
+    def relatch(self, *args):
+        self.latched = [False] * len(self.latched)
+        return real(self, *args)
+
+    monkeypatch.setattr(jpeg._Frame, "scan_header", relatch)
+    assert (np.abs(_port_rgb(data).astype(int) - want) > 8).any()
+
+
+def test_large_progressive_frame_decodes_as_pil():
+    img = fx.case_image(1512, 2016, seed=6)
+    data = _write_progressive(img, "4:2:0", 90, False, 0)
+    _assert_same(_port_rgb(data), _pil_rgb(data), "progressive 1512x2016")
+
+
 def test_large_frame_decodes_as_pil():
     """A camera-sized frame (4:2:0, 1512x2016): many restart-free MCU rows,
     16-bit-deep coefficient sums, and the speed of the C++ scan."""
@@ -169,6 +257,15 @@ def _patched(data: bytes, marker: bytes, offset: int, value: int) -> bytes:
     return bytes(out)
 
 
+def _script(scans, sof: int = 0xC2) -> bytes:
+    """A 3-component frame of ``fx.ProgressiveWriter`` and the scans
+    ``scans(writer)`` appends."""
+    q = fx.quant_table(8)
+    w = fx.ProgressiveWriter(fx.case_image(21, 27, seed=8), (2, 2), [q, q, q], sof=sof)
+    scans(w)
+    return w.finish()
+
+
 def _refused_cases():
     base = _baseline()
     sos = base.index(b"\xff\xda")
@@ -182,9 +279,29 @@ def _refused_cases():
     dht = bytearray(base)
     counts = base.index(b"\xff\xc4") + 5
     dht[counts], dht[counts + 2] = 3, base[counts + 2] - 3
+    prog = _baseline(progressive=True)
+    sos2 = prog.index(b"\xff\xda", prog.index(b"\xff\xda") + 2)
     return {
-        "progressive": (_baseline(progressive=True), "SOF2 \\(progressive\\)"),
         "arithmetic": (_patched(base, b"\xff\xc0", 1, 0xC9), "SOF9 \\(arithmetic"),
+        "sof10": (_patched(prog, b"\xff\xc2", 1, 0xCA),
+                  "SOF10 \\(arithmetic progressive\\)"),
+        "incomplete-band": (prog[:prog.rindex(b"\xff\xda")] + b"\xff\xd9",
+                            "progressive scans leave coefficient 1 of component 1 "
+                            "incomplete \\(refined only to Al=1"),
+        "dnl": (prog[:sos2] + b"\xff\xdc\x00\x04\x00\x25" + prog[sos2:], "DNL"),
+        "ac-two-components": (_script(lambda w: (w.dc([0, 1, 2]), w.ac([0, 1], 1, 63))),
+                              "Ss=1 Se=63 Ah=0 Al=0: an AC scan holds one component"),
+        "bad-refinement": (_script(lambda w: (w.dc([0, 1, 2], al=2),
+                                              w.dc_refine([0, 1, 2], 2, al=0))),
+                           "Ss=0 Se=0 Ah=2 Al=0: a refinement scan has Al = Ah - 1"),
+        "dc-mixed": (_script(lambda w: (w.dc([0], al=1), w.dc_refine([0, 1], 1))),
+                     "a DC scan mixing first and refinement passes: component 2, "
+                     "coefficient 0 is unsent"),
+        "ac-before-dc": (_script(lambda w: w.ac([0], 1, 63)),
+                         "an AC scan of component 1 before its first DC scan"),
+        "sequential-two-scans": (_script(lambda w: (w.sequential([0]), w.sequential([1, 2])),
+                                         sof=0xC1),
+                                 "SOS: a scan of 1 of the frame's 3 components"),
         "lossless": (_patched(base, b"\xff\xc0", 1, 0xC3), "SOF3 \\(lossless\\)"),
         "12-bit": (_patched(base, b"\xff\xc0", 4, 12), "SOF0: 12-bit samples"),
         "cmyk": (cmyk, "4 components \\(CMYK/YCCK\\)"),
@@ -211,7 +328,16 @@ def test_refused_kinds_are_what_they_claim():
     """PIL reads (or rejects as the port does) each refused file: the
     refusals are of real streams, not of files no decoder reads."""
     cases = _refused_cases()
-    assert _pil_rgb(cases["progressive"][0]).shape == (37, 53, 3)
+    # libjpeg only warns about these: PIL decodes them (the incomplete band
+    # with block smoothing).
+    for kind in ("incomplete-band", "dc-mixed", "ac-before-dc", "sequential-two-scans"):
+        assert _pil_rgb(cases[kind][0]).shape[2] == 3, kind
+    # ... and rejects these.
+    for kind in ("ac-two-components", "bad-refinement"):
+        with pytest.raises(OSError):
+            _pil_rgb(cases[kind][0])
+    assert cases["sof10"][0].count(b"\xff\xca") == 1
+    assert cases["dnl"][0].count(b"\xff\xdc") == 1
     with Image.open(io.BytesIO(cases["cmyk"][0])) as img:
         assert img.mode == "CMYK"
     with Image.open(io.BytesIO(cases["adobe-rgb"][0])) as img:

@@ -6,7 +6,7 @@ frames go through ``resize_bilinear``, held to ``jax.image.resize`` at
 6e-7 by ``tests/test_torch_image.py``).  The capture is the port's
 ``write_forward_facing_capture``: 5 PNG views in ``images_8/`` at 12x16
 (the JAX loader reads them with PIL).  What the port does not load (a
-broken JPEG, palette PNGs, a ``gs://`` root) raises naming the file or
+broken JPEG or PNG, a ``gs://`` root) raises naming the file or
 directory; JPEG captures and ``minify`` are ``tests/test_torch_jpeg.py``'s.
 """
 
@@ -102,7 +102,7 @@ def test_unported_captures_raise_naming_what(capture, tmp_path):
     capture with an empty ``images/`` gets the JAX package's count error
     (both create ``images_8/`` first), a JPEG too short to be one a
     ``ValueError`` naming it (the JAX loader fails there too, with PIL's
-    ``OSError``), a 16-bit PNG ``NotImplementedError``, a ``gs://`` root
+    ``OSError``), a PNG with a broken header likewise, a ``gs://`` root
     the remote-storage error."""
     msgs = []
     for pkg, name in ((pllff, "port"), (jllff, "jax")):
@@ -122,13 +122,16 @@ def test_unported_captures_raise_naming_what(capture, tmp_path):
         pllff.load_llff_data(str(root))
     with pytest.raises(OSError):
         jllff.load_llff_data(str(root))
-    # A 16-bit PNG: the decoder refuses it, the loader names the file.
+    # A PNG whose header says 16 bits over 8-bit data (and no longer
+    # matches its CRC): both loaders refuse it, the port's naming the file.
     png = bytearray(encode_png(np.zeros((2, 2, 3), np.uint8)))
     png[24] = 16  # IHDR bit depth
     deep = tmp_path / "deep.png"
     deep.write_bytes(bytes(png))
-    with pytest.raises(NotImplementedError, match="deep.png"):
+    with pytest.raises(ValueError, match="deep.png: broken PNG: bad CRC in the IHDR"):
         pllff._read_image(str(deep))
+    with pytest.raises(OSError):
+        jllff._read_image(str(deep))
     with pytest.raises(NotImplementedError, match="remote storage"):
         pllff.prepare_fern_data(12, 16, basedir="gs://dataset-nerf/nerf_llff_data/fern")
 

@@ -6,11 +6,12 @@ alpha 0 (the JAX Blender loader reads frames so); ``convert("RGB")``
 leaves the pixels as they are (the LLFF loaders of both packages drop
 alpha).  Frames are written by PIL with ``transparency=``; the out-of-spec
 cases (a key above 255, ``tRNS`` in a file with alpha) are spliced in by
-hand and held to PIL itself."""
+hand and held to PIL itself.  A palette file's ``tRNS`` (per-index
+alpha) is held to PIL and the JAX loaders too; every other layout is
+``test_torch_png_formats.py``'s."""
 
 import io as _io
 import json
-import os
 import struct
 import zlib
 
@@ -118,13 +119,24 @@ def test_png_transparency_reads_the_key_or_none():
     assert png_transparency(buf.getvalue()) is None
 
 
-def test_palette_with_trns_still_raises_by_name(tmp_path):
+@pytest.mark.parametrize("white_bkgd", [True, False])
+def test_palette_with_trns_equals_pil_and_jax(tmp_path, white_bkgd):
+    """The palette file PIL writes with ``transparency=0`` (a ``tRNS`` of
+    one 0 among 255s): each index's alpha, through both loaders, against
+    PIL and the JAX loaders."""
     img = _frame("RGB", RGB_KEY).convert("P", palette=Image.Palette.ADAPTIVE, colors=8)
     path = _save(img, str(tmp_path / "r_0.png"), transparency=0)
     with open(path, "rb") as f:
         assert b"tRNS" in f.read()
-    with pytest.raises(ValueError, match=r"r_0\.png.*color type 3"):
-        pblender._read_rgba(path)
-    with pytest.raises(NotImplementedError, match="color type 3"):
-        pllff._read_rgb_u8(path)
-    assert os.path.exists(path)
+    with Image.open(path) as im:
+        assert im.mode == "P"
+        want_rgba, want_rgb = np.asarray(im.convert("RGBA")), np.asarray(im.convert("RGB"))
+    got = pblender._read_rgba(path)
+    np.testing.assert_array_equal(got, want_rgba.astype(np.float32) / 255.0)
+    np.testing.assert_array_equal(got, jblender._read_rgba(path))
+    assert (got[..., 3] == 0).any() and (got[..., 3] == 1).any()
+    np.testing.assert_array_equal(pblender._composite(got, white_bkgd),
+                                  jblender._composite(jblender._read_rgba(path), white_bkgd))
+    rgb = pllff._read_rgb_u8(path)
+    np.testing.assert_array_equal(rgb, want_rgb)
+    np.testing.assert_array_equal(rgb.astype(np.float32) / 255.0, jllff._read_image(path))

@@ -307,8 +307,8 @@ def _imports(path: pathlib.Path) -> list[str]:
 def test_port_imports_no_jax():
     """Neither the port nor chip_smoke.py imports JAX or any module of the
     JAX package or of ``experimental/``, not even the JAX package's
-    stdlib-only config (the port keeps its own copy), nor PIL, matplotlib,
-    fsspec, h5py, keras or tensorflow, which the card's machine lacks (the
+    stdlib-only config (the port keeps its own copy), nor PIL, OpenCV,
+    matplotlib, fsspec, h5py, keras or tensorflow, which the card's machine lacks (the
     port reads and writes Keras files with ``utils/h5.py``); the port's data loaders
     import no ``urllib`` (they never download).  A source scan: the test
     process imports JAX itself, so sys.modules cannot tell."""
@@ -319,7 +319,7 @@ def test_port_imports_no_jax():
     for path in files:
         for name in _imports(path):
             top = name.split(".")[0]
-            if top in ("jax", "jaxlib", "flax", "optax", "PIL", "matplotlib", "fsspec",
+            if top in ("jax", "jaxlib", "flax", "optax", "PIL", "cv2", "matplotlib", "fsspec",
                        "nerf_keras_tpu", "experimental", "h5py", "keras", "tensorflow"):
                 bad.append(f"{path.relative_to(PORT_ROOT.parent)}: {name}")
             if top == "urllib" and path.is_relative_to(PORT_ROOT / "data"):
