@@ -124,6 +124,10 @@ nonzero — nothing falls back to the CPU or to a plain path):
     of 40x40) through ``cli.train_blender`` for 1 epoch at full width,
     batch 1024; (e) ``RenderService`` on (a)'s run dir serves a 100x100
     val view from ``best.*`` (2 K1 launches), held to the ground truth;
+    19b. ``visualization``: ``python -m nerf_keras_tpu_torch.visualization``
+    in-process on (a)'s panels: its GIF (no mp4 encoder on the card's
+    machine) read back through ``utils/gif.read_gif``, a frame per
+    distinct panel at the panels' size, no kernel launch;
 20. ``infer_cli``: the evaluation and inference CLIs and the server
     in-process on (19a)'s run dir: (a) ``cli.evaluate --split val``, exactly
     2 K1 launches per view (3 views of 100x100, one chunk each), a report
@@ -137,8 +141,16 @@ nonzero — nothing falls back to the CPU or to a plain path):
     ``--sampler proposal --quant int8``: 1 K4 per view; (e) ``cli.infer
     --frames 8 --quant int8 --sampler proposal --depth-video`` on the cache
     (the net loaded, the tables calibrated and saved): both gates, the
-    launches they imply, 8 frames and 8 depth frames, the frame ms, and one
-    frame's ms on each of float/int8 x coarse/proposal; (f) the server with
+    launches they imply, the frame ms, and one frame's ms on each of
+    float/int8 x coarse/proposal; ``e.gif`` and ``e_depth.gif`` read back
+    through ``read_gif`` as 8 frames of 30 ms, looping, the depth frames
+    bit for bit those handed to ``write_video`` and the rgb frames the
+    writer's own palette mapping of them (their PSNR printed); the
+    ``video`` line: 30 orbit frames at 800x800 on the same path, the GIF's
+    encode and decode Mpx/s on the host, bytes a frame and the file's
+    sha256, the frames read back gated bit for bit on the writer's own
+    palette mapping and at 35 dB or more of the frames rendered, and the
+    share of (e)'s wall time that ``write_video`` took; (f) the server with
     ``sampler='proposal'`` on the cache (no distillation, /stats reports
     the sampler), then on a cache of the random weights (the stale notice,
     the file overwritten);
@@ -161,8 +173,8 @@ nonzero — nothing falls back to the CPU or to a plain path):
     1 dB above a random-weight checkpoint's, the val view against the CPU
     path on every 40th ray, ms per view; (d) ``cli.infer --path spiral
     --frames 5``, float (K1 only) and ``--quant int8`` (the gate passes, 2
-    K4 per chunk and no K1 after the gate's float frame), s per frame; (e)
-    the orbit at ``--phi 0`` on (b) refused with the forward-facing
+    K4 per chunk and no K1 after the gate's float frame), s per frame, each
+    video read back as the port's GIF; (e) the orbit at ``--phi 0`` on (b) refused with the forward-facing
     ``ValueError`` before any launch;
 22. ``dp``: data parallelism over rays (``nerf_keras_tpu_torch/parallel``)
     at the parity step's widths (8x256, 64 + 128, bf16, global batch 4096,
@@ -250,7 +262,7 @@ nonzero — nothing falls back to the CPU or to a plain path):
     S=128), the int8 frame after ``quantize_for_inference`` (K4 only, >= 30
     dB of the float frame), its checkpoint served once over HTTP (K1
     only), ``cli.evaluate`` (1 K1 a view) and ``cli.infer --frames 3`` (1
-    K1 a frame); (d) ``cli.train_synthetic`` for one epoch of a config
+    K1 a frame, its GIF read back); (d) ``cli.train_synthetic`` for one epoch of a config
     JSON with all three knobs (aux 32, a union step every 4th, the anneal
     horizon auto): exactly the K1/K2 launches its 21 steps (1 + 1 on union
     steps, 2 + 2 else), eval and panels imply, the horizon resolved to 21.
@@ -343,7 +355,13 @@ nonzero — nothing falls back to the CPU or to a plain path):
     (``tests/fixtures/torch_jpeg/capture_progressive``, 8 views):
     ``data/llff.minify`` against PIL's digests, ``cli.train_fern --config
     config/fern_batch_h256_tpu.json --epochs 1`` (as 25 (b)), then
-    ``cli.infer --path spiral --frames 1`` (K1 only, 2 a chunk).
+    ``cli.infer --path spiral --frames 1`` (K1 only, 2 a chunk), its GIF
+    read back.
+
+The videos are the port's GIFs (``utils/gif.py``; the card's machine has
+no mp4 encoder): each ``cli.infer`` run's file reads back as the frames
+handed to ``write_video``, in the writer's own palette mapping, bit for
+bit.
 
 Each main path runs with the launch counters set to 0 just before it and
 read just after.  The line before the last is the kernel report
@@ -451,6 +469,8 @@ from nerf_keras_tpu_torch.utils.keras_import import import_reference_weights
 from nerf_keras_tpu_torch.utils.image_metrics import frame_psnr
 from nerf_keras_tpu_torch.utils.metrics import History
 from nerf_keras_tpu_torch.utils.png import decode_png, encode_png, png_transparency, to_rgba
+from nerf_keras_tpu_torch.utils.gif import decode_gif, encode_gif, read_gif, shown_frames
+from nerf_keras_tpu_torch import visualization
 
 # K1 vs plain at full width.  Both take bf16-rounded operands and
 # accumulate in f32; they differ in summation order, which can flip the
@@ -2249,6 +2269,37 @@ def phase_train_cli(card: str, tmp: str) -> tuple[list[dict], str]:
     return [_clean(r) for r in runs], run
 
 
+def phase_visualization(card: str, tmp: str, run: str) -> None:
+    """Phase 19b (module docstring): ``python -m
+    nerf_keras_tpu_torch.visualization`` in-process on (19a)'s panels."""
+    image_dir = os.path.join(run, "images")
+    names = sorted(n for n in os.listdir(image_dir) if n.endswith(".png"))
+    panels = []
+    for name in names:
+        with open(os.path.join(image_dir, name), "rb") as f:
+            panels.append(decode_png(f.read()))
+    distinct = sum(1 for i, p in enumerate(panels)
+                   if i == 0 or not np.array_equal(p, panels[i - 1]))
+    tee = _Tee(sys.stdout)
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        written = visualization.main(["--config", CONFIG, "--image-dir", image_dir,
+                                      "--out", os.path.join(tmp, "training.mp4")])
+    seconds = time.perf_counter() - t0
+    launches = counts()
+    back, durations, loop = read_gif(written)
+    say("visualization", panels=len(panels), frames=len(back), durations_ms=durations,
+        size=list(back[0].shape) if back else None, bytes=os.path.getsize(written),
+        seconds=seconds, launches=launches, card=card)
+    if not written.endswith(".gif") or f"video saved to {written}" not in tee.buf.getvalue():
+        raise RuntimeError(f"visualization: wrote {written}")
+    if len(back) != distinct or loop != 0 or launches != ZERO or \
+            any(g.shape != panels[0].shape for g in back):
+        raise RuntimeError(f"visualization: {len(back)} frames of {len(panels)} panels "
+                           f"({distinct} distinct), loop {loop}, launched {launches}")
+
+
 DISTILL_LINE = re.compile(r"distilled the proposal net: (\d+) steps of (\d+) points in "
                           r"([\d.]+) s, loss (\S+) -> (\S+)")
 GATE_LINE = re.compile(r"\] (int8|proposal) gate (PASS|FAIL): (\S+) dB")
@@ -2397,11 +2448,13 @@ def phase_infer_cli(card: str, tmp: str, run: str) -> list[dict]:
 
     # (e) the inference CLI: loads the net, calibrates, saves both; the
     # gates decide the launches.
-    video = os.path.join(tmp, "e.mp4")
+    video, depth_video = os.path.join(tmp, "e.mp4"), os.path.join(tmp, "e_depth.mp4")
     t0 = time.perf_counter()
-    written, out_e, launches = _cli(infer_cli.run_inference, [
-        "--config", CONFIG, "--checkpoint", run, "--frames", "8", "--quant", "int8",
-        "--sampler", "proposal", "--infer-cache", cache, "--depth-video", "--out", video])
+    with _captured_frames() as handed:
+        written, out_e, launches = _cli(infer_cli.run_inference, [
+            "--config", CONFIG, "--checkpoint", run, "--frames", "8", "--quant", "int8",
+            "--sampler", "proposal", "--infer-cache", cache, "--depth-video", "--out",
+            video])
     seconds = time.perf_counter() - t0
     launches = _clean(launches)
     runs.append(launches)
@@ -2413,11 +2466,23 @@ def phase_infer_cli(card: str, tmp: str, run: str) -> list[dict]:
     want = dict(k1_fwd=2 + (0 if q else 3 + 8 * per_frame),
                 k4=2 + (3 + 8 * per_frame if q else 0))
     frame_ms = [float(x) for x in FRAME_MS.findall(out_e)]
-    # An mp4 each where imageio has an ffmpeg backend, else PNG directories.
-    depth = video.rsplit(".", 1)[0] + ("_depth.mp4" if written.endswith(".mp4")
-                                       else "_depth_frames")
-    counts_written = [len(os.listdir(p)) if os.path.isdir(p) else int(os.path.exists(p))
-                      for p in (written, depth)]
+    # The port's GIFs (no mp4 encoder on the card's machine): 8 frames of
+    # 30 ms each, looping; the depth frames as handed over and the rgb
+    # frames as the writer's own palette mapping, bit for bit.
+    depth = os.path.join(tmp, "e_depth.gif")
+    if written != os.path.join(tmp, "e.gif") or not os.path.isfile(depth):
+        raise RuntimeError(f"infer_cli (e): wrote {written}, depth {depth} "
+                           f"{'present' if os.path.isfile(depth) else 'missing'}")
+    files = {"e.gif": _video_back(written, handed[video], "infer_cli (e)"),
+             "e_depth.gif": _video_back(depth, handed[depth_video], "infer_cli (e)")}
+    rgb_back, depth_back = read_gif(written)[0], read_gif(depth)[0]
+    if any(f["frames"] != 8 or f["durations_ms"] != [30] * 8 for f in files.values()) or \
+            not all(np.array_equal(g, np.repeat(f[..., None], 3, axis=-1))
+                    for g, f in zip(depth_back, handed[depth_video])):
+        raise RuntimeError(f"infer_cli (e): the GIFs read back as {files}")
+    rgb_psnr = [frame_psnr(f.astype(np.float32) / 255.0, g.astype(np.float32) / 255.0)
+                for f, g in zip(handed[video], rgb_back)]
+    write_s = handed.seconds[video] + handed.seconds[depth_video]
     trainer = Trainer(cfg, 2.0, 6.0, device="cuda").restore(ckpt)
     trainer.load_inference_artifacts(cache)
     pose = infer_cli.spherical_poses(8)[3]
@@ -2432,8 +2497,8 @@ def phase_infer_cli(card: str, tmp: str, run: str) -> list[dict]:
     say("infer_cli_infer", part="e", launches=launches, expected=dict(ZERO, **want),
         gates=gates, seconds=seconds, frame_ms=frame_ms,
         median_frame_ms=statistics.median(frame_ms) if frame_ms else None,
-        frame_ms_by_path=paths, written=os.path.basename(written),
-        files=counts_written, card=card)
+        frame_ms_by_path=paths, written=os.path.basename(written), files=files,
+        rgb_psnr_vs_frames_db=rgb_psnr, write_video_s=write_s, card=card)
     if len(gates) != 2 or launches != dict(ZERO, **want):
         raise RuntimeError(f"infer_cli (e): gates {gates}, launched {launches}, "
                            f"expected {want}")
@@ -2442,9 +2507,40 @@ def phase_infer_cli(card: str, tmp: str, run: str) -> list[dict]:
         raise RuntimeError("infer_cli (e): the net was not loaded, or the tables not saved")
     if not (trainer.quant_ready and trainer.proposal_ready):
         raise RuntimeError("infer_cli (e): the saved cache lacks the tables or the net")
-    if len(frame_ms) != 8 or written.endswith(".mp4") != os.path.isfile(written) \
-            or counts_written not in ([1, 1], [8, 8]):
-        raise RuntimeError(f"infer_cli (e): frames {frame_ms}, written {counts_written}")
+    if len(frame_ms) != 8:
+        raise RuntimeError(f"infer_cli (e): frames {frame_ms}")
+    # The video file on the card's host: 30 frames of the orbit at 800x800
+    # through the path the gates chose, encoded and read back.
+    size = 800
+    orbit = [trainer.render_image(p, size, size, 1.2 * size, quant=q,
+                                  sampler="proposal" if s else "coarse",
+                                  uint8_rgb=True, need_depth=False)["rgb"]
+             for p in infer_cli.spherical_poses(30)]
+    t0 = time.perf_counter()
+    data = encode_gif(orbit, max(1, int(1000 / 30)))
+    encode_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back, durations, loop = decode_gif(data)
+    decode_s = time.perf_counter() - t0
+    mpx = 30 * size * size / 1e6
+    psnr_min = min(frame_psnr(f.astype(np.float32) / 255.0, g.astype(np.float32) / 255.0)
+                   for f, g in zip(orbit, back))
+    # At full size (over 256 colours a frame: median cut, nearest entry,
+    # LZW table resets) the frames read back must be the writer's own
+    # palette mapping, bit for bit.
+    want = shown_frames(orbit)
+    exact = len(back) == len(want) and all(np.array_equal(g, w) for g, w in zip(back, want))
+    say("video", frames=30, size=[size, size], encode_mpx_s=mpx / encode_s,
+        decode_mpx_s=mpx / decode_s, encode_s=encode_s, decode_s=decode_s,
+        bytes_per_frame=len(data) / 30, sha256=hashlib.sha256(data).hexdigest(),
+        frames_back=len(back), mapping_exact=exact, psnr_db_min=psnr_min,
+        e_write_video_s=write_s, e_seconds=seconds, e_write_share=write_s / seconds,
+        card=card)
+    if len(back) != 30 or durations != [30] * 30 or loop != 0 or not exact or \
+            psnr_min < VIDEO_PSNR_FLOOR_DB:
+        raise RuntimeError(f"video: {len(back)} frames of {durations} ms, loop {loop}, "
+                           f"the writer's mapping {'exact' if exact else 'missed'}, "
+                           f"worst frame {psnr_min:.2f} dB (floor {VIDEO_PSNR_FLOOR_DB})")
     del trainer, gpu
     torch.cuda.empty_cache()
 
@@ -2568,11 +2664,13 @@ def _fern_spiral(phase: str, config: str, run: str, cap: str, frames: int, chunk
     parts = {}
     for tag, extra in (("float", []), ("int8", ["--quant", "int8"])):
         t0 = time.perf_counter()
-        written, out, launches = _cli(infer_cli.run_inference, [
-            "--config", config, "--checkpoint", run, "--path", "spiral", "--data-dir",
-            cap, "--frames", str(frames), "--out", os.path.join(tmp, f"{phase}_{tag}.mp4")]
-            + extra)
+        video = os.path.join(tmp, f"{phase}_{tag}.mp4")
+        with _captured_frames() as handed:
+            written, out, launches = _cli(infer_cli.run_inference, [
+                "--config", config, "--checkpoint", run, "--path", "spiral", "--data-dir",
+                cap, "--frames", str(frames), "--out", video] + extra)
         seconds = time.perf_counter() - t0
+        back = _video_back(written, handed[video], f"{phase} ({tag})")
         launches = _clean(launches)
         runs.append(launches)
         gates = {g[0]: {"decision": g[1], "psnr_db": float(g[2])}
@@ -2584,7 +2682,7 @@ def _fern_spiral(phase: str, config: str, run: str, cap: str, frames: int, chunk
         else:
             want = dict(ZERO, k1_fwd=per_frame, k4=(frames + 1) * per_frame)
         parts[tag] = {"launches": launches, "expected": want, "gates": gates,
-                      "seconds": seconds, "frame_ms": frame_ms,
+                      "seconds": seconds, "frame_ms": frame_ms, "video": back,
                       "s_per_frame": statistics.median(frame_ms) / 1e3 if frame_ms else None}
         if launches != want or len(frame_ms) != frames:
             raise RuntimeError(f"{phase} ({tag}): launched {launches}, expected {want}; "
@@ -2994,9 +3092,12 @@ def phase_captures(card: str, tmp: str) -> list[dict]:
     torch.cuda.empty_cache()
     chunks = math.ceil(cfg.height * cfg.width / 16384)
     want = dict(ZERO, k1_fwd=2 * chunks)
-    written, out, launches = _cli(infer_cli.run_inference, [
-        "--config", FERN_CONFIG, "--checkpoint", run, "--path", "spiral", "--data-dir", cap,
-        "--frames", "1", "--out", os.path.join(tmp, "progressive_spiral.mp4")])
+    video = os.path.join(tmp, "progressive_spiral.mp4")
+    with _captured_frames() as handed:
+        written, out, launches = _cli(infer_cli.run_inference, [
+            "--config", FERN_CONFIG, "--checkpoint", run, "--path", "spiral", "--data-dir",
+            cap, "--frames", "1", "--out", video])
+    back = _video_back(written, handed[video], "captures (c)")
     frame_ms = [float(v) for v in FRAME_MS.findall(out)]
     runs.append(_clean(launches))
     say("captures", part="c", views=len(jpeg_goldens["minify_progressive"]),
@@ -3004,7 +3105,7 @@ def phase_captures(card: str, tmp: str) -> list[dict]:
         size=[cfg.height, cfg.width], steps_per_epoch=steps, epochs=epochs,
         train_launches=runs[-2], expected=expected, loss_probe=probe, train_s=train_s,
         val_psnr=history.val["psnrs"], spiral_launches=_clean(launches),
-        spiral_expected=want, frame_ms=frame_ms, card=card)
+        spiral_expected=want, frame_ms=frame_ms, video=back, card=card)
     if _clean(launches) != want or len(frame_ms) != 1:
         raise RuntimeError(f"captures (c): the spiral launched {launches}, expected {want}; "
                            f"frames {frame_ms}")
@@ -3736,14 +3837,16 @@ def _uf_serving(card: str, tmp: str, trainer: Trainer, batch, rec: _SampleCounts
         raise RuntimeError(f"union_free (c): cli.evaluate launched {launches}, "
                            f"report {report['mean']}")
     runs.append(_clean(launches))
-    with rec:
+    video = os.path.join(root, "orbit.mp4")
+    with rec, _captured_frames() as handed:
         written, _, launches = _cli(infer_cli.run_inference, [
             "--config", config, "--checkpoint", ckpt, "--frames", "3", "--device", "cuda",
-            "--out", os.path.join(root, "orbit.mp4")])
-    frames = sorted(os.listdir(written)) if os.path.isdir(written) else [written]
-    say("union_free_cli_infer", launches=_clean(launches), written=frames, card=card)
-    if _clean(launches) != dict(ZERO, k1_fwd=3) or len(frames) not in (1, 3):
-        raise RuntimeError(f"union_free (c): cli.infer launched {launches}, wrote {frames}")
+            "--out", video])
+    back = _video_back(written, handed[video], "union_free (c)")
+    say("union_free_cli_infer", launches=_clean(launches), written=os.path.basename(written),
+        video=back, card=card)
+    if _clean(launches) != dict(ZERO, k1_fwd=3) or len(handed[video]) != 3:
+        raise RuntimeError(f"union_free (c): cli.infer launched {launches}, wrote {back}")
     runs.append(_clean(launches))
     return runs
 
@@ -3800,23 +3903,54 @@ def phase_union_free(card: str, tmp: str) -> tuple[list[dict], dict]:
 # The Keras fixtures' golden forwards: the JAX package's own tolerance for
 # them (tests/test_keras_import.py), float32 against Keras' float32.
 KERAS_GOLDEN_TOL = 2e-4
+# The orbit's GIF against the frames rendered: 45.74 dB at worst on an
+# H100's host; a median cut that had lost its way sits far below.
+VIDEO_PSNR_FLOOR_DB = 35.0
+
+
+class _Handed(dict):
+    """The uint8 frames ``cli.infer`` hands to ``write_video``, by the path
+    it asks for; ``seconds`` the time ``write_video`` took for each."""
+
+    def __init__(self):
+        super().__init__()
+        self.seconds = {}
 
 
 @contextlib.contextmanager
 def _captured_frames():
-    """The uint8 frames ``cli.infer`` hands to ``write_video``, by path; the
-    CLI still writes them."""
-    frames, write = {}, infer_cli.write_video
+    """:class:`_Handed` for the ``cli.infer`` calls inside; the CLI still
+    writes them."""
+    frames, write = _Handed(), infer_cli.write_video
 
     def capture(path, images, fps):
         frames[path] = [np.array(f) for f in images]
-        return write(path, images, fps)
+        t0 = time.perf_counter()
+        written = write(path, images, fps)
+        frames.seconds[path] = time.perf_counter() - t0
+        return written
 
     infer_cli.write_video = capture
     try:
         yield frames
     finally:
         infer_cli.write_video = write
+
+
+def _video_back(written: str, handed: list, what: str) -> dict:
+    """``read_gif`` of what ``cli.infer`` wrote (the port's GIF: the card's
+    machine has no mp4 encoder): the frames handed to ``write_video``, each
+    as the writer's own palette mapping, bit for bit, repeats merged, loop
+    0.  Raises otherwise; returns the frame count, durations and bytes."""
+    if not written.endswith(".gif"):
+        raise RuntimeError(f"{what}: cli.infer wrote {written}, not the port's GIF")
+    got, durations, loop = read_gif(written)
+    want = shown_frames(handed)
+    if len(got) != len(want) or loop != 0 or \
+            not all(np.array_equal(g, w) for g, w in zip(got, want)):
+        raise RuntimeError(f"{what}: {written} reads back {len(got)} frames (loop {loop}), "
+                           f"not the {len(want)} frames written")
+    return {"frames": len(got), "durations_ms": durations, "bytes": os.path.getsize(written)}
 
 
 def _trees_equal(a: dict, b: dict) -> bool:
@@ -4690,6 +4824,7 @@ def main() -> None:
         cli_runs, run_dir = phase_train_cli(card, tmp)
         runs += cli_runs
         torch.cuda.empty_cache()
+        phase_visualization(card, tmp, run_dir)
         runs += phase_infer_cli(card, tmp, run_dir)
         torch.cuda.empty_cache()
         runs += phase_fern_cli(card, tmp)

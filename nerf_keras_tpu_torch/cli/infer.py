@@ -17,8 +17,10 @@ Counterpart of ``nerf_keras_tpu/cli/infer.py`` (the reference's
 ``inference.py``): the Blender-style orbit (theta in [-45, 45), phi -30,
 radius 4; ``--full-orbit`` for 360 degrees) rendered through the fine
 model, each frame on the card (K1, or K4 with int8), written as an mp4
-(``<config>_rgb_video_gpu.mp4`` by default; a directory of PNG frames
-where no mp4 encoder is installed, see ``utils/viz.write_video``).
+(``<config>_rgb_video_gpu.mp4`` by default) where imageio with ffmpeg
+imports, else as the animated GIF ``<out stem>.gif`` that the JAX package
+writes there (the port's own writer, so on the card's machine too; see
+``utils/viz.write_video``); ``--depth-video`` adds ``<out stem>_depth``.
 
 The accelerations are gated on the first frame, and each falls back with
 a printed line, as in the JAX package:

@@ -41,16 +41,13 @@ decoder raises ``RuntimeError`` naming it: there is no Python fallback.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import shutil
 import struct
-import subprocess
 import threading
 from pathlib import Path
 
 import numpy as np
 
-from nerf_keras_tpu_torch.utils.hostbuild import BUILD_DIR, compile_library
+from nerf_keras_tpu_torch.utils import hostbuild
 
 _SRC = Path(__file__).resolve().parent / "native" / "jpeg.cc"
 _lock = threading.Lock()
@@ -79,8 +76,7 @@ _REFUSED = {
 
 
 def library_path() -> Path:
-    digest = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"libjpeg_scan-{digest}.so"
+    return hostbuild.library_path(_SRC, "libjpeg_scan")
 
 
 def load_library() -> ctypes.CDLL:
@@ -89,18 +85,7 @@ def load_library() -> ctypes.CDLL:
     with _lock:
         if _lib is not None:
             return _lib
-        path = library_path()
-        if not path.exists():
-            if shutil.which("g++") is None:
-                raise RuntimeError(
-                    "the JPEG decoder needs g++ to build native/jpeg.cc, and no g++ "
-                    "is on PATH")
-            try:
-                compile_library(_SRC, path)
-            except subprocess.CalledProcessError as e:
-                raise RuntimeError(f"g++ failed to build {_SRC}: "
-                                   f"{e.stderr.decode(errors='replace')[:400]}") from e
-        lib = ctypes.CDLL(str(path))
+        lib = hostbuild.load_library(_SRC, library_path(), "the JPEG decoder")
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.jpeg_scan.restype = i
         lib.jpeg_scan.argtypes = [p, ctypes.c_int64, i, p, p, i, i, i, i, i, i, i, p, p, p, i,

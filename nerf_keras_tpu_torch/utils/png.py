@@ -30,11 +30,8 @@ image data that ends early, a palette of more than 256 entries, a short
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import re
-import shutil
 import struct
-import subprocess
 import threading
 import zlib
 from dataclasses import dataclass
@@ -42,7 +39,7 @@ from pathlib import Path
 
 import numpy as np
 
-from nerf_keras_tpu_torch.utils.hostbuild import BUILD_DIR, compile_library
+from nerf_keras_tpu_torch.utils import hostbuild
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNEL_COLOR = {1: 0, 3: 2, 2: 4, 4: 6}
@@ -63,8 +60,7 @@ _lib: ctypes.CDLL | None = None
 
 
 def library_path() -> Path:
-    digest = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"libpng_unfilter-{digest}.so"
+    return hostbuild.library_path(_SRC, "libpng_unfilter")
 
 
 def load_library() -> ctypes.CDLL:
@@ -73,18 +69,7 @@ def load_library() -> ctypes.CDLL:
     with _lock:
         if _lib is not None:
             return _lib
-        path = library_path()
-        if not path.exists():
-            if shutil.which("g++") is None:
-                raise RuntimeError(
-                    "the PNG decoder needs g++ to build native/png.cc, and no g++ "
-                    "is on PATH")
-            try:
-                compile_library(_SRC, path)
-            except subprocess.CalledProcessError as e:
-                raise RuntimeError(f"g++ failed to build {_SRC}: "
-                                   f"{e.stderr.decode(errors='replace')[:400]}") from e
-        lib = ctypes.CDLL(str(path))
+        lib = hostbuild.load_library(_SRC, library_path(), "the PNG decoder")
         p = ctypes.c_void_p
         lib.png_unfilter.restype = ctypes.c_int
         lib.png_unfilter.argtypes = [p, ctypes.c_int64] + [ctypes.c_int] * 5 + [

@@ -10,9 +10,9 @@ themselves are kept in the history JSON.
 
 Videos go through ``imageio`` with an ffmpeg backend, as in the JAX
 package, where both import.  Where they do not (the card's machine has
-neither imageio nor PIL, so the JAX package's GIF fallback is not
-available), :func:`write_video` writes the frames as numbered PNGs into a
-directory beside the requested path instead.
+neither imageio nor PIL), :func:`write_video` writes an animated GIF
+beside the requested path, as the JAX package's PIL branch does, through
+the port's own writer (``utils/gif.encode_gif``).
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ from __future__ import annotations
 import numpy as np
 
 from nerf_keras_tpu_torch.utils import io
+from nerf_keras_tpu_torch.utils.gif import encode_gif
 from nerf_keras_tpu_torch.utils.image import normalize_depth, to_uint8
 from nerf_keras_tpu_torch.utils.png import decode_png, encode_png
 
@@ -95,8 +96,9 @@ def save_png(path: str, img: np.ndarray) -> None:
 def write_video(path: str, frames: list[np.ndarray], fps: int = 30) -> str:
     """Encode frames to an mp4 at ``path`` (``imageio.mimwrite``, the
     reference's writer) and return the path written.  Without imageio or
-    an ffmpeg backend the frames go to ``<path stem>_frames/000.png``, ...,
-    and that directory is returned."""
+    an ffmpeg backend, an animated GIF at ``<path stem>.gif`` instead, each
+    frame shown ``max(1, int(1000 / fps))`` ms, looping, as the JAX
+    package writes it; that path is returned."""
     if not frames:
         raise ValueError(f"write_video({path!r}): no frames to encode")
     frames = [to_uint8(f) for f in frames]
@@ -106,19 +108,22 @@ def write_video(path: str, frames: list[np.ndarray], fps: int = 30) -> str:
         imageio.mimwrite(path, frames, fps=fps, quality=7, macro_block_size=None)
         return path
     except (ImportError, OSError, ValueError) as e:
-        # No ffmpeg backend (or no imageio): PNG frames; anything else
-        # should surface, not degrade.
-        out_dir = path.rsplit(".", 1)[0] + "_frames"
-        print(f"[nerf-torch] mp4 encoder unavailable ({e}); writing PNG frames to {out_dir}")
-        io.makedirs(out_dir)
-        for i, frame in enumerate(frames):
-            save_png(io.join(out_dir, f"{i:03d}.png"), frame)
-        return out_dir
+        # No ffmpeg backend (or no imageio); an error of the GIF step below
+        # surfaces.
+        reason = e
+    gif_path = path.rsplit(".", 1)[0] + ".gif"
+    print(f"[nerf-torch] mp4 encoder unavailable ({reason}); writing GIF {gif_path}")
+    data = encode_gif(frames, duration_ms=max(1, int(1000 / fps)))
+    with io.open_file(gif_path, "wb") as f:
+        f.write(data)
+    return gif_path
 
 
 def frames_to_video(image_dir: str, out_path: str, fps: int = 30) -> str:
     """Encode the PNGs of a directory, in name order, as a video (the
-    training-progress video of the reference's ``visualization.py``)."""
+    training-progress video of the reference's ``visualization.py``;
+    ``python -m nerf_keras_tpu_torch.visualization``) through
+    :func:`write_video`; returns the path written."""
     names = [n for n in io.listdir(image_dir) if n.endswith(".png")]
     if not names:
         raise FileNotFoundError(f"no PNG frames found under {image_dir}")

@@ -56,6 +56,7 @@ from nerf_keras_tpu_torch.ops.rays import pose_spherical
 from nerf_keras_tpu_torch.parallel.audit import artifact_digests, free_port, run_ranks
 from nerf_keras_tpu_torch.serving import RenderService, serve
 from nerf_keras_tpu_torch.utils.checkpoint import _flatten
+from nerf_keras_tpu_torch.utils.gif import decode_gif
 from nerf_keras_tpu_torch.utils.infer_cache import StaleArtifactsError
 from nerf_keras_tpu_torch.utils.keras_export import export_reference_weights
 
@@ -424,12 +425,11 @@ def test_two_rank_entry_points_write_from_rank0_only(cli_runs, entry):
         assert "saved inference artifacts" in r0["stdout"]
         assert "saved inference artifacts" not in r1["stdout"]
     elif entry.startswith("infer"):
-        prefix = ("v_frames/", "v_depth_frames/") if entry == "infer" else ("ref_frames/",)
-        assert r1["result"] is None and r0["result"].endswith(prefix[0][:-1])
-        frames = [n for n in files["one"] if n.startswith(prefix)]
-        assert len(frames) == 2 * len(prefix)
-        for name in frames:
+        videos = ("v.gif", "v_depth.gif") if entry == "infer" else ("ref.gif",)
+        assert r1["result"] is None and r0["result"].endswith("/" + videos[0])
+        for name in videos:
             assert files["r0"][name] == files["one"][name], name
+            assert len(decode_gif(files["one"][name], name)[0]) == 2
         assert ("loaded inference artifacts" in r0["stdout"]) == (entry == "infer")
         assert "frame 2/2" in r0["stdout"] and "frame 2/2" not in r1["stdout"]
     else:

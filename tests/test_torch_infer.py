@@ -2,8 +2,8 @@
 both accelerations' gates (pass and fail, with the frames of the path
 that was decided), the artifact cache, the profiler trace, and what
 raises or exits.  Where imageio has no ffmpeg backend (or is missing) the
-frames land in the PNG directory that ``write_video`` falls back to; the
-tests read either."""
+video is the port's GIF; the tests take the frames ``cli.infer`` hands to
+``write_video`` and check that the file written holds them."""
 
 import json
 import os
@@ -20,9 +20,9 @@ from nerf_keras_tpu.utils.checkpoint import save_checkpoint
 from nerf_keras_tpu_torch.cli.infer import run_inference, spherical_poses
 from nerf_keras_tpu_torch.config import load_config
 from nerf_keras_tpu_torch.engine.trainer import Trainer
-from nerf_keras_tpu_torch.utils.png import decode_png
 
 from fern_run import fern_run
+from torch_videos import capture_videos, video_frames
 
 torch.set_num_threads(1)
 
@@ -59,15 +59,9 @@ def ckpt(tmp_path):
     return str(cfg_path), path
 
 
-def _frames(written: str, n: int) -> list[np.ndarray]:
-    """The frames a run wrote: the mp4, or the PNG directory."""
-    if written.endswith(".mp4"):
-        import imageio.v2 as imageio
-
-        return [np.asarray(f) for f in imageio.mimread(written)]
-    names = sorted(os.listdir(written))
-    assert names == [f"{i:03d}.png" for i in range(n)]
-    return [decode_png(open(os.path.join(written, f), "rb").read()) for f in names]
+@pytest.fixture
+def videos(monkeypatch):
+    return capture_videos(monkeypatch)
 
 
 def _render(cfg_path, ckpt, cache, pose, **kw):
@@ -89,16 +83,16 @@ def test_spherical_poses_match_jax(full_orbit):
         np.testing.assert_allclose(a, np.asarray(b), atol=1e-6, rtol=0)
 
 
-def test_three_frames_and_depth(ckpt, tmp_path, capsys):
+def test_three_frames_and_depth(ckpt, tmp_path, capsys, videos):
     cfg_path, path = ckpt
     out = str(tmp_path / "vid.mp4")
     written = run_inference(["--config", cfg_path, "--checkpoint", path, "--frames", "3",
                              "--chunk", "128", "--out", out, "--depth-video",
                              "--device", "cpu"])
-    assert written == (out if _has_ffmpeg() else str(tmp_path / "vid_frames"))
-    frames = _frames(written, 3)
-    depth = _frames(str(tmp_path / ("vid_depth.mp4" if _has_ffmpeg() else
-                                    "vid_depth_frames")), 3)
+    assert written == (out if _has_ffmpeg() else str(tmp_path / "vid.gif"))
+    frames = video_frames(videos, written, 3)
+    depth = video_frames(videos, str(tmp_path / ("vid_depth.mp4" if _has_ffmpeg() else
+                                                 "vid_depth.gif")), 3)
     assert all(f.shape == (20, 20, 3) for f in frames) and len(depth) == 3
     poses = spherical_poses(3)
     np.testing.assert_array_equal(frames[1], _render(cfg_path, path, None, poses[1]))
@@ -107,7 +101,7 @@ def test_three_frames_and_depth(ckpt, tmp_path, capsys):
     assert "frame 3/3 (" in text and "video saved to" in text
 
 
-def test_default_name_and_sample_overrides(ckpt, tmp_path, monkeypatch):
+def test_default_name_and_sample_overrides(ckpt, tmp_path, monkeypatch, videos):
     """``<config>_rgb_video_gpu.mp4`` in the working directory; ``--ns-fine
     0`` (coarse only) is a valid override."""
     cfg_path, path = ckpt
@@ -116,12 +110,12 @@ def test_default_name_and_sample_overrides(ckpt, tmp_path, monkeypatch):
                              "--ns-coarse", "6", "--ns-fine", "0", "--device", "cpu"])
     stem = "tiny_rgb_video_gpu"
     assert os.path.abspath(written) == str(tmp_path / (stem + ".mp4" if _has_ffmpeg()
-                                                       else stem + "_frames"))
-    assert _frames(written, 1)[0].shape == (20, 20, 3)
+                                                       else stem + ".gif"))
+    assert video_frames(videos, written, 1)[0].shape == (20, 20, 3)
 
 
 @pytest.mark.parametrize("gate_db", [0.0, 1000.0])
-def test_gates_decide_the_frames(ckpt, tmp_path, capsys, gate_db):
+def test_gates_decide_the_frames(ckpt, tmp_path, capsys, gate_db, videos):
     """Both gates at 0 dB pass (int8 + proposal frames), at 1000 dB both
     fail (float, coarse-sampled frames), with the JAX package's lines."""
     cfg_path, path = ckpt
@@ -141,7 +135,7 @@ def test_gates_decide_the_frames(ckpt, tmp_path, capsys, gate_db):
         assert "proposal gate FAIL" in text and "falling back to the coarse sampler" in text
         kw = {}
     assert f"saved inference artifacts to {cache}" in text
-    frames = _frames(written, 2)
+    frames = video_frames(videos, written, 2)
     pose = spherical_poses(2)[1]
     np.testing.assert_array_equal(frames[1], _render(cfg_path, path, cache, pose, **kw))
     other = _render(cfg_path, path, cache, pose,
@@ -149,7 +143,7 @@ def test_gates_decide_the_frames(ckpt, tmp_path, capsys, gate_db):
     assert not np.array_equal(frames[1], other)
 
 
-def test_infer_cache_second_run_loads(ckpt, tmp_path, capsys, monkeypatch):
+def test_infer_cache_second_run_loads(ckpt, tmp_path, capsys, monkeypatch, videos):
     import nerf_keras_tpu_torch.engine.trainer as ptrainer
 
     cfg_path, path = ckpt
@@ -168,16 +162,17 @@ def test_infer_cache_second_run_loads(ckpt, tmp_path, capsys, monkeypatch):
     text = capsys.readouterr().out
     assert f"loaded inference artifacts from {cache}" in text
     assert "saved inference artifacts" not in text
-    np.testing.assert_array_equal(_frames(second, 1)[0], _frames(first, 1)[0])
+    np.testing.assert_array_equal(video_frames(videos, second, 1)[0],
+                                  video_frames(videos, first, 1)[0])
 
 
-def test_profile_writes_a_trace(ckpt, tmp_path):
+def test_profile_writes_a_trace(ckpt, tmp_path, videos):
     cfg_path, path = ckpt
     trace_dir = tmp_path / "trace"
     written = run_inference(["--config", cfg_path, "--checkpoint", path, "--frames", "2",
                              "--chunk", "128", "--out", str(tmp_path / "p.mp4"),
                              "--profile", str(trace_dir), "--device", "cpu"])
-    assert len(_frames(written, 2)) == 2
+    assert len(video_frames(videos, written, 2)) == 2
     with open(trace_dir / "trace.json") as f:
         assert json.load(f)["traceEvents"]
 
@@ -218,7 +213,7 @@ def test_spiral_poses_from_capture_match_jax(tmp_path, spherify):
         np.testing.assert_allclose(a, b, atol=1e-6, rtol=0)
 
 
-def test_spiral_frames_match_the_jax_cli(tmp_path, monkeypatch):
+def test_spiral_frames_match_the_jax_cli(tmp_path, monkeypatch, videos):
     """``--path spiral`` on an NDC checkpoint that ``cli.train_fern`` wrote
     with its frequency-anneal window open, float and ``--quant int8``:
     every frame within rgb 5e-3 (one uint8 level) of the JAX CLI's; the
@@ -236,7 +231,7 @@ def test_spiral_frames_match_the_jax_cli(tmp_path, monkeypatch):
         out = str(tmp_path / f"{len(extra)}.mp4")
         jinfer.run_inference(base + extra + ["--out", out, "--platform", "cpu"])
         written = run_inference(base + extra + ["--out", out, "--device", "cpu"])
-        ours, theirs = _frames(written, 3), captured[out]
+        ours, theirs = video_frames(videos, written, 3), captured[out]
         assert len(theirs) == 3
         for a, b in zip(ours, theirs):
             assert a.shape == (12, 16, 3)

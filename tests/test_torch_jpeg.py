@@ -45,7 +45,7 @@ from nerf_keras_tpu.ops.rays import pose_spherical
 from nerf_keras_tpu_torch.data import blender as pblender
 from nerf_keras_tpu_torch.data import llff as pllff
 from nerf_keras_tpu_torch.data.synthetic import forward_facing_views
-from nerf_keras_tpu_torch.utils import jpeg
+from nerf_keras_tpu_torch.utils import hostbuild, jpeg
 from nerf_keras_tpu_torch.utils.image import resize_lanczos_u8
 from nerf_keras_tpu_torch.utils.png import decode_png
 
@@ -349,7 +349,7 @@ def test_refused_kinds_are_what_they_claim():
 def test_decoder_without_gxx_names_the_compiler(monkeypatch, tmp_path):
     monkeypatch.setattr(jpeg, "_lib", None)
     monkeypatch.setattr(jpeg, "library_path", lambda: tmp_path / "missing.so")
-    monkeypatch.setattr(jpeg.shutil, "which", lambda name: None)
+    monkeypatch.setattr(hostbuild.shutil, "which", lambda name: None)
     with pytest.raises(RuntimeError, match="g\\+\\+"):
         jpeg.decode_jpeg(_baseline(), "x.jpg")
 

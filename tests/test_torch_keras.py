@@ -38,7 +38,8 @@ from nerf_keras_tpu_torch.utils import h5
 from nerf_keras_tpu_torch.utils.checkpoint import save_params_npz
 from nerf_keras_tpu_torch.utils.keras_export import export_reference_weights
 from nerf_keras_tpu_torch.utils.keras_import import import_reference_weights
-from nerf_keras_tpu_torch.utils.png import decode_png
+
+from torch_videos import capture_videos, video_frames
 
 torch.set_num_threads(1)
 
@@ -395,14 +396,6 @@ def test_export_cli_exports_the_ema_shadow(tmp_path):
         assert_same(_h5py_tree(a), _h5py_tree(b))
 
 
-def _frames(written: str, n: int) -> list[np.ndarray]:
-    if written.endswith(".mp4"):
-        import imageio.v2 as imageio
-
-        return [np.asarray(f) for f in imageio.mimread(written)]
-    names = sorted(os.listdir(written))
-    assert names == [f"{i:03d}.png" for i in range(n)]
-    return [decode_png(open(os.path.join(written, f), "rb").read()) for f in names]
 
 
 @pytest.mark.parametrize("quant", [False, True], ids=["float", "int8"])
@@ -413,6 +406,7 @@ def test_infer_reference_weights(quant, tmp_path, monkeypatch, capsys):
     uint8 level of the JAX CLI's on the same file (its int8 path runs
     the Pallas kernel interpreted, ~20 s on a CPU; ``tests/test_torch_quant.py``
     holds the int8 render to it)."""
+    videos = capture_videos(monkeypatch)
     cfg_path = _config(tmp_path)
     cfg = load_config(cfg_path)
     params, _ = _params(cfg, seed=3)
@@ -431,7 +425,7 @@ def test_infer_reference_weights(quant, tmp_path, monkeypatch, capsys):
     assert ("int8 gate PASS" in text) == quant
     same = run_inference(base + ["--checkpoint", ckpt, "--device", "cpu",
                                  "--out", str(tmp_path / "c.mp4")])
-    ours, same = _frames(ours, 2), _frames(same, 2)
+    ours, same = video_frames(videos, ours, 2), video_frames(videos, same, 2)
     for a, b in zip(ours, same):
         assert a.shape == (16, 16, 3)
         np.testing.assert_array_equal(a, b)

@@ -32,7 +32,7 @@ from nerf_keras_tpu.data import blender as jblender
 from nerf_keras_tpu.data import llff as jllff
 from nerf_keras_tpu_torch.data import blender as pblender
 from nerf_keras_tpu_torch.data import llff as pllff
-from nerf_keras_tpu_torch.utils import png
+from nerf_keras_tpu_torch.utils import hostbuild, png
 from nerf_keras_tpu_torch.utils.png import decode_png, png_transparency, to_rgba
 
 
@@ -297,7 +297,7 @@ def test_refused_png_raises_naming_the_file_as_pil_refuses(tmp_path, kind):
 def test_decoder_without_gxx_names_the_compiler(monkeypatch, tmp_path):
     monkeypatch.setattr(png, "_lib", None)
     monkeypatch.setattr(png, "library_path", lambda: tmp_path / "missing.so")
-    monkeypatch.setattr(png.shutil, "which", lambda name: None)
+    monkeypatch.setattr(hostbuild.shutil, "which", lambda name: None)
     with pytest.raises(RuntimeError, match="g\\+\\+"):
         decode_png(fx.write_png(np.zeros((2, 2)), 0, 8))
 

@@ -59,6 +59,7 @@ from nerf_keras_tpu_torch.parallel import mesh as pmesh
 from nerf_keras_tpu_torch.parallel.audit import artifact_digests, free_port, run_ranks
 from nerf_keras_tpu_torch.profile_train import bench_batch
 from nerf_keras_tpu_torch.utils.checkpoint import _flatten
+from nerf_keras_tpu_torch.utils.gif import decode_gif
 from tests.test_torch_dp_infer import _once
 from tests.test_torch_parallel import _grab_grads, _grad_errors, _jax_state, _leaves, _np, _rel
 
@@ -570,10 +571,9 @@ def test_split_entry_points_write_from_rank0_only(mesh12):
                 assert (flat_got[k] == v).all(), k
     inf0, inf1 = (r["cli"][1] for r in ranks)
     assert inf1["result"] is None and "int8 gate PASS" in inf0["stdout"]
-    frames = [n for n in files["one"] if n.startswith("v_frames/")]
-    assert len(frames) == 2
-    for name in frames:
-        assert files["r0"][name] == files["one"][name], name
+    assert [n for n in files["one"] if n.endswith(".gif")] == ["v.gif"]
+    assert files["r0"]["v.gif"] == files["one"]["v.gif"]
+    assert len(decode_gif(files["one"]["v.gif"])[0]) == 2
     serve0, serve1 = (r["cli"][2] for r in ranks)
     png, stats = serve0["result"]
     assert serve1["result"] == [] and png[:8] == b"\x89PNG\r\n\x1a\n"

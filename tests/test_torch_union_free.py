@@ -51,6 +51,8 @@ from nerf_keras_tpu_torch.profile_train import bench_batch
 from nerf_keras_tpu_torch.serving import RenderService, serve
 from nerf_keras_tpu_torch.utils.png import decode_png
 
+from torch_videos import capture_videos, video_frames
+
 torch.set_num_threads(1)
 
 NEAR, FAR = 2.0, 6.0
@@ -319,17 +321,7 @@ CLI_CFG = {"BATCH_SIZE": 128, "NS_COARSE": 8, "NS_FINE": 12, "HEIGHT": 16, "WIDT
            "DISTORTION_LOSS_MULT": 1e-4}
 
 
-def _frames(written, n):
-    if written.endswith(".mp4"):
-        import imageio.v2 as imageio
-
-        return [np.asarray(f) for f in imageio.mimread(written)]
-    names = sorted(os.listdir(written))
-    assert names == [f"{i:03d}.png" for i in range(n)]
-    return [decode_png(open(os.path.join(written, f), "rb").read()) for f in names]
-
-
-def test_cli_trains_scores_and_renders(tmp_path, capsys):
+def test_cli_trains_scores_and_renders(tmp_path, capsys, monkeypatch):
     """``cli.train_synthetic`` with the three knobs and an auto anneal
     horizon, then ``cli.evaluate`` (float and ``--quant int8``) and
     ``cli.infer`` (3 frames; ``--infer-cache`` saved, then loaded) on its
@@ -354,6 +346,7 @@ def test_cli_trains_scores_and_renders(tmp_path, capsys):
         assert np.isfinite(reports[quant]["mean"]["psnr"])
     assert reports["none"]["mean"]["psnr"] != reports["int8"]["mean"]["psnr"]
     cache = str(tmp_path / "uf.infer.npz")
+    videos = capture_videos(monkeypatch)
     argv = ["--config", str(cfg_path), "--checkpoint", str(run), "--frames", "3",
             "--chunk", "128", "--quant", "int8", "--quant-gate-db", "0",
             "--infer-cache", cache, "--device", "cpu"]
@@ -363,7 +356,7 @@ def test_cli_trains_scores_and_renders(tmp_path, capsys):
     second = run_inference(argv + ["--out", str(tmp_path / "b.mp4")])
     text = capsys.readouterr().out
     assert "loaded inference artifacts" in text and "saved inference" not in text
-    a, b = _frames(first, 3), _frames(second, 3)
+    a, b = video_frames(videos, first, 3), video_frames(videos, second, 3)
     assert all(f.shape == (16, 16, 3) for f in a)
     for x, y in zip(a, b):
         np.testing.assert_array_equal(x, y)
