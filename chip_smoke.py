@@ -301,7 +301,7 @@ nonzero — nothing falls back to the CPU or to a plain path):
     launches per chunk, 1 dB above a random-weight checkpoint's report;
     (d) ``cli.infer --path spiral --frames 2``, float (K1 only) and
     ``--quant int8`` (the gate passes, then K4 only).
-26. ``widths``: any hidden width up to 256 on the zero-padded packs, at
+26. ``widths``: any hidden width up to 512 on the zero-padded packs, at
     B = 1,024, S = 64: K1 (both modes), K2, K3, K5 (with input gradients)
     and K6 at hidden 16, 96 and 192 (padded to 64, 128, 256) against their
     plain versions at the same width within the bf16 gates of phases 3-5,
@@ -311,6 +311,26 @@ nonzero — nothing falls back to the CPU or to a plain path):
     48, 96 and 192 (padded int8 tables) within phase 11's gates; a
     checkpoint, ``infer_digest`` and a Keras export at hidden 96 hold the
     same bytes in every array before and after the padded packs are built;
+    and above 256 on the hidden-512 kernels (the 64-row tile whose two
+    warpgroups split each layer's columns): every kernel of the suite
+    (K5's backward without input gradients, which raise above 256) at
+    hidden 320 (padded to 512) and 512, within the same gates, each also
+    run on a forward pack whose second warpgroup's trunk columns are zero,
+    which must miss its gate by 10x; K4 at 320 and 512, and its tables
+    with the skip rows zeroed missing by 10x;
+26b. ``wide``: the 8x512 main path (``config/lego_batch_h256_tpu.json``
+    with HIDDEN_DIM 512: 8 layers, skip 4, L 10/4, 64 + 128 samples, batch
+    4096, bf16, random biases): one step's gradients kernel path vs plain
+    path (same draws), 10 parity steps through K1 + K2 (two K1
+    training-mode and two K2 launches a step, the loss lower after the
+    last than after the first, peak memory <= 1,536 MiB);
+    a 200x200 float frame (two K1 a chunk), int8 tables calibrated on it and
+    its int8 frame through K4 alone (two a chunk) at >= 30 dB of the float
+    frame; the checkpoint served once over HTTP (two K1 a chunk); then K1,
+    K1 in training mode and K2 at B = 4096, S = 192 and K4 at B = 16384, S
+    = 192 against their plain versions, with CUDA-event times, bounds and
+    library yardsticks, for the kernels line's 8x512 entries (their
+    launches are this phase's main path's);
 27. ``f32``: COMPUTE_DTYPE=float32 at ``lego_batch_h256_tpu``'s widths:
     (a) each f32 kernel (``csrc/fused_render_f32.cu``: K1 both modes, K2,
     K3, K5 forward and backward with input gradients, K6 forward and
@@ -749,7 +769,12 @@ def library_products_ms(desc: np.ndarray, m: int, dtype: torch.dtype, dev) -> fl
     acts = {k: rand(m, k) for k in sorted({int(k) for k in desc[:, 0]})}
     # B column-major, cuBLAS's native layout for int8.
     mats = [(acts[int(k)], rand(int(n), int(k)).t()) for k, _, n, _, _ in desc]
-    ms = cuda_ms(lambda: [mm(a, w) for a, w in mats])
+
+    def products():  # each output dropped before the next (8x512's would take 61 GB)
+        for a, w in mats:
+            mm(a, w)
+
+    ms = cuda_ms(products)
     del acts, mats
     torch.cuda.empty_cache()
     return ms
@@ -4131,6 +4156,7 @@ F32_TOL_REL = 1e-5
 F32_STEP_TOL_REL = 1e-3
 WIDTHS_PADDED = (16, 96, 192)
 WIDTHS_NATIVE = (64, 128, 256)
+WIDTHS_WIDE = (320, 512)  # the hidden-512 kernels: 320 padded, 512 native
 
 
 def peak_f32() -> float:
@@ -4173,12 +4199,19 @@ def _suite_inputs(mlp: NeRFMLP, b: int, s: int, seed: int) -> dict:
 SUITE = ("k1", "k1_train", "k2", "k3", "k6_fwd", "k6_bwd", "k5_fwd", "k5_bwd")
 
 
+def _k5_input_grads(mlp: NeRFMLP) -> bool:
+    """Whether the suite's K5 backward takes input gradients: up to hidden
+    256 (``fused_render.MAX_HIDDEN_IG``; wider raises)."""
+    return mlp.hidden_dim <= k1.MAX_HIDDEN_IG
+
+
 def _suite_calls(mlp: NeRFMLP, x: dict) -> dict:
     """Each kernel of the suite as a call on ``x``'s inputs, returning its
     outputs as a list: K1 (rgb, weights), K1 in training mode (with its
     predictions), K2 and K3 (gradients of <rgb, g_rgb> + <weights, g_w>
     from K1's residuals), K6 forward and backward (over the per-sample
-    encodings), K5 forward and backward with input gradients."""
+    encodings), K5 forward and backward, with input gradients up to
+    hidden 256 (:func:`_k5_input_grads`)."""
     o, d, t, g_rgb, g_w = x["o"], x["d"], x["t"], x["g_rgb"], x["g_w"]
     lx, ld = mlp.l_xyz, mlp.l_dir
     b, s = t.shape
@@ -4204,8 +4237,9 @@ def _suite_calls(mlp: NeRFMLP, x: dict) -> dict:
         return k1.launch_k6_bwd(mlp, x["x_enc"], x["d_enc"], t, preds, g_rgb)
 
     def k5_bwd():
-        grads, dx, dd = k5.launch_k5_bwd(mlp, x2, d2, x["g5"], True, True)
-        return grads + [dx, dd]
+        ig = _k5_input_grads(mlp)
+        grads, dx, dd = k5.launch_k5_bwd(mlp, x2, d2, x["g5"], ig, ig)
+        return grads + ([dx, dd] if ig else [])
 
     return {
         "k1": lambda: list(k1.render_rays_fused(mlp, o, d, t, l_xyz=lx, l_dir=ld,
@@ -4233,8 +4267,9 @@ def _suite_plain(mlp: NeRFMLP, x: dict) -> dict:
             return [rgb, w, mlp(x2, d2)]
 
     def k5_bwd():
-        grads, dx, dd = k5.apply_nerf_mlp_reference_vjp(mlp, x2, d2, x["g5"], True)
-        return grads + [dx, dd]
+        ig = _k5_input_grads(mlp)
+        grads, dx, dd = k5.apply_nerf_mlp_reference_vjp(mlp, x2, d2, x["g5"], ig)
+        return grads + ([dx, dd] if ig else [])
 
     def no_grad(fn):
         def call():
@@ -4267,22 +4302,54 @@ def _suite_errors(got: list, want: list) -> dict:
             "rel_l2": max(rel), "rel_l2_each": rel}
 
 
-def _bf16_gate_ok(name: str, e: dict) -> bool:
-    """K1-K6's bf16 gates (the same gates phases 3-5, 14 and 15 hold them
-    to), by the suite's error figures."""
+def _bf16_gate_miss(name: str, e: dict) -> float:
+    """How far the suite's error figures are beyond K1-K6's bf16 gates (the
+    same gates phases 3-5, 14 and 15 hold them to; 1 = at the gate)."""
     if name in ("k1", "k6_fwd", "k1_train"):
-        return e["mean_abs"] <= TOL_MEAN and e["max_abs"] <= (
-            PREDS_TOL if name == "k1_train" else TOL_MAX)
+        return max(e["mean_abs"] / TOL_MEAN,
+                   e["max_abs"] / (PREDS_TOL if name == "k1_train" else TOL_MAX))
     if name == "k5_fwd":
-        return e["max_abs"] <= K5_PREDS_MAX and e["mean_abs"] <= K5_PREDS_MEAN
-    return e["rel_l2"] <= (K5_TOL_REL if name == "k5_bwd" else K2_TOL_REL)
+        return max(e["max_abs"] / K5_PREDS_MAX, e["mean_abs"] / K5_PREDS_MEAN)
+    return e["rel_l2"] / (K5_TOL_REL if name == "k5_bwd" else K2_TOL_REL)
+
+
+def _bf16_gate_ok(name: str, e: dict) -> bool:
+    """K1-K6's bf16 gates, by the suite's error figures."""
+    return _bf16_gate_miss(name, e) <= 1.0
+
+
+@contextlib.contextmanager
+def _forward_pack(pack: k1.KernelPack):
+    """Every bf16 kernel (K1, K5, K6 and the backwards' recompute) reads
+    ``pack`` as the MLP's forward pack inside the block."""
+    saved = k1.kernel_pack, k5.kernel_pack
+    k1.kernel_pack = k5.kernel_pack = lambda mlp, device: pack
+    try:
+        yield
+    finally:
+        k1.kernel_pack, k5.kernel_pack = saved
+
+
+def _broken_wide_pack(mlp: NeRFMLP, dev) -> k1.KernelPack:
+    """The forward pack of a model on the split tile with the second
+    warpgroup's part of every trunk layer (output columns [256, 512) of the
+    padded layers) zeroed, weights and biases."""
+    hp = k1.kernel_width(mlp.hidden_dim)
+    layers = [(w.detach().clone(), b.detach().clone()) for w, b in k1._dense_layers(mlp, hp)]
+    for w, b in layers[:mlp.num_layers]:
+        w[hp // 2:] = 0.0
+        b[hp // 2:] = 0.0
+    return k1._pack_wg(layers, dev)
 
 
 def _run_suite(mlp: NeRFMLP, x: dict, names=SUITE, reps: int = 5,
-               plain_ms: bool = False) -> dict:
+               plain_ms: bool = False, broken: k1.KernelPack | None = None) -> dict:
     """Every kernel of ``names`` once against its plain version, synchronised;
-    then its CUDA-event time (and, with ``plain_ms``, the plain version's)."""
+    with ``broken``, once more on that forward pack (``broken_miss``: how far
+    beyond its gate); then its CUDA-event time (and, with ``plain_ms``, the
+    plain version's)."""
     calls, plain = _suite_calls(mlp, x), _suite_plain(mlp, x)
+    bad_calls = _suite_calls(mlp, x)  # K2's residuals cached apart
     out = {}
     for name in names:
         with torch.no_grad():
@@ -4291,6 +4358,12 @@ def _run_suite(mlp: NeRFMLP, x: dict, names=SUITE, reps: int = 5,
         want = plain[name]()
         errs = _suite_errors(got, want)
         errs["finite"] = all(bool(torch.isfinite(g.float()).all()) for g in got)
+        if broken is not None:
+            del got
+            with torch.no_grad(), _forward_pack(broken):
+                got = bad_calls[name]()
+                torch.cuda.synchronize()
+            errs["broken_miss"] = _bf16_gate_miss(name, _suite_errors(got, want))
         del got, want
         with torch.no_grad():
             errs["ms"] = cuda_ms(calls[name], reps=reps)
@@ -4306,8 +4379,10 @@ def phase_widths(card: str) -> dict:
     at hidden 16, 96 and 192 (zero-padded to 64, 128 and 256) against
     their plain versions at the same width, within the bf16 gates; the same
     kernels at 64, 128 and 256 for the padding's cost; K5's input
-    gradients (and K1/K2) at L 4/2 and 16/6; K4 at hidden 48, 96 and 192.
-    B = 1,024, S = 64."""
+    gradients (and K1/K2) at L 4/2 and 16/6; every kernel at 320 (padded)
+    and 512 on the split tile, K5 without input gradients, each against a
+    broken pack that must miss by 10x; K4 at hidden 48, 96, 192, 320 and
+    512.  B = 1,024, S = 64."""
     dev = torch.device("cuda")
     b, s = 1024, 64
     report = {"ms": {}}
@@ -4327,10 +4402,26 @@ def phase_widths(card: str) -> dict:
         report["ms"][(hidden, lx, ld)] = {n: e["ms"] for n, e in res.items()}
         del mlp, x
         torch.cuda.empty_cache()
-    # K4 at widths it pads (48 -> 64, 96 -> 128, 192 -> 256), against its
-    # plain version on the same tables; rays of the 64x64 orbit pose.
+    for hidden in WIDTHS_WIDE:
+        mlp = _suite_mlp(dev, hidden, seed=hidden + 10)
+        x = _suite_inputs(mlp, b, s, seed=hidden)
+        res = _run_suite(mlp, x, SUITE, broken=_broken_wide_pack(mlp, dev))
+        bad = [n for n, e in res.items() if not (e["finite"] and _bf16_gate_ok(n, e))]
+        unseen = [n for n, e in res.items() if not e["broken_miss"] >= 10.0]
+        say("widths", hidden=hidden, kernel_width=k1.kernel_width(hidden), l_xyz=10, l_dir=4,
+            B=b, S=s, k5_input_grads=_k5_input_grads(mlp), results=res, failed=bad,
+            broken_pack_not_caught=unseen, card=card)
+        if bad or unseen:
+            raise RuntimeError(f"widths: hidden {hidden}: {bad} miss the bf16 gates, or a "
+                               f"broken pack passes {unseen}: {res}")
+        report["ms"][(hidden, 10, 4)] = {n: e["ms"] for n, e in res.items()}
+        del mlp, x
+        torch.cuda.empty_cache()
+    # K4 at widths it pads (48 -> 64, 96 -> 128, 192 -> 256, 320 -> 512)
+    # and at 512, against its plain version on the same tables; rays of the
+    # 64x64 orbit poses.  Above 256 the skip rows zeroed must miss by 10x.
     o, d = _orbit_rays(dev)
-    for hidden in (48, 96, 192):
+    for hidden in (48, 96, 192) + WIDTHS_WIDE:
         mlp = _suite_mlp(dev, hidden, seed=hidden)
         qp = _calibrated_qparams(mlp, dev)
         t = generate_t_vals(2.0, 6.0, (o.shape[0],), s, "stratified",
@@ -4340,11 +4431,19 @@ def phase_widths(card: str) -> dict:
         errs = _errs(got, k4.render_rays_reference_quant(qp, o, d, t))
         ms = cuda_ms(lambda: k4.render_rays_fused_quant(qp, o, d, t), reps=5)
         finite = bool(torch.isfinite(got[0]).all() and torch.isfinite(got[1]).all())
+        broken_miss = None
+        if hidden in WIDTHS_WIDE:
+            bad_qp = _broken_qparams(qp, hidden, 4, "skip")
+            broken_miss = _miss(_errs(k4.render_rays_fused_quant(bad_qp, o, d, t),
+                                      k4.render_rays_reference_quant(qp, o, d, t)))
         say("widths_k4", hidden=hidden, kernel_width=k1.kernel_width(hidden, k4.K4_HIDDEN),
             B=o.shape[0], S=s, **errs, tol_max=K4_TOL_MAX, tol_mean=K4_TOL_MEAN, ms=ms,
-            finite=finite, card=card)
+            finite=finite, broken_skip_miss=broken_miss, card=card)
         if not finite or _miss(errs) > 1.0:
             raise RuntimeError(f"widths: K4 at hidden {hidden} misses its gates: {errs}")
+        if broken_miss is not None and not broken_miss >= 10.0:
+            raise RuntimeError(f"widths: K4's gates cannot see zeroed skip rows at hidden "
+                               f"{hidden}: {broken_miss}")
         report["ms"][("k4", hidden)] = ms
     # The padded pack never reaches a checkpoint, a digest or a Keras export:
     # each written before and after a frame (which builds the packs) holds
@@ -4373,6 +4472,180 @@ def phase_widths(card: str) -> dict:
     del trainer
     torch.cuda.empty_cache()
     return report
+
+
+# Phase 26b: the 8x512 main path.  The model is
+# config/lego_batch_h256_tpu.json with HIDDEN_DIM 512, the widest the
+# one-block kernels take (ROADMAP.md queue 2 A3).
+WIDE_HIDDEN = 512
+# Steps on one fixed batch: Adam's first updates at lr 5e-4 raise the loss
+# at 8x512 before it falls (on an H100: 0.0853, 0.1082, 0.0871 over the
+# first three), so the loss is held to fall over this many.
+WIDE_STEPS = 10
+
+
+def wide_config() -> NeRFConfig:
+    return dataclasses.replace(load_config(CONFIG), hidden_dim=WIDE_HIDDEN)
+
+
+def _wide_kernels(card: str, mlp: NeRFMLP, qp: dict) -> dict:
+    """K1, K1 in training mode and K2 at B = 4096, S = 192 (the parity
+    step's fine pass) and K4 at B = 16384, S = 192 (the server's chunk) on
+    the 8x512 model: each against its plain version, CUDA-event times,
+    bounds and library yardsticks."""
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(11)
+    _, o, d = (torch.as_tensor(x, device=dev) for x in bench_batch(4096, seed=3))
+    b, s = o.shape[0], 192
+    t = generate_t_vals(2.0, 6.0, (b,), s, "stratified", generator=gen).to(dev).contiguous()
+    g_rgb = (torch.randn((b, 3), generator=gen) * 1e-3).to(dev)
+    out = {}
+    with torch.no_grad():
+        rgb, w = k1.render_rays_fused(mlp, o, d, t)
+        rgb_t, w_t, x_enc, preds = k1.launch_k1(mlp, o, d, t, 10, 4, train=True)
+        got = k1.launch_k2(mlp, x_enc, d, t, preds, g_rgb, None, 10, 4)
+        torch.cuda.synchronize()
+        rgb_p, w_p = k1.render_rays_reference(mlp, o, d, t)
+        d_enc = encode_position(d, 4)[:, None, :].expand(b, s, -1).reshape(b * s, -1)
+        preds_err = float((preds - mlp(x_enc.float(), d_enc)).abs().max())
+        del d_enc
+    errs = _errs((rgb, w), (rgb_p, w_p))
+    if not (torch.equal(rgb, rgb_t) and torch.equal(w, w_t)):
+        raise RuntimeError("wide: K1 in training mode changed its rgb/weights")
+    if (max(errs["rgb_max"], errs["w_max"]) > TOL_MAX
+            or max(errs["rgb_mean"], errs["w_mean"]) > TOL_MEAN or preds_err > PREDS_TOL):
+        raise RuntimeError(f"wide: K1 disagrees with the plain version: {errs}, {preds_err}")
+    want = k1.render_rays_reference_vjp(mlp, o, d, t, g_rgb, None)
+    plain_ms = cuda_ms(lambda: k1.render_rays_reference_vjp(mlp, o, d, t, g_rgb, None), reps=3)
+    torch.cuda.empty_cache()
+    max_abs, rel = _leaf_errors(got, want)
+    if rel > K2_TOL_REL or not all(bool(torch.isfinite(g).all()) for g in got):
+        raise RuntimeError(f"wide: K2 disagrees with the plain backward: rel L2 {rel}")
+    del want, got
+    with torch.no_grad():
+        out["k1"] = {"err": max(errs["rgb_max"], errs["w_max"]),
+                     "ms": cuda_ms(lambda: k1.render_rays_fused(mlp, o, d, t), reps=5),
+                     "plain_ms": cuda_ms(lambda: k1.render_rays_reference(mlp, o, d, t),
+                                         reps=3),
+                     "bound": k1_bound(mlp, b, s, train=False)}
+        out["k1_train"] = {
+            "err": preds_err, "plain_ms": out["k1"]["plain_ms"],
+            "ms": cuda_ms(lambda: k1.launch_k1(mlp, o, d, t, 10, 4, train=True), reps=5),
+            "bound": k1_bound(mlp, b, s, train=True)}
+        out["k2"] = {"err": max_abs, "rel_l2": rel, "plain_ms": plain_ms,
+                     "ms": cuda_ms(lambda: k1.launch_k2(mlp, x_enc, d, t, preds, g_rgb, None,
+                                                        10, 4), reps=5),
+                     "bound": k2_bound(mlp, b, s)}
+    del x_enc, preds, rgb_p, w_p
+    torch.cuda.empty_cache()
+    out["k1"]["library_ms"] = out["k1_train"]["library_ms"] = library_products_ms(
+        k1.kernel_pack(mlp, dev).desc, b * s, torch.bfloat16, dev)
+    out["k2"]["library_ms"] = _dw_library_ms(mlp, dev, b * s)
+    # K4 at the server's chunk: 16384 rays of a 128x128 pose.
+    o4, d4 = get_rays(128, 128, 1.2 * 128, pose_spherical(30.0, -30.0, 4.0), device=dev)
+    o4, d4 = o4.reshape(-1, 3).contiguous(), d4.reshape(-1, 3).contiguous()
+    t4 = generate_t_vals(2.0, 6.0, (o4.shape[0],), s, "stratified",
+                         generator=gen).to(dev).contiguous()
+    got4 = k4.render_rays_fused_quant(qp, o4, d4, t4)
+    torch.cuda.synchronize()
+    e4 = _errs(got4, k4.render_rays_reference_quant(qp, o4, d4, t4))
+    if _miss(e4) > 1.0:
+        raise RuntimeError(f"wide: K4 disagrees with the plain version: {e4}")
+    out["k4"] = {"err": max(e4["rgb_max"], e4["w_max"]),
+                 "ms": cuda_ms(lambda: k4.render_rays_fused_quant(qp, o4, d4, t4), reps=5),
+                 "plain_ms": cuda_ms(lambda: k4.render_rays_reference_quant(qp, o4, d4, t4),
+                                     reps=3),
+                 "bound": k4_bound(mlp, o4.shape[0], s)}
+    del got4
+    torch.cuda.empty_cache()
+    hq = k1.kernel_width(WIDE_HIDDEN, k4.K4_HIDDEN)
+    out["k4"]["library_ms"] = library_products_ms(
+        k4.kernel_pack(qp, dev).desc, o4.shape[0] * s, torch.int8, dev)
+    say("wide_kernels", hidden=WIDE_HIDDEN, k4_width=hq, B=b, S=s, B_k4=o4.shape[0],
+        k1_errs=errs, k2_rel_l2=rel, tol_rel=K2_TOL_REL, k4_errs=e4,
+        **{k: {n: v for n, v in e.items()} for k, e in out.items()}, card=card)
+    return out
+
+
+def phase_wide(card: str, tmp: str) -> tuple[list[dict], dict]:
+    """Phase 26b (module docstring): the 8x512 main path, then its kernels'
+    numbers.  Returns the main path's launches and ``_wide_kernels``."""
+    cfg = wide_config()
+    n_chunks = -(-200 * 200 // 16384)
+    pose = pose_spherical(30.0, -30.0, 4.0)
+    trainer = Trainer(cfg, 2.0, 6.0, device="cuda")
+    for m in trainer.params.values():
+        randomize_biases_(m, torch.Generator().manual_seed(5))
+    batch = trainer.put_batch(bench_batch(cfg.batch_size))
+    torch.cuda.reset_peak_memory_stats()
+    losses, by_model, max_abs, _ = _grads_kernel_vs_plain(
+        cfg, trainer, batch, [(cfg.batch_size, cfg.ns_fine)], seed=7)
+    rel = max(max(v) for v in by_model.values())
+    say("wide_grads_vs_plain", hidden=cfg.hidden_dim, rays=cfg.batch_size,
+        loss_kernel=losses[0], loss_plain=losses[1], max_abs_err=max_abs, max_rel_l2=rel,
+        tol_rel=STEP_TOL_REL, peak_mib=torch.cuda.max_memory_allocated() / 2**20, card=card)
+    if rel > STEP_TOL_REL:
+        raise RuntimeError(f"wide: kernel-path gradients disagree with the plain path: {rel}")
+    torch.cuda.empty_cache()
+    run = _train_steps(trainer, batch, WIDE_STEPS, dict(ZERO, k1_train=2, k2=2))
+    say("wide_train", hidden=cfg.hidden_dim, steps=WIDE_STEPS, **run, card=card)
+    if not (all(np.isfinite(x) for x in run["loss_curve"])
+            and run["loss_curve"][-1] < run["loss_curve"][0]):
+        raise RuntimeError(f"wide: the loss did not fall: {run['loss_curve']}")
+    if run["peak_step_mib"] > STEP_PEAK_MIB:
+        raise RuntimeError(f"wide: a step peaked at {run['peak_step_mib']} MiB")
+    launches = [run["launches"]]
+    reset_counts()
+    t0 = time.perf_counter()
+    frame = trainer.render_image(pose, 200, 200, 240.0)
+    frame_s = time.perf_counter() - t0
+    launches.append(counts())
+    if launches[-1] != dict(ZERO, k1_fwd=2 * n_chunks):
+        raise RuntimeError(f"wide: the float frame launched {launches[-1]}")
+    rgb = frame["rgb"]
+    if not (np.isfinite(rgb).all() and np.isfinite(frame["depth"]).all()) or rgb.std() == 0:
+        raise RuntimeError("wide: a non-finite or constant float frame")
+    trainer.quantize_for_inference(*trainer.pose_rays(pose, 200, 200, 240.0))
+    reset_counts()
+    qframe = trainer.render_image(pose, 200, 200, 240.0, quant=True)
+    launches.append(counts())
+    psnr = frame_psnr(rgb, qframe["rgb"])
+    say("wide_frames", size=200, float_s=frame_s, float_launches=launches[-2],
+        int8_launches=launches[-1], int8_psnr_vs_float_db=psnr, gate_db=QUANT_GATE_DB,
+        card=card)
+    if launches[-1] != dict(ZERO, k4=2 * n_chunks):
+        raise RuntimeError(f"wide: the int8 frame launched {launches[-1]}")
+    if not (np.isfinite(qframe["rgb"]).all() and psnr >= QUANT_GATE_DB):
+        raise RuntimeError(f"wide: the int8 frame reads {psnr} dB against the float frame")
+    ckpt = os.path.join(tmp, "wide.ckpt.npz")
+    trainer.save(ckpt, scene={"near": 2.0, "far": 6.0})
+    mlp, qp = trainer.params["fine"], trainer.qparams["fine"]
+    service = RenderService(cfg, ckpt, device="cuda")
+    server = serve(service, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        reset_counts()
+        png, seconds = _get(f"http://127.0.0.1:{server.server_address[1]}/render?theta=30"
+                            f"&phi=-30&radius=4&width=200&height=200&chunk=16384&map=rgb")
+        launches.append(counts())
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    img = decode_png(png)
+    say("wide_serve", size=200, latency_s=seconds, launches=launches[-1],
+        shape=list(img.shape), std=float(img.std()), card=card)
+    if img.shape != (200, 200, 3) or img.std() == 0:
+        raise RuntimeError(f"wide: the served frame is {img.shape}, std {img.std()}")
+    if launches[-1] != dict(ZERO, k1_fwd=2 * n_chunks):
+        raise RuntimeError(f"wide: the served frame launched {launches[-1]}")
+    del service, batch
+    torch.cuda.empty_cache()
+    kernels = _wide_kernels(card, mlp, qp)
+    del trainer
+    torch.cuda.empty_cache()
+    return launches, kernels
 
 
 class _F64SumDense(torch.autograd.Function):
@@ -4847,6 +5120,8 @@ def main() -> None:
         torch.cuda.empty_cache()
         wr = phase_widths(card)
         torch.cuda.empty_cache()
+        wide_runs, wide = phase_wide(card, tmp)
+        torch.cuda.empty_cache()
         f32_runs, f32r = phase_f32(card, tmp)
         runs += f32_runs
         torch.cuda.empty_cache()
@@ -4923,6 +5198,15 @@ def main() -> None:
                  "K6f-f32": "k6_fwd", "K6b-f32": "k6_bwd"}[key]]
         kernels.append(kernel_entry(name, key, _sum(runs, count), e["max_abs"], e["ms"],
                                     e["plain_ms"], (e["bound_ms"], e["bound_by"]), library))
+    # The 8x512 kernels (phase 26b), each with its launches on phase 26b's
+    # main path.
+    for name, key, count in (("K1 fused_render_fwd (8x512)", "K1", "k1"),
+                             ("K1-train fused_render_fwd (residuals, 8x512)", "K1", "k1_train"),
+                             ("K2 fused_render_bwd (8x512)", "K2", "k2"),
+                             ("K4 quant_render_fwd (8x512)", "K4", "k4")):
+        e = wide[count]
+        kernels.append(kernel_entry(name, key, _sum(wide_runs, "k1_fwd" if count == "k1" else count),
+                                    e["err"], e["ms"], e["plain_ms"], e["bound"], e["library_ms"]))
     say("widths_ms", ms={str(k): v for k, v in wr["ms"].items()}, card=card)
     for entry in kernels:
         if entry["launches"] == 0:

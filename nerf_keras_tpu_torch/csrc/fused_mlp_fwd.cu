@@ -34,7 +34,10 @@
 // buffer.  Ragged N is masked in the kernel: rows past N load zeros and
 // are not written.  Shared memory at 8x256: the 128 x 328 bf16 activation
 // tile (83,968 B), the outputs (2,048 B) and a ring of 4 stages of 264 x
-// 64 bf16 (135,168 B).
+// 64 bf16 (135,168 B).  At 8x512 (nerf_wgmlp.cuh's split tile: 64 rows,
+// each layer's columns split over the two warpgroups) the 64 x 584 tile
+// (74,752 B), the outputs (1,024 B) and 4 stages of 520 x 32 bf16
+// (133,120 B): 209,024 B; 4.60 MFLOP a sample.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -shared -Xcompiler -fPIC.
@@ -60,6 +63,8 @@ template <int H>
 __global__ void __launch_bounds__(kWgThreads, 1)
     fused_mlp_fwd_kernel(const __grid_constant__ Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
+  using T = WgTile<H>;
+  constexpr int kRows = T::kRows;
   const MlpDims& m = p.m;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -72,8 +77,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   ring.stages = p.stages;
   ring.stage_bytes = p.stage_bytes;
   __nv_bfloat16* act = reinterpret_cast<__nv_bfloat16*>(ring.buf + p.stages * p.stage_bytes);
-  float* sig = reinterpret_cast<float*>(act + kWgRows * ldx);  // (128)
-  float* rgbl = sig + kWgRows;                                  // (128, 3)
+  float* sig = reinterpret_cast<float*>(act + kRows * ldx);  // (rows)
+  float* rgbl = sig + kRows;                                  // (rows, 3)
 
   if (threadIdx.x == 0) ring_init(ring);
   __syncthreads();
@@ -83,19 +88,19 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     if (warp == kConsumerWarps && lane == 0) {
       RingPos rp;
       for (int tile = blockIdx.x; tile < p.ntiles; tile += gridDim.x)
-        produce_forward(m, p.w, ring, rp);
+        produce_forward(m, p.w, ring, rp, T::kKsTile);
     }
     return;
   }
   reg_alloc<kConsumerRegs>();
 
-  const int wrow = warp * 16;  // this warp's rows of every tile
+  const int wrow = row_warp<H>() * 16;  // this warp's rows of every tile
   __nv_bfloat16* wact = act + wrow * ldx;
   float* wsig = sig + wrow;
   float* wrgb = rgbl + wrow * 3;
   RingPos rp;
   for (int tile = blockIdx.x; tile < p.ntiles; tile += gridDim.x) {
-    const long long q0 = (long long)tile * kWgRows + wrow;  // sample of the warp's row 0
+    const long long q0 = (long long)tile * kRows + wrow;  // sample of the warp's row 0
     const int valid = (int)min(16LL, p.N - q0);              // may be <= 0
     auto xf = [&](int row, int c) {
       return row < valid && c < m.xyz_dim ? p.x_enc[(q0 + row) * m.xyz_dim + c]
@@ -105,14 +110,14 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       return row < valid && c < m.dir_dim ? p.d_enc[(q0 + row) * m.dir_dim + c]
                                           : __float2bfloat16_rn(0.f);
     };
-    for (int i = lane; i < 16 * m.xyz_pad; i += 32) {
+    for (int i = peer_lane<H>(); i < 16 * m.xyz_pad; i += T::kLanes) {
       const int row = i / m.xyz_pad, c = i - row * m.xyz_pad;
       wact[row * ldx + c] = xf(row, c);
     }
-    __syncwarp();
+    rows_sync<H>();
     mlp_forward_wg<H>(m, p.b, wact, xf, dir, wsig, wrgb, valid, ring, rp);
     float* out = p.preds + q0 * 4;
-    for (int i = lane; i < valid * 4; i += 32) {
+    for (int i = peer_lane<H>(); i < valid * 4; i += T::kLanes) {
       const int row = i >> 2, c = i & 3;
       out[i] = c < 3 ? wrgb[row * 3 + c] : wsig[row];
     }
@@ -126,8 +131,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 // (ops/kernels/fused_render.py: pack_weights_wg); `dense_desc` is a HOST
 // array of n_dense * 5 ints (k_pad, n, n_pad, w_off, b_off) in the order
 // trunk[0..num_layers), merged feature+sigma head, branch, rgb.  hidden is
-// 64, 128 or 256.  `grid` blocks (at most the SMs) stride over the
-// ceil(N / 128) tiles.  Launches on `stream` and returns
+// 64, 128, 256 or 512.  `grid` blocks (at most the SMs) stride over the
+// ceil(N / rows) tiles (wg_rows: 128, or 64 at hidden 512).  Launches on `stream` and returns
 // cudaGetLastError() (0 on success); does not synchronise and allocates
 // nothing.
 extern "C" int nkt_fused_mlp_fwd(
@@ -148,10 +153,11 @@ extern "C" int nkt_fused_mlp_fwd(
   p.b = static_cast<const float*>(b_pack);
   p.preds = static_cast<float*>(preds_out);
   p.N = N;
-  p.ntiles = (N + kWgRows - 1) / kWgRows;
-  p.stage_bytes = wg_stage_bytes(p.m.dense, n_dense);
-  const size_t rest = kBarBytes + sizeof(__nv_bfloat16) * (size_t)kWgRows * p.m.ldx +
-                      sizeof(float) * (size_t)kWgRows * 4;
+  const int rows = wg_rows(hidden);
+  p.ntiles = (N + rows - 1) / rows;
+  p.stage_bytes = wg_stage_bytes(p.m.dense, n_dense, wg_ks(hidden));
+  const size_t rest = kBarBytes + sizeof(__nv_bfloat16) * (size_t)rows * p.m.ldx +
+                      sizeof(float) * (size_t)rows * 4;
   if (rest + 2 * (size_t)p.stage_bytes > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
   const size_t fit = ((size_t)kMaxSmem - rest) / p.stage_bytes;
   p.stages = fit < (size_t)kMaxStages ? (int)fit : kMaxStages;
@@ -159,6 +165,7 @@ extern "C" int nkt_fused_mlp_fwd(
   void (*kernel)(const Params) = fused_mlp_fwd_kernel<256>;
   if (hidden == 64) kernel = fused_mlp_fwd_kernel<64>;
   if (hidden == 128) kernel = fused_mlp_fwd_kernel<128>;
+  if (hidden == 512) kernel = fused_mlp_fwd_kernel<512>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<grid < p.ntiles ? grid : p.ntiles, kWgThreads, smem,

@@ -23,7 +23,7 @@
 // when the pointer is given.
 //
 // What bounds it: ~2.3 MFLOP of products per sample at full width (the
-// forward recompute, the dX chain and dW), with dW summed over every
+// forward recompute, the dX chain and dW; ~9 MFLOP at 8x512), with dW summed over every
 // sample of the batch (655,360 at the bench step) into 595,844 f32
 // parameters.  The TPU grid runs in order and keeps dW resident in VMEM;
 // Hopper's blocks run in parallel with 227 KB of shared memory each, and
@@ -54,7 +54,14 @@
 //      column-sum scratch (16,384 B) and a ring of 2 weight stages of 264
 //      x 64 bf16 (67,584 B): 214,720 B, one block per SM.  Its epilogues
 //      (masks, bf16 stores, column sums) take ~40% of its time on an H100
-//      (PERF.md).
+//      (PERF.md).  At hidden 512 (nerf_wgmlp.cuh's split tile: 64-row
+//      tiles, each layer's columns split over the two warpgroups, the dX
+//      products' too, 32-deep stages): the 64 x 584 activation tile
+//      (74,752 B), the ReLU bits of 9 layers (36,864 B), the bias sums
+//      (19,520 B), the column-sum scratch of the tile's 4 row groups
+//      (16,384 B) and 2 stages of 520 x 32 bf16 (66,560 B): 214,208 B.  A
+//      sample's workspace is 19,840 B there (10,112 at 8x256), so a chunk
+//      of DW_CHUNK_BYTES holds about half the samples.
 //   3. mlp_dw_kernel (nerf_dw.cuh): dW = A^T D per layer on wgmma with
 //      both operands MN-major in shared memory, stages of 64 samples
 //      brought by bulk copies, split over sample ranges; each block adds
@@ -150,6 +157,8 @@ struct RowParams {
 template <int H, int MODE, bool kIG = false, int kXC = 64, int kDC = 32>
 __device__ __forceinline__ void rows_body(const RowParams& p) {
   extern __shared__ __align__(128) unsigned char smem[];
+  using T = WgTile<H>;
+  constexpr int kRows = T::kRows;
   const MlpBwdParams& mb = p.mb;
   const MlpDims& m = mb.m;
   const int tid = threadIdx.x;
@@ -167,9 +176,9 @@ __device__ __forceinline__ void rows_body(const RowParams& p) {
   ring.stages = p.stages;
   ring.stage_bytes = p.stage_bytes;
   __nv_bfloat16* act = reinterpret_cast<__nv_bfloat16*>(ring.buf + p.stages * p.stage_bytes);
-  uint32_t* masks = reinterpret_cast<uint32_t*>(act + kWgRows * ldx);  // (L+1) x (128, MW)
-  float* scratch = reinterpret_cast<float*>(masks + (L + 1) * kWgRows * MW);  // 2 x 8 x sld
-  float* db = scratch + 2 * kConsumerWarps * p.sld;  // (total_b), the forward bias-pack layout
+  uint32_t* masks = reinterpret_cast<uint32_t*>(act + kRows * ldx);  // (L+1) x (rows, MW)
+  float* scratch = reinterpret_cast<float*>(masks + (L + 1) * kRows * MW);  // 2 x rows/16 x sld
+  float* db = scratch + 2 * T::kRowWarps * p.sld;  // (total_b), the forward bias-pack layout
 
   if (tid == 0) ring_init(ring);
   for (int i = tid; i < p.total_b; i += kWgThreads) db[i] = 0.f;
@@ -180,18 +189,18 @@ __device__ __forceinline__ void rows_body(const RowParams& p) {
     if (warp == kConsumerWarps && lane == 0) {
       RingPos rp;
       for (int tile = blockIdx.x; tile < p.ntiles; tile += gridDim.x)
-        produce_backward<kIG>(mb, ring, rp, kIG ? ig_ks(kXC, kDC) : kKs);
+        produce_backward<kIG>(mb, ring, rp, T::kKsTile, kIG ? ig_ks(kXC, kDC) : T::kKsTile);
     }
     return;
   }
   reg_alloc<kConsumerRegs>();
 
-  const int wrow = warp * 16;
+  const int wrow = row_warp<H>() * 16;
   __nv_bfloat16* wact = act + wrow * ldx;
   uint32_t* wmasks = masks + wrow * MW;
   RingPos rp;
   for (int tile = blockIdx.x; tile < p.ntiles; tile += gridDim.x) {
-    const int rbase = tile * kWgRows + wrow;        // workspace row of the warp's row 0
+    const int rbase = tile * kRows + wrow;          // workspace row of the warp's row 0
     const long long q0 = p.n0 + rbase;              // its sample
     const int valid = min(16, p.nc - rbase);        // may be <= 0
     const float* g = p.dpreds + q0 * 4;
@@ -254,8 +263,13 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 
 template <int H>
 void (*pick_ig(int kxc, int kdc))(const RowParams) {
-  if (kxc == 64) return kdc == 32 ? k5_rows_kernel<H, true, 64, 32> : k5_rows_kernel<H, true, 64, 64>;
-  return kdc == 32 ? k5_rows_kernel<H, true, 128, 32> : k5_rows_kernel<H, true, 128, 64>;
+  if constexpr (WgTile<H>::kSplit) {
+    return nullptr;  // K5's input gradients run on 128-row tiles (refused on the host)
+  } else {
+    if (kxc == 64)
+      return kdc == 32 ? k5_rows_kernel<H, true, 64, 32> : k5_rows_kernel<H, true, 64, 64>;
+    return kdc == 32 ? k5_rows_kernel<H, true, 128, 32> : k5_rows_kernel<H, true, 128, 64>;
+  }
 }
 
 template <int H>
@@ -282,11 +296,12 @@ void (*pick_rows(int mode, bool ig, int kxc, int kdc))(const RowParams) {
 // wgmma pack), `desc_bwd` (the same for the transposed pack: k_pad =
 // round16(n), n = dX columns), `desc_ws` (n_dense x 5: a_col, a_width,
 // d_col, d_width, out_off), in the order trunk[0..num_layers), merged
-// head, branch, rgb.  hidden is 64, 128 or 256.  The batch runs in chunks
-// of `chunk_rays` whole rays, in order; buffers (allocated by the caller):
-// dpreds (B*S x 4) f32, written by the VJP (read, for K5); ws_a (rows_pad
-// x sum a_width) and ws_d (rows_pad x sum d_width) bf16 for one chunk,
-// rows_pad = round_up(chunk_rays * S, 128); db_part (grid x total_b) and dw_part (nsplit x total_out) f32,
+// head, branch, rgb.  hidden is 64, 128, 256 or 512 (no input gradients
+// at 512).  The batch runs in chunks of `chunk_rays` whole rays, in order;
+// buffers (allocated by the caller): dpreds (B*S x 4) f32, written by the
+// VJP (read, for K5); ws_a (rows_pad x sum a_width) and ws_d (rows_pad x
+// sum d_width) bf16 for one chunk, rows_pad >= round_up(chunk_rays * S,
+// 128); db_part (grid x total_b) and dw_part (nsplit x total_out) f32,
 // where grid <= the first chunk's 128-row tiles.  Outputs dw (total_out)
 // and db (total_b) f32.  Launches on `stream`, returns the first CUDA
 // error (0 on success); does not synchronise.
@@ -311,8 +326,10 @@ extern "C" int nkt_fused_render_bwd(
   const bool ig = dx_out != nullptr || dd_out != nullptr;
   RowParams p;
   MlpBwdParams& mb = p.mb;
-  const int first_tiles = (int)(((long long)chunk_rays * S + kWgRows - 1) / kWgRows);
-  if (!inputs_ok || (ig && mode != kK5) || B <= 0 || (S < 2 && mode != kK5) || nsplit < 1 ||
+  const int rows = wg_rows(hidden);
+  const int first_tiles = (int)(((long long)chunk_rays * S + rows - 1) / rows);
+  if (!inputs_ok || (ig && (mode != kK5 || rows != 128)) || B <= 0 || (S < 2 && mode != kK5) ||
+      nsplit < 1 ||
       chunk_rays < 1 || grid < 1 ||
       grid > first_tiles || !wg_hidden_ok(hidden) ||
       !mlp_dims_init(mb.m, static_cast<const int*>(desc_fwd), n_dense, num_layers,
@@ -328,7 +345,7 @@ extern "C" int nkt_fused_render_bwd(
   mb.wb = static_cast<const __nv_bfloat16*>(wb_pack);
   mb.ws_a = static_cast<__nv_bfloat16*>(ws_a);
   mb.ws_d = static_cast<__nv_bfloat16*>(ws_d);
-  const int rows_pad = first_tiles * kWgRows;
+  const int rows_pad = first_tiles * rows;
   mb.N = rows_pad;
   p.x_res = static_cast<const __nv_bfloat16*>(x_res);
   p.origins = static_cast<const float*>(origins);
@@ -343,8 +360,8 @@ extern "C" int nkt_fused_render_bwd(
   p.total_b = total_b;
   p.sld = hidden;
   const int kxc = ig_xcols(mb.m.xyz_dim), kdc = ig_dcols(mb.m.dir_dim);
-  int sb = wg_stage_bytes(mb.m.dense, n_dense);
-  const int sbb = wg_stage_bytes(mb.bdense, n_dense, ig ? ig_ks(kxc, kdc) : kKs);
+  int sb = wg_stage_bytes(mb.m.dense, n_dense, wg_ks(hidden));
+  const int sbb = wg_stage_bytes(mb.bdense, n_dense, ig ? ig_ks(kxc, kdc) : wg_ks(hidden));
   p.stage_bytes = sb > sbb ? sb : sbb;
 
   if (mode != kK5) {
@@ -356,16 +373,18 @@ extern "C" int nkt_fused_render_bwd(
     if (err != cudaSuccess) return (int)err;
   }
 
-  const size_t rest = kBarBytes + sizeof(__nv_bfloat16) * (size_t)kWgRows * mb.m.ldx +
-                      sizeof(uint32_t) * (size_t)(num_layers + 1) * kWgRows * mb.mask_words +
-                      sizeof(float) * ((size_t)2 * kConsumerWarps * p.sld + (size_t)total_b);
+  const size_t rest = kBarBytes + sizeof(__nv_bfloat16) * (size_t)rows * mb.m.ldx +
+                      sizeof(uint32_t) * (size_t)(num_layers + 1) * rows * mb.mask_words +
+                      sizeof(float) * ((size_t)2 * (rows / 16) * p.sld + (size_t)total_b);
   if (rest + 2 * (size_t)p.stage_bytes > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
   const size_t fit = ((size_t)kMaxSmem - rest) / p.stage_bytes;
   p.stages = fit < (size_t)kMaxStages ? (int)fit : kMaxStages;
   const size_t smem = rest + (size_t)p.stages * p.stage_bytes;
   void (*kernel)(const RowParams) = hidden == 64    ? pick_rows<64>(mode, ig, kxc, kdc)
                                     : hidden == 128 ? pick_rows<128>(mode, ig, kxc, kdc)
-                                                    : pick_rows<256>(mode, ig, kxc, kdc);
+                                    : hidden == 256 ? pick_rows<256>(mode, ig, kxc, kdc)
+                                                    : pick_rows<512>(mode, ig, kxc, kdc);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
 
@@ -376,13 +395,13 @@ extern "C" int nkt_fused_render_bwd(
     const int nr = B - r0 < chunk_rays ? B - r0 : chunk_rays;
     p.n0 = (long long)r0 * S;
     p.nc = nr * S;
-    p.ntiles = (p.nc + kWgRows - 1) / kWgRows;
+    p.ntiles = (p.nc + rows - 1) / rows;
     p.accumulate = chunk > 0;
     const int g = grid < p.ntiles ? grid : p.ntiles;
     kernel<<<g, kWgThreads, smem, st>>>(p);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    err = launch_dw(dw, p.ntiles * (kWgRows / kDwRows), chunk > 0, st);
+    err = launch_dw(dw, p.ntiles * (rows / kDwRows), chunk > 0, st);
     if (err != cudaSuccess) return (int)err;
   }
   return (int)launch_reduce(static_cast<float*>(dw_part), nsplit, total_out,

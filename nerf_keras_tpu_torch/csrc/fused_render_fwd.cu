@@ -69,6 +69,15 @@
 //     waiting for its products stage by stage (more stages in flight,
 //     warpgroups staggered by a layer, a 128-byte swizzled pack: no
 //     gain measured), not the weight traffic.
+// Hidden 512 (any width 257-512, zero-padded to it): 2,300,928
+// multiply-adds a sample (4.60 MFLOP, 3.9x 8x256's), still bound by the
+// products.  The 128-row tile does not fit there (nerf_wgmlp.cuh), so the
+// block streams 64-row tiles whose two consumer warpgroups split every
+// layer's output columns, and R follows the 64-row tile (one ray a block at
+// S = 64 or 192).  Shared memory at 8x512, S = 192: the activation tile
+// 64 x 584 bf16 = 74,752 B; the x_enc tile 64 x 64 bf16 = 8,192 B; the
+// ray's direction features, origin, direction and 192 x 16 B of
+// predictions (3,168 B); 4 stages of 520 x 32 bf16 = 33,280 B: 219,360 B.
 // Not carried over from the TPU kernel: its one-hot selector matmuls,
 // three-limb exact dots, the sin(z + pi/2) cos trick, the log-space
 // cumsum and the padded-t ragged batch (the ragged edge is masked here).
@@ -114,6 +123,8 @@ struct Params {
 template <int H, bool kEncIn>
 __device__ __forceinline__ void render_body(const Params& p) {
   extern __shared__ __align__(128) unsigned char smem[];
+  using T = WgTile<H>;
+  constexpr int kRows = T::kRows;
   const MlpDims& m = p.m;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -130,8 +141,8 @@ __device__ __forceinline__ void render_body(const Params& p) {
   ring.stages = p.stages;
   ring.stage_bytes = p.stage_bytes;
   __nv_bfloat16* act = reinterpret_cast<__nv_bfloat16*>(ring.buf + p.stages * p.stage_bytes);
-  __nv_bfloat16* xenc = act + kWgRows * ldx;             // (128, xyz_pad)
-  __nv_bfloat16* denc = xenc + kWgRows * m.xyz_pad;      // (R, dir_pad)
+  __nv_bfloat16* xenc = act + kRows * ldx;             // (rows, xyz_pad)
+  __nv_bfloat16* denc = xenc + kRows * m.xyz_pad;      // (R, dir_pad)
   float* ray = reinterpret_cast<float*>(denc + round_up(R * m.dir_pad, 8));  // (R, 8): o, d
   float* sig = ray + R * 8;   // (R*S)
   float* rgbl = sig + R * S;  // (R*S, 3)
@@ -140,7 +151,7 @@ __device__ __forceinline__ void render_body(const Params& p) {
   const int nrays = min(R, p.B - r0);
   const int P = nrays * S;
   const size_t s0 = (size_t)r0 * S;  // first sample of the block
-  const int ntiles = (P + kWgRows - 1) / kWgRows;
+  const int ntiles = (P + kRows - 1) / kRows;
 
   if (tid == 0) ring_init(ring);
   if (!kEncIn)
@@ -156,7 +167,7 @@ __device__ __forceinline__ void render_body(const Params& p) {
     reg_dealloc<kProducerRegs>();
     if (warp == kConsumerWarps && lane == 0) {
       RingPos rp;
-      for (int tile = 0; tile < ntiles; ++tile) produce_forward(m, p.w, ring, rp);
+      for (int tile = 0; tile < ntiles; ++tile) produce_forward(m, p.w, ring, rp, T::kKsTile);
     }
     return;
   }
@@ -171,14 +182,14 @@ __device__ __forceinline__ void render_body(const Params& p) {
     consumer_sync(kWgConsumers);
   }
 
-  const int wrow = warp * 16;  // this warp's rows of every tile
+  const int wrow = row_warp<H>() * 16;  // this warp's rows of every tile
   __nv_bfloat16* wact = act + wrow * ldx;
   __nv_bfloat16* wxenc = xenc + wrow * m.xyz_pad;
   RingPos rp;
   for (int tile = 0; tile < ntiles; ++tile) {
-    const int q0 = tile * kWgRows + wrow;  // block sample of the warp's row 0
-    const int valid = min(16, P - q0);     // may be <= 0 on the last tile
-    for (int i = lane; i < 16 * m.xyz_pad; i += 32) {
+    const int q0 = tile * kRows + wrow;  // block sample of the warp's row 0
+    const int valid = min(16, P - q0);   // may be <= 0 on the last tile
+    for (int i = peer_lane<H>(); i < 16 * m.xyz_pad; i += T::kLanes) {
       const int row = i / m.xyz_pad, c = i - row * m.xyz_pad;
       const int q = q0 + row;
       __nv_bfloat16 v = __float2bfloat16_rn(0.f);
@@ -199,7 +210,7 @@ __device__ __forceinline__ void render_body(const Params& p) {
       wact[row * ldx + c] = v;
       wxenc[i] = v;
     }
-    __syncwarp();
+    rows_sync<H>();
     auto xf = [&](int row, int c) { return wxenc[row * m.xyz_pad + c]; };
     if (kEncIn) {
       auto dir = [&](int row, int c) {
@@ -249,7 +260,7 @@ void (*pick_kernel(bool enc_in))(const Params) {
 // null).  `w_pack` is the wgmma pack (pack_weights_wg); `dense_desc` is a
 // HOST array of n_dense * 5 ints (k_pad, n, n_pad, w_off, b_off) in the
 // order trunk[0..num_layers), merged feature+sigma head, branch, rgb.
-// hidden is 64, 128 or 256.  `xenc_out` and `preds_out` may be null
+// hidden is 64, 128, 256 or 512.  `xenc_out` and `preds_out` may be null
 // (forward only).  Launches on `stream` and returns cudaGetLastError() (0
 // on success); does not synchronise and allocates nothing.
 extern "C" int nkt_fused_render_fwd(
@@ -283,12 +294,13 @@ extern "C" int nkt_fused_render_fwd(
   p.preds_out = static_cast<float*>(preds_out);
   p.B = B;
   p.S = S;
-  p.R = wg_rays_per_block(S);
-  p.stage_bytes = wg_stage_bytes(p.m.dense, n_dense);
+  const int rows = wg_rows(hidden);
+  p.R = wg_rays_per_block(S, rows);
+  p.stage_bytes = wg_stage_bytes(p.m.dense, n_dense, wg_ks(hidden));
 
   const size_t rest =
       kBarBytes +
-      sizeof(__nv_bfloat16) * ((size_t)kWgRows * p.m.ldx + (size_t)kWgRows * p.m.xyz_pad +
+      sizeof(__nv_bfloat16) * ((size_t)rows * p.m.ldx + (size_t)rows * p.m.xyz_pad +
                                (size_t)round_up(p.R * p.m.dir_pad, 8)) +
       sizeof(float) * ((size_t)p.R * 8 + (size_t)p.R * S * 4);
   if (rest + 2 * (size_t)p.stage_bytes > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
@@ -297,7 +309,8 @@ extern "C" int nkt_fused_render_fwd(
   const size_t smem = rest + (size_t)p.stages * p.stage_bytes;
   void (*kernel)(const Params) = hidden == 64    ? pick_kernel<64>(enc_in)
                                  : hidden == 128 ? pick_kernel<128>(enc_in)
-                                                 : pick_kernel<256>(enc_in);
+                                 : hidden == 256 ? pick_kernel<256>(enc_in)
+                                                 : pick_kernel<512>(enc_in);
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int grid = (B + p.R - 1) / p.R;

@@ -10,11 +10,14 @@
 // shared memory by plain bulk copies (cp.async.bulk, the TMA unit) and
 // feed wgmma.mma_async without a transpose.
 //
-// A block computes a 128 x d_width tile of one layer's dW (two consumer
-// warpgroups of 64 rows, the whole d_width, up to 272, in registers) over
-// a range of sample stages; a producer warp keeps a ring of 4 stages (the
-// block's 128 columns of A and all of D for 64 samples, <= 51,200 B each)
-// in flight.  Each block writes (or, for a later chunk, adds) its
+// A block computes a 128 x n tile of one layer's dW (two consumer
+// warpgroups of 64 rows, n columns in registers) over a range of sample
+// stages: n is the whole d_width up to 272 (kDwMaxN), and a wider layer
+// (hidden 512: 512, and 528 for the merged head) is two column tiles of
+// d_width / 2 each (256 or 264), at an output column offset n0.  A
+// producer warp keeps a ring of 4 stages (the block's 128 columns of A and
+// its n columns of D for 64 samples, <= 51,200 B each) in flight: D's
+// n0..n0+n columns of a stage are strips n0/8.. of it, one contiguous run.  Each block writes (or, for a later chunk, adds) its
 // partial tile to its own slab; mlp_reduce_kernel sums the slabs and the
 // per-block bias rows in a fixed order.  No atomics: the same sums in the
 // same order on every run (deterministic).
@@ -38,9 +41,13 @@ constexpr int kDwMaxN = 272;
 constexpr int kDwThreads = 288;  // two consumer warpgroups and a producer warp
 constexpr int kDwABytes = kDwM * kDwRows * 2;
 
+// One column tile of one layer: dW[:, n0:n0 + n] of its (a_width, d_width).
 struct DwLayer {
-  int a_col, a_width, d_col, d_width, out_off, tile_start;
+  int a_col, a_width, d_col, d_width, out_off, tile_start, n0, n;
 };
+
+// The dW output widths that are one column tile; a wider d_width is two.
+inline int dw_tile_cols(int d_width) { return d_width > kDwMaxN ? d_width / 2 : d_width; }
 
 struct DwPlan {
   const __nv_bfloat16* ws_a;
@@ -48,7 +55,7 @@ struct DwPlan {
   float* part;  // (nsplit, total_out)
   int rows_pad, total_out, n_layers, tiles, nsplit, stage_bytes;
   int nst, per_split, accumulate;  // set per launch
-  DwLayer L[kMaxDense];
+  DwLayer L[2 * kMaxDense];  // column tiles, in layer order
 };
 
 template <int N>
@@ -93,7 +100,7 @@ __device__ __forceinline__ void dw_consume(const DwPlan& p, const DwLayer& Ly, i
   for (int half = 0; half < 2; ++half) {
     const int m = m0 + 64 * wg + 16 * (warp & 3) + g + 8 * half;
     if (m >= Ly.a_width) continue;
-    float* row = out + (size_t)m * N;
+    float* row = out + (size_t)m * Ly.d_width + Ly.n0;
 #pragma unroll
     for (int j = 0; j < N / 8; ++j) {
       float2* o = reinterpret_cast<float2*>(row + 8 * j + 2 * t);
@@ -135,9 +142,9 @@ __global__ void __launch_bounds__(kDwThreads, 1)
   if (tid >= 256) {  // the producer warp
     if (tid == 256) {
       const int a_rows = min(kDwM, Ly.a_width - m0);
-      const uint32_t a_bytes = a_rows * kDwRows * 2, d_bytes = Ly.d_width * kDwRows * 2;
+      const uint32_t a_bytes = a_rows * kDwRows * 2, d_bytes = Ly.n * kDwRows * 2;
       const __nv_bfloat16* A = p.ws_a + (size_t)p.rows_pad * Ly.a_col + (m0 / 8) * 512;
-      const __nv_bfloat16* D = p.ws_d + (size_t)p.rows_pad * Ly.d_col;
+      const __nv_bfloat16* D = p.ws_d + (size_t)p.rows_pad * Ly.d_col + (Ly.n0 / 8) * 512;
       int st = 0;
       uint32_t ph = 0;
       for (int s = s0; s < s1; ++s) {
@@ -154,7 +161,7 @@ __global__ void __launch_bounds__(kDwThreads, 1)
     }
     return;
   }
-  switch (Ly.d_width) {
+  switch (Ly.n) {
     case 16: dw_consume<16>(p, Ly, m0, s0, s1, full, empty, buf); break;
     case 32: dw_consume<32>(p, Ly, m0, s0, s1, full, empty, buf); break;
     case 64: dw_consume<64>(p, Ly, m0, s0, s1, full, empty, buf); break;
@@ -162,6 +169,7 @@ __global__ void __launch_bounds__(kDwThreads, 1)
     case 128: dw_consume<128>(p, Ly, m0, s0, s1, full, empty, buf); break;
     case 144: dw_consume<144>(p, Ly, m0, s0, s1, full, empty, buf); break;
     case 256: dw_consume<256>(p, Ly, m0, s0, s1, full, empty, buf); break;
+    case 264: dw_consume<264>(p, Ly, m0, s0, s1, full, empty, buf); break;
     case 272: dw_consume<272>(p, Ly, m0, s0, s1, full, empty, buf); break;
     default: break;  // refused on the host (dw_plan)
   }
@@ -183,14 +191,16 @@ __global__ void mlp_reduce_kernel(const float* part, int nsplit, int total_out, 
   }
 }
 
+// The column-tile widths dw_consume is instantiated for: d_width at hidden
+// 64, 128 and 256 (the heads' 80, 144 and 272), half of 512 and 528.
 inline bool dw_width_ok(int n) {
   return n == 16 || n == 32 || n == 64 || n == 80 || n == 128 || n == 144 || n == 256 ||
-         n == 272;
+         n == 264 || n == 272;
 }
 
 // Host side: the dW product's plan for a backward's workspaces (rows_pad
 // rows per layer) into dw_part (nsplit x total_out).  False when a layer's
-// output width has no instantiation.
+// column tiles have no instantiation.
 inline bool dw_plan(DwPlan& q, const MlpBwdParams& mb, int n_dense, int rows_pad,
                     int total_out, int nsplit, float* dw_part) {
   q.ws_a = mb.ws_a;
@@ -198,16 +208,19 @@ inline bool dw_plan(DwPlan& q, const MlpBwdParams& mb, int n_dense, int rows_pad
   q.part = dw_part;
   q.rows_pad = rows_pad;
   q.total_out = total_out;
-  q.n_layers = n_dense;
   q.nsplit = nsplit;
-  int tiles = 0, dmax = 0;
+  int tiles = 0, dmax = 0, e = 0;
   for (int i = 0; i < n_dense; ++i) {
     const Bwd& w = mb.bwd[i];
-    if (!dw_width_ok(w.d_width) || w.a_width % 16 != 0) return false;
-    q.L[i] = DwLayer{w.a_col, w.a_width, w.d_col, w.d_width, w.out_off, tiles};
-    tiles += (w.a_width + kDwM - 1) / kDwM;
-    dmax = w.d_width > dmax ? w.d_width : dmax;
+    const int n = dw_tile_cols(w.d_width);
+    if (!dw_width_ok(n) || w.a_width % 16 != 0) return false;
+    for (int n0 = 0; n0 < w.d_width; n0 += n) {
+      q.L[e++] = DwLayer{w.a_col, w.a_width, w.d_col, w.d_width, w.out_off, tiles, n0, n};
+      tiles += (w.a_width + kDwM - 1) / kDwM;
+    }
+    dmax = n > dmax ? n : dmax;
   }
+  q.n_layers = e;
   q.tiles = tiles;
   q.stage_bytes = kDwABytes + dmax * kDwRows * 2;
   return 128 + (size_t)kDwStages * q.stage_bytes <= (size_t)kMaxSmem;

@@ -7,27 +7,46 @@
 //
 // A block is two consumer warpgroups and one producer warpgroup (384
 // threads; one thread of it issues the copies, and setmaxnreg moves its
-// registers to the consumers, 232 a thread) over a 128-row sample tile.
-// Warpgroup w owns rows 64w..64w+63, and warp v of the block (v = 0..7)
-// owns rows 16v..16v+15 of every activation tile: it loads their A
-// fragments, and wgmma returns their accumulators to it.  So a warp reads
-// and writes only its own rows, and a layer's output overwrites its input
-// in place: one activation tile, no ping-pong, no block barrier between
-// layers.
-//
+// registers to the consumers, 232 a thread) over a sample tile, in one of
+// two layouts (WgTile):
+//   * hidden <= 256: a 128-row tile.  Warpgroup w owns rows 64w..64w+63,
+//     and warp v of the block (v = 0..7) owns rows 16v..16v+15 of every
+//     activation tile and every column of a layer: it loads their A
+//     fragments, and wgmma returns their accumulators to it.  So a warp
+//     reads and writes only its own rows, and a layer's output overwrites
+//     its input in place: one activation tile, no ping-pong, no block
+//     barrier between layers.
+//   * hidden 512: a 64-row tile whose two warpgroups split each layer's
+//     output columns (warpgroup 0 the first Split<N>::lo of an N-wide
+//     layer, warpgroup 1 the rest: 256 + 256 for the trunk, 256 + 264 for
+//     the merged head, 128 + 128 for the branch; the 8-wide rgb head is
+//     warpgroup 0's alone, though both compute its product: SplitProduct).  Warp v and warp v + 4 (its peer) own rows
+//     16(v % 4)..+15: both load the rows' A fragments over the whole k, each
+//     keeps its m64n256 (or n264) accumulator in registers (132 f32 a
+//     thread at most, as the 8x256 head's), and a named barrier of the two
+//     warps (rows_sync) follows the layer's last wgmma wait before either
+//     writes its columns back in place, and another follows the writes.
+//     Still one activation tile and no block barrier between layers: at
+//     8x512 the 128-row tile (149.5 KB) and two 64-deep stages of the
+//     520-wide head (133 KB) pass the 227 KB a block has, and one
+//     warpgroup's m64n512 accumulator would be 256 f32 a thread.  Stages
+//     are 32 k deep there (kKsNarrow): 33,280 B at the head's 520 columns.
 // Weights: the producer thread streams every layer's weights, in the order
 // the consumers use them, through a ring of shared-memory stages with bulk
 // copies (cp.async.bulk, the TMA unit) and a full/empty mbarrier pair per
 // stage.  A stage holds one k-slice of one layer: all of its n_pad output
 // columns and kKs (for a layer's last slice, a multiple of 16 up to kKs)
 // k.  Both consumer warpgroups read each stage, so a weight byte brought
-// from L2 feeds 128 rows.  The slice is stored in the K-major core-matrix
-// layout wgmma's descriptor names (ops/kernels/fused_render.py:
+// from L2 feeds the whole tile.  The slice is stored in the K-major
+// core-matrix layout wgmma's descriptor names (ops/kernels/fused_render.py:
 // pack_weights_wg): element (n, k) of the slice at ((k / 8) * n_pad + n)
 // * 8 + k % 8, so a k16 step starts 2 * n_pad * 16 bytes after the one
 // before, core matrices along K lie n_pad * 16 bytes apart (LBO) and
 // along N 128 bytes apart (SBO); columns [n0, n0 + N) of a stage are one
-// more product at n0 * 16 bytes.
+// more product at n0 * 16 bytes.  The whole pack is that layout over all
+// k (element (n, k) of a layer at ((k / 8) * n_pad + n) * 8 + k % 8), so a
+// stage of any depth that is a multiple of 16 is one contiguous run of it:
+// the 32-deep stages of hidden 512 read the same pack as the 64-deep ones.
 //
 // Products: wgmma.mma_async m64nNk16 (bf16, f32 accumulation), A from
 // registers (the mma.sync A fragment loaded from the row-major activation
@@ -50,32 +69,92 @@
 
 namespace nkt {
 
-constexpr int kWgRows = 128;                   // sample rows per tile
 constexpr int kWgConsumers = 256;              // two warpgroups
 constexpr int kWgThreads = kWgConsumers + 128;  // and the producer warpgroup
 constexpr int kConsumerWarps = kWgConsumers / 32;
 constexpr int kProducerRegs = 40;   // setmaxnreg: the producer's warpgroup gives
 constexpr int kConsumerRegs = 232;  // registers to the consumers' (2 x 232 + 40 <= 512)
 constexpr int kKs = 64;        // k per weight stage
-constexpr int kKsNarrow = 32;  // k per stage of the wide input-gradient packs
+constexpr int kKsNarrow = 32;  // k per stage of the wide input-gradient packs and of hidden 512
 constexpr int kMaxStages = 8;  // ring stages at most
 constexpr int kBarBytes = 2 * kMaxStages * 8;
+constexpr int kSplitAbove = 256;  // wider hidden layers split their columns over the warpgroups
 
 // The hidden widths the wgmma kernels are instantiated for.
-inline bool wg_hidden_ok(int h) { return h == 64 || h == 128 || h == 256; }
+inline bool wg_hidden_ok(int h) { return h == 64 || h == 128 || h == 256 || h == 512; }
 
-// Rays per block of K1/K6's forward: whole rays, as many as make R*S fill
-// whole 128-row tiles, at most 640 samples a block (the per-sample
-// predictions stay in shared memory until the rays are composited).
-inline int wg_rays_per_block(int S) {
+// Sample rows per tile, and k per weight stage, of a hidden width.
+__host__ __device__ constexpr int wg_rows(int hidden) { return hidden > kSplitAbove ? 64 : 128; }
+__host__ __device__ constexpr int wg_ks(int hidden) {
+  return hidden > kSplitAbove ? kKsNarrow : kKs;
+}
+
+// The columns warpgroup 0 computes of an N-wide layer on a split tile (a
+// multiple of 32, or all of an 8-wide layer); warpgroup 1 the other hi.
+template <int N>
+struct Split {
+  static constexpr int lo = N <= 8 ? N : N / 64 * 32;
+  static constexpr int hi = N - lo;
+};
+
+// The tile of the hidden width H (see the note at the top).
+template <int H>
+struct WgTile {
+  static constexpr bool kSplit = H > kSplitAbove;
+  static constexpr int kRows = wg_rows(H);
+  static constexpr int kRowWarps = kRows / 16;      // warps with rows of their own: 8 or 4
+  static constexpr int kLanes = kSplit ? 64 : 32;   // threads that share a warp's rows
+  static constexpr int kKsTile = wg_ks(H);  // k per weight stage
+  // f32 accumulators a thread holds: the widest layer's, or its widest part.
+  static constexpr int kAcc = kSplit ? Split<H + 8>::hi / 2 : (H + 8) / 2;
+};
+
+// Device: the rows a warp owns (rows 16 * row_warp ..), the columns part it
+// computes (0 unless split), and the lane among the kLanes threads of its rows.
+template <int H>
+__device__ __forceinline__ int row_warp() {
+  return WgTile<H>::kSplit ? (threadIdx.x >> 5) & 3 : threadIdx.x >> 5;
+}
+template <int H>
+__device__ __forceinline__ int col_part() {
+  return WgTile<H>::kSplit ? threadIdx.x >> 7 : 0;
+}
+template <int H>
+__device__ __forceinline__ int peer_lane() {
+  return (threadIdx.x & 31) + 32 * col_part<H>();
+}
+
+// Barrier of the threads that share the warp's rows: the warp itself, or
+// the warp and its peer in the other warpgroup (named barriers 2..5; 0 is
+// __syncthreads', 1 the consumers').
+template <int H>
+__device__ __forceinline__ void rows_sync() {
+  if constexpr (WgTile<H>::kSplit)
+    asm volatile("bar.sync %0, 64;\n" ::"r"(2 + row_warp<H>()) : "memory");
+  else
+    __syncwarp();
+}
+
+// On a split tile, rows_sync; else nothing (a warp's own reads of its rows
+// are done when its products are).
+template <int H>
+__device__ __forceinline__ void split_sync() {
+  if constexpr (WgTile<H>::kSplit) rows_sync<H>();
+}
+
+// Rays per block of K1/K6's (and K4's) forward: whole rays, as many as
+// make R*S fill whole tiles of `rows` rows, at most 640 samples a block
+// (the per-sample predictions stay in shared memory until the rays are
+// composited).
+inline int wg_rays_per_block(int S, int rows) {
   if (S >= 640) return 1;
-  int a = S, b = kWgRows;
+  int a = S, b = rows;
   while (b) {
     const int t = a % b;
     a = b;
     b = t;
   }
-  const int r = kWgRows / a, cap = 640 / S;
+  const int r = rows / a, cap = 640 / S;
   return r < cap ? r : (cap > 0 ? cap : 1);
 }
 
@@ -152,15 +231,15 @@ __device__ __forceinline__ void load_a(uint32_t a[4], const __nv_bfloat16* act, 
   a[3] = *reinterpret_cast<const uint32_t*>(r0 + 8 * ldx + 8);
 }
 
-// acc[0, N/2) = act[64 rows of the warpgroup, 0:k_pad) @ columns [0, N)
-// of the layer's stages and, with NX > 0, accx[0, NX/2) += the same rows @
-// columns [N, N + NX) (the caller zeroes accx where a sum starts); `np`:
-// the stages' width (the layer's n_pad); KS: the pack's k per stage.
+// acc[0, N/2) = act[64 rows of the warpgroup, 0:k_pad) @ columns [n0, n0
+// + N) of the layer's stages and, with NX > 0, accx[0, NX/2) += the same
+// rows @ columns [n0 + N, n0 + N + NX) (the caller zeroes accx where a sum
+// starts); `np`: the stages' width (the layer's n_pad); KS: k per stage.
 // Consumes ceil(k_pad / KS) stages of the ring.
 template <int N, int NX = 0, int KS = kKs>
 __device__ __forceinline__ void wg_product(float* acc, const __nv_bfloat16* act, int ldx,
                                            int k_pad, const WRing& r, RingPos& c,
-                                           float* accx = nullptr, int np = N + NX) {
+                                           float* accx = nullptr, int np = N + NX, int n0 = 0) {
   static_assert(N % 8 == 0 && NX % 8 == 0 && N <= 264 && NX <= 128, "wgmma widths");
   static_assert(KS % 16 == 0 && KS <= kKs, "k per stage");
   constexpr int kSteps = KS / 16;
@@ -175,7 +254,7 @@ __device__ __forceinline__ void wg_product(float* acc, const __nv_bfloat16* act,
     for (int q = 0; q < kSteps; ++q)
       if (q < steps) load_a(a[q], act, ldx, k0 + 16 * q);
     mbar_wait(&r.full[c.st], c.ph);
-    const uint32_t sb = smem_u32(r.buf + static_cast<size_t>(c.st) * r.stage_bytes);
+    const uint32_t sb = smem_u32(r.buf + static_cast<size_t>(c.st) * r.stage_bytes) + n0 * 16;
     if constexpr (N > 0) acc_fence<N / 2>(acc);
     if constexpr (NX > 0) acc_fence<NX / 2>(accx);
     wg_fence();
@@ -194,6 +273,36 @@ __device__ __forceinline__ void wg_product(float* acc, const __nv_bfloat16* act,
     __syncwarp();
     if ((threadIdx.x & 31) == 0) mbar_arrive(&r.empty[c.st]);
     c.next(r.stages);
+  }
+}
+
+// The columns each warpgroup's product takes on a split tile: the wider
+// part's width, warpgroup 0 from column 0 and warpgroup 1 ending at N.
+// Both run one instantiation (no divergent path around wgmma, which ptxas
+// would serialize); where the parts differ, warpgroup 0 computes a few
+// columns more than its part (8 of the merged head's), and both compute
+// the 8-wide rgb head, whose epilogue is warpgroup 0's.
+template <int N>
+struct SplitProduct {
+  static constexpr int width = Split<N>::lo > Split<N>::hi ? Split<N>::lo : Split<N>::hi;
+  static constexpr int n0_hi = N - width;  // warpgroup 1's first column
+};
+
+// The warp's share of an N-wide layer's product on H's tile: all N columns,
+// or its warpgroup's SplitProduct of a split tile, after which split_sync:
+// the peers' reads of the activation tile are done and either may write
+// its part (Split<N>) back in place.  `np`: the stages' width.
+template <int H, int N, int KS>
+__device__ __forceinline__ void layer_product(float* acc, const __nv_bfloat16* act, int ldx,
+                                              int k_pad, const WRing& r, RingPos& c,
+                                              int np = N) {
+  if constexpr (!WgTile<H>::kSplit) {
+    wg_product<N, 0, KS>(acc, act, ldx, k_pad, r, c, nullptr, np);
+  } else {
+    using P = SplitProduct<N>;
+    wg_product<P::width, 0, KS>(acc, act, ldx, k_pad, r, c, nullptr, np,
+                                col_part<H>() ? P::n0_hi : 0);
+    split_sync<H>();
   }
 }
 
@@ -249,14 +358,15 @@ __device__ __forceinline__ void epi_relu(const float* acc, const float* bias,
 
 // The merged feature+sigma head (N = hidden + 8): columns [0, hidden) ->
 // bf16(acc + bias) (no ReLU), column hidden -> sig (f32, rows < valid)
-// when sig is given.
-template <int N>
+// when sig is given.  Without kSigma, N feature columns (warpgroup 0's part
+// of a split head).
+template <int N, bool kSigma = true>
 __device__ __forceinline__ void epi_feature_sigma(const float* acc, const float* bias,
                                                   __nv_bfloat16* act, int ldx, float* sig,
                                                   int valid) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int j = 0; j < N / 8 - 1; ++j) {
+  for (int j = 0; j < N / 8 - (kSigma ? 1 : 0); ++j) {
     const int c = 8 * j + 2 * t;
     const float b0 = bias[c], b1 = bias[c + 1];
     *reinterpret_cast<__nv_bfloat162*>(act + g * ldx + c) =
@@ -265,7 +375,7 @@ __device__ __forceinline__ void epi_feature_sigma(const float* acc, const float*
         __floats2bfloat162_rn(acc[4 * j + 2] + b0, acc[4 * j + 3] + b1);
   }
   constexpr int js = N / 8 - 1;
-  if (sig != nullptr && t == 0) {
+  if (kSigma && sig != nullptr && t == 0) {
     const float b = bias[8 * js];
     if (g < valid) sig[g] = acc[4 * js] + b;
     if (g + 8 < valid) sig[g + 8] = acc[4 * js + 2] + b;
@@ -348,17 +458,74 @@ __device__ __forceinline__ void epi_bwd(const float* acc, __nv_bfloat16* act, in
   }
 }
 
-// After every consumer warp has written its scratch row: for c < n,
-// add(c, sum of the rows in warp order).  Starts with a barrier of the
-// consumers; the scratch is double-buffered by the caller, so the next
+// The epilogues over the warp's columns of an N-wide layer on H's tile:
+// all N, or its warpgroup's part (Split<N>, each part starting at a
+// multiple of 32 columns, so its mask words are whole).
+template <int H, int N, bool kMask>
+__device__ __forceinline__ void layer_relu(const float* acc, const float* bias,
+                                           __nv_bfloat16* act, int ldx, uint32_t* mask, int mw) {
+  if constexpr (!WgTile<H>::kSplit) {
+    epi_relu<N, kMask>(acc, bias, act, ldx, mask, mw);
+  } else {
+    using S = Split<N>;
+    static_assert(S::lo % 32 == 0 && S::hi % 32 == 0, "whole mask words per part");
+    static_assert(SplitProduct<N>::n0_hi == S::lo, "warpgroup 1's product starts its part");
+    if (col_part<H>() == 0)
+      epi_relu<S::lo, kMask>(acc, bias, act, ldx, mask, mw);
+    else
+      epi_relu<S::hi, kMask>(acc, bias + S::lo, act + S::lo, ldx,
+                             kMask ? mask + S::lo / 32 : nullptr, mw);
+  }
+}
+
+template <int H>
+__device__ __forceinline__ void layer_head(const float* acc, const float* bias,
+                                           __nv_bfloat16* act, int ldx, float* sig, int valid) {
+  if constexpr (!WgTile<H>::kSplit) {
+    epi_feature_sigma<H + 8>(acc, bias, act, ldx, sig, valid);
+  } else {
+    using S = Split<H + 8>;
+    static_assert(SplitProduct<H + 8>::n0_hi == S::lo, "warpgroup 1's product starts its part");
+    if (col_part<H>() == 0)
+      epi_feature_sigma<S::lo, false>(acc, bias, act, ldx, nullptr, 0);
+    else
+      epi_feature_sigma<S::hi>(acc, bias + S::lo, act + S::lo, ldx, sig, valid);
+  }
+}
+
+template <int H>
+__device__ __forceinline__ void layer_rgb(const float* acc, const float* bias, float* rgbl,
+                                          int valid) {
+  if (col_part<H>() == 0) epi_rgb(acc, bias, rgbl, valid);
+}
+
+template <int H, int N, bool kMask>
+__device__ __forceinline__ void layer_bwd(const float* acc, __nv_bfloat16* act, int ldx,
+                                          const uint32_t* mask, int mw, float* srow) {
+  if constexpr (!WgTile<H>::kSplit) {
+    epi_bwd<N, kMask>(acc, act, ldx, mask, mw, srow);
+  } else {
+    using S = Split<N>;
+    static_assert(SplitProduct<N>::n0_hi == S::lo, "warpgroup 1's product starts its part");
+    if (col_part<H>() == 0)
+      epi_bwd<S::lo, kMask>(acc, act, ldx, mask, mw, srow);
+    else
+      epi_bwd<S::hi, kMask>(acc, act + S::lo, ldx, kMask ? mask + S::lo / 32 : nullptr, mw,
+                            srow + S::lo);
+  }
+}
+
+// After every consumer warp has written its part of its scratch row: for c
+// < n, add(c, sum of the kRowW rows in order).  Starts with a barrier of
+// the consumers; the scratch is double-buffered by the caller, so the next
 // layer's rows may be written before every thread has read these.
-template <class AddFn>
+template <int kRowW, class AddFn>
 __device__ __forceinline__ void colsum_add(const float* scratch, int sld, int n, AddFn add) {
   consumer_sync(kWgConsumers);
   for (int c = threadIdx.x; c < n; c += kWgConsumers) {
     float s = 0.f;
 #pragma unroll
-    for (int w = 0; w < kConsumerWarps; ++w) s += scratch[w * sld + c];
+    for (int w = 0; w < kRowW; ++w) s += scratch[w * sld + c];
     add(c, s);
   }
 }
@@ -368,13 +535,14 @@ __device__ __forceinline__ void colsum_add(const float* scratch, int sld, int n,
 // 8-column strips of 64 rows x 16 bytes, so that element (r, c) lies at
 // (r / 64) * 64 * W + (c / 8) * 512 + (r % 64) * 8 + c % 8 and a stage's
 // strips are the MN-major core matrices of nerf_dw.cuh's products.  `rbase`:
-// the workspace row of the warp's row 0 (a multiple of 16).
+// the workspace row of the warp's row 0 (a multiple of 16).  The kLanes
+// threads of the rows share the copy.
+template <int H>
 __device__ __forceinline__ void store_ws(const __nv_bfloat16* act, int ldx, __nv_bfloat16* dst,
                                          int W, int rbase) {
-  const int lane = threadIdx.x & 31;
   const int vecs = W >> 3;
   __nv_bfloat16* stage = dst + static_cast<size_t>(rbase >> 6) * 64 * W + (rbase & 63) * 8;
-  for (int i = lane; i < 16 * vecs; i += 32) {
+  for (int i = peer_lane<H>(); i < 16 * vecs; i += WgTile<H>::kLanes) {
     const int row = i & 15, cc = i >> 4;
     *reinterpret_cast<uint4*>(stage + cc * 512 + row * 8) =
         *reinterpret_cast<const uint4*>(act + row * ldx + cc * 8);
@@ -383,49 +551,52 @@ __device__ __forceinline__ void store_ws(const __nv_bfloat16* act, int ldx, __nv
 }
 
 // ---------------------------------------------------------------------------
-// The forward of the warp's 16 rows.  On entry act (the warp's row 0) holds
-// the position features in [0, xyz_pad); xenc(row, c) gives them again for
-// the skip concats, dir(row, c) the direction features (bf16, zero beyond
-// their width).  sig and rgbl (the warp's rows) receive sigma and the rgb
-// logits for rows < valid.  The producer streams dense[0..L+2] in order.
+// The forward of the warp's 16 rows (with its peer's on a split tile).  On
+// entry act (the warp's row 0) holds the position features in [0,
+// xyz_pad); xenc(row, c) gives them again for the skip concats, dir(row, c)
+// the direction features (bf16, zero beyond their width).  sig and rgbl
+// (the warp's rows) receive sigma and the rgb logits for rows < valid.
+// The producer streams dense[0..L+2] in order (produce_forward).
 template <int H, class XencFn, class DirFn>
 __device__ __forceinline__ void mlp_forward_wg(const MlpDims& m, const float* b,
                                                __nv_bfloat16* act, XencFn xenc, DirFn dir,
                                                float* sig, float* rgbl, int valid,
                                                const WRing& ring, RingPos& rp) {
-  const int lane = threadIdx.x & 31;
+  using T = WgTile<H>;
+  constexpr int KS = T::kKsTile;
+  const int pl = peer_lane<H>();
   const int ldx = m.ldx;
   const int L = m.num_layers;
-  float acc[(H + 8) / 2];
+  float acc[T::kAcc];
   for (int i = 0; i < L; ++i) {
-    wg_product<H>(acc, act, ldx, m.dense[i].k_pad, ring, rp);
-    epi_relu<H, false>(acc, b + m.dense[i].b_off, act, ldx, nullptr, 0);
+    layer_product<H, H, KS>(acc, act, ldx, m.dense[i].k_pad, ring, rp);
+    layer_relu<H, H, false>(acc, b + m.dense[i].b_off, act, ldx, nullptr, 0);
     if (is_skip(i, m.skip_layer))
-      for (int j = lane; j < 16 * m.xyz_pad; j += 32) {
+      for (int j = pl; j < 16 * m.xyz_pad; j += T::kLanes) {
         const int row = j / m.xyz_pad, c = j - row * m.xyz_pad;
         act[row * ldx + H + c] = xenc(row, c);
       }
-    __syncwarp();
+    rows_sync<H>();
   }
-  wg_product<H + 8>(acc, act, ldx, m.dense[L].k_pad, ring, rp);
-  epi_feature_sigma<H + 8>(acc, b + m.dense[L].b_off, act, ldx, sig, valid);
-  for (int j = lane; j < 16 * m.dir_pad; j += 32) {
+  layer_product<H, H + 8, KS>(acc, act, ldx, m.dense[L].k_pad, ring, rp);
+  layer_head<H>(acc, b + m.dense[L].b_off, act, ldx, sig, valid);
+  for (int j = pl; j < 16 * m.dir_pad; j += T::kLanes) {
     const int row = j / m.dir_pad, c = j - row * m.dir_pad;
     act[row * ldx + H + c] = dir(row, c);
   }
-  __syncwarp();
-  wg_product<H / 2>(acc, act, ldx, m.dense[L + 1].k_pad, ring, rp);
-  epi_relu<H / 2, false>(acc, b + m.dense[L + 1].b_off, act, ldx, nullptr, 0);
-  __syncwarp();
-  wg_product<8>(acc, act, ldx, m.dense[L + 2].k_pad, ring, rp);
-  epi_rgb(acc, b + m.dense[L + 2].b_off, rgbl, valid);
-  __syncwarp();
+  rows_sync<H>();
+  layer_product<H, H / 2, KS>(acc, act, ldx, m.dense[L + 1].k_pad, ring, rp);
+  layer_relu<H, H / 2, false>(acc, b + m.dense[L + 1].b_off, act, ldx, nullptr, 0);
+  rows_sync<H>();
+  layer_product<H, 8, KS>(acc, act, ldx, m.dense[L + 2].k_pad, ring, rp);
+  layer_rgb<H>(acc, b + m.dense[L + 2].b_off, rgbl, valid);
+  rows_sync<H>();
 }
 
-// The producer's side of mlp_forward_wg.
+// The producer's side of mlp_forward_wg, `ks` deep (the tile's kKsTile).
 __device__ __forceinline__ void produce_forward(const MlpDims& m, const __nv_bfloat16* w,
-                                                const WRing& ring, RingPos& rp) {
-  for (int i = 0; i < m.num_layers + 3; ++i) produce_layer(ring, rp, w, m.dense[i]);
+                                                const WRing& ring, RingPos& rp, int ks) {
+  for (int i = 0; i < m.num_layers + 3; ++i) produce_layer(ring, rp, w, m.dense[i], ks);
 }
 
 // act[rows, 0:N) = bf16(acc): an accumulator's 16 x N columns of the warp.
@@ -494,31 +665,33 @@ __device__ __forceinline__ void mlp_backward_wg(const MlpBwdParams& p, __nv_bflo
                                                 int valid, int rbase, const WRing& ring,
                                                 RingPos& rp, __nv_bfloat16* dx = nullptr,
                                                 __nv_bfloat16* dd = nullptr) {
-  constexpr int KSB = kIG ? ig_ks(kXC, kDC) : kKs;  // the transposed pack's k per stage
+  using T = WgTile<H>;
+  static_assert(!(kIG && T::kSplit), "K5's input gradients run on 128-row tiles");
+  constexpr int KSF = T::kKsTile;                          // the forward pack's k per stage
+  constexpr int KSB = kIG ? ig_ks(kXC, kDC) : T::kKsTile;  // the transposed pack's
   const MlpDims& m = p.m;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31, pl = peer_lane<H>(), rw = row_warp<H>();
   const int ldx = m.ldx, L = m.num_layers, MW = p.mask_words;
   const size_t N = p.N;
-  const int mslot = kWgRows * MW;
+  const int mslot = T::kRows * MW;
   const Dense& fs = m.dense[L];
   const Dense& br = m.dense[L + 1];
   const Dense& rgb = m.dense[L + 2];
   int sb = 0;
-  auto srow = [&]() { return scratch + (sb * kConsumerWarps + warp) * sld; };
+  auto srow = [&]() { return scratch + (sb * T::kRowWarps + rw) * sld; };
   auto finish = [&](float* dst, int n) {
-    colsum_add(scratch + sb * kConsumerWarps * sld, sld, n,
-               [&](int c, float s) { dst[c] += s; });
+    colsum_add<T::kRowWarps>(scratch + sb * T::kRowWarps * sld, sld, n,
+                             [&](int c, float s) { dst[c] += s; });
     sb ^= 1;
   };
-  auto load_x = [&](int col0) {
-    for (int j = lane; j < 16 * m.xyz_pad; j += 32) {
+  auto load_x = [&](int col0) {  // the caller syncs the rows
+    for (int j = pl; j < 16 * m.xyz_pad; j += T::kLanes) {
       const int row = j / m.xyz_pad, c = j - row * m.xyz_pad;
       act[row * ldx + col0 + c] =
           row < valid && c < m.xyz_dim ? xf(row, c) : __float2bfloat16_rn(0.f);
     }
-    __syncwarp();
   };
-  float acc[(H + 8) / 2];
+  float acc[T::kAcc];
   float xs[kIG ? kXC / 2 : 1];  // kIG: the encodings' gradient columns, f32
   // The dX product of dense layer i (i >= 1) into acc: the hidden columns
   // of its input and, with kIG where that input has the skip concat, its
@@ -531,39 +704,41 @@ __device__ __forceinline__ void mlp_backward_wg(const MlpBwdParams& p, __nv_bflo
         return;
       }
     }
-    wg_product<H, 0, KSB>(acc, act, ldx, p.bdense[i].k_pad, ring, rp);
+    layer_product<H, H, KSB>(acc, act, ldx, p.bdense[i].k_pad, ring, rp);
   };
 
   // ---- Forward recompute, storing each layer's input (A).
   load_x(0);
+  rows_sync<H>();
   for (int i = 0; i < L; ++i) {
-    store_ws(act, ldx, p.ws_a + N * p.bwd[i].a_col, m.dense[i].k_pad, rbase);
-    wg_product<H>(acc, act, ldx, m.dense[i].k_pad, ring, rp);
-    epi_relu<H, true>(acc, p.b + m.dense[i].b_off, act, ldx, masks + i * mslot, MW);
-    __syncwarp();
+    store_ws<H>(act, ldx, p.ws_a + N * p.bwd[i].a_col, m.dense[i].k_pad, rbase);
+    layer_product<H, H, KSF>(acc, act, ldx, m.dense[i].k_pad, ring, rp);
+    layer_relu<H, H, true>(acc, p.b + m.dense[i].b_off, act, ldx, masks + i * mslot, MW);
     if (is_skip(i, m.skip_layer)) load_x(H);
+    rows_sync<H>();
   }
-  store_ws(act, ldx, p.ws_a + N * p.bwd[L].a_col, fs.k_pad, rbase);
-  wg_product<H + 8>(acc, act, ldx, fs.k_pad, ring, rp);
-  epi_feature_sigma<H + 8>(acc, p.b + fs.b_off, act, ldx, nullptr, 0);
-  for (int j = lane; j < 16 * m.dir_pad; j += 32) {
+  store_ws<H>(act, ldx, p.ws_a + N * p.bwd[L].a_col, fs.k_pad, rbase);
+  layer_product<H, H + 8, KSF>(acc, act, ldx, fs.k_pad, ring, rp);
+  layer_head<H>(acc, p.b + fs.b_off, act, ldx, nullptr, 0);
+  for (int j = pl; j < 16 * m.dir_pad; j += T::kLanes) {
     const int row = j / m.dir_pad, c = j - row * m.dir_pad;
     act[row * ldx + H + c] = dir(row, c);
   }
-  __syncwarp();
-  store_ws(act, ldx, p.ws_a + N * p.bwd[L + 1].a_col, br.k_pad, rbase);
-  wg_product<H / 2>(acc, act, ldx, br.k_pad, ring, rp);
-  epi_relu<H / 2, true>(acc, p.b + br.b_off, act, ldx, masks + L * mslot, MW);
-  __syncwarp();
-  store_ws(act, ldx, p.ws_a + N * p.bwd[L + 2].a_col, rgb.k_pad, rbase);
+  rows_sync<H>();
+  store_ws<H>(act, ldx, p.ws_a + N * p.bwd[L + 1].a_col, br.k_pad, rbase);
+  layer_product<H, H / 2, KSF>(acc, act, ldx, br.k_pad, ring, rp);
+  layer_relu<H, H / 2, true>(acc, p.b + br.b_off, act, ldx, masks + L * mslot, MW);
+  rows_sync<H>();
+  store_ws<H>(act, ldx, p.ws_a + N * p.bwd[L + 2].a_col, rgb.k_pad, rbase);
+  split_sync<H>();  // the peers' copies of the branch output are done
 
   // ---- Backward walk.  d rgb logits, bf16, d_width columns.
   const int dw_rgb = p.bwd[L + 2].d_width;
-  for (int j = lane; j < 16 * dw_rgb; j += 32) {
+  for (int j = pl; j < 16 * dw_rgb; j += T::kLanes) {
     const int row = j / dw_rgb, c = j - row * dw_rgb;
     act[row * ldx + c] = __float2bfloat16_rn(c < 3 && row < valid ? g[row * 4 + c] : 0.f);
   }
-  {  // f32 sums of the rgb head's and the sigma column's cotangent
+  if (col_part<H>() == 0) {  // f32 sums of the rgb head's and the sigma column's cotangent
     const int row = lane & 15, c0 = (lane >> 4) * 2;
     float s0 = row < valid ? g[row * 4 + c0] : 0.f;
     float s1 = row < valid ? g[row * 4 + c0 + 1] : 0.f;
@@ -577,19 +752,19 @@ __device__ __forceinline__ void mlp_backward_wg(const MlpBwdParams& p, __nv_bflo
       srow()[c0 + 1] = s1;
     }
   }
-  __syncwarp();
-  colsum_add(scratch + sb * kConsumerWarps * sld, sld, 4, [&](int c, float s) {
+  rows_sync<H>();
+  colsum_add<T::kRowWarps>(scratch + sb * T::kRowWarps * sld, sld, 4, [&](int c, float s) {
     db[c < 3 ? rgb.b_off + c : fs.b_off + H] += s;
   });
   sb ^= 1;
-  store_ws(act, ldx, p.ws_d + N * p.bwd[L + 2].d_col, dw_rgb, rbase);
+  store_ws<H>(act, ldx, p.ws_d + N * p.bwd[L + 2].d_col, dw_rgb, rbase);
   // dh2 = drgb W_rgb^T, masked by h2 > 0: the branch's dPre.
-  wg_product<H / 2, 0, KSB>(acc, act, ldx, p.bdense[L + 2].k_pad, ring, rp);
+  layer_product<H, H / 2, KSB>(acc, act, ldx, p.bdense[L + 2].k_pad, ring, rp);
   __syncwarp();
-  epi_bwd<H / 2, true>(acc, act, ldx, masks + L * mslot, MW, srow());
-  __syncwarp();
+  layer_bwd<H, H / 2, true>(acc, act, ldx, masks + L * mslot, MW, srow());
+  rows_sync<H>();
   finish(db + br.b_off, H / 2);
-  store_ws(act, ldx, p.ws_d + N * p.bwd[L + 1].d_col, p.bwd[L + 1].d_width, rbase);
+  store_ws<H>(act, ldx, p.ws_d + N * p.bwd[L + 1].d_col, p.bwd[L + 1].d_width, rbase);
   // dfeature = dh2 W_br^T; with d sigma the merged head's dPre.  With kIG
   // the direction columns too: dd_enc.
   if constexpr (kIG) {
@@ -598,10 +773,10 @@ __device__ __forceinline__ void mlp_backward_wg(const MlpBwdParams& p, __nv_bflo
     wg_product<H, kDC, KSB>(acc, act, ldx, p.bdense[L + 1].k_pad, ring, rp, xs,
                             p.bdense[L + 1].n_pad);
   } else {
-    wg_product<H, 0, KSB>(acc, act, ldx, p.bdense[L + 1].k_pad, ring, rp);
+    layer_product<H, H, KSB>(acc, act, ldx, p.bdense[L + 1].k_pad, ring, rp);
   }
   __syncwarp();
-  epi_bwd<H, false>(acc, act, ldx, nullptr, 0, srow());
+  layer_bwd<H, H, false>(acc, act, ldx, nullptr, 0, srow());
   if constexpr (kIG) {
     if (dd != nullptr) {
       epi_store<kDC>(xs, act + H, ldx);
@@ -611,27 +786,27 @@ __device__ __forceinline__ void mlp_backward_wg(const MlpBwdParams& p, __nv_bflo
     for (int i = 0; i < kXC / 2; ++i) xs[i] = 0.f;
   }
   const int dw_fs = p.bwd[L].d_width;
-  for (int j = lane; j < 16 * (dw_fs - H); j += 32) {
+  for (int j = pl; j < 16 * (dw_fs - H); j += T::kLanes) {
     const int row = j / (dw_fs - H), c = j - row * (dw_fs - H);
     act[row * ldx + H + c] = __float2bfloat16_rn(c == 0 && row < valid ? g[row * 4 + 3] : 0.f);
   }
-  __syncwarp();
+  rows_sync<H>();
   finish(db + fs.b_off, H);
-  store_ws(act, ldx, p.ws_d + N * p.bwd[L].d_col, dw_fs, rbase);
+  store_ws<H>(act, ldx, p.ws_d + N * p.bwd[L].d_col, dw_fs, rbase);
   // dh_{L-1} = dfs W_fs^T (hidden columns), masked: dPre_{L-1}.
   dx_product(L);
   __syncwarp();
-  epi_bwd<H, true>(acc, act, ldx, masks + (L - 1) * mslot, MW, srow());
-  __syncwarp();
+  layer_bwd<H, H, true>(acc, act, ldx, masks + (L - 1) * mslot, MW, srow());
+  rows_sync<H>();
   finish(db + m.dense[L - 1].b_off, H);
   // Trunk: act holds dPre_i; dX_i's hidden columns, masked, are dPre_{i-1}.
   for (int i = L - 1; i >= 0; --i) {
-    store_ws(act, ldx, p.ws_d + N * p.bwd[i].d_col, p.bwd[i].d_width, rbase);
+    store_ws<H>(act, ldx, p.ws_d + N * p.bwd[i].d_col, p.bwd[i].d_width, rbase);
     if (i > 0) {
       dx_product(i);
       __syncwarp();
-      epi_bwd<H, true>(acc, act, ldx, masks + (i - 1) * mslot, MW, srow());
-      __syncwarp();
+      layer_bwd<H, H, true>(acc, act, ldx, masks + (i - 1) * mslot, MW, srow());
+      rows_sync<H>();
       finish(db + m.dense[i - 1].b_off, H);
     }
   }
@@ -644,16 +819,17 @@ __device__ __forceinline__ void mlp_backward_wg(const MlpBwdParams& p, __nv_bflo
       rows_out(act, ldx, dx, m.xyz_dim, valid);
     }
   }
+  split_sync<H>();  // the peers' copies of dPre_0 are done before the next tile
 }
 
 // The producer's side of mlp_backward_wg: the recompute's layers of the
-// forward pack, then the walk's of the transposed pack (with kIG layer 0's
-// too), `ksb` deep (the consumers' KSB).
+// forward pack, `ksf` deep, then the walk's of the transposed pack (with
+// kIG layer 0's too), `ksb` deep (the consumers' KSF and KSB).
 template <bool kIG = false>
 __device__ __forceinline__ void produce_backward(const MlpBwdParams& p, const WRing& ring,
-                                                 RingPos& rp, int ksb = kKs) {
+                                                 RingPos& rp, int ksf, int ksb) {
   const int L = p.m.num_layers;
-  for (int i = 0; i < L + 2; ++i) produce_layer(ring, rp, p.w, p.m.dense[i]);
+  for (int i = 0; i < L + 2; ++i) produce_layer(ring, rp, p.w, p.m.dense[i], ksf);
   produce_layer(ring, rp, p.wb, p.bdense[L + 2], ksb);
   produce_layer(ring, rp, p.wb, p.bdense[L + 1], ksb);
   produce_layer(ring, rp, p.wb, p.bdense[L], ksb);

@@ -78,6 +78,17 @@
 // What holds it back now (PERF.md section 6): the epilogue, ~8 f32/int
 // operations for each output column, which the two warpgroups run in
 // lockstep with their products.
+// Hidden 512 (any width 257-512 on tables padded by pad_qparams): 2,300,928
+// int8 multiply-adds a sample.  The 128-row tile does not fit (the f32 rows
+// alone are 58,944 B), so K4 takes nerf_wgmlp.cuh's split tile: 64 rows,
+// the two warpgroups each computing a part of every layer's columns
+// (SplitProduct), stages of 64 k.  Every layer whose padded k passes 256 --
+// each trunk layer after the first, the head and the branch -- dequantizes
+// with cvt.rn.f32.s32 (exact at any |acc|), the first layer and the rgb
+// head by the magic number.  Shared memory at 8x512, S = 192: the f32 rows
+// 58,944 B, the activation tile 64 x 592 = 37,888, the x_enc copy 4,096,
+// the ray and its predictions 3,136, and 3 stages of 520 x 64 = 33,280 B:
+// 204,048 B.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -shared -Xcompiler -fPIC  (never -use_fast_math: the top octave's
@@ -90,6 +101,7 @@ using namespace nkt;
 namespace {
 
 constexpr int kQKs = 128;             // k per weight stage (128 int8 = 128 bytes a row)
+constexpr int kQKsSplit = 64;         // the same on a split tile (hidden 512)
 constexpr int kMagicK = 256;          // padded k up to which |acc| <= k * 127^2 < 2^22
 constexpr float kRound = 12582912.f;  // 1.5 * 2^23
 constexpr int kRoundBits = 0x4B400000;
@@ -165,34 +177,59 @@ __device__ __forceinline__ void load_a_s8(uint32_t a[4], const int8_t* act, int 
   a[3] = *reinterpret_cast<const uint32_t*>(r0 + 8 * ldx + 16);
 }
 
-// acc[0, N/2) = act[64 rows of the warpgroup, 0:k_pad) @ the layer's N
-// columns (N = its n_pad); consumes ceil(k_pad / kQKs) stages of the ring.
-template <int N>
+// k per weight stage of hidden H's tile.
+__host__ __device__ constexpr int q_ks(int hidden) {
+  return hidden > kSplitAbove ? kQKsSplit : kQKs;
+}
+
+// acc[0, N/2) = act[64 rows of the warpgroup, 0:k_pad) @ columns [n0, n0
+// + N) of the layer's stages (`np` wide: its n_pad); consumes ceil(k_pad /
+// KQ) stages of the ring.  The int8 pack is one K-major layout over all k
+// (element (n, k) at ((k / 16) * n_pad + n) * 16 + k % 16), so stages of 64
+// or 128 k are contiguous runs of the same pack.
+template <int N, int KQ>
 __device__ __forceinline__ void q_product(int* acc, const int8_t* act, int ldx, int k_pad,
-                                          const WRing& r, RingPos& c) {
+                                          const WRing& r, RingPos& c, int np = N, int n0 = 0) {
   static_assert(N % 8 == 0 && N <= 264, "wgmma widths");
-  constexpr int kSteps = kQKs / 32;
+  constexpr int kSteps = KQ / 32;
 #pragma unroll
   for (int i = 0; i < N / 2; ++i) acc[i] = 0;
-  for (int k0 = 0; k0 < k_pad; k0 += kQKs) {
-    const int steps = min(kQKs, k_pad - k0) >> 5;  // block-uniform
+  for (int k0 = 0; k0 < k_pad; k0 += KQ) {
+    const int steps = min(KQ, k_pad - k0) >> 5;  // block-uniform
     uint32_t a[kSteps][4];
 #pragma unroll
     for (int q = 0; q < kSteps; ++q)
       if (q < steps) load_a_s8(a[q], act, ldx, k0 + 32 * q);
     mbar_wait(&r.full[c.st], c.ph);
-    const uint32_t sb = smem_u32(r.buf + static_cast<size_t>(c.st) * r.stage_bytes);
+    const uint32_t sb = smem_u32(r.buf + static_cast<size_t>(c.st) * r.stage_bytes) + n0 * 16;
     acc_fence<N / 2>(acc);
     wg_fence();
 #pragma unroll
     for (int q = 0; q < kSteps; ++q)
-      if (q < steps) mma_rs_s8<N>(acc, a[q], smem_desc(sb + q * 2 * N * 16, N * 16, 128), 128, 1);
+      if (q < steps)
+        mma_rs_s8<N>(acc, a[q], smem_desc(sb + q * 2 * np * 16, np * 16, 128), 128, 1);
     wg_commit();
     wg_wait<0>();
     acc_fence<N / 2>(acc);
     __syncwarp();
     if ((threadIdx.x & 31) == 0) mbar_arrive(&r.empty[c.st]);
     c.next(r.stages);
+  }
+}
+
+// The warp's share of an N-wide layer's product on H's tile (as the bf16
+// layer_product, nerf_wgmlp.cuh): all N columns, or its warpgroup's
+// SplitProduct, then split_sync.
+template <int H, int N>
+__device__ __forceinline__ void q_layer_product(int* acc, const int8_t* act, int ldx, int k_pad,
+                                                const WRing& r, RingPos& c) {
+  constexpr int KQ = q_ks(H);
+  if constexpr (!WgTile<H>::kSplit) {
+    q_product<N, KQ>(acc, act, ldx, k_pad, r, c);
+  } else {
+    using P = SplitProduct<N>;
+    q_product<P::width, KQ>(acc, act, ldx, k_pad, r, c, N, col_part<H>() ? P::n0_hi : 0);
+    split_sync<H>();
   }
 }
 
@@ -217,14 +254,28 @@ __device__ __forceinline__ void epi_requant(const int* acc, const float* f, int 
   }
 }
 
-// A trunk layer or the branch: relu, then requantized in place.
+// A trunk layer or the branch: relu, then requantized in place (columns
+// [n0, n0 + N) of the layer).
 template <int N>
 __device__ __forceinline__ void epi_relu_q(const int* acc, const float* f, const QDense& L,
-                                           int8_t* act, int ldx) {
+                                           int8_t* act, int ldx, int n0 = 0) {
   if (L.k_pad <= kMagicK)
-    epi_requant<N, true, true>(acc, f + L.f_off, L.n_pad, act, ldx);
+    epi_requant<N, true, true>(acc, f + L.f_off + n0, L.n_pad, act + n0, ldx);
   else
-    epi_requant<N, true, false>(acc, f + L.f_off, L.n_pad, act, ldx);
+    epi_requant<N, true, false>(acc, f + L.f_off + n0, L.n_pad, act + n0, ldx);
+}
+
+// epi_relu_q over the warp's columns of an N-wide layer on H's tile.
+template <int H, int N>
+__device__ __forceinline__ void layer_relu_q(const int* acc, const float* f, const QDense& L,
+                                             int8_t* act, int ldx) {
+  if constexpr (!WgTile<H>::kSplit) {
+    epi_relu_q<N>(acc, f, L, act, ldx);
+  } else if (col_part<H>() == 0) {
+    epi_relu_q<Split<N>::lo>(acc, f, L, act, ldx);
+  } else {
+    epi_relu_q<Split<N>::hi>(acc, f, L, act, ldx, Split<N>::lo);
+  }
 }
 
 // The merged head (N = hidden + 8): the feature requantized (no relu) into
@@ -260,63 +311,83 @@ __device__ __forceinline__ void epi_rgb(const int* acc, const float* f, int n_pa
   }
 }
 
-// The warp's 16 rows through the int8 MLP.  On entry act (the warp's row 0)
-// holds the quantized position features in [0, xyz_pad) and xq (row stride
-// xyz_pad) a copy of them for the skip concat; dir4(row, w) gives word w (4
-// int8) of the row's quantized direction features.  sig and rgbl (the
-// warp's rows) receive sigma and the rgb logits for rows < valid.  The
-// producer streams dense[0..L+2] in order.
+// The merged head over the warp's columns on H's tile: warpgroup 0's part of
+// a split head is feature columns alone, warpgroup 1's ends with sigma.
+template <int H, bool kMagic>
+__device__ __forceinline__ void layer_fs_q(const int* acc, const float* f, int n_pad,
+                                           int8_t* act, int ldx, float* sig, int valid) {
+  if constexpr (!WgTile<H>::kSplit) {
+    epi_fs<H + 8, kMagic>(acc, f, n_pad, act, ldx, sig, valid);
+  } else {
+    using S = Split<H + 8>;
+    if (col_part<H>() == 0)
+      epi_requant<S::lo, false, kMagic>(acc, f, n_pad, act, ldx);
+    else
+      epi_fs<S::hi, kMagic>(acc, f + S::lo, n_pad, act + S::lo, ldx, sig, valid);
+  }
+}
+
+// The warp's 16 rows (with its peer's on a split tile) through the int8
+// MLP.  On entry act (the warp's row 0) holds the quantized position
+// features in [0, xyz_pad) and xq (row stride xyz_pad) a copy of them for
+// the skip concat; dir4(row, w) gives word w (4 int8) of the row's
+// quantized direction features.  sig and rgbl (the warp's rows) receive
+// sigma and the rgb logits for rows < valid.  The producer streams
+// dense[0..L+2] in order.
 template <int H, class DirFn>
 __device__ __forceinline__ void qmlp_forward_wg(const QDims& m, const float* f, int8_t* act,
                                                 const int8_t* xq, DirFn dir4, float* sig,
                                                 float* rgbl, int valid, const WRing& ring,
                                                 RingPos& rp) {
-  const int lane = threadIdx.x & 31;
+  using T = WgTile<H>;
+  const int pl = peer_lane<H>();
   const int ldx = m.ldx;
   const int L = m.num_layers;
   const int xw = m.xyz_pad >> 2, dw = m.dir_pad >> 2;
-  int acc[(H + 8) / 2];
+  int acc[T::kAcc];
   for (int i = 0; i < L; ++i) {
-    q_product<H>(acc, act, ldx, m.dense[i].k_pad, ring, rp);
-    epi_relu_q<H>(acc, f, m.dense[i], act, ldx);
+    q_layer_product<H, H>(acc, act, ldx, m.dense[i].k_pad, ring, rp);
+    layer_relu_q<H, H>(acc, f, m.dense[i], act, ldx);
     if (is_skip(i, m.skip_layer))  // [hq | qx]
-      for (int j = lane; j < 16 * xw; j += 32) {
+      for (int j = pl; j < 16 * xw; j += T::kLanes) {
         const int row = j / xw, c = j - row * xw;
         reinterpret_cast<uint32_t*>(act + row * ldx + H)[c] =
             reinterpret_cast<const uint32_t*>(xq)[j];
       }
-    __syncwarp();
+    rows_sync<H>();
   }
   // The merged feature+sigma head; the direction features fill the columns
   // after the feature, so act becomes the branch input [qfeat | qd].
   const QDense& fs = m.dense[L];
-  q_product<H + 8>(acc, act, ldx, fs.k_pad, ring, rp);
+  q_layer_product<H, H + 8>(acc, act, ldx, fs.k_pad, ring, rp);
   if (fs.k_pad <= kMagicK)
-    epi_fs<H + 8, true>(acc, f + fs.f_off, fs.n_pad, act, ldx, sig, valid);
+    layer_fs_q<H, true>(acc, f + fs.f_off, fs.n_pad, act, ldx, sig, valid);
   else
-    epi_fs<H + 8, false>(acc, f + fs.f_off, fs.n_pad, act, ldx, sig, valid);
-  for (int j = lane; j < 16 * dw; j += 32) {
+    layer_fs_q<H, false>(acc, f + fs.f_off, fs.n_pad, act, ldx, sig, valid);
+  for (int j = pl; j < 16 * dw; j += T::kLanes) {
     const int row = j / dw, c = j - row * dw;
     reinterpret_cast<uint32_t*>(act + row * ldx + H)[c] = row < valid ? dir4(row, c) : 0u;
   }
-  __syncwarp();
-  q_product<H / 2>(acc, act, ldx, m.dense[L + 1].k_pad, ring, rp);
-  epi_relu_q<H / 2>(acc, f, m.dense[L + 1], act, ldx);
-  __syncwarp();
+  rows_sync<H>();
+  q_layer_product<H, H / 2>(acc, act, ldx, m.dense[L + 1].k_pad, ring, rp);
+  layer_relu_q<H, H / 2>(acc, f, m.dense[L + 1], act, ldx);
+  rows_sync<H>();
   const QDense& rgb = m.dense[L + 2];
-  q_product<8>(acc, act, ldx, rgb.k_pad, ring, rp);
-  if (rgb.k_pad <= kMagicK)
-    epi_rgb<true>(acc, f + rgb.f_off, rgb.n_pad, rgbl, valid);
-  else
-    epi_rgb<false>(acc, f + rgb.f_off, rgb.n_pad, rgbl, valid);
-  __syncwarp();
+  q_layer_product<H, 8>(acc, act, ldx, rgb.k_pad, ring, rp);
+  if (col_part<H>() == 0) {
+    if (rgb.k_pad <= kMagicK)
+      epi_rgb<true>(acc, f + rgb.f_off, rgb.n_pad, rgbl, valid);
+    else
+      epi_rgb<false>(acc, f + rgb.f_off, rgb.n_pad, rgbl, valid);
+  }
+  rows_sync<H>();
 }
 
-// The producer's side: every k-slice of one layer, in order.
+// The producer's side: every k-slice of one layer, in order, `kq` deep.
 __device__ __forceinline__ void produce_q_layer(const WRing& r, RingPos& p, const int8_t* w,
-                                                const QDense& L) {
-  for (int k0 = 0; k0 < L.k_pad; k0 += kQKs) {
-    const uint32_t bytes = static_cast<uint32_t>(L.n_pad * min(kQKs, L.k_pad - k0));
+                                                const QDense& L, int kq) {
+  for (int k0 = 0; k0 < L.k_pad; k0 += kq) {
+    const uint32_t bytes = static_cast<uint32_t>(L.n_pad * min(kq, L.k_pad - k0));
     mbar_wait(&r.empty[p.st], p.ph ^ 1u);
     mbar_expect_tx(&r.full[p.st], bytes);
     bulk_g2s(r.buf + static_cast<size_t>(p.st) * r.stage_bytes,
@@ -379,6 +450,8 @@ template <int H>
 __global__ void __launch_bounds__(kWgThreads, 1)
     quant_render_fwd_kernel(const __grid_constant__ Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
+  using T = WgTile<H>;
+  constexpr int kRows = T::kRows;
   const QDims& m = p.m;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -396,9 +469,9 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   ring.stages = p.stages;
   ring.stage_bytes = p.stage_bytes;
   float* f = reinterpret_cast<float*>(ring.buf + p.stages * p.stage_bytes);
-  int8_t* act = reinterpret_cast<int8_t*>(f) + m.f_bytes;  // (128, ldx)
-  int8_t* xq = act + kWgRows * ldx;                         // (128, xyz_pad)
-  int8_t* dq = xq + kWgRows * m.xyz_pad;                    // (R, dir_pad)
+  int8_t* act = reinterpret_cast<int8_t*>(f) + m.f_bytes;  // (rows, ldx)
+  int8_t* xq = act + kRows * ldx;                           // (rows, xyz_pad)
+  int8_t* dq = xq + kRows * m.xyz_pad;                      // (R, dir_pad)
   float* ray = reinterpret_cast<float*>(dq + round_up(R * m.dir_pad, 16));  // (R, 8): o, d
   float* sig = ray + R * 8;   // (R*S)
   float* rgbl = sig + R * S;  // (R*S, 3)
@@ -409,7 +482,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   const int nrays = min(R, p.B - r0);
   const int P = nrays * S;
   const size_t s0 = (size_t)r0 * S;  // first sample of the block
-  const int ntiles = (P + kWgRows - 1) / kWgRows;
+  const int ntiles = (P + kRows - 1) / kRows;
 
   if (tid == 0) {
     ring_init(ring);
@@ -431,7 +504,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       bulk_g2s(f, p.f, static_cast<uint32_t>(m.f_bytes), fbar);
       RingPos rp;
       for (int tile = 0; tile < ntiles; ++tile)
-        for (int i = 0; i < m.num_layers + 3; ++i) produce_q_layer(ring, rp, p.w, m.dense[i]);
+        for (int i = 0; i < m.num_layers + 3; ++i)
+          produce_q_layer(ring, rp, p.w, m.dense[i], q_ks(H));
     }
     return;
   }
@@ -447,15 +521,16 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   }
   consumer_sync(kWgConsumers);
 
-  const int wrow = warp * 16;  // this warp's rows of every tile
+  const int wrow = row_warp<H>() * 16;  // this warp's rows of every tile
   int8_t* wact = act + wrow * ldx;
   int8_t* wxq = xq + wrow * m.xyz_pad;
   const int dw = m.dir_pad >> 2;
   RingPos rp;
   for (int tile = 0; tile < ntiles; ++tile) {
-    const int q0 = tile * kWgRows + wrow;  // block sample of the warp's row 0
-    const int valid = min(16, P - q0);     // may be <= 0 on the last tile
-    encode_rows(m, ray, p.t_vals + s0, S, q0, valid, inv_x, wact, wxq);
+    const int q0 = tile * kRows + wrow;  // block sample of the warp's row 0
+    const int valid = min(16, P - q0);   // may be <= 0 on the last tile
+    if (col_part<H>() == 0) encode_rows(m, ray, p.t_vals + s0, S, q0, valid, inv_x, wact, wxq);
+    split_sync<H>();
     auto dir4 = [&](int row, int c) -> uint32_t {
       return reinterpret_cast<const uint32_t*>(dq)[((q0 + row) / S) * dw + c];
     };
@@ -468,7 +543,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 }
 
 // The hidden widths K4 is instantiated for.
-inline bool q_hidden_ok(int h) { return h == 32 || h == 64 || h == 128 || h == 256; }
+inline bool q_hidden_ok(int h) { return h == 32 || h == 64 || h == 128 || h == 256 || h == 512; }
 
 // Host side: fill `m` from the launch arguments and the pack's descriptors;
 // false when a shape is out of what the kernel takes.
@@ -524,8 +599,8 @@ bool qdims_init(QDims& m, const int* desc, int n_dense, int num_layers, int skip
 // `dense_desc` is a HOST array of n_dense * 5 ints (k_pad, n, n_pad, w_off,
 // f_off) in the order trunk[0..num_layers), merged feature+sigma head,
 // branch, rgb; `x_off` and `d_off` locate the inv_x and inv_d rows (padded
-// to 32 with zeros) at the end of the f32 pack.  hidden is 32, 64, 128 or
-// 256.  Launches on `stream` and returns cudaGetLastError() (0 on success);
+// to 32 with zeros) at the end of the f32 pack.  hidden is 32, 64, 128,
+// 256 or 512.  Launches on `stream` and returns cudaGetLastError() (0 on success);
 // does not synchronise and allocates nothing.
 extern "C" int nkt_quant_render_fwd(const void* origins, const void* dirs, const void* t_vals,
                                     const void* w_pack, const void* f_pack,
@@ -549,11 +624,12 @@ extern "C" int nkt_quant_render_fwd(const void* origins, const void* dirs, const
   p.w_out = static_cast<float*>(w_out);
   p.B = B;
   p.S = S;
-  p.R = wg_rays_per_block(S);
-  p.stage_bytes = (hidden + 8) * kQKs;  // the widest layer's k-slice: the merged head
+  const int rows = wg_rows(hidden);
+  p.R = wg_rays_per_block(S, rows);
+  p.stage_bytes = (hidden + 8) * q_ks(hidden);  // the widest layer's k-slice: the merged head
 
-  const size_t rest = kQBarBytes + (size_t)p.m.f_bytes + (size_t)kWgRows * p.m.ldx +
-                      (size_t)kWgRows * p.m.xyz_pad + (size_t)round_up(p.R * p.m.dir_pad, 16) +
+  const size_t rest = kQBarBytes + (size_t)p.m.f_bytes + (size_t)rows * p.m.ldx +
+                      (size_t)rows * p.m.xyz_pad + (size_t)round_up(p.R * p.m.dir_pad, 16) +
                       sizeof(float) * ((size_t)p.R * 8 + (size_t)p.R * S * 4);
   if (rest + 2 * (size_t)p.stage_bytes > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
   const size_t fit = ((size_t)kMaxSmem - rest) / p.stage_bytes;
@@ -562,7 +638,8 @@ extern "C" int nkt_quant_render_fwd(const void* origins, const void* dirs, const
   void (*kernel)(const Params) = hidden == 32    ? quant_render_fwd_kernel<32>
                                  : hidden == 64  ? quant_render_fwd_kernel<64>
                                  : hidden == 128 ? quant_render_fwd_kernel<128>
-                                                 : quant_render_fwd_kernel<256>;
+                                 : hidden == 256 ? quant_render_fwd_kernel<256>
+                                                 : quant_render_fwd_kernel<512>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int grid = (B + p.R - 1) / p.R;

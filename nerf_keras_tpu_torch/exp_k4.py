@@ -79,19 +79,20 @@ _NOCOPY = [('''    mbar_expect_tx(&r.full[p.st], bytes);
     bulk_g2s(r.buf + static_cast<size_t>(p.st) * r.stage_bytes,
              w + L.w_off + static_cast<size_t>(k0) * L.n_pad, bytes, &r.full[p.st]);''',
             "    (void)bytes;\n    mbar_arrive(&r.full[p.st]);")]
-_LOOP = '''  for (int k0 = 0; k0 < k_pad; k0 += kQKs) {
-    const int steps = min(kQKs, k_pad - k0) >> 5;  // block-uniform
+_LOOP = '''  for (int k0 = 0; k0 < k_pad; k0 += KQ) {
+    const int steps = min(KQ, k_pad - k0) >> 5;  // block-uniform
     uint32_t a[kSteps][4];
 #pragma unroll
     for (int q = 0; q < kSteps; ++q)
       if (q < steps) load_a_s8(a[q], act, ldx, k0 + 32 * q);
     mbar_wait(&r.full[c.st], c.ph);
-    const uint32_t sb = smem_u32(r.buf + static_cast<size_t>(c.st) * r.stage_bytes);
+    const uint32_t sb = smem_u32(r.buf + static_cast<size_t>(c.st) * r.stage_bytes) + n0 * 16;
     acc_fence<N / 2>(acc);
     wg_fence();
 #pragma unroll
     for (int q = 0; q < kSteps; ++q)
-      if (q < steps) mma_rs_s8<N>(acc, a[q], smem_desc(sb + q * 2 * N * 16, N * 16, 128), 128, 1);
+      if (q < steps)
+        mma_rs_s8<N>(acc, a[q], smem_desc(sb + q * 2 * np * 16, np * 16, 128), 128, 1);
     wg_commit();
     wg_wait<0>();
     acc_fence<N / 2>(acc);
@@ -103,21 +104,21 @@ _LOOP = '''  for (int k0 = 0; k0 < k_pad; k0 += kQKs) {
 _PIPE = [(_LOOP, '''  uint32_t a[2][kSteps][4];
   int prev = -1;
 #pragma unroll
-  for (int it = 0; it < 3; ++it) {
-    const int k0 = it * kQKs;
+  for (int it = 0; it < 10; ++it) {  // a layer's stages: at most 3 of 128 k, or 9 of 64
+    const int k0 = it * KQ;
     if (k0 >= k_pad) break;
-    const int steps = min(kQKs, k_pad - k0) >> 5;
+    const int steps = min(KQ, k_pad - k0) >> 5;
 #pragma unroll
     for (int q = 0; q < kSteps; ++q)
       if (q < steps) load_a_s8(a[it & 1][q], act, ldx, k0 + 32 * q);
     mbar_wait(&r.full[c.st], c.ph);
-    const uint32_t sb = smem_u32(r.buf + static_cast<size_t>(c.st) * r.stage_bytes);
+    const uint32_t sb = smem_u32(r.buf + static_cast<size_t>(c.st) * r.stage_bytes) + n0 * 16;
     acc_fence<N / 2>(acc);
     wg_fence();
 #pragma unroll
     for (int q = 0; q < kSteps; ++q)
       if (q < steps)
-        mma_rs_s8<N>(acc, a[it & 1][q], smem_desc(sb + q * 2 * N * 16, N * 16, 128), 128, 1);
+        mma_rs_s8<N>(acc, a[it & 1][q], smem_desc(sb + q * 2 * np * 16, np * 16, 128), 128, 1);
     wg_commit();
     wg_wait<1>();
     acc_fence<N / 2>(acc);
@@ -192,14 +193,25 @@ __device__ __forceinline__ void q_layer_split(int* acc, int8_t* act, int ldx, co
 }
 
 '''
+# (On the 128-row tile only: hidden 512's split tile keeps its products.)
 _SPLIT = [
     ("// The merged head (N = hidden + 8)", _SPLIT_FN + "// The merged head (N = hidden + 8)"),
-    ("    q_product<H>(acc, act, ldx, m.dense[i].k_pad, ring, rp);\n"
-     "    epi_relu_q<H>(acc, f, m.dense[i], act, ldx);",
-     "    q_layer_split<H>(acc, act, ldx, m.dense[i], f, ring, rp);"),
-    ("  q_product<H / 2>(acc, act, ldx, m.dense[L + 1].k_pad, ring, rp);\n"
-     "  epi_relu_q<H / 2>(acc, f, m.dense[L + 1], act, ldx);",
-     "  q_layer_split<H / 2>(acc, act, ldx, m.dense[L + 1], f, ring, rp);"),
+    ("    q_layer_product<H, H>(acc, act, ldx, m.dense[i].k_pad, ring, rp);\n"
+     "    layer_relu_q<H, H>(acc, f, m.dense[i], act, ldx);",
+     "    if constexpr (T::kSplit) {\n"
+     "      q_layer_product<H, H>(acc, act, ldx, m.dense[i].k_pad, ring, rp);\n"
+     "      layer_relu_q<H, H>(acc, f, m.dense[i], act, ldx);\n"
+     "    } else {\n"
+     "      q_layer_split<H>(acc, act, ldx, m.dense[i], f, ring, rp);\n"
+     "    }"),
+    ("  q_layer_product<H, H / 2>(acc, act, ldx, m.dense[L + 1].k_pad, ring, rp);\n"
+     "  layer_relu_q<H, H / 2>(acc, f, m.dense[L + 1], act, ldx);",
+     "  if constexpr (T::kSplit) {\n"
+     "    q_layer_product<H, H / 2>(acc, act, ldx, m.dense[L + 1].k_pad, ring, rp);\n"
+     "    layer_relu_q<H, H / 2>(acc, f, m.dense[L + 1], act, ldx);\n"
+     "  } else {\n"
+     "    q_layer_split<H / 2>(acc, act, ldx, m.dense[L + 1], f, ring, rp);\n"
+     "  }"),
 ]
 # clock64 counters per consumer warp, summed over the grid (PHASES order).
 PHASES = ["wait_full", "mma", "epilogue_trunk", "encode", "all", "final_sync", "composite"]
@@ -223,12 +235,12 @@ __shared__ long long g_sprof[8][8];
     ("    wg_wait<0>();\n    acc_fence<N / 2>(acc);\n    __syncwarp();",
      "    wg_wait<0>();\n    acc_fence<N / 2>(acc);\n    PROF_ADD(1, clock64() - c0);\n"
      "    __syncwarp();"),
-    ("    epi_relu_q<H>(acc, f, m.dense[i], act, ldx);",
-     "    long long e0 = clock64();\n    epi_relu_q<H>(acc, f, m.dense[i], act, ldx);\n"
+    ("    layer_relu_q<H, H>(acc, f, m.dense[i], act, ldx);",
+     "    long long e0 = clock64();\n    layer_relu_q<H, H>(acc, f, m.dense[i], act, ldx);\n"
      "    PROF_ADD(2, clock64() - e0);"),
-    ("    encode_rows(m, ray, p.t_vals + s0, S, q0, valid, inv_x, wact, wxq);",
+    ("    if (col_part<H>() == 0) encode_rows(m, ray, p.t_vals + s0, S, q0, valid, inv_x, wact, wxq);",
      "    long long n0 = clock64();\n"
-     "    encode_rows(m, ray, p.t_vals + s0, S, q0, valid, inv_x, wact, wxq);\n"
+     "    if (col_part<H>() == 0) encode_rows(m, ray, p.t_vals + s0, S, q0, valid, inv_x, wact, wxq);\n"
      "    PROF_ADD(3, clock64() - n0);"),
     ("  reg_alloc<kConsumerRegs>();",
      "  reg_alloc<kConsumerRegs>();\n  if (lane < 8) g_sprof[warp][lane] = 0;\n  __syncwarp();\n"

@@ -10,10 +10,12 @@ holds ``DW_CHUNK_BYTES`` at most (``fused_render.launch_rows``).  They
 reuse K1's weight pack and K2's transposed pack (with input gradients,
 a transposed pack of every input column, cached apart) with their
 per-optimizer-step cache, zero-padded to the kernel width
-(``fused_render.kernel_width``: any hidden width up to 256).  The input
+(``fused_render.kernel_width``: any hidden width up to 512).  The input
 gradients' products compute 64 or 128 x_enc and 32 or 64 d_enc gradient
-columns (``fused_render.ig_cols``): L_XYZ up to 20 and L_DIR up to 10;
-wider encodings raise ``NotImplementedError``.  A float32 MLP runs the
+columns (``fused_render.ig_cols``): L_XYZ up to 20 and L_DIR up to 10, at
+hidden widths up to 256 (``fused_render.check_input_grads``); wider
+encodings, or input gradients of a wider MLP, raise
+``NotImplementedError``.  A float32 MLP runs the
 f32 K5 (``fused_f32``: ``csrc/fused_render_f32.cu``, true f32 products,
 f32 encodings and gradients; its own counters).
 
@@ -43,6 +45,7 @@ from nerf_keras_tpu_torch.ops.kernels import _build, fused_f32
 from nerf_keras_tpu_torch.ops.kernels.fused_render import (
     _ROWS_K5,
     check_encodings,
+    check_input_grads,
     check_tensor,
     device_index,
     is_f32,
@@ -97,7 +100,8 @@ def _check_cuda_call(mlp: NeRFMLP, x_enc: torch.Tensor, d_enc: torch.Tensor) -> 
 
 
 def _grid(device: torch.device, n: int) -> int:
-    """One block per SM at most, striding over the 128-row tiles."""
+    """One block per SM at most, striding over the tiles (128 rows; the
+    kernel takes 64 at hidden 512, never more blocks than tiles)."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return max(1, min(-(-n // 128), sms))
 
@@ -144,6 +148,8 @@ def launch_k5_bwd(
     check_tensor("g", g, (n, 4), device)
     if is_f32(mlp):
         return fused_f32.launch_k5_bwd(mlp, x_enc, d_enc, g, need_dx, need_dd)
+    if need_dx or need_dd:
+        check_input_grads(mlp)
     dx = torch.empty_like(x_enc) if need_dx else None
     dd = torch.empty_like(d_enc) if need_dd else None
     if n == 0:
@@ -189,11 +195,15 @@ def apply_nerf_mlp_fused(
     with ``need_input_grads``, in the encodings.
 
     CPU tensors take :meth:`NeRFMLP.forward`.  CUDA tensors launch the
-    kernels (``fused_render.kernel_route``: bf16 or f32) or raise.
+    kernels (``fused_render.kernel_route``: bf16 or f32) or raise; with
+    ``need_input_grads`` a bf16 MLP wider than 256 raises before any launch
+    (``fused_render.check_input_grads``).
     """
     refuse_batch_norm(mlp)
     if x_enc.device.type == "cpu":
         return mlp(x_enc, d_enc)
+    if need_input_grads:
+        check_input_grads(mlp)
     lead = x_enc.shape[:-1]
     x2 = x_enc.reshape(-1, x_enc.shape[-1]).contiguous()
     d2 = d_enc.reshape(-1, d_enc.shape[-1]).contiguous()

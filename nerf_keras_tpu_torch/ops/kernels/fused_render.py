@@ -33,17 +33,20 @@ of whole rays of :func:`chunk_plan`, so its workspace holds one chunk
   :data:`bwd_launches` (K2), :data:`recompute_launches` (K3),
   :data:`enc_launches` and :data:`enc_bwd_launches` (K6).
 
-Any hidden width up to 256 and any encoding up to 128 position and 64
-direction columns (L_XYZ 20, L_DIR 10) runs on the kernels.  The bf16
-kernels are instantiated at hidden 64, 128 and 256; another width runs on
-packs zero-padded to the next (:func:`kernel_width`, :func:`layer_maps`):
-exact, since a zero unit's ReLU is 0, feeds zeros forward and passes no
-gradient back.  Only the packs are padded; :func:`unpack_grads` returns the
-model's real shapes, and checkpoints, digests and exports never see a
-padded weight.  A float32 MLP runs the f32 kernels instead
-(``fused_f32.py``: true f32 products, at the model's own widths), with
-counters of their own; :func:`kernel_route` is the dispatch.  Beyond these
-limits the wrappers raise ``NotImplementedError`` naming them.
+Any bf16 hidden width up to 512 (float32 up to 256; K5 with input
+gradients up to 256) and any encoding up to 128 position and 64 direction
+columns (L_XYZ 20, L_DIR 10) runs on the kernels.  The bf16 kernels are
+instantiated at hidden 64, 128, 256 and 512 (512 on 64-row tiles whose two
+warpgroups split each layer's columns: ``csrc/nerf_wgmlp.cuh``); another
+width runs on packs zero-padded to the next (:func:`kernel_width`,
+:func:`layer_maps`): exact, since a zero unit's ReLU is 0, feeds zeros
+forward and passes no gradient back.  Only the packs are padded;
+:func:`unpack_grads` returns the model's real shapes, and checkpoints,
+digests and exports never see a padded weight.  A float32 MLP runs the f32
+kernels instead (``fused_f32.py``: true f32 products, at the model's own
+widths), with counters of their own; :func:`kernel_route` is the dispatch.
+Beyond these limits the wrappers raise ``NotImplementedError`` naming
+them.
 
 As in the JAX package, the weights output carries no gradient unless
 ``weights_grad=True`` (never for K6); origins, directions, t-values and
@@ -95,8 +98,11 @@ class KernelPack(NamedTuple):
     desc: np.ndarray     # int32 (n_dense, 5): k_pad, n, n_pad, w_off, b_off
 
 
-WG_HIDDEN = (64, 128, 256)  # the bf16 kernels' instantiations (csrc/nerf_wgmlp.cuh: wg_hidden_ok)
-MAX_HIDDEN = 256
+# The bf16 kernels' instantiations (csrc/nerf_wgmlp.cuh: wg_hidden_ok); the
+# widest is their limit (wider needs the activations split across blocks).
+WG_HIDDEN = (64, 128, 256, 512)
+MAX_HIDDEN_F32 = 256  # the float32 kernels (csrc/fused_render_f32.cu)
+MAX_HIDDEN_IG = 256   # K5 with input gradients (its 128-row tiles: nerf_wgmlp.cuh)
 MAX_ENC = (128, 64)  # position and direction encoding columns the kernels take
 WIDE_QUEUE = "ROADMAP.md queue 2 A3"  # where the wider kernels are queued
 
@@ -131,17 +137,32 @@ def kernel_route(compute_dtype: torch.dtype, hidden: int, device_type: str) -> t
     hidden)`` for tensors on the CPU, ``("f32", hidden)`` for a float32 MLP
     on CUDA (``csrc/fused_render_f32.cu``, at the model's own widths),
     ``("wgmma", kernel_width(hidden))`` for a bf16 one (the wgmma kernels on
-    the zero-padded pack).  ``NotImplementedError`` above ``MAX_HIDDEN`` on
-    CUDA."""
+    the zero-padded pack).  ``NotImplementedError`` on CUDA above
+    ``MAX_HIDDEN_F32`` for float32 and above ``WG_HIDDEN[-1]`` for bf16."""
     if device_type == "cpu":
         return "plain", hidden
-    if hidden > MAX_HIDDEN:
-        kernel_width(hidden)  # raises, naming the limit
     if compute_dtype == torch.float32:
+        if hidden > MAX_HIDDEN_F32:
+            raise NotImplementedError(
+                f"hidden_dim={hidden}: the float32 CUDA kernels take hidden widths up to "
+                f"{MAX_HIDDEN_F32}; wider float32 MLPs need a kernel design of their own "
+                f"({WIDE_QUEUE})")
         return "f32", hidden
     if compute_dtype != torch.bfloat16:
         raise NotImplementedError(f"the CUDA kernels run bf16 or float32 MLPs, got {compute_dtype}")
     return "wgmma", kernel_width(hidden)
+
+
+def check_input_grads(mlp: NeRFMLP) -> None:
+    """``NotImplementedError`` for K5 with input gradients on a bf16 MLP
+    wider than ``MAX_HIDDEN_IG`` on CUDA: its products keep the encodings'
+    gradient columns beside a layer's on the 128-row tile."""
+    route, _ = kernel_route(mlp.compute_dtype, mlp.hidden_dim, "cuda")
+    if route == "wgmma" and mlp.hidden_dim > MAX_HIDDEN_IG:
+        raise NotImplementedError(
+            f"hidden_dim={mlp.hidden_dim}: K5 with input gradients (STOP_PDF_GRADIENT="
+            f"false) takes hidden widths up to {MAX_HIDDEN_IG} on the CUDA kernels "
+            f"({WIDE_QUEUE})")
 
 
 def _dense_layers(mlp: NeRFMLP, hp: int | None = None) -> list[tuple[torch.Tensor, torch.Tensor]]:
@@ -430,14 +451,16 @@ def workspace_layout(fwd: KernelPack, bwd: KernelPack) -> np.ndarray:
 
 # The dW workspace of K2, K3 and K6 holds one chunk of whole rays at most
 # this many bytes (csrc/fused_render_bwd.cu runs the rows kernel and the dW
-# product chunk by chunk); about 66K samples at 8x256.
+# product chunk by chunk); about 66K samples at 8x256 (10,112 B each) and
+# 33K at 8x512 (19,840 B each).
 DW_CHUNK_BYTES = 640 << 20
+DW_MAX_N = 272  # the widest dW column tile (csrc/nerf_dw.cuh: kDwMaxN)
 
 
 def chunk_plan(b: int, s: int, bytes_per_sample: int,
                budget: int | None = None) -> list[tuple[int, int]]:
     """``[(first ray, rays)]``: the chunks of whole rays the backward walks
-    in order.  Each chunk's workspace (its samples padded to 128-row tiles,
+    in order.  Each chunk's workspace (its samples padded to 128 rows,
     ``bytes_per_sample`` each) fits ``budget`` (``DW_CHUNK_BYTES``) unless
     one ray alone does not; the last chunk may be short; one chunk when
     the batch fits."""
@@ -483,7 +506,10 @@ class DwBuffers(NamedTuple):
         a_cols, d_cols = int(layout[:, 1].sum()), int(layout[:, 3].sum())
         total_out = int((layout[:, 1] * layout[:, 3]).sum())
         total_b = fwd.b.numel()
-        tiles = int(sum(-(-int(a) // 128) for a in layout[:, 1]))
+        # The dW product's blocks: 128 rows of a layer by its d_width, or by
+        # each half of a d_width above 272 (csrc/nerf_dw.cuh: dw_tile_cols).
+        tiles = int(sum(-(-int(a) // 128) * (2 if int(d) > DW_MAX_N else 1)
+                        for a, d in zip(layout[:, 1], layout[:, 3])))
         sms = torch.cuda.get_device_properties(device).multi_processor_count
         nsplit = max(1, min(-(-2 * sms // tiles), rows // 64 // 8))
         f32 = dict(dtype=torch.float32, device=device)

@@ -41,9 +41,12 @@ from nerf_keras_tpu_torch.ops.volume import volume_render
 
 launches = 0  # K4 launches in this process (one per successful launch)
 
-K4_KS = 128  # k per weight stage (csrc/quant_render_fwd.cu: kQKs)
-K4_HIDDEN = (32, 64, 128, 256)  # its instantiations (quant_render_fwd.cu: q_hidden_ok);
-# a model of another width up to 256 runs zero-padded to the next (pad_qparams)
+# k per slice of the pack (csrc/quant_render_fwd.cu: kQKs, the k per weight
+# stage up to hidden 256; hidden 512 streams 64-deep stages of the same
+# pack, whose layout does not depend on the slice depth: q_layout)
+K4_KS = 128
+K4_HIDDEN = (32, 64, 128, 256, 512)  # its instantiations (quant_render_fwd.cu: q_hidden_ok);
+# a model of another width up to 512 runs zero-padded to the next (pad_qparams)
 
 
 def _round_up(x: int, m: int) -> int:

@@ -4,11 +4,13 @@ CPU that the case can see a wrong conversion, ``test_torch_cuda.py`` holds
 K4 to its plain version on it).
 
 K4 dequantizes an accumulator by a magic number (exact for |acc| <= 2^22)
-on every layer whose padded k is at most 256, and by a conversion on the
-layer after the skip (k 319) and the branch (k 283), whose |acc| can reach
-k * 127^2 > 2^22.  Here every input of those two layers is +-127 and every
-weight is 127 with the input's sign, so their accumulators are exactly
-319 * 127^2 and 283 * 127^2.  The rays stay in a box so small that no
+on every layer whose padded k is at most 256, and by a conversion on every
+other layer: at hidden 256 the layer after the skip (k 319) and the branch
+(k 283), at hidden 512 every trunk layer after the first, the head and the
+branch, whose |acc| can reach k * 127^2 > 2^22.  Here every input of the
+layer after the skip and of the branch is +-127 and every weight is 127
+with the input's sign, so their accumulators are exactly (hidden + 63) *
+127^2 and (hidden + 27) * 127^2.  The rays stay in a box so small that no
 column of the position or direction encoding changes sign, and the
 encodings' inverse scales are so large that every column quantizes to
 +-127.  The layers after them are not saturated, so the conversion shows
@@ -54,9 +56,12 @@ def _dense(wq: np.ndarray, scale, b, device) -> dict:
             "b": _row(np.broadcast_to(b, (n,)), device)}
 
 
-def adversarial_case(device, b: int = 64, s: int = 32, seed: int = 0):
+def adversarial_case(device, b: int = 64, s: int = 32, seed: int = 0, hidden: int = HIDDEN):
     """``(qparams, origins (b, 3), dirs (b, 3), t (b, s))`` on ``device``
-    for an 8x256 skip-4 MLP with L_XYZ 10, L_DIR 4."""
+    for an 8 x ``hidden`` (256 or 512) skip-4 MLP with L_XYZ 10, L_DIR 4.
+    The scales and biases after the two saturating layers are set from
+    ``hidden`` so that the activations equal hidden 256's: the layer after
+    the skip outputs 16..31, sigma ~ 5e3, the rgb logits near 0."""
     rng = np.random.default_rng(seed)
     c = _center(rng)
     d = np.array([0.3, 0.5, 0.8])
@@ -73,26 +78,28 @@ def adversarial_case(device, b: int = 64, s: int = 32, seed: int = 0):
             float(d_enc.abs().min()) * INV_ENC > 127.5):
         raise RuntimeError("the encodings change sign in the box")
     sd = torch.sign(d_enc).numpy()
-    h = HIDDEN
+    h = hidden
+    r = HIDDEN / h  # the scales of hidden 256, per input column
     cols = np.arange(h)
     full = np.full((h, h), 127)
     trunk = [_dense(np.repeat(127 * sx[:, None], h, 1), 1e-4, 0.0, device)]  # -> 127
     trunk += [_dense(full, 1e-4, 0.0, device) for _ in range(1, SKIP + 1)]  # 256 * 127^2 -> 127
     # After the skip: [h4 = 127 | qx = 127 sx] with weights 127 (sx):
-    # acc = 319 * 127^2; outputs 16..31, not saturated.
+    # acc = (h + 63) * 127^2; outputs 16..31, not saturated.
     trunk.append(_dense(np.concatenate([full, np.repeat(127 * sx[:, None], h, 1)]),
-                        1e-5, -20.0 - (cols % 16), device))
-    trunk += [_dense(np.ones((h, h)), 0.02, -50.0, device),
-              _dense(np.ones((h, h)), 0.01, -100.0, device)]
-    # The head: the feature saturates (127) for the branch, sigma ~ 5e3.
+                        1e-5 * (HIDDEN + 63) / (h + 63), -20.0 - (cols % 16), device))
+    trunk += [_dense(np.ones((h, h)), 0.02 * r, -50.0, device),
+              _dense(np.ones((h, h)), 0.01 * r, -100.0, device)]
+    # The head: the feature saturates (127) for the branch, sigma ~ 5e3
+    # (every h7 is 79).
     fs = _dense(np.concatenate([np.full((h, h), 127), np.ones((h, 1))], axis=1),
                 np.concatenate([np.full(h, 1e-3), [1.0]]),
-                np.concatenate([np.zeros(h), [-15000.0]]), device)
-    # The branch over [qfeat = 127 | qd = 127 sd]: acc = 283 * 127^2.
+                np.concatenate([np.zeros(h), [-15000.0 - 79.0 * (h - HIDDEN)]]), device)
+    # The branch over [qfeat = 127 | qd = 127 sd]: acc = (h + 27) * 127^2.
     branch = _dense(np.concatenate([np.full((h, h // 2), 127),
                                     np.repeat(127 * sd[:, None], h // 2, 1)]),
-                    1e-5, -40.0, device)
-    rgb = _dense(np.ones((h // 2, 3)), 1e-3, np.array([-7.0, -7.5, -6.5]), device)
+                    1e-5 * (HIDDEN + 27) / (h + 27), -40.0, device)
+    rgb = _dense(np.ones((h // 2, 3)), 1e-3 * r, np.array([-7.0, -7.5, -6.5]), device)
     qp = {"inv_x": _row(np.full(63, INV_ENC), device), "inv_d": _row(np.full(27, INV_ENC), device),
           "trunk": trunk, "inv_h": [_row(np.full(h, v), device) for v in (10, 1, 1, 1, 1, 1, 1, 1)],
           "fs": fs, "inv_feat": _row(np.full(h, 10.0), device), "branch": branch,

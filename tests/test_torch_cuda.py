@@ -517,7 +517,7 @@ def test_k4_exact_where_accumulators_reach_the_bound(dev):
 def test_k4_rejects_an_unsupported_width(dev):
     """Its name is historical: hidden 96 runs on the int8 tables zero-padded
     to the 128 instantiation (quant_render.pad_qparams), held to the plain
-    version at K4's gates; hidden 320 still raises."""
+    version at K4's gates; hidden 640 still raises, naming 512."""
     qp, o, d, t = _k4_setup(dev, (2, 96, 4), 16, 8, seed=23)
     rgb, w = k4.render_rays_fused_quant(qp, o, d, t)
     torch.cuda.synchronize()
@@ -525,8 +525,8 @@ def test_k4_rejects_an_unsupported_width(dev):
     for got, want in ((rgb, rgb_p), (w, w_p)):
         assert float((got - want).abs().max()) <= TOL_MAX
         assert float((got - want).abs().mean()) <= TOL_MEAN
-    qp, o, d, t = _k4_setup(dev, (2, 320, 4), 16, 8, seed=23)
-    with pytest.raises(NotImplementedError, match="up to 256"):
+    qp, o, d, t = _k4_setup(dev, (2, 640, 4), 16, 8, seed=23)
+    with pytest.raises(NotImplementedError, match="up to 512"):
         k4.render_rays_fused_quant(qp, o, d, t)
 
 
@@ -993,12 +993,15 @@ def test_f32_backward_over_chunks_repeats_its_bits(dev, monkeypatch, kernel):
         assert _rel_l2(a, w) <= F32_TOL_REL, (i, _rel_l2(a, w))
 
 
-@pytest.mark.parametrize("what", ["hidden 320 bf16", "hidden 320 f32", "L_XYZ 21",
+@pytest.mark.parametrize("what", ["hidden 640 bf16", "hidden 320 f32",
+                                  "hidden 320 bf16 K5 input gradients", "L_XYZ 21",
                                   "L_DIR 11"])
 def test_beyond_the_kernels_raises_naming_the_limit(dev, what):
-    """Hidden > 256, L_XYZ > 20 and L_DIR > 10 raise NotImplementedError
-    naming the limit and the ROADMAP.md item; nothing falls back."""
-    hidden = 320 if "hidden" in what else 64
+    """A bf16 MLP wider than 512, a float32 one wider than 256, K5's input
+    gradients wider than 256, L_XYZ > 20 and L_DIR > 10 raise
+    NotImplementedError naming the limit and the ROADMAP.md item, before
+    any launch; nothing falls back."""
+    hidden = 640 if "640" in what else 320 if "320" in what else 64
     l_xyz, l_dir = (21 if what == "L_XYZ 21" else 10), (11 if what == "L_DIR 11" else 4)
     dtype = torch.float32 if "f32" in what else torch.bfloat16
     mlp = NeRFMLP(num_layers=2, hidden_dim=hidden, l_xyz=l_xyz, l_dir=l_dir,
@@ -1006,10 +1009,183 @@ def test_beyond_the_kernels_raises_naming_the_limit(dev, what):
     o, d, t = _rays(dev, 8, 8)
     x = torch.zeros((8, mlp.xyz_dim), dtype=dtype, device=dev)
     dd = torch.zeros((8, mlp.dir_dim), dtype=dtype, device=dev)
-    limit = "up to 256" if "hidden" in what else "L_XYZ <= 20, L_DIR <= 10"
+    limit = {"hidden 640 bf16": "up to 512", "hidden 320 f32": "up to 256",
+             "hidden 320 bf16 K5 input gradients": "input gradients.*up to 256"}.get(
+        what, "L_XYZ <= 20, L_DIR <= 10")
+    before = launch_counts()
+    if "input gradients" not in what:
+        with pytest.raises(NotImplementedError, match=limit) as err:
+            k1.render_rays_fused(mlp, o, d, t, l_xyz=l_xyz, l_dir=l_dir)
+        assert "ROADMAP.md queue 2 A3" in str(err.value)
     with pytest.raises(NotImplementedError, match=limit) as err:
-        k1.render_rays_fused(mlp, o, d, t, l_xyz=l_xyz, l_dir=l_dir)
-    assert "ROADMAP.md queue 2 A3" in str(err.value)
-    with pytest.raises(NotImplementedError, match=limit):
         k5.apply_nerf_mlp_fused(mlp, x, dd, need_input_grads=True)
+    assert "ROADMAP.md queue 2 A3" in str(err.value)
+    assert launch_counts() == before
+
+
+# ---------------------------------------------------------------------------
+# Hidden widths above 256: the 64-row split tile of hidden 512 (and widths
+# 257-511 zero-padded to it), each kernel against its plain version.
+
+WIDE = (320, 512)
+
+
+def _wide_mlp(dev, hidden, seed, num_layers=8, skip=4):
+    gen = torch.Generator().manual_seed(seed)
+    return randomize_biases_(NeRFMLP(num_layers=num_layers, hidden_dim=hidden,
+                                     skip_layer=skip, generator=gen, device=dev), gen)
+
+
+@pytest.mark.parametrize("hidden", WIDE)
+@pytest.mark.parametrize("b,s", [(1024, 64), (333, 100), (1000, 24), (257, 192)])
+def test_wide_k1_matches_plain(dev, hidden, b, s):
+    """K1 (and its training mode, as ``test_k1_training_residuals_match_plain``
+    holds it: the bf16 x_enc residual, the predictions of the plain MLP on
+    it, the same rgb and weights) at 8 x 320 and 8 x 512 against the plain
+    version: one ray a block, several, and a ragged last tile."""
+    mlp = _wide_mlp(dev, hidden, seed=31)
+    o, d, t = _rays(dev, b, s, seed=4)
+    before = (k1.launches, k1.train_launches)
+    with torch.no_grad():
+        rgb, w = k1.render_rays_fused(mlp, o, d, t)
+        rgb1, w1, x_enc, preds = k1.launch_k1(mlp, o, d, t, 10, 4, train=True)
+        torch.cuda.synchronize()
+        rgb_p, w_p = k1.render_rays_reference(mlp, o, d, t)
+        pts = o[:, None, :] + d[:, None, :] * t[..., None]
+        x_plain = encode_position(pts, 10).reshape(b * s, -1)
+        d_plain = encode_position(d, 4)[:, None, :].expand(b, s, -1).reshape(b * s, -1)
+        preds_p = mlp(x_enc.float(), d_plain)
+    assert (k1.launches, k1.train_launches) == (before[0] + 2, before[1] + 1)
+    assert torch.equal(rgb, rgb1) and torch.equal(w, w1)
+    for got, want in ((rgb, rgb_p), (w, w_p)):
+        assert bool(torch.isfinite(got).all())
+        assert float((got - want).abs().max()) <= TOL_MAX
+        assert float((got - want).abs().mean()) <= TOL_MEAN
+    assert float((x_enc.float() - x_plain.to(torch.bfloat16).float()).abs().max()) <= 1e-2
+    assert float((preds - preds_p).abs().max()) <= TOL_MAX * 4
+    assert float((preds - preds_p).abs().mean()) <= TOL_MEAN
+
+
+@pytest.mark.parametrize("hidden", WIDE)
+@pytest.mark.parametrize("with_gw", [True, False])
+def test_wide_k2_matches_plain_vjp(dev, hidden, with_gw):
+    """K2 at 320 and 512 (its rows kernel on the split tile, dW in two
+    column tiles of the 512- and 528-wide layers) against autograd of the
+    plain K1, per leaf within K2_TOL_REL; K3 gives K2's bits."""
+    mlp = _wide_mlp(dev, hidden, seed=32)
+    b, s = 333, 100
+    o, d, t = _rays(dev, b, s, seed=5)
+    gen = torch.Generator().manual_seed(6)
+    g_rgb = torch.randn((b, 3), generator=gen).to(dev)
+    g_w = torch.randn((b, s), generator=gen).to(dev) if with_gw else None
+    got = _kernel_grads(mlp, o, d, t, g_rgb, g_w)
+    torch.cuda.synchronize()
+    want = k1.render_rays_reference_vjp(mlp, o, d, t, g_rgb, g_w)
+    for (name, p), g, r in zip(mlp.named_parameters(), got, want):
+        assert g.shape == p.shape and bool(torch.isfinite(g).all()), name
+        assert _rel_l2(g, r) <= K2_TOL_REL, (name, _rel_l2(g, r))
+    with torch.no_grad():
+        _, _, x_res, preds = k1.launch_k1(mlp, o, d, t, 10, 4, train=True)
+        k2 = k1.launch_k2(mlp, x_res, d, t, preds, g_rgb, g_w, 10, 4)
+        k3 = k1.launch_k3(mlp, o, d, t, preds, g_rgb, g_w, 10, 4)
+    assert all(torch.equal(a, c) for a, c in zip(k2, k3))
+
+
+def test_wide_k2_chunks_and_determinism(dev, monkeypatch):
+    """At 8 x 512: two runs give the same bits (no atomics; the bias sums
+    over the split tile's four row groups in a fixed order), and a budget
+    that forces several chunks of rays (a ragged last one: the dW slabs
+    accumulate over chunks, column tile by column tile) stays within K2's
+    gate of one chunk."""
+    mlp = _wide_mlp(dev, 512, seed=33)
+    b, s = 300, 64
+    o, d, t = _rays(dev, b, s, seed=7)
+    gen = torch.Generator().manual_seed(8)
+    g_rgb = torch.randn((b, 3), generator=gen).to(dev)
+    g_w = torch.randn((b, s), generator=gen).to(dev)
+    one = _kernel_grads(mlp, o, d, t, g_rgb, g_w)
+    again = _kernel_grads(mlp, o, d, t, g_rgb, g_w)
+    assert all(torch.equal(x, y) for x, y in zip(one, again))
+    per_sample = 19_840  # the workspace bytes of a sample at 8 x 512
+    monkeypatch.setattr(k1, "DW_CHUNK_BYTES", 64 * 128 * per_sample)
+    plan = k1.chunk_plan(b, s, per_sample)
+    assert len(plan) >= 3 and plan[-1][1] < plan[0][1]
+    got = _kernel_grads(mlp, o, d, t, g_rgb, g_w)
+    for x, y in zip(got, one):
+        assert _rel_l2(x, y) <= K2_TOL_REL
+
+
+@pytest.mark.parametrize("hidden", WIDE)
+def test_wide_k6_and_k5_match_plain(dev, hidden):
+    """K6 (forward, backward) and K5 (forward, backward without input
+    gradients: the card's path above 256) at 320 and 512 against their
+    plain versions."""
+    mlp = _wide_mlp(dev, hidden, seed=34)
+    b, s = 257, 64
+    o, d, t = _rays(dev, b, s, seed=9)
+    pts = o[:, None, :] + d[:, None, :] * t[..., None]
+    x_enc = encode_position(pts, 10).to(torch.bfloat16).contiguous()
+    d_enc = encode_position(d / d.norm(dim=-1, keepdim=True), 4)[:, None, :].expand(
+        b, s, -1).to(torch.bfloat16).contiguous()
+    gen = torch.Generator().manual_seed(10)
+    g_rgb = torch.randn((b, 3), generator=gen).to(dev)
+    with torch.no_grad():
+        rgb, w, preds = k1.launch_k6_fwd(mlp, x_enc, d_enc, t, train=True)
+        got = k1.launch_k6_bwd(mlp, x_enc, d_enc, t, preds, g_rgb)
+        torch.cuda.synchronize()
+        rgb_p, w_p = k1.apply_nerf_render_reference(mlp, x_enc, d_enc, t)
+    for a, c in ((rgb, rgb_p), (w, w_p)):
+        assert float((a - c).abs().max()) <= TOL_MAX
+        assert float((a - c).abs().mean()) <= TOL_MEAN
+    want = k1.apply_nerf_render_reference_vjp(mlp, x_enc, d_enc, t, g_rgb)
+    for (name, _), a, c in zip(mlp.named_parameters(), got, want):
+        assert _rel_l2(a, c) <= K2_TOL_REL, (name, _rel_l2(a, c))
+    x2, d2 = x_enc.reshape(b * s, -1), d_enc.reshape(b * s, -1)
+    g5 = (torch.randn((b * s, 4), generator=gen) * 1e-2).to(dev)
+    with torch.no_grad():
+        out = k5.launch_k5_fwd(mlp, x2, d2)
+        grads, dx, dd = k5.launch_k5_bwd(mlp, x2, d2, g5, False, False)
+        torch.cuda.synchronize()
+        out_p = mlp(x2, d2)
+    assert dx is None and dd is None
+    assert float((out - out_p).abs().max()) <= K5_PREDS_MAX
+    assert float((out - out_p).abs().mean()) <= K5_PREDS_MEAN
+    want, _, _ = k5.apply_nerf_mlp_reference_vjp(mlp, x2, d2, g5, False)
+    for (name, _), a, c in zip(mlp.named_parameters(), grads, want):
+        assert _rel_l2(a, c) <= K5_TOL_REL, (name, _rel_l2(a, c))
+
+
+@pytest.mark.parametrize("hidden", WIDE)
+@pytest.mark.parametrize("b,s", [(4096, 64), (333, 160), (1001, 24)])
+def test_wide_k4_matches_plain(dev, hidden, b, s):
+    """K4 at 8 x 320 (tables padded to 512) and 8 x 512 against its plain
+    version on the same qparams, at K1's gates; two launches the same
+    bits."""
+    qp, o, d, t = _k4_setup(dev, (8, hidden, 4), b, s, seed=24)
+    rgb, w = k4.render_rays_fused_quant(qp, o, d, t)
+    again = k4.render_rays_fused_quant(qp, o, d, t)
+    torch.cuda.synchronize()
+    rgb_p, w_p = k4.render_rays_reference_quant(qp, o, d, t)
+    assert torch.equal(rgb, again[0]) and torch.equal(w, again[1])
+    for got, want in ((rgb, rgb_p), (w, w_p)):
+        assert bool(torch.isfinite(got).all())
+        assert float((got - want).abs().max()) <= TOL_MAX
+        assert float((got - want).abs().mean()) <= TOL_MEAN
+
+
+def test_wide_k4_exact_beyond_two_to_the_22(dev):
+    """K4 at 8 x 512 on ``k4_adversarial.adversarial_case(hidden=512)``:
+    every trunk layer after the first, the head and the branch accumulate
+    beyond 2^22 (the layer after the skip and the branch exactly k *
+    127^2), where K4 converts with cvt.rn.f32.s32; within K4's gates (max
+    1e-3, mean 1e-5), which the magic number there misses by 10x
+    (``test_torch_wide.py`` checks that on the CPU)."""
+    qp, o, d, t = k4_adversarial.adversarial_case(dev, hidden=512)
+    rgb, w = k4.render_rays_fused_quant(qp, o, d, t)
+    torch.cuda.synchronize()
+    rgb_p, w_p = k4.render_rays_reference_quant(qp, o, d, t)
+    for got, want in ((rgb, rgb_p), (w, w_p)):
+        assert bool(torch.isfinite(got).all())
+        assert float((got - want).abs().max()) <= 1e-3
+        assert float((got - want).abs().mean()) <= 1e-5
 

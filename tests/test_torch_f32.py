@@ -6,8 +6,9 @@ version.  Here:
 
 * The dispatch as a pure function (``fused_render.kernel_route``): which
   kernels a (compute dtype, hidden width, device) maps to, and at what
-  width; the limits (hidden 256, L_XYZ 20, L_DIR 10) raise
-  ``NotImplementedError`` naming themselves and the ROADMAP item.
+  width; the limits (hidden 512 for bf16, 256 for float32 and for K5's
+  input gradients, L_XYZ 20, L_DIR 10) raise ``NotImplementedError``
+  naming themselves and the ROADMAP item.
 * ``check_train_support`` accepts float32 (on any device).
 * The f32 backward's weight-gradient plan (``dw_tiles``, ``dw_splits``,
   ``dw_blocks``): every (layer, k tile, n tile, sample tile) of a chunk
@@ -34,6 +35,7 @@ from nerf_keras_tpu.engine import step as jstep
 from nerf_keras_tpu_torch.engine import step as pstep
 from nerf_keras_tpu_torch.models.mlp import NeRFMLP, randomize_biases_
 from nerf_keras_tpu_torch.ops.kernels import fused_f32
+from nerf_keras_tpu_torch.ops.kernels import fused_mlp as k5
 from nerf_keras_tpu_torch.ops.kernels import fused_render as k1
 from nerf_keras_tpu_torch.ops.kernels import quant_render as k4
 from test_torch_train import _cfg as _proposal_cfg
@@ -67,7 +69,10 @@ F32, BF16 = torch.float32, torch.bfloat16
     (BF16, 96, "cuda", ("wgmma", 128)),
     (BF16, 192, "cuda", ("wgmma", 256)),
     (BF16, 256, "cuda", ("wgmma", 256)),
+    (BF16, 257, "cuda", ("wgmma", 512)),
+    (BF16, 512, "cuda", ("wgmma", 512)),
     (BF16, 320, "cpu", ("plain", 320)),
+    (BF16, 1024, "cpu", ("plain", 1024)),
     (F32, 96, "cpu", ("plain", 96)),
 ])
 def test_kernel_route(dtype, hidden, device, want):
@@ -77,11 +82,47 @@ def test_kernel_route(dtype, hidden, device, want):
 @pytest.mark.parametrize("dtype", [F32, BF16])
 @pytest.mark.parametrize("hidden", [257, 320, 512])
 def test_wider_than_256_raises_naming_the_limit(dtype, hidden):
+    """Above 256 a float32 MLP still raises on CUDA, naming 256 and the
+    ROADMAP item; a bf16 one runs on the hidden-512 kernels (257-511
+    zero-padded to 512)."""
+    if dtype == BF16:
+        assert k1.kernel_route(dtype, hidden, "cuda") == ("wgmma", 512)
+        return
     with pytest.raises(NotImplementedError, match=r"up to 256.*ROADMAP.md queue 2 A3"):
         k1.kernel_route(dtype, hidden, "cuda")
 
 
-@pytest.mark.parametrize("hidden,want", [(8, 32), (32, 32), (48, 64), (96, 128), (192, 256)])
+@pytest.mark.parametrize("hidden", [513, 640, 1024])
+def test_bf16_wider_than_512_raises_naming_the_limit(hidden):
+    """A bf16 MLP above 512 raises on CUDA naming 512 and the ROADMAP
+    item, for every kernel that pads to an instantiation (K1-K6, K4)."""
+    with pytest.raises(NotImplementedError, match=r"up to 512.*ROADMAP.md queue 2 A3"):
+        k1.kernel_route(BF16, hidden, "cuda")
+    with pytest.raises(NotImplementedError, match=r"up to 512.*ROADMAP.md queue 2 A3"):
+        k1.kernel_width(hidden, k4.K4_HIDDEN)
+
+
+@pytest.mark.parametrize("hidden,raises", [(256, False), (257, True), (512, True)])
+def test_k5_input_gradients_wider_than_256_raise(hidden, raises):
+    """K5 with input gradients (STOP_PDF_GRADIENT=false) takes bf16 MLPs
+    up to 256 on CUDA and raises above, naming 256 and the ROADMAP item,
+    before any launch; on the CPU the plain version runs at any width."""
+    mlp = NeRFMLP(num_layers=2, hidden_dim=hidden, skip_layer=4, l_xyz=2, l_dir=1)
+    if raises:
+        with pytest.raises(NotImplementedError,
+                           match=r"input gradients.*up to 256.*ROADMAP.md queue 2 A3"):
+            k1.check_input_grads(mlp)
+    else:
+        k1.check_input_grads(mlp)
+    x = torch.zeros((3, mlp.xyz_dim), dtype=BF16, requires_grad=True)
+    d = torch.zeros((3, mlp.dir_dim), dtype=BF16, requires_grad=True)
+    out = k5.apply_nerf_mlp_fused(mlp, x, d, need_input_grads=True)
+    out.sum().backward()
+    assert x.grad.shape == x.shape
+
+
+@pytest.mark.parametrize("hidden,want", [(8, 32), (32, 32), (48, 64), (96, 128), (192, 256),
+                                         (257, 512), (320, 512), (512, 512)])
 def test_k4_pads_to_its_instantiations(hidden, want):
     assert k1.kernel_width(hidden, k4.K4_HIDDEN) == want
 

@@ -1,0 +1,477 @@
+"""Hidden widths up to 512 on the kernels: the packs and layouts of the
+64-row split tile, and the modules and the slice at 320 and 512, on the CPU.
+
+Hidden 512 runs on its own instantiation (``csrc/nerf_wgmlp.cuh``: a
+64-row tile whose two consumer warpgroups each compute a part of every
+layer's output columns, ``Split<N>``: 256 + 256 of the trunk, 256 + 264 of
+the merged head, 128 + 128 of the branch, the 8-wide rgb head warpgroup 0's
+alone; weight stages 32 k deep), and widths 257-511 run zero-padded to it
+(``fused_render.kernel_width``/``layer_maps``/``padded_layers``,
+``quant_render.pad_qparams``).  Here, with numpy models of the addressing:
+
+* The forward pack and K2's transposed pack at hidden 320 (padded) and
+  512: every element where a warpgroup's B descriptor addresses it, for
+  32-deep stages (hidden 512's) as for 64-deep ones, at the column offset
+  of each warpgroup's part; a 32-deep stage is one contiguous run of the
+  pack.
+* K4's int8 tables at 320 and 512: the padding is exact, the pack has
+  K4's widths, each part's f32 scale/bias/requant rows and its int8
+  columns where the 64-deep stages' descriptor addresses them.
+* ``layer_maps`` at hp 512: sigma at head column 512, the skip layer's and
+  the branch's encodings at 512, the rgb input 256 wide.
+* The dW product's column tiles (``csrc/nerf_dw.cuh``): a d_width above
+  272 is two tiles of d_width / 2 at offsets 0 and d_width / 2, each an
+  instantiated width, each a contiguous run of a workspace stage.
+* K1/K2's, K6's, K5's and K4's modules at hidden 320 and 512 against the
+  JAX package (interpret mode on the CPU; the port's CPU wrappers take the
+  plain versions), 4 layers, skip 2, 8 rays x 16 samples.
+* The slice: one parity train step and one frame of the port's
+  ``Trainer`` against the JAX step and render at hidden 512.
+
+Tolerances: packs and layouts exact.  Against JAX (float32), as
+``tests/test_torch_widths.py``: values 1e-5, gradients per leaf max |diff|
+over the leaf's largest entry 5e-4; K4 values 1e-5 (``test_torch_quant``);
+the step's metrics 5e-4 relative and gradients per leaf 5e-4 of the leaf's
+largest entry (``test_torch_train_coarse``), the frame's rgb 1e-4 and
+depth 1e-3.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from nerf_keras_tpu.engine import step as jstep
+from nerf_keras_tpu.ops import encode_position, sample_rays
+from nerf_keras_tpu.ops import quant as jq
+from nerf_keras_tpu.ops.pallas.fused_mlp import apply_nerf_mlp_pallas
+from nerf_keras_tpu.ops.pallas.fused_render import apply_nerf_render_pallas
+from nerf_keras_tpu.ops.pallas.fused_render import render_rays_fused as jax_render
+from nerf_keras_tpu.ops.pallas.quant_render import render_rays_fused_quant as jax_k4
+from nerf_keras_tpu_torch.engine import step as pstep
+from nerf_keras_tpu_torch.models.mlp import NeRFMLP, is_skip
+from nerf_keras_tpu_torch.ops import quant
+from nerf_keras_tpu_torch.ops.kernels import fused_mlp as k5
+from nerf_keras_tpu_torch.ops.kernels import fused_render as k1
+from nerf_keras_tpu_torch.ops.kernels import quant_render as k4
+import k4_adversarial
+from test_torch_train_coarse import (
+    FAR,
+    GRAD_TOL,
+    NEAR,
+    _batch,
+    _cfg,
+    _draws,
+    _grab_grads,
+    _jax_state,
+    _leaves,
+    _port,
+)
+from test_torch_widths import _jax_params, _leaf_err, _mlp, _numpy_padded, _rays
+
+# One torch thread beside the JAX workers of the tier-1 run.
+torch.set_num_threads(1)
+
+CPU = torch.device("cpu")
+JAX_VAL_TOL = 1e-5
+JAX_GRAD_TOL = 5e-4
+WIDE = (320, 512)
+
+
+def _split(n):
+    """``Split<N>`` of csrc/nerf_wgmlp.cuh: warpgroup 0's columns of an
+    N-wide layer on the split tile, then warpgroup 1's."""
+    lo = n if n <= 8 else n // 64 * 32
+    return lo, n - lo
+
+
+def _products(n):
+    """``SplitProduct<N>``: the (first column, width) of each warpgroup's
+    product: the wider part's width, warpgroup 0 from 0, warpgroup 1
+    ending at N."""
+    width = max(_split(n))
+    return (0, width), (n - width, width)
+
+
+def _part_address(n_pad, k_pad, ks, n0, width):
+    """Element offsets of columns [n0, n0 + width) of a layer's pack from a
+    warpgroup's B descriptor (``wg_product``): ks-deep stages, each a
+    contiguous run starting at k0 * n_pad; the part's start n0 * 16 bytes
+    into the stage; k16 steps 2 * n_pad * 16 bytes apart; core matrices
+    n_pad * 16 bytes apart along K (LBO) and 128 along N (SBO)."""
+    j = np.arange(width)[:, None]
+    k = np.arange(k_pad)[None, :]
+    s, q, kk = k // ks, k % ks // 16, k % 16
+    return (s * ks * n_pad + n0 * 8 + q * n_pad * 16 + (j // 8) * 64 + (kk // 8) * n_pad * 8
+            + (j % 8) * 8 + kk % 8)
+
+
+@pytest.mark.parametrize("hidden", WIDE)
+@pytest.mark.parametrize("which", ["fwd", "bwd"])
+def test_wide_packs_match_a_numpy_model(hidden, which):
+    """Every element of every layer of the forward pack (K1, K5, K6, the
+    backward's recompute) and of K2's transposed pack at hidden 320 (padded
+    to 512) and 512, where each warpgroup's part of the split tile reads
+    it from 32-deep stages, against the numpy model of the padding; the
+    widths the kernels check (wg_dims_ok)."""
+    mlp = _mlp(hidden, num_layers=8, skip=4, l_xyz=10, l_dir=4)
+    hp = k1.kernel_width(hidden)
+    assert hp == 512
+    mats = _numpy_padded(mlp, hp)
+    if which == "fwd":
+        pack = k1.pack_weights_wg(mlp, CPU)
+        assert [int(n) for n in pack.desc[:8, 2]] == [hp] * 8
+        assert (pack.desc[8, 1], pack.desc[8, 2], pack.desc[9, 2], pack.desc[10, 2]) == (
+            hp + 1, hp + 8, hp // 2, 8)
+    else:
+        pack = k1.pack_weights_bwd_wg(mlp, CPU)
+        rows = [0] + [hp] * 7 + [hp, hp, hp // 2]
+        mats = [m.T[:r] for m, r in zip(mats, rows)]
+    w = pack.w.float().numpy()
+    for mat, (k_pad, n, n_pad, w_off, _) in zip(mats, pack.desc):
+        assert n == mat.shape[0] and k_pad == -(-mat.shape[1] // 16) * 16
+        if n_pad == 0:
+            continue
+        want = np.zeros((n_pad, k_pad), np.float32)
+        want[:n, :mat.shape[1]] = torch.tensor(mat).to(torch.bfloat16).float().numpy()
+        # The pack's layout does not depend on the stage depth.
+        np.testing.assert_array_equal(k1.wg_layout(n_pad, k_pad, k1.WG_KS_NARROW),
+                                      k1.wg_layout(n_pad, k_pad, k1.WG_KS))
+        lo, hi = _split(n_pad)
+        assert lo % 32 == 0 or n_pad == 8
+        for n0, width in _products(n_pad):
+            addr = _part_address(n_pad, k_pad, k1.WG_KS_NARROW, n0, width)
+            np.testing.assert_array_equal(w[w_off + addr], want[n0:n0 + width])
+
+
+def test_split_parts_of_the_512_layers():
+    """The parts the split tile's warpgroups write (Split<N>) and the
+    columns their products take (SplitProduct<N>) at 512: each product a
+    wgmma width (multiple of 8, <= 264, 132 f32 a thread at most) that
+    starts at the warpgroup's part, where a ReLU mask is taken whole
+    32-column mask words."""
+    assert _split(512) == (256, 256)  # trunk, K2's dX products
+    assert _split(520) == (256, 264)  # merged head
+    assert _split(256) == (128, 128)  # branch, K2's rgb dX
+    assert _split(8) == (8, 0)        # rgb head: warpgroup 0 writes it
+    assert _products(520) == ((0, 264), (256, 264))
+    assert _products(8) == ((0, 8), (0, 8))
+    for n in (512, 520, 256):
+        lo, hi = _split(n)
+        (a0, w0), (a1, w1) = _products(n)
+        assert a0 == 0 and w0 >= lo and a1 == lo and a1 + w1 == n
+    for n in (512, 256):
+        assert all(p % 32 == 0 for p in _split(n))
+    assert max(w for n in (512, 520, 256, 8) for _, w in _products(n)) // 2 == 132
+
+
+def _q_part_address(n_pad, k_pad, kq, n0, width):
+    """Byte offsets of columns [n0, n0 + width) of a layer in K4's int8
+    pack from a warpgroup's descriptor (``q_product``): kq-deep stages,
+    k32 steps 2 * n_pad * 16 bytes apart, LBO n_pad * 16, SBO 128, 16 k
+    per core-matrix row."""
+    j = np.arange(width)[:, None]
+    k = np.arange(k_pad)[None, :]
+    s, q, kk = k // kq, k % kq // 32, k % 32
+    return (s * kq * n_pad + n0 * 16 + q * 2 * n_pad * 16 + (j // 8) * 128
+            + (kk // 16) * n_pad * 16 + (j % 8) * 16 + kk % 16)
+
+
+@pytest.mark.parametrize("hidden", WIDE)
+def test_k4_wide_tables(hidden):
+    """K4 at 320 (padded) and 512: the int8 MLP on ``pad_qparams``' tables
+    equals the unpadded one bit for bit; the pack has K4's widths; each
+    warpgroup part's int8 columns lie where the 64-deep stages' descriptor
+    addresses them and its f32 rows (scale, bias, requant) at f_off + n0."""
+    mlp = _mlp(hidden, num_layers=8, skip=4, l_xyz=10, l_dir=4)
+    rng = np.random.default_rng(3)
+    x = torch.tensor(rng.normal(size=(64, mlp.xyz_dim)), dtype=torch.float32)
+    d = torch.tensor(rng.normal(size=(64, mlp.dir_dim)), dtype=torch.float32)
+    tree = quant.mlp_tree(mlp)
+    qp = quant.quantize_mlp(tree, quant.mlp_calibration_absmax(tree, x, d, 4), 4)
+    hq = k1.kernel_width(hidden, k4.K4_HIDDEN)
+    assert hq == 512
+    padded = k4.pad_qparams(qp, 4, hq)
+    assert torch.equal(quant.apply_nerf_mlp_quant(padded, x, d, skip_layer=4),
+                       quant.apply_nerf_mlp_quant(qp, x, d, skip_layer=4))
+    pack = k4.pack_qparams(padded, CPU)
+    assert [int(n) for n in pack.desc[:8, 2]] == [hq] * 8
+    assert (pack.desc[8, 1], pack.desc[8, 2], pack.desc[9, 2], pack.desc[10, 2]) == (
+        hq + 1, hq + 8, hq // 2, 8)
+    w = pack.w.numpy()
+    f = pack.f.numpy()
+    for (wq, scale, b, inv), (k_pad, n, n_pad, w_off, f_off) in zip(k4._layers(padded),
+                                                                     pack.desc):
+        want = np.zeros((n_pad, k_pad), np.int8)
+        want[:n, :wq.shape[0]] = wq.T.numpy()
+        # The pack's layout does not depend on the stage depth.
+        np.testing.assert_array_equal(k4.q_layout(n_pad, k_pad),
+                                      _q_part_address(n_pad, k_pad, 64, 0, n_pad))
+        lo, hi = _split(n_pad)
+        for n0, width in _products(n_pad):
+            addr = _q_part_address(n_pad, k_pad, 64, n0, width)
+            np.testing.assert_array_equal(w[w_off + addr], want[n0:n0 + width])
+        for n0, width in ((0, lo), (lo, hi)):
+            cols = np.arange(n0, n0 + max(0, min(width, n - n0)))
+            np.testing.assert_array_equal(f[f_off + cols], scale.reshape(-1)[cols].numpy())
+            np.testing.assert_array_equal(f[f_off + n_pad + cols], b.reshape(-1)[cols].numpy())
+            if inv is not None:
+                have = cols[cols < inv.numel()]
+                np.testing.assert_array_equal(f[f_off + 2 * n_pad + have],
+                                              inv.reshape(-1)[have].numpy())
+
+
+@pytest.mark.parametrize("hidden", [320, 448])
+@pytest.mark.parametrize("offset", ["sigma", "skip", "branch", "rgb"])
+def test_layer_maps_at_512(offset, hidden):
+    """The four offsets the padding to 512 moves, against the padded
+    matrices: sigma at head column 512, the skip layer's x_enc rows at
+    512, the branch's d_enc rows at 512, the rgb input 256 wide."""
+    mlp = _mlp(hidden, num_layers=5, skip=2)
+    hp = k1.kernel_width(hidden)
+    assert hp == 512
+    layers = k1._dense_layers(mlp, hp)
+    maps = k1.layer_maps(mlp, hp)
+    nl, xd, dd = mlp.num_layers, mlp.xyz_dim, mlp.dir_dim
+    if offset == "sigma":
+        w, b = layers[nl]
+        assert maps[nl][1].tolist() == list(range(hidden)) + [512] and maps[nl][3] == 513
+        assert torch.equal(w[512, maps[nl][0]], mlp.sigma.weight[0])
+        assert float(b.detach()[512]) == float(mlp.sigma.bias.detach()[0])
+        assert not w[hidden:512].any() and not b[hidden:512].any()
+    elif offset == "skip":
+        i = next(i for i in range(1, nl) if is_skip(i - 1, mlp.skip_layer))
+        in_idx, _, k, n = maps[i]
+        assert (k, n) == (512 + xd, 512) and in_idx[hidden:].tolist() == list(range(512, 512 + xd))
+        w, _ = layers[i]
+        assert torch.equal(w[:hidden, 512:], mlp.trunk[i].weight[:, hidden:])
+        assert not w[:, hidden:512].any() and not w[hidden:].any()
+    elif offset == "branch":
+        in_idx, out_idx, k, n = maps[nl + 1]
+        assert (k, n) == (512 + dd, 256) and in_idx[hidden:].tolist() == list(range(512, 512 + dd))
+        w, _ = layers[nl + 1]
+        assert torch.equal(w[:hidden // 2, 512:], mlp.branch.weight[:, hidden:])
+        assert not w[:, hidden:512].any() and not w[hidden // 2:].any()
+    else:
+        _, _, k, n = maps[nl + 2]
+        w, b = layers[nl + 2]
+        assert (k, n) == (256, 3) and w.shape == (3, 256)
+        assert torch.equal(w[:, :hidden // 2], mlp.rgb.weight) and not w[:, hidden // 2:].any()
+        assert torch.equal(b, mlp.rgb.bias)
+
+
+def _store_ws_offset(r, c, width):
+    """csrc/nerf_wgmlp.cuh: store_ws, element (r, c) of a layer's workspace."""
+    return (r // 64) * 64 * width + (c // 8) * 512 + (r % 64) * 8 + c % 8
+
+
+DW_WIDTHS = (16, 32, 64, 80, 128, 144, 256, 264, 272)  # nerf_dw.cuh: dw_width_ok
+
+
+@pytest.mark.parametrize("hidden", [256, 512])
+def test_dw_column_tiles(hidden):
+    """The dW product's plan (nerf_dw.cuh: dw_plan) at 8x256 and 8x512:
+    each layer's d_width as column tiles of instantiated widths covering
+    [0, d_width) once (two of d_width / 2 above 272); a tile's D columns
+    of a 64-row workspace stage are one contiguous run, in the tile's own
+    strip layout; its output rows at m * d_width + n0; the blocks
+    ``DwBuffers`` counts."""
+    mlp = _mlp(hidden, num_layers=8, skip=4, l_xyz=10, l_dir=4)
+    layout = k1.workspace_layout(k1.pack_weights_wg(mlp, CPU), k1.pack_weights_bwd_wg(mlp, CPU))
+    blocks = split_layers = 0
+    for _, a_w, _, d_w, _ in layout:
+        n = d_w // 2 if d_w > k1.DW_MAX_N else d_w
+        tiles = [(n0, n) for n0 in range(0, d_w, n)]
+        assert n in DW_WIDTHS and sum(t[1] for t in tiles) == d_w
+        split_layers += len(tiles) == 2
+        blocks += -(-int(a_w) // 128) * len(tiles)
+        r = np.arange(128)[:, None]
+        for n0, width in tiles:
+            c = n0 + np.arange(width)[None, :]
+            stage = r // 64
+            start = stage * 64 * d_w + (n0 // 8) * 512
+            local = _store_ws_offset(r, c - n0, width) - (r // 64) * 64 * width
+            np.testing.assert_array_equal(_store_ws_offset(r, c, d_w), start + local)
+            m = np.arange(a_w)[:, None]
+            out = m * d_w + c
+            assert out.min() == n0 and out.max() == (a_w - 1) * d_w + n0 + width - 1
+    # The trunk and the merged head (512 and 528 wide) split at 8x512.
+    assert split_layers == (9 if hidden == 512 else 0)
+    assert blocks == sum(-(-int(a) // 128) * (2 if d > k1.DW_MAX_N else 1)
+                         for _, a, _, d, _ in layout)
+
+
+JAX_WIDE = [(h, 4, 2) for h in WIDE]
+
+
+@pytest.mark.parametrize("hidden,l_xyz,l_dir", JAX_WIDE)
+def test_render_rays_fused_matches_jax_wide(hidden, l_xyz, l_dir):
+    """K1/K2's module at 320 and 512: rgb, weights and the residual
+    backward's gradients."""
+    params = _jax_params(hidden, l_xyz, l_dir)
+    o, d, t, target = _rays(hidden + l_xyz)
+
+    def jloss(p):
+        rgb, w = jax_render(p, jnp.asarray(o), jnp.asarray(d), jnp.asarray(t), l_xyz=l_xyz,
+                            l_dir=l_dir, compute_dtype=jnp.float32, skip_layer=2,
+                            max_tile_fwd=8 * 16, max_tile_bwd=8 * 16, bwd_mode="residual")
+        return jnp.mean((rgb - jnp.asarray(target)) ** 2), (rgb, w)
+
+    (_, (rgb_j, w_j)), jg = jax.value_and_grad(jloss, has_aux=True)(params)
+    mlp = NeRFMLP.from_jax_params(params, skip_layer=2, compute_dtype=torch.float32)
+    assert mlp.hidden_dim == hidden
+    rgb, w = k1.render_rays_fused(mlp, *(torch.as_tensor(v) for v in (o, d, t)), l_xyz=l_xyz,
+                                  l_dir=l_dir, skip_layer=2)
+    errs = (float(np.abs(rgb.detach().numpy() - np.asarray(rgb_j)).max()),
+            float(np.abs(w.numpy() - np.asarray(w_j)).max()))
+    ((rgb - torch.as_tensor(target)) ** 2).mean().backward()
+    gerr = _leaf_err(mlp.to_jax_params(grad=True), jg)
+    assert max(errs) <= JAX_VAL_TOL and gerr <= JAX_GRAD_TOL, (errs, gerr)
+
+
+@pytest.mark.parametrize("hidden,l_xyz,l_dir", JAX_WIDE)
+def test_apply_nerf_render_matches_jax_wide(hidden, l_xyz, l_dir):
+    """K6's module at 320 and 512: rgb, weights and the rgb loss's
+    gradients."""
+    params = _jax_params(hidden, l_xyz, l_dir, seed=1)
+    rng = np.random.default_rng(hidden)
+    b, s = 8, 16
+    x_enc = rng.normal(size=(b, s, 3 + 6 * l_xyz)).astype(np.float32)
+    d_enc = rng.normal(size=(b, s, 3 + 6 * l_dir)).astype(np.float32)
+    t = np.sort(rng.uniform(2.0, 6.0, (b, s)), axis=-1).astype(np.float32)
+    g = rng.normal(size=(b, 3)).astype(np.float32)
+
+    def jloss(p):
+        rgb, w = apply_nerf_render_pallas(p, jnp.asarray(x_enc), jnp.asarray(d_enc),
+                                          jnp.asarray(t), compute_dtype=jnp.float32,
+                                          skip_layer=2)
+        return jnp.sum(rgb * jnp.asarray(g)), (rgb, w)
+
+    (_, (rgb_j, w_j)), jg = jax.value_and_grad(jloss, has_aux=True)(params)
+    mlp = NeRFMLP.from_jax_params(params, skip_layer=2, compute_dtype=torch.float32)
+    rgb, w = k1.apply_nerf_render_fused(mlp, torch.as_tensor(x_enc), torch.as_tensor(d_enc),
+                                        torch.as_tensor(t))
+    assert float(np.abs(rgb.detach().numpy() - np.asarray(rgb_j)).max()) <= JAX_VAL_TOL
+    assert float(np.abs(w.numpy() - np.asarray(w_j)).max()) <= JAX_VAL_TOL
+    (rgb * torch.as_tensor(g)).sum().backward()
+    assert _leaf_err(mlp.to_jax_params(grad=True), jg) <= JAX_GRAD_TOL
+
+
+@pytest.mark.parametrize("need_input_grads", [False, True])
+@pytest.mark.parametrize("hidden,l_xyz,l_dir", JAX_WIDE)
+def test_apply_nerf_mlp_matches_jax_wide(hidden, l_xyz, l_dir, need_input_grads):
+    """K5's module at 320 and 512, without input gradients (the card's path
+    there) and with them (the plain version on the CPU; the card raises
+    above 256): predictions, parameter and encoding gradients (N = 70, a
+    ragged last tile on the JAX side)."""
+    params = _jax_params(hidden, l_xyz, l_dir, seed=2)
+    rng = np.random.default_rng(hidden + 1)
+    n = 70
+    x = rng.normal(size=(n, 3 + 6 * l_xyz)).astype(np.float32)
+    d = rng.normal(size=(n, 3 + 6 * l_dir)).astype(np.float32)
+    g = rng.normal(size=(n, 4)).astype(np.float32)
+
+    def jloss(p, xx, dd):
+        out = apply_nerf_mlp_pallas(p, xx, dd, compute_dtype=jnp.float32, skip_layer=2,
+                                    tile=64, bwd_tile=64, need_input_grads=need_input_grads)
+        return jnp.sum(out * jnp.asarray(g)), out
+
+    argnums = (0, 1, 2) if need_input_grads else (0,)
+    (_, out_j), jgrads = jax.value_and_grad(jloss, argnums=argnums, has_aux=True)(
+        params, jnp.asarray(x), jnp.asarray(d))
+    mlp = NeRFMLP.from_jax_params(params, skip_layer=2, compute_dtype=torch.float32)
+    xt = torch.as_tensor(x).requires_grad_(need_input_grads)
+    dt = torch.as_tensor(d).requires_grad_(need_input_grads)
+    out = k5.apply_nerf_mlp_fused(mlp, xt, dt, need_input_grads=need_input_grads)
+    assert float(np.abs(out.detach().numpy() - np.asarray(out_j)).max()) <= JAX_VAL_TOL
+    (out * torch.as_tensor(g)).sum().backward()
+    assert _leaf_err(mlp.to_jax_params(grad=True), jgrads[0]) <= JAX_GRAD_TOL
+    if need_input_grads:
+        assert _leaf_err([xt.grad.numpy(), dt.grad.numpy()], jgrads[1:]) <= JAX_GRAD_TOL
+
+
+@pytest.mark.parametrize("hidden", WIDE)
+def test_k4_plain_matches_jax_kernel_wide(hidden):
+    """K4's module at 320 and 512 (its plain version on the CPU) against the
+    JAX kernel in interpret mode on the JAX qparams and the same rays."""
+    l_xyz, l_dir = 4, 2
+    params = _jax_params(hidden, l_xyz, l_dir, seed=3)
+    rng = np.random.default_rng(hidden)
+    b, s = 8, 16
+    origins = jnp.asarray(rng.uniform(-0.1, 0.1, (b, 3)) + [0, 0, 4], jnp.float32)
+    dirs = jnp.asarray(rng.normal(size=(b, 3)) * 0.2 + [0, 0, -1], jnp.float32)
+    t_vals = jnp.asarray(np.sort(rng.uniform(2.0, 6.0, (b, s)), axis=-1).astype(np.float32))
+    pts, ds = sample_rays(origins, dirs, t_vals)
+    x_enc, d_enc = encode_position(pts, l_xyz), encode_position(ds, l_dir)
+    qp = jq.quantize_mlp(params, jq.mlp_calibration_absmax(params, x_enc, d_enc, 2), 2)
+    rgb_j, w_j = jax_k4(qp, origins, dirs, t_vals, l_xyz=l_xyz, l_dir=l_dir, skip_layer=2)
+    before = k4.launches
+    qpt = quant.qparams_from_jax(jax.tree_util.tree_map(np.asarray, jax.device_get(qp)))
+    rgb_p, w_p = k4.render_rays_fused_quant(
+        qpt, *(torch.tensor(np.asarray(v)) for v in (origins, dirs, t_vals)),
+        l_xyz=l_xyz, l_dir=l_dir, skip_layer=2)
+    assert k4.launches == before  # the CPU takes the plain version
+    np.testing.assert_allclose(rgb_p.numpy(), np.asarray(rgb_j), atol=JAX_VAL_TOL, rtol=0)
+    np.testing.assert_allclose(w_p.numpy(), np.asarray(w_j), atol=JAX_VAL_TOL, rtol=0)
+
+
+def test_parity_step_and_frame_match_jax_at_512(monkeypatch):
+    """The slice at hidden 512: one parity step of the port's ``Trainer``
+    (metrics and every gradient leaf before Adam) against the JAX step with
+    its draws replayed, then one frame's rays through both render
+    functions on the stepped weights."""
+    cfg = _cfg(hidden_dim=512)
+    st = _jax_state(cfg, 3)
+    key = jax.random.PRNGKey(13)
+    batch = _batch(7, cfg.batch_size)
+    jbatch = tuple(jnp.asarray(x) for x in batch)
+    new_st, jm = jstep.make_train_step(cfg, NEAR, FAR)(st, jbatch, key)
+    with monkeypatch.context() as m:
+        m.setattr(jstep, "make_optimizer", lambda c: _grab_grads())
+        grads = jstep.make_train_step(cfg, NEAR, FAR)(
+            st._replace(opt_state=_grab_grads().init(st.params)), jbatch, key)[0].opt_state
+    tr = _port(cfg, st)
+    pm = tr.train_step(batch, draws=_draws(cfg, key, 3, cfg.batch_size))
+    merr = max(abs(float(pm[k]) / float(jm[k]) - 1.0) for k in ("loss_coarse", "loss", "psnr"))
+    assert merr <= 5e-4, merr
+    jg, pg = _leaves(grads), _leaves(tr.params_tree(grad=True))
+    assert len(jg) == len(pg) and tr.params["fine"].hidden_dim == 512
+    gerr = [float(np.abs(c - a).max() / max(np.abs(a).max(), 1e-12)) for a, c in zip(jg, pg)]
+    assert max(gerr) <= GRAD_TOL, gerr
+
+    _, o, d = _batch(8, 36)  # a 6 x 6 frame's rays
+    ref = jstep.make_render_fn(cfg, NEAR, FAR)(new_st, jnp.asarray(o), jnp.asarray(d))
+    tr.replace_params(jax.tree_util.tree_map(np.asarray, new_st.params))
+    with torch.no_grad():
+        out = pstep.make_render_fn(cfg, NEAR, FAR)(tr.params, torch.as_tensor(o),
+                                                   torch.as_tensor(d))
+    for k in ("rgb_fine", "depth_fine", "rgb_coarse"):
+        want = np.asarray(ref[k])
+        atol = 1e-3 if k.startswith("depth") else 1e-4
+        np.testing.assert_allclose(out[k].numpy(), want, rtol=0, atol=atol, err_msg=k)
+
+
+def test_k4_adversarial_case_at_512_reaches_the_bound():
+    """``k4_adversarial.adversarial_case(hidden=512)``, which the card test
+    holds K4 to: every layer whose padded k exceeds 256 (each trunk layer
+    after the first, the head, the branch) accumulates beyond 2^22, where
+    K4 converts; the layer after the skip and the branch exactly k *
+    127^2; a K4 that took the magic number everywhere would miss K4's
+    gates (max 1e-3, mean 1e-5) by 10x or more."""
+    qp, o, d, t = k4_adversarial.adversarial_case(CPU, hidden=512)
+    seen = k4_adversarial.max_accumulators(qp, o, d, t)
+    assert seen[575] == 575 * 127 ** 2 and seen[539] == 539 * 127 ** 2
+    assert seen[512] > 1 << 22
+    assert all(v <= 1 << 22 for k, v in seen.items() if k <= 256)
+    want = k4.render_rays_reference_quant(qp, o, d, t)
+    exact = quant._qdot
+    quant._qdot = k4_adversarial.magic_qdot
+    try:
+        bad = k4.render_rays_reference_quant(qp, o, d, t)
+    finally:
+        quant._qdot = exact
+    miss = max(max(float((a - b).abs().max()) / 1e-3, float((a - b).abs().mean()) / 1e-5)
+               for a, b in zip(bad, want))
+    assert miss >= 10.0
+    assert all(bool(torch.isfinite(x).all()) for x in want)
