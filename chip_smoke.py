@@ -980,8 +980,10 @@ def phase_k2_chunks(card: str) -> dict:
         del base, again, x_enc, preds
         torch.cuda.empty_cache()
         library_ms = _dw_library_ms(mlp, dev, b * s)
+        bwd_library_ms = _bf16_backward_library_ms(mlp, dev, b * s)
     say("k2_chunks", B=b, S=s, bytes_per_sample=bps, deterministic=deterministic,
-        dw_library_ms=library_ms, tol_rel=K2_TOL_REL, **fields, card=card)
+        dw_library_ms=library_ms, bwd_library_ms=bwd_library_ms, tol_rel=K2_TOL_REL,
+        **fields, card=card)
     if not deterministic:
         raise RuntimeError("K2 run twice gave different bits")
     if not fields["k3_bit_equal_k2_at_l2"]:
@@ -993,7 +995,7 @@ def phase_k2_chunks(card: str) -> dict:
         if f["rel_l2_vs_one_chunk"] > K2_TOL_REL:
             raise RuntimeError(f"K2 in chunks ({name}) disagrees with one chunk: "
                                f"{f['rel_l2_vs_one_chunk']}")
-    return {"library_ms": library_ms, "budgets": fields}
+    return {"library_ms": library_ms, "bwd_library_ms": bwd_library_ms, "budgets": fields}
 
 
 def _k5_inputs(dev, n, seed):
@@ -1048,6 +1050,44 @@ def _dw_library_ms(mlp: NeRFMLP, dev, n: int) -> float:
     return ms
 
 
+def _bf16_backward_library_ms(mlp: NeRFMLP, dev, m: int, input_grads: bool = False) -> float:
+    """The whole bf16 backward's products as one ``torch.matmul`` each per
+    padded layer at M = ``m`` rows, never called by the port: the
+    recomputed forward A W of the layers the rows kernel recomputes (all
+    but the rgb head), dX = D W^T of the layers its walk runs (layer 0's
+    too with ``input_grads``) and dW = A^T D of every layer, at the packs'
+    and the workspace's widths."""
+    fwd = k1.kernel_pack(mlp, dev)
+    bwd = k1.kernel_pack_bwd(mlp, dev, input_grads=input_grads)
+    layout = k1.workspace_layout(fwd, bwd)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    acts = {}
+
+    def act(k):
+        if k not in acts:
+            acts[k] = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        return acts[k]
+
+    def mat(k, n):
+        return torch.randn((k, n), generator=gen, device=dev).to(torch.bfloat16)
+
+    first = 0 if input_grads else 1
+    products = [(act(int(k)), mat(int(k), int(n)))
+                for k, _, n, _, _ in (*fwd.desc[:mlp.num_layers + 2], *bwd.desc[first:])]
+    dw = [(act(int(a)), act(int(d))) for _, a, _, d, _ in layout]
+
+    def backward():  # each output dropped before the next
+        for a, w in products:
+            torch.matmul(a, w)
+        for a, d in dw:
+            torch.matmul(a.t(), d)
+
+    ms = cuda_ms(backward, reps=3)
+    del acts, products, dw
+    torch.cuda.empty_cache()
+    return ms
+
+
 def phase_k5_chunks(card: str) -> dict:
     """K5's backward over chunks of samples at the fine pass's N = 786,432
     with input gradients: one chunk (the whole batch's workspace), the
@@ -1090,9 +1130,13 @@ def phase_k5_chunks(card: str) -> dict:
     del x_enc, d_enc, g
     torch.cuda.empty_cache()
     library_ms = _dw_library_ms(mlp, dev, n)
+    # The whole backward's products: K5's with input gradients, and K6's
+    # backward at S=192 (the same M, no input gradients).
+    bwd_library_ms = {"k5": _bf16_backward_library_ms(mlp, dev, n, input_grads=True),
+                      "k6": _bf16_backward_library_ms(mlp, dev, n)}
     say("k5_chunks", N=n, input_grads=True, bytes_per_sample=bps,
-        deterministic=deterministic, dw_library_ms=library_ms, tol_rel=K5_TOL_REL,
-        **fields, card=card)
+        deterministic=deterministic, dw_library_ms=library_ms,
+        bwd_library_ms=bwd_library_ms, tol_rel=K5_TOL_REL, **fields, card=card)
     if not deterministic:
         raise RuntimeError("K5's backward run twice gave different bits")
     small = fields["small"]
@@ -1102,7 +1146,7 @@ def phase_k5_chunks(card: str) -> dict:
         if fields[name]["rel_l2_vs_one_chunk"] > K5_TOL_REL:
             raise RuntimeError(f"K5 in chunks ({name}) disagrees with one chunk: "
                                f"{fields[name]['rel_l2_vs_one_chunk']}")
-    return {"library_ms": library_ms, "budgets": fields}
+    return {"library_ms": library_ms, "bwd_library_ms": bwd_library_ms, "budgets": fields}
 
 
 def phase_k5(card: str) -> dict:
@@ -4405,12 +4449,27 @@ def phase_widths(card: str) -> dict:
     for hidden in WIDTHS_WIDE:
         mlp = _suite_mlp(dev, hidden, seed=hidden + 10)
         x = _suite_inputs(mlp, b, s, seed=hidden)
+        reset_counts()
         res = _run_suite(mlp, x, SUITE, broken=_broken_wide_pack(mlp, dev))
+        launches = counts()
         bad = [n for n, e in res.items() if not (e["finite"] and _bf16_gate_ok(n, e))]
         unseen = [n for n, e in res.items() if not e["broken_miss"] >= 10.0]
+        # At 512, K3's, K5's and K6's bounds and yardsticks at these shapes
+        # (the 8x512 main path runs K1 and K2 alone): the forward's
+        # products, the dW product's and the whole backward's.
+        yard = {}
+        if hidden == WIDE_HIDDEN:
+            fwd5, bwd5 = k5_bounds(mlp, b * s, False)
+            fwd6, bwd6 = k6_bounds(mlp, b, s)
+            yard = {"bound": {"k3": k3_bound(mlp, b, s), "k5_fwd": fwd5, "k5_bwd": bwd5,
+                              "k6_fwd": fwd6, "k6_bwd": bwd6},
+                    "library_ms": library_products_ms(k1.kernel_pack(mlp, dev).desc, b * s,
+                                                      torch.bfloat16, dev),
+                    "dw_library_ms": _dw_library_ms(mlp, dev, b * s),
+                    "bwd_library_ms": _bf16_backward_library_ms(mlp, dev, b * s)}
         say("widths", hidden=hidden, kernel_width=k1.kernel_width(hidden), l_xyz=10, l_dir=4,
             B=b, S=s, k5_input_grads=_k5_input_grads(mlp), results=res, failed=bad,
-            broken_pack_not_caught=unseen, card=card)
+            broken_pack_not_caught=unseen, launches_in_phase=launches, **yard, card=card)
         if bad or unseen:
             raise RuntimeError(f"widths: hidden {hidden}: {bad} miss the bf16 gates, or a "
                                f"broken pack passes {unseen}: {res}")
@@ -4492,7 +4551,10 @@ def _wide_kernels(card: str, mlp: NeRFMLP, qp: dict) -> dict:
     """K1, K1 in training mode and K2 at B = 4096, S = 192 (the parity
     step's fine pass) and K4 at B = 16384, S = 192 (the server's chunk) on
     the 8x512 model: each against its plain version, CUDA-event times,
-    bounds and library yardsticks."""
+    bounds and library yardsticks; K2's device ms per kernel; K2 and K5's
+    backward (N = 786,432) twice on the same inputs, the same bits (the
+    clusters' bias sums in a fixed order); K1, K2 and K5 on one ray of 64
+    samples, one 64-row tile: fewer than a cluster's two blocks."""
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(11)
     _, o, d = (torch.as_tensor(x, device=dev) for x in bench_batch(4096, seed=3))
@@ -4504,7 +4566,10 @@ def _wide_kernels(card: str, mlp: NeRFMLP, qp: dict) -> dict:
         rgb, w = k1.render_rays_fused(mlp, o, d, t)
         rgb_t, w_t, x_enc, preds = k1.launch_k1(mlp, o, d, t, 10, 4, train=True)
         got = k1.launch_k2(mlp, x_enc, d, t, preds, g_rgb, None, 10, 4)
+        again = k1.launch_k2(mlp, x_enc, d, t, preds, g_rgb, None, 10, 4)
         torch.cuda.synchronize()
+        k2_bits = all(torch.equal(a, c) for a, c in zip(got, again))
+        del again
         rgb_p, w_p = k1.render_rays_reference(mlp, o, d, t)
         d_enc = encode_position(d, 4)[:, None, :].expand(b, s, -1).reshape(b * s, -1)
         preds_err = float((preds - mlp(x_enc.float(), d_enc)).abs().max())
@@ -4532,15 +4597,28 @@ def _wide_kernels(card: str, mlp: NeRFMLP, qp: dict) -> dict:
             "err": preds_err, "plain_ms": out["k1"]["plain_ms"],
             "ms": cuda_ms(lambda: k1.launch_k1(mlp, o, d, t, 10, 4, train=True), reps=5),
             "bound": k1_bound(mlp, b, s, train=True)}
+        k2 = lambda: k1.launch_k2(mlp, x_enc, d, t, preds, g_rgb, None, 10, 4)  # noqa: E731
+        chunks = len(k1.chunk_plan(b, s, k1.DwBuffers.bytes_per_sample(
+            k1.kernel_pack(mlp, dev), k1.kernel_pack_bwd(mlp, dev))))
         out["k2"] = {"err": max_abs, "rel_l2": rel, "plain_ms": plain_ms,
-                     "ms": cuda_ms(lambda: k1.launch_k2(mlp, x_enc, d, t, preds, g_rgb, None,
-                                                        10, 4), reps=5),
-                     "bound": k2_bound(mlp, b, s)}
+                     "ms": cuda_ms(k2, reps=5), "bound": k2_bound(mlp, b, s),
+                     "device_ms": _device_ms_or_note(k2, K2_STAGES, {
+                         "vjp": 1, "rows": chunks, "dw": chunks, "reduce": 1})}
+        d5 = encode_position(d, 4)[:, None, :].expand(b, s, -1).reshape(b * s, -1)
+        d5 = d5.to(torch.bfloat16).contiguous()
+        g5 = (torch.randn((b * s, 4), generator=gen) * 1e-2).to(dev)
+        k5_runs = [k5.launch_k5_bwd(mlp, x_enc, d5, g5, False, False)[0] for _ in range(2)]
+        k5_bits = all(torch.equal(a, c) for a, c in zip(*k5_runs))
+        del d5, g5, k5_runs
     del x_enc, preds, rgb_p, w_p
     torch.cuda.empty_cache()
     out["k1"]["library_ms"] = out["k1_train"]["library_ms"] = library_products_ms(
         k1.kernel_pack(mlp, dev).desc, b * s, torch.bfloat16, dev)
     out["k2"]["library_ms"] = _dw_library_ms(mlp, dev, b * s)
+    out["k2"]["bwd_library_ms"] = _bf16_backward_library_ms(mlp, dev, b * s)
+    one_tile = _run_suite(mlp, _suite_inputs(mlp, 1, 64, seed=13),
+                          ("k1", "k1_train", "k2", "k5_fwd", "k5_bwd"), reps=1)
+    one_bad = [n for n, e in one_tile.items() if not (e["finite"] and _bf16_gate_ok(n, e))]
     # K4 at the server's chunk: 16384 rays of a 128x128 pose.
     o4, d4 = get_rays(128, 128, 1.2 * 128, pose_spherical(30.0, -30.0, 4.0), device=dev)
     o4, d4 = o4.reshape(-1, 3).contiguous(), d4.reshape(-1, 3).contiguous()
@@ -4563,7 +4641,14 @@ def _wide_kernels(card: str, mlp: NeRFMLP, qp: dict) -> dict:
         k4.kernel_pack(qp, dev).desc, o4.shape[0] * s, torch.int8, dev)
     say("wide_kernels", hidden=WIDE_HIDDEN, k4_width=hq, B=b, S=s, B_k4=o4.shape[0],
         k1_errs=errs, k2_rel_l2=rel, tol_rel=K2_TOL_REL, k4_errs=e4,
+        k2_bits_repeat=k2_bits, k5_bwd_bits_repeat=k5_bits, one_tile=one_tile,
+        one_tile_failed=one_bad,
         **{k: {n: v for n, v in e.items()} for k, e in out.items()}, card=card)
+    if not (k2_bits and k5_bits):
+        raise RuntimeError(f"wide: run twice, K2 ({k2_bits}) or K5's backward ({k5_bits}) "
+                           f"gave other bits")
+    if one_bad:
+        raise RuntimeError(f"wide: on one tile {one_bad} miss the bf16 gates: {one_tile}")
     return out
 
 

@@ -45,6 +45,18 @@ parent).  Phases:
   ``fused_render_f32.cu``'s ``-Xptxas -v`` report; then the f32 parity and
   proposal steps as in ``steps``; a run of this phase alone builds only
   the f32 source;
+* ``wide``: hidden 512 (``chip_smoke._suite_mlp``/``_suite_inputs``, the
+  same seeds in every tree): K1, K1's training form and K2 at B=4096,
+  S=192, and K3, K5 (forward, backward without input gradients) and K6
+  (forward, backward) at the ``widths`` phase's B=1,024, S=64, each alone
+  (CUDA events, median of 10; K2 of 5), K2's device ms per kernel
+  (``chip_smoke.device_ms_by_kernel``: the VJP, the rows kernel, dW, the
+  reduce), the ``-Xptxas -v`` lines of the 512 instantiations, then the
+  8x512 parity step (``chip_smoke.wide_config``) as in ``steps``; every
+  output is saved, and the last line (``BITS``) says, kernel by kernel,
+  whether each tree's outputs equal the first tree's bit for bit, or the
+  largest difference; a run of this phase alone builds only the bf16 MLP
+  sources;
 * ``decode``: the tree's image decoders on the card's host (no kernel;
   a run of this phase alone builds none): an 800x800 RGBA PNG whose every
   row is Paeth, at 8 and 16 bits (written once by this tree's
@@ -58,6 +70,7 @@ Prints one JSON line per tree and phase, prefixed ``TREE``.
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import subprocess
 import sys
@@ -74,6 +87,9 @@ out = {"tree": os.getcwd()}
 if phases in (["k7"], ["f32"]):
     _build._sources = lambda: [_build.CSRC / ("pdf_union.cu" if phases == ["k7"] else
                                               "fused_render_f32.cu")]
+if phases == ["wide"]:
+    _build._sources = lambda: [_build.CSRC / f"{stem}.cu" for stem in
+                               ("fused_render_fwd", "fused_render_bwd", "fused_mlp_fwd")]
 if phases != ["decode"]:
     _build.build()
 
@@ -222,6 +238,37 @@ if "f32" in phases:
     time_steps("f32_", [(name, dataclasses.replace(cfg, compute_dtype="float32").validate())
                         for name, cfg in (("proposal", bench_config()),
                                           ("parity", parity_config()))])
+if "wide" in phases:
+    import re
+    import chip_smoke as cs
+    from nerf_keras_tpu_torch.runtime import configure_numerics, cuda_ms
+    configure_numerics()
+    name = None
+    out["wide_ptxas"] = []
+    for ln in _build.build_log.splitlines():
+        found = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", ln)
+        if found:
+            name = found.group(1)
+        elif name and "ILi512E" in name and ("Used" in ln or "spill" in ln):
+            out["wide_ptxas"].append(f"{name}: {ln.strip()}")
+    dev = torch.device("cuda")
+    saved = {}
+    for b, s, names in ((4096, 192, ("k1", "k1_train", "k2")),
+                        (1024, 64, ("k3", "k5_fwd", "k5_bwd", "k6_fwd", "k6_bwd"))):
+        mlp = cs._suite_mlp(dev, 512, seed=525)
+        x = cs._suite_inputs(mlp, b, s, seed=525)
+        calls = cs._suite_calls(mlp, x)
+        with torch.no_grad():
+            for name in names:
+                saved[name] = [t.detach().cpu() for t in calls[name]()]
+                out[f"wide_{name}_ms"] = cuda_ms(calls[name], reps=5 if name == "k2" else 10)
+            if "k2" in names:
+                out["wide_k2_device_ms"] = cs.device_ms_by_kernel(calls["k2"], cs.K2_STAGES)
+        del mlp, x, calls
+        torch.cuda.empty_cache()
+    torch.save(saved, os.path.join(sys.argv[2], f"wide_{sys.argv[3]}.pt"))
+    del saved
+    time_steps("wide_", (("parity", cs.wide_config()),))
 if "decode" in phases:
     from nerf_keras_tpu_torch.utils import jpeg, png
 
@@ -252,17 +299,40 @@ print("TREE " + json.dumps(out), flush=True)
 '''
 
 
+def _same_bits(tmp: str, trees: list[str]) -> dict:
+    """Per tree after the first and per kernel of the ``wide`` phase: True
+    where every output equals the first tree's bit for bit, else the
+    largest absolute difference (a tree that saved nothing: None)."""
+    import torch
+
+    runs = [os.path.join(tmp, f"wide_{i}.pt") for i in range(len(trees))]
+    if not os.path.exists(runs[0]):
+        return {}
+    first = torch.load(runs[0])
+    report = {}
+    for i, (tree, path) in enumerate(zip(trees[1:], runs[1:]), 1):
+        if not os.path.exists(path):
+            report[f"{i} {tree}"] = None
+            continue
+        other = torch.load(path)
+        report[f"{i} {tree}"] = {
+            name: all(torch.equal(a, b) for a, b in zip(outs, other[name])) or max(
+                float((a.float() - b.float()).abs().max()) for a, b in zip(outs, other[name]))
+            for name, outs in first.items()}
+    return report
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("trees", nargs="+", help="checkout roots, in run order")
     parser.add_argument("--phases", default="kernels,steps",
                         help="comma-separated: kernels, k1k2, k4, k7, serve, steps, f32, "
-                             "decode")
+                             "wide, decode")
     parser.add_argument("--timeout", type=float, default=900.0,
                         help="seconds allowed to each tree's process")
     args = parser.parse_args()
     unknown = set(args.phases.split(",")) - {"kernels", "k1k2", "k4", "k7", "serve", "steps",
-                                             "f32", "decode"}
+                                             "f32", "wide", "decode"}
     if unknown:
         raise SystemExit(f"unknown phases: {sorted(unknown)}")
     pngs = tempfile.TemporaryDirectory()
@@ -274,8 +344,8 @@ def main() -> None:
             with open(os.path.join(pngs.name, f"paeth{depth}.png"), "wb") as f:
                 f.write(_paeth_png(img, depth))
     failed = 0
-    for tree in args.trees:
-        proc = subprocess.run([sys.executable, "-c", _CHILD, args.phases, pngs.name],
+    for i, tree in enumerate(args.trees):
+        proc = subprocess.run([sys.executable, "-c", _CHILD, args.phases, pngs.name, str(i)],
                               cwd=os.path.abspath(tree), capture_output=True, text=True,
                               timeout=args.timeout)
         lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("TREE ")]
@@ -284,6 +354,8 @@ def main() -> None:
             failed += 1
             print(f"[compare_trees] {tree}: exit {proc.returncode}\n{proc.stderr[-4000:]}",
                   file=sys.stderr, flush=True)
+    if "wide" in args.phases.split(","):
+        print("BITS " + json.dumps(_same_bits(pngs.name, args.trees)), flush=True)
     pngs.cleanup()
     sys.exit(1 if failed else 0)
 

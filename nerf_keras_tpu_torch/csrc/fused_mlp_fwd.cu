@@ -37,7 +37,9 @@
 // 64 bf16 (135,168 B).  At 8x512 (nerf_wgmlp.cuh's split tile: 64 rows,
 // each layer's columns split over the two warpgroups) the 64 x 584 tile
 // (74,752 B), the outputs (1,024 B) and 4 stages of 520 x 32 bf16
-// (133,120 B): 209,024 B; 4.60 MFLOP a sample.
+// (133,120 B): 209,024 B; 4.60 MFLOP a sample; the blocks run in
+// clusters of two that share every weight stage, as K1's and the rows
+// kernel's (nerf_wgmlp.cuh, "Clusters").
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -shared -Xcompiler -fPIC.
@@ -80,16 +82,18 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   float* sig = reinterpret_cast<float*>(act + kRows * ldx);  // (rows)
   float* rgbl = sig + kRows;                                  // (rows, 3)
 
+  const int steps = walk_steps<H>(p.ntiles);
+  ring_peer<H>(ring);
   if (threadIdx.x == 0) ring_init(ring);
-  __syncthreads();
+  block_sync<H>();
 
   if (warp >= kConsumerWarps) {  // the producer warpgroup: one thread copies
     reg_dealloc<kProducerRegs>();
     if (warp == kConsumerWarps && lane == 0) {
       RingPos rp;
-      for (int tile = blockIdx.x; tile < p.ntiles; tile += gridDim.x)
-        produce_forward(m, p.w, ring, rp, T::kKsTile);
+      for (int i = 0; i < steps; ++i) produce_forward(m, p.w, ring, rp, T::kKsTile);
     }
+    block_exit<H>();
     return;
   }
   reg_alloc<kConsumerRegs>();
@@ -99,7 +103,11 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   float* wsig = sig + wrow;
   float* wrgb = rgbl + wrow * 3;
   RingPos rp;
-  for (int tile = blockIdx.x; tile < p.ntiles; tile += gridDim.x) {
+  for (int i = 0, tile = blockIdx.x; i < steps; ++i, tile += gridDim.x) {
+    if (tile >= p.ntiles) {  // a phantom tile of the split tile's cluster
+      drain_forward(m, ring, rp, T::kKsTile);
+      continue;
+    }
     const long long q0 = (long long)tile * kRows + wrow;  // sample of the warp's row 0
     const int valid = (int)min(16LL, p.N - q0);              // may be <= 0
     auto xf = [&](int row, int c) {
@@ -123,6 +131,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     }
     __syncwarp();
   }
+  block_exit<H>();
 }
 
 }  // namespace
@@ -168,7 +177,17 @@ extern "C" int nkt_fused_mlp_fwd(
   if (hidden == 512) kernel = fused_mlp_fwd_kernel<512>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<grid < p.ntiles ? grid : p.ntiles, kWgThreads, smem,
-           static_cast<cudaStream_t>(stream)>>>(p);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (hidden > kSplitAbove) {  // clusters of two blocks sharing each weight stage
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+    int max_clusters = 0;
+    err = cluster_config(cfg, attr, kernel, grid, smem, st, &max_clusters);
+    if (err != cudaSuccess) return (int)err;
+    const int g = split_grid(grid, p.ntiles, max_clusters);
+    return (int)(g < kCluster ? cudaErrorInvalidClusterSize
+                              : launch_clusters(kernel, g, smem, st, p));
+  }
+  kernel<<<grid < p.ntiles ? grid : p.ntiles, kWgThreads, smem, st>>>(p);
   return (int)cudaGetLastError();
 }

@@ -56,12 +56,22 @@
 //      (masks, bf16 stores, column sums) take ~40% of its time on an H100
 //      (PERF.md).  At hidden 512 (nerf_wgmlp.cuh's split tile: 64-row
 //      tiles, each layer's columns split over the two warpgroups, the dX
-//      products' too, 32-deep stages): the 64 x 584 activation tile
-//      (74,752 B), the ReLU bits of 9 layers (36,864 B), the bias sums
-//      (19,520 B), the column-sum scratch of the tile's 4 row groups
-//      (16,384 B) and 2 stages of 520 x 32 bf16 (66,560 B): 214,208 B.  A
-//      sample's workspace is 19,840 B there (10,112 at 8x256), so a chunk
-//      of DW_CHUNK_BYTES holds about half the samples.
+//      products' too, 32-deep stages) each tile streams 9.09 MB of
+//      weights (the forward pack for the recompute, the transposed pack for
+//      the walk), so the blocks run in clusters of two that share every
+//      stage (nerf_wgmlp.cuh, "Clusters"): the grid is whole clusters, at
+//      most those that fit on the card at once, and both blocks of a
+//      cluster walk the first block's count of tiles (a phantom tile past
+//      the chunk's drains its stages).  Each block's bias sums go to its
+//      row of db_blk in global memory (the same adds in the same order),
+//      which leaves room for a third stage: the 64 x 584 activation tile
+//      (74,752 B), the ReLU bits of 9 layers (36,864 B), the column-sum
+//      scratch of the tile's 4 row groups (16,384 B) and 3 stages of 520 x
+//      32 bf16 (99,840 B): 227,968 B.  Its products wait stage by stage: a
+//      group kept in flight would hold a second of the three stages, which
+//      measured 12% slower (PERF.md).  A sample's workspace is
+//      19,840 B there (10,112 at 8x256), so a chunk of DW_CHUNK_BYTES
+//      holds about half the samples.
 //   3. mlp_dw_kernel (nerf_dw.cuh): dW = A^T D per layer on wgmma with
 //      both operands MN-major in shared memory, stages of 64 samples
 //      brought by bulk copies, split over sample ranges; each block adds
@@ -148,6 +158,7 @@ struct RowParams {
   const float* t_vals;         // (B, S)
   const float* dpreds;         // (B*S, 4): the VJP's, K5's g
   float* db_part;              // (grid, total_b)
+  float* db_blk;               // (grid, total_b): the split tile's per-launch bias sums
   __nv_bfloat16* dx_out;       // (B*S, xyz_dim): K5 with input gradients, or null
   __nv_bfloat16* dd_out;       // (B*S, dir_dim): K5 with input gradients, or null
   long long n0;                // the chunk's first sample
@@ -178,19 +189,26 @@ __device__ __forceinline__ void rows_body(const RowParams& p) {
   __nv_bfloat16* act = reinterpret_cast<__nv_bfloat16*>(ring.buf + p.stages * p.stage_bytes);
   uint32_t* masks = reinterpret_cast<uint32_t*>(act + kRows * ldx);  // (L+1) x (rows, MW)
   float* scratch = reinterpret_cast<float*>(masks + (L + 1) * kRows * MW);  // 2 x rows/16 x sld
-  float* db = scratch + 2 * T::kRowWarps * p.sld;  // (total_b), the forward bias-pack layout
+  // (total_b), the forward bias-pack layout: in shared memory, or on the
+  // split tile the block's row of db_blk (its shared memory holds a third
+  // weight stage instead).
+  float* db = T::kSplit ? p.db_blk + (size_t)blockIdx.x * p.total_b
+                        : scratch + 2 * T::kRowWarps * p.sld;
+  const int steps = walk_steps<H>(p.ntiles);
 
+  ring_peer<H>(ring);
   if (tid == 0) ring_init(ring);
   for (int i = tid; i < p.total_b; i += kWgThreads) db[i] = 0.f;
-  __syncthreads();
+  block_sync<H>();
 
   if (warp >= kConsumerWarps) {  // the producer warpgroup: one thread issues
     reg_dealloc<kProducerRegs>();
     if (warp == kConsumerWarps && lane == 0) {
       RingPos rp;
-      for (int tile = blockIdx.x; tile < p.ntiles; tile += gridDim.x)
+      for (int i = 0; i < steps; ++i)
         produce_backward<kIG>(mb, ring, rp, T::kKsTile, kIG ? ig_ks(kXC, kDC) : T::kKsTile);
     }
+    block_exit<H>();
     return;
   }
   reg_alloc<kConsumerRegs>();
@@ -199,7 +217,11 @@ __device__ __forceinline__ void rows_body(const RowParams& p) {
   __nv_bfloat16* wact = act + wrow * ldx;
   uint32_t* wmasks = masks + wrow * MW;
   RingPos rp;
-  for (int tile = blockIdx.x; tile < p.ntiles; tile += gridDim.x) {
+  for (int i = 0, tile = blockIdx.x; i < steps; ++i, tile += gridDim.x) {
+    if (tile >= p.ntiles) {  // a phantom tile (split tile only: no input gradients)
+      drain_backward(mb, ring, rp, T::kKsTile, T::kKsTile);
+      continue;
+    }
     const int rbase = tile * kRows + wrow;          // workspace row of the warp's row 0
     const long long q0 = p.n0 + rbase;              // its sample
     const int valid = min(16, p.nc - rbase);        // may be <= 0
@@ -235,6 +257,7 @@ __device__ __forceinline__ void rows_body(const RowParams& p) {
   consumer_sync(kWgConsumers);
   float* out = p.db_part + (size_t)blockIdx.x * p.total_b;
   for (int i = tid; i < p.total_b; i += kWgConsumers) out[i] = p.accumulate ? out[i] + db[i] : db[i];
+  block_exit<H>();
 }
 
 template <int H>
@@ -301,8 +324,10 @@ void (*pick_rows(int mode, bool ig, int kxc, int kdc))(const RowParams) {
 // buffers (allocated by the caller): dpreds (B*S x 4) f32, written by the
 // VJP (read, for K5); ws_a (rows_pad x sum a_width) and ws_d (rows_pad x
 // sum d_width) bf16 for one chunk, rows_pad >= round_up(chunk_rays * S,
-// 128); db_part (grid x total_b) and dw_part (nsplit x total_out) f32,
-// where grid <= the first chunk's 128-row tiles.  Outputs dw (total_out)
+// 128); db_part (grid x total_b, at hidden 512 2 x grid x total_b) and
+// dw_part (nsplit x total_out) f32, where grid <= the first chunk's tiles
+// (at hidden 512 rounded up to a cluster; the launch lowers it to the
+// clusters that fit on the card).  Outputs dw (total_out)
 // and db (total_b) f32.  Launches on `stream`, returns the first CUDA
 // error (0 on success); does not synchronise.
 extern "C" int nkt_fused_render_bwd(
@@ -327,11 +352,12 @@ extern "C" int nkt_fused_render_bwd(
   RowParams p;
   MlpBwdParams& mb = p.mb;
   const int rows = wg_rows(hidden);
+  const bool split = hidden > kSplitAbove;
   const int first_tiles = (int)(((long long)chunk_rays * S + rows - 1) / rows);
   if (!inputs_ok || (ig && (mode != kK5 || rows != 128)) || B <= 0 || (S < 2 && mode != kK5) ||
       nsplit < 1 ||
       chunk_rays < 1 || grid < 1 ||
-      grid > first_tiles || !wg_hidden_ok(hidden) ||
+      grid > (split ? round_up(first_tiles, kCluster) : first_tiles) || !wg_hidden_ok(hidden) ||
       !mlp_dims_init(mb.m, static_cast<const int*>(desc_fwd), n_dense, num_layers,
                      skip_layer, hidden, l_xyz, l_dir) ||
       !wg_dims_ok(mb.m) ||
@@ -354,6 +380,7 @@ extern "C" int nkt_fused_render_bwd(
   p.t_vals = static_cast<const float*>(t_vals);
   p.dpreds = static_cast<const float*>(dpreds);
   p.db_part = static_cast<float*>(db_part);
+  p.db_blk = split ? p.db_part + (size_t)grid * total_b : nullptr;
   p.dx_out = static_cast<__nv_bfloat16*>(dx_out);
   p.dd_out = static_cast<__nv_bfloat16*>(dd_out);
   p.S = S;
@@ -375,7 +402,7 @@ extern "C" int nkt_fused_render_bwd(
 
   const size_t rest = kBarBytes + sizeof(__nv_bfloat16) * (size_t)rows * mb.m.ldx +
                       sizeof(uint32_t) * (size_t)(num_layers + 1) * rows * mb.mask_words +
-                      sizeof(float) * ((size_t)2 * (rows / 16) * p.sld + (size_t)total_b);
+                      sizeof(float) * ((size_t)2 * (rows / 16) * p.sld + (split ? 0 : total_b));
   if (rest + 2 * (size_t)p.stage_bytes > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
   const size_t fit = ((size_t)kMaxSmem - rest) / p.stage_bytes;
   p.stages = fit < (size_t)kMaxStages ? (int)fit : kMaxStages;
@@ -387,6 +414,17 @@ extern "C" int nkt_fused_render_bwd(
   if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
+  // The split tile's grid: whole clusters, no more than fit on the card at
+  // once (each chunk's launch then takes split_grid of it).
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  int max_clusters = 0;
+  if (split) {
+    err = cluster_config(cfg, attr, kernel, grid, smem, st, &max_clusters);
+    if (err != cudaSuccess) return (int)err;
+    grid = split_grid(grid, first_tiles, max_clusters);
+    if (grid < kCluster) return (int)cudaErrorInvalidClusterSize;
+  }
 
   DwPlan dw;
   if (!dw_plan(dw, mb, n_dense, rows_pad, total_out, nsplit, static_cast<float*>(dw_part)))
@@ -397,9 +435,12 @@ extern "C" int nkt_fused_render_bwd(
     p.nc = nr * S;
     p.ntiles = (p.nc + rows - 1) / rows;
     p.accumulate = chunk > 0;
-    const int g = grid < p.ntiles ? grid : p.ntiles;
-    kernel<<<g, kWgThreads, smem, st>>>(p);
-    err = cudaGetLastError();
+    if (split) {
+      err = launch_clusters(kernel, split_grid(grid, p.ntiles, max_clusters), smem, st, p);
+    } else {
+      kernel<<<grid < p.ntiles ? grid : p.ntiles, kWgThreads, smem, st>>>(p);
+      err = cudaGetLastError();
+    }
     if (err != cudaSuccess) return (int)err;
     err = launch_dw(dw, p.ntiles * (rows / kDwRows), chunk > 0, st);
     if (err != cudaSuccess) return (int)err;

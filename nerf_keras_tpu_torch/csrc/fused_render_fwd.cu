@@ -78,6 +78,14 @@
 // 64 x 584 bf16 = 74,752 B; the x_enc tile 64 x 64 bf16 = 8,192 B; the
 // ray's direction features, origin, direction and 192 x 16 B of
 // predictions (3,168 B); 4 stages of 520 x 32 bf16 = 33,280 B: 219,360 B.
+// There each 64-row tile streams the whole 4.62 MB pack from L2 (56.7 GB
+// a launch at B = 4,096, S = 192, ~6.9 TB/s: PERF.md), so the blocks run
+// in clusters of two, blocks 2c and 2c + 1, that share every weight stage
+// (nerf_wgmlp.cuh, "Clusters"): both walk the tiles of block 2c, and
+// where block 2c + 1 has fewer (the last rays of the batch) its consumers
+// drain the rest of the stages.  The grid is rounded up to whole clusters
+// (a block past B walks only phantom tiles).  Each stage's wgmma group
+// stays in flight while the next stage's is issued (wg_product_pipe).
 // Not carried over from the TPU kernel: its one-hot selector matmuls,
 // three-limb exact dots, the sin(z + pi/2) cos trick, the log-space
 // cumsum and the padded-t ragged batch (the ragged edge is masked here).
@@ -148,11 +156,17 @@ __device__ __forceinline__ void render_body(const Params& p) {
   float* rgbl = sig + R * S;  // (R*S, 3)
 
   const int r0 = blockIdx.x * R;
-  const int nrays = min(R, p.B - r0);
+  const int nrays = max(0, min(R, p.B - r0));  // 0: a cluster's last block past B
   const int P = nrays * S;
   const size_t s0 = (size_t)r0 * S;  // first sample of the block
   const int ntiles = (P + kRows - 1) / kRows;
+  // The tiles the block walks: on the split tile its cluster's first
+  // block's (the second's own may be fewer: phantom tiles past them).
+  const int ctiles =
+      T::kSplit ? (min(R, p.B - (int)(blockIdx.x & ~(kCluster - 1)) * R) * S + kRows - 1) / kRows
+                : ntiles;
 
+  ring_peer<H>(ring);
   if (tid == 0) ring_init(ring);
   if (!kEncIn)
     for (int i = tid; i < R * 3; i += kWgThreads) {
@@ -161,14 +175,15 @@ __device__ __forceinline__ void render_body(const Params& p) {
       ray[r * 8 + c] = ok ? p.origins[(size_t)(r0 + r) * 3 + c] : 0.f;
       ray[r * 8 + 4 + c] = ok ? p.dirs[(size_t)(r0 + r) * 3 + c] : 0.f;
     }
-  __syncthreads();
+  block_sync<H>();
 
   if (warp >= kConsumerWarps) {  // the producer warpgroup: one thread issues
     reg_dealloc<kProducerRegs>();
     if (warp == kConsumerWarps && lane == 0) {
       RingPos rp;
-      for (int tile = 0; tile < ntiles; ++tile) produce_forward(m, p.w, ring, rp, T::kKsTile);
+      for (int tile = 0; tile < ctiles; ++tile) produce_forward(m, p.w, ring, rp, T::kKsTile);
     }
+    block_exit<H>();
     return;
   }
   reg_alloc<kConsumerRegs>();
@@ -225,6 +240,7 @@ __device__ __forceinline__ void render_body(const Params& p) {
       mlp_forward_wg<H>(m, p.b, wact, xf, dir, sig + q0, rgbl + q0 * 3, valid, ring, rp);
     }
   }
+  for (int tile = ntiles; tile < ctiles; ++tile) drain_forward(m, ring, rp, T::kKsTile);
   consumer_sync(kWgConsumers);
 
   if (p.preds_out != nullptr)
@@ -234,6 +250,7 @@ __device__ __forceinline__ void render_body(const Params& p) {
     }
   composite_rays(p.t_vals + s0, sig, rgbl, nrays, S, p.w_out + s0,
                  p.rgb_out + (size_t)r0 * 3);
+  block_exit<H>();
 }
 
 template <int H>
@@ -314,6 +331,9 @@ extern "C" int nkt_fused_render_fwd(
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int grid = (B + p.R - 1) / p.R;
-  kernel<<<grid, kWgThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (hidden > kSplitAbove)  // clusters of two blocks sharing each weight stage
+    return (int)launch_clusters(kernel, round_up(grid, kCluster), smem, st, p);
+  kernel<<<grid, kWgThreads, smem, st>>>(p);
   return (int)cudaGetLastError();
 }

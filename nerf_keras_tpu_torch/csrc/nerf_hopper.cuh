@@ -89,6 +89,51 @@ __device__ __forceinline__ void bulk_g2s(void* dst, const void* src, uint32_t by
       : "memory");
 }
 
+// ---- Thread block clusters (the split tile's pairs of blocks).
+
+// This block's rank in its cluster.
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Barrier of every thread of every block of the cluster, with release and
+// acquire at cluster scope: what a block wrote (its mbarrier inits) is
+// seen by its peers after it.  Every thread of each block calls it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Arrive on the mbarrier at `bar`'s offset in the shared memory of the
+// cluster's block `rank` (mapa).  The default semantics (release at CTA
+// scope), as CUTLASS's consumers release a multicast stage
+// (PipelineTmaAsync): `.release.cluster` makes every arrive wait for the
+// thread's earlier memory operations to reach the cluster, which took K1
+// at 8x512 from 8.0 to 14.6 ms (PERF.md).
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar, uint32_t rank) {
+  asm volatile(
+      "{\n.reg .b32 ra;\n"
+      "mapa.shared::cluster.u32 ra, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [ra];\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(rank)
+      : "memory");
+}
+
+// bulk_g2s into the shared memory of every block of `mask` (bit r: rank
+// r) at `dst`'s offset, each completing on the mbarrier at `bar`'s offset
+// in its own block.
+__device__ __forceinline__ void bulk_g2s_multicast(void* dst, const void* src, uint32_t bytes,
+                                                   uint64_t* bar, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster"
+      " [%0], [%1], %2, [%3], %4;\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar)), "h"(mask)
+      : "memory");
+}
+
 // Barrier over the first `count` threads of the block (the consumers),
 // leaving the producer out.  Id 0 is __syncthreads'.
 __device__ __forceinline__ void consumer_sync(int count) {

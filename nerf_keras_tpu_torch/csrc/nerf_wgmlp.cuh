@@ -31,6 +31,17 @@
 //     520-wide head (133 KB) pass the 227 KB a block has, and one
 //     warpgroup's m64n512 accumulator would be 256 f32 a thread.  Stages
 //     are 32 k deep there (kKsNarrow): 33,280 B at the head's 520 columns.
+//     A 64-row tile does half the 128-row tile's work with each staged
+//     weight byte, so the split tile's kernels run in clusters of two
+//     blocks (kCluster, "Clusters" below) whose producers each bring half
+//     of every stage into both blocks (TMA multicast): an SM reads half the
+//     weight bytes from L2.  In the forward kernels a layer's stages are
+//     not waited on one by one: each stage's wgmma group stays in flight
+//     while the next stage's A fragments load and its group issues
+//     (wg_product_pipe, kPipeForward).  The rows kernel holds its bias sums
+//     in global memory instead, for a third stage, and waits stage by
+//     stage (kPipeRows): a group in flight would hold a second of its three
+//     stages.
 // Weights: the producer thread streams every layer's weights, in the order
 // the consumers use them, through a ring of shared-memory stages with bulk
 // copies (cp.async.bulk, the TMA unit) and a full/empty mbarrier pair per
@@ -79,6 +90,11 @@ constexpr int kKsNarrow = 32;  // k per stage of the wide input-gradient packs a
 constexpr int kMaxStages = 8;  // ring stages at most
 constexpr int kBarBytes = 2 * kMaxStages * 8;
 constexpr int kSplitAbove = 256;  // wider hidden layers split their columns over the warpgroups
+// Whether the split tile keeps wgmma groups in flight across stages
+// (wg_product_pipe): in the forward kernels (K1, K5's and K6's forward:
+// 4 stages), not in the rows kernel (3 stages: a group in flight holds a
+// second stage and leaves the producer one stage ahead; PERF.md).
+constexpr bool kPipeForward = true, kPipeRows = false;
 
 // The hidden widths the wgmma kernels are instantiated for.
 inline bool wg_hidden_ok(int h) { return h == 64 || h == 128 || h == 256 || h == 512; }
@@ -177,10 +193,11 @@ inline int wg_stage_bytes(const Dense* d, int n, int ks = kKs) {
 
 struct WRing {
   uint64_t* full;   // [stages] count 1 + transaction bytes
-  uint64_t* empty;  // [stages] count kConsumerWarps
+  uint64_t* empty;  // [stages] count kConsumerWarps (2 x on a cluster's ring)
   unsigned char* buf;
   int stages;
   int stage_bytes;
+  int peer = -1;  // the other block's rank on a cluster's ring (split tile), else -1
 };
 
 struct RingPos {
@@ -199,9 +216,20 @@ struct RingPos {
 __device__ __forceinline__ void ring_init(const WRing& r) {
   for (int i = 0; i < r.stages; ++i) {
     mbar_init(&r.full[i], 1);
-    mbar_init(&r.empty[i], kConsumerWarps);
+    mbar_init(&r.empty[i], r.peer < 0 ? kConsumerWarps : 2 * kConsumerWarps);
   }
   fence_mbar_init();
+}
+
+// A consumer warp releases stage `st`: to its own producer and, on a
+// cluster's ring, to the peer's (whose copies write into this block's
+// stage too).  Every lane calls it.
+__device__ __forceinline__ void ring_release(const WRing& r, int st) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) {
+    mbar_arrive(&r.empty[st]);
+    if (r.peer >= 0) mbar_arrive_cluster(&r.empty[st], static_cast<uint32_t>(r.peer));
+  }
 }
 
 // Producer: every k-slice of one layer of the pack `w`, in order; `ks`:
@@ -213,10 +241,17 @@ __device__ __forceinline__ void produce_layer(const WRing& r, RingPos& p,
   for (int k0 = 0; k0 < L.k_pad; k0 += ks) {
     const int kw = min(ks, L.k_pad - k0);
     const uint32_t bytes = static_cast<uint32_t>(L.n_pad * kw * 2);
-    mbar_wait(&r.empty[p.st], p.ph ^ 1u);
-    mbar_expect_tx(&r.full[p.st], bytes);
-    bulk_g2s(r.buf + static_cast<size_t>(p.st) * r.stage_bytes,
-             w + L.w_off + static_cast<size_t>(k0) * L.n_pad, bytes, &r.full[p.st]);
+    unsigned char* dst = r.buf + static_cast<size_t>(p.st) * r.stage_bytes;
+    const __nv_bfloat16* src = w + L.w_off + static_cast<size_t>(k0) * L.n_pad;
+    mbar_wait(&r.empty[p.st], p.ph ^ 1u);  // on a cluster: both blocks' consumers released it
+    mbar_expect_tx(&r.full[p.st], bytes);  // the whole stage lands here, half from the peer
+    if (r.peer < 0) {
+      bulk_g2s(dst, src, bytes, &r.full[p.st]);
+    } else {  // rank 0 brings the first half into both blocks, rank 1 the second
+      const uint32_t half = bytes / 2, off = r.peer ? 0u : half;  // bytes: a multiple of 256
+      bulk_g2s_multicast(dst + off, reinterpret_cast<const unsigned char*>(src) + off, half,
+                         &r.full[p.st], 0x3);
+    }
     p.next(r.stages);
   }
 }
@@ -270,8 +305,97 @@ __device__ __forceinline__ void wg_product(float* acc, const __nv_bfloat16* act,
     wg_wait<0>();
     if constexpr (N > 0) acc_fence<N / 2>(acc);
     if constexpr (NX > 0) acc_fence<NX / 2>(accx);
-    __syncwarp();
-    if ((threadIdx.x & 31) == 0) mbar_arrive(&r.empty[c.st]);
+    ring_release(r, c.st);
+    c.next(r.stages);
+  }
+}
+
+// Keeps the compiler from reusing A-fragment registers that an
+// asynchronous product may still read.
+template <int NR>
+__device__ __forceinline__ void reg_fence(uint32_t* a) {
+#pragma unroll
+  for (int i = 0; i < NR; ++i) asm volatile("" : "+r"(a[i])::"memory");
+}
+
+// The A fragments of the stage of k [k0, k0 + KS) (fewer k16 steps where
+// k_pad ends first).
+template <int KS>
+__device__ __forceinline__ void load_stage_a(uint32_t (&a)[KS / 16][4], const __nv_bfloat16* act,
+                                             int ldx, int k_pad, int k0) {
+  const int steps = min(KS, k_pad - k0) >> 4;  // block-uniform
+#pragma unroll
+  for (int q = 0; q < KS / 16; ++q)
+    if (q < steps) load_a(a[q], act, ldx, k0 + 16 * q);
+}
+
+// One stage of wg_product_pipe: wait for it, issue its k16 steps from
+// `cur` as one wgmma group, then wait until only this group is in flight
+// (the previous stage's, which read `nxt`, is done), release the previous
+// stage and load the next stage's A into `nxt`.  `held`: the ring slot of
+// the group in flight (-1: none).
+template <int N, int KS>
+__device__ __forceinline__ void pipe_stage(float* acc, uint32_t (&cur)[KS / 16][4],
+                                           uint32_t (&nxt)[KS / 16][4], const __nv_bfloat16* act,
+                                           int ldx, int k_pad, int k0, const WRing& r,
+                                           RingPos& c, int& held, int np, int n0) {
+  const int steps = min(KS, k_pad - k0) >> 4;
+  mbar_wait(&r.full[c.st], c.ph);
+  const uint32_t sb = smem_u32(r.buf + static_cast<size_t>(c.st) * r.stage_bytes) + n0 * 16;
+  acc_fence<N / 2>(acc);
+  wg_fence();
+#pragma unroll
+  for (int q = 0; q < KS / 16; ++q)
+    if (q < steps) mma_rs<N>(acc, cur[q], smem_desc(sb + q * 2 * np * 16, np * 16, 128), 128, 1);
+  wg_commit();
+  if (held >= 0) {
+    wg_wait<1>();
+    reg_fence<KS / 4>(&nxt[0][0]);
+    ring_release(r, held);
+  }
+  held = c.st;
+  c.next(r.stages);
+  if (k0 + KS < k_pad) load_stage_a<KS>(nxt, act, ldx, k_pad, k0 + KS);
+}
+
+// wg_product's sums for the split tile (N columns from column n0 of
+// stages np wide; no accx), with wgmma groups kept in flight across
+// stages as CUTLASS's main loop keeps them: stage s + 1's A fragments load
+// and its group issues before stage s's group is waited on (wg_wait<1>)
+// and its stage released, so the tensor cores never drain between stages
+// of a layer; two register buffers of A fragments.  The k16 steps
+// accumulate in the same order as wg_product's, so the sums are its bits.
+template <int N, int KS>
+__device__ __forceinline__ void wg_product_pipe(float* acc, const __nv_bfloat16* act, int ldx,
+                                                int k_pad, const WRing& r, RingPos& c, int np,
+                                                int n0) {
+  static_assert(N % 8 == 0 && N <= 264, "wgmma widths");
+  static_assert(KS % 16 == 0 && KS <= kKs, "k per stage");
+  constexpr int kSteps = KS / 16;
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+  uint32_t a0[kSteps][4], a1[kSteps][4];
+  int held = -1;
+  load_stage_a<KS>(a0, act, ldx, k_pad, 0);
+  for (int k0 = 0; k0 < k_pad; k0 += 2 * KS) {
+    pipe_stage<N, KS>(acc, a0, a1, act, ldx, k_pad, k0, r, c, held, np, n0);
+    if (k0 + KS < k_pad)
+      pipe_stage<N, KS>(acc, a1, a0, act, ldx, k_pad, k0 + KS, r, c, held, np, n0);
+  }
+  wg_wait<0>();
+  acc_fence<N / 2>(acc);
+  reg_fence<KS / 4>(&a0[0][0]);
+  reg_fence<KS / 4>(&a1[0][0]);
+  ring_release(r, held);
+}
+
+// A phantom tile's share of the ring (a cluster's block with fewer tiles
+// than its peer): every stage of the layer waited for and released, so
+// both blocks' producers go on filling both blocks.
+__device__ __forceinline__ void drain_layer(const WRing& r, RingPos& c, const Dense& L, int ks) {
+  for (int k0 = 0; k0 < L.k_pad; k0 += ks) {
+    mbar_wait(&r.full[c.st], c.ph);
+    ring_release(r, c.st);
     c.next(r.stages);
   }
 }
@@ -289,10 +413,11 @@ struct SplitProduct {
 };
 
 // The warp's share of an N-wide layer's product on H's tile: all N columns,
-// or its warpgroup's SplitProduct of a split tile, after which split_sync:
-// the peers' reads of the activation tile are done and either may write
-// its part (Split<N>) back in place.  `np`: the stages' width.
-template <int H, int N, int KS>
+// or its warpgroup's SplitProduct of a split tile (with kPipe, its groups
+// in flight across stages: wg_product_pipe), after which split_sync: the
+// peers' reads of the activation tile are done and either may write its
+// part (Split<N>) back in place.  `np`: the stages' width.
+template <int H, int N, int KS, bool kPipe>
 __device__ __forceinline__ void layer_product(float* acc, const __nv_bfloat16* act, int ldx,
                                               int k_pad, const WRing& r, RingPos& c,
                                               int np = N) {
@@ -300,8 +425,11 @@ __device__ __forceinline__ void layer_product(float* acc, const __nv_bfloat16* a
     wg_product<N, 0, KS>(acc, act, ldx, k_pad, r, c, nullptr, np);
   } else {
     using P = SplitProduct<N>;
-    wg_product<P::width, 0, KS>(acc, act, ldx, k_pad, r, c, nullptr, np,
-                                col_part<H>() ? P::n0_hi : 0);
+    const int n0 = col_part<H>() ? P::n0_hi : 0;
+    if constexpr (kPipe)
+      wg_product_pipe<P::width, KS>(acc, act, ldx, k_pad, r, c, np, n0);
+    else
+      wg_product<P::width, 0, KS>(acc, act, ldx, k_pad, r, c, nullptr, np, n0);
     split_sync<H>();
   }
 }
@@ -569,7 +697,7 @@ __device__ __forceinline__ void mlp_forward_wg(const MlpDims& m, const float* b,
   const int L = m.num_layers;
   float acc[T::kAcc];
   for (int i = 0; i < L; ++i) {
-    layer_product<H, H, KS>(acc, act, ldx, m.dense[i].k_pad, ring, rp);
+    layer_product<H, H, KS, kPipeForward>(acc, act, ldx, m.dense[i].k_pad, ring, rp);
     layer_relu<H, H, false>(acc, b + m.dense[i].b_off, act, ldx, nullptr, 0);
     if (is_skip(i, m.skip_layer))
       for (int j = pl; j < 16 * m.xyz_pad; j += T::kLanes) {
@@ -578,17 +706,17 @@ __device__ __forceinline__ void mlp_forward_wg(const MlpDims& m, const float* b,
       }
     rows_sync<H>();
   }
-  layer_product<H, H + 8, KS>(acc, act, ldx, m.dense[L].k_pad, ring, rp);
+  layer_product<H, H + 8, KS, kPipeForward>(acc, act, ldx, m.dense[L].k_pad, ring, rp);
   layer_head<H>(acc, b + m.dense[L].b_off, act, ldx, sig, valid);
   for (int j = pl; j < 16 * m.dir_pad; j += T::kLanes) {
     const int row = j / m.dir_pad, c = j - row * m.dir_pad;
     act[row * ldx + H + c] = dir(row, c);
   }
   rows_sync<H>();
-  layer_product<H, H / 2, KS>(acc, act, ldx, m.dense[L + 1].k_pad, ring, rp);
+  layer_product<H, H / 2, KS, kPipeForward>(acc, act, ldx, m.dense[L + 1].k_pad, ring, rp);
   layer_relu<H, H / 2, false>(acc, b + m.dense[L + 1].b_off, act, ldx, nullptr, 0);
   rows_sync<H>();
-  layer_product<H, 8, KS>(acc, act, ldx, m.dense[L + 2].k_pad, ring, rp);
+  layer_product<H, 8, KS, kPipeForward>(acc, act, ldx, m.dense[L + 2].k_pad, ring, rp);
   layer_rgb<H>(acc, b + m.dense[L + 2].b_off, rgbl, valid);
   rows_sync<H>();
 }
@@ -597,6 +725,12 @@ __device__ __forceinline__ void mlp_forward_wg(const MlpDims& m, const float* b,
 __device__ __forceinline__ void produce_forward(const MlpDims& m, const __nv_bfloat16* w,
                                                 const WRing& ring, RingPos& rp, int ks) {
   for (int i = 0; i < m.num_layers + 3; ++i) produce_layer(ring, rp, w, m.dense[i], ks);
+}
+
+// The consumers' side of produce_forward for a phantom tile.
+__device__ __forceinline__ void drain_forward(const MlpDims& m, const WRing& ring, RingPos& rp,
+                                              int ks) {
+  for (int i = 0; i < m.num_layers + 3; ++i) drain_layer(ring, rp, m.dense[i], ks);
 }
 
 // act[rows, 0:N) = bf16(acc): an accumulator's 16 x N columns of the warp.
@@ -704,7 +838,7 @@ __device__ __forceinline__ void mlp_backward_wg(const MlpBwdParams& p, __nv_bflo
         return;
       }
     }
-    layer_product<H, H, KSB>(acc, act, ldx, p.bdense[i].k_pad, ring, rp);
+    layer_product<H, H, KSB, kPipeRows>(acc, act, ldx, p.bdense[i].k_pad, ring, rp);
   };
 
   // ---- Forward recompute, storing each layer's input (A).
@@ -712,13 +846,13 @@ __device__ __forceinline__ void mlp_backward_wg(const MlpBwdParams& p, __nv_bflo
   rows_sync<H>();
   for (int i = 0; i < L; ++i) {
     store_ws<H>(act, ldx, p.ws_a + N * p.bwd[i].a_col, m.dense[i].k_pad, rbase);
-    layer_product<H, H, KSF>(acc, act, ldx, m.dense[i].k_pad, ring, rp);
+    layer_product<H, H, KSF, kPipeRows>(acc, act, ldx, m.dense[i].k_pad, ring, rp);
     layer_relu<H, H, true>(acc, p.b + m.dense[i].b_off, act, ldx, masks + i * mslot, MW);
     if (is_skip(i, m.skip_layer)) load_x(H);
     rows_sync<H>();
   }
   store_ws<H>(act, ldx, p.ws_a + N * p.bwd[L].a_col, fs.k_pad, rbase);
-  layer_product<H, H + 8, KSF>(acc, act, ldx, fs.k_pad, ring, rp);
+  layer_product<H, H + 8, KSF, kPipeRows>(acc, act, ldx, fs.k_pad, ring, rp);
   layer_head<H>(acc, p.b + fs.b_off, act, ldx, nullptr, 0);
   for (int j = pl; j < 16 * m.dir_pad; j += T::kLanes) {
     const int row = j / m.dir_pad, c = j - row * m.dir_pad;
@@ -726,7 +860,7 @@ __device__ __forceinline__ void mlp_backward_wg(const MlpBwdParams& p, __nv_bflo
   }
   rows_sync<H>();
   store_ws<H>(act, ldx, p.ws_a + N * p.bwd[L + 1].a_col, br.k_pad, rbase);
-  layer_product<H, H / 2, KSF>(acc, act, ldx, br.k_pad, ring, rp);
+  layer_product<H, H / 2, KSF, kPipeRows>(acc, act, ldx, br.k_pad, ring, rp);
   layer_relu<H, H / 2, true>(acc, p.b + br.b_off, act, ldx, masks + L * mslot, MW);
   rows_sync<H>();
   store_ws<H>(act, ldx, p.ws_a + N * p.bwd[L + 2].a_col, rgb.k_pad, rbase);
@@ -759,7 +893,7 @@ __device__ __forceinline__ void mlp_backward_wg(const MlpBwdParams& p, __nv_bflo
   sb ^= 1;
   store_ws<H>(act, ldx, p.ws_d + N * p.bwd[L + 2].d_col, dw_rgb, rbase);
   // dh2 = drgb W_rgb^T, masked by h2 > 0: the branch's dPre.
-  layer_product<H, H / 2, KSB>(acc, act, ldx, p.bdense[L + 2].k_pad, ring, rp);
+  layer_product<H, H / 2, KSB, kPipeRows>(acc, act, ldx, p.bdense[L + 2].k_pad, ring, rp);
   __syncwarp();
   layer_bwd<H, H / 2, true>(acc, act, ldx, masks + L * mslot, MW, srow());
   rows_sync<H>();
@@ -773,7 +907,7 @@ __device__ __forceinline__ void mlp_backward_wg(const MlpBwdParams& p, __nv_bflo
     wg_product<H, kDC, KSB>(acc, act, ldx, p.bdense[L + 1].k_pad, ring, rp, xs,
                             p.bdense[L + 1].n_pad);
   } else {
-    layer_product<H, H, KSB>(acc, act, ldx, p.bdense[L + 1].k_pad, ring, rp);
+    layer_product<H, H, KSB, kPipeRows>(acc, act, ldx, p.bdense[L + 1].k_pad, ring, rp);
   }
   __syncwarp();
   layer_bwd<H, H, false>(acc, act, ldx, nullptr, 0, srow());
@@ -835,6 +969,107 @@ __device__ __forceinline__ void produce_backward(const MlpBwdParams& p, const WR
   produce_layer(ring, rp, p.wb, p.bdense[L], ksb);
   for (int i = L - 1; i > 0; --i) produce_layer(ring, rp, p.wb, p.bdense[i], ksb);
   if (kIG) produce_layer(ring, rp, p.wb, p.bdense[0], ksb);
+}
+
+// The consumers' side of produce_backward (no input gradients) for a
+// phantom tile.
+__device__ __forceinline__ void drain_backward(const MlpBwdParams& p, const WRing& ring,
+                                               RingPos& rp, int ksf, int ksb) {
+  const int L = p.m.num_layers;
+  for (int i = 0; i < L + 2; ++i) drain_layer(ring, rp, p.m.dense[i], ksf);
+  for (int i = L + 2; i > 0; --i) drain_layer(ring, rp, p.bdense[i], ksb);
+}
+
+// ---------------------------------------------------------------------------
+// Clusters.  On the split tile the blocks run in clusters of kCluster; each
+// block keeps its own tiles and its full ring, and each producer brings
+// half of every stage into both blocks' rings (produce_layer), so an SM
+// reads half the weight bytes from L2.  So both blocks consume the same
+// stages in the same order: a block walks as many tiles as the first block
+// of its cluster, and a step past its own tiles is a phantom tile whose
+// stages its consumers only wait for and release (drain_forward,
+// drain_backward).  A barrier of the cluster follows ring_init (the peer's
+// copies and arrivals land on these barriers) and precedes exit (no block
+// leaves while its peer may still write into it or arrive on its
+// barriers).
+constexpr int kCluster = 2;
+
+// The steps of this block's walk over `ntiles` tiles with a stride of the
+// grid (tile = blockIdx.x + step * gridDim.x, a phantom past ntiles): on
+// the split tile the first block of its cluster's count, else its own
+// (tests/test_torch_wide.py models it: _cluster_walk).
+template <int H>
+__device__ __forceinline__ int walk_steps(int ntiles) {
+  const int first = WgTile<H>::kSplit ? blockIdx.x & ~(kCluster - 1) : blockIdx.x;
+  return ntiles > first ? (ntiles - first + gridDim.x - 1) / gridDim.x : 0;
+}
+
+// The ring's peer (split tile), before ring_init.
+template <int H>
+__device__ __forceinline__ void ring_peer(WRing& r) {
+  if constexpr (WgTile<H>::kSplit) r.peer = static_cast<int>(cluster_rank() ^ 1u);
+}
+
+// After ring_init: the block's barrier, or the cluster's on the split tile.
+template <int H>
+__device__ __forceinline__ void block_sync() {
+  if constexpr (WgTile<H>::kSplit)
+    cluster_sync();
+  else
+    __syncthreads();
+}
+
+// Every thread of the block, before it exits: the cluster's barrier on the
+// split tile, else nothing.
+template <int H>
+__device__ __forceinline__ void block_exit() {
+  if constexpr (WgTile<H>::kSplit) {
+    __syncwarp();
+    cluster_sync();
+  }
+}
+
+// Host: the blocks of a grid-strided split-tile kernel: at most `grid`
+// rounded up to the cluster, at most the tiles rounded up to it, and no
+// more than the clusters the card holds at once; 0 when not one cluster
+// fits (the caller refuses the launch).
+inline int split_grid(int grid, int ntiles, int max_clusters) {
+  const int g = round_up(grid < ntiles ? grid : ntiles, kCluster);
+  return g < kCluster * max_clusters ? g : kCluster * max_clusters;
+}
+
+// Host: the clusters of `kernel` that fit on the card at once (0: none),
+// and its launch as clusters of kCluster blocks of kWgThreads threads.
+template <class P>
+inline cudaError_t cluster_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr,
+                                  void (*kernel)(const P), int grid, size_t smem,
+                                  cudaStream_t st, int* max_clusters) {
+  cfg = {};
+  cfg.gridDim = dim3(round_up(grid > 0 ? grid : 1, kCluster));  // whole clusters, or the query finds none
+  cfg.blockDim = dim3(kWgThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = kCluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaOccupancyMaxActiveClusters(max_clusters, kernel, &cfg);
+}
+
+// Host: launch `kernel` on `grid` blocks (a multiple of kCluster) as
+// clusters; cudaErrorInvalidClusterSize when not one cluster fits.
+template <class P>
+inline cudaError_t launch_clusters(void (*kernel)(const P), int grid, size_t smem,
+                                   cudaStream_t st, const P& p) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  int max_clusters = 0;
+  cudaError_t err = cluster_config(cfg, attr, kernel, grid, smem, st, &max_clusters);
+  if (err != cudaSuccess) return err;
+  if (max_clusters < 1 || grid % kCluster != 0) return cudaErrorInvalidClusterSize;
+  return cudaLaunchKernelEx(&cfg, kernel, p);
 }
 
 // Host: with K5's input gradients, the transposed pack's widths must be

@@ -47,6 +47,7 @@ from nerf_keras_tpu_torch.ops.kernels.fused_render import (
     check_encodings,
     check_input_grads,
     check_tensor,
+    cuda_error,
     device_index,
     is_f32,
     kernel_pack,
@@ -127,7 +128,7 @@ def launch_k5_fwd(mlp: NeRFMLP, x_enc: torch.Tensor, d_enc: torch.Tensor) -> tor
     )
     if rc != 0:
         raise RuntimeError(
-            f"K5 forward launch failed with CUDA error {rc} (N={n}, "
+            f"K5 forward launch failed with {cuda_error(rc)} (N={n}, "
             f"hidden={mlp.hidden_dim}, layers={mlp.num_layers})"
         )
     launches += 1

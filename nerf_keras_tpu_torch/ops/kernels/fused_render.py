@@ -470,8 +470,31 @@ def chunk_plan(b: int, s: int, bytes_per_sample: int,
     return [(r, min(rays, b - r)) for r in range(0, b, rays)]
 
 
-def _tiles(n: int) -> int:
-    return -(-n // 128)
+def _tiles(n: int, rows: int = 128) -> int:
+    return -(-n // rows)
+
+
+# The split tile's kernels (hidden above SPLIT_ABOVE: tiles of SPLIT_ROWS
+# rows) run in clusters of CLUSTER blocks that share each weight stage
+# (csrc/nerf_wgmlp.cuh: kSplitAbove, kCluster).
+SPLIT_ABOVE, SPLIT_ROWS, CLUSTER = 256, 64, 2
+
+
+def cluster_grid(tiles: int, sms: int) -> int:
+    """The rows kernel's blocks on the split tile: whole clusters, at most
+    one block per SM and no more than the first chunk's ``tiles`` rounded
+    up to a cluster (the kernel's host code lowers it further to the
+    clusters the card holds at once: ``nerf_wgmlp.cuh: split_grid``)."""
+    return max(CLUSTER, min(-(-tiles // CLUSTER) * CLUSTER, sms // CLUSTER * CLUSTER))
+
+
+def cuda_error(rc: int) -> str:
+    """A launch's error code in words; the split tile's kernels answer 912
+    (cudaErrorInvalidClusterSize) when not one cluster can be scheduled."""
+    if rc == 912:
+        return (f"CUDA error {rc}: a cluster of {CLUSTER} blocks cannot be scheduled "
+                f"(the split tile's kernels run only as clusters)")
+    return f"CUDA error {rc}"
 
 
 class DwBuffers(NamedTuple):
@@ -660,7 +683,7 @@ def _launch_fwd(mlp, t_vals, l_xyz, l_dir, *, origins=None, dirs=None,
     )
     if rc != 0:
         raise RuntimeError(
-            f"{'K6' if x_in is not None else 'K1'} launch failed with CUDA error {rc} "
+            f"{'K6' if x_in is not None else 'K1'} launch failed with {cuda_error(rc)} "
             f"(B={b}, S={s}, hidden={mlp.hidden_dim}, layers={mlp.num_layers}, "
             f"residuals={emit_xenc}/{emit_preds})"
         )
@@ -752,8 +775,14 @@ def launch_rows(mode, mlp, t_vals, preds, g_rgb, g_w, l_xyz, l_dir, *,
     chunk_rays = plan[0][1]
     rows = _tiles(chunk_rays * s) * 128
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    grid = min(_tiles(chunk_rays * s), sms)
-    ws = DwBuffers.allocate(fwd, bwd, rows, grid, device)
+    split = hp > SPLIT_ABOVE
+    if split:
+        grid = cluster_grid(_tiles(chunk_rays * s, SPLIT_ROWS), sms)
+    else:
+        grid = min(_tiles(chunk_rays * s), sms)
+    # On the split tile each block has a second row of bias sums: its sums
+    # of one launch (csrc/fused_render_bwd.cu: db_blk).
+    ws = DwBuffers.allocate(fwd, bwd, rows, grid * (2 if split else 1), device)
     dpreds = g if k5 else torch.empty((n, 4), dtype=torch.float32, device=device)
     rc = _build.load("fused_render_bwd").nkt_fused_render_bwd(
         mode, _ptr(x_res), _ptr(origins), _ptr(dirs), _ptr(d_enc), _ptr(t_vals),
@@ -768,8 +797,8 @@ def launch_rows(mode, mlp, t_vals, preds, g_rgb, g_w, l_xyz, l_dir, *,
     )
     if rc != 0:
         raise RuntimeError(
-            f"{('K2', 'K3', 'K6 backward', 'K5 backward')[mode]} launch failed with CUDA "
-            f"error {rc} (B={b}, S={s}, hidden={mlp.hidden_dim} as {hp}, layers="
+            f"{('K2', 'K3', 'K6 backward', 'K5 backward')[mode]} launch failed with "
+            f"{cuda_error(rc)} (B={b}, S={s}, hidden={mlp.hidden_dim} as {hp}, layers="
             f"{mlp.num_layers}, chunks of {chunk_rays} rays, input grads={dx is not None}/"
             f"{dd is not None})"
         )

@@ -1115,6 +1115,74 @@ def test_wide_k2_chunks_and_determinism(dev, monkeypatch):
         assert _rel_l2(x, y) <= K2_TOL_REL
 
 
+@pytest.mark.parametrize("kernel", ["k1", "k2", "k3", "k5", "k6"])
+@pytest.mark.parametrize("b,s", [(1, 64), (41, 100)])
+def test_wide_clusters_at_odd_and_ragged_tile_counts(dev, kernel, b, s):
+    """At 8 x 512 the kernels run as clusters of two blocks that share each
+    weight stage, and both blocks of a cluster walk the same tiles' worth
+    of stages.  One ray of 64 samples is one tile (fewer than a cluster's
+    blocks: the second block only drains).  41 x 100 samples are 65 tiles
+    (odd, the last ragged: the rows kernel's and K5's last cluster has a
+    phantom step) and seven K1 blocks of six rays (the grid rounds up to
+    eight, the last block past B; the seventh holds five rays).  Each
+    kernel against its plain version, and run twice, the same bits."""
+    mlp = _wide_mlp(dev, 512, seed=35)
+    o, d, t = _rays(dev, b, s, seed=11)
+    gen = torch.Generator().manual_seed(12)
+    g_rgb = torch.randn((b, 3), generator=gen).to(dev)
+    g_w = torch.randn((b, s), generator=gen).to(dev)
+    pts = o[:, None, :] + d[:, None, :] * t[..., None]
+    x2 = encode_position(pts, 10).to(torch.bfloat16).reshape(b * s, -1).contiguous()
+    d_enc = encode_position(d / d.norm(dim=-1, keepdim=True), 4)[:, None, :].expand(
+        b, s, -1).to(torch.bfloat16).contiguous()
+    d2 = d_enc.reshape(b * s, -1)
+    g5 = (torch.randn((b * s, 4), generator=gen) * 1e-2).to(dev)
+    x3 = x2.reshape(b, s, -1)
+
+    def run():
+        with torch.no_grad():
+            if kernel == "k1":
+                return list(k1.render_rays_fused(mlp, o, d, t))
+            if kernel == "k5":
+                return [k5.launch_k5_fwd(mlp, x2, d2),
+                        *k5.launch_k5_bwd(mlp, x2, d2, g5, False, False)[0]]
+            if kernel == "k6":
+                rgb, w, preds = k1.launch_k6_fwd(mlp, x3, d_enc, t, train=True)
+                return [rgb, w, *k1.launch_k6_bwd(mlp, x3, d_enc, t, preds, g_rgb)]
+            _, _, x_res, preds = k1.launch_k1(mlp, o, d, t, 10, 4, train=True)
+            if kernel == "k2":
+                return k1.launch_k2(mlp, x_res, d, t, preds, g_rgb, g_w, 10, 4)
+            return k1.launch_k3(mlp, o, d, t, preds, g_rgb, g_w, 10, 4)
+
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    assert all(bool(torch.isfinite(x).all()) for x in got)
+    with torch.no_grad():
+        if kernel in ("k1", "k6"):
+            rgb_p, w_p = (k1.render_rays_reference(mlp, o, d, t) if kernel == "k1" else
+                          k1.apply_nerf_render_reference(mlp, x3, d_enc, t))
+            for a, c in zip(got[:2], (rgb_p, w_p)):
+                assert float((a - c).abs().max()) <= TOL_MAX
+                assert float((a - c).abs().mean()) <= TOL_MEAN
+        if kernel == "k5":
+            out_p = mlp(x2, d2)
+            assert float((got[0] - out_p).abs().max()) <= K5_PREDS_MAX
+            assert float((got[0] - out_p).abs().mean()) <= K5_PREDS_MEAN
+    if kernel in ("k2", "k3"):
+        grads, want, tol = got, k1.render_rays_reference_vjp(mlp, o, d, t, g_rgb, g_w), K2_TOL_REL
+    elif kernel == "k6":
+        grads, want, tol = got[2:], k1.apply_nerf_render_reference_vjp(
+            mlp, x3, d_enc, t, g_rgb), K2_TOL_REL
+    elif kernel == "k5":
+        grads, want, tol = got[1:], k5.apply_nerf_mlp_reference_vjp(
+            mlp, x2, d2, g5, False)[0], K5_TOL_REL
+    else:
+        return
+    for (name, _), a, c in zip(mlp.named_parameters(), grads, want):
+        assert _rel_l2(a, c) <= tol, (name, _rel_l2(a, c))
+
+
 @pytest.mark.parametrize("hidden", WIDE)
 def test_wide_k6_and_k5_match_plain(dev, hidden):
     """K6 (forward, backward) and K5 (forward, backward without input

@@ -22,6 +22,11 @@ alone; weight stages 32 k deep), and widths 257-511 run zero-padded to it
 * The dW product's column tiles (``csrc/nerf_dw.cuh``): a d_width above
   272 is two tiles of d_width / 2 at offsets 0 and d_width / 2, each an
   instantiated width, each a contiguous run of a workspace stage.
+* The split tile's clusters of two blocks (``nerf_wgmlp.cuh``,
+  "Clusters"): the rows kernel's grid (``fused_render.cluster_grid``) and
+  a model of each block's walk (``walk_steps``): every tile once, both
+  blocks of a cluster the same steps; every weight stage halves into two
+  16-byte-aligned runs for the multicast copies.
 * K1/K2's, K6's, K5's and K4's modules at hidden 320 and 512 against the
   JAX package (interpret mode on the CPU; the port's CPU wrappers take the
   plain versions), 4 layers, skip 2, 8 rays x 16 samples.
@@ -164,6 +169,85 @@ def test_split_parts_of_the_512_layers():
     for n in (512, 256):
         assert all(p % 32 == 0 for p in _split(n))
     assert max(w for n in (512, 520, 256, 8) for _, w in _products(n)) // 2 == 132
+
+
+def _cluster_walk(ntiles, grid, cluster=k1.CLUSTER):
+    """The tiles each block of a grid-strided split-tile kernel walks
+    (``nerf_wgmlp.cuh: walk_steps``): block ``b`` takes ``b``, ``b +
+    grid``, ... for as many steps as the first block of its cluster, so
+    both blocks of a cluster consume the same weight stages; a step past
+    the last tile is a phantom (``None``) that only drains them."""
+    walks = []
+    for b in range(grid):
+        first = b - b % cluster
+        steps = -(-(ntiles - first) // grid) if ntiles > first else 0
+        walks.append([t if t < ntiles else None for t in range(b, b + steps * grid, grid)])
+    return walks
+
+
+def _chunk_grid(grid, ntiles):
+    """The blocks of one launch of a grid-strided split-tile kernel
+    (``nerf_wgmlp.cuh: split_grid`` once the card's clusters are taken):
+    the grid, or the chunk's tiles rounded up to a whole cluster."""
+    return -(-min(grid, ntiles) // k1.CLUSTER) * k1.CLUSTER
+
+
+@pytest.mark.parametrize("sms", [132, 8])
+@pytest.mark.parametrize("ntiles", [1, 2, 3, 5, 8, 131, 132, 133, 264, 527, 528])
+def test_cluster_walk_covers_every_tile_once(ntiles, sms):
+    """The split tile's clusters of two blocks: the rows kernel's grid is
+    whole clusters within one block per SM; in every launch of it (a
+    chunk of ``ntiles`` 64-row tiles, or fewer) each tile is walked by
+    exactly one block, the two blocks of a cluster walk as many steps, and
+    the steps past a block's tiles (phantoms, which only drain the ring)
+    are the second block's, one at most."""
+    grid = k1.cluster_grid(ntiles, sms)
+    assert grid % k1.CLUSTER == 0 and k1.CLUSTER <= grid <= max(k1.CLUSTER, sms)
+    assert grid <= ntiles + 1
+    for chunk_tiles in sorted({ntiles, max(1, ntiles // 3), 1}):
+        g = _chunk_grid(grid, chunk_tiles)
+        walks = _cluster_walk(chunk_tiles, g)
+        assert len(walks) == g
+        walked = sorted(t for w in walks for t in w if t is not None)
+        assert walked == list(range(chunk_tiles))
+        for b in range(0, g, k1.CLUSTER):
+            first, second = walks[b], walks[b + 1]
+            assert len(first) == len(second) >= 1
+            assert None not in first
+            assert second.count(None) <= 1 and (None not in second or second[-1] is None)
+
+
+def test_cluster_grid_at_the_wide_phase():
+    """K2 at 8 x 512, B = 4,096, S = 192 on an H100 (132 SMs): chunks of
+    176 rays (``chunk_plan``, 19,840 B a sample), 528 64-row tiles each;
+    66 clusters, every block four tiles a chunk, the last chunk's 144
+    tiles on 132 blocks."""
+    plan = k1.chunk_plan(4096, 192, 19_840)
+    assert plan[0][1] == 176 and plan[-1][1] == 4096 - 176 * 23
+    tiles = -(-plan[0][1] * 192 // k1.SPLIT_ROWS)
+    grid = k1.cluster_grid(tiles, 132)
+    assert (tiles, grid) == (528, 132)
+    assert {len(w) for w in _cluster_walk(tiles, grid)} == {4}
+    last = -(-plan[-1][1] * 192 // k1.SPLIT_ROWS)
+    assert _chunk_grid(grid, last) == 132
+    assert sorted(len(w) for w in _cluster_walk(last, 132))[-1] == 2
+
+
+@pytest.mark.parametrize("hidden", WIDE)
+def test_every_stage_halves_for_multicast(hidden):
+    """Each producer of a cluster brings half of every weight stage
+    (``produce_layer``): a stage of the forward and transposed packs at
+    the split tile's 32-deep k is a multiple of 256 bytes, so each half is
+    a contiguous run of the pack starting on a 16-byte boundary, as
+    ``cp.async.bulk`` needs."""
+    mlp = _mlp(hidden, 4, 2, 10, 4)
+    for pack in (k1.pack_weights_wg(mlp, CPU), k1.pack_weights_bwd_wg(mlp, CPU)):
+        for k_pad, _, n_pad, w_off, _ in pack.desc:
+            assert (w_off * 2) % 16 == 0
+            for k0 in range(0, int(k_pad), k1.WG_KS_NARROW):
+                kw = min(k1.WG_KS_NARROW, int(k_pad) - k0)
+                stage = int(n_pad) * kw * 2
+                assert stage % 256 == 0 and (k0 * int(n_pad) * 2) % 16 == 0
 
 
 def _q_part_address(n_pad, k_pad, kq, n0, width):
