@@ -330,7 +330,13 @@ nonzero — nothing falls back to the CPU or to a plain path):
     K1 in training mode and K2 at B = 4096, S = 192 and K4 at B = 16384, S
     = 192 against their plain versions, with CUDA-event times, bounds and
     library yardsticks, for the kernels line's 8x512 entries (their
-    launches are this phase's main path's);
+    launches are this phase's main path's); K2's dW product (the split
+    tile's pairs of tiles, ``csrc/nerf_dw_pairs.cuh``) by its device ms
+    in all and a chunk's launch beside its bound (the workspace read once,
+    or its products) and one ``torch.matmul`` of A^T D a layer, with a
+    plan missing a pair of tiles that must miss K2's gate by 10x; K4 on
+    tables with the skip layer's x_enc rows zeroed must miss its gates by
+    10x;
 27. ``f32``: COMPUTE_DTYPE=float32 at ``lego_batch_h256_tpu``'s widths:
     (a) each f32 kernel (``csrc/fused_render_f32.cu``: K1 both modes, K2,
     K3, K5 forward and backward with input gradients, K6 forward and
@@ -652,6 +658,28 @@ def k2_bound(mlp, b, s):
     return bound(flops, nbytes)
 
 
+def dw_bound(mlp, dev, n):
+    """The dW product of a backward over ``n`` samples (csrc/nerf_dw.cuh,
+    nerf_dw_pairs.cuh): A^T D of every layer at its padded widths, at the
+    bf16 peak; or its bytes: the workspace (each sample's bf16 A and D)
+    read once and the f32 dW written once."""
+    fwd, bwd = k1.kernel_pack(mlp, dev), k1.kernel_pack_bwd(mlp, dev)
+    layout = k1.workspace_layout(fwd, bwd)
+    out = int((layout[:, 1] * layout[:, 3]).sum())
+    return bound(2.0 * out * n, n * k1.DwBuffers.bytes_per_sample(fwd, bwd) + 4 * out)
+
+
+def _broken_dw_allocate(orig):
+    """``DwBuffers.allocate`` whose split-tile dW plan lacks its first pair
+    (layer 0's weight gradient, left at zero): a dW product that misses a
+    tile must miss K2's gate by 10x."""
+    def allocate(*args, **kw):
+        ws = orig(*args, **kw)
+        ws.dw_part.zero_()
+        return ws._replace(pairs=np.ascontiguousarray(ws.pairs[1:]))
+    return allocate
+
+
 def k4_bound(mlp, b, s):
     """int8 products at the int8 peak; rays and t in, rgb and weights out,
     the int8 pack and its f32 scale/bias/requant rows read once."""
@@ -919,7 +947,7 @@ def phase_k2(card: str) -> dict:
 
 # K2's kernels, by the names the profiler reports.
 K2_STAGES = {"vjp": ("composite_vjp_kernel",), "rows": ("k2_rows_kernel",),
-             "dw": ("mlp_dw_kernel",), "reduce": ("mlp_reduce_kernel",)}
+             "dw": ("mlp_dw_kernel", "mlp_dw_pair_kernel"), "reduce": ("mlp_reduce_kernel",)}
 # Workspace budgets of K2's chunks (bytes): the default, and two that force
 # several chunks with a ragged last one; the smallest keeps a chunk's A/D
 # (~40 MB at 10,112 B per sample) inside the 50 MB L2 between the rows
@@ -4547,14 +4575,20 @@ def wide_config() -> NeRFConfig:
     return dataclasses.replace(load_config(CONFIG), hidden_dim=WIDE_HIDDEN)
 
 
-def _wide_kernels(card: str, mlp: NeRFMLP, qp: dict) -> dict:
+def _wide_kernels(card: str, mlp: NeRFMLP, qp: dict, init: NeRFMLP) -> dict:
     """K1, K1 in training mode and K2 at B = 4096, S = 192 (the parity
     step's fine pass) and K4 at B = 16384, S = 192 (the server's chunk) on
     the 8x512 model: each against its plain version, CUDA-event times,
-    bounds and library yardsticks; K2's device ms per kernel; K2 and K5's
+    bounds and library yardsticks, with a broken dW plan and broken K4
+    tables that must miss the gates by 10x; K2's device ms per kernel and
+    the dW product's beside its bound and library call; K2 and K5's
     backward (N = 786,432) twice on the same inputs, the same bits (the
     clusters' bias sums in a fixed order); K1, K2 and K5 on one ray of 64
-    samples, one 64-row tile: fewer than a cluster's two blocks."""
+    samples, one 64-row tile: fewer than a cluster's two blocks, on the
+    phase's model before its training steps (``init``: weights that do not
+    depend on the kernels under test; the trained ones carry every K2
+    rounding of the steps, and 64 samples' bf16 gradients move by a few
+    percent with them: PERF.md)."""
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(11)
     _, o, d = (torch.as_tensor(x, device=dev) for x in bench_batch(4096, seed=3))
@@ -4586,7 +4620,18 @@ def _wide_kernels(card: str, mlp: NeRFMLP, qp: dict) -> dict:
     max_abs, rel = _leaf_errors(got, want)
     if rel > K2_TOL_REL or not all(bool(torch.isfinite(g).all()) for g in got):
         raise RuntimeError(f"wide: K2 disagrees with the plain backward: rel L2 {rel}")
-    del want, got
+    # The dW product with a tile left out must miss K2's gate by 10x.
+    alloc = k1.DwBuffers.allocate
+    k1.DwBuffers.allocate = staticmethod(_broken_dw_allocate(alloc))
+    try:
+        with torch.no_grad():
+            bad = k1.launch_k2(mlp, x_enc, d, t, preds, g_rgb, None, 10, 4)
+    finally:
+        k1.DwBuffers.allocate = alloc
+    bad_rel = _leaf_errors(bad, want)[1]
+    del want, got, bad
+    if not bad_rel >= 10 * K2_TOL_REL:
+        raise RuntimeError(f"wide: a dW product missing a tile passes K2's gate: {bad_rel}")
     with torch.no_grad():
         out["k1"] = {"err": max(errs["rgb_max"], errs["w_max"]),
                      "ms": cuda_ms(lambda: k1.render_rays_fused(mlp, o, d, t), reps=5),
@@ -4604,6 +4649,10 @@ def _wide_kernels(card: str, mlp: NeRFMLP, qp: dict) -> dict:
                      "ms": cuda_ms(k2, reps=5), "bound": k2_bound(mlp, b, s),
                      "device_ms": _device_ms_or_note(k2, K2_STAGES, {
                          "vjp": 1, "rows": chunks, "dw": chunks, "reduce": 1})}
+        dw_ms = out["k2"]["device_ms"].get("dw")
+        out["dw"] = {"device_ms": dw_ms, "launches_per_k2": chunks,
+                     "ms_per_launch": None if dw_ms is None else dw_ms / chunks,
+                     "bound": dw_bound(mlp, dev, b * s), "broken_rel_l2": bad_rel}
         d5 = encode_position(d, 4)[:, None, :].expand(b, s, -1).reshape(b * s, -1)
         d5 = d5.to(torch.bfloat16).contiguous()
         g5 = (torch.randn((b * s, 4), generator=gen) * 1e-2).to(dev)
@@ -4614,9 +4663,9 @@ def _wide_kernels(card: str, mlp: NeRFMLP, qp: dict) -> dict:
     torch.cuda.empty_cache()
     out["k1"]["library_ms"] = out["k1_train"]["library_ms"] = library_products_ms(
         k1.kernel_pack(mlp, dev).desc, b * s, torch.bfloat16, dev)
-    out["k2"]["library_ms"] = _dw_library_ms(mlp, dev, b * s)
+    out["k2"]["library_ms"] = out["dw"]["library_ms"] = _dw_library_ms(mlp, dev, b * s)
     out["k2"]["bwd_library_ms"] = _bf16_backward_library_ms(mlp, dev, b * s)
-    one_tile = _run_suite(mlp, _suite_inputs(mlp, 1, 64, seed=13),
+    one_tile = _run_suite(init, _suite_inputs(init, 1, 64, seed=13),
                           ("k1", "k1_train", "k2", "k5_fwd", "k5_bwd"), reps=1)
     one_bad = [n for n, e in one_tile.items() if not (e["finite"] and _bf16_gate_ok(n, e))]
     # K4 at the server's chunk: 16384 rays of a 128x128 pose.
@@ -4626,10 +4675,18 @@ def _wide_kernels(card: str, mlp: NeRFMLP, qp: dict) -> dict:
                          generator=gen).to(dev).contiguous()
     got4 = k4.render_rays_fused_quant(qp, o4, d4, t4)
     torch.cuda.synchronize()
-    e4 = _errs(got4, k4.render_rays_reference_quant(qp, o4, d4, t4))
+    want4 = k4.render_rays_reference_quant(qp, o4, d4, t4)
+    e4 = _errs(got4, want4)
     if _miss(e4) > 1.0:
         raise RuntimeError(f"wide: K4 disagrees with the plain version: {e4}")
-    out["k4"] = {"err": max(e4["rgb_max"], e4["w_max"]),
+    # Tables with the skip layer's x_enc rows zeroed must miss K4's gates by 10x.
+    bad4 = _errs(k4.render_rays_fused_quant(
+        _broken_qparams(qp, k1.kernel_width(WIDE_HIDDEN, k4.K4_HIDDEN), 4, "skip"), o4, d4, t4),
+        want4)
+    del want4
+    if _miss(bad4) < 10.0:
+        raise RuntimeError(f"wide: K4 on broken tables passes its gates: {bad4}")
+    out["k4"] = {"err": max(e4["rgb_max"], e4["w_max"]), "broken_miss": _miss(bad4),
                  "ms": cuda_ms(lambda: k4.render_rays_fused_quant(qp, o4, d4, t4), reps=5),
                  "plain_ms": cuda_ms(lambda: k4.render_rays_reference_quant(qp, o4, d4, t4),
                                      reps=3),
@@ -4661,6 +4718,7 @@ def phase_wide(card: str, tmp: str) -> tuple[list[dict], dict]:
     trainer = Trainer(cfg, 2.0, 6.0, device="cuda")
     for m in trainer.params.values():
         randomize_biases_(m, torch.Generator().manual_seed(5))
+    init = copy.deepcopy(trainer.params["fine"])
     batch = trainer.put_batch(bench_batch(cfg.batch_size))
     torch.cuda.reset_peak_memory_stats()
     losses, by_model, max_abs, _ = _grads_kernel_vs_plain(
@@ -4727,7 +4785,7 @@ def phase_wide(card: str, tmp: str) -> tuple[list[dict], dict]:
         raise RuntimeError(f"wide: the served frame launched {launches[-1]}")
     del service, batch
     torch.cuda.empty_cache()
-    kernels = _wide_kernels(card, mlp, qp)
+    kernels = _wide_kernels(card, mlp, qp, init)
     del trainer
     torch.cuda.empty_cache()
     return launches, kernels

@@ -51,12 +51,14 @@ parent).  Phases:
   (forward, backward) at the ``widths`` phase's B=1,024, S=64, each alone
   (CUDA events, median of 10; K2 of 5), K2's device ms per kernel
   (``chip_smoke.device_ms_by_kernel``: the VJP, the rows kernel, dW, the
-  reduce), the ``-Xptxas -v`` lines of the 512 instantiations, then the
-  8x512 parity step (``chip_smoke.wide_config``) as in ``steps``; every
+  reduce), the ``-Xptxas -v`` lines of the 512 instantiations, K2 at 8x256
+  (B=4096, S=160) and K4 at 8x512 and 8x256 (the server's chunk, 16384
+  rays at S=192; median of 5), then the 8x512 parity step
+  (``chip_smoke.wide_config``) as in ``steps``; every
   output is saved, and the last line (``BITS``) says, kernel by kernel,
   whether each tree's outputs equal the first tree's bit for bit, or the
   largest difference; a run of this phase alone builds only the bf16 MLP
-  sources;
+  sources and K4's;
 * ``decode``: the tree's image decoders on the card's host (no kernel;
   a run of this phase alone builds none): an 800x800 RGBA PNG whose every
   row is Paeth, at 8 and 16 bits (written once by this tree's
@@ -89,7 +91,8 @@ if phases in (["k7"], ["f32"]):
                                               "fused_render_f32.cu")]
 if phases == ["wide"]:
     _build._sources = lambda: [_build.CSRC / f"{stem}.cu" for stem in
-                               ("fused_render_fwd", "fused_render_bwd", "fused_mlp_fwd")]
+                               ("fused_render_fwd", "fused_render_bwd", "fused_mlp_fwd",
+                                "quant_render_fwd")]
 if phases != ["decode"]:
     _build.build()
 
@@ -249,7 +252,8 @@ if "wide" in phases:
         found = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", ln)
         if found:
             name = found.group(1)
-        elif name and "ILi512E" in name and ("Used" in ln or "spill" in ln):
+        elif name and ("ILi512E" in name or "wide" in name or "pair" in name) and (
+                "Used" in ln or "spill" in ln):
             out["wide_ptxas"].append(f"{name}: {ln.strip()}")
     dev = torch.device("cuda")
     saved = {}
@@ -266,6 +270,30 @@ if "wide" in phases:
                 out["wide_k2_device_ms"] = cs.device_ms_by_kernel(calls["k2"], cs.K2_STAGES)
         del mlp, x, calls
         torch.cuda.empty_cache()
+    # K2 at 8x256 and K4 at 8x512 and 8x256 (the server's chunk, 16384 rays
+    # of a 128x128 pose at S=192), beside the 512 kernels: the 8x256 code
+    # paths keep their bits and times.
+    from nerf_keras_tpu_torch.ops.kernels import quant_render as k4
+    from nerf_keras_tpu_torch.ops.rays import get_rays, pose_spherical
+    from nerf_keras_tpu_torch.ops.sampling import generate_t_vals
+    mlp = cs._suite_mlp(dev, 256, seed=525)
+    x = cs._suite_inputs(mlp, 4096, 160, seed=525)
+    calls = cs._suite_calls(mlp, x)
+    with torch.no_grad():
+        saved["k2_256"] = [t.detach().cpu() for t in calls["k2"]()]
+        out["wide_k2_256_ms"] = cuda_ms(calls["k2"], reps=5)
+    del mlp, x, calls
+    o, d = get_rays(128, 128, 153.6, pose_spherical(30.0, -30.0, 4.0), device=dev)
+    o, d = o.reshape(-1, 3).contiguous(), d.reshape(-1, 3).contiguous()
+    t = generate_t_vals(2.0, 6.0, (o.shape[0],), 192, "stratified",
+                        generator=torch.Generator().manual_seed(4)).to(dev).contiguous()
+    for hidden in (512, 256):
+        qp = cs._calibrated_qparams(cs._suite_mlp(dev, hidden, seed=526), dev)
+        run = lambda: k4.render_rays_fused_quant(qp, o, d, t)  # noqa: E731
+        saved[f"k4_{hidden}"] = [a.cpu() for a in run()]
+        out[f"wide_k4_{hidden}_ms"] = cuda_ms(run, reps=5)
+        del qp
+    torch.cuda.empty_cache()
     torch.save(saved, os.path.join(sys.argv[2], f"wide_{sys.argv[3]}.pt"))
     del saved
     time_steps("wide_", (("parity", cs.wide_config()),))

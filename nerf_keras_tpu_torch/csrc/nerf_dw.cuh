@@ -12,15 +12,14 @@
 //
 // A block computes a 128 x n tile of one layer's dW (two consumer
 // warpgroups of 64 rows, n columns in registers) over a range of sample
-// stages: n is the whole d_width up to 272 (kDwMaxN), and a wider layer
-// (hidden 512: 512, and 528 for the merged head) is two column tiles of
-// d_width / 2 each (256 or 264), at an output column offset n0.  A
-// producer warp keeps a ring of 4 stages (the block's 128 columns of A and
-// its n columns of D for 64 samples, <= 51,200 B each) in flight: D's
-// n0..n0+n columns of a stage are strips n0/8.. of it, one contiguous run.  Each block writes (or, for a later chunk, adds) its
-// partial tile to its own slab; mlp_reduce_kernel sums the slabs and the
-// per-block bias rows in a fixed order.  No atomics: the same sums in the
-// same order on every run (deterministic).
+// stages: n is the whole d_width, up to 272 (kDwMaxN; the split tile's
+// wider layers go through nerf_dw_pairs.cuh).  A producer warp keeps a
+// ring of 4 stages (the block's 128 columns of A and its n columns of D
+// for 64 samples, <= 51,200 B each) in flight.  Each block writes (or, for
+// a later chunk, adds) its partial tile to its own slab; mlp_reduce_kernel
+// (also the split tile's) sums the slabs and the per-block bias rows in a
+// fixed order.  No atomics: the same sums in the same order on every run
+// (deterministic).
 //
 // What bounds it: the workspace bytes it reads (A once, D once for each
 // 128-row tile of a layer: ~15 KB a sample at 8x256), far below the
@@ -41,13 +40,10 @@ constexpr int kDwMaxN = 272;
 constexpr int kDwThreads = 288;  // two consumer warpgroups and a producer warp
 constexpr int kDwABytes = kDwM * kDwRows * 2;
 
-// One column tile of one layer: dW[:, n0:n0 + n] of its (a_width, d_width).
+// One layer: dW of its (a_width, d_width) = n.
 struct DwLayer {
-  int a_col, a_width, d_col, d_width, out_off, tile_start, n0, n;
+  int a_col, a_width, d_col, d_width, out_off, tile_start, n;
 };
-
-// The dW output widths that are one column tile; a wider d_width is two.
-inline int dw_tile_cols(int d_width) { return d_width > kDwMaxN ? d_width / 2 : d_width; }
 
 struct DwPlan {
   const __nv_bfloat16* ws_a;
@@ -55,7 +51,7 @@ struct DwPlan {
   float* part;  // (nsplit, total_out)
   int rows_pad, total_out, n_layers, tiles, nsplit, stage_bytes;
   int nst, per_split, accumulate;  // set per launch
-  DwLayer L[2 * kMaxDense];  // column tiles, in layer order
+  DwLayer L[kMaxDense];
 };
 
 template <int N>
@@ -100,7 +96,7 @@ __device__ __forceinline__ void dw_consume(const DwPlan& p, const DwLayer& Ly, i
   for (int half = 0; half < 2; ++half) {
     const int m = m0 + 64 * wg + 16 * (warp & 3) + g + 8 * half;
     if (m >= Ly.a_width) continue;
-    float* row = out + (size_t)m * Ly.d_width + Ly.n0;
+    float* row = out + (size_t)m * Ly.d_width;
 #pragma unroll
     for (int j = 0; j < N / 8; ++j) {
       float2* o = reinterpret_cast<float2*>(row + 8 * j + 2 * t);
@@ -144,7 +140,7 @@ __global__ void __launch_bounds__(kDwThreads, 1)
       const int a_rows = min(kDwM, Ly.a_width - m0);
       const uint32_t a_bytes = a_rows * kDwRows * 2, d_bytes = Ly.n * kDwRows * 2;
       const __nv_bfloat16* A = p.ws_a + (size_t)p.rows_pad * Ly.a_col + (m0 / 8) * 512;
-      const __nv_bfloat16* D = p.ws_d + (size_t)p.rows_pad * Ly.d_col + (Ly.n0 / 8) * 512;
+      const __nv_bfloat16* D = p.ws_d + (size_t)p.rows_pad * Ly.d_col;
       int st = 0;
       uint32_t ph = 0;
       for (int s = s0; s < s1; ++s) {
@@ -169,7 +165,6 @@ __global__ void __launch_bounds__(kDwThreads, 1)
     case 128: dw_consume<128>(p, Ly, m0, s0, s1, full, empty, buf); break;
     case 144: dw_consume<144>(p, Ly, m0, s0, s1, full, empty, buf); break;
     case 256: dw_consume<256>(p, Ly, m0, s0, s1, full, empty, buf); break;
-    case 264: dw_consume<264>(p, Ly, m0, s0, s1, full, empty, buf); break;
     case 272: dw_consume<272>(p, Ly, m0, s0, s1, full, empty, buf); break;
     default: break;  // refused on the host (dw_plan)
   }
@@ -191,16 +186,16 @@ __global__ void mlp_reduce_kernel(const float* part, int nsplit, int total_out, 
   }
 }
 
-// The column-tile widths dw_consume is instantiated for: d_width at hidden
-// 64, 128 and 256 (the heads' 80, 144 and 272), half of 512 and 528.
+// The widths dw_consume is instantiated for: d_width at hidden 64, 128
+// and 256 (the heads' 80, 144 and 272).
 inline bool dw_width_ok(int n) {
   return n == 16 || n == 32 || n == 64 || n == 80 || n == 128 || n == 144 || n == 256 ||
-         n == 264 || n == 272;
+         n == 272;
 }
 
 // Host side: the dW product's plan for a backward's workspaces (rows_pad
 // rows per layer) into dw_part (nsplit x total_out).  False when a layer's
-// column tiles have no instantiation.
+// width has no instantiation.
 inline bool dw_plan(DwPlan& q, const MlpBwdParams& mb, int n_dense, int rows_pad,
                     int total_out, int nsplit, float* dw_part) {
   q.ws_a = mb.ws_a;
@@ -209,18 +204,16 @@ inline bool dw_plan(DwPlan& q, const MlpBwdParams& mb, int n_dense, int rows_pad
   q.rows_pad = rows_pad;
   q.total_out = total_out;
   q.nsplit = nsplit;
-  int tiles = 0, dmax = 0, e = 0;
+  int tiles = 0, dmax = 0;
   for (int i = 0; i < n_dense; ++i) {
     const Bwd& w = mb.bwd[i];
-    const int n = dw_tile_cols(w.d_width);
+    const int n = w.d_width;
     if (!dw_width_ok(n) || w.a_width % 16 != 0) return false;
-    for (int n0 = 0; n0 < w.d_width; n0 += n) {
-      q.L[e++] = DwLayer{w.a_col, w.a_width, w.d_col, w.d_width, w.out_off, tiles, n0, n};
-      tiles += (w.a_width + kDwM - 1) / kDwM;
-    }
+    q.L[i] = DwLayer{w.a_col, w.a_width, w.d_col, w.d_width, w.out_off, tiles, n};
+    tiles += (w.a_width + kDwM - 1) / kDwM;
     dmax = n > dmax ? n : dmax;
   }
-  q.n_layers = e;
+  q.n_layers = n_dense;
   q.tiles = tiles;
   q.stage_bytes = kDwABytes + dmax * kDwRows * 2;
   return 128 + (size_t)kDwStages * q.stage_bytes <= (size_t)kMaxSmem;

@@ -217,9 +217,78 @@ __device__ __forceinline__ void q_product(int* acc, const int8_t* act, int ldx, 
   }
 }
 
+// Whether the split tile keeps wgmma groups in flight across stages
+// (q_product_pipe; PERF.md).
+constexpr bool kPipeQ = true;
+
+// The A fragments of the stage of k [k0, k0 + KQ) (fewer k32 steps where
+// k_pad ends first).
+template <int KQ>
+__device__ __forceinline__ void q_load_stage(uint32_t (&a)[KQ / 32][4], const int8_t* act,
+                                             int ldx, int k_pad, int k0) {
+  const int steps = min(KQ, k_pad - k0) >> 5;  // block-uniform
+#pragma unroll
+  for (int q = 0; q < KQ / 32; ++q)
+    if (q < steps) load_a_s8(a[q], act, ldx, k0 + 32 * q);
+}
+
+// One stage of q_product_pipe (as nerf_wgmlp.cuh's pipe_stage): wait for
+// it, issue its k32 steps from `cur` as one wgmma group, then wait until
+// only this group is in flight, release the previous stage (`held`) and
+// load the next stage's A into `nxt`.
+template <int N, int KQ>
+__device__ __forceinline__ void q_pipe_stage(int* acc, uint32_t (&cur)[KQ / 32][4],
+                                             uint32_t (&nxt)[KQ / 32][4], const int8_t* act,
+                                             int ldx, int k_pad, int k0, const WRing& r,
+                                             RingPos& c, int& held, int np, int n0) {
+  const int steps = min(KQ, k_pad - k0) >> 5;
+  mbar_wait(&r.full[c.st], c.ph);
+  const uint32_t sb = smem_u32(r.buf + static_cast<size_t>(c.st) * r.stage_bytes) + n0 * 16;
+  acc_fence<N / 2>(acc);
+  wg_fence();
+#pragma unroll
+  for (int q = 0; q < KQ / 32; ++q)
+    if (q < steps)
+      mma_rs_s8<N>(acc, cur[q], smem_desc(sb + q * 2 * np * 16, np * 16, 128), 128, 1);
+  wg_commit();
+  if (held >= 0) {
+    wg_wait<1>();
+    reg_fence<KQ / 8>(&nxt[0][0]);
+    ring_release(r, held);
+  }
+  held = c.st;
+  c.next(r.stages);
+  if (k0 + KQ < k_pad) q_load_stage<KQ>(nxt, act, ldx, k_pad, k0 + KQ);
+}
+
+// q_product's sums with wgmma groups kept in flight across stages: stage s
+// + 1's A fragments load and its group issues before stage s's group is
+// waited on and its stage released; two register buffers of A fragments.
+// Integer sums: the same bits in any order.
+template <int N, int KQ>
+__device__ __forceinline__ void q_product_pipe(int* acc, const int8_t* act, int ldx, int k_pad,
+                                               const WRing& r, RingPos& c, int np, int n0) {
+  static_assert(N % 8 == 0 && N <= 264, "wgmma widths");
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0;
+  uint32_t a0[KQ / 32][4], a1[KQ / 32][4];
+  int held = -1;
+  q_load_stage<KQ>(a0, act, ldx, k_pad, 0);
+  for (int k0 = 0; k0 < k_pad; k0 += 2 * KQ) {
+    q_pipe_stage<N, KQ>(acc, a0, a1, act, ldx, k_pad, k0, r, c, held, np, n0);
+    if (k0 + KQ < k_pad)
+      q_pipe_stage<N, KQ>(acc, a1, a0, act, ldx, k_pad, k0 + KQ, r, c, held, np, n0);
+  }
+  wg_wait<0>();
+  acc_fence<N / 2>(acc);
+  reg_fence<KQ / 8>(&a0[0][0]);
+  reg_fence<KQ / 8>(&a1[0][0]);
+  ring_release(r, held);
+}
+
 // The warp's share of an N-wide layer's product on H's tile (as the bf16
 // layer_product, nerf_wgmlp.cuh): all N columns, or its warpgroup's
-// SplitProduct, then split_sync.
+// SplitProduct (groups in flight with kPipeQ), then split_sync.
 template <int H, int N>
 __device__ __forceinline__ void q_layer_product(int* acc, const int8_t* act, int ldx, int k_pad,
                                                 const WRing& r, RingPos& c) {
@@ -228,7 +297,11 @@ __device__ __forceinline__ void q_layer_product(int* acc, const int8_t* act, int
     q_product<N, KQ>(acc, act, ldx, k_pad, r, c);
   } else {
     using P = SplitProduct<N>;
-    q_product<P::width, KQ>(acc, act, ldx, k_pad, r, c, N, col_part<H>() ? P::n0_hi : 0);
+    const int n0 = col_part<H>() ? P::n0_hi : 0;
+    if constexpr (kPipeQ)
+      q_product_pipe<P::width, KQ>(acc, act, ldx, k_pad, r, c, N, n0);
+    else
+      q_product<P::width, KQ>(acc, act, ldx, k_pad, r, c, N, n0);
     split_sync<H>();
   }
 }
@@ -542,6 +615,162 @@ __global__ void __launch_bounds__(kWgThreads, 1)
                  p.rgb_out + (size_t)r0 * 3);
 }
 
+// encode_rows on the split tile, by both warps of the rows: warp v of
+// warpgroup w takes 8 of the rows (8w..8w+7 of the 16), four lanes a row,
+// each a quarter of the octaves (lane 0 of the four also the raw
+// coordinates).  The same values as encode_rows.
+__device__ __forceinline__ void encode_rows_split(const QDims& m, const float* ray, const float* t,
+                                                  int S, int q0, int valid, const float* inv_x,
+                                                  int8_t* act, int8_t* xq) {
+  const int lane = threadIdx.x & 31;
+  const int row = 8 * (threadIdx.x >> 7) + (lane >> 2), part = lane & 3;
+  const bool ok = row < valid;
+  float x[3] = {0.f, 0.f, 0.f};
+  if (ok) {
+    const float* o = ray + ((q0 + row) / S) * 8;
+    const float tq = t[q0 + row];
+#pragma unroll
+    for (int d = 0; d < 3; ++d) x[d] = __fadd_rn(o[d], __fmul_rn(o[4 + d], tq));
+  }
+  int8_t* arow = act + row * m.ldx;
+  int8_t* xrow = xq + row * m.xyz_pad;
+  auto put = [&](int c, float v) {
+    const int8_t b = ok ? static_cast<int8_t>(requant<false>(v, inv_x[c])) : int8_t(0);
+    arow[c] = b;
+    xrow[c] = b;
+  };
+  if (part == 0)
+#pragma unroll
+    for (int d = 0; d < 3; ++d) put(d, x[d]);
+  const int octaves = (m.xyz_dim - 3) / 6;
+  const int quarter = (octaves + 3) / 4;
+  const int o_end = min(octaves, (part + 1) * quarter);
+  for (int o = part * quarter; o < o_end; ++o) {
+    const float scale = __int_as_float((127 + o) << 23);  // 2^o, exact
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      float sn, cs;
+      sincosf(__fmul_rn(x[d], scale), &sn, &cs);
+      put(3 + 6 * o + d, sn);
+      put(6 + 6 * o + d, cs);
+    }
+  }
+  for (int c = m.xyz_dim + part; c < m.xyz_pad; c += 4) {
+    arow[c] = 0;
+    xrow[c] = 0;
+  }
+}
+
+// K4 at hidden 512 on a persistent grid: block b takes the groups of R
+// rays b, b + gridDim.x, ... (wg_rays_per_block), so it brings the f32 rows
+// (58,944 B at 8x512) and initialises its barriers once, and its producer
+// streams the next group's weights while the consumers composite the last.
+// Per group: the rays and their direction features, a barrier of the
+// consumers, the tiles, another barrier, the compositing.  The shared
+// memory and the arithmetic of quant_render_fwd_kernel<512>, the encode
+// shared by both warpgroups (encode_rows_split): its outputs bit for bit.
+__global__ void __launch_bounds__(kWgThreads, 1)
+    quant_render_wide_kernel(const __grid_constant__ Params p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int H = 512;
+  using T = WgTile<H>;
+  constexpr int kRows = T::kRows;
+  const QDims& m = p.m;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int ldx = m.ldx;
+  const int R = p.R;
+  const int S = p.S;
+  const int groups = (p.B + R - 1) / R;
+
+  WRing ring;
+  ring.full = reinterpret_cast<uint64_t*>(smem);
+  ring.empty = ring.full + kMaxStages;
+  uint64_t* fbar = ring.empty + kMaxStages;
+  ring.buf = smem + kQBarBytes;
+  ring.stages = p.stages;
+  ring.stage_bytes = p.stage_bytes;
+  float* f = reinterpret_cast<float*>(ring.buf + p.stages * p.stage_bytes);  // the f32 rows
+  int8_t* act = reinterpret_cast<int8_t*>(f) + m.f_bytes;                    // (rows, ldx)
+  int8_t* xq = act + kRows * ldx;                           // (rows, xyz_pad)
+  int8_t* dq = xq + kRows * m.xyz_pad;                      // (R, dir_pad)
+  float* ray = reinterpret_cast<float*>(dq + round_up(R * m.dir_pad, 16));  // (R, 8): o, d
+  float* sig = ray + R * 8;   // (R*S)
+  float* rgbl = sig + R * S;  // (R*S, 3)
+  const float* inv_x = f + m.x_off;
+  const float* inv_d = f + m.d_off;
+
+  if (tid == 0) {
+    ring_init(ring);
+    mbar_init(fbar, 1);
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (warp >= kConsumerWarps) {  // the producer warpgroup: one thread issues
+    reg_dealloc<kProducerRegs>();
+    if (warp == kConsumerWarps && lane == 0) {
+      mbar_expect_tx(fbar, static_cast<uint32_t>(m.f_bytes));
+      bulk_g2s(f, p.f, static_cast<uint32_t>(m.f_bytes), fbar);
+      RingPos rp;
+      for (int g = blockIdx.x; g < groups; g += gridDim.x) {
+        const int ntiles = (min(R, p.B - g * R) * S + kRows - 1) / kRows;
+        for (int tile = 0; tile < ntiles; ++tile)
+          for (int i = 0; i < m.num_layers + 3; ++i)
+            produce_q_layer(ring, rp, p.w, m.dense[i], q_ks(H));
+      }
+    }
+    return;
+  }
+  reg_alloc<kConsumerRegs>();
+  mbar_wait(fbar, 0);  // the f32 rows are in shared memory
+
+  const int wrow = row_warp<H>() * 16;  // this warp's rows of every tile
+  int8_t* wact = act + wrow * ldx;
+  int8_t* wxq = xq + wrow * m.xyz_pad;
+  const int dw = m.dir_pad >> 2;
+  RingPos rp;
+  for (int g = blockIdx.x; g < groups; g += gridDim.x) {
+    const int r0 = g * R;
+    const int nrays = min(R, p.B - r0);
+    const int P = nrays * S;
+    const size_t s0 = (size_t)r0 * S;  // first sample of the group
+    const int ntiles = (P + kRows - 1) / kRows;
+    // The group's rays and their direction features, quantized once per
+    // ray (inv_d is zero beyond dir_dim); the last group's compositing
+    // reads neither.
+    for (int i = tid; i < R * 3; i += kWgConsumers) {
+      const int r = i / 3, c = i - r * 3;
+      const bool ok = r < nrays;
+      ray[r * 8 + c] = ok ? p.origins[(size_t)(r0 + r) * 3 + c] : 0.f;
+      ray[r * 8 + 4 + c] = ok ? p.dirs[(size_t)(r0 + r) * 3 + c] : 0.f;
+    }
+    for (int i = tid; i < R * m.dir_pad; i += kWgConsumers) {
+      const int r = i / m.dir_pad, c = i - r * m.dir_pad;
+      float d3[3] = {0.f, 0.f, 0.f};
+      if (r < nrays)
+#pragma unroll
+        for (int j = 0; j < 3; ++j) d3[j] = p.dirs[(size_t)(r0 + r) * 3 + j];
+      dq[i] = static_cast<int8_t>(requant<false>(encode_feature(d3, c, m.dir_dim), inv_d[c]));
+    }
+    consumer_sync(kWgConsumers);  // the last group's compositing is done too
+    for (int tile = 0; tile < ntiles; ++tile) {
+      const int q0 = tile * kRows + wrow;  // group sample of the warp's row 0
+      const int valid = min(16, P - q0);   // may be <= 0 on the last tile
+      encode_rows_split(m, ray, p.t_vals + s0, S, q0, valid, inv_x, wact, wxq);
+      split_sync<H>();
+      auto dir4 = [&](int row, int c) -> uint32_t {
+        return reinterpret_cast<const uint32_t*>(dq)[((q0 + row) / S) * dw + c];
+      };
+      qmlp_forward_wg<H>(m, f, wact, wxq, dir4, sig + q0, rgbl + q0 * 3, valid, ring, rp);
+    }
+    consumer_sync(kWgConsumers);
+    composite_rays(p.t_vals + s0, sig, rgbl, nrays, S, p.w_out + s0,
+                   p.rgb_out + (size_t)r0 * 3);
+  }
+}
+
 // The hidden widths K4 is instantiated for.
 inline bool q_hidden_ok(int h) { return h == 32 || h == 64 || h == 128 || h == 256 || h == 512; }
 
@@ -600,14 +829,16 @@ bool qdims_init(QDims& m, const int* desc, int n_dense, int num_layers, int skip
 // f_off) in the order trunk[0..num_layers), merged feature+sigma head,
 // branch, rgb; `x_off` and `d_off` locate the inv_x and inv_d rows (padded
 // to 32 with zeros) at the end of the f32 pack.  hidden is 32, 64, 128,
-// 256 or 512.  Launches on `stream` and returns cudaGetLastError() (0 on success);
-// does not synchronise and allocates nothing.
+// 256 or 512.  `grid`: the blocks, one per group of rays (wg_rays_per_block),
+// and at hidden 512 at most that many (quant_render.py: k4_grid).  Launches
+// on `stream` and returns cudaGetLastError() (0 on success); does not
+// synchronise and allocates nothing.
 extern "C" int nkt_quant_render_fwd(const void* origins, const void* dirs, const void* t_vals,
                                     const void* w_pack, const void* f_pack,
                                     const void* dense_desc, int n_dense, int num_layers,
                                     int skip_layer, int hidden, int l_xyz, int l_dir, int x_off,
                                     int d_off, int B, int S, void* rgb_out, void* w_out,
-                                    int device, void* stream) {
+                                    int grid, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   Params p;
@@ -639,10 +870,14 @@ extern "C" int nkt_quant_render_fwd(const void* origins, const void* dirs, const
                                  : hidden == 64  ? quant_render_fwd_kernel<64>
                                  : hidden == 128 ? quant_render_fwd_kernel<128>
                                  : hidden == 256 ? quant_render_fwd_kernel<256>
-                                                 : quant_render_fwd_kernel<512>;
+                                                 : quant_render_wide_kernel;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int grid = (B + p.R - 1) / p.R;
+  // A block per group of R rays; at hidden 512 `grid` blocks (at most one
+  // a group) that stride over the groups.
+  const int groups = (B + p.R - 1) / p.R;
+  if (hidden == 512 ? (grid < 1 || grid > groups) : grid != groups)
+    return (int)cudaErrorInvalidValue;
   kernel<<<grid, kWgThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
 }

@@ -25,6 +25,16 @@ printed beside its time):
   ``wgmma`` groups, the first half's epilogue while the second half's
   products run), ``prof`` (clock64 counters: the share of the consumer
   warps' cycles in each phase);
+* at hidden 512, on the persistent K4 (``quant_render_wide_kernel``):
+  ``nopipe`` (each stage's products waited on before the next stage's
+  issue), ``oneray`` (a block per group of rays, as before the persistent
+  grid), ``enc1`` (the encode by warpgroup 0 alone, the other waiting),
+  ``dequant_split`` (float(acc) above 2^22 as two magic-number halves,
+  exact for |acc| < 2^24, in place of cvt.rn.f32.s32), ``ks32`` (32-deep
+  weight stages: 7 in the ring instead of 3), ``fglobal`` (the f32 rows
+  read from global memory through L1 instead of copied to shared memory:
+  4 stages), ``fglobal_ks32`` (both: 8); ``nocopy`` and ``noepi`` apply
+  there too, and ``pipe`` to the K4 before it;
 * ``as_is``: no patch.
 
 ``time`` runs each TREE in a process of its own, in the order given (name
@@ -32,7 +42,10 @@ a tree twice to interleave), and prints one JSON line per tree: K4 at the
 server's chunk (B=16384, S=64 and 192) and at B=4096, S=192 on calibrated
 int8 tables of random weights (``chip_smoke``'s), CUDA events, median of
 20, with the errors against the plain version, and for ``prof`` the phase
-shares.
+shares.  With ``--hidden 512``: K4 on an 8x512 model's tables at B=16384
+and 4096, S=192 and at B=100, S=100 (median of 5), with a digest of its
+outputs (the same bits across trees), its weight bytes from L2 a launch
+(the int8 pack once a 64-row tile) and the rate that gives.
 """
 
 from __future__ import annotations
@@ -254,11 +267,48 @@ __shared__ long long g_sprof[8][8];
      "  if (lane < 8) atomicAdd(&g_prof[lane], (unsigned long long)g_sprof[warp][lane]);\n}"),
 ]
 
+_NOPIPE = [("constexpr bool kPipeQ = true;", "constexpr bool kPipeQ = false;")]
+_ENC1 = [("      encode_rows_split(m, ray, p.t_vals + s0, S, q0, valid, inv_x, wact, wxq);",
+          "      if (col_part<H>() == 0)\n"
+          "        encode_rows(m, ray, p.t_vals + s0, S, q0, valid, inv_x, wact, wxq);")]
+_KS32 = [("constexpr int kQKsSplit = 64;", "constexpr int kQKsSplit = 32;")]
+_FGLOBAL = [
+    ("  float* f = reinterpret_cast<float*>(ring.buf + p.stages * p.stage_bytes);  // the f32 rows\n"
+     "  int8_t* act = reinterpret_cast<int8_t*>(f) + m.f_bytes;                    // (rows, ldx)",
+     "  const float* f = p.f;  // the f32 rows, read through L1\n"
+     "  int8_t* act = reinterpret_cast<int8_t*>(ring.buf + p.stages * p.stage_bytes);"),
+    ("      mbar_expect_tx(fbar, static_cast<uint32_t>(m.f_bytes));\n"
+     "      bulk_g2s(f, p.f, static_cast<uint32_t>(m.f_bytes), fbar);\n"
+     "      RingPos rp;\n      for (int g = blockIdx.x;",
+     "      RingPos rp;\n      for (int g = blockIdx.x;"),
+    ("  mbar_wait(fbar, 0);  // the f32 rows are in shared memory\n\n"
+     "  const int wrow = row_warp<H>() * 16;  // this warp's rows of every tile\n"
+     "  int8_t* wact = act + wrow * ldx;\n  int8_t* wxq = xq + wrow * m.xyz_pad;\n"
+     "  const int dw = m.dir_pad >> 2;\n  RingPos rp;\n  for (int g",
+     "  const int wrow = row_warp<H>() * 16;  // this warp's rows of every tile\n"
+     "  int8_t* wact = act + wrow * ldx;\n  int8_t* wxq = xq + wrow * m.xyz_pad;\n"
+     "  const int dw = m.dir_pad >> 2;\n  RingPos rp;\n  for (int g"),
+    ("  const size_t rest = kQBarBytes + (size_t)p.m.f_bytes +",
+     "  const size_t rest = kQBarBytes + (hidden == 512 ? 0 : (size_t)p.m.f_bytes) +")]
+_DEQUANT_SPLIT = [(
+    "  return kMagic ? __fsub_rn(__int_as_float(acc + kRoundBits), kRound) : __int2float_rn(acc);",
+    "  if (kMagic) return __fsub_rn(__int_as_float(acc + kRoundBits), kRound);\n"
+    "  const float hi = __fsub_rn(__int_as_float((acc >> 12) + kRoundBits), kRound);\n"
+    "  const float lo = __fsub_rn(__int_as_float((acc & 0xfff) | 0x4B000000), 8388608.f);\n"
+    "  return __fadd_rn(__fmul_rn(hi, 4096.f), lo);")]
+
 VARIANTS = {
     "as_is": [], "pr7_noconv": _NOCONV, "pr7_smemw": _SMEMW, "pr7_both": _NOCONV + _SMEMW,
     "noepi": _NOEPI, "noenc": _NOENC, "bare": _BARE, "nocopy": _NOCOPY, "pipe": _PIPE,
     "split": _SPLIT,
     "prof": _PROF,
+    "nopipe": _NOPIPE, "oneray": [], "enc1": _ENC1, "dequant_split": _DEQUANT_SPLIT,
+    "ks32": _KS32, "fglobal": _FGLOBAL, "fglobal_ks32": _FGLOBAL + _KS32,
+}
+# Patches of ops/kernels/quant_render.py.
+PY_VARIANTS = {
+    "oneray": [("    return min(groups, sms) if hidden > 256 else groups",
+                "    return groups")],
 }
 
 
@@ -290,10 +340,18 @@ def prepare(src_root: str, out: str, variants: list[str]) -> None:
             text = patch_source(fh.read(), variant)
         with open(path, "w") as fh:
             fh.write(text)
+        path = os.path.join(dst, "nerf_keras_tpu_torch", "ops", "kernels", "quant_render.py")
+        for old, new in PY_VARIANTS.get(variant, []):
+            with open(path) as fh:
+                text = fh.read()
+            if text.count(old) != 1:
+                raise ValueError(f"{variant}: quant_render.py has no single {old[:60]!r}")
+            with open(path, "w") as fh:
+                fh.write(text.replace(old, new))
 
 
 _CHILD = r'''
-import ctypes, json, os, sys
+import ctypes, hashlib, json, math, os, sys
 sys.path.insert(0, os.getcwd())
 import torch
 from nerf_keras_tpu_torch.ops.kernels import _build, quant_render as k4
@@ -301,24 +359,41 @@ from nerf_keras_tpu_torch.ops.rays import get_rays, pose_spherical
 from nerf_keras_tpu_torch.ops.sampling import generate_t_vals
 from nerf_keras_tpu_torch.runtime import card_string, configure_numerics, cuda_ms
 import chip_smoke as cs
-phases = json.loads(sys.argv[1])
+phases, hidden = json.loads(sys.argv[1]), int(sys.argv[2])
 configure_numerics()
 lib = _build.load("quant_render_fwd")
 dev = torch.device("cuda")
-qp = cs._calibrated_qparams(cs.full_mlp(dev, 4), dev)
+mlp = cs.full_mlp(dev, 4) if hidden == 256 else cs._suite_mlp(dev, hidden, seed=526)
+qp = cs._calibrated_qparams(mlp, dev)
 o, d = get_rays(128, 128, 153.6, pose_spherical(30.0, -30.0, 4.0), device=dev)
 o, d = o.reshape(-1, 3).contiguous(), d.reshape(-1, 3).contiguous()
 gen = torch.Generator().manual_seed(4)
 out = {"tree": os.getcwd(), "card": card_string(),
        "ptxas": [ln.strip() for ln in _build.build_log.splitlines()
                  if ("registers" in ln or "spill" in ln) and "C7519" not in ln]}
-for b, s in ((16384, 64), (16384, 192), (4096, 192)):
+shapes = ((16384, 64), (16384, 192), (4096, 192)) if hidden == 256 else (
+    (16384, 192), (4096, 192), (100, 100))
+if hidden != 256:
+    pack = k4.kernel_pack(qp, dev)
+    out["pack_bytes"] = pack.w.numel()
+for b, s in shapes:
     t = generate_t_vals(2.0, 6.0, (b,), s, "stratified", generator=gen).to(dev).contiguous()
     ob, db = o[:b].contiguous(), d[:b].contiguous()
     run = lambda: k4.launch_k4(qp, ob, db, t, 10, 4, 4)
     got = run()
+    torch.cuda.synchronize()
+    h = hashlib.sha256()
+    for x in got:
+        h.update(x.cpu().numpy().tobytes())
+    out[f"digest_b{b}_s{s}"] = h.hexdigest()[:16]
     out[f"err_b{b}_s{s}"] = cs._errs(got, k4.render_rays_reference_quant(qp, ob, db, t))
-    out[f"ms_b{b}_s{s}"] = cuda_ms(run, reps=20)
+    del got
+    out[f"ms_b{b}_s{s}"] = cuda_ms(run, reps=20 if hidden == 256 else 5)
+    if hidden != 256:
+        r = 1 if s >= 640 else min(64 // math.gcd(s, 64), max(640 // s, 1))  # rays a group
+        gb = out["pack_bytes"] * -(-b // r) * -(-r * s // 64) / 1e9
+        out[f"l2_weight_gb_b{b}_s{s}"] = gb
+        out[f"l2_weight_tb_per_s_b{b}_s{s}"] = gb / out[f"ms_b{b}_s{s}"]
     if hasattr(lib, "nkt_k4_prof"):
         torch.cuda.synchronize()
         lib.nkt_k4_prof_reset()
@@ -331,10 +406,10 @@ print("K4VAR " + json.dumps(out), flush=True)
 '''
 
 
-def time_trees(trees: list[str]) -> int:
+def time_trees(trees: list[str], hidden: int = 256) -> int:
     failed = 0
     for tree in trees:
-        proc = subprocess.run([sys.executable, "-c", _CHILD, json.dumps(PHASES)],
+        proc = subprocess.run([sys.executable, "-c", _CHILD, json.dumps(PHASES), str(hidden)],
                               cwd=os.path.abspath(tree), capture_output=True, text=True,
                               timeout=900)
         lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("K4VAR ")]
@@ -354,12 +429,13 @@ def main() -> None:
     p.add_argument("out")
     p.add_argument("variants", nargs="+", choices=sorted(VARIANTS))
     t = sub.add_parser("time")
+    t.add_argument("--hidden", type=int, choices=(256, 512), default=256)
     t.add_argument("trees", nargs="+")
     args = parser.parse_args()
     if args.cmd == "prepare":
         prepare(args.src, args.out, args.variants)
     else:
-        sys.exit(1 if time_trees(args.trees) else 0)
+        sys.exit(1 if time_trees(args.trees, args.hidden) else 0)
 
 
 if __name__ == "__main__":

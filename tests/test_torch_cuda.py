@@ -13,6 +13,8 @@ accumulate in f32; summation order can flip a hidden activation's bf16
 rounding, so rgb/weights max |diff| <= TOL_MAX and mean |diff| <= TOL_MEAN.
 """
 
+import hashlib
+
 import k4_adversarial
 import numpy as np
 import pytest
@@ -35,6 +37,7 @@ from nerf_keras_tpu_torch.ops.kernels import pdf_union as k7
 from nerf_keras_tpu_torch.ops.kernels import quant_render as k4
 from nerf_keras_tpu_torch.ops import quant
 from nerf_keras_tpu_torch.ops.rays import pose_spherical
+from nerf_keras_tpu_torch.runtime import device_ms_by_kernel
 from nerf_keras_tpu_torch.utils.checkpoint import save_params_npz
 
 pytestmark = pytest.mark.cuda
@@ -1069,9 +1072,9 @@ def test_wide_k1_matches_plain(dev, hidden, b, s):
 @pytest.mark.parametrize("hidden", WIDE)
 @pytest.mark.parametrize("with_gw", [True, False])
 def test_wide_k2_matches_plain_vjp(dev, hidden, with_gw):
-    """K2 at 320 and 512 (its rows kernel on the split tile, dW in two
-    column tiles of the 512- and 528-wide layers) against autograd of the
-    plain K1, per leaf within K2_TOL_REL; K3 gives K2's bits."""
+    """K2 at 320 and 512 (its rows kernel on the split tile, dW in pairs of
+    tiles of 264-column windows, csrc/nerf_dw_pairs.cuh) against autograd
+    of the plain K1, per leaf within K2_TOL_REL; K3 gives K2's bits."""
     mlp = _wide_mlp(dev, hidden, seed=32)
     b, s = 333, 100
     o, d, t = _rays(dev, b, s, seed=5)
@@ -1113,6 +1116,84 @@ def test_wide_k2_chunks_and_determinism(dev, monkeypatch):
     got = _kernel_grads(mlp, o, d, t, g_rgb, g_w)
     for x, y in zip(got, one):
         assert _rel_l2(x, y) <= K2_TOL_REL
+
+
+@pytest.mark.parametrize("chunk_rays", [None, 81, 40])
+def test_wide_dw_pairs_match_plain_over_chunks(dev, monkeypatch, chunk_rays):
+    """The split tile's dW product (csrc/nerf_dw_pairs.cuh: pairs of tiles
+    in clusters of two blocks on a persistent grid) at 8 x 512, 257 rays of
+    100 samples: in one chunk, and in chunks of 81 and of 40 rays (4 and 7
+    chunks, the last ragged: each pair's sample ranges shift with the
+    chunk's stages), K2 against the plain VJP per leaf within K2_TOL_REL,
+    run twice the same bits, one mlp_dw_pair_kernel launch a chunk and no
+    mlp_dw_kernel (torch.profiler)."""
+    mlp = _wide_mlp(dev, 512, seed=36)
+    b, s = 257, 100
+    o, d, t = _rays(dev, b, s, seed=13)
+    gen = torch.Generator().manual_seed(14)
+    g_rgb = torch.randn((b, 3), generator=gen).to(dev)
+    g_w = torch.randn((b, s), generator=gen).to(dev)
+    per_sample = 19_840  # the workspace bytes of a sample at 8 x 512
+    if chunk_rays is not None:
+        rows = -(-chunk_rays * s // 128) * 128
+        monkeypatch.setattr(k1, "DW_CHUNK_BYTES", rows * per_sample)
+    plan = k1.chunk_plan(b, s, per_sample)
+    assert len(plan) == {None: 1, 81: 4, 40: 7}[chunk_rays]
+    with torch.no_grad():
+        _, _, x_res, preds = k1.launch_k1(mlp, o, d, t, 10, 4, train=True)
+        run = lambda: k1.launch_k2(mlp, x_res, d, t, preds, g_rgb, g_w, 10, 4)  # noqa: E731
+        got, again = run(), run()
+        torch.cuda.synchronize()
+        seen = device_ms_by_kernel(run, {"pairs": ("mlp_dw_pair_kernel",),
+                                         "tiles": ("mlp_dw_kernel",)}, tries=8,
+                                   launches={"pairs": len(plan), "tiles": 0})["launches"]
+    assert seen == {"pairs": len(plan), "tiles": 0}
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    want = k1.render_rays_reference_vjp(mlp, o, d, t, g_rgb, g_w)
+    for (name, _), a, c in zip(mlp.named_parameters(), got, want):
+        assert bool(torch.isfinite(a).all()), name
+        assert _rel_l2(a, c) <= K2_TOL_REL, (name, _rel_l2(a, c))
+
+
+def _to(tree, dev):
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dev)
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to(v, dev) for v in tree)
+    return tree
+
+
+def k4_wide_bits(dev, b, s):
+    """sha256 (16 hex digits) of K4's rgb and weights bytes at 8 x 512 on
+    tables calibrated on the CPU (the same on every machine) and (b, s)
+    rays."""
+    qp, o, d, t = _k4_setup(torch.device("cpu"), (8, 512, 4), b, s, seed=27)
+    rgb, w = k4.render_rays_fused_quant(_to(qp, dev), o.to(dev), d.to(dev),
+                                        t.to(dev).contiguous())
+    torch.cuda.synchronize()
+    h = hashlib.sha256()
+    for x in (rgb, w):
+        h.update(x.cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+# K4 at 8 x 512 before its persistent grid (a block per group of rays, each
+# stage's products waited on, the encode by warpgroup 0; the commit before
+# csrc/quant_render_fwd.cu's quant_render_wide_kernel): k4_wide_bits on
+# "NVIDIA H100 80GB HBM3", torch 2.11.0+cu128.  Integer sums: any order
+# gives these bits.
+K4_WIDE_BITS = {(1, 192): "42478615073b81e5", (100, 192): "5277a7a36cdd9656",
+                (257, 100): "1b149b59cb38fb4c", (1000, 24): "72b553f19fd92dbf"}
+
+
+@pytest.mark.parametrize("b,s", [(1, 192), (100, 192), (257, 100), (1000, 24)])
+def test_wide_k4_bits_equal_the_first_designs(dev, b, s):
+    """K4 at 8 x 512 on its persistent grid gives the bits of the design
+    before it (K4_WIDE_BITS): one ray, fewer rays than SMs, a ragged last
+    tile inside each ray (S = 100), several rays a group (S = 24)."""
+    assert k4_wide_bits(dev, b, s) == K4_WIDE_BITS[(b, s)]
 
 
 @pytest.mark.parametrize("kernel", ["k1", "k2", "k3", "k5", "k6"])

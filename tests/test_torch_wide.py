@@ -19,9 +19,18 @@ alone; weight stages 32 k deep), and widths 257-511 run zero-padded to it
   columns where the 64-deep stages' descriptor addresses them.
 * ``layer_maps`` at hp 512: sigma at head column 512, the skip layer's and
   the branch's encodings at 512, the rgb input 256 wide.
-* The dW product's column tiles (``csrc/nerf_dw.cuh``): a d_width above
-  272 is two tiles of d_width / 2 at offsets 0 and d_width / 2, each an
-  instantiated width, each a contiguous run of a workspace stage.
+* The dW product's tiles: on the 128-row tile (``csrc/nerf_dw.cuh``) a
+  layer's whole d_width, an instantiated width; on the split tile
+  (``csrc/nerf_dw_pairs.cuh``) windows of 264 D columns, each a contiguous
+  run of a workspace stage, whose written columns cover each layer once,
+  in pairs of tiles that share D (two row tiles of a window) or A (the two
+  windows of a row tile); the kernel's walk of ``dw_pairs`` x sample
+  ranges (a model of it, ``_dw_pair_walk``) covers every (layer, row,
+  column, sample stage) once, at the ``wide`` phase's chunks, ragged last
+  chunks and other grids, with no more items than clusters idle.
+* K4's persistent grid at hidden 512 (``quant_render.k4_grid`` and a model
+  of the kernel's walk, ``_k4_walk``): every
+  ray once, for B below, at and above the SM count.
 * The split tile's clusters of two blocks (``nerf_wgmlp.cuh``,
   "Clusters"): the rows kernel's grid (``fused_render.cluster_grid``) and
   a model of each block's walk (``walk_steps``): every tile once, both
@@ -355,35 +364,157 @@ DW_WIDTHS = (16, 32, 64, 80, 128, 144, 256, 264, 272)  # nerf_dw.cuh: dw_width_o
 
 @pytest.mark.parametrize("hidden", [256, 512])
 def test_dw_column_tiles(hidden):
-    """The dW product's plan (nerf_dw.cuh: dw_plan) at 8x256 and 8x512:
-    each layer's d_width as column tiles of instantiated widths covering
-    [0, d_width) once (two of d_width / 2 above 272); a tile's D columns
-    of a 64-row workspace stage are one contiguous run, in the tile's own
-    strip layout; its output rows at m * d_width + n0; the blocks
-    ``DwBuffers`` counts."""
+    """The dW product's tiles at 8x256 and 8x512: at 256 (nerf_dw.cuh:
+    dw_plan) one tile of each layer's d_width, an instantiated width, its
+    output rows at m * d_width; at 512 (nerf_dw_pairs.cuh) the windows of
+    ``dw_windows``: each 264 D columns from a strip boundary, one
+    contiguous run of a 64-row workspace stage, their written columns
+    covering [0, d_width) once, no window reading past the slack that
+    ``DwBuffers`` adds after the last layer."""
     mlp = _mlp(hidden, num_layers=8, skip=4, l_xyz=10, l_dir=4)
     layout = k1.workspace_layout(k1.pack_weights_wg(mlp, CPU), k1.pack_weights_bwd_wg(mlp, CPU))
-    blocks = split_layers = 0
-    for _, a_w, _, d_w, _ in layout:
-        n = d_w // 2 if d_w > k1.DW_MAX_N else d_w
-        tiles = [(n0, n) for n0 in range(0, d_w, n)]
-        assert n in DW_WIDTHS and sum(t[1] for t in tiles) == d_w
-        split_layers += len(tiles) == 2
-        blocks += -(-int(a_w) // 128) * len(tiles)
-        r = np.arange(128)[:, None]
-        for n0, width in tiles:
-            c = n0 + np.arange(width)[None, :]
-            stage = r // 64
-            start = stage * 64 * d_w + (n0 // 8) * 512
-            local = _store_ws_offset(r, c - n0, width) - (r // 64) * 64 * width
-            np.testing.assert_array_equal(_store_ws_offset(r, c, d_w), start + local)
-            m = np.arange(a_w)[:, None]
-            out = m * d_w + c
-            assert out.min() == n0 and out.max() == (a_w - 1) * d_w + n0 + width - 1
-    # The trunk and the merged head (512 and 528 wide) split at 8x512.
+    split_layers = 0
+    r = np.arange(64)[:, None]
+    for i, (_, a_w, d_col, d_w, _) in enumerate(layout.tolist()):
+        if hidden == 256:
+            assert d_w <= k1.DW_MAX_N and d_w in DW_WIDTHS
+            continue
+        wins = k1.dw_windows(d_w)
+        split_layers += len(wins) == 2
+        written = np.zeros(d_w, dtype=int)
+        for n0, lo, hi in wins:
+            assert n0 % 8 == 0 and lo % 8 == 0 and hi % 8 == 0 and 0 <= lo < hi <= k1.DW_PAIR_N
+            written[n0 + lo:n0 + hi] += 1
+            # The window's columns of a stage: strips n0/8.. of it, one run
+            # of DW_PAIR_N * 64 elements from (n0 / 8) * 512.
+            c = n0 + np.arange(k1.DW_PAIR_N)[None, :]
+            local = _store_ws_offset(r, c - n0, k1.DW_PAIR_N)
+            inside = c < d_w
+            np.testing.assert_array_equal(
+                np.where(inside, _store_ws_offset(r, c, d_w), -1),
+                np.where(inside, (n0 // 8) * 512 + local, -1))
+            end = (n0 // 8) * 512 + k1.DW_PAIR_N * 64  # elements past the stage's start
+            if i == len(layout) - 1:
+                assert end - 64 * d_w <= k1.DW_PAIR_N * 64
+        np.testing.assert_array_equal(written, 1)
+    # The trunk and the merged head (512 and 528 wide) take two windows at 8x512.
     assert split_layers == (9 if hidden == 512 else 0)
-    assert blocks == sum(-(-int(a) // 128) * (2 if d > k1.DW_MAX_N else 1)
-                         for _, a, _, d, _ in layout)
+
+
+def _pair_tiles(row):
+    return [tuple(row[1:6]), tuple(row[6:11])]
+
+
+@pytest.mark.parametrize("hidden", [320, 512])
+def test_dw_pairs_share_what_they_read(hidden):
+    """``dw_pairs`` at 8x512 (and 320, padded to it): every (layer, row
+    tile, window) in one pair; a pair sharing D has one window and two row
+    tiles, one sharing A one row tile and two windows; only a lone tile's
+    partner is empty; the pairs of a layer are consecutive."""
+    mlp = _mlp(hidden, num_layers=8, skip=4, l_xyz=10, l_dir=4)
+    layout = k1.workspace_layout(k1.pack_weights_wg(mlp, CPU), k1.pack_weights_bwd_wg(mlp, CPU))
+    pairs = k1.dw_pairs(layout)
+    want = {(li, m0, *w) for li, (_, a_w, _, d_w, _) in enumerate(layout.tolist())
+            for m0 in range(0, a_w, 128) for w in k1.dw_windows(d_w)}
+    got = [t for row in pairs for t in _pair_tiles(row) if t[0] >= 0]
+    assert sorted(got) == sorted(want) and len(got) == len(want)
+    for row in pairs:
+        (la, ma, na, *_), (lb, mb, nb, *_) = _pair_tiles(row)
+        if row[0] == k1.SHARE_D:
+            assert la == lb and na == nb and ma != mb
+        elif row[0] == k1.SHARE_A:
+            assert la == lb and ma == mb and na != nb
+        else:
+            assert row[0] == k1.SHARE_NONE and la >= 0
+    layers = [row[1] for row in pairs if row[0] != k1.SHARE_NONE]
+    assert layers == sorted(layers)
+    assert len(pairs) == 38 and int((pairs[:, 6] < 0).sum()) == 1
+    assert k1.dw_pair_splits(len(pairs), 66, 528) == 5
+
+
+def _dw_pair_walk(pairs: int, nsplit: int, nst: int, clusters: int):
+    """csrc/nerf_dw_pairs.cuh's walk of one chunk of ``nst`` stages on
+    ``clusters`` clusters (``min(items, clusters)`` launched: launch_dw_pairs):
+    for each cluster its items ``(pair, split, s0, s1)`` in order
+    (mlp_dw_pair_kernel, dw_pair_item)."""
+    items = pairs * nsplit
+    per = -(-nst // nsplit)
+    n = min(items, clusters)
+    walk = []
+    for c in range(n):
+        mine = []
+        for it in range(c, items, n):
+            k, pi = divmod(it, pairs)
+            s0 = min(nst, k * per)
+            mine.append((pi, k, s0, min(nst, s0 + per)))
+        walk.append(mine)
+    return walk
+
+
+@pytest.mark.parametrize("clusters", [66, 60, 13, 1])
+@pytest.mark.parametrize("nst", [528, 144, 37, 1])
+def test_dw_pair_walk_covers_every_product_once(nst, clusters):
+    """The pair kernel's walk at 8x512 (``_dw_pair_walk``): at the ``wide``
+    phase's first chunk (528 stages of 64 samples) and its ragged last
+    (144), and at other chunk sizes and grids, each (pair, split) is one
+    cluster's item, each pair's splits cover its stages [0, nst) once and
+    in order, each written dW entry comes from one tile; items are dealt
+    split-major (the clusters at work together read the same ranges), and
+    no cluster is launched without an item."""
+    mlp = _mlp(512, num_layers=8, skip=4, l_xyz=10, l_dir=4)
+    layout = k1.workspace_layout(k1.pack_weights_wg(mlp, CPU), k1.pack_weights_bwd_wg(mlp, CPU))
+    pairs = k1.dw_pairs(layout)
+    nsplit = k1.dw_pair_splits(len(pairs), clusters, 528)
+    walk = _dw_pair_walk(len(pairs), nsplit, nst, clusters)
+    assert 1 <= len(walk) <= clusters and all(walk)
+    items = [it for mine in walk for it in mine]
+    assert sorted((pi, k) for pi, k, _, _ in items) == [
+        (pi, k) for pi in range(len(pairs)) for k in range(nsplit)]
+    for c, mine in enumerate(walk):
+        assert [pi + k * len(pairs) for pi, k, _, _ in mine] == list(
+            range(c, len(pairs) * nsplit, len(walk)))
+    stages = np.zeros((len(pairs), nst), dtype=int)
+    for pi, k, s0, s1 in items:
+        stages[pi, s0:s1] += 1
+    np.testing.assert_array_equal(stages, 1)
+    out = np.zeros(int((layout[:, 1] * layout[:, 3]).sum()), dtype=int)
+    for row in pairs:
+        for li, m0, n0, lo, hi in _pair_tiles(row):
+            if li < 0:
+                continue
+            _, a_w, _, d_w, off = layout[li].tolist()
+            m = np.arange(m0, min(m0 + 128, a_w))[:, None]
+            c = n0 + np.arange(lo, hi)[None, :]
+            np.add.at(out, (off + m * d_w + c).ravel(), 1)
+    np.testing.assert_array_equal(out, 1)
+
+
+def _k4_walk(b: int, s: int, hidden: int, sms: int) -> list[list[range]]:
+    """For each of K4's blocks (``quant_render.k4_grid``), the rays of its
+    groups in order (csrc/quant_render_fwd.cu: quant_render_wide_kernel
+    strides over groups of ``rays_per_block`` rays by the grid)."""
+    r = k4.rays_per_block(s, 64 if hidden > 256 else 128)
+    groups, grid = -(-b // r), k4.k4_grid(b, s, hidden, sms)
+    return [[range(g * r, min(b, g * r + r)) for g in range(blk, groups, grid)]
+            for blk in range(grid)]
+
+
+@pytest.mark.parametrize("hidden", [256, 512])
+@pytest.mark.parametrize("b,s", [(1, 192), (7, 64), (131, 192), (132, 192), (133, 192),
+                                 (300, 100), (16384, 192), (16385, 64)])
+def test_k4_walk_covers_every_ray_once(hidden, b, s):
+    """K4's blocks (``_k4_walk``): at hidden 512 at most the
+    card's 132 SMs, each striding over groups of whole rays, below, at and
+    above the SM count; at 256 one group a block, as before.  Every ray
+    once, each group whole rays in order."""
+    walk = _k4_walk(b, s, hidden, 132)
+    groups = -(-b // k4.rays_per_block(s, 64 if hidden == 512 else 128))
+    assert len(walk) == (min(groups, 132) if hidden == 512 else groups)
+    assert len(walk) == k4.k4_grid(b, s, hidden, 132)
+    rays = [r for mine in walk for g in mine for r in g]
+    assert sorted(rays) == list(range(b))
+    if hidden == 256:
+        assert all(len(mine) == 1 for mine in walk)
 
 
 JAX_WIDE = [(h, 4, 2) for h in WIDE]
