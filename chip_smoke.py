@@ -331,10 +331,12 @@ nonzero — nothing falls back to the CPU or to a plain path):
     = 192 against their plain versions, with CUDA-event times, bounds and
     library yardsticks, for the kernels line's 8x512 entries (their
     launches are this phase's main path's); K2's dW product (the split
-    tile's pairs of tiles, ``csrc/nerf_dw_pairs.cuh``) by its device ms
-    in all and a chunk's launch beside its bound (the workspace read once,
-    or its products) and one ``torch.matmul`` of A^T D a layer, with a
-    plan missing a pair of tiles that must miss K2's gate by 10x; K4 on
+    tile's windows, ``csrc/nerf_dw.cuh``: ``mlp_dw_window_kernel``) by its
+    device ms in all and a chunk's launch beside its bound (the workspace
+    read once, or its products) and one ``torch.matmul`` of A^T D a layer,
+    with a plan missing layer 0's tiles that must miss K2's gate by 10x;
+    K1, K2 and K5 on one ray of 64 samples of the phase's trained model;
+    K4 on
     tables with the skip layer's x_enc rows zeroed must miss its gates by
     10x;
 27. ``f32``: COMPUTE_DTYPE=float32 at ``lego_batch_h256_tpu``'s widths:
@@ -659,8 +661,8 @@ def k2_bound(mlp, b, s):
 
 
 def dw_bound(mlp, dev, n):
-    """The dW product of a backward over ``n`` samples (csrc/nerf_dw.cuh,
-    nerf_dw_pairs.cuh): A^T D of every layer at its padded widths, at the
+    """The dW product of a backward over ``n`` samples (csrc/nerf_dw.cuh):
+    A^T D of every layer at its padded widths, at the
     bf16 peak; or its bytes: the workspace (each sample's bf16 A and D)
     read once and the f32 dW written once."""
     fwd, bwd = k1.kernel_pack(mlp, dev), k1.kernel_pack_bwd(mlp, dev)
@@ -670,13 +672,13 @@ def dw_bound(mlp, dev, n):
 
 
 def _broken_dw_allocate(orig):
-    """``DwBuffers.allocate`` whose split-tile dW plan lacks its first pair
-    (layer 0's weight gradient, left at zero): a dW product that misses a
+    """``DwBuffers.allocate`` whose split-tile dW plan lacks layer 0's
+    tiles (its weight gradient left at zero): a dW product that misses a
     tile must miss K2's gate by 10x."""
     def allocate(*args, **kw):
         ws = orig(*args, **kw)
         ws.dw_part.zero_()
-        return ws._replace(pairs=np.ascontiguousarray(ws.pairs[1:]))
+        return ws._replace(tiles=np.ascontiguousarray(ws.tiles[ws.tiles[:, 0] != 0]))
     return allocate
 
 
@@ -947,7 +949,7 @@ def phase_k2(card: str) -> dict:
 
 # K2's kernels, by the names the profiler reports.
 K2_STAGES = {"vjp": ("composite_vjp_kernel",), "rows": ("k2_rows_kernel",),
-             "dw": ("mlp_dw_kernel", "mlp_dw_pair_kernel"), "reduce": ("mlp_reduce_kernel",)}
+             "dw": ("mlp_dw_kernel", "mlp_dw_window_kernel"), "reduce": ("mlp_reduce_kernel",)}
 # Workspace budgets of K2's chunks (bytes): the default, and two that force
 # several chunks with a ragged last one; the smallest keeps a chunk's A/D
 # (~40 MB at 10,112 B per sample) inside the 50 MB L2 between the rows
@@ -4575,7 +4577,7 @@ def wide_config() -> NeRFConfig:
     return dataclasses.replace(load_config(CONFIG), hidden_dim=WIDE_HIDDEN)
 
 
-def _wide_kernels(card: str, mlp: NeRFMLP, qp: dict, init: NeRFMLP) -> dict:
+def _wide_kernels(card: str, mlp: NeRFMLP, qp: dict) -> dict:
     """K1, K1 in training mode and K2 at B = 4096, S = 192 (the parity
     step's fine pass) and K4 at B = 16384, S = 192 (the server's chunk) on
     the 8x512 model: each against its plain version, CUDA-event times,
@@ -4584,11 +4586,7 @@ def _wide_kernels(card: str, mlp: NeRFMLP, qp: dict, init: NeRFMLP) -> dict:
     the dW product's beside its bound and library call; K2 and K5's
     backward (N = 786,432) twice on the same inputs, the same bits (the
     clusters' bias sums in a fixed order); K1, K2 and K5 on one ray of 64
-    samples, one 64-row tile: fewer than a cluster's two blocks, on the
-    phase's model before its training steps (``init``: weights that do not
-    depend on the kernels under test; the trained ones carry every K2
-    rounding of the steps, and 64 samples' bf16 gradients move by a few
-    percent with them: PERF.md)."""
+    samples, one 64-row tile: fewer than a cluster's two blocks."""
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(11)
     _, o, d = (torch.as_tensor(x, device=dev) for x in bench_batch(4096, seed=3))
@@ -4665,7 +4663,7 @@ def _wide_kernels(card: str, mlp: NeRFMLP, qp: dict, init: NeRFMLP) -> dict:
         k1.kernel_pack(mlp, dev).desc, b * s, torch.bfloat16, dev)
     out["k2"]["library_ms"] = out["dw"]["library_ms"] = _dw_library_ms(mlp, dev, b * s)
     out["k2"]["bwd_library_ms"] = _bf16_backward_library_ms(mlp, dev, b * s)
-    one_tile = _run_suite(init, _suite_inputs(init, 1, 64, seed=13),
+    one_tile = _run_suite(mlp, _suite_inputs(mlp, 1, 64, seed=13),
                           ("k1", "k1_train", "k2", "k5_fwd", "k5_bwd"), reps=1)
     one_bad = [n for n, e in one_tile.items() if not (e["finite"] and _bf16_gate_ok(n, e))]
     # K4 at the server's chunk: 16384 rays of a 128x128 pose.
@@ -4718,7 +4716,6 @@ def phase_wide(card: str, tmp: str) -> tuple[list[dict], dict]:
     trainer = Trainer(cfg, 2.0, 6.0, device="cuda")
     for m in trainer.params.values():
         randomize_biases_(m, torch.Generator().manual_seed(5))
-    init = copy.deepcopy(trainer.params["fine"])
     batch = trainer.put_batch(bench_batch(cfg.batch_size))
     torch.cuda.reset_peak_memory_stats()
     losses, by_model, max_abs, _ = _grads_kernel_vs_plain(
@@ -4785,7 +4782,7 @@ def phase_wide(card: str, tmp: str) -> tuple[list[dict], dict]:
         raise RuntimeError(f"wide: the served frame launched {launches[-1]}")
     del service, batch
     torch.cuda.empty_cache()
-    kernels = _wide_kernels(card, mlp, qp, init)
+    kernels = _wide_kernels(card, mlp, qp)
     del trainer
     torch.cuda.empty_cache()
     return launches, kernels

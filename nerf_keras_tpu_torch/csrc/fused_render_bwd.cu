@@ -76,9 +76,8 @@
 //      both operands MN-major in shared memory, stages of 64 samples
 //      brought by bulk copies, split over sample ranges; each block adds
 //      its partial tile into its slab (chunks in order: deterministic).
-//      At hidden 512, mlp_dw_pair_kernel (nerf_dw_pairs.cuh): the same
-//      product on a persistent grid of two-block clusters that share an
-//      operand's stages by TMA multicast.
+//      At hidden 512, mlp_dw_window_kernel (nerf_dw.cuh): the same
+//      product and sums over windows of 264 D columns.
 //   4. mlp_reduce_kernel (nerf_dw.cuh), once after the last chunk: sums
 //      the dW slabs and the per-block bias rows in a fixed order.
 // Orientation: the forward pack is W^T (row = output column); the dX
@@ -135,7 +134,6 @@
 //     own rows of the activation tile, row by row in order.
 
 #include "nerf_dw.cuh"
-#include "nerf_dw_pairs.cuh"
 #include "nerf_wgmlp.cuh"
 
 using namespace nkt;
@@ -327,13 +325,13 @@ void (*pick_rows(int mode, bool ig, int kxc, int kdc))(const RowParams) {
 // at 512).  The batch runs in chunks of `chunk_rays` whole rays, in order;
 // buffers (allocated by the caller): dpreds (B*S x 4) f32, written by the
 // VJP (read, for K5); ws_a (rows_pad x sum a_width) and ws_d (rows_pad x
-// sum d_width, at hidden 512 with kDwPairN x 64 elements more at its end)
+// sum d_width, at hidden 512 with kDwWinN x 64 elements more at its end)
 // bf16 for one chunk, rows_pad >= round_up(chunk_rays * S, 128); db_part (grid x total_b, at hidden 512 2 x grid x total_b) and
 // dw_part (nsplit x total_out) f32, where grid <= the first chunk's tiles
 // (at hidden 512 rounded up to a cluster; the launch lowers it to the
-// clusters that fit on the card).  At hidden 512 `dw_pairs` is the dW
-// product's host array of `n_pairs` pairs of tiles (nerf_dw_pairs.cuh:
-// dw_pair_plan), else null.  Outputs dw (total_out)
+// clusters that fit on the card).  At hidden 512 `dw_tiles` is the dW
+// product's host array of `n_tiles` window tiles (nerf_dw.cuh:
+// dw_win_plan), else null.  Outputs dw (total_out)
 // and db (total_b) f32.  Launches on `stream`, returns the first CUDA
 // error (0 on success); does not synchronise.
 extern "C" int nkt_fused_render_bwd(
@@ -343,7 +341,7 @@ extern "C" int nkt_fused_render_bwd(
     const void* desc_bwd, const void* desc_ws, int n_dense, int num_layers, int skip_layer,
     int hidden, int l_xyz, int l_dir, int B, int S, int chunk_rays, int total_b,
     int total_out, void* dpreds, void* ws_a, void* ws_d, void* db_part, int grid,
-    void* dw_part, int nsplit, const void* dw_pairs, int n_pairs, void* dw_out, void* db_out,
+    void* dw_part, int nsplit, const void* dw_tiles, int n_tiles, void* dw_out, void* db_out,
     void* dx_out, void* dd_out, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -432,23 +430,17 @@ extern "C" int nkt_fused_render_bwd(
     if (grid < kCluster) return (int)cudaErrorInvalidClusterSize;
   }
 
-  // The dW product: nerf_dw.cuh's on the 128-row tile, the host's pairs
-  // of tiles in clusters on the split tile (nerf_dw_pairs.cuh).
+  // The dW product (nerf_dw.cuh): a layer's whole d_width on the 128-row
+  // tile, the host's windows on the split tile.
   DwPlan dw;
-  DwPairPlan dwp;
-  int dw_clusters = 0;
-  if (split) {
-    if (dw_pairs == nullptr ||
-        !dw_pair_plan(dwp, mb, n_dense, rows_pad, total_out, nsplit, static_cast<float*>(dw_part),
-                      static_cast<const int*>(dw_pairs), n_pairs))
-      return (int)cudaErrorInvalidValue;
-    err = dw_pair_clusters(&dw_clusters);
-    if (err != cudaSuccess) return (int)err;
-    if (dw_clusters < 1) return (int)cudaErrorInvalidClusterSize;
-  } else if (dw_pairs != nullptr ||
-             !dw_plan(dw, mb, n_dense, rows_pad, total_out, nsplit, static_cast<float*>(dw_part))) {
+  DwWinPlan dww;
+  if (split ? dw_tiles == nullptr ||
+                  !dw_win_plan(dww, mb, n_dense, rows_pad, total_out, nsplit,
+                               static_cast<float*>(dw_part), static_cast<const int*>(dw_tiles),
+                               n_tiles)
+            : dw_tiles != nullptr || !dw_plan(dw, mb, n_dense, rows_pad, total_out, nsplit,
+                                              static_cast<float*>(dw_part)))
     return (int)cudaErrorInvalidValue;
-  }
   for (int r0 = 0, chunk = 0; r0 < B; r0 += chunk_rays, ++chunk) {
     const int nr = B - r0 < chunk_rays ? B - r0 : chunk_rays;
     p.n0 = (long long)r0 * S;
@@ -463,7 +455,7 @@ extern "C" int nkt_fused_render_bwd(
     }
     if (err != cudaSuccess) return (int)err;
     const int nst = p.ntiles * (rows / kDwRows);
-    err = split ? launch_dw_pairs(dwp, nst, chunk > 0, dw_clusters, st)
+    err = split ? launch_dw_windows(dww, nst, chunk > 0, st)
                 : launch_dw(dw, nst, chunk > 0, st);
     if (err != cudaSuccess) return (int)err;
   }

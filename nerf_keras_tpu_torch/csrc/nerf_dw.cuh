@@ -12,19 +12,33 @@
 //
 // A block computes a 128 x n tile of one layer's dW (two consumer
 // warpgroups of 64 rows, n columns in registers) over a range of sample
-// stages: n is the whole d_width, up to 272 (kDwMaxN; the split tile's
-// wider layers go through nerf_dw_pairs.cuh).  A producer warp keeps a
-// ring of 4 stages (the block's 128 columns of A and its n columns of D
-// for 64 samples, <= 51,200 B each) in flight.  Each block writes (or, for
-// a later chunk, adds) its partial tile to its own slab; mlp_reduce_kernel
-// (also the split tile's) sums the slabs and the per-block bias rows in a
-// fixed order.  No atomics: the same sums in the same order on every run
+// stages: n is the whole d_width, up to 272 (kDwMaxN).  A producer warp
+// keeps a ring of 4 stages (the block's 128 columns of A and its n columns
+// of D for 64 samples, <= 51,200 B each) in flight.  Each block writes
+// (or, for a later chunk, adds) its partial tile to its own slab;
+// mlp_reduce_kernel sums the slabs and the per-block bias rows in a fixed
+// order.  No atomics: the same sums in the same order on every run
 // (deterministic).
 //
 // What bounds it: the workspace bytes it reads (A once, D once for each
 // 128-row tile of a layer: ~15 KB a sample at 8x256), far below the
 // products' time; on an H100 it takes what one torch.matmul per layer
 // takes for the same A^T D (PERF.md).
+//
+// The split tile's widths (hidden 512: d_width 512 and 528) run
+// mlp_dw_window_kernel: the same block, ring and sums over a window of
+// kDwWinN = 264 D columns, one instantiation (a __global__ switching over
+// product widths makes ptxas serialize wgmma, C7518), and an epilogue that
+// adds the tile into its slab from a copy in shared memory: once the
+// consumers release the ring, the producer brings the tile's slab entries
+// into it by bulk copies, a row each.  A d_width
+// above kDwWinN is the windows at 0 and d_width - 264, each writing its
+// half (at 512 the first window's columns 248..255 are computed twice and
+// written once); a window past a layer's last column reads the next
+// layer's D (or the workspace's slack of kDwWinN x 64 elements) and drops
+// it.  The host lists the tiles (ops/kernels/fused_render.py: dw_tiles) and
+// picks the sample ranges as for the 128-row tile: each element's sums are
+// the 128-row design's, in the same order.
 
 #pragma once
 
@@ -170,6 +184,146 @@ __global__ void __launch_bounds__(kDwThreads, 1)
   }
 }
 
+// ---------------------------------------------------------------------------
+// The split tile's windows.
+
+constexpr int kDwWinN = 264;
+constexpr int kDwWinStage = kDwABytes + kDwWinN * kDwRows * 2;  // 50,176 B
+constexpr int kDwWinSmem = 128 + kDwStages * kDwWinStage;
+constexpr int kDwMaxTiles = 128;
+constexpr int kDwSlabLd = kDwWinN + 8;  // floats a row of the slab's copy in the ring
+static_assert(kDwM * kDwSlabLd * 4 <= kDwStages * kDwWinStage, "the slab's copy fits the ring");
+
+// A tile in two words: layer | m0 << 8, and n0 | c_lo << 11 | c_hi << 21
+// (window columns [c_lo, c_hi) are written).
+struct DwWinPlan {
+  const __nv_bfloat16* ws_a;
+  const __nv_bfloat16* ws_d;
+  float* part;  // (nsplit, total_out)
+  int rows_pad, total_out, ntiles, nsplit;
+  int nst, per_split, accumulate;  // set per launch
+  Bwd L[kMaxDense];
+  int tile[kDwMaxTiles][2];
+};
+
+__global__ void __launch_bounds__(kDwThreads, 1)
+    mlp_dw_window_kernel(const __grid_constant__ DwWinPlan p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + kDwStages;
+  uint64_t* slab_full = empty + kDwStages;
+  unsigned char* buf = smem + 128;
+  float* slab = reinterpret_cast<float*>(buf);  // the ring, once its stages are consumed
+  const int w0 = p.tile[blockIdx.x][0], w1 = p.tile[blockIdx.x][1];
+  const Bwd& Ly = p.L[w0 & 0xff];
+  const int m0 = w0 >> 8, n0 = w1 & 0x7ff, c_lo = (w1 >> 11) & 0x3ff, c_hi = (w1 >> 21) & 0x3ff;
+  const int a_rows = min(kDwM, Ly.a_width - m0);
+  const int s0 = min(p.nst, (int)blockIdx.y * p.per_split);
+  const int s1 = min(p.nst, s0 + p.per_split);
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    for (int i = 0; i < kDwStages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 8);
+    }
+    mbar_init(slab_full, 1);
+    fence_mbar_init();
+  }
+  __syncthreads();
+  float* out = p.part + (size_t)blockIdx.y * p.total_out + Ly.out_off +
+               (size_t)m0 * Ly.d_width + n0;  // the tile's row 0 in its slab
+
+  if (tid >= 256) {  // the producer warp
+    if (tid == 256) {
+      const uint32_t a_bytes = a_rows * kDwRows * 2, d_bytes = kDwWinN * kDwRows * 2;
+      const __nv_bfloat16* A = p.ws_a + (size_t)p.rows_pad * Ly.a_col + (m0 / 8) * 512;
+      const __nv_bfloat16* D = p.ws_d + (size_t)p.rows_pad * Ly.d_col + (n0 / 8) * 512;
+      int st = 0;
+      uint32_t ph = 0;
+      for (int s = s0; s < s1; ++s) {
+        mbar_wait(&empty[st], ph ^ 1u);
+        mbar_expect_tx(&full[st], a_bytes + d_bytes);
+        unsigned char* dst = buf + (size_t)st * kDwWinStage;
+        bulk_g2s(dst, A + (size_t)s * kDwRows * Ly.a_width, a_bytes, &full[st]);
+        bulk_g2s(dst + kDwABytes, D + (size_t)s * kDwRows * Ly.d_width, d_bytes, &full[st]);
+        if (++st == kDwStages) {
+          st = 0;
+          ph ^= 1u;
+        }
+      }
+      if (p.accumulate) {  // every stage released: the slab's rows into the ring
+        for (int i = 0; i < kDwStages; ++i) {
+          mbar_wait(&empty[st], ph ^ 1u);
+          if (++st == kDwStages) {
+            st = 0;
+            ph ^= 1u;
+          }
+        }
+        const uint32_t row_bytes = (c_hi - c_lo) * 4;
+        mbar_expect_tx(slab_full, a_rows * row_bytes);
+        for (int r = 0; r < a_rows; ++r)
+          bulk_g2s(slab + r * kDwSlabLd, out + (size_t)r * Ly.d_width + c_lo, row_bytes, slab_full);
+      }
+    }
+    return;
+  }
+
+  // Warpgroup wg computes rows 64 wg.. of the tile and every window
+  // column, whatever the stage holds there (rows past a_rows and columns
+  // past c_hi are computed and not written): one wgmma path, no branch.
+  const int wg = tid >> 7, warp = tid >> 5, lane = tid & 31;
+  float acc[kDwWinN / 2];
+#pragma unroll
+  for (int i = 0; i < kDwWinN / 2; ++i) acc[i] = 0.f;
+  int st = 0, prev = -1;
+  uint32_t ph = 0;
+  for (int s = s0; s < s1; ++s) {
+    mbar_wait(&full[st], ph);
+    const uint32_t sa = smem_u32(buf + (size_t)st * kDwWinStage) + wg * 8 * 1024;
+    const uint32_t sd = smem_u32(buf + (size_t)st * kDwWinStage + kDwABytes);
+    acc_fence<kDwWinN / 2>(acc);
+    wg_fence();
+#pragma unroll
+    for (int q = 0; q < kDwRows / 16; ++q)
+      mma_ss_t<kDwWinN>(acc, smem_desc(sa + q * 256, 128, 1024),
+                        smem_desc(sd + q * 256, 128, 1024), 1024, 1);
+    wg_commit();
+    wg_wait<1>();  // the previous stage's products are done
+    acc_fence<kDwWinN / 2>(acc);
+    if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
+    prev = st;
+    if (++st == kDwStages) {
+      st = 0;
+      ph ^= 1u;
+    }
+  }
+  wg_wait<0>();
+  acc_fence<kDwWinN / 2>(acc);
+  if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
+  // The tile into its slab: written, or (a later chunk) added to the
+  // slab's copy in the ring, slab + tile, as nerf_dw.cuh's first design.
+  const int g = lane >> 2, t = lane & 3;
+  if (p.accumulate) mbar_wait(slab_full, 0);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = 64 * wg + 16 * (warp & 3) + g + 8 * half;
+    if (r >= a_rows) continue;
+    float* row = out + (size_t)r * Ly.d_width + 2 * t;
+    const float* old = slab + r * kDwSlabLd + 2 * t - c_lo;
+#pragma unroll
+    for (int j = 0; j < kDwWinN / 8; ++j) {
+      if (8 * j < c_lo || 8 * j >= c_hi) continue;
+      float2 v = make_float2(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+      if (p.accumulate) {
+        const float2 w = *reinterpret_cast<const float2*>(old + 8 * j);
+        v = make_float2(w.x + v.x, w.y + v.y);
+      }
+      *reinterpret_cast<float2*>(row + 8 * j) = v;
+    }
+  }
+}
+
 // dw[i] = sum_s part[s][i]; db[i] = sum_blk db_part[blk][i]; fixed order.
 __global__ void mlp_reduce_kernel(const float* part, int nsplit, int total_out, float* dw,
                                   const float* db_part, int nblk, int total_b, float* db) {
@@ -230,6 +384,50 @@ inline cudaError_t launch_dw(DwPlan& q, int nst, bool accumulate, cudaStream_t s
       cudaFuncSetAttribute(mlp_dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   mlp_dw_kernel<<<dim3(q.tiles, q.nsplit), kDwThreads, smem, st>>>(q);
+  return cudaGetLastError();
+}
+
+// Host side: the split tile's plan from the workspace layout (mb.bwd) and
+// the host's tiles (n_tiles x 5 ints: layer, m0, n0, c_lo, c_hi).  False
+// when a tile is out of what the kernel takes.
+inline bool dw_win_plan(DwWinPlan& q, const MlpBwdParams& mb, int n_dense, int rows_pad,
+                        int total_out, int nsplit, float* dw_part, const int* tiles,
+                        int n_tiles) {
+  if (n_tiles < 1 || n_tiles > kDwMaxTiles || nsplit < 1 || n_dense > kMaxDense) return false;
+  q.ws_a = mb.ws_a;
+  q.ws_d = mb.ws_d;
+  q.part = dw_part;
+  q.rows_pad = rows_pad;
+  q.total_out = total_out;
+  q.ntiles = n_tiles;
+  q.nsplit = nsplit;
+  for (int i = 0; i < n_dense; ++i) {
+    q.L[i] = mb.bwd[i];
+    if (q.L[i].a_width % 16 != 0 || q.L[i].a_width <= 0 || q.L[i].d_width % 8 != 0) return false;
+  }
+  for (int i = 0; i < n_tiles; ++i) {
+    const int* r = tiles + 5 * i;
+    const int l = r[0], m0 = r[1], n0 = r[2], lo = r[3], hi = r[4];
+    if (l < 0 || l >= n_dense || m0 < 0 || m0 % kDwM != 0 || m0 >= q.L[l].a_width ||
+        n0 < 0 || n0 % 8 != 0 || lo < 0 || lo % 8 != 0 || hi <= lo || hi % 8 != 0 ||
+        hi > kDwWinN || n0 + hi > q.L[l].d_width)
+      return false;
+    q.tile[i][0] = l | (m0 << 8);
+    q.tile[i][1] = n0 | (lo << 11) | (hi << 21);
+  }
+  return true;
+}
+
+// One pass of the windows over the first `nst` stages of the workspaces;
+// `accumulate` adds into the slabs instead of writing them.
+inline cudaError_t launch_dw_windows(DwWinPlan& q, int nst, bool accumulate, cudaStream_t st) {
+  q.nst = nst;
+  q.per_split = (nst + q.nsplit - 1) / q.nsplit;
+  q.accumulate = accumulate ? 1 : 0;
+  cudaError_t err = cudaFuncSetAttribute(mlp_dw_window_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kDwWinSmem);
+  if (err != cudaSuccess) return err;
+  mlp_dw_window_kernel<<<dim3(q.ntiles, q.nsplit), kDwThreads, kDwWinSmem, st>>>(q);
   return cudaGetLastError();
 }
 

@@ -217,10 +217,6 @@ __device__ __forceinline__ void q_product(int* acc, const int8_t* act, int ldx, 
   }
 }
 
-// Whether the split tile keeps wgmma groups in flight across stages
-// (q_product_pipe; PERF.md).
-constexpr bool kPipeQ = true;
-
 // The A fragments of the stage of k [k0, k0 + KQ) (fewer k32 steps where
 // k_pad ends first).
 template <int KQ>
@@ -288,7 +284,8 @@ __device__ __forceinline__ void q_product_pipe(int* acc, const int8_t* act, int 
 
 // The warp's share of an N-wide layer's product on H's tile (as the bf16
 // layer_product, nerf_wgmlp.cuh): all N columns, or its warpgroup's
-// SplitProduct (groups in flight with kPipeQ), then split_sync.
+// SplitProduct with its groups in flight across stages (q_product_pipe),
+// then split_sync.
 template <int H, int N>
 __device__ __forceinline__ void q_layer_product(int* acc, const int8_t* act, int ldx, int k_pad,
                                                 const WRing& r, RingPos& c) {
@@ -298,10 +295,7 @@ __device__ __forceinline__ void q_layer_product(int* acc, const int8_t* act, int
   } else {
     using P = SplitProduct<N>;
     const int n0 = col_part<H>() ? P::n0_hi : 0;
-    if constexpr (kPipeQ)
-      q_product_pipe<P::width, KQ>(acc, act, ldx, k_pad, r, c, N, n0);
-    else
-      q_product<P::width, KQ>(acc, act, ldx, k_pad, r, c, N, n0);
+    q_product_pipe<P::width, KQ>(acc, act, ldx, k_pad, r, c, N, n0);
     split_sync<H>();
   }
 }
@@ -524,6 +518,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     quant_render_fwd_kernel(const __grid_constant__ Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
   using T = WgTile<H>;
+  static_assert(!T::kSplit, "the split tile runs quant_render_wide_kernel");
   constexpr int kRows = T::kRows;
   const QDims& m = p.m;
   const int tid = threadIdx.x;
@@ -602,8 +597,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   for (int tile = 0; tile < ntiles; ++tile) {
     const int q0 = tile * kRows + wrow;  // block sample of the warp's row 0
     const int valid = min(16, P - q0);   // may be <= 0 on the last tile
-    if (col_part<H>() == 0) encode_rows(m, ray, p.t_vals + s0, S, q0, valid, inv_x, wact, wxq);
-    split_sync<H>();
+    encode_rows(m, ray, p.t_vals + s0, S, q0, valid, inv_x, wact, wxq);
     auto dir4 = [&](int row, int c) -> uint32_t {
       return reinterpret_cast<const uint32_t*>(dq)[((q0 + row) / S) * dw + c];
     };
@@ -829,16 +823,16 @@ bool qdims_init(QDims& m, const int* desc, int n_dense, int num_layers, int skip
 // f_off) in the order trunk[0..num_layers), merged feature+sigma head,
 // branch, rgb; `x_off` and `d_off` locate the inv_x and inv_d rows (padded
 // to 32 with zeros) at the end of the f32 pack.  hidden is 32, 64, 128,
-// 256 or 512.  `grid`: the blocks, one per group of rays (wg_rays_per_block),
-// and at hidden 512 at most that many (quant_render.py: k4_grid).  Launches
-// on `stream` and returns cudaGetLastError() (0 on success); does not
+// 256 or 512.  A block per group of rays (wg_rays_per_block); at hidden 512
+// at most one block an SM, each striding over the groups.  Launches on
+// `stream` and returns cudaGetLastError() (0 on success); does not
 // synchronise and allocates nothing.
 extern "C" int nkt_quant_render_fwd(const void* origins, const void* dirs, const void* t_vals,
                                     const void* w_pack, const void* f_pack,
                                     const void* dense_desc, int n_dense, int num_layers,
                                     int skip_layer, int hidden, int l_xyz, int l_dir, int x_off,
                                     int d_off, int B, int S, void* rgb_out, void* w_out,
-                                    int grid, int device, void* stream) {
+                                    int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   Params p;
@@ -873,11 +867,14 @@ extern "C" int nkt_quant_render_fwd(const void* origins, const void* dirs, const
                                                  : quant_render_wide_kernel;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  // A block per group of R rays; at hidden 512 `grid` blocks (at most one
-  // a group) that stride over the groups.
-  const int groups = (B + p.R - 1) / p.R;
-  if (hidden == 512 ? (grid < 1 || grid > groups) : grid != groups)
-    return (int)cudaErrorInvalidValue;
+  // A block per group of R rays; at hidden 512 no more blocks than SMs.
+  int grid = (B + p.R - 1) / p.R;
+  if (hidden == 512) {
+    int sms = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return (int)err;
+    if (sms < grid) grid = sms;
+  }
   kernel<<<grid, kWgThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
 }

@@ -7,20 +7,14 @@
 ``chip_smoke.py``, ``config``) into ``OUT/<variant>`` for each
 variant and applies the variant's text patches.  Make OUT a directory that
 ``.gitignore`` lists (``_archive/``).  Each variant answers one question
-about the dW product of K2's backward at 8x512; the ablations compute
-wrong values on purpose:
+about the dW product of K2's backward at 8x512 (``nerf_dw.cuh``'s
+``mlp_dw_window_kernel``: one block a window tile of a layer and a range
+of samples); the ablations compute wrong values on purpose:
 
-* on ``nerf_dw.cuh``'s kernel (one block a column tile of a layer and a
-  range of samples, 300 blocks a chunk; a checkout from before
-  ``nerf_dw_pairs.cuh``): ``reuse`` (each ring slot filled once, then
-  reused: no workspace read after a block's first stages) and ``noslab``
-  (no partial tile written or added into its slab; on the pair kernel
-  also no slab read at an item's start);
-* on ``nerf_dw_pairs.cuh``'s kernel (pairs of tiles in clusters of two
-  blocks on a persistent grid): ``pair_reuse`` and ``pair_noslab`` as
-  above, ``pair_nomulticast`` (every pair shares nothing: each block
-  brings its own A and D) and ``pair_oneitem`` (a cluster for every item
-  of the work list, not a persistent grid);
+* ``reuse``: each ring slot filled once, then reused: no workspace read
+  after a block's first stages;
+* ``noslab``: no partial tile loaded from, added into or written to its
+  slab;
 * ``as_is``: no patch.
 
 ``time`` builds every TREE's K1/K2 sources at once, then runs each tree in
@@ -29,20 +23,10 @@ interleave), and prints one JSON line per tree: K2 on ``chip_smoke``'s
 8x512 suite model at B=4096, S=192 (CUDA events, median of 5), its device
 ms per kernel (the dW product's in all and per chunk's launch), the dW
 launch's blocks and waves, the workspace bytes an SM reads from L2 a
-sample and a K2 (from the plan), a digest of K2's gradients, and the
-float64 yardstick at 3 x 100 and 41 x 100 samples: each leaf's relative L2
-of the kernel's and of the plain bf16 path's gradients to the plain bf16
-path with its weight-gradient sums in float64 (no bf16 rounding of them;
-and again with each layer's dPre rounded to bf16 first, as the JAX
-kernel's dW product takes it), the elements in which K1's bf16 encodings
-differ from the plain path's, and the same comparison in K6's form (the
-kernel's backward and the plain one fed K1's encodings, no weights
-cotangent): whether the distance comes from the encodings or the MLP;
-and both bf16 paths against ``chip_smoke._f64_yardstick`` itself (the
-same weights as a float32 MLP, its parameter-gradient sums and
-compositing in float64);
-before them, one line per tree of its dW kernels' ``-Xptxas -v`` report
-and ptxas's ``wgmma`` notes.
+sample and a K2 (from the plan) and a digest of K2's gradients; before
+them, one line per tree of its dW kernels' ``-Xptxas -v`` report and
+ptxas's ``wgmma`` notes.  (Where K2's gradients part from the plain
+path's: ``python -m nerf_keras_tpu_torch.exp_wide_numerics``.)
 """
 
 from __future__ import annotations
@@ -54,13 +38,10 @@ import subprocess
 import sys
 
 _DW = "csrc/nerf_dw.cuh"
-_PAIRS = "csrc/nerf_dw_pairs.cuh"
-_PY = "ops/kernels/fused_render.py"
 
 _REUSE_AT = ("        mbar_wait(&empty[st], ph ^ 1u);\n"
-             "        mbar_expect_tx(&full[st], a_bytes + d_bytes);\n")
-_PAIR_REUSE_AT = ("          mbar_wait(&empty[st], ph ^ 1u);  // both blocks' consumers released it\n"
-                  "          mbar_expect_tx(&full[st], expect);")
+             "        mbar_expect_tx(&full[st], a_bytes + d_bytes);\n"
+             "        unsigned char* dst = buf + (size_t)st * kDwWinStage;")
 
 
 def _skip_copies(at: str, indent: str, count: str) -> str:
@@ -75,23 +56,16 @@ def _skip_copies(at: str, indent: str, count: str) -> str:
 
 VARIANTS = {
     "as_is": [],
-    "reuse": [(_DW, "      int st = 0;\n      uint32_t ph = 0;\n      for (int s = s0;",
-               "      int st = 0, nfill = 0;\n      uint32_t ph = 0;\n      for (int s = s0;"),
+    "reuse": [(_DW, "      const __nv_bfloat16* D = p.ws_d + (size_t)p.rows_pad * Ly.d_col + (n0 / 8) * 512;\n"
+                    "      int st = 0;",
+               "      const __nv_bfloat16* D = p.ws_d + (size_t)p.rows_pad * Ly.d_col + (n0 / 8) * 512;\n"
+               "      int st = 0, nfill = 0;"),
               (_DW, _REUSE_AT, _skip_copies(_REUSE_AT, "        ", "nfill"))],
-    "noslab": [(_DW, "  const int g = lane >> 2, t = lane & 3;\n  float* out = p.part",
-                "  return;\n  const int g = lane >> 2, t = lane & 3;\n  float* out = p.part")],
-    "pair_reuse": [
-        (_PAIRS, "      int st = 0;\n      uint32_t ph = 0;\n      for (int it = cl;",
-         "      int st = 0, nfill = 0;\n      uint32_t ph = 0;\n      for (int it = cl;"),
-        (_PAIRS, _PAIR_REUSE_AT, _skip_copies(_PAIR_REUSE_AT, "          ", "nfill"))],
-    "pair_noslab": [(_PAIRS, "    if (t.layer < 0 || (s0 == s1 && p.accumulate)) continue;",
-                     "    continue;"),
-                    (_PAIRS, "        if (p.accumulate && r0 + 8 * half < t.a_rows",
-                     "        if (false && r0 + 8 * half < t.a_rows")],
-    "pair_nomulticast": [(_PY, "pairs.append((SHARE_D, ", "pairs.append((SHARE_NONE, "),
-                         (_PY, "pairs.append((SHARE_A, ", "pairs.append((SHARE_NONE, ")],
-    "pair_oneitem": [(_PAIRS, "  const int n = items < clusters ? items : clusters;",
-                      "  const int n = items;")],
+    "noslab": [(_DW, "    if (r >= a_rows) continue;\n    float* row = out + (size_t)r * Ly.d_width",
+                "    if (true) continue;\n    float* row = out + (size_t)r * Ly.d_width"),
+               (_DW, "      if (p.accumulate) {  // every stage released",
+                "      if (false) {  // every stage released"),
+               (_DW, "  if (p.accumulate) mbar_wait(slab_full, 0);\n", "")],
 }
 
 
@@ -140,13 +114,9 @@ if sys.argv[1] == "build":
             ptxas.append(ln.strip())
     print("DWPTX " + json.dumps({"tree": os.getcwd(), "ptxas": ptxas}), flush=True)
     sys.exit(0)
-import numpy as np
 import chip_smoke as cs
-from nerf_keras_tpu_torch.models import mlp as mlp_module
-from nerf_keras_tpu_torch.ops.encoding import encode_position
 from nerf_keras_tpu_torch.ops.kernels import fused_render as k1
 from nerf_keras_tpu_torch.runtime import card_string, configure_numerics, cuda_ms
-from nerf_keras_tpu_torch.models.mlp import randomize_biases_
 configure_numerics()
 dev = torch.device("cuda")
 sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -159,7 +129,7 @@ fwd, bwd = k1.kernel_pack(mlp, dev), k1.kernel_pack_bwd(mlp, dev)
 layout = k1.workspace_layout(fwd, bwd)
 bps = k1.DwBuffers.bytes_per_sample(fwd, bwd)
 plan = k1.chunk_plan(b, s, bps)
-families = dict(cs.K2_STAGES, dw=("mlp_dw_kernel", "mlp_dw_pair_kernel"))
+families = cs.K2_STAGES
 with torch.no_grad():
     got = k2()
     torch.cuda.synchronize()
@@ -173,30 +143,19 @@ out["chunks"] = len(plan)
 out["dw_ms_per_launch"] = out["k2_device_ms"]["dw"] / len(plan)
 # The workspace bytes an SM reads from L2, a sample: what each block's
 # producer brings each 64-sample stage, over 64.
-if hasattr(k1, "dw_pairs"):
-    pairs = k1.dw_pairs(layout)
-    nsplit = k1.dw_pair_splits(len(pairs), sms // 2, -(-plan[0][1] * s // 64))
-    per = 0
-    for row in pairs.tolist():
-        for li, m0 in ((row[1], row[2]), (row[6], row[7])):
-            if li < 0:
-                continue
-            a = 2 * min(128, int(layout[li][1]) - m0) * 64
-            d = 2 * k1.DW_PAIR_N * 64
-            per += (a // 2 + d) if row[0] == k1.SHARE_A else (a + d // 2) if row[0] == k1.SHARE_D else a + d
-    out["dw_blocks"] = 2 * min(len(pairs) * nsplit, sms // 2)
-    out["dw_items"] = len(pairs) * nsplit
-    out["dw_rounds"] = len(pairs) * nsplit / (sms // 2)
+ws = k1.DwBuffers.allocate(fwd, bwd, -(-plan[0][1] * s // 128) * 128, 1, dev)
+nsplit, tiles = ws.nsplit, getattr(ws, "tiles", None)
+if tiles is not None:
+    per = sum(2 * (min(128, int(layout[li][1]) - m0) + k1.DW_WIN_N) * 64
+              for li, m0, _, _, _ in tiles.tolist())
+    blocks = len(tiles)
 else:
-    tiles = []
-    for _, a_w, _, d_w, _ in layout.tolist():
-        n = d_w // 2 if d_w > 272 else d_w
-        for _n0 in range(0, d_w, n):
-            tiles += [(min(128, a_w - m0), n) for m0 in range(0, a_w, 128)]
-    per = sum(2 * (a + n) * 64 for a, n in tiles)
-    nsplit = max(1, min(-(-2 * sms // len(tiles)), -(-plan[0][1] * s // 128) * 128 // 64 // 8))
-    out["dw_blocks"] = len(tiles) * nsplit
-    out["dw_rounds"] = len(tiles) * nsplit / sms
+    blocks = int(sum(-(-int(a) // 128) for a in layout[:, 1]))
+    per = sum(2 * (min(128, a_w - m0) + d_w) * 64 for _, a_w, _, d_w, _ in layout.tolist()
+              for m0 in range(0, a_w, 128))
+del ws
+out["dw_blocks"] = blocks * nsplit
+out["dw_waves"] = blocks * nsplit / sms
 out["dw_nsplit"] = nsplit
 out["dw_l2_bytes_per_sample"] = per / 64
 out["dw_l2_gb_per_k2"] = per / 64 * b * s / 1e9
@@ -204,125 +163,6 @@ out["dw_hbm_gb_per_k2"] = bps * b * s / 1e9
 del got
 torch.cuda.empty_cache()
 
-
-ROUND_DPRE = [False]
-
-
-class BF16F64(torch.autograd.Function):
-    """The plain bf16 product (operands rounded to bf16, f32 products) whose
-    weight gradient is summed in float64 and not rounded (with ROUND_DPRE,
-    of the layer's dPre rounded to bf16 first, as the JAX kernel's dW
-    product takes it: fused_mlp.py, matmul_tn); its input's gradient as
-    the plain path rounds it."""
-
-    @staticmethod
-    def forward(ctx, x, w):
-        xr = x.to(torch.bfloat16).to(torch.float32)
-        wr = w.to(torch.bfloat16).to(torch.float32)
-        ctx.save_for_backward(xr, wr)
-        ctx.xdtype = x.dtype
-        return xr @ wr.T
-
-    @staticmethod
-    def backward(ctx, g):
-        xr, wr = ctx.saved_tensors
-        gx = (g @ wr).to(torch.bfloat16).to(ctx.xdtype)
-        g2 = g.reshape(-1, g.shape[-1])
-        g2 = (g2.to(torch.bfloat16) if ROUND_DPRE[0] else g2).double()
-        return gx, (g2.T @ xr.reshape(-1, xr.shape[-1]).double()).float()
-
-
-def yard_product(x, layer, dtype):
-    if dtype != torch.bfloat16:
-        raise ValueError("a yardstick of bf16 MLPs")
-    return BF16F64.apply(x, layer.weight)
-
-
-def rel(a, c):
-    return float(torch.linalg.vector_norm(a.float() - c.float())
-                 / torch.linalg.vector_norm(c.float()).clamp_min(1e-30))
-
-
-gen = torch.Generator().manual_seed(35)
-wide = randomize_biases_(mlp_module.NeRFMLP(num_layers=8, hidden_dim=512, skip_layer=4,
-                                            generator=gen, device=dev), gen)
-names = [n for n, _ in wide.named_parameters()]
-yard = {}
-for rb, rs in ((3, 100), (41, 100)):
-    g = torch.Generator().manual_seed(11)
-    o = (torch.randn((rb, 3), generator=g) * 0.3 + torch.tensor([0.0, 0.0, 4.0])).to(dev)
-    d = torch.randn((rb, 3), generator=g).to(dev)
-    t = torch.sort(torch.rand((rb, rs), generator=g) * 4.0 + 2.0, dim=-1).values.to(dev).contiguous()
-    g = torch.Generator().manual_seed(12)
-    g_rgb = torch.randn((rb, 3), generator=g).to(dev)
-    g_w = torch.randn((rb, rs), generator=g).to(dev)
-    rgb, w = k1.render_rays_fused(wide, o, d, t, weights_grad=True)
-    kern = torch.autograd.grad([rgb, w], list(wide.parameters()), [g_rgb, g_w])
-    plain = k1.render_rays_reference_vjp(wide, o, d, t, g_rgb, g_w)
-    # The same MLP fed the same bf16 encodings (K1's residual) in the K6
-    # form: the kernel's backward (rows kernel and dW) against the plain one
-    # and the yardstick, with the encodings out of the comparison.
-    with torch.no_grad():
-        _, _, x_res, _ = k1.launch_k1(wide, o, d, t, 10, 4, train=True)
-        pts = o[:, None, :] + d[:, None, :] * t[..., None]
-        x_plain = encode_position(pts, 10).reshape(rb * rs, -1).to(torch.bfloat16)
-        x3 = x_res.reshape(rb, rs, -1).contiguous()
-        d3 = encode_position(d, 4)[:, None, :].expand(rb, rs, -1).to(torch.bfloat16).contiguous()
-        _, _, preds6 = k1.launch_k6_fwd(wide, x3, d3, t, train=True)
-        kern6 = k1.launch_k6_bwd(wide, x3, d3, t, preds6, g_rgb)
-    plain6 = k1.apply_nerf_render_reference_vjp(wide, x3, d3, t, g_rgb)
-    orig = mlp_module._product
-    mlp_module._product = yard_product
-    try:
-        ROUND_DPRE[0] = False
-        ys = k1.render_rays_reference_vjp(wide, o, d, t, g_rgb, g_w)
-        ys6 = k1.apply_nerf_render_reference_vjp(wide, x3, d3, t, g_rgb)
-        ROUND_DPRE[0] = True
-        ys_r = k1.render_rays_reference_vjp(wide, o, d, t, g_rgb, g_w)
-    finally:
-        mlp_module._product = orig
-    # chip_smoke._f64_yardstick's: the same weights as a float32 MLP, its
-    # weight- and bias-gradient sums and its compositing in float64 (no
-    # bf16 rounding anywhere): how far each bf16 path is from the model.
-    f32 = mlp_module.NeRFMLP(num_layers=8, hidden_dim=512, skip_layer=4,
-                             compute_dtype=torch.float32, device=dev)
-    f32.load_state_dict(wide.state_dict())
-    with cs._f64_yardstick():
-        yt = k1.render_rays_reference_vjp(f32, o, d, t, g_rgb, g_w)
-        yt6 = k1.apply_nerf_render_reference_vjp(f32, x3, d3, t, g_rgb)
-    kt = [rel(a, c) for a, c in zip(kern, yt)]
-    pt = [rel(a, c) for a, c in zip(plain, yt)]
-    kt6 = [rel(a, c) for a, c in zip(kern6, yt6)]
-    pt6 = [rel(a, c) for a, c in zip(plain6, yt6)]
-    kp = [rel(a, c) for a, c in zip(kern, plain)]
-    k6 = [rel(a, c) for a, c in zip(kern6, ys6)]
-    p6 = [rel(a, c) for a, c in zip(plain6, ys6)]
-    rec = {"kernel_vs_plain_max": max(kp),
-           "trunk0_kernel_vs_plain": kp[names.index("trunk.0.weight")],
-           "x_enc_differs": int((x_res != x_plain).sum()), "x_enc_elements": x_res.numel(),
-           "x_enc_max_diff": float((x_res.float() - x_plain.float()).abs().max()),
-           "same_encodings": {"kernel_max": max(k6), "plain_max": max(p6),
-                              "trunk0_kernel": k6[names.index("trunk.0.weight")],
-                              "trunk0_plain": p6[names.index("trunk.0.weight")],
-                              "leaves_kernel_farther": sum(a > c for a, c in zip(k6, p6))},
-           "f32_model": {"kernel_max": max(kt), "plain_max": max(pt),
-                         "trunk0_kernel": kt[names.index("trunk.0.weight")],
-                         "trunk0_plain": pt[names.index("trunk.0.weight")],
-                         "leaves_kernel_farther": sum(a > c for a, c in zip(kt, pt)),
-                         "k6_kernel_max": max(kt6), "k6_plain_max": max(pt6),
-                         "k6_leaves_kernel_farther": sum(a > c for a, c in zip(kt6, pt6))}}
-    for tag, yy in (("f64", ys), ("f64_dpre_bf16", ys_r)):
-        kv = [rel(a, c) for a, c in zip(kern, yy)]
-        pv = [rel(a, c) for a, c in zip(plain, yy)]
-        rec[tag] = {
-            "kernel_max": max(kv), "plain_max": max(pv),
-            "worst_kernel_leaf": names[int(np.argmax(kv))],
-            "worst_plain_leaf": names[int(np.argmax(pv))],
-            "trunk0_weight": {"kernel": kv[names.index("trunk.0.weight")],
-                              "plain": pv[names.index("trunk.0.weight")]},
-            "leaves_kernel_farther": sum(a > c for a, c in zip(kv, pv)), "leaves": len(kv)}
-    yard[f"{rb}x{rs}"] = rec
-out["f64_yardstick"] = yard
 print("DWVAR " + json.dumps(out), flush=True)
 '''
 

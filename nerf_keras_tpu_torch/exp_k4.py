@@ -251,10 +251,10 @@ __shared__ long long g_sprof[8][8];
     ("    layer_relu_q<H, H>(acc, f, m.dense[i], act, ldx);",
      "    long long e0 = clock64();\n    layer_relu_q<H, H>(acc, f, m.dense[i], act, ldx);\n"
      "    PROF_ADD(2, clock64() - e0);"),
-    ("    if (col_part<H>() == 0) encode_rows(m, ray, p.t_vals + s0, S, q0, valid, inv_x, wact, wxq);",
+    ("    encode_rows(m, ray, p.t_vals + s0, S, q0, valid, inv_x, wact, wxq);\n    auto dir4",
      "    long long n0 = clock64();\n"
-     "    if (col_part<H>() == 0) encode_rows(m, ray, p.t_vals + s0, S, q0, valid, inv_x, wact, wxq);\n"
-     "    PROF_ADD(3, clock64() - n0);"),
+     "    encode_rows(m, ray, p.t_vals + s0, S, q0, valid, inv_x, wact, wxq);\n"
+     "    PROF_ADD(3, clock64() - n0);\n    auto dir4"),
     ("  reg_alloc<kConsumerRegs>();",
      "  reg_alloc<kConsumerRegs>();\n  if (lane < 8) g_sprof[warp][lane] = 0;\n  __syncwarp();\n"
      "  const long long a0 = clock64();"),
@@ -267,7 +267,9 @@ __shared__ long long g_sprof[8][8];
      "  if (lane < 8) atomicAdd(&g_prof[lane], (unsigned long long)g_sprof[warp][lane]);\n}"),
 ]
 
-_NOPIPE = [("constexpr bool kPipeQ = true;", "constexpr bool kPipeQ = false;")]
+_NOPIPE = [("    q_product_pipe<P::width, KQ>(acc, act, ldx, k_pad, r, c, N, n0);",
+            "    q_product<P::width, KQ>(acc, act, ldx, k_pad, r, c, N, n0);")]
+_ONERAY = [("    if (sms < grid) grid = sms;\n", "")]
 _ENC1 = [("      encode_rows_split(m, ray, p.t_vals + s0, S, q0, valid, inv_x, wact, wxq);",
           "      if (col_part<H>() == 0)\n"
           "        encode_rows(m, ray, p.t_vals + s0, S, q0, valid, inv_x, wact, wxq);")]
@@ -302,13 +304,8 @@ VARIANTS = {
     "noepi": _NOEPI, "noenc": _NOENC, "bare": _BARE, "nocopy": _NOCOPY, "pipe": _PIPE,
     "split": _SPLIT,
     "prof": _PROF,
-    "nopipe": _NOPIPE, "oneray": [], "enc1": _ENC1, "dequant_split": _DEQUANT_SPLIT,
+    "nopipe": _NOPIPE, "oneray": _ONERAY, "enc1": _ENC1, "dequant_split": _DEQUANT_SPLIT,
     "ks32": _KS32, "fglobal": _FGLOBAL, "fglobal_ks32": _FGLOBAL + _KS32,
-}
-# Patches of ops/kernels/quant_render.py.
-PY_VARIANTS = {
-    "oneray": [("    return min(groups, sms) if hidden > 256 else groups",
-                "    return groups")],
 }
 
 
@@ -340,14 +337,6 @@ def prepare(src_root: str, out: str, variants: list[str]) -> None:
             text = patch_source(fh.read(), variant)
         with open(path, "w") as fh:
             fh.write(text)
-        path = os.path.join(dst, "nerf_keras_tpu_torch", "ops", "kernels", "quant_render.py")
-        for old, new in PY_VARIANTS.get(variant, []):
-            with open(path) as fh:
-                text = fh.read()
-            if text.count(old) != 1:
-                raise ValueError(f"{variant}: quant_render.py has no single {old[:60]!r}")
-            with open(path, "w") as fh:
-                fh.write(text.replace(old, new))
 
 
 _CHILD = r'''

@@ -60,7 +60,7 @@ ENTRY_POINTS = {
             _i32, _i32, _i32,           # chunk_rays, total_b, total_out
             _vp, _vp, _vp, _vp, _i32,   # dpreds, ws_a, ws_d, db_part, grid
             _vp, _i32,                  # dw_part, nsplit
-            _vp, _i32,                  # dw_pairs (host, hidden 512), n_pairs
+            _vp, _i32,                  # dw_tiles (host, hidden 512), n_tiles
             _vp, _vp, _vp, _vp,         # dw_out, db_out, dx_out, dd_out (K5)
             _i32, _vp,                  # device, stream
         ],
@@ -83,7 +83,6 @@ ENTRY_POINTS = {
             _i32, _i32, _i32, _i32,     # l_xyz, l_dir, x_off, d_off
             _i32, _i32,                 # B, S
             _vp, _vp,                   # rgb_out, w_out
-            _i32,                       # grid
             _i32, _vp,                  # device, stream
         ],
     },

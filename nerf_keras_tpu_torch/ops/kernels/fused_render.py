@@ -470,68 +470,41 @@ def chunk_plan(b: int, s: int, bytes_per_sample: int,
     return [(r, min(rays, b - r)) for r in range(0, b, rays)]
 
 
-# The split tile's dW product (csrc/nerf_dw_pairs.cuh): tiles of up to 128
-# rows of a layer's dW by a window of DW_PAIR_N of its D columns, two tiles
-# a cluster of two blocks that share an operand's stages where they can.
-DW_PAIR_N = 264
-SHARE_NONE, SHARE_D, SHARE_A = 0, 1, 2
-NO_TILE = (-1, 0, 0, 0, 0)
+# The split tile's dW product (csrc/nerf_dw.cuh: mlp_dw_window_kernel):
+# tiles of up to 128 rows of a layer's dW by a window of DW_WIN_N of its D
+# columns.
+DW_WIN_N = 264
 
 
 def dw_windows(d_width: int) -> list[tuple[int, int, int]]:
     """``[(n0, c_lo, c_hi)]``: the D windows of a layer of ``d_width``
-    output columns (DW_PAIR_N wide from column n0; the window writes its
+    output columns (DW_WIN_N wide from column n0; the window writes its
     columns [c_lo, c_hi)), which cover [0, d_width) once: one window up to
-    DW_PAIR_N, else two, the second ending at d_width (at 512: windows at
+    DW_WIN_N, else two, the second ending at d_width (at 512: windows at
     0 and 248, whose columns 248..255 the first one writes)."""
-    if d_width <= DW_PAIR_N:
+    if d_width <= DW_WIN_N:
         return [(0, 0, d_width)]
     half = d_width // 2
-    if d_width > 2 * DW_PAIR_N or half % 8 or d_width % 8:
+    if d_width > 2 * DW_WIN_N or half % 8 or d_width % 8:
         raise ValueError(f"no dW windows for d_width {d_width}")
-    n1 = d_width - DW_PAIR_N
-    return [(0, 0, half), (n1, half - n1, DW_PAIR_N)]
+    n1 = d_width - DW_WIN_N
+    return [(0, 0, half), (n1, half - n1, DW_WIN_N)]
 
 
-def dw_pairs(layout: np.ndarray) -> np.ndarray:
-    """The split tile's dW work: (pairs, 11) int32 rows ``share, layer, m0,
-    n0, c_lo, c_hi`` (rank 0's tile) ``, layer, m0, n0, c_lo, c_hi`` (rank
-    1's; layer -1: no tile), from :func:`workspace_layout`.  Two row tiles of
-    one window share D; the last row tile of an odd count shares A across
-    its two windows; what is left pairs up sharing nothing.  The pairs of a
-    layer stay together (those that read the same stages run together)."""
-    pairs, lone = [], []
-    for li, (_, a_w, _, d_w, _) in enumerate(layout.tolist()):
-        rows = list(range(0, a_w, 128))
-        wins = dw_windows(d_w)
-        even = len(rows) // 2 * 2
-        for i in range(0, even, 2):
-            for win in wins:
-                pairs.append((SHARE_D, (li, rows[i], *win), (li, rows[i + 1], *win)))
-        for m0 in rows[even:]:
-            if len(wins) == 2:
-                pairs.append((SHARE_A, (li, m0, *wins[0]), (li, m0, *wins[1])))
-            else:
-                lone.append((li, m0, *wins[0]))
-    for i in range(0, len(lone), 2):
-        pairs.append((SHARE_NONE, lone[i], lone[i + 1] if i + 1 < len(lone) else NO_TILE))
-    return np.ascontiguousarray(
-        np.array([(sh, *a, *b) for sh, a, b in pairs], dtype=np.int32).reshape(-1, 11))
+def dw_tiles(layout: np.ndarray) -> np.ndarray:
+    """The split tile's dW blocks of one sample range: (tiles, 5) int32
+    rows ``layer, m0, n0, c_lo, c_hi`` from :func:`workspace_layout`, every
+    (layer, 128-row tile, window) once, layer by layer."""
+    tiles = [(li, m0, *win) for li, (_, a_w, _, d_w, _) in enumerate(layout.tolist())
+             for win in dw_windows(d_w) for m0 in range(0, a_w, 128)]
+    return np.ascontiguousarray(np.array(tiles, dtype=np.int32).reshape(-1, 5))
 
 
-def dw_pair_splits(pairs: int, clusters: int, stages: int, most: int = 8) -> int:
-    """The sample ranges each pair's tiles split into: the fewest (at most
-    ``most``) whose items fill the clusters' rounds to 90%, else the best
-    fill; no more than a range per 8 of the chunk's ``stages``."""
-    best, fill = 1, 0.0
-    for n in range(1, most + 1):
-        rounds = pairs * n / clusters
-        f = rounds / -(-pairs * n // clusters)
-        if f > fill:
-            best, fill = n, f
-        if f >= 0.9:
-            break
-    return max(1, min(best, stages // 8))
+def dw_splits(tiles: int, sms: int, rows: int) -> int:
+    """The sample ranges each dW tile's sums split into: about two waves
+    of ``tiles`` blocks a range on ``sms`` SMs (one block an SM), no more
+    than a range per 8 of the chunk's 64-sample stages (``rows`` / 64)."""
+    return max(1, min(-(-2 * sms // tiles), rows // 64 // 8))
 
 
 def _tiles(n: int, rows: int = 128) -> int:
@@ -577,7 +550,7 @@ class DwBuffers(NamedTuple):
     nsplit: int
     dw: torch.Tensor
     db: torch.Tensor
-    pairs: np.ndarray | None  # the split tile's dW pairs (dw_pairs), else None
+    tiles: np.ndarray | None  # the split tile's dW windows (dw_tiles), else None
 
     @staticmethod
     def bytes_per_sample(fwd: KernelPack, bwd: KernelPack) -> int:
@@ -588,27 +561,23 @@ class DwBuffers(NamedTuple):
     def allocate(cls, fwd: KernelPack, bwd: KernelPack, rows: int, nblk: int,
                  device: torch.device) -> "DwBuffers":
         """For ``rows`` workspace rows (a multiple of 64) and ``nblk``
-        rows-kernel blocks.  On the 128-row tile the dW product splits its
-        64-row stages so that about two waves of blocks (one per SM) are in
-        flight; on the split tile (a d_width above 272) it walks
-        :func:`dw_pairs` in ranges of samples (:func:`dw_pair_splits`, for
-        a cluster of two blocks on each pair of SMs), and reads up to
-        DW_PAIR_N x 64 elements past the last layer's D (slack)."""
+        rows-kernel blocks.  The dW product's blocks are 128 rows of a
+        layer by its d_width (csrc/nerf_dw.cuh), or on the split tile (a
+        d_width above 272) by each of its windows (:func:`dw_tiles`, which
+        read up to DW_WIN_N x 64 elements past the last layer's D: slack);
+        its 64-row stages split into :func:`dw_splits` ranges."""
         layout = workspace_layout(fwd, bwd)
         a_cols, d_cols = int(layout[:, 1].sum()), int(layout[:, 3].sum())
         total_out = int((layout[:, 1] * layout[:, 3]).sum())
         total_b = fwd.b.numel()
         sms = torch.cuda.get_device_properties(device).multi_processor_count
-        pairs, slack = None, 0
+        tiles, slack = None, 0
         if int(layout[:, 3].max()) > DW_MAX_N:
-            pairs = dw_pairs(layout)
-            nsplit = dw_pair_splits(len(pairs), sms // 2, rows // 64)
-            slack = DW_PAIR_N * 64
+            tiles = dw_tiles(layout)
+            blocks, slack = len(tiles), DW_WIN_N * 64
         else:
-            # The dW product's blocks: 128 rows of a layer by its d_width
-            # (csrc/nerf_dw.cuh).
-            tiles = int(sum(-(-int(a) // 128) for a in layout[:, 1]))
-            nsplit = max(1, min(-(-2 * sms // tiles), rows // 64 // 8))
+            blocks = int(sum(-(-int(a) // 128) for a in layout[:, 1]))
+        nsplit = dw_splits(blocks, sms, rows)
         f32 = dict(dtype=torch.float32, device=device)
         return cls(
             layout=layout,
@@ -619,7 +588,7 @@ class DwBuffers(NamedTuple):
             nsplit=nsplit,
             dw=torch.empty((total_out,), **f32),
             db=torch.empty((total_b,), **f32),
-            pairs=pairs,
+            tiles=tiles,
         )
 
 
@@ -868,7 +837,7 @@ def launch_rows(mode, mlp, t_vals, preds, g_rgb, g_w, l_xyz, l_dir, *,
         l_xyz, l_dir, b, s, chunk_rays, ws.db.numel(), ws.dw.numel(), dpreds.data_ptr(),
         ws.ws_a.data_ptr(), ws.ws_d.data_ptr(), ws.db_part.data_ptr(), grid,
         ws.dw_part.data_ptr(), ws.nsplit,
-        None if ws.pairs is None else ws.pairs.ctypes.data, 0 if ws.pairs is None else len(ws.pairs),
+        None if ws.tiles is None else ws.tiles.ctypes.data, 0 if ws.tiles is None else len(ws.tiles),
         ws.dw.data_ptr(), ws.db.data_ptr(),
         _ptr(dx), _ptr(dd), device_index(device), torch.cuda.current_stream(device).cuda_stream,
     )

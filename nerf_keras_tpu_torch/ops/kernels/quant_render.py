@@ -20,7 +20,6 @@ No gradients: quantization is inference-only.
 
 from __future__ import annotations
 
-import math
 from types import SimpleNamespace
 from typing import NamedTuple
 
@@ -189,24 +188,6 @@ def kernel_pack(qp: QuantParams, device: torch.device, skip_layer: int = 4) -> Q
     return hit[2]
 
 
-def rays_per_block(s: int, rows: int) -> int:
-    """Rays a group of K4's (and K1's) forward: whole rays that fill whole
-    tiles of ``rows`` rows, at most 640 samples (csrc/nerf_wgmlp.cuh:
-    wg_rays_per_block)."""
-    if s >= 640:
-        return 1
-    r, cap = rows // math.gcd(s, rows), 640 // s
-    return r if r < cap else max(cap, 1)
-
-
-def k4_grid(b: int, s: int, hidden: int, sms: int) -> int:
-    """K4's blocks: one per group of rays, and at hidden 512 no more than
-    the card's SMs, each striding over the groups (csrc/quant_render_fwd.cu:
-    quant_render_wide_kernel)."""
-    groups = -(-b // rays_per_block(s, 64 if hidden > 256 else 128))
-    return min(groups, sms) if hidden > 256 else groups
-
-
 def _check_widths(qp: QuantParams, l_xyz: int, l_dir: int) -> None:
     widths = (qp["inv_x"].numel(), qp["inv_d"].numel())
     if widths != (3 + 6 * l_xyz, 3 + 6 * l_dir):
@@ -266,7 +247,6 @@ def launch_k4(qparams: QuantParams, origins, dirs, t_vals, l_xyz: int, l_dir: in
         pack.w.data_ptr(), pack.f.data_ptr(), pack.desc.ctypes.data,
         pack.desc.shape[0], num_layers, skip_layer, hidden, l_xyz, l_dir,
         pack.x_off, pack.d_off, b, s, rgb.data_ptr(), weights.data_ptr(),
-        k4_grid(b, s, hidden, torch.cuda.get_device_properties(device).multi_processor_count),
         device_index(device), torch.cuda.current_stream(device).cuda_stream,
     )
     if rc != 0:

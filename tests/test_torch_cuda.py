@@ -1073,7 +1073,7 @@ def test_wide_k1_matches_plain(dev, hidden, b, s):
 @pytest.mark.parametrize("with_gw", [True, False])
 def test_wide_k2_matches_plain_vjp(dev, hidden, with_gw):
     """K2 at 320 and 512 (its rows kernel on the split tile, dW in pairs of
-    tiles of 264-column windows, csrc/nerf_dw_pairs.cuh) against autograd
+    264-column windows, csrc/nerf_dw.cuh: mlp_dw_window_kernel) against autograd
     of the plain K1, per leaf within K2_TOL_REL; K3 gives K2's bits."""
     mlp = _wide_mlp(dev, hidden, seed=32)
     b, s = 333, 100
@@ -1119,13 +1119,13 @@ def test_wide_k2_chunks_and_determinism(dev, monkeypatch):
 
 
 @pytest.mark.parametrize("chunk_rays", [None, 81, 40])
-def test_wide_dw_pairs_match_plain_over_chunks(dev, monkeypatch, chunk_rays):
-    """The split tile's dW product (csrc/nerf_dw_pairs.cuh: pairs of tiles
-    in clusters of two blocks on a persistent grid) at 8 x 512, 257 rays of
+def test_wide_dw_windows_match_plain_over_chunks(dev, monkeypatch, chunk_rays):
+    """The split tile's dW product (csrc/nerf_dw.cuh: mlp_dw_window_kernel,
+    a block a window tile and a range of samples) at 8 x 512, 257 rays of
     100 samples: in one chunk, and in chunks of 81 and of 40 rays (4 and 7
-    chunks, the last ragged: each pair's sample ranges shift with the
+    chunks, the last ragged: each tile's sample ranges shift with the
     chunk's stages), K2 against the plain VJP per leaf within K2_TOL_REL,
-    run twice the same bits, one mlp_dw_pair_kernel launch a chunk and no
+    run twice the same bits, one mlp_dw_window_kernel launch a chunk and no
     mlp_dw_kernel (torch.profiler)."""
     mlp = _wide_mlp(dev, 512, seed=36)
     b, s = 257, 100
@@ -1144,15 +1144,119 @@ def test_wide_dw_pairs_match_plain_over_chunks(dev, monkeypatch, chunk_rays):
         run = lambda: k1.launch_k2(mlp, x_res, d, t, preds, g_rgb, g_w, 10, 4)  # noqa: E731
         got, again = run(), run()
         torch.cuda.synchronize()
-        seen = device_ms_by_kernel(run, {"pairs": ("mlp_dw_pair_kernel",),
+        seen = device_ms_by_kernel(run, {"windows": ("mlp_dw_window_kernel",),
                                          "tiles": ("mlp_dw_kernel",)}, tries=8,
-                                   launches={"pairs": len(plan), "tiles": 0})["launches"]
-    assert seen == {"pairs": len(plan), "tiles": 0}
+                                   launches={"windows": len(plan), "tiles": 0})["launches"]
+    assert seen == {"windows": len(plan), "tiles": 0}
     assert all(torch.equal(x, y) for x, y in zip(got, again))
     want = k1.render_rays_reference_vjp(mlp, o, d, t, g_rgb, g_w)
     for (name, _), a, c in zip(mlp.named_parameters(), got, want):
         assert bool(torch.isfinite(a).all()), name
         assert _rel_l2(a, c) <= K2_TOL_REL, (name, _rel_l2(a, c))
+
+
+def k2_wide_bits(dev, b, s, seed=35):
+    """sha256 (16 hex digits) of K2's gradients at 8 x 512 (the seeded
+    model of test_wide_clusters_at_odd_and_ragged_tile_counts, rays of
+    ``_rays``) from K1's residuals, with the weights cotangent."""
+    mlp = _wide_mlp(dev, 512, seed=seed)
+    o, d, t = _rays(dev, b, s, seed=11)
+    gen = torch.Generator().manual_seed(12)
+    g_rgb = torch.randn((b, 3), generator=gen).to(dev)
+    g_w = torch.randn((b, s), generator=gen).to(dev)
+    with torch.no_grad():
+        _, _, x_res, preds = k1.launch_k1(mlp, o, d, t, 10, 4, train=True)
+        got = k1.launch_k2(mlp, x_res, d, t, preds, g_rgb, g_w, 10, 4)
+    torch.cuda.synchronize()
+    h = hashlib.sha256()
+    for x in got:
+        h.update(x.cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+# K2 at 8 x 512 with the dW product of the design before the window tiles
+# (csrc/nerf_dw.cuh's mlp_dw_kernel on column tiles of d_width / 2):
+# k2_wide_bits on "NVIDIA H100 80GB HBM3", torch 2.11.0+cu128.  The window
+# tiles keep each element's sums and their order.
+K2_WIDE_BITS = {(1, 64): "e2fe57e3eda1ae1a", (41, 100): "82b34c058bb94d01",
+                (257, 100): "4aae88e2b1932c72"}
+
+
+@pytest.mark.parametrize("b,s", [(1, 64), (41, 100), (257, 100)])
+def test_wide_k2_bits_equal_the_first_designs(dev, b, s):
+    """K2 at 8 x 512 on the window tiles gives the bits of the design
+    before them (K2_WIDE_BITS): one tile of samples, one sample range of
+    the dW product (41 x 100) and several (257 x 100: 4 ranges)."""
+    assert k2_wide_bits(dev, b, s) == K2_WIDE_BITS[(b, s)]
+
+
+def _ws_tile(ws_flat, n, col, width):
+    """A layer's (n, width) tile out of the dW workspace layout (64-row
+    stages of 8-column strips: nerf_wgmlp.cuh, store_ws)."""
+    blk = ws_flat[n * col:n * col + n * width].view(n // 64, width // 8, 64, 8)
+    return blk.permute(0, 2, 1, 3).reshape(n, width)
+
+
+def _rounded_once(got, exact, absum, k):
+    """Where bf16 ``got`` differs from ``exact`` (float64) rounded once to
+    bf16, and whether every such element is one a float32 sum could round
+    the other way: ``exact`` within 2 k 2^-24 sum|terms| (twice the bound
+    of a k-term float32 sum) of the midpoint of the two roundings."""
+    want = exact.to(torch.bfloat16).double()
+    off = got != want
+    ok = ~off | ((exact - (got + want) / 2).abs() <= 2 * k * 2.0 ** -24 * absum)
+    return off, ok
+
+
+@pytest.mark.parametrize("b,s,seed", [(3, 100, 35), (1, 64, 13)])
+def test_wide_rows_kernel_is_locally_exact(dev, b, s, seed):
+    """The split tile's rows kernel at 8 x 512 (K5's mode: the cotangent
+    given, no compositing), layer by layer from its own workspace: each
+    recomputed activation is bf16(relu(A W^T + b)) of the layer's stored
+    input, and each dPre is bf16(mask * (D' W')) of the next layer's stored
+    dPre and the ReLU signs of the stored activations, both with sums in
+    float64 and one rounding, but at float32 ties; the head's dPre is
+    [bf16(D_branch W_branch), bf16(d sigma)].  An extra bf16 rounding in
+    the walk, a wrong mask or a stale operand fails it."""
+    mlp = _wide_mlp(dev, 512, seed=seed)
+    o, d, t = _rays(dev, b, s, seed=11)
+    n, hid = b * s, 512
+    x = encode_position(o[:, None, :] + d[:, None, :] * t[..., None], 10)
+    x = x.reshape(n, -1).to(torch.bfloat16).contiguous()
+    de = encode_position(d, 4)[:, None, :].expand(b, s, -1).reshape(n, -1)
+    de = de.to(torch.bfloat16).contiguous()
+    g = (torch.randn((n, 4), generator=torch.Generator().manual_seed(12)) * 1e-2).to(dev)
+    with torch.no_grad():
+        _, ws = k1.launch_rows(k1._ROWS_K5, mlp, None, None, None, None, 10, 4,
+                               x_res=x, d_enc=de, g=g)
+    torch.cuda.synchronize()
+    rows = -(-n // 64) * 64
+    lay = ws.layout.tolist()
+    A = [_ws_tile(ws.ws_a, rows, r[0], r[1])[:n].double() for r in lay]
+    D = [_ws_tile(ws.ws_d, rows, r[2], r[3])[:n].double() for r in lay]
+    W = lambda layer: layer.weight.detach().to(torch.bfloat16).double()  # noqa: E731
+    L = mlp.num_layers
+    checks = []  # (name, the kernel's bf16, float64 value, sum of |terms|, terms)
+    for i, layer in enumerate(mlp.trunk):
+        k = layer.weight.shape[1]
+        b_ = layer.bias.detach().double()
+        pre = A[i][:, :k] @ W(layer).T + b_
+        absum = A[i][:, :k].abs() @ W(layer).abs().T + b_.abs()
+        checks.append((f"h{i}", A[i + 1][:, :hid], torch.relu(pre), absum, k + 1))
+    dbr, wbr = D[L + 1][:, :hid // 2], W(mlp.branch)[:, :hid]
+    checks.append(("dfeature", D[L][:, :hid], dbr @ wbr, dbr.abs() @ wbr.abs(), hid // 2))
+    checks.append(("dsigma", D[L][:, hid:hid + 1], g[:, 3:].double(), 0.0, 1))
+    whead = torch.cat([W(mlp.feature), W(mlp.sigma)], 0)
+    for i in range(L - 1, -1, -1):
+        dn, wn = ((D[L][:, :hid + 1], whead) if i == L - 1
+                  else (D[i + 1][:, :hid], W(mlp.trunk[i + 1])[:, :hid]))
+        mask = A[i + 1][:, :hid] > 0
+        checks.append((f"dpre{i}", D[i][:, :hid], (dn @ wn) * mask,
+                       (dn.abs() @ wn.abs()) * mask, dn.shape[1]))
+    for name, got, exact, absum, k in checks:
+        off, ok = _rounded_once(got, exact, absum, k)
+        assert bool(ok.all()), (name, int((~ok).sum()))
+        assert int(off.sum()) <= max(4, got.numel() // 2000), (name, int(off.sum()))
 
 
 def _to(tree, dev):

@@ -19,18 +19,16 @@ alone; weight stages 32 k deep), and widths 257-511 run zero-padded to it
   columns where the 64-deep stages' descriptor addresses them.
 * ``layer_maps`` at hp 512: sigma at head column 512, the skip layer's and
   the branch's encodings at 512, the rgb input 256 wide.
-* The dW product's tiles: on the 128-row tile (``csrc/nerf_dw.cuh``) a
-  layer's whole d_width, an instantiated width; on the split tile
-  (``csrc/nerf_dw_pairs.cuh``) windows of 264 D columns, each a contiguous
-  run of a workspace stage, whose written columns cover each layer once,
-  in pairs of tiles that share D (two row tiles of a window) or A (the two
-  windows of a row tile); the kernel's walk of ``dw_pairs`` x sample
-  ranges (a model of it, ``_dw_pair_walk``) covers every (layer, row,
-  column, sample stage) once, at the ``wide`` phase's chunks, ragged last
-  chunks and other grids, with no more items than clusters idle.
-* K4's persistent grid at hidden 512 (``quant_render.k4_grid`` and a model
-  of the kernel's walk, ``_k4_walk``): every
-  ray once, for B below, at and above the SM count.
+* The dW product's tiles (``csrc/nerf_dw.cuh``): on the 128-row tile a
+  layer's whole d_width, an instantiated width; on the split tile windows
+  of 264 D columns, each a contiguous run of a workspace stage, whose
+  written columns cover each layer once; the grid of ``dw_tiles`` x
+  ``dw_splits`` sample ranges (a model of it, ``_dw_grid``) covers every
+  (layer, row, column, sample stage) once, at the ``wide`` phase's chunks,
+  ragged last chunks and other SM counts, with the 128-row tile's ranges.
+* K4's persistent grid at hidden 512 (a model of the launch's grid and of
+  the kernel's walk, ``_k4_walk``): every ray once, for B below, at and
+  above the SM count.
 * The split tile's clusters of two blocks (``nerf_wgmlp.cuh``,
   "Clusters"): the rows kernel's grid (``fused_render.cluster_grid``) and
   a model of each block's walk (``walk_steps``): every tile once, both
@@ -49,6 +47,8 @@ the step's metrics 5e-4 relative and gradients per leaf 5e-4 of the leaf's
 largest entry (``test_torch_train_coarse``), the frame's rgb 1e-4 and
 depth 1e-3.
 """
+
+import math
 
 import jax
 import jax.numpy as jnp
@@ -366,7 +366,7 @@ DW_WIDTHS = (16, 32, 64, 80, 128, 144, 256, 264, 272)  # nerf_dw.cuh: dw_width_o
 def test_dw_column_tiles(hidden):
     """The dW product's tiles at 8x256 and 8x512: at 256 (nerf_dw.cuh:
     dw_plan) one tile of each layer's d_width, an instantiated width, its
-    output rows at m * d_width; at 512 (nerf_dw_pairs.cuh) the windows of
+    output rows at m * d_width; at 512 (mlp_dw_window_kernel) the windows of
     ``dw_windows``: each 264 D columns from a strip boundary, one
     contiguous run of a 64-row workspace stage, their written columns
     covering [0, d_width) once, no window reading past the slack that
@@ -383,118 +383,94 @@ def test_dw_column_tiles(hidden):
         split_layers += len(wins) == 2
         written = np.zeros(d_w, dtype=int)
         for n0, lo, hi in wins:
-            assert n0 % 8 == 0 and lo % 8 == 0 and hi % 8 == 0 and 0 <= lo < hi <= k1.DW_PAIR_N
+            assert n0 % 8 == 0 and lo % 8 == 0 and hi % 8 == 0 and 0 <= lo < hi <= k1.DW_WIN_N
             written[n0 + lo:n0 + hi] += 1
             # The window's columns of a stage: strips n0/8.. of it, one run
-            # of DW_PAIR_N * 64 elements from (n0 / 8) * 512.
-            c = n0 + np.arange(k1.DW_PAIR_N)[None, :]
-            local = _store_ws_offset(r, c - n0, k1.DW_PAIR_N)
+            # of DW_WIN_N * 64 elements from (n0 / 8) * 512.
+            c = n0 + np.arange(k1.DW_WIN_N)[None, :]
+            local = _store_ws_offset(r, c - n0, k1.DW_WIN_N)
             inside = c < d_w
             np.testing.assert_array_equal(
                 np.where(inside, _store_ws_offset(r, c, d_w), -1),
                 np.where(inside, (n0 // 8) * 512 + local, -1))
-            end = (n0 // 8) * 512 + k1.DW_PAIR_N * 64  # elements past the stage's start
+            end = (n0 // 8) * 512 + k1.DW_WIN_N * 64  # elements past the stage's start
             if i == len(layout) - 1:
-                assert end - 64 * d_w <= k1.DW_PAIR_N * 64
+                assert end - 64 * d_w <= k1.DW_WIN_N * 64
         np.testing.assert_array_equal(written, 1)
     # The trunk and the merged head (512 and 528 wide) take two windows at 8x512.
     assert split_layers == (9 if hidden == 512 else 0)
 
 
-def _pair_tiles(row):
-    return [tuple(row[1:6]), tuple(row[6:11])]
-
-
 @pytest.mark.parametrize("hidden", [320, 512])
-def test_dw_pairs_share_what_they_read(hidden):
-    """``dw_pairs`` at 8x512 (and 320, padded to it): every (layer, row
-    tile, window) in one pair; a pair sharing D has one window and two row
-    tiles, one sharing A one row tile and two windows; only a lone tile's
-    partner is empty; the pairs of a layer are consecutive."""
+def test_dw_tiles_cover_each_layer_once(hidden):
+    """``dw_tiles`` at 8x512 (and 320, padded to it): every (layer, 128-row
+    tile, window) once, layer by layer; 75 blocks a range, which split the
+    ``wide`` phase's chunk into 4 ranges on 132 SMs (the 128-row tile's
+    rule, ``dw_splits``: about two waves)."""
     mlp = _mlp(hidden, num_layers=8, skip=4, l_xyz=10, l_dir=4)
     layout = k1.workspace_layout(k1.pack_weights_wg(mlp, CPU), k1.pack_weights_bwd_wg(mlp, CPU))
-    pairs = k1.dw_pairs(layout)
-    want = {(li, m0, *w) for li, (_, a_w, _, d_w, _) in enumerate(layout.tolist())
-            for m0 in range(0, a_w, 128) for w in k1.dw_windows(d_w)}
-    got = [t for row in pairs for t in _pair_tiles(row) if t[0] >= 0]
-    assert sorted(got) == sorted(want) and len(got) == len(want)
-    for row in pairs:
-        (la, ma, na, *_), (lb, mb, nb, *_) = _pair_tiles(row)
-        if row[0] == k1.SHARE_D:
-            assert la == lb and na == nb and ma != mb
-        elif row[0] == k1.SHARE_A:
-            assert la == lb and ma == mb and na != nb
-        else:
-            assert row[0] == k1.SHARE_NONE and la >= 0
-    layers = [row[1] for row in pairs if row[0] != k1.SHARE_NONE]
-    assert layers == sorted(layers)
-    assert len(pairs) == 38 and int((pairs[:, 6] < 0).sum()) == 1
-    assert k1.dw_pair_splits(len(pairs), 66, 528) == 5
+    tiles = k1.dw_tiles(layout)
+    want = [(li, m0, *w) for li, (_, a_w, _, d_w, _) in enumerate(layout.tolist())
+            for m0 in range(0, a_w, 128) for w in k1.dw_windows(d_w)]
+    assert sorted(map(tuple, tiles.tolist())) == sorted(want) and len(tiles) == len(want)
+    assert list(tiles[:, 0]) == sorted(tiles[:, 0])
+    assert len(tiles) == 75
+    assert k1.dw_splits(len(tiles), 132, 528 * 64) == 4
 
 
-def _dw_pair_walk(pairs: int, nsplit: int, nst: int, clusters: int):
-    """csrc/nerf_dw_pairs.cuh's walk of one chunk of ``nst`` stages on
-    ``clusters`` clusters (``min(items, clusters)`` launched: launch_dw_pairs):
-    for each cluster its items ``(pair, split, s0, s1)`` in order
-    (mlp_dw_pair_kernel, dw_pair_item)."""
-    items = pairs * nsplit
+def _dw_grid(tiles: int, nsplit: int, nst: int):
+    """csrc/nerf_dw.cuh's grid of one chunk of ``nst`` stages
+    (launch_dw_windows): block (x, y) takes tile x and the stages
+    [s0, s1) of range y."""
     per = -(-nst // nsplit)
-    n = min(items, clusters)
-    walk = []
-    for c in range(n):
-        mine = []
-        for it in range(c, items, n):
-            k, pi = divmod(it, pairs)
-            s0 = min(nst, k * per)
-            mine.append((pi, k, s0, min(nst, s0 + per)))
-        walk.append(mine)
-    return walk
+    return [(x, y, min(nst, y * per), min(nst, min(nst, y * per) + per))
+            for y in range(nsplit) for x in range(tiles)]
 
 
-@pytest.mark.parametrize("clusters", [66, 60, 13, 1])
+@pytest.mark.parametrize("sms", [132, 120, 26, 2])
 @pytest.mark.parametrize("nst", [528, 144, 37, 1])
-def test_dw_pair_walk_covers_every_product_once(nst, clusters):
-    """The pair kernel's walk at 8x512 (``_dw_pair_walk``): at the ``wide``
+def test_dw_grid_covers_every_product_once(nst, sms):
+    """The split tile's dW grid at 8x512 (``_dw_grid``): at the ``wide``
     phase's first chunk (528 stages of 64 samples) and its ragged last
-    (144), and at other chunk sizes and grids, each (pair, split) is one
-    cluster's item, each pair's splits cover its stages [0, nst) once and
-    in order, each written dW entry comes from one tile; items are dealt
-    split-major (the clusters at work together read the same ranges), and
-    no cluster is launched without an item."""
+    (144), and at other chunk sizes and SM counts, each tile's ranges
+    cover its stages [0, nst) once and in order, and each written dW entry
+    comes from one tile."""
     mlp = _mlp(512, num_layers=8, skip=4, l_xyz=10, l_dir=4)
     layout = k1.workspace_layout(k1.pack_weights_wg(mlp, CPU), k1.pack_weights_bwd_wg(mlp, CPU))
-    pairs = k1.dw_pairs(layout)
-    nsplit = k1.dw_pair_splits(len(pairs), clusters, 528)
-    walk = _dw_pair_walk(len(pairs), nsplit, nst, clusters)
-    assert 1 <= len(walk) <= clusters and all(walk)
-    items = [it for mine in walk for it in mine]
-    assert sorted((pi, k) for pi, k, _, _ in items) == [
-        (pi, k) for pi in range(len(pairs)) for k in range(nsplit)]
-    for c, mine in enumerate(walk):
-        assert [pi + k * len(pairs) for pi, k, _, _ in mine] == list(
-            range(c, len(pairs) * nsplit, len(walk)))
-    stages = np.zeros((len(pairs), nst), dtype=int)
-    for pi, k, s0, s1 in items:
-        stages[pi, s0:s1] += 1
+    tiles = k1.dw_tiles(layout)
+    nsplit = k1.dw_splits(len(tiles), sms, 528 * 64)
+    grid = _dw_grid(len(tiles), nsplit, nst)
+    assert len(grid) == len(tiles) * nsplit
+    stages = np.zeros((len(tiles), nst), dtype=int)
+    for x, _, s0, s1 in grid:
+        stages[x, s0:s1] += 1
     np.testing.assert_array_equal(stages, 1)
     out = np.zeros(int((layout[:, 1] * layout[:, 3]).sum()), dtype=int)
-    for row in pairs:
-        for li, m0, n0, lo, hi in _pair_tiles(row):
-            if li < 0:
-                continue
-            _, a_w, _, d_w, off = layout[li].tolist()
-            m = np.arange(m0, min(m0 + 128, a_w))[:, None]
-            c = n0 + np.arange(lo, hi)[None, :]
-            np.add.at(out, (off + m * d_w + c).ravel(), 1)
+    for li, m0, n0, lo, hi in tiles.tolist():
+        _, a_w, _, d_w, off = layout[li].tolist()
+        m = np.arange(m0, min(m0 + 128, a_w))[:, None]
+        c = n0 + np.arange(lo, hi)[None, :]
+        np.add.at(out, (off + m * d_w + c).ravel(), 1)
     np.testing.assert_array_equal(out, 1)
 
 
+def _rays_per_group(s: int, rows: int) -> int:
+    """csrc/nerf_wgmlp.cuh: wg_rays_per_block, whole rays filling whole
+    tiles of ``rows`` rows, at most 640 samples."""
+    if s >= 640:
+        return 1
+    r, cap = rows // math.gcd(s, rows), 640 // s
+    return r if r < cap else max(cap, 1)
+
+
 def _k4_walk(b: int, s: int, hidden: int, sms: int) -> list[list[range]]:
-    """For each of K4's blocks (``quant_render.k4_grid``), the rays of its
-    groups in order (csrc/quant_render_fwd.cu: quant_render_wide_kernel
-    strides over groups of ``rays_per_block`` rays by the grid)."""
-    r = k4.rays_per_block(s, 64 if hidden > 256 else 128)
-    groups, grid = -(-b // r), k4.k4_grid(b, s, hidden, sms)
+    """For each of K4's blocks, the rays of its groups in order
+    (csrc/quant_render_fwd.cu: nkt_quant_render_fwd launches a block per
+    group of rays, at hidden 512 no more than ``sms``, and
+    quant_render_wide_kernel strides over the groups by the grid)."""
+    r = _rays_per_group(s, 64 if hidden > 256 else 128)
+    groups = -(-b // r)
+    grid = min(groups, sms) if hidden > 256 else groups
     return [[range(g * r, min(b, g * r + r)) for g in range(blk, groups, grid)]
             for blk in range(grid)]
 
@@ -508,9 +484,9 @@ def test_k4_walk_covers_every_ray_once(hidden, b, s):
     above the SM count; at 256 one group a block, as before.  Every ray
     once, each group whole rays in order."""
     walk = _k4_walk(b, s, hidden, 132)
-    groups = -(-b // k4.rays_per_block(s, 64 if hidden == 512 else 128))
+    groups = -(-b // _rays_per_group(s, 64 if hidden == 512 else 128))
     assert len(walk) == (min(groups, 132) if hidden == 512 else groups)
-    assert len(walk) == k4.k4_grid(b, s, hidden, 132)
+    assert all(len(mine) >= 1 for mine in walk)
     rays = [r for mine in walk for g in mine for r in g]
     assert sorted(rays) == list(range(b))
     if hidden == 256:
