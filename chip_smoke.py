@@ -317,7 +317,8 @@ nonzero — nothing falls back to the CPU or to a plain path):
     hidden 320 (padded to 512) and 512, within the same gates, each also
     run on a forward pack whose second warpgroup's trunk columns are zero,
     which must miss its gate by 10x; K4 at 320 and 512, and its tables
-    with the skip rows zeroed missing by 10x;
+    with the skip rows zeroed missing by 10x; the same at hidden 1024 (the
+    split tile in column passes of 512: every kernel of the suite and K4);
 26b. ``wide``: the 8x512 main path (``config/lego_batch_h256_tpu.json``
     with HIDDEN_DIM 512: 8 layers, skip 4, L 10/4, 64 + 128 samples, batch
     4096, bf16, random biases): one step's gradients kernel path vs plain
@@ -339,6 +340,17 @@ nonzero — nothing falls back to the CPU or to a plain path):
     K4 on
     tables with the skip layer's x_enc rows zeroed must miss its gates by
     10x;
+26c. ``wide1024``: the same main path at HIDDEN_DIM 1024 (mip-NeRF 360's
+    8x1024 MLP) on the hidden-1024 kernels (column passes of 512): the
+    gradient check on the batch's first 1,024 rays (the plain path's
+    autograd over 4,096 x 192 samples would not fit the card), 10 parity
+    steps at batch 4096 whose loss falls, peak <= 1,280 MiB a step, and 2
+    more through the recompute path (K1 + K3); the float and int8 200x200
+    frames; then K1, K1-train, K2 and K3 (K2's bits)
+    at B = 4096, S = 192 and K4 at B = 16384, S = 192 against their plain
+    versions (the plain K2 and K4 over chunks of rays), with the broken dW
+    plan and K4 tables, times, bounds and yardsticks, for the kernels
+    line's 8x1024 entries; the one-tile suite at 1024;
 27. ``f32``: COMPUTE_DTYPE=float32 at ``lego_batch_h256_tpu``'s widths:
     (a) each f32 kernel (``csrc/fused_render_f32.cu``: K1 both modes, K2,
     K3, K5 forward and backward with input gradients, K6 forward and
@@ -599,6 +611,11 @@ SOURCES = {
 F32_SOURCE = "nerf_keras_tpu_torch/csrc/fused_render_f32.cu"
 SOURCES.update({f"{k}-f32": (F32_SOURCE, SOURCES[k][1])
                 for k in ("K1", "K2", "K3", "K5f", "K5b", "K6f", "K6b")})
+# K2 at 8x512 and 8x1024, and K3 at 8x1024: the rows kernel's libraries of
+# those widths.
+SOURCES.update({f"K2-{w}": (f"nerf_keras_tpu_torch/csrc/fused_render_bwd_{w}.cu",
+                            SOURCES["K2"][1]) for w in (512, 1024)})
+SOURCES["K3-1024"] = (SOURCES["K2-1024"][0], SOURCES["K3"][1])
 
 
 def say(phase: str, **fields) -> None:
@@ -4230,7 +4247,7 @@ F32_TOL_REL = 1e-5
 F32_STEP_TOL_REL = 1e-3
 WIDTHS_PADDED = (16, 96, 192)
 WIDTHS_NATIVE = (64, 128, 256)
-WIDTHS_WIDE = (320, 512)  # the hidden-512 kernels: 320 padded, 512 native
+WIDTHS_WIDE = (320, 512, 1024)  # the split tile: 320 padded to 512, 512 and 1024 native
 
 
 def peak_f32() -> float:
@@ -4484,11 +4501,12 @@ def phase_widths(card: str) -> dict:
         launches = counts()
         bad = [n for n, e in res.items() if not (e["finite"] and _bf16_gate_ok(n, e))]
         unseen = [n for n, e in res.items() if not e["broken_miss"] >= 10.0]
-        # At 512, K3's, K5's and K6's bounds and yardsticks at these shapes
-        # (the 8x512 main path runs K1 and K2 alone): the forward's
-        # products, the dW product's and the whole backward's.
+        # At 512 and 1024, K3's, K5's and K6's bounds and yardsticks at
+        # these shapes (the 8x512 and 8x1024 main paths run K1, K2 and K4
+        # alone): the forward's products, the dW product's and the whole
+        # backward's.
         yard = {}
-        if hidden == WIDE_HIDDEN:
+        if hidden in (WIDE_HIDDEN, WIDE1024_HIDDEN):
             fwd5, bwd5 = k5_bounds(mlp, b * s, False)
             fwd6, bwd6 = k6_bounds(mlp, b, s)
             yard = {"bound": {"k3": k3_bound(mlp, b, s), "k5_fwd": fwd5, "k5_bwd": bwd5,
@@ -4567,20 +4585,59 @@ def phase_widths(card: str) -> dict:
 # config/lego_batch_h256_tpu.json with HIDDEN_DIM 512, the widest the
 # one-block kernels take (ROADMAP.md queue 2 A3).
 WIDE_HIDDEN = 512
+# Phase 26c: the same main path at HIDDEN_DIM 1024, mip-NeRF 360's 8x1024
+# MLP (Barron et al., CVPR 2022), on the column passes of the hidden-1024
+# kernels.
+WIDE1024_HIDDEN = 1024
 # Steps on one fixed batch: Adam's first updates at lr 5e-4 raise the loss
 # at 8x512 before it falls (on an H100: 0.0853, 0.1082, 0.0871 over the
 # first three), so the loss is held to fall over this many.
 WIDE_STEPS = 10
+# At 8x1024 the plain path's autograd over the step's 4,096 x 192 samples
+# would hold more than the card's 80 GB (every layer's float32 activations),
+# so the step's gradient check takes the first 1,024 rays of the batch, and
+# the plain K2 (and K4) run over chunks of PLAIN_RAYS_1024 rays (the same
+# function: the gradients of a batch are the sum of its chunks').
+WIDE1024_CHECK_RAYS = 1024
+PLAIN_RAYS_1024 = 1024
+# A training step's peak at 8x1024 (the K2 workspace of one 640 MiB chunk,
+# K1's residuals, the weights, their gradients and Adam's moments: 896.1
+# MiB on an "NVIDIA H100 80GB HBM3, 700.00 W", against 8x512's 849.0),
+# held apart from STEP_PEAK_MIB.
+WIDE1024_STEP_PEAK_MIB = 1280
+# Steps of the 8x1024 phase's trainer through the recompute path (K1 in
+# training mode + K3), after its 10 on the default path: K3's launches on
+# the phase's main path.
+WIDE1024_K3_STEPS = 2
 
 
-def wide_config() -> NeRFConfig:
-    return dataclasses.replace(load_config(CONFIG), hidden_dim=WIDE_HIDDEN)
+def wide_config(hidden: int = WIDE_HIDDEN) -> NeRFConfig:
+    return dataclasses.replace(load_config(CONFIG), hidden_dim=hidden)
 
 
-def _wide_kernels(card: str, mlp: NeRFMLP, qp: dict) -> dict:
+def _plain_vjp(mlp, o, d, t, g_rgb, g_w, rays: int):
+    """``render_rays_reference_vjp`` over chunks of ``rays`` rays, the
+    chunks' gradients summed (the batch's own)."""
+    b = o.shape[0]
+    parts = [k1.render_rays_reference_vjp(mlp, o[r:r + rays], d[r:r + rays], t[r:r + rays],
+                                          g_rgb[r:r + rays],
+                                          None if g_w is None else g_w[r:r + rays])
+             for r in range(0, b, rays)]
+    return [sum(g) for g in zip(*parts)]
+
+
+def _plain_k4(qp, o, d, t, rays: int):
+    """``render_rays_reference_quant`` over chunks of ``rays`` rays."""
+    parts = [k4.render_rays_reference_quant(qp, o[r:r + rays], d[r:r + rays], t[r:r + rays])
+             for r in range(0, o.shape[0], rays)]
+    return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+
+
+def _wide_kernels(card: str, mlp: NeRFMLP, qp: dict, hidden: int = WIDE_HIDDEN) -> dict:
     """K1, K1 in training mode and K2 at B = 4096, S = 192 (the parity
     step's fine pass) and K4 at B = 16384, S = 192 (the server's chunk) on
-    the 8x512 model: each against its plain version, CUDA-event times,
+    the 8x512 (or 8x1024: K3 too, the plain K2 and K4 over chunks of rays)
+    model: each against its plain version, CUDA-event times,
     bounds and library yardsticks, with a broken dW plan and broken K4
     tables that must miss the gates by 10x; K2's device ms per kernel and
     the dW product's beside its bound and library call; K2 and K5's
@@ -4593,6 +4650,8 @@ def _wide_kernels(card: str, mlp: NeRFMLP, qp: dict) -> dict:
     b, s = o.shape[0], 192
     t = generate_t_vals(2.0, 6.0, (b,), s, "stratified", generator=gen).to(dev).contiguous()
     g_rgb = (torch.randn((b, 3), generator=gen) * 1e-3).to(dev)
+    tag = "wide" if hidden == WIDE_HIDDEN else f"wide{hidden}"
+    plain_rays = b if hidden == WIDE_HIDDEN else PLAIN_RAYS_1024
     out = {}
     with torch.no_grad():
         rgb, w = k1.render_rays_fused(mlp, o, d, t)
@@ -4608,16 +4667,16 @@ def _wide_kernels(card: str, mlp: NeRFMLP, qp: dict) -> dict:
         del d_enc
     errs = _errs((rgb, w), (rgb_p, w_p))
     if not (torch.equal(rgb, rgb_t) and torch.equal(w, w_t)):
-        raise RuntimeError("wide: K1 in training mode changed its rgb/weights")
+        raise RuntimeError(f"{tag}: K1 in training mode changed its rgb/weights")
     if (max(errs["rgb_max"], errs["w_max"]) > TOL_MAX
             or max(errs["rgb_mean"], errs["w_mean"]) > TOL_MEAN or preds_err > PREDS_TOL):
-        raise RuntimeError(f"wide: K1 disagrees with the plain version: {errs}, {preds_err}")
-    want = k1.render_rays_reference_vjp(mlp, o, d, t, g_rgb, None)
-    plain_ms = cuda_ms(lambda: k1.render_rays_reference_vjp(mlp, o, d, t, g_rgb, None), reps=3)
+        raise RuntimeError(f"{tag}: K1 disagrees with the plain version: {errs}, {preds_err}")
+    want = _plain_vjp(mlp, o, d, t, g_rgb, None, plain_rays)
+    plain_ms = cuda_ms(lambda: _plain_vjp(mlp, o, d, t, g_rgb, None, plain_rays), reps=3)
     torch.cuda.empty_cache()
     max_abs, rel = _leaf_errors(got, want)
     if rel > K2_TOL_REL or not all(bool(torch.isfinite(g).all()) for g in got):
-        raise RuntimeError(f"wide: K2 disagrees with the plain backward: rel L2 {rel}")
+        raise RuntimeError(f"{tag}: K2 disagrees with the plain backward: rel L2 {rel}")
     # The dW product with a tile left out must miss K2's gate by 10x.
     alloc = k1.DwBuffers.allocate
     k1.DwBuffers.allocate = staticmethod(_broken_dw_allocate(alloc))
@@ -4627,9 +4686,18 @@ def _wide_kernels(card: str, mlp: NeRFMLP, qp: dict) -> dict:
     finally:
         k1.DwBuffers.allocate = alloc
     bad_rel = _leaf_errors(bad, want)[1]
-    del want, got, bad
+    del want, bad
     if not bad_rel >= 10 * K2_TOL_REL:
-        raise RuntimeError(f"wide: a dW product missing a tile passes K2's gate: {bad_rel}")
+        raise RuntimeError(f"{tag}: a dW product missing a tile passes K2's gate: {bad_rel}")
+    if hidden != WIDE_HIDDEN:  # K3 (the rays encoded again): K2's bits, and its time
+        with torch.no_grad():
+            k3_fn = lambda: k1.launch_k3(mlp, o, d, t, preds, g_rgb, None, 10, 4)  # noqa: E731
+            k3_bits = all(torch.equal(a, c) for a, c in zip(k3_fn(), got))
+            out["k3"] = {"bits_equal_k2": k3_bits, "ms": cuda_ms(k3_fn, reps=5),
+                         "bound": k3_bound(mlp, b, s)}
+        if not k3_bits:
+            raise RuntimeError(f"{tag}: K3 does not give K2's bits")
+    del got
     with torch.no_grad():
         out["k1"] = {"err": max(errs["rgb_max"], errs["w_max"]),
                      "ms": cuda_ms(lambda: k1.render_rays_fused(mlp, o, d, t), reps=5),
@@ -4659,6 +4727,8 @@ def _wide_kernels(card: str, mlp: NeRFMLP, qp: dict) -> dict:
         del d5, g5, k5_runs
     del x_enc, preds, rgb_p, w_p
     torch.cuda.empty_cache()
+    if "k3" in out:
+        out["k3"]["plain_ms"] = plain_ms
     out["k1"]["library_ms"] = out["k1_train"]["library_ms"] = library_products_ms(
         k1.kernel_pack(mlp, dev).desc, b * s, torch.bfloat16, dev)
     out["k2"]["library_ms"] = out["dw"]["library_ms"] = _dw_library_ms(mlp, dev, b * s)
@@ -4673,93 +4743,123 @@ def _wide_kernels(card: str, mlp: NeRFMLP, qp: dict) -> dict:
                          generator=gen).to(dev).contiguous()
     got4 = k4.render_rays_fused_quant(qp, o4, d4, t4)
     torch.cuda.synchronize()
-    want4 = k4.render_rays_reference_quant(qp, o4, d4, t4)
+    rays4 = o4.shape[0] if hidden == WIDE_HIDDEN else 4 * PLAIN_RAYS_1024
+    want4 = _plain_k4(qp, o4, d4, t4, rays4)
     e4 = _errs(got4, want4)
     if _miss(e4) > 1.0:
-        raise RuntimeError(f"wide: K4 disagrees with the plain version: {e4}")
+        raise RuntimeError(f"{tag}: K4 disagrees with the plain version: {e4}")
     # Tables with the skip layer's x_enc rows zeroed must miss K4's gates by 10x.
-    bad4 = _errs(k4.render_rays_fused_quant(
-        _broken_qparams(qp, k1.kernel_width(WIDE_HIDDEN, k4.K4_HIDDEN), 4, "skip"), o4, d4, t4),
-        want4)
+    hq = k1.kernel_width(hidden, k4.K4_HIDDEN)
+    bad4 = _errs(k4.render_rays_fused_quant(_broken_qparams(qp, hq, 4, "skip"), o4, d4, t4),
+                 want4)
     del want4
     if _miss(bad4) < 10.0:
-        raise RuntimeError(f"wide: K4 on broken tables passes its gates: {bad4}")
+        raise RuntimeError(f"{tag}: K4 on broken tables passes its gates: {bad4}")
     out["k4"] = {"err": max(e4["rgb_max"], e4["w_max"]), "broken_miss": _miss(bad4),
                  "ms": cuda_ms(lambda: k4.render_rays_fused_quant(qp, o4, d4, t4), reps=5),
-                 "plain_ms": cuda_ms(lambda: k4.render_rays_reference_quant(qp, o4, d4, t4),
-                                     reps=3),
+                 "plain_ms": cuda_ms(lambda: _plain_k4(qp, o4, d4, t4, rays4), reps=3),
                  "bound": k4_bound(mlp, o4.shape[0], s)}
     del got4
     torch.cuda.empty_cache()
-    hq = k1.kernel_width(WIDE_HIDDEN, k4.K4_HIDDEN)
     out["k4"]["library_ms"] = library_products_ms(
         k4.kernel_pack(qp, dev).desc, o4.shape[0] * s, torch.int8, dev)
-    say("wide_kernels", hidden=WIDE_HIDDEN, k4_width=hq, B=b, S=s, B_k4=o4.shape[0],
+    say(f"{tag}_kernels", hidden=hidden, k4_width=hq, B=b, S=s, B_k4=o4.shape[0],
+        plain_rays_per_call=plain_rays, plain_k4_rays_per_call=rays4,
         k1_errs=errs, k2_rel_l2=rel, tol_rel=K2_TOL_REL, k4_errs=e4,
         k2_bits_repeat=k2_bits, k5_bwd_bits_repeat=k5_bits, one_tile=one_tile,
         one_tile_failed=one_bad,
         **{k: {n: v for n, v in e.items()} for k, e in out.items()}, card=card)
     if not (k2_bits and k5_bits):
-        raise RuntimeError(f"wide: run twice, K2 ({k2_bits}) or K5's backward ({k5_bits}) "
+        raise RuntimeError(f"{tag}: run twice, K2 ({k2_bits}) or K5's backward ({k5_bits}) "
                            f"gave other bits")
     if one_bad:
-        raise RuntimeError(f"wide: on one tile {one_bad} miss the bf16 gates: {one_tile}")
+        raise RuntimeError(f"{tag}: on one tile {one_bad} miss the bf16 gates: {one_tile}")
     return out
 
 
-def phase_wide(card: str, tmp: str) -> tuple[list[dict], dict]:
+def phase_wide(card: str, tmp: str, hidden: int = WIDE_HIDDEN) -> tuple[list[dict], dict]:
     """Phase 26b (module docstring): the 8x512 main path, then its kernels'
-    numbers.  Returns the main path's launches and ``_wide_kernels``."""
-    cfg = wide_config()
+    numbers; phase 26c at ``hidden`` 1024 (its gradient check on the first
+    WIDE1024_CHECK_RAYS rays, its steps' peak held to
+    WIDE1024_STEP_PEAK_MIB, no HTTP frame).  Returns the main path's
+    launches and ``_wide_kernels``."""
+    tag = "wide" if hidden == WIDE_HIDDEN else f"wide{hidden}"
+    cfg = wide_config(hidden)
     n_chunks = -(-200 * 200 // 16384)
     pose = pose_spherical(30.0, -30.0, 4.0)
     trainer = Trainer(cfg, 2.0, 6.0, device="cuda")
     for m in trainer.params.values():
         randomize_biases_(m, torch.Generator().manual_seed(5))
     batch = trainer.put_batch(bench_batch(cfg.batch_size))
+    check_cfg, check_batch = cfg, batch
+    if hidden != WIDE_HIDDEN:
+        check_cfg = dataclasses.replace(cfg, batch_size=WIDE1024_CHECK_RAYS)
+        check_batch = trainer.put_batch(bench_batch(WIDE1024_CHECK_RAYS))
     torch.cuda.reset_peak_memory_stats()
     losses, by_model, max_abs, _ = _grads_kernel_vs_plain(
-        cfg, trainer, batch, [(cfg.batch_size, cfg.ns_fine)], seed=7)
+        check_cfg, trainer, check_batch, [(check_cfg.batch_size, cfg.ns_fine)], seed=7)
     rel = max(max(v) for v in by_model.values())
-    say("wide_grads_vs_plain", hidden=cfg.hidden_dim, rays=cfg.batch_size,
+    say(f"{tag}_grads_vs_plain", hidden=cfg.hidden_dim, rays=check_cfg.batch_size,
         loss_kernel=losses[0], loss_plain=losses[1], max_abs_err=max_abs, max_rel_l2=rel,
         tol_rel=STEP_TOL_REL, peak_mib=torch.cuda.max_memory_allocated() / 2**20, card=card)
     if rel > STEP_TOL_REL:
-        raise RuntimeError(f"wide: kernel-path gradients disagree with the plain path: {rel}")
+        raise RuntimeError(f"{tag}: kernel-path gradients disagree with the plain path: {rel}")
+    del check_batch
     torch.cuda.empty_cache()
     run = _train_steps(trainer, batch, WIDE_STEPS, dict(ZERO, k1_train=2, k2=2))
-    say("wide_train", hidden=cfg.hidden_dim, steps=WIDE_STEPS, **run, card=card)
+    peak_bound = STEP_PEAK_MIB if hidden == WIDE_HIDDEN else WIDE1024_STEP_PEAK_MIB
+    say(f"{tag}_train", hidden=cfg.hidden_dim, steps=WIDE_STEPS, peak_bound_mib=peak_bound,
+        **run, card=card)
     if not (all(np.isfinite(x) for x in run["loss_curve"])
             and run["loss_curve"][-1] < run["loss_curve"][0]):
-        raise RuntimeError(f"wide: the loss did not fall: {run['loss_curve']}")
-    if run["peak_step_mib"] > STEP_PEAK_MIB:
-        raise RuntimeError(f"wide: a step peaked at {run['peak_step_mib']} MiB")
+        raise RuntimeError(f"{tag}: the loss did not fall: {run['loss_curve']}")
+    if run["peak_step_mib"] > peak_bound:
+        raise RuntimeError(f"{tag}: a step peaked at {run['peak_step_mib']} MiB")
     launches = [run["launches"]]
+    if hidden != WIDE_HIDDEN:  # and WIDE1024_K3_STEPS through the recompute path (K1 + K3)
+        step_fn = make_train_step(cfg, 2.0, 6.0,
+                                  render_pass=exp_train_paths.variant_pass(cfg, "c"))
+        run_c = _train_steps(trainer, batch, WIDE1024_K3_STEPS, dict(ZERO, k1_train=2, k3=2),
+                             step_fn=step_fn)
+        say(f"{tag}_train_recompute", hidden=cfg.hidden_dim, steps=WIDE1024_K3_STEPS,
+            peak_bound_mib=peak_bound, **run_c, card=card)
+        if not all(np.isfinite(x) for x in run_c["loss_curve"]):
+            raise RuntimeError(f"{tag}: non-finite losses on K3: {run_c['loss_curve']}")
+        if run_c["peak_step_mib"] > peak_bound:
+            raise RuntimeError(f"{tag}: a K3 step peaked at {run_c['peak_step_mib']} MiB")
+        launches.append(run_c["launches"])
     reset_counts()
     t0 = time.perf_counter()
     frame = trainer.render_image(pose, 200, 200, 240.0)
     frame_s = time.perf_counter() - t0
     launches.append(counts())
     if launches[-1] != dict(ZERO, k1_fwd=2 * n_chunks):
-        raise RuntimeError(f"wide: the float frame launched {launches[-1]}")
+        raise RuntimeError(f"{tag}: the float frame launched {launches[-1]}")
     rgb = frame["rgb"]
     if not (np.isfinite(rgb).all() and np.isfinite(frame["depth"]).all()) or rgb.std() == 0:
-        raise RuntimeError("wide: a non-finite or constant float frame")
+        raise RuntimeError(f"{tag}: a non-finite or constant float frame")
     trainer.quantize_for_inference(*trainer.pose_rays(pose, 200, 200, 240.0))
     reset_counts()
     qframe = trainer.render_image(pose, 200, 200, 240.0, quant=True)
     launches.append(counts())
     psnr = frame_psnr(rgb, qframe["rgb"])
-    say("wide_frames", size=200, float_s=frame_s, float_launches=launches[-2],
+    say(f"{tag}_frames", size=200, float_s=frame_s, float_launches=launches[-2],
         int8_launches=launches[-1], int8_psnr_vs_float_db=psnr, gate_db=QUANT_GATE_DB,
         card=card)
     if launches[-1] != dict(ZERO, k4=2 * n_chunks):
-        raise RuntimeError(f"wide: the int8 frame launched {launches[-1]}")
+        raise RuntimeError(f"{tag}: the int8 frame launched {launches[-1]}")
     if not (np.isfinite(qframe["rgb"]).all() and psnr >= QUANT_GATE_DB):
-        raise RuntimeError(f"wide: the int8 frame reads {psnr} dB against the float frame")
+        raise RuntimeError(f"{tag}: the int8 frame reads {psnr} dB against the float frame")
+    mlp, qp = trainer.params["fine"], trainer.qparams["fine"]
+    if hidden != WIDE_HIDDEN:
+        del batch
+        torch.cuda.empty_cache()
+        kernels = _wide_kernels(card, mlp, qp, hidden)
+        del trainer
+        torch.cuda.empty_cache()
+        return launches, kernels
     ckpt = os.path.join(tmp, "wide.ckpt.npz")
     trainer.save(ckpt, scene={"near": 2.0, "far": 6.0})
-    mlp, qp = trainer.params["fine"], trainer.qparams["fine"]
     service = RenderService(cfg, ckpt, device="cuda")
     server = serve(service, port=0)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
@@ -5262,6 +5362,8 @@ def main() -> None:
         torch.cuda.empty_cache()
         wide_runs, wide = phase_wide(card, tmp)
         torch.cuda.empty_cache()
+        wide1024_runs, wide1024 = phase_wide(card, tmp, WIDE1024_HIDDEN)
+        torch.cuda.empty_cache()
         f32_runs, f32r = phase_f32(card, tmp)
         runs += f32_runs
         torch.cuda.empty_cache()
@@ -5338,15 +5440,27 @@ def main() -> None:
                  "K6f-f32": "k6_fwd", "K6b-f32": "k6_bwd"}[key]]
         kernels.append(kernel_entry(name, key, _sum(runs, count), e["max_abs"], e["ms"],
                                     e["plain_ms"], (e["bound_ms"], e["bound_by"]), library))
-    # The 8x512 kernels (phase 26b), each with its launches on phase 26b's
-    # main path.
-    for name, key, count in (("K1 fused_render_fwd (8x512)", "K1", "k1"),
-                             ("K1-train fused_render_fwd (residuals, 8x512)", "K1", "k1_train"),
-                             ("K2 fused_render_bwd (8x512)", "K2", "k2"),
-                             ("K4 quant_render_fwd (8x512)", "K4", "k4")):
-        e = wide[count]
-        kernels.append(kernel_entry(name, key, _sum(wide_runs, "k1_fwd" if count == "k1" else count),
-                                    e["err"], e["ms"], e["plain_ms"], e["bound"], e["library_ms"]))
+    # The 8x512 and 8x1024 kernels (phases 26b and 26c), each with its
+    # launches on its phase's main path.
+    for width, res, runs_w in ((WIDE_HIDDEN, wide, wide_runs),
+                               (WIDE1024_HIDDEN, wide1024, wide1024_runs)):
+        for name, key, count in (("K1 fused_render_fwd", "K1", "k1"),
+                                 ("K1-train fused_render_fwd (residuals)", "K1", "k1_train"),
+                                 ("K2 fused_render_bwd", "K2", "k2"),
+                                 ("K4 quant_render_fwd", "K4", "k4")):
+            e = res[count]
+            label = (name[:-1] + f", 8x{width})") if name.endswith(")") else f"{name} (8x{width})"
+            key = f"K2-{width}" if key == "K2" else key
+            kernels.append(kernel_entry(label, key,
+                                        _sum(runs_w, "k1_fwd" if count == "k1" else count),
+                                        e["err"], e["ms"], e["plain_ms"], e["bound"],
+                                        e["library_ms"]))
+    # K3 at 8x1024 gives K2's bits on K2's inputs: K2's error, plain
+    # version and library call.
+    e, e2 = wide1024["k3"], wide1024["k2"]
+    kernels.append(kernel_entry(f"K3 fused_render_bwd (recompute, 8x{WIDE1024_HIDDEN})",
+                                f"K3-{WIDE1024_HIDDEN}", _sum(wide1024_runs, "k3"), e2["err"],
+                                e["ms"], e["plain_ms"], e["bound"], e2["library_ms"]))
     say("widths_ms", ms={str(k): v for k, v in wr["ms"].items()}, card=card)
     for entry in kernels:
         if entry["launches"] == 0:

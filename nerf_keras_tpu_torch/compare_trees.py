@@ -59,6 +59,12 @@ parent).  Phases:
   whether each tree's outputs equal the first tree's bit for bit, or the
   largest difference; a run of this phase alone builds only the bf16 MLP
   sources and K4's;
+* ``wide1024``: the same at hidden 1024 (the column passes of the
+  hidden-1024 kernels): K1, K1's training form and K2 at B=4096, S=192,
+  K3, K5 and K6 at B=1,024, S=64, K2's device ms per kernel, K4 at the
+  server's chunk, the 1024 instantiations' ``-Xptxas -v`` lines, then the
+  8x1024 parity step; the outputs' bits against the first tree's in a last
+  line ``BITS1024``;
 * ``decode``: the tree's image decoders on the card's host (no kernel;
   a run of this phase alone builds none): an 800x800 RGBA PNG whose every
   row is Paeth, at 8 and 16 bits (written once by this tree's
@@ -89,10 +95,10 @@ out = {"tree": os.getcwd()}
 if phases in (["k7"], ["f32"]):
     _build._sources = lambda: [_build.CSRC / ("pdf_union.cu" if phases == ["k7"] else
                                               "fused_render_f32.cu")]
-if phases == ["wide"]:
-    _build._sources = lambda: [_build.CSRC / f"{stem}.cu" for stem in
-                               ("fused_render_fwd", "fused_render_bwd", "fused_mlp_fwd",
-                                "quant_render_fwd")]
+if set(phases) <= {"wide", "wide1024"}:  # those of these sources the tree has
+    _build._sources = lambda: [p for p in (_build.CSRC / f"{stem}.cu" for stem in (
+        "fused_render_fwd", "fused_render_bwd", "fused_render_bwd_512", "fused_render_bwd_1024",
+        "fused_mlp_fwd", "quant_render_fwd")) if p.exists()]
 if phases != ["decode"]:
     _build.build()
 
@@ -297,6 +303,50 @@ if "wide" in phases:
     torch.save(saved, os.path.join(sys.argv[2], f"wide_{sys.argv[3]}.pt"))
     del saved
     time_steps("wide_", (("parity", cs.wide_config()),))
+if "wide1024" in phases:
+    import re
+    import chip_smoke as cs
+    from nerf_keras_tpu_torch.ops.kernels import quant_render as k4
+    from nerf_keras_tpu_torch.ops.rays import get_rays, pose_spherical
+    from nerf_keras_tpu_torch.ops.sampling import generate_t_vals
+    from nerf_keras_tpu_torch.runtime import configure_numerics, cuda_ms
+    configure_numerics()
+    name = None
+    out["wide1024_ptxas"] = []
+    for ln in _build.build_log.splitlines():
+        found = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", ln)
+        if found:
+            name = found.group(1)
+        elif name and ("ILi1024E" in name or "Li1024" in name) and ("Used" in ln or "spill" in ln):
+            out["wide1024_ptxas"].append(f"{name}: {ln.strip()}")
+    dev = torch.device("cuda")
+    saved = {}
+    for b, s, names in ((4096, 192, ("k1", "k1_train", "k2")),
+                        (1024, 64, ("k3", "k5_fwd", "k5_bwd", "k6_fwd", "k6_bwd"))):
+        mlp = cs._suite_mlp(dev, 1024, seed=1025)
+        x = cs._suite_inputs(mlp, b, s, seed=1025)
+        calls = cs._suite_calls(mlp, x)
+        with torch.no_grad():
+            for name in names:
+                saved[name] = [t.detach().cpu() for t in calls[name]()]
+                out[f"wide1024_{name}_ms"] = cuda_ms(calls[name], reps=5 if name == "k2" else 10)
+            if "k2" in names:
+                out["wide1024_k2_device_ms"] = cs.device_ms_by_kernel(calls["k2"], cs.K2_STAGES)
+        del mlp, x, calls
+        torch.cuda.empty_cache()
+    o, d = get_rays(128, 128, 153.6, pose_spherical(30.0, -30.0, 4.0), device=dev)
+    o, d = o.reshape(-1, 3).contiguous(), d.reshape(-1, 3).contiguous()
+    t = generate_t_vals(2.0, 6.0, (o.shape[0],), 192, "stratified",
+                        generator=torch.Generator().manual_seed(4)).to(dev).contiguous()
+    qp = cs._calibrated_qparams(cs._suite_mlp(dev, 1024, seed=1026), dev)
+    run = lambda: k4.render_rays_fused_quant(qp, o, d, t)  # noqa: E731
+    saved["k4_1024"] = [a.cpu() for a in run()]
+    out["wide1024_k4_ms"] = cuda_ms(run, reps=5)
+    del qp
+    torch.cuda.empty_cache()
+    torch.save(saved, os.path.join(sys.argv[2], f"wide1024_{sys.argv[3]}.pt"))
+    del saved
+    time_steps("wide1024_", (("parity", cs.wide_config(1024)),))
 if "decode" in phases:
     from nerf_keras_tpu_torch.utils import jpeg, png
 
@@ -327,13 +377,14 @@ print("TREE " + json.dumps(out), flush=True)
 '''
 
 
-def _same_bits(tmp: str, trees: list[str]) -> dict:
-    """Per tree after the first and per kernel of the ``wide`` phase: True
-    where every output equals the first tree's bit for bit, else the
-    largest absolute difference (a tree that saved nothing: None)."""
+def _same_bits(tmp: str, trees: list[str], phase: str = "wide") -> dict:
+    """Per tree after the first and per kernel of the ``wide`` (or
+    ``wide1024``) phase: True where every output equals the first tree's
+    bit for bit, else the largest absolute difference (a tree that saved
+    nothing: None)."""
     import torch
 
-    runs = [os.path.join(tmp, f"wide_{i}.pt") for i in range(len(trees))]
+    runs = [os.path.join(tmp, f"{phase}_{i}.pt") for i in range(len(trees))]
     if not os.path.exists(runs[0]):
         return {}
     first = torch.load(runs[0])
@@ -355,12 +406,12 @@ def main() -> None:
     parser.add_argument("trees", nargs="+", help="checkout roots, in run order")
     parser.add_argument("--phases", default="kernels,steps",
                         help="comma-separated: kernels, k1k2, k4, k7, serve, steps, f32, "
-                             "wide, decode")
+                             "wide, wide1024, decode")
     parser.add_argument("--timeout", type=float, default=900.0,
                         help="seconds allowed to each tree's process")
     args = parser.parse_args()
     unknown = set(args.phases.split(",")) - {"kernels", "k1k2", "k4", "k7", "serve", "steps",
-                                             "f32", "wide", "decode"}
+                                             "f32", "wide", "wide1024", "decode"}
     if unknown:
         raise SystemExit(f"unknown phases: {sorted(unknown)}")
     pngs = tempfile.TemporaryDirectory()
@@ -384,6 +435,9 @@ def main() -> None:
                   file=sys.stderr, flush=True)
     if "wide" in args.phases.split(","):
         print("BITS " + json.dumps(_same_bits(pngs.name, args.trees)), flush=True)
+    if "wide1024" in args.phases.split(","):
+        print("BITS1024 " + json.dumps(_same_bits(pngs.name, args.trees, "wide1024")),
+              flush=True)
     pngs.cleanup()
     sys.exit(1 if failed else 0)
 

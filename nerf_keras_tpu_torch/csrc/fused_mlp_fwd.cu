@@ -56,6 +56,7 @@ struct Params {
   const __nv_bfloat16* w;      // the wgmma pack
   const float* b;
   float* preds;  // (N, 4)
+  __nv_bfloat16* park;  // (grid, 64, kPassCols): hidden 1024, else null
   long long N;
   int ntiles, stages, stage_bytes;
   MlpDims m;
@@ -102,6 +103,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   __nv_bfloat16* wact = act + wrow * ldx;
   float* wsig = sig + wrow;
   float* wrgb = rgbl + wrow * 3;
+  __nv_bfloat16* wpark = T::kParked ? p.park + ((size_t)blockIdx.x * 64 + wrow) * kPassCols
+                                    : nullptr;
   RingPos rp;
   for (int i = 0, tile = blockIdx.x; i < steps; ++i, tile += gridDim.x) {
     if (tile >= p.ntiles) {  // a phantom tile of the split tile's cluster
@@ -123,7 +126,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       wact[row * ldx + c] = xf(row, c);
     }
     rows_sync<H>();
-    mlp_forward_wg<H>(m, p.b, wact, xf, dir, wsig, wrgb, valid, ring, rp);
+    mlp_forward_wg<H>(m, p.b, wact, xf, dir, wsig, wrgb, valid, ring, rp, wpark);
     float* out = p.preds + q0 * 4;
     for (int i = peer_lane<H>(); i < valid * 4; i += T::kLanes) {
       const int row = i >> 2, c = i & 3;
@@ -140,18 +143,21 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 // (ops/kernels/fused_render.py: pack_weights_wg); `dense_desc` is a HOST
 // array of n_dense * 5 ints (k_pad, n, n_pad, w_off, b_off) in the order
 // trunk[0..num_layers), merged feature+sigma head, branch, rgb.  hidden is
-// 64, 128, 256 or 512.  `grid` blocks (at most the SMs) stride over the
-// ceil(N / rows) tiles (wg_rows: 128, or 64 at hidden 512).  Launches on `stream` and returns
+// 64, 128, 256, 512 or 1024.  `grid` blocks (at most the SMs) stride over
+// the ceil(N / rows) tiles (wg_rows: 128, or 64 above 256); at hidden 1024
+// `park` holds grid x wg_glob_bytes(1024, ., false) bytes (nerf_wgmlp.cuh:
+// the column passes' park), else it is ignored.  Launches on `stream` and returns
 // cudaGetLastError() (0 on success); does not synchronise and allocates
 // nothing.
 extern "C" int nkt_fused_mlp_fwd(
     const void* x_enc, const void* d_enc, const void* w_pack, const void* b_pack,
     const void* dense_desc, int n_dense, int num_layers, int skip_layer, int hidden,
-    int l_xyz, int l_dir, int N, int grid, void* preds_out, int device, void* stream) {
+    int l_xyz, int l_dir, int N, int grid, void* preds_out, void* park, int device,
+    void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   Params p;
-  if (N <= 0 || grid <= 0 || !wg_hidden_ok(hidden) ||
+  if (N <= 0 || grid <= 0 || !wg_hidden_ok(hidden) || (hidden > kPassCols && park == nullptr) ||
       !mlp_dims_init(p.m, static_cast<const int*>(dense_desc), n_dense, num_layers,
                      skip_layer, hidden, l_xyz, l_dir) ||
       !wg_dims_ok(p.m))
@@ -161,6 +167,7 @@ extern "C" int nkt_fused_mlp_fwd(
   p.w = static_cast<const __nv_bfloat16*>(w_pack);
   p.b = static_cast<const float*>(b_pack);
   p.preds = static_cast<float*>(preds_out);
+  p.park = static_cast<__nv_bfloat16*>(park);
   p.N = N;
   const int rows = wg_rows(hidden);
   p.ntiles = (N + rows - 1) / rows;
@@ -175,6 +182,7 @@ extern "C" int nkt_fused_mlp_fwd(
   if (hidden == 64) kernel = fused_mlp_fwd_kernel<64>;
   if (hidden == 128) kernel = fused_mlp_fwd_kernel<128>;
   if (hidden == 512) kernel = fused_mlp_fwd_kernel<512>;
+  if (hidden == 1024) kernel = fused_mlp_fwd_kernel<1024>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);

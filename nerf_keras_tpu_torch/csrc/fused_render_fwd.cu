@@ -86,6 +86,14 @@
 // drain the rest of the stages.  The grid is rounded up to whole clusters
 // (a block past B walks only phantom tiles).  Each stage's wgmma group
 // stays in flight while the next stage's is issued (wg_product_pipe).
+// Hidden 1024 (513-1023 zero-padded to it): 9,058,304 multiply-adds a
+// sample (18.1 MFLOP), on the same 64-row tile in column passes of 512
+// (nerf_wgmlp.cuh: layer_passes): two 33,280 B stages beside the 64 x
+// 1,096 activation tile (140,288 B); the first pass's outputs wait in the
+// block's park in global memory, so the grid is at most the clusters the
+// card holds at once and each block walks groups of rays (a group past B:
+// phantom tiles only); each stage's products a sum of their own
+// (wg_product_staged), two parts in flight.
 // Not carried over from the TPU kernel: its one-hot selector matmuls,
 // three-limb exact dots, the sin(z + pi/2) cos trick, the log-space
 // cumsum and the padded-t ragged batch (the ragged edge is masked here).
@@ -123,6 +131,7 @@ struct Params {
   float* w_out;             // (B, S)
   __nv_bfloat16* xenc_out;  // (B*S, xyz_dim) or null
   float* preds_out;         // (B*S, 4) or null
+  __nv_bfloat16* park;      // (grid, 64, kPassCols): hidden 1024, else null
   int B, S, R, stages, stage_bytes;
   MlpDims m;
 };
@@ -155,101 +164,115 @@ __device__ __forceinline__ void render_body(const Params& p) {
   float* sig = ray + R * 8;   // (R*S)
   float* rgbl = sig + R * S;  // (R*S, 3)
 
-  const int r0 = blockIdx.x * R;
-  const int nrays = max(0, min(R, p.B - r0));  // 0: a cluster's last block past B
-  const int P = nrays * S;
-  const size_t s0 = (size_t)r0 * S;  // first sample of the block
-  const int ntiles = (P + kRows - 1) / kRows;
-  // The tiles the block walks: on the split tile its cluster's first
-  // block's (the second's own may be fewer: phantom tiles past them).
-  const int ctiles =
-      T::kSplit ? (min(R, p.B - (int)(blockIdx.x & ~(kCluster - 1)) * R) * S + kRows - 1) / kRows
-                : ntiles;
+  // The groups of R rays the block walks: blockIdx.x, + gridDim.x, ...
+  // (one a block unless hidden 1024, whose grid is at most the clusters
+  // the card holds at once: their park is a block's); on the split tile
+  // both blocks of a cluster walk as many groups as its first block, and a
+  // group past B is a phantom.
+  const int groups = (p.B + R - 1) / R;
+  const int first = T::kSplit ? (int)(blockIdx.x & ~(kCluster - 1)) : (int)blockIdx.x;
+  const int steps = groups > first ? (groups - first + gridDim.x - 1) / gridDim.x : 0;
+  // The tiles of group g (0 past B): on the split tile its cluster's first
+  // block's group's, which the producers stream for both blocks.
+  auto group_tiles = [&](int g) { return (max(0, min(R, p.B - g * R)) * S + kRows - 1) / kRows; };
 
   ring_peer<H>(ring);
   if (tid == 0) ring_init(ring);
-  if (!kEncIn)
-    for (int i = tid; i < R * 3; i += kWgThreads) {
-      const int r = i / 3, c = i - r * 3;
-      const bool ok = r < nrays;
-      ray[r * 8 + c] = ok ? p.origins[(size_t)(r0 + r) * 3 + c] : 0.f;
-      ray[r * 8 + 4 + c] = ok ? p.dirs[(size_t)(r0 + r) * 3 + c] : 0.f;
-    }
   block_sync<H>();
 
   if (warp >= kConsumerWarps) {  // the producer warpgroup: one thread issues
     reg_dealloc<kProducerRegs>();
     if (warp == kConsumerWarps && lane == 0) {
       RingPos rp;
-      for (int tile = 0; tile < ctiles; ++tile) produce_forward(m, p.w, ring, rp, T::kKsTile);
+      for (int i = 0; i < steps; ++i)
+        for (int tile = group_tiles(first + i * gridDim.x); tile > 0; --tile)
+          produce_forward(m, p.w, ring, rp, T::kKsTile);
     }
     block_exit<H>();
     return;
   }
   reg_alloc<kConsumerRegs>();
 
-  if (!kEncIn) {
-    // Direction features once per ray (every sample of a ray shares them).
-    for (int i = tid; i < R * m.dir_pad; i += kWgConsumers) {
-      const int r = i / m.dir_pad, c = i - r * m.dir_pad;
-      denc[i] = __float2bfloat16_rn(encode_feature(ray + r * 8 + 4, c, m.dir_dim));
-    }
-    consumer_sync(kWgConsumers);
-  }
-
   const int wrow = row_warp<H>() * 16;  // this warp's rows of every tile
   __nv_bfloat16* wact = act + wrow * ldx;
   __nv_bfloat16* wxenc = xenc + wrow * m.xyz_pad;
+  __nv_bfloat16* wpark = T::kParked ? p.park + ((size_t)blockIdx.x * 64 + wrow) * kPassCols
+                                    : nullptr;
   RingPos rp;
-  for (int tile = 0; tile < ntiles; ++tile) {
-    const int q0 = tile * kRows + wrow;  // block sample of the warp's row 0
-    const int valid = min(16, P - q0);   // may be <= 0 on the last tile
-    for (int i = peer_lane<H>(); i < 16 * m.xyz_pad; i += T::kLanes) {
-      const int row = i / m.xyz_pad, c = i - row * m.xyz_pad;
-      const int q = q0 + row;
-      __nv_bfloat16 v = __float2bfloat16_rn(0.f);
-      if (row < valid && c < m.xyz_dim) {
-        if (kEncIn) {
-          v = p.x_in[(s0 + q) * m.xyz_dim + c];
-        } else {
-          const float* o = ray + (q / S) * 8;
-          const float t = p.t_vals[s0 + q];
-          // o + d*t rounded as two operations (no fma), as the plain path.
-          const float x[3] = {__fadd_rn(o[0], __fmul_rn(o[4], t)),
-                              __fadd_rn(o[1], __fmul_rn(o[5], t)),
-                              __fadd_rn(o[2], __fmul_rn(o[6], t))};
-          v = __float2bfloat16_rn(encode_feature(x, c, m.xyz_dim));
-          if (p.xenc_out != nullptr) p.xenc_out[(s0 + q) * m.xyz_dim + c] = v;
-        }
+  for (int i = 0; i < steps; ++i) {
+    const int r0 = (blockIdx.x + i * gridDim.x) * R;
+    const int nrays = max(0, min(R, p.B - r0));  // 0: a phantom group
+    const int P = nrays * S;
+    const size_t s0 = (size_t)r0 * S;  // first sample of the group
+    const int ntiles = (P + kRows - 1) / kRows;
+    const int ctiles = group_tiles(first + i * gridDim.x);
+    if (!kEncIn) {
+      for (int j = tid; j < R * 3; j += kWgConsumers) {
+        const int r = j / 3, c = j - r * 3;
+        const bool ok = r < nrays;
+        ray[r * 8 + c] = ok ? p.origins[(size_t)(r0 + r) * 3 + c] : 0.f;
+        ray[r * 8 + 4 + c] = ok ? p.dirs[(size_t)(r0 + r) * 3 + c] : 0.f;
       }
-      wact[row * ldx + c] = v;
-      wxenc[i] = v;
+      consumer_sync(kWgConsumers);
+      // Direction features once per ray (every sample of a ray shares them).
+      for (int j = tid; j < R * m.dir_pad; j += kWgConsumers) {
+        const int r = j / m.dir_pad, c = j - r * m.dir_pad;
+        denc[j] = __float2bfloat16_rn(encode_feature(ray + r * 8 + 4, c, m.dir_dim));
+      }
+      consumer_sync(kWgConsumers);
     }
-    rows_sync<H>();
-    auto xf = [&](int row, int c) { return wxenc[row * m.xyz_pad + c]; };
-    if (kEncIn) {
-      auto dir = [&](int row, int c) {
-        return row < valid && c < m.dir_dim ? p.d_in[(s0 + q0 + row) * m.dir_dim + c]
-                                            : __float2bfloat16_rn(0.f);
-      };
-      mlp_forward_wg<H>(m, p.b, wact, xf, dir, sig + q0, rgbl + q0 * 3, valid, ring, rp);
-    } else {
-      auto dir = [&](int row, int c) {
-        return row < valid ? denc[((q0 + row) / S) * m.dir_pad + c] : __float2bfloat16_rn(0.f);
-      };
-      mlp_forward_wg<H>(m, p.b, wact, xf, dir, sig + q0, rgbl + q0 * 3, valid, ring, rp);
+    for (int tile = 0; tile < ntiles; ++tile) {
+      const int q0 = tile * kRows + wrow;  // group sample of the warp's row 0
+      const int valid = min(16, P - q0);   // may be <= 0 on the last tile
+      for (int j = peer_lane<H>(); j < 16 * m.xyz_pad; j += T::kLanes) {
+        const int row = j / m.xyz_pad, c = j - row * m.xyz_pad;
+        const int q = q0 + row;
+        __nv_bfloat16 v = __float2bfloat16_rn(0.f);
+        if (row < valid && c < m.xyz_dim) {
+          if (kEncIn) {
+            v = p.x_in[(s0 + q) * m.xyz_dim + c];
+          } else {
+            const float* o = ray + (q / S) * 8;
+            const float t = p.t_vals[s0 + q];
+            // o + d*t rounded as two operations (no fma), as the plain path.
+            const float x[3] = {__fadd_rn(o[0], __fmul_rn(o[4], t)),
+                                __fadd_rn(o[1], __fmul_rn(o[5], t)),
+                                __fadd_rn(o[2], __fmul_rn(o[6], t))};
+            v = __float2bfloat16_rn(encode_feature(x, c, m.xyz_dim));
+            if (p.xenc_out != nullptr) p.xenc_out[(s0 + q) * m.xyz_dim + c] = v;
+          }
+        }
+        wact[row * ldx + c] = v;
+        wxenc[j] = v;
+      }
+      rows_sync<H>();
+      auto xf = [&](int row, int c) { return wxenc[row * m.xyz_pad + c]; };
+      if (kEncIn) {
+        auto dir = [&](int row, int c) {
+          return row < valid && c < m.dir_dim ? p.d_in[(s0 + q0 + row) * m.dir_dim + c]
+                                              : __float2bfloat16_rn(0.f);
+        };
+        mlp_forward_wg<H>(m, p.b, wact, xf, dir, sig + q0, rgbl + q0 * 3, valid, ring, rp,
+                          wpark);
+      } else {
+        auto dir = [&](int row, int c) {
+          return row < valid ? denc[((q0 + row) / S) * m.dir_pad + c] : __float2bfloat16_rn(0.f);
+        };
+        mlp_forward_wg<H>(m, p.b, wact, xf, dir, sig + q0, rgbl + q0 * 3, valid, ring, rp,
+                          wpark);
+      }
     }
+    for (int tile = ntiles; tile < ctiles; ++tile) drain_forward(m, ring, rp, T::kKsTile);
+    consumer_sync(kWgConsumers);
+    if (p.preds_out != nullptr)
+      for (int j = tid; j < P * 4; j += kWgConsumers) {
+        const int q = j >> 2, c = j & 3;
+        p.preds_out[s0 * 4 + j] = c < 3 ? rgbl[q * 3 + c] : sig[q];
+      }
+    composite_rays(p.t_vals + s0, sig, rgbl, nrays, S, p.w_out + s0,
+                   p.rgb_out + (size_t)r0 * 3);
+    consumer_sync(kWgConsumers);  // before the next group's rays and predictions
   }
-  for (int tile = ntiles; tile < ctiles; ++tile) drain_forward(m, ring, rp, T::kKsTile);
-  consumer_sync(kWgConsumers);
-
-  if (p.preds_out != nullptr)
-    for (int i = tid; i < P * 4; i += kWgConsumers) {
-      const int q = i >> 2, c = i & 3;
-      p.preds_out[s0 * 4 + i] = c < 3 ? rgbl[q * 3 + c] : sig[q];
-    }
-  composite_rays(p.t_vals + s0, sig, rgbl, nrays, S, p.w_out + s0,
-                 p.rgb_out + (size_t)r0 * 3);
   block_exit<H>();
 }
 
@@ -277,15 +300,19 @@ void (*pick_kernel(bool enc_in))(const Params) {
 // null).  `w_pack` is the wgmma pack (pack_weights_wg); `dense_desc` is a
 // HOST array of n_dense * 5 ints (k_pad, n, n_pad, w_off, b_off) in the
 // order trunk[0..num_layers), merged feature+sigma head, branch, rgb.
-// hidden is 64, 128, 256 or 512.  `xenc_out` and `preds_out` may be null
-// (forward only).  Launches on `stream` and returns cudaGetLastError() (0
-// on success); does not synchronise and allocates nothing.
+// hidden is 64, 128, 256, 512 or 1024.  `xenc_out` and `preds_out` may be
+// null (forward only).  At hidden 1024 `park` is the column passes' park
+// (park_blocks x wg_glob_bytes(1024, ., false) bytes, nerf_wgmlp.cuh), and
+// the grid is at most park_blocks (rounded down to a cluster) and the
+// clusters the card holds at once; else both are ignored.  Launches on
+// `stream` and returns cudaGetLastError() (0 on success); does not
+// synchronise and allocates nothing.
 extern "C" int nkt_fused_render_fwd(
     const void* origins, const void* dirs, const void* t_vals, const void* x_in,
     const void* d_in, const void* w_pack, const void* b_pack, const void* dense_desc,
     int n_dense, int num_layers, int skip_layer, int hidden, int l_xyz,
     int l_dir, int B, int S, void* rgb_out, void* w_out, void* xenc_out,
-    void* preds_out, int device, void* stream) {
+    void* preds_out, void* park, int park_blocks, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const bool enc_in = x_in != nullptr;
@@ -309,6 +336,7 @@ extern "C" int nkt_fused_render_fwd(
   p.w_out = static_cast<float*>(w_out);
   p.xenc_out = static_cast<__nv_bfloat16*>(xenc_out);
   p.preds_out = static_cast<float*>(preds_out);
+  p.park = static_cast<__nv_bfloat16*>(park);
   p.B = B;
   p.S = S;
   const int rows = wg_rows(hidden);
@@ -327,11 +355,25 @@ extern "C" int nkt_fused_render_fwd(
   void (*kernel)(const Params) = hidden == 64    ? pick_kernel<64>(enc_in)
                                  : hidden == 128 ? pick_kernel<128>(enc_in)
                                  : hidden == 256 ? pick_kernel<256>(enc_in)
-                                                 : pick_kernel<512>(enc_in);
+                                 : hidden == 512 ? pick_kernel<512>(enc_in)
+                                                 : pick_kernel<1024>(enc_in);
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int grid = (B + p.R - 1) / p.R;
+  int grid = (B + p.R - 1) / p.R;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (hidden > kPassCols) {  // no more blocks than parks and clusters on the card
+    if (park == nullptr || park_blocks < kCluster)
+      return (int)cudaErrorInvalidValue;
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+    int max_clusters = 0;
+    err = cluster_config(cfg, attr, kernel, grid, smem, st, &max_clusters);
+    if (err != cudaSuccess) return (int)err;
+    grid = split_grid(grid, grid, max_clusters < park_blocks / kCluster
+                                      ? max_clusters : park_blocks / kCluster);
+    if (grid < kCluster) return (int)cudaErrorInvalidClusterSize;
+    return (int)launch_clusters(kernel, grid, smem, st, p);
+  }
   if (hidden > kSplitAbove)  // clusters of two blocks sharing each weight stage
     return (int)launch_clusters(kernel, round_up(grid, kCluster), smem, st, p);
   kernel<<<grid, kWgThreads, smem, st>>>(p);

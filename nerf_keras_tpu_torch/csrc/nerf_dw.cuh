@@ -25,16 +25,18 @@
 // products' time; on an H100 it takes what one torch.matmul per layer
 // takes for the same A^T D (PERF.md).
 //
-// The split tile's widths (hidden 512: d_width 512 and 528) run
+// The split tile's widths (hidden 512: d_width 512 and 528; 1024: 1024
+// and 1040) run
 // mlp_dw_window_kernel: the same block, ring and sums over a window of
 // kDwWinN = 264 D columns, one instantiation (a __global__ switching over
 // product widths makes ptxas serialize wgmma, C7518), and an epilogue that
 // adds the tile into its slab from a copy in shared memory: once the
 // consumers release the ring, the producer brings the tile's slab entries
 // into it by bulk copies, a row each.  A d_width
-// above kDwWinN is the windows at 0 and d_width - 264, each writing its
-// half (at 512 the first window's columns 248..255 are computed twice and
-// written once); a window past a layer's last column reads the next
+// above kDwWinN is split into ceil(d_width / 264) parts, each written by
+// the window that starts at it or, for the last, ends at d_width (at 512
+// windows at 0 and 248, whose columns 248..255 are computed twice and
+// written once; at 1024 four); a window past a layer's last column reads the next
 // layer's D (or the workspace's slack of kDwWinN x 64 elements) and drops
 // it.  The host lists the tiles (ops/kernels/fused_render.py: dw_tiles) and
 // picks the sample ranges as for the 128-row tile: each element's sums are
@@ -190,7 +192,7 @@ __global__ void __launch_bounds__(kDwThreads, 1)
 constexpr int kDwWinN = 264;
 constexpr int kDwWinStage = kDwABytes + kDwWinN * kDwRows * 2;  // 50,176 B
 constexpr int kDwWinSmem = 128 + kDwStages * kDwWinStage;
-constexpr int kDwMaxTiles = 128;
+constexpr int kDwMaxTiles = 320;  // 8x1024 has 286 (ops/kernels/fused_render.py: dw_tiles)
 constexpr int kDwSlabLd = kDwWinN + 8;  // floats a row of the slab's copy in the ring
 static_assert(kDwM * kDwSlabLd * 4 <= kDwStages * kDwWinStage, "the slab's copy fits the ring");
 

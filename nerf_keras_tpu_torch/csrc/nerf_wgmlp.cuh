@@ -7,8 +7,9 @@
 //
 // A block is two consumer warpgroups and one producer warpgroup (384
 // threads; one thread of it issues the copies, and setmaxnreg moves its
-// registers to the consumers, 232 a thread) over a sample tile, in one of
-// two layouts (WgTile):
+// registers to the consumers, 232 a thread: ptxas compiles a 384-thread
+// block at 168 registers a thread, and only code after setmaxnreg.inc may
+// use more) over a sample tile, in one of two layouts (WgTile):
 //   * hidden <= 256: a 128-row tile.  Warpgroup w owns rows 64w..64w+63,
 //     and warp v of the block (v = 0..7) owns rows 16v..16v+15 of every
 //     activation tile and every column of a layer: it loads their A
@@ -42,6 +43,15 @@
 //     in global memory instead, for a third stage, and waits stage by
 //     stage (kPipeRows): a group in flight would hold a second of its three
 //     stages.
+//   * hidden 1024: the same split tile, every layer wider than 520 columns
+//     in column passes of 512 (kPassCols, layer_passes): 2 stages of the
+//     widest pass fit beside the 64 x 1,096 tile (140 KB), and a pass's
+//     part of each warpgroup is a hidden-512 product (132 f32 a thread at
+//     most); the first pass's outputs wait in global memory (the park)
+//     until the second pass has read the tile.  Each stage's products are
+//     a sum of their own, added into the layer's f32 sums
+//     (wg_product_staged): wgmma's sums round toward zero, and over a
+//     1,024-deep layer in one sum that bias misses the kernels' gates.
 // Weights: the producer thread streams every layer's weights, in the order
 // the consumers use them, through a ring of shared-memory stages with bulk
 // copies (cp.async.bulk, the TMA unit) and a full/empty mbarrier pair per
@@ -78,6 +88,8 @@
 #include "nerf_hopper.cuh"
 #include "nerf_tile.cuh"
 
+#include <type_traits>
+
 namespace nkt {
 
 constexpr int kWgConsumers = 256;              // two warpgroups
@@ -91,13 +103,43 @@ constexpr int kMaxStages = 8;  // ring stages at most
 constexpr int kBarBytes = 2 * kMaxStages * 8;
 constexpr int kSplitAbove = 256;  // wider hidden layers split their columns over the warpgroups
 // Whether the split tile keeps wgmma groups in flight across stages
-// (wg_product_pipe): in the forward kernels (K1, K5's and K6's forward:
-// 4 stages), not in the rows kernel (3 stages: a group in flight holds a
-// second stage and leaves the producer one stage ahead; PERF.md).
+// (wg_product_pipe; at hidden 1024 two parts of the staged sums,
+// wg_product_staged): in the forward kernels (K1, K5's and K6's forward:
+// 4 stages at 512), not in the rows kernel (3 stages: a group in flight
+// holds a second stage and leaves the producer one stage ahead; at 1024
+// two parts spill; PERF.md).
 constexpr bool kPipeForward = true, kPipeRows = false;
 
 // The hidden widths the wgmma kernels are instantiated for.
-inline bool wg_hidden_ok(int h) { return h == 64 || h == 128 || h == 256 || h == 512; }
+inline bool wg_hidden_ok(int h) {
+  return h == 64 || h == 128 || h == 256 || h == 512 || h == 1024;
+}
+
+// Column passes (hidden 1024).  A layer wider than kPassCols + 8 columns
+// is computed in passes of kPassCols output columns (the last takes the
+// rest: the merged head's 1,032 are 512 + 520), each pass one split-tile
+// product of the width of a hidden-512 layer: its stages hold only the
+// pass's columns, whose own block of the pack (pass p's columns of a layer
+// at w_off + k_pad * 512 p, in the K-major layout of a pass-wide matrix:
+// ops/kernels/fused_render.py, _pack_wg) the producer streams over every k
+// before the next pass's.  A layer's output overwrites its input in place,
+// and every pass reads the whole input, so the outputs of every pass but
+// the last wait in the park (64 rows x kPassCols bf16 a block, in global
+// memory: no room is left in shared memory beside a 64 x 1,096 tile) until
+// the last pass's products are done; each thread reads back only what it
+// wrote (park_back).
+constexpr int kPassCols = 512;
+__host__ __device__ constexpr int n_passes(int n_pad) {
+  return n_pad <= kPassCols + 8 ? 1 : n_pad / kPassCols;
+}
+__host__ __device__ constexpr int pass_width(int n_pad, int p) {
+  return p + 1 < n_passes(n_pad) ? kPassCols : n_pad - p * kPassCols;
+}
+// Pass p of a layer as a layer of its own: its columns, weights and bias.
+__host__ __device__ inline Dense pass_dense(const Dense& d, int p) {
+  const int c0 = p * kPassCols, w = pass_width(d.n_pad, p);
+  return Dense{d.k_pad, d.n - c0 < w ? d.n - c0 : w, w, d.w_off + d.k_pad * c0, d.b_off + c0};
+}
 
 // Sample rows per tile, and k per weight stage, of a hidden width.
 __host__ __device__ constexpr int wg_rows(int hidden) { return hidden > kSplitAbove ? 64 : 128; }
@@ -117,12 +159,14 @@ struct Split {
 template <int H>
 struct WgTile {
   static constexpr bool kSplit = H > kSplitAbove;
+  static constexpr bool kParked = H > kPassCols;  // column passes and a park (hidden 1024)
   static constexpr int kRows = wg_rows(H);
   static constexpr int kRowWarps = kRows / 16;      // warps with rows of their own: 8 or 4
   static constexpr int kLanes = kSplit ? 64 : 32;   // threads that share a warp's rows
   static constexpr int kKsTile = wg_ks(H);  // k per weight stage
-  // f32 accumulators a thread holds: the widest layer's, or its widest part.
-  static constexpr int kAcc = kSplit ? Split<H + 8>::hi / 2 : (H + 8) / 2;
+  // f32 accumulators a thread holds: the widest layer's, or its widest part
+  // of a pass.
+  static constexpr int kAcc = kSplit ? Split<(kParked ? kPassCols : H) + 8>::hi / 2 : (H + 8) / 2;
 };
 
 // Device: the rows a warp owns (rows 16 * row_warp ..), the columns part it
@@ -184,11 +228,23 @@ inline bool wg_dims_ok(const MlpDims& m) {
          m.dense[L + 2].n_pad == 8;
 }
 
-// Bytes of one weight stage: the widest layer's k-slice of `ks` k.
+// Bytes of one weight stage: the widest layer's (or pass's) k-slice of `ks` k.
 inline int wg_stage_bytes(const Dense* d, int n, int ks = kKs) {
   int w = 0;
-  for (int i = 0; i < n; ++i) w = d[i].n_pad > w ? d[i].n_pad : w;
+  for (int i = 0; i < n; ++i)
+    for (int p = 0; p < n_passes(d[i].n_pad); ++p)
+      w = pass_width(d[i].n_pad, p) > w ? pass_width(d[i].n_pad, p) : w;
   return w * ks * 2;
+}
+
+// The bytes of global scratch a block of H's tile needs (the park;
+// for the rows kernel with `masks`, its ReLU bits of L + 1 layers and the
+// column-sum scratch too, which pass shared memory at hidden 1024).
+__host__ __device__ inline size_t wg_glob_bytes(int hidden, int num_layers, bool rows) {
+  if (hidden <= kPassCols) return 0;
+  const size_t park = (size_t)64 * kPassCols * 2;
+  return rows ? park + (size_t)4 * (num_layers + 1) * 64 * (hidden / 32) + (size_t)4 * 2 * 4 * hidden
+              : park;
 }
 
 struct WRing {
@@ -232,12 +288,12 @@ __device__ __forceinline__ void ring_release(const WRing& r, int st) {
   }
 }
 
-// Producer: every k-slice of one layer of the pack `w`, in order; `ks`:
-// the pack's k per slice (kKs, or kKsNarrow for the input-gradient packs
-// whose stages would not fit two in shared memory at kKs).
-__device__ __forceinline__ void produce_layer(const WRing& r, RingPos& p,
-                                              const __nv_bfloat16* w, const Dense& L,
-                                              int ks = kKs) {
+// Producer: every k-slice of one layer of the pack `w` (pass by pass), in
+// order; `ks`: the pack's k per slice (kKs, or kKsNarrow for the
+// input-gradient packs whose stages would not fit two in shared memory at
+// kKs).
+__device__ __forceinline__ void produce_pass(const WRing& r, RingPos& p,
+                                             const __nv_bfloat16* w, const Dense& L, int ks) {
   for (int k0 = 0; k0 < L.k_pad; k0 += ks) {
     const int kw = min(ks, L.k_pad - k0);
     const uint32_t bytes = static_cast<uint32_t>(L.n_pad * kw * 2);
@@ -254,6 +310,12 @@ __device__ __forceinline__ void produce_layer(const WRing& r, RingPos& p,
     }
     p.next(r.stages);
   }
+}
+
+__device__ __forceinline__ void produce_layer(const WRing& r, RingPos& p,
+                                              const __nv_bfloat16* w, const Dense& L,
+                                              int ks = kKs) {
+  for (int q = 0; q < n_passes(L.n_pad); ++q) produce_pass(r, p, w, pass_dense(L, q), ks);
 }
 
 // The warp's A fragment of the k16 step at column k (act: the warp's row 0).
@@ -389,15 +451,119 @@ __device__ __forceinline__ void wg_product_pipe(float* acc, const __nv_bfloat16*
   ring_release(r, held);
 }
 
+// The sums of hidden 1024's column passes: every stage's k16 steps go to
+// a fresh wgmma sum (scale-d 0 at the stage's first step), which one f32
+// add per element then takes into acc (rounded to nearest), a part of the
+// columns at a time.  wgmma's f32 sum of bf16 products rounds toward zero
+// at each k16 step (exp_wide_numerics' "sums", PERF.md): over the whole
+// 1,024- to 1,088-deep layer in one wgmma sum those roundings add up, one
+// way, past K1's and K2's gates against their plain versions; over the
+// two k16 steps of a 32-deep stage they stay within the f32 rounding of
+// the adds.  (At hidden 512 a layer's whole depth in one sum passes them,
+// and the staged sums cost K1 +53% and K2 +29% there: PERF.md.)  Two
+// schedules of the same sums
+// (the same bits): with kPipe (the forward kernels) parts of 64 columns,
+// two in flight, so a part's adds run while the next part's products do;
+// without (the rows kernel, whose other live values leave less room)
+// parts of at most 88 columns, each waited on before its adds.  A stage's
+// last part is waited on before its ring slot is released.
+template <int N, bool kPipe>
+struct StageParts {
+  static constexpr int kMax = kPipe ? 64 : 88;  // 32 f32 a thread twice, or 44 once
+  static constexpr int count = (N + kMax - 1) / kMax;
+  static constexpr int step = kPipe ? kMax : ((N + count - 1) / count + 7) / 8 * 8;
+  template <int C>
+  static constexpr int width = C + 1 < count ? step : N - step * C;
+};
+
+// Issue part C's products (its fresh sum into buf) as one wgmma group.
+template <int N, bool kPipe, int KS, int C>
+__device__ __forceinline__ void part_issue(float* buf, uint32_t (&a)[KS / 16][4], int steps,
+                                           uint32_t sb, int np) {
+  using P = StageParts<N, kPipe>;
+  constexpr int kW = P::template width<C>;
+  acc_fence<kW / 2>(buf);
+  wg_fence();
+#pragma unroll
+  for (int q = 0; q < KS / 16; ++q)
+    if (q < steps)
+      mma_rs<kW>(buf, a[q], smem_desc(sb + C * P::step * 16 + q * 2 * np * 16, np * 16, 128),
+                 128, q);
+  wg_commit();
+}
+
+// Part C's sums (done) into acc.
+template <int N, bool kPipe, int C>
+__device__ __forceinline__ void part_add(float* acc, float* buf) {
+  using P = StageParts<N, kPipe>;
+  constexpr int kW = P::template width<C>;
+  acc_fence<kW / 2>(buf);
+#pragma unroll
+  for (int i = 0; i < kW / 2; ++i) acc[C * P::step / 2 + i] += buf[i];
+}
+
+// Parts C.. of a stage: with kPipe part C issued into its buffer (parts
+// alternate between p0 and p1) while part C - 1's is in flight, and once
+// only C's is, C - 1's adds; without, part C issued, waited on and added.
+template <int N, bool kPipe, int KS, int C>
+__device__ __forceinline__ void stage_parts(float* acc, float* p0, float* p1,
+                                            uint32_t (&a)[KS / 16][4], int steps, uint32_t sb,
+                                            int np) {
+  if constexpr (kPipe) {
+    part_issue<N, kPipe, KS, C>(C & 1 ? p1 : p0, a, steps, sb, np);
+    wg_wait<1>();
+    part_add<N, kPipe, C - 1>(acc, C & 1 ? p0 : p1);
+  } else {
+    part_issue<N, kPipe, KS, C>(p0, a, steps, sb, np);
+    wg_wait<0>();
+    part_add<N, kPipe, C>(acc, p0);
+  }
+  if constexpr (C + 1 < StageParts<N, kPipe>::count)
+    stage_parts<N, kPipe, KS, C + 1>(acc, p0, p1, a, steps, sb, np);
+}
+
+template <int N, int KS, bool kPipe>
+__device__ __forceinline__ void wg_product_staged(float* acc, const __nv_bfloat16* act, int ldx,
+                                                  int k_pad, const WRing& r, RingPos& c, int np,
+                                                  int n0) {
+  static_assert(N % 8 == 0 && N <= 264, "wgmma widths");
+  static_assert(KS % 16 == 0 && KS <= kKs, "k per stage");
+  using P = StageParts<N, kPipe>;
+  constexpr int kSteps = KS / 16, kLast = P::count - 1;
+  float p0[P::step / 2], p1[kPipe ? P::step / 2 : 1];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+  for (int k0 = 0; k0 < k_pad; k0 += KS) {
+    const int steps = min(KS, k_pad - k0) >> 4;  // block-uniform
+    uint32_t a[kSteps][4];
+#pragma unroll
+    for (int q = 0; q < kSteps; ++q)
+      if (q < steps) load_a(a[q], act, ldx, k0 + 16 * q);
+    mbar_wait(&r.full[c.st], c.ph);
+    const uint32_t sb = smem_u32(r.buf + static_cast<size_t>(c.st) * r.stage_bytes) + n0 * 16;
+    if constexpr (kPipe) {
+      part_issue<N, kPipe, KS, 0>(p0, a, steps, sb, np);
+      if constexpr (kLast > 0) stage_parts<N, kPipe, KS, 1>(acc, p0, p1, a, steps, sb, np);
+      wg_wait<0>();
+      part_add<N, kPipe, kLast>(acc, kLast & 1 ? p1 : p0);
+    } else {
+      stage_parts<N, kPipe, KS, 0>(acc, p0, p1, a, steps, sb, np);
+    }
+    ring_release(r, c.st);
+    c.next(r.stages);
+  }
+}
+
 // A phantom tile's share of the ring (a cluster's block with fewer tiles
 // than its peer): every stage of the layer waited for and released, so
 // both blocks' producers go on filling both blocks.
 __device__ __forceinline__ void drain_layer(const WRing& r, RingPos& c, const Dense& L, int ks) {
-  for (int k0 = 0; k0 < L.k_pad; k0 += ks) {
-    mbar_wait(&r.full[c.st], c.ph);
-    ring_release(r, c.st);
-    c.next(r.stages);
-  }
+  for (int q = 0; q < n_passes(L.n_pad); ++q)
+    for (int k0 = 0; k0 < L.k_pad; k0 += ks) {
+      mbar_wait(&r.full[c.st], c.ph);
+      ring_release(r, c.st);
+      c.next(r.stages);
+    }
 }
 
 // The columns each warpgroup's product takes on a split tile: the wider
@@ -413,8 +579,10 @@ struct SplitProduct {
 };
 
 // The warp's share of an N-wide layer's product on H's tile: all N columns,
-// or its warpgroup's SplitProduct of a split tile (with kPipe, its groups
-// in flight across stages: wg_product_pipe), after which split_sync: the
+// or its warpgroup's SplitProduct of a split tile (at hidden 1024 the
+// staged sums, wg_product_staged, kPipe their schedule; else with kPipe
+// its groups in flight across stages, wg_product_pipe), after which
+// split_sync: the
 // peers' reads of the activation tile are done and either may write its
 // part (Split<N>) back in place.  `np`: the stages' width.
 template <int H, int N, int KS, bool kPipe>
@@ -426,7 +594,9 @@ __device__ __forceinline__ void layer_product(float* acc, const __nv_bfloat16* a
   } else {
     using P = SplitProduct<N>;
     const int n0 = col_part<H>() ? P::n0_hi : 0;
-    if constexpr (kPipe)
+    if constexpr (WgTile<H>::kParked)
+      wg_product_staged<P::width, KS, kPipe>(acc, act, ldx, k_pad, r, c, np, n0);
+    else if constexpr (kPipe)
       wg_product_pipe<P::width, KS>(acc, act, ldx, k_pad, r, c, np, n0);
     else
       wg_product<P::width, 0, KS>(acc, act, ldx, k_pad, r, c, nullptr, np, n0);
@@ -606,18 +776,20 @@ __device__ __forceinline__ void layer_relu(const float* acc, const float* bias,
   }
 }
 
-template <int H>
+// The merged head's N columns (all of it, or one column pass of it; with
+// kSigma the part that ends with sigma).
+template <int H, int N = H + 8, bool kSigma = true>
 __device__ __forceinline__ void layer_head(const float* acc, const float* bias,
                                            __nv_bfloat16* act, int ldx, float* sig, int valid) {
   if constexpr (!WgTile<H>::kSplit) {
-    epi_feature_sigma<H + 8>(acc, bias, act, ldx, sig, valid);
+    epi_feature_sigma<N>(acc, bias, act, ldx, sig, valid);
   } else {
-    using S = Split<H + 8>;
-    static_assert(SplitProduct<H + 8>::n0_hi == S::lo, "warpgroup 1's product starts its part");
+    using S = Split<N>;
+    static_assert(SplitProduct<N>::n0_hi == S::lo, "warpgroup 1's product starts its part");
     if (col_part<H>() == 0)
       epi_feature_sigma<S::lo, false>(acc, bias, act, ldx, nullptr, 0);
     else
-      epi_feature_sigma<S::hi>(acc, bias + S::lo, act + S::lo, ldx, sig, valid);
+      epi_feature_sigma<S::hi, kSigma>(acc, bias + S::lo, act + S::lo, ldx, sig, valid);
   }
 }
 
@@ -640,6 +812,51 @@ __device__ __forceinline__ void layer_bwd(const float* acc, __nv_bfloat16* act, 
     else
       epi_bwd<S::hi, kMask>(acc, act + S::lo, ldx, kMask ? mask + S::lo / 32 : nullptr, mw,
                             srow + S::lo);
+  }
+}
+
+// The warp's columns of a parked N-wide pass (Split<N>: the positions its
+// epilogue wrote, rows g and g + 8, columns 8j + 2t and + 1) from the park
+// (row stride kPassCols) back into the activation tile.
+template <int H, int N>
+__device__ __forceinline__ void park_back(const __nv_bfloat16* park, __nv_bfloat16* act,
+                                          int ldx) {
+  using S = Split<N>;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int c0 = col_part<H>() ? S::lo : 0;
+#pragma unroll
+  for (int j = 0; j < S::lo / 8; ++j) {
+    const int c = c0 + 8 * j + 2 * t;
+    *reinterpret_cast<uint32_t*>(act + g * ldx + c) =
+        *reinterpret_cast<const uint32_t*>(park + g * kPassCols + c);
+    *reinterpret_cast<uint32_t*>(act + (g + 8) * ldx + c) =
+        *reinterpret_cast<const uint32_t*>(park + (g + 8) * kPassCols + c);
+  }
+}
+
+// An N-wide layer's products and epilogues on H's tile, pass by pass (one
+// pass unless N > kPassCols + 8): each pass's product into acc, then
+// epi(acc, width, last, c0, dst, ld) writes the pass's columns [c0, c0 +
+// width) to dst (row stride ld): the activation tile at column c0 for the
+// last pass, the park (`park`: the warp's rows) for the others, which go
+// back into the tile after the last pass's products (park_back).  `width`
+// and `last` are std::integral_constant.
+template <int H, int N, int KS, bool kPipe, class Epi>
+__device__ __forceinline__ void layer_passes(float* acc, __nv_bfloat16* act, int ldx, int k_pad,
+                                             const WRing& r, RingPos& c, __nv_bfloat16* park,
+                                             Epi epi) {
+  constexpr int NP = n_passes(N);
+  if constexpr (NP == 1) {
+    layer_product<H, N, KS, kPipe>(acc, act, ldx, k_pad, r, c);
+    epi(acc, std::integral_constant<int, N>{}, std::true_type{}, 0, act, ldx);
+  } else {
+    static_assert(NP == 2 && WgTile<H>::kParked, "two passes (hidden 1024)");
+    constexpr int W1 = N - kPassCols;
+    layer_product<H, kPassCols, KS, kPipe>(acc, act, ldx, k_pad, r, c);
+    epi(acc, std::integral_constant<int, kPassCols>{}, std::false_type{}, 0, park, kPassCols);
+    layer_product<H, W1, KS, kPipe>(acc, act, ldx, k_pad, r, c);
+    epi(acc, std::integral_constant<int, W1>{}, std::true_type{}, kPassCols, act + kPassCols, ldx);
+    park_back<H, kPassCols>(park, act, ldx);
   }
 }
 
@@ -684,12 +901,14 @@ __device__ __forceinline__ void store_ws(const __nv_bfloat16* act, int ldx, __nv
 // xyz_pad); xenc(row, c) gives them again for the skip concats, dir(row, c)
 // the direction features (bf16, zero beyond their width).  sig and rgbl
 // (the warp's rows) receive sigma and the rgb logits for rows < valid.
+// `park`: the warp's rows of the block's park (hidden 1024), else null.
 // The producer streams dense[0..L+2] in order (produce_forward).
 template <int H, class XencFn, class DirFn>
 __device__ __forceinline__ void mlp_forward_wg(const MlpDims& m, const float* b,
                                                __nv_bfloat16* act, XencFn xenc, DirFn dir,
                                                float* sig, float* rgbl, int valid,
-                                               const WRing& ring, RingPos& rp) {
+                                               const WRing& ring, RingPos& rp,
+                                               __nv_bfloat16* park = nullptr) {
   using T = WgTile<H>;
   constexpr int KS = T::kKsTile;
   const int pl = peer_lane<H>();
@@ -697,8 +916,12 @@ __device__ __forceinline__ void mlp_forward_wg(const MlpDims& m, const float* b,
   const int L = m.num_layers;
   float acc[T::kAcc];
   for (int i = 0; i < L; ++i) {
-    layer_product<H, H, KS, kPipeForward>(acc, act, ldx, m.dense[i].k_pad, ring, rp);
-    layer_relu<H, H, false>(acc, b + m.dense[i].b_off, act, ldx, nullptr, 0);
+    const float* bias = b + m.dense[i].b_off;
+    layer_passes<H, H, KS, kPipeForward>(acc, act, ldx, m.dense[i].k_pad, ring, rp, park,
+                           [&](float* a, auto w, auto, int c0, __nv_bfloat16* dst, int ld) {
+                             layer_relu<H, decltype(w)::value, false>(a, bias + c0, dst, ld,
+                                                                      nullptr, 0);
+                           });
     if (is_skip(i, m.skip_layer))
       for (int j = pl; j < 16 * m.xyz_pad; j += T::kLanes) {
         const int row = j / m.xyz_pad, c = j - row * m.xyz_pad;
@@ -706,8 +929,12 @@ __device__ __forceinline__ void mlp_forward_wg(const MlpDims& m, const float* b,
       }
     rows_sync<H>();
   }
-  layer_product<H, H + 8, KS, kPipeForward>(acc, act, ldx, m.dense[L].k_pad, ring, rp);
-  layer_head<H>(acc, b + m.dense[L].b_off, act, ldx, sig, valid);
+  const float* bias = b + m.dense[L].b_off;
+  layer_passes<H, H + 8, KS, kPipeForward>(acc, act, ldx, m.dense[L].k_pad, ring, rp, park,
+                             [&](float* a, auto w, auto last, int c0, __nv_bfloat16* dst, int ld) {
+                               layer_head<H, decltype(w)::value, decltype(last)::value>(
+                                   a, bias + c0, dst, ld, sig, valid);
+                             });
   for (int j = pl; j < 16 * m.dir_pad; j += T::kLanes) {
     const int row = j / m.dir_pad, c = j - row * m.dir_pad;
     act[row * ldx + H + c] = dir(row, c);
@@ -798,7 +1025,8 @@ __device__ __forceinline__ void mlp_backward_wg(const MlpBwdParams& p, __nv_bflo
                                                 float* db, XFn xf, DirFn dir, const float* g,
                                                 int valid, int rbase, const WRing& ring,
                                                 RingPos& rp, __nv_bfloat16* dx = nullptr,
-                                                __nv_bfloat16* dd = nullptr) {
+                                                __nv_bfloat16* dd = nullptr,
+                                                __nv_bfloat16* park = nullptr) {
   using T = WgTile<H>;
   static_assert(!(kIG && T::kSplit), "K5's input gradients run on 128-row tiles");
   constexpr int KSF = T::kKsTile;                          // the forward pack's k per stage
@@ -827,18 +1055,27 @@ __device__ __forceinline__ void mlp_backward_wg(const MlpBwdParams& p, __nv_bflo
   };
   float acc[T::kAcc];
   float xs[kIG ? kXC / 2 : 1];  // kIG: the encodings' gradient columns, f32
-  // The dX product of dense layer i (i >= 1) into acc: the hidden columns
-  // of its input and, with kIG where that input has the skip concat, its
-  // x_enc columns added into xs.
-  auto dx_product = [&](int i) {
+  // The dX product of dense layer i (i >= 1): the hidden columns of its
+  // input, masked by layer i - 1's ReLU, into act (dPre_{i-1}) and their
+  // column sums into the scratch; with kIG where that input has the skip
+  // concat, its x_enc columns added into xs.
+  auto dx_layer = [&](int i) {
+    const uint32_t* mk = masks + (i - 1) * mslot;
     if constexpr (kIG) {
       if (is_skip(i - 1, m.skip_layer)) {
         wg_product<H, kXC, KSB>(acc, act, ldx, p.bdense[i].k_pad, ring, rp, xs,
                                 p.bdense[i].n_pad);
+        __syncwarp();
+        layer_bwd<H, H, true>(acc, act, ldx, mk, MW, srow());
         return;
       }
     }
-    layer_product<H, H, KSB, kPipeRows>(acc, act, ldx, p.bdense[i].k_pad, ring, rp);
+    layer_passes<H, H, KSB, kPipeRows>(acc, act, ldx, p.bdense[i].k_pad, ring, rp, park,
+                            [&](float* a, auto w, auto, int c0, __nv_bfloat16* dst, int ld) {
+                              __syncwarp();
+                              layer_bwd<H, decltype(w)::value, true>(a, dst, ld, mk + c0 / 32,
+                                                                     MW, srow() + c0);
+                            });
   };
 
   // ---- Forward recompute, storing each layer's input (A).
@@ -846,14 +1083,23 @@ __device__ __forceinline__ void mlp_backward_wg(const MlpBwdParams& p, __nv_bflo
   rows_sync<H>();
   for (int i = 0; i < L; ++i) {
     store_ws<H>(act, ldx, p.ws_a + N * p.bwd[i].a_col, m.dense[i].k_pad, rbase);
-    layer_product<H, H, KSF, kPipeRows>(acc, act, ldx, m.dense[i].k_pad, ring, rp);
-    layer_relu<H, H, true>(acc, p.b + m.dense[i].b_off, act, ldx, masks + i * mslot, MW);
+    const float* bias = p.b + m.dense[i].b_off;
+    uint32_t* mk = masks + i * mslot;
+    layer_passes<H, H, KSF, kPipeRows>(acc, act, ldx, m.dense[i].k_pad, ring, rp, park,
+                            [&](float* a, auto w, auto, int c0, __nv_bfloat16* dst, int ld) {
+                              layer_relu<H, decltype(w)::value, true>(a, bias + c0, dst, ld,
+                                                                      mk + c0 / 32, MW);
+                            });
     if (is_skip(i, m.skip_layer)) load_x(H);
     rows_sync<H>();
   }
   store_ws<H>(act, ldx, p.ws_a + N * p.bwd[L].a_col, fs.k_pad, rbase);
-  layer_product<H, H + 8, KSF, kPipeRows>(acc, act, ldx, fs.k_pad, ring, rp);
-  layer_head<H>(acc, p.b + fs.b_off, act, ldx, nullptr, 0);
+  layer_passes<H, H + 8, KSF, kPipeRows>(
+      acc, act, ldx, fs.k_pad, ring, rp, park,
+      [&](float* a, auto w, auto last, int c0, __nv_bfloat16* dst, int ld) {
+        layer_head<H, decltype(w)::value, decltype(last)::value>(a, p.b + fs.b_off + c0, dst,
+                                                                 ld, nullptr, 0);
+      });
   for (int j = pl; j < 16 * m.dir_pad; j += T::kLanes) {
     const int row = j / m.dir_pad, c = j - row * m.dir_pad;
     act[row * ldx + H + c] = dir(row, c);
@@ -906,11 +1152,16 @@ __device__ __forceinline__ void mlp_backward_wg(const MlpBwdParams& p, __nv_bflo
     for (int i = 0; i < kDC / 2; ++i) xs[i] = 0.f;
     wg_product<H, kDC, KSB>(acc, act, ldx, p.bdense[L + 1].k_pad, ring, rp, xs,
                             p.bdense[L + 1].n_pad);
+    __syncwarp();
+    layer_bwd<H, H, false>(acc, act, ldx, nullptr, 0, srow());
   } else {
-    layer_product<H, H, KSB, kPipeRows>(acc, act, ldx, p.bdense[L + 1].k_pad, ring, rp);
+    layer_passes<H, H, KSB, kPipeRows>(acc, act, ldx, p.bdense[L + 1].k_pad, ring, rp, park,
+                            [&](float* a, auto w, auto, int c0, __nv_bfloat16* dst, int ld) {
+                              __syncwarp();
+                              layer_bwd<H, decltype(w)::value, false>(a, dst, ld, nullptr, 0,
+                                                                      srow() + c0);
+                            });
   }
-  __syncwarp();
-  layer_bwd<H, H, false>(acc, act, ldx, nullptr, 0, srow());
   if constexpr (kIG) {
     if (dd != nullptr) {
       epi_store<kDC>(xs, act + H, ldx);
@@ -928,18 +1179,14 @@ __device__ __forceinline__ void mlp_backward_wg(const MlpBwdParams& p, __nv_bflo
   finish(db + fs.b_off, H);
   store_ws<H>(act, ldx, p.ws_d + N * p.bwd[L].d_col, dw_fs, rbase);
   // dh_{L-1} = dfs W_fs^T (hidden columns), masked: dPre_{L-1}.
-  dx_product(L);
-  __syncwarp();
-  layer_bwd<H, H, true>(acc, act, ldx, masks + (L - 1) * mslot, MW, srow());
+  dx_layer(L);
   rows_sync<H>();
   finish(db + m.dense[L - 1].b_off, H);
   // Trunk: act holds dPre_i; dX_i's hidden columns, masked, are dPre_{i-1}.
   for (int i = L - 1; i >= 0; --i) {
     store_ws<H>(act, ldx, p.ws_d + N * p.bwd[i].d_col, p.bwd[i].d_width, rbase);
     if (i > 0) {
-      dx_product(i);
-      __syncwarp();
-      layer_bwd<H, H, true>(acc, act, ldx, masks + (i - 1) * mslot, MW, srow());
+      dx_layer(i);
       rows_sync<H>();
       finish(db + m.dense[i - 1].b_off, H);
     }

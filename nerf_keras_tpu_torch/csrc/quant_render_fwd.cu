@@ -228,7 +228,7 @@ __device__ __forceinline__ void q_load_stage(uint32_t (&a)[KQ / 32][4], const in
     if (q < steps) load_a_s8(a[q], act, ldx, k0 + 32 * q);
 }
 
-// One stage of q_product_pipe (as nerf_wgmlp.cuh's pipe_stage): wait for
+// One stage of q_product_pipe: wait for
 // it, issue its k32 steps from `cur` as one wgmma group, then wait until
 // only this group is in flight, release the previous stage (`held`) and
 // load the next stage's A into `nxt`.
@@ -321,27 +321,29 @@ __device__ __forceinline__ void epi_requant(const int* acc, const float* f, int 
   }
 }
 
-// A trunk layer or the branch: relu, then requantized in place (columns
-// [n0, n0 + N) of the layer).
+// A trunk layer or the branch: relu, then requantized (columns [n0, n0 +
+// N) of the layer's f32 rows `fl`, n_pad apart, to act + n0).
 template <int N>
-__device__ __forceinline__ void epi_relu_q(const int* acc, const float* f, const QDense& L,
+__device__ __forceinline__ void epi_relu_q(const int* acc, const float* fl, int n_pad, bool magic,
                                            int8_t* act, int ldx, int n0 = 0) {
-  if (L.k_pad <= kMagicK)
-    epi_requant<N, true, true>(acc, f + L.f_off + n0, L.n_pad, act + n0, ldx);
+  if (magic)
+    epi_requant<N, true, true>(acc, fl + n0, n_pad, act + n0, ldx);
   else
-    epi_requant<N, true, false>(acc, f + L.f_off + n0, L.n_pad, act + n0, ldx);
+    epi_requant<N, true, false>(acc, fl + n0, n_pad, act + n0, ldx);
 }
 
-// epi_relu_q over the warp's columns of an N-wide layer on H's tile.
+// epi_relu_q over the warp's columns of an N-wide layer (or column pass,
+// whose f32 rows start at fl) on H's tile.
 template <int H, int N>
-__device__ __forceinline__ void layer_relu_q(const int* acc, const float* f, const QDense& L,
+__device__ __forceinline__ void layer_relu_q(const int* acc, const float* fl, const QDense& L,
                                              int8_t* act, int ldx) {
+  const bool magic = L.k_pad <= kMagicK;
   if constexpr (!WgTile<H>::kSplit) {
-    epi_relu_q<N>(acc, f, L, act, ldx);
+    epi_relu_q<N>(acc, fl, L.n_pad, magic, act, ldx);
   } else if (col_part<H>() == 0) {
-    epi_relu_q<Split<N>::lo>(acc, f, L, act, ldx);
+    epi_relu_q<Split<N>::lo>(acc, fl, L.n_pad, magic, act, ldx);
   } else {
-    epi_relu_q<Split<N>::hi>(acc, f, L, act, ldx, Split<N>::lo);
+    epi_relu_q<Split<N>::hi>(acc, fl, L.n_pad, magic, act, ldx, Split<N>::lo);
   }
 }
 
@@ -378,19 +380,67 @@ __device__ __forceinline__ void epi_rgb(const int* acc, const float* f, int n_pa
   }
 }
 
-// The merged head over the warp's columns on H's tile: warpgroup 0's part of
-// a split head is feature columns alone, warpgroup 1's ends with sigma.
-template <int H, bool kMagic>
+// The merged head over the warp's columns on H's tile (all N of it, or a
+// column pass; with kSigma the part that ends with sigma): warpgroup 0's
+// part of a split head is feature columns alone, warpgroup 1's ends with
+// sigma.
+template <int H, int N, bool kSigma, bool kMagic>
 __device__ __forceinline__ void layer_fs_q(const int* acc, const float* f, int n_pad,
                                            int8_t* act, int ldx, float* sig, int valid) {
   if constexpr (!WgTile<H>::kSplit) {
-    epi_fs<H + 8, kMagic>(acc, f, n_pad, act, ldx, sig, valid);
+    epi_fs<N, kMagic>(acc, f, n_pad, act, ldx, sig, valid);
   } else {
-    using S = Split<H + 8>;
+    using S = Split<N>;
     if (col_part<H>() == 0)
       epi_requant<S::lo, false, kMagic>(acc, f, n_pad, act, ldx);
-    else
+    else if constexpr (kSigma)
       epi_fs<S::hi, kMagic>(acc, f + S::lo, n_pad, act + S::lo, ldx, sig, valid);
+    else
+      epi_requant<S::hi, false, kMagic>(acc, f + S::lo, n_pad, act + S::lo, ldx);
+  }
+}
+
+// The warp's columns of a parked N-wide pass (Split<N>: the bytes its
+// epilogue wrote, rows g and g + 8, columns 8j + 2t and + 1) from the park
+// (row stride kPassCols) back into the activation tile (as nerf_wgmlp.cuh's
+// park_back).
+template <int H, int N>
+__device__ __forceinline__ void q_park_back(const int8_t* park, int8_t* act, int ldx) {
+  using S = Split<N>;
+  static_assert(S::lo == S::hi, "equal parts");
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int c0 = col_part<H>() ? S::lo : 0;
+#pragma unroll
+  for (int j = 0; j < S::lo / 8; ++j) {
+    const int c = c0 + 8 * j + 2 * t;
+    *reinterpret_cast<uint16_t*>(act + g * ldx + c) =
+        *reinterpret_cast<const uint16_t*>(park + g * kPassCols + c);
+    *reinterpret_cast<uint16_t*>(act + (g + 8) * ldx + c) =
+        *reinterpret_cast<const uint16_t*>(park + (g + 8) * kPassCols + c);
+  }
+}
+
+// An N-wide layer's products and epilogues on H's tile, pass by pass (as
+// nerf_wgmlp.cuh's layer_passes): epi(acc, width, last, c0, dst, ld)
+// writes pass columns [c0, c0 + width) to dst, the tile for the last pass
+// and the park (the warp's rows, in shared memory) for the other.
+template <int H, int N, class Epi>
+__device__ __forceinline__ void q_layer_passes(int* acc, int8_t* act, int ldx, int k_pad,
+                                               const WRing& r, RingPos& c, int8_t* park,
+                                               Epi epi) {
+  constexpr int NP = n_passes(N);
+  if constexpr (NP == 1) {
+    q_layer_product<H, N>(acc, act, ldx, k_pad, r, c);
+    epi(acc, std::integral_constant<int, N>{}, std::true_type{}, 0, act, ldx);
+  } else {
+    static_assert(NP == 2 && WgTile<H>::kParked, "two passes (hidden 1024)");
+    constexpr int W1 = N - kPassCols;
+    q_layer_product<H, kPassCols>(acc, act, ldx, k_pad, r, c);
+    epi(acc, std::integral_constant<int, kPassCols>{}, std::false_type{}, 0, park, kPassCols);
+    q_layer_product<H, W1>(acc, act, ldx, k_pad, r, c);
+    epi(acc, std::integral_constant<int, W1>{}, std::true_type{}, kPassCols, act + kPassCols,
+        ldx);
+    q_park_back<H, kPassCols>(park, act, ldx);
   }
 }
 
@@ -405,7 +455,7 @@ template <int H, class DirFn>
 __device__ __forceinline__ void qmlp_forward_wg(const QDims& m, const float* f, int8_t* act,
                                                 const int8_t* xq, DirFn dir4, float* sig,
                                                 float* rgbl, int valid, const WRing& ring,
-                                                RingPos& rp) {
+                                                RingPos& rp, int8_t* park = nullptr) {
   using T = WgTile<H>;
   const int pl = peer_lane<H>();
   const int ldx = m.ldx;
@@ -413,8 +463,12 @@ __device__ __forceinline__ void qmlp_forward_wg(const QDims& m, const float* f, 
   const int xw = m.xyz_pad >> 2, dw = m.dir_pad >> 2;
   int acc[T::kAcc];
   for (int i = 0; i < L; ++i) {
-    q_layer_product<H, H>(acc, act, ldx, m.dense[i].k_pad, ring, rp);
-    layer_relu_q<H, H>(acc, f, m.dense[i], act, ldx);
+    const QDense& Ly = m.dense[i];
+    q_layer_passes<H, H>(acc, act, ldx, Ly.k_pad, ring, rp, park,
+                         [&](int* a, auto w, auto, int c0, int8_t* dst, int ld) {
+                           layer_relu_q<H, decltype(w)::value>(a, f + Ly.f_off + c0, Ly, dst,
+                                                               ld);
+                         });
     if (is_skip(i, m.skip_layer))  // [hq | qx]
       for (int j = pl; j < 16 * xw; j += T::kLanes) {
         const int row = j / xw, c = j - row * xw;
@@ -426,18 +480,23 @@ __device__ __forceinline__ void qmlp_forward_wg(const QDims& m, const float* f, 
   // The merged feature+sigma head; the direction features fill the columns
   // after the feature, so act becomes the branch input [qfeat | qd].
   const QDense& fs = m.dense[L];
-  q_layer_product<H, H + 8>(acc, act, ldx, fs.k_pad, ring, rp);
-  if (fs.k_pad <= kMagicK)
-    layer_fs_q<H, true>(acc, f + fs.f_off, fs.n_pad, act, ldx, sig, valid);
-  else
-    layer_fs_q<H, false>(acc, f + fs.f_off, fs.n_pad, act, ldx, sig, valid);
+  q_layer_passes<H, H + 8>(
+      acc, act, ldx, fs.k_pad, ring, rp, park,
+      [&](int* a, auto w, auto last, int c0, int8_t* dst, int ld) {
+        constexpr int W = decltype(w)::value;
+        constexpr bool kLast = decltype(last)::value;
+        if (fs.k_pad <= kMagicK)
+          layer_fs_q<H, W, kLast, true>(a, f + fs.f_off + c0, fs.n_pad, dst, ld, sig, valid);
+        else
+          layer_fs_q<H, W, kLast, false>(a, f + fs.f_off + c0, fs.n_pad, dst, ld, sig, valid);
+      });
   for (int j = pl; j < 16 * dw; j += T::kLanes) {
     const int row = j / dw, c = j - row * dw;
     reinterpret_cast<uint32_t*>(act + row * ldx + H)[c] = row < valid ? dir4(row, c) : 0u;
   }
   rows_sync<H>();
   q_layer_product<H, H / 2>(acc, act, ldx, m.dense[L + 1].k_pad, ring, rp);
-  layer_relu_q<H, H / 2>(acc, f, m.dense[L + 1], act, ldx);
+  layer_relu_q<H, H / 2>(acc, f + m.dense[L + 1].f_off, m.dense[L + 1], act, ldx);
   rows_sync<H>();
   const QDense& rgb = m.dense[L + 2];
   q_layer_product<H, 8>(acc, act, ldx, rgb.k_pad, ring, rp);
@@ -450,16 +509,22 @@ __device__ __forceinline__ void qmlp_forward_wg(const QDims& m, const float* f, 
   rows_sync<H>();
 }
 
-// The producer's side: every k-slice of one layer, in order, `kq` deep.
+// The producer's side: every k-slice of one layer, column pass by pass
+// (each pass's block of the pack at w_off + k_pad * c0), in order, `kq`
+// deep.
 __device__ __forceinline__ void produce_q_layer(const WRing& r, RingPos& p, const int8_t* w,
                                                 const QDense& L, int kq) {
-  for (int k0 = 0; k0 < L.k_pad; k0 += kq) {
-    const uint32_t bytes = static_cast<uint32_t>(L.n_pad * min(kq, L.k_pad - k0));
-    mbar_wait(&r.empty[p.st], p.ph ^ 1u);
-    mbar_expect_tx(&r.full[p.st], bytes);
-    bulk_g2s(r.buf + static_cast<size_t>(p.st) * r.stage_bytes,
-             w + L.w_off + static_cast<size_t>(k0) * L.n_pad, bytes, &r.full[p.st]);
-    p.next(r.stages);
+  for (int q = 0; q < n_passes(L.n_pad); ++q) {
+    const int np = pass_width(L.n_pad, q);
+    const int8_t* src = w + L.w_off + static_cast<size_t>(L.k_pad) * q * kPassCols;
+    for (int k0 = 0; k0 < L.k_pad; k0 += kq) {
+      const uint32_t bytes = static_cast<uint32_t>(np * min(kq, L.k_pad - k0));
+      mbar_wait(&r.empty[p.st], p.ph ^ 1u);
+      mbar_expect_tx(&r.full[p.st], bytes);
+      bulk_g2s(r.buf + static_cast<size_t>(p.st) * r.stage_bytes,
+               src + static_cast<size_t>(k0) * np, bytes, &r.full[p.st]);
+      p.next(r.stages);
+    }
   }
 }
 
@@ -655,19 +720,24 @@ __device__ __forceinline__ void encode_rows_split(const QDims& m, const float* r
   }
 }
 
-// K4 at hidden 512 on a persistent grid: block b takes the groups of R
-// rays b, b + gridDim.x, ... (wg_rays_per_block), so it brings the f32 rows
-// (58,944 B at 8x512) and initialises its barriers once, and its producer
-// streams the next group's weights while the consumers composite the last.
-// Per group: the rays and their direction features, a barrier of the
-// consumers, the tiles, another barrier, the compositing.  The shared
-// memory and the arithmetic of quant_render_fwd_kernel<512>, the encode
-// shared by both warpgroups (encode_rows_split): its outputs bit for bit.
+// K4 at hidden 512 and 1024 on a persistent grid: block b takes the groups
+// of R rays b, b + gridDim.x, ... (wg_rays_per_block), so it brings the f32
+// rows (58,944 B at 8x512) and initialises its barriers once, and its
+// producer streams the next group's weights while the consumers composite
+// the last.  Per group: the rays and their direction features, a barrier
+// of the consumers, the tiles, another barrier, the compositing.  The
+// encode is shared by both warpgroups (encode_rows_split).  At 1024 the
+// layers run in column passes of 512 (nerf_wgmlp.cuh: n_passes), the
+// first pass's bytes parked in shared memory (64 x 512 B) until the second
+// pass's products are done, and the f32 rows (116,928 B at 8x1024: they
+// and an activation tile of 64 x 1,104 B leave no room for stages) are
+// read through L1 from global memory.
+template <int H>
 __global__ void __launch_bounds__(kWgThreads, 1)
     quant_render_wide_kernel(const __grid_constant__ Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int H = 512;
   using T = WgTile<H>;
+  constexpr bool kFGlobal = T::kParked;  // the f32 rows read from global memory
   constexpr int kRows = T::kRows;
   const QDims& m = p.m;
   const int tid = threadIdx.x;
@@ -685,13 +755,15 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   ring.buf = smem + kQBarBytes;
   ring.stages = p.stages;
   ring.stage_bytes = p.stage_bytes;
-  float* f = reinterpret_cast<float*>(ring.buf + p.stages * p.stage_bytes);  // the f32 rows
-  int8_t* act = reinterpret_cast<int8_t*>(f) + m.f_bytes;                    // (rows, ldx)
-  int8_t* xq = act + kRows * ldx;                           // (rows, xyz_pad)
+  float* fs = reinterpret_cast<float*>(ring.buf + p.stages * p.stage_bytes);  // the f32 rows
+  int8_t* act = reinterpret_cast<int8_t*>(fs) + (kFGlobal ? 0 : m.f_bytes);   // (rows, ldx)
+  int8_t* park = act + kRows * ldx;                          // (rows, kPassCols): 1024
+  int8_t* xq = park + (T::kParked ? kRows * kPassCols : 0);  // (rows, xyz_pad)
   int8_t* dq = xq + kRows * m.xyz_pad;                      // (R, dir_pad)
   float* ray = reinterpret_cast<float*>(dq + round_up(R * m.dir_pad, 16));  // (R, 8): o, d
   float* sig = ray + R * 8;   // (R*S)
   float* rgbl = sig + R * S;  // (R*S, 3)
+  const float* f = kFGlobal ? p.f : fs;
   const float* inv_x = f + m.x_off;
   const float* inv_d = f + m.d_off;
 
@@ -705,8 +777,10 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   if (warp >= kConsumerWarps) {  // the producer warpgroup: one thread issues
     reg_dealloc<kProducerRegs>();
     if (warp == kConsumerWarps && lane == 0) {
-      mbar_expect_tx(fbar, static_cast<uint32_t>(m.f_bytes));
-      bulk_g2s(f, p.f, static_cast<uint32_t>(m.f_bytes), fbar);
+      if (!kFGlobal) {
+        mbar_expect_tx(fbar, static_cast<uint32_t>(m.f_bytes));
+        bulk_g2s(fs, p.f, static_cast<uint32_t>(m.f_bytes), fbar);
+      }
       RingPos rp;
       for (int g = blockIdx.x; g < groups; g += gridDim.x) {
         const int ntiles = (min(R, p.B - g * R) * S + kRows - 1) / kRows;
@@ -718,11 +792,12 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     return;
   }
   reg_alloc<kConsumerRegs>();
-  mbar_wait(fbar, 0);  // the f32 rows are in shared memory
+  if (!kFGlobal) mbar_wait(fbar, 0);  // the f32 rows are in shared memory
 
   const int wrow = row_warp<H>() * 16;  // this warp's rows of every tile
   int8_t* wact = act + wrow * ldx;
   int8_t* wxq = xq + wrow * m.xyz_pad;
+  int8_t* wpark = T::kParked ? park + wrow * kPassCols : nullptr;
   const int dw = m.dir_pad >> 2;
   RingPos rp;
   for (int g = blockIdx.x; g < groups; g += gridDim.x) {
@@ -757,7 +832,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       auto dir4 = [&](int row, int c) -> uint32_t {
         return reinterpret_cast<const uint32_t*>(dq)[((q0 + row) / S) * dw + c];
       };
-      qmlp_forward_wg<H>(m, f, wact, wxq, dir4, sig + q0, rgbl + q0 * 3, valid, ring, rp);
+      qmlp_forward_wg<H>(m, f, wact, wxq, dir4, sig + q0, rgbl + q0 * 3, valid, ring, rp,
+                         wpark);
     }
     consumer_sync(kWgConsumers);
     composite_rays(p.t_vals + s0, sig, rgbl, nrays, S, p.w_out + s0,
@@ -766,7 +842,9 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 }
 
 // The hidden widths K4 is instantiated for.
-inline bool q_hidden_ok(int h) { return h == 32 || h == 64 || h == 128 || h == 256 || h == 512; }
+inline bool q_hidden_ok(int h) {
+  return h == 32 || h == 64 || h == 128 || h == 256 || h == 512 || h == 1024;
+}
 
 // Host side: fill `m` from the launch arguments and the pack's descriptors;
 // false when a shape is out of what the kernel takes.
@@ -823,8 +901,8 @@ bool qdims_init(QDims& m, const int* desc, int n_dense, int num_layers, int skip
 // f_off) in the order trunk[0..num_layers), merged feature+sigma head,
 // branch, rgb; `x_off` and `d_off` locate the inv_x and inv_d rows (padded
 // to 32 with zeros) at the end of the f32 pack.  hidden is 32, 64, 128,
-// 256 or 512.  A block per group of rays (wg_rays_per_block); at hidden 512
-// at most one block an SM, each striding over the groups.  Launches on
+// 256, 512 or 1024.  A block per group of rays (wg_rays_per_block); above
+// 256 at most one block an SM, each striding over the groups.  Launches on
 // `stream` and returns cudaGetLastError() (0 on success); does not
 // synchronise and allocates nothing.
 extern "C" int nkt_quant_render_fwd(const void* origins, const void* dirs, const void* t_vals,
@@ -851,10 +929,13 @@ extern "C" int nkt_quant_render_fwd(const void* origins, const void* dirs, const
   p.S = S;
   const int rows = wg_rows(hidden);
   p.R = wg_rays_per_block(S, rows);
-  p.stage_bytes = (hidden + 8) * q_ks(hidden);  // the widest layer's k-slice: the merged head
-
-  const size_t rest = kQBarBytes + (size_t)p.m.f_bytes + (size_t)rows * p.m.ldx +
-                      (size_t)rows * p.m.xyz_pad + (size_t)round_up(p.R * p.m.dir_pad, 16) +
+  // The widest layer's (or column pass's) k-slice: the merged head's (its
+  // last pass at 1024: 520 columns).
+  p.stage_bytes = pass_width(hidden + 8, n_passes(hidden + 8) - 1) * q_ks(hidden);
+  const bool parked = hidden > kPassCols;  // the f32 rows in global memory, a park
+  const size_t rest = kQBarBytes + (parked ? (size_t)rows * kPassCols : (size_t)p.m.f_bytes) +
+                      (size_t)rows * p.m.ldx + (size_t)rows * p.m.xyz_pad +
+                      (size_t)round_up(p.R * p.m.dir_pad, 16) +
                       sizeof(float) * ((size_t)p.R * 8 + (size_t)p.R * S * 4);
   if (rest + 2 * (size_t)p.stage_bytes > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
   const size_t fit = ((size_t)kMaxSmem - rest) / p.stage_bytes;
@@ -864,12 +945,13 @@ extern "C" int nkt_quant_render_fwd(const void* origins, const void* dirs, const
                                  : hidden == 64  ? quant_render_fwd_kernel<64>
                                  : hidden == 128 ? quant_render_fwd_kernel<128>
                                  : hidden == 256 ? quant_render_fwd_kernel<256>
-                                                 : quant_render_wide_kernel;
+                                 : hidden == 512 ? quant_render_wide_kernel<512>
+                                                 : quant_render_wide_kernel<1024>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  // A block per group of R rays; at hidden 512 no more blocks than SMs.
+  // A block per group of R rays; above 256 no more blocks than SMs.
   int grid = (B + p.R - 1) / p.R;
-  if (hidden == 512) {
+  if (hidden > kSplitAbove) {
     int sms = 0;
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
     if (err != cudaSuccess) return (int)err;

@@ -100,7 +100,8 @@ import hashlib, json, os, re, sys
 sys.path.insert(0, os.getcwd())
 import torch
 from nerf_keras_tpu_torch.ops.kernels import _build
-_build._sources = lambda: [_build.CSRC / "fused_render_fwd.cu", _build.CSRC / "fused_render_bwd.cu"]
+_build._sources = lambda: [_build.CSRC / "fused_render_fwd.cu",
+                           _build.CSRC / "fused_render_bwd_512.cu"]
 if sys.argv[1] == "build":
     _build.build()
     ptxas, name = [], None

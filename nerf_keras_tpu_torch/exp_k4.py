@@ -88,10 +88,10 @@ _BARE = _NOENC + [
     (_EPI, "    if (acc[4 * j] == 123456789) store2(act + g * ldx + c, acc[4 * j], acc[4 * j + 1]);"),
     ("  composite_rays(p.t_vals + s0,", "  if (S < 0) composite_rays(p.t_vals + s0,"),
 ]
-_NOCOPY = [('''    mbar_expect_tx(&r.full[p.st], bytes);
-    bulk_g2s(r.buf + static_cast<size_t>(p.st) * r.stage_bytes,
-             w + L.w_off + static_cast<size_t>(k0) * L.n_pad, bytes, &r.full[p.st]);''',
-            "    (void)bytes;\n    mbar_arrive(&r.full[p.st]);")]
+_NOCOPY = [('''      mbar_expect_tx(&r.full[p.st], bytes);
+      bulk_g2s(r.buf + static_cast<size_t>(p.st) * r.stage_bytes,
+               src + static_cast<size_t>(k0) * np, bytes, &r.full[p.st]);''',
+            "      (void)bytes;\n      mbar_arrive(&r.full[p.st]);")]
 _LOOP = '''  for (int k0 = 0; k0 < k_pad; k0 += KQ) {
     const int steps = min(KQ, k_pad - k0) >> 5;  // block-uniform
     uint32_t a[kSteps][4];
@@ -194,7 +194,7 @@ __device__ __forceinline__ void q_layer_split(int* acc, int8_t* act, int ldx, co
   }
   wg_wait<1>();
   acc_fence<NH / 2>(acc);
-  epi_relu_q<NH>(acc, f, L, act, ldx);
+  epi_relu_q<NH>(acc, f + L.f_off, L.n_pad, L.k_pad <= kMagicK, act, ldx);
   wg_wait<0>();
   acc_fence<N / 2>(acc);
   __syncwarp();
@@ -202,26 +202,22 @@ __device__ __forceinline__ void q_layer_split(int* acc, int8_t* act, int ldx, co
 #pragma unroll
     for (int it = 0; it < 3; ++it)
       if (it * kQKs < L.k_pad) mbar_arrive(&r.empty[st[it]]);
-  epi_relu_q<NH>(acc + NH / 2, f + NH, L, act + NH, ldx);
+  epi_relu_q<NH>(acc + NH / 2, f + L.f_off + NH, L.n_pad, L.k_pad <= kMagicK, act + NH, ldx);
 }
 
 '''
 # (On the 128-row tile only: hidden 512's split tile keeps its products.)
 _SPLIT = [
     ("// The merged head (N = hidden + 8)", _SPLIT_FN + "// The merged head (N = hidden + 8)"),
-    ("    q_layer_product<H, H>(acc, act, ldx, m.dense[i].k_pad, ring, rp);\n"
-     "    layer_relu_q<H, H>(acc, f, m.dense[i], act, ldx);",
-     "    if constexpr (T::kSplit) {\n"
-     "      q_layer_product<H, H>(acc, act, ldx, m.dense[i].k_pad, ring, rp);\n"
-     "      layer_relu_q<H, H>(acc, f, m.dense[i], act, ldx);\n"
-     "    } else {\n"
-     "      q_layer_split<H>(acc, act, ldx, m.dense[i], f, ring, rp);\n"
-     "    }"),
+    ("    q_layer_passes<H, H>(acc, act, ldx, Ly.k_pad, ring, rp, park,",
+     "    if constexpr (!T::kSplit) {\n"
+     "      q_layer_split<H>(acc, act, ldx, Ly, f, ring, rp);\n"
+     "    } else q_layer_passes<H, H>(acc, act, ldx, Ly.k_pad, ring, rp, park,"),
     ("  q_layer_product<H, H / 2>(acc, act, ldx, m.dense[L + 1].k_pad, ring, rp);\n"
-     "  layer_relu_q<H, H / 2>(acc, f, m.dense[L + 1], act, ldx);",
+     "  layer_relu_q<H, H / 2>(acc, f + m.dense[L + 1].f_off, m.dense[L + 1], act, ldx);",
      "  if constexpr (T::kSplit) {\n"
      "    q_layer_product<H, H / 2>(acc, act, ldx, m.dense[L + 1].k_pad, ring, rp);\n"
-     "    layer_relu_q<H, H / 2>(acc, f, m.dense[L + 1], act, ldx);\n"
+     "    layer_relu_q<H, H / 2>(acc, f + m.dense[L + 1].f_off, m.dense[L + 1], act, ldx);\n"
      "  } else {\n"
      "    q_layer_split<H / 2>(acc, act, ldx, m.dense[L + 1], f, ring, rp);\n"
      "  }"),
@@ -248,16 +244,20 @@ __shared__ long long g_sprof[8][8];
     ("    wg_wait<0>();\n    acc_fence<N / 2>(acc);\n    __syncwarp();",
      "    wg_wait<0>();\n    acc_fence<N / 2>(acc);\n    PROF_ADD(1, clock64() - c0);\n"
      "    __syncwarp();"),
-    ("    layer_relu_q<H, H>(acc, f, m.dense[i], act, ldx);",
-     "    long long e0 = clock64();\n    layer_relu_q<H, H>(acc, f, m.dense[i], act, ldx);\n"
-     "    PROF_ADD(2, clock64() - e0);"),
+    ("                           layer_relu_q<H, decltype(w)::value>(a, f + Ly.f_off + c0, Ly, dst,\n"
+     "                                                               ld);",
+     "                           long long e0 = clock64();\n"
+     "                           layer_relu_q<H, decltype(w)::value>(a, f + Ly.f_off + c0, Ly, dst,\n"
+     "                                                               ld);\n"
+     "                           PROF_ADD(2, clock64() - e0);"),
     ("    encode_rows(m, ray, p.t_vals + s0, S, q0, valid, inv_x, wact, wxq);\n    auto dir4",
      "    long long n0 = clock64();\n"
      "    encode_rows(m, ray, p.t_vals + s0, S, q0, valid, inv_x, wact, wxq);\n"
      "    PROF_ADD(3, clock64() - n0);\n    auto dir4"),
-    ("  reg_alloc<kConsumerRegs>();",
-     "  reg_alloc<kConsumerRegs>();\n  if (lane < 8) g_sprof[warp][lane] = 0;\n  __syncwarp();\n"
-     "  const long long a0 = clock64();"),
+    ("  mbar_wait(fbar, 0);  // the f32 rows are in shared memory\n\n  // Direction",
+     "  mbar_wait(fbar, 0);  // the f32 rows are in shared memory\n"
+     "  if (lane < 8) g_sprof[warp][lane] = 0;\n  __syncwarp();\n"
+     "  const long long a0 = clock64();\n\n  // Direction"),
     ("  consumer_sync(kWgConsumers);\n\n  composite_rays(",
      "  const long long m0 = clock64();\n  consumer_sync(kWgConsumers);\n"
      "  PROF_ADD(5, clock64() - m0);\n  const long long k0c = clock64();\n  composite_rays("),
@@ -275,23 +275,10 @@ _ENC1 = [("      encode_rows_split(m, ray, p.t_vals + s0, S, q0, valid, inv_x, w
           "        encode_rows(m, ray, p.t_vals + s0, S, q0, valid, inv_x, wact, wxq);")]
 _KS32 = [("constexpr int kQKsSplit = 64;", "constexpr int kQKsSplit = 32;")]
 _FGLOBAL = [
-    ("  float* f = reinterpret_cast<float*>(ring.buf + p.stages * p.stage_bytes);  // the f32 rows\n"
-     "  int8_t* act = reinterpret_cast<int8_t*>(f) + m.f_bytes;                    // (rows, ldx)",
-     "  const float* f = p.f;  // the f32 rows, read through L1\n"
-     "  int8_t* act = reinterpret_cast<int8_t*>(ring.buf + p.stages * p.stage_bytes);"),
-    ("      mbar_expect_tx(fbar, static_cast<uint32_t>(m.f_bytes));\n"
-     "      bulk_g2s(f, p.f, static_cast<uint32_t>(m.f_bytes), fbar);\n"
-     "      RingPos rp;\n      for (int g = blockIdx.x;",
-     "      RingPos rp;\n      for (int g = blockIdx.x;"),
-    ("  mbar_wait(fbar, 0);  // the f32 rows are in shared memory\n\n"
-     "  const int wrow = row_warp<H>() * 16;  // this warp's rows of every tile\n"
-     "  int8_t* wact = act + wrow * ldx;\n  int8_t* wxq = xq + wrow * m.xyz_pad;\n"
-     "  const int dw = m.dir_pad >> 2;\n  RingPos rp;\n  for (int g",
-     "  const int wrow = row_warp<H>() * 16;  // this warp's rows of every tile\n"
-     "  int8_t* wact = act + wrow * ldx;\n  int8_t* wxq = xq + wrow * m.xyz_pad;\n"
-     "  const int dw = m.dir_pad >> 2;\n  RingPos rp;\n  for (int g"),
-    ("  const size_t rest = kQBarBytes + (size_t)p.m.f_bytes +",
-     "  const size_t rest = kQBarBytes + (hidden == 512 ? 0 : (size_t)p.m.f_bytes) +")]
+    ("  constexpr bool kFGlobal = T::kParked;  // the f32 rows read from global memory",
+     "  constexpr bool kFGlobal = true;  // the f32 rows read from global memory"),
+    ("(parked ? (size_t)rows * kPassCols : (size_t)p.m.f_bytes)",
+     "(parked ? (size_t)rows * kPassCols : hidden == 512 ? 0 : (size_t)p.m.f_bytes)")]
 _DEQUANT_SPLIT = [(
     "  return kMagic ? __fsub_rn(__int_as_float(acc + kRoundBits), kRound) : __int2float_rn(acc);",
     "  if (kMagic) return __fsub_rn(__int_as_float(acc + kRoundBits), kRound);\n"

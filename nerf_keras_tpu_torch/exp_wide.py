@@ -6,7 +6,7 @@
 ``prepare`` copies the port of the checkout SRC (``nerf_keras_tpu_torch``,
 ``chip_smoke.py``, ``config``) into ``OUT/<variant>`` for each variant and
 applies the variant's text patches to the split tile's sources
-(``csrc/nerf_wgmlp.cuh``, ``nerf_hopper.cuh``, ``fused_render_bwd.cu``).
+(``csrc/nerf_wgmlp.cuh``, ``nerf_hopper.cuh``, ``nerf_rows.cuh``).
 Make OUT a directory that ``.gitignore`` lists (``_archive/``).  Each
 variant answers one question about K1 and K2 at 8x512 (the split tile:
 64-row tiles in clusters of two blocks that share each weight stage):
@@ -52,7 +52,7 @@ import sys
 
 _WG = "nerf_wgmlp.cuh"
 _HOPPER = "nerf_hopper.cuh"
-_BWD = "fused_render_bwd.cu"
+_BWD = "nerf_rows.cuh"
 
 _PEER = "  if constexpr (WgTile<H>::kSplit) r.peer = static_cast<int>(cluster_rank() ^ 1u);"
 _FULL = "    mbar_expect_tx(&r.full[p.st], bytes);"
@@ -78,7 +78,7 @@ VARIANTS = {
         (_BWD, "  float* db = T::kSplit ? p.db_blk + (size_t)blockIdx.x * p.total_b\n"
                "                        : scratch + 2 * T::kRowWarps * p.sld;",
          "  float* db = scratch + 2 * T::kRowWarps * p.sld;"),
-        (_BWD, "(split ? 0 : total_b));", "(size_t)total_b);")],
+        (_BWD, "(split ? 0 : total_b)));", "(size_t)total_b));")],
     "ks16": [(_WG, "  return hidden > kSplitAbove ? kKsNarrow : kKs;",
               "  return hidden > kSplitAbove ? 16 : kKs;")],
     "nostream": [
@@ -131,7 +131,8 @@ import json, os, re, sys
 sys.path.insert(0, os.getcwd())
 import torch
 from nerf_keras_tpu_torch.ops.kernels import _build
-_build._sources = lambda: [_build.CSRC / "fused_render_fwd.cu", _build.CSRC / "fused_render_bwd.cu"]
+_build._sources = lambda: [_build.CSRC / "fused_render_fwd.cu",
+                           _build.CSRC / "fused_render_bwd_512.cu"]
 if sys.argv[1] == "build":
     _build.build()
     ptxas, name = [], None

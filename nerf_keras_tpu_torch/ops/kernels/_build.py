@@ -33,6 +33,24 @@ NVCC_FLAGS = [
 ]
 
 _vp, _i32 = ctypes.c_void_p, ctypes.c_int
+# nkt_fused_render_bwd and its 512 and 1024 libraries' entry points.
+ROWS_ARGS = [
+    _i32,                       # mode: 0 K2, 1 K3, 2 K6, 3 K5
+    _vp, _vp, _vp, _vp,         # x_res, origins, dirs, d_enc
+    _vp, _vp,                   # t_vals, preds
+    _vp, _vp,                   # g_rgb, g_w
+    _vp, _vp, _vp,              # w_pack, b_pack, desc_fwd (host)
+    _vp, _vp, _vp,              # wb_pack, desc_bwd, desc_ws (host)
+    _i32, _i32, _i32, _i32,     # n_dense, num_layers, skip, hidden
+    _i32, _i32, _i32, _i32,     # l_xyz, l_dir, B, S
+    _i32, _i32, _i32,           # chunk_rays, total_b, total_out
+    _vp, _vp, _vp, _vp, _i32,   # dpreds, ws_a, ws_d, db_part, grid
+    _vp, _i32,                  # dw_part, nsplit
+    _vp, _i32,                  # dw_tiles (host, above 256), n_tiles
+    _vp, _vp, _vp, _vp,         # dw_out, db_out, dx_out, dd_out (K5)
+    _vp,                        # glob (hidden 1024)
+    _i32, _vp,                  # device, stream
+]
 # Entry points by source, with their ctypes signatures: pointers and the
 # stream as c_void_p, so ctypes never truncates them to 32 bits.
 ENTRY_POINTS = {
@@ -44,26 +62,21 @@ ENTRY_POINTS = {
             _i32, _i32, _i32, _i32,     # n_dense, num_layers, skip, hidden
             _i32, _i32, _i32, _i32,     # l_xyz, l_dir, B, S
             _vp, _vp, _vp, _vp,         # rgb_out, w_out, xenc_out, preds_out
+            _vp, _i32,                  # park, park_blocks (hidden 1024)
             _i32, _vp,                  # device, stream
         ],
     },
+    # The rows kernels of K2, K3, K5 and K6 (csrc/nerf_rows.cuh), one library
+    # for hidden 64-256 and one each for 512 and 1024, so that the three
+    # compile in parallel.
     "fused_render_bwd": {
-        "nkt_fused_render_bwd": [
-            _i32,                       # mode: 0 K2, 1 K3, 2 K6, 3 K5
-            _vp, _vp, _vp, _vp,         # x_res, origins, dirs, d_enc
-            _vp, _vp,                   # t_vals, preds
-            _vp, _vp,                   # g_rgb, g_w
-            _vp, _vp, _vp,              # w_pack, b_pack, desc_fwd (host)
-            _vp, _vp, _vp,              # wb_pack, desc_bwd, desc_ws (host)
-            _i32, _i32, _i32, _i32,     # n_dense, num_layers, skip, hidden
-            _i32, _i32, _i32, _i32,     # l_xyz, l_dir, B, S
-            _i32, _i32, _i32,           # chunk_rays, total_b, total_out
-            _vp, _vp, _vp, _vp, _i32,   # dpreds, ws_a, ws_d, db_part, grid
-            _vp, _i32,                  # dw_part, nsplit
-            _vp, _i32,                  # dw_tiles (host, hidden 512), n_tiles
-            _vp, _vp, _vp, _vp,         # dw_out, db_out, dx_out, dd_out (K5)
-            _i32, _vp,                  # device, stream
-        ],
+        "nkt_fused_render_bwd": ROWS_ARGS,
+    },
+    "fused_render_bwd_512": {
+        "nkt_fused_render_bwd_512": ROWS_ARGS,
+    },
+    "fused_render_bwd_1024": {
+        "nkt_fused_render_bwd_1024": ROWS_ARGS,
     },
     "fused_mlp_fwd": {
         "nkt_fused_mlp_fwd": [
@@ -71,7 +84,7 @@ ENTRY_POINTS = {
             _vp, _vp, _vp,              # w_pack, b_pack, dense_desc (host)
             _i32, _i32, _i32, _i32,     # n_dense, num_layers, skip, hidden
             _i32, _i32, _i32, _i32,     # l_xyz, l_dir, N, grid
-            _vp,                        # preds_out
+            _vp, _vp,                   # preds_out, park (hidden 1024)
             _i32, _vp,                  # device, stream
         ],
     },
@@ -160,7 +173,8 @@ def library_path(source: Path) -> Path:
 def build() -> float:
     """Compile every source whose hashed library is missing, one nvcc per
     source, all started together; returns the wall seconds spent (0.0
-    when every library was already built)."""
+    when every library was already built).  ``build_log`` heads each
+    source's output with its seconds from the start."""
     global build_log
     todo = [s for s in _sources() if not library_path(s).exists()]
     if not todo:
@@ -176,10 +190,21 @@ def build() -> float:
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         jobs.append((src, so, tmp, proc))
+    done = {}  # source -> (output, seconds): each nvcc's pipe drained by a thread of its own
+
+    def drain(src, proc):
+        out, _ = proc.communicate()
+        done[src] = (out, time.perf_counter() - t0)
+
+    threads = [threading.Thread(target=drain, args=(src, proc)) for src, _, _, proc in jobs]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
     logs, failed = [], []
     for src, so, tmp, proc in jobs:
-        out, _ = proc.communicate()
-        logs.append(f"== {src.name}\n{out}")
+        out, seconds = done[src]
+        logs.append(f"== {src.name} ({seconds:.1f} s)\n{out}")
         if proc.returncode != 0:
             failed.append(f"{src.name} ({proc.returncode})")
         else:

@@ -44,6 +44,8 @@ from nerf_keras_tpu_torch.models.mlp import NeRFMLP
 from nerf_keras_tpu_torch.ops.kernels import _build, fused_f32
 from nerf_keras_tpu_torch.ops.kernels.fused_render import (
     _ROWS_K5,
+    CLUSTER,
+    _ptr,
     check_encodings,
     check_input_grads,
     check_tensor,
@@ -55,6 +57,7 @@ from nerf_keras_tpu_torch.ops.kernels.fused_render import (
     kernel_width,
     launch_rows,
     refuse_batch_norm,
+    park_buffer,
     unpack_grads,
 )
 
@@ -102,7 +105,7 @@ def _check_cuda_call(mlp: NeRFMLP, x_enc: torch.Tensor, d_enc: torch.Tensor) -> 
 
 def _grid(device: torch.device, n: int) -> int:
     """One block per SM at most, striding over the tiles (128 rows; the
-    kernel takes 64 at hidden 512, never more blocks than tiles)."""
+    kernel takes 64 above 256, never more blocks than tiles)."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return max(1, min(-(-n // 128), sms))
 
@@ -120,11 +123,14 @@ def launch_k5_fwd(mlp: NeRFMLP, x_enc: torch.Tensor, d_enc: torch.Tensor) -> tor
     if n == 0:
         return preds
     pack = kernel_pack(mlp, device)
+    grid = _grid(device, n)
     rc = _build.load("fused_mlp_fwd").nkt_fused_mlp_fwd(
         x_enc.data_ptr(), d_enc.data_ptr(), pack.w.data_ptr(), pack.b.data_ptr(),
         pack.desc.ctypes.data, pack.desc.shape[0], mlp.num_layers, mlp.skip_layer,
-        kernel_width(mlp.hidden_dim), mlp.l_xyz, mlp.l_dir, n, _grid(device, n), preds.data_ptr(),
-        device_index(device), torch.cuda.current_stream(device).cuda_stream,
+        kernel_width(mlp.hidden_dim), mlp.l_xyz, mlp.l_dir, n, grid, preds.data_ptr(),
+        _ptr(park_buffer(mlp, -(-grid // CLUSTER) * CLUSTER, False, device)),
+        device_index(device),
+        torch.cuda.current_stream(device).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(

@@ -33,11 +33,12 @@ of whole rays of :func:`chunk_plan`, so its workspace holds one chunk
   :data:`bwd_launches` (K2), :data:`recompute_launches` (K3),
   :data:`enc_launches` and :data:`enc_bwd_launches` (K6).
 
-Any bf16 hidden width up to 512 (float32 up to 256; K5 with input
+Any bf16 hidden width up to 1024 (float32 up to 256; K5 with input
 gradients up to 256) and any encoding up to 128 position and 64 direction
 columns (L_XYZ 20, L_DIR 10) runs on the kernels.  The bf16 kernels are
-instantiated at hidden 64, 128, 256 and 512 (512 on 64-row tiles whose two
-warpgroups split each layer's columns: ``csrc/nerf_wgmlp.cuh``); another
+instantiated at hidden 64, 128, 256, 512 and 1024 (512 and 1024 on 64-row
+tiles whose two warpgroups split each layer's columns, 1024 in column
+passes of 512: ``csrc/nerf_wgmlp.cuh``); another
 width runs on packs zero-padded to the next (:func:`kernel_width`,
 :func:`layer_maps`): exact, since a zero unit's ReLU is 0, feeds zeros
 forward and passes no gradient back.  Only the packs are padded;
@@ -77,8 +78,10 @@ enc_launches = 0        # K6 forward
 enc_bwd_launches = 0    # K6 backward
 
 BWD_MODES = ("residual", "recompute")
-# The rows kernel's modes (csrc/fused_render_bwd.cu).
+# The rows kernel's modes (csrc/nerf_rows.cuh).
 _ROWS_K2, _ROWS_K3, _ROWS_K6, _ROWS_K5 = 0, 1, 2, 3
+# The rows kernel's library by kernel width (the others: fused_render_bwd).
+ROWS_LIBRARY = {512: "fused_render_bwd_512", 1024: "fused_render_bwd_1024"}
 
 # Within every 16-wide k-group, the interleaved pack (:func:`_pack`, the
 # layout the first, mma.sync kernels read: a thread's B fragment k = 2t,
@@ -99,8 +102,8 @@ class KernelPack(NamedTuple):
 
 
 # The bf16 kernels' instantiations (csrc/nerf_wgmlp.cuh: wg_hidden_ok); the
-# widest is their limit (wider needs the activations split across blocks).
-WG_HIDDEN = (64, 128, 256, 512)
+# widest is their limit (wider needs a design of its own).
+WG_HIDDEN = (64, 128, 256, 512, 1024)
 MAX_HIDDEN_F32 = 256  # the float32 kernels (csrc/fused_render_f32.cu)
 MAX_HIDDEN_IG = 256   # K5 with input gradients (its 128-row tiles: nerf_wgmlp.cuh)
 MAX_ENC = (128, 64)  # position and direction encoding columns the kernels take
@@ -300,16 +303,35 @@ WG_KS = 64  # k per weight stage of the wgmma kernels (csrc/nerf_wgmlp.cuh: kKs)
 WG_KS_NARROW = 32  # k per stage of the wide input-gradient packs (kKsNarrow)
 
 
+PASS_COLS = 512  # the columns of a column pass (csrc/nerf_wgmlp.cuh: kPassCols)
+
+
+def pass_widths(n_pad: int) -> list[int]:
+    """A layer's column passes (csrc/nerf_wgmlp.cuh: n_passes, pass_width):
+    one up to PASS_COLS + 8 columns, else passes of PASS_COLS, the last
+    taking the rest (hidden 1024's merged head: 512 + 520)."""
+    if n_pad <= PASS_COLS + 8:
+        return [n_pad]
+    n = n_pad // PASS_COLS
+    return [PASS_COLS] * (n - 1) + [n_pad - PASS_COLS * (n - 1)]
+
+
 def wg_layout(n_pad: int, k_pad: int, ks: int = WG_KS) -> np.ndarray:
     """Where element ``(n, k)`` of a padded ``(n_pad, k_pad)`` matrix lies
     in its wgmma pack, as an ``(n_pad, k_pad)`` array of element offsets:
-    k-slices of ``ks`` (the last a multiple of 16 up to it), each in the K-major
-    core-matrix layout, ``slice_start + ((k % ks) // 8 * n_pad + n) * 8
-    + k % 8``."""
-    n = np.arange(n_pad)[:, None]
+    each column pass (:func:`pass_widths`: all of it up to 520 columns) a
+    block of its own, ``k_pad * c0`` from the start for the pass from column
+    ``c0``, ``w`` wide, in k-slices of ``ks`` (the last a multiple of 16 up
+    to it), each in the K-major core-matrix layout, ``slice_start + ((k %
+    ks) // 8 * w + n - c0) * 8 + k % 8``."""
+    out = np.empty((n_pad, k_pad), dtype=np.int64)
     k = np.arange(k_pad)[None, :]
-    slice_start = (k // ks) * ks * n_pad
-    return slice_start + ((k % ks) // 8 * n_pad + n) * 8 + k % 8
+    c0 = 0
+    for w in pass_widths(n_pad):
+        n = np.arange(w)[:, None]
+        out[c0:c0 + w] = k_pad * c0 + (k // ks) * ks * w + ((k % ks) // 8 * w + n) * 8 + k % 8
+        c0 += w
+    return out
 
 
 def ig_cols(xyz_dim: int, dir_dim: int) -> tuple[int, int, int]:
@@ -327,9 +349,9 @@ def _pack_wg(layers: list[tuple[torch.Tensor, torch.Tensor | None]],
              n_pads: list[int] | None = None) -> KernelPack:
     """Pad each ``(M (rows=output columns, k), bias)`` to (round8, round16)
     (or to ``n_pads`` rows) and lay it out for the wgmma kernels
-    (:func:`wg_layout`, ``ks`` k per slice): a producer copies one k-slice
-    per shared-memory stage, which wgmma's descriptor reads as is.  Same
-    descriptors as :func:`_pack`."""
+    (:func:`wg_layout`, ``ks`` k per slice, column pass by column pass): a
+    producer copies one k-slice of a pass per shared-memory stage, which
+    wgmma's descriptor reads as is.  Same descriptors as :func:`_pack`."""
     ws, bs, desc = [], [], []
     w_off = b_off = 0
     for j, (mat, b) in enumerate(layers):
@@ -337,8 +359,9 @@ def _pack_wg(layers: list[tuple[torch.Tensor, torch.Tensor | None]],
         k_pad, n_pad = _round_up(k, 16), _round_up(n, 8) if n_pads is None else n_pads[j]
         wp = torch.zeros((n_pad, k_pad), dtype=torch.float32, device=device)
         wp[:n, :k] = mat.to(device=device, dtype=torch.float32)
-        slices = [wp[:, k0:k0 + ks].reshape(n_pad, -1, 8).permute(1, 0, 2).reshape(-1)
-                  for k0 in range(0, k_pad, ks) if n_pad]
+        bounds = np.cumsum([0] + pass_widths(n_pad)).tolist() if n_pad else [0]
+        slices = [wp[c0:c1, k0:k0 + ks].reshape(c1 - c0, -1, 8).permute(1, 0, 2).reshape(-1)
+                  for c0, c1 in zip(bounds[:-1], bounds[1:]) for k0 in range(0, k_pad, ks)]
         bp = torch.zeros((n_pad,), dtype=torch.float32, device=device)
         if b is not None:
             bp[:n] = b.to(device=device, dtype=torch.float32)
@@ -451,8 +474,8 @@ def workspace_layout(fwd: KernelPack, bwd: KernelPack) -> np.ndarray:
 
 # The dW workspace of K2, K3 and K6 holds one chunk of whole rays at most
 # this many bytes (csrc/fused_render_bwd.cu runs the rows kernel and the dW
-# product chunk by chunk); about 66K samples at 8x256 (10,112 B each) and
-# 33K at 8x512 (19,840 B each).
+# product chunk by chunk); about 66K samples at 8x256 (10,112 B each), 33K
+# at 8x512 (19,840 B each) and 17K at 8x1024 (39,296 B each).
 DW_CHUNK_BYTES = 640 << 20
 DW_MAX_N = 272  # the widest layer of the 128-row tile's dW (csrc/nerf_dw.cuh: kDwMaxN)
 
@@ -480,15 +503,22 @@ def dw_windows(d_width: int) -> list[tuple[int, int, int]]:
     """``[(n0, c_lo, c_hi)]``: the D windows of a layer of ``d_width``
     output columns (DW_WIN_N wide from column n0; the window writes its
     columns [c_lo, c_hi)), which cover [0, d_width) once: one window up to
-    DW_WIN_N, else two, the second ending at d_width (at 512: windows at
-    0 and 248, whose columns 248..255 the first one writes)."""
+    DW_WIN_N, else ceil(d_width / DW_WIN_N) parts of equal width rounded up
+    to 8 (the last takes the rest), each part in the window that starts at
+    it or, for the last, ends at d_width (at 512: windows at 0 and 248,
+    whose columns 248..255 the first one writes; at 1024 at 0, 256, 512
+    and 760)."""
+    if d_width % 8:
+        raise ValueError(f"no dW windows for d_width {d_width}")
     if d_width <= DW_WIN_N:
         return [(0, 0, d_width)]
-    half = d_width // 2
-    if d_width > 2 * DW_WIN_N or half % 8 or d_width % 8:
-        raise ValueError(f"no dW windows for d_width {d_width}")
-    n1 = d_width - DW_WIN_N
-    return [(0, 0, half), (n1, half - n1, DW_WIN_N)]
+    parts = -(-d_width // DW_WIN_N)
+    width = -(-d_width // parts // 8) * 8
+    wins = []
+    for s in range(0, d_width, width):
+        n0 = min(s, d_width - DW_WIN_N)
+        wins.append((n0, s - n0, min(s + width, d_width) - n0))
+    return wins
 
 
 def dw_tiles(layout: np.ndarray) -> np.ndarray:
@@ -523,6 +553,24 @@ def cluster_grid(tiles: int, sms: int) -> int:
     up to a cluster (the kernel's host code lowers it further to the
     clusters the card holds at once: ``nerf_wgmlp.cuh: split_grid``)."""
     return max(CLUSTER, min(-(-tiles // CLUSTER) * CLUSTER, sms // CLUSTER * CLUSTER))
+
+
+def glob_bytes(hidden: int, num_layers: int, rows: bool) -> int:
+    """The global scratch a block needs at kernel width ``hidden``
+    (csrc/nerf_wgmlp.cuh: wg_glob_bytes): above PASS_COLS the park of the
+    column passes (64 x 512 bf16) and, for the rows kernel (``rows``), its
+    ReLU bits and column-sum scratch; else none."""
+    if hidden <= PASS_COLS:
+        return 0
+    park = 64 * PASS_COLS * 2
+    return park + 4 * (num_layers + 1) * 64 * (hidden // 32) + 4 * 2 * 4 * hidden if rows else park
+
+
+def park_buffer(mlp: NeRFMLP, blocks: int, rows: bool, device: torch.device):
+    """``blocks`` blocks' global scratch (:func:`glob_bytes`), or None
+    where the kernel width needs none."""
+    n = glob_bytes(kernel_width(mlp.hidden_dim), mlp.num_layers, rows)
+    return torch.empty((blocks * n,), dtype=torch.uint8, device=device) if n else None
 
 
 def cuda_error(rc: int) -> str:
@@ -718,12 +766,16 @@ def _launch_fwd(mlp, t_vals, l_xyz, l_dir, *, origins=None, dirs=None,
     if b == 0:
         return rgb, weights, x_enc, preds
     pack = kernel_pack(mlp, device)
+    # At hidden 1024 at most a block an SM, each walking groups of rays
+    # with its own park (csrc/fused_render_fwd.cu).
+    blocks = torch.cuda.get_device_properties(device).multi_processor_count // CLUSTER * CLUSTER
+    park = park_buffer(mlp, blocks, False, device)
     rc = _build.load("fused_render_fwd").nkt_fused_render_fwd(
         _ptr(origins), _ptr(dirs), t_vals.data_ptr(), _ptr(x_in), _ptr(d_in),
         pack.w.data_ptr(), pack.b.data_ptr(), pack.desc.ctypes.data,
         pack.desc.shape[0], mlp.num_layers, mlp.skip_layer, kernel_width(mlp.hidden_dim),
         l_xyz, l_dir, b, s, rgb.data_ptr(), weights.data_ptr(), _ptr(x_enc), _ptr(preds),
-        device_index(device), torch.cuda.current_stream(device).cuda_stream,
+        _ptr(park), blocks, device_index(device), torch.cuda.current_stream(device).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(
@@ -828,7 +880,8 @@ def launch_rows(mode, mlp, t_vals, preds, g_rgb, g_w, l_xyz, l_dir, *,
     # of one launch (csrc/fused_render_bwd.cu: db_blk).
     ws = DwBuffers.allocate(fwd, bwd, rows, grid * (2 if split else 1), device)
     dpreds = g if k5 else torch.empty((n, 4), dtype=torch.float32, device=device)
-    rc = _build.load("fused_render_bwd").nkt_fused_render_bwd(
+    stem = ROWS_LIBRARY.get(hp, "fused_render_bwd")
+    rc = getattr(_build.load(stem), f"nkt_{stem}")(
         mode, _ptr(x_res), _ptr(origins), _ptr(dirs), _ptr(d_enc), _ptr(t_vals),
         _ptr(preds), _ptr(g_rgb), _ptr(g_w),
         fwd.w.data_ptr(), fwd.b.data_ptr(), fwd.desc.ctypes.data,
@@ -839,7 +892,8 @@ def launch_rows(mode, mlp, t_vals, preds, g_rgb, g_w, l_xyz, l_dir, *,
         ws.dw_part.data_ptr(), ws.nsplit,
         None if ws.tiles is None else ws.tiles.ctypes.data, 0 if ws.tiles is None else len(ws.tiles),
         ws.dw.data_ptr(), ws.db.data_ptr(),
-        _ptr(dx), _ptr(dd), device_index(device), torch.cuda.current_stream(device).cuda_stream,
+        _ptr(dx), _ptr(dd), _ptr(park_buffer(mlp, grid, True, device)), device_index(device),
+        torch.cuda.current_stream(device).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(

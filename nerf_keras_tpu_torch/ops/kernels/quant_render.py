@@ -34,6 +34,7 @@ from nerf_keras_tpu_torch.ops.kernels.fused_render import (
     device_index,
     kernel_width,
     layer_runs,
+    pass_widths,
 )
 from nerf_keras_tpu_torch.ops.quant import QuantParams, apply_nerf_mlp_quant, flatten_qparams
 from nerf_keras_tpu_torch.ops.rays import sample_rays
@@ -42,11 +43,12 @@ from nerf_keras_tpu_torch.ops.volume import volume_render
 launches = 0  # K4 launches in this process (one per successful launch)
 
 # k per slice of the pack (csrc/quant_render_fwd.cu: kQKs, the k per weight
-# stage up to hidden 256; hidden 512 streams 64-deep stages of the same
-# pack, whose layout does not depend on the slice depth: q_layout)
+# stage up to hidden 256; hidden 512 and 1024 stream 64-deep stages of the
+# same pack, whose layout does not depend on the slice depth: q_layout)
 K4_KS = 128
-K4_HIDDEN = (32, 64, 128, 256, 512)  # its instantiations (quant_render_fwd.cu: q_hidden_ok);
-# a model of another width up to 512 runs zero-padded to the next (pad_qparams)
+K4_HIDDEN = (32, 64, 128, 256, 512, 1024)  # its instantiations (quant_render_fwd.cu:
+# q_hidden_ok); a model of another width up to 1024 runs zero-padded to the
+# next (pad_qparams)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -55,14 +57,22 @@ def _round_up(x: int, m: int) -> int:
 
 def q_layout(n_pad: int, k_pad: int) -> np.ndarray:
     """Where element ``(n, k)`` of a padded ``(n_pad, k_pad)`` int8 matrix
-    lies in K4's pack, as an ``(n_pad, k_pad)`` array of byte offsets:
-    k-slices of ``K4_KS`` (the last a multiple of 32 up to it), each in
-    wgmma's K-major core-matrix layout with 16 k per 16-byte row,
-    ``slice_start + ((k % K4_KS) // 16 * n_pad + n) * 16 + k % 16``."""
-    n = np.arange(n_pad)[:, None]
+    lies in K4's pack, as an ``(n_pad, k_pad)`` array of byte offsets: each
+    column pass (``fused_render.pass_widths``: all of it up to 520 columns)
+    a block of its own, ``k_pad * c0`` from the start for the pass from
+    column ``c0``, ``w`` wide, in k-slices of ``K4_KS`` (the last a multiple
+    of 32 up to it), each in wgmma's K-major core-matrix layout with 16 k
+    per 16-byte row, ``slice_start + ((k % K4_KS) // 16 * w + n - c0) * 16
+    + k % 16``."""
+    out = np.empty((n_pad, k_pad), dtype=np.int64)
     k = np.arange(k_pad)[None, :]
-    slice_start = (k // K4_KS) * K4_KS * n_pad
-    return slice_start + ((k % K4_KS) // 16 * n_pad + n) * 16 + k % 16
+    c0 = 0
+    for w in pass_widths(n_pad):
+        n = np.arange(w)[:, None]
+        out[c0:c0 + w] = (k_pad * c0 + (k // K4_KS) * K4_KS * w
+                          + ((k % K4_KS) // 16 * w + n) * 16 + k % 16)
+        c0 += w
+    return out
 
 
 class QuantPack(NamedTuple):
@@ -133,8 +143,8 @@ def _padded_row(x: torch.Tensor, width: int, device) -> torch.Tensor:
 def pack_qparams(qp: QuantParams, device: torch.device) -> QuantPack:
     """Pad each layer to (round8 outputs, round32 inputs), transpose to one
     row per output column and lay it out for K4's wgmma
-    (:func:`q_layout`): the producer copies one k-slice per shared-memory
-    stage, which the descriptor reads as is.  Gather the f32 rows.  Raises
+    (:func:`q_layout`): the producer copies one k-slice of a column pass per
+    shared-memory stage, which the descriptor reads as is.  Gather the f32 rows.  Raises
     ``ValueError`` for a weight of -128: the kernel's exact dequantization
     takes |acc| <= k * 127^2."""
     ws, fs, desc = [], [], []
@@ -146,8 +156,9 @@ def pack_qparams(qp: QuantParams, device: torch.device) -> QuantPack:
         k_pad, n_pad = _round_up(k, 32), _round_up(n, 8)
         wp = torch.zeros((n_pad, k_pad), dtype=torch.int8, device=device)
         wp[:n, :k] = wq.T.to(device)
-        ws += [wp[:, k0:k0 + K4_KS].reshape(n_pad, -1, 16).permute(1, 0, 2).reshape(-1)
-               for k0 in range(0, k_pad, K4_KS)]
+        bounds = np.cumsum([0] + pass_widths(n_pad)).tolist()
+        ws += [wp[c0:c1, k0:k0 + K4_KS].reshape(c1 - c0, -1, 16).permute(1, 0, 2).reshape(-1)
+               for c0, c1 in zip(bounds[:-1], bounds[1:]) for k0 in range(0, k_pad, K4_KS)]
         rows = [_padded_row(scale, n_pad, device), _padded_row(b, n_pad, device),
                 _padded_row(inv if inv is not None else torch.zeros(0), n_pad, device)]
         fs += rows

@@ -520,7 +520,7 @@ def test_k4_exact_where_accumulators_reach_the_bound(dev):
 def test_k4_rejects_an_unsupported_width(dev):
     """Its name is historical: hidden 96 runs on the int8 tables zero-padded
     to the 128 instantiation (quant_render.pad_qparams), held to the plain
-    version at K4's gates; hidden 640 still raises, naming 512."""
+    version at K4's gates; hidden 1025 still raises, naming 1024."""
     qp, o, d, t = _k4_setup(dev, (2, 96, 4), 16, 8, seed=23)
     rgb, w = k4.render_rays_fused_quant(qp, o, d, t)
     torch.cuda.synchronize()
@@ -528,8 +528,8 @@ def test_k4_rejects_an_unsupported_width(dev):
     for got, want in ((rgb, rgb_p), (w, w_p)):
         assert float((got - want).abs().max()) <= TOL_MAX
         assert float((got - want).abs().mean()) <= TOL_MEAN
-    qp, o, d, t = _k4_setup(dev, (2, 640, 4), 16, 8, seed=23)
-    with pytest.raises(NotImplementedError, match="up to 512"):
+    qp, o, d, t = _k4_setup(dev, (2, 1025, 4), 16, 8, seed=23)
+    with pytest.raises(NotImplementedError, match="up to 1024"):
         k4.render_rays_fused_quant(qp, o, d, t)
 
 
@@ -996,15 +996,15 @@ def test_f32_backward_over_chunks_repeats_its_bits(dev, monkeypatch, kernel):
         assert _rel_l2(a, w) <= F32_TOL_REL, (i, _rel_l2(a, w))
 
 
-@pytest.mark.parametrize("what", ["hidden 640 bf16", "hidden 320 f32",
+@pytest.mark.parametrize("what", ["hidden 1025 bf16", "hidden 320 f32",
                                   "hidden 320 bf16 K5 input gradients", "L_XYZ 21",
                                   "L_DIR 11"])
 def test_beyond_the_kernels_raises_naming_the_limit(dev, what):
-    """A bf16 MLP wider than 512, a float32 one wider than 256, K5's input
+    """A bf16 MLP wider than 1024, a float32 one wider than 256, K5's input
     gradients wider than 256, L_XYZ > 20 and L_DIR > 10 raise
     NotImplementedError naming the limit and the ROADMAP.md item, before
     any launch; nothing falls back."""
-    hidden = 640 if "640" in what else 320 if "320" in what else 64
+    hidden = 1025 if "1025" in what else 320 if "320" in what else 64
     l_xyz, l_dir = (21 if what == "L_XYZ 21" else 10), (11 if what == "L_DIR 11" else 4)
     dtype = torch.float32 if "f32" in what else torch.bfloat16
     mlp = NeRFMLP(num_layers=2, hidden_dim=hidden, l_xyz=l_xyz, l_dir=l_dir,
@@ -1012,7 +1012,7 @@ def test_beyond_the_kernels_raises_naming_the_limit(dev, what):
     o, d, t = _rays(dev, 8, 8)
     x = torch.zeros((8, mlp.xyz_dim), dtype=dtype, device=dev)
     dd = torch.zeros((8, mlp.dir_dim), dtype=dtype, device=dev)
-    limit = {"hidden 640 bf16": "up to 512", "hidden 320 f32": "up to 256",
+    limit = {"hidden 1025 bf16": "up to 1024", "hidden 320 f32": "up to 256",
              "hidden 320 bf16 K5 input gradients": "input gradients.*up to 256"}.get(
         what, "L_XYZ <= 20, L_DIR <= 10")
     before = launch_counts()
@@ -1027,10 +1027,13 @@ def test_beyond_the_kernels_raises_naming_the_limit(dev, what):
 
 
 # ---------------------------------------------------------------------------
-# Hidden widths above 256: the 64-row split tile of hidden 512 (and widths
-# 257-511 zero-padded to it), each kernel against its plain version.
+# Hidden widths above 256: the 64-row split tile of hidden 512 and 1024 (in
+# column passes of 512 there), and widths between zero-padded to them, each
+# kernel against its plain version.
 
-WIDE = (320, 512)
+WIDE = (320, 512, 640, 1024)
+# The dW workspace bytes of a sample at 8 x 512 and 8 x 1024.
+WS_BYTES = {512: 19_840, 1024: 39_296}
 
 
 def _wide_mlp(dev, hidden, seed, num_layers=8, skip=4):
@@ -1044,8 +1047,8 @@ def _wide_mlp(dev, hidden, seed, num_layers=8, skip=4):
 def test_wide_k1_matches_plain(dev, hidden, b, s):
     """K1 (and its training mode, as ``test_k1_training_residuals_match_plain``
     holds it: the bf16 x_enc residual, the predictions of the plain MLP on
-    it, the same rgb and weights) at 8 x 320 and 8 x 512 against the plain
-    version: one ray a block, several, and a ragged last tile."""
+    it, the same rgb and weights) at 8 x 320, 512, 640 and 1024 against the
+    plain version: one ray a block, several, and a ragged last tile."""
     mlp = _wide_mlp(dev, hidden, seed=31)
     o, d, t = _rays(dev, b, s, seed=4)
     before = (k1.launches, k1.train_launches)
@@ -1072,9 +1075,10 @@ def test_wide_k1_matches_plain(dev, hidden, b, s):
 @pytest.mark.parametrize("hidden", WIDE)
 @pytest.mark.parametrize("with_gw", [True, False])
 def test_wide_k2_matches_plain_vjp(dev, hidden, with_gw):
-    """K2 at 320 and 512 (its rows kernel on the split tile, dW in pairs of
-    264-column windows, csrc/nerf_dw.cuh: mlp_dw_window_kernel) against autograd
-    of the plain K1, per leaf within K2_TOL_REL; K3 gives K2's bits."""
+    """K2 at 320, 512, 640 and 1024 (its rows kernel on the split tile, dW
+    in 264-column windows, csrc/nerf_dw.cuh: mlp_dw_window_kernel) against
+    autograd of the plain K1, per leaf within K2_TOL_REL; K3 gives K2's
+    bits."""
     mlp = _wide_mlp(dev, hidden, seed=32)
     b, s = 333, 100
     o, d, t = _rays(dev, b, s, seed=5)
@@ -1094,13 +1098,14 @@ def test_wide_k2_matches_plain_vjp(dev, hidden, with_gw):
     assert all(torch.equal(a, c) for a, c in zip(k2, k3))
 
 
-def test_wide_k2_chunks_and_determinism(dev, monkeypatch):
-    """At 8 x 512: two runs give the same bits (no atomics; the bias sums
-    over the split tile's four row groups in a fixed order), and a budget
-    that forces several chunks of rays (a ragged last one: the dW slabs
-    accumulate over chunks, column tile by column tile) stays within K2's
-    gate of one chunk."""
-    mlp = _wide_mlp(dev, 512, seed=33)
+@pytest.mark.parametrize("hidden", [512, 1024])
+def test_wide_k2_chunks_and_determinism(dev, monkeypatch, hidden):
+    """At 8 x 512 and 8 x 1024: two runs give the same bits (no atomics;
+    the bias sums over the split tile's four row groups in a fixed order),
+    and a budget that forces several chunks of rays (a ragged last one: the
+    dW slabs accumulate over chunks, column tile by column tile) stays
+    within K2's gate of one chunk."""
+    mlp = _wide_mlp(dev, hidden, seed=33)
     b, s = 300, 64
     o, d, t = _rays(dev, b, s, seed=7)
     gen = torch.Generator().manual_seed(8)
@@ -1109,7 +1114,7 @@ def test_wide_k2_chunks_and_determinism(dev, monkeypatch):
     one = _kernel_grads(mlp, o, d, t, g_rgb, g_w)
     again = _kernel_grads(mlp, o, d, t, g_rgb, g_w)
     assert all(torch.equal(x, y) for x, y in zip(one, again))
-    per_sample = 19_840  # the workspace bytes of a sample at 8 x 512
+    per_sample = WS_BYTES[hidden]
     monkeypatch.setattr(k1, "DW_CHUNK_BYTES", 64 * 128 * per_sample)
     plan = k1.chunk_plan(b, s, per_sample)
     assert len(plan) >= 3 and plan[-1][1] < plan[0][1]
@@ -1118,27 +1123,32 @@ def test_wide_k2_chunks_and_determinism(dev, monkeypatch):
         assert _rel_l2(x, y) <= K2_TOL_REL
 
 
+@pytest.mark.parametrize("hidden", [512, 1024])
 @pytest.mark.parametrize("chunk_rays", [None, 81, 40])
-def test_wide_dw_windows_match_plain_over_chunks(dev, monkeypatch, chunk_rays):
+def test_wide_dw_windows_match_plain_over_chunks(dev, monkeypatch, chunk_rays, hidden):
     """The split tile's dW product (csrc/nerf_dw.cuh: mlp_dw_window_kernel,
-    a block a window tile and a range of samples) at 8 x 512, 257 rays of
-    100 samples: in one chunk, and in chunks of 81 and of 40 rays (4 and 7
+    a block a window tile and a range of samples) at 8 x 512 and 8 x 1024
+    (four windows a trunk layer), 257 rays of
+    100 samples: in the default budget's chunks (one at 512, two at 1024),
+    and in chunks of 81 and of 40 rays (4 and 7
     chunks, the last ragged: each tile's sample ranges shift with the
     chunk's stages), K2 against the plain VJP per leaf within K2_TOL_REL,
     run twice the same bits, one mlp_dw_window_kernel launch a chunk and no
     mlp_dw_kernel (torch.profiler)."""
-    mlp = _wide_mlp(dev, 512, seed=36)
+    mlp = _wide_mlp(dev, hidden, seed=36)
     b, s = 257, 100
     o, d, t = _rays(dev, b, s, seed=13)
     gen = torch.Generator().manual_seed(14)
     g_rgb = torch.randn((b, 3), generator=gen).to(dev)
     g_w = torch.randn((b, s), generator=gen).to(dev)
-    per_sample = 19_840  # the workspace bytes of a sample at 8 x 512
+    per_sample = WS_BYTES[hidden]
     if chunk_rays is not None:
         rows = -(-chunk_rays * s // 128) * 128
         monkeypatch.setattr(k1, "DW_CHUNK_BYTES", rows * per_sample)
     plan = k1.chunk_plan(b, s, per_sample)
-    assert len(plan) == {None: 1, 81: 4, 40: 7}[chunk_rays]
+    # The default budget holds the 25,700 samples in one chunk at 8x512
+    # (19,840 B each), in two at 8x1024 (39,296 B each).
+    assert len(plan) == {None: 1 if hidden == 512 else 2, 81: 4, 40: 7}[chunk_rays]
     with torch.no_grad():
         _, _, x_res, preds = k1.launch_k1(mlp, o, d, t, 10, 4, train=True)
         run = lambda: k1.launch_k2(mlp, x_res, d, t, preds, g_rgb, g_w, 10, 4)  # noqa: E731
@@ -1371,8 +1381,8 @@ def test_wide_clusters_at_odd_and_ragged_tile_counts(dev, kernel, b, s):
 @pytest.mark.parametrize("hidden", WIDE)
 def test_wide_k6_and_k5_match_plain(dev, hidden):
     """K6 (forward, backward) and K5 (forward, backward without input
-    gradients: the card's path above 256) at 320 and 512 against their
-    plain versions."""
+    gradients: the card's path above 256) at 320, 512, 640 and 1024
+    against their plain versions."""
     mlp = _wide_mlp(dev, hidden, seed=34)
     b, s = 257, 64
     o, d, t = _rays(dev, b, s, seed=9)
@@ -1411,9 +1421,9 @@ def test_wide_k6_and_k5_match_plain(dev, hidden):
 @pytest.mark.parametrize("hidden", WIDE)
 @pytest.mark.parametrize("b,s", [(4096, 64), (333, 160), (1001, 24)])
 def test_wide_k4_matches_plain(dev, hidden, b, s):
-    """K4 at 8 x 320 (tables padded to 512) and 8 x 512 against its plain
-    version on the same qparams, at K1's gates; two launches the same
-    bits."""
+    """K4 at 8 x 320 (tables padded to 512), 8 x 512, 8 x 640 (padded to
+    1024) and 8 x 1024 against its plain version on the same qparams, at
+    K1's gates; two launches the same bits."""
     qp, o, d, t = _k4_setup(dev, (8, hidden, 4), b, s, seed=24)
     rgb, w = k4.render_rays_fused_quant(qp, o, d, t)
     again = k4.render_rays_fused_quant(qp, o, d, t)
@@ -1426,14 +1436,15 @@ def test_wide_k4_matches_plain(dev, hidden, b, s):
         assert float((got - want).abs().mean()) <= TOL_MEAN
 
 
-def test_wide_k4_exact_beyond_two_to_the_22(dev):
-    """K4 at 8 x 512 on ``k4_adversarial.adversarial_case(hidden=512)``:
+@pytest.mark.parametrize("hidden", [512, 1024])
+def test_wide_k4_exact_beyond_two_to_the_22(dev, hidden):
+    """K4 at 8 x 512 and 8 x 1024 on ``k4_adversarial.adversarial_case``:
     every trunk layer after the first, the head and the branch accumulate
     beyond 2^22 (the layer after the skip and the branch exactly k *
     127^2), where K4 converts with cvt.rn.f32.s32; within K4's gates (max
     1e-3, mean 1e-5), which the magic number there misses by 10x
     (``test_torch_wide.py`` checks that on the CPU)."""
-    qp, o, d, t = k4_adversarial.adversarial_case(dev, hidden=512)
+    qp, o, d, t = k4_adversarial.adversarial_case(dev, hidden=hidden)
     rgb, w = k4.render_rays_fused_quant(qp, o, d, t)
     torch.cuda.synchronize()
     rgb_p, w_p = k4.render_rays_reference_quant(qp, o, d, t)

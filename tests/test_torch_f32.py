@@ -71,6 +71,9 @@ F32, BF16 = torch.float32, torch.bfloat16
     (BF16, 256, "cuda", ("wgmma", 256)),
     (BF16, 257, "cuda", ("wgmma", 512)),
     (BF16, 512, "cuda", ("wgmma", 512)),
+    (BF16, 513, "cuda", ("wgmma", 1024)),
+    (BF16, 960, "cuda", ("wgmma", 1024)),
+    (BF16, 1024, "cuda", ("wgmma", 1024)),
     (BF16, 320, "cpu", ("plain", 320)),
     (BF16, 1024, "cpu", ("plain", 1024)),
     (F32, 96, "cpu", ("plain", 96)),
@@ -94,12 +97,17 @@ def test_wider_than_256_raises_naming_the_limit(dtype, hidden):
 
 @pytest.mark.parametrize("hidden", [513, 640, 1024])
 def test_bf16_wider_than_512_raises_naming_the_limit(hidden):
-    """A bf16 MLP above 512 raises on CUDA naming 512 and the ROADMAP
-    item, for every kernel that pads to an instantiation (K1-K6, K4)."""
-    with pytest.raises(NotImplementedError, match=r"up to 512.*ROADMAP.md queue 2 A3"):
-        k1.kernel_route(BF16, hidden, "cuda")
-    with pytest.raises(NotImplementedError, match=r"up to 512.*ROADMAP.md queue 2 A3"):
-        k1.kernel_width(hidden, k4.K4_HIDDEN)
+    """A bf16 MLP of 513-1024 units runs on CUDA on the hidden-1024
+    kernels (zero-padded to 1024) for every kernel that pads to an
+    instantiation (K1-K6, K4); one unit more than 1024 raises naming 1024
+    and the ROADMAP item."""
+    assert k1.kernel_route(BF16, hidden, "cuda") == ("wgmma", 1024)
+    assert k1.kernel_width(hidden, k4.K4_HIDDEN) == 1024
+    wider = hidden + 512 if hidden < 1024 else hidden + 1
+    with pytest.raises(NotImplementedError, match=r"up to 1024.*ROADMAP.md queue 2 A3"):
+        k1.kernel_route(BF16, wider, "cuda")
+    with pytest.raises(NotImplementedError, match=r"up to 1024.*ROADMAP.md queue 2 A3"):
+        k1.kernel_width(wider, k4.K4_HIDDEN)
 
 
 @pytest.mark.parametrize("hidden,raises", [(256, False), (257, True), (512, True)])
@@ -122,7 +130,8 @@ def test_k5_input_gradients_wider_than_256_raise(hidden, raises):
 
 
 @pytest.mark.parametrize("hidden,want", [(8, 32), (32, 32), (48, 64), (96, 128), (192, 256),
-                                         (257, 512), (320, 512), (512, 512)])
+                                         (257, 512), (320, 512), (512, 512), (513, 1024),
+                                         (960, 1024), (1024, 1024)])
 def test_k4_pads_to_its_instantiations(hidden, want):
     assert k1.kernel_width(hidden, k4.K4_HIDDEN) == want
 

@@ -1,5 +1,6 @@
-"""Hidden widths up to 512 on the kernels: the packs and layouts of the
-64-row split tile, and the modules and the slice at 320 and 512, on the CPU.
+"""Hidden widths up to 1024 on the kernels: the packs and layouts of the
+64-row split tile, and the modules and the slice at 320, 512 and 1024, on
+the CPU.
 
 Hidden 512 runs on its own instantiation (``csrc/nerf_wgmlp.cuh``: a
 64-row tile whose two consumer warpgroups each compute a part of every
@@ -7,10 +8,15 @@ layer's output columns, ``Split<N>``: 256 + 256 of the trunk, 256 + 264 of
 the merged head, 128 + 128 of the branch, the 8-wide rgb head warpgroup 0's
 alone; weight stages 32 k deep), and widths 257-511 run zero-padded to it
 (``fused_render.kernel_width``/``layer_maps``/``padded_layers``,
-``quant_render.pad_qparams``).  Here, with numpy models of the addressing:
+``quant_render.pad_qparams``).  Hidden 1024 runs the same tile in column
+passes (``n_passes``: a layer wider than 520 columns in passes of 512, the
+merged head's 1,032 as 512 + 520), each pass's columns a block of the pack
+of their own, and widths 513-1023 run zero-padded to it.  Here, with numpy
+models of the addressing:
 
-* The forward pack and K2's transposed pack at hidden 320 (padded) and
-  512: every element where a warpgroup's B descriptor addresses it, for
+* The forward pack and K2's transposed pack at hidden 320, 640 and 960
+  (padded) and 512 and 1024: every element where a warpgroup's B
+  descriptor addresses it in its column pass, for
   32-deep stages (hidden 512's) as for 64-deep ones, at the column offset
   of each warpgroup's part; a 32-deep stage is one contiguous run of the
   pack.
@@ -57,6 +63,7 @@ import pytest
 import torch
 
 from nerf_keras_tpu.engine import step as jstep
+from nerf_keras_tpu.models.mlp import init_nerf_params
 from nerf_keras_tpu.ops import encode_position, sample_rays
 from nerf_keras_tpu.ops import quant as jq
 from nerf_keras_tpu.ops.pallas.fused_mlp import apply_nerf_mlp_pallas
@@ -90,7 +97,7 @@ torch.set_num_threads(1)
 CPU = torch.device("cpu")
 JAX_VAL_TOL = 1e-5
 JAX_GRAD_TOL = 5e-4
-WIDE = (320, 512)
+WIDE = (320, 512, 640, 960, 1024)
 
 
 def _split(n):
@@ -106,6 +113,18 @@ def _products(n):
     ending at N."""
     width = max(_split(n))
     return (0, width), (n - width, width)
+
+
+def _pass_parts(n_pad):
+    """Each warpgroup's product on the split tile, pass by pass
+    (``layer_passes``): ``(c0, w, n0, width)``, the pass's first column and
+    width (its block of the pack is ``w`` wide, ``k_pad * c0`` elements
+    in), and the product's first column within the pass and width."""
+    c0 = 0
+    for w in k1.pass_widths(n_pad):
+        for n0, width in _products(w):
+            yield c0, w, n0, width
+        c0 += w
 
 
 def _part_address(n_pad, k_pad, ks, n0, width):
@@ -131,7 +150,7 @@ def test_wide_packs_match_a_numpy_model(hidden, which):
     widths the kernels check (wg_dims_ok)."""
     mlp = _mlp(hidden, num_layers=8, skip=4, l_xyz=10, l_dir=4)
     hp = k1.kernel_width(hidden)
-    assert hp == 512
+    assert hp == (512 if hidden <= 512 else 1024)
     mats = _numpy_padded(mlp, hp)
     if which == "fwd":
         pack = k1.pack_weights_wg(mlp, CPU)
@@ -152,11 +171,11 @@ def test_wide_packs_match_a_numpy_model(hidden, which):
         # The pack's layout does not depend on the stage depth.
         np.testing.assert_array_equal(k1.wg_layout(n_pad, k_pad, k1.WG_KS_NARROW),
                                       k1.wg_layout(n_pad, k_pad, k1.WG_KS))
-        lo, hi = _split(n_pad)
-        assert lo % 32 == 0 or n_pad == 8
-        for n0, width in _products(n_pad):
-            addr = _part_address(n_pad, k_pad, k1.WG_KS_NARROW, n0, width)
-            np.testing.assert_array_equal(w[w_off + addr], want[n0:n0 + width])
+        for c0, pw, n0, width in _pass_parts(n_pad):
+            lo, hi = _split(pw)
+            assert lo % 32 == 0 or pw == 8
+            addr = k_pad * c0 + _part_address(pw, k_pad, k1.WG_KS_NARROW, n0, width)
+            np.testing.assert_array_equal(w[w_off + addr], want[c0 + n0:c0 + n0 + width])
 
 
 def test_split_parts_of_the_512_layers():
@@ -178,6 +197,88 @@ def test_split_parts_of_the_512_layers():
     for n in (512, 256):
         assert all(p % 32 == 0 for p in _split(n))
     assert max(w for n in (512, 520, 256, 8) for _, w in _products(n)) // 2 == 132
+
+
+def test_column_passes_of_the_1024_layers():
+    """Hidden 1024's column passes (``pass_widths``, csrc/nerf_wgmlp.cuh:
+    n_passes): the trunk and K2's dX products 512 + 512, the merged head
+    512 + 520 (sigma in the last), the branch 512 and the rgb head 8 in one
+    pass, as every layer up to 520 columns; each pass a width of the
+    512-split tile (Split, SplitProduct), so an accumulator of 132 f32 a
+    thread at most; the park holds a pass of 512 columns, and no layer
+    takes more than two passes."""
+    assert k1.pass_widths(1024) == [512, 512]
+    assert k1.pass_widths(1032) == [512, 520]
+    for n in (8, 256, 264, 512, 520):
+        assert k1.pass_widths(n) == [n]
+    widths = {w for n in (1024, 1032, 512, 8) for w in k1.pass_widths(n)}
+    assert widths == {512, 520, 8}
+    assert max(w for n in widths for _, w in _products(n)) // 2 == 132
+    assert all(len(k1.pass_widths(n)) <= 2 for n in (1024, 1032, 1040))
+    assert all(_split(w)[0] == _split(w)[1] == 256 for n in (1024, 1032)
+               for w in k1.pass_widths(n)[:-1])
+
+
+def test_shared_memory_at_1024():
+    """Hidden 1024's blocks (a model of the hosts' carve-ups:
+    fused_render_fwd.cu, fused_render_bwd.cu, quant_render_fwd.cu) hold
+    at least two weight stages of the widest pass (520 columns, 32 k deep
+    bf16, 64 k deep int8) beside the 64-row activation tile, in the 232,448
+    bytes a block may use: K1 with its x_enc tile and one ray's S = 192
+    predictions, the rows kernel with its ReLU bits and column sums in the
+    global scratch (``glob_bytes``: the park of 64 x 512 bf16, 9 layers'
+    bits, two sets of four rows of sums), K4 with its park of 64 x 512
+    bytes and its f32 rows in global memory."""
+    smem, bars = 232_448, 128
+    ldx, xyz_pad, dir_pad = 1024 + 64 + 8, 64, 32
+    stage = 520 * 32 * 2
+    k1_rest = bars + 2 * (64 * ldx + 64 * xyz_pad + dir_pad) + 4 * (8 + 192 * 4)
+    rows_rest = bars + 2 * 64 * ldx
+    for rest in (k1_rest, rows_rest):
+        assert (smem - rest) // stage >= 2
+    assert k1.glob_bytes(1024, 8, True) == 64 * 512 * 2 + 4 * 9 * 64 * 32 + 4 * 2 * 4 * 1024
+    assert k1.glob_bytes(1024, 8, False) == 64 * 512 * 2
+    assert k1.glob_bytes(512, 8, True) == k1.glob_bytes(512, 8, False) == 0
+    q_ldx, q_xyz, q_dir = 1024 + 64 + 16, 64, 32
+    k4_rest = 144 + 64 * 512 + 64 * q_ldx + 64 * q_xyz + q_dir + 4 * (8 + 192 * 4)
+    assert (smem - k4_rest) // (520 * 64) >= 2
+
+
+def _stage_parts(n, pipe):
+    """csrc/nerf_wgmlp.cuh: StageParts<N, kPipe>, the parts a stage's fresh
+    wgmma sums take a warpgroup's N columns in: ``[(first column, width)]``."""
+    most = 64 if pipe else 88
+    count = -(-n // most)
+    step = most if pipe else (-(-n // count) + 7) // 8 * 8
+    return [(c * step, step if c + 1 < count else n - step * c) for c in range(count)]
+
+
+@pytest.mark.parametrize("pipe", [True, False])
+def test_stage_parts_cover_each_column_once(pipe):
+    """The staged sums' parts (``wg_product_staged``, hidden 1024) of every
+    product width the split tile runs (SplitProduct of the trunk and dX products, the
+    merged head, the branch, the rgb head): each column once, every part a
+    wgmma width (a multiple of 8), its fresh sums within the part buffers'
+    registers (two of 32 f32 a thread in flight, or one of 44)."""
+    for n in (264, 256, 128, 8):
+        parts = _stage_parts(n, pipe)
+        cols = [c for c0, w in parts for c in range(c0, c0 + w)]
+        assert cols == list(range(n))
+        assert all(w % 8 == 0 and 0 < w <= (64 if pipe else 88) for _, w in parts)
+    assert _stage_parts(264, True)[-1] == (256, 8) and len(_stage_parts(264, False)) == 3
+
+
+@pytest.mark.parametrize("hidden", [513, 1000, 1024, 1025])
+def test_kernel_width_at_1024_and_beyond(hidden):
+    """Both instantiation lists end at 1024: a model of 513-1024 units runs
+    on the 1024 kernels (bf16 wgmma and K4), 1025 raises
+    NotImplementedError naming the limit and ROADMAP.md queue 2 A3."""
+    for widths in (k1.WG_HIDDEN, k4.K4_HIDDEN):
+        if hidden <= 1024:
+            assert k1.kernel_width(hidden, widths) == 1024
+        else:
+            with pytest.raises(NotImplementedError, match=r"up to 1024.*ROADMAP.md queue 2 A3"):
+                k1.kernel_width(hidden, widths)
 
 
 def _cluster_walk(ntiles, grid, cluster=k1.CLUSTER):
@@ -226,6 +327,18 @@ def test_cluster_walk_covers_every_tile_once(ntiles, sms):
             assert second.count(None) <= 1 and (None not in second or second[-1] is None)
 
 
+def test_cluster_grid_at_the_wide1024_phase():
+    """K2 at 8 x 1024, B = 4,096, S = 192 on an H100: chunks of 88 rays
+    (39,296 B a sample), 47 of them, 264 64-row tiles each on 132 blocks,
+    two tiles a block."""
+    plan = k1.chunk_plan(4096, 192, 39_296)
+    assert plan[0][1] == 88 and len(plan) == 47 and plan[-1][1] == 4096 - 88 * 46
+    tiles = -(-plan[0][1] * 192 // k1.SPLIT_ROWS)
+    grid = k1.cluster_grid(tiles, 132)
+    assert (tiles, grid) == (264, 132)
+    assert {len(w) for w in _cluster_walk(tiles, grid)} == {2}
+
+
 def test_cluster_grid_at_the_wide_phase():
     """K2 at 8 x 512, B = 4,096, S = 192 on an H100 (132 SMs): chunks of
     176 rays (``chunk_plan``, 19,840 B a sample), 528 64-row tiles each;
@@ -253,10 +366,14 @@ def test_every_stage_halves_for_multicast(hidden):
     for pack in (k1.pack_weights_wg(mlp, CPU), k1.pack_weights_bwd_wg(mlp, CPU)):
         for k_pad, _, n_pad, w_off, _ in pack.desc:
             assert (w_off * 2) % 16 == 0
-            for k0 in range(0, int(k_pad), k1.WG_KS_NARROW):
-                kw = min(k1.WG_KS_NARROW, int(k_pad) - k0)
-                stage = int(n_pad) * kw * 2
-                assert stage % 256 == 0 and (k0 * int(n_pad) * 2) % 16 == 0
+            c0 = 0
+            for pw in k1.pass_widths(int(n_pad)):
+                for k0 in range(0, int(k_pad), k1.WG_KS_NARROW):
+                    kw = min(k1.WG_KS_NARROW, int(k_pad) - k0)
+                    stage = pw * kw * 2
+                    assert stage % 256 == 0
+                    assert ((int(k_pad) * c0 + k0 * pw) * 2) % 16 == 0
+                c0 += pw
 
 
 def _q_part_address(n_pad, k_pad, kq, n0, width):
@@ -273,10 +390,11 @@ def _q_part_address(n_pad, k_pad, kq, n0, width):
 
 @pytest.mark.parametrize("hidden", WIDE)
 def test_k4_wide_tables(hidden):
-    """K4 at 320 (padded) and 512: the int8 MLP on ``pad_qparams``' tables
-    equals the unpadded one bit for bit; the pack has K4's widths; each
-    warpgroup part's int8 columns lie where the 64-deep stages' descriptor
-    addresses them and its f32 rows (scale, bias, requant) at f_off + n0."""
+    """K4 at 320, 640 and 960 (padded) and 512 and 1024: the int8 MLP on
+    ``pad_qparams``' tables equals the unpadded one bit for bit; the pack
+    has K4's widths; each warpgroup part's int8 columns lie where the
+    64-deep stages' descriptor addresses them in its column pass and its
+    f32 rows (scale, bias, requant) at f_off + c0 + n0."""
     mlp = _mlp(hidden, num_layers=8, skip=4, l_xyz=10, l_dir=4)
     rng = np.random.default_rng(3)
     x = torch.tensor(rng.normal(size=(64, mlp.xyz_dim)), dtype=torch.float32)
@@ -284,7 +402,7 @@ def test_k4_wide_tables(hidden):
     tree = quant.mlp_tree(mlp)
     qp = quant.quantize_mlp(tree, quant.mlp_calibration_absmax(tree, x, d, 4), 4)
     hq = k1.kernel_width(hidden, k4.K4_HIDDEN)
-    assert hq == 512
+    assert hq == (512 if hidden <= 512 else 1024)
     padded = k4.pad_qparams(qp, 4, hq)
     assert torch.equal(quant.apply_nerf_mlp_quant(padded, x, d, skip_layer=4),
                        quant.apply_nerf_mlp_quant(qp, x, d, skip_layer=4))
@@ -299,13 +417,15 @@ def test_k4_wide_tables(hidden):
         want = np.zeros((n_pad, k_pad), np.int8)
         want[:n, :wq.shape[0]] = wq.T.numpy()
         # The pack's layout does not depend on the stage depth.
-        np.testing.assert_array_equal(k4.q_layout(n_pad, k_pad),
-                                      _q_part_address(n_pad, k_pad, 64, 0, n_pad))
-        lo, hi = _split(n_pad)
-        for n0, width in _products(n_pad):
-            addr = _q_part_address(n_pad, k_pad, 64, n0, width)
-            np.testing.assert_array_equal(w[w_off + addr], want[n0:n0 + width])
-        for n0, width in ((0, lo), (lo, hi)):
+        for c0, pw, _, _ in _pass_parts(n_pad):
+            np.testing.assert_array_equal(k4.q_layout(n_pad, k_pad)[c0:c0 + pw],
+                                          k_pad * c0 + _q_part_address(pw, k_pad, 64, 0, pw))
+        for c0, pw, n0, width in _pass_parts(n_pad):
+            addr = k_pad * c0 + _q_part_address(pw, k_pad, 64, n0, width)
+            np.testing.assert_array_equal(w[w_off + addr], want[c0 + n0:c0 + n0 + width])
+        parts = {(c0 + p0, pw_) for c0, pw, _, _ in _pass_parts(n_pad)
+                 for p0, pw_ in zip((0, _split(pw)[0]), _split(pw))}
+        for n0, width in sorted(parts):
             cols = np.arange(n0, n0 + max(0, min(width, n - n0)))
             np.testing.assert_array_equal(f[f_off + cols], scale.reshape(-1)[cols].numpy())
             np.testing.assert_array_equal(f[f_off + n_pad + cols], b.reshape(-1)[cols].numpy())
@@ -315,41 +435,43 @@ def test_k4_wide_tables(hidden):
                                               inv.reshape(-1)[have].numpy())
 
 
-@pytest.mark.parametrize("hidden", [320, 448])
+@pytest.mark.parametrize("hidden", [320, 448, 640, 960])
 @pytest.mark.parametrize("offset", ["sigma", "skip", "branch", "rgb"])
 def test_layer_maps_at_512(offset, hidden):
-    """The four offsets the padding to 512 moves, against the padded
-    matrices: sigma at head column 512, the skip layer's x_enc rows at
-    512, the branch's d_enc rows at 512, the rgb input 256 wide."""
+    """The four offsets the padding to 512 (and to 1024, its name
+    notwithstanding) moves, against the padded matrices: sigma at head
+    column hp, the skip layer's x_enc rows at hp, the branch's d_enc rows
+    at hp, the rgb input hp / 2 wide."""
     mlp = _mlp(hidden, num_layers=5, skip=2)
     hp = k1.kernel_width(hidden)
-    assert hp == 512
+    assert hp == (512 if hidden <= 512 else 1024)
     layers = k1._dense_layers(mlp, hp)
     maps = k1.layer_maps(mlp, hp)
     nl, xd, dd = mlp.num_layers, mlp.xyz_dim, mlp.dir_dim
     if offset == "sigma":
         w, b = layers[nl]
-        assert maps[nl][1].tolist() == list(range(hidden)) + [512] and maps[nl][3] == 513
-        assert torch.equal(w[512, maps[nl][0]], mlp.sigma.weight[0])
-        assert float(b.detach()[512]) == float(mlp.sigma.bias.detach()[0])
-        assert not w[hidden:512].any() and not b[hidden:512].any()
+        assert maps[nl][1].tolist() == list(range(hidden)) + [hp] and maps[nl][3] == hp + 1
+        assert torch.equal(w[hp, maps[nl][0]], mlp.sigma.weight[0])
+        assert float(b.detach()[hp]) == float(mlp.sigma.bias.detach()[0])
+        assert not w[hidden:hp].any() and not b[hidden:hp].any()
     elif offset == "skip":
         i = next(i for i in range(1, nl) if is_skip(i - 1, mlp.skip_layer))
         in_idx, _, k, n = maps[i]
-        assert (k, n) == (512 + xd, 512) and in_idx[hidden:].tolist() == list(range(512, 512 + xd))
+        assert (k, n) == (hp + xd, hp) and in_idx[hidden:].tolist() == list(range(hp, hp + xd))
         w, _ = layers[i]
-        assert torch.equal(w[:hidden, 512:], mlp.trunk[i].weight[:, hidden:])
-        assert not w[:, hidden:512].any() and not w[hidden:].any()
+        assert torch.equal(w[:hidden, hp:], mlp.trunk[i].weight[:, hidden:])
+        assert not w[:, hidden:hp].any() and not w[hidden:].any()
     elif offset == "branch":
         in_idx, out_idx, k, n = maps[nl + 1]
-        assert (k, n) == (512 + dd, 256) and in_idx[hidden:].tolist() == list(range(512, 512 + dd))
+        assert (k, n) == (hp + dd, hp // 2)
+        assert in_idx[hidden:].tolist() == list(range(hp, hp + dd))
         w, _ = layers[nl + 1]
-        assert torch.equal(w[:hidden // 2, 512:], mlp.branch.weight[:, hidden:])
-        assert not w[:, hidden:512].any() and not w[hidden // 2:].any()
+        assert torch.equal(w[:hidden // 2, hp:], mlp.branch.weight[:, hidden:])
+        assert not w[:, hidden:hp].any() and not w[hidden // 2:].any()
     else:
         _, _, k, n = maps[nl + 2]
         w, b = layers[nl + 2]
-        assert (k, n) == (256, 3) and w.shape == (3, 256)
+        assert (k, n) == (hp // 2, 3) and w.shape == (3, hp // 2)
         assert torch.equal(w[:, :hidden // 2], mlp.rgb.weight) and not w[:, hidden // 2:].any()
         assert torch.equal(b, mlp.rgb.bias)
 
@@ -362,12 +484,13 @@ def _store_ws_offset(r, c, width):
 DW_WIDTHS = (16, 32, 64, 80, 128, 144, 256, 264, 272)  # nerf_dw.cuh: dw_width_ok
 
 
-@pytest.mark.parametrize("hidden", [256, 512])
+@pytest.mark.parametrize("hidden", [256, 512, 1024])
 def test_dw_column_tiles(hidden):
-    """The dW product's tiles at 8x256 and 8x512: at 256 (nerf_dw.cuh:
-    dw_plan) one tile of each layer's d_width, an instantiated width, its
-    output rows at m * d_width; at 512 (mlp_dw_window_kernel) the windows of
-    ``dw_windows``: each 264 D columns from a strip boundary, one
+    """The dW product's tiles at 8x256, 8x512 and 8x1024: at 256
+    (nerf_dw.cuh: dw_plan) one tile of each layer's d_width, an
+    instantiated width, its output rows at m * d_width; above 256
+    (mlp_dw_window_kernel) the windows of ``dw_windows`` (two a trunk layer
+    at 512, four at 1024): each 264 D columns from a strip boundary, one
     contiguous run of a 64-row workspace stage, their written columns
     covering [0, d_width) once, no window reading past the slack that
     ``DwBuffers`` adds after the last layer."""
@@ -380,7 +503,8 @@ def test_dw_column_tiles(hidden):
             assert d_w <= k1.DW_MAX_N and d_w in DW_WIDTHS
             continue
         wins = k1.dw_windows(d_w)
-        split_layers += len(wins) == 2
+        split_layers += len(wins) > 1
+        assert len(wins) == -(-d_w // k1.DW_WIN_N)
         written = np.zeros(d_w, dtype=int)
         for n0, lo, hi in wins:
             assert n0 % 8 == 0 and lo % 8 == 0 and hi % 8 == 0 and 0 <= lo < hi <= k1.DW_WIN_N
@@ -397,16 +521,19 @@ def test_dw_column_tiles(hidden):
             if i == len(layout) - 1:
                 assert end - 64 * d_w <= k1.DW_WIN_N * 64
         np.testing.assert_array_equal(written, 1)
-    # The trunk and the merged head (512 and 528 wide) take two windows at 8x512.
-    assert split_layers == (9 if hidden == 512 else 0)
+    # The trunk and the merged head (512 and 528 wide) take two windows at
+    # 8x512; at 8x1024 the branch (512 wide) too.
+    assert split_layers == {256: 0, 512: 9, 1024: 10}[hidden]
 
 
-@pytest.mark.parametrize("hidden", [320, 512])
+@pytest.mark.parametrize("hidden", [320, 512, 640, 1024])
 def test_dw_tiles_cover_each_layer_once(hidden):
-    """``dw_tiles`` at 8x512 (and 320, padded to it): every (layer, 128-row
-    tile, window) once, layer by layer; 75 blocks a range, which split the
-    ``wide`` phase's chunk into 4 ranges on 132 SMs (the 128-row tile's
-    rule, ``dw_splits``: about two waves)."""
+    """``dw_tiles`` at 8x512 and 8x1024 (and 320 and 640, padded to them):
+    every (layer, 128-row tile, window) once, layer by layer; 75 blocks a
+    range at 512, which split the ``wide`` phase's chunk into 4 ranges on
+    132 SMs (the 128-row tile's rule, ``dw_splits``: about two waves), and
+    286 at 1024, one range of the ``wide1024`` phase's chunk (264 stages),
+    within the kernel's table (nerf_dw.cuh: kDwMaxTiles, 320)."""
     mlp = _mlp(hidden, num_layers=8, skip=4, l_xyz=10, l_dir=4)
     layout = k1.workspace_layout(k1.pack_weights_wg(mlp, CPU), k1.pack_weights_bwd_wg(mlp, CPU))
     tiles = k1.dw_tiles(layout)
@@ -414,8 +541,10 @@ def test_dw_tiles_cover_each_layer_once(hidden):
             for m0 in range(0, a_w, 128) for w in k1.dw_windows(d_w)]
     assert sorted(map(tuple, tiles.tolist())) == sorted(want) and len(tiles) == len(want)
     assert list(tiles[:, 0]) == sorted(tiles[:, 0])
-    assert len(tiles) == 75
-    assert k1.dw_splits(len(tiles), 132, 528 * 64) == 4
+    if hidden <= 512:
+        assert len(tiles) == 75 and k1.dw_splits(len(tiles), 132, 528 * 64) == 4
+    else:
+        assert len(tiles) == 286 <= 320 and k1.dw_splits(len(tiles), 132, 264 * 64) == 1
 
 
 def _dw_grid(tiles: int, nsplit: int, nst: int):
@@ -466,7 +595,7 @@ def _rays_per_group(s: int, rows: int) -> int:
 def _k4_walk(b: int, s: int, hidden: int, sms: int) -> list[list[range]]:
     """For each of K4's blocks, the rays of its groups in order
     (csrc/quant_render_fwd.cu: nkt_quant_render_fwd launches a block per
-    group of rays, at hidden 512 no more than ``sms``, and
+    group of rays, above 256 no more than ``sms``, and
     quant_render_wide_kernel strides over the groups by the grid)."""
     r = _rays_per_group(s, 64 if hidden > 256 else 128)
     groups = -(-b // r)
@@ -475,17 +604,17 @@ def _k4_walk(b: int, s: int, hidden: int, sms: int) -> list[list[range]]:
             for blk in range(grid)]
 
 
-@pytest.mark.parametrize("hidden", [256, 512])
+@pytest.mark.parametrize("hidden", [256, 512, 1024])
 @pytest.mark.parametrize("b,s", [(1, 192), (7, 64), (131, 192), (132, 192), (133, 192),
                                  (300, 100), (16384, 192), (16385, 64)])
 def test_k4_walk_covers_every_ray_once(hidden, b, s):
-    """K4's blocks (``_k4_walk``): at hidden 512 at most the
+    """K4's blocks (``_k4_walk``): at hidden 512 and 1024 at most the
     card's 132 SMs, each striding over groups of whole rays, below, at and
     above the SM count; at 256 one group a block, as before.  Every ray
     once, each group whole rays in order."""
     walk = _k4_walk(b, s, hidden, 132)
-    groups = -(-b // _rays_per_group(s, 64 if hidden == 512 else 128))
-    assert len(walk) == (min(groups, 132) if hidden == 512 else groups)
+    groups = -(-b // _rays_per_group(s, 64 if hidden > 256 else 128))
+    assert len(walk) == (min(groups, 132) if hidden > 256 else groups)
     assert all(len(mine) >= 1 for mine in walk)
     rays = [r for mine in walk for g in mine for r in g]
     assert sorted(rays) == list(range(b))
@@ -493,12 +622,12 @@ def test_k4_walk_covers_every_ray_once(hidden, b, s):
         assert all(len(mine) == 1 for mine in walk)
 
 
-JAX_WIDE = [(h, 4, 2) for h in WIDE]
+JAX_WIDE = [(h, 4, 2) for h in (320, 512, 1024)]
 
 
 @pytest.mark.parametrize("hidden,l_xyz,l_dir", JAX_WIDE)
 def test_render_rays_fused_matches_jax_wide(hidden, l_xyz, l_dir):
-    """K1/K2's module at 320 and 512: rgb, weights and the residual
+    """K1/K2's module at 320, 512 and 1024: rgb, weights and the residual
     backward's gradients."""
     params = _jax_params(hidden, l_xyz, l_dir)
     o, d, t, target = _rays(hidden + l_xyz)
@@ -523,7 +652,7 @@ def test_render_rays_fused_matches_jax_wide(hidden, l_xyz, l_dir):
 
 @pytest.mark.parametrize("hidden,l_xyz,l_dir", JAX_WIDE)
 def test_apply_nerf_render_matches_jax_wide(hidden, l_xyz, l_dir):
-    """K6's module at 320 and 512: rgb, weights and the rgb loss's
+    """K6's module at 320, 512 and 1024: rgb, weights and the rgb loss's
     gradients."""
     params = _jax_params(hidden, l_xyz, l_dir, seed=1)
     rng = np.random.default_rng(hidden)
@@ -552,7 +681,7 @@ def test_apply_nerf_render_matches_jax_wide(hidden, l_xyz, l_dir):
 @pytest.mark.parametrize("need_input_grads", [False, True])
 @pytest.mark.parametrize("hidden,l_xyz,l_dir", JAX_WIDE)
 def test_apply_nerf_mlp_matches_jax_wide(hidden, l_xyz, l_dir, need_input_grads):
-    """K5's module at 320 and 512, without input gradients (the card's path
+    """K5's module at 320, 512 and 1024, without input gradients (the card's path
     there) and with them (the plain version on the CPU; the card raises
     above 256): predictions, parameter and encoding gradients (N = 70, a
     ragged last tile on the JAX side)."""
@@ -582,9 +711,9 @@ def test_apply_nerf_mlp_matches_jax_wide(hidden, l_xyz, l_dir, need_input_grads)
         assert _leaf_err([xt.grad.numpy(), dt.grad.numpy()], jgrads[1:]) <= JAX_GRAD_TOL
 
 
-@pytest.mark.parametrize("hidden", WIDE)
+@pytest.mark.parametrize("hidden", [320, 512, 1024])
 def test_k4_plain_matches_jax_kernel_wide(hidden):
-    """K4's module at 320 and 512 (its plain version on the CPU) against the
+    """K4's module at 320, 512 and 1024 (its plain version on the CPU) against the
     JAX kernel in interpret mode on the JAX qparams and the same rays."""
     l_xyz, l_dir = 4, 2
     params = _jax_params(hidden, l_xyz, l_dir, seed=3)
@@ -643,17 +772,12 @@ def test_parity_step_and_frame_match_jax_at_512(monkeypatch):
         np.testing.assert_allclose(out[k].numpy(), want, rtol=0, atol=atol, err_msg=k)
 
 
-def test_k4_adversarial_case_at_512_reaches_the_bound():
-    """``k4_adversarial.adversarial_case(hidden=512)``, which the card test
-    holds K4 to: every layer whose padded k exceeds 256 (each trunk layer
-    after the first, the head, the branch) accumulates beyond 2^22, where
-    K4 converts; the layer after the skip and the branch exactly k *
-    127^2; a K4 that took the magic number everywhere would miss K4's
-    gates (max 1e-3, mean 1e-5) by 10x or more."""
-    qp, o, d, t = k4_adversarial.adversarial_case(CPU, hidden=512)
+def _adversarial_reaches_the_bound(hidden):
+    qp, o, d, t = k4_adversarial.adversarial_case(CPU, hidden=hidden)
     seen = k4_adversarial.max_accumulators(qp, o, d, t)
-    assert seen[575] == 575 * 127 ** 2 and seen[539] == 539 * 127 ** 2
-    assert seen[512] > 1 << 22
+    skip_k, branch_k = hidden + 63, hidden + 27
+    assert seen[skip_k] == skip_k * 127 ** 2 and seen[branch_k] == branch_k * 127 ** 2
+    assert seen[hidden] > 1 << 22
     assert all(v <= 1 << 22 for k, v in seen.items() if k <= 256)
     want = k4.render_rays_reference_quant(qp, o, d, t)
     exact = quant._qdot
@@ -666,3 +790,38 @@ def test_k4_adversarial_case_at_512_reaches_the_bound():
                for a, b in zip(bad, want))
     assert miss >= 10.0
     assert all(bool(torch.isfinite(x).all()) for x in want)
+
+
+def test_k4_adversarial_case_at_512_reaches_the_bound():
+    """``k4_adversarial.adversarial_case(hidden=512)``, which the card test
+    holds K4 to: every layer whose padded k exceeds 256 (each trunk layer
+    after the first, the head, the branch) accumulates beyond 2^22, where
+    K4 converts; the layer after the skip and the branch exactly k *
+    127^2; a K4 that took the magic number everywhere would miss K4's
+    gates (max 1e-3, mean 1e-5) by 10x or more."""
+    _adversarial_reaches_the_bound(512)
+
+
+def test_k4_adversarial_case_at_1024_reaches_the_bound():
+    """The same at hidden 1024 (``adversarial_case(hidden=1024)``, the card
+    test's 1024 case): the layer after the skip at k = 1,087 and the branch
+    at 1,051 exactly k * 127^2."""
+    _adversarial_reaches_the_bound(1024)
+
+
+def test_from_jax_params_round_trip_at_1024():
+    """An 8 x 1024 JAX parameter tree through ``NeRFMLP.from_jax_params``
+    and back, bit for bit, and the port's kernel packs of it at the
+    kernels' widths (no padding: 1024 is an instantiation)."""
+    params = jax.tree_util.tree_map(np.asarray, init_nerf_params(
+        jax.random.PRNGKey(4), num_layers=8, hidden_dim=1024, skip_layer=4, l_xyz=10, l_dir=4))
+    mlp = NeRFMLP.from_jax_params(params, skip_layer=4, compute_dtype=torch.float32)
+    assert mlp.hidden_dim == 1024 and k1.kernel_width(mlp.hidden_dim) == 1024
+    back = mlp.to_jax_params()
+    flat_a = jax.tree_util.tree_leaves_with_path(params)
+    flat_b = jax.tree_util.tree_leaves_with_path(back)
+    assert [p for p, _ in flat_a] == [p for p, _ in flat_b]
+    for (_, a), (_, b) in zip(flat_a, flat_b):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    pack = k1.pack_weights_wg(mlp, CPU)
+    assert [int(n) for n in pack.desc[:, 2]] == [1024] * 8 + [1032, 512, 8]
