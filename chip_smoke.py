@@ -435,7 +435,7 @@ import numpy as np
 import torch
 from torch.nn.utils import parametrize
 
-from nerf_keras_tpu_torch import exp_train_paths, load_config, runtime
+from nerf_keras_tpu_torch import exp_train_paths, exp_wide_numerics, load_config, runtime
 from nerf_keras_tpu_torch.engine.step import (
     aux_samples,
     draw_t_vals,
@@ -4611,6 +4611,12 @@ WIDE1024_STEP_PEAK_MIB = 1280
 WIDE1024_K3_STEPS = 2
 
 
+# The `wide` phases' few-sample check (``_few_samples``): K2 on the seeded
+# 3 x 100 case of exp_wide_numerics at the phase's width, on this many
+# draws, against the float64 yardstick.
+FEW_SAMPLE_DRAWS = 8
+
+
 def wide_config(hidden: int = WIDE_HIDDEN) -> NeRFConfig:
     return dataclasses.replace(load_config(CONFIG), hidden_dim=hidden)
 
@@ -4631,6 +4637,40 @@ def _plain_k4(qp, o, d, t, rays: int):
     parts = [k4.render_rays_reference_quant(qp, o[r:r + rays], d[r:r + rays], t[r:r + rays])
              for r in range(0, o.shape[0], rays)]
     return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+
+
+def _few_samples(card: str, hidden: int) -> None:
+    """K2 on a few hundred samples: the seeded 3 x 100 case of
+    ``exp_wide_numerics.SEEDED`` at ``hidden``, FEW_SAMPLE_DRAWS draws of
+    model, rays and cotangents, each within K2_TOL_REL per leaf of the
+    float64 yardstick (``exp_wide_numerics.yardstick_grads``: the kernels'
+    bf16 roundings, every sum in float64); the plain path's own distance
+    from it beside each draw, not gated (on so few samples single ReLU
+    signs move a leaf by percents in either bf16 path)."""
+    nx = exp_wide_numerics
+    t0 = time.perf_counter()
+    _, hid, b, seed, ray_seed, cot_seed, with_gw = next(
+        c for c in nx.SEEDED if c[0] == f"h{hidden}_3x100")
+    k2_rel, plain_rel = [], []
+    for m in range(FEW_SAMPLE_DRAWS):
+        mlp, o, d, t, g_rgb, g_w = nx.seeded(hid, seed + m, b, ray_seed + 2 * m,
+                                             cot_seed + 2 * m, with_gw)
+        with torch.no_grad():
+            _, _, x_res, preds = k1.launch_k1(mlp, o, d, t, 10, 4, train=True)
+            got = k1.launch_k2(mlp, x_res, d, t, preds, g_rgb, g_w, 10, 4)
+        yard = nx.yardstick_grads(mlp, o, d, t, g_rgb, g_w)
+        plain = k1.render_rays_reference_vjp(mlp, o, d, t, g_rgb, g_w)
+        k2_rel.append(_leaf_errors(got, yard)[1])
+        plain_rel.append(_leaf_errors(plain, yard)[1])
+        if not all(bool(torch.isfinite(g).all()) for g in got):
+            raise RuntimeError(f"few samples at {hidden}: non-finite K2 gradients, draw {m}")
+    tag = "wide" if hidden == WIDE_HIDDEN else f"wide{hidden}"
+    say(f"{tag}_few_samples", hidden=hidden, rays=b, samples=100, draws=FEW_SAMPLE_DRAWS,
+        k2_rel_l2_vs_yardstick=k2_rel, plain_rel_l2_vs_yardstick=plain_rel,
+        tol_rel=K2_TOL_REL, seconds=time.perf_counter() - t0, card=card)
+    if max(k2_rel) > K2_TOL_REL:
+        raise RuntimeError(f"{tag}: K2 on 3 x 100 samples is {max(k2_rel)} from the float64 "
+                           f"yardstick (draws {k2_rel})")
 
 
 def _wide_kernels(card: str, mlp: NeRFMLP, qp: dict, hidden: int = WIDE_HIDDEN) -> dict:
@@ -4736,6 +4776,7 @@ def _wide_kernels(card: str, mlp: NeRFMLP, qp: dict, hidden: int = WIDE_HIDDEN) 
     one_tile = _run_suite(mlp, _suite_inputs(mlp, 1, 64, seed=13),
                           ("k1", "k1_train", "k2", "k5_fwd", "k5_bwd"), reps=1)
     one_bad = [n for n, e in one_tile.items() if not (e["finite"] and _bf16_gate_ok(n, e))]
+    _few_samples(card, hidden)
     # K4 at the server's chunk: 16384 rays of a 128x128 pose.
     o4, d4 = get_rays(128, 128, 1.2 * 128, pose_spherical(30.0, -30.0, 4.0), device=dev)
     o4, d4 = o4.reshape(-1, 3).contiguous(), d4.reshape(-1, 3).contiguous()

@@ -56,7 +56,7 @@ struct Params {
   const __nv_bfloat16* w;      // the wgmma pack
   const float* b;
   float* preds;  // (N, 4)
-  __nv_bfloat16* park;  // (grid, 64, kPassCols): hidden 1024, else null
+  __nv_bfloat16* park;  // (grid, 64, kParkCols): hidden 1024, else null
   long long N;
   int ntiles, stages, stage_bytes;
   MlpDims m;
@@ -103,8 +103,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   __nv_bfloat16* wact = act + wrow * ldx;
   float* wsig = sig + wrow;
   float* wrgb = rgbl + wrow * 3;
-  __nv_bfloat16* wpark = T::kParked ? p.park + ((size_t)blockIdx.x * 64 + wrow) * kPassCols
-                                    : nullptr;
+  __nv_bfloat16* wpark =
+      T::kParked ? p.park + ((size_t)blockIdx.x * 64 + wrow) * T::kParkCols : nullptr;
   RingPos rp;
   for (int i = 0, tile = blockIdx.x; i < steps; ++i, tile += gridDim.x) {
     if (tile >= p.ntiles) {  // a phantom tile of the split tile's cluster
@@ -171,7 +171,7 @@ extern "C" int nkt_fused_mlp_fwd(
   p.N = N;
   const int rows = wg_rows(hidden);
   p.ntiles = (N + rows - 1) / rows;
-  p.stage_bytes = wg_stage_bytes(p.m.dense, n_dense, wg_ks(hidden));
+  p.stage_bytes = wg_stage_bytes(p.m.dense, n_dense, wg_ks(hidden), wg_pass_cols(hidden));
   const size_t rest = kBarBytes + sizeof(__nv_bfloat16) * (size_t)rows * p.m.ldx +
                       sizeof(float) * (size_t)rows * 4;
   if (rest + 2 * (size_t)p.stage_bytes > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;

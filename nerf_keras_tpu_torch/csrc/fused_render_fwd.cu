@@ -84,16 +84,18 @@
 // (nerf_wgmlp.cuh, "Clusters"): both walk the tiles of block 2c, and
 // where block 2c + 1 has fewer (the last rays of the batch) its consumers
 // drain the rest of the stages.  The grid is rounded up to whole clusters
-// (a block past B walks only phantom tiles).  Each stage's wgmma group
-// stays in flight while the next stage's is issued (wg_product_pipe).
+// (a block past B walks only phantom tiles).  Each stage's products are a
+// fresh wgmma sum added into the layer's f32 sums, 64 columns at a time,
+// two parts in flight (nerf_wgmlp.cuh: wg_product_staged).
 // Hidden 1024 (513-1023 zero-padded to it): 9,058,304 multiply-adds a
-// sample (18.1 MFLOP), on the same 64-row tile in column passes of 512
-// (nerf_wgmlp.cuh: layer_passes): two 33,280 B stages beside the 64 x
-// 1,096 activation tile (140,288 B); the first pass's outputs wait in the
-// block's park in global memory, so the grid is at most the clusters the
-// card holds at once and each block walks groups of rays (a group past B:
-// phantom tiles only); each stage's products a sum of their own
-// (wg_product_staged), two parts in flight.
+// sample (18.1 MFLOP), on the same 64-row tile in column passes of 256
+// summed as fresh sums of 64 k, the groups of a sum in flight across its
+// stages (nerf_wgmlp.cuh: layer_passes, wg_product_sums): 4 stages of
+// 16,896 B beside the 64 x 1,096 activation tile (140,288 B); the outputs
+// of every pass but a layer's last wait in the block's park in global
+// memory (64 x 768), so the grid is at most the clusters the card holds
+// at once and each block walks groups of rays (a group past B: phantom
+// tiles only).
 // Not carried over from the TPU kernel: its one-hot selector matmuls,
 // three-limb exact dots, the sin(z + pi/2) cos trick, the log-space
 // cumsum and the padded-t ragged batch (the ragged edge is masked here).
@@ -131,7 +133,7 @@ struct Params {
   float* w_out;             // (B, S)
   __nv_bfloat16* xenc_out;  // (B*S, xyz_dim) or null
   float* preds_out;         // (B*S, 4) or null
-  __nv_bfloat16* park;      // (grid, 64, kPassCols): hidden 1024, else null
+  __nv_bfloat16* park;      // (grid, 64, kParkCols): hidden 1024, else null
   int B, S, R, stages, stage_bytes;
   MlpDims m;
 };
@@ -196,8 +198,8 @@ __device__ __forceinline__ void render_body(const Params& p) {
   const int wrow = row_warp<H>() * 16;  // this warp's rows of every tile
   __nv_bfloat16* wact = act + wrow * ldx;
   __nv_bfloat16* wxenc = xenc + wrow * m.xyz_pad;
-  __nv_bfloat16* wpark = T::kParked ? p.park + ((size_t)blockIdx.x * 64 + wrow) * kPassCols
-                                    : nullptr;
+  __nv_bfloat16* wpark =
+      T::kParked ? p.park + ((size_t)blockIdx.x * 64 + wrow) * T::kParkCols : nullptr;
   RingPos rp;
   for (int i = 0; i < steps; ++i) {
     const int r0 = (blockIdx.x + i * gridDim.x) * R;
@@ -341,7 +343,7 @@ extern "C" int nkt_fused_render_fwd(
   p.S = S;
   const int rows = wg_rows(hidden);
   p.R = wg_rays_per_block(S, rows);
-  p.stage_bytes = wg_stage_bytes(p.m.dense, n_dense, wg_ks(hidden));
+  p.stage_bytes = wg_stage_bytes(p.m.dense, n_dense, wg_ks(hidden), wg_pass_cols(hidden));
 
   const size_t rest =
       kBarBytes +

@@ -63,23 +63,23 @@
 //      most those that fit on the card at once, and both blocks of a
 //      cluster walk the first block's count of tiles (a phantom tile past
 //      the chunk's drains its stages).  Each block's bias sums go to its
-//      row of db_blk in global memory (the same adds in the same order),
-//      which leaves room for a third stage: the 64 x 584 activation tile
-//      (74,752 B), the ReLU bits of 9 layers (36,864 B), the column-sum
-//      scratch of the tile's 4 row groups (16,384 B) and 3 stages of 520 x
-//      32 bf16 (99,840 B): 227,968 B.  Its products wait stage by stage: a
-//      group kept in flight would hold a second of the three stages, which
-//      measured 12% slower (PERF.md).  A sample's workspace is
-//      19,840 B there (10,112 at 8x256), so a chunk of DW_CHUNK_BYTES
-//      holds about half the samples.  At hidden 1024 (column passes of
-//      512: nerf_wgmlp.cuh) the 64 x 1,096 tile leaves room for two 32-deep
-//      stages only if the ReLU bits and the column-sum scratch move to the
-//      block's global scratch beside the park (wg_glob_bytes: 172,032 B
-//      a block at 8x1024; the bits are read only by the warp that wrote
-//      them, the scratch after a barrier of the consumers), and each
-//      stage's products are a sum of their own (wg_product_staged), one
-//      part at a time; a sample's workspace is 39,296 B (47 chunks at
-//      B = 4,096, S = 192).
+//      row of db_blk in global memory (the same adds in the same order).
+//      At 512 each stage's products are a fresh wgmma sum, part by part
+//      (nerf_wgmlp.cuh: wg_product_staged), which leaves room for a third
+//      stage: the 64 x 584 activation tile (74,752 B), the ReLU bits of 9
+//      layers (36,864 B), the column-sum scratch of the tile's 4 row
+//      groups (16,384 B) and 3 stages of 520 x 32 bf16 (99,840 B):
+//      227,968 B.  A sample's workspace is 19,840 B there (10,112 at
+//      8x256), so a chunk of DW_CHUNK_BYTES holds about half the samples.
+//      At hidden 1024 (column passes of 256 summed as fresh sums of 64 k,
+//      the groups of a sum in flight across its stages: wg_product_sums)
+//      the 64 x 1,096 tile (140,288 B) and 5 stages of 16,896 B leave no
+//      room for the park (64 x 768), the ReLU bits and the column-sum
+//      scratch: they live in the block's global scratch (wg_glob_bytes:
+//      204,800 B a block at 8x1024; the park and the bits are read only
+//      by the warp that wrote them, the scratch after a barrier of the
+//      consumers); a sample's workspace is 39,296 B (47 chunks at B =
+//      4,096, S = 192).
 //   3. mlp_dw_kernel (nerf_dw.cuh): dW = A^T D per layer on wgmma with
 //      both operands MN-major in shared memory, stages of 64 samples
 //      brought by bulk copies, split over sample ranges; each block adds
@@ -202,13 +202,13 @@ __device__ __forceinline__ void rows_body(const RowParams& p) {
   __nv_bfloat16* act = reinterpret_cast<__nv_bfloat16*>(ring.buf + p.stages * p.stage_bytes);
   // The ReLU bits ((L+1) x (rows, MW)) and the column-sum scratch (2 x
   // rows/16 x sld) follow the tile in shared memory, or at hidden 1024 the
-  // park in the block's global scratch (no room beside the tile and two
-  // stages): the bits are read only by the warp that wrote them, the
-  // scratch after a barrier of the consumers.
+  // park in the block's global scratch (no room beside the tile and the
+  // ring): the park and the bits are read only by the warp that wrote
+  // them, the scratch after a barrier of the consumers.
   __nv_bfloat16* park = reinterpret_cast<__nv_bfloat16*>(
       p.glob + (size_t)blockIdx.x * wg_glob_bytes(H, L, true));
   uint32_t* masks = reinterpret_cast<uint32_t*>(T::kParked ? reinterpret_cast<unsigned char*>(
-                                                                 park + 64 * kPassCols)
+                                                                 park + 64 * T::kParkCols)
                                                            : reinterpret_cast<unsigned char*>(
                                                                  act + kRows * ldx));
   float* scratch = reinterpret_cast<float*>(masks + (L + 1) * kRows * MW);
@@ -239,7 +239,7 @@ __device__ __forceinline__ void rows_body(const RowParams& p) {
   const int wrow = row_warp<H>() * 16;
   __nv_bfloat16* wact = act + wrow * ldx;
   uint32_t* wmasks = masks + wrow * MW;
-  __nv_bfloat16* wpark = T::kParked ? park + wrow * kPassCols : nullptr;
+  __nv_bfloat16* wpark = T::kParked ? park + wrow * T::kParkCols : nullptr;
   RingPos rp;
   for (int i = 0, tile = blockIdx.x; i < steps; ++i, tile += gridDim.x) {
     if (tile >= p.ntiles) {  // a phantom tile (split tile only: no input gradients)
@@ -426,8 +426,10 @@ inline int rows_launch(
   p.total_b = total_b;
   p.sld = hidden;
   const int kxc = ig_xcols(mb.m.xyz_dim), kdc = ig_dcols(mb.m.dir_dim);
-  int sb = wg_stage_bytes(mb.m.dense, n_dense, wg_ks(hidden));
-  const int sbb = wg_stage_bytes(mb.bdense, n_dense, ig ? ig_ks(kxc, kdc) : wg_ks(hidden));
+  const int cols = wg_pass_cols(hidden);
+  int sb = wg_stage_bytes(mb.m.dense, n_dense, wg_ks(hidden), cols);
+  const int sbb =
+      wg_stage_bytes(mb.bdense, n_dense, ig ? ig_ks(kxc, kdc) : wg_ks(hidden), cols);
   p.stage_bytes = sb > sbb ? sb : sbb;
 
   if (mode != kK5) {

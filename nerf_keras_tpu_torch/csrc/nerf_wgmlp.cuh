@@ -31,27 +31,28 @@
 //     8x512 the 128-row tile (149.5 KB) and two 64-deep stages of the
 //     520-wide head (133 KB) pass the 227 KB a block has, and one
 //     warpgroup's m64n512 accumulator would be 256 f32 a thread.  Stages
-//     are 32 k deep there (kKsNarrow): 33,280 B at the head's 520 columns.
-//     A 64-row tile does half the 128-row tile's work with each staged
-//     weight byte, so the split tile's kernels run in clusters of two
-//     blocks (kCluster, "Clusters" below) whose producers each bring half
-//     of every stage into both blocks (TMA multicast): an SM reads half the
-//     weight bytes from L2.  In the forward kernels a layer's stages are
-//     not waited on one by one: each stage's wgmma group stays in flight
-//     while the next stage's A fragments load and its group issues
-//     (wg_product_pipe, kPipeForward).  The rows kernel holds its bias sums
-//     in global memory instead, for a third stage, and waits stage by
-//     stage (kPipeRows): a group in flight would hold a second of its three
-//     stages.
-//   * hidden 1024: the same split tile, every layer wider than 520 columns
-//     in column passes of 512 (kPassCols, layer_passes): 2 stages of the
-//     widest pass fit beside the 64 x 1,096 tile (140 KB), and a pass's
-//     part of each warpgroup is a hidden-512 product (132 f32 a thread at
-//     most); the first pass's outputs wait in global memory (the park)
-//     until the second pass has read the tile.  Each stage's products are
-//     a sum of their own, added into the layer's f32 sums
-//     (wg_product_staged): wgmma's sums round toward zero, and over a
-//     1,024-deep layer in one sum that bias misses the kernels' gates.
+//     are 32 k deep there (kKsNarrow).  A 64-row tile does half the
+//     128-row tile's work with each staged weight byte, so the split
+//     tile's kernels run in clusters of two blocks (kCluster, "Clusters"
+//     below) whose producers each bring half of every stage into both
+//     blocks (TMA multicast): an SM reads half the weight bytes from L2.
+//     Each stage's products are a fresh wgmma sum added into the layer's
+//     f32 sums (wg_product_staged), 64 columns at a time, two parts in
+//     flight in the forward kernels (kPipeForward) and one in the rows
+//     kernel (kPipeRows): wgmma's f32 sums round toward zero at each k16
+//     step, and over a layer's whole depth in one sum that bias moves K2
+//     past 0.02 of a float64 yardstick on a few hundred samples.
+//   * hidden 1024: the same split tile, every layer wider than 264 columns
+//     in column passes of 256 (kWgPassCols, layer_passes), each pass's part
+//     of a warpgroup at most 136 columns (68 f32 a thread), its sums fresh
+//     wgmma sums of kSumDepth k (several 32-deep stages, wg_product_sums):
+//     a stage's group stays in flight while the next stage's A fragments
+//     load and its group issues, and the groups drain only where a sum
+//     ends; the outputs of every pass but a layer's last wait in the
+//     block's park in global memory (64 x 768 bf16) until the last pass
+//     has read the tile.  A stage of a 256-column pass is 16,384 B
+//     (16,896 for the head's last, 264 columns), so 4-5 fit beside the 64
+//     x 1,096 tile (140 KB) where two of a 512-column pass did.
 // Weights: the producer thread streams every layer's weights, in the order
 // the consumers use them, through a ring of shared-memory stages with bulk
 // copies (cp.async.bulk, the TMA unit) and a full/empty mbarrier pair per
@@ -102,43 +103,59 @@ constexpr int kKsNarrow = 32;  // k per stage of the wide input-gradient packs a
 constexpr int kMaxStages = 8;  // ring stages at most
 constexpr int kBarBytes = 2 * kMaxStages * 8;
 constexpr int kSplitAbove = 256;  // wider hidden layers split their columns over the warpgroups
-// Whether the split tile keeps wgmma groups in flight across stages
-// (wg_product_pipe; at hidden 1024 two parts of the staged sums,
-// wg_product_staged): in the forward kernels (K1, K5's and K6's forward:
-// 4 stages at 512), not in the rows kernel (3 stages: a group in flight
-// holds a second stage and leaves the producer one stage ahead; at 1024
-// two parts spill; PERF.md).
+// Hidden 512's fresh sums (wg_product_staged: one a 32-deep stage) keep
+// their parts' groups in flight across the parts of a stage in the
+// forward kernels (K1, K5's and K6's forward), not in the rows kernel
+// (whose other live values leave no room for a second part: PERF.md).
 constexpr bool kPipeForward = true, kPipeRows = false;
+// k per fresh wgmma sum at hidden 1024 (wg_product_sums), a multiple of
+// its 32-deep stages: the deepest whose sums keep K2 within 0.02 of the
+// float64 yardstick on every seeded few-sample draw at 8x1024 (32 and 96
+// miss one, 256 three: PERF.md) and pass every gate of the card tests and
+// of the smoke's trained 8x1024 model (128 misses K5's backward on its
+// one tile by 0.0004).  NKT_SUM_DEPTH overrides it (exp_wide_numerics
+// --depth).
+#ifdef NKT_SUM_DEPTH
+constexpr int kSumDepth = NKT_SUM_DEPTH;
+#else
+constexpr int kSumDepth = 64;
+#endif
+static_assert(kSumDepth % kKsNarrow == 0, "whole stages a sum");
 
 // The hidden widths the wgmma kernels are instantiated for.
 inline bool wg_hidden_ok(int h) {
   return h == 64 || h == 128 || h == 256 || h == 512 || h == 1024;
 }
 
-// Column passes (hidden 1024).  A layer wider than kPassCols + 8 columns
-// is computed in passes of kPassCols output columns (the last takes the
-// rest: the merged head's 1,032 are 512 + 520), each pass one split-tile
-// product of the width of a hidden-512 layer: its stages hold only the
-// pass's columns, whose own block of the pack (pass p's columns of a layer
-// at w_off + k_pad * 512 p, in the K-major layout of a pass-wide matrix:
+// Column passes (hidden 1024).  A layer wider than `cols` + 8 columns is
+// computed in passes of `cols` output columns (the last takes the rest:
+// the bf16 merged head's 1,032 are 3 x 256 + 264), each pass one
+// split-tile product: its stages hold only the pass's columns, whose own
+// block of the pack (pass p's columns of a layer at w_off + k_pad * cols
+// p, in the K-major layout of a pass-wide matrix:
 // ops/kernels/fused_render.py, _pack_wg) the producer streams over every k
 // before the next pass's.  A layer's output overwrites its input in place,
 // and every pass reads the whole input, so the outputs of every pass but
-// the last wait in the park (64 rows x kPassCols bf16 a block, in global
-// memory: no room is left in shared memory beside a 64 x 1,096 tile) until
-// the last pass's products are done; each thread reads back only what it
-// wrote (park_back).
+// the last wait in the park until the last pass's products are done; each
+// thread reads back only what it wrote (park_back).  The bf16 kernels'
+// passes are kWgPassCols wide; K4's (quant_render_fwd.cu) kPassCols.
 constexpr int kPassCols = 512;
-__host__ __device__ constexpr int n_passes(int n_pad) {
-  return n_pad <= kPassCols + 8 ? 1 : n_pad / kPassCols;
+constexpr int kWgPassCols = 256;
+__host__ __device__ constexpr int n_passes(int n_pad, int cols = kPassCols) {
+  return n_pad <= cols + 8 ? 1 : n_pad / cols;
 }
-__host__ __device__ constexpr int pass_width(int n_pad, int p) {
-  return p + 1 < n_passes(n_pad) ? kPassCols : n_pad - p * kPassCols;
+__host__ __device__ constexpr int pass_width(int n_pad, int p, int cols = kPassCols) {
+  return p + 1 < n_passes(n_pad, cols) ? cols : n_pad - p * cols;
 }
 // Pass p of a layer as a layer of its own: its columns, weights and bias.
-__host__ __device__ inline Dense pass_dense(const Dense& d, int p) {
-  const int c0 = p * kPassCols, w = pass_width(d.n_pad, p);
+__host__ __device__ inline Dense pass_dense(const Dense& d, int p, int cols = kPassCols) {
+  const int c0 = p * cols, w = pass_width(d.n_pad, p, cols);
   return Dense{d.k_pad, d.n - c0 < w ? d.n - c0 : w, w, d.w_off + d.k_pad * c0, d.b_off + c0};
+}
+// The bf16 kernels' pass width at a hidden width: kWgPassCols at hidden
+// 1024, else wider than any layer (one pass).
+__host__ __device__ constexpr int wg_pass_cols(int hidden) {
+  return hidden > kPassCols ? kWgPassCols : 1 << 20;
 }
 
 // Sample rows per tile, and k per weight stage, of a hidden width.
@@ -159,14 +176,21 @@ struct Split {
 template <int H>
 struct WgTile {
   static constexpr bool kSplit = H > kSplitAbove;
-  static constexpr bool kParked = H > kPassCols;  // column passes and a park (hidden 1024)
+  // Hidden 1024: K4's column passes of 512; the bf16 kernels' park (and
+  // the rows kernel's ReLU bits and column sums) in global memory.
+  static constexpr bool kParked = H > kPassCols;
   static constexpr int kRows = wg_rows(H);
   static constexpr int kRowWarps = kRows / 16;      // warps with rows of their own: 8 or 4
   static constexpr int kLanes = kSplit ? 64 : 32;   // threads that share a warp's rows
   static constexpr int kKsTile = wg_ks(H);  // k per weight stage
   // f32 accumulators a thread holds: the widest layer's, or its widest part
-  // of a pass.
+  // of a pass (K4's).
   static constexpr int kAcc = kSplit ? Split<(kParked ? kPassCols : H) + 8>::hi / 2 : (H + 8) / 2;
+  // The bf16 kernels' (at hidden 1024 a warpgroup's part of the widest
+  // pass, the head's last, 136 columns: 68) and the park's columns: every
+  // pass of a layer but the last (the widest layer is H or H + 8 columns).
+  static constexpr int kSumAcc = kParked ? 68 : kAcc;
+  static constexpr int kParkCols = kParked ? H - kWgPassCols : 0;
 };
 
 // Device: the rows a warp owns (rows 16 * row_warp ..), the columns part it
@@ -229,20 +253,21 @@ inline bool wg_dims_ok(const MlpDims& m) {
 }
 
 // Bytes of one weight stage: the widest layer's (or pass's) k-slice of `ks` k.
-inline int wg_stage_bytes(const Dense* d, int n, int ks = kKs) {
+inline int wg_stage_bytes(const Dense* d, int n, int ks, int cols) {
   int w = 0;
   for (int i = 0; i < n; ++i)
-    for (int p = 0; p < n_passes(d[i].n_pad); ++p)
-      w = pass_width(d[i].n_pad, p) > w ? pass_width(d[i].n_pad, p) : w;
+    for (int p = 0; p < n_passes(d[i].n_pad, cols); ++p)
+      w = pass_width(d[i].n_pad, p, cols) > w ? pass_width(d[i].n_pad, p, cols) : w;
   return w * ks * 2;
 }
 
-// The bytes of global scratch a block of H's tile needs (the park;
-// for the rows kernel with `masks`, its ReLU bits of L + 1 layers and the
-// column-sum scratch too, which pass shared memory at hidden 1024).
+// The bytes of global scratch a block of H's tile needs at hidden 1024
+// (the park of 64 x 768 bf16; for the rows kernel with `masks`, its ReLU
+// bits of L + 1 layers and the column-sum scratch too, which pass shared
+// memory there).
 __host__ __device__ inline size_t wg_glob_bytes(int hidden, int num_layers, bool rows) {
   if (hidden <= kPassCols) return 0;
-  const size_t park = (size_t)64 * kPassCols * 2;
+  const size_t park = (size_t)64 * (hidden - kWgPassCols) * 2;
   return rows ? park + (size_t)4 * (num_layers + 1) * 64 * (hidden / 32) + (size_t)4 * 2 * 4 * hidden
               : park;
 }
@@ -313,9 +338,10 @@ __device__ __forceinline__ void produce_pass(const WRing& r, RingPos& p,
 }
 
 __device__ __forceinline__ void produce_layer(const WRing& r, RingPos& p,
-                                              const __nv_bfloat16* w, const Dense& L,
-                                              int ks = kKs) {
-  for (int q = 0; q < n_passes(L.n_pad); ++q) produce_pass(r, p, w, pass_dense(L, q), ks);
+                                              const __nv_bfloat16* w, const Dense& L, int ks,
+                                              int cols) {
+  for (int q = 0; q < n_passes(L.n_pad, cols); ++q)
+    produce_pass(r, p, w, pass_dense(L, q, cols), ks);
 }
 
 // The warp's A fragment of the k16 step at column k (act: the warp's row 0).
@@ -391,82 +417,22 @@ __device__ __forceinline__ void load_stage_a(uint32_t (&a)[KS / 16][4], const __
     if (q < steps) load_a(a[q], act, ldx, k0 + 16 * q);
 }
 
-// One stage of wg_product_pipe: wait for it, issue its k16 steps from
-// `cur` as one wgmma group, then wait until only this group is in flight
-// (the previous stage's, which read `nxt`, is done), release the previous
-// stage and load the next stage's A into `nxt`.  `held`: the ring slot of
-// the group in flight (-1: none).
-template <int N, int KS>
-__device__ __forceinline__ void pipe_stage(float* acc, uint32_t (&cur)[KS / 16][4],
-                                           uint32_t (&nxt)[KS / 16][4], const __nv_bfloat16* act,
-                                           int ldx, int k_pad, int k0, const WRing& r,
-                                           RingPos& c, int& held, int np, int n0) {
-  const int steps = min(KS, k_pad - k0) >> 4;
-  mbar_wait(&r.full[c.st], c.ph);
-  const uint32_t sb = smem_u32(r.buf + static_cast<size_t>(c.st) * r.stage_bytes) + n0 * 16;
-  acc_fence<N / 2>(acc);
-  wg_fence();
-#pragma unroll
-  for (int q = 0; q < KS / 16; ++q)
-    if (q < steps) mma_rs<N>(acc, cur[q], smem_desc(sb + q * 2 * np * 16, np * 16, 128), 128, 1);
-  wg_commit();
-  if (held >= 0) {
-    wg_wait<1>();
-    reg_fence<KS / 4>(&nxt[0][0]);
-    ring_release(r, held);
-  }
-  held = c.st;
-  c.next(r.stages);
-  if (k0 + KS < k_pad) load_stage_a<KS>(nxt, act, ldx, k_pad, k0 + KS);
-}
-
-// wg_product's sums for the split tile (N columns from column n0 of
-// stages np wide; no accx), with wgmma groups kept in flight across
-// stages as CUTLASS's main loop keeps them: stage s + 1's A fragments load
-// and its group issues before stage s's group is waited on (wg_wait<1>)
-// and its stage released, so the tensor cores never drain between stages
-// of a layer; two register buffers of A fragments.  The k16 steps
-// accumulate in the same order as wg_product's, so the sums are its bits.
-template <int N, int KS>
-__device__ __forceinline__ void wg_product_pipe(float* acc, const __nv_bfloat16* act, int ldx,
-                                                int k_pad, const WRing& r, RingPos& c, int np,
-                                                int n0) {
-  static_assert(N % 8 == 0 && N <= 264, "wgmma widths");
-  static_assert(KS % 16 == 0 && KS <= kKs, "k per stage");
-  constexpr int kSteps = KS / 16;
-#pragma unroll
-  for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
-  uint32_t a0[kSteps][4], a1[kSteps][4];
-  int held = -1;
-  load_stage_a<KS>(a0, act, ldx, k_pad, 0);
-  for (int k0 = 0; k0 < k_pad; k0 += 2 * KS) {
-    pipe_stage<N, KS>(acc, a0, a1, act, ldx, k_pad, k0, r, c, held, np, n0);
-    if (k0 + KS < k_pad)
-      pipe_stage<N, KS>(acc, a1, a0, act, ldx, k_pad, k0 + KS, r, c, held, np, n0);
-  }
-  wg_wait<0>();
-  acc_fence<N / 2>(acc);
-  reg_fence<KS / 4>(&a0[0][0]);
-  reg_fence<KS / 4>(&a1[0][0]);
-  ring_release(r, held);
-}
-
-// The sums of hidden 1024's column passes: every stage's k16 steps go to
-// a fresh wgmma sum (scale-d 0 at the stage's first step), which one f32
-// add per element then takes into acc (rounded to nearest), a part of the
-// columns at a time.  wgmma's f32 sum of bf16 products rounds toward zero
-// at each k16 step (exp_wide_numerics' "sums", PERF.md): over the whole
-// 1,024- to 1,088-deep layer in one wgmma sum those roundings add up, one
-// way, past K1's and K2's gates against their plain versions; over the
-// two k16 steps of a 32-deep stage they stay within the f32 rounding of
-// the adds.  (At hidden 512 a layer's whole depth in one sum passes them,
-// and the staged sums cost K1 +53% and K2 +29% there: PERF.md.)  Two
-// schedules of the same sums
+// Hidden 512's sums: every stage's k16 steps go to a fresh wgmma sum
+// (scale-d 0 at the stage's first step), which one f32 add per element
+// then takes into acc (rounded to nearest), a part of the columns at a
+// time.  wgmma's f32 sum of bf16 products rounds toward zero at each k16
+// step (exp_wide_numerics' "sums", PERF.md): over a 512- to 584-deep layer
+// in one wgmma sum those roundings add up, one way, and move K2 past 0.02
+// of a float64 yardstick on a few hundred samples; so do sums of 64 k at
+// 8x320 (PERF.md); over the two k16 steps of a 32-deep stage they stay
+// within the f32 rounding of the adds.  Two schedules of the same sums
 // (the same bits): with kPipe (the forward kernels) parts of 64 columns,
 // two in flight, so a part's adds run while the next part's products do;
-// without (the rows kernel, whose other live values leave less room)
-// parts of at most 88 columns, each waited on before its adds.  A stage's
-// last part is waited on before its ring slot is released.
+// without (the rows kernel, whose other live values leave less room: two
+// in flight measured 15% slower there, PERF.md) parts of at most 88
+// columns, each waited on before its adds.  A stage's last part is
+// waited on before its ring slot is released (carrying it into the next
+// stage measured 30% slower in K1: PERF.md).
 template <int N, bool kPipe>
 struct StageParts {
   static constexpr int kMax = kPipe ? 64 : 88;  // 32 f32 a thread twice, or 44 once
@@ -554,11 +520,92 @@ __device__ __forceinline__ void wg_product_staged(float* acc, const __nv_bfloat1
   }
 }
 
+// One stage of wg_product_sums: wait for it, issue its k16 steps from
+// `cur` as one wgmma group into the fresh sum f (scale-d 0 at a sum's
+// first step), then wait until only this group is in flight (the previous
+// stage's, which read `nxt`, is done), release the previous stage and load
+// the next stage's A into `nxt`.  Where a sum starts after another, the
+// other's groups are waited on first and its f added into acc (one f32 add
+// an element, rounded to nearest).  `held`: the ring slot of the group in
+// flight (-1: none).
+template <int N, int KS, int D>
+__device__ __forceinline__ void sums_stage(float* acc, float* f, uint32_t (&cur)[KS / 16][4],
+                                           uint32_t (&nxt)[KS / 16][4], const __nv_bfloat16* act,
+                                           int ldx, int k_pad, int k0, const WRing& r,
+                                           RingPos& c, int& held, int np, int n0) {
+  const int steps = min(KS, k_pad - k0) >> 4;
+  const bool fresh = k0 % D == 0;
+  if (fresh && held >= 0) {
+    wg_wait<0>();
+    acc_fence<N / 2>(f);
+    reg_fence<KS / 4>(&nxt[0][0]);
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) acc[i] += f[i];
+    ring_release(r, held);
+    held = -1;
+  }
+  mbar_wait(&r.full[c.st], c.ph);
+  const uint32_t sb = smem_u32(r.buf + static_cast<size_t>(c.st) * r.stage_bytes) + n0 * 16;
+  acc_fence<N / 2>(f);
+  wg_fence();
+#pragma unroll
+  for (int q = 0; q < KS / 16; ++q)
+    if (q < steps)
+      mma_rs<N>(f, cur[q], smem_desc(sb + q * 2 * np * 16, np * 16, 128), 128,
+                fresh && q == 0 ? 0 : 1);
+  wg_commit();
+  if (held >= 0) {
+    wg_wait<1>();
+    reg_fence<KS / 4>(&nxt[0][0]);
+    ring_release(r, held);
+  }
+  held = c.st;
+  c.next(r.stages);
+  if (k0 + KS < k_pad) load_stage_a<KS>(nxt, act, ldx, k_pad, k0 + KS);
+}
+
+// Hidden 1024's sums: acc[0, N/2) = act[64 rows of the warpgroup,
+// 0:k_pad) @ columns [n0, n0 + N) of the pass's stages, np wide, as fresh
+// wgmma sums of D k each (several 32-deep stages) added into acc in k
+// order.  The groups stay in flight across the stages of a sum as
+// CUTLASS's main loop keeps them: stage s + 1's A fragments load and its
+// group issues before stage s's group is waited on (wg_wait<1>) and its
+// stage released, so the tensor cores drain only where a sum ends; two
+// register buffers of A fragments.  With D >= k_pad this is one wgmma sum
+// over the pass.
+template <int N, int KS, int D>
+__device__ __forceinline__ void wg_product_sums(float* acc, const __nv_bfloat16* act, int ldx,
+                                                int k_pad, const WRing& r, RingPos& c, int np,
+                                                int n0) {
+  static_assert(N % 8 == 0 && N <= 136, "wgmma widths, 68 f32 a thread at most");
+  static_assert(KS % 16 == 0 && KS <= kKs && D % KS == 0, "k per stage");
+  constexpr int kSteps = KS / 16;
+  float f[N / 2];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+  uint32_t a0[kSteps][4], a1[kSteps][4];
+  int held = -1;
+  load_stage_a<KS>(a0, act, ldx, k_pad, 0);
+  for (int k0 = 0; k0 < k_pad; k0 += 2 * KS) {
+    sums_stage<N, KS, D>(acc, f, a0, a1, act, ldx, k_pad, k0, r, c, held, np, n0);
+    if (k0 + KS < k_pad)
+      sums_stage<N, KS, D>(acc, f, a1, a0, act, ldx, k_pad, k0 + KS, r, c, held, np, n0);
+  }
+  wg_wait<0>();
+  acc_fence<N / 2>(f);
+  reg_fence<KS / 4>(&a0[0][0]);
+  reg_fence<KS / 4>(&a1[0][0]);
+  ring_release(r, held);
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] += f[i];
+}
+
 // A phantom tile's share of the ring (a cluster's block with fewer tiles
 // than its peer): every stage of the layer waited for and released, so
 // both blocks' producers go on filling both blocks.
-__device__ __forceinline__ void drain_layer(const WRing& r, RingPos& c, const Dense& L, int ks) {
-  for (int q = 0; q < n_passes(L.n_pad); ++q)
+__device__ __forceinline__ void drain_layer(const WRing& r, RingPos& c, const Dense& L, int ks,
+                                            int cols) {
+  for (int q = 0; q < n_passes(L.n_pad, cols); ++q)
     for (int k0 = 0; k0 < L.k_pad; k0 += ks) {
       mbar_wait(&r.full[c.st], c.ph);
       ring_release(r, c.st);
@@ -578,13 +625,12 @@ struct SplitProduct {
   static constexpr int n0_hi = N - width;  // warpgroup 1's first column
 };
 
-// The warp's share of an N-wide layer's product on H's tile: all N columns,
-// or its warpgroup's SplitProduct of a split tile (at hidden 1024 the
-// staged sums, wg_product_staged, kPipe their schedule; else with kPipe
-// its groups in flight across stages, wg_product_pipe), after which
-// split_sync: the
-// peers' reads of the activation tile are done and either may write its
-// part (Split<N>) back in place.  `np`: the stages' width.
+// The warp's share of an N-wide layer's (or pass's) product on H's tile:
+// all N columns, or its warpgroup's SplitProduct of a split tile (at
+// hidden 512 a fresh sum a stage, wg_product_staged, kPipe its schedule;
+// at 1024 fresh sums of kSumDepth k, wg_product_sums), after which
+// split_sync: the peers' reads of the activation tile are done and either
+// may write its part (Split<N>) back in place.  `np`: the stages' width.
 template <int H, int N, int KS, bool kPipe>
 __device__ __forceinline__ void layer_product(float* acc, const __nv_bfloat16* act, int ldx,
                                               int k_pad, const WRing& r, RingPos& c,
@@ -595,11 +641,9 @@ __device__ __forceinline__ void layer_product(float* acc, const __nv_bfloat16* a
     using P = SplitProduct<N>;
     const int n0 = col_part<H>() ? P::n0_hi : 0;
     if constexpr (WgTile<H>::kParked)
-      wg_product_staged<P::width, KS, kPipe>(acc, act, ldx, k_pad, r, c, np, n0);
-    else if constexpr (kPipe)
-      wg_product_pipe<P::width, KS>(acc, act, ldx, k_pad, r, c, np, n0);
+      wg_product_sums<P::width, KS, kSumDepth>(acc, act, ldx, k_pad, r, c, np, n0);
     else
-      wg_product<P::width, 0, KS>(acc, act, ldx, k_pad, r, c, nullptr, np, n0);
+      wg_product_staged<P::width, KS, kPipe>(acc, act, ldx, k_pad, r, c, np, n0);
     split_sync<H>();
   }
 }
@@ -610,9 +654,12 @@ __device__ __forceinline__ void layer_product(float* acc, const __nv_bfloat16* a
 
 // act = bf16(relu(acc + bias)); with mask, the sign bits of the rounded
 // values, one 32-bit word per 32 columns of a row (row stride mw words).
+// Column pair 8j + 2t of a row lies at act + row * ldx + j * js + 2t: js =
+// 8 in an activation tile, 128 in the park (park_back).
 template <int N, bool kMask>
 __device__ __forceinline__ void epi_relu(const float* acc, const float* bias,
-                                         __nv_bfloat16* act, int ldx, uint32_t* mask, int mw) {
+                                         __nv_bfloat16* act, int ldx, uint32_t* mask, int mw,
+                                         int js = 8) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   constexpr int W = N / 32 > 0 ? N / 32 : 1;
   uint32_t m0[W], m1[W];
@@ -626,8 +673,8 @@ __device__ __forceinline__ void epi_relu(const float* acc, const float* bias,
         __floats2bfloat162_rn(fmaxf(acc[4 * j] + b0, 0.f), fmaxf(acc[4 * j + 1] + b1, 0.f));
     const __nv_bfloat162 h1 =
         __floats2bfloat162_rn(fmaxf(acc[4 * j + 2] + b0, 0.f), fmaxf(acc[4 * j + 3] + b1, 0.f));
-    *reinterpret_cast<__nv_bfloat162*>(act + g * ldx + c) = h0;
-    *reinterpret_cast<__nv_bfloat162*>(act + (g + 8) * ldx + c) = h1;
+    *reinterpret_cast<__nv_bfloat162*>(act + g * ldx + j * js + 2 * t) = h0;
+    *reinterpret_cast<__nv_bfloat162*>(act + (g + 8) * ldx + j * js + 2 * t) = h1;
     if (kMask) {
       const int sh = (j & 3) * 8 + 2 * t;
       m0[j >> 2] |= ((__bfloat162float(h0.x) > 0.f ? 1u : 0u) |
@@ -661,22 +708,22 @@ __device__ __forceinline__ void epi_relu(const float* acc, const float* bias,
 template <int N, bool kSigma = true>
 __device__ __forceinline__ void epi_feature_sigma(const float* acc, const float* bias,
                                                   __nv_bfloat16* act, int ldx, float* sig,
-                                                  int valid) {
+                                                  int valid, int js = 8) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int j = 0; j < N / 8 - (kSigma ? 1 : 0); ++j) {
     const int c = 8 * j + 2 * t;
     const float b0 = bias[c], b1 = bias[c + 1];
-    *reinterpret_cast<__nv_bfloat162*>(act + g * ldx + c) =
+    *reinterpret_cast<__nv_bfloat162*>(act + g * ldx + j * js + 2 * t) =
         __floats2bfloat162_rn(acc[4 * j] + b0, acc[4 * j + 1] + b1);
-    *reinterpret_cast<__nv_bfloat162*>(act + (g + 8) * ldx + c) =
+    *reinterpret_cast<__nv_bfloat162*>(act + (g + 8) * ldx + j * js + 2 * t) =
         __floats2bfloat162_rn(acc[4 * j + 2] + b0, acc[4 * j + 3] + b1);
   }
-  constexpr int js = N / 8 - 1;
+  constexpr int jsig = N / 8 - 1;
   if (kSigma && sig != nullptr && t == 0) {
-    const float b = bias[8 * js];
-    if (g < valid) sig[g] = acc[4 * js] + b;
-    if (g + 8 < valid) sig[g + 8] = acc[4 * js + 2] + b;
+    const float b = bias[8 * jsig];
+    if (g < valid) sig[g] = acc[4 * jsig] + b;
+    if (g + 8 < valid) sig[g + 8] = acc[4 * jsig + 2] + b;
   }
 }
 
@@ -706,7 +753,8 @@ __device__ __forceinline__ void epi_rgb(const float* acc, const float* bias, flo
 // of the warp's column sums.
 template <int N, bool kMask>
 __device__ __forceinline__ void epi_bwd(const float* acc, __nv_bfloat16* act, int ldx,
-                                        const uint32_t* mask, int mw, float* srow) {
+                                        const uint32_t* mask, int mw, float* srow,
+                                        int js = 8) {
   static_assert(N >= 32, "the reduce-scatter needs N/4 >= 8 values a lane");
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   constexpr int M = N / 4;  // values a lane carries: two columns per 8-column block
@@ -723,8 +771,9 @@ __device__ __forceinline__ void epi_bwd(const float* acc, __nv_bfloat16* act, in
       if (!(w1 & 1u)) v10 = 0.f;
       if (!(w1 & 2u)) v11 = 0.f;
     }
-    *reinterpret_cast<__nv_bfloat162*>(act + g * ldx + c) = __floats2bfloat162_rn(v00, v01);
-    *reinterpret_cast<__nv_bfloat162*>(act + (g + 8) * ldx + c) =
+    *reinterpret_cast<__nv_bfloat162*>(act + g * ldx + j * js + 2 * t) =
+        __floats2bfloat162_rn(v00, v01);
+    *reinterpret_cast<__nv_bfloat162*>(act + (g + 8) * ldx + j * js + 2 * t) =
         __floats2bfloat162_rn(v10, v11);
     v[2 * j] = v00 + v10;
     v[2 * j + 1] = v01 + v11;
@@ -761,18 +810,19 @@ __device__ __forceinline__ void epi_bwd(const float* acc, __nv_bfloat16* act, in
 // multiple of 32 columns, so its mask words are whole).
 template <int H, int N, bool kMask>
 __device__ __forceinline__ void layer_relu(const float* acc, const float* bias,
-                                           __nv_bfloat16* act, int ldx, uint32_t* mask, int mw) {
+                                           __nv_bfloat16* act, int ldx, uint32_t* mask, int mw,
+                                           int js = 8) {
   if constexpr (!WgTile<H>::kSplit) {
-    epi_relu<N, kMask>(acc, bias, act, ldx, mask, mw);
+    epi_relu<N, kMask>(acc, bias, act, ldx, mask, mw, js);
   } else {
     using S = Split<N>;
     static_assert(S::lo % 32 == 0 && S::hi % 32 == 0, "whole mask words per part");
     static_assert(SplitProduct<N>::n0_hi == S::lo, "warpgroup 1's product starts its part");
     if (col_part<H>() == 0)
-      epi_relu<S::lo, kMask>(acc, bias, act, ldx, mask, mw);
+      epi_relu<S::lo, kMask>(acc, bias, act, ldx, mask, mw, js);
     else
-      epi_relu<S::hi, kMask>(acc, bias + S::lo, act + S::lo, ldx,
-                             kMask ? mask + S::lo / 32 : nullptr, mw);
+      epi_relu<S::hi, kMask>(acc, bias + S::lo, act + S::lo / 8 * js, ldx,
+                             kMask ? mask + S::lo / 32 : nullptr, mw, js);
   }
 }
 
@@ -780,16 +830,18 @@ __device__ __forceinline__ void layer_relu(const float* acc, const float* bias,
 // kSigma the part that ends with sigma).
 template <int H, int N = H + 8, bool kSigma = true>
 __device__ __forceinline__ void layer_head(const float* acc, const float* bias,
-                                           __nv_bfloat16* act, int ldx, float* sig, int valid) {
+                                           __nv_bfloat16* act, int ldx, float* sig, int valid,
+                                           int js = 8) {
   if constexpr (!WgTile<H>::kSplit) {
     epi_feature_sigma<N>(acc, bias, act, ldx, sig, valid);
   } else {
     using S = Split<N>;
     static_assert(SplitProduct<N>::n0_hi == S::lo, "warpgroup 1's product starts its part");
     if (col_part<H>() == 0)
-      epi_feature_sigma<S::lo, false>(acc, bias, act, ldx, nullptr, 0);
+      epi_feature_sigma<S::lo, false>(acc, bias, act, ldx, nullptr, 0, js);
     else
-      epi_feature_sigma<S::hi, kSigma>(acc, bias + S::lo, act + S::lo, ldx, sig, valid);
+      epi_feature_sigma<S::hi, kSigma>(acc, bias + S::lo, act + S::lo / 8 * js, ldx, sig, valid,
+                                       js);
   }
 }
 
@@ -801,62 +853,97 @@ __device__ __forceinline__ void layer_rgb(const float* acc, const float* bias, f
 
 template <int H, int N, bool kMask>
 __device__ __forceinline__ void layer_bwd(const float* acc, __nv_bfloat16* act, int ldx,
-                                          const uint32_t* mask, int mw, float* srow) {
+                                          const uint32_t* mask, int mw, float* srow,
+                                          int js = 8) {
   if constexpr (!WgTile<H>::kSplit) {
     epi_bwd<N, kMask>(acc, act, ldx, mask, mw, srow);
   } else {
     using S = Split<N>;
     static_assert(SplitProduct<N>::n0_hi == S::lo, "warpgroup 1's product starts its part");
     if (col_part<H>() == 0)
-      epi_bwd<S::lo, kMask>(acc, act, ldx, mask, mw, srow);
+      epi_bwd<S::lo, kMask>(acc, act, ldx, mask, mw, srow, js);
     else
-      epi_bwd<S::hi, kMask>(acc, act + S::lo, ldx, kMask ? mask + S::lo / 32 : nullptr, mw,
-                            srow + S::lo);
+      epi_bwd<S::hi, kMask>(acc, act + S::lo / 8 * js, ldx, kMask ? mask + S::lo / 32 : nullptr,
+                            mw, srow + S::lo, js);
   }
 }
 
-// The warp's columns of a parked N-wide pass (Split<N>: the positions its
-// epilogue wrote, rows g and g + 8, columns 8j + 2t and + 1) from the park
-// (row stride kPassCols) back into the activation tile.
-template <int H, int N>
+// The park's layout: a pass of the warp's 16 rows is 16 x kWgPassCols
+// bf16 at park + q * 16 * kWgPassCols; warpgroup 0's part first, then
+// warpgroup 1's (Split<kWgPassCols>::lo / 8 blocks of kParkJs each); in a
+// block the epilogue's column pair 8j + 2t of row g lies at j * kParkJs +
+// g * kParkLd + 2t, of row g + 8 at 64 more: the 32 lanes of a warp store
+// and load 128 contiguous bytes.
+constexpr int kParkLd = 8, kParkJs = 128;
+
+// The warp's columns of a parked pass (Split<kWgPassCols>: the positions
+// its epilogue wrote, rows g and g + 8, columns 8j + 2t and + 1) from the
+// park (`park`: the pass's block of the warp's rows) back into the
+// activation tile at the pass's columns; every load issues before the
+// first store (the park is in global memory, and a generic pointer may
+// alias the tile).
+template <int H>
 __device__ __forceinline__ void park_back(const __nv_bfloat16* park, __nv_bfloat16* act,
                                           int ldx) {
-  using S = Split<N>;
+  using S = Split<kWgPassCols>;
+  constexpr int J = S::lo / 8;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int c0 = col_part<H>() ? S::lo : 0;
+  const int c0 = (col_part<H>() ? S::lo : 0) + 2 * t;
+  const __nv_bfloat16* src = park + (col_part<H>() ? J * kParkJs : 0) + g * kParkLd + 2 * t;
+  uint32_t v[2 * J];
 #pragma unroll
-  for (int j = 0; j < S::lo / 8; ++j) {
-    const int c = c0 + 8 * j + 2 * t;
-    *reinterpret_cast<uint32_t*>(act + g * ldx + c) =
-        *reinterpret_cast<const uint32_t*>(park + g * kPassCols + c);
-    *reinterpret_cast<uint32_t*>(act + (g + 8) * ldx + c) =
-        *reinterpret_cast<const uint32_t*>(park + (g + 8) * kPassCols + c);
+  for (int j = 0; j < J; ++j) {
+    v[2 * j] = *reinterpret_cast<const uint32_t*>(src + j * kParkJs);
+    v[2 * j + 1] = *reinterpret_cast<const uint32_t*>(src + j * kParkJs + 64);
+  }
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    *reinterpret_cast<uint32_t*>(act + g * ldx + c0 + 8 * j) = v[2 * j];
+    *reinterpret_cast<uint32_t*>(act + (g + 8) * ldx + c0 + 8 * j) = v[2 * j + 1];
+  }
+}
+
+// Passes P.. of an N-wide layer (layer_passes): pass P's product into acc,
+// then its epilogue into the park (all but the last) or the tile.
+template <int H, int N, int KS, bool kPipe, int P, class Epi>
+__device__ __forceinline__ void run_passes(float* acc, __nv_bfloat16* act, int ldx, int k_pad,
+                                           const WRing& r, RingPos& c, __nv_bfloat16* park,
+                                           Epi& epi) {
+  constexpr int NP = n_passes(N, kWgPassCols), c0 = P * kWgPassCols;
+  if constexpr (P + 1 < NP) {
+    layer_product<H, kWgPassCols, KS, kPipe>(acc, act, ldx, k_pad, r, c);
+    epi(acc, std::integral_constant<int, kWgPassCols>{}, std::false_type{}, c0,
+        park + P * 16 * kWgPassCols, kParkLd, kParkJs);
+    run_passes<H, N, KS, kPipe, P + 1>(acc, act, ldx, k_pad, r, c, park, epi);
+  } else {
+    layer_product<H, N - c0, KS, kPipe>(acc, act, ldx, k_pad, r, c);
+    epi(acc, std::integral_constant<int, N - c0>{}, std::true_type{}, c0, act + c0, ldx, 8);
   }
 }
 
 // An N-wide layer's products and epilogues on H's tile, pass by pass (one
-// pass unless N > kPassCols + 8): each pass's product into acc, then
-// epi(acc, width, last, c0, dst, ld) writes the pass's columns [c0, c0 +
-// width) to dst (row stride ld): the activation tile at column c0 for the
-// last pass, the park (`park`: the warp's rows) for the others, which go
-// back into the tile after the last pass's products (park_back).  `width`
-// and `last` are std::integral_constant.
+// pass unless hidden 1024's N > kWgPassCols + 8): each pass's product
+// into acc, then epi(acc, width, last, c0, dst, ld, js) writes the pass's
+// columns [c0, c0 + width) to dst (row stride ld, column pair 8j + 2t at
+// j * js + 2t): the activation tile at column c0 for the last pass (js
+// 8), the pass's block of the park (`park`: the warp's rows; kParkLd,
+// kParkJs) for the others, which go back into the tile after the last
+// pass's products (park_back).  `width` and `last` are
+// std::integral_constant.
 template <int H, int N, int KS, bool kPipe, class Epi>
 __device__ __forceinline__ void layer_passes(float* acc, __nv_bfloat16* act, int ldx, int k_pad,
                                              const WRing& r, RingPos& c, __nv_bfloat16* park,
                                              Epi epi) {
-  constexpr int NP = n_passes(N);
+  constexpr int NP = n_passes(N, wg_pass_cols(H));
   if constexpr (NP == 1) {
     layer_product<H, N, KS, kPipe>(acc, act, ldx, k_pad, r, c);
-    epi(acc, std::integral_constant<int, N>{}, std::true_type{}, 0, act, ldx);
+    epi(acc, std::integral_constant<int, N>{}, std::true_type{}, 0, act, ldx, 8);
   } else {
-    static_assert(NP == 2 && WgTile<H>::kParked, "two passes (hidden 1024)");
-    constexpr int W1 = N - kPassCols;
-    layer_product<H, kPassCols, KS, kPipe>(acc, act, ldx, k_pad, r, c);
-    epi(acc, std::integral_constant<int, kPassCols>{}, std::false_type{}, 0, park, kPassCols);
-    layer_product<H, W1, KS, kPipe>(acc, act, ldx, k_pad, r, c);
-    epi(acc, std::integral_constant<int, W1>{}, std::true_type{}, kPassCols, act + kPassCols, ldx);
-    park_back<H, kPassCols>(park, act, ldx);
+    static_assert((NP - 1) * kWgPassCols <= WgTile<H>::kParkCols, "the park holds the passes");
+    run_passes<H, N, KS, kPipe, 0>(acc, act, ldx, k_pad, r, c, park, epi);
+#pragma unroll
+    for (int q = 0; q + 1 < NP; ++q)
+      park_back<H>(park + q * 16 * kWgPassCols, act + q * kWgPassCols, ldx);
   }
 }
 
@@ -901,7 +988,7 @@ __device__ __forceinline__ void store_ws(const __nv_bfloat16* act, int ldx, __nv
 // xyz_pad); xenc(row, c) gives them again for the skip concats, dir(row, c)
 // the direction features (bf16, zero beyond their width).  sig and rgbl
 // (the warp's rows) receive sigma and the rgb logits for rows < valid.
-// `park`: the warp's rows of the block's park (hidden 1024), else null.
+// `park`: the warp's rows of the block's park (the split tile), else null.
 // The producer streams dense[0..L+2] in order (produce_forward).
 template <int H, class XencFn, class DirFn>
 __device__ __forceinline__ void mlp_forward_wg(const MlpDims& m, const float* b,
@@ -914,14 +1001,14 @@ __device__ __forceinline__ void mlp_forward_wg(const MlpDims& m, const float* b,
   const int pl = peer_lane<H>();
   const int ldx = m.ldx;
   const int L = m.num_layers;
-  float acc[T::kAcc];
+  float acc[T::kSumAcc];
   for (int i = 0; i < L; ++i) {
     const float* bias = b + m.dense[i].b_off;
-    layer_passes<H, H, KS, kPipeForward>(acc, act, ldx, m.dense[i].k_pad, ring, rp, park,
-                           [&](float* a, auto w, auto, int c0, __nv_bfloat16* dst, int ld) {
-                             layer_relu<H, decltype(w)::value, false>(a, bias + c0, dst, ld,
-                                                                      nullptr, 0);
-                           });
+    layer_passes<H, H, KS, kPipeForward>(
+        acc, act, ldx, m.dense[i].k_pad, ring, rp, park,
+        [&](float* a, auto w, auto, int c0, __nv_bfloat16* dst, int ld, int js) {
+          layer_relu<H, decltype(w)::value, false>(a, bias + c0, dst, ld, nullptr, 0, js);
+        });
     if (is_skip(i, m.skip_layer))
       for (int j = pl; j < 16 * m.xyz_pad; j += T::kLanes) {
         const int row = j / m.xyz_pad, c = j - row * m.xyz_pad;
@@ -930,18 +1017,23 @@ __device__ __forceinline__ void mlp_forward_wg(const MlpDims& m, const float* b,
     rows_sync<H>();
   }
   const float* bias = b + m.dense[L].b_off;
-  layer_passes<H, H + 8, KS, kPipeForward>(acc, act, ldx, m.dense[L].k_pad, ring, rp, park,
-                             [&](float* a, auto w, auto last, int c0, __nv_bfloat16* dst, int ld) {
-                               layer_head<H, decltype(w)::value, decltype(last)::value>(
-                                   a, bias + c0, dst, ld, sig, valid);
-                             });
+  layer_passes<H, H + 8, KS, kPipeForward>(
+      acc, act, ldx, m.dense[L].k_pad, ring, rp, park,
+      [&](float* a, auto w, auto last, int c0, __nv_bfloat16* dst, int ld, int js) {
+        layer_head<H, decltype(w)::value, decltype(last)::value>(a, bias + c0, dst, ld, sig,
+                                                                 valid, js);
+      });
   for (int j = pl; j < 16 * m.dir_pad; j += T::kLanes) {
     const int row = j / m.dir_pad, c = j - row * m.dir_pad;
     act[row * ldx + H + c] = dir(row, c);
   }
   rows_sync<H>();
-  layer_product<H, H / 2, KS, kPipeForward>(acc, act, ldx, m.dense[L + 1].k_pad, ring, rp);
-  layer_relu<H, H / 2, false>(acc, b + m.dense[L + 1].b_off, act, ldx, nullptr, 0);
+  const float* bias_br = b + m.dense[L + 1].b_off;
+  layer_passes<H, H / 2, KS, kPipeForward>(
+      acc, act, ldx, m.dense[L + 1].k_pad, ring, rp, park,
+      [&](float* a, auto w, auto, int c0, __nv_bfloat16* dst, int ld, int js) {
+        layer_relu<H, decltype(w)::value, false>(a, bias_br + c0, dst, ld, nullptr, 0, js);
+      });
   rows_sync<H>();
   layer_product<H, 8, KS, kPipeForward>(acc, act, ldx, m.dense[L + 2].k_pad, ring, rp);
   layer_rgb<H>(acc, b + m.dense[L + 2].b_off, rgbl, valid);
@@ -951,13 +1043,15 @@ __device__ __forceinline__ void mlp_forward_wg(const MlpDims& m, const float* b,
 // The producer's side of mlp_forward_wg, `ks` deep (the tile's kKsTile).
 __device__ __forceinline__ void produce_forward(const MlpDims& m, const __nv_bfloat16* w,
                                                 const WRing& ring, RingPos& rp, int ks) {
-  for (int i = 0; i < m.num_layers + 3; ++i) produce_layer(ring, rp, w, m.dense[i], ks);
+  for (int i = 0; i < m.num_layers + 3; ++i)
+    produce_layer(ring, rp, w, m.dense[i], ks, wg_pass_cols(m.hidden));
 }
 
 // The consumers' side of produce_forward for a phantom tile.
 __device__ __forceinline__ void drain_forward(const MlpDims& m, const WRing& ring, RingPos& rp,
                                               int ks) {
-  for (int i = 0; i < m.num_layers + 3; ++i) drain_layer(ring, rp, m.dense[i], ks);
+  for (int i = 0; i < m.num_layers + 3; ++i)
+    drain_layer(ring, rp, m.dense[i], ks, wg_pass_cols(m.hidden));
 }
 
 // act[rows, 0:N) = bf16(acc): an accumulator's 16 x N columns of the warp.
@@ -1053,7 +1147,7 @@ __device__ __forceinline__ void mlp_backward_wg(const MlpBwdParams& p, __nv_bflo
           row < valid && c < m.xyz_dim ? xf(row, c) : __float2bfloat16_rn(0.f);
     }
   };
-  float acc[T::kAcc];
+  float acc[T::kSumAcc];
   float xs[kIG ? kXC / 2 : 1];  // kIG: the encodings' gradient columns, f32
   // The dX product of dense layer i (i >= 1): the hidden columns of its
   // input, masked by layer i - 1's ReLU, into act (dPre_{i-1}) and their
@@ -1070,12 +1164,12 @@ __device__ __forceinline__ void mlp_backward_wg(const MlpBwdParams& p, __nv_bflo
         return;
       }
     }
-    layer_passes<H, H, KSB, kPipeRows>(acc, act, ldx, p.bdense[i].k_pad, ring, rp, park,
-                            [&](float* a, auto w, auto, int c0, __nv_bfloat16* dst, int ld) {
-                              __syncwarp();
-                              layer_bwd<H, decltype(w)::value, true>(a, dst, ld, mk + c0 / 32,
-                                                                     MW, srow() + c0);
-                            });
+    layer_passes<H, H, KSB, kPipeRows>(
+        acc, act, ldx, p.bdense[i].k_pad, ring, rp, park,
+        [&](float* a, auto w, auto, int c0, __nv_bfloat16* dst, int ld, int js) {
+          __syncwarp();
+          layer_bwd<H, decltype(w)::value, true>(a, dst, ld, mk + c0 / 32, MW, srow() + c0, js);
+        });
   };
 
   // ---- Forward recompute, storing each layer's input (A).
@@ -1085,20 +1179,20 @@ __device__ __forceinline__ void mlp_backward_wg(const MlpBwdParams& p, __nv_bflo
     store_ws<H>(act, ldx, p.ws_a + N * p.bwd[i].a_col, m.dense[i].k_pad, rbase);
     const float* bias = p.b + m.dense[i].b_off;
     uint32_t* mk = masks + i * mslot;
-    layer_passes<H, H, KSF, kPipeRows>(acc, act, ldx, m.dense[i].k_pad, ring, rp, park,
-                            [&](float* a, auto w, auto, int c0, __nv_bfloat16* dst, int ld) {
-                              layer_relu<H, decltype(w)::value, true>(a, bias + c0, dst, ld,
-                                                                      mk + c0 / 32, MW);
-                            });
+    layer_passes<H, H, KSF, kPipeRows>(
+        acc, act, ldx, m.dense[i].k_pad, ring, rp, park,
+        [&](float* a, auto w, auto, int c0, __nv_bfloat16* dst, int ld, int js) {
+          layer_relu<H, decltype(w)::value, true>(a, bias + c0, dst, ld, mk + c0 / 32, MW, js);
+        });
     if (is_skip(i, m.skip_layer)) load_x(H);
     rows_sync<H>();
   }
   store_ws<H>(act, ldx, p.ws_a + N * p.bwd[L].a_col, fs.k_pad, rbase);
   layer_passes<H, H + 8, KSF, kPipeRows>(
       acc, act, ldx, fs.k_pad, ring, rp, park,
-      [&](float* a, auto w, auto last, int c0, __nv_bfloat16* dst, int ld) {
+      [&](float* a, auto w, auto last, int c0, __nv_bfloat16* dst, int ld, int js) {
         layer_head<H, decltype(w)::value, decltype(last)::value>(a, p.b + fs.b_off + c0, dst,
-                                                                 ld, nullptr, 0);
+                                                                 ld, nullptr, 0, js);
       });
   for (int j = pl; j < 16 * m.dir_pad; j += T::kLanes) {
     const int row = j / m.dir_pad, c = j - row * m.dir_pad;
@@ -1106,8 +1200,12 @@ __device__ __forceinline__ void mlp_backward_wg(const MlpBwdParams& p, __nv_bflo
   }
   rows_sync<H>();
   store_ws<H>(act, ldx, p.ws_a + N * p.bwd[L + 1].a_col, br.k_pad, rbase);
-  layer_product<H, H / 2, KSF, kPipeRows>(acc, act, ldx, br.k_pad, ring, rp);
-  layer_relu<H, H / 2, true>(acc, p.b + br.b_off, act, ldx, masks + L * mslot, MW);
+  layer_passes<H, H / 2, KSF, kPipeRows>(
+      acc, act, ldx, br.k_pad, ring, rp, park,
+      [&](float* a, auto w, auto, int c0, __nv_bfloat16* dst, int ld, int js) {
+        layer_relu<H, decltype(w)::value, true>(a, p.b + br.b_off + c0, dst, ld,
+                                                masks + L * mslot + c0 / 32, MW, js);
+      });
   rows_sync<H>();
   store_ws<H>(act, ldx, p.ws_a + N * p.bwd[L + 2].a_col, rgb.k_pad, rbase);
   split_sync<H>();  // the peers' copies of the branch output are done
@@ -1139,9 +1237,13 @@ __device__ __forceinline__ void mlp_backward_wg(const MlpBwdParams& p, __nv_bflo
   sb ^= 1;
   store_ws<H>(act, ldx, p.ws_d + N * p.bwd[L + 2].d_col, dw_rgb, rbase);
   // dh2 = drgb W_rgb^T, masked by h2 > 0: the branch's dPre.
-  layer_product<H, H / 2, KSB, kPipeRows>(acc, act, ldx, p.bdense[L + 2].k_pad, ring, rp);
-  __syncwarp();
-  layer_bwd<H, H / 2, true>(acc, act, ldx, masks + L * mslot, MW, srow());
+  layer_passes<H, H / 2, KSB, kPipeRows>(
+      acc, act, ldx, p.bdense[L + 2].k_pad, ring, rp, park,
+      [&](float* a, auto w, auto, int c0, __nv_bfloat16* dst, int ld, int js) {
+        __syncwarp();
+        layer_bwd<H, decltype(w)::value, true>(a, dst, ld, masks + L * mslot + c0 / 32, MW,
+                                               srow() + c0, js);
+      });
   rows_sync<H>();
   finish(db + br.b_off, H / 2);
   store_ws<H>(act, ldx, p.ws_d + N * p.bwd[L + 1].d_col, p.bwd[L + 1].d_width, rbase);
@@ -1155,12 +1257,12 @@ __device__ __forceinline__ void mlp_backward_wg(const MlpBwdParams& p, __nv_bflo
     __syncwarp();
     layer_bwd<H, H, false>(acc, act, ldx, nullptr, 0, srow());
   } else {
-    layer_passes<H, H, KSB, kPipeRows>(acc, act, ldx, p.bdense[L + 1].k_pad, ring, rp, park,
-                            [&](float* a, auto w, auto, int c0, __nv_bfloat16* dst, int ld) {
-                              __syncwarp();
-                              layer_bwd<H, decltype(w)::value, false>(a, dst, ld, nullptr, 0,
-                                                                      srow() + c0);
-                            });
+    layer_passes<H, H, KSB, kPipeRows>(
+        acc, act, ldx, p.bdense[L + 1].k_pad, ring, rp, park,
+        [&](float* a, auto w, auto, int c0, __nv_bfloat16* dst, int ld, int js) {
+          __syncwarp();
+          layer_bwd<H, decltype(w)::value, false>(a, dst, ld, nullptr, 0, srow() + c0, js);
+        });
   }
   if constexpr (kIG) {
     if (dd != nullptr) {
@@ -1177,13 +1279,10 @@ __device__ __forceinline__ void mlp_backward_wg(const MlpBwdParams& p, __nv_bflo
   }
   rows_sync<H>();
   finish(db + fs.b_off, H);
-  store_ws<H>(act, ldx, p.ws_d + N * p.bwd[L].d_col, dw_fs, rbase);
-  // dh_{L-1} = dfs W_fs^T (hidden columns), masked: dPre_{L-1}.
-  dx_layer(L);
-  rows_sync<H>();
-  finish(db + m.dense[L - 1].b_off, H);
-  // Trunk: act holds dPre_i; dX_i's hidden columns, masked, are dPre_{i-1}.
-  for (int i = L - 1; i >= 0; --i) {
+  // act holds the merged head's dPre (i = L), then dPre_i of the trunk;
+  // dX_i's hidden columns, masked, are dPre_{i-1} (dh_{L-1} = dfs W_fs^T).
+  // One call of dx_layer, so that it is inlined with acc in registers.
+  for (int i = L; i >= 0; --i) {
     store_ws<H>(act, ldx, p.ws_d + N * p.bwd[i].d_col, p.bwd[i].d_width, rbase);
     if (i > 0) {
       dx_layer(i);
@@ -1210,12 +1309,13 @@ template <bool kIG = false>
 __device__ __forceinline__ void produce_backward(const MlpBwdParams& p, const WRing& ring,
                                                  RingPos& rp, int ksf, int ksb) {
   const int L = p.m.num_layers;
-  for (int i = 0; i < L + 2; ++i) produce_layer(ring, rp, p.w, p.m.dense[i], ksf);
-  produce_layer(ring, rp, p.wb, p.bdense[L + 2], ksb);
-  produce_layer(ring, rp, p.wb, p.bdense[L + 1], ksb);
-  produce_layer(ring, rp, p.wb, p.bdense[L], ksb);
-  for (int i = L - 1; i > 0; --i) produce_layer(ring, rp, p.wb, p.bdense[i], ksb);
-  if (kIG) produce_layer(ring, rp, p.wb, p.bdense[0], ksb);
+  const int cols = wg_pass_cols(p.m.hidden);
+  for (int i = 0; i < L + 2; ++i) produce_layer(ring, rp, p.w, p.m.dense[i], ksf, cols);
+  produce_layer(ring, rp, p.wb, p.bdense[L + 2], ksb, cols);
+  produce_layer(ring, rp, p.wb, p.bdense[L + 1], ksb, cols);
+  produce_layer(ring, rp, p.wb, p.bdense[L], ksb, cols);
+  for (int i = L - 1; i > 0; --i) produce_layer(ring, rp, p.wb, p.bdense[i], ksb, cols);
+  if (kIG) produce_layer(ring, rp, p.wb, p.bdense[0], ksb, cols);
 }
 
 // The consumers' side of produce_backward (no input gradients) for a
@@ -1223,8 +1323,9 @@ __device__ __forceinline__ void produce_backward(const MlpBwdParams& p, const WR
 __device__ __forceinline__ void drain_backward(const MlpBwdParams& p, const WRing& ring,
                                                RingPos& rp, int ksf, int ksb) {
   const int L = p.m.num_layers;
-  for (int i = 0; i < L + 2; ++i) drain_layer(ring, rp, p.m.dense[i], ksf);
-  for (int i = L + 2; i > 0; --i) drain_layer(ring, rp, p.bdense[i], ksb);
+  const int cols = wg_pass_cols(p.m.hidden);
+  for (int i = 0; i < L + 2; ++i) drain_layer(ring, rp, p.m.dense[i], ksf, cols);
+  for (int i = L + 2; i > 0; --i) drain_layer(ring, rp, p.bdense[i], ksb, cols);
 }
 
 // ---------------------------------------------------------------------------

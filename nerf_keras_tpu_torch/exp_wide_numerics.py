@@ -2,6 +2,7 @@
 
     python -m nerf_keras_tpu_torch.exp_wide_numerics [--out FILE] [--trained FILE]
     python -m nerf_keras_tpu_torch.exp_wide_numerics --sweep N [--out FILE]
+        [--depth D [--build-only]] [--cases TAG ...]
 
 The yardstick is independent of both bf16 paths: the MLP with the kernels'
 roundings (bf16 encodings, weights, post-ReLU activations, the feature
@@ -36,7 +37,16 @@ rays and cotangents; the first are the cases above), and prints one
 ``SWEEP`` line per case and seed with its largest leaf distances (K2 from
 the plain path and K2 and the plain path from the yardstick) and its
 flipped ReLU signs: whether a kernel's sums stay nearer the yardstick than
-another's over many draws, not on one.
+another's over many draws, not on one.  ``--cases`` keeps only the seeded
+cases named (their tags, as ``h512_3x100``).
+
+``--depth D`` builds K1 and the rows kernels with hidden 1024's fresh
+wgmma sums D k deep (``-DNKT_SUM_DEPTH=D``, ``csrc/nerf_wgmlp.cuh``:
+kSumDepth; a multiple of 32, and one at least a layer's depth, 2048, sums
+each layer in one; hidden 512 sums each 32-deep stage) into libraries of
+their own;
+``--build-only`` builds them and exits, so that several depths build in
+parallel processes before their sweeps run one after another.
 """
 
 from __future__ import annotations
@@ -118,6 +128,23 @@ def dpreds(preds, t, g_rgb, g_w, dtype):
         w = alpha * trans
         rgb = (w[..., None] * torch.sigmoid(p[..., :3])).sum(-2)
         return torch.autograd.grad([rgb, w], [p], [g_rgb.to(dtype), g_w.to(dtype)])[0]
+
+
+def yardstick_grads(mlp, o, d, t, g_rgb, g_w) -> list[torch.Tensor]:
+    """The float64 yardstick's parameter gradients (``mlp.parameters()``
+    order) of <rgb, g_rgb> + <weights, g_w> over the rays: the MLP on K1's
+    bf16 position encodings and the bf16 direction encodings with the
+    kernels' roundings and float64 sums (``sr64_forward``), the
+    compositing and its VJP in float64 (``dpreds``), ``sr64_backward``."""
+    from nerf_keras_tpu_torch.ops.encoding import encode_position
+    from nerf_keras_tpu_torch.ops.kernels import fused_render as k1
+    b, s = t.shape
+    with torch.no_grad():
+        x_res = k1.launch_k1(mlp, o, d, t, mlp.l_xyz, mlp.l_dir, train=True)[2]
+        de = encode_position(d, mlp.l_dir)[:, None, :].expand(b, s, -1).reshape(b * s, -1)
+        preds, state = sr64_forward(mlp, x_res, de.to(torch.bfloat16))
+    g64 = dpreds(preds.view(b, s, 4), t, g_rgb, g_w, D64).reshape(b * s, 4)
+    return sr64_backward(mlp, state, g64)
 
 
 def leaves(mlp, got, want) -> dict:
@@ -237,8 +264,17 @@ SEEDED = (("h512_3x100", 512, 3, 35, 11, 12, True),
           ("h320_333x100_no_gw", 320, 333, 32, 5, 6, False))
 
 
-def sweep(draws: int, out: dict) -> None:
+def depth():
+    """The -DNKT_SUM_DEPTH the kernels were built with (None: the default)."""
+    from nerf_keras_tpu_torch.ops.kernels import _build
+    flags = [f for f in _build.NVCC_FLAGS if f.startswith("-DNKT_SUM_DEPTH=")]
+    return int(flags[-1].split("=")[1]) if flags else None
+
+
+def sweep(draws: int, out: dict, cases=None) -> None:
     for tag, hidden, b, seed, ray_seed, cot_seed, with_gw in SEEDED:
+        if cases and tag not in cases:
+            continue
         for m in range(draws):
             args = seeded(hidden, seed + m, b, ray_seed + 2 * m, cot_seed + 2 * m, with_gw)
             try:
@@ -250,7 +286,8 @@ def sweep(draws: int, out: dict) -> None:
             except NotImplementedError as err:  # a tree whose kernels refuse the width
                 rec = {"refused": str(err)}
             out.setdefault("sweep", {}).setdefault(tag, []).append(rec)
-            print("SWEEP " + json.dumps({"case": tag, "draw": m, **rec}), flush=True)
+            print("SWEEP " + json.dumps({"case": tag, "draw": m, "depth": depth(), **rec}),
+                  flush=True)
             del args
             torch.cuda.empty_cache()
 
@@ -263,15 +300,29 @@ def main() -> None:
                              "trained and written there")
     parser.add_argument("--sweep", type=int, default=0,
                         help="only the seeded cases, each on this many seeds")
+    parser.add_argument("--cases", nargs="+", default=None, choices=[c[0] for c in SEEDED],
+                        help="the seeded cases of the sweep (default: all)")
+    parser.add_argument("--depth", type=int, default=None,
+                        help="k per fresh wgmma sum of the hidden-1024 kernels")
+    parser.add_argument("--build-only", action="store_true",
+                        help="with --depth: build its libraries and exit")
     args = parser.parse_args()
     import os
+    if args.depth is not None:
+        from nerf_keras_tpu_torch.ops.kernels import _build
+        _build.NVCC_FLAGS.append(f"-DNKT_SUM_DEPTH={args.depth}")
+        _build._sources = lambda: [_build.CSRC / f"{stem}.cu" for stem in (
+            "fused_render_fwd", "fused_render_bwd_512", "fused_render_bwd_1024")]
+        if args.build_only:
+            print(f"DEPTH {args.depth} built in {_build.build():.1f} s", flush=True)
+            return
     import chip_smoke as cs
     from nerf_keras_tpu_torch.models.mlp import randomize_biases_
     from nerf_keras_tpu_torch.runtime import card_string, configure_numerics
     configure_numerics()
-    out = {"card": card_string()}
+    out = {"card": card_string(), "depth": args.depth}
     if args.sweep:
-        sweep(args.sweep, out)
+        sweep(args.sweep, out, args.cases)
         if args.out:
             with open(args.out, "w") as fh:
                 json.dump(out, fh, indent=1)

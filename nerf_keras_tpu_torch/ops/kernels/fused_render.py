@@ -37,8 +37,9 @@ Any bf16 hidden width up to 1024 (float32 up to 256; K5 with input
 gradients up to 256) and any encoding up to 128 position and 64 direction
 columns (L_XYZ 20, L_DIR 10) runs on the kernels.  The bf16 kernels are
 instantiated at hidden 64, 128, 256, 512 and 1024 (512 and 1024 on 64-row
-tiles whose two warpgroups split each layer's columns, 1024 in column
-passes of 512: ``csrc/nerf_wgmlp.cuh``); another
+tiles whose two warpgroups split each layer's columns, each layer's sums
+made of fresh wgmma sums of a fixed depth, 1024 in column passes of 256:
+``csrc/nerf_wgmlp.cuh``); another
 width runs on packs zero-padded to the next (:func:`kernel_width`,
 :func:`layer_maps`): exact, since a zero unit's ReLU is 0, feeds zeros
 forward and passes no gradient back.  Only the packs are padded;
@@ -303,31 +304,43 @@ WG_KS = 64  # k per weight stage of the wgmma kernels (csrc/nerf_wgmlp.cuh: kKs)
 WG_KS_NARROW = 32  # k per stage of the wide input-gradient packs (kKsNarrow)
 
 
-PASS_COLS = 512  # the columns of a column pass (csrc/nerf_wgmlp.cuh: kPassCols)
+PASS_COLS = 512  # K4's column passes (csrc/nerf_wgmlp.cuh: kPassCols)
+WG_PASS_COLS = 256  # the bf16 kernels' column passes at hidden 1024 (kWgPassCols)
 
 
-def pass_widths(n_pad: int) -> list[int]:
+def wg_pass_cols(hp: int) -> int | None:
+    """The bf16 kernels' pass width at kernel width ``hp``
+    (csrc/nerf_wgmlp.cuh: wg_pass_cols): WG_PASS_COLS at 1024, else None
+    (every layer in one pass)."""
+    return WG_PASS_COLS if hp > PASS_COLS else None
+
+
+def pass_widths(n_pad: int, cols: int | None = PASS_COLS) -> list[int]:
     """A layer's column passes (csrc/nerf_wgmlp.cuh: n_passes, pass_width):
-    one up to PASS_COLS + 8 columns, else passes of PASS_COLS, the last
-    taking the rest (hidden 1024's merged head: 512 + 520)."""
-    if n_pad <= PASS_COLS + 8:
+    one up to ``cols`` + 8 columns (or with ``cols`` None), else passes of
+    ``cols``, the last taking the rest (K4's at hidden 1024, 512 + 520 of
+    the merged head; the bf16 kernels' at 1024, WG_PASS_COLS: 3 x 256 +
+    264)."""
+    if cols is None or n_pad <= cols + 8:
         return [n_pad]
-    n = n_pad // PASS_COLS
-    return [PASS_COLS] * (n - 1) + [n_pad - PASS_COLS * (n - 1)]
+    n = n_pad // cols
+    return [cols] * (n - 1) + [n_pad - cols * (n - 1)]
 
 
-def wg_layout(n_pad: int, k_pad: int, ks: int = WG_KS) -> np.ndarray:
+def wg_layout(n_pad: int, k_pad: int, ks: int = WG_KS,
+              cols: int | None = None) -> np.ndarray:
     """Where element ``(n, k)`` of a padded ``(n_pad, k_pad)`` matrix lies
     in its wgmma pack, as an ``(n_pad, k_pad)`` array of element offsets:
-    each column pass (:func:`pass_widths`: all of it up to 520 columns) a
-    block of its own, ``k_pad * c0`` from the start for the pass from column
-    ``c0``, ``w`` wide, in k-slices of ``ks`` (the last a multiple of 16 up
-    to it), each in the K-major core-matrix layout, ``slice_start + ((k %
-    ks) // 8 * w + n - c0) * 8 + k % 8``."""
+    each column pass (:func:`pass_widths` of ``cols``, :func:`wg_pass_cols`:
+    one pass unless at hidden 1024) a block of its own, ``k_pad * c0``
+    from the start for the pass from column ``c0``, ``w`` wide, in k-slices
+    of ``ks`` (the last a multiple of 16 up to it), each in the K-major
+    core-matrix layout, ``slice_start + ((k % ks) // 8 * w + n - c0) * 8 +
+    k % 8``."""
     out = np.empty((n_pad, k_pad), dtype=np.int64)
     k = np.arange(k_pad)[None, :]
     c0 = 0
-    for w in pass_widths(n_pad):
+    for w in pass_widths(n_pad, cols):
         n = np.arange(w)[:, None]
         out[c0:c0 + w] = k_pad * c0 + (k // ks) * ks * w + ((k % ks) // 8 * w + n) * 8 + k % 8
         c0 += w
@@ -346,10 +359,11 @@ def ig_cols(xyz_dim: int, dir_dim: int) -> tuple[int, int, int]:
 @torch.no_grad()
 def _pack_wg(layers: list[tuple[torch.Tensor, torch.Tensor | None]],
              device: torch.device, ks: int = 64,
-             n_pads: list[int] | None = None) -> KernelPack:
+             n_pads: list[int] | None = None, cols: int | None = None) -> KernelPack:
     """Pad each ``(M (rows=output columns, k), bias)`` to (round8, round16)
     (or to ``n_pads`` rows) and lay it out for the wgmma kernels
-    (:func:`wg_layout`, ``ks`` k per slice, column pass by column pass): a
+    (:func:`wg_layout`, ``ks`` k per slice, column pass by column pass of
+    ``cols``): a
     producer copies one k-slice of a pass per shared-memory stage, which
     wgmma's descriptor reads as is.  Same descriptors as :func:`_pack`."""
     ws, bs, desc = [], [], []
@@ -359,7 +373,7 @@ def _pack_wg(layers: list[tuple[torch.Tensor, torch.Tensor | None]],
         k_pad, n_pad = _round_up(k, 16), _round_up(n, 8) if n_pads is None else n_pads[j]
         wp = torch.zeros((n_pad, k_pad), dtype=torch.float32, device=device)
         wp[:n, :k] = mat.to(device=device, dtype=torch.float32)
-        bounds = np.cumsum([0] + pass_widths(n_pad)).tolist() if n_pad else [0]
+        bounds = np.cumsum([0] + pass_widths(n_pad, cols)).tolist() if n_pad else [0]
         slices = [wp[c0:c1, k0:k0 + ks].reshape(c1 - c0, -1, 8).permute(1, 0, 2).reshape(-1)
                   for c0, c1 in zip(bounds[:-1], bounds[1:]) for k0 in range(0, k_pad, ks)]
         bp = torch.zeros((n_pad,), dtype=torch.float32, device=device)
@@ -380,7 +394,8 @@ def _pack_wg(layers: list[tuple[torch.Tensor, torch.Tensor | None]],
 def pack_weights_wg(mlp: NeRFMLP, device: torch.device) -> KernelPack:
     """K1's (and K6's, K2's recompute) pack: every layer's W^T in wgmma's
     layout, zero-padded to the kernel width (:func:`kernel_width`)."""
-    return _pack_wg(_dense_layers(mlp, kernel_width(mlp.hidden_dim)), device)
+    hp = kernel_width(mlp.hidden_dim)
+    return _pack_wg(_dense_layers(mlp, hp), device, cols=wg_pass_cols(hp))
 
 
 def pack_weights_bwd(mlp: NeRFMLP, device: torch.device,
@@ -421,7 +436,7 @@ def pack_weights_bwd_wg(mlp: NeRFMLP, device: torch.device,
     hp = kernel_width(mlp.hidden_dim)
     layers = _bwd_layers(mlp, input_grads, hp)
     if not input_grads:
-        return _pack_wg(layers, device)
+        return _pack_wg(layers, device, cols=wg_pass_cols(hp))
     check_encodings(mlp.l_xyz, mlp.l_dir)
     kx, kd, ks = ig_cols(mlp.xyz_dim, mlp.dir_dim)
     skip = lambda i: i > 0 and i % mlp.skip_layer == 0  # noqa: E731
@@ -558,11 +573,12 @@ def cluster_grid(tiles: int, sms: int) -> int:
 def glob_bytes(hidden: int, num_layers: int, rows: bool) -> int:
     """The global scratch a block needs at kernel width ``hidden``
     (csrc/nerf_wgmlp.cuh: wg_glob_bytes): above PASS_COLS the park of the
-    column passes (64 x 512 bf16) and, for the rows kernel (``rows``), its
-    ReLU bits and column-sum scratch; else none."""
+    column passes (64 rows x every pass of a layer but the last, 768
+    columns, bf16) and, for the rows kernel (``rows``), its ReLU bits and
+    column-sum scratch; else none."""
     if hidden <= PASS_COLS:
         return 0
-    park = 64 * PASS_COLS * 2
+    park = 64 * (hidden - WG_PASS_COLS) * 2
     return park + 4 * (num_layers + 1) * 64 * (hidden // 32) + 4 * 2 * 4 * hidden if rows else park
 
 

@@ -115,13 +115,15 @@ def _products(n):
     return (0, width), (n - width, width)
 
 
-def _pass_parts(n_pad):
+def _pass_parts(n_pad, cols=k1.PASS_COLS):
     """Each warpgroup's product on the split tile, pass by pass
-    (``layer_passes``): ``(c0, w, n0, width)``, the pass's first column and
-    width (its block of the pack is ``w`` wide, ``k_pad * c0`` elements
-    in), and the product's first column within the pass and width."""
+    (``layer_passes``; the bf16 kernels' passes are ``cols`` =
+    WG_PASS_COLS wide, K4's PASS_COLS): ``(c0, w, n0, width)``, the pass's
+    first column and width (its block of the pack is ``w`` wide, ``k_pad *
+    c0`` elements in), and the product's first column within the pass and
+    width."""
     c0 = 0
-    for w in k1.pass_widths(n_pad):
+    for w in k1.pass_widths(n_pad, cols):
         for n0, width in _products(w):
             yield c0, w, n0, width
         c0 += w
@@ -169,9 +171,10 @@ def test_wide_packs_match_a_numpy_model(hidden, which):
         want = np.zeros((n_pad, k_pad), np.float32)
         want[:n, :mat.shape[1]] = torch.tensor(mat).to(torch.bfloat16).float().numpy()
         # The pack's layout does not depend on the stage depth.
-        np.testing.assert_array_equal(k1.wg_layout(n_pad, k_pad, k1.WG_KS_NARROW),
-                                      k1.wg_layout(n_pad, k_pad, k1.WG_KS))
-        for c0, pw, n0, width in _pass_parts(n_pad):
+        cols = k1.wg_pass_cols(hp)
+        np.testing.assert_array_equal(k1.wg_layout(n_pad, k_pad, k1.WG_KS_NARROW, cols),
+                                      k1.wg_layout(n_pad, k_pad, k1.WG_KS, cols))
+        for c0, pw, n0, width in _pass_parts(n_pad, k1.wg_pass_cols(hp)):
             lo, hi = _split(pw)
             assert lo % 32 == 0 or pw == 8
             addr = k_pad * c0 + _part_address(pw, k_pad, k1.WG_KS_NARROW, n0, width)
@@ -199,73 +202,142 @@ def test_split_parts_of_the_512_layers():
     assert max(w for n in (512, 520, 256, 8) for _, w in _products(n)) // 2 == 132
 
 
-def test_column_passes_of_the_1024_layers():
-    """Hidden 1024's column passes (``pass_widths``, csrc/nerf_wgmlp.cuh:
-    n_passes): the trunk and K2's dX products 512 + 512, the merged head
-    512 + 520 (sigma in the last), the branch 512 and the rgb head 8 in one
-    pass, as every layer up to 520 columns; each pass a width of the
-    512-split tile (Split, SplitProduct), so an accumulator of 132 f32 a
-    thread at most; the park holds a pass of 512 columns, and no layer
-    takes more than two passes."""
-    assert k1.pass_widths(1024) == [512, 512]
-    assert k1.pass_widths(1032) == [512, 520]
-    for n in (8, 256, 264, 512, 520):
-        assert k1.pass_widths(n) == [n]
-    widths = {w for n in (1024, 1032, 512, 8) for w in k1.pass_widths(n)}
-    assert widths == {512, 520, 8}
-    assert max(w for n in widths for _, w in _products(n)) // 2 == 132
-    assert all(len(k1.pass_widths(n)) <= 2 for n in (1024, 1032, 1040))
-    assert all(_split(w)[0] == _split(w)[1] == 256 for n in (1024, 1032)
-               for w in k1.pass_widths(n)[:-1])
+# The widths of the split tile's products at hidden H: the trunk and K2's
+# dX products H, the merged head H + 8, the branch and the rgb head's dX
+# H / 2, the rgb head 8.
+def _layer_widths(hidden):
+    return {"trunk": hidden, "dx": hidden, "head": hidden + 8, "branch": hidden // 2,
+            "rgb_dx": hidden // 2, "rgb": 8}
 
 
-def test_shared_memory_at_1024():
-    """Hidden 1024's blocks (a model of the hosts' carve-ups:
-    fused_render_fwd.cu, fused_render_bwd.cu, quant_render_fwd.cu) hold
-    at least two weight stages of the widest pass (520 columns, 32 k deep
-    bf16, 64 k deep int8) beside the 64-row activation tile, in the 232,448
-    bytes a block may use: K1 with its x_enc tile and one ray's S = 192
-    predictions, the rows kernel with its ReLU bits and column sums in the
-    global scratch (``glob_bytes``: the park of 64 x 512 bf16, 9 layers'
-    bits, two sets of four rows of sums), K4 with its park of 64 x 512
-    bytes and its f32 rows in global memory."""
-    smem, bars = 232_448, 128
-    ldx, xyz_pad, dir_pad = 1024 + 64 + 8, 64, 32
-    stage = 520 * 32 * 2
-    k1_rest = bars + 2 * (64 * ldx + 64 * xyz_pad + dir_pad) + 4 * (8 + 192 * 4)
-    rows_rest = bars + 2 * 64 * ldx
-    for rest in (k1_rest, rows_rest):
-        assert (smem - rest) // stage >= 2
-    assert k1.glob_bytes(1024, 8, True) == 64 * 512 * 2 + 4 * 9 * 64 * 32 + 4 * 2 * 4 * 1024
-    assert k1.glob_bytes(1024, 8, False) == 64 * 512 * 2
-    assert k1.glob_bytes(512, 8, True) == k1.glob_bytes(512, 8, False) == 0
-    q_ldx, q_xyz, q_dir = 1024 + 64 + 16, 64, 32
-    k4_rest = 144 + 64 * 512 + 64 * q_ldx + 64 * q_xyz + q_dir + 4 * (8 + 192 * 4)
-    assert (smem - k4_rest) // (520 * 64) >= 2
+# csrc/nerf_wgmlp.cuh: a thread's f32 sums of a pass part at hidden 1024
+# (WgTile::kSumAcc), its fresh sum as many; ptxas allocates a 384-thread
+# block's registers at 168 a thread.
+SUM_ACC, PTXAS_REGS = 68, 168
 
 
-def _stage_parts(n, pipe):
-    """csrc/nerf_wgmlp.cuh: StageParts<N, kPipe>, the parts a stage's fresh
-    wgmma sums take a warpgroup's N columns in: ``[(first column, width)]``."""
-    most = 64 if pipe else 88
-    count = -(-n // most)
-    step = most if pipe else (-(-n // count) + 7) // 8 * 8
-    return [(c * step, step if c + 1 < count else n - step * c) for c in range(count)]
+@pytest.mark.parametrize("hidden", [512, 1024])
+def test_column_passes_of_the_1024_layers(hidden):
+    """The split tile's column passes (``pass_widths`` of ``wg_pass_cols``,
+    csrc/nerf_wgmlp.cuh: n_passes): at 1024 the trunk and K2's dX products
+    4 x 256, the merged head 3 x 256 + 264 (sigma in the last), the branch
+    and the rgb head's dX 2 x 256, the rgb head 8; at 512 every layer in
+    one pass.  Each pass's product for each warpgroup (SplitProduct)
+    covers the pass's columns, each written by one warpgroup (Split) once;
+    each product is a wgmma width (a multiple of 8); at 1024 at most 136
+    columns, so the pass's f32 sums and a fresh sum (68 f32 a thread each)
+    and two sets of A fragments (8 registers each at 32-deep stages) take
+    152 of the 168 registers ptxas allocates a thread; the park holds every
+    pass of a layer but the last."""
+    assert k1.WG_PASS_COLS == 256 and k1.PASS_COLS == 512  # K4's stay 512
+    assert k1.wg_pass_cols(1024) == 256 and k1.wg_pass_cols(512) is None
+    want = {1024: {"trunk": [256] * 4, "head": [256] * 3 + [264], "branch": [256] * 2,
+                   "rgb": [8]},
+            512: {"trunk": [512], "head": [520], "branch": [256], "rgb": [8]}}
+    widths = _layer_widths(hidden)
+    for name, n in widths.items():
+        cols = k1.wg_pass_cols(hidden)
+        passes = k1.pass_widths(n, cols)
+        assert passes == want[hidden].get(name, want[hidden]["trunk"] if name == "dx"
+                                          else want[hidden]["branch"])
+        written, parts = [], list(_pass_parts(n, cols))
+        for i, (c0, pw, n0, width) in enumerate(parts):
+            assert 0 <= n0 and n0 + width <= pw and width % 8 == 0
+            assert width // 2 <= (SUM_ACC if hidden == 1024 else 132)
+            lo, hi = _split(pw)
+            start, cnt = (0, lo) if i % 2 == 0 else (lo, hi)  # warpgroup 0, then 1
+            assert n0 <= start and start + cnt <= n0 + width  # the product covers its part
+            written += list(range(c0 + start, c0 + start + cnt))
+        assert sorted(written) == list(range(n))
+        if hidden == 1024:
+            assert sum(passes[:-1]) <= hidden - k1.WG_PASS_COLS  # the park: WgTile::kParkCols
+    assert 2 * SUM_ACC + 2 * (k1.WG_KS_NARROW // 16) * 4 <= PTXAS_REGS - 16
+    for n in (8, 256, 264):
+        assert k1.pass_widths(n, k1.WG_PASS_COLS) == [n]
+    for n in (256, 264, 520):
+        assert k1.pass_widths(n, k1.wg_pass_cols(512)) == [n]
+    assert k1.pass_widths(1032) == [512, 520]  # K4's passes at 1024
 
 
-@pytest.mark.parametrize("pipe", [True, False])
-def test_stage_parts_cover_each_column_once(pipe):
-    """The staged sums' parts (``wg_product_staged``, hidden 1024) of every
-    product width the split tile runs (SplitProduct of the trunk and dX products, the
-    merged head, the branch, the rgb head): each column once, every part a
-    wgmma width (a multiple of 8), its fresh sums within the part buffers'
-    registers (two of 32 f32 a thread in flight, or one of 44)."""
-    for n in (264, 256, 128, 8):
-        parts = _stage_parts(n, pipe)
-        cols = [c for c0, w in parts for c in range(c0, c0 + w)]
-        assert cols == list(range(n))
-        assert all(w % 8 == 0 and 0 < w <= (64 if pipe else 88) for _, w in parts)
-    assert _stage_parts(264, True)[-1] == (256, 8) and len(_stage_parts(264, False)) == 3
+def _sum_depth(hidden):
+    """The k of a fresh wgmma sum at ``hidden``: a 32-deep stage at 512
+    (csrc/nerf_wgmlp.cuh: wg_product_staged), kSumDepth at 1024
+    (wg_product_sums; without NKT_SUM_DEPTH)."""
+    import re
+    from pathlib import Path
+    if hidden <= 512:
+        return k1.WG_KS_NARROW
+    text = (Path(k1.__file__).parents[2] / "csrc" / "nerf_wgmlp.cuh").read_text()
+    return int(re.search(r"#else\nconstexpr int kSumDepth = (\d+);", text).group(1))
+
+
+def _fresh_sums(k_pad, depth, ks):
+    """The fresh sums over a layer of k_pad k in ks-deep stages
+    (wg_product_sums, wg_product_staged): [(first k, last k + 1)], a sum
+    starting at every stage whose first k is a multiple of ``depth``."""
+    starts = [k0 for k0 in range(0, k_pad, ks) if k0 % depth == 0]
+    return list(zip(starts, starts[1:] + [k_pad]))
+
+
+@pytest.mark.parametrize("hidden", [512, 1024])
+def test_stage_parts_cover_each_column_once(hidden):
+    """The split tile's fresh sums: their depth (a 32-deep stage at 512,
+    ``wg_product_staged``; kSumDepth, 64 k, at 1024, ``wg_product_sums``)
+    is a whole number of the 32-deep stages and at most the shallowest wide
+    layer, so each layer of the forward and transposed packs at 512 and
+    1024 (k_pad from the packs) splits into sums of whole stages, each k
+    in exactly one, every sum but the last kSumDepth deep; and each pass
+    part of every product width is added into its own sums once (the
+    passes and parts of ``test_column_passes_of_the_1024_layers``)."""
+    depth, ks = _sum_depth(hidden), k1.WG_KS_NARROW
+    assert depth % ks == 0 and ks <= depth <= 256
+    mlp = _mlp(hidden, 8, 4, 10, 4)
+    for pack in (k1.pack_weights_wg(mlp, CPU), k1.pack_weights_bwd_wg(mlp, CPU)):
+        for k_pad, _, n_pad, _, _ in pack.desc:
+            k_pad = int(k_pad)
+            if not n_pad:
+                continue
+            sums = _fresh_sums(k_pad, depth, ks)
+            assert [k for a, c in sums for k in range(a, c)] == list(range(k_pad))
+            assert all(a % ks == 0 and c - a == depth for a, c in sums[:-1])
+            assert 0 < sums[-1][1] - sums[-1][0] <= depth
+            cols = [c0 + n0 + j for c0, _, n0, w in _pass_parts(int(n_pad),
+                                                                 k1.wg_pass_cols(hidden))
+                    for j in range(w)]
+            assert set(cols) == set(range(int(n_pad)))
+
+
+@pytest.mark.parametrize("hidden", [512, 1024])
+def test_shared_memory_at_1024(hidden):
+    """The split tile's blocks (a model of the hosts' carve-ups:
+    fused_render_fwd.cu, fused_mlp_fwd.cu, nerf_rows.cuh,
+    quant_render_fwd.cu) in the 232,448 bytes a block may use, with 32-deep
+    stages of the widest pass: at 512 the 520-column head, K1 (its x_enc
+    tile and one ray's S = 192 predictions) 4 stages, K5's forward 4, the
+    rows kernel (its ReLU bits and column sums) 3; at 1024 the head's last
+    256-column pass (264 columns), K1 4 stages, K5's forward 5, the rows
+    kernel 5, with the park and the rows kernel's bits and sums in the
+    global scratch (``glob_bytes``: the park of 64 x 768 bf16, 9 layers'
+    bits, two sets of four rows of sums); K4 at 1024 with its park of 64 x
+    512 bytes and its f32 rows in global memory, two 64-deep int8 stages of
+    its 520-column pass."""
+    smem, bars, max_stages = 232_448, 128, 8
+    ldx, xyz_pad, dir_pad = hidden + 64 + 8, 64, 32
+    stage = (520 if hidden == 512 else 264) * 32 * 2
+    rest = {"k1": bars + 2 * (64 * ldx + 64 * xyz_pad + dir_pad) + 4 * (8 + 192 * 4),
+            "k5": bars + 2 * 64 * ldx + 4 * 64 * 4,
+            "rows": bars + 2 * 64 * ldx + (4 * 9 * 64 * (hidden // 32) + 4 * 2 * 4 * hidden
+                                           if hidden == 512 else 0)}
+    want = {512: {"k1": 4, "k5": 4, "rows": 3}, 1024: {"k1": 4, "k5": 5, "rows": 5}}[hidden]
+    assert {k: min(max_stages, (smem - r) // stage) for k, r in rest.items()} == want
+    if hidden == 1024:
+        assert k1.glob_bytes(1024, 8, True) == 64 * 768 * 2 + 4 * 9 * 64 * 32 + 4 * 2 * 4 * 1024
+        assert k1.glob_bytes(1024, 8, False) == 64 * 768 * 2
+        q_ldx, q_xyz, q_dir = 1024 + 64 + 16, 64, 32
+        k4_rest = 144 + 64 * 512 + 64 * q_ldx + 64 * q_xyz + q_dir + 4 * (8 + 192 * 4)
+        assert (smem - k4_rest) // (520 * 64) >= 2
+    else:
+        assert k1.glob_bytes(512, 8, True) == k1.glob_bytes(512, 8, False) == 0
 
 
 @pytest.mark.parametrize("hidden", [513, 1000, 1024, 1025])
@@ -367,7 +439,7 @@ def test_every_stage_halves_for_multicast(hidden):
         for k_pad, _, n_pad, w_off, _ in pack.desc:
             assert (w_off * 2) % 16 == 0
             c0 = 0
-            for pw in k1.pass_widths(int(n_pad)):
+            for pw in k1.pass_widths(int(n_pad), k1.wg_pass_cols(k1.kernel_width(hidden))):
                 for k0 in range(0, int(k_pad), k1.WG_KS_NARROW):
                     kw = min(k1.WG_KS_NARROW, int(k_pad) - k0)
                     stage = pw * kw * 2
