@@ -689,13 +689,13 @@ def dw_bound(mlp, dev, n):
 
 
 def _broken_dw_allocate(orig):
-    """``DwBuffers.allocate`` whose split-tile dW plan lacks layer 0's
-    tiles (its weight gradient left at zero): a dW product that misses a
-    tile must miss K2's gate by 10x."""
+    """``DwBuffers.allocate`` whose split-tile dW walk lacks layer 0's
+    units (its weight gradient left at zero): a dW product that misses a
+    unit must miss K2's gate by 10x."""
     def allocate(*args, **kw):
         ws = orig(*args, **kw)
         ws.dw_part.zero_()
-        return ws._replace(tiles=np.ascontiguousarray(ws.tiles[ws.tiles[:, 0] != 0]))
+        return ws._replace(units=np.ascontiguousarray(ws.units[ws.units[:, 0] != 0]))
     return allocate
 
 

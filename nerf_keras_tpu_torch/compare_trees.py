@@ -61,8 +61,10 @@ parent).  Phases:
   sources and K4's;
 * ``wide1024``: the same at hidden 1024 (the column passes of the
   hidden-1024 kernels): K1, K1's training form and K2 at B=4096, S=192,
-  K3, K5 and K6 at B=1,024, S=64, K2's device ms per kernel, K4 at the
-  server's chunk, the 1024 instantiations' ``-Xptxas -v`` lines, then the
+  K3, K5 and K6 at B=1,024, S=64, K2's device ms per kernel with the dW
+  product's library call (one ``torch.matmul`` of A^T D a layer), K4 at
+  the server's chunk with its library call (``torch._int_mm`` a layer),
+  the 1024 instantiations' ``-Xptxas -v`` lines, then the
   8x1024 parity step; the outputs' bits against the first tree's in a last
   line ``BITS1024``;
 * ``decode``: the tree's image decoders on the card's host (no kernel;
@@ -332,6 +334,8 @@ if "wide1024" in phases:
                 out[f"wide1024_{name}_ms"] = cuda_ms(calls[name], reps=5 if name == "k2" else 10)
             if "k2" in names:
                 out["wide1024_k2_device_ms"] = cs.device_ms_by_kernel(calls["k2"], cs.K2_STAGES)
+        if "k2" in names:
+            out["wide1024_dw_library_ms"] = cs._dw_library_ms(mlp, dev, b * s)
         del mlp, x, calls
         torch.cuda.empty_cache()
     o, d = get_rays(128, 128, 153.6, pose_spherical(30.0, -30.0, 4.0), device=dev)
@@ -342,6 +346,8 @@ if "wide1024" in phases:
     run = lambda: k4.render_rays_fused_quant(qp, o, d, t)  # noqa: E731
     saved["k4_1024"] = [a.cpu() for a in run()]
     out["wide1024_k4_ms"] = cuda_ms(run, reps=5)
+    out["wide1024_k4_library_ms"] = cs.library_products_ms(
+        k4.kernel_pack(qp, dev).desc, o.shape[0] * 192, torch.int8, dev)
     del qp
     torch.cuda.empty_cache()
     torch.save(saved, os.path.join(sys.argv[2], f"wide1024_{sys.argv[3]}.pt"))

@@ -26,21 +26,10 @@
 // takes for the same A^T D (PERF.md).
 //
 // The split tile's widths (hidden 512: d_width 512 and 528; 1024: 1024
-// and 1040) run
-// mlp_dw_window_kernel: the same block, ring and sums over a window of
-// kDwWinN = 264 D columns, one instantiation (a __global__ switching over
-// product widths makes ptxas serialize wgmma, C7518), and an epilogue that
-// adds the tile into its slab from a copy in shared memory: once the
-// consumers release the ring, the producer brings the tile's slab entries
-// into it by bulk copies, a row each.  A d_width
-// above kDwWinN is split into ceil(d_width / 264) parts, each written by
-// the window that starts at it or, for the last, ends at d_width (at 512
-// windows at 0 and 248, whose columns 248..255 are computed twice and
-// written once; at 1024 four); a window past a layer's last column reads the next
-// layer's D (or the workspace's slack of kDwWinN x 64 elements) and drops
-// it.  The host lists the tiles (ops/kernels/fused_render.py: dw_tiles) and
-// picks the sample ranges as for the 128-row tile: each element's sums are
-// the 128-row design's, in the same order.
+// and 1040) run mlp_dw_window_kernel: the same block, ring and sums as a
+// persistent walk over units of up to 128 rows by 256 D columns, which the
+// host cuts and spreads evenly over the SMs ("The split tile's walk"
+// below).
 
 #pragma once
 
@@ -187,112 +176,76 @@ __global__ void __launch_bounds__(kDwThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
-// The split tile's windows.
+// The split tile's walk.
+//
+// Above 256 every layer's dW is cut into units of up to 128 rows (a row tile)
+// by up to kDwUnitN D columns (n0 .. n0 + c_hi) and a sample range (y); the
+// host (ops/kernels/fused_render.py: dw_units, dw_schedule) lists them and
+// gives each block of a persistent grid of at most one block an SM its own
+// list, the same number of kDwPartN-column parts for every block to within
+// one (at 8x1024, 576 parts of 128 columns over 132 SMs where 286 tiles of
+// 264 columns took three waves, the last of 22 blocks).  A unit is the
+// window tile's block: two consumer warpgroups of 64 rows, its D columns in
+// registers as parts of kDwPartN columns (one m64n128k16 each, ceil(c_hi /
+// kDwPartN) of them), the producer's ring of 4 stages (the unit's 128
+// columns of A and its parts' columns of D for 64 samples).  The ring runs
+// on across units: the producer streams the next unit's stages while the
+// consumers write the last one's tile to its slab, or (a later chunk) add
+// it to what the slab holds, read from global memory a batch of registers
+// at a time.  Each element's sums are the window tiles': the same stages of
+// the same range, each a wgmma k16 step, started from zero and added to the
+// slab after (a wgmma's sums of one element do not depend on the
+// instruction's width: the n256 window as two n128 gave its bits).
+// Measured on an H100 (PERF.md): parts of 64 (four A reads a k16 step)
+// took 17% longer; units cut into 64-row halves, one warpgroup issuing,
+// 30% longer.
 
-constexpr int kDwWinN = 264;
-constexpr int kDwWinStage = kDwABytes + kDwWinN * kDwRows * 2;  // 50,176 B
+constexpr int kDwUnitN = 256;  // D columns of a unit at most (128 f32 a thread)
+constexpr int kDwPartN = 128;  // columns of one wgmma (fused_render.DW_PART_N)
+constexpr int kDwWinStage = kDwABytes + kDwUnitN * kDwRows * 2;  // 49,152 B
 constexpr int kDwWinSmem = 128 + kDwStages * kDwWinStage;
-constexpr int kDwMaxTiles = 320;  // 8x1024 has 286 (ops/kernels/fused_render.py: dw_tiles)
-constexpr int kDwSlabLd = kDwWinN + 8;  // floats a row of the slab's copy in the ring
-static_assert(kDwM * kDwSlabLd * 4 <= kDwStages * kDwWinStage, "the slab's copy fits the ring");
+constexpr int kDwBatch = 8;  // float2 slab values a thread reads before it adds them
 
-// A tile in two words: layer | m0 << 8, and n0 | c_lo << 11 | c_hi << 21
-// (window columns [c_lo, c_hi) are written).
+// A unit in four ints (ops/kernels/fused_render.py: dw_schedule_array):
+// layer | m0 << 8, n0, c_hi (its columns n0 .. n0 + c_hi of the layer's dW),
+// y (its sample range).
 struct DwWinPlan {
   const __nv_bfloat16* ws_a;
   const __nv_bfloat16* ws_d;
-  float* part;  // (nsplit, total_out)
-  int rows_pad, total_out, ntiles, nsplit;
+  float* part;       // (nsplit, total_out)
+  const int* sched;  // device: blocks + 1 unit offsets (padded to 4 ints), then the units
+  int rows_pad, total_out, nsplit, blocks;
   int nst, per_split, accumulate;  // set per launch
   Bwd L[kMaxDense];
-  int tile[kDwMaxTiles][2];
 };
 
-__global__ void __launch_bounds__(kDwThreads, 1)
-    mlp_dw_window_kernel(const __grid_constant__ DwWinPlan p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
-  uint64_t* empty = full + kDwStages;
-  uint64_t* slab_full = empty + kDwStages;
-  unsigned char* buf = smem + 128;
-  float* slab = reinterpret_cast<float*>(buf);  // the ring, once its stages are consumed
-  const int w0 = p.tile[blockIdx.x][0], w1 = p.tile[blockIdx.x][1];
-  const Bwd& Ly = p.L[w0 & 0xff];
-  const int m0 = w0 >> 8, n0 = w1 & 0x7ff, c_lo = (w1 >> 11) & 0x3ff, c_hi = (w1 >> 21) & 0x3ff;
-  const int a_rows = min(kDwM, Ly.a_width - m0);
-  const int s0 = min(p.nst, (int)blockIdx.y * p.per_split);
-  const int s1 = min(p.nst, s0 + p.per_split);
-  const int tid = threadIdx.x;
-
-  if (tid == 0) {
-    for (int i = 0; i < kDwStages; ++i) {
-      mbar_init(&full[i], 1);
-      mbar_init(&empty[i], 8);
-    }
-    mbar_init(slab_full, 1);
-    fence_mbar_init();
-  }
-  __syncthreads();
-  float* out = p.part + (size_t)blockIdx.y * p.total_out + Ly.out_off +
-               (size_t)m0 * Ly.d_width + n0;  // the tile's row 0 in its slab
-
-  if (tid >= 256) {  // the producer warp
-    if (tid == 256) {
-      const uint32_t a_bytes = a_rows * kDwRows * 2, d_bytes = kDwWinN * kDwRows * 2;
-      const __nv_bfloat16* A = p.ws_a + (size_t)p.rows_pad * Ly.a_col + (m0 / 8) * 512;
-      const __nv_bfloat16* D = p.ws_d + (size_t)p.rows_pad * Ly.d_col + (n0 / 8) * 512;
-      int st = 0;
-      uint32_t ph = 0;
-      for (int s = s0; s < s1; ++s) {
-        mbar_wait(&empty[st], ph ^ 1u);
-        mbar_expect_tx(&full[st], a_bytes + d_bytes);
-        unsigned char* dst = buf + (size_t)st * kDwWinStage;
-        bulk_g2s(dst, A + (size_t)s * kDwRows * Ly.a_width, a_bytes, &full[st]);
-        bulk_g2s(dst + kDwABytes, D + (size_t)s * kDwRows * Ly.d_width, d_bytes, &full[st]);
-        if (++st == kDwStages) {
-          st = 0;
-          ph ^= 1u;
-        }
-      }
-      if (p.accumulate) {  // every stage released: the slab's rows into the ring
-        for (int i = 0; i < kDwStages; ++i) {
-          mbar_wait(&empty[st], ph ^ 1u);
-          if (++st == kDwStages) {
-            st = 0;
-            ph ^= 1u;
-          }
-        }
-        const uint32_t row_bytes = (c_hi - c_lo) * 4;
-        mbar_expect_tx(slab_full, a_rows * row_bytes);
-        for (int r = 0; r < a_rows; ++r)
-          bulk_g2s(slab + r * kDwSlabLd, out + (size_t)r * Ly.d_width + c_lo, row_bytes, slab_full);
-      }
-    }
-    return;
-  }
-
-  // Warpgroup wg computes rows 64 wg.. of the tile and every window
-  // column, whatever the stage holds there (rows past a_rows and columns
-  // past c_hi are computed and not written): one wgmma path, no branch.
-  const int wg = tid >> 7, warp = tid >> 5, lane = tid & 31;
-  float acc[kDwWinN / 2];
+// Consumers: the unit's products over the stages [s0, s1) into acc (parts
+// of kDwPartN columns), continuing the ring at (st, ph).
+__device__ __forceinline__ void dw_unit_products(float* acc, int parts, int s0, int s1,
+                                                 uint64_t* full, uint64_t* empty,
+                                                 unsigned char* buf, int& st, uint32_t& ph) {
+  constexpr int kParts = kDwUnitN / kDwPartN;
+  const int wg = threadIdx.x >> 7, lane = threadIdx.x & 31;
 #pragma unroll
-  for (int i = 0; i < kDwWinN / 2; ++i) acc[i] = 0.f;
-  int st = 0, prev = -1;
-  uint32_t ph = 0;
+  for (int i = 0; i < kDwUnitN / 2; ++i) acc[i] = 0.f;
+  int prev = -1;
   for (int s = s0; s < s1; ++s) {
     mbar_wait(&full[st], ph);
     const uint32_t sa = smem_u32(buf + (size_t)st * kDwWinStage) + wg * 8 * 1024;
     const uint32_t sd = smem_u32(buf + (size_t)st * kDwWinStage + kDwABytes);
-    acc_fence<kDwWinN / 2>(acc);
+    acc_fence<kDwUnitN / 2>(acc);
     wg_fence();
 #pragma unroll
     for (int q = 0; q < kDwRows / 16; ++q)
-      mma_ss_t<kDwWinN>(acc, smem_desc(sa + q * 256, 128, 1024),
-                        smem_desc(sd + q * 256, 128, 1024), 1024, 1);
+#pragma unroll
+      for (int j = 0; j < kParts; ++j)
+        if (j < parts)  // block-uniform
+          mma_ss_t<kDwPartN>(acc + j * kDwPartN / 2, smem_desc(sa + q * 256, 128, 1024),
+                             smem_desc(sd + j * (kDwPartN / 8) * 1024 + q * 256, 128, 1024),
+                             1024, 1);
     wg_commit();
     wg_wait<1>();  // the previous stage's products are done
-    acc_fence<kDwWinN / 2>(acc);
+    acc_fence<kDwUnitN / 2>(acc);
     if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
     prev = st;
     if (++st == kDwStages) {
@@ -301,27 +254,104 @@ __global__ void __launch_bounds__(kDwThreads, 1)
     }
   }
   wg_wait<0>();
-  acc_fence<kDwWinN / 2>(acc);
+  acc_fence<kDwUnitN / 2>(acc);
   if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
-  // The tile into its slab: written, or (a later chunk) added to the
-  // slab's copy in the ring, slab + tile, as nerf_dw.cuh's first design.
-  const int g = lane >> 2, t = lane & 3;
-  if (p.accumulate) mbar_wait(slab_full, 0);
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int r = 64 * wg + 16 * (warp & 3) + g + 8 * half;
-    if (r >= a_rows) continue;
-    float* row = out + (size_t)r * Ly.d_width + 2 * t;
-    const float* old = slab + r * kDwSlabLd + 2 * t - c_lo;
-#pragma unroll
-    for (int j = 0; j < kDwWinN / 8; ++j) {
-      if (8 * j < c_lo || 8 * j >= c_hi) continue;
-      float2 v = make_float2(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
-      if (p.accumulate) {
-        const float2 w = *reinterpret_cast<const float2*>(old + 8 * j);
-        v = make_float2(w.x + v.x, w.y + v.y);
+}
+
+__global__ void __launch_bounds__(kDwThreads, 1)
+    mlp_dw_window_kernel(const __grid_constant__ DwWinPlan p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + kDwStages;
+  unsigned char* buf = smem + 128;
+  const int u0 = p.sched[blockIdx.x], u1 = p.sched[blockIdx.x + 1];
+  const int4* units = reinterpret_cast<const int4*>(p.sched + round_up(p.blocks + 1, 4));
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    for (int i = 0; i < kDwStages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 8);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (tid >= 256) {  // the producer warp: every unit's stages, in order
+    if (tid == 256) {
+      int st = 0;
+      uint32_t ph = 0;
+      for (int u = u0; u < u1; ++u) {
+        const int4 w = units[u];
+        const Bwd& Ly = p.L[w.x & 0xff];
+        const int m0 = w.x >> 8, parts = (w.z + kDwPartN - 1) / kDwPartN;
+        const uint32_t a_bytes = min(kDwM, Ly.a_width - m0) * kDwRows * 2,
+                       d_bytes = parts * kDwPartN * kDwRows * 2;
+        const __nv_bfloat16* A = p.ws_a + (size_t)p.rows_pad * Ly.a_col + (m0 / 8) * 512;
+        const __nv_bfloat16* D = p.ws_d + (size_t)p.rows_pad * Ly.d_col + (w.y / 8) * 512;
+        const int s0 = min(p.nst, w.w * p.per_split), s1 = min(p.nst, s0 + p.per_split);
+        for (int s = s0; s < s1; ++s) {
+          mbar_wait(&empty[st], ph ^ 1u);
+          mbar_expect_tx(&full[st], a_bytes + d_bytes);
+          unsigned char* dst = buf + (size_t)st * kDwWinStage;
+          bulk_g2s(dst, A + (size_t)s * kDwRows * Ly.a_width, a_bytes, &full[st]);
+          bulk_g2s(dst + kDwABytes, D + (size_t)s * kDwRows * Ly.d_width, d_bytes, &full[st]);
+          if (++st == kDwStages) {
+            st = 0;
+            ph ^= 1u;
+          }
+        }
       }
-      *reinterpret_cast<float2*>(row + 8 * j) = v;
+    }
+    return;
+  }
+
+  // Warpgroup wg computes rows 64 wg.. of each unit and every column of its
+  // parts, whatever the stage holds there (rows past a_rows and columns past
+  // c_hi are computed and not written): one wgmma path, no branch.
+  const int wg = tid >> 7, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  float acc[kDwUnitN / 2];
+  int st = 0;
+  uint32_t ph = 0;
+  for (int u = u0; u < u1; ++u) {
+    const int4 w = units[u];
+    const Bwd& Ly = p.L[w.x & 0xff];
+    const int m0 = w.x >> 8, c_hi = w.z;
+    const int s0 = min(p.nst, w.w * p.per_split), s1 = min(p.nst, s0 + p.per_split);
+    dw_unit_products(acc, (c_hi + kDwPartN - 1) / kDwPartN, s0, s1, full, empty, buf, st, ph);
+    // The tile into its slab: written, or (a later chunk) slab + tile, as
+    // nerf_dw.cuh's first design; the next unit's stages stream meanwhile.
+    const int a_rows = min(kDwM, Ly.a_width - m0);
+    float* out = p.part + (size_t)w.w * p.total_out + Ly.out_off + (size_t)m0 * Ly.d_width +
+                 w.y + 2 * t;  // the unit's row 0, the thread's column pair
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = 64 * wg + 16 * (warp & 3) + g + 8 * half;
+      if (r >= a_rows) continue;
+      float2* row = reinterpret_cast<float2*>(out + (size_t)r * Ly.d_width);
+#pragma unroll
+      for (int j0 = 0; j0 < kDwUnitN / 8; j0 += kDwBatch) {
+        if (8 * j0 >= c_hi) break;
+        float2 v[kDwBatch];
+#pragma unroll
+        for (int j = 0; j < kDwBatch; ++j) {
+          const int c = 4 * (j0 + j) + 2 * half;  // acc of columns 8 (j0 + j) + 2t, +1 of row r
+          v[j] = make_float2(acc[c], acc[c + 1]);
+        }
+        if (p.accumulate) {
+          float2 old[kDwBatch];
+#pragma unroll
+          for (int j = 0; j < kDwBatch; ++j)
+            if (8 * (j0 + j) < c_hi) old[j] = __ldcg(row + 4 * (j0 + j));
+#pragma unroll
+          for (int j = 0; j < kDwBatch; ++j)
+            v[j] = make_float2(old[j].x + v[j].x, old[j].y + v[j].y);
+        }
+#pragma unroll
+        for (int j = 0; j < kDwBatch; ++j)
+          if (8 * (j0 + j) < c_hi) row[4 * (j0 + j)] = v[j];
+      }
     }
   }
 }
@@ -390,37 +420,29 @@ inline cudaError_t launch_dw(DwPlan& q, int nst, bool accumulate, cudaStream_t s
 }
 
 // Host side: the split tile's plan from the workspace layout (mb.bwd) and
-// the host's tiles (n_tiles x 5 ints: layer, m0, n0, c_lo, c_hi).  False
-// when a tile is out of what the kernel takes.
+// the host's schedule (`sched`, in device memory: ops/kernels/fused_render.py:
+// dw_schedule) for `blocks` blocks.  False when the layout is out of what
+// the kernel takes.
 inline bool dw_win_plan(DwWinPlan& q, const MlpBwdParams& mb, int n_dense, int rows_pad,
-                        int total_out, int nsplit, float* dw_part, const int* tiles,
-                        int n_tiles) {
-  if (n_tiles < 1 || n_tiles > kDwMaxTiles || nsplit < 1 || n_dense > kMaxDense) return false;
+                        int total_out, int nsplit, float* dw_part, const int* sched,
+                        int blocks) {
+  if (sched == nullptr || blocks < 1 || nsplit < 1 || n_dense > kMaxDense) return false;
   q.ws_a = mb.ws_a;
   q.ws_d = mb.ws_d;
   q.part = dw_part;
+  q.sched = sched;
   q.rows_pad = rows_pad;
   q.total_out = total_out;
-  q.ntiles = n_tiles;
   q.nsplit = nsplit;
+  q.blocks = blocks;
   for (int i = 0; i < n_dense; ++i) {
     q.L[i] = mb.bwd[i];
     if (q.L[i].a_width % 16 != 0 || q.L[i].a_width <= 0 || q.L[i].d_width % 8 != 0) return false;
   }
-  for (int i = 0; i < n_tiles; ++i) {
-    const int* r = tiles + 5 * i;
-    const int l = r[0], m0 = r[1], n0 = r[2], lo = r[3], hi = r[4];
-    if (l < 0 || l >= n_dense || m0 < 0 || m0 % kDwM != 0 || m0 >= q.L[l].a_width ||
-        n0 < 0 || n0 % 8 != 0 || lo < 0 || lo % 8 != 0 || hi <= lo || hi % 8 != 0 ||
-        hi > kDwWinN || n0 + hi > q.L[l].d_width)
-      return false;
-    q.tile[i][0] = l | (m0 << 8);
-    q.tile[i][1] = n0 | (lo << 11) | (hi << 21);
-  }
   return true;
 }
 
-// One pass of the windows over the first `nst` stages of the workspaces;
+// One walk of the units over the first `nst` stages of the workspaces;
 // `accumulate` adds into the slabs instead of writing them.
 inline cudaError_t launch_dw_windows(DwWinPlan& q, int nst, bool accumulate, cudaStream_t st) {
   q.nst = nst;
@@ -429,7 +451,7 @@ inline cudaError_t launch_dw_windows(DwWinPlan& q, int nst, bool accumulate, cud
   cudaError_t err = cudaFuncSetAttribute(mlp_dw_window_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, kDwWinSmem);
   if (err != cudaSuccess) return err;
-  mlp_dw_window_kernel<<<dim3(q.ntiles, q.nsplit), kDwThreads, kDwWinSmem, st>>>(q);
+  mlp_dw_window_kernel<<<q.blocks, kDwThreads, kDwWinSmem, st>>>(q);
   return cudaGetLastError();
 }
 

@@ -84,8 +84,9 @@
 //      both operands MN-major in shared memory, stages of 64 samples
 //      brought by bulk copies, split over sample ranges; each block adds
 //      its partial tile into its slab (chunks in order: deterministic).
-//      At hidden 512, mlp_dw_window_kernel (nerf_dw.cuh): the same
-//      product and sums over windows of 264 D columns.
+//      Above 256, mlp_dw_window_kernel (nerf_dw.cuh): the same product
+//      and sums on a persistent grid walking the host's units of up to
+//      128 x 256.
 //   4. mlp_reduce_kernel (nerf_dw.cuh), once after the last chunk: sums
 //      the dW slabs and the per-block bias rows in a fixed order.
 // Orientation: the forward pack is W^T (row = output column); the dX
@@ -356,17 +357,17 @@ void (*pick_width(int hidden, int mode, bool ig, int kxc, int kdc))(const RowPar
 // gradients above 256).  The batch runs in chunks of `chunk_rays` whole
 // rays, in order; buffers (allocated by the caller): dpreds (B*S x 4) f32,
 // written by the VJP (read, for K5); ws_a (rows_pad x sum a_width) and
-// ws_d (rows_pad x sum d_width, above 256 with kDwWinN x 64 elements more
+// ws_d (rows_pad x sum d_width, above 256 with kDwUnitN x 64 elements more
 // at its end) bf16 for one chunk, rows_pad >= round_up(chunk_rays * S,
 // 128); db_part (grid x total_b, above 256 2 x grid x total_b) and dw_part
 // (nsplit x total_out) f32, where grid <= the first chunk's tiles (above
 // 256 rounded up to a cluster; the launch lowers it to the clusters that
 // fit on the card); at hidden 1024 `glob`, grid x wg_glob_bytes(1024,
 // num_layers, true) bytes (nerf_wgmlp.cuh), else ignored.  Above 256
-// `dw_tiles` is the dW product's host array of `n_tiles` window tiles
-// (nerf_dw.cuh: dw_win_plan), else null.  Outputs dw (total_out) and db
-// (total_b) f32.  Launches on `stream`, returns the first CUDA error (0 on
-// success); does not synchronise.
+// `dw_sched` is the dW product's schedule in device memory for
+// `dw_blocks` blocks (nerf_dw.cuh: dw_win_plan), else null.  Outputs dw
+// (total_out) and db (total_b) f32.  Launches on `stream`, returns the first
+// CUDA error (0 on success); does not synchronise.
 template <int... Hs>
 inline int rows_launch(
     int mode, const void* x_res, const void* origins, const void* dirs, const void* d_enc,
@@ -375,7 +376,7 @@ inline int rows_launch(
     const void* desc_bwd, const void* desc_ws, int n_dense, int num_layers, int skip_layer,
     int hidden, int l_xyz, int l_dir, int B, int S, int chunk_rays, int total_b,
     int total_out, void* dpreds, void* ws_a, void* ws_d, void* db_part, int grid,
-    void* dw_part, int nsplit, const void* dw_tiles, int n_tiles, void* dw_out, void* db_out,
+    void* dw_part, int nsplit, const void* dw_sched, int dw_blocks, void* dw_out, void* db_out,
     void* dx_out, void* dd_out, void* glob, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -468,14 +469,13 @@ inline int rows_launch(
   }
 
   // The dW product (nerf_dw.cuh): a layer's whole d_width on the 128-row
-  // tile, the host's windows on the split tile.
+  // tile, the host's walk of units on the split tile.
   DwPlan dw;
   DwWinPlan dww;
-  if (split ? dw_tiles == nullptr ||
-                  !dw_win_plan(dww, mb, n_dense, rows_pad, total_out, nsplit,
-                               static_cast<float*>(dw_part), static_cast<const int*>(dw_tiles),
-                               n_tiles)
-            : dw_tiles != nullptr || !dw_plan(dw, mb, n_dense, rows_pad, total_out, nsplit,
+  if (split ? !dw_win_plan(dww, mb, n_dense, rows_pad, total_out, nsplit,
+                           static_cast<float*>(dw_part), static_cast<const int*>(dw_sched),
+                           dw_blocks)
+            : dw_sched != nullptr || !dw_plan(dw, mb, n_dense, rows_pad, total_out, nsplit,
                                               static_cast<float*>(dw_part)))
     return (int)cudaErrorInvalidValue;
   for (int r0 = 0, chunk = 0; r0 < B; r0 += chunk_rays, ++chunk) {
@@ -515,11 +515,11 @@ inline int rows_launch(
     const void* desc_bwd, const void* desc_ws, int n_dense, int num_layers, int skip_layer, \
     int hidden, int l_xyz, int l_dir, int B, int S, int chunk_rays, int total_b, \
     int total_out, void* dpreds, void* ws_a, void* ws_d, void* db_part, int grid, \
-    void* dw_part, int nsplit, const void* dw_tiles, int n_tiles, void* dw_out, void* db_out, \
+    void* dw_part, int nsplit, const void* dw_sched, int dw_blocks, void* dw_out, void* db_out, \
     void* dx_out, void* dd_out, void* glob, int device, void* stream) { \
     return rows_launch<__VA_ARGS__>(mode, x_res, origins, dirs, d_enc, t_vals, preds, g_rgb, \
         g_w, w_pack, b_pack, desc_fwd, wb_pack, desc_bwd, desc_ws, n_dense, num_layers, \
         skip_layer, hidden, l_xyz, l_dir, B, S, chunk_rays, total_b, total_out, dpreds, ws_a, \
-        ws_d, db_part, grid, dw_part, nsplit, dw_tiles, n_tiles, dw_out, db_out, dx_out, \
-        dd_out, glob, device, stream); \
+        ws_d, db_part, grid, dw_part, nsplit, dw_sched, dw_blocks, dw_out, db_out, \
+        dx_out, dd_out, glob, device, stream); \
   }

@@ -105,7 +105,10 @@ constexpr int kQKsSplit = 64;         // the same on a split tile (hidden 512)
 constexpr int kMagicK = 256;          // padded k up to which |acc| <= k * 127^2 < 2^22
 constexpr float kRound = 12582912.f;  // 1.5 * 2^23
 constexpr int kRoundBits = 0x4B400000;
-constexpr int kQBarBytes = kBarBytes + 16;  // the ring's barriers and the f32 rows' one
+constexpr int kQBarBytes = kBarBytes + 48;  // the ring's barriers, the f32 rows' one, FStage's
+// Hidden 1024: each column pass's f32 rows (scale, bias, inv) staged in two
+// slots of shared memory, kFStageCols floats a row (the widest pass).
+constexpr int kFStageCols = 520;
 
 struct QDense {
   int k_pad;  // input width, padded to 32 (rows of W, zero-filled)
@@ -335,16 +338,59 @@ __device__ __forceinline__ void epi_relu_q(const int* acc, const float* fl, int 
 // epi_relu_q over the warp's columns of an N-wide layer (or column pass,
 // whose f32 rows start at fl) on H's tile.
 template <int H, int N>
-__device__ __forceinline__ void layer_relu_q(const int* acc, const float* fl, const QDense& L,
-                                             int8_t* act, int ldx) {
+__device__ __forceinline__ void layer_relu_q(const int* acc, const float* fl, int stride,
+                                             const QDense& L, int8_t* act, int ldx) {
   const bool magic = L.k_pad <= kMagicK;
   if constexpr (!WgTile<H>::kSplit) {
-    epi_relu_q<N>(acc, fl, L.n_pad, magic, act, ldx);
+    epi_relu_q<N>(acc, fl, stride, magic, act, ldx);
   } else if (col_part<H>() == 0) {
-    epi_relu_q<Split<N>::lo>(acc, fl, L.n_pad, magic, act, ldx);
+    epi_relu_q<Split<N>::lo>(acc, fl, stride, magic, act, ldx);
   } else {
-    epi_relu_q<Split<N>::hi>(acc, fl, L.n_pad, magic, act, ldx, Split<N>::lo);
+    epi_relu_q<Split<N>::hi>(acc, fl, stride, magic, act, ldx, Split<N>::lo);
   }
+}
+
+// Hidden 1024's staged f32 rows (FStage): slot n % 2 holds the rows of the
+// n-th column pass, which the producer copies once the consumers released
+// what the slot held.  Elsewhere `buf` is null and the rows are read where
+// they are.
+struct FStage {
+  float* buf = nullptr;  // 2 slots x 3 rows x kFStageCols
+  uint64_t* full;        // [2] count 1 + bytes
+  uint64_t* empty;       // [2] count kConsumerWarps
+  int n = 0;             // passes produced (producer) or consumed (consumers)
+};
+
+// Consumers: the f32 rows of columns c0.. of layer L and their row stride.
+__device__ __forceinline__ const float* f_rows(FStage& fs, const float* f, const QDense& L,
+                                               int c0, int& stride) {
+  if (fs.buf == nullptr) {
+    stride = L.n_pad;
+    return f + L.f_off + c0;
+  }
+  mbar_wait(&fs.full[fs.n & 1], (fs.n >> 1) & 1);
+  stride = kFStageCols;
+  return fs.buf + (fs.n & 1) * 3 * kFStageCols;
+}
+
+// Consumers (every warp, after its epilogue of the pass): the slot released.
+__device__ __forceinline__ void f_done(FStage& fs) {
+  if (fs.buf == nullptr) return;
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) mbar_arrive(&fs.empty[fs.n & 1]);
+  ++fs.n;
+}
+
+// Producer: pass q of layer L's f32 rows into the next slot.
+__device__ __forceinline__ void produce_f_pass(FStage& fs, const float* f, const QDense& L, int q) {
+  const int slot = fs.n & 1, c0 = q * kPassCols, w = pass_width(L.n_pad, q);
+  float* dst = fs.buf + slot * 3 * kFStageCols;
+  mbar_wait(&fs.empty[slot], ((fs.n >> 1) & 1) ^ 1u);
+  mbar_expect_tx(&fs.full[slot], static_cast<uint32_t>(3 * w * 4));
+  for (int r = 0; r < 3; ++r)  // w * 4 bytes: a multiple of 32; n_pad a multiple of 8
+    bulk_g2s(dst + r * kFStageCols, f + L.f_off + r * L.n_pad + c0, static_cast<uint32_t>(w * 4),
+             &fs.full[slot]);
+  ++fs.n;
 }
 
 // The merged head (N = hidden + 8): the feature requantized (no relu) into
@@ -455,7 +501,8 @@ template <int H, class DirFn>
 __device__ __forceinline__ void qmlp_forward_wg(const QDims& m, const float* f, int8_t* act,
                                                 const int8_t* xq, DirFn dir4, float* sig,
                                                 float* rgbl, int valid, const WRing& ring,
-                                                RingPos& rp, int8_t* park = nullptr) {
+                                                RingPos& rp, FStage& fst,
+                                                int8_t* park = nullptr) {
   using T = WgTile<H>;
   const int pl = peer_lane<H>();
   const int ldx = m.ldx;
@@ -466,8 +513,10 @@ __device__ __forceinline__ void qmlp_forward_wg(const QDims& m, const float* f, 
     const QDense& Ly = m.dense[i];
     q_layer_passes<H, H>(acc, act, ldx, Ly.k_pad, ring, rp, park,
                          [&](int* a, auto w, auto, int c0, int8_t* dst, int ld) {
-                           layer_relu_q<H, decltype(w)::value>(a, f + Ly.f_off + c0, Ly, dst,
-                                                               ld);
+                           int sd;
+                           const float* fl = f_rows(fst, f, Ly, c0, sd);
+                           layer_relu_q<H, decltype(w)::value>(a, fl, sd, Ly, dst, ld);
+                           f_done(fst);
                          });
     if (is_skip(i, m.skip_layer))  // [hq | qx]
       for (int j = pl; j < 16 * xw; j += T::kLanes) {
@@ -485,10 +534,13 @@ __device__ __forceinline__ void qmlp_forward_wg(const QDims& m, const float* f, 
       [&](int* a, auto w, auto last, int c0, int8_t* dst, int ld) {
         constexpr int W = decltype(w)::value;
         constexpr bool kLast = decltype(last)::value;
+        int sd;
+        const float* fl = f_rows(fst, f, fs, c0, sd);
         if (fs.k_pad <= kMagicK)
-          layer_fs_q<H, W, kLast, true>(a, f + fs.f_off + c0, fs.n_pad, dst, ld, sig, valid);
+          layer_fs_q<H, W, kLast, true>(a, fl, sd, dst, ld, sig, valid);
         else
-          layer_fs_q<H, W, kLast, false>(a, f + fs.f_off + c0, fs.n_pad, dst, ld, sig, valid);
+          layer_fs_q<H, W, kLast, false>(a, fl, sd, dst, ld, sig, valid);
+        f_done(fst);
       });
   for (int j = pl; j < 16 * dw; j += T::kLanes) {
     const int row = j / dw, c = j - row * dw;
@@ -496,36 +548,72 @@ __device__ __forceinline__ void qmlp_forward_wg(const QDims& m, const float* f, 
   }
   rows_sync<H>();
   q_layer_product<H, H / 2>(acc, act, ldx, m.dense[L + 1].k_pad, ring, rp);
-  layer_relu_q<H, H / 2>(acc, f + m.dense[L + 1].f_off, m.dense[L + 1], act, ldx);
+  {
+    int sd;
+    const float* fl = f_rows(fst, f, m.dense[L + 1], 0, sd);
+    layer_relu_q<H, H / 2>(acc, fl, sd, m.dense[L + 1], act, ldx);
+    f_done(fst);
+  }
   rows_sync<H>();
   const QDense& rgb = m.dense[L + 2];
   q_layer_product<H, 8>(acc, act, ldx, rgb.k_pad, ring, rp);
+  int sd;
+  const float* fl = f_rows(fst, f, rgb, 0, sd);
   if (col_part<H>() == 0) {
     if (rgb.k_pad <= kMagicK)
-      epi_rgb<true>(acc, f + rgb.f_off, rgb.n_pad, rgbl, valid);
+      epi_rgb<true>(acc, fl, sd, rgbl, valid);
     else
-      epi_rgb<false>(acc, f + rgb.f_off, rgb.n_pad, rgbl, valid);
+      epi_rgb<false>(acc, fl, sd, rgbl, valid);
   }
+  f_done(fst);
   rows_sync<H>();
 }
 
 // The producer's side: every k-slice of one layer, column pass by pass
 // (each pass's block of the pack at w_off + k_pad * c0), in order, `kq`
-// deep.
+// deep; on a cluster's ring half of each slice into both blocks (as
+// nerf_wgmlp.cuh's produce_pass).
 __device__ __forceinline__ void produce_q_layer(const WRing& r, RingPos& p, const int8_t* w,
-                                                const QDense& L, int kq) {
+                                                const QDense& L, int kq, FStage& fst,
+                                                const float* f) {
   for (int q = 0; q < n_passes(L.n_pad); ++q) {
+    if (fst.buf != nullptr) produce_f_pass(fst, f, L, q);
     const int np = pass_width(L.n_pad, q);
     const int8_t* src = w + L.w_off + static_cast<size_t>(L.k_pad) * q * kPassCols;
     for (int k0 = 0; k0 < L.k_pad; k0 += kq) {
       const uint32_t bytes = static_cast<uint32_t>(np * min(kq, L.k_pad - k0));
-      mbar_wait(&r.empty[p.st], p.ph ^ 1u);
+      unsigned char* dst = r.buf + static_cast<size_t>(p.st) * r.stage_bytes;
+      const int8_t* from = src + static_cast<size_t>(k0) * np;
+      mbar_wait(&r.empty[p.st], p.ph ^ 1u);  // on a cluster: both blocks' consumers released it
       mbar_expect_tx(&r.full[p.st], bytes);
-      bulk_g2s(r.buf + static_cast<size_t>(p.st) * r.stage_bytes,
-               src + static_cast<size_t>(k0) * np, bytes, &r.full[p.st]);
+      if (r.peer < 0) {
+        bulk_g2s(dst, from, bytes, &r.full[p.st]);
+      } else {  // bytes: a multiple of 256 (np a multiple of 8, 32 k at least)
+        const uint32_t half = bytes / 2, off = r.peer ? 0u : half;
+        bulk_g2s_multicast(dst + off, from + off, half, &r.full[p.st], 0x3);
+      }
       p.next(r.stages);
     }
   }
+}
+
+// A phantom tile's share of a cluster's ring: every stage of every layer
+// waited for and released, so both producers go on filling both blocks.
+__device__ __forceinline__ void drain_q_tile(const QDims& m, const WRing& r, RingPos& c, int kq,
+                                             FStage& fst) {
+  for (int i = 0; i < m.num_layers + 3; ++i)
+    for (int q = 0; q < n_passes(m.dense[i].n_pad); ++q) {
+      for (int k0 = 0; k0 < m.dense[i].k_pad; k0 += kq) {
+        mbar_wait(&r.full[c.st], c.ph);
+        ring_release(r, c.st);
+        c.next(r.stages);
+      }
+      if (fst.buf != nullptr) {  // the pass's staged rows, unread
+        int sd;
+        f_rows(fst, nullptr, m.dense[i], 0, sd);
+        f_done(fst);
+      }
+    }
 }
 
 // The warp's 16 rows of quantized position features (zero beyond xyz_dim,
@@ -636,9 +724,10 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       mbar_expect_tx(fbar, static_cast<uint32_t>(m.f_bytes));
       bulk_g2s(f, p.f, static_cast<uint32_t>(m.f_bytes), fbar);
       RingPos rp;
+      FStage fst;
       for (int tile = 0; tile < ntiles; ++tile)
         for (int i = 0; i < m.num_layers + 3; ++i)
-          produce_q_layer(ring, rp, p.w, m.dense[i], q_ks(H));
+          produce_q_layer(ring, rp, p.w, m.dense[i], q_ks(H), fst, p.f);
     }
     return;
   }
@@ -659,6 +748,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   int8_t* wxq = xq + wrow * m.xyz_pad;
   const int dw = m.dir_pad >> 2;
   RingPos rp;
+  FStage fst;
   for (int tile = 0; tile < ntiles; ++tile) {
     const int q0 = tile * kRows + wrow;  // block sample of the warp's row 0
     const int valid = min(16, P - q0);   // may be <= 0 on the last tile
@@ -666,7 +756,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     auto dir4 = [&](int row, int c) -> uint32_t {
       return reinterpret_cast<const uint32_t*>(dq)[((q0 + row) / S) * dw + c];
     };
-    qmlp_forward_wg<H>(m, f, wact, wxq, dir4, sig + q0, rgbl + q0 * 3, valid, ring, rp);
+    qmlp_forward_wg<H>(m, f, wact, wxq, dir4, sig + q0, rgbl + q0 * 3, valid, ring, rp, fst);
   }
   consumer_sync(kWgConsumers);
 
@@ -720,24 +810,36 @@ __device__ __forceinline__ void encode_rows_split(const QDims& m, const float* r
   }
 }
 
-// K4 at hidden 512 and 1024 on a persistent grid: block b takes the groups
-// of R rays b, b + gridDim.x, ... (wg_rays_per_block), so it brings the f32
-// rows (58,944 B at 8x512) and initialises its barriers once, and its
-// producer streams the next group's weights while the consumers composite
-// the last.  Per group: the rays and their direction features, a barrier
-// of the consumers, the tiles, another barrier, the compositing.  The
-// encode is shared by both warpgroups (encode_rows_split).  At 1024 the
-// layers run in column passes of 512 (nerf_wgmlp.cuh: n_passes), the
-// first pass's bytes parked in shared memory (64 x 512 B) until the second
-// pass's products are done, and the f32 rows (116,928 B at 8x1024: they
-// and an activation tile of 64 x 1,104 B leave no room for stages) are
-// read through L1 from global memory.
+// K4 at hidden 512 and 1024 on a persistent grid of clusters of two blocks
+// (nerf_wgmlp.cuh, "Clusters"): block b takes the groups of R rays b, b +
+// gridDim.x, ... (wg_rays_per_block), so it brings the f32 rows (58,944 B
+// at 8x512) and initialises its barriers once, and its producer streams the
+// next group's weights while the consumers composite the last.  Each block
+// keeps its own 64-row tile, ring and memory plan; each producer brings half
+// of every weight stage into both blocks' rings (TMA multicast), so a staged
+// byte read from L2 feeds 128 rows (the whole int8 pack, 9.07 MB at 8x1024,
+// was read from L2 for every 64-row tile).  So both blocks consume the same
+// stages: each walks as many groups as its cluster's first block, and each
+// step as many tiles as the first block's group (the other's group is
+// shorter only at the batch's last group, or past it: a phantom group); the
+// tiles it lacks it drains (drain_q_tile).  Per group: the rays and their
+// direction features, a barrier of the consumers, the tiles, another
+// barrier, the compositing.  The encode is shared by both warpgroups
+// (encode_rows_split).  At 1024 the layers run in column passes of 512
+// (nerf_wgmlp.cuh: n_passes), the first pass's bytes parked in shared memory
+// (64 x 512 B) until the second pass's products are done, and the f32 rows
+// (116,928 B at 8x1024: they and an activation tile of 64 x 1,104 B leave no
+// room for stages) stay in global memory: the producer copies each pass's
+// rows into one of two slots of shared memory (FStage) before its stages.
+// Read through L1 from global memory instead, K4 took 103 ms at 16,384 x
+// 192 on an H100 against 91 staged (PERF.md).
 template <int H>
 __global__ void __launch_bounds__(kWgThreads, 1)
     quant_render_wide_kernel(const __grid_constant__ Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
   using T = WgTile<H>;
-  constexpr bool kFGlobal = T::kParked;  // the f32 rows read from global memory
+  static_assert(T::kSplit, "clusters of the split tile");
+  constexpr bool kFGlobal = T::kParked;  // the f32 rows staged from global memory (FStage)
   constexpr int kRows = T::kRows;
   const QDims& m = p.m;
   const int tid = threadIdx.x;
@@ -747,6 +849,12 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   const int R = p.R;
   const int S = p.S;
   const int groups = (p.B + R - 1) / R;
+  const int steps = walk_steps<H>(groups);
+  const int first = blockIdx.x & ~(kCluster - 1);  // the cluster's first block
+  // Tiles of group g (none past the last group).
+  auto group_tiles = [&](int g) {
+    return g < groups ? (min(R, p.B - g * R) * S + kRows - 1) / kRows : 0;
+  };
 
   WRing ring;
   ring.full = reinterpret_cast<uint64_t*>(smem);
@@ -763,16 +871,28 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   float* ray = reinterpret_cast<float*>(dq + round_up(R * m.dir_pad, 16));  // (R, 8): o, d
   float* sig = ray + R * 8;   // (R*S)
   float* rgbl = sig + R * S;  // (R*S, 3)
+  FStage fst;  // hidden 1024: after the predictions, 16-byte aligned
+  if (T::kParked) {
+    const int used = static_cast<int>(reinterpret_cast<unsigned char*>(rgbl + R * S * 3) - smem);
+    fst.buf = reinterpret_cast<float*>(smem + round_up(used, 16));
+    fst.full = fbar + 1;
+    fst.empty = fbar + 3;
+  }
   const float* f = kFGlobal ? p.f : fs;
   const float* inv_x = f + m.x_off;
   const float* inv_d = f + m.d_off;
 
+  ring_peer<H>(ring);
   if (tid == 0) {
     ring_init(ring);
     mbar_init(fbar, 1);
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(fbar + 1 + i, 1);
+      mbar_init(fbar + 3 + i, kConsumerWarps);
+    }
     fence_mbar_init();
   }
-  __syncthreads();
+  block_sync<H>();  // the peer's barriers are set before its copies land here
 
   if (warp >= kConsumerWarps) {  // the producer warpgroup: one thread issues
     reg_dealloc<kProducerRegs>();
@@ -782,13 +902,14 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         bulk_g2s(fs, p.f, static_cast<uint32_t>(m.f_bytes), fbar);
       }
       RingPos rp;
-      for (int g = blockIdx.x; g < groups; g += gridDim.x) {
-        const int ntiles = (min(R, p.B - g * R) * S + kRows - 1) / kRows;
+      for (int k = 0; k < steps; ++k) {
+        const int ntiles = group_tiles(first + k * gridDim.x);
         for (int tile = 0; tile < ntiles; ++tile)
           for (int i = 0; i < m.num_layers + 3; ++i)
-            produce_q_layer(ring, rp, p.w, m.dense[i], q_ks(H));
+            produce_q_layer(ring, rp, p.w, m.dense[i], q_ks(H), fst, p.f);
       }
     }
+    block_exit<H>();
     return;
   }
   reg_alloc<kConsumerRegs>();
@@ -800,45 +921,54 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   int8_t* wpark = T::kParked ? park + wrow * kPassCols : nullptr;
   const int dw = m.dir_pad >> 2;
   RingPos rp;
-  for (int g = blockIdx.x; g < groups; g += gridDim.x) {
-    const int r0 = g * R;
-    const int nrays = min(R, p.B - r0);
-    const int P = nrays * S;
-    const size_t s0 = (size_t)r0 * S;  // first sample of the group
-    const int ntiles = (P + kRows - 1) / kRows;
-    // The group's rays and their direction features, quantized once per
-    // ray (inv_d is zero beyond dir_dim); the last group's compositing
-    // reads neither.
-    for (int i = tid; i < R * 3; i += kWgConsumers) {
-      const int r = i / 3, c = i - r * 3;
-      const bool ok = r < nrays;
-      ray[r * 8 + c] = ok ? p.origins[(size_t)(r0 + r) * 3 + c] : 0.f;
-      ray[r * 8 + 4 + c] = ok ? p.dirs[(size_t)(r0 + r) * 3 + c] : 0.f;
-    }
-    for (int i = tid; i < R * m.dir_pad; i += kWgConsumers) {
-      const int r = i / m.dir_pad, c = i - r * m.dir_pad;
-      float d3[3] = {0.f, 0.f, 0.f};
-      if (r < nrays)
+  for (int k = 0; k < steps; ++k) {
+    const int g = blockIdx.x + k * gridDim.x;
+    const int ntiles = group_tiles(g), cluster_tiles = group_tiles(first + k * gridDim.x);
+    if (ntiles > 0) {
+      const int r0 = g * R;
+      const int nrays = min(R, p.B - r0);
+      const int P = nrays * S;
+      const size_t s0 = (size_t)r0 * S;  // first sample of the group
+      // The group's rays and their direction features, quantized once per
+      // ray (inv_d is zero beyond dir_dim); the last group's compositing
+      // reads neither.
+      for (int i = tid; i < R * 3; i += kWgConsumers) {
+        const int r = i / 3, c = i - r * 3;
+        const bool ok = r < nrays;
+        ray[r * 8 + c] = ok ? p.origins[(size_t)(r0 + r) * 3 + c] : 0.f;
+        ray[r * 8 + 4 + c] = ok ? p.dirs[(size_t)(r0 + r) * 3 + c] : 0.f;
+      }
+      for (int i = tid; i < R * m.dir_pad; i += kWgConsumers) {
+        const int r = i / m.dir_pad, c = i - r * m.dir_pad;
+        float d3[3] = {0.f, 0.f, 0.f};
+        if (r < nrays)
 #pragma unroll
-        for (int j = 0; j < 3; ++j) d3[j] = p.dirs[(size_t)(r0 + r) * 3 + j];
-      dq[i] = static_cast<int8_t>(requant<false>(encode_feature(d3, c, m.dir_dim), inv_d[c]));
+          for (int j = 0; j < 3; ++j) d3[j] = p.dirs[(size_t)(r0 + r) * 3 + j];
+        dq[i] = static_cast<int8_t>(requant<false>(encode_feature(d3, c, m.dir_dim), inv_d[c]));
+      }
+      consumer_sync(kWgConsumers);  // the last group's compositing is done too
+      for (int tile = 0; tile < ntiles; ++tile) {
+        const int q0 = tile * kRows + wrow;  // group sample of the warp's row 0
+        const int valid = min(16, P - q0);   // may be <= 0 on the last tile
+        encode_rows_split(m, ray, p.t_vals + s0, S, q0, valid, inv_x, wact, wxq);
+        split_sync<H>();
+        auto dir4 = [&](int row, int c) -> uint32_t {
+          return reinterpret_cast<const uint32_t*>(dq)[((q0 + row) / S) * dw + c];
+        };
+        qmlp_forward_wg<H>(m, f, wact, wxq, dir4, sig + q0, rgbl + q0 * 3, valid, ring, rp,
+                           fst, wpark);
+      }
     }
-    consumer_sync(kWgConsumers);  // the last group's compositing is done too
-    for (int tile = 0; tile < ntiles; ++tile) {
-      const int q0 = tile * kRows + wrow;  // group sample of the warp's row 0
-      const int valid = min(16, P - q0);   // may be <= 0 on the last tile
-      encode_rows_split(m, ray, p.t_vals + s0, S, q0, valid, inv_x, wact, wxq);
-      split_sync<H>();
-      auto dir4 = [&](int row, int c) -> uint32_t {
-        return reinterpret_cast<const uint32_t*>(dq)[((q0 + row) / S) * dw + c];
-      };
-      qmlp_forward_wg<H>(m, f, wact, wxq, dir4, sig + q0, rgbl + q0 * 3, valid, ring, rp,
-                         wpark);
+    for (int tile = ntiles; tile < cluster_tiles; ++tile)
+      drain_q_tile(m, ring, rp, q_ks(H), fst);
+    if (ntiles > 0) {
+      consumer_sync(kWgConsumers);
+      const size_t s0 = (size_t)g * R * S;
+      composite_rays(p.t_vals + s0, sig, rgbl, min(R, p.B - g * R), S, p.w_out + s0,
+                     p.rgb_out + (size_t)g * R * 3);
     }
-    consumer_sync(kWgConsumers);
-    composite_rays(p.t_vals + s0, sig, rgbl, nrays, S, p.w_out + s0,
-                   p.rgb_out + (size_t)r0 * 3);
   }
+  block_exit<H>();
 }
 
 // The hidden widths K4 is instantiated for.
@@ -902,7 +1032,8 @@ bool qdims_init(QDims& m, const int* desc, int n_dense, int num_layers, int skip
 // branch, rgb; `x_off` and `d_off` locate the inv_x and inv_d rows (padded
 // to 32 with zeros) at the end of the f32 pack.  hidden is 32, 64, 128,
 // 256, 512 or 1024.  A block per group of rays (wg_rays_per_block); above
-// 256 at most one block an SM, each striding over the groups.  Launches on
+// 256 clusters of two blocks, at most one block an SM, each striding over
+// the groups (cudaErrorInvalidClusterSize when not one cluster fits).  Launches on
 // `stream` and returns cudaGetLastError() (0 on success); does not
 // synchronise and allocates nothing.
 extern "C" int nkt_quant_render_fwd(const void* origins, const void* dirs, const void* t_vals,
@@ -936,7 +1067,8 @@ extern "C" int nkt_quant_render_fwd(const void* origins, const void* dirs, const
   const size_t rest = kQBarBytes + (parked ? (size_t)rows * kPassCols : (size_t)p.m.f_bytes) +
                       (size_t)rows * p.m.ldx + (size_t)rows * p.m.xyz_pad +
                       (size_t)round_up(p.R * p.m.dir_pad, 16) +
-                      sizeof(float) * ((size_t)p.R * 8 + (size_t)p.R * S * 4);
+                      sizeof(float) * ((size_t)p.R * 8 + (size_t)p.R * S * 4) +
+                      (parked ? 16 + sizeof(float) * 2 * 3 * kFStageCols : 0);
   if (rest + 2 * (size_t)p.stage_bytes > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
   const size_t fit = ((size_t)kMaxSmem - rest) / p.stage_bytes;
   p.stages = fit < (size_t)kMaxStages ? (int)fit : kMaxStages;
@@ -949,14 +1081,24 @@ extern "C" int nkt_quant_render_fwd(const void* origins, const void* dirs, const
                                                  : quant_render_wide_kernel<1024>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  // A block per group of R rays; above 256 no more blocks than SMs.
-  int grid = (B + p.R - 1) / p.R;
+  // A block per group of R rays; above 256 clusters of two blocks, no more
+  // blocks than SMs nor than the clusters the card holds at once (none:
+  // cudaErrorInvalidClusterSize).
+  const int groups = (B + p.R - 1) / p.R;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (hidden > kSplitAbove) {
-    int sms = 0;
+    int sms = 0, max_clusters = 0;
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
     if (err != cudaSuccess) return (int)err;
-    if (sms < grid) grid = sms;
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+    err = cluster_config(cfg, attr, kernel, sms, smem, st, &max_clusters);
+    if (err != cudaSuccess) return (int)err;
+    const int grid = split_grid(sms, groups, max_clusters);
+    if (grid < kCluster) return (int)cudaErrorInvalidClusterSize;
+    err = launch_clusters(kernel, grid, smem, st, p);
+    return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
   }
-  kernel<<<grid, kWgThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  kernel<<<groups, kWgThreads, smem, st>>>(p);
   return (int)cudaGetLastError();
 }

@@ -25,10 +25,10 @@ printed beside its time):
   ``wgmma`` groups, the first half's epilogue while the second half's
   products run), ``prof`` (clock64 counters: the share of the consumer
   warps' cycles in each phase);
-* at hidden 512, on the persistent K4 (``quant_render_wide_kernel``):
+* at hidden 512 and 1024, on the persistent K4 (``quant_render_wide_kernel``,
+  clusters of two blocks that share each weight stage):
   ``nopipe`` (each stage's products waited on before the next stage's
-  issue), ``oneray`` (a block per group of rays, as before the persistent
-  grid), ``enc1`` (the encode by warpgroup 0 alone, the other waiting),
+  issue), ``enc1`` (the encode by warpgroup 0 alone, the other waiting),
   ``dequant_split`` (float(acc) above 2^22 as two magic-number halves,
   exact for |acc| < 2^24, in place of cvt.rn.f32.s32), ``ks32`` (32-deep
   weight stages: 7 in the ring instead of 3), ``fglobal`` (the f32 rows
@@ -41,11 +41,13 @@ printed beside its time):
 a tree twice to interleave), and prints one JSON line per tree: K4 at the
 server's chunk (B=16384, S=64 and 192) and at B=4096, S=192 on calibrated
 int8 tables of random weights (``chip_smoke``'s), CUDA events, median of
-20, with the errors against the plain version, and for ``prof`` the phase
-shares.  With ``--hidden 512``: K4 on an 8x512 model's tables at B=16384
-and 4096, S=192 and at B=100, S=100 (median of 5), with a digest of its
-outputs (the same bits across trees), its weight bytes from L2 a launch
-(the int8 pack once a 64-row tile) and the rate that gives.
+20, with the errors against the plain version (over chunks of 4,096
+rays), and for ``prof`` the phase shares.  With ``--hidden 512`` or
+``1024``: K4 on an 8x512 or 8x1024 model's tables at B=16384 and 4096,
+S=192 and at B=100, S=100 (median of 5), with a digest of its outputs (the
+same bits across trees), its weight bytes from L2 a launch (the int8 pack
+once a 64-row tile, or once for the two tiles of a cluster where the tree
+runs clusters) and the rate that gives.
 """
 
 from __future__ import annotations
@@ -89,9 +91,12 @@ _BARE = _NOENC + [
     ("  composite_rays(p.t_vals + s0,", "  if (S < 0) composite_rays(p.t_vals + s0,"),
 ]
 _NOCOPY = [('''      mbar_expect_tx(&r.full[p.st], bytes);
-      bulk_g2s(r.buf + static_cast<size_t>(p.st) * r.stage_bytes,
-               src + static_cast<size_t>(k0) * np, bytes, &r.full[p.st]);''',
-            "      (void)bytes;\n      mbar_arrive(&r.full[p.st]);")]
+      if (r.peer < 0) {
+        bulk_g2s(dst, from, bytes, &r.full[p.st]);
+      } else {  // bytes: a multiple of 256 (np a multiple of 8, 32 k at least)
+        const uint32_t half = bytes / 2, off = r.peer ? 0u : half;
+        bulk_g2s_multicast(dst + off, from + off, half, &r.full[p.st], 0x3);
+      }''', "      (void)bytes;\n      (void)dst;\n      (void)from;\n      mbar_arrive(&r.full[p.st]);")]
 _LOOP = '''  for (int k0 = 0; k0 < k_pad; k0 += KQ) {
     const int steps = min(KQ, k_pad - k0) >> 5;  // block-uniform
     uint32_t a[kSteps][4];
@@ -213,14 +218,11 @@ _SPLIT = [
      "    if constexpr (!T::kSplit) {\n"
      "      q_layer_split<H>(acc, act, ldx, Ly, f, ring, rp);\n"
      "    } else q_layer_passes<H, H>(acc, act, ldx, Ly.k_pad, ring, rp, park,"),
-    ("  q_layer_product<H, H / 2>(acc, act, ldx, m.dense[L + 1].k_pad, ring, rp);\n"
-     "  layer_relu_q<H, H / 2>(acc, f + m.dense[L + 1].f_off, m.dense[L + 1], act, ldx);",
-     "  if constexpr (T::kSplit) {\n"
-     "    q_layer_product<H, H / 2>(acc, act, ldx, m.dense[L + 1].k_pad, ring, rp);\n"
-     "    layer_relu_q<H, H / 2>(acc, f + m.dense[L + 1].f_off, m.dense[L + 1], act, ldx);\n"
-     "  } else {\n"
+    ("  q_layer_product<H, H / 2>(acc, act, ldx, m.dense[L + 1].k_pad, ring, rp);\n  {\n",
+     "  if constexpr (!T::kSplit) {\n"
      "    q_layer_split<H / 2>(acc, act, ldx, m.dense[L + 1], f, ring, rp);\n"
-     "  }"),
+     "  } else {\n"
+     "  q_layer_product<H, H / 2>(acc, act, ldx, m.dense[L + 1].k_pad, ring, rp);\n"),
 ]
 # clock64 counters per consumer warp, summed over the grid (PHASES order).
 PHASES = ["wait_full", "mma", "epilogue_trunk", "encode", "all", "final_sync", "composite"]
@@ -244,11 +246,9 @@ __shared__ long long g_sprof[8][8];
     ("    wg_wait<0>();\n    acc_fence<N / 2>(acc);\n    __syncwarp();",
      "    wg_wait<0>();\n    acc_fence<N / 2>(acc);\n    PROF_ADD(1, clock64() - c0);\n"
      "    __syncwarp();"),
-    ("                           layer_relu_q<H, decltype(w)::value>(a, f + Ly.f_off + c0, Ly, dst,\n"
-     "                                                               ld);",
+    ("                           layer_relu_q<H, decltype(w)::value>(a, fl, sd, Ly, dst, ld);",
      "                           long long e0 = clock64();\n"
-     "                           layer_relu_q<H, decltype(w)::value>(a, f + Ly.f_off + c0, Ly, dst,\n"
-     "                                                               ld);\n"
+     "                           layer_relu_q<H, decltype(w)::value>(a, fl, sd, Ly, dst, ld);\n"
      "                           PROF_ADD(2, clock64() - e0);"),
     ("    encode_rows(m, ray, p.t_vals + s0, S, q0, valid, inv_x, wact, wxq);\n    auto dir4",
      "    long long n0 = clock64();\n"
@@ -269,13 +269,12 @@ __shared__ long long g_sprof[8][8];
 
 _NOPIPE = [("    q_product_pipe<P::width, KQ>(acc, act, ldx, k_pad, r, c, N, n0);",
             "    q_product<P::width, KQ>(acc, act, ldx, k_pad, r, c, N, n0);")]
-_ONERAY = [("    if (sms < grid) grid = sms;\n", "")]
 _ENC1 = [("      encode_rows_split(m, ray, p.t_vals + s0, S, q0, valid, inv_x, wact, wxq);",
           "      if (col_part<H>() == 0)\n"
           "        encode_rows(m, ray, p.t_vals + s0, S, q0, valid, inv_x, wact, wxq);")]
 _KS32 = [("constexpr int kQKsSplit = 64;", "constexpr int kQKsSplit = 32;")]
 _FGLOBAL = [
-    ("  constexpr bool kFGlobal = T::kParked;  // the f32 rows read from global memory",
+    ("  constexpr bool kFGlobal = T::kParked;  // the f32 rows staged from global memory (FStage)",
      "  constexpr bool kFGlobal = true;  // the f32 rows read from global memory"),
     ("(parked ? (size_t)rows * kPassCols : (size_t)p.m.f_bytes)",
      "(parked ? (size_t)rows * kPassCols : hidden == 512 ? 0 : (size_t)p.m.f_bytes)")]
@@ -291,7 +290,7 @@ VARIANTS = {
     "noepi": _NOEPI, "noenc": _NOENC, "bare": _BARE, "nocopy": _NOCOPY, "pipe": _PIPE,
     "split": _SPLIT,
     "prof": _PROF,
-    "nopipe": _NOPIPE, "oneray": _ONERAY, "enc1": _ENC1, "dequant_split": _DEQUANT_SPLIT,
+    "nopipe": _NOPIPE, "enc1": _ENC1, "dequant_split": _DEQUANT_SPLIT,
     "ks32": _KS32, "fglobal": _FGLOBAL, "fglobal_ks32": _FGLOBAL + _KS32,
 }
 
@@ -362,12 +361,14 @@ for b, s in shapes:
     for x in got:
         h.update(x.cpu().numpy().tobytes())
     out[f"digest_b{b}_s{s}"] = h.hexdigest()[:16]
-    out[f"err_b{b}_s{s}"] = cs._errs(got, k4.render_rays_reference_quant(qp, ob, db, t))
+    out[f"err_b{b}_s{s}"] = cs._errs(got, cs._plain_k4(qp, ob, db, t, 4096))
     del got
     out[f"ms_b{b}_s{s}"] = cuda_ms(run, reps=20 if hidden == 256 else 5)
     if hidden != 256:
         r = 1 if s >= 640 else min(64 // math.gcd(s, 64), max(640 // s, 1))  # rays a group
-        gb = out["pack_bytes"] * -(-b // r) * -(-r * s // 64) / 1e9
+        clustered = "bulk_g2s_multicast" in open(
+            "nerf_keras_tpu_torch/csrc/quant_render_fwd.cu").read()
+        gb = out["pack_bytes"] * -(-b // r) * -(-r * s // 64) / (2 if clustered else 1) / 1e9
         out[f"l2_weight_gb_b{b}_s{s}"] = gb
         out[f"l2_weight_tb_per_s_b{b}_s{s}"] = gb / out[f"ms_b{b}_s{s}"]
     if hasattr(lib, "nkt_k4_prof"):
@@ -405,7 +406,7 @@ def main() -> None:
     p.add_argument("out")
     p.add_argument("variants", nargs="+", choices=sorted(VARIANTS))
     t = sub.add_parser("time")
-    t.add_argument("--hidden", type=int, choices=(256, 512), default=256)
+    t.add_argument("--hidden", type=int, choices=(256, 512, 1024), default=256)
     t.add_argument("trees", nargs="+")
     args = parser.parse_args()
     if args.cmd == "prepare":

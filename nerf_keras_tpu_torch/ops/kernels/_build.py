@@ -46,7 +46,7 @@ ROWS_ARGS = [
     _i32, _i32, _i32,           # chunk_rays, total_b, total_out
     _vp, _vp, _vp, _vp, _i32,   # dpreds, ws_a, ws_d, db_part, grid
     _vp, _i32,                  # dw_part, nsplit
-    _vp, _i32,                  # dw_tiles (host, above 256), n_tiles
+    _vp, _i32,                  # dw_sched (device, above 256), dw_blocks
     _vp, _vp, _vp, _vp,         # dw_out, db_out, dx_out, dd_out (K5)
     _vp,                        # glob (hidden 1024)
     _i32, _vp,                  # device, stream

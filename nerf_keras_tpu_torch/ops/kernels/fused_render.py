@@ -58,6 +58,7 @@ encodings never get one.
 from __future__ import annotations
 
 import functools
+import heapq
 from types import SimpleNamespace
 from typing import NamedTuple
 
@@ -508,41 +509,80 @@ def chunk_plan(b: int, s: int, bytes_per_sample: int,
     return [(r, min(rays, b - r)) for r in range(0, b, rays)]
 
 
-# The split tile's dW product (csrc/nerf_dw.cuh: mlp_dw_window_kernel):
-# tiles of up to 128 rows of a layer's dW by a window of DW_WIN_N of its D
-# columns.
-DW_WIN_N = 264
+# The split tile's dW product (csrc/nerf_dw.cuh: mlp_dw_window_kernel): a
+# persistent walk over units of up to 128 rows of a layer's dW by up to
+# DW_UNIT_N of its D columns and a sample range, computed in parts of
+# DW_PART_N columns (the kernel's kDwPartN).  The sample ranges are those of
+# the window tiles of DW_WIN_N columns that came before the walk
+# (:func:`dw_tile_count`), so each element's sums stay theirs.
+DW_UNIT_N, DW_PART_N, DW_WIN_N = 256, 128, 264
 
 
-def dw_windows(d_width: int) -> list[tuple[int, int, int]]:
-    """``[(n0, c_lo, c_hi)]``: the D windows of a layer of ``d_width``
-    output columns (DW_WIN_N wide from column n0; the window writes its
-    columns [c_lo, c_hi)), which cover [0, d_width) once: one window up to
-    DW_WIN_N, else ceil(d_width / DW_WIN_N) parts of equal width rounded up
-    to 8 (the last takes the rest), each part in the window that starts at
-    it or, for the last, ends at d_width (at 512: windows at 0 and 248,
-    whose columns 248..255 the first one writes; at 1024 at 0, 256, 512
-    and 760)."""
-    if d_width % 8:
-        raise ValueError(f"no dW windows for d_width {d_width}")
-    if d_width <= DW_WIN_N:
-        return [(0, 0, d_width)]
-    parts = -(-d_width // DW_WIN_N)
-    width = -(-d_width // parts // 8) * 8
-    wins = []
-    for s in range(0, d_width, width):
-        n0 = min(s, d_width - DW_WIN_N)
-        wins.append((n0, s - n0, min(s + width, d_width) - n0))
-    return wins
+def dw_tile_count(layout: np.ndarray) -> int:
+    """The window tiles of DW_WIN_N D columns by 128 rows that the split
+    tile's dW product took before its walk (75 at 8x512, 286 at 8x1024):
+    :func:`dw_splits` cuts the samples by their count."""
+    return sum(-(-int(a_w) // 128) * -(-int(d_w) // DW_WIN_N) for _, a_w, _, d_w, _ in layout)
 
 
-def dw_tiles(layout: np.ndarray) -> np.ndarray:
-    """The split tile's dW blocks of one sample range: (tiles, 5) int32
-    rows ``layer, m0, n0, c_lo, c_hi`` from :func:`workspace_layout`, every
-    (layer, 128-row tile, window) once, layer by layer."""
-    tiles = [(li, m0, *win) for li, (_, a_w, _, d_w, _) in enumerate(layout.tolist())
-             for win in dw_windows(d_w) for m0 in range(0, a_w, 128)]
-    return np.ascontiguousarray(np.array(tiles, dtype=np.int32).reshape(-1, 5))
+def dw_units(layout: np.ndarray, nsplit: int) -> np.ndarray:
+    """The split tile's dW work: (units, 5) int32 rows ``layer, m0, n0,
+    c_hi, y``, columns n0 .. n0 + c_hi of rows m0 .. m0 + 128 of a layer's
+    dW over sample range y; every (range, layer, 128-row tile) with its
+    columns cut from column 0 into runs of DW_UNIT_N (the last the rest),
+    range by range, layer by layer."""
+    units = [(li, m0, n0, min(DW_UNIT_N, d_w - n0), y) for y in range(nsplit)
+             for li, (_, a_w, _, d_w, _) in enumerate(layout.tolist())
+             for m0 in range(0, a_w, 128) for n0 in range(0, d_w, DW_UNIT_N)]
+    return np.ascontiguousarray(np.array(units, dtype=np.int32).reshape(-1, 5))
+
+
+def dw_schedule(units: np.ndarray, sms: int) -> list[list[tuple]]:
+    """Each block's units, in order, on a persistent grid of at most ``sms``
+    blocks.  A unit costs its parts of DW_PART_N columns, and the blocks'
+    parts differ by at most one (block b gets floor(parts / blocks), one
+    more for the first parts % blocks): the widest units first, each to the
+    block with the most parts left to take (so in the first rounds block b
+    takes the b-th unit of each round and the blocks stream the same stages
+    at the same time), a unit wider than what its block has left cut
+    between two parts, the rest to the next block."""
+    cost = lambda u: -(-u[3] // DW_PART_N)  # noqa: E731
+    queue = sorted(map(tuple, units.tolist()), key=lambda u: -cost(u))
+    total = sum(map(cost, queue))
+    blocks = max(1, min(sms, total))
+    lists = [[] for _ in range(blocks)]
+    heap = [(-(total // blocks + (b < total % blocks)), b) for b in range(blocks)]
+    i = 0
+    while i < len(queue):
+        li, m0, n0, c_hi, y = queue[i]
+        room, b = heapq.heappop(heap)
+        cols = -room * DW_PART_N
+        if c_hi <= cols:
+            lists[b].append(queue[i])
+            i += 1
+        else:  # the first parts here, the rest to the next block
+            lists[b].append((li, m0, n0, cols, y))
+            queue[i] = (li, m0, n0 + cols, c_hi - cols, y)
+        heapq.heappush(heap, (room + cost(lists[b][-1]), b))
+    return lists
+
+
+def dw_schedule_array(lists: list[list[tuple]]) -> np.ndarray:
+    """:func:`dw_schedule` as the kernel reads it (csrc/nerf_dw.cuh:
+    DwWinPlan.sched): the blocks' first units (blocks + 1 offsets, padded to
+    a multiple of 4 ints), then each unit as ``layer | m0 << 8, n0, c_hi,
+    y``."""
+    starts = np.cumsum([0] + [len(mine) for mine in lists])
+    pad = -len(starts) % 4
+    words = [(li | m0 << 8, n0, c_hi, y) for mine in lists for li, m0, n0, c_hi, y in mine]
+    return np.concatenate([starts, np.zeros(pad, dtype=np.int64),
+                           np.array(words, dtype=np.int64).reshape(-1)]).astype(np.int32)
+
+
+@functools.lru_cache(maxsize=64)
+def _dw_sched(units: bytes, sms: int, device: torch.device) -> tuple:
+    lists = dw_schedule(np.frombuffer(units, dtype=np.int32).reshape(-1, 5), sms)
+    return torch.as_tensor(dw_schedule_array(lists), device=device), len(lists)
 
 
 def dw_splits(tiles: int, sms: int, rows: int) -> int:
@@ -614,7 +654,7 @@ class DwBuffers(NamedTuple):
     nsplit: int
     dw: torch.Tensor
     db: torch.Tensor
-    tiles: np.ndarray | None  # the split tile's dW windows (dw_tiles), else None
+    units: np.ndarray | None  # the split tile's dW units (dw_units), else None
 
     @staticmethod
     def bytes_per_sample(fwd: KernelPack, bwd: KernelPack) -> int:
@@ -627,20 +667,19 @@ class DwBuffers(NamedTuple):
         """For ``rows`` workspace rows (a multiple of 64) and ``nblk``
         rows-kernel blocks.  The dW product's blocks are 128 rows of a
         layer by its d_width (csrc/nerf_dw.cuh), or on the split tile (a
-        d_width above 272) by each of its windows (:func:`dw_tiles`, which
-        read up to DW_WIN_N x 64 elements past the last layer's D: slack);
-        its 64-row stages split into :func:`dw_splits` ranges."""
+        d_width above 272) the walk of :func:`dw_units` (whose parts read
+        up to DW_UNIT_N x 64 elements past the last layer's D: slack); its
+        64-row stages split into :func:`dw_splits` ranges."""
         layout = workspace_layout(fwd, bwd)
         a_cols, d_cols = int(layout[:, 1].sum()), int(layout[:, 3].sum())
         total_out = int((layout[:, 1] * layout[:, 3]).sum())
         total_b = fwd.b.numel()
         sms = torch.cuda.get_device_properties(device).multi_processor_count
-        tiles, slack = None, 0
-        if int(layout[:, 3].max()) > DW_MAX_N:
-            tiles = dw_tiles(layout)
-            blocks, slack = len(tiles), DW_WIN_N * 64
+        split = int(layout[:, 3].max()) > DW_MAX_N
+        if split:
+            blocks, slack = dw_tile_count(layout), DW_UNIT_N * 64
         else:
-            blocks = int(sum(-(-int(a) // 128) for a in layout[:, 1]))
+            blocks, slack = int(sum(-(-int(a) // 128) for a in layout[:, 1])), 0
         nsplit = dw_splits(blocks, sms, rows)
         f32 = dict(dtype=torch.float32, device=device)
         return cls(
@@ -652,7 +691,7 @@ class DwBuffers(NamedTuple):
             nsplit=nsplit,
             dw=torch.empty((total_out,), **f32),
             db=torch.empty((total_b,), **f32),
-            tiles=tiles,
+            units=dw_units(layout, nsplit) if split else None,
         )
 
 
@@ -896,6 +935,8 @@ def launch_rows(mode, mlp, t_vals, preds, g_rgb, g_w, l_xyz, l_dir, *,
     # of one launch (csrc/fused_render_bwd.cu: db_blk).
     ws = DwBuffers.allocate(fwd, bwd, rows, grid * (2 if split else 1), device)
     dpreds = g if k5 else torch.empty((n, 4), dtype=torch.float32, device=device)
+    sched, dw_blocks = (None, 0) if ws.units is None else _dw_sched(ws.units.tobytes(), sms,
+                                                                   device)
     stem = ROWS_LIBRARY.get(hp, "fused_render_bwd")
     rc = getattr(_build.load(stem), f"nkt_{stem}")(
         mode, _ptr(x_res), _ptr(origins), _ptr(dirs), _ptr(d_enc), _ptr(t_vals),
@@ -906,7 +947,7 @@ def launch_rows(mode, mlp, t_vals, preds, g_rgb, g_w, l_xyz, l_dir, *,
         l_xyz, l_dir, b, s, chunk_rays, ws.db.numel(), ws.dw.numel(), dpreds.data_ptr(),
         ws.ws_a.data_ptr(), ws.ws_d.data_ptr(), ws.db_part.data_ptr(), grid,
         ws.dw_part.data_ptr(), ws.nsplit,
-        None if ws.tiles is None else ws.tiles.ctypes.data, 0 if ws.tiles is None else len(ws.tiles),
+        _ptr(sched), dw_blocks,
         ws.dw.data_ptr(), ws.db.data_ptr(),
         _ptr(dx), _ptr(dd), _ptr(park_buffer(mlp, grid, True, device)), device_index(device),
         torch.cuda.current_stream(device).cuda_stream,

@@ -31,6 +31,7 @@ from nerf_keras_tpu_torch.ops.kernels import _build
 from nerf_keras_tpu_torch.ops.kernels.fused_render import (
     check_encodings,
     check_tensor,
+    cuda_error,
     device_index,
     kernel_width,
     layer_runs,
@@ -262,7 +263,7 @@ def launch_k4(qparams: QuantParams, origins, dirs, t_vals, l_xyz: int, l_dir: in
     )
     if rc != 0:
         raise RuntimeError(
-            f"K4 launch failed with CUDA error {rc} (B={b}, S={s}, hidden={hidden}, "
+            f"K4 launch failed with {cuda_error(rc)} (B={b}, S={s}, hidden={hidden}, "
             f"layers={num_layers})"
         )
     launches += 1

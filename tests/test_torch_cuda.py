@@ -1139,11 +1139,11 @@ def test_wide_k2_chunks_and_determinism(dev, monkeypatch, hidden):
 @pytest.mark.parametrize("chunk_rays", [None, 81, 40])
 def test_wide_dw_windows_match_plain_over_chunks(dev, monkeypatch, chunk_rays, hidden):
     """The split tile's dW product (csrc/nerf_dw.cuh: mlp_dw_window_kernel,
-    a block a window tile and a range of samples) at 8 x 512 and 8 x 1024
-    (four windows a trunk layer), 257 rays of
-    100 samples: in the default budget's chunks (one at 512, two at 1024),
-    and in chunks of 81 and of 40 rays (4 and 7
-    chunks, the last ragged: each tile's sample ranges shift with the
+    a persistent walk over units of 128 or 64 rows by up to 256 columns and
+    a range of samples) at 8 x 512 and 8 x 1024 (four units a trunk
+    layer's row tile), 257 rays of 100 samples: in the default budget's
+    chunks (one at 512, two at 1024), and in chunks of 81 and of 40 rays (4
+    and 7 chunks, the last ragged: each unit's sample ranges shift with the
     chunk's stages), K2 against the plain VJP per leaf within K2_TOL_REL,
     run twice the same bits, one mlp_dw_window_kernel launch a chunk and no
     mlp_dw_kernel (torch.profiler)."""
@@ -1177,11 +1177,11 @@ def test_wide_dw_windows_match_plain_over_chunks(dev, monkeypatch, chunk_rays, h
         assert _rel_l2(a, c) <= K2_TOL_REL, (name, _rel_l2(a, c))
 
 
-def k2_wide_bits(dev, b, s, seed=35):
-    """sha256 (16 hex digits) of K2's gradients at 8 x 512 (the seeded
-    model of test_wide_clusters_at_odd_and_ragged_tile_counts, rays of
-    ``_rays``) from K1's residuals, with the weights cotangent."""
-    mlp = _wide_mlp(dev, 512, seed=seed)
+def k2_wide_bits(dev, b, s, seed=35, hidden=512):
+    """sha256 (16 hex digits) of K2's gradients at 8 x ``hidden`` (the
+    seeded model of test_wide_clusters_at_odd_and_ragged_tile_counts, rays
+    of ``_rays``) from K1's residuals, with the weights cotangent."""
+    mlp = _wide_mlp(dev, hidden, seed=seed)
     o, d, t = _rays(dev, b, s, seed=11)
     gen = torch.Generator().manual_seed(12)
     g_rgb = torch.randn((b, 3), generator=gen).to(dev)
@@ -1213,6 +1213,24 @@ def test_wide_k2_bits_equal_the_first_designs(dev, b, s):
     design before them): one tile of samples, one sample range of the dW
     product (41 x 100) and several (257 x 100: 4 ranges)."""
     assert k2_wide_bits(dev, b, s) == K2_WIDE_BITS[(b, s)]
+
+
+# K2 at 8 x 1024 (sums of 64 k, csrc/nerf_wgmlp.cuh: kSumDepth) with the dW
+# product on a block a window tile and the whole chunk's samples, before the
+# persistent dW walk: k2_wide_bits(hidden=1024) on "NVIDIA H100 80GB HBM3",
+# torch 2.11.0+cu128.  The walk keeps each dW element's sums and their
+# order.
+K2_WIDE1024_BITS = {(1, 64): "327764e8413eeb09", (41, 100): "49d1f352644d6d10",
+                    (257, 100): "1e46b047228a3dd8"}
+
+
+@pytest.mark.parametrize("b,s", [(1, 64), (41, 100), (257, 100)])
+def test_wide1024_k2_bits_equal_the_window_tiles(dev, b, s):
+    """K2 at 8 x 1024 gives the bits of the dW product's window tiles before
+    the persistent walk (K2_WIDE1024_BITS): one tile of samples, one chunk
+    of 41 x 100 and two chunks of 257 x 100 (the second accumulating into
+    the slabs)."""
+    assert k2_wide_bits(dev, b, s, hidden=1024) == K2_WIDE1024_BITS[(b, s)]
 
 
 # The seeded few-sample cases of nerf_keras_tpu_torch.exp_wide_numerics
@@ -1336,11 +1354,11 @@ def _to(tree, dev):
     return tree
 
 
-def k4_wide_bits(dev, b, s):
-    """sha256 (16 hex digits) of K4's rgb and weights bytes at 8 x 512 on
-    tables calibrated on the CPU (the same on every machine) and (b, s)
-    rays."""
-    qp, o, d, t = _k4_setup(torch.device("cpu"), (8, 512, 4), b, s, seed=27)
+def k4_wide_bits(dev, b, s, hidden=512):
+    """sha256 (16 hex digits) of K4's rgb and weights bytes at 8 x
+    ``hidden`` on tables calibrated on the CPU (the same on every machine)
+    and (b, s) rays."""
+    qp, o, d, t = _k4_setup(torch.device("cpu"), (8, hidden, 4), b, s, seed=27)
     rgb, w = k4.render_rays_fused_quant(_to(qp, dev), o.to(dev), d.to(dev),
                                         t.to(dev).contiguous())
     torch.cuda.synchronize()
@@ -1367,7 +1385,23 @@ def test_wide_k4_bits_equal_the_first_designs(dev, b, s):
     assert k4_wide_bits(dev, b, s) == K4_WIDE_BITS[(b, s)]
 
 
-@pytest.mark.parametrize("kernel", ["k1", "k2", "k3", "k5", "k6"])
+# K4 at 8 x 1024 before its clusters (a block per SM at most, each striding
+# over the groups of rays and streaming every weight stage itself):
+# k4_wide_bits(hidden=1024) on "NVIDIA H100 80GB HBM3", torch 2.11.0+cu128.
+K4_WIDE1024_BITS = {(1, 192): "b1abc4aec8da3a6c", (100, 192): "f320d924ff8db961",
+                    (257, 100): "511ee1585a8d2857", (1000, 24): "3c958085ad621564"}
+
+
+@pytest.mark.parametrize("b,s", [(1, 192), (100, 192), (257, 100), (1000, 24)])
+def test_wide1024_k4_bits_equal_the_unclustered_kernels(dev, b, s):
+    """K4 at 8 x 1024 in clusters gives the bits of the kernel before them
+    (K4_WIDE1024_BITS): one ray (one group: the cluster's second block only
+    drains), 100 groups of one ray, 43 groups of six rays (odd, a ragged
+    last tile inside each ray), 125 groups of eight rays (odd)."""
+    assert k4_wide_bits(dev, b, s, hidden=1024) == K4_WIDE1024_BITS[(b, s)]
+
+
+@pytest.mark.parametrize("kernel", ["k1", "k2", "k3", "k5", "k6", "k4", "k4_1024"])
 @pytest.mark.parametrize("b,s", [(1, 64), (41, 100)])
 def test_wide_clusters_at_odd_and_ragged_tile_counts(dev, kernel, b, s):
     """At 8 x 512 the kernels run as clusters of two blocks that share each
@@ -1376,8 +1410,12 @@ def test_wide_clusters_at_odd_and_ragged_tile_counts(dev, kernel, b, s):
     blocks: the second block only drains).  41 x 100 samples are 65 tiles
     (odd, the last ragged: the rows kernel's and K5's last cluster has a
     phantom step) and seven K1 blocks of six rays (the grid rounds up to
-    eight, the last block past B; the seventh holds five rays).  Each
-    kernel against its plain version, and run twice, the same bits."""
+    eight, the last block past B; the seventh holds five rays).  K4 at 8 x
+    512 and 8 x 1024 (``k4_1024``) walks groups of rays in clusters: one
+    group of one ray (the second block drains a phantom group), and seven
+    groups of six rays (odd: the last cluster's second block drains a
+    phantom group; the seventh group holds five rays).  Each kernel against
+    its plain version, and run twice, the same bits."""
     mlp = _wide_mlp(dev, 512, seed=35)
     o, d, t = _rays(dev, b, s, seed=11)
     gen = torch.Generator().manual_seed(12)
@@ -1391,8 +1429,14 @@ def test_wide_clusters_at_odd_and_ragged_tile_counts(dev, kernel, b, s):
     g5 = (torch.randn((b * s, 4), generator=gen) * 1e-2).to(dev)
     x3 = x2.reshape(b, s, -1)
 
+    if kernel.startswith("k4"):
+        hidden = 1024 if kernel == "k4_1024" else 512
+        qp = _to(_k4_setup(torch.device("cpu"), (8, hidden, 4), b, s, seed=35)[0], dev)
+
     def run():
         with torch.no_grad():
+            if kernel.startswith("k4"):
+                return list(k4.render_rays_fused_quant(qp, o, d, t.contiguous()))
             if kernel == "k1":
                 return list(k1.render_rays_fused(mlp, o, d, t))
             if kernel == "k5":
@@ -1411,6 +1455,10 @@ def test_wide_clusters_at_odd_and_ragged_tile_counts(dev, kernel, b, s):
     assert all(torch.equal(x, y) for x, y in zip(got, again))
     assert all(bool(torch.isfinite(x).all()) for x in got)
     with torch.no_grad():
+        if kernel.startswith("k4"):
+            for a, c in zip(got, k4.render_rays_reference_quant(qp, o, d, t.contiguous())):
+                assert float((a - c).abs().max()) <= TOL_MAX
+                assert float((a - c).abs().mean()) <= TOL_MEAN
         if kernel in ("k1", "k6"):
             rgb_p, w_p = (k1.render_rays_reference(mlp, o, d, t) if kernel == "k1" else
                           k1.apply_nerf_render_reference(mlp, x3, d_enc, t))

@@ -26,15 +26,19 @@ models of the addressing:
 * ``layer_maps`` at hp 512: sigma at head column 512, the skip layer's and
   the branch's encodings at 512, the rgb input 256 wide.
 * The dW product's tiles (``csrc/nerf_dw.cuh``): on the 128-row tile a
-  layer's whole d_width, an instantiated width; on the split tile windows
-  of 264 D columns, each a contiguous run of a workspace stage, whose
-  written columns cover each layer once; the grid of ``dw_tiles`` x
-  ``dw_splits`` sample ranges (a model of it, ``_dw_grid``) covers every
-  (layer, row, column, sample stage) once, at the ``wide`` phase's chunks,
-  ragged last chunks and other SM counts, with the 128-row tile's ranges.
-* K4's persistent grid at hidden 512 (a model of the launch's grid and of
-  the kernel's walk, ``_k4_walk``): every ray once, for B below, at and
-  above the SM count.
+  layer's whole d_width, an instantiated width; on the split tile units
+  of up to 256 D columns (``dw_units``), each part of them a contiguous
+  run of a workspace stage, whose written columns cover each layer once;
+  the persistent walk of ``dw_schedule`` (a model of it, ``_dw_walk``)
+  covers every (layer, row, column, sample stage) once, at the ``wide``
+  phase's chunks, ragged last chunks and other SM counts, with the
+  window tiles' sample ranges, and gives every block the same parts of
+  128 columns to within one; the array the kernel reads.
+* K4's persistent grid of clusters at hidden 512 and 1024 (a model of the
+  launch's grid and of the kernel's walk, ``_k4_walk``): every ray once,
+  for B below, at and above the SM count, both blocks of a cluster the
+  same stages (phantom groups and the tiles a shorter group lacks
+  drained).
 * The split tile's clusters of two blocks (``nerf_wgmlp.cuh``,
   "Clusters"): the rows kernel's grid (``fused_render.cluster_grid``) and
   a model of each block's walk (``walk_steps``): every tile once, both
@@ -556,103 +560,162 @@ def _store_ws_offset(r, c, width):
 DW_WIDTHS = (16, 32, 64, 80, 128, 144, 256, 264, 272)  # nerf_dw.cuh: dw_width_ok
 
 
+def _wide_layout(hidden):
+    mlp = _mlp(hidden, num_layers=8, skip=4, l_xyz=10, l_dir=4)
+    return k1.workspace_layout(k1.pack_weights_wg(mlp, CPU), k1.pack_weights_bwd_wg(mlp, CPU))
+
+
 @pytest.mark.parametrize("hidden", [256, 512, 1024])
 def test_dw_column_tiles(hidden):
     """The dW product's tiles at 8x256, 8x512 and 8x1024: at 256
     (nerf_dw.cuh: dw_plan) one tile of each layer's d_width, an
     instantiated width, its output rows at m * d_width; above 256
-    (mlp_dw_window_kernel) the windows of ``dw_windows`` (two a trunk layer
-    at 512, four at 1024): each 264 D columns from a strip boundary, one
-    contiguous run of a 64-row workspace stage, their written columns
-    covering [0, d_width) once, no window reading past the slack that
-    ``DwBuffers`` adds after the last layer."""
-    mlp = _mlp(hidden, num_layers=8, skip=4, l_xyz=10, l_dir=4)
-    layout = k1.workspace_layout(k1.pack_weights_wg(mlp, CPU), k1.pack_weights_bwd_wg(mlp, CPU))
+    (mlp_dw_window_kernel) the columns of ``dw_units`` (runs of 256 from
+    column 0: two a trunk layer at 512, four at 1024): each unit's parts
+    (of 128 columns) from a strip boundary, one contiguous run of a
+    64-row workspace stage, their written columns covering [0, d_width)
+    once, no part reading past the slack that ``DwBuffers`` adds after the
+    last layer."""
+    layout = _wide_layout(hidden)
     split_layers = 0
     r = np.arange(64)[:, None]
+    units = k1.dw_units(layout, 1) if hidden > 256 else None
     for i, (_, a_w, d_col, d_w, _) in enumerate(layout.tolist()):
         if hidden == 256:
             assert d_w <= k1.DW_MAX_N and d_w in DW_WIDTHS
             continue
-        wins = k1.dw_windows(d_w)
-        split_layers += len(wins) > 1
-        assert len(wins) == -(-d_w // k1.DW_WIN_N)
+        mine = [u for u in units.tolist() if u[0] == i and u[1] == 0]
+        split_layers += len(mine) > 1
+        assert len(mine) == -(-d_w // k1.DW_UNIT_N)
         written = np.zeros(d_w, dtype=int)
-        for n0, lo, hi in wins:
-            assert n0 % 8 == 0 and lo % 8 == 0 and hi % 8 == 0 and 0 <= lo < hi <= k1.DW_WIN_N
-            written[n0 + lo:n0 + hi] += 1
-            # The window's columns of a stage: strips n0/8.. of it, one run
-            # of DW_WIN_N * 64 elements from (n0 / 8) * 512.
-            c = n0 + np.arange(k1.DW_WIN_N)[None, :]
-            local = _store_ws_offset(r, c - n0, k1.DW_WIN_N)
+        for _, _, n0, c_hi, _ in mine:
+            assert n0 % 8 == 0 and 0 < c_hi <= k1.DW_UNIT_N and c_hi % 8 == 0
+            written[n0:n0 + c_hi] += 1
+            width = -(-c_hi // k1.DW_PART_N) * k1.DW_PART_N  # the columns its parts compute
+            # The unit's columns of a stage: strips n0/8.. of it, one run of
+            # width * 64 elements from (n0 / 8) * 512.
+            c = n0 + np.arange(width)[None, :]
+            local = _store_ws_offset(r, c - n0, width)
             inside = c < d_w
             np.testing.assert_array_equal(
                 np.where(inside, _store_ws_offset(r, c, d_w), -1),
                 np.where(inside, (n0 // 8) * 512 + local, -1))
-            end = (n0 // 8) * 512 + k1.DW_WIN_N * 64  # elements past the stage's start
+            end = (n0 // 8) * 512 + width * 64  # elements past the stage's start
             if i == len(layout) - 1:
-                assert end - 64 * d_w <= k1.DW_WIN_N * 64
+                assert end - 64 * d_w <= k1.DW_UNIT_N * 64
         np.testing.assert_array_equal(written, 1)
-    # The trunk and the merged head (512 and 528 wide) take two windows at
-    # 8x512; at 8x1024 the branch (512 wide) too.
+    # The trunk and the merged head (512 and 528 wide) take two units at
+    # 8x512; at 8x1024 four, and the branch (512 wide) two.
     assert split_layers == {256: 0, 512: 9, 1024: 10}[hidden]
 
 
 @pytest.mark.parametrize("hidden", [320, 512, 640, 1024])
 def test_dw_tiles_cover_each_layer_once(hidden):
-    """``dw_tiles`` at 8x512 and 8x1024 (and 320 and 640, padded to them):
-    every (layer, 128-row tile, window) once, layer by layer; 75 blocks a
-    range at 512, which split the ``wide`` phase's chunk into 4 ranges on
-    132 SMs (the 128-row tile's rule, ``dw_splits``: about two waves), and
-    286 at 1024, one range of the ``wide1024`` phase's chunk (264 stages),
-    within the kernel's table (nerf_dw.cuh: kDwMaxTiles, 320)."""
-    mlp = _mlp(hidden, num_layers=8, skip=4, l_xyz=10, l_dir=4)
-    layout = k1.workspace_layout(k1.pack_weights_wg(mlp, CPU), k1.pack_weights_bwd_wg(mlp, CPU))
-    tiles = k1.dw_tiles(layout)
-    want = [(li, m0, *w) for li, (_, a_w, _, d_w, _) in enumerate(layout.tolist())
-            for m0 in range(0, a_w, 128) for w in k1.dw_windows(d_w)]
-    assert sorted(map(tuple, tiles.tolist())) == sorted(want) and len(tiles) == len(want)
-    assert list(tiles[:, 0]) == sorted(tiles[:, 0])
-    if hidden <= 512:
-        assert len(tiles) == 75 and k1.dw_splits(len(tiles), 132, 528 * 64) == 4
-    else:
-        assert len(tiles) == 286 <= 320 and k1.dw_splits(len(tiles), 132, 264 * 64) == 1
+    """``dw_units`` at 8x512 and 8x1024 (and 320 and 640, padded to them):
+    every (sample range, layer, 128-row tile, column) once, range by range
+    and layer by layer, each unit at most DW_UNIT_N columns.  The sample
+    ranges are the window tiles' (``dw_tile_count``: 75 at 512, which split
+    the ``wide`` phase's chunk into 4 ranges on 132 SMs, and 286 at 1024,
+    one range of the ``wide1024`` phase's chunk of 264 stages), so each
+    element's sums are theirs."""
+    layout = _wide_layout(hidden)
+    tiles = k1.dw_tile_count(layout)
+    nst = 528 if hidden <= 512 else 264
+    nsplit = k1.dw_splits(tiles, 132, nst * 64)
+    assert (tiles, nsplit) == ((75, 4) if hidden <= 512 else (286, 1))
+    units = k1.dw_units(layout, nsplit)
+    assert list(map(tuple, units[:, [4, 0]].tolist())) == sorted(map(tuple, units[:, [4, 0]].tolist()))
+    assert int(units[:, 3].max()) <= k1.DW_UNIT_N
+    for y in range(nsplit):
+        out = np.zeros(int((layout[:, 1] * layout[:, 3]).sum()), dtype=int)
+        for li, m0, n0, c_hi, _ in units[units[:, 4] == y].tolist():
+            _, a_w, _, d_w, off = layout[li].tolist()
+            m = np.arange(m0, min(m0 + 128, a_w))[:, None]
+            np.add.at(out, (off + m * d_w + np.arange(n0, n0 + c_hi)[None, :]).ravel(), 1)
+        np.testing.assert_array_equal(out, 1)
 
 
-def _dw_grid(tiles: int, nsplit: int, nst: int):
-    """csrc/nerf_dw.cuh's grid of one chunk of ``nst`` stages
-    (launch_dw_windows): block (x, y) takes tile x and the stages
-    [s0, s1) of range y."""
+def _dw_walk(lists, nsplit: int, nst: int):
+    """csrc/nerf_dw.cuh's walk of one chunk of ``nst`` stages
+    (mlp_dw_window_kernel): block b takes its units in order, each over the
+    stages [s0, s1) of its range."""
     per = -(-nst // nsplit)
-    return [(x, y, min(nst, y * per), min(nst, min(nst, y * per) + per))
-            for y in range(nsplit) for x in range(tiles)]
+    return [[(u, min(nst, u[4] * per), min(nst, min(nst, u[4] * per) + per)) for u in mine]
+            for mine in lists]
 
 
 @pytest.mark.parametrize("sms", [132, 120, 26, 2])
 @pytest.mark.parametrize("nst", [528, 144, 37, 1])
 def test_dw_grid_covers_every_product_once(nst, sms):
-    """The split tile's dW grid at 8x512 (``_dw_grid``): at the ``wide``
-    phase's first chunk (528 stages of 64 samples) and its ragged last
-    (144), and at other chunk sizes and SM counts, each tile's ranges
-    cover its stages [0, nst) once and in order, and each written dW entry
-    comes from one tile."""
-    mlp = _mlp(512, num_layers=8, skip=4, l_xyz=10, l_dir=4)
-    layout = k1.workspace_layout(k1.pack_weights_wg(mlp, CPU), k1.pack_weights_bwd_wg(mlp, CPU))
-    tiles = k1.dw_tiles(layout)
-    nsplit = k1.dw_splits(len(tiles), sms, 528 * 64)
-    grid = _dw_grid(len(tiles), nsplit, nst)
-    assert len(grid) == len(tiles) * nsplit
-    stages = np.zeros((len(tiles), nst), dtype=int)
-    for x, _, s0, s1 in grid:
-        stages[x, s0:s1] += 1
-    np.testing.assert_array_equal(stages, 1)
-    out = np.zeros(int((layout[:, 1] * layout[:, 3]).sum()), dtype=int)
-    for li, m0, n0, lo, hi in tiles.tolist():
-        _, a_w, _, d_w, off = layout[li].tolist()
-        m = np.arange(m0, min(m0 + 128, a_w))[:, None]
-        c = n0 + np.arange(lo, hi)[None, :]
-        np.add.at(out, (off + m * d_w + c).ravel(), 1)
+    """The split tile's dW walk at 8x512 (``dw_schedule``, ``_dw_walk``): at
+    the ``wide`` phase's first chunk (528 stages of 64 samples) and its
+    ragged last (144), and at other chunk sizes and SM counts, every (layer,
+    row, column) of each range's slab comes from one unit, whose stages
+    cover its range once and in order, the ranges covering [0, nst)."""
+    layout = _wide_layout(512)
+    nsplit = k1.dw_splits(k1.dw_tile_count(layout), sms, 528 * 64)
+    walk = _dw_walk(k1.dw_schedule(k1.dw_units(layout, nsplit), sms), nsplit, nst)
+    assert len(walk) <= sms
+    total = int((layout[:, 1] * layout[:, 3]).sum())
+    out = np.zeros((nsplit, total), dtype=int)
+    stages = np.zeros((nsplit, nst), dtype=int)
+    for mine in walk:
+        for (li, m0, n0, c_hi, y), s0, s1 in mine:
+            _, a_w, _, d_w, off = layout[li].tolist()
+            m = np.arange(m0, min(m0 + 128, a_w))[:, None]
+            np.add.at(out[y], (off + m * d_w + np.arange(n0, n0 + c_hi)[None, :]).ravel(), 1)
+            if (li, m0, n0) == (0, 0, 0):
+                stages[y, s0:s1] += 1
     np.testing.assert_array_equal(out, 1)
+    np.testing.assert_array_equal(stages.sum(axis=0), 1)
+
+
+@pytest.mark.parametrize("sms", [132, 131, 120, 26, 7])
+@pytest.mark.parametrize("hidden", [320, 512, 640, 1024])
+def test_dw_schedule_spreads_parts_evenly(hidden, sms):
+    """``dw_schedule`` at the 8x320, 8x512 and 8x1024 layouts (640 padded to
+    1024) and at odd SM counts: every (range, layer, row, column) of the dW
+    in exactly one block's units, at most ``sms`` blocks, each block's parts
+    of 128 columns within one of every other's (at 8x1024 on 132 SMs: 4 or
+    5 parts where the window tiles took three waves of 264 columns), the
+    widest units first, and no unit cut inside a part."""
+    layout = _wide_layout(hidden)
+    nsplit = k1.dw_splits(k1.dw_tile_count(layout), sms, (528 if hidden <= 512 else 264) * 64)
+    units = k1.dw_units(layout, nsplit)
+    lists = k1.dw_schedule(units, sms)
+    cost = lambda u: -(-u[3] // k1.DW_PART_N)  # noqa: E731
+    loads = [sum(map(cost, mine)) for mine in lists]
+    assert len(lists) == min(sms, sum(map(cost, units.tolist())))
+    assert max(loads) - min(loads) <= 1 and all(loads)
+    total = int((layout[:, 1] * layout[:, 3]).sum())
+    out = np.zeros((nsplit, total), dtype=int)
+    for mine in lists:
+        for li, m0, n0, c_hi, y in mine:
+            _, a_w, _, d_w, off = layout[li].tolist()
+            assert n0 % 8 == 0 and c_hi % 8 == 0 and 0 < c_hi <= k1.DW_UNIT_N
+            assert n0 + c_hi == d_w or c_hi % k1.DW_PART_N == 0  # cut between parts only
+            m = np.arange(m0, min(m0 + 128, a_w))[:, None]
+            np.add.at(out[y], (off + m * d_w + np.arange(n0, n0 + c_hi)[None, :]).ravel(), 1)
+    np.testing.assert_array_equal(out, 1)
+    if (hidden, sms) == (1024, 132):
+        assert sorted(set(loads)) == [4, 5] and loads.count(5) == 576 - 4 * 132
+        assert all(cost(mine[0]) == 2 for mine in lists)  # the first round: whole units
+
+
+def test_dw_schedule_array_is_what_the_kernel_reads():
+    """``dw_schedule_array`` as csrc/nerf_dw.cuh's mlp_dw_window_kernel reads
+    it: block b's units at [sched[b], sched[b + 1]) of the four-int words
+    after the blocks + 1 offsets (padded to a multiple of 4), each word
+    ``layer | m0 << 8, n0, c_hi, y``."""
+    lists = k1.dw_schedule(k1.dw_units(_wide_layout(1024), 1), 7)
+    arr = k1.dw_schedule_array(lists)
+    assert arr.dtype == np.int32
+    base = -(-(len(lists) + 1) // 4) * 4
+    words = arr[base:].reshape(-1, 4)
+    for b, mine in enumerate(lists):
+        got = words[arr[b]:arr[b + 1]].tolist()
+        assert got == [[li | m0 << 8, n0, c_hi, y] for li, m0, n0, c_hi, y in mine]
+    assert arr[len(lists)] == len(words) == sum(map(len, lists))
 
 
 def _rays_per_group(s: int, rows: int) -> int:
@@ -664,34 +727,76 @@ def _rays_per_group(s: int, rows: int) -> int:
     return r if r < cap else max(cap, 1)
 
 
-def _k4_walk(b: int, s: int, hidden: int, sms: int) -> list[list[range]]:
+def _k4_walk(b: int, s: int, hidden: int, sms: int,
+             max_clusters: int = 66) -> list[list[range]]:
     """For each of K4's blocks, the rays of its groups in order
     (csrc/quant_render_fwd.cu: nkt_quant_render_fwd launches a block per
-    group of rays, above 256 no more than ``sms``, and
-    quant_render_wide_kernel strides over the groups by the grid)."""
+    group of rays, above 256 clusters of two, no more blocks than ``sms``
+    nor than ``max_clusters`` clusters (nerf_wgmlp.cuh: split_grid), and
+    quant_render_wide_kernel strides over the groups by the grid; a step
+    past the last group is a phantom group, no rays)."""
     r = _rays_per_group(s, 64 if hidden > 256 else 128)
     groups = -(-b // r)
-    grid = min(groups, sms) if hidden > 256 else groups
-    return [[range(g * r, min(b, g * r + r)) for g in range(blk, groups, grid)]
-            for blk in range(grid)]
+    if hidden <= 256:
+        return [[range(g * r, min(b, g * r + r))] for g in range(groups)]
+    grid = min(-(-min(sms, groups) // 2) * 2, 2 * max_clusters)
+    first = lambda blk: blk & ~1  # noqa: E731
+    steps = lambda blk: -(-(groups - first(blk)) // grid) if groups > first(blk) else 0  # noqa: E731
+    return [[range(min(b, g * r), min(b, g * r + r))
+             for g in range(blk, blk + steps(blk) * grid, grid)] for blk in range(grid)]
+
+
+def _k4_tiles(rays: range, s: int) -> int:
+    """A group's 64-row tiles (quant_render_wide_kernel: group_tiles)."""
+    return -(-len(rays) * s // 64)
 
 
 @pytest.mark.parametrize("hidden", [256, 512, 1024])
 @pytest.mark.parametrize("b,s", [(1, 192), (7, 64), (131, 192), (132, 192), (133, 192),
                                  (300, 100), (16384, 192), (16385, 64)])
 def test_k4_walk_covers_every_ray_once(hidden, b, s):
-    """K4's blocks (``_k4_walk``): at hidden 512 and 1024 at most the
-    card's 132 SMs, each striding over groups of whole rays, below, at and
-    above the SM count; at 256 one group a block, as before.  Every ray
-    once, each group whole rays in order."""
+    """K4's blocks (``_k4_walk``): at hidden 512 and 1024 clusters of two,
+    at most the card's 132 SMs, each striding over groups of whole rays,
+    below, at and above the SM count; at 256 one group a block, as before.
+    Every ray once, each group whole rays in order."""
     walk = _k4_walk(b, s, hidden, 132)
     groups = -(-b // _rays_per_group(s, 64 if hidden > 256 else 128))
-    assert len(walk) == (min(groups, 132) if hidden > 256 else groups)
-    assert all(len(mine) >= 1 for mine in walk)
+    if hidden == 256:
+        assert len(walk) == groups and all(len(mine) == 1 for mine in walk)
+    else:
+        assert len(walk) == -(-min(groups, 132) // 2) * 2
     rays = [r for mine in walk for g in mine for r in g]
     assert sorted(rays) == list(range(b))
-    if hidden == 256:
-        assert all(len(mine) == 1 for mine in walk)
+
+
+@pytest.mark.parametrize("hidden", [512, 1024])
+@pytest.mark.parametrize("b,s,max_clusters", [
+    (1, 192, 66),      # one group: the second block only drains
+    (1, 64, 66),
+    (3, 192, 66),      # fewer groups than the grid, odd
+    (257, 100, 66),    # 43 groups of six rays, the last of five
+    (1000, 24, 66),    # 125 groups of eight rays
+    (16384, 192, 66),  # the server's chunk
+    (16384, 192, 63),  # fewer clusters on the card than SMs / 2
+    (16385, 64, 1),    # one cluster
+])
+def test_k4_cluster_walk_drains_what_its_peer_computes(hidden, b, s, max_clusters):
+    """The two blocks of a K4 cluster consume the same weight stages: each
+    walks its cluster's first block's steps, and each step as many tiles as
+    the first block's group (the kernel's ``group_tiles``), draining the
+    tiles its own group lacks (a phantom group past the last, or the last,
+    shorter group).  Every ray once, phantom groups included; the first
+    block's group is never shorter than its peer's."""
+    walk = _k4_walk(b, s, hidden, 132, max_clusters)
+    assert len(walk) % 2 == 0 and len(walk) <= min(132, 2 * max_clusters)
+    rays = [r for mine in walk for g in mine for r in g]
+    assert sorted(rays) == list(range(b))
+    for c in range(0, len(walk), 2):
+        first, second = walk[c], walk[c + 1]
+        assert len(first) == len(second)  # the same steps, phantom groups included
+        for g1, g2 in zip(first, second):
+            stage_tiles = _k4_tiles(g1, s)  # what both producers stream this step
+            assert stage_tiles >= _k4_tiles(g2, s) and (len(g1) > 0 or len(g2) == 0)
 
 
 JAX_WIDE = [(h, 4, 2) for h in (320, 512, 1024)]
